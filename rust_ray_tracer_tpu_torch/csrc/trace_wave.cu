@@ -15,7 +15,9 @@
 // 0) and materials branch. Memory traffic is small: 14 state floats in,
 // 15 random floats per bounce, 14 out; the scene tables (a few hundred KB)
 // stay in L1/L2 and every lane of a warp reads the same table row at the
-// same time, which is a broadcast.
+// same time, which is a broadcast. When a gradient is wanted it also
+// writes the backward's residuals, 14 floats and two ints per ray and
+// bounce (hist, kind, idx), as _make_trace_kernel does.
 //
 // What the design does about it:
 //   * one thread per ray, the bounce loop in registers — the TPU's
@@ -44,25 +46,11 @@
 // wins a tie in t), then spheres, then quads, each with strict <, so a tie
 // goes triangle > sphere > quad. A miss has kind 0 and row 0.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "trace_common.cuh"
 
 namespace {
 
-constexpr int ROW = 128;             // rays per block = one TPU ray row
-constexpr int TCC = 512;             // triangles per culled sweep chunk
-constexpr int A_COL = 11;            // uni column of the material attrs
-constexpr int LT_COLS = 14;
-constexpr float T_MIN = 1e-4f;
-constexpr float TRI_DET_EPS = 1e-5f;
-constexpr float EPS = 1e-12f;
-constexpr float PI_F = 3.14159265358979f;
-constexpr float TWO_PI_F = 6.28318530717958f;  // 2.0 * PI, rounded once
-constexpr float PDF_FLOOR = 1e-5f;
-constexpr int KIND_NONE = 0, KIND_TRI = 1, KIND_SPH = 2, KIND_QUAD = 3;
-constexpr int MAT_LAMBERTIAN = 0, MAT_METAL = 1, MAT_DIELECTRIC = 2,
-              MAT_LIGHT = 3, MAT_ISOTROPIC = 4;
-constexpr float LIGHT_SPHERE_F = 0.f, LIGHT_QUAD_F = 1.f;
+using namespace trace;
 
 struct Tables {
   const float* uni;   // [P, w] winner rows
@@ -79,146 +67,12 @@ struct Tables {
       has_checker;
 };
 
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ float jmax(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-__device__ __forceinline__ float jmin(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-__device__ __forceinline__ float dot3(V3 a, V3 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z;
-}
-__device__ __forceinline__ float safe_sqrt(float x) {
-  return sqrtf(jmax(x, EPS)) * (x > 0.f ? 1.f : 0.f);
-}
-__device__ __forceinline__ float safe_div(float a, float b) {
-  const float bs = fabsf(b) < EPS ? (b < 0.f ? -EPS : EPS) : b;
-  return a / bs;
-}
-__device__ __forceinline__ V3 normalize(V3 v) {
-  const float n2 = v.x * v.x + v.y * v.y + v.z * v.z;
-  float inv = 1.f / sqrtf(jmax(n2, EPS));
-  inv = n2 > 0.f ? inv : 0.f;
-  return {v.x * inv, v.y * inv, v.z * inv};
-}
-
-// Duff et al. branchless ONB about w (pallas_shade._onb)
-__device__ __forceinline__ void onb(V3 w_in, V3& u, V3& v, V3& w) {
-  w = normalize(w_in);
-  const float sign = w.z >= 0.f ? 1.f : -1.f;
-  const float den = sign + w.z;
-  const float a = -1.f / (den + (fabsf(den) < 1e-8f ? 1e-8f : 0.f));
-  const float b = w.x * w.y * a;
-  u = {1.f + sign * w.x * w.x * a, sign * b, -sign * w.x};
-  v = {b, sign + w.y * w.y * a, -w.y};
-}
-
-__device__ __forceinline__ V3 ball(float gx, float gy, float gz, float u) {
-  const V3 d = normalize({gx, gy, gz});
-  const float r = expf(logf(jmax(u, 1e-30f)) / 3.f);
-  return {d.x * r, d.y * r, d.z * r};
-}
-
-__device__ __forceinline__ float dot10(const float* __restrict__ c,
-                                       const float (&f)[10]) {
-  float acc = c[0] * f[0];
-#pragma unroll
-  for (int k = 1; k < 10; ++k) acc = acc + c[k] * f[k];
-  return acc;
-}
-
-// One light's sampled direction from p (pallas_shade._plane_core, the
-// per-light candidate): sphere cone sample, quad uniform point, else the
-// Hittable default (1, 0, 0).
-__device__ V3 light_sample(const float* __restrict__ l, V3 p, float ul0,
-                           float ul1) {
-  const float kf = l[0];
-  if (kf == LIGHT_SPHERE_F) {
-    const V3 c = {l[1], l[2], l[3]};
-    const float r = l[4];
-    const V3 tc = {c.x - p.x, c.y - p.y, c.z - p.z};
-    const float dist_sq = dot3(tc, tc);
-    const float cos_max = safe_sqrt(1.f - r * r / jmax(dist_sq, EPS));
-    const float zz = 1.f + ul1 * (cos_max - 1.f);
-    const float ph = TWO_PI_F * ul0;
-    const float ss = safe_sqrt(1.f - zz * zz);
-    const float sx = cosf(ph) * ss, sy = sinf(ph) * ss;
-    V3 cu, cv, cw;
-    onb(tc, cu, cv, cw);
-    return {sx * cu.x + sy * cv.x + zz * cw.x,
-            sx * cu.y + sy * cv.y + zz * cw.y,
-            sx * cu.z + sy * cv.z + zz * cw.z};
-  }
-  if (kf == LIGHT_QUAD_F) {
-    return {l[5] + ul0 * l[8] + ul1 * l[11] - p.x,
-            l[6] + ul0 * l[9] + ul1 * l[12] - p.y,
-            l[7] + ul0 * l[10] + ul1 * l[13] - p.z};
-  }
-  return {1.f, 0.f, 0.f};
-}
-
-// One light's pdf for direction sd from p (sphere solid angle, quad area).
-__device__ float light_pdf(const float* __restrict__ l, V3 p, V3 sd) {
-  const float kf = l[0];
-  if (kf == LIGHT_SPHERE_F) {
-    const V3 c = {l[1], l[2], l[3]};
-    const float r = l[4];
-    const V3 oc = {p.x - c.x, p.y - c.y, p.z - c.z};
-    const float aa = dot3(sd, sd);
-    const float bb = dot3(oc, sd);
-    const float cc = dot3(oc, oc) - r * r;
-    const float disc = bb * bb - aa * cc;
-    const float sq = safe_sqrt(disc);
-    const float aas = jmax(aa, EPS);
-    const float r1 = (-bb - sq) / aas;
-    const float r2 = (-bb + sq) / aas;
-    const bool hits = disc > 0.f && (r1 >= 1e-4f || r2 >= 1e-4f);
-    const V3 cp = {c.x - p.x, c.y - p.y, c.z - p.z};
-    const float dist_sq = dot3(cp, cp);
-    const float cos_max = safe_sqrt(1.f - r * r / jmax(dist_sq, EPS));
-    const float solid = TWO_PI_F * (1.f - cos_max);
-    return hits ? 1.f / jmax(solid, EPS) : 0.f;
-  }
-  if (kf == LIGHT_QUAD_F) {
-    const V3 q = {l[5], l[6], l[7]};
-    const V3 lu = {l[8], l[9], l[10]};
-    const V3 lv = {l[11], l[12], l[13]};
-    const V3 wn = {lu.y * lv.z - lu.z * lv.y, lu.z * lv.x - lu.x * lv.z,
-                   lu.x * lv.y - lu.y * lv.x};
-    const float n2 = wn.x * wn.x + wn.y * wn.y + wn.z * wn.z;
-    const float denom = dot3(sd, wn);
-    const float dsafe = fabsf(denom) < EPS ? (denom < 0.f ? -EPS : EPS)
-                                           : denom;
-    const V3 qp = {q.x - p.x, q.y - p.y, q.z - p.z};
-    const float tq = dot3(qp, wn) / dsafe;
-    const float wx = p.x + tq * sd.x - q.x;
-    const float wy = p.y + tq * sd.y - q.y;
-    const float wz = p.z + tq * sd.z - q.z;
-    const float inv_n2 = 1.f / jmax(n2, EPS);
-    const float al = dot3({wy * lv.z - wz * lv.y, wz * lv.x - wx * lv.z,
-                           wx * lv.y - wy * lv.x}, wn) * inv_n2;
-    const float be = dot3({lu.y * wz - lu.z * wy, lu.z * wx - lu.x * wz,
-                           lu.x * wy - lu.y * wx}, wn) * inv_n2;
-    const bool hits = tq >= 1e-3f && isfinite(tq) && al >= 0.f &&
-                      al <= 1.f && be >= 0.f && be <= 1.f;
-    const float area = safe_sqrt(n2);
-    const float dlen2 = jmax(dot3(sd, sd), EPS);
-    const float distq = tq * tq * dlen2;
-    const float cosq = fabsf(denom) / jmax(safe_sqrt(n2), EPS) /
-                       jmax(safe_sqrt(dlen2), 1e-20f);
-    return hits ? distq / jmax(cosq * area, EPS) : 0.f;
-  }
-  return 0.f;
-}
-
 __global__ void __launch_bounds__(ROW)
 trace_wave_kernel(const float* __restrict__ st0,
                   const float* __restrict__ rnd, const Tables tb,
-                  float* __restrict__ stf, int n, int depth) {
+                  float* __restrict__ stf, float* __restrict__ hist,
+                  int* __restrict__ kind_out, int* __restrict__ idx_out,
+                  int n, int depth) {
   const int i = blockIdx.x * ROW + threadIdx.x;
   const bool in = i < n;
   float s[14];
@@ -231,9 +85,33 @@ trace_wave_kernel(const float* __restrict__ st0,
         bz = s[13];
   const float* __restrict__ bg = tb.lt + tb.n_lights * LT_COLS;
 
+  // the backward's residuals (pallas_uber.py:887-916), when asked for:
+  // bounce b's input state, and its winner (kind, row), 0 on a miss
+  const bool res = hist != nullptr && in;
+  auto save_state = [&](int b) {
+    const float st[14] = {ox, oy, oz, dx, dy, dz, time, alive,
+                          Lx, Ly, Lz, bx, by, bz};
+#pragma unroll
+    for (int c = 0; c < 14; ++c) hist[((size_t)b * 14 + c) * n + i] = st[c];
+  };
+  auto save_winner = [&](int b, int k, int row) {
+    kind_out[(size_t)b * n + i] = k;
+    idx_out[(size_t)b * n + i] = row;
+  };
+
   for (int b = 0; b < depth; ++b) {
+    if (res) save_state(b);
     const bool live_in = alive > 0.5f;
-    if (!__syncthreads_or(live_in)) break;   // the whole row is dead
+    if (!__syncthreads_or(live_in)) {        // the whole row is dead:
+      if (res) {                             // the state stands still
+        save_winner(b, KIND_NONE, 0);
+        for (int bb = b + 1; bb < depth; ++bb) {
+          save_state(bb);
+          save_winner(bb, KIND_NONE, 0);
+        }
+      }
+      break;
+    }
     const float tmin = T_MIN;
     const float tmax = live_in ? INFINITY : -1.f;
 
@@ -277,7 +155,10 @@ trace_wave_kernel(const float* __restrict__ st0,
         }
       }
     }
-    if (!live_in) continue;   // a dead ray passes its state through
+    if (!live_in) {           // a dead ray passes its state through
+      if (res) save_winner(b, KIND_NONE, 0);
+      continue;
+    }
     for (int k = 0; k < tb.n_sph; ++k) {
       const float* sp = tb.sph + k * 9;
       const float frac = (time - sp[6]) * sp[7];
@@ -336,6 +217,8 @@ trace_wave_kernel(const float* __restrict__ st0,
         best_i = tb.q_off + k;
       }
     }
+
+    if (res) save_winner(b, best_k, best_k == KIND_NONE ? 0 : best_i);
 
     // ---- miss: background, the path ends -------------------------------
     if (best_k == KIND_NONE) {
@@ -545,12 +428,15 @@ trace_wave_kernel(const float* __restrict__ st0,
 // Launch on ``stream``; returns cudaGetLastError() (0 = launched).
 // st0 [14, n] and stf [14, n] are structure-of-arrays float32 planes,
 // rnd [depth, 15, n]; n is a multiple of 128 (each chunk is padded to 1024
-// rays). The tables are those of ops/uber.py:make_ctx.
+// rays). The tables are those of ops/uber.py:make_ctx. hist [depth, 14, n]
+// float32, kind and idx [depth, n] int32 are the backward's residuals,
+// written only when hist is not null.
 extern "C" int trace_wave_launch(
     const float* st0, const float* rnd, const float* uni,
     const float* det_t, const float* u_t, const float* v_t,
     const float* t_t, const float* dbl_t, const float* sph,
-    const float* quad, const float* cab, const float* lt, float* stf, int n,
+    const float* quad, const float* cab, const float* lt, float* stf,
+    float* hist, int* kind, int* idx, int n,
     int depth, int w, int n_tri_chunks, int n_sph, int n_quad, int t_off,
     int s_off, int q_off, int n_lights, int has_checker, void* stream) {
   Tables tb{uni, det_t, u_t, v_t, t_t, dbl_t, sph, quad, cab, lt,
@@ -559,7 +445,7 @@ extern "C" int trace_wave_launch(
   const int blocks = (n + ROW - 1) / ROW;
   if (blocks > 0) {
     trace_wave_kernel<<<blocks, ROW, 0, static_cast<cudaStream_t>(stream)>>>(
-        st0, rnd, tb, stf, n, depth);
+        st0, rnd, tb, stf, hist, kind, idx, n, depth);
   }
   return static_cast<int>(cudaGetLastError());
 }

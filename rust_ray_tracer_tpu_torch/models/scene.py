@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from rust_ray_tracer_tpu_torch.ops.camera import CameraData
+from rust_ray_tracer_tpu_torch.utils import device as device_mod
 
 # Enums (stable ABI for the kernels — never renumber)
 MAT_LAMBERTIAN = 0   # material/mod.rs:47-84
@@ -146,12 +147,15 @@ class SceneData:
 _CAMERA_FIELDS = ("c2w", "scale", "aspect", "time0", "time1")
 
 
-def scene_from_numpy(d: dict[str, np.ndarray], device=None) -> SceneData:
-    """SceneData from numpy arrays keyed by the JAX ``SceneData`` field
-    names, with the camera's fields under ``camera.c2w``,
-    ``camera.scale``, ``camera.aspect``, ``camera.time0`` and
-    ``camera.time1`` — e.g. ``{name: np.asarray(leaf)}`` of a JAX scene.
-    Floats become float32, integers int32, booleans bool."""
+def scene_from_numpy(d: dict[str, np.ndarray],
+                     device=device_mod.DEFAULT) -> SceneData:
+    """SceneData on ``device`` (the card unless ``device="cpu"``) from
+    numpy arrays keyed by the JAX ``SceneData`` field names, with the
+    camera's fields under ``camera.c2w``, ``camera.scale``,
+    ``camera.aspect``, ``camera.time0`` and ``camera.time1`` — e.g.
+    ``{name: np.asarray(leaf)}`` of a JAX scene. Floats become float32,
+    integers int32, booleans bool."""
+    device = device_mod.resolve(device)
     def t(a):
         a = np.asarray(a)
         if a.dtype == np.bool_:
@@ -164,6 +168,34 @@ def scene_from_numpy(d: dict[str, np.ndarray], device=None) -> SceneData:
     fields = {f.name: t(d[f.name]) for f in dataclasses.fields(SceneData)
               if f.name != "camera"}
     return SceneData(camera=cam, **fields)
+
+
+def partition(scene: SceneData):
+    """Split a scene into ``(params, static)``: ``params`` a
+    ``dict[str, Tensor]`` of every floating-point field (the camera's
+    under ``camera.c2w``, ``camera.scale`` and so on, as
+    :func:`scene_from_numpy` names them), ``static`` the rest. A trainer
+    makes leaves with ``{k: v.clone().requires_grad_() for k, v in
+    params.items()}`` and renders ``combine(leaves, static)``.
+    Counterpart of ``rust_ray_tracer_tpu/models/scene.py:210-222``."""
+    flat = {f.name: getattr(scene, f.name) for f in dataclasses.fields(scene)
+            if f.name != "camera"}
+    flat.update({f"camera.{k}": getattr(scene.camera, k)
+                 for k in _CAMERA_FIELDS})
+    params = {k: v for k, v in flat.items() if v.is_floating_point()}
+    static = {k: v for k, v in flat.items() if k not in params}
+    return params, static
+
+
+def combine(params: dict, static: dict) -> SceneData:
+    """The scene of :func:`partition`'s two halves (``params`` may hold
+    tensors that require grad). Counterpart of ``combine``
+    (``rust_ray_tracer_tpu/models/scene.py:220``)."""
+    flat = {**static, **params}
+    cam = CameraData(**{k: flat[f"camera.{k}"] for k in _CAMERA_FIELDS})
+    return SceneData(camera=cam, **{f.name: flat[f.name]
+                                    for f in dataclasses.fields(SceneData)
+                                    if f.name != "camera"})
 
 
 # ---------------------------------------------------------------------------
@@ -597,8 +629,9 @@ def _light_rows(lights):
     return rows
 
 
-def compile_scene(scene: Scene, device=None) -> SceneData:
-    """Flatten a host Scene into tensors on ``device``.
+def compile_scene(scene: Scene, device=device_mod.DEFAULT) -> SceneData:
+    """Flatten a host Scene into tensors on ``device`` (the card unless
+    ``device="cpu"``; raises without one).
 
     Triangles are Morton-sorted and padded to a multiple of the cluster
     width (CLUSTER, doubled until at most MAX_CLUSTERS clusters) with
@@ -606,6 +639,7 @@ def compile_scene(scene: Scene, device=None) -> SceneData:
     Morton-sorted and padded to 8 (or CLUSTER above CLUSTER rows), with
     radius-0 spheres and zero-edge quads.
     """
+    device = device_mod.resolve(device)
     b = _Builder()
     b.add(scene.world, _affine(), False)
 

@@ -5,6 +5,10 @@ Counterpart of ``rust_ray_tracer_tpu/ops/integrator.py``
 whole-wave trace route only: every wave goes through
 :func:`ops.uber.trace_wave_uber`, which runs the Hopper trace kernel for a
 scene on a CUDA device and its plain version for a scene on the CPU.
+The render is differentiable: the scene tables are built inside the
+autograd graph, and when a scene leaf requires grad each wave's trace
+runs as :class:`ops.uber.TraceWave`, whose backward is the trace's
+adjoint (a second kernel on the card).
 """
 
 from __future__ import annotations

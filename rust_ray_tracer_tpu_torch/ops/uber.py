@@ -15,9 +15,17 @@ Counterpart of ``rust_ray_tracer_tpu/ops/pallas_uber.py``:
     TCC-triangle chunk) AABB cull and tie rules;
   * :func:`tile_core_plain` — ``_tile_core`` (``:500-548``);
   * :func:`trace_wave_plain` — the bounce loop of ``_make_trace_kernel``
-    (``:876``) in plain torch: the plain version of ``csrc/trace_wave.cu``;
-  * :func:`trace_wave` — the dispatcher: CPU tensors take the plain
-    version, CUDA tensors the kernel (no fallback);
+    (``:876``) in plain torch: the plain version of ``csrc/trace_wave.cu``,
+    optionally with the backward's residuals;
+  * :func:`tile_core_vjp_plain` and :func:`trace_wave_bwd_plain` — the
+    adjoint of one bounce and the reversed bounce loop of
+    ``_make_trace_bwd_kernel`` (``:926``): the plain version of
+    ``csrc/trace_wave_bwd.cu``;
+  * :class:`TraceWave` — the ``torch.autograd.Function`` of the trace,
+    the counterpart of ``_trace_call``'s ``custom_vjp`` (``:1069-1148``);
+  * :func:`trace_wave` and :func:`trace_wave_bwd` — the dispatchers: CPU
+    tensors take the plain versions, CUDA tensors the kernels (no
+    fallback);
   * :func:`trace_wave_uber` — one sample wave with the per-chunk keying
     and padding of ``:1151-1218``.
 
@@ -34,7 +42,8 @@ import dataclasses
 import torch
 
 from rust_ray_tracer_tpu_torch.ops import camera as cam_ops
-from rust_ray_tracer_tpu_torch.ops.bounce_core import bounce_plane_core
+from rust_ray_tracer_tpu_torch.ops.bounce_core import (
+    bounce_plane_core, bounce_plane_core_vjp)
 from rust_ray_tracer_tpu_torch.ops.intersect import (
     KIND_QUAD, KIND_SPH, KIND_TRI, MATTR_ALBEDO, MATTR_EVEN, MATTR_FUZZ,
     MATTR_IOR, MATTR_ISCHK, MATTR_MKIND, MATTR_ODD, T_MIN, TRI_DET_EPS,
@@ -418,12 +427,8 @@ def search_row_plain(st, ctx: TraceCtx):
     return (torch.cat([k for k, _ in outs]), torch.cat([i for _, i in outs]))
 
 
-def tile_core_plain(st, rnd_b, selv, kind, ctx: TraceCtx):
-    """Hit attributes, shading and the estimator update for one bounce.
-
-    ``st`` [N_STATE, N], ``rnd_b`` [15, N], ``selv`` [W, N] winner rows
-    (miss lanes already defaulted), ``kind`` [N]. Returns the next state.
-    """
+def _tile_planes(st, rnd_b, selv, ctx: TraceCtx):
+    """``_tile_core``'s plane assembly: (P, mkind, flags)."""
     A = A_COL
     tminp = torch.full_like(st[0:1], T_MIN)
     tmaxp = torch.where(st[7:8] > 0.5, torch.inf, -1.0)
@@ -437,38 +442,197 @@ def tile_core_plain(st, rnd_b, selv, kind, ctx: TraceCtx):
         parts += [selv[A + MATTR_EVEN.start:A + MATTR_EVEN.stop],
                   selv[A + MATTR_ODD.start:A + MATTR_ODD.stop]]
         flags = flags | ((selv[A + MATTR_ISCHK] > 0.5).to(torch.int32) << 1)
-    P = torch.cat(parts, dim=0)
     mkind = selv[A + MATTR_MKIND].to(torch.int32)
+    return torch.cat(parts, dim=0), mkind, flags
+
+
+def tile_core_plain(st, rnd_b, selv, kind, ctx: TraceCtx):
+    """Hit attributes, shading and the estimator update for one bounce.
+
+    ``st`` [N_STATE, N], ``rnd_b`` [15, N], ``selv`` [W, N] winner rows
+    (miss lanes already defaulted), ``kind`` [N]. Returns the next state.
+    """
+    P, mkind, flags = _tile_planes(st, rnd_b, selv, ctx)
     out = bounce_plane_core(P, kind, mkind, flags, ctx.lt, ctx.n_lights,
                             ctx.has_checker)
     return torch.cat([out[0:6], st[6:7], out[12:13], out[6:9], out[9:12]])
 
 
-def trace_wave_plain(st0, rnd, ctx: TraceCtx, depth: int):
+def tile_core_vjp_plain(st, rnd_b, selv, kind, ctx: TraceCtx, g):
+    """Adjoint of :func:`tile_core_plain` for the next-state cotangent
+    ``g`` [N_STATE, N]: (dst [N_STATE, N], dselv [W, N], dlt like
+    ``ctx.lt``).
+
+    Counterpart of ``jax.vjp(core, P, selv, lt)`` in
+    ``_make_trace_bwd_kernel`` (``pallas_uber.py:971-976``), composed
+    from :func:`ops.bounce_core.bounce_plane_core_vjp`. The shutter time
+    passes through (plus a moving sphere's share); the alive plane takes
+    no cotangent. The randoms take none, and the flag, material and kind
+    columns of ``selv`` take zeros.
+    """
+    A = A_COL
+    P, mkind, flags = _tile_planes(st, rnd_b, selv, ctx)
+    cot = torch.cat([g[0:6], g[8:11], g[11:14], g[7:8]])
+    dP, dlt = bounce_plane_core_vjp(P, kind, mkind, flags, ctx.lt,
+                                    ctx.n_lights, ctx.has_checker, cot)
+    dst = torch.cat([dP[0:6], g[6:7] + dP[6:7], torch.zeros_like(g[7:8]),
+                     dP[24:30]])
+    dselv = torch.zeros_like(selv)
+    dselv[0:9] = dP[9:18]
+    dselv[A + MATTR_ALBEDO.start:A + MATTR_ALBEDO.stop] = dP[19:22]
+    dselv[A + MATTR_FUZZ] = dP[22]
+    dselv[A + MATTR_IOR] = dP[23]
+    if ctx.has_checker:
+        dselv[A + MATTR_EVEN.start:A + MATTR_EVEN.stop] = dP[46:49]
+        dselv[A + MATTR_ODD.start:A + MATTR_ODD.stop] = dP[49:52]
+    return dst, dselv, dlt
+
+
+def _select_rows(kind, idx, ctx: TraceCtx):
+    """Winner rows [W, N]: ``uni[idx]``, the miss default where kind is 0
+    (``_rebuild_row``, ``pallas_uber.py:551-565``)."""
+    rows = ctx.uni[idx.long()].T
+    return torch.where(kind[None] > 0, rows, ctx.dflt[:, None])
+
+
+def _live_tiles(alive):
+    """[N] bool: the ray's 1024-ray tile holds a live ray — the liveness
+    predicate of the TPU trace kernels (``pallas_uber.py:889, 945``)."""
+    live = (alive > 0.5).reshape(-1, TILE).any(dim=1)
+    return live.repeat_interleave(TILE)
+
+
+def trace_wave_plain(st0, rnd, ctx: TraceCtx, depth: int,
+                     residuals: bool = False):
     """``depth`` bounces of every ray: phase 1, winner-row fetch, then
-    :func:`tile_core_plain`. Returns the final state [N_STATE, N]."""
+    :func:`tile_core_plain`. Returns the final state [N_STATE, N]; with
+    ``residuals``, also the backward's residuals as
+    ``_make_trace_kernel`` writes them (``pallas_uber.py:887-916``):
+    ``hist`` [depth, N_STATE, N] (bounce b's input state, written for
+    every bounce), ``kind`` and ``idx`` [depth, N] int32 (0 on a miss and
+    in a dead tile)."""
     st = st0
+    hist, kinds, idxs = [], [], []
     for b in range(depth):
         kind, idx = search_row_plain(st, ctx)
-        rows = ctx.uni[idx].T                         # [W, N]
-        selv = torch.where(kind[None] > 0, rows, ctx.dflt[:, None])
+        if residuals:
+            hist.append(st)
+            kinds.append(kind)
+            idxs.append(idx.to(torch.int32))
+        selv = _select_rows(kind, idx, ctx)
         st = tile_core_plain(st, rnd[b], selv, kind, ctx)
-    return st
+    if not residuals:
+        return st
+    return st, torch.stack(hist), torch.stack(kinds), torch.stack(idxs)
+
+
+def trace_wave_bwd_plain(hist, rnd, kind, idx, ctx: TraceCtx, g):
+    """The backward of the trace from its residuals: (dst [N_STATE, N],
+    duni like ``ctx.uni``, dlt like ``ctx.lt``) for the final-state
+    cotangent ``g`` [N_STATE, N].
+
+    The plain version of ``csrc/trace_wave_bwd.cu``, mirroring
+    ``_make_trace_bwd_kernel`` (``pallas_uber.py:926-1014``) and
+    ``_trace_bwd``'s outputs (``:1140-1145``): bounces replay in reverse
+    from ``hist``; a tile with no live ray keeps its cotangent; the
+    winner rows are rebuilt from (kind, idx); each found ray's row
+    cotangent is added into its ``uni`` row and every ray's light-table
+    cotangent into ``dlt``. The miss default takes none.
+    """
+    depth = hist.shape[0]
+    dst = g
+    duni = torch.zeros_like(ctx.uni)
+    dlt = torch.zeros_like(ctx.lt)
+    for b in reversed(range(depth)):
+        live = _live_tiles(hist[b, 7])
+        if not bool(live.any()):
+            continue
+        found = kind[b] > 0
+        selv = _select_rows(kind[b], idx[b], ctx)
+        d_st, dselv, dlt_b = tile_core_vjp_plain(hist[b], rnd[b], selv,
+                                                 kind[b], ctx, dst)
+        dst = torch.where(live[None], d_st, dst)
+        duni.index_add_(0, idx[b][found].long(), dselv[:, found].T)
+        dlt = dlt + dlt_b
+    return dst, duni, dlt
+
+
+def bwd_reduce_plain(contrib, perm, offs, part):
+    """Plain version of ``bwd_reduce`` (``csrc/trace_wave_bwd.cu``): duni
+    [P, W] with row p the sum of the contributions ``perm[offs[p]:offs[p +
+    1]]`` of ``contrib`` [..., W], and dlt [(n_lights + 1) * 14] the sum of
+    the per-block partials ``part``."""
+    w = contrib.shape[-1]
+    p_rows = offs.shape[0] - 1
+    m = int(offs[-1])
+    rows = torch.repeat_interleave(
+        torch.arange(p_rows, device=contrib.device),
+        (offs[1:] - offs[:-1]).long())
+    duni = torch.zeros((p_rows, w), dtype=contrib.dtype,
+                       device=contrib.device)
+    duni.index_add_(0, rows, contrib.reshape(-1, w)[perm[:m].long()])
+    return duni, part.sum(dim=0)
+
+
+def _trace_forward(st0, rnd, ctx: TraceCtx, depth: int, residuals: bool):
+    dev = st0.device.type
+    if dev == "cpu":
+        return trace_wave_plain(st0, rnd, ctx, depth, residuals=residuals)
+    if dev != "cuda":
+        raise ValueError(f"unsupported device {st0.device}")
+    from rust_ray_tracer_tpu_torch.kernels import trace_wave_kernel
+    return trace_wave_kernel(st0, rnd, ctx, depth, residuals=residuals)
+
+
+def trace_wave_bwd(hist, rnd, kind, idx, ctx: TraceCtx, g):
+    """The trace's backward: :func:`trace_wave_bwd_plain` for CPU
+    tensors, the Hopper kernels (``csrc/trace_wave_bwd.cu``: the adjoint
+    kernel, then the fixed-order reduction of the table cotangents) for
+    CUDA tensors."""
+    dev = g.device.type
+    if dev == "cpu":
+        return trace_wave_bwd_plain(hist, rnd, kind, idx, ctx, g)
+    if dev != "cuda":
+        raise ValueError(f"unsupported device {g.device}")
+    from rust_ray_tracer_tpu_torch.kernels import trace_backward
+    return trace_backward(hist, rnd, kind, idx, ctx, g)
+
+
+class TraceWave(torch.autograd.Function):
+    """The trace as a differentiable function of ``st0``, ``uni`` and
+    ``lt`` — ``_trace_call``'s ``custom_vjp`` (``pallas_uber.py:1069-1148``).
+    The forward saves the residuals (``hist``, ``kind``, ``idx``); the
+    backward replays them through :func:`trace_wave_bwd`. The randoms,
+    the miss default and the search tables take no gradient (JAX returns
+    zeros for them)."""
+
+    @staticmethod
+    def forward(fctx, st0, rnd, uni, lt, ctx: TraceCtx, depth: int):
+        stf, hist, kind, idx = _trace_forward(st0, rnd, ctx, depth, True)
+        fctx.save_for_backward(hist, rnd, kind, idx)
+        fctx.trace_ctx = ctx
+        return stf
+
+    @staticmethod
+    def backward(fctx, g):
+        hist, rnd, kind, idx = fctx.saved_tensors
+        dst, duni, dlt = trace_wave_bwd(hist, rnd, kind, idx,
+                                        fctx.trace_ctx, g.contiguous())
+        return dst, None, duni, dlt, None, None
 
 
 def trace_wave(st0, rnd, ctx: TraceCtx, depth: int):
     """The wave's bounce loop: the plain version for CPU tensors, the
-    Hopper kernel (``csrc/trace_wave.cu``) for CUDA tensors."""
-    if st0.device.type == "cpu":
-        return trace_wave_plain(st0, rnd, ctx, depth)
-    if st0.device.type != "cuda":
+    Hopper kernel (``csrc/trace_wave.cu``) for CUDA tensors. When a
+    gradient is wanted it runs as :class:`TraceWave` (forward with
+    residuals, backward by :func:`trace_wave_bwd`); otherwise the forward
+    writes no residuals."""
+    if st0.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {st0.device}")
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (st0, ctx.uni, ctx.lt)):
-        raise NotImplementedError(
-            "trace backward kernel not yet ported (ROADMAP queue 2 B)")
-    from rust_ray_tracer_tpu_torch.kernels import trace_wave_kernel
-    return trace_wave_kernel(st0, rnd, ctx, depth)
+        return TraceWave.apply(st0, rnd, ctx.uni, ctx.lt, ctx, depth)
+    return _trace_forward(st0, rnd, ctx, depth, False)
 
 
 def wave_inputs(scene, wkey, width: int, height: int, depth: int,

@@ -24,6 +24,8 @@ import math
 import numpy as np
 import torch
 
+from rust_ray_tracer_tpu_torch.utils import device as device_mod
+
 # Stable stream tags. Never renumber — that silently changes every render.
 JITTER = 0       # per-sample pixel jitter (main.rs:92-93)
 TIME = 1         # camera shutter time (camera.rs:67)
@@ -86,11 +88,13 @@ def threefry2x32(k1, k2, x1, x2):
     return y0, y1
 
 
-def key(seed: int, device=None) -> torch.Tensor:
-    """``jax.random.PRNGKey(seed)`` for 0 <= seed < 2**32: words (0, seed)."""
+def key(seed: int, device=device_mod.DEFAULT) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` for 0 <= seed < 2**32: words (0, seed),
+    on ``device`` (the card unless ``device="cpu"``; raises without one)."""
     if not 0 <= seed <= _M32:
         raise ValueError(f"seed must be in [0, 2**32), got {seed}")
-    return torch.tensor([0, seed], dtype=torch.int64, device=device)
+    return torch.tensor([0, seed], dtype=torch.int64,
+                        device=device_mod.resolve(device))
 
 
 def fold_in(k: torch.Tensor, data) -> torch.Tensor:

@@ -49,7 +49,7 @@ def test_camera_rays_for_chunk(chunk_id):
     jcam = jc.make_camera(c2w, 40.0, 1.3, 0.0, 1.0)
     tcam = tc.make_camera(np.asarray(c2w), 40.0, 1.3, 0.0, 1.0)
     wk = jax.random.fold_in(jax.random.PRNGKey(3), 1)
-    tk = rng.fold_in(rng.key(3), 1)
+    tk = rng.fold_in(rng.key(3, "cpu"), 1)
     o, d, t, ck = jc.camera_rays_for_chunk(jcam, wk, chunk_id, 1000, 50, 47)
     o2, d2, t2, ck2 = tc.camera_rays_for_chunk(tcam, tk, chunk_id, 1000, 50,
                                                47)

@@ -15,7 +15,7 @@ _SCRIPT = textwrap.dedent("""
     assert shutil.which("nvcc") is None, "PATH should hide nvcc here"
     assert kernels.trace_wave_kernel.build_info is None   # not built
     scene = rt.compile_scene(builders.cornell_box(1.0), device="cpu")
-    img = rt.render_image(scene, 16, 16, 1, rng.key(0), chunk_size=256)
+    img = rt.render_image(scene, 16, 16, 1, rng.key(0, "cpu"), chunk_size=256)
     assert img.shape == (16, 16, 3) and bool(img.isfinite().all())
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
     assert not jax_mods, jax_mods

@@ -30,34 +30,35 @@ from tests.torch_parity import assert_flip_budget, jax_compile, jax_flagship
                                       ("cornell_box", 32, 32)])
 def test_render_waves_matches_jax(name, w, h, monkeypatch):
     if name == "flagship":
-        js, ts = jax_flagship(monkeypatch), compile_scene(tb.flagship())
+        js = jax_flagship(monkeypatch)
+        ts = compile_scene(tb.flagship(), device="cpu")
     else:
         js = jax_compile(jb.get_scene(name, 1.0), monkeypatch)
-        ts = compile_scene(tb.get_scene(name, 1.0))
+        ts = compile_scene(tb.get_scene(name, 1.0), device="cpu")
     ref = np.asarray(jax_render(js, w, h, jax.random.PRNGKey(0), 0, 2,
                                 chunk_size=1024))
-    got = render_waves(ts, w, h, rng.key(0), 0, 2, chunk_size=1024)
+    got = render_waves(ts, w, h, rng.key(0, "cpu"), 0, 2, chunk_size=1024)
     assert got.shape == (h, w, 3) and got.dtype == torch.float32
     assert_flip_budget(got.numpy(), ref)
 
 
 def test_render_is_bitwise_reproducible_and_resumable():
-    ts = compile_scene(tb.cornell_box(1.0))
-    a = render_waves(ts, 24, 24, rng.key(3), 0, 3, chunk_size=256)
-    b = render_waves(ts, 24, 24, rng.key(3), 0, 3, chunk_size=256)
+    ts = compile_scene(tb.cornell_box(1.0), device="cpu")
+    a = render_waves(ts, 24, 24, rng.key(3, "cpu"), 0, 3, chunk_size=256)
+    b = render_waves(ts, 24, 24, rng.key(3, "cpu"), 0, 3, chunk_size=256)
     assert torch.equal(a, b)
-    part = render_waves(ts, 24, 24, rng.key(3), 0, 2, chunk_size=256)
-    resumed = render_waves(ts, 24, 24, rng.key(3), 2, 1, chunk_size=256,
+    part = render_waves(ts, 24, 24, rng.key(3, "cpu"), 0, 2, chunk_size=256)
+    resumed = render_waves(ts, 24, 24, rng.key(3, "cpu"), 2, 1, chunk_size=256,
                            acc0=part)
     assert torch.equal(resumed, a)
-    img = render_image(ts, 24, 24, 3, rng.key(3), chunk_size=256)
+    img = render_image(ts, 24, 24, 3, rng.key(3, "cpu"), chunk_size=256)
     assert torch.equal(img, a / 3)
 
 
 def test_compact_not_ported():
-    ts = compile_scene(tb.cornell_box(1.0))
+    ts = compile_scene(tb.cornell_box(1.0), device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
-        render_waves(ts, 8, 8, rng.key(0), 0, 1, compact=True)
+        render_waves(ts, 8, 8, rng.key(0, "cpu"), 0, 1, compact=True)
 
 
 def test_tonemap_and_png_match_jax():
@@ -88,8 +89,8 @@ def test_cli_cpu_writes_png(tmp_path):
     img = decode_png(out.read_bytes())
     assert img.shape == (24, 24, 3)
     # the saved image is the vertically flipped tonemap of the render
-    ts = compile_scene(tb.cornell_box(1.0))
-    ref = tonemap_mean(render_image(ts, 24, 24, 2, rng.key(0),
+    ts = compile_scene(tb.cornell_box(1.0), device="cpu")
+    ref = tonemap_mean(render_image(ts, 24, 24, 2, rng.key(0, "cpu"),
                                     chunk_size=1024)).numpy()[::-1]
     np.testing.assert_array_equal(img, ref)
 

@@ -21,7 +21,7 @@ def test_partitionable_threefry_is_the_default():
 
 @pytest.mark.parametrize("seed", [0, 7, 2**31 - 1])
 def test_key_and_fold_in_chain_bitwise(seed):
-    jk, tk = jax.random.PRNGKey(seed), rng.key(seed)
+    jk, tk = jax.random.PRNGKey(seed), rng.key(seed, "cpu")
     np.testing.assert_array_equal(np.asarray(jk), tk.numpy())
     for data in (0, 1, 10, 123456, 2**31 + 5, 2**32 - 1):
         jk = jax.random.fold_in(jk, data)
@@ -30,7 +30,7 @@ def test_key_and_fold_in_chain_bitwise(seed):
 
 
 def test_fold_in_batched_keys_and_data():
-    base = rng.key(3)
+    base = rng.key(3, "cpu")
     ks = rng.fold_in(base, torch.arange(5))                 # [5, 2]
     ks2 = rng.fold_in(ks[:, None, :], torch.arange(3))      # [5, 3, 2]
     for i in range(5):
@@ -44,7 +44,7 @@ def test_fold_in_batched_keys_and_data():
 @pytest.mark.parametrize("shape", [(1000, 9), (1000, 2), (1000,)])
 def test_uniform_bitwise(shape):
     jk = jax.random.fold_in(jax.random.PRNGKey(11), 4)
-    tk = rng.fold_in(rng.key(11), 4)
+    tk = rng.fold_in(rng.key(11, "cpu"), 4)
     np.testing.assert_array_equal(np.asarray(jax.random.uniform(jk, shape)),
                                   rng.uniform(tk, shape).numpy())
 
@@ -73,7 +73,7 @@ def test_erf_inv_bitwise():
 @pytest.mark.parametrize("seed", [0, 1])
 def test_normal_bitwise(seed):
     jk = jax.random.fold_in(jax.random.PRNGKey(seed), 10)
-    tk = rng.fold_in(rng.key(seed), 10)
+    tk = rng.fold_in(rng.key(seed, "cpu"), 10)
     ref = np.asarray(jax.random.normal(jk, (20000, 6)))
     got = rng.normal(tk, (20000, 6)).numpy()
     np.testing.assert_array_equal(got, ref)
@@ -93,11 +93,11 @@ def test_wave_chunk_bounce_chain_matches_trace_wave_uber():
     from rust_ray_tracer_tpu_torch.models.scene import compile_scene
     from rust_ray_tracer_tpu_torch.ops import uber
 
-    scene = compile_scene(builders.cornell_box(1.0))
+    scene = compile_scene(builders.cornell_box(1.0), device="cpu")
     w, h, depth, chunk = 40, 30, 3, 500        # 3 chunks, padded to 1024
     root, wave = 9, 2
-    _, rnd = uber.wave_inputs(scene, rng.wave_key(rng.key(root), wave), w,
-                              h, depth, chunk)
+    _, rnd = uber.wave_inputs(scene, rng.wave_key(rng.key(root, "cpu"), wave),
+                              w, h, depth, chunk)
     rnd = rnd.reshape(depth, 15, 3, 1024).numpy()
     wkey = jrng.wave_key(jax.random.PRNGKey(root), wave)
     for cid in range(3):

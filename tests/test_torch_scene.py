@@ -16,7 +16,8 @@ from rust_ray_tracer_tpu.models.scene import compile_scene as jcompile
 from rust_ray_tracer_tpu.ops import camera as jcam
 from rust_ray_tracer_tpu.ops import pallas_uber as pu
 from rust_ray_tracer_tpu_torch.models import builders as tb
-from rust_ray_tracer_tpu_torch.models.scene import (SceneData, compile_scene,
+from rust_ray_tracer_tpu_torch.models.scene import (SceneData, combine,
+                                                    compile_scene, partition,
                                                     scene_from_numpy)
 from rust_ray_tracer_tpu_torch.ops import uber
 
@@ -25,10 +26,11 @@ from tests.torch_parity import both, jax_compile, jax_flagship, scene_dict
 
 def _scenes(name, monkeypatch):
     if name == "flagship":
-        return jax_flagship(monkeypatch), compile_scene(tb.flagship())
+        return (jax_flagship(monkeypatch),
+                compile_scene(tb.flagship(), device="cpu"))
     if name in ("cornell_box", "cornell_triangle"):
         return (jax_compile(jb.get_scene(name, 1.0), monkeypatch),
-                compile_scene(tb.get_scene(name, 1.0)))
+                compile_scene(tb.get_scene(name, 1.0), device="cpu"))
     return both(name, monkeypatch)
 
 
@@ -79,7 +81,7 @@ def test_make_ctx_tables_match(name, monkeypatch):
 @pytest.mark.parametrize("name", ["flagship", "cornell_box", "checker"])
 def test_scene_from_numpy_equals_own_compile(name, monkeypatch):
     js, ts = _scenes(name, monkeypatch)
-    got = scene_from_numpy(scene_dict(js))
+    got = scene_from_numpy(scene_dict(js), device="cpu")
     for f in dataclasses.fields(SceneData):
         if f.name == "camera":
             for k in ("c2w", "scale", "aspect", "time0", "time1"):
@@ -117,7 +119,7 @@ def _jax_noise_scene():
 @pytest.mark.parametrize("make,kernel", [(_jax_media_scene, "F and M"),
                                          (_jax_noise_scene, "C")])
 def test_ineligible_scenes_raise_naming_the_kernel(make, kernel):
-    ts = scene_from_numpy(scene_dict(make()))
+    ts = scene_from_numpy(scene_dict(make()), device="cpu")
     assert not uber.uber_eligible(ts)
     with pytest.raises(NotImplementedError, match=f"TPU kernels? {kernel}"):
         uber.make_ctx(ts)
@@ -133,8 +135,47 @@ def test_unported_scene_parts_raise():
                                             TS.Dielectric(1.5)), 0.5,
                                   TS.SolidColor((1, 1, 1)))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            compile_scene(TS.Scene(cam, [obj], [], (0, 0, 0)))
+            compile_scene(TS.Scene(cam, [obj], [], (0, 0, 0)), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tb.get_scene("final_scene", 1.0)
     with pytest.raises(ValueError, match="unknown scene"):
         tb.get_scene("nope", 1.0)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """compile_scene, scene_from_numpy and rng.key place their tensors on
+    the card unless the CPU is asked for, and raise without a card rather
+    than fall back to the CPU."""
+    from rust_ray_tracer_tpu_torch.utils import rng
+
+    host = tb.cornell_box(1.0)
+    d = scene_dict(jax_compile(jb.get_scene("cornell_box", 1.0),
+                               monkeypatch))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: compile_scene(host), lambda: scene_from_numpy(d),
+                 lambda: rng.key(0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert compile_scene(host, device="cpu").device.type == "cpu"
+    assert scene_from_numpy(d, device="cpu").device.type == "cpu"
+    assert rng.key(0, "cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["solid", "checker"])
+def test_partition_combine_roundtrip(name, monkeypatch):
+    """partition / combine as tests/test_grad.py:153 holds the JAX pair:
+    every float field (the camera's under camera.*) in params, the rest in
+    static, and combine gives the scene back field for field."""
+    _, ts = both(name, monkeypatch)
+    params, static = partition(ts)
+    assert "camera.c2w" in params and "camera.scale" in params
+    assert all(v.is_floating_point() for v in params.values())
+    assert not any(v.is_floating_point() for v in static.values())
+    back = combine(params, static)
+    for f in dataclasses.fields(SceneData):
+        a, b = getattr(ts, f.name), getattr(back, f.name)
+        if f.name == "camera":
+            for k in ("c2w", "scale", "aspect", "time0", "time1"):
+                assert getattr(a, k) is getattr(b, k)
+        else:
+            assert a is b, f.name

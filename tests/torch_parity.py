@@ -101,7 +101,7 @@ def jax_compile(host, monkeypatch):
 def torch_scene(name):
     """The port's SceneData of a SMALL_SCENES entry."""
     from rust_ray_tracer_tpu_torch.models.scene import compile_scene
-    return compile_scene(SMALL_SCENES[name](TS, tcam))
+    return compile_scene(SMALL_SCENES[name](TS, tcam), device="cpu")
 
 
 def both(name, monkeypatch):
@@ -147,3 +147,29 @@ def assert_flip_budget(got, ref, budget=0.005):
     np.testing.assert_allclose(np.where(flips[..., None], ref, got), ref,
                                rtol=3e-4, atol=3e-5)
     return flips.mean()
+
+
+def assert_scaled_close(got, ref, rtol, atol, axis, budget=0.0, what=""):
+    """``|got - ref| <= atol + rtol * scale`` with ``scale`` the largest
+    ``|ref|`` along ``axis`` (a ray's planes, a table row's columns): an
+    adjoint that sums cancelling terms carries their rounding at the
+    scale of the largest term. At most ``budget`` of the lanes along the
+    other axis may fall outside — a branch of the recomputed forward
+    (tir, metal_ok, a checker parity, a near-root sphere hit) flipped by
+    an FMA. Returns that share."""
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    assert got.shape == ref.shape, (what, got.shape, ref.shape)
+    assert np.isfinite(got).all() and np.isfinite(ref).all(), what
+    scale = np.abs(ref).max(axis=axis, keepdims=True)
+    bad = (np.abs(got - ref) > atol + rtol * scale).any(axis=axis)
+    frac = float(bad.mean())
+    assert frac <= budget, (
+        f"{what}: {int(bad.sum())} of {bad.size} lanes outside rtol {rtol} "
+        f"(of the lane's largest value) / atol {atol}")
+    return frac
+
+
+def rel_l2(got, ref) -> float:
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30))
