@@ -2,8 +2,9 @@
 // (trace_wave.cu, trace_wave_bwd.cu): the constants, the NaN-propagating
 // max/min of jnp.maximum/minimum, and the per-ray forms of
 // pallas_shade._normalize, _safe_sqrt, _onb, _ball and one light's sample
-// and pdf. Both kernels take the forward values from these same lines, so
-// the backward's recomputed branches are the forward's.
+// and pdf, and the marble texture of TPU kernel C with its adjoint. Both
+// kernels take the forward values from these same lines, so the backward's
+// recomputed branches are the forward's.
 
 #pragma once
 
@@ -163,6 +164,167 @@ __device__ float light_pdf(const float* __restrict__ l, V3 p, V3 sd) {
     return hits ? distq / jmax(cosq * area, EPS) : 0.f;
   }
   return 0.f;
+}
+
+// ---- marble noise: TPU kernel C -----------------------------------------
+//
+// Replaces rust_ray_tracer_tpu/ops/pallas_bounce.py _noise_row (:125) and
+// _marble_row (:166), which the TPU trace kernels A and B (and D) run at
+// each hit whose winner has a Noise texture (texture.rs:74-82, turb:
+// perlin.rs:58-71). Plain versions: ops/perlin.py marble, marble_vjp.
+//
+// Per noise hit: 7 octaves x (3 floors, 6 permutation reads, 8 corners of
+// one gradient read and ~12 flops each). The TPU reads its 256-entry
+// tables through one-hot [256, 128] MXU contractions, because Mosaic has
+// no per-lane gather; here the tables are 3 KB of gradients and 768 bytes
+// of permutations in shared memory, loaded once per block before the
+// bounce loop, and every lookup is one indexed shared-memory load. The
+// lookups are exact either way, so the values are the same. The adjoint
+// recomputes the corners in a second pass instead of keeping 56 of them
+// per ray in registers.
+
+constexpr int PERLIN_N = 256;
+constexpr int OCTAVES = 7;
+// dynamic shared memory of a noise variant: gradients, then permutations
+constexpr int PERLIN_SMEM = 3 * PERLIN_N * 4 + 3 * PERLIN_N;
+
+struct Perlin {
+  const float* g;              // [256 * 3] gradients (shared memory)
+  const unsigned char* perm;   // [3 * 256] x, y, z permutations
+};
+
+// Every thread of the block calls this, then __syncthreads(). vec [256, 3]
+// float32, perm [3, 256] int32 (ops/uber.py make_ctx: ctx.perlin).
+__device__ __forceinline__ Perlin perlin_load(float* smem,
+                                              const float* __restrict__ vec,
+                                              const int* __restrict__ perm) {
+  unsigned char* p = reinterpret_cast<unsigned char*>(smem + 3 * PERLIN_N);
+  for (int k = threadIdx.x; k < 3 * PERLIN_N; k += blockDim.x) {
+    smem[k] = vec[k];
+    p[k] = static_cast<unsigned char>(perm[k]);
+  }
+  return {smem, p};
+}
+
+// One axis of a cell: the offset u in it, its Hermite weight s
+// (perlin.rs:87-89) and the permutation entries of its two corners. The
+// index wraps on two's complement, as JAX's bitwise_and of an int32.
+__device__ __forceinline__ void perlin_axis(const unsigned char* perm,
+                                            float x, float& u, float& s,
+                                            int& h0, int& h1) {
+  const float f = floorf(x);
+  u = x - f;
+  const int i = static_cast<int>(f);
+  s = u * u * (3.f - 2.f * u);
+  h0 = perm[i & (PERLIN_N - 1)];
+  h1 = perm[(i + 1) & (PERLIN_N - 1)];
+}
+
+// One octave of gradient noise (_noise_row), corners in its (di, dj, dk)
+// order.
+__device__ __forceinline__ float noise_row(const Perlin& P, float x, float y,
+                                           float z) {
+  float ux, sx, uy, sy, uz, sz;
+  int hx[2], hy[2], hz[2];
+  perlin_axis(P.perm, x, ux, sx, hx[0], hx[1]);
+  perlin_axis(P.perm + PERLIN_N, y, uy, sy, hy[0], hy[1]);
+  perlin_axis(P.perm + 2 * PERLIN_N, z, uz, sz, hz[0], hz[1]);
+  float acc = 0.f;
+#pragma unroll
+  for (int di = 0; di < 2; ++di) {
+    const float wi = di ? sx : 1.f - sx;
+#pragma unroll
+    for (int dj = 0; dj < 2; ++dj) {
+      const float wj = dj ? sy : 1.f - sy;
+#pragma unroll
+      for (int dk = 0; dk < 2; ++dk) {
+        const float wk = dk ? sz : 1.f - sz;
+        const float* g = P.g + 3 * (hx[di] ^ hy[dj] ^ hz[dk]);
+        const float dot = g[0] * (ux - (float)di) + g[1] * (uy - (float)dj) +
+                          g[2] * (uz - (float)dk);
+        acc = acc + (wi * wj * wk) * dot;
+      }
+    }
+  }
+  return acc;
+}
+
+// The signed octave sum of _marble_row (before its abs).
+__device__ __forceinline__ float turb_acc(const Perlin& P, V3 p) {
+  float acc = 0.f, w = 1.f, s = 1.f;
+#pragma unroll 1
+  for (int o = 0; o < OCTAVES; ++o) {
+    acc = acc + w * noise_row(P, p.x * s, p.y * s, p.z * s);
+    w *= 0.5f;
+    s *= 2.f;
+  }
+  return acc;
+}
+
+// 0.5 * (1 + sin(scale * z + 10 * turb(p))): the albedo, all channels.
+__device__ __forceinline__ float marble(const Perlin& P, V3 p, float scale) {
+  return 0.5f * (1.f + sinf(scale * p.z + 10.f * fabsf(turb_acc(P, p))));
+}
+
+struct MarbleGrad {
+  V3 p;          // d/dp
+  float scale;   // d/dscale
+};
+
+// Adjoint of marble for the cotangent g of its value. A first pass gives acc (its sign, and cos(arg)); a
+// second re-evaluates each octave's corners and differentiates the
+// Hermite weights (s' = 6u(1-u)) and the (u - d) terms of the dots. floor
+// has no derivative and abs'(0) = +1, as jax.vjp takes them.
+__device__ __forceinline__ MarbleGrad marble_vjp(const Perlin& P, V3 p,
+                                                float scale, float g) {
+  const float acc = turb_acc(P, p);
+  const float arg = scale * p.z + 10.f * fabsf(acc);
+  const float g_arg = g * (0.5f * cosf(arg));
+  const float g_acc = g_arg * 10.f * (acc >= 0.f ? 1.f : -1.f);
+  float dx = 0.f, dy = 0.f, dz = 0.f, w = 1.f, s = 1.f;
+#pragma unroll 1
+  for (int o = 0; o < OCTAVES; ++o) {
+    float ux, sx, uy, sy, uz, sz;
+    int hx[2], hy[2], hz[2];
+    perlin_axis(P.perm, p.x * s, ux, sx, hx[0], hx[1]);
+    perlin_axis(P.perm + PERLIN_N, p.y * s, uy, sy, hy[0], hy[1]);
+    perlin_axis(P.perm + 2 * PERLIN_N, p.z * s, uz, sz, hz[0], hz[1]);
+    const float dsx = 6.f * ux * (1.f - ux);
+    const float dsy = 6.f * uy * (1.f - uy);
+    const float dsz = 6.f * uz * (1.f - uz);
+    float nx = 0.f, ny = 0.f, nz = 0.f;
+#pragma unroll
+    for (int di = 0; di < 2; ++di) {
+      const float wi = di ? sx : 1.f - sx;
+      const float si = di ? 1.f : -1.f;
+#pragma unroll
+      for (int dj = 0; dj < 2; ++dj) {
+        const float wj = dj ? sy : 1.f - sy;
+        const float sj = dj ? 1.f : -1.f;
+#pragma unroll
+        for (int dk = 0; dk < 2; ++dk) {
+          const float wk = dk ? sz : 1.f - sz;
+          const float sk = dk ? 1.f : -1.f;
+          const float* gr = P.g + 3 * (hx[di] ^ hy[dj] ^ hz[dk]);
+          const float dot = gr[0] * (ux - (float)di) +
+                            gr[1] * (uy - (float)dj) +
+                            gr[2] * (uz - (float)dk);
+          const float wijk = wi * wj * wk;
+          nx = nx + si * dsx * (wj * wk) * dot + wijk * gr[0];
+          ny = ny + sj * dsy * (wi * wk) * dot + wijk * gr[1];
+          nz = nz + sk * dsz * (wi * wj) * dot + wijk * gr[2];
+        }
+      }
+    }
+    // d noise(p * s) / dp = s * d noise / dx, weighted by the octave's w
+    dx = dx + (w * s) * nx;
+    dy = dy + (w * s) * ny;
+    dz = dz + (w * s) * nz;
+    w *= 0.5f;
+    s *= 2.f;
+  }
+  return {{g_acc * dx, g_acc * dy, g_acc * dz + g_arg * scale},
+          g_arg * p.z};
 }
 
 }  // namespace trace

@@ -33,7 +33,16 @@
 //   * a block leaves the bounce loop once all its rays are dead, and a
 //     dead ray skips the sweep (its empty window rejects everything);
 //   * only the winner's hit attributes and material are evaluated: the
-//     same values the plain version selects out of all kinds.
+//     same values the plain version selects out of all kinds;
+//   * a scene with Noise textures runs the HAS_NOISE instantiation, which
+//     loads the Perlin tables into shared memory once per block and
+//     evaluates the marble (TPU kernel C, trace_common.cuh) only where a
+//     found ray's winner has the noise flag. It is built into a library of
+//     its own (-DTRACE_WAVE_NOISE=1) with --fmad=false, so it rounds as its
+//     plain version: the marble moves ~50 per unit of the hit point, and an
+//     FMA's last ulp of a far hit point would move the pixel. The library
+//     without the define holds only the other instantiation, the kernel
+//     without noise, instruction for instruction.
 //
 // Numerics match the plain version except where nvcc contracts a*b+c into
 // an FMA and where CUDA's sinf/cosf/expf/logf differ from the host's by an
@@ -63,16 +72,25 @@ struct Tables {
   const float* quad;  // [Q, 9] q, u, v
   const float* cab;   // [chunks, 8] lo3, hi3, 0, 0
   const float* lt;    // [n_lights + 1, LT_COLS]; last row = background
+  const float* perlin_vec;   // [256, 3] (noise scenes)
+  const int* perlin_perm;    // [3, 256]
   int w, n_tri_chunks, n_sph, n_quad, t_off, s_off, q_off, n_lights,
       has_checker;
 };
 
+template <bool HAS_NOISE>
 __global__ void __launch_bounds__(ROW)
 trace_wave_kernel(const float* __restrict__ st0,
                   const float* __restrict__ rnd, const Tables tb,
                   float* __restrict__ stf, float* __restrict__ hist,
                   int* __restrict__ kind_out, int* __restrict__ idx_out,
                   int n, int depth) {
+  extern __shared__ float perlin_smem[];     // PERLIN_SMEM bytes if noise
+  Perlin perlin{nullptr, nullptr};
+  if constexpr (HAS_NOISE) {                 // before any vote or break
+    perlin = perlin_load(perlin_smem, tb.perlin_vec, tb.perlin_perm);
+    __syncthreads();
+  }
   const int i = blockIdx.x * ROW + threadIdx.x;
   const bool in = i < n;
   float s[14];
@@ -297,6 +315,11 @@ trace_wave_kernel(const float* __restrict__ st0,
       ay = leaf[1];
       az = leaf[2];
     }
+    if constexpr (HAS_NOISE) {
+      // marble (texture.rs:74-82) at the hit point, in all three channels
+      const float* nz = att + (tb.has_checker ? 13 : 6);   // scale, flag
+      if (nz[1] > 0.5f) ax = ay = az = marble(perlin, p, nz[0]);
+    }
 
     // ---- shading (pallas_shade._plane_core, winner's material) ---------
     const int rb = b * 15;
@@ -423,6 +446,12 @@ trace_wave_kernel(const float* __restrict__ st0,
   for (int c = 0; c < 14; ++c) stf[(size_t)c * n + i] = out[c];
 }
 
+#ifdef TRACE_WAVE_NOISE
+constexpr bool kNoise = true;    // the noise variant's library
+#else
+constexpr bool kNoise = false;
+#endif
+
 }  // namespace
 
 // Launch on ``stream``; returns cudaGetLastError() (0 = launched).
@@ -430,7 +459,9 @@ trace_wave_kernel(const float* __restrict__ st0,
 // rnd [depth, 15, n]; n is a multiple of 128 (each chunk is padded to 1024
 // rays). The tables are those of ops/uber.py:make_ctx. hist [depth, 14, n]
 // float32, kind and idx [depth, n] int32 are the backward's residuals,
-// written only when hist is not null.
+// written only when hist is not null. has_noise must name this library's
+// variant (-1 otherwise); the noise variant reads perlin_vec [256, 3] and
+// perlin_perm [3, 256].
 extern "C" int trace_wave_launch(
     const float* st0, const float* rnd, const float* uni,
     const float* det_t, const float* u_t, const float* v_t,
@@ -438,13 +469,17 @@ extern "C" int trace_wave_launch(
     const float* quad, const float* cab, const float* lt, float* stf,
     float* hist, int* kind, int* idx, int n,
     int depth, int w, int n_tri_chunks, int n_sph, int n_quad, int t_off,
-    int s_off, int q_off, int n_lights, int has_checker, void* stream) {
+    int s_off, int q_off, int n_lights, int has_checker,
+    const float* perlin_vec, const int* perlin_perm, int has_noise,
+    void* stream) {
   Tables tb{uni, det_t, u_t, v_t, t_t, dbl_t, sph, quad, cab, lt,
-            w, n_tri_chunks, n_sph, n_quad, t_off, s_off, q_off, n_lights,
-            has_checker};
+            perlin_vec, perlin_perm, w, n_tri_chunks, n_sph, n_quad, t_off,
+            s_off, q_off, n_lights, has_checker};
+  if ((has_noise != 0) != kNoise) return -1;   // the other library's
   const int blocks = (n + ROW - 1) / ROW;
   if (blocks > 0) {
-    trace_wave_kernel<<<blocks, ROW, 0, static_cast<cudaStream_t>(stream)>>>(
+    trace_wave_kernel<kNoise><<<blocks, ROW, kNoise ? PERLIN_SMEM : 0,
+                                static_cast<cudaStream_t>(stream)>>>(
         st0, rnd, tb, stf, hist, kind, idx, n, depth);
   }
   return static_cast<int>(cudaGetLastError());

@@ -31,7 +31,13 @@
 //     a contributions buffer keyed by winner row, which the host sorts
 //     stably and bwd_reduce sums segment by segment in that fixed order;
 //     the light-table cotangents are summed per block in thread order and
-//     then across blocks in block order. Gradients are bitwise repeatable.
+//     then across blocks in block order. Gradients are bitwise repeatable;
+//   * a scene with Noise textures runs the HAS_NOISE instantiation: the
+//     Perlin tables go to shared memory once per block, before the bounce
+//     loop, and a noise hit recomputes its marble albedo and sends the
+//     albedo's cotangent through marble_vjp (trace_common.cuh) into the hit
+//     point and into its row's scale column; the albedo columns take none.
+//     The other instantiation is the kernel without it.
 //
 // Numerics: no fast-math (IEEE division and sqrt, as the forward), and
 // built with --fmad=false (kernels/__init__.py), so it rounds as its plain
@@ -56,6 +62,8 @@ constexpr int W_MAX = 32;            // winner-row columns a block sums
 struct BwdTables {
   const float* uni;   // [P, w] winner rows (a miss reads none)
   const float* lt;    // [n_lights + 1, LT_COLS]; last row = background
+  const float* perlin_vec;   // [256, 3] (noise scenes)
+  const int* perlin_perm;    // [3, 256]
   int w, n_lights, has_checker, p_rows;
 };
 
@@ -222,6 +230,7 @@ __device__ __forceinline__ void reflect_bwd(V3 ud, V3 n, V3 g_r, V3& g_ud,
   g_n = add(g_n, scl(g_dot, ud));
 }
 
+template <bool HAS_NOISE>
 __global__ void __launch_bounds__(ROW)
 trace_wave_bwd_kernel(const float* __restrict__ hist,
                       const float* __restrict__ rnd,
@@ -231,6 +240,12 @@ trace_wave_bwd_kernel(const float* __restrict__ hist,
                       float* __restrict__ dst, float* __restrict__ contrib,
                       int* __restrict__ keys, float* __restrict__ dlt_part,
                       int n, int depth) {
+  extern __shared__ float perlin_smem[];     // PERLIN_SMEM bytes if noise
+  Perlin perlin{nullptr, nullptr};
+  if constexpr (HAS_NOISE) {                 // before any vote or continue
+    perlin = perlin_load(perlin_smem, tb.perlin_vec, tb.perlin_perm);
+    __syncthreads();
+  }
   const int i = blockIdx.x * ROW + threadIdx.x;   // n % TILE == 0
   const int tile0 = i / TILE * TILE;
   const int w = tb.w;
@@ -337,7 +352,15 @@ trace_wave_bwd_kernel(const float* __restrict__ hist,
                           sinf(10.f * p.z);
       leaf = sines < 0.f ? 9 : 6;
     }
-    const V3 alb = {att[leaf], att[leaf + 1], att[leaf + 2]};
+    V3 alb = {att[leaf], att[leaf + 1], att[leaf + 2]};
+    const int sc_col = tb.has_checker ? 13 : 6;   // noise scale, then flag
+    const bool is_nz = HAS_NOISE && att[sc_col + 1] > 0.5f;
+    if constexpr (HAS_NOISE) {
+      if (is_nz) {
+        const float m = marble(perlin, p, att[sc_col]);
+        alb = {m, m, m};
+      }
+    }
 
     const int rb = b * 15;
     auto R = [&](int c) { return rnd[(size_t)(rb + c) * n + i]; };
@@ -500,6 +523,18 @@ trace_wave_bwd_kernel(const float* __restrict__ hist,
       if (d_dot_n < 0.f) g_a = g_em;
     }
 
+    // ---- adjoint of the marble: the albedo's cotangent, summed over the
+    // three channels, into the hit point and the texture's scale ----------
+    float g_scale = 0.f;
+    if constexpr (HAS_NOISE) {
+      if (is_nz) {
+        const MarbleGrad mg = marble_vjp(perlin, p, att[sc_col],
+                                         g_a.x + g_a.y + g_a.z);
+        g_p = add(g_p, mg.p);
+        g_scale = mg.scale;
+      }
+    }
+
     // ---- adjoint of the hit attributes (hit_plane_core_vjp, winner) ----
     if (flip) g_n.y = -(ny_pre >= 0.f ? g_n.y : -g_n.y);
     float g_pk[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -622,9 +657,13 @@ trace_wave_bwd_kernel(const float* __restrict__ hist,
     for (int k = 0; k < 9; ++k) out[k] = g_pk[k];
     out[A_COL + 1] = g_fuzz;
     out[A_COL + 2] = g_ior;
-    out[A_COL + leaf] = g_a.x;
-    out[A_COL + leaf + 1] = g_a.y;
-    out[A_COL + leaf + 2] = g_a.z;
+    if (is_nz) {
+      out[A_COL + sc_col] = g_scale;
+    } else {
+      out[A_COL + leaf] = g_a.x;
+      out[A_COL + leaf + 1] = g_a.y;
+      out[A_COL + leaf + 2] = g_a.z;
+    }
   }
 
 #pragma unroll
@@ -743,18 +782,26 @@ bwd_reduce_kernel(const float* __restrict__ contrib,
 // launched). hist [depth, 14, n], rnd [depth, 15, n], g and dst [14, n]
 // float32; kind, idx and keys [depth, n] int32; contrib [depth, n, w];
 // dlt_part [n / 128, (n_lights + 1) * 14]. n is a multiple of 1024.
+// has_noise picks the variant with the marble's adjoint, which reads
+// perlin_vec [256, 3] and perlin_perm [3, 256].
 extern "C" int trace_wave_bwd_launch(
     const float* hist, const float* rnd, const int* kind, const int* idx,
     const float* g, const float* uni, const float* lt,
     float* dst, float* contrib, int* keys, float* dlt_part, int n,
     int depth, int w, int p_rows, int n_lights, int has_checker,
+    const float* perlin_vec, const int* perlin_perm, int has_noise,
     void* stream) {
   if (n % TILE != 0 || (n_lights + 1) * LT_COLS > MAX_LT) return -1;
-  BwdTables tb{uni, lt, w, n_lights, has_checker, p_rows};
+  BwdTables tb{uni, lt, perlin_vec, perlin_perm, w, n_lights, has_checker,
+               p_rows};
   const int blocks = n / ROW;
-  if (blocks > 0) {
-    trace_wave_bwd_kernel<<<blocks, ROW, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (blocks > 0 && has_noise) {
+    trace_wave_bwd_kernel<true><<<blocks, ROW, PERLIN_SMEM, s>>>(
+        hist, rnd, kind, idx, g, tb, dst, contrib, keys, dlt_part, n,
+        depth);
+  } else if (blocks > 0) {
+    trace_wave_bwd_kernel<false><<<blocks, ROW, 0, s>>>(
         hist, rnd, kind, idx, g, tb, dst, contrib, keys, dlt_part, n,
         depth);
   }

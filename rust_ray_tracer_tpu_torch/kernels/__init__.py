@@ -1,11 +1,12 @@
 """Build and bind the package's hand-written CUDA kernels (``csrc/``).
 
-Every ``csrc/*.cu`` is compiled at first use with ``nvcc`` for Hopper
-(``-gencode arch=compute_90a,code=sm_90a``, no fast-math) into a shared
-library with plain C entry points, one ``nvcc`` per source, all started
-together, under ``build/torch_kernels/`` at the root of the checkout,
-keyed by a hash of the sources (headers included) and flags so an edit
-rebuilds them. They are loaded with ctypes; pointers come from
+Every library of :data:`LIBRARIES` is compiled at first use from its
+``csrc/*.cu`` with ``nvcc`` for Hopper (``-gencode
+arch=compute_90a,code=sm_90a``, no fast-math) into a shared library with
+plain C entry points, one ``nvcc`` per library, all started together,
+under ``build/torch_kernels/`` at the root of the checkout, keyed by a
+hash of the source (headers included) and flags so an edit rebuilds
+them. They are loaded with ctypes; pointers come from
 ``Tensor.data_ptr()`` and the stream from
 ``torch.cuda.current_stream().cuda_stream``. Importing this module needs
 no ``nvcc`` and no GPU.
@@ -21,7 +22,13 @@ Kernels (each wrapper counts its launches in ``launches``):
     the fixed-order sums of the winner-row and light-table cotangents
     (the in-kernel accumulation of ``pallas_uber.py:979-1012``).
     :func:`trace_backward` chains them; its plain version is
-    ``ops/uber.trace_wave_bwd_plain``.
+    ``ops/uber.trace_wave_bwd_plain``;
+  * ``trace_wave_noise_kernel`` and ``trace_wave_bwd_noise_kernel`` — the
+    variants of the first two, from the same sources, for scenes with
+    Noise textures: they also evaluate the marble (TPU kernel C,
+    ``pallas_bounce._noise_row`` / ``_marble_row``) and its adjoint.
+    :func:`trace_kernel` and :func:`trace_bwd_kernel` pick the variant for
+    a ``TraceCtx``; each wrapper refuses a context of the other kind.
 """
 
 from __future__ import annotations
@@ -46,12 +53,20 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("trace_wave", "trace_wave_bwd")
-# the backward rounds as its plain version does: no a*b+c contraction, so
-# its recomputed forward and adjoint of an ill-conditioned hit (a ray
-# grazing a large sphere) stay within the comparison's budget; it is bound
-# by memory, so the unfused instructions cost little
-EXTRA_FLAGS = {"trace_wave_bwd": ("--fmad=false",)}
+# library -> (source in csrc/, extra nvcc flags). The backward rounds as
+# its plain version does: no a*b+c contraction, so its recomputed forward
+# and adjoint of an ill-conditioned hit (a ray grazing a large sphere) stay
+# within the comparison's budget; it is bound by memory, so the unfused
+# instructions cost little. The forward's noise variant is the same source
+# built without contraction too: the marble's albedo moves ~50 per unit of
+# the hit point, so an FMA's last-ulp change of a far hit point (|p| ~ 1000
+# on a noise ground) moves a pixel by more than the comparison's 1e-3.
+LIBRARIES = {
+    "trace_wave": ("trace_wave", ()),
+    "trace_wave_noise": ("trace_wave", ("--fmad=false",
+                                        "-DTRACE_WAVE_NOISE=1")),
+    "trace_wave_bwd": ("trace_wave_bwd", ("--fmad=false",)),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,9 +87,10 @@ def _nvcc() -> str:
 
 
 def _library(name: str) -> Path:
+    source, extra = LIBRARIES[name]
     headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    flags = " ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, ()))
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + headers
+    flags = " ".join(NVCC_FLAGS + extra)
+    digest = hashlib.sha256((CSRC / f"{source}.cu").read_bytes() + headers
                             + flags.encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
@@ -83,11 +99,11 @@ _BUILDS: dict[str, Build] = {}
 
 
 def build_all() -> dict[str, Build]:
-    """Compile every source in :data:`SOURCES` whose library for these
-    sources and flags does not exist yet, one ``nvcc`` each, all at once;
-    raises if any fails."""
+    """Compile every library of :data:`LIBRARIES` that does not exist yet
+    for these sources and flags, one ``nvcc`` each, all at once; raises if
+    any fails."""
     todo = {}
-    for name in SOURCES:
+    for name, (source, extra) in LIBRARIES.items():
         out = _library(name)
         if name in _BUILDS and _BUILDS[name].path == out:
             continue
@@ -98,8 +114,8 @@ def build_all() -> dict[str, Build]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-I",
-               str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{source}.cu")]
         todo[name] = (out, tmp, cmd, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
@@ -119,7 +135,8 @@ def build_all() -> dict[str, Build]:
 
 
 def build(name: str) -> Build:
-    """The library of ``csrc/<name>.cu`` (building every source first)."""
+    """The library ``name`` of :data:`LIBRARIES` (building every library
+    first)."""
     return build_all()[name]
 
 
@@ -140,11 +157,11 @@ def _check(name, t, device, shape=None, dtype=torch.float32):
 
 
 class _Kernel:
-    """A ctypes-bound C entry point ``entry`` of the library built from
-    ``csrc/<source>.cu``; ``argtypes`` precede the stream argument.
+    """A ctypes-bound C entry point ``entry`` of the library ``library``
+    of :data:`LIBRARIES`; ``argtypes`` precede the stream argument.
     ``launches`` counts the kernel launches this wrapper has made."""
 
-    name = source = entry = ""
+    name = library = entry = ""
     argtypes: tuple = ()
 
     def __init__(self):
@@ -155,7 +172,7 @@ class _Kernel:
     def load(self) -> Build:
         """Build (if needed) and bind the library; returns the build."""
         if self._fn is None:
-            self.build_info = build(self.source)
+            self.build_info = build(self.library)
             fn = getattr(ctypes.CDLL(str(self.build_info.path)), self.entry)
             fn.argtypes = list(self.argtypes) + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -174,12 +191,40 @@ class _Kernel:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-class TraceWaveKernel(_Kernel):
-    """ctypes wrapper of ``trace_wave_launch`` (kernel A)."""
+def _attr_cols(ctx) -> int:
+    """Winner-row columns the kernels read: the material attrs up to the
+    albedo, the checker leaves and flag, then the noise scale and flag."""
+    return A_COL + (13 if ctx.has_checker else 6) + (2 if ctx.has_noise
+                                                     else 0)
 
-    name = source = "trace_wave"
+
+def _perlin_args(ctx, dev, noise: bool):
+    """(vec, perm, has_noise) arguments of a launch; null tables for the
+    variant without noise."""
+    if not noise:
+        return ctypes.c_void_p(None), ctypes.c_void_p(None), 0
+    vec, perm = ctx.perlin
+    _check("perlin vec", vec, dev, (256, 3))
+    _check("perlin perm", perm, dev, (3, 256), torch.int32)
+    return _ptr(vec), _ptr(perm), 1
+
+
+def _check_variant(kernel, ctx):
+    if ctx.has_noise != kernel.noise:
+        which = "with" if kernel.noise else "without"
+        has = "has" if ctx.has_noise else "has no"
+        raise ValueError(f"{kernel.name} is the variant {which} marble "
+                         f"noise, the scene {has} noise textures")
+
+
+class TraceWaveKernel(_Kernel):
+    """ctypes wrapper of ``trace_wave_launch`` (kernel A), the variant
+    without noise."""
+
+    name = library = "trace_wave"
     entry = "trace_wave_launch"
-    argtypes = (_P,) * 16 + (_I,) * 11
+    argtypes = (_P,) * 16 + (_I,) * 11 + (_P, _P, _I)
+    noise = False
 
     def __call__(self, st0: torch.Tensor, rnd: torch.Tensor, ctx,
                  depth: int, residuals: bool = False):
@@ -196,9 +241,8 @@ class TraceWaveKernel(_Kernel):
         if n < 0 or n % 128:
             raise ValueError(f"st0 must be [{N_STATE}, N] with N % 128 == 0, "
                              f"got {tuple(st0.shape)}")
-        # the kernel reads the material attrs up to MATTR_ALBEDO, and up to
-        # MATTR_ISCHK with checkers
-        w_min = A_COL + (13 if ctx.has_checker else 6)
+        _check_variant(self, ctx)
+        w_min = _attr_cols(ctx)
         _check("st0", st0, dev, (N_STATE, n))
         _check("rnd", rnd, dev, (depth, N_RND, n))
         _check("uni", ctx.uni, dev)
@@ -215,6 +259,7 @@ class TraceWaveKernel(_Kernel):
         _check("quad", ctx.quad, dev, (ctx.quad.shape[0], 9))
         _check("cab", ctx.cab, dev, (max(1, -(-tp // TCC)), 8))
         _check("lt", ctx.lt, dev, (ctx.n_lights + 1, LT_COLS))
+        perlin = _perlin_args(ctx, dev, self.noise)
         self.load()
         stf = torch.empty_like(st0)
         null = ctypes.c_void_p(None)
@@ -233,24 +278,35 @@ class TraceWaveKernel(_Kernel):
             _ptr(idx) if residuals else null, n, depth, ctx.uni.shape[1],
             ctx.n_tri_chunks, ctx.sph.shape[0] if ctx.n_sph else 0,
             ctx.quad.shape[0] if ctx.n_quad else 0, ctx.t_off, ctx.s_off,
-            ctx.q_off, ctx.n_lights, int(ctx.has_checker))
+            ctx.q_off, ctx.n_lights, int(ctx.has_checker), *perlin)
         return (stf, hist, kind, idx) if residuals else stf
 
 
+class TraceWaveNoiseKernel(TraceWaveKernel):
+    """Kernel A's variant with the marble noise of TPU kernel C, for a
+    scene with Noise textures: the same source and entry point, built into
+    its own library without FMA contraction."""
+
+    name = library = "trace_wave_noise"
+    noise = True
+
+
 trace_wave_kernel = TraceWaveKernel()
+trace_wave_noise_kernel = TraceWaveNoiseKernel()
 
 
 class TraceWaveBwdKernel(_Kernel):
-    """ctypes wrapper of ``trace_wave_bwd_launch`` (kernel B): the
-    adjoint of every bounce of a wave, replayed from the forward's
-    residuals. Returns dst [14, N], the per-(bounce, ray) winner-row
-    cotangents ``contrib`` [depth, N, W] with their winner rows ``keys``
-    [depth, N] int32 (P where the ray found none), and the per-block
-    light-table partials [N / 128, (n_lights + 1) * 14]."""
+    """ctypes wrapper of ``trace_wave_bwd_launch`` (kernel B), the variant
+    without noise: the adjoint of every bounce of a wave, replayed from
+    the forward's residuals. Returns dst [14, N], the per-(bounce, ray)
+    winner-row cotangents ``contrib`` [depth, N, W] with their winner rows
+    ``keys`` [depth, N] int32 (P where the ray found none), and the
+    per-block light-table partials [N / 128, (n_lights + 1) * 14]."""
 
-    name = source = "trace_wave_bwd"
+    name = library = "trace_wave_bwd"
     entry = "trace_wave_bwd_launch"
-    argtypes = (_P,) * 11 + (_I,) * 6
+    argtypes = (_P,) * 11 + (_I,) * 6 + (_P, _P, _I)
+    noise = False
 
     def __call__(self, hist, rnd, kind, idx, ctx, g):
         dev = g.device
@@ -272,10 +328,12 @@ class TraceWaveBwdKernel(_Kernel):
         _check("rnd", rnd, dev, (depth, N_RND, n))
         _check("kind", kind, dev, (depth, n), torch.int32)
         _check("idx", idx, dev, (depth, n), torch.int32)
+        _check_variant(self, ctx)
         _check("uni", ctx.uni, dev)
-        if w < A_COL + (13 if ctx.has_checker else 6):
+        if w < _attr_cols(ctx):
             raise ValueError(f"uni has {w} columns")
         _check("lt", ctx.lt, dev, (ctx.n_lights + 1, LT_COLS))
+        perlin = _perlin_args(ctx, dev, self.noise)
         self.load()
         dst = torch.empty_like(g)
         contrib = torch.empty((depth, n, w), dtype=torch.float32, device=dev)
@@ -284,8 +342,16 @@ class TraceWaveBwdKernel(_Kernel):
         self._launch(dev, _ptr(hist), _ptr(rnd), _ptr(kind), _ptr(idx),
                      _ptr(g), _ptr(ctx.uni), _ptr(ctx.lt), _ptr(dst),
                      _ptr(contrib), _ptr(keys), _ptr(part), n, depth, w,
-                     p_rows, ctx.n_lights, int(ctx.has_checker))
+                     p_rows, ctx.n_lights, int(ctx.has_checker), *perlin)
         return dst, contrib, keys, part
+
+
+class TraceWaveBwdNoiseKernel(TraceWaveBwdKernel):
+    """Kernel B's variant with the adjoint of the marble noise (TPU kernel
+    C), for a scene with Noise textures."""
+
+    name = "trace_wave_bwd_noise"
+    noise = True
 
 
 PIECE = 1024     # contributions one reduction block sums at most
@@ -301,7 +367,7 @@ class BwdReduceKernel(_Kernel):
     repeatable."""
 
     name = "bwd_reduce"
-    source = "trace_wave_bwd"
+    library = "trace_wave_bwd"
     entry = "bwd_reduce_launch"
     argtypes = (_P,) * 3 + (_I,) * 4 + (_P,) * 3 + (_I,) * 2 + (_P,) * 2
 
@@ -336,7 +402,19 @@ class BwdReduceKernel(_Kernel):
 
 
 trace_wave_bwd_kernel = TraceWaveBwdKernel()
+trace_wave_bwd_noise_kernel = TraceWaveBwdNoiseKernel()
 bwd_reduce_kernel = BwdReduceKernel()
+
+
+def trace_kernel(ctx) -> TraceWaveKernel:
+    """Kernel A's variant for ``ctx``: with marble noise or without."""
+    return trace_wave_noise_kernel if ctx.has_noise else trace_wave_kernel
+
+
+def trace_bwd_kernel(ctx) -> TraceWaveBwdKernel:
+    """Kernel B's variant for ``ctx``: with marble noise or without."""
+    return (trace_wave_bwd_noise_kernel if ctx.has_noise
+            else trace_wave_bwd_kernel)
 
 
 def reduce_order(keys: torch.Tensor, p_rows: int):
@@ -351,12 +429,12 @@ def reduce_order(keys: torch.Tensor, p_rows: int):
 
 
 def trace_backward(hist, rnd, kind, idx, ctx, g):
-    """The trace's backward on the card: kernel B, the stable sort of its
-    row keys, then ``bwd_reduce``. Returns (dst [14, N], duni like
-    ``ctx.uni``, dlt like ``ctx.lt``), as
+    """The trace's backward on the card: kernel B (its variant for
+    ``ctx``), the stable sort of its row keys, then ``bwd_reduce``.
+    Returns (dst [14, N], duni like ``ctx.uni``, dlt like ``ctx.lt``), as
     ``ops.uber.trace_wave_bwd_plain``."""
-    dst, contrib, keys, part = trace_wave_bwd_kernel(hist, rnd, kind, idx,
-                                                     ctx, g)
+    dst, contrib, keys, part = trace_bwd_kernel(ctx)(hist, rnd, kind, idx,
+                                                    ctx, g)
     perm, offs = reduce_order(keys, ctx.uni.shape[0])
     duni, dlt = bwd_reduce_kernel(contrib, perm, offs, part)
     return dst, duni, dlt.reshape(ctx.lt.shape)

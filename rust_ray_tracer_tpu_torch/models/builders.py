@@ -1,7 +1,10 @@
 """Built-in procedural scenes.
 
-Counterpart of ``rust_ray_tracer_tpu/models/builders.py``: ``cornell_box``
-and ``cornell_triangle`` (``builders.py:134-176``) with the same content,
+Counterpart of ``rust_ray_tracer_tpu/models/builders.py``: ``random``,
+``perlin_spheres`` and ``rect_light`` (``builders.py:51-131``, the
+marble-noise scenes; ``random`` draws its layout with the same
+``np.random.default_rng(seed)`` sequence), ``cornell_box`` and
+``cornell_triangle`` (``builders.py:134-176``) with the same content,
 camera poses (``look_at_rh`` fed as camera-to-world, the reference quirk)
 and light lists, plus :func:`flagship` — the procedural scene of
 ``__graft_entry__._flagship_scene`` (968 random triangles and a sphere
@@ -21,19 +24,89 @@ from rust_ray_tracer_tpu_torch.ops.camera import look_at_rh, make_camera
 
 # scene -> (what it needs, ROADMAP queue 1 item that ports it)
 _NOT_PORTED = {
-    "random": ("noise and image textures", "9"),
     "two_spheres": ("image textures", "12"),
-    "perlin_spheres": ("noise textures", "9"),
     "earth": ("image textures", "12"),
-    "rect_light": ("noise textures", "9"),
-    "final_scene": ("media, noise and image textures", "11"),
+    "final_scene": ("media and image textures", "11"),
     "composite": ("glTF meshes", "4"),
 }
+
+_SKY = (0.7, 0.8, 1.0)
 
 
 def _camera(lookfrom, lookat, vfov, aspect, time0=0.0, time1=1.0):
     c2w = look_at_rh(lookfrom, lookat, (0.0, 1.0, 0.0))
     return make_camera(c2w, vfov, aspect, time0, time1)
+
+
+def _earth_texture():
+    # ImageTexture::from_file("./earthmap.jpg"): the file does not exist in
+    # the reference repo either -> solid yellow fallback (texture.rs:129).
+    return S.ImageTexture(path="./earthmap.jpg")
+
+
+def random_scene(aspect: float, seed: int = 0) -> S.Scene:
+    """`random_scene` + Random camera wiring (scene.rs:33-92,411-426): a
+    Noise(4) ground, up to 900 small spheres (moving Lambertian, metal,
+    dielectric) and three large ones, a bright sky, no lights."""
+    rng = np.random.default_rng(seed)
+    world: list = []
+    world.append(S.Sphere((0, -1000, 0), 1000.0,
+                          S.Lambertian(S.Noise(4.0))))
+    comp = np.array([4.0, 0.2, 0.0])
+    for a in range(-15, 15):
+        for b in range(-15, 15):
+            choose_mat = rng.random()
+            center = np.array([a + 0.9 * rng.random(), 0.2,
+                               b + 0.9 * rng.random()], np.float32)
+            if np.linalg.norm(center - comp) <= 0.9:
+                continue
+            if choose_mat < 0.8:
+                albedo = rng.random(3).astype(np.float32)
+                c1 = center + np.array([0, rng.uniform(0, 0.5), 0],
+                                       np.float32)
+                world.append(S.MovingSphere(center, c1, 0.0, 1.0, 0.2,
+                                            S.Lambertian.from_color(albedo)))
+            elif choose_mat < 0.95:
+                albedo = rng.random(3).astype(np.float32)
+                world.append(S.Sphere(center, 0.2,
+                                      S.Metal(albedo, rng.uniform(0, 0.5))))
+            else:
+                world.append(S.Sphere(center, 0.2, S.Dielectric(1.5)))
+    world.append(S.Sphere((-4, 1, 0), 1.0,
+                          S.Lambertian.from_rgb(0.4, 0.2, 0.1)))
+    world.append(S.Sphere((0, 1, 0), 1.0, S.Dielectric(1.5)))
+    world.append(S.Sphere((4, 1, 0), 1.0, S.Lambertian(_earth_texture())))
+    cam = _camera((13, -2, 3), (0, 0, 0), 20.0, aspect)
+    return S.Scene(camera=cam, world=world, lights=[], background=_SKY)
+
+
+def perlin_spheres(aspect: float, seed: int = 0) -> S.Scene:
+    """scene.rs:123-141,442-456: two spheres sharing one Noise(4)."""
+    pertex = S.Noise(4.0)
+    world = [
+        S.Sphere((0, -1000, 0), 1000.0, S.Lambertian(pertex)),
+        S.Sphere((0, 1, 0), 1.0, S.Lambertian(pertex)),
+    ]
+    cam = _camera((13, -2, 7), (0, 0, 0), 20.0, aspect)
+    return S.Scene(camera=cam, world=world, lights=[], background=_SKY)
+
+
+def rect_light(aspect: float, seed: int = 0) -> S.Scene:
+    """`simple_light` + RectLight wiring (scene.rs:155-189,472-495)."""
+    diff_light = S.DiffuseLight.from_color((4, 4, 4))
+    world = [
+        S.Sphere((0, -1000, 0), 1000.0, S.Lambertian(S.Noise(4.0))),
+        S.Sphere((0, 2, 0), 2.0, S.Metal((0.5, 0.5, 0.5), 0.1)),
+        S.XYRect(3.0, 5.0, 1.0, 3.0, -2.0, diff_light),
+        S.Sphere((0, 6, 0), 1.0, diff_light),
+    ]
+    # the light list holds an XYRect — which has NO pdf/random impl in the
+    # reference (only XZRect does, aarect.rs:123-143) -> LIGHT_NULL semantics
+    lights = [S.XYRect(3.0, 5.0, 1.0, 3.0, -2.0,
+                       S.DiffuseLight.from_color((1, 1, 1)))]
+    cam = _camera((26, -6, 6), (0, -2, 0), 20.0, aspect)
+    return S.Scene(camera=cam, world=world, lights=lights,
+                   background=(0, 0, 0))
 
 
 def _cornell_walls(light_flipped: bool):
@@ -100,6 +173,9 @@ def flagship() -> S.Scene:
 
 
 _BUILDERS = {
+    "random": random_scene,
+    "perlin_spheres": perlin_spheres,
+    "rect_light": rect_light,
     "cornell_box": cornell_box,
     "cornell_triangle": cornell_triangle,
 }

@@ -2,22 +2,24 @@
 
 Counterpart of ``rust_ray_tracer_tpu/models/scene.py``: the same host-side
 object API (Sphere, MovingSphere, Triangle, Quad and the XY/XZ/YZ rects,
-Cuboid, Translate, RotateY, FlipFace, the five materials, Solid and
-Checker textures) and the same ``compile_scene`` (``scene.py:755``), which
-bakes instance transforms into the primitives, lowers rects and cuboid
-faces to parallelogram quads, Morton-sorts and pads each primitive kind,
-and emits per-cluster AABBs. The arithmetic is the JAX package's float32
-numpy, so the tables are identical; they are emitted as torch tensors in
-a :class:`SceneData` dataclass.
+Cuboid, Translate, RotateY, FlipFace, the five materials, Solid, Checker
+and Noise textures) and the same ``compile_scene`` (``scene.py:755``),
+which bakes instance transforms into the primitives, lowers rects and
+cuboid faces to parallelogram quads, Morton-sorts and pads each primitive
+kind, emits per-cluster AABBs and draws the seeded Perlin tables. The
+arithmetic is the JAX package's float32 numpy, so the tables are
+identical; they are emitted as torch tensors in a :class:`SceneData`
+dataclass.
 
-Not yet ported (each raises ``NotImplementedError``): Noise textures
-(ROADMAP queue 1 item 9), image textures (item 12), Mesh and glTF
-(item 4), ConstantMedium (item 11).
+Not yet ported (each raises ``NotImplementedError``): decoding an image
+texture's file (ROADMAP queue 1 item 12; a missing file is solid yellow, as
+in JAX), Mesh and glTF (item 4), ConstantMedium (item 11).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Sequence, Union
 
 import numpy as np
@@ -42,6 +44,7 @@ LIGHT_SPHERE = 0     # sphere.rs:101-119 (solid angle pdf + cone sampling)
 LIGHT_QUAD = 1       # aarect.rs:123-143 (XZRect area pdf + uniform sampling)
 LIGHT_NULL = 2       # Hittable defaults: pdf=0, random=(1,0,0)
 
+PERLIN_N = 256       # perlin.rs:6
 CLUSTER = 128        # min triangles per culling cluster
 MAX_CLUSTERS = 512   # cap on cluster count K
 
@@ -226,13 +229,18 @@ class Checker:
 
 @dataclasses.dataclass(frozen=True)
 class Noise:
-    """Marble noise (texture.rs:60-82) — not yet ported."""
+    """Marble noise (texture.rs:60-82) of frequency ``scale``."""
     scale: float
 
 
 @dataclasses.dataclass(frozen=True)
 class ImageTexture:
-    """Image texture (texture.rs:84-131) — not yet ported."""
+    """Image texture (texture.rs:84-131). A missing file (or no path) is
+    solid yellow, as in the reference (texture.rs:129) and the JAX package
+    (``scene.py:530-534``). A file that exists raises
+    ``NotImplementedError`` at compile time: the port does not decode
+    images yet (ROADMAP queue 1 item 12), where the JAX package would
+    decode it, or turn an undecodable file yellow."""
     path: str | None = None
 
 
@@ -467,9 +475,12 @@ class _Builder:
             odd = self.texture_id(_as_texture(tex.odd))
             row = dict(kind=TEX_CHECKER, even=even, odd=odd)
         elif isinstance(tex, Noise):
-            raise _not_ported("Noise texture", "9")
+            row = dict(kind=TEX_NOISE, scale=float(tex.scale))
         elif isinstance(tex, ImageTexture):
-            raise _not_ported("ImageTexture", "12")
+            if tex.path is not None and os.path.exists(tex.path):
+                raise _not_ported(f"decoding the ImageTexture {tex.path!r}",
+                                  "12")
+            row = dict(kind=TEX_SOLID, color=_v((1.0, 1.0, 0.0)))
         else:
             raise TypeError(f"unknown texture {tex!r}")
         tid = len(self.textures)
@@ -629,9 +640,15 @@ def _light_rows(lights):
     return rows
 
 
-def compile_scene(scene: Scene, device=device_mod.DEFAULT) -> SceneData:
+def compile_scene(scene: Scene, *, seed: int = 0,
+                  device=device_mod.DEFAULT) -> SceneData:
     """Flatten a host Scene into tensors on ``device`` (the card unless
     ``device="cpu"``; raises without one).
+
+    ``seed`` seeds the Perlin tables as the JAX ``compile_scene(scene,
+    seed)`` does (``np.random.default_rng(seed)``: the gradients, then the
+    three permutations); they are drawn only when a Noise texture exists,
+    and are 0-length otherwise.
 
     Triangles are Morton-sorted and padded to a multiple of the cluster
     width (CLUSTER, doubled until at most MAX_CLUSTERS clusters) with
@@ -728,6 +745,16 @@ def compile_scene(scene: Scene, device=device_mod.DEFAULT) -> SceneData:
     # tex_even / tex_odd are length 0
     has_checker = any(t.get("kind") == TEX_CHECKER for t in texs)
     no_chk = np.zeros((0,), np.int32)
+    # perlin tables (seeded; the reference's are unseeded thread_rng,
+    # perlin.rs:14-30): drawn in the JAX package's order
+    if any(t.get("kind") == TEX_NOISE for t in texs):
+        prng = np.random.default_rng(seed)
+        perlin_vec = prng.uniform(-1.0, 1.0, (PERLIN_N, 3)).astype(np.float32)
+        perms = [prng.permutation(PERLIN_N).astype(np.int32)
+                 for _ in range(3)]
+    else:
+        perlin_vec = np.zeros((0, 3), np.float32)
+        perms = [no_chk] * 3
 
     def light_col(i, shape):
         return np.asarray([r[i] for r in lrows], np.float32).reshape(
@@ -771,8 +798,8 @@ def compile_scene(scene: Scene, device=device_mod.DEFAULT) -> SceneData:
         tex_image=t(tfield("image", 0, np.int32)),
         img_data=t(np.zeros((0, 1, 1, 3), np.float32)),
         img_size=t(np.ones((0, 2), np.int32)),
-        perlin_vec=t(np.zeros((0, 3), np.float32)),
-        perlin_px=t(no_chk), perlin_py=t(no_chk), perlin_pz=t(no_chk),
+        perlin_vec=t(perlin_vec),
+        perlin_px=t(perms[0]), perlin_py=t(perms[1]), perlin_pz=t(perms[2]),
         light_kind=t(np.asarray([r[0] for r in lrows], np.int32)),
         light_c=t(light_col(1, (3,))),
         light_r=t(light_col(2, ())),

@@ -4,8 +4,8 @@ per-ray planes.
 Counterpart of ``rust_ray_tracer_tpu/ops/pallas_bounce.py``:
 :func:`bounce_plane_core` is the plain version of ``_bounce_plane_core``
 (``pallas_bounce.py:178-280``), including the in-kernel checker select
-(``:208-218``). The marble-noise branch (``:219-238``) is not ported yet
-(ROADMAP queue 2 C); noise scenes are refused before they get here.
+(``:208-218``) and the marble-noise branch (``:219-238``, TPU kernel C,
+through :func:`ops.perlin.marble`).
 
 Input plane layout (rows of ``P``):
   0..18  : hit_core layout (o3 d3 time tmin tmax pack9 tmed)
@@ -15,11 +15,12 @@ Input plane layout (rows of ``P``):
   30..38 : ub (9 uniforms)       39..44 : gb (6 normals)
   45     : alive (0/1 float)
   46..51 : checker even / odd leaf colors (checker scenes only)
+  last   : the winner's noise frequency scale (noise scenes only)
 Output: ``[N_OUT_B, ...]`` = o'(3) d'(3) L'(3) beta'(3) alive'.
 
 :func:`bounce_plane_core_vjp` is its hand-derived adjoint, composed from
-:func:`ops.hit_core.hit_plane_core_vjp` and
-:func:`ops.shade_core.plane_core_vjp`.
+:func:`ops.hit_core.hit_plane_core_vjp`,
+:func:`ops.shade_core.plane_core_vjp` and :func:`ops.perlin.marble_vjp`.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from rust_ray_tracer_tpu_torch.ops.hit_core import N_IN as N_HIT
 from rust_ray_tracer_tpu_torch.ops.hit_core import (hit_plane_core,
                                                     hit_plane_core_vjp)
 from rust_ray_tracer_tpu_torch.ops.intersect import KIND_NONE
+from rust_ray_tracer_tpu_torch.ops.perlin import marble, marble_vjp
 from rust_ray_tracer_tpu_torch.ops.shade_core import (_mask, plane_core,
                                                       plane_core_vjp)
 
@@ -38,19 +40,35 @@ N_CHK = 6
 N_OUT_B = 13
 
 
+def _noise_inputs(P, pkind, flags, px, py, pz, has_checker):
+    """(is_nz, gx, gy, gz, scale): the noise lanes — a hit whose winner has
+    the noise flag (a miss may carry material 0's flag) — and the marble's
+    inputs, p zeroed on the other lanes (``pallas_bounce.py:225-230``)."""
+    is_nz = ((flags & 4) > 0) & (pkind != KIND_NONE)
+    zero = torch.zeros_like(px)
+    return (is_nz, torch.where(is_nz, px, zero), torch.where(is_nz, py, zero),
+            torch.where(is_nz, pz, zero),
+            P[N_IN_B + (N_CHK if has_checker else 0)])
+
+
 def bounce_plane_core(P, pkind, mkind, flags, lt, n_lights: int,
-                      has_checker: bool = False):
+                      has_checker: bool = False, has_noise: bool = False,
+                      tables=None):
     """One bounce for rays laid out as planes.
 
     Args:
-      P: ``[N_IN_B (+N_CHK), ...]`` planes (layout in the module docstring).
+      P: ``[N_IN_B (+N_CHK) (+1), ...]`` planes (layout in the module
+        docstring).
       pkind: int32 primitive kind plane (``KIND_NONE`` = miss).
       mkind: int32 material kind plane.
-      flags: int32 plane — bit 0 FlipFace, bit 1 checker texture.
+      flags: int32 plane — bit 0 FlipFace, bit 1 checker texture, bit 2
+        marble-noise texture.
       lt: ``[n_lights + 1, LT_COLS]`` light table plus a trailing
         background row (cols 0..2 = background RGB).
       n_lights: light count.
       has_checker: evaluate the checker select at the hit point.
+      has_noise: evaluate the marble noise at the hit point, from
+        ``tables`` (an :class:`ops.perlin.PerlinTables`).
     """
     hit_out = hit_plane_core(P[:N_HIT], pkind, flags & 1)
     px, py, pz = hit_out[1], hit_out[2], hit_out[3]
@@ -66,6 +84,14 @@ def bounce_plane_core(P, pkind, mkind, flags, lt, n_lights: int,
         ax = torch.where(is_chk, torch.where(odd, P[49], P[46]), ax)
         ay = torch.where(is_chk, torch.where(odd, P[50], P[47]), ay)
         az = torch.where(is_chk, torch.where(odd, P[51], P[48]), az)
+    if has_noise:
+        # marble (texture.rs:74-82) at the hit point, all three channels
+        is_nz, gx, gy, gz, scale = _noise_inputs(P, pkind, flags, px, py,
+                                                 pz, has_checker)
+        m = marble(tables, gx, gy, gz, scale)
+        ax = torch.where(is_nz, m, ax)
+        ay = torch.where(is_nz, m, ay)
+        az = torch.where(is_nz, m, az)
 
     data = (P[3], P[4], P[5], px, py, pz, nx, ny, nz, ax, ay, az,
             P[22], P[23])
@@ -108,13 +134,17 @@ def bounce_plane_core(P, pkind, mkind, flags, lt, n_lights: int,
 
 
 def bounce_plane_core_vjp(P, pkind, mkind, flags, lt, n_lights: int,
-                          has_checker: bool, cot):
+                          has_checker: bool, cot, has_noise: bool = False,
+                          tables=None):
     """Adjoint of :func:`bounce_plane_core`: (dP like ``P``, dlt like
     ``lt``) for output cotangents ``cot`` ``[N_OUT_B, ...]``.
 
     Counterpart of ``jax.vjp`` of ``pallas_bounce._bounce_plane_core``
     (``pallas_bounce.py:178-280``): the checker's sin-product sign picks
-    the leaf and only that leaf takes the albedo cotangent; a miss adds
+    the leaf and only that leaf takes the albedo cotangent; on a noise
+    lane the three albedo cotangents, summed, go through
+    :func:`ops.perlin.marble_vjp` into the hit point and the scale plane,
+    and the albedo planes take none; a miss adds
     ``beta * background`` (the background row takes ``L``'s cotangent
     times beta); a dead lane passes o, d, L and beta through unchanged.
     The alive planes (in and out) take none.
@@ -131,6 +161,13 @@ def bounce_plane_core_vjp(P, pkind, mkind, flags, lt, n_lights: int,
         ax = torch.where(is_chk, torch.where(odd, P[49], P[46]), ax)
         ay = torch.where(is_chk, torch.where(odd, P[50], P[47]), ay)
         az = torch.where(is_chk, torch.where(odd, P[51], P[48]), az)
+    if has_noise:
+        is_nz, gx, gy, gz, scale = _noise_inputs(P, pkind, flags, px, py,
+                                                 pz, has_checker)
+        m = marble(tables, gx, gy, gz, scale)
+        ax = torch.where(is_nz, m, ax)
+        ay = torch.where(is_nz, m, ay)
+        az = torch.where(is_nz, m, az)
     data = (P[3], P[4], P[5], px, py, pz, nx, ny, nz, ax, ay, az,
             P[22], P[23])
     rng = tuple(P[30 + i] for i in range(15))
@@ -165,6 +202,13 @@ def bounce_plane_core_vjp(P, pkind, mkind, flags, lt, n_lights: int,
                                    g_em + g_wt + g_sd + [zero])
     dlt = dlt + dlt_s
     g_a = d_data[9:12]
+    g_pn = [zero, zero, zero]           # the marble's share of p's cotangent
+    if has_noise:
+        g_m = _mask(is_nz, g_a[0] + g_a[1] + g_a[2])
+        *g_pn, g_sc = marble_vjp(tables, gx, gy, gz, scale, g_m)
+        g_pn = [_mask(is_nz, g) for g in g_pn]
+        dP[N_IN_B + (N_CHK if has_checker else 0)] = g_sc
+        g_a = [_mask(~is_nz, g) for g in g_a]
     if has_checker:
         for i in range(3):
             dP[19 + i] = _mask(~is_chk, g_a[i])
@@ -173,7 +217,8 @@ def bounce_plane_core_vjp(P, pkind, mkind, flags, lt, n_lights: int,
     else:
         dP[19:22] = torch.stack(g_a)
     dP[22], dP[23] = d_data[12], d_data[13]
-    g_hit = torch.stack([zero] + [g + dd for g, dd in zip(g_p, d_data[3:6])]
+    g_hit = torch.stack([zero] + [g + dd + gn for g, dd, gn in
+                                  zip(g_p, d_data[3:6], g_pn)]
                         + list(d_data[6:9]) + [zero] * 5)
     dP[:N_HIT] = hit_plane_core_vjp(P[:N_HIT], pkind, flags & 1, g_hit)
     for i in range(3):

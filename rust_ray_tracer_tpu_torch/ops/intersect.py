@@ -3,7 +3,8 @@ triangle coefficients.
 
 Counterpart of the parts of ``rust_ray_tracer_tpu/ops/intersect.py`` that
 the trace path uses: the ``KIND_*`` and ``MATTR_*`` constants,
-``_tri_coeffs`` (``intersect.py:79``) and ``_mat_attr_table`` (``:539``).
+``_tri_coeffs`` (``intersect.py:79``), ``_mat_attr_table`` (``:539``) and
+``mattr_noise_cols`` (``:571``).
 The split-path search and its kernels are not ported yet (ROADMAP queue 2
 E-O).
 """
@@ -80,3 +81,10 @@ def _mat_attr_table(scene):
         cols += [scene.tex_scale[tid][:, None],
                  (scene.tex_kind[tid] == TEX_NOISE).to(f32)[:, None]]
     return torch.cat(cols, dim=1)
+
+
+def mattr_noise_cols(has_checker: bool):
+    """(scale_col, is_noise_col) positions in the ``_mat_attr_table`` row:
+    the noise block sits after the optional checker block."""
+    base = 6 + (7 if has_checker else 0)
+    return base, base + 1

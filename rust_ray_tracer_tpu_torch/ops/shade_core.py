@@ -48,9 +48,17 @@ def _min(x, c: float):
     return torch.minimum(x, x.new_tensor(c))
 
 
+def _rsqrt(x):
+    """``1 / sqrt(x)`` rounded twice, as the Hopper kernels compute it
+    (``csrc/trace_common.cuh`` normalize) and as torch's CPU ``rsqrt``
+    does; torch's CUDA ``rsqrt`` is an approximation that differs in the
+    last ulp, which the marble noise amplifies into pixel differences."""
+    return 1.0 / torch.sqrt(x)
+
+
 def _normalize(x, y, z):
     n2 = x * x + y * y + z * z
-    inv = torch.rsqrt(_max(n2, EPS))
+    inv = _rsqrt(_max(n2, EPS))
     inv = torch.where(n2 > 0, inv, torch.zeros_like(inv))
     return x * inv, y * inv, z * inv
 
@@ -116,7 +124,7 @@ def _normalize_bwd(x, y, z, gx, gy, gz):
     is taken as JAX takes it, ``-0.5 * rsqrt(m) / m``."""
     n2 = x * x + y * y + z * z
     m = _max(n2, EPS)
-    r = torch.rsqrt(m)
+    r = _rsqrt(m)
     live = n2 > 0
     inv = torch.where(live, r, torch.zeros_like(r))
     gr = _mask(live, gx * x + gy * y + gz * z)

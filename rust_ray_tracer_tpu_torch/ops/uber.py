@@ -4,8 +4,7 @@ the dispatcher to the Hopper kernel.
 Counterpart of ``rust_ray_tracer_tpu/ops/pallas_uber.py``:
 
   * :func:`uber_eligible` — the predicate of ``pallas_uber.py:1234-1267``
-    (noise scenes refused until the marble kernel is ported, ROADMAP
-    queue 2 C);
+    (noise scenes are eligible, noise beside checker textures is not);
   * ``_scene_tables``, ``_search_tables``, ``_chunk_aabbs`` and
     :func:`make_ctx` (``:1294-1446``), with the cull grain fixed at
     ``TCC = 512`` triangles;
@@ -47,7 +46,8 @@ from rust_ray_tracer_tpu_torch.ops.bounce_core import (
 from rust_ray_tracer_tpu_torch.ops.intersect import (
     KIND_QUAD, KIND_SPH, KIND_TRI, MATTR_ALBEDO, MATTR_EVEN, MATTR_FUZZ,
     MATTR_IOR, MATTR_ISCHK, MATTR_MKIND, MATTR_ODD, T_MIN, TRI_DET_EPS,
-    _mat_attr_table, _tri_coeffs)
+    _mat_attr_table, _tri_coeffs, mattr_noise_cols)
+from rust_ray_tracer_tpu_torch.ops.perlin import PerlinTables
 from rust_ray_tracer_tpu_torch.ops.shade_core import LANES, LT_COLS, \
     _light_table
 from rust_ray_tracer_tpu_torch.utils import rng as rngu
@@ -74,9 +74,10 @@ def ineligible_reason(scene) -> str | None:
         return (f"{scene.n_lights} lights exceed the trace kernel's light "
                 "table; they need the split-path shade kernel "
                 "(TPU kernel I, ROADMAP queue 2)")
-    if scene.perlin_vec.shape[0]:
-        return ("noise textures need the in-kernel marble noise "
-                "(TPU kernel C, ROADMAP queue 2)")
+    if scene.perlin_vec.shape[0] and scene.tex_even.shape[0]:
+        return ("noise textures beside checker textures need the "
+                "shade+update kernel (TPU kernel H, ROADMAP queue 2): the "
+                "trace kernel's marble does not evaluate a checker's leaves")
     rows = scene.n_tris + scene.n_spheres + scene.n_quads
     if not 0 < rows <= ROWS_MAX:
         return (f"{rows} primitive rows (trace kernel: 1..{ROWS_MAX}) need "
@@ -98,7 +99,8 @@ class TraceCtx:
     ``u_t``, ``v_t``, ``t_t`` [Tp, 10], ``dbl_t`` [Tp, 1], ``sph`` [S, 9]
     (c0, c1-c0, t0, 1/(t1-t0), r; far pads), ``quad`` [Q, 9] (q, u, v),
     ``cab`` [Tp/TCC, 8] cull boxes; ``lt`` [n_lights+1, LT_COLS] lights
-    plus the background row.
+    plus the background row; ``perlin`` the detached Perlin tables
+    (0-length without noise), read when ``has_noise``.
     """
 
     uni: torch.Tensor
@@ -120,6 +122,8 @@ class TraceCtx:
     n_quad: int
     n_lights: int
     has_checker: bool
+    has_noise: bool
+    perlin: PerlinTables
 
     @property
     def n_tri_chunks(self) -> int:
@@ -256,13 +260,17 @@ def make_ctx(scene) -> TraceCtx:
     bg_row = torch.nn.functional.pad(scene.background[None],
                                      (0, LT_COLS - 3))
     lt = torch.cat([_light_table(scene)[:scene.n_lights], bg_row])
+    # the Perlin tables, detached (pallas_uber.py:1407-1416)
+    perlin = PerlinTables(scene_s.perlin_vec.contiguous(), torch.stack(
+        [scene_s.perlin_px, scene_s.perlin_py, scene_s.perlin_pz]))
     return TraceCtx(
         uni=uni.contiguous(), dflt=dflt.contiguous(), t_off=t_off,
         s_off=s_off, q_off=q_off, det_t=det_t, u_t=u_t, v_t=v_t, t_t=t_t,
         dbl_t=dbl_t, sph=sph, quad=quad,
         cab=_chunk_aabbs(scene_s, det_t.shape[0]), lt=lt.contiguous(),
         n_tris=scene.n_tris, n_sph=scene.n_spheres, n_quad=scene.n_quads,
-        n_lights=scene.n_lights, has_checker=scene.tex_even.shape[0] > 0)
+        n_lights=scene.n_lights, has_checker=scene.tex_even.shape[0] > 0,
+        has_noise=scene.perlin_vec.shape[0] > 0, perlin=perlin)
 
 
 def pack_state(o, d, time, L, beta, alive):
@@ -442,6 +450,10 @@ def _tile_planes(st, rnd_b, selv, ctx: TraceCtx):
         parts += [selv[A + MATTR_EVEN.start:A + MATTR_EVEN.stop],
                   selv[A + MATTR_ODD.start:A + MATTR_ODD.stop]]
         flags = flags | ((selv[A + MATTR_ISCHK] > 0.5).to(torch.int32) << 1)
+    if ctx.has_noise:
+        sc_col, nz_col = mattr_noise_cols(ctx.has_checker)
+        parts += [selv[A + sc_col:A + sc_col + 1]]
+        flags = flags | ((selv[A + nz_col] > 0.5).to(torch.int32) << 2)
     mkind = selv[A + MATTR_MKIND].to(torch.int32)
     return torch.cat(parts, dim=0), mkind, flags
 
@@ -454,7 +466,7 @@ def tile_core_plain(st, rnd_b, selv, kind, ctx: TraceCtx):
     """
     P, mkind, flags = _tile_planes(st, rnd_b, selv, ctx)
     out = bounce_plane_core(P, kind, mkind, flags, ctx.lt, ctx.n_lights,
-                            ctx.has_checker)
+                            ctx.has_checker, ctx.has_noise, ctx.perlin)
     return torch.cat([out[0:6], st[6:7], out[12:13], out[6:9], out[9:12]])
 
 
@@ -468,13 +480,16 @@ def tile_core_vjp_plain(st, rnd_b, selv, kind, ctx: TraceCtx, g):
     from :func:`ops.bounce_core.bounce_plane_core_vjp`. The shutter time
     passes through (plus a moving sphere's share); the alive plane takes
     no cotangent. The randoms take none, and the flag, material and kind
-    columns of ``selv`` take zeros.
+    columns of ``selv`` take zeros. A noise lane's scale cotangent goes to
+    its winner row's scale column (and on through ``uni`` to
+    ``tex_scale``); the Perlin tables take none.
     """
     A = A_COL
     P, mkind, flags = _tile_planes(st, rnd_b, selv, ctx)
     cot = torch.cat([g[0:6], g[8:11], g[11:14], g[7:8]])
     dP, dlt = bounce_plane_core_vjp(P, kind, mkind, flags, ctx.lt,
-                                    ctx.n_lights, ctx.has_checker, cot)
+                                    ctx.n_lights, ctx.has_checker, cot,
+                                    ctx.has_noise, ctx.perlin)
     dst = torch.cat([dP[0:6], g[6:7] + dP[6:7], torch.zeros_like(g[7:8]),
                      dP[24:30]])
     dselv = torch.zeros_like(selv)
@@ -485,6 +500,8 @@ def tile_core_vjp_plain(st, rnd_b, selv, kind, ctx: TraceCtx, g):
     if ctx.has_checker:
         dselv[A + MATTR_EVEN.start:A + MATTR_EVEN.stop] = dP[46:49]
         dselv[A + MATTR_ODD.start:A + MATTR_ODD.stop] = dP[49:52]
+    if ctx.has_noise:
+        dselv[A + mattr_noise_cols(ctx.has_checker)[0]] = dP[-1]
     return dst, dselv, dlt
 
 
@@ -580,8 +597,8 @@ def _trace_forward(st0, rnd, ctx: TraceCtx, depth: int, residuals: bool):
         return trace_wave_plain(st0, rnd, ctx, depth, residuals=residuals)
     if dev != "cuda":
         raise ValueError(f"unsupported device {st0.device}")
-    from rust_ray_tracer_tpu_torch.kernels import trace_wave_kernel
-    return trace_wave_kernel(st0, rnd, ctx, depth, residuals=residuals)
+    from rust_ray_tracer_tpu_torch.kernels import trace_kernel
+    return trace_kernel(ctx)(st0, rnd, ctx, depth, residuals=residuals)
 
 
 def trace_wave_bwd(hist, rnd, kind, idx, ctx: TraceCtx, g):
@@ -623,7 +640,8 @@ class TraceWave(torch.autograd.Function):
 
 def trace_wave(st0, rnd, ctx: TraceCtx, depth: int):
     """The wave's bounce loop: the plain version for CPU tensors, the
-    Hopper kernel (``csrc/trace_wave.cu``) for CUDA tensors. When a
+    Hopper kernel (``csrc/trace_wave.cu``, its noise variant for a scene
+    with Noise textures) for CUDA tensors. When a
     gradient is wanted it runs as :class:`TraceWave` (forward with
     residuals, backward by :func:`trace_wave_bwd`); otherwise the forward
     writes no residuals."""

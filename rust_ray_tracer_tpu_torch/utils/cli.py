@@ -45,8 +45,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-a", "--aspect", type=float, default=16 / 9,
                    help="aspect ratio (width = height * aspect)")
     p.add_argument("--scene", default="cornell_box",
-                   help="procedural scene name (cornell_box, "
-                        "cornell_triangle)")
+                   help="procedural scene name (random, perlin_spheres, "
+                        "rect_light, cornell_box, cornell_triangle)")
     p.add_argument("--depth", type=int, default=4,
                    help="max bounce depth (reference MAX_DEPTH=4)")
     p.add_argument("--seed", type=int, default=0,
@@ -104,7 +104,7 @@ def main(argv=None) -> int:
     except (ValueError, NotImplementedError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    scene = compile_scene(host_scene, device=device)
+    scene = compile_scene(host_scene, seed=0, device=device)
 
     t0 = time.perf_counter()
     img = render_image(scene, width, height, spp, rng.key(args.seed, device),

@@ -18,7 +18,9 @@ import torch
 
 from rust_ray_tracer_tpu_torch.kernels import (bwd_reduce_kernel,
                                                trace_wave_bwd_kernel,
-                                               trace_wave_kernel)
+                                               trace_wave_bwd_noise_kernel,
+                                               trace_wave_kernel,
+                                               trace_wave_noise_kernel)
 from rust_ray_tracer_tpu_torch.models import builders
 from rust_ray_tracer_tpu_torch.models.scene import (LIGHT_SPHERE,
                                                     compile_scene)
@@ -220,6 +222,106 @@ def test_render_waves_grads_on_card(cuda):
         out.append({k: v.grad for k, v in leaves.items()
                     if v.grad is not None})
     assert out[0]["tex_color"].abs().max() > 0
+    for k, v in out[0].items():
+        assert bool(torch.isfinite(v).all()), k
+        assert torch.equal(v, out[1][k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["noise", "perlin_spheres", "rect_light",
+                                  "random"])
+def test_noise_kernel_matches_plain_on_card(name, cuda):
+    """The noise variant of A (the marble of TPU kernel C inside the trace)
+    against the plain forward on the card: one launch, the flip budget of
+    tests/test_uber.py:117-120. The plain version rounds as the kernel
+    (no FMA, 1 / sqrt), so the marble's amplification of a hit point's
+    last ulp has nothing to amplify."""
+    ts = _scene(name)
+    st0, rnd = _inputs(ts)
+    ctx = uber.make_ctx(ts.to(cuda))
+    assert ctx.has_noise
+    before = (trace_wave_kernel.launches, trace_wave_noise_kernel.launches)
+    got = uber.trace_wave(st0.to(cuda), rnd.to(cuda), ctx, DEPTH)
+    torch.cuda.synchronize()
+    assert (trace_wave_kernel.launches,
+            trace_wave_noise_kernel.launches) == (before[0], before[1] + 1)
+    ref = uber.trace_wave_plain(st0.to(cuda), rnd.to(cuda), ctx, DEPTH)
+    assert_flip_budget(got[8:11].cpu().numpy().T, ref[8:11].cpu().numpy().T)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["noise", "random"])
+def test_noise_bwd_kernel_matches_plain_on_card(name, cuda):
+    """The noise variants of A (with residuals) and B, then bwd_reduce,
+    against the plain backward on the card fed the same residuals: dst per
+    ray to rtol 1e-4 of its largest plane / atol 1e-6 (at most 0.5% of the
+    rays outside), duni and dlt to a relative L2 error of 1e-4; the rows'
+    scale column takes a cotangent."""
+    ts = _scene(name)
+    st0, rnd = _inputs(ts)
+    ctx = uber.make_ctx(ts.to(cuda))
+    _, hist, kind, idx = trace_wave_noise_kernel(
+        st0.to(cuda), rnd.to(cuda), ctx, DEPTH, residuals=True)
+    g = torch.from_numpy(np.random.default_rng(5).normal(
+        size=tuple(st0.shape)).astype(np.float32)).to(cuda)
+    before = trace_wave_bwd_noise_kernel.launches
+    got = uber.trace_wave_bwd(hist, rnd.to(cuda), kind, idx, ctx, g)
+    torch.cuda.synchronize()
+    assert trace_wave_bwd_noise_kernel.launches == before + 1
+    ref = uber.trace_wave_bwd_plain(hist, rnd.to(cuda), kind, idx, ctx, g)
+    dst, duni, dlt = (x.cpu().numpy() for x in got)
+    assert_scaled_close(dst, ref[0].cpu().numpy(), 1e-4, 1e-6, axis=0,
+                        budget=0.005, what="dst")
+    assert rel_l2(duni, ref[1].cpu()) <= 1e-4
+    assert rel_l2(dlt, ref[2].cpu()) <= 1e-4
+    assert np.abs(duni[:, uber.A_COL + 6]).max() > 0
+
+
+@pytest.mark.gpu
+def test_kernel_variants_refuse_the_other_scenes(cuda):
+    """A scene with noise runs only the noise variants, one without only
+    the others: each wrapper refuses the other kind of context."""
+    plain_ctx = uber.make_ctx(_scene("solid").to(cuda))
+    noise_ctx = uber.make_ctx(_scene("noise").to(cuda))
+    st0, rnd = _inputs(_scene("solid"))
+    st0, rnd = st0.to(cuda), rnd.to(cuda)
+    for kern, ctx in ((trace_wave_kernel, noise_ctx),
+                      (trace_wave_noise_kernel, plain_ctx)):
+        with pytest.raises(ValueError, match="marble noise"):
+            kern(st0, rnd, ctx, DEPTH)
+    hist, kind, idx = (x.to(cuda) for x in _residuals_like(st0))
+    for kern, ctx in ((trace_wave_bwd_kernel, noise_ctx),
+                      (trace_wave_bwd_noise_kernel, plain_ctx)):
+        with pytest.raises(ValueError, match="marble noise"):
+            kern(hist, rnd, kind, idx, ctx, st0)
+
+
+@pytest.mark.gpu
+def test_render_waves_noise_grads_on_card(cuda):
+    """torch.autograd through render_waves on perlin_spheres goes through
+    the noise variants of A and B and bwd_reduce (one launch each), never
+    the others, and gives finite gradients, bit for bit the same twice;
+    tex_scale takes one, the detached Perlin tables none."""
+    from rust_ray_tracer_tpu_torch.models.scene import combine, partition
+    from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
+
+    params, static = partition(compile_scene(builders.perlin_spheres(1.0)))
+    kernels = (trace_wave_kernel, trace_wave_noise_kernel,
+               trace_wave_bwd_kernel, trace_wave_bwd_noise_kernel,
+               bwd_reduce_kernel)
+    out = []
+    for _ in range(2):
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        counts = [k.launches for k in kernels]
+        render_waves(combine(leaves, static), 32, 32, rng.key(0), 0, 1,
+                     chunk_size=1024).mean().backward()
+        torch.cuda.synchronize()
+        assert [k.launches - c for k, c in zip(kernels, counts)] == [
+            0, 1, 0, 1, 1]
+        assert leaves["perlin_vec"].grad is None
+        out.append({k: v.grad for k, v in leaves.items()
+                    if v.grad is not None})
+    assert out[0]["tex_scale"].abs().max() > 0
     for k, v in out[0].items():
         assert bool(torch.isfinite(v).all()), k
         assert torch.equal(v, out[1][k]), k

@@ -71,6 +71,38 @@ def test_checker_scene_grads_match_jax(uber_route, monkeypatch):
     assert _grads("checker", 5, monkeypatch) >= 4
 
 
+def test_noise_scene_grads_match_jax(uber_route, monkeypatch):
+    """Gradients through the marble (d albedo -> d hit point -> sphere
+    parameters; d scale through the winner row's scale column) vs jax.grad
+    of the uber path, which runs the marble inside the trace kernels, at
+    tests/test_uber.py:246-250's tolerance, rtol 5e-2 / atol 5e-4: the
+    marble's float32 adjoint is ill-conditioned (an ulp of the hit point at
+    octave 6 moves it; see tests/test_torch_noise.py), and at 192 samples
+    one forked path shifts every mean-gradient entry. The Perlin tables are
+    detached on both sides: the port gives perlin_vec no gradient."""
+    js, ts = both("noise", monkeypatch)
+    key = jax.random.PRNGKey(29)
+    diff, static = jpartition(js)
+    g_ref = jax.grad(lambda d: jnp.mean(jrender(
+        jcombine(d, static), 16, 12, key, 0, 1, chunk_size=192)))(diff)
+    params, tstatic = partition(ts)
+    leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+    render_waves(combine(leaves, tstatic), 16, 12, rng.key(29, "cpu"), 0,
+                 1, chunk_size=192).mean().backward()
+    for name_ in ("tex_scale", "sph_c0", "sph_r", "background", "mat_fuzz",
+                  "mat_ior"):
+        ref = np.asarray(getattr(g_ref, name_))
+        got = leaves[name_].grad
+        got = np.zeros_like(ref) if got is None else got.numpy()
+        np.testing.assert_allclose(got, ref, rtol=5e-2, atol=5e-4,
+                                   err_msg=name_)
+    assert (np.asarray(g_ref.tex_scale) != 0).any()
+    assert (leaves["tex_scale"].grad != 0).any()
+    assert (np.asarray(g_ref.perlin_vec) == 0).all()
+    pv = leaves["perlin_vec"].grad
+    assert pv is None or not pv.any()
+
+
 def test_inverse_rendering_example_two_steps_on_cpu():
     """The port's inverse-rendering example runs on the CPU: two steps
     with a finite loss that falls."""

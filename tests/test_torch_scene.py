@@ -28,14 +28,16 @@ def _scenes(name, monkeypatch):
     if name == "flagship":
         return (jax_flagship(monkeypatch),
                 compile_scene(tb.flagship(), device="cpu"))
-    if name in ("cornell_box", "cornell_triangle"):
+    if name in BUILT:
         return (jax_compile(jb.get_scene(name, 1.0), monkeypatch),
                 compile_scene(tb.get_scene(name, 1.0), device="cpu"))
     return both(name, monkeypatch)
 
 
+BUILT = ("cornell_box", "cornell_triangle", "random", "perlin_spheres",
+         "rect_light")
 SCENES = ["flagship", "cornell_box", "cornell_triangle", "solid", "checker",
-          "quad"]
+          "quad", "noise", "random", "perlin_spheres", "rect_light"]
 
 
 def _assert_same(ref, got, name):
@@ -66,7 +68,7 @@ def test_compile_scene_tables_match(name, monkeypatch):
 @pytest.mark.parametrize("name", SCENES)
 def test_make_ctx_tables_match(name, monkeypatch):
     js, ts = _scenes(name, monkeypatch)
-    uni, dflt, offs, search, lt, cab, _ = pu.make_ctx(js)
+    uni, dflt, offs, search, lt, cab, ptab = pu.make_ctx(js)
     ctx = uber.make_ctx(ts)
     _assert_same(uni, ctx.uni, "uni")
     _assert_same(dflt[0], ctx.dflt, "dflt")
@@ -76,9 +78,55 @@ def test_make_ctx_tables_match(name, monkeypatch):
         _assert_same(ref, getattr(ctx, nm), nm)
     _assert_same(cab, ctx.cab, "cab")
     _assert_same(lt, ctx.lt, "lt")
+    assert ctx.has_noise == bool(js.perlin_vec.shape[0])
+    if ctx.has_noise:           # JAX's [8, 256] plane: gradients^T, perms
+        ptab = np.asarray(ptab)
+        _assert_same(ptab[0:3].T, ctx.perlin.vec, "perlin vec")
+        _assert_same(ptab[4:7].astype(np.int32), ctx.perlin.perm,
+                     "perlin perm")
+        assert not ctx.perlin.vec.requires_grad
 
 
-@pytest.mark.parametrize("name", ["flagship", "cornell_box", "checker"])
+@pytest.mark.parametrize("seed", [0, 7])
+@pytest.mark.parametrize("name", ["random", "perlin_spheres", "rect_light"])
+def test_perlin_tables_match_jax_for_seed(name, seed, monkeypatch):
+    """compile_scene(host, seed=s) draws the JAX compile_scene(host, s)'s
+    Perlin tables: the gradients, then the three permutations."""
+    from tests.torch_parity import pin_jax_texture_cache
+
+    pin_jax_texture_cache(monkeypatch)
+    js = jcompile(jb.get_scene(name, 1.0), seed=seed)
+    ts = compile_scene(tb.get_scene(name, 1.0), seed=seed, device="cpu")
+    for f in ("perlin_vec", "perlin_px", "perlin_py", "perlin_pz"):
+        _assert_same(getattr(js, f), getattr(ts, f), f)
+    assert ts.perlin_vec.shape == (256, 3)
+    other = compile_scene(tb.get_scene(name, 1.0), seed=seed + 1,
+                          device="cpu")
+    assert not torch.equal(other.perlin_px, ts.perlin_px)
+
+
+def test_image_texture_without_a_file_is_yellow():
+    """An ImageTexture with no path, or a path that does not exist, is solid
+    yellow (texture.rs:129, JAX scene.py:530-534); the JAX compiler agrees."""
+    from rust_ray_tracer_tpu_torch.models import scene as TS
+    from rust_ray_tracer_tpu_torch.ops import camera as tcam
+
+    for path in (None, "./no_such_texture_file.jpg"):
+        cam = tcam.make_camera(np.eye(3, 4, dtype=np.float32), 60.0, 1.0)
+        ts = compile_scene(TS.Scene(cam, [TS.Sphere(
+            (0, 0, -4), 1.0, TS.Lambertian(TS.ImageTexture(path)))], [],
+            (0, 0, 0)), device="cpu")
+        assert ts.tex_kind.tolist() == [TS.TEX_SOLID]
+        assert ts.tex_color.tolist() == [[1.0, 1.0, 0.0]]
+        jcam_ = jcam.make_camera(np.eye(3, 4, dtype=np.float32), 60.0, 1.0)
+        js = jcompile(JS.Scene(jcam_, [JS.Sphere(
+            (0, 0, -4), 1.0, JS.Lambertian(JS.ImageTexture(path)))], [],
+            (0, 0, 0)))
+        _assert_same(js.tex_color, ts.tex_color, "tex_color")
+
+
+@pytest.mark.parametrize("name", ["flagship", "cornell_box", "checker",
+                                  "noise"])
 def test_scene_from_numpy_equals_own_compile(name, monkeypatch):
     js, ts = _scenes(name, monkeypatch)
     got = scene_from_numpy(scene_dict(js), device="cpu")
@@ -109,18 +157,23 @@ def _jax_media_scene():
     ], [], (0.2, 0.3, 0.5)))
 
 
-def _jax_noise_scene():
+def _jax_noise_checker_scene():
+    """Noise beside a checker: the JAX package sends it off the uber route
+    (pallas_uber.py:1263-1264), to the shade+update kernel H."""
     cam = jcam.make_camera(np.eye(3, 4, dtype=np.float32), 60.0, 1.0)
     return jcompile(JS.Scene(cam, [
         JS.Sphere((0, 0, -4), 1.0, JS.Lambertian(JS.Noise(4.0))),
+        JS.Sphere((0, -101, -4), 100.0, JS.Lambertian(
+            JS.Checker.from_colors((0.9, 0.1, 0.1), (0.1, 0.9, 0.1)))),
     ], [], (0.1, 0.1, 0.1)))
 
 
 @pytest.mark.parametrize("make,kernel", [(_jax_media_scene, "F and M"),
-                                         (_jax_noise_scene, "C")])
+                                         (_jax_noise_checker_scene, "H")])
 def test_ineligible_scenes_raise_naming_the_kernel(make, kernel):
     ts = scene_from_numpy(scene_dict(make()), device="cpu")
     assert not uber.uber_eligible(ts)
+    assert not pu.uber_eligible(make())
     with pytest.raises(NotImplementedError, match=f"TPU kernels? {kernel}"):
         uber.make_ctx(ts)
 
@@ -130,7 +183,9 @@ def test_unported_scene_parts_raise():
     from rust_ray_tracer_tpu_torch.ops import camera as tcam
 
     cam = tcam.make_camera(np.eye(3, 4, dtype=np.float32), 60.0, 1.0)
-    for obj in (TS.Sphere((0, 0, -4), 1.0, TS.Lambertian(TS.Noise(4.0))),
+    # an image file that exists: the port does not decode images yet
+    for obj in (TS.Sphere((0, 0, -4), 1.0,
+                          TS.Lambertian(TS.ImageTexture(__file__))),
                 TS.ConstantMedium(TS.Sphere((0, 0, -4), 1.0,
                                             TS.Dielectric(1.5)), 0.5,
                                   TS.SolidColor((1, 1, 1)))):
@@ -161,7 +216,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert rng.key(0, "cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("name", ["solid", "checker"])
+@pytest.mark.parametrize("name", ["solid", "checker", "noise"])
 def test_partition_combine_roundtrip(name, monkeypatch):
     """partition / combine as tests/test_grad.py:153 holds the JAX pair:
     every float field (the camera's under camera.*) in params, the rest in

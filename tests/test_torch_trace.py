@@ -50,7 +50,8 @@ def _jax_trace(js, st0, rnd, residuals=False):
     det_t, u_t, v_t, t_t, dbl_t, sph, quad = search
     cfg = (js.tri_v0.shape[0] > 0, js.sph_c0.shape[0] > 0,
            js.quad_q.shape[0] > 0, t_off, s_off, q_off,
-           int(lt.shape[0]) - 1, js.tex_even.shape[0] > 0, False,
+           int(lt.shape[0]) - 1, js.tex_even.shape[0] > 0,
+           js.perlin_vec.shape[0] > 0,
            tuple(det_t.shape), tuple(dbl_t.shape), tuple(sph.shape),
            tuple(quad.shape), tuple(cab.shape), DEPTH)
     cr = st0.shape[1] // 128
@@ -66,7 +67,7 @@ def _jax_trace(js, st0, rnd, residuals=False):
     return out
 
 
-@pytest.mark.parametrize("name", ["solid", "checker", "quad"])
+@pytest.mark.parametrize("name", ["solid", "checker", "quad", "noise"])
 def test_trace_wave_plain_matches_jax_trace_kernel(name, interpret_mode,
                                                    monkeypatch):
     js, ts = both(name, monkeypatch)
@@ -175,7 +176,7 @@ def test_trace_wave_bwd_plain_matches_jax_trace_bwd(name, interpret_mode,
         assert_flip_budget(p_hist[b].numpy().T, ref_hist[b].T)
 
 
-@pytest.mark.parametrize("name", ["solid", "checker"])
+@pytest.mark.parametrize("name", ["solid", "checker", "noise"])
 def test_trace_wave_function_matches_autograd_of_plain(name, monkeypatch):
     """Gradients through TraceWave (the forward with residuals, then the
     hand adjoint replayed from them) equal torch.autograd straight through

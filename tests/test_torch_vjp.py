@@ -208,10 +208,12 @@ def test_bounce_core_vjp_matches_jax(has_checker):
                                       cot[cot_row][:, dead])
 
 
-def _ctx_like(lt, n_l, has_checker):
-    """The fields of a TraceCtx that the tile core reads."""
+def _ctx_like(lt, n_l, has_checker, perlin=None):
+    """The fields of a TraceCtx that the tile core reads (the Perlin
+    tables only for a noise scene)."""
     return types.SimpleNamespace(lt=torch.from_numpy(lt), n_lights=n_l,
-                                 has_checker=has_checker)
+                                 has_checker=has_checker,
+                                 has_noise=perlin is not None, perlin=perlin)
 
 
 @pytest.mark.parametrize("has_checker", [False, True])

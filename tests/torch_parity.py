@@ -71,7 +71,20 @@ def quad(S, cam_mod):
     return S.Scene(cam, world, [world[-1]], (0.0, 0.0, 0.0))
 
 
-SMALL_SCENES = {"solid": solid, "checker": checker, "quad": quad}
+def noise(S, cam_mod):
+    """tests/test_uber.py noise_scene: a marble-noise ground + solid, metal
+    and dielectric spheres (the random scene's shape)."""
+    cam = cam_mod.make_camera(EYE, 60.0, 1.0)
+    return S.Scene(cam, [
+        S.Sphere((0, -101, -4), 100.0, S.Lambertian(S.Noise(0.8))),
+        S.Sphere((0, 0, -4), 1.0, S.Lambertian.from_rgb(0.5, 0.4, 0.3)),
+        S.Sphere((-2.2, 0, -4), 1.0, S.Metal((0.8, 0.8, 0.9), 0.1)),
+        S.Sphere((2.2, 0, -4), 1.0, S.Dielectric(1.5)),
+    ], [], (0.7, 0.8, 1.0))
+
+
+SMALL_SCENES = {"solid": solid, "checker": checker, "quad": quad,
+                "noise": noise}
 
 
 def pin_jax_texture_cache(monkeypatch):
