@@ -8,18 +8,24 @@ nvcc per library, in parallel) and holds each against its plain PyTorch
 version on the card and on the CPU: the trace kernel (forward, with and
 without the backward's residuals), the backward kernel and its fixed-order
 reduction, and the variants of the first two with the marble noise (TPU
-kernel C) on four noise scenes. Then it drives the main paths at the bench
-workload's size (512x288, 4 spp, depth 4, chunk 9216), on the flagship
-scene and on ``random`` (the JAX package's per-scene bench workload, a
-marble-noise ground): the forward render through ``render_waves``, and
-``bench.py``'s training step (loss = mean of the render, scene gradients
-by ``torch.autograd``) — checking that every wave went through the kernels
-and never the plain versions, that the gradients are finite and bitwise
-repeatable, and timing both with CUDA events. Last it runs the
-inverse-rendering example for 60 steps and the CLI on the Cornell box and
-on perlin_spheres. Each phase prints one JSON line; any failure
-raises, so the exit code is non-zero. Then come the ``{"kernels": [...]}``
-line, the card's name and power limit, and last
+kernel C) on four noise scenes; then the split route's kernels — quad
+search (TPU kernel O), hit attributes (J) and shade+update (H) — on three
+scenes the trace kernel cannot take (final_scene, a Cuboid fog, noise
+beside a checker), each kernel on the scene's real bounce-0 inputs and the
+route's image against the plain route's. Then it drives the main paths at
+the bench workload's size (512x288, 4 spp, depth 4, chunk 9216), on the
+flagship scene and on ``random`` (the JAX package's per-scene bench
+workload, a marble-noise ground): the forward render through
+``render_waves``, and ``bench.py``'s training step (loss = mean of the
+render, scene gradients by ``torch.autograd``) — checking that every wave
+went through the kernels and never the plain versions, that the gradients
+are finite and bitwise repeatable, and timing both with CUDA events; and
+the forward render of final_scene (the book-2 cover: media, 1,408 quads,
+a marble sphere) on the split route, with O, J and H launched every
+bounce. Last it runs the inverse-rendering example for 60 steps and the
+CLI on the Cornell box, perlin_spheres and final_scene. Each phase prints
+one JSON line; any failure raises, so the exit code is non-zero. Then come
+the ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Needs one CUDA GPU; imports no JAX.
 """
@@ -42,6 +48,9 @@ import torch
 from rust_ray_tracer_tpu_torch import kernels as K
 from rust_ray_tracer_tpu_torch.examples import inverse_rendering
 from rust_ray_tracer_tpu_torch.kernels import (bwd_reduce_kernel,
+                                               hit_attrs_kernel,
+                                               quad_search_kernel,
+                                               shade_update_kernel,
                                                trace_wave_bwd_kernel,
                                                trace_wave_bwd_noise_kernel,
                                                trace_wave_kernel,
@@ -50,11 +59,20 @@ from rust_ray_tracer_tpu_torch.models import builders
 from rust_ray_tracer_tpu_torch.models import scene as S
 from rust_ray_tracer_tpu_torch.models.scene import (combine, compile_scene,
                                                     partition)
+from rust_ray_tracer_tpu_torch.ops import bounce as bounce_ops
 from rust_ray_tracer_tpu_torch.ops import camera as cam_ops
+from rust_ray_tracer_tpu_torch.ops import hit as hit_ops
+from rust_ray_tracer_tpu_torch.ops import intersect as isect
+from rust_ray_tracer_tpu_torch.ops import quad as quad_ops
 from rust_ray_tracer_tpu_torch.ops import uber
 from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
 from rust_ray_tracer_tpu_torch.utils import cli
 from rust_ray_tracer_tpu_torch.utils import rng
+
+# the split route's dispatcher hooks, shared with the tests (no JAX there)
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
+from torch_parity import split_recorder  # noqa: E402
 
 WIDTH, HEIGHT, SPP, DEPTH, CHUNK = 512, 288, 4, 4, 9216
 FLIP_ABS = 1e-3          # a pixel "flips" when any channel is off by more
@@ -67,6 +85,7 @@ RTOL, ATOL = 3e-4, 3e-5  # the rest (FMA contraction, division order)
 BWD_RTOL, BWD_ATOL, BWD_REL_L2 = 1e-4, 1e-6, 1e-4
 # the card's published peaks (H100 SXM, 700 W): fp32 non-tensor, HBM3
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+L2_FLUSH_BYTES = 256 << 20
 # fp32 operations the trace kernel spends per ray-triangle test (four
 # 10-term dots, a division, the compares), per sphere or quad test, and per
 # live ray-bounce of shading and update; the backward's per found
@@ -84,6 +103,12 @@ OPS_TRI, OPS_PRIM, OPS_SHADE, OPS_BWD = 80, 40, 300, 600
 # accumulations)) = 7 x 267 = 1869, and cosf and the chain rule (~30):
 # 921 + 896 + 1869 + 30 = 3716
 OPS_MARBLE, OPS_MARBLE_BWD = 921, 3716
+# the split route's kernels (csrc/split.cu), counted from the code: O per
+# ray and quad tested (the plane hit and its division, the point, the two
+# sub-area dots, the compares); J per ray (one kind's attributes and the
+# sphere reading of the pack); H per live found ray is OPS_SHADE
+OPS_QUAD, OPS_HIT = 45, 150
+SPLIT_KERNELS = (quad_search_kernel, hit_attrs_kernel, shade_update_kernel)
 
 
 def emit(obj) -> None:
@@ -121,6 +146,47 @@ def noise_scene() -> S.Scene:
         S.Sphere((-2.2, 0, -4), 1.0, S.Metal((0.8, 0.8, 0.9), 0.1)),
         S.Sphere((2.2, 0, -4), 1.0, S.Dielectric(1.5)),
     ], [], (0.7, 0.8, 1.0))
+
+
+def fog_scene() -> S.Scene:
+    """A split-route scene: a rotated Cuboid fog and a sphere-boundary
+    medium with a marble albedo, a marble sphere beside a checker ground,
+    glass, two quad walls and a rect light."""
+    cam = cam_ops.make_camera(
+        [[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0]], 60.0, 1.0)
+    lamp = S.XZRect(-1.0, 1.0, -5.0, -3.0, 3.0,
+                    S.DiffuseLight.from_color((5, 5, 5)))
+    return S.Scene(cam, [
+        S.Sphere((0, -101, -4), 100.0,
+                 S.Lambertian(S.Checker.from_colors((0.9, 0.1, 0.1),
+                                                    (0.1, 0.9, 0.1)))),
+        S.Sphere((0, 0, -4), 1.0, S.Lambertian(S.Noise(4.0))),
+        S.Sphere((2.2, 0, -4), 1.0, S.Dielectric(1.5)),
+        S.XYRect(-3.0, 3.0, -1.0, 3.0, -7.0,
+                 S.Lambertian.from_rgb(0.73, 0.73, 0.73)),
+        S.YZRect(-1.0, 3.0, -7.0, -2.0, -3.0,
+                 S.Metal((0.8, 0.85, 0.88), 0.05)),
+        S.ConstantMedium.from_color(
+            S.Translate(S.RotateY(S.Cuboid((-0.6, -0.6, -0.6),
+                                           (0.6, 0.6, 0.6),
+                                           S.Dielectric(1.5)), 30.0),
+                        (-1.6, 0.0, -3.2)), 0.8, (0.9, 0.9, 0.9)),
+        S.ConstantMedium(S.Sphere((2.2, 0, -4), 1.0, S.Dielectric(1.5)),
+                         1.5, S.Noise(2.0)),
+        lamp,
+    ], [lamp], (0.2, 0.3, 0.5))
+
+
+def noise_checker_scene() -> S.Scene:
+    """A marble sphere beside a checker ground: the trace kernel's marble
+    does not evaluate a checker's leaves, so it takes the split route."""
+    cam = cam_ops.make_camera(
+        [[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0]], 60.0, 1.0)
+    return S.Scene(cam, [
+        S.Sphere((0, 0, -4), 1.0, S.Lambertian(S.Noise(4.0))),
+        S.Sphere((0, -101, -4), 100.0, S.Lambertian(
+            S.Checker.from_colors((0.9, 0.1, 0.1), (0.1, 0.9, 0.1)))),
+    ], [], (0.1, 0.1, 0.1))
 
 
 def outside_share(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -283,6 +349,30 @@ def loop_ms(fn, reps: int = 20, rounds: int = 5) -> list[float]:
     return out
 
 
+def cold_ms(fn, reps: int = 10) -> list[float]:
+    """Per-call device ms of ``fn`` with the inputs out of the L2 cache:
+    before each call a 256 MB read (five times the H100's 50 MB L2)
+    evicts them and a spin of the card lets the host enqueue the call
+    before its start event runs. The time under which the byte bound,
+    at HBM's rate, is a floor."""
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        flush.sum()
+        torch.cuda._sleep(1_000_000)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        out.append(e0.elapsed_time(e1))
+    return out
+
+
 def profile_device(fn, names) -> dict:
     """Kernel time on the card by ``torch.profiler`` over one call of
     ``fn``: per name, ms per launch and launches; the busy share of the
@@ -364,12 +454,17 @@ def noise_hits(hist, kind, idx, ctx) -> int:
 
 class PlainCalls:
     """Counts the plain versions' calls while the main path runs: inside
-    ``with``, ``uber.trace_wave_plain`` and ``uber.trace_wave_bwd_plain``
-    record their names in ``calls``; ``real`` and ``real_bwd`` stay the
-    uncounted functions."""
+    ``with``, ``uber.trace_wave_plain``, ``uber.trace_wave_bwd_plain`` and
+    the split route's ``_quad_candidates`` (as ``ops/quad`` calls it),
+    ``hit_plane_core`` (``ops/hit``) and ``su_plane_core``
+    (``ops/bounce``) record their names in ``calls``; ``real`` and
+    ``real_bwd`` stay the uncounted functions."""
 
     real = uber.trace_wave_plain
     real_bwd = uber.trace_wave_bwd_plain
+    SITES = ((uber, "trace_wave_plain"), (uber, "trace_wave_bwd_plain"),
+             (quad_ops, "_quad_candidates"), (hit_ops, "hit_plane_core"),
+             (bounce_ops, "su_plane_core"))
 
     def __init__(self):
         self.calls = []
@@ -381,13 +476,119 @@ class PlainCalls:
         return wrapped
 
     def __enter__(self):
-        uber.trace_wave_plain = self._counting(self.real)
-        uber.trace_wave_bwd_plain = self._counting(self.real_bwd)
+        self._saved = [getattr(m, n) for m, n in self.SITES]
+        for (m, n), f in zip(self.SITES, self._saved):
+            setattr(m, n, self._counting(f))
         return self
 
     def __exit__(self, *exc):
-        uber.trace_wave_plain = self.real
-        uber.trace_wave_bwd_plain = self.real_bwd
+        for (m, n), f in zip(self.SITES, self._saved):
+            setattr(m, n, f)
+
+
+def split_kernels_vs_plain(calls, label) -> dict:
+    """O, J and H against their plain versions on the card, on the first
+    recorded call of each (bounce 0 of a wave): O's winners and t equal;
+    J's planes within RTOL / ATOL of each lane's largest value (the sphere
+    UV source on sphere lanes, where the epilogue reads it); H's within
+    the same, at most FLIP_BUDGET of the lanes outside (the card's
+    transcendentals in torch and in the kernel may round a branch's input
+    apart). Returns each kernel's share outside and worst error."""
+    out = {}
+    if calls["quad"]:
+        sc, o, d, t_min, t_max = calls["quad"][0][:5]
+        got_t, got_i = quad_search_kernel(
+            torch.cat([o, d, t_min[:, None], t_max[:, None]], 1).contiguous(),
+            quad_ops.quad_table(sc), sc.quad_cluster_min.contiguous(),
+            sc.quad_cluster_max.contiguous())
+        ref_t, ref_i = quad_ops._quad_candidates(sc, o, d, t_min, t_max)
+        if not (torch.equal(got_i.long(), ref_i) and torch.equal(got_t,
+                                                                 ref_t)):
+            bad = int(((got_i.long() != ref_i) | (got_t != ref_t)).sum())
+            raise AssertionError(f"{label}: quad_search winners differ from "
+                                 f"the plain version's on {bad} rays")
+        out["quad_search"] = {"lanes_outside": 0.0, "max_abs_err": 0.0,
+                              "winners_equal": True,
+                              "hits": float(torch.isfinite(ref_t).float()
+                                            .mean())}
+    P, kind, flip = calls["hit"][0]
+    got = hit_attrs_kernel(P, kind, flip)
+    ref = hit_ops.hit_plane_core(P, kind, flip)
+    miss = kind == isect.KIND_NONE
+    if not bool(torch.isinf(got[0, miss]).all()):
+        raise AssertionError(f"{label}: hit_attrs found a hit on a miss lane")
+    got[0, miss] = ref[0, miss] = 0.0
+    sph = kind == isect.KIND_SPH
+    a = scaled_close(got[:9], ref[:9], RTOL, ATOL, 0.0,
+                     f"{label}: hit_attrs")
+    b = scaled_close(got[9:, sph], ref[9:, sph], RTOL, ATOL, 0.0,
+                     f"{label}: hit_attrs sphere UV source") \
+        if bool(sph.any()) else (0.0, 0.0)
+    out["hit_attrs"] = {"lanes_outside": max(a[0], b[0]),
+                        "max_abs_err": max(a[1], b[1]),
+                        "kinds": torch.bincount(kind.long(), minlength=5)
+                        .tolist()}
+    S_, mkind, lt, n_lights = calls["su"][0]
+    frac, err = scaled_close(shade_update_kernel(S_, mkind, lt, n_lights),
+                             bounce_ops.su_plane_core(S_, mkind, lt,
+                                                      n_lights),
+                             RTOL, ATOL, FLIP_BUDGET, f"{label}: shade_update")
+    out["shade_update"] = {"lanes_outside": frac, "max_abs_err": err}
+    return out
+
+
+def split_scene_checks(dev) -> dict:
+    """Phase 3b: the split route on 64x64 scenes the trace kernel cannot
+    take — final_scene, the Cuboid-fog scene and noise beside a checker.
+    Each kernel against its plain version on the scene's real bounce-0
+    inputs (``split_kernels_vs_plain``), and the kernel route's image
+    against the plain route's on the card and on the CPU (all three have
+    marble noise: every pixel outside RTOL / ATOL counts as a flip, and
+    against the host the kernels may be as far off as the card's plain
+    route is, plus the budget). Returns the worst error per kernel."""
+    worst = {k.name: {"lanes_outside": 0.0, "max_abs_err": 0.0}
+             for k in SPLIT_KERNELS}
+    w = h = 64
+    chunk = 4096
+    for label, host in (("final_scene", builders.final_scene(1.0)),
+                        ("fog", fog_scene()),
+                        ("noise_checker", noise_checker_scene())):
+        sd = compile_scene(host, device="cpu")
+        sg = sd.to(dev)
+        if uber.uber_eligible(sd):
+            raise AssertionError(f"{label} is not a split-route scene")
+        with torch.no_grad():
+            with split_recorder() as rec:
+                img_k = render_waves(sg, w, h, rng.key(0, dev), 0, 1,
+                                     depth=DEPTH, chunk_size=chunk)
+            with split_recorder(plain=True):
+                img_pg = render_waves(sg, w, h, rng.key(0, dev), 0, 1,
+                                      depth=DEPTH, chunk_size=chunk)
+            img_pc = render_waves(sd, w, h, rng.key(0, "cpu"), 0, 1,
+                                  depth=DEPTH, chunk_size=chunk)
+            torch.cuda.synchronize()
+            kern = split_kernels_vs_plain(rec, label)
+        for name, r in kern.items():
+            worst[name] = {k: max(worst[name][k], r[k]) for k in worst[name]}
+        vs_gpu = compare(img_k, img_pg, f"{label}: split kernels vs plain "
+                         "(cuda)", flip_abs=None)
+        host_vs_card = outside_share(img_pg, img_pc)
+        vs_cpu = compare(img_k, img_pc, f"{label}: split kernels vs plain "
+                         "(cpu)", flip_abs=None,
+                         budget=FLIP_BUDGET + host_vs_card)
+        emit({"phase": "split_vs_plain", "scene": label,
+              "shape": [h, w, 1, DEPTH], "kernels": kern,
+              "image_vs_plain_cuda": vs_gpu, "image_vs_plain_cpu": vs_cpu,
+              "plain_cuda_vs_plain_cpu_outside": host_vs_card,
+              "mean": float(img_k.mean()),
+              "budget": {"flip": "any channel outside rtol/atol",
+                         "flip_frac": FLIP_BUDGET, "rtol": RTOL,
+                         "atol": ATOL, "vs_cpu": "flip_frac + "
+                         "plain_cuda_vs_plain_cpu_outside",
+                         "hit_attrs_lanes_outside": 0.0,
+                         "shade_update_lanes_outside": FLIP_BUDGET,
+                         "quad_search": "winners and t equal"}})
+    return worst
 
 
 def small_scene_checks(dev) -> dict:
@@ -782,6 +983,224 @@ def train_phase(label, fwd, dev, smi, nonzero_keys, any_keys,
             "red_full_err": red_full_err, "names": names}
 
 
+def quad_tests(calls) -> tuple[int, int]:
+    """Ray-quad tests on these recorded calls of kernel O: (per ray, per
+    block). Per ray: every live ray tests the quads of each cluster whose
+    box it enters (the slab test of ``pallas_intersect._tile_cluster_mask``
+    with its 1e-3 margin), what the data needs. Per block: what the kernel
+    makes, every live ray of a 128-ray block testing each cluster that
+    some live ray of the block enters (its ``__syncthreads_or`` vote)."""
+    per_ray = per_block = 0
+    for sc, o, d, t_min, t_max in (c[:5] for c in calls):
+        lo, hi = sc.quad_cluster_min, sc.quad_cluster_max      # [K, 3]
+        n = o.shape[0]
+        live = t_max > t_min
+        enter = torch.full((lo.shape[0], n), -torch.inf, device=o.device)
+        exit_ = torch.full_like(enter, torch.inf)
+        ok = (lo <= hi).all(1)[:, None] & live[None]
+        for a in range(3):
+            small = d[:, a].abs() < 1e-12
+            inv = 1.0 / torch.where(small, torch.ones_like(d[:, a]), d[:, a])
+            t0 = (lo[:, a:a + 1] - 1e-3 - o[:, a]) * inv
+            t1 = (hi[:, a:a + 1] + 1e-3 - o[:, a]) * inv
+            enter = torch.where(small, enter,
+                                torch.maximum(enter, torch.minimum(t0, t1)))
+            exit_ = torch.where(small, exit_,
+                                torch.minimum(exit_, torch.maximum(t0, t1)))
+            ok = ok & (~small | ((o[:, a] >= lo[:, a:a + 1] - 1e-3)
+                                 & (o[:, a] <= hi[:, a:a + 1] + 1e-3)))
+        hit = ok & (enter <= exit_) & (exit_ >= t_min) & (enter <= t_max)
+        q = sc.n_quads
+        per_cluster = torch.tensor(
+            [min(128, q - 128 * k) for k in range(lo.shape[0])],
+            device=o.device)
+        per_ray += int((hit * per_cluster[:, None]).sum())
+        pad = (-n) % 128
+        hit_b = torch.nn.functional.pad(hit, (0, pad)).reshape(
+            hit.shape[0], -1, 128).any(2)                    # [K, blocks]
+        live_b = torch.nn.functional.pad(live, (0, pad)).reshape(
+            -1, 128).sum(1)
+        per_block += int((hit_b * live_b[None] * per_cluster[:, None]).sum())
+    return per_ray, per_block
+
+
+def su_bytes(calls) -> int:
+    """Bytes kernel H must move on these recorded calls, by lane class
+    (``shade_update_kernel``, ``csrc/split.cu``): every lane reads o, d,
+    L, beta and alive (13 floats) and writes 13; a live lane also reads
+    its hit flag; a live lane that found something also reads p, n,
+    albedo, fuzz, ior, its 15 randoms and its material kind (all 40 planes
+    and mkind). The light table once a launch."""
+    total = 0
+    for P, _, lt, _ in calls:
+        alive = P[38] > 0.5
+        found = alive & (P[39] > 0.5)
+        n_alive, n_found = int(alive.sum()), int(found.sum())
+        total += (P.shape[1] * (13 + 13) + n_alive + n_found * (40 - 14 + 1)
+                  + lt.numel()) * 4
+    return total
+
+
+def split_rows(fwd, worst_small) -> list[dict]:
+    """The ``{"kernels": [...]}`` rows of O, J and H from the final_scene
+    forward: launches on the main path; device ms per launch with the
+    inputs out of L2 (``cold_ms``; ``ms_in_path`` is the profiler's, where
+    the glue has just written them), plain ms, both averaged over the
+    wave's bounces on their recorded inputs; and the bound of one launch
+    averaged over the same bounces."""
+    calls, n_w = fwd["calls"], DEPTH
+    o_bytes = sum((c[1].shape[0] * (8 + 2) + c[0].n_quads * 9
+                   + c[0].quad_cluster_min.numel() * 2) * 4
+                  for c in calls["quad"])
+    tests_ray, tests_block = quad_tests(calls["quad"])
+    j_bytes = sum((19 + 2 + 12) * 4 * c[0].shape[1] for c in calls["hit"])
+    j_ops = sum(OPS_HIT * c[0].shape[1] for c in calls["hit"])
+    h_bytes = su_bytes(calls["su"])
+    h_ops = sum(int(((c[0][38] > 0.5) & (c[0][39] > 0.5)).sum()) * OPS_SHADE
+                for c in calls["su"])
+    src = "rust_ray_tracer_tpu_torch/csrc/split.cu"
+    spec = (("quad_search", "rust_ray_tracer_tpu/ops/pallas_quad.py:121",
+             o_bytes, tests_ray * OPS_QUAD),
+            ("hit_attrs", "rust_ray_tracer_tpu/ops/pallas_hit.py:218",
+             j_bytes, j_ops),
+            ("shade_update", "rust_ray_tracer_tpu/ops/pallas_bounce.py:678",
+             h_bytes, h_ops))
+    rows = []
+    for name, repl, nb, ops in spec:
+        b_ms, b_by = bound(nb / n_w, ops / n_w)
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": repl, "launches": fwd["launches"][name],
+                     "max_abs_err": max(worst_small[name]["max_abs_err"],
+                                        fwd["full"][name]["max_abs_err"]),
+                     "ms": fwd["ms"][name],
+                     "ms_in_path": fwd["ms_in_path"][name],
+                     "plain_ms": fwd["plain_ms"][name],
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                     "bytes_per_launch": nb / n_w,
+                     "operations_per_launch": ops / n_w})
+    rows[0]["quad_tests_per_launch"] = {"per_ray": tests_ray / n_w,
+                                        "per_block_vote": tests_block / n_w}
+    rows[0]["bound_ms_per_block_vote"] = bound(
+        o_bytes / n_w, tests_block * OPS_QUAD / n_w)[0]
+    return rows
+
+
+def final_forward(dev, smi) -> dict:
+    """The serving path on the split route: final_scene at the bench shape
+    through ``render_waves`` — DEPTH launches each of O, J and H a wave,
+    none of the trace kernel, no plain call, a finite image; then one
+    full-size wave against the plain route on the card and each kernel
+    against its plain version on that wave's bounce-0 inputs; sweep times;
+    per-wave kernel and glue ms and the busy share from the profiler; each
+    kernel's ms per launch with its inputs out of L2, in a loop and in
+    the wave, and its plain version's, on every bounce's recorded inputs.
+    Emits ``final_forward``; returns what the kernel rows need."""
+    scene = compile_scene(builders.final_scene(WIDTH / HEIGHT), device=dev)
+    key = rng.key(0, dev)
+
+    def render(n_waves):
+        with torch.no_grad():
+            return render_waves(scene, WIDTH, HEIGHT, key, 0, n_waves,
+                                depth=DEPTH, chunk_size=CHUNK)
+
+    watched = SPLIT_KERNELS + (trace_wave_kernel, trace_wave_noise_kernel)
+    with PlainCalls() as plain:
+        for k in watched:
+            k.launches = 0
+        img = render(SPP)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in watched}
+    want = {k.name: SPP * DEPTH for k in SPLIT_KERNELS}
+    want.update({trace_wave_kernel.name: 0, trace_wave_noise_kernel.name: 0})
+    if launches != want:
+        raise AssertionError(f"final_scene launches {launches}, expected "
+                             f"{want}")
+    if plain.calls:
+        raise AssertionError(f"plain versions ran on the main path: "
+                             f"{sorted(set(plain.calls))}")
+    if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(
+            torch.isfinite(img).all()):
+        raise AssertionError("final_scene image: wrong shape or non-finite")
+
+    # one full-size wave: kernels against the plain route on the card, and
+    # each kernel against its plain version on the wave's bounce-0 inputs
+    with split_recorder() as rec:
+        wave_k = render(1)
+    with split_recorder(plain=True):
+        wave_p = render(1)
+    full_img = compare(wave_k, wave_p, "final_scene: split kernels vs plain "
+                       "(cuda)", flip_abs=None)
+    with torch.no_grad():
+        full = split_kernels_vs_plain(rec, "final_scene full size")
+
+    sweeps = cuda_ms(lambda: render(SPP), 7)
+    prof = profile_device(lambda: render(1), ("quad_search_kernel",
+                                              "hit_attrs_kernel",
+                                              "shade_update_kernel"))
+    per = prof["per_kernel"] or {}
+    # each kernel and its plain version on every bounce's recorded inputs
+    qtab = quad_ops.quad_table(scene)
+    cl_min = scene.quad_cluster_min.contiguous()
+    cl_max = scene.quad_cluster_max.contiguous()
+
+    def quad_runs(c):
+        rays = torch.cat([c[1], c[2], c[3][:, None], c[4][:, None]],
+                         1).contiguous()
+        return (lambda: quad_search_kernel(rays, qtab, cl_min, cl_max),
+                lambda: quad_ops._quad_candidates(*c[:5]))
+
+    runs = {"quad_search": [quad_runs(c) for c in rec["quad"]],
+            "hit_attrs": [((lambda c=c: hit_attrs_kernel(*c)),
+                           (lambda c=c: hit_ops.hit_plane_core(*c)))
+                          for c in rec["hit"]],
+            "shade_update": [((lambda c=c: shade_update_kernel(*c)),
+                              (lambda c=c: bounce_ops.su_plane_core(*c)))
+                             for c in rec["su"]]}
+    ms, in_path, loop, plain_ms = {}, {}, {}, {}
+    with torch.no_grad():
+        for name, pairs in runs.items():
+            ms[name] = statistics.fmean(median(cold_ms(k)) for k, _ in pairs)
+            loop[name] = statistics.fmean(median(loop_ms(k))
+                                          for k, _ in pairs)
+            got = (per.get(f"{name}_kernel") or {}).get("ms_per_launch")
+            in_path[name] = loop[name] if got is None else got
+            plain_ms[name] = statistics.fmean(median(cuda_ms(p, 3))
+                                              for _, p in pairs)
+    med = median(sweeps)
+    wave_ms = med / SPP
+    kern_wave = sum(in_path[n] * DEPTH for n in ms)
+    lane_bounces = WIDTH * HEIGHT * SPP * DEPTH
+    emit({"phase": "final_forward", "card": smi,
+          "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
+          "tables": {"spheres": scene.n_spheres, "quads": scene.n_quads,
+                     "quad_clusters": scene.quad_cluster_min.shape[0],
+                     "media": scene.n_media, "lights": scene.n_lights},
+          "launches": launches, "launches_per_wave": {
+              k.name: launches[k.name] / SPP for k in SPLIT_KERNELS},
+          "plain_calls": len(plain.calls),
+          "image_mean": float(img.mean()) / SPP,
+          "wave_vs_plain_route": full_img, "kernels_vs_plain": full,
+          "kernel_vs_plain_budget": {
+              "image_flip": "any channel outside rtol/atol",
+              "flip_frac": FLIP_BUDGET, "rtol": RTOL, "atol": ATOL,
+              "quad_search": "winners and t equal",
+              "hit_attrs_lanes_outside": 0.0,
+              "shade_update_lanes_outside": FLIP_BUDGET},
+          "sweep_ms_median": med, "sweep_ms_min": min(sweeps),
+          "sweep_ms_max": max(sweeps), "sweeps": len(sweeps),
+          "fwd_mrays_per_s": lane_bounces / (med / 1e3) / 1e6,
+          "ms_per_wave": {**{n: in_path[n] * DEPTH for n in ms},
+                          "glue": wave_ms - kern_wave, "wave": wave_ms},
+          "ms_per_launch_profiler": {n: (per.get(f"{n}_kernel") or {})
+                                     .get("ms_per_launch") for n in ms},
+          "ms_per_launch_looped_events": loop,
+          "ms_per_launch_l2_flushed": ms,
+          "plain_ms_per_launch": plain_ms,
+          "profiled_wave": prof})
+    return {"launches": launches, "full": full, "ms": ms,
+            "ms_in_path": in_path, "plain_ms": plain_ms, "calls": rec}
+
+
 def bound(nbytes, ops):
     tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
     return max(tb, to), ("bytes" if tb >= to else "operations")
@@ -934,7 +1353,7 @@ def main() -> int:
     builds = K.build_all()
     for k in (trace_wave_kernel, trace_wave_noise_kernel,
               trace_wave_bwd_kernel, trace_wave_bwd_noise_kernel,
-              bwd_reduce_kernel):
+              bwd_reduce_kernel) + SPLIT_KERNELS:
         k.load()
     emit({"phase": "build", "wall_seconds": time.perf_counter() - t0,
           "libraries": {n: {"file": b.path.name, "nvcc_seconds": b.seconds,
@@ -943,6 +1362,7 @@ def main() -> int:
 
     # ---- 3. kernels vs plain on small scenes -----------------------------
     small = small_scene_checks(dev)
+    small_split = split_scene_checks(dev)
 
     # ---- 4, 5. flagship forward and training step at full size -----------
     flag_fwd = forward_phase("flagship", builders.flagship, dev, smi)
@@ -957,7 +1377,10 @@ def main() -> int:
                              ("tex_scale", "sph_c0", "sph_r", "tex_color"),
                              ("background", "camera.c2w"), ("perlin_vec",))
 
-    # ---- 8. the inverse-rendering example on the card --------------------
+    # ---- 8. final_scene (media, the split route): forward ---------------
+    final_fwd = final_forward(dev, smi)
+
+    # ---- 9. the inverse-rendering example on the card --------------------
     t0 = time.perf_counter()
     inv = inverse_rendering.run(steps=60, device=dev, log=lambda _: None)
     inv_s = time.perf_counter() - t0
@@ -969,13 +1392,18 @@ def main() -> int:
           "albedo": inv["albedo"], "target": inv["target"],
           "max_albedo_err": inv["max_albedo_err"]})
 
-    # ---- 9. CLI ----------------------------------------------------------
+    # ---- 10. CLI ---------------------------------------------------------
     emit({"phase": "cli", **cli_phase("cornell_box", 256, 16, 0.05, 0.4)})
     emit({"phase": "cli", **cli_phase("perlin_spheres", 128, 4, 0.05, 5.0)})
+    # final_scene 128x128, 4 spp: the JAX package's render_image on the
+    # CPU gives mean radiance 0.22553 at this size and seed (the port's
+    # plain route on the CPU 0.22754); forked paths onto the lamp move it
+    emit({"phase": "cli", **cli_phase("final_scene", 128, 4, 0.203, 0.248)})
 
     # ---- result ----------------------------------------------------------
     rows = (kernel_rows(flag_fwd, flag_train, small, "plain")
-            + kernel_rows(rand_fwd, rand_train, small, "noise"))
+            + kernel_rows(rand_fwd, rand_train, small, "noise")
+            + split_rows(final_fwd, small_split))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

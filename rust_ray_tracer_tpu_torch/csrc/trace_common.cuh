@@ -1,10 +1,14 @@
-// Device helpers shared by the forward and backward trace kernels
-// (trace_wave.cu, trace_wave_bwd.cu): the constants, the NaN-propagating
-// max/min of jnp.maximum/minimum, and the per-ray forms of
-// pallas_shade._normalize, _safe_sqrt, _onb, _ball and one light's sample
-// and pdf, and the marble texture of TPU kernel C with its adjoint. Both
-// kernels take the forward values from these same lines, so the backward's
-// recomputed branches are the forward's.
+// Device helpers shared by the trace kernels (trace_wave.cu,
+// trace_wave_bwd.cu) and the split route's kernels (split.cu): the
+// constants, the NaN-propagating max/min of jnp.maximum/minimum, and the
+// per-ray forms of pallas_shade._normalize, _safe_sqrt, _onb, _ball and one
+// light's sample and pdf; the phase-2 hit attributes of a winner
+// (pallas_hit._hit_plane_core), its shading (pallas_shade._plane_core) and
+// the estimator update (pallas_bounce._bounce_plane_core), which kernel A
+// runs inline and kernels J and H run on their own; and the marble texture
+// of TPU kernel C with its adjoint. Every kernel takes the forward values
+// from these same lines, so the backward's recomputed branches are the
+// forward's, and J and H compute what A computes.
 
 #pragma once
 
@@ -23,7 +27,8 @@ constexpr float EPS = 1e-12f;
 constexpr float PI_F = 3.14159265358979f;
 constexpr float TWO_PI_F = 6.28318530717958f;  // 2.0 * PI, rounded once
 constexpr float PDF_FLOOR = 1e-5f;
-constexpr int KIND_NONE = 0, KIND_TRI = 1, KIND_SPH = 2, KIND_QUAD = 3;
+constexpr int KIND_NONE = 0, KIND_TRI = 1, KIND_SPH = 2, KIND_QUAD = 3,
+              KIND_MED = 4;
 constexpr int MAT_LAMBERTIAN = 0, MAT_METAL = 1, MAT_DIELECTRIC = 2,
               MAT_LIGHT = 3, MAT_ISOTROPIC = 4;
 constexpr float LIGHT_SPHERE_F = 0.f, LIGHT_QUAD_F = 1.f;
@@ -164,6 +169,246 @@ __device__ float light_pdf(const float* __restrict__ l, V3 p, V3 sd) {
     return hits ? distq / jmax(cosq * area, EPS) : 0.f;
   }
   return 0.f;
+}
+
+// ---- phase-2 hit attributes (pallas_hit._hit_plane_core) ----------------
+//
+// Only the winner's reading of the unified 9-float pack pk is evaluated:
+// (v0, e1, e2) for a triangle, (c0, c1, t0, t1, r) for a sphere, (q, u, v)
+// for a quad; a medium's t is tmed. The plain version (ops/hit_core.py
+// hit_plane_core) evaluates every reading and selects, with the same
+// formulas.
+
+struct HitAttrs {
+  float t;     // inf on a miss
+  V3 p, n;     // the hit point; the normal, FlipFace folded in
+  float u, v;  // a triangle's or a quad's surface coordinates, else 0
+};
+
+// The sphere reading of the pack: the preferred root (the near one when it
+// lies in [tmin, tmax]), the time-lerped centre, 1 / radius.
+struct SphereView {
+  float t;
+  V3 cen;
+  bool ok1;
+  float inv_r;
+};
+
+__device__ __forceinline__ SphereView sphere_view(V3 o, V3 d, float time,
+                                                  float tmin, float tmax,
+                                                  const float* pk) {
+  const V3 c0 = {pk[0], pk[1], pk[2]}, c1 = {pk[3], pk[4], pk[5]};
+  const float st0_ = pk[6], st1_ = pk[7], sr = pk[8];
+  const float frac = safe_div(time - st0_, st1_ - st0_);
+  const V3 cen = {c0.x + frac * (c1.x - c0.x), c0.y + frac * (c1.y - c0.y),
+                  c0.z + frac * (c1.z - c0.z)};
+  const V3 oc = {o.x - cen.x, o.y - cen.y, o.z - cen.z};
+  const float a = d.x * d.x + d.y * d.y + d.z * d.z;
+  const float bq = dot3(oc, d);
+  const float cc = dot3(oc, oc) - sr * sr;
+  const float disc = bq * bq - a * cc;
+  const float sq = safe_sqrt(disc);
+  const float root1 = safe_div(-bq - sq, a);
+  const float root2 = safe_div(-bq + sq, a);
+  const bool ok1 = disc > 0.f && root1 >= tmin && root1 <= tmax;
+  // radius floor 1e-12: the adjoint computes -1/floor^2
+  return {ok1 ? root1 : root2, cen, ok1, 1.f / jmax(sr, 1e-12f)};
+}
+
+__device__ __forceinline__ HitAttrs hit_attrs(int kind, V3 o, V3 d,
+                                              float time, float tmin,
+                                              float tmax, const float* pk,
+                                              float tmed, bool flip) {
+  float t = 0.f, u = 0.f, v = 0.f;
+  V3 nrm = {1.f, 0.f, 0.f};            // a medium's (constant_medium.rs:72)
+  if (kind == KIND_TRI) {
+    const V3 v0 = {pk[0], pk[1], pk[2]};
+    const V3 e1 = {pk[3], pk[4], pk[5]}, e2 = {pk[6], pk[7], pk[8]};
+    const V3 tn = {e1.y * e2.z - e1.z * e2.y, e1.z * e2.x - e1.x * e2.z,
+                   e1.x * e2.y - e1.y * e2.x};
+    const float det = -(d.x * tn.x + d.y * tn.y + d.z * tn.z);
+    const float t_num = dot3(o, tn) - dot3(v0, tn);
+    const float inv_det = safe_div(1.f, det);
+    t = t_num * inv_det;
+    const V3 m = {o.y * d.z - o.z * d.y, o.z * d.x - o.x * d.z,
+                  o.x * d.y - o.y * d.x};
+    const V3 e2v0 = {e2.y * v0.z - e2.z * v0.y, e2.z * v0.x - e2.x * v0.z,
+                     e2.x * v0.y - e2.y * v0.x};
+    const V3 v0e1 = {v0.y * e1.z - v0.z * e1.y, v0.z * e1.x - v0.x * e1.z,
+                     v0.x * e1.y - v0.y * e1.x};
+    u = (dot3(m, e2) - dot3(d, e2v0)) * inv_det;
+    v = (-dot3(m, e1) - dot3(d, v0e1)) * inv_det;
+    const float sgn = det > 0.f ? 1.f : (det < 0.f ? -1.f : 0.f);
+    nrm = normalize(tn);
+    nrm = {nrm.x * sgn, nrm.y * sgn, nrm.z * sgn};
+  } else if (kind == KIND_SPH) {
+    const SphereView s = sphere_view(o, d, time, tmin, tmax, pk);
+    t = s.t;
+    nrm = {(o.x + t * d.x - s.cen.x) * s.inv_r,
+           (o.y + t * d.y - s.cen.y) * s.inv_r,
+           (o.z + t * d.z - s.cen.z) * s.inv_r};
+  } else if (kind == KIND_QUAD) {
+    const V3 q = {pk[0], pk[1], pk[2]};
+    const V3 qu = {pk[3], pk[4], pk[5]}, qv = {pk[6], pk[7], pk[8]};
+    const V3 wn = {qu.y * qv.z - qu.z * qv.y, qu.z * qv.x - qu.x * qv.z,
+                   qu.x * qv.y - qu.y * qv.x};
+    const float denom = dot3(d, wn);
+    t = safe_div(dot3({q.x - o.x, q.y - o.y, q.z - o.z}, wn), denom);
+    const V3 w = {o.x + t * d.x - q.x, o.y + t * d.y - q.y,
+                  o.z + t * d.z - q.z};
+    const float inv_n2 = safe_div(1.f, dot3(wn, wn));
+    u = dot3({w.y * qv.z - w.z * qv.y, w.z * qv.x - w.x * qv.z,
+              w.x * qv.y - w.y * qv.x}, wn) * inv_n2;
+    v = dot3({qu.y * w.z - qu.z * w.y, qu.z * w.x - qu.x * w.z,
+              qu.x * w.y - qu.y * w.x}, wn) * inv_n2;
+    nrm = normalize(wn);
+    const float dsign = dot3(d, nrm) > 0.f ? -1.f : 1.f;
+    nrm = {nrm.x * dsign, nrm.y * dsign, nrm.z * dsign};
+  } else if (kind == KIND_MED) {
+    t = tmed;
+  }
+  const V3 p = {o.x + t * d.x, o.y + t * d.y, o.z + t * d.z};
+  if (flip) nrm.y = -fabsf(nrm.y);   // geometry/mod.rs:226-230
+  return {kind == KIND_NONE ? INFINITY : t, p, nrm, u, v};
+}
+
+// ---- shading (pallas_shade._plane_core, the lane's material) -------------
+
+struct Scatter {
+  V3 em;       // emitted radiance
+  V3 wt;       // throughput weight
+  V3 dr;       // the scattered direction
+  bool alive;  // the path goes on
+};
+
+// r points at the ray's first random, the next ones rs apart: 9 uniforms
+// (u0..u4, ul0, ul1, ufr, uir), then 6 normals. lt holds n_lights light
+// rows of LT_COLS.
+__device__ __forceinline__ Scatter shade(int mkind, V3 d, V3 nrm, V3 p,
+                                         V3 alb, float fuzz, float ior,
+                                         const float* __restrict__ lt,
+                                         int n_lights,
+                                         const float* __restrict__ r,
+                                         size_t rs) {
+  auto R = [&](int c) { return r[c * rs]; };
+  const float d_dot_n = dot3(d, nrm);
+  float emx = 0.f, emy = 0.f, emz = 0.f;
+  float wtx = 0.f, wty = 0.f, wtz = 0.f;
+  V3 dr = {1.f, 1.f, 1.f};
+  bool alive_f = true;
+  if (mkind == MAT_LAMBERTIAN) {
+    V3 bu, bv, bw;
+    onb(nrm, bu, bv, bw);
+    const float u0 = R(0), u1 = R(1);
+    const float z = safe_sqrt(1.f - u1);
+    const float phi = TWO_PI_F * u0;
+    const float sr = safe_sqrt(u1);
+    const float lx = cosf(phi) * sr, ly = sinf(phi) * sr;
+    const V3 cosd = {lx * bu.x + ly * bv.x + z * bw.x,
+                     lx * bu.y + ly * bv.y + z * bw.y,
+                     lx * bu.z + ly * bv.z + z * bw.z};
+    V3 lam;
+    float pdf;
+    if (n_lights > 0) {
+      const float u3 = R(3), u4 = R(4);
+      const int li = min((int)(u4 * (float)n_lights), n_lights - 1);
+      lam = cosd;
+      if (!(u3 < 0.5f)) lam = light_sample(lt + li * LT_COLS, p, R(5), R(6));
+      const V3 nd = normalize(lam);
+      const float cos_pdf = jmax(dot3(nd, bw) / PI_F, 0.f);
+      float pdf_sum = 0.f;
+      for (int l = 0; l < n_lights; ++l)
+        pdf_sum = pdf_sum + light_pdf(lt + l * LT_COLS, p, lam);
+      pdf = 0.5f * cos_pdf + 0.5f * pdf_sum / (float)n_lights;
+    } else {
+      lam = cosd;
+      const V3 nd = normalize(lam);
+      pdf = jmax(dot3(nd, bw) / PI_F, 0.f);
+    }
+    pdf = pdf > PDF_FLOOR ? pdf : PDF_FLOOR;
+    const float spdf = jmax(dot3(nrm, normalize(lam)) / PI_F, 0.f);
+    const float lam_w = spdf / pdf;
+    wtx = alb.x * lam_w;
+    wty = alb.y * lam_w;
+    wtz = alb.z * lam_w;
+    dr = lam;
+  } else if (mkind == MAT_METAL || mkind == MAT_DIELECTRIC) {
+    const V3 ud = normalize(d);
+    const float dn2 = 2.f * dot3(ud, nrm);
+    const V3 rf = {ud.x - dn2 * nrm.x, ud.y - dn2 * nrm.y,
+                   ud.z - dn2 * nrm.z};
+    if (mkind == MAT_METAL) {
+      const V3 fb = ball(R(9), R(10), R(11), R(7));
+      const V3 m = {rf.x + fuzz * fb.x, rf.y + fuzz * fb.y,
+                    rf.z + fuzz * fb.z};
+      alive_f = dot3(m, nrm) > 0.f;
+      wtx = alb.x;
+      wty = alb.y;
+      wtz = alb.z;
+      dr = m;
+    } else {
+      const bool exiting = d_dot_n > 0.f;
+      const float ratio = exiting ? ior : 1.f / ior;
+      const V3 no = exiting ? V3{-nrm.x, -nrm.y, -nrm.z} : nrm;
+      const float cos_t = jmin(-dot3(ud, no), 1.f);
+      const float sin_t = safe_sqrt(1.f - cos_t * cos_t);
+      const bool tir = ratio * sin_t > 1.f;
+      const V3 po = {ratio * (ud.x + cos_t * no.x),
+                     ratio * (ud.y + cos_t * no.y),
+                     ratio * (ud.z + cos_t * no.z)};
+      const float kk = fabsf(1.f - (po.x * po.x + po.y * po.y +
+                                    po.z * po.z));
+      const float sk = safe_sqrt(kk);
+      float r0 = (1.f - ior) / (1.f + ior);
+      r0 = r0 * r0;
+      const float one_m = 1.f - cos_t;
+      const float om2 = one_m * one_m;
+      const float schl = r0 + (1.f - r0) * om2 * om2 * one_m;
+      const bool do_refl = tir || schl >= R(2);
+      dr = do_refl ? rf
+                   : V3{po.x - sk * no.x, po.y - sk * no.y,
+                        po.z - sk * no.z};
+      wtx = wty = wtz = 1.f;
+    }
+  } else if (mkind == MAT_ISOTROPIC) {
+    dr = ball(R(12), R(13), R(14), R(8));
+    wtx = alb.x;
+    wty = alb.y;
+    wtz = alb.z;
+  } else if (mkind == MAT_LIGHT) {
+    if (d_dot_n < 0.f) {
+      emx = alb.x;
+      emy = alb.y;
+      emz = alb.z;
+    }
+    alive_f = false;
+  }
+  return {{emx, emy, emz}, {wtx, wty, wtz}, dr, alive_f};
+}
+
+// ---- estimator update (pallas_bounce._bounce_plane_core) -----------------
+
+// A found ray: L += beta * emitted, beta *= weight; it moves to the hit
+// point along the scattered direction, or its path ends.
+__device__ __forceinline__ void update_found(const Scatter& s, V3 p, V3& o,
+                                             V3& d, V3& L, V3& beta,
+                                             float& alive) {
+  L = {L.x + beta.x * s.em.x, L.y + beta.y * s.em.y, L.z + beta.z * s.em.z};
+  beta = {beta.x * s.wt.x, beta.y * s.wt.y, beta.z * s.wt.z};
+  if (s.alive) {
+    o = p;
+    d = s.dr;
+    alive = 1.f;
+  } else {
+    alive = 0.f;
+  }
+}
+
+// A live ray that found nothing: L += beta * background; its path ends.
+__device__ __forceinline__ void update_miss(const float* __restrict__ bg,
+                                            V3& L, V3 beta, float& alive) {
+  L = {L.x + beta.x * bg[0], L.y + beta.y * bg[1], L.z + beta.z * bg[2]};
+  alive = 0.f;
 }
 
 // ---- marble noise: TPU kernel C -----------------------------------------

@@ -33,7 +33,9 @@
 //   * a block leaves the bounce loop once all its rays are dead, and a
 //     dead ray skips the sweep (its empty window rejects everything);
 //   * only the winner's hit attributes and material are evaluated: the
-//     same values the plain version selects out of all kinds;
+//     same values the plain version selects out of all kinds. They are the
+//     device functions of trace_common.cuh (hit_attrs, shade, update_found)
+//     that the split route's kernels J and H (split.cu) run on their own;
 //   * a scene with Noise textures runs the HAS_NOISE instantiation, which
 //     loads the Perlin tables into shared memory once per block and
 //     evaluates the marble (TPU kernel C, trace_common.cuh) only where a
@@ -96,19 +98,18 @@ trace_wave_kernel(const float* __restrict__ st0,
   float s[14];
 #pragma unroll
   for (int c = 0; c < 14; ++c) s[c] = in ? st0[(size_t)c * n + i] : 0.f;
-  float ox = s[0], oy = s[1], oz = s[2], dx = s[3], dy = s[4], dz = s[5];
+  V3 o = {s[0], s[1], s[2]}, d = {s[3], s[4], s[5]};
   const float time = s[6];
   float alive = s[7];
-  float Lx = s[8], Ly = s[9], Lz = s[10], bx = s[11], by = s[12],
-        bz = s[13];
+  V3 L = {s[8], s[9], s[10]}, beta = {s[11], s[12], s[13]};
   const float* __restrict__ bg = tb.lt + tb.n_lights * LT_COLS;
 
   // the backward's residuals (pallas_uber.py:887-916), when asked for:
   // bounce b's input state, and its winner (kind, row), 0 on a miss
   const bool res = hist != nullptr && in;
   auto save_state = [&](int b) {
-    const float st[14] = {ox, oy, oz, dx, dy, dz, time, alive,
-                          Lx, Ly, Lz, bx, by, bz};
+    const float st[14] = {o.x, o.y, o.z, d.x, d.y, d.z, time, alive,
+                          L.x, L.y, L.z, beta.x, beta.y, beta.z};
 #pragma unroll
     for (int c = 0; c < 14; ++c) hist[((size_t)b * 14 + c) * n + i] = st[c];
   };
@@ -132,6 +133,7 @@ trace_wave_kernel(const float* __restrict__ st0,
     }
     const float tmin = T_MIN;
     const float tmax = live_in ? INFINITY : -1.f;
+    const float ox = o.x, oy = o.y, oz = o.z, dx = d.x, dy = d.y, dz = d.z;
 
     // ---- phase 1: closest hit (pallas_uber._search_row) ----------------
     float best_t = INFINITY;
@@ -220,15 +222,14 @@ trace_wave_kernel(const float* __restrict__ st0,
       const float wz = oz + t * dz - qz;
       const float n2 = wnx * wnx + wny * wny + wnz * wnz;
       const float inv_n2 = 1.f / jmax(n2, 1e-12f);
-      const float alpha = ((wy * vz - wz * vy) * wnx +
-                           (wz * vx - wx * vz) * wny +
-                           (wx * vy - wy * vx) * wnz) * inv_n2;
-      const float beta = ((uy * wz - uz * wy) * wnx +
-                          (uz * wx - ux * wz) * wny +
-                          (ux * wy - uy * wx) * wnz) * inv_n2;
+      const float qa = ((wy * vz - wz * vy) * wnx +
+                        (wz * vx - wx * vz) * wny +
+                        (wx * vy - wy * vx) * wnz) * inv_n2;
+      const float qb = ((uy * wz - uz * wy) * wnx +
+                        (uz * wx - ux * wz) * wny +
+                        (ux * wy - uy * wx) * wnz) * inv_n2;
       const bool valid = fabsf(denom) > 0.f && t >= tmin && t <= tmax &&
-                         alpha >= 0.f && alpha <= 1.f && beta >= 0.f &&
-                         beta <= 1.f;
+                         qa >= 0.f && qa <= 1.f && qb >= 0.f && qb <= 1.f;
       if (valid && t < best_t) {
         best_t = t;
         best_k = KIND_QUAD;
@@ -240,16 +241,12 @@ trace_wave_kernel(const float* __restrict__ st0,
 
     // ---- miss: background, the path ends -------------------------------
     if (best_k == KIND_NONE) {
-      Lx = Lx + bx * bg[0];
-      Ly = Ly + by * bg[1];
-      Lz = Lz + bz * bg[2];
-      alive = 0.f;
+      update_miss(bg, L, beta, alive);
       continue;
     }
 
     // ---- winner row (pallas_uber._tile_core plane assembly) ------------
     const float* row = tb.uni + (size_t)best_i * tb.w;
-    const float* pk = row;                  // unified 9-float pack
     const bool flip = row[9] > 0.5f;
     const float* att = row + A_COL;
     const int mkind = (int)att[0];
@@ -257,54 +254,9 @@ trace_wave_kernel(const float* __restrict__ st0,
     float ax = att[3], ay = att[4], az = att[5];
 
     // ---- hit attributes (pallas_hit._hit_plane_core, winner's kind) ----
-    float t;
-    V3 nrm;
-    if (best_k == KIND_TRI) {
-      const V3 v0 = {pk[0], pk[1], pk[2]};
-      const V3 e1 = {pk[3], pk[4], pk[5]}, e2 = {pk[6], pk[7], pk[8]};
-      const V3 tn = {e1.y * e2.z - e1.z * e2.y, e1.z * e2.x - e1.x * e2.z,
-                     e1.x * e2.y - e1.y * e2.x};
-      const float det = -(dx * tn.x + dy * tn.y + dz * tn.z);
-      const float t_num = dot3({ox, oy, oz}, tn) - dot3(v0, tn);
-      t = t_num * safe_div(1.f, det);
-      const float sgn = det > 0.f ? 1.f : (det < 0.f ? -1.f : 0.f);
-      nrm = normalize(tn);
-      nrm = {nrm.x * sgn, nrm.y * sgn, nrm.z * sgn};
-    } else if (best_k == KIND_SPH) {
-      const V3 c0 = {pk[0], pk[1], pk[2]}, c1 = {pk[3], pk[4], pk[5]};
-      const float st0_ = pk[6], st1_ = pk[7], sr = pk[8];
-      const float frac = safe_div(time - st0_, st1_ - st0_);
-      const V3 cen = {c0.x + frac * (c1.x - c0.x),
-                      c0.y + frac * (c1.y - c0.y),
-                      c0.z + frac * (c1.z - c0.z)};
-      const V3 oc = {ox - cen.x, oy - cen.y, oz - cen.z};
-      const V3 d = {dx, dy, dz};
-      const float a = dx * dx + dy * dy + dz * dz;
-      const float bq = dot3(oc, d);
-      const float cc = dot3(oc, oc) - sr * sr;
-      const float disc = bq * bq - a * cc;
-      const float sq = safe_sqrt(disc);
-      const float root1 = safe_div(-bq - sq, a);
-      const float root2 = safe_div(-bq + sq, a);
-      const bool ok1 = disc > 0.f && root1 >= tmin && root1 <= tmax;
-      t = ok1 ? root1 : root2;
-      const float inv_r = 1.f / jmax(sr, 1e-12f);
-      nrm = {(ox + t * dx - cen.x) * inv_r, (oy + t * dy - cen.y) * inv_r,
-             (oz + t * dz - cen.z) * inv_r};
-    } else {
-      const V3 q = {pk[0], pk[1], pk[2]};
-      const V3 qu = {pk[3], pk[4], pk[5]}, qv = {pk[6], pk[7], pk[8]};
-      const V3 wn = {qu.y * qv.z - qu.z * qv.y, qu.z * qv.x - qu.x * qv.z,
-                     qu.x * qv.y - qu.y * qv.x};
-      const V3 d = {dx, dy, dz};
-      const float denom = dot3(d, wn);
-      t = safe_div(dot3({q.x - ox, q.y - oy, q.z - oz}, wn), denom);
-      nrm = normalize(wn);
-      const float dsign = dot3(d, nrm) > 0.f ? -1.f : 1.f;
-      nrm = {nrm.x * dsign, nrm.y * dsign, nrm.z * dsign};
-    }
-    const V3 p = {ox + t * dx, oy + t * dy, oz + t * dz};
-    if (flip) nrm.y = -fabsf(nrm.y);   // geometry/mod.rs:226-230
+    const HitAttrs h = hit_attrs(best_k, o, d, time, tmin, tmax, row, 0.f,
+                                 flip);
+    const V3 p = h.p;
 
     if (tb.has_checker && att[12] > 0.5f) {
       // checker (texture.rs:50-57): the sin-product sign picks the leaf
@@ -321,127 +273,17 @@ trace_wave_kernel(const float* __restrict__ st0,
       if (nz[1] > 0.5f) ax = ay = az = marble(perlin, p, nz[0]);
     }
 
-    // ---- shading (pallas_shade._plane_core, winner's material) ---------
-    const int rb = b * 15;
-    auto R = [&](int c) { return rnd[(size_t)(rb + c) * n + i]; };
-    const V3 d = {dx, dy, dz};
-    const float d_dot_n = dot3(d, nrm);
-    float emx = 0.f, emy = 0.f, emz = 0.f;
-    float wtx = 0.f, wty = 0.f, wtz = 0.f;
-    V3 dr = {1.f, 1.f, 1.f};
-    bool alive_f = true;
-    if (mkind == MAT_LAMBERTIAN) {
-      V3 bu, bv, bw;
-      onb(nrm, bu, bv, bw);
-      const float u0 = R(0), u1 = R(1);
-      const float z = safe_sqrt(1.f - u1);
-      const float phi = TWO_PI_F * u0;
-      const float sr = safe_sqrt(u1);
-      const float lx = cosf(phi) * sr, ly = sinf(phi) * sr;
-      const V3 cosd = {lx * bu.x + ly * bv.x + z * bw.x,
-                       lx * bu.y + ly * bv.y + z * bw.y,
-                       lx * bu.z + ly * bv.z + z * bw.z};
-      V3 lam;
-      float pdf;
-      if (tb.n_lights > 0) {
-        const float u3 = R(3), u4 = R(4);
-        const int li = min((int)(u4 * (float)tb.n_lights), tb.n_lights - 1);
-        lam = cosd;
-        if (!(u3 < 0.5f)) lam = light_sample(tb.lt + li * LT_COLS, p, R(5),
-                                              R(6));
-        const V3 nd = normalize(lam);
-        const float cos_pdf = jmax(dot3(nd, bw) / PI_F, 0.f);
-        float pdf_sum = 0.f;
-        for (int l = 0; l < tb.n_lights; ++l)
-          pdf_sum = pdf_sum + light_pdf(tb.lt + l * LT_COLS, p, lam);
-        pdf = 0.5f * cos_pdf + 0.5f * pdf_sum / (float)tb.n_lights;
-      } else {
-        lam = cosd;
-        const V3 nd = normalize(lam);
-        pdf = jmax(dot3(nd, bw) / PI_F, 0.f);
-      }
-      pdf = pdf > PDF_FLOOR ? pdf : PDF_FLOOR;
-      const float spdf = jmax(dot3(nrm, normalize(lam)) / PI_F, 0.f);
-      const float lam_w = spdf / pdf;
-      wtx = ax * lam_w;
-      wty = ay * lam_w;
-      wtz = az * lam_w;
-      dr = lam;
-    } else if (mkind == MAT_METAL || mkind == MAT_DIELECTRIC) {
-      const V3 ud = normalize(d);
-      const float dn2 = 2.f * dot3(ud, nrm);
-      const V3 r = {ud.x - dn2 * nrm.x, ud.y - dn2 * nrm.y,
-                    ud.z - dn2 * nrm.z};
-      if (mkind == MAT_METAL) {
-        const V3 fb = ball(R(9), R(10), R(11), R(7));
-        const V3 m = {r.x + fuzz * fb.x, r.y + fuzz * fb.y,
-                      r.z + fuzz * fb.z};
-        alive_f = dot3(m, nrm) > 0.f;
-        wtx = ax;
-        wty = ay;
-        wtz = az;
-        dr = m;
-      } else {
-        const bool exiting = d_dot_n > 0.f;
-        const float ratio = exiting ? ior : 1.f / ior;
-        const V3 no = exiting ? V3{-nrm.x, -nrm.y, -nrm.z} : nrm;
-        const float cos_t = jmin(-dot3(ud, no), 1.f);
-        const float sin_t = safe_sqrt(1.f - cos_t * cos_t);
-        const bool tir = ratio * sin_t > 1.f;
-        const V3 po = {ratio * (ud.x + cos_t * no.x),
-                       ratio * (ud.y + cos_t * no.y),
-                       ratio * (ud.z + cos_t * no.z)};
-        const float kk = fabsf(1.f - (po.x * po.x + po.y * po.y +
-                                      po.z * po.z));
-        const float sk = safe_sqrt(kk);
-        float r0 = (1.f - ior) / (1.f + ior);
-        r0 = r0 * r0;
-        const float one_m = 1.f - cos_t;
-        const float om2 = one_m * one_m;
-        const float schl = r0 + (1.f - r0) * om2 * om2 * one_m;
-        const bool do_refl = tir || schl >= R(2);
-        dr = do_refl ? r
-                     : V3{po.x - sk * no.x, po.y - sk * no.y,
-                          po.z - sk * no.z};
-        wtx = wty = wtz = 1.f;
-      }
-    } else if (mkind == MAT_ISOTROPIC) {
-      dr = ball(R(12), R(13), R(14), R(8));
-      wtx = ax;
-      wty = ay;
-      wtz = az;
-    } else if (mkind == MAT_LIGHT) {
-      if (d_dot_n < 0.f) {
-        emx = ax;
-        emy = ay;
-        emz = az;
-      }
-      alive_f = false;
-    }
-
-    // ---- estimator update (pallas_bounce._bounce_plane_core) -----------
-    Lx = Lx + bx * emx;
-    Ly = Ly + by * emy;
-    Lz = Lz + bz * emz;
-    bx = bx * wtx;
-    by = by * wty;
-    bz = bz * wtz;
-    if (alive_f) {
-      ox = p.x;
-      oy = p.y;
-      oz = p.z;
-      dx = dr.x;
-      dy = dr.y;
-      dz = dr.z;
-      alive = 1.f;
-    } else {
-      alive = 0.f;
-    }
+    // ---- shading (pallas_shade._plane_core, winner's material) and the
+    // estimator update (pallas_bounce._bounce_plane_core) ----------------
+    const Scatter sc = shade(mkind, d, h.n, p, {ax, ay, az}, fuzz, ior,
+                             tb.lt, tb.n_lights,
+                             rnd + (size_t)b * 15 * n + i, (size_t)n);
+    update_found(sc, p, o, d, L, beta, alive);
   }
 
   if (!in) return;
-  const float out[14] = {ox, oy, oz, dx, dy, dz, time, alive,
-                         Lx, Ly, Lz, bx, by, bz};
+  const float out[14] = {o.x, o.y, o.z, d.x, d.y, d.z, time, alive,
+                         L.x, L.y, L.z, beta.x, beta.y, beta.z};
 #pragma unroll
   for (int c = 0; c < 14; ++c) stf[(size_t)c * n + i] = out[c];
 }

@@ -28,7 +28,14 @@ Kernels (each wrapper counts its launches in ``launches``):
     Noise textures: they also evaluate the marble (TPU kernel C,
     ``pallas_bounce._noise_row`` / ``_marble_row``) and its adjoint.
     :func:`trace_kernel` and :func:`trace_bwd_kernel` pick the variant for
-    a ``TraceCtx``; each wrapper refuses a context of the other kind.
+    a ``TraceCtx``; each wrapper refuses a context of the other kind;
+  * the split route's kernels, ``csrc/split.cu`` (library ``split``):
+    ``quad_search_kernel`` (TPU kernel O, ``pallas_quad.py`` ``_kernel``;
+    plain version ``ops/quad._quad_candidates``),
+    ``hit_attrs_kernel`` (TPU kernel J, ``pallas_hit.py`` ``_kernel``;
+    plain version ``ops/hit_core.hit_plane_core``) and
+    ``shade_update_kernel`` (TPU kernel H, ``pallas_bounce.py``
+    ``_make_su_kernel``; plain version ``ops/bounce.su_plane_core``).
 """
 
 from __future__ import annotations
@@ -44,6 +51,9 @@ from pathlib import Path
 
 import torch
 
+from rust_ray_tracer_tpu_torch.ops.bounce import N_SU, N_SU_OUT
+from rust_ray_tracer_tpu_torch.ops.hit_core import N_IN as HIT_IN
+from rust_ray_tracer_tpu_torch.ops.hit_core import N_OUT as HIT_OUT
 from rust_ray_tracer_tpu_torch.ops.shade_core import LT_COLS
 from rust_ray_tracer_tpu_torch.ops.uber import (A_COL, N_RND, N_STATE, TCC,
                                                 TILE)
@@ -61,11 +71,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # built without contraction too: the marble's albedo moves ~50 per unit of
 # the hit point, so an FMA's last-ulp change of a far hit point (|p| ~ 1000
 # on a noise ground) moves a pixel by more than the comparison's 1e-3.
+# The split route's kernels round as their plain versions (torch
+# elementwise ops) do, for the same reason: final_scene has a noise sphere,
+# and free-flight distances through log.
 LIBRARIES = {
     "trace_wave": ("trace_wave", ()),
     "trace_wave_noise": ("trace_wave", ("--fmad=false",
                                         "-DTRACE_WAVE_NOISE=1")),
     "trace_wave_bwd": ("trace_wave_bwd", ("--fmad=false",)),
+    "split": ("split", ("--fmad=false",)),
 }
 
 
@@ -404,6 +418,105 @@ class BwdReduceKernel(_Kernel):
 trace_wave_bwd_kernel = TraceWaveBwdKernel()
 trace_wave_bwd_noise_kernel = TraceWaveBwdNoiseKernel()
 bwd_reduce_kernel = BwdReduceKernel()
+
+
+QCL = 128        # quads per cull cluster (models/scene.CLUSTER)
+
+
+class QuadSearchKernel(_Kernel):
+    """ctypes wrapper of ``quad_search_launch`` (kernel O): the closest
+    quad hit of each ray, (best_t [N] float32, inf for none; best_i [N]
+    int32, 0 for none), as ``ops/quad._quad_candidates`` returns
+    them."""
+
+    name = "quad_search"
+    library = "split"
+    entry = "quad_search_launch"
+    argtypes = (_P,) * 4 + (_I,) * 3 + (_P, _P)
+
+    def __call__(self, rays, quads, cl_min, cl_max):
+        """``rays`` [N, 8] (o, d, tmin, tmax), ``quads`` [Q, 9] (q, u, v),
+        the cluster boxes ``cl_min`` / ``cl_max`` [ceil(Q / 128), 3]."""
+        dev = rays.device
+        if dev.type != "cuda":
+            raise ValueError(f"quad_search kernel needs CUDA tensors, got "
+                             f"{dev}")
+        n, q = rays.shape[0], quads.shape[0]
+        k = -(-q // QCL)
+        if q == 0:
+            raise ValueError("quad_search needs at least one quad")
+        _check("rays", rays, dev, (n, 8))
+        _check("quads", quads, dev, (q, 9))
+        _check("cl_min", cl_min, dev, (k, 3))
+        _check("cl_max", cl_max, dev, (k, 3))
+        self.load()
+        best_t = torch.empty((n,), dtype=torch.float32, device=dev)
+        best_i = torch.empty((n,), dtype=torch.int32, device=dev)
+        self._launch(dev, _ptr(rays), _ptr(quads), _ptr(cl_min),
+                     _ptr(cl_max), n, q, k, _ptr(best_t), _ptr(best_i))
+        return best_t, best_i
+
+
+class HitAttrsKernel(_Kernel):
+    """ctypes wrapper of ``hit_attrs_launch`` (kernel J): [12, N] hit
+    attribute planes of [19, N] input planes and the int32 ``kind`` and
+    ``flip`` [N], as ``ops/hit_core.hit_plane_core`` returns them."""
+
+    name = "hit_attrs"
+    library = "split"
+    entry = "hit_attrs_launch"
+    argtypes = (_P,) * 4 + (_I,)
+
+    def __call__(self, planes, kind, flip):
+        dev = planes.device
+        if dev.type != "cuda":
+            raise ValueError(f"hit_attrs kernel needs CUDA tensors, got "
+                             f"{dev}")
+        n = planes.shape[1] if planes.dim() == 2 else -1
+        _check("planes", planes, dev, (HIT_IN, n))
+        _check("kind", kind, dev, (n,), torch.int32)
+        _check("flip", flip, dev, (n,), torch.int32)
+        self.load()
+        out = torch.empty((HIT_OUT, n), dtype=torch.float32, device=dev)
+        self._launch(dev, _ptr(planes), _ptr(kind), _ptr(flip), _ptr(out),
+                     n)
+        return out
+
+
+class ShadeUpdateKernel(_Kernel):
+    """ctypes wrapper of ``shade_update_launch`` (kernel H): [13, N] next
+    state planes (o, d, L, beta, alive) of [40, N] input planes, the int32
+    material kinds ``mkind`` [N] and the light table ``lt`` [n_lights + 1,
+    LT_COLS] (last row the background), as ``ops/bounce.su_plane_core``
+    returns them."""
+
+    name = "shade_update"
+    library = "split"
+    entry = "shade_update_launch"
+    argtypes = (_P, _P, _P, _I, _P, _I)
+
+    def __call__(self, planes, mkind, lt, n_lights: int):
+        dev = planes.device
+        if dev.type != "cuda":
+            raise ValueError(f"shade_update kernel needs CUDA tensors, got "
+                             f"{dev}")
+        n = planes.shape[1] if planes.dim() == 2 else -1
+        if (n_lights + 1) * LT_COLS > 128:
+            raise ValueError(f"{n_lights} lights exceed the kernel's light "
+                             "table")
+        _check("planes", planes, dev, (N_SU, n))
+        _check("mkind", mkind, dev, (n,), torch.int32)
+        _check("lt", lt, dev, (n_lights + 1, LT_COLS))
+        self.load()
+        out = torch.empty((N_SU_OUT, n), dtype=torch.float32, device=dev)
+        self._launch(dev, _ptr(planes), _ptr(mkind), _ptr(lt), n_lights,
+                     _ptr(out), n)
+        return out
+
+
+quad_search_kernel = QuadSearchKernel()
+hit_attrs_kernel = HitAttrsKernel()
+shade_update_kernel = ShadeUpdateKernel()
 
 
 def trace_kernel(ctx) -> TraceWaveKernel:

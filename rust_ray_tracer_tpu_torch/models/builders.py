@@ -1,18 +1,19 @@
 """Built-in procedural scenes.
 
-Counterpart of ``rust_ray_tracer_tpu/models/builders.py``: ``random``,
-``perlin_spheres`` and ``rect_light`` (``builders.py:51-131``, the
-marble-noise scenes; ``random`` draws its layout with the same
-``np.random.default_rng(seed)`` sequence), ``cornell_box`` and
-``cornell_triangle`` (``builders.py:134-176``) with the same content,
-camera poses (``look_at_rh`` fed as camera-to-world, the reference quirk)
-and light lists, plus :func:`flagship` — the procedural scene of
-``__graft_entry__._flagship_scene`` (968 random triangles and a sphere
-lamp) drawn with the same ``np.random.default_rng(0)`` sequence, so the
-port reaches the bench workload without importing JAX.
+Counterpart of ``rust_ray_tracer_tpu/models/builders.py``: the eight
+reference scenes (``builders.py:51-217``) — ``random``, ``two_spheres``,
+``perlin_spheres``, ``earth``, ``rect_light``, ``cornell_box``,
+``cornell_triangle`` and ``final_scene`` — with the same content, camera
+poses (``look_at_rh`` fed as camera-to-world, the reference quirk) and
+light lists; ``random`` and ``final_scene`` draw their layouts with the
+same ``np.random.default_rng(seed)`` sequences. Plus :func:`flagship` —
+the procedural scene of ``__graft_entry__._flagship_scene`` (968 random
+triangles and a sphere lamp) drawn with the same
+``np.random.default_rng(0)`` sequence, so the port reaches the bench
+workload without importing JAX.
 
-The other reference scene names are recognised and raise
-``NotImplementedError`` naming the ROADMAP item that ports what they need.
+The ``composite`` scene name is recognised and raises
+``NotImplementedError`` naming the ROADMAP item that ports what it needs.
 """
 
 from __future__ import annotations
@@ -24,9 +25,6 @@ from rust_ray_tracer_tpu_torch.ops.camera import look_at_rh, make_camera
 
 # scene -> (what it needs, ROADMAP queue 1 item that ports it)
 _NOT_PORTED = {
-    "two_spheres": ("image textures", "12"),
-    "earth": ("image textures", "12"),
-    "final_scene": ("media and image textures", "11"),
     "composite": ("glTF meshes", "4"),
 }
 
@@ -80,6 +78,20 @@ def random_scene(aspect: float, seed: int = 0) -> S.Scene:
     return S.Scene(camera=cam, world=world, lights=[], background=_SKY)
 
 
+def two_spheres(aspect: float, seed: int = 0) -> S.Scene:
+    """scene.rs:94-121,427-441: a checker sphere under a sphere checkered
+    with the (missing, so solid yellow) earth texture."""
+    world = [
+        S.Sphere((0, -10, 0), 10.0,
+                 S.Lambertian(S.Checker.from_colors((0.2, 0.3, 0.1),
+                                                    (0.9, 0.9, 0.9)))),
+        S.Sphere((0, 10, 0), 10.0,
+                 S.Lambertian(S.Checker(_earth_texture(), _earth_texture()))),
+    ]
+    cam = _camera((13, -2, 3), (0, 0, 0), 40.0, aspect)
+    return S.Scene(camera=cam, world=world, lights=[], background=_SKY)
+
+
 def perlin_spheres(aspect: float, seed: int = 0) -> S.Scene:
     """scene.rs:123-141,442-456: two spheres sharing one Noise(4)."""
     pertex = S.Noise(4.0)
@@ -88,6 +100,13 @@ def perlin_spheres(aspect: float, seed: int = 0) -> S.Scene:
         S.Sphere((0, 1, 0), 1.0, S.Lambertian(pertex)),
     ]
     cam = _camera((13, -2, 7), (0, 0, 0), 20.0, aspect)
+    return S.Scene(camera=cam, world=world, lights=[], background=_SKY)
+
+
+def earth(aspect: float, seed: int = 0) -> S.Scene:
+    """scene.rs:144-153,457-471: one sphere with the earth texture."""
+    world = [S.Sphere((0, 0, 0), 2.0, S.Lambertian(_earth_texture()))]
+    cam = _camera((13, -2, 3), (0, 0, 0), 20.0, aspect)
     return S.Scene(camera=cam, world=world, lights=[], background=_SKY)
 
 
@@ -154,6 +173,51 @@ def cornell_triangle(aspect: float, seed: int = 0) -> S.Scene:
                    background=(0, 0, 0))
 
 
+def final_scene(aspect: float, seed: int = 0) -> S.Scene:
+    """scene.rs:288-391,544-562, the book-2 cover: 225 ground boxes of
+    random height (1,350 quads), a lamp rect, a moving sphere, glass, a
+    fuzzy metal, a glass ball holding a blue medium (r = 70, density
+    0.2), a thin fog around everything (r = 5000, density 1e-4, the
+    camera inside), the earth sphere, a Noise(2) sphere and a rotated
+    cluster of ten white spheres. Its light list holds a FlipFace rect,
+    which has no sampling in the reference: LIGHT_NULL."""
+    rng = np.random.default_rng(seed)
+    world: list = []
+    ground = S.Lambertian.from_rgb(0.48, 0.83, 0.53)
+    for i in range(15):
+        for j in range(15):
+            w = 100.0
+            x0, z0 = -1000.0 + i * w, -1000.0 + j * w
+            y1 = rng.uniform(1.0, 101.0)
+            world.append(S.Cuboid((x0, 0.0, z0), (x0 + w, y1, z0 + w),
+                                  ground))
+    world.append(S.XZRect(123.0, 423.0, 147.0, 412.0, 554.0,
+                          S.DiffuseLight.from_color((7, 7, 7))))
+    world.append(S.MovingSphere((400, 400, 200), (430, 400, 200), 0.0, 1.0,
+                                50.0, S.Lambertian.from_rgb(0.7, 0.3, 0.1)))
+    world.append(S.Sphere((260, 150, 45), 45.0, S.Dielectric(1.5)))
+    world.append(S.Sphere((0, 150, 145), 50.0,
+                          S.Metal((0.8, 0.8, 0.9), 1.0)))
+    boundary = S.Sphere((360, 150, 145), 70.0, S.Dielectric(1.5))
+    world.append(boundary)
+    world.append(S.ConstantMedium.from_color(boundary, 0.2, (0.2, 0.4, 0.9)))
+    fog = S.Sphere((0, 0, 0), 5000.0, S.Dielectric(1.5))
+    world.append(S.ConstantMedium(fog, 0.0001, _earth_texture()))
+    world.append(S.Sphere((400, 200, 400), 100.0,
+                          S.Lambertian(_earth_texture())))
+    world.append(S.Sphere((220, 280, 200), 80.0,
+                          S.Lambertian(S.Noise(2.0))))
+    white = S.Lambertian.from_rgb(0.73, 0.73, 0.73)
+    cluster = [S.Sphere(rng.uniform(0.0, 165.0, 3).astype(np.float32), 10.0,
+                        white) for _ in range(10)]
+    world.append(S.Translate(S.RotateY(cluster, 15.0), (-100, 270, 395)))
+    lights = [S.FlipFace(S.XZRect(123.0, 423.0, 147.0, 412.0, 554.0,
+                                  S.DiffuseLight.from_color((0, 0, 0))))]
+    cam = _camera((478, -278, -600), (278, -278, 0), 40.0, aspect)
+    return S.Scene(camera=cam, world=world, lights=lights,
+                   background=(0, 0, 0))
+
+
 def flagship() -> S.Scene:
     """The bench workload's scene: 968 random double-sided triangles in
     front of the camera plus a sphere lamp, Lambertian + DiffuseLight,
@@ -174,10 +238,13 @@ def flagship() -> S.Scene:
 
 _BUILDERS = {
     "random": random_scene,
+    "two_spheres": two_spheres,
     "perlin_spheres": perlin_spheres,
+    "earth": earth,
     "rect_light": rect_light,
     "cornell_box": cornell_box,
     "cornell_triangle": cornell_triangle,
+    "final_scene": final_scene,
 }
 
 

@@ -11,9 +11,14 @@ arithmetic is the JAX package's float32 numpy, so the tables are
 identical; they are emitted as torch tensors in a :class:`SceneData`
 dataclass.
 
+ConstantMedium compiles as in JAX (``scene.py:627-690``): a Sphere boundary
+(``MED_SPHERE``) or a Cuboid one (``MED_POLY``, outward half-spaces), each
+unwrapped from Translate/RotateY, with an ``Isotropic`` material of the
+medium's texture.
+
 Not yet ported (each raises ``NotImplementedError``): decoding an image
 texture's file (ROADMAP queue 1 item 12; a missing file is solid yellow, as
-in JAX), Mesh and glTF (item 4), ConstantMedium (item 11).
+in JAX), Mesh and glTF, also as a ConstantMedium boundary (item 4).
 """
 
 from __future__ import annotations
@@ -43,6 +48,10 @@ TEX_IMAGE = 3        # material/texture.rs:84-131
 LIGHT_SPHERE = 0     # sphere.rs:101-119 (solid angle pdf + cone sampling)
 LIGHT_QUAD = 1       # aarect.rs:123-143 (XZRect area pdf + uniform sampling)
 LIGHT_NULL = 2       # Hittable defaults: pdf=0, random=(1,0,0)
+
+MED_SPHERE = 0       # constant-medium boundary kinds (SceneData.med_kind)
+MED_POLY = 1
+MED_MESH = 2
 
 PERLIN_N = 256       # perlin.rs:6
 CLUSTER = 128        # min triangles per culling cluster
@@ -394,10 +403,16 @@ class FlipFace:
 
 @dataclasses.dataclass
 class ConstantMedium:
-    """Participating medium (constant_medium.rs) — not yet ported."""
+    """Participating medium of constant ``density`` inside ``boundary``
+    (constant_medium.rs): a Sphere or a Cuboid, optionally wrapped in
+    Translate/RotateY; a Mesh boundary is not ported yet."""
     boundary: object
     density: float
     texture: Texture
+
+    @staticmethod
+    def from_color(boundary, density, color: Vec) -> "ConstantMedium":
+        return ConstantMedium(boundary, density, SolidColor(color))
 
 
 @dataclasses.dataclass
@@ -456,6 +471,7 @@ class _Builder:
         self.tris = []       # (v0, e1, e2, mat, double, flip)
         self.sphs = []       # (c0, c1, t0, t1, r, mat, flip)
         self.quads = []      # (q, u, v, mat, flip)
+        self.media = []      # (c, r, neg_inv_d, mat, kind, planes)
         self.materials = []
         self.textures = []
         # id(obj) -> (obj, row): holding obj keeps its id from being reused
@@ -557,9 +573,52 @@ class _Builder:
         elif isinstance(obj, Mesh):
             raise _not_ported("Mesh", "4")
         elif isinstance(obj, ConstantMedium):
-            raise _not_ported("ConstantMedium", "11")
+            self.add_medium(obj, affine)
         else:
             raise TypeError(f"unknown scene object {obj!r}")
+
+
+    def add_medium(self, obj: ConstantMedium, affine: np.ndarray):
+        """The JAX package's ConstantMedium compile (``scene.py:627-690``)
+        for Sphere and Cuboid boundaries."""
+        b = obj.boundary
+        a2 = affine
+        while isinstance(b, (Translate, RotateY)):
+            if isinstance(b, Translate):
+                a2 = _compose(a2, _affine(trans=b.offset))
+            else:
+                a2 = _compose(a2, _affine(rot=_rot_y(b.angle_deg)))
+            b = b.base
+        if isinstance(b, Mesh):
+            raise _not_ported("a Mesh ConstantMedium boundary", "4")
+        if not isinstance(b, (Sphere, Cuboid)):
+            raise NotImplementedError(
+                "ConstantMedium boundaries: Sphere or Cuboid (optionally "
+                "Translate/RotateY-wrapped); a flat rect has no exit hit and "
+                "yields no medium in the reference either "
+                "(constant_medium.rs:47-49)")
+        nid = -1.0 / float(obj.density)
+        mat = self.material_id(Isotropic(obj.texture))
+        if isinstance(b, Sphere):
+            self.media.append((_apply_p(a2, b.center), float(b.radius), nid,
+                               mat, MED_SPHERE, []))
+            return
+        # convex polytope: one outward half-space n.p <= d per face, the
+        # slab interval of the reference's entry/exit pair
+        center = _apply_p(a2, (_v(b.minimum) + _v(b.maximum)) * 0.5)
+        planes = []
+        for side in b.sides():
+            q = _apply_p(a2, side.q)
+            n = np.cross(_apply_d(a2, side.u), _apply_d(a2, side.v))
+            ln = float(np.linalg.norm(n))
+            if ln <= 0:
+                continue   # degenerate face: no constraint
+            n = n / ln
+            if float(np.dot(n, center - q)) > 0:
+                n = -n     # orient outward
+            planes.append((n.astype(np.float32), float(np.dot(n, q))))
+        self.media.append((np.zeros(3, np.float32), 0.0, nid, mat, MED_POLY,
+                           planes))
 
 
 def _stack(rows, pick, shape, dtype=np.float32):
@@ -732,6 +791,17 @@ def compile_scene(scene: Scene, *, seed: int = 0,
         q_cl_min, q_cl_max = _cluster_boxes(qc.min(1), qc.max(1),
                                             len(b.quads), CLUSTER)
 
+    # polytope planes padded to the largest face count with no-constraint
+    # half-spaces (n = 0, d = 1)
+    n_med = len(b.media)
+    n_pl = max([len(r[5]) for r in b.media], default=0)
+    med_pl_n = np.zeros((n_med, n_pl, 3), np.float32)
+    med_pl_d = np.ones((n_med, n_pl), np.float32)
+    for i, row in enumerate(b.media):
+        for j, (nrm, off) in enumerate(row[5]):
+            med_pl_n[i, j] = nrm
+            med_pl_d[i, j] = off
+
     mats = b.materials or [dict(kind=MAT_LAMBERTIAN, tex=0)]
     texs = b.textures or [dict(kind=TEX_SOLID, color=np.zeros(3, np.float32))]
 
@@ -776,14 +846,13 @@ def compile_scene(scene: Scene, *, seed: int = 0,
         tri_sub_min=t(sub_min), tri_sub_max=t(sub_max),
         sph_cluster_min=t(s_cl_min), sph_cluster_max=t(s_cl_max),
         quad_cluster_min=t(q_cl_min), quad_cluster_max=t(q_cl_max),
-        med_c=t(np.zeros((0, 3), np.float32)),
-        med_r=t(np.zeros((0,), np.float32)),
-        med_neg_inv_d=t(np.zeros((0,), np.float32)),
-        med_mat=t(np.zeros((0,), np.int32)),
-        med_kind=t(np.zeros((0,), np.int32)),
-        med_pl_n=t(np.zeros((0, 0, 3), np.float32)),
-        med_pl_d=t(np.ones((0, 0), np.float32)),
-        med_tri=t(np.zeros((0, 0, 10), np.float32)),
+        med_c=t(_stack(b.media, lambda r: r[0], (3,))),
+        med_r=t(_stack(b.media, lambda r: r[1], ())),
+        med_neg_inv_d=t(_stack(b.media, lambda r: r[2], ())),
+        med_mat=t(_stack(b.media, lambda r: r[3], (), np.int32)),
+        med_kind=t(_stack(b.media, lambda r: r[4], (), np.int32)),
+        med_pl_n=t(med_pl_n), med_pl_d=t(med_pl_d),
+        med_tri=t(np.zeros((n_med, 0, 10), np.float32)),
         mat_kind=t(mfield("kind", 0, np.int32)),
         mat_tex=t(mfield("tex", 0, np.int32)),
         mat_fuzz=t(mfield("fuzz", 0.0)),

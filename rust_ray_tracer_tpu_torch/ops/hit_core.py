@@ -24,23 +24,11 @@ from rust_ray_tracer_tpu_torch.ops.intersect import (
     KIND_MED, KIND_NONE, KIND_QUAD, KIND_SPH, KIND_TRI)
 from rust_ray_tracer_tpu_torch.ops.shade_core import (
     _add3, _cross, _cross_bwd, _dot, _mask, _max, _normalize,
-    _normalize_bwd, _pick_bwd, _safe_sqrt, _safe_sqrt_bwd, _scale3, _where)
+    _normalize_bwd, _pick_bwd, _safe_div, _safe_div_bwd, _safe_sqrt,
+    _safe_sqrt_bwd, _scale3, _where)
 
-EPS = 1e-12
 N_IN = 19    # o(3) d(3) time tmin tmax pack(9) tmed
 N_OUT = 12   # t p(3) n(3) u v uvsrc(3)
-
-
-def _safe_div(a, b):
-    bs = torch.where(b.abs() < EPS, _where(b < 0, -EPS, EPS), b)
-    return a / bs
-
-
-def _safe_div_bwd(a, b, g):
-    """Cotangents (da, db) through ``_safe_div(a, b)``: the clamped
-    divisor is a constant, so b takes none where |b| < EPS."""
-    bs = torch.where(b.abs() < EPS, _where(b < 0, -EPS, EPS), b)
-    return g / bs, _mask(~(b.abs() < EPS), -g * a / (bs * bs))
 
 
 def hit_plane_core(P, kind, flip):

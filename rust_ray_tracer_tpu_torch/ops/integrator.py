@@ -1,25 +1,168 @@
 """Sample-wave accumulation: the renderer's entry points.
 
 Counterpart of ``rust_ray_tracer_tpu/ops/integrator.py``
-(``render_waves`` and ``render_image``, ``integrator.py:545-622``) on the
-whole-wave trace route only: every wave goes through
-:func:`ops.uber.trace_wave_uber`, which runs the Hopper trace kernel for a
-scene on a CUDA device and its plain version for a scene on the CPU.
-The render is differentiable: the scene tables are built inside the
-autograd graph, and when a scene leaf requires grad each wave's trace
-runs as :class:`ops.uber.TraceWave`, whose backward is the trace's
-adjoint (a second kernel on the card).
+(``render_waves`` and ``render_image``, ``integrator.py:545-622``) on two
+routes, chosen per scene as the JAX package chooses on the TPU:
+
+  * the whole-wave trace (:func:`ops.uber.trace_wave_uber`) for every
+    scene the trace kernel takes (``ops/uber.uber_eligible``): the Hopper
+    trace kernel for a scene on a CUDA device, its plain version on the
+    CPU. That render is differentiable: the scene tables are built inside
+    the autograd graph, and when a scene leaf requires grad each wave's
+    trace runs as :class:`ops.uber.TraceWave`, whose backward is the
+    trace's adjoint (a second kernel on the card);
+  * the split route (:func:`trace_wave_split`) for the others it can
+    take (:func:`split_reason`): media, noise beside checker textures.
+    It is ``trace_rays`` -> ``_bounce`` on the ``su_eligible`` branch
+    (``integrator.py:63-132``), run on the whole wave at once: each bounce
+    searches spheres in torch, quads with TPU kernel O, media with
+    ``_med_t``; computes the winners' hit attributes with TPU kernel J;
+    evaluates the albedo (``texture_value``) in torch; and shades and
+    updates the estimator with TPU kernel H. Forward only: a scene leaf
+    that requires grad raises (the backward kernels of J and H are not
+    ported).
+
+Every per-lane step is independent of how the lanes are batched, and each
+lane's randoms are drawn from its (chunk, lane) as the JAX package draws
+them, so either route's image depends only on (seed, chunk_size).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from rust_ray_tracer_tpu_torch.models.scene import CLUSTER, MED_POLY, \
+    MED_SPHERE
 from rust_ray_tracer_tpu_torch.ops import camera as cam_ops
 from rust_ray_tracer_tpu_torch.ops import uber
+from rust_ray_tracer_tpu_torch.ops.bounce import (light_table,
+                                                  shade_update_fused)
+from rust_ray_tracer_tpu_torch.ops.hit import hit_attrs_fused
+from rust_ray_tracer_tpu_torch.ops.intersect import (
+    MATTR_FUZZ, MATTR_IOR, MATTR_MKIND, _mat_attr_table, intersect_select,
+    winner_table)
+from rust_ray_tracer_tpu_torch.ops.quad import quad_table
+from rust_ray_tracer_tpu_torch.ops.shade_core import LANES, LT_COLS
+from rust_ray_tracer_tpu_torch.ops.texture import texture_value
 from rust_ray_tracer_tpu_torch.utils import rng as rngu
 
 MAX_DEPTH = 4   # main.rs:56
+
+
+def split_reason(scene) -> str | None:
+    """Why the split route cannot render ``scene`` (naming the unported
+    TPU kernel or ROADMAP item), or None when it can: no triangles, fewer
+    than ``CLUSTER`` spheres, quads in any number, media with Sphere or
+    Cuboid boundaries, solid, checker and noise textures."""
+    if scene.n_tris:
+        return ("triangles on the split route need the split-path triangle "
+                "search (TPU kernels L/M, ROADMAP queue 2)")
+    if scene.n_spheres >= CLUSTER:
+        return (f"{scene.n_spheres} spheres on the split route need the "
+                "cluster-culled sphere search (TPU kernel N, ROADMAP "
+                "queue 2)")
+    if (scene.n_lights + 1) * LT_COLS > LANES:
+        return (f"{scene.n_lights} lights need the split-path shade kernel "
+                "(TPU kernel I, ROADMAP queue 2)")
+    if scene.n_media and not bool(((scene.med_kind == MED_SPHERE)
+                                   | (scene.med_kind == MED_POLY)).all()):
+        return ("Mesh medium boundaries are not ported (ROADMAP queue 1 "
+                "item 4)")
+    if scene.img_data.shape[0]:
+        return "image textures are not ported (ROADMAP queue 1 item 12)"
+    if not scene.n_media and not scene.perlin_vec.shape[0]:
+        rows = scene.n_spheres + scene.n_quads
+        return (f"{rows} solid/checker primitive rows need the split-path "
+                "search and bounce kernels (TPU kernels M and F/G, ROADMAP "
+                "queue 2)")
+    return None
+
+
+def _wants_grad(scene) -> bool:
+    leaves = [getattr(scene, f.name) for f in dataclasses.fields(scene)
+              if f.name != "camera"]
+    leaves += [getattr(scene.camera, f.name)
+               for f in dataclasses.fields(scene.camera)]
+    return torch.is_grad_enabled() and any(x.requires_grad for x in leaves)
+
+
+@dataclasses.dataclass
+class SplitTables:
+    """Scene-derived tables of the split route, built once per render
+    (detached: the route is forward only). ``uni``/``dflt``/offsets from
+    ``ops/intersect.winner_table``; ``med_rows`` [M, 2 + A] a medium
+    winner's flip | material id | attrs; ``quads`` [Q, 9] kernel O's
+    table; ``lt`` [n_lights + 1, LT_COLS] kernel H's lights, the
+    background last."""
+
+    uni: torch.Tensor
+    dflt: torch.Tensor
+    s_off: int
+    q_off: int
+    med_rows: torch.Tensor
+    quads: torch.Tensor
+    lt: torch.Tensor
+
+
+def make_split_tables(scene) -> SplitTables:
+    """Tables of the split route; raises NotImplementedError for a scene
+    it cannot render, and for one whose leaves require grad."""
+    reason = split_reason(scene)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    if _wants_grad(scene):
+        raise NotImplementedError(
+            "gradients on the split route need the backward kernels of TPU "
+            "kernels J and H (ROADMAP queue 2): render under "
+            "torch.no_grad() or with leaves that do not require grad")
+    with torch.no_grad():
+        uni, dflt, (_, s_off, q_off) = winner_table(scene)
+        matt = _mat_attr_table(scene)
+        med_rows = torch.cat(
+            [torch.zeros((scene.n_media, 1), dtype=matt.dtype,
+                         device=matt.device),
+             scene.med_mat.to(matt.dtype)[:, None],
+             matt[scene.med_mat.long()]], dim=1)
+        return SplitTables(uni=uni, dflt=dflt, s_off=s_off, q_off=q_off,
+                           med_rows=med_rows, quads=quad_table(scene),
+                           lt=light_table(scene))
+
+
+def bounce_split(scene, st, rnd_b, tables: SplitTables):
+    """One bounce of every ray of ``st`` [14, N] (state planes) with the
+    randoms ``rnd_b`` [15 + M, N]: the next state. ``_bounce``'s
+    ``su_eligible`` branch (``integrator.py:80-115``): ``intersect``
+    (phase 1 and TPU kernel O, then kernel J), ``texture_value``, and
+    kernel H. A dead lane gets the collapsed window t_max = -1, so it
+    finds nothing and stays as it is."""
+    with torch.no_grad():
+        o, d, time = st[0:3].T, st[3:6].T, st[6]
+        alive = st[7] > 0.5
+        t_max = torch.where(alive, torch.inf, -1.0).to(st.dtype)
+        med_u = rnd_b[15:].T if scene.n_media else None
+        sel = intersect_select(scene, o, d, time, tables, med_u,
+                               t_max=t_max)
+        _, p, _, u, v, planes = hit_attrs_fused(
+            o, d, time, sel.t_min, sel.t_max, sel.kind, sel.flip, sel.pack,
+            sel.t_med)
+        albedo = texture_value(scene, scene.mat_tex[sel.mat.long()], u, v,
+                               p)
+        return shade_update_fused(
+            st, sel.hit, planes, albedo.T, sel.attr[:, MATTR_FUZZ],
+            sel.attr[:, MATTR_IOR], sel.attr[:, MATTR_MKIND].to(torch.int32),
+            rnd_b, tables.lt, scene.n_lights)
+
+
+def trace_wave_split(scene, st0, rnd, depth: int, tables: SplitTables):
+    """``depth`` bounces of every ray of a wave on the split route: the
+    final state [14, N] of ``st0`` [14, N] with randoms ``rnd``
+    [depth, 15 + M, N] (``ops/uber.wave_inputs``)."""
+    st = st0
+    for b in range(depth):
+        st = bounce_split(scene, st, rnd[b], tables)
+    return st
 
 
 def render_waves(scene, width: int, height: int, key, wave_start: int,
@@ -30,27 +173,42 @@ def render_waves(scene, width: int, height: int, key, wave_start: int,
 
     Wave w uses ``fold_in(key, w)``, and the waves are added in the order
     ``(((acc0 + w0) + w1) + ...)``, so continuing from a partial sum with
-    ``wave_start=k`` reproduces the monolithic sum bitwise.
+    ``wave_start=k`` reproduces the monolithic sum bitwise. Raises
+    NotImplementedError for a scene neither route can render.
     """
     if compact:
         raise NotImplementedError(
             "compact wavefront not ported yet (ROADMAP queue 1 item 14)")
     n = width * height
-    ctx = uber.make_ctx(scene)
     key = key.to(scene.device)
+    if uber.uber_eligible(scene):
+        ctx = uber.make_ctx(scene)
 
-    def one_wave(wave_i):
-        wkey = rngu.wave_key(key, wave_i)
-        rows = uber.trace_wave_uber(scene, wkey, width, height, depth,
-                                    chunk_size, ctx=ctx)[:n]
-        return cam_ops.image_from_positions(rows, width, height)
+        def wave_rows(wkey):
+            return uber.trace_wave_uber(scene, wkey, width, height, depth,
+                                        chunk_size, ctx=ctx)
+    else:
+        tables = make_split_tables(scene)
+
+        def wave_rows(wkey):
+            # the split route needs no pad lanes: keep each chunk's own
+            st0, rnd = uber.wave_inputs(scene, wkey, width, height, depth,
+                                        chunk_size)
+            k = -(-n // chunk_size)
+            st0 = st0.reshape(uber.N_STATE, k, -1)[:, :, :chunk_size]
+            rnd = rnd.reshape(depth, rnd.shape[1], k, -1)[..., :chunk_size]
+            stf = trace_wave_split(scene, st0.reshape(uber.N_STATE, -1),
+                                   rnd.reshape(depth, rnd.shape[1], -1),
+                                   depth, tables)
+            return stf[8:11].T
 
     acc = acc0
     if acc is None:
         acc = torch.zeros((height, width, 3), dtype=torch.float32,
                           device=scene.device)
     for i in range(n_waves):
-        acc = acc + one_wave(wave_start + i)
+        rows = wave_rows(rngu.wave_key(key, wave_start + i))[:n]
+        acc = acc + cam_ops.image_from_positions(rows, width, height)
     return acc
 
 

@@ -67,6 +67,18 @@ def _safe_sqrt(x):
     return torch.sqrt(_max(x, EPS)) * (x > 0)
 
 
+def _safe_div(a, b):
+    bs = torch.where(b.abs() < EPS, _where(b < 0, -EPS, EPS), b)
+    return a / bs
+
+
+def _safe_div_bwd(a, b, g):
+    """Cotangents (da, db) through ``_safe_div(a, b)``: the clamped
+    divisor is a constant, so b takes none where |b| < EPS."""
+    bs = torch.where(b.abs() < EPS, _where(b < 0, -EPS, EPS), b)
+    return g / bs, _mask(~(b.abs() < EPS), -g * a / (bs * bs))
+
+
 def _onb(wx, wy, wz):
     """Duff et al. branchless ONB (matches linalg.orthonormal_basis)."""
     wx, wy, wz = _normalize(wx, wy, wz)
@@ -141,6 +153,11 @@ def _cross(a, b):
 def _cross_bwd(a, b, g):
     """Cotangents of a and b through ``_cross(a, b)``: (b x g, g x a)."""
     return _cross(b, g), _cross(g, a)
+
+
+def _xyz(v):
+    """The component triple of a [..., 3] tensor."""
+    return v[..., 0], v[..., 1], v[..., 2]
 
 
 def _add3(a, b):

@@ -41,15 +41,15 @@ import dataclasses
 import torch
 
 from rust_ray_tracer_tpu_torch.ops import camera as cam_ops
+from rust_ray_tracer_tpu_torch.ops.bounce import light_table
 from rust_ray_tracer_tpu_torch.ops.bounce_core import (
     bounce_plane_core, bounce_plane_core_vjp)
 from rust_ray_tracer_tpu_torch.ops.intersect import (
     KIND_QUAD, KIND_SPH, KIND_TRI, MATTR_ALBEDO, MATTR_EVEN, MATTR_FUZZ,
     MATTR_IOR, MATTR_ISCHK, MATTR_MKIND, MATTR_ODD, T_MIN, TRI_DET_EPS,
-    _mat_attr_table, _tri_coeffs, mattr_noise_cols)
+    _tri_coeffs, mattr_noise_cols, winner_table)
 from rust_ray_tracer_tpu_torch.ops.perlin import PerlinTables
-from rust_ray_tracer_tpu_torch.ops.shade_core import LANES, LT_COLS, \
-    _light_table
+from rust_ray_tracer_tpu_torch.ops.shade_core import LANES, LT_COLS
 from rust_ray_tracer_tpu_torch.utils import rng as rngu
 
 N_STATE = 14
@@ -62,26 +62,23 @@ _RAY_BLOCK = 8192       # rays per block of the plain search (memory bound)
 
 
 def ineligible_reason(scene) -> str | None:
-    """Why the trace kernel cannot render ``scene`` (naming the unported
-    TPU kernel), or None when it can."""
+    """Why the trace kernel (TPU kernel A) cannot render ``scene``, or
+    None when it can: the predicate of ``pallas_uber.py:1234-1267``.
+    Where such a scene goes instead is ``ops/integrator``'s choice
+    (``split_reason``)."""
     if scene.n_media:
-        return ("media need the split-path search and bounce kernels "
-                "(TPU kernels F and M, ROADMAP queue 2)")
+        return "media: the trace kernel has no free flight"
     if scene.img_data.shape[0]:
-        return ("image textures need the shade+update kernel "
-                "(TPU kernel H, ROADMAP queue 2)")
+        return "image textures: the trace kernel has no image leaf"
     if (scene.n_lights + 1) * LT_COLS > LANES:
         return (f"{scene.n_lights} lights exceed the trace kernel's light "
-                "table; they need the split-path shade kernel "
-                "(TPU kernel I, ROADMAP queue 2)")
+                "table")
     if scene.perlin_vec.shape[0] and scene.tex_even.shape[0]:
-        return ("noise textures beside checker textures need the "
-                "shade+update kernel (TPU kernel H, ROADMAP queue 2): the "
-                "trace kernel's marble does not evaluate a checker's leaves")
+        return ("noise textures beside checker textures: the trace "
+                "kernel's marble does not evaluate a checker's leaves")
     rows = scene.n_tris + scene.n_spheres + scene.n_quads
     if not 0 < rows <= ROWS_MAX:
-        return (f"{rows} primitive rows (trace kernel: 1..{ROWS_MAX}) need "
-                "the split-path search (TPU kernel M, ROADMAP queue 2)")
+        return f"{rows} primitive rows (trace kernel: 1..{ROWS_MAX})"
     return None
 
 
@@ -144,41 +141,10 @@ def _pad_rows(x, mult, value=0.0):
 
 def _scene_tables(scene):
     """(uni, dflt, offsets): the winner table in tri/sphere/quad row
-    order (the kernel's global ids) — differentiable w.r.t. the scene."""
-    f32 = scene.mat_fuzz.dtype
-    matt = _mat_attr_table(scene)
-
-    def kind_table(pack_cols, flip_col, mat_col):
-        return torch.cat([pack_cols, flip_col.to(f32)[:, None],
-                          mat_col.to(f32)[:, None], matt[mat_col.long()]],
-                         dim=1)
-
-    parts = []
-    t_off = s_off = q_off = off = 0
-    if scene.n_tris:
-        t_off = off
-        parts.append(kind_table(
-            torch.cat([scene.tri_v0, scene.tri_e1, scene.tri_e2], dim=1),
-            scene.tri_flip, scene.tri_mat))
-        off += scene.n_tris
-    if scene.n_spheres:
-        s_off = off
-        parts.append(kind_table(
-            torch.cat([scene.sph_c0, scene.sph_c1, scene.sph_t0[:, None],
-                       scene.sph_t1[:, None], scene.sph_r[:, None]], dim=1),
-            scene.sph_flip, scene.sph_mat))
-        off += scene.n_spheres
-    if scene.n_quads:
-        q_off = off
-        parts.append(kind_table(
-            torch.cat([scene.quad_q, scene.quad_u, scene.quad_v], dim=1),
-            scene.quad_flip, scene.quad_mat))
-        off += scene.n_quads
-    uni = torch.cat(parts, dim=0)
-    # miss default: first kind's pack row 0, flip/mat 0, material 0's attrs
-    dflt = torch.cat([uni[0, :9], torch.zeros(2, dtype=f32,
-                                               device=uni.device), matt[0]])
-    return _pad_rows(uni, 8), dflt, (t_off, s_off, q_off)
+    order (the kernel's global ids), padded to 8 rows —
+    differentiable w.r.t. the scene."""
+    uni, dflt, offsets = winner_table(scene)
+    return _pad_rows(uni, 8), dflt, offsets
 
 
 def _search_tables(scene):
@@ -251,15 +217,15 @@ def make_ctx(scene) -> TraceCtx:
     Raises NotImplementedError for a scene the trace cannot render."""
     reason = ineligible_reason(scene)
     if reason is not None:
-        raise NotImplementedError(reason)
+        raise NotImplementedError(
+            f"TPU kernel A cannot render this scene: {reason} "
+            "(ops/integrator.render_waves routes it)")
     uni, dflt, (t_off, s_off, q_off) = _scene_tables(scene)
     scene_s = dataclasses.replace(
         scene, **{f.name: getattr(scene, f.name).detach()
                   for f in dataclasses.fields(scene) if f.name != "camera"})
     det_t, u_t, v_t, t_t, dbl_t, sph, quad = _search_tables(scene_s)
-    bg_row = torch.nn.functional.pad(scene.background[None],
-                                     (0, LT_COLS - 3))
-    lt = torch.cat([_light_table(scene)[:scene.n_lights], bg_row])
+    lt = light_table(scene)
     # the Perlin tables, detached (pallas_uber.py:1407-1416)
     perlin = PerlinTables(scene_s.perlin_vec.contiguous(), torch.stack(
         [scene_s.perlin_px, scene_s.perlin_py, scene_s.perlin_pz]))
@@ -267,7 +233,7 @@ def make_ctx(scene) -> TraceCtx:
         uni=uni.contiguous(), dflt=dflt.contiguous(), t_off=t_off,
         s_off=s_off, q_off=q_off, det_t=det_t, u_t=u_t, v_t=v_t, t_t=t_t,
         dbl_t=dbl_t, sph=sph, quad=quad,
-        cab=_chunk_aabbs(scene_s, det_t.shape[0]), lt=lt.contiguous(),
+        cab=_chunk_aabbs(scene_s, det_t.shape[0]), lt=lt,
         n_tris=scene.n_tris, n_sph=scene.n_spheres, n_quad=scene.n_quads,
         n_lights=scene.n_lights, has_checker=scene.tex_even.shape[0] > 0,
         has_noise=scene.perlin_vec.shape[0] > 0, perlin=perlin)
@@ -655,9 +621,12 @@ def trace_wave(st0, rnd, ctx: TraceCtx, depth: int):
 
 def wave_inputs(scene, wkey, width: int, height: int, depth: int,
                 chunk_size: int):
-    """(st0 [N_STATE, N], rnd [depth, 15, N]) of one sample wave, N =
+    """(st0 [N_STATE, N], rnd [depth, 15 + M, N]) of one sample wave, N =
     n_chunks * Cp: camera rays and randoms keyed by (wave key, global
-    chunk id, bounce) exactly as the JAX package draws them."""
+    chunk id, bounce) exactly as the JAX package draws them
+    (``integrator._wave_bounce_randoms``, ``integrator.py:396-422``): per
+    bounce 9 uniforms (SCATTER), 6 normals (FUZZ), then for a scene with
+    M media M uniforms (MEDIUM) — none for the trace kernel's scenes."""
     n = width * height
     n_chunks = -(-n // chunk_size)
     dev = wkey.device
@@ -668,13 +637,16 @@ def wave_inputs(scene, wkey, width: int, height: int, depth: int,
                     torch.ones_like(t, dtype=torch.bool))   # [14, K, Cp]
     ck = rngu.stream(ckey, rngu.CHUNK)                       # [K, 2]
     bk = rngu.bounce_key(ck[:, None, :], torch.arange(depth, device=dev))
-    ub = rngu.uniform(rngu.stream(bk, rngu.SCATTER), (chunk_size, 9))
-    gb = rngu.normal(rngu.stream(bk, rngu.FUZZ), (chunk_size, 6))
-    rnd = torch.nn.functional.pad(                           # [D, 15, K, Cp]
-        torch.cat([ub, gb], dim=-1).permute(1, 3, 0, 2),
+    cols = [rngu.uniform(rngu.stream(bk, rngu.SCATTER), (chunk_size, 9)),
+            rngu.normal(rngu.stream(bk, rngu.FUZZ), (chunk_size, 6))]
+    if scene.n_media:
+        cols.append(rngu.uniform(rngu.stream(bk, rngu.MEDIUM),
+                                 (chunk_size, scene.n_media)))
+    rnd = torch.nn.functional.pad(                           # [D, R, K, Cp]
+        torch.cat(cols, dim=-1).permute(1, 3, 0, 2),
         (0, st.shape[-1] - chunk_size))
     return (st.reshape(N_STATE, -1),
-            rnd.reshape(depth, N_RND, -1).contiguous())
+            rnd.reshape(depth, rnd.shape[1], -1).contiguous())
 
 
 def wave_radiance(stf, width: int, height: int, chunk_size: int):

@@ -35,7 +35,7 @@ _NOT_PORTED = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rust_ray_tracer_tpu_torch",
-        description="wavefront path tracer on PyTorch + a Hopper kernel")
+        description="wavefront path tracer on PyTorch + Hopper kernels")
     p.add_argument("height", type=int, nargs="?", default=256,
                    help="image height in pixels (reference positional 1)")
     p.add_argument("samples", type=int, nargs="?", default=16,
@@ -45,8 +45,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-a", "--aspect", type=float, default=16 / 9,
                    help="aspect ratio (width = height * aspect)")
     p.add_argument("--scene", default="cornell_box",
-                   help="procedural scene name (random, perlin_spheres, "
-                        "rect_light, cornell_box, cornell_triangle)")
+                   help="procedural scene name (random, two_spheres, "
+                        "perlin_spheres, earth, rect_light, cornell_box, "
+                        "cornell_triangle, final_scene)")
     p.add_argument("--depth", type=int, default=4,
                    help="max bounce depth (reference MAX_DEPTH=4)")
     p.add_argument("--seed", type=int, default=0,
@@ -54,7 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk-size", type=int, default=32768,
                    help="rays per wavefront chunk")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="cuda: the Hopper kernel; cpu: its plain version")
+                   help="cuda: the Hopper kernels; cpu: their plain "
+                        "versions")
     p.add_argument("--no-flip", action="store_true",
                    help="skip the reference's vertical flip at write time")
     # not yet ported: accepted so the message can say so

@@ -1,5 +1,5 @@
-"""The Hopper trace kernels (csrc/trace_wave.cu, csrc/trace_wave_bwd.cu)
-against their plain versions.
+"""The Hopper kernels (csrc/trace_wave.cu, csrc/trace_wave_bwd.cu,
+csrc/split.cu) against their plain versions.
 
 Imports no JAX, so it runs on a GPU machine without it. tests/conftest.py
 imports JAX, so there it runs without the conftest (and without the
@@ -17,6 +17,9 @@ import pytest
 import torch
 
 from rust_ray_tracer_tpu_torch.kernels import (bwd_reduce_kernel,
+                                               hit_attrs_kernel,
+                                               quad_search_kernel,
+                                               shade_update_kernel,
                                                trace_wave_bwd_kernel,
                                                trace_wave_bwd_noise_kernel,
                                                trace_wave_kernel,
@@ -30,7 +33,8 @@ from rust_ray_tracer_tpu_torch.utils import rng
 # by its own name (pytest puts tests/ on sys.path): on a machine where an
 # installed package is called ``tests``, ``tests.torch_parity`` is not found
 from torch_parity import (SMALL_SCENES, assert_flip_budget,
-                          assert_scaled_close, rel_l2, torch_scene)
+                          assert_scaled_close, rel_l2, split_kernel_inputs,
+                          split_recorder, torch_scene)
 
 W = H = 32          # one 1024-ray chunk
 DEPTH = 4
@@ -325,3 +329,90 @@ def test_render_waves_noise_grads_on_card(cuda):
     for k, v in out[0].items():
         assert bool(torch.isfinite(v).all()), k
         assert torch.equal(v, out[1][k]), k
+
+
+SPLIT = (quad_search_kernel, hit_attrs_kernel, shade_update_kernel)
+
+
+def test_split_wrappers_refuse_cpu_tensors():
+    x = split_kernel_inputs(torch_scene("fog"), 16, 16, 1)
+    o, d, t_min, t_max = x["quad"]
+    before = [k.launches for k in SPLIT]
+    ts = torch_scene("fog")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        quad_search_kernel(torch.cat([o, d, t_min[:, None], t_max[:, None]],
+                                     1), torch.zeros(8, 9),
+                           ts.quad_cluster_min, ts.quad_cluster_max)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        hit_attrs_kernel(*x["hit"])
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        shade_update_kernel(*x["su"])
+    assert [k.launches for k in SPLIT] == before
+
+
+def _final_scene():
+    return compile_scene(builders.get_scene("final_scene", 1.0),
+                         device="cpu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["fog", "final_scene"])
+def test_split_kernels_match_plain_on_card(name, cuda):
+    """O, J and H against their plain versions on the card, on the inputs
+    the split route gives them over two bounces of a 32x32 wave: O's
+    winners and t identical (both round alike: no FMA); J's and H's planes
+    within rtol 1e-5 of each lane's largest value / atol 1e-6, at most
+    0.5% of H's lanes outside (cosf, sinf, expf, logf of the card's torch
+    and of the kernel may round a branch's input apart). One launch
+    each."""
+    from rust_ray_tracer_tpu_torch.ops import bounce, hit, quad
+
+    ts = _final_scene() if name == "final_scene" else torch_scene(name)
+    tg = ts.to(cuda)
+    x = split_kernel_inputs(ts)
+    before = [k.launches for k in SPLIT]
+    o, d, t_min, t_max = (v.to(cuda) for v in x["quad"])
+    got_t, got_i = quad.quad_search(tg, o, d, t_min, t_max)
+    P, kind, flip = (v.to(cuda) for v in x["hit"])
+    got_h = hit.hit_planes(P, kind, flip)
+    S, mkind, lt, n_lights = x["su"]
+    S, mkind, lt = S.to(cuda), mkind.to(cuda), lt.to(cuda)
+    got_s = bounce.su_planes(S, mkind, lt, n_lights)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(SPLIT, before)] == [1, 1, 1]
+    ref_t, ref_i = quad._quad_candidates(tg, o, d, t_min, t_max)
+    assert torch.equal(got_i.long(), ref_i) and torch.equal(got_t, ref_t)
+    ref_h = hit.hit_plane_core(P, kind, flip)
+    miss = kind == 0
+    assert bool(torch.isinf(got_h[0, miss]).all())
+    got_h[0, miss] = ref_h[0, miss] = 0.0
+    sph = (kind == 2).cpu().numpy()
+    assert_scaled_close(got_h[:9].cpu().numpy(), ref_h[:9].cpu().numpy(),
+                        1e-5, 1e-6, axis=0, what="hit attrs")
+    assert_scaled_close(got_h[9:].cpu().numpy()[:, sph],
+                        ref_h[9:].cpu().numpy()[:, sph], 1e-5, 1e-6, axis=0,
+                        what="sphere UV source")
+    assert_scaled_close(got_s.cpu().numpy(),
+                        bounce.su_plane_core(S, mkind, lt, n_lights)
+                        .cpu().numpy(), 1e-5, 1e-6, axis=0, budget=0.005,
+                        what="next state")
+
+
+@pytest.mark.gpu
+def test_render_waves_split_route_on_card(cuda):
+    """render_waves on a media scene goes through O, J and H (depth
+    launches each a wave), never the trace kernel, and matches the plain
+    route on the card within the flip budget."""
+    from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
+
+    ts = torch_scene("fog").to(cuda)
+    before = [k.launches for k in SPLIT + (trace_wave_kernel,
+                                           trace_wave_noise_kernel)]
+    got = render_waves(ts, 32, 32, rng.key(0), 0, 1, chunk_size=1024)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(
+        SPLIT + (trace_wave_kernel, trace_wave_noise_kernel),
+        before)] == [DEPTH, DEPTH, DEPTH, 0, 0]
+    with split_recorder(plain=True):
+        ref = render_waves(ts, 32, 32, rng.key(0), 0, 1, chunk_size=1024)
+    assert_flip_budget(got.cpu().numpy(), ref.cpu().numpy())

@@ -8,6 +8,7 @@ installed, can use the port's scenes and the flip budget."""
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -83,26 +84,61 @@ def noise(S, cam_mod):
     ], [], (0.7, 0.8, 1.0))
 
 
+def fog(S, cam_mod):
+    """A split-route scene: a rotated Cuboid fog and a sphere-boundary
+    medium with a marble albedo, a marble sphere beside a checker ground
+    (noise beside checker), glass, two quad walls and a rect light."""
+    cam = cam_mod.make_camera(EYE, 60.0, 1.0)
+    lamp = S.XZRect(-1.0, 1.0, -5.0, -3.0, 3.0,
+                    S.DiffuseLight.from_color((5, 5, 5)))
+    return S.Scene(cam, [
+        S.Sphere((0, -101, -4), 100.0,
+                 S.Lambertian(S.Checker.from_colors((0.9, 0.1, 0.1),
+                                                    (0.1, 0.9, 0.1)))),
+        S.Sphere((0, 0, -4), 1.0, S.Lambertian(S.Noise(4.0))),
+        S.Sphere((2.2, 0, -4), 1.0, S.Dielectric(1.5)),
+        S.XYRect(-3.0, 3.0, -1.0, 3.0, -7.0,
+                 S.Lambertian.from_rgb(0.73, 0.73, 0.73)),
+        S.YZRect(-1.0, 3.0, -7.0, -2.0, -3.0,
+                 S.Metal((0.8, 0.85, 0.88), 0.05)),
+        S.ConstantMedium.from_color(
+            S.Translate(S.RotateY(S.Cuboid((-0.6, -0.6, -0.6),
+                                           (0.6, 0.6, 0.6),
+                                           S.Dielectric(1.5)), 30.0),
+                        (-1.6, 0.0, -3.2)), 0.8, (0.9, 0.9, 0.9)),
+        S.ConstantMedium(S.Sphere((2.2, 0, -4), 1.0, S.Dielectric(1.5)),
+                         1.5, S.Noise(2.0)),
+        lamp,
+    ], [lamp], (0.2, 0.3, 0.5))
+
+
 SMALL_SCENES = {"solid": solid, "checker": checker, "quad": quad,
-                "noise": noise}
+                "noise": noise, "fog": fog}
 
 
 def pin_jax_texture_cache(monkeypatch):
     """Make the JAX compile_scene deterministic: its _Builder caches
-    texture rows by id(), and a temporary SolidColor (a Metal's or
-    Dielectric's albedo) is freed as soon as it is registered, so a later
-    temporary can get the same id and silently reuse the wrong texture
-    row, depending on the allocator. Holding every texture it sees keeps
-    ids unique — the port's _Builder does the same."""
+    texture and material rows by id(), and a temporary SolidColor (a
+    Metal's or Dielectric's albedo) or Isotropic (a ConstantMedium's
+    material) is freed as soon as it is registered, so a later temporary
+    can get the same id and silently reuse the wrong row, depending on the
+    allocator. Holding every texture and material it sees keeps ids
+    unique — the port's _Builder does the same."""
     from rust_ray_tracer_tpu.models import scene as JS
 
-    real = JS._Builder.texture_id
+    real_tex = JS._Builder.texture_id
+    real_mat = JS._Builder.material_id
 
     def texture_id(self, tex):
         self.__dict__.setdefault("_held", []).append(tex)
-        return real(self, tex)
+        return real_tex(self, tex)
+
+    def material_id(self, mat):
+        self.__dict__.setdefault("_held", []).append(mat)
+        return real_mat(self, mat)
 
     monkeypatch.setattr(JS._Builder, "texture_id", texture_id)
+    monkeypatch.setattr(JS._Builder, "material_id", material_id)
 
 
 def jax_compile(host, monkeypatch):
@@ -186,3 +222,65 @@ def assert_scaled_close(got, ref, rtol, atol, axis, budget=0.0, what=""):
 def rel_l2(got, ref) -> float:
     got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
     return float(np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30))
+
+
+@contextlib.contextmanager
+def split_recorder(plain: bool = False):
+    """Inside ``with``, the split route's three dispatchers — quads (TPU
+    kernel O, ``ops/quad.quad_search``), hit attributes (J,
+    ``ops/hit.hit_planes``), shade+update (H, ``ops/bounce.su_planes``) —
+    record the arguments of each call in the yielded dict's lists
+    ``quad``, ``hit`` and ``su``. They then run as before or, with
+    ``plain``, run the plain versions on any device (the plain route on
+    the card, to hold the kernel route against)."""
+    from rust_ray_tracer_tpu_torch.ops import bounce, hit, quad
+
+    rec = {"quad": [], "hit": [], "su": []}
+    sites = ((quad, "quad_search", "quad"), (hit, "hit_planes", "hit"),
+             (bounce, "su_planes", "su"))
+    real = [getattr(mod, fn) for mod, fn, _ in sites]
+    runs = real
+    if plain:
+        runs = [lambda sc, o, d, t_min, t_max, table=None:
+                quad._quad_candidates(sc, o, d, t_min, t_max),
+                hit.hit_plane_core, bounce.su_plane_core]
+
+    def recording(fn, key):
+        def wrapped(*args):
+            rec[key].append(args)
+            return fn(*args)
+        return wrapped
+
+    for (mod, fn, key), f in zip(sites, runs):
+        setattr(mod, fn, recording(f, key))
+    try:
+        yield rec
+    finally:
+        for (mod, fn, _), f in zip(sites, real):
+            setattr(mod, fn, f)
+
+
+def split_kernel_inputs(ts, w=32, h=32, depth=2, seed=7):
+    """The inputs the split route gives kernels O, J and H over ``depth``
+    bounces of one w x h wave of the CPU scene ``ts``, every bounce's
+    rays concatenated: {"quad": (o, d, t_min, t_max) or None, "hit":
+    (planes [19, N], kind, flip), "su": (planes [40, N], mkind, lt,
+    n_lights)}."""
+    import torch
+
+    from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
+    from rust_ray_tracer_tpu_torch.utils import rng
+
+    with split_recorder() as rec:
+        render_waves(ts, w, h, rng.key(seed, "cpu"), 0, 1, depth=depth,
+                     chunk_size=w * h)
+
+    def cat(calls, i, dim):
+        return torch.cat([c[i] for c in calls], dim=dim)
+
+    quad = (tuple(cat(rec["quad"], i, 0) for i in range(1, 5))
+            if rec["quad"] else None)
+    hit = tuple(cat(rec["hit"], i, 1 if i == 0 else 0) for i in range(3))
+    su = (cat(rec["su"], 0, 1), cat(rec["su"], 1, 0), rec["su"][0][2],
+          rec["su"][0][3])
+    return {"quad": quad, "hit": hit, "su": su}
