@@ -12,7 +12,9 @@ kernel C) on four noise scenes; then the split route's kernels — quad
 search (TPU kernel O), hit attributes (J) and shade+update (H) — on three
 scenes the trace kernel cannot take (final_scene, a Cuboid fog, noise
 beside a checker), each kernel on the scene's real bounce-0 inputs and the
-route's image against the plain route's. Then it drives the main paths at
+route's image against the plain route's, and their backward kernels J' and
+H' against their plain versions on the same inputs with a seeded
+cotangent. Then it drives the main paths at
 the bench workload's size (512x288, 4 spp, depth 4, chunk 9216), on the
 flagship scene and on ``random`` (the JAX package's per-scene bench
 workload, a marble-noise ground): the forward render through
@@ -22,7 +24,8 @@ went through the kernels and never the plain versions, that the gradients
 are finite and bitwise repeatable, and timing both with CUDA events; and
 the forward render of final_scene (the book-2 cover: media, 1,408 quads,
 a marble sphere) on the split route, with O, J and H launched every
-bounce. Last it runs the inverse-rendering example for 60 steps and the
+bounce, and ``bench.py``'s training step on final_scene, with O, J, H, J'
+and H' launched every bounce (``final_train``). Last it runs the inverse-rendering example for 60 steps and the
 CLI on the Cornell box, perlin_spheres and final_scene. Each phase prints
 one JSON line; any failure raises, so the exit code is non-zero. Then come
 the ``{"kernels": [...]}`` line, the card's name and power limit, and last
@@ -48,8 +51,10 @@ import torch
 from rust_ray_tracer_tpu_torch import kernels as K
 from rust_ray_tracer_tpu_torch.examples import inverse_rendering
 from rust_ray_tracer_tpu_torch.kernels import (bwd_reduce_kernel,
+                                               hit_attrs_bwd_kernel,
                                                hit_attrs_kernel,
                                                quad_search_kernel,
+                                               shade_update_bwd_kernel,
                                                shade_update_kernel,
                                                trace_wave_bwd_kernel,
                                                trace_wave_bwd_noise_kernel,
@@ -61,6 +66,7 @@ from rust_ray_tracer_tpu_torch.models.scene import (combine, compile_scene,
                                                     partition)
 from rust_ray_tracer_tpu_torch.ops import bounce as bounce_ops
 from rust_ray_tracer_tpu_torch.ops import camera as cam_ops
+from rust_ray_tracer_tpu_torch.ops import gather
 from rust_ray_tracer_tpu_torch.ops import hit as hit_ops
 from rust_ray_tracer_tpu_torch.ops import intersect as isect
 from rust_ray_tracer_tpu_torch.ops import quad as quad_ops
@@ -72,7 +78,7 @@ from rust_ray_tracer_tpu_torch.utils import rng
 # the split route's dispatcher hooks, shared with the tests (no JAX there)
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
-from torch_parity import split_recorder  # noqa: E402
+from torch_parity import split_cots, split_recorder  # noqa: E402
 
 WIDTH, HEIGHT, SPP, DEPTH, CHUNK = 512, 288, 4, 4, 9216
 FLIP_ABS = 1e-3          # a pixel "flips" when any channel is off by more
@@ -109,6 +115,16 @@ OPS_MARBLE, OPS_MARBLE_BWD = 921, 3716
 # sphere reading of the pack); H per live found ray is OPS_SHADE
 OPS_QUAD, OPS_HIT = 45, 150
 SPLIT_KERNELS = (quad_search_kernel, hit_attrs_kernel, shade_update_kernel)
+# their backward kernels (csrc/split.cu): J' per ray recomputes J's
+# attributes (OPS_HIT) and runs the winner's adjoint plus the sphere
+# reading's (~2 x 150); H' per found ray recomputes the shading (OPS_SHADE)
+# and runs the update's and the shading's adjoints (~300). Both are bound
+# by their bytes by an order of magnitude, so these estimates do not decide
+# the bound
+OPS_HIT_BWD, OPS_SU_BWD = 450, 600
+SPLIT_BWD_KERNELS = (hit_attrs_bwd_kernel, shade_update_bwd_kernel)
+WHOLE_WAVE_KERNELS = (trace_wave_kernel, trace_wave_noise_kernel,
+                      trace_wave_bwd_kernel, trace_wave_bwd_noise_kernel)
 
 
 def emit(obj) -> None:
@@ -373,11 +389,13 @@ def cold_ms(fn, reps: int = 10) -> list[float]:
     return out
 
 
-def profile_device(fn, names) -> dict:
+def profile_device(fn, names, top: int = 0) -> dict:
     """Kernel time on the card by ``torch.profiler`` over one call of
     ``fn``: per name, ms per launch and launches; the busy share of the
-    span from the first kernel's start to the last one's end. None where
-    the profiler saw no device activity."""
+    span from the first kernel's start to the last one's end; with
+    ``top``, the ``top`` kernels of most device time (name cut to 90
+    characters: total ms, launches). None where the profiler saw no
+    device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -404,9 +422,18 @@ def profile_device(fn, names) -> dict:
         ds = [e.time_range.elapsed_us() for e in kern if n in e.name]
         per[n] = {"ms_per_launch": (sum(ds) / len(ds) / 1e3) if ds else None,
                   "launches": len(ds)}
-    return {"per_kernel": per, "busy_share": busy / span,
-            "span_ms": span / 1e3, "busy_ms": busy / 1e3,
-            "kernels": len(kern)}
+    out = {"per_kernel": per, "busy_share": busy / span,
+           "span_ms": span / 1e3, "busy_ms": busy / 1e3,
+           "kernels": len(kern)}
+    if top:
+        by = {}
+        for e in kern:
+            t = by.setdefault(e.name[:90], [0.0, 0])
+            t[0] += e.time_range.elapsed_us() / 1e3
+            t[1] += 1
+        out["top_kernels_ms"] = dict(sorted(by.items(), key=lambda x: -x[1][0])
+                                     [:top])
+    return out
 
 
 def median(xs):
@@ -456,15 +483,17 @@ class PlainCalls:
     """Counts the plain versions' calls while the main path runs: inside
     ``with``, ``uber.trace_wave_plain``, ``uber.trace_wave_bwd_plain`` and
     the split route's ``_quad_candidates`` (as ``ops/quad`` calls it),
-    ``hit_plane_core`` (``ops/hit``) and ``su_plane_core``
-    (``ops/bounce``) record their names in ``calls``; ``real`` and
-    ``real_bwd`` stay the uncounted functions."""
+    ``hit_plane_core`` and ``hit_plane_core_vjp`` (``ops/hit``),
+    ``su_plane_core`` and ``su_plane_core_vjp`` (``ops/bounce``) record
+    their names in ``calls``; ``real`` and ``real_bwd`` stay the uncounted
+    functions."""
 
     real = uber.trace_wave_plain
     real_bwd = uber.trace_wave_bwd_plain
     SITES = ((uber, "trace_wave_plain"), (uber, "trace_wave_bwd_plain"),
              (quad_ops, "_quad_candidates"), (hit_ops, "hit_plane_core"),
-             (bounce_ops, "su_plane_core"))
+             (bounce_ops, "su_plane_core"), (hit_ops, "hit_plane_core_vjp"),
+             (bounce_ops, "su_plane_core_vjp"))
 
     def __init__(self):
         self.calls = []
@@ -484,6 +513,57 @@ class PlainCalls:
     def __exit__(self, *exc):
         for (m, n), f in zip(self.SITES, self._saved):
             setattr(m, n, f)
+
+
+class RowSumCalls:
+    """Records every call of ``ops/gather.row_sums`` (the backward of the
+    glue's row gathers: ``reduce_order`` + ``bwd_reduce_kernel`` on the
+    card) as (idx, g, n_rows, result) while the block is open."""
+
+    def __enter__(self):
+        self.calls = []
+        self._real = gather.row_sums
+
+        def recorded(g, idx, n_rows):
+            out = self._real(g, idx, n_rows)
+            self.calls.append((idx, g, n_rows, out))
+            return out
+        gather.row_sums = recorded
+        return self
+
+    def __exit__(self, *exc):
+        gather.row_sums = self._real
+
+
+def row_sums_vs_float64(calls) -> dict:
+    """Each recorded ``row_sums`` result against a float64 ``index_add_``
+    of the same cotangent rows: within 1e-5 of the sum of the terms'
+    magnitudes, entry by entry (the bound ``tests/test_torch_gpu.py::
+    test_row_sums_on_card`` derives: B''s fixed order rounds a term at most
+    ~110 times at float32's 6e-8). Returns the worst error in those units,
+    the calls' widths and sizes, and the largest share of one call's rows
+    that went to one row (a wave's miss lanes read row 0)."""
+    if not calls:
+        raise AssertionError("no row sums recorded on the training path")
+    worst, widths, ns, top_share = 0.0, set(), set(), 0.0
+    for idx, g, n_rows, got in calls:
+        g64 = g.double()
+        ref = torch.zeros((n_rows, g.shape[1]), dtype=torch.float64,
+                          device=g.device).index_add_(0, idx, g64)
+        mag = torch.zeros_like(ref).index_add_(0, idx, g64.abs())
+        err = (got.double() - ref).abs()
+        if not bool((err <= 1e-5 * mag).all()):
+            raise AssertionError(
+                f"row_sums [{g.shape[0]}, {g.shape[1]}] into {n_rows} rows: "
+                f"off by {float(err.max())} of the float64 sum")
+        worst = max(worst, float((err / mag.clamp_min(1e-300)).max()))
+        widths.add(int(g.shape[1]))
+        ns.add(int(g.shape[0]))
+        top_share = max(top_share, float(torch.bincount(
+            idx, minlength=n_rows).max()) / max(int(idx.numel()), 1))
+    return {"calls": len(calls), "widths": sorted(widths),
+            "terms": sorted(ns), "largest_row_share": top_share,
+            "worst_err_over_magnitude": worst, "budget": 1e-5}
 
 
 def split_kernels_vs_plain(calls, label) -> dict:
@@ -534,7 +614,45 @@ def split_kernels_vs_plain(calls, label) -> dict:
                                                       n_lights),
                              RTOL, ATOL, FLIP_BUDGET, f"{label}: shade_update")
     out["shade_update"] = {"lanes_outside": frac, "max_abs_err": err}
+    out.update(split_bwd_vs_plain(calls["hit"][0], calls["su"][0], label))
     return out
+
+
+def split_bwd_vs_plain(hit_call, su_call, label, seed=5) -> dict:
+    """J' and H' against their plain versions on the card on one recorded
+    call of J and of H (the same inputs) with seeded cotangents, B's
+    budget: dP per lane within BWD_RTOL of its largest plane / BWD_ATOL, at
+    most FLIP_BUDGET of the lanes outside; H''s light-table cotangent
+    within relative L2 BWD_REL_L2 and each row within BWD_REL_L2 of its
+    largest entry. Each runs twice and must give the same bits. The
+    cotangents are ``torch_parity.split_cots``' (the sphere-UV source's on
+    sphere lanes only)."""
+    P, kind, flip = hit_call
+    S_, mkind, lt, n_lights = su_call
+    gh, gs = split_cots(kind, S_.shape[1], seed)
+    got = hit_attrs_bwd_kernel(P, kind, flip, gh)
+    got_s, got_lt = shade_update_bwd_kernel(S_, mkind, lt, n_lights, gs)
+    again = hit_attrs_bwd_kernel(P, kind, flip, gh)
+    again_s, again_lt = shade_update_bwd_kernel(S_, mkind, lt, n_lights, gs)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, again) and torch.equal(got_s, again_s)
+            and torch.equal(got_lt, again_lt)):
+        raise AssertionError(f"{label}: two runs of J' or H' differ")
+    frac_j, err_j = scaled_close(got, hit_ops.hit_plane_core_vjp(
+        P, kind, flip, gh), BWD_RTOL, BWD_ATOL, FLIP_BUDGET,
+        f"{label}: hit_attrs_bwd dP")
+    ref_s, ref_lt = bounce_ops.su_plane_core_vjp(S_, mkind, lt, n_lights, gs)
+    frac_h, err_h = scaled_close(got_s, ref_s, BWD_RTOL, BWD_ATOL,
+                                 FLIP_BUDGET, f"{label}: shade_update_bwd dP")
+    return {"hit_attrs_bwd": {"lanes_outside": frac_j, "max_abs_err": err_j,
+                              "bitwise_repeat": True},
+            "shade_update_bwd": {
+                "lanes_outside": frac_h, "max_abs_err": err_h,
+                "dlt_rel_l2": rel_l2(got_lt, ref_lt, f"{label}: H' dlt",
+                                     BWD_REL_L2),
+                "dlt_rows_err": rows_close(got_lt, ref_lt,
+                                           f"{label}: H' dlt rows"),
+                "bitwise_repeat": True}}
 
 
 def split_scene_checks(dev) -> dict:
@@ -547,7 +665,7 @@ def split_scene_checks(dev) -> dict:
     against the host the kernels may be as far off as the card's plain
     route is, plus the budget). Returns the worst error per kernel."""
     worst = {k.name: {"lanes_outside": 0.0, "max_abs_err": 0.0}
-             for k in SPLIT_KERNELS}
+             for k in SPLIT_KERNELS + SPLIT_BWD_KERNELS}
     w = h = 64
     chunk = 4096
     for label, host in (("final_scene", builders.final_scene(1.0)),
@@ -587,7 +705,12 @@ def split_scene_checks(dev) -> dict:
                          "plain_cuda_vs_plain_cpu_outside",
                          "hit_attrs_lanes_outside": 0.0,
                          "shade_update_lanes_outside": FLIP_BUDGET,
-                         "quad_search": "winners and t equal"}})
+                         "quad_search": "winners and t equal",
+                         "bwd": {"dP_rtol_of_lane_max": BWD_RTOL,
+                                 "dP_atol": BWD_ATOL,
+                                 "dP_lanes_outside": FLIP_BUDGET,
+                                 "dlt_rel_l2": BWD_REL_L2,
+                                 "cotangent": "normal draws, seed 5"}}})
     return worst
 
 
@@ -1162,13 +1285,16 @@ def final_forward(dev, smi) -> dict:
             ms[name] = statistics.fmean(median(cold_ms(k)) for k, _ in pairs)
             loop[name] = statistics.fmean(median(loop_ms(k))
                                           for k, _ in pairs)
-            got = (per.get(f"{name}_kernel") or {}).get("ms_per_launch")
-            in_path[name] = loop[name] if got is None else got
+            in_path[name] = (per.get(f"{name}_kernel") or {}).get(
+                "ms_per_launch")
             plain_ms[name] = statistics.fmean(median(cuda_ms(p, 3))
                                               for _, p in pairs)
     med = median(sweeps)
     wave_ms = med / SPP
-    kern_wave = sum(in_path[n] * DEPTH for n in ms)
+    # the glue's share needs every kernel's in-path time (None where the
+    # profiler saw no launch of one)
+    kern_wave = (None if None in in_path.values()
+                 else sum(in_path[n] * DEPTH for n in ms))
     lane_bounces = WIDTH * HEIGHT * SPP * DEPTH
     emit({"phase": "final_forward", "card": smi,
           "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
@@ -1189,8 +1315,10 @@ def final_forward(dev, smi) -> dict:
           "sweep_ms_median": med, "sweep_ms_min": min(sweeps),
           "sweep_ms_max": max(sweeps), "sweeps": len(sweeps),
           "fwd_mrays_per_s": lane_bounces / (med / 1e3) / 1e6,
-          "ms_per_wave": {**{n: in_path[n] * DEPTH for n in ms},
-                          "glue": wave_ms - kern_wave, "wave": wave_ms},
+          "ms_per_wave": {**{n: None if in_path[n] is None
+                             else in_path[n] * DEPTH for n in ms},
+                          "glue": None if kern_wave is None
+                          else wave_ms - kern_wave, "wave": wave_ms},
           "ms_per_launch_profiler": {n: (per.get(f"{n}_kernel") or {})
                                      .get("ms_per_launch") for n in ms},
           "ms_per_launch_looped_events": loop,
@@ -1198,7 +1326,256 @@ def final_forward(dev, smi) -> dict:
           "plain_ms_per_launch": plain_ms,
           "profiled_wave": prof})
     return {"launches": launches, "full": full, "ms": ms,
-            "ms_in_path": in_path, "plain_ms": plain_ms, "calls": rec}
+            "ms_in_path": in_path, "plain_ms": plain_ms, "calls": rec,
+            "scene": scene, "key": key}
+
+
+def su_bwd_bytes(calls) -> int:
+    """Bytes kernel H' must move on these recorded calls, by lane class
+    (``shade_update_bwd_kernel``, ``csrc/split.cu``): every lane reads its
+    alive flag and the cotangents of o', d', L', beta' (13 floats) and
+    writes all 40 planes of dP; a live lane also reads its hit flag and
+    beta (4); a found lane also reads d, p, n, albedo, fuzz, ior (14), its
+    material kind and the randoms its material's adjoint reads (Lambertian
+    2, or 6 with lights; metal 4; dielectric 1). The light table in and
+    its cotangent out once a launch, and the per-block partials written
+    and read back once."""
+    total = 0
+    for P, mkind, lt, n_lights in calls:
+        alive = P[38] > 0.5
+        found = alive & (P[39] > 0.5)
+        rnd_cols = torch.zeros(5, dtype=torch.long, device=P.device)
+        rnd_cols[S.MAT_LAMBERTIAN] = 6 if n_lights else 2
+        rnd_cols[S.MAT_METAL] = 4
+        rnd_cols[S.MAT_DIELECTRIC] = 1
+        n = P.shape[1]
+        total += (n * (13 + 40) + int(alive.sum()) * 4
+                  + int(found.sum()) * 15
+                  + int(rnd_cols[mkind[found].long()].sum())
+                  + 2 * lt.numel() + 2 * lt.numel() * (-(-n // 128))) * 4
+    return total
+
+
+def final_train(dev, smi, fwd) -> dict:
+    """``bench.py``'s training step on final_scene at the bench shape on
+    the split route: ``loss = mean(render_waves(...))``, ``backward()``
+    over every float leaf of ``partition``. Per step SPP * DEPTH launches
+    each of O, J, H, J' and H', none of A or B, B' (``bwd_reduce``) once
+    for each H' (its light-table partials) and for the row sums of the
+    glue's gathers (``ops/gather.rows``), no plain call; gradients finite,
+    bitwise equal over two steps, non-zero on ``tex_color`` and
+    ``background`` (JAX's at this scene's size); the step's rate (7 timed
+    steps, CUDA events), its forward and backward apart, a profiled
+    one-wave step (per-kernel device ms, busy share), the peak memory;
+    every row sum of a one-wave step's glue gathers against float64
+    (``row_sums_vs_float64``); then J' and H' on every bounce's recorded
+    inputs of one wave with seeded cotangents, against their plain
+    versions, timed out of L2 and in a loop, H' also without its
+    light-table sum and that sum alone. Emits ``final_train``; returns the
+    rows' inputs."""
+    scene, key = fwd["scene"], fwd["key"]
+    params, static = partition(scene)
+
+    def run(n_waves):
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        loss = render_waves(combine(leaves, static), WIDTH, HEIGHT, key, 0,
+                            n_waves, depth=DEPTH, chunk_size=CHUNK).mean()
+        return loss, leaves
+
+    def step(n_waves=SPP):
+        loss, leaves = run(n_waves)
+        loss.backward()
+        return loss, {k: v.grad for k, v in leaves.items()}
+
+    watched = (SPLIT_KERNELS + SPLIT_BWD_KERNELS + WHOLE_WAVE_KERNELS
+               + (bwd_reduce_kernel,))
+    with PlainCalls() as plain:
+        for k in watched:
+            k.launches = 0
+        loss, grads = step()
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in watched}
+        _, grads2 = step()
+        torch.cuda.synchronize()
+    want = {k.name: SPP * DEPTH for k in SPLIT_KERNELS + SPLIT_BWD_KERNELS}
+    want.update({k.name: 0 for k in WHOLE_WAVE_KERNELS})
+    # B' sums each H' launch's light-table partials and the glue's row
+    # gathers' cotangents (ops/gather.rows)
+    want["bwd_reduce"] = launches["bwd_reduce"]
+    if launches != want or launches["bwd_reduce"] <= SPP * DEPTH:
+        raise AssertionError(f"final_scene training launches {launches}, "
+                             f"expected {want}")
+    if plain.calls:
+        raise AssertionError(f"plain versions ran on the training path: "
+                             f"{sorted(set(plain.calls))}")
+    grads = {k: v for k, v in grads.items() if v is not None}
+    for k, v in grads.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"non-finite gradient of {k}")
+        if not torch.equal(v, grads2[k]):
+            raise AssertionError(f"gradient of {k} differs between steps")
+    nonzero = {k: float(grads[k].abs().max()) for k in ("tex_color",
+                                                       "background")}
+    if min(nonzero.values()) <= 0:
+        raise AssertionError(f"zero gradients: {nonzero}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps_ms = cuda_ms(step, 7)
+    peak = torch.cuda.max_memory_allocated(dev)
+    # the forward (with the graph) and the backward of a step, apart
+    fwd_ms, bwd_ms = [], []
+    for _ in range(3):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        loss_t, _ = run(SPP)
+        e[1].record()
+        loss_t.backward()
+        e[2].record()
+        torch.cuda.synchronize()
+        fwd_ms.append(e[0].elapsed_time(e[1]))
+        bwd_ms.append(e[1].elapsed_time(e[2]))
+        del loss_t
+    names = {"quad_search": "quad_search_kernel",
+             "hit_attrs": "hit_attrs_kernel",
+             "shade_update": "shade_update_kernel",
+             "hit_attrs_bwd": "hit_attrs_bwd_kernel",
+             "shade_update_bwd": "shade_update_bwd_kernel",
+             "bwd_reduce": "bwd_reduce_kernel"}
+    prof = profile_device(lambda: step(1), tuple(names.values()), top=15)
+    per = prof["per_kernel"] or {}
+    in_path = {n: (per.get(k) or {}).get("ms_per_launch")
+               for n, k in names.items()}
+    # B' at the shapes the path gives it: every row sum of a one-wave
+    # step's glue gathers against float64
+    with RowSumCalls() as sums:
+        step(1)
+        torch.cuda.synchronize()
+    row_sums = row_sums_vs_float64(sums.calls)
+    del sums
+
+    # J' and H' on every bounce's recorded inputs of one full-size wave
+    with split_recorder() as rec, torch.no_grad():
+        render_waves(scene, WIDTH, HEIGHT, key, 0, 1, depth=DEPTH,
+                     chunk_size=CHUNK)
+    full, cold, loop, plain_ms = {}, {}, {}, {}
+    pairs = {"hit_attrs_bwd": [], "shade_update_bwd": []}
+    # H' alone, and B''s sum of its light-table partials alone
+    h_parts = {"kernel": [], "light_table_sum": []}
+    no_rows = (torch.empty((0, 1), dtype=torch.float32, device=dev),
+               torch.empty((0,), dtype=torch.int32, device=dev),
+               torch.zeros((1,), dtype=torch.int32, device=dev))
+    for b, (hc, sc) in enumerate(zip(rec["hit"], rec["su"])):
+        r = split_bwd_vs_plain(hc, sc, f"final_scene bounce {b}", seed=11 + b)
+        for n_, v in r.items():
+            full[n_] = {k: max(full.get(n_, {}).get(k, 0.0), v[k])
+                        for k in ("lanes_outside", "max_abs_err")}
+        gh, gs = split_cots(hc[1], sc[0].shape[1], 11 + b)
+        pairs["hit_attrs_bwd"].append(
+            (lambda hc=hc, gh=gh: hit_attrs_bwd_kernel(*hc, gh),
+             lambda hc=hc, gh=gh: hit_ops.hit_plane_core_vjp(*hc, gh)))
+        pairs["shade_update_bwd"].append(
+            (lambda sc=sc, gs=gs: shade_update_bwd_kernel(*sc, gs),
+             lambda sc=sc, gs=gs: bounce_ops.su_plane_core_vjp(*sc, gs)))
+        part = shade_update_bwd_kernel.partials(*sc, gs)[1]
+        h_parts["kernel"].append(
+            lambda sc=sc, gs=gs: shade_update_bwd_kernel.partials(*sc, gs))
+        h_parts["light_table_sum"].append(
+            lambda part=part: bwd_reduce_kernel(*no_rows, part))
+    with torch.no_grad():
+        for n_, ps in pairs.items():
+            cold[n_] = statistics.fmean(median(cold_ms(k)) for k, _ in ps)
+            loop[n_] = statistics.fmean(median(loop_ms(k)) for k, _ in ps)
+            plain_ms[n_] = statistics.fmean(median(cuda_ms(p, 3))
+                                            for _, p in ps)
+        h_cold = {n_: statistics.fmean(median(cold_ms(f)) for f in fs)
+                  for n_, fs in h_parts.items()}
+    step_med = median(steps_ms)
+    fwd_wave, bwd_wave = median(fwd_ms) / SPP, median(bwd_ms) / SPP
+    # the profiler's kernel ms of the one-wave step; the glue's shares need
+    # every kernel's (None where the profiler saw no launch of one)
+    red = per.get("bwd_reduce_kernel") or {}
+    red_wave = (None if red.get("ms_per_launch") is None
+                else red["ms_per_launch"] * red["launches"])
+    wave_k = {n: None if in_path[n] is None else in_path[n] * DEPTH
+              for n in names if n != "bwd_reduce"}
+    fwd_k = [wave_k[n] for n in ("quad_search", "hit_attrs", "shade_update")]
+    bwd_k = [wave_k[n] for n in pairs] + [red_wave]
+    lane_bounces = WIDTH * HEIGHT * SPP * DEPTH
+    emit({"phase": "final_train", "card": smi,
+          "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
+          "loss": float(loss.detach()), "launches": launches,
+          "plain_calls": len(plain.calls), "grads_finite": True,
+          "grads_bitwise_repeat": True, "grad_max_abs": nonzero,
+          "leaves_with_grad": sorted(k for k, v in grads.items()
+                                     if bool(v.any())),
+          "step_ms_median": step_med, "step_ms_min": min(steps_ms),
+          "step_ms_max": max(steps_ms), "steps": len(steps_ms),
+          "fwd_bwd_mrays_per_s": lane_bounces / (step_med / 1e3) / 1e6,
+          "fwd_bwd_mrays_per_s_min": lane_bounces / (max(steps_ms) / 1e3)
+          / 1e6,
+          "fwd_bwd_mrays_per_s_max": lane_bounces / (min(steps_ms) / 1e3)
+          / 1e6,
+          "peak_memory_bytes": peak,
+          "ms_per_wave": {
+              "forward": fwd_wave, "backward": bwd_wave,
+              "glue_forward": None if None in fwd_k
+              else fwd_wave - sum(fwd_k),
+              "glue_backward": None if None in bwd_k
+              else bwd_wave - sum(bwd_k),
+              **wave_k, "bwd_reduce": red_wave},
+          "bwd_reduce_launches": {
+              "shade_update_bwd_light_table": SPP * DEPTH,
+              "glue_row_sums": launches["bwd_reduce"] - SPP * DEPTH},
+          "row_sums_vs_float64": row_sums,
+          "ms_per_launch_profiler": in_path,
+          "bwd_ms_per_launch_l2_flushed": cold,
+          "shade_update_bwd_parts_ms_l2_flushed": h_cold,
+          "bwd_ms_per_launch_looped_events": loop,
+          "bwd_plain_ms_per_launch": plain_ms,
+          "bwd_kernels_vs_plain_full_size": full,
+          "profiled_one_wave_step": prof})
+    return {"launches": launches, "ms": cold, "ms_in_path": in_path,
+            "plain_ms": plain_ms, "full": full, "calls": rec,
+            "h_parts": h_cold}
+
+
+def split_bwd_rows(train, worst_small) -> list[dict]:
+    """The ``{"kernels": [...]}`` rows of J' and H' from the final_scene
+    training step: launches on the main path; device ms per launch out of
+    L2 (``ms``; H''s with B''s sum of its light-table partials, which the
+    plain version's time includes too) and in the step (``ms_in_path``,
+    the profiler's; H''s without that sum, None where the profiler saw no
+    launch), plain ms, each averaged over a wave's bounces on their
+    recorded inputs; and the bound of one launch averaged over the same
+    bounces."""
+    calls, n_w = train["calls"], DEPTH
+    j_bytes = sum((19 + 2 + 12 + 19) * 4 * c[0].shape[1]
+                  for c in calls["hit"])
+    j_ops = sum(OPS_HIT_BWD * c[0].shape[1] for c in calls["hit"])
+    h_bytes = su_bwd_bytes(calls["su"])
+    h_ops = sum(int(((c[0][38] > 0.5) & (c[0][39] > 0.5)).sum()) * OPS_SU_BWD
+                for c in calls["su"])
+    src = "rust_ray_tracer_tpu_torch/csrc/split.cu"
+    rows = []
+    for name, repl, nb, ops in (
+            ("hit_attrs_bwd", "rust_ray_tracer_tpu/ops/pallas_hit.py:245",
+             j_bytes, j_ops),
+            ("shade_update_bwd",
+             "rust_ray_tracer_tpu/ops/pallas_bounce.py:705", h_bytes,
+             h_ops)):
+        b_ms, b_by = bound(nb / n_w, ops / n_w)
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": repl, "launches": train["launches"][name],
+                     "max_abs_err": max(worst_small[name]["max_abs_err"],
+                                        train["full"][name]["max_abs_err"]),
+                     "ms": train["ms"][name],
+                     "ms_in_path": train["ms_in_path"][name],
+                     "plain_ms": train["plain_ms"][name],
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                     "bytes_per_launch": nb / n_w,
+                     "operations_per_launch": ops / n_w})
+    rows[1]["ms_parts"] = train["h_parts"]
+    return rows
 
 
 def bound(nbytes, ops):
@@ -1353,7 +1730,7 @@ def main() -> int:
     builds = K.build_all()
     for k in (trace_wave_kernel, trace_wave_noise_kernel,
               trace_wave_bwd_kernel, trace_wave_bwd_noise_kernel,
-              bwd_reduce_kernel) + SPLIT_KERNELS:
+              bwd_reduce_kernel) + SPLIT_KERNELS + SPLIT_BWD_KERNELS:
         k.load()
     emit({"phase": "build", "wall_seconds": time.perf_counter() - t0,
           "libraries": {n: {"file": b.path.name, "nvcc_seconds": b.seconds,
@@ -1377,8 +1754,9 @@ def main() -> int:
                              ("tex_scale", "sph_c0", "sph_r", "tex_color"),
                              ("background", "camera.c2w"), ("perlin_vec",))
 
-    # ---- 8. final_scene (media, the split route): forward ---------------
+    # ---- 8. final_scene (media, the split route): forward, training step -
     final_fwd = final_forward(dev, smi)
+    final_tr = final_train(dev, smi, final_fwd)
 
     # ---- 9. the inverse-rendering example on the card --------------------
     t0 = time.perf_counter()
@@ -1403,7 +1781,8 @@ def main() -> int:
     # ---- result ----------------------------------------------------------
     rows = (kernel_rows(flag_fwd, flag_train, small, "plain")
             + kernel_rows(rand_fwd, rand_train, small, "noise")
-            + split_rows(final_fwd, small_split))
+            + split_rows(final_fwd, small_split)
+            + split_bwd_rows(final_tr, small_split))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

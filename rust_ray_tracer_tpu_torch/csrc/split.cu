@@ -16,6 +16,15 @@
 //     _make_su_kernel (launched by _su_planes_call, pallas_bounce.py:678):
 //     shading of all five materials and the estimator update, the albedo
 //     given. Plain version: ops/bounce.py su_plane_core.
+//   * hit_attrs_bwd_kernel (TPU kernel J') replaces pallas_hit.py
+//     _bwd_kernel (launched by _hp_bwd, pallas_hit.py:245): J's adjoint,
+//     the cotangent of its 19 input planes. Plain version:
+//     ops/hit_core.py hit_plane_core_vjp.
+//   * shade_update_bwd_kernel (TPU kernel H') replaces pallas_bounce.py
+//     _make_su_bwd_kernel (launched by _su_bwd, pallas_bounce.py:705, its
+//     per-tile light-table partials summed at :731-733): H's adjoint, the
+//     cotangents of its 40 input planes and of the light table. Plain
+//     version: ops/bounce.py su_plane_core_vjp.
 //
 // What bounds them on the card. O: fp32 work, ~45 operations per ray and
 // quad tested (1,408 quads on final_scene, 11 clusters of 128); a block of
@@ -29,13 +38,24 @@
 //
 // J and H call the device functions that kernel A runs inline
 // (trace_common.cuh: hit_attrs, shade, update_found, update_miss), so the
-// three compute a bounce alike. The library is built with --fmad=false: its
-// plain versions are torch elementwise ops, which never contract a*b+c, and
-// final_scene's noise sphere and free-flight distances amplify an FMA's
-// last ulp. Ties and predicates are the plain versions' exactly: strict <,
+// three compute a bounce alike; J' and H' call the adjoints that kernel B
+// runs (trace_bwd_common.cuh: hit_attrs_vjp, shade_fwd + shade_vjp,
+// update_found_vjp, update_miss_vjp), so the split route's backward and
+// the whole-wave route's are one copy. J' and H' are bound by memory, as J
+// and H: 19 + 2 + 12 planes in and 19 out (J'); for H', by lane class, a
+// dead lane reads 13 planes and a found one ~47, and every lane writes
+// 40. One thread per ray recomputes its forward (J's attributes, H's
+// shading) from the saved inputs instead of reading residuals. H''s
+// light-table cotangent stays in each thread's local array and is summed
+// in a fixed order, per block and then by the last block to finish: no
+// float atomics, so the gradients repeat bit for bit.
+//
+// The library is built with --fmad=false: its plain versions are torch
+// elementwise ops, which never contract a*b+c, and final_scene's noise
+// sphere and free-flight distances amplify an FMA's last ulp. Ties and predicates are the plain versions' exactly: strict <,
 // ascending quad ids, |denom| > 0, t in [tmin, tmax], 0 <= alpha, beta <= 1.
 
-#include "trace_common.cuh"
+#include "trace_bwd_common.cuh"
 
 namespace {
 
@@ -213,6 +233,134 @@ shade_update_kernel(const float* __restrict__ P,
   for (int c = 0; c < N_SU_OUT; ++c) out[(size_t)c * n + i] = y[c];
 }
 
+// ---- the backward kernels ------------------------------------------------
+
+// J': P, kind, flip as J's; g [12, n] the cotangents of J's outputs. dP
+// [19, n]: those of o, d, time, (tmin, tmax: none), the pack and tmed.
+__global__ void __launch_bounds__(ROW)
+hit_attrs_bwd_kernel(const float* __restrict__ P, const int* __restrict__ kind,
+                     const int* __restrict__ flip, const float* __restrict__ g,
+                     float* __restrict__ dP, int n) {
+  const int i = blockIdx.x * ROW + threadIdx.x;
+  if (i >= n) return;
+  float x[N_HIT_IN];
+#pragma unroll
+  for (int c = 0; c < N_HIT_IN; ++c) x[c] = P[(size_t)c * n + i];
+  float gc[N_HIT_OUT];
+#pragma unroll
+  for (int c = 0; c < N_HIT_OUT; ++c) gc[c] = g[(size_t)c * n + i];
+  const V3 o = {x[0], x[1], x[2]}, d = {x[3], x[4], x[5]};
+  const float time = x[6], tmin = x[7], tmax = x[8];
+  const float* pk = x + 9;
+  const int kd = kind[i];
+  // the forward without the FlipFace fold: the raw t (0 on a miss), the
+  // hit point, and the normal's y whose sign picks the branch of -|ny|
+  const HitAttrs h = hit_attrs(kd, o, d, time, tmin, tmax, pk, x[18],
+                               false);
+  const float t = kd == KIND_NONE ? 0.f : h.t;
+  V3 g_o = {0.f, 0.f, 0.f}, g_d = {0.f, 0.f, 0.f};
+  float g_time = 0.f, g_tmed = 0.f;
+  float g_pk[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  hit_attrs_vjp<true>(kd, o, d, time, tmin, tmax, pk, flip[i] > 0, h.n.y, t,
+                      h.p, {gc[0], {gc[1], gc[2], gc[3]},
+                            {gc[4], gc[5], gc[6]}, gc[7], gc[8],
+                            {gc[9], gc[10], gc[11]}},
+                      g_o, g_d, g_time, g_pk, g_tmed);
+  const float y[N_HIT_IN] = {g_o.x, g_o.y, g_o.z, g_d.x, g_d.y, g_d.z,
+                             g_time, 0.f, 0.f, g_pk[0], g_pk[1], g_pk[2],
+                             g_pk[3], g_pk[4], g_pk[5], g_pk[6], g_pk[7],
+                             g_pk[8], g_tmed};
+#pragma unroll
+  for (int c = 0; c < N_HIT_IN; ++c) dP[(size_t)c * n + i] = y[c];
+}
+
+// Sum of v over a warp (a fixed tree: the same bits in every run).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) v += __shfl_down_sync(0xffffffffu, v, s);
+  return v;
+}
+
+// H': P, mkind, lt as H's; g [13, n] the cotangents of H's outputs. dP
+// [40, n]: those of o, d, p, n, albedo, fuzz, ior, L and beta (the randoms,
+// alive and hit take none). The light table's, through the mixture pdf of
+// Lambertian hits and the background of live misses, leaves as one partial
+// a block: each ray keeps its share in a local array, and a block sums its
+// rays' (each warp by a fixed tree, then the warps in order) into
+// dlt_part [gridDim.x, (n_lights + 1) * LT_COLS], kernel B's layout, which
+// bwd_reduce_kernel's light-table blocks sum in block order. No float
+// atomics: the same bits in every run.
+__global__ void __launch_bounds__(ROW)
+shade_update_bwd_kernel(const float* __restrict__ P,
+                        const int* __restrict__ mkind,
+                        const float* __restrict__ lt, int n_lights,
+                        const float* __restrict__ g, float* __restrict__ dP,
+                        float* __restrict__ dlt_part, int n) {
+  __shared__ float slt[MAX_LT];
+  __shared__ float red[ROW / 32][MAX_LT];
+  const int ltn = (n_lights + 1) * LT_COLS;
+  for (int k = threadIdx.x; k < ltn; k += ROW) slt[k] = lt[k];
+  __syncthreads();
+  const int i = blockIdx.x * ROW + threadIdx.x;
+  float dl[MAX_LT];                        // this ray's light-table share
+  for (int k = 0; k < ltn; ++k) dl[k] = 0.f;
+  if (i < n) {
+    auto at = [&](int c) { return P[(size_t)c * n + i]; };
+    auto gat = [&](int c) { return g[(size_t)c * n + i]; };
+    const V3 go = {gat(0), gat(1), gat(2)}, gd = {gat(3), gat(4), gat(5)};
+    const V3 gL = {gat(6), gat(7), gat(8)}, gb = {gat(9), gat(10), gat(11)};
+    V3 g_o = go, g_d = gd, g_beta = gb;    // a dead lane passes through
+    V3 g_p = {0.f, 0.f, 0.f}, g_n = g_p, g_a = g_p;
+    float g_fuzz = 0.f, g_ior = 0.f;
+    if (at(38) > 0.5f) {                   // a live ray
+      const V3 beta = {at(20), at(21), at(22)};
+      if (at(39) > 0.5f) {                 // that found something
+        const V3 d = {at(3), at(4), at(5)}, p = {at(6), at(7), at(8)};
+        const V3 nrm = {at(9), at(10), at(11)};
+        const V3 alb = {at(12), at(13), at(14)};
+        const float* __restrict__ r = P + (size_t)23 * n + i;
+        const int mk = mkind[i];
+        const ShadeFwd sf = shade_fwd(mk, d, nrm, p, alb, at(15), slt,
+                                      n_lights, r, (size_t)n);
+        const UpdateVjp u = update_found_vjp(beta, sf.em, sf.wt, sf.alive,
+                                             go, gd, gL, gb);
+        g_beta = u.g_beta;
+        g_o = u.g_o;
+        g_d = u.g_d;
+        g_p = u.g_p;
+        shade_vjp(sf, mk, d, nrm, p, alb, at(16), slt, n_lights, r,
+                  (size_t)n, u.g_em, u.g_wt, u.g_sd, g_d, g_p, g_n, g_a,
+                  g_fuzz, g_ior, dl);
+      } else {
+        g_beta = update_miss_vjp(slt + n_lights * LT_COLS, beta, gL, gb,
+                                 dl + n_lights * LT_COLS);
+      }
+    }
+    const float y[23] = {g_o.x, g_o.y, g_o.z, g_d.x, g_d.y, g_d.z,
+                         g_p.x, g_p.y, g_p.z, g_n.x, g_n.y, g_n.z,
+                         g_a.x, g_a.y, g_a.z, g_fuzz, g_ior,
+                         gL.x, gL.y, gL.z, g_beta.x, g_beta.y, g_beta.z};
+#pragma unroll
+    for (int c = 0; c < 23; ++c) dP[(size_t)c * n + i] = y[c];
+#pragma unroll
+    for (int c = 23; c < N_SU; ++c) dP[(size_t)c * n + i] = 0.f;
+  }
+
+  // the block's partial
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int k = 0; k < ltn; ++k) {
+    const float v = warp_sum(dl[k]);
+    if (lane == 0) red[warp][k] = v;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < ltn; k += ROW) {
+    float acc = red[0][k];
+#pragma unroll
+    for (int w = 1; w < ROW / 32; ++w) acc += red[w][k];
+    dlt_part[(size_t)blockIdx.x * ltn + k] = acc;
+  }
+}
+
 int launched(int n) {
   return n > 0 ? static_cast<int>(cudaGetLastError()) : 0;
 }
@@ -250,5 +398,29 @@ extern "C" int shade_update_launch(const float* P, const int* mkind,
     shade_update_kernel<<<(n + ROW - 1) / ROW, ROW, 0,
                           static_cast<cudaStream_t>(stream)>>>(
         P, mkind, lt, n_lights, out, n);
+  return launched(n);
+}
+
+extern "C" int hit_attrs_bwd_launch(const float* P, const int* kind,
+                                    const int* flip, const float* g,
+                                    float* dP, int n, void* stream) {
+  if (n > 0)
+    hit_attrs_bwd_kernel<<<(n + ROW - 1) / ROW, ROW, 0,
+                           static_cast<cudaStream_t>(stream)>>>(P, kind, flip,
+                                                                g, dP, n);
+  return launched(n);
+}
+
+// dlt_part [ceil(n / ROW), (n_lights + 1) * LT_COLS]: the blocks'
+// light-table partials. With n == 0 nothing is launched.
+extern "C" int shade_update_bwd_launch(const float* P, const int* mkind,
+                                       const float* lt, int n_lights,
+                                       const float* g, float* dP,
+                                       float* dlt_part, int n, void* stream) {
+  if ((n_lights + 1) * LT_COLS > MAX_LT) return -1;
+  if (n > 0)
+    shade_update_bwd_kernel<<<(n + ROW - 1) / ROW, ROW, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        P, mkind, lt, n_lights, g, dP, dlt_part, n);
   return launched(n);
 }

@@ -35,7 +35,14 @@ Kernels (each wrapper counts its launches in ``launches``):
     ``hit_attrs_kernel`` (TPU kernel J, ``pallas_hit.py`` ``_kernel``;
     plain version ``ops/hit_core.hit_plane_core``) and
     ``shade_update_kernel`` (TPU kernel H, ``pallas_bounce.py``
-    ``_make_su_kernel``; plain version ``ops/bounce.su_plane_core``).
+    ``_make_su_kernel``; plain version ``ops/bounce.su_plane_core``); and
+    their backward kernels, the adjoints of the last two:
+    ``hit_attrs_bwd_kernel`` (TPU kernel J', ``pallas_hit.py``
+    ``_bwd_kernel``; plain version ``ops/hit_core.hit_plane_core_vjp``)
+    and ``shade_update_bwd_kernel`` (TPU kernel H', ``pallas_bounce.py``
+    ``_make_su_bwd_kernel``; plain version
+    ``ops/bounce.su_plane_core_vjp``), whose light-table partials
+    ``bwd_reduce_kernel`` sums.
 """
 
 from __future__ import annotations
@@ -514,9 +521,91 @@ class ShadeUpdateKernel(_Kernel):
         return out
 
 
+class HitAttrsBwdKernel(_Kernel):
+    """ctypes wrapper of ``hit_attrs_bwd_launch`` (kernel J'): the
+    cotangent [19, N] of kernel J's input planes for the cotangents ``g``
+    [12, N] of its outputs, as ``ops/hit_core.hit_plane_core_vjp`` returns
+    it (tmin and tmax take none)."""
+
+    name = "hit_attrs_bwd"
+    library = "split"
+    entry = "hit_attrs_bwd_launch"
+    argtypes = (_P,) * 5 + (_I,)
+
+    def __call__(self, planes, kind, flip, g):
+        dev = planes.device
+        if dev.type != "cuda":
+            raise ValueError(f"hit_attrs_bwd kernel needs CUDA tensors, got "
+                             f"{dev}")
+        n = planes.shape[1] if planes.dim() == 2 else -1
+        _check("planes", planes, dev, (HIT_IN, n))
+        _check("kind", kind, dev, (n,), torch.int32)
+        _check("flip", flip, dev, (n,), torch.int32)
+        _check("g", g, dev, (HIT_OUT, n))
+        self.load()
+        d_planes = torch.empty((HIT_IN, n), dtype=torch.float32, device=dev)
+        self._launch(dev, _ptr(planes), _ptr(kind), _ptr(flip), _ptr(g),
+                     _ptr(d_planes), n)
+        return d_planes
+
+
+class ShadeUpdateBwdKernel(_Kernel):
+    """ctypes wrapper of ``shade_update_bwd_launch`` (kernel H'): for the
+    cotangents ``g`` [13, N] of kernel H's outputs, the cotangents of its
+    input planes [40, N] and of the light table [n_lights + 1, LT_COLS], as
+    ``ops/bounce.su_plane_core_vjp`` returns them. H' leaves the table's
+    as one partial a block (:meth:`partials`), which ``bwd_reduce_kernel``
+    (B') sums in block order, as it sums kernel B's: no float atomics, the
+    same bits in every run."""
+
+    name = "shade_update_bwd"
+    library = "split"
+    entry = "shade_update_bwd_launch"
+    argtypes = (_P, _P, _P, _I) + (_P,) * 3 + (_I,)
+
+    def partials(self, planes, mkind, lt, n_lights: int, g):
+        """Kernel H' alone: (dP [40, N], the blocks' light-table partials
+        [ceil(N / 128), (n_lights + 1) * LT_COLS])."""
+        dev = planes.device
+        if dev.type != "cuda":
+            raise ValueError(f"shade_update_bwd kernel needs CUDA tensors, "
+                             f"got {dev}")
+        n = planes.shape[1] if planes.dim() == 2 else -1
+        ltn = (n_lights + 1) * LT_COLS
+        if ltn > 128:
+            raise ValueError(f"{n_lights} lights exceed the kernel's light "
+                             "table")
+        _check("planes", planes, dev, (N_SU, n))
+        _check("mkind", mkind, dev, (n,), torch.int32)
+        _check("lt", lt, dev, (n_lights + 1, LT_COLS))
+        _check("g", g, dev, (N_SU_OUT, n))
+        self.load()
+        d_planes = torch.empty((N_SU, n), dtype=torch.float32, device=dev)
+        part = torch.empty((-(-n // 128), ltn), dtype=torch.float32,
+                           device=dev)
+        self._launch(dev, _ptr(planes), _ptr(mkind), _ptr(lt), n_lights,
+                     _ptr(g), _ptr(d_planes), _ptr(part), n)
+        return d_planes, part
+
+    def __call__(self, planes, mkind, lt, n_lights: int, g):
+        """(dP [40, N], dlt like ``lt``): H', then B''s light-table sum of
+        its partials (none for N = 0)."""
+        d_planes, part = self.partials(planes, mkind, lt, n_lights, g)
+        dev = planes.device
+        if part.shape[0] == 0:
+            return d_planes, torch.zeros_like(lt)
+        rows = torch.empty((0, 1), dtype=torch.float32, device=dev)
+        order = torch.empty((0,), dtype=torch.int32, device=dev)
+        offs = torch.zeros((1,), dtype=torch.int32, device=dev)
+        _, dlt = bwd_reduce_kernel(rows, order, offs, part)
+        return d_planes, dlt.reshape(lt.shape)
+
+
 quad_search_kernel = QuadSearchKernel()
 hit_attrs_kernel = HitAttrsKernel()
 shade_update_kernel = ShadeUpdateKernel()
+hit_attrs_bwd_kernel = HitAttrsBwdKernel()
+shade_update_bwd_kernel = ShadeUpdateBwdKernel()
 
 
 def trace_kernel(ctx) -> TraceWaveKernel:

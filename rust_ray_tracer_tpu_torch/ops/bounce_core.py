@@ -20,10 +20,14 @@ Output: ``[N_OUT_B, ...]`` = o'(3) d'(3) L'(3) beta'(3) alive'.
 
 :func:`bounce_plane_core_vjp` is its hand-derived adjoint, composed from
 :func:`ops.hit_core.hit_plane_core_vjp`,
-:func:`ops.shade_core.plane_core_vjp` and :func:`ops.perlin.marble_vjp`.
+:func:`ops.shade_core.plane_core_vjp`, :func:`ops.perlin.marble_vjp` and
+:func:`update_vjp`, the adjoint of the estimator update, which the split
+route's ``ops/bounce.su_plane_core_vjp`` shares.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -179,27 +183,17 @@ def bounce_plane_core_vjp(P, pkind, mkind, flags, lt, n_lights: int,
     miss = alive_in & ~is_hit
     live = alive_in & is_hit
     alive2 = live & (alive_f > 0.5)
-    cot = tuple(cot)
-    g_o, g_d, g_L, g_b = cot[0:3], cot[3:6], cot[6:9], cot[9:12]
+    u = update_vjp(cot, beta, lt[n_lights], em, wt, miss, live, alive2)
 
     dP = torch.zeros_like(P)
     dlt = torch.zeros_like(lt)
-    # L' = L + [miss] beta * bg + [live] beta * em; beta' = [live] beta * wt
-    dP[24:27] = torch.stack(g_L)
-    dP[27:30] = torch.stack([
-        _mask(miss, gl * lt[n_lights, i]) + _mask(live, gl * em[i])
-        + torch.where(live, gb * wt[i], gb)
-        for i, (gl, gb) in enumerate(zip(g_L, g_b))])
-    dlt[n_lights, 0:3] = torch.stack(
-        [_mask(miss, gl * b).sum() for gl, b in zip(g_L, beta)])
-    g_em = [_mask(live, gl * b) for gl, b in zip(g_L, beta)]
-    g_wt = [_mask(live, gb * b) for gb, b in zip(g_b, beta)]
-    # o' = [alive2] p : o ; d' = [alive2] sd : d
-    g_p = [_mask(alive2, g) for g in g_o]
-    g_sd = [_mask(alive2, g) for g in g_d]
+    dP[24:27] = torch.stack(u.L)
+    dP[27:30] = torch.stack(u.beta)
+    dlt[n_lights, 0:3] = torch.stack(u.bg)
+    g_p = u.p
     zero = torch.zeros_like(px)
     d_data, dlt_s = plane_core_vjp(data, rng, mkind, lt, n_lights,
-                                   g_em + g_wt + g_sd + [zero])
+                                   u.em + u.wt + u.sd + [zero])
     dlt = dlt + dlt_s
     g_a = d_data[9:12]
     g_pn = [zero, zero, zero]           # the marble's share of p's cotangent
@@ -222,6 +216,49 @@ def bounce_plane_core_vjp(P, pkind, mkind, flags, lt, n_lights: int,
                         + list(d_data[6:9]) + [zero] * 5)
     dP[:N_HIT] = hit_plane_core_vjp(P[:N_HIT], pkind, flags & 1, g_hit)
     for i in range(3):
-        dP[i] = dP[i] + _mask(~alive2, g_o[i])
-        dP[3 + i] = dP[3 + i] + _mask(~alive2, g_d[i]) + d_data[i]
+        dP[i] = dP[i] + u.o[i]
+        dP[3 + i] = dP[3 + i] + u.d[i] + d_data[i]
     return dP, dlt
+
+
+class UpdateCot(NamedTuple):
+    """Cotangents through the estimator update, each a list of 3 planes
+    (``bg`` of 3 scalars): of L, beta, the background row's colour, the
+    emitted radiance, the weight, the hit point, the scattered direction,
+    and the o and d that a ray whose path did not go on keeps."""
+
+    L: list
+    beta: list
+    bg: list
+    em: list
+    wt: list
+    p: list
+    sd: list
+    o: list
+    d: list
+
+
+def update_vjp(cot, beta, bg, em, wt, miss, live, alive2) -> UpdateCot:
+    """Adjoint of the estimator update that ends ``_bounce_plane_core``
+    and ``_su_plane_core`` (``pallas_bounce.py:248-280``, ``:608-634``) for
+    the output cotangents ``cot`` (o', d', L', beta'; alive' takes none):
+    ``L' = L + [miss] beta * bg + [live] beta * em``, ``beta' = [live] beta
+    * wt : beta``, ``o' = [alive2] p : o``, ``d' = [alive2] sd : d``.
+    ``beta``, ``em``, ``wt`` are plane triples, ``bg`` the background row
+    (its first three columns), ``miss``, ``live``, ``alive2`` bool planes.
+    A dead lane passes its cotangents through; a live miss sends ``g_L *
+    beta`` to the background."""
+    cot = tuple(cot)
+    g_o, g_d, g_L, g_b = cot[0:3], cot[3:6], cot[6:9], cot[9:12]
+    return UpdateCot(
+        L=list(g_L),
+        beta=[_mask(miss, gl * bg[i]) + _mask(live, gl * em[i])
+              + torch.where(live, gb * wt[i], gb)
+              for i, (gl, gb) in enumerate(zip(g_L, g_b))],
+        bg=[_mask(miss, gl * b).sum() for gl, b in zip(g_L, beta)],
+        em=[_mask(live, gl * b) for gl, b in zip(g_L, beta)],
+        wt=[_mask(live, gb * b) for gb, b in zip(g_b, beta)],
+        p=[_mask(alive2, g) for g in g_o],
+        sd=[_mask(alive2, g) for g in g_d],
+        o=[_mask(~alive2, g) for g in g_o],
+        d=[_mask(~alive2, g) for g in g_d])

@@ -18,9 +18,13 @@ routes, chosen per scene as the JAX package chooses on the TPU:
     searches spheres in torch, quads with TPU kernel O, media with
     ``_med_t``; computes the winners' hit attributes with TPU kernel J;
     evaluates the albedo (``texture_value``) in torch; and shades and
-    updates the estimator with TPU kernel H. Forward only: a scene leaf
-    that requires grad raises (the backward kernels of J and H are not
-    ported).
+    updates the estimator with TPU kernel H. That render is
+    differentiable too: the split tables are built inside the autograd
+    graph, phase 2 of the intersection (the winner-row gathers, the chosen
+    medium's distance) and the texture run as torch autograd, and J and H
+    run as autograd functions whose backward kernels are J' and H'
+    (``ops/hit.HitPlanes``, ``ops/bounce.ShadeUpdate``). Phase 1 (the
+    searches, O) is detached, as in JAX.
 
 Every per-lane step is independent of how the lanes are batched, and each
 lane's randoms are drawn from its (chunk, lane) as the JAX package draws
@@ -80,18 +84,11 @@ def split_reason(scene) -> str | None:
     return None
 
 
-def _wants_grad(scene) -> bool:
-    leaves = [getattr(scene, f.name) for f in dataclasses.fields(scene)
-              if f.name != "camera"]
-    leaves += [getattr(scene.camera, f.name)
-               for f in dataclasses.fields(scene.camera)]
-    return torch.is_grad_enabled() and any(x.requires_grad for x in leaves)
-
-
 @dataclasses.dataclass
 class SplitTables:
     """Scene-derived tables of the split route, built once per render
-    (detached: the route is forward only). ``uni``/``dflt``/offsets from
+    inside the autograd graph (all but O's table, which only the detached
+    search reads). ``uni``/``dflt``/offsets from
     ``ops/intersect.winner_table``; ``med_rows`` [M, 2 + A] a medium
     winner's flip | material id | attrs; ``quads`` [Q, 9] kernel O's
     table; ``lt`` [n_lights + 1, LT_COLS] kernel H's lights, the
@@ -107,27 +104,24 @@ class SplitTables:
 
 
 def make_split_tables(scene) -> SplitTables:
-    """Tables of the split route; raises NotImplementedError for a scene
-    it cannot render, and for one whose leaves require grad."""
+    """Tables of the split route (differentiable in the scene, as
+    ``uber.make_ctx``'s); raises NotImplementedError for a scene it cannot
+    render."""
     reason = split_reason(scene)
     if reason is not None:
         raise NotImplementedError(reason)
-    if _wants_grad(scene):
-        raise NotImplementedError(
-            "gradients on the split route need the backward kernels of TPU "
-            "kernels J and H (ROADMAP queue 2): render under "
-            "torch.no_grad() or with leaves that do not require grad")
+    uni, dflt, (_, s_off, q_off) = winner_table(scene)
+    matt = _mat_attr_table(scene)
+    med_rows = torch.cat(
+        [torch.zeros((scene.n_media, 1), dtype=matt.dtype,
+                     device=matt.device),
+         scene.med_mat.to(matt.dtype)[:, None],
+         matt[scene.med_mat.long()]], dim=1)
     with torch.no_grad():
-        uni, dflt, (_, s_off, q_off) = winner_table(scene)
-        matt = _mat_attr_table(scene)
-        med_rows = torch.cat(
-            [torch.zeros((scene.n_media, 1), dtype=matt.dtype,
-                         device=matt.device),
-             scene.med_mat.to(matt.dtype)[:, None],
-             matt[scene.med_mat.long()]], dim=1)
-        return SplitTables(uni=uni, dflt=dflt, s_off=s_off, q_off=q_off,
-                           med_rows=med_rows, quads=quad_table(scene),
-                           lt=light_table(scene))
+        quads = quad_table(scene)
+    return SplitTables(uni=uni, dflt=dflt, s_off=s_off, q_off=q_off,
+                       med_rows=med_rows, quads=quads,
+                       lt=light_table(scene))
 
 
 def bounce_split(scene, st, rnd_b, tables: SplitTables):
@@ -135,24 +129,22 @@ def bounce_split(scene, st, rnd_b, tables: SplitTables):
     randoms ``rnd_b`` [15 + M, N]: the next state. ``_bounce``'s
     ``su_eligible`` branch (``integrator.py:80-115``): ``intersect``
     (phase 1 and TPU kernel O, then kernel J), ``texture_value``, and
-    kernel H. A dead lane gets the collapsed window t_max = -1, so it
+    kernel H; differentiable in ``st`` and the tables (J' and H' in the
+    backward). A dead lane gets the collapsed window t_max = -1, so it
     finds nothing and stays as it is."""
-    with torch.no_grad():
-        o, d, time = st[0:3].T, st[3:6].T, st[6]
-        alive = st[7] > 0.5
-        t_max = torch.where(alive, torch.inf, -1.0).to(st.dtype)
-        med_u = rnd_b[15:].T if scene.n_media else None
-        sel = intersect_select(scene, o, d, time, tables, med_u,
-                               t_max=t_max)
-        _, p, _, u, v, planes = hit_attrs_fused(
-            o, d, time, sel.t_min, sel.t_max, sel.kind, sel.flip, sel.pack,
-            sel.t_med)
-        albedo = texture_value(scene, scene.mat_tex[sel.mat.long()], u, v,
-                               p)
-        return shade_update_fused(
-            st, sel.hit, planes, albedo.T, sel.attr[:, MATTR_FUZZ],
-            sel.attr[:, MATTR_IOR], sel.attr[:, MATTR_MKIND].to(torch.int32),
-            rnd_b, tables.lt, scene.n_lights)
+    o, d, time = st[0:3].T, st[3:6].T, st[6]
+    alive = st[7] > 0.5
+    t_max = torch.where(alive, torch.inf, -1.0).to(st.dtype)
+    med_u = rnd_b[15:].T if scene.n_media else None
+    sel = intersect_select(scene, o, d, time, tables, med_u, t_max=t_max)
+    _, p, _, u, v, planes = hit_attrs_fused(
+        o, d, time, sel.t_min, sel.t_max, sel.kind, sel.flip, sel.pack,
+        sel.t_med)
+    albedo = texture_value(scene, scene.mat_tex[sel.mat.long()], u, v, p)
+    return shade_update_fused(
+        st, sel.hit, planes, albedo.T, sel.attr[:, MATTR_FUZZ],
+        sel.attr[:, MATTR_IOR], sel.attr[:, MATTR_MKIND].to(torch.int32),
+        rnd_b, tables.lt, scene.n_lights)
 
 
 def trace_wave_split(scene, st0, rnd, depth: int, tables: SplitTables):

@@ -29,6 +29,7 @@ import torch
 
 from rust_ray_tracer_tpu_torch.models.scene import (MED_POLY, TEX_CHECKER,
                                                     TEX_NOISE)
+from rust_ray_tracer_tpu_torch.ops import gather
 from rust_ray_tracer_tpu_torch.ops import quad as quad_ops
 from rust_ray_tracer_tpu_torch.ops.shade_core import (_dot, _safe_div,
                                                       _safe_sqrt, _xyz)
@@ -287,7 +288,14 @@ def intersect_select(scene, o, d, time, tables, med_u=None, t_min=None,
     ``s_off``, ``q_off`` (:func:`winner_table`), ``med_rows`` [M, 2 + A]
     (a medium winner's flip | material id | attrs) and ``quads`` (O's
     table). Triangles are not searched: ``ops/integrator.split_reason``
-    keeps their scenes off this route."""
+    keeps their scenes off this route.
+
+    Phase 1 (the search, O, the fold) runs under ``no_grad``, as JAX's
+    runs on stop-gradient copies; phase 2 is differentiable: the gathers
+    from ``uni``, ``dflt`` and ``med_rows``, and (under grad) the chosen
+    medium's distance recomputed from the scene, the rays and the detached
+    uniforms ``med_u``. The selection (kind, idx, hit, mat, flip) carries
+    no gradient."""
     c = o.shape[0]
     f32 = o.dtype
     dev = o.device
@@ -306,6 +314,7 @@ def intersect_select(scene, o, d, time, tables, med_u=None, t_min=None,
         best_kind = torch.where(better, kind, best_kind)
         best_idx = torch.where(better, idx.long(), best_idx)
 
+    # ---- phase 1: the detached candidate search --------------------------
     with torch.no_grad():
         if scene.n_spheres:
             consider(KIND_SPH, *_sph_candidates(scene, o, d, time, t_min,
@@ -314,32 +323,38 @@ def intersect_select(scene, o, d, time, tables, med_u=None, t_min=None,
             # through the module, so a check can swap the dispatcher
             consider(KIND_QUAD, *quad_ops.quad_search(
                 scene, o, d, t_min, t_max, tables.quads))
-        t_med_best = torch.zeros((c,), dtype=f32, device=dev)
         if scene.n_media:
             t_med, i_med = torch.min(_med_t(scene, o, d, med_u, t_min,
                                             t_max), dim=-1)
             consider(KIND_MED, t_med, i_med)
-            t_med_best = t_med
         hit = torch.isfinite(best_t)
         kind = torch.where(hit, best_kind, KIND_NONE).to(torch.int32)
+        idx_u = torch.zeros_like(best_idx)
+        prim = torch.zeros_like(hit)
+        for kd, off in ((KIND_SPH, tables.s_off), (KIND_QUAD, tables.q_off)):
+            is_k = kind == kd
+            idx_u = torch.where(is_k, best_idx + off, idx_u)
+            prim = prim | is_k
+        is_med = kind == KIND_MED
+        i_row = torch.where(is_med, best_idx, 0)
 
-        ext = tables.dflt[9:].expand(c, -1)
-        pack = tables.dflt[:9].expand(c, -1)
-        if tables.uni.shape[0]:
-            idx_u = torch.zeros_like(best_idx)
-            prim = torch.zeros_like(hit)
-            for kd, off in ((KIND_SPH, tables.s_off),
-                            (KIND_QUAD, tables.q_off)):
-                is_k = kind == kd
-                idx_u = torch.where(is_k, best_idx + off, idx_u)
-                prim = prim | is_k
-            rows = tables.uni[idx_u]
-            pack = rows[:, :9]
-            ext = torch.where(prim[:, None], rows[:, 9:], ext)
-        if scene.n_media:
-            is_med = kind == KIND_MED
-            med_row = tables.med_rows[torch.where(is_med, best_idx, 0)]
-            ext = torch.where(is_med[:, None], med_row, ext)
+    # ---- phase 2: the winner-row gathers, differentiable in the tables --
+    ext = tables.dflt[9:].expand(c, -1)
+    pack = tables.dflt[:9].expand(c, -1)
+    if tables.uni.shape[0]:
+        rows = gather.rows(tables.uni, idx_u)
+        pack = rows[:, :9]
+        ext = torch.where(prim[:, None], rows[:, 9:], ext)
+    t_med_best = torch.zeros((c,), dtype=f32, device=dev)
+    if scene.n_media:
+        ext = torch.where(is_med[:, None], gather.rows(tables.med_rows,
+                                                        i_row), ext)
+        # the chosen medium's distance again, differentiable
+        # (intersect.py:660-663); its value is phase 1's. One pick per
+        # row: its backward adds into distinct entries, in any order alike
+        t_med_best = (torch.gather(_med_t(scene, o, d, med_u, t_min, t_max),
+                                   1, i_med[:, None])[:, 0]
+                      if torch.is_grad_enabled() else t_med)
     return Select(hit=hit, kind=kind, idx=best_idx,
                   mat=ext[:, 1].to(torch.int32), flip=ext[:, 0] > 0.5,
                   pack=pack, t_med=t_med_best, t_min=t_min, t_max=t_max,

@@ -12,8 +12,12 @@ kernel.
 The tables (:class:`PerlinTables`) are a 256-entry gradient table and three
 permutations (perlin.rs:44-51), seeded at scene compile time. The JAX
 kernel reads them through one-hot MXU contractions, which are exact, so a
-plain indexed gather gives the same values. They take no gradient: a fixed
-procedural basis, detached by design (``pallas_bounce.py:99-107``).
+plain indexed gather gives the same values. The marble of the trace
+kernels gives them no gradient: a fixed procedural basis, detached by
+design (``pallas_bounce.py:99-107``). :func:`noise` and :func:`turb`, the
+split route's ``texture_value`` in torch, differentiate through the
+gradient table as JAX's XLA ``turb`` does, its gathers summed in a fixed
+order by ``ops/gather.rows``.
 
 Indices are ``floor(x)`` cast to int32, then ``& 255`` on two's
 complement, so negative cells wrap as in JAX. At the kinks the adjoint
@@ -25,6 +29,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from rust_ray_tracer_tpu_torch.ops import gather
 
 _MASK = 255          # perlin.rs:47-50
 OCTAVES = 7          # turb depth (perlin.rs:58, texture.rs:80)
@@ -52,7 +58,8 @@ def noise(perlin_vec, px, py, pz, p):
     for di in range(2):
         for dj in range(2):
             for dk in range(2):
-                grad = perlin_vec[(h[0][di] ^ h[1][dj] ^ h[2][dk]).long()]
+                grad = gather.rows(perlin_vec,
+                                   (h[0][di] ^ h[1][dj] ^ h[2][dk]).long())
                 weight = uvw - torch.tensor([di, dj, dk], dtype=p.dtype,
                                             device=p.device)
                 w = ((di * s[..., 0] + (1 - di) * (1 - s[..., 0]))

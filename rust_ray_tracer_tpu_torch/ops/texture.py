@@ -17,16 +17,16 @@ from __future__ import annotations
 import torch
 
 from rust_ray_tracer_tpu_torch.models.scene import TEX_CHECKER, TEX_NOISE
-from rust_ray_tracer_tpu_torch.ops import perlin
+from rust_ray_tracer_tpu_torch.ops import gather, perlin
 
 
 def _leaf_value(scene, tid, p, turb):
     """Solid or marble value of texture ids ``tid`` [...] at ``p``
     [..., 3]; ``turb`` is ``perlin.turb`` at ``p`` (None without noise)."""
-    out = scene.tex_color[tid]
+    out = gather.rows(scene.tex_color, tid)
     if turb is not None:
-        marble = 0.5 * (1.0 + torch.sin(scene.tex_scale[tid] * p[..., 2]
-                                         + 10.0 * turb))
+        marble = 0.5 * (1.0 + torch.sin(gather.rows(scene.tex_scale, tid)
+                                         * p[..., 2] + 10.0 * turb))
         out = torch.where((scene.tex_kind[tid] == TEX_NOISE)[..., None],
                           marble[..., None].expand_as(out), out)
     return out

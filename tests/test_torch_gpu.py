@@ -17,8 +17,10 @@ import pytest
 import torch
 
 from rust_ray_tracer_tpu_torch.kernels import (bwd_reduce_kernel,
+                                               hit_attrs_bwd_kernel,
                                                hit_attrs_kernel,
                                                quad_search_kernel,
+                                               shade_update_bwd_kernel,
                                                shade_update_kernel,
                                                trace_wave_bwd_kernel,
                                                trace_wave_bwd_noise_kernel,
@@ -33,8 +35,8 @@ from rust_ray_tracer_tpu_torch.utils import rng
 # by its own name (pytest puts tests/ on sys.path): on a machine where an
 # installed package is called ``tests``, ``tests.torch_parity`` is not found
 from torch_parity import (SMALL_SCENES, assert_flip_budget,
-                          assert_scaled_close, rel_l2, split_kernel_inputs,
-                          split_recorder, torch_scene)
+                          assert_scaled_close, rel_l2, split_cots,
+                          split_kernel_inputs, split_recorder, torch_scene)
 
 W = H = 32          # one 1024-ray chunk
 DEPTH = 4
@@ -416,3 +418,149 @@ def test_render_waves_split_route_on_card(cuda):
     with split_recorder(plain=True):
         ref = render_waves(ts, 32, 32, rng.key(0), 0, 1, chunk_size=1024)
     assert_flip_budget(got.cpu().numpy(), ref.cpu().numpy())
+
+
+SPLIT_BWD = (hit_attrs_bwd_kernel, shade_update_bwd_kernel)
+
+
+def _split_cots(x, seed=3):
+    return split_cots(x["hit"][1], x["su"][0].shape[1], seed)
+
+
+def test_split_bwd_wrappers_refuse_cpu_tensors():
+    x = split_kernel_inputs(torch_scene("fog"), 16, 16, 1)
+    gh, gs = _split_cots(x)
+    before = [k.launches for k in SPLIT_BWD]
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        hit_attrs_bwd_kernel(*x["hit"], gh)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        shade_update_bwd_kernel(*x["su"], gs)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        shade_update_bwd_kernel.partials(*x["su"], gs)
+    assert [k.launches for k in SPLIT_BWD] == before
+
+
+def test_split_bwd_dispatchers_refuse_other_devices():
+    from rust_ray_tracer_tpu_torch.ops import bounce, hit
+
+    x = split_kernel_inputs(torch_scene("fog"), 16, 16, 1)
+    gh, gs = _split_cots(x)
+    with pytest.raises(ValueError, match="unsupported device"):
+        hit.hit_planes_bwd(*(v.to("meta") for v in x["hit"]), gh.to("meta"))
+    P, mkind, lt, n_lights = x["su"]
+    with pytest.raises(ValueError, match="unsupported device"):
+        bounce.su_planes_bwd(P.to("meta"), mkind.to("meta"), lt.to("meta"),
+                             n_lights, gs.to("meta"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["fog", "final_scene"])
+def test_split_bwd_kernels_match_plain_on_card(name, cuda):
+    """J' and H' against their plain versions on the card, on the inputs
+    the split route gives J and H over two bounces of a 32x32 wave and a
+    cotangent from a seed: dP within rtol 1e-4 of each lane's largest
+    value / atol 1e-6, at most 0.5% of the lanes outside (the recomputed
+    forward's transcendentals and a far sphere root's cancellation, as
+    tests/test_torch_split_bwd.py measures against JAX); H''s light-table
+    cotangent within relative L2 1e-4 (summed in another order). One
+    launch each (and one of B' for H''s light-table partials), and a
+    second run gives the same bits."""
+    from rust_ray_tracer_tpu_torch.ops import bounce, hit
+
+    ts = _final_scene() if name == "final_scene" else torch_scene(name)
+    x = split_kernel_inputs(ts)
+    gh, gs = (g.to(cuda) for g in _split_cots(x))
+    P, kind, flip = (v.to(cuda) for v in x["hit"])
+    S, mkind, lt, n_lights = x["su"]
+    S, mkind, lt = S.to(cuda), mkind.to(cuda), lt.to(cuda)
+    before = [k.launches for k in SPLIT_BWD + (bwd_reduce_kernel,)]
+    got_h = hit.hit_planes_bwd(P, kind, flip, gh)
+    got_s, got_lt = bounce.su_planes_bwd(S, mkind, lt, n_lights, gs)
+    torch.cuda.synchronize()
+    # B' sums H''s light-table partials
+    assert [k.launches - b for k, b in zip(SPLIT_BWD + (bwd_reduce_kernel,),
+                                           before)] == [1, 1, 1]
+    ref_h = hit.hit_plane_core_vjp(P, kind, flip, gh)
+    ref_s, ref_lt = bounce.su_plane_core_vjp(S, mkind, lt, n_lights, gs)
+    assert_scaled_close(got_h.cpu().numpy(), ref_h.cpu().numpy(), 1e-4, 1e-6,
+                        axis=0, budget=0.005, what="J' dP")
+    assert_scaled_close(got_s.cpu().numpy(), ref_s.cpu().numpy(), 1e-4, 1e-6,
+                        axis=0, budget=0.005, what="H' dP")
+    assert rel_l2(got_lt.cpu().numpy(), ref_lt.cpu().numpy()) <= 1e-4
+    assert torch.equal(got_h, hit_attrs_bwd_kernel(P, kind, flip, gh))
+    again = shade_update_bwd_kernel(S, mkind, lt, n_lights, gs)
+    assert torch.equal(got_s, again[0]) and torch.equal(got_lt, again[1])
+
+
+def _fog_grads(device):
+    from rust_ray_tracer_tpu_torch.models.scene import combine, partition
+    from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
+
+    params, static = partition(torch_scene("fog").to(device))
+    leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+    render_waves(combine(leaves, static), 16, 16, rng.key(0, device), 0, 1,
+                 chunk_size=256).mean().backward()
+    return {k: v.grad for k, v in leaves.items() if v.grad is not None}
+
+
+@pytest.mark.gpu
+def test_render_waves_split_route_grads_on_card(cuda):
+    """torch.autograd through render_waves on the fog scene on the card
+    runs O, J, H, J' and H' once a bounce and none of the whole-wave
+    kernels but B' (``bwd_reduce``, the row sums of the glue's gathers,
+    ``ops/gather.rows``); its gradients are finite, the same bits twice,
+    and within
+    1e-6 + 2e-3 of each leaf's largest entry of the CPU plain route's
+    (the card's sinf/cosf in the marble glue and the kernels' rounding
+    move the last bits; a forked path would move a leaf by a ray's share,
+    1 / 768 of a beta)."""
+    watched = SPLIT + SPLIT_BWD + (trace_wave_kernel, trace_wave_bwd_kernel)
+    out = []
+    for _ in range(2):
+        before = [k.launches for k in watched]
+        sums = bwd_reduce_kernel.launches
+        out.append(_fog_grads(cuda))
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(watched, before)] == \
+            [DEPTH] * 5 + [0, 0]
+        assert bwd_reduce_kernel.launches > sums   # the glue's row sums
+    ref = _fog_grads("cpu")
+    for k, v in out[0].items():
+        assert bool(torch.isfinite(v).all()), k
+        assert torch.equal(v, out[1][k]), k
+        r = ref[k].double()
+        assert float((v.cpu().double() - r).abs().max()) <= \
+            1e-6 + 2e-3 * float(r.abs().max()), k
+    for k in ("perlin_vec", "tex_scale", "sph_r", "quad_q", "med_pl_d",
+              "background", "camera.c2w"):
+        assert float(out[0][k].abs().max()) > 0, k
+
+
+@pytest.mark.gpu
+def test_row_sums_on_card(cuda):
+    """``ops/gather.row_sums`` on the card (``reduce_order`` +
+    ``bwd_reduce_kernel``) on 147,456 rows, 100,000 of them into row 0 (a
+    wave's miss lanes), the same bits twice, and against a float64 sum
+    within 1e-5 of the sum of the terms' magnitudes: the fixed order
+    rounds each term at most ~110 times (4 a thread, an 8-level tree, ~100
+    pieces in turn), 6.6e-6 at float32's 6e-8. (Against the CPU's float32
+    ``index_add_``, which adds in series, it differed by 8e-4 on row 0's
+    sum of 43, whose terms' magnitudes add to ~80,000: cancellation, not a
+    bound for either order; measured on the H100.)"""
+    from rust_ray_tracer_tpu_torch.ops import gather
+
+    r = np.random.default_rng(3)
+    idx = torch.from_numpy(r.integers(0, 256, size=147456))
+    idx[: 100000] = 0
+    g = torch.from_numpy(r.normal(size=(147456, 3)).astype(np.float32))
+    before = bwd_reduce_kernel.launches
+    got = gather.row_sums(g.to(cuda), idx.to(cuda), 256)
+    again = gather.row_sums(g.to(cuda), idx.to(cuda), 256)
+    torch.cuda.synchronize()
+    assert bwd_reduce_kernel.launches - before == 2
+    assert torch.equal(got, again)
+    g64 = g.double()
+    ref = torch.zeros(256, 3, dtype=torch.float64).index_add_(0, idx, g64)
+    mag = torch.zeros(256, 3, dtype=torch.float64).index_add_(0, idx,
+                                                              g64.abs())
+    assert bool(((got.cpu().double() - ref).abs() <= 1e-5 * mag).all())

@@ -164,16 +164,25 @@ def test_render_resumes_bitwise():
 
 
 def test_split_route_refuses_gradients(monkeypatch):
+    """The split route used to refuse leaves that require grad (its
+    backward kernels J' and H' were not ported); it now takes them: the
+    fog scene's gradients are finite and non-zero, and under no_grad the
+    same leaves render the same image with no graph."""
     ts = torch_scene("fog")
     params, static = partition(ts)
     leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
-    with pytest.raises(NotImplementedError, match="J and H"):
-        render_waves(combine(leaves, static), 8, 8, rng.key(0, "cpu"), 0, 1,
-                     chunk_size=64)
+    img = render_waves(combine(leaves, static), 8, 8, rng.key(0, "cpu"), 0,
+                       1, chunk_size=64)
+    img.mean().backward()
+    grads = {k: v.grad for k, v in leaves.items() if v.grad is not None}
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    for k in ("tex_color", "sph_c0", "quad_q", "background", "camera.c2w"):
+        assert float(grads[k].abs().max()) > 0, k
     with torch.no_grad():
-        img = render_waves(combine(leaves, static), 8, 8, rng.key(0, "cpu"),
-                           0, 1, chunk_size=64)
-    assert torch.isfinite(img).all()
+        again = render_waves(combine(leaves, static), 8, 8,
+                             rng.key(0, "cpu"), 0, 1, chunk_size=64)
+    assert torch.isfinite(again).all() and not again.requires_grad
+    assert torch.equal(again, img.detach())
 
 
 def _scene(world, lights=()):

@@ -284,3 +284,23 @@ def split_kernel_inputs(ts, w=32, h=32, depth=2, seed=7):
     su = (cat(rec["su"], 0, 1), cat(rec["su"], 1, 0), rec["su"][0][2],
           rec["su"][0][3])
     return {"quad": quad, "hit": hit, "su": su}
+
+
+def split_cots(kind, n_su, seed):
+    """Cotangents of kernel J's [12, N] and kernel H's [13, n_su] outputs,
+    on ``kind``'s device: normal draws from ``seed`` (J's) and ``seed + 1``
+    (H's). The sphere-UV source's (J's planes 9..11) is drawn on sphere
+    lanes only, where the epilogue reads it: on the other lanes the pack is
+    another primitive's, and its sphere reading is arithmetic on that
+    primitive's numbers (JAX computes it alike)."""
+    import torch
+
+    from rust_ray_tracer_tpu_torch.ops.intersect import KIND_SPH
+
+    gh = np.random.default_rng(seed).normal(
+        size=(12, kind.shape[0])).astype(np.float32)
+    gh[9:, kind.cpu().numpy() != KIND_SPH] = 0.0
+    gs = np.random.default_rng(seed + 1).normal(
+        size=(13, n_su)).astype(np.float32)
+    return (torch.from_numpy(gh).to(kind.device),
+            torch.from_numpy(gs).to(kind.device))
