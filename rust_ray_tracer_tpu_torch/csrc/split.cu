@@ -1,6 +1,7 @@
 // The split route's kernels, on Hopper (sm_90a): what a bounce runs for a
 // scene the whole-wave trace kernel cannot take (media, noise beside
-// checker textures), one launch of each per bounce over the whole wave.
+// checker textures, tables past its 4,096 rows), one launch of each per
+// bounce over the whole wave.
 //
 //   * quad_search_kernel (TPU kernel O) replaces
 //     rust_ray_tracer_tpu/ops/pallas_quad.py _kernel (launched by
@@ -25,6 +26,16 @@
 //     per-tile light-table partials summed at :731-733): H's adjoint, the
 //     cotangents of its 40 input planes and of the light table. Plain
 //     version: ops/bounce.py su_plane_core_vjp.
+//   * bounce_planes_kernel (TPU kernel F) replaces pallas_bounce.py
+//     _make_kernel (launched by _bounce_planes_call, pallas_bounce.py:337):
+//     the whole bounce of a scene whose textures are solid or checkers of
+//     solids — J's hit attributes, the checker select at the hit point,
+//     H's shading and estimator update — in one kernel. Plain version:
+//     ops/bounce_core.py bounce_plane_core.
+//   * bounce_planes_bwd_kernel (TPU kernel F') replaces pallas_bounce.py
+//     _make_bwd_kernel (launched by _bp_bwd, pallas_bounce.py:369, its
+//     per-tile light-table partials summed at :399-401): F's adjoint.
+//     Plain version: ops/bounce_core.py bounce_plane_core_vjp.
 //
 // What bounds them on the card. O: fp32 work, ~45 operations per ray and
 // quad tested (1,408 quads on final_scene, 11 clusters of 128); a block of
@@ -36,19 +47,27 @@
 // thread per ray, every plane read and written coalesced. H keeps the light
 // table in shared memory.
 //
+// F and F' are bound by memory as J, H, J' and H' are: F reads 13 planes
+// of a dead lane and ~50 of a found one and writes 13; F' reads 13 to ~50
+// and writes every input plane's cotangent. One thread per ray, the planes
+// read and written coalesced; F' recomputes F's forward from the saved
+// planes and keeps the light table's cotangent as H' does.
+//
 // J and H call the device functions that kernel A runs inline
 // (trace_common.cuh: hit_attrs, shade, update_found, update_miss), so the
-// three compute a bounce alike; J' and H' call the adjoints that kernel B
-// runs (trace_bwd_common.cuh: hit_attrs_vjp, shade_fwd + shade_vjp,
-// update_found_vjp, update_miss_vjp), so the split route's backward and
-// the whole-wave route's are one copy. J' and H' are bound by memory, as J
+// three compute a bounce alike, and F calls them in turn; J', H' and F'
+// call the adjoints that kernel B runs (trace_bwd_common.cuh:
+// hit_attrs_vjp, shade_fwd + shade_vjp, update_found_vjp,
+// update_miss_vjp), so the split route's backward and the whole-wave
+// route's are one copy. J' and H' are bound by memory, as J
 // and H: 19 + 2 + 12 planes in and 19 out (J'); for H', by lane class, a
 // dead lane reads 13 planes and a found one ~47, and every lane writes
 // 40. One thread per ray recomputes its forward (J's attributes, H's
 // shading) from the saved inputs instead of reading residuals. H''s
 // light-table cotangent stays in each thread's local array and is summed
-// in a fixed order, per block and then by the last block to finish: no
-// float atomics, so the gradients repeat bit for bit.
+// in a fixed order, per block and then across the blocks by B'
+// (bwd_reduce_kernel) in block order, as F''s: no float atomics, so the
+// gradients repeat bit for bit.
 //
 // The library is built with --fmad=false: its plain versions are torch
 // elementwise ops, which never contract a*b+c, and final_scene's noise
@@ -361,6 +380,176 @@ shade_update_bwd_kernel(const float* __restrict__ P,
   }
 }
 
+// ---- F and F': the fused bounce of solid and checker scenes ------------
+
+constexpr int N_IN_B = 46, N_CHK = 6;
+
+// F: P [46 (+6), n] = o(3) d(3) time tmin tmax pack(9) tmed | albedo(3)
+// fuzz ior | L(3) beta(3) | ub(9) gb(6) | alive (| even(3) odd(3) with
+// has_checker); pkind, mkind, flags [n] (bit 0 FlipFace, bit 1 checker);
+// lt [(n_lights + 1), LT_COLS], the last row the background. out [13, n]
+// = o' d' L' beta' alive'. The winner's hit attributes (J's hit_attrs),
+// the checker select at the hit point, the shading and the estimator
+// update (H's shade, update_found, update_miss), one thread per ray.
+__global__ void __launch_bounds__(ROW)
+bounce_planes_kernel(const float* __restrict__ P,
+                     const int* __restrict__ pkind,
+                     const int* __restrict__ mkind,
+                     const int* __restrict__ flags,
+                     const float* __restrict__ lt, int n_lights,
+                     int has_checker, float* __restrict__ out, int n) {
+  __shared__ float slt[MAX_LT];
+  for (int k = threadIdx.x; k < (n_lights + 1) * LT_COLS; k += ROW)
+    slt[k] = lt[k];
+  __syncthreads();
+  const int i = blockIdx.x * ROW + threadIdx.x;
+  if (i >= n) return;
+  auto at = [&](int c) { return P[(size_t)c * n + i]; };
+  V3 o = {at(0), at(1), at(2)}, d = {at(3), at(4), at(5)};
+  V3 L = {at(24), at(25), at(26)}, beta = {at(27), at(28), at(29)};
+  float alive = 0.f;
+  if (at(45) > 0.5f) {                  // a live ray
+    const int kd = pkind[i];
+    if (kd != KIND_NONE) {              // that found something
+      const int fl = flags[i];
+      float pk[9];
+#pragma unroll
+      for (int c = 0; c < 9; ++c) pk[c] = at(9 + c);
+      const HitAttrs h = hit_attrs(kd, o, d, at(6), at(7), at(8), pk,
+                                   at(18), (fl & 1) != 0);
+      int leaf = 19;                    // the albedo planes
+      if (has_checker && (fl & 2)) {
+        // checker (texture.rs:50-57): the sin-product sign picks the leaf
+        const float sines = sinf(10.f * h.p.x) * sinf(10.f * h.p.y) *
+                            sinf(10.f * h.p.z);
+        leaf = sines < 0.f ? N_IN_B + 3 : N_IN_B;
+      }
+      const Scatter sc = shade(mkind[i], d, h.n, h.p,
+                               {at(leaf), at(leaf + 1), at(leaf + 2)},
+                               at(22), at(23), slt, n_lights,
+                               P + (size_t)30 * n + i, (size_t)n);
+      update_found(sc, h.p, o, d, L, beta, alive);
+    } else {
+      update_miss(slt + n_lights * LT_COLS, L, beta, alive);
+    }
+  }
+  const float y[N_SU_OUT] = {o.x, o.y, o.z, d.x, d.y, d.z, L.x, L.y, L.z,
+                             beta.x, beta.y, beta.z, alive};
+#pragma unroll
+  for (int c = 0; c < N_SU_OUT; ++c) out[(size_t)c * n + i] = y[c];
+}
+
+// F': P, pkind, mkind, flags, lt as F's; g [13, n] the cotangents of F's
+// outputs. dP [46 (+6), n]: those of o, d, time, the pack, tmed, the
+// chosen albedo leaf (the base planes, or the checker's even or odd leaf;
+// the select carries none), fuzz, ior, L and beta (tmin, tmax, the
+// randoms and alive take none). The forward is recomputed from the saved
+// planes; then the adjoints of the update, the shading and the hit
+// attributes (trace_bwd_common.cuh, the functions B, J' and H' run). The
+// light table's cotangent leaves as one partial a block in kernel B's
+// layout, as H''s does, for bwd_reduce_kernel to sum in block order: no
+// float atomics.
+__global__ void __launch_bounds__(ROW)
+bounce_planes_bwd_kernel(const float* __restrict__ P,
+                         const int* __restrict__ pkind,
+                         const int* __restrict__ mkind,
+                         const int* __restrict__ flags,
+                         const float* __restrict__ lt, int n_lights,
+                         int has_checker, const float* __restrict__ g,
+                         float* __restrict__ dP, float* __restrict__ dlt_part,
+                         int n) {
+  __shared__ float slt[MAX_LT];
+  __shared__ float red[ROW / 32][MAX_LT];
+  const int ltn = (n_lights + 1) * LT_COLS;
+  const int n_in = has_checker ? N_IN_B + N_CHK : N_IN_B;
+  for (int k = threadIdx.x; k < ltn; k += ROW) slt[k] = lt[k];
+  __syncthreads();
+  const int i = blockIdx.x * ROW + threadIdx.x;
+  float dl[MAX_LT];                        // this ray's light-table share
+  for (int k = 0; k < ltn; ++k) dl[k] = 0.f;
+  if (i < n) {
+    auto at = [&](int c) { return P[(size_t)c * n + i]; };
+    auto gat = [&](int c) { return g[(size_t)c * n + i]; };
+    const V3 go = {gat(0), gat(1), gat(2)}, gd = {gat(3), gat(4), gat(5)};
+    const V3 gL = {gat(6), gat(7), gat(8)}, gb = {gat(9), gat(10), gat(11)};
+    V3 g_o = go, g_d = gd, g_beta = gb;    // a dead lane passes through
+    float g_time = 0.f, g_tmed = 0.f, g_fuzz = 0.f, g_ior = 0.f;
+    float g_pk[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    V3 g_a = {0.f, 0.f, 0.f};
+    int leaf = 19;
+    if (at(45) > 0.5f) {                   // a live ray
+      const V3 beta = {at(27), at(28), at(29)};
+      const int kd = pkind[i];
+      if (kd != KIND_NONE) {               // that found something
+        const int fl = flags[i];
+        const bool flip = (fl & 1) != 0;
+        const V3 o = {at(0), at(1), at(2)}, d = {at(3), at(4), at(5)};
+        const float time = at(6), tmin = at(7), tmax = at(8);
+        float pk[9];
+#pragma unroll
+        for (int c = 0; c < 9; ++c) pk[c] = at(9 + c);
+        // the forward without the FlipFace fold (J''s): the raw t, the hit
+        // point and the normal's y whose sign picks the branch of -|ny|
+        const HitAttrs h = hit_attrs(kd, o, d, time, tmin, tmax, pk, at(18),
+                                     false);
+        V3 nrm = h.n;
+        if (flip) nrm.y = -fabsf(nrm.y);
+        if (has_checker && (fl & 2)) {
+          const float sines = sinf(10.f * h.p.x) * sinf(10.f * h.p.y) *
+                              sinf(10.f * h.p.z);
+          leaf = sines < 0.f ? N_IN_B + 3 : N_IN_B;
+        }
+        const V3 alb = {at(leaf), at(leaf + 1), at(leaf + 2)};
+        const float* __restrict__ r = P + (size_t)30 * n + i;
+        const int mk = mkind[i];
+        const ShadeFwd sf = shade_fwd(mk, d, nrm, h.p, alb, at(22), slt,
+                                      n_lights, r, (size_t)n);
+        const UpdateVjp u = update_found_vjp(beta, sf.em, sf.wt, sf.alive,
+                                             go, gd, gL, gb);
+        g_beta = u.g_beta;
+        g_o = u.g_o;
+        g_d = u.g_d;
+        V3 g_p = u.g_p, g_n;
+        shade_vjp(sf, mk, d, nrm, h.p, alb, at(23), slt, n_lights, r,
+                  (size_t)n, u.g_em, u.g_wt, u.g_sd, g_d, g_p, g_n, g_a,
+                  g_fuzz, g_ior, dl);
+        hit_attrs_vjp<true>(kd, o, d, time, tmin, tmax, pk, flip, h.n.y,
+                            h.t, h.p, {0.f, g_p, g_n, 0.f, 0.f,
+                                       {0.f, 0.f, 0.f}},
+                            g_o, g_d, g_time, g_pk, g_tmed);
+      } else {
+        g_beta = update_miss_vjp(slt + n_lights * LT_COLS, beta, gL, gb,
+                                 dl + n_lights * LT_COLS);
+      }
+    }
+    const float y[30] = {g_o.x, g_o.y, g_o.z, g_d.x, g_d.y, g_d.z, g_time,
+                         0.f, 0.f, g_pk[0], g_pk[1], g_pk[2], g_pk[3],
+                         g_pk[4], g_pk[5], g_pk[6], g_pk[7], g_pk[8], g_tmed,
+                         0.f, 0.f, 0.f, g_fuzz, g_ior, gL.x, gL.y, gL.z,
+                         g_beta.x, g_beta.y, g_beta.z};
+#pragma unroll
+    for (int c = 0; c < 30; ++c) dP[(size_t)c * n + i] = y[c];
+    for (int c = 30; c < n_in; ++c) dP[(size_t)c * n + i] = 0.f;
+    dP[(size_t)leaf * n + i] = g_a.x;
+    dP[(size_t)(leaf + 1) * n + i] = g_a.y;
+    dP[(size_t)(leaf + 2) * n + i] = g_a.z;
+  }
+
+  // the block's partial
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int k = 0; k < ltn; ++k) {
+    const float v = warp_sum(dl[k]);
+    if (lane == 0) red[warp][k] = v;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < ltn; k += ROW) {
+    float acc = red[0][k];
+#pragma unroll
+    for (int w = 1; w < ROW / 32; ++w) acc += red[w][k];
+    dlt_part[(size_t)blockIdx.x * ltn + k] = acc;
+  }
+}
+
 int launched(int n) {
   return n > 0 ? static_cast<int>(cudaGetLastError()) : 0;
 }
@@ -422,5 +611,35 @@ extern "C" int shade_update_bwd_launch(const float* P, const int* mkind,
     shade_update_bwd_kernel<<<(n + ROW - 1) / ROW, ROW, 0,
                               static_cast<cudaStream_t>(stream)>>>(
         P, mkind, lt, n_lights, g, dP, dlt_part, n);
+  return launched(n);
+}
+
+extern "C" int bounce_planes_launch(const float* P, const int* pkind,
+                                    const int* mkind, const int* flags,
+                                    const float* lt, int n_lights,
+                                    int has_checker, float* out, int n,
+                                    void* stream) {
+  if ((n_lights + 1) * LT_COLS > MAX_LT) return -1;
+  if (n > 0)
+    bounce_planes_kernel<<<(n + ROW - 1) / ROW, ROW, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        P, pkind, mkind, flags, lt, n_lights, has_checker, out, n);
+  return launched(n);
+}
+
+// dlt_part [ceil(n / ROW), (n_lights + 1) * LT_COLS]: the blocks'
+// light-table partials. With n == 0 nothing is launched.
+extern "C" int bounce_planes_bwd_launch(const float* P, const int* pkind,
+                                        const int* mkind, const int* flags,
+                                        const float* lt, int n_lights,
+                                        int has_checker, const float* g,
+                                        float* dP, float* dlt_part, int n,
+                                        void* stream) {
+  if ((n_lights + 1) * LT_COLS > MAX_LT) return -1;
+  if (n > 0)
+    bounce_planes_bwd_kernel<<<(n + ROW - 1) / ROW, ROW, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        P, pkind, mkind, flags, lt, n_lights, has_checker, g, dP, dlt_part,
+        n);
   return launched(n);
 }

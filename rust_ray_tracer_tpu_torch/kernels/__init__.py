@@ -42,7 +42,18 @@ Kernels (each wrapper counts its launches in ``launches``):
     and ``shade_update_bwd_kernel`` (TPU kernel H', ``pallas_bounce.py``
     ``_make_su_bwd_kernel``; plain version
     ``ops/bounce.su_plane_core_vjp``), whose light-table partials
-    ``bwd_reduce_kernel`` sums.
+    ``bwd_reduce_kernel`` sums; the fused bounce of solid and checker
+    scenes, ``bounce_planes_kernel`` (TPU kernel F, ``pallas_bounce.py``
+    ``_make_kernel``; plain version ``ops/bounce_core.bounce_plane_core``)
+    and its adjoint ``bounce_planes_bwd_kernel`` (TPU kernel F',
+    ``_make_bwd_kernel``; plain version ``bounce_plane_core_vjp``), whose
+    light-table partials ``bwd_reduce_kernel`` sums too;
+  * the split route's triangle search, ``csrc/search.cu`` (library
+    ``search``): ``tile_enter_kernel`` (TPU kernel K,
+    ``pallas_intersect.py`` ``_mask_kernel``; plain version
+    ``ops/search.tile_enter_plain``) and ``fused_search_kernel`` (TPU
+    kernel M, ``_make_fused_kernel`` and ``_make_pair_kernel``; plain
+    version ``ops/search.fused_search_plain``).
 """
 
 from __future__ import annotations
@@ -59,8 +70,10 @@ from pathlib import Path
 import torch
 
 from rust_ray_tracer_tpu_torch.ops.bounce import N_SU, N_SU_OUT
+from rust_ray_tracer_tpu_torch.ops.bounce_core import N_CHK, N_IN_B
 from rust_ray_tracer_tpu_torch.ops.hit_core import N_IN as HIT_IN
 from rust_ray_tracer_tpu_torch.ops.hit_core import N_OUT as HIT_OUT
+from rust_ray_tracer_tpu_torch.ops.search import N_RAY, TRI_COLS, tile_count
 from rust_ray_tracer_tpu_torch.ops.shade_core import LT_COLS
 from rust_ray_tracer_tpu_torch.ops.uber import (A_COL, N_RND, N_STATE, TCC,
                                                 TILE)
@@ -80,13 +93,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # on a noise ground) moves a pixel by more than the comparison's 1e-3.
 # The split route's kernels round as their plain versions (torch
 # elementwise ops) do, for the same reason: final_scene has a noise sphere,
-# and free-flight distances through log.
+# and free-flight distances through log; and the search, so that its
+# winners are its plain version's.
 LIBRARIES = {
     "trace_wave": ("trace_wave", ()),
     "trace_wave_noise": ("trace_wave", ("--fmad=false",
                                         "-DTRACE_WAVE_NOISE=1")),
     "trace_wave_bwd": ("trace_wave_bwd", ("--fmad=false",)),
     "split": ("split", ("--fmad=false",)),
+    "search": ("search", ("--fmad=false",)),
 }
 
 
@@ -591,14 +606,190 @@ class ShadeUpdateBwdKernel(_Kernel):
         """(dP [40, N], dlt like ``lt``): H', then B''s light-table sum of
         its partials (none for N = 0)."""
         d_planes, part = self.partials(planes, mkind, lt, n_lights, g)
+        return d_planes, _light_sum(part, lt)
+
+
+def _light_sum(part, lt):
+    """B''s sum of a backward kernel's light-table partials ``part``
+    [blocks, (n_lights + 1) * LT_COLS], shaped like ``lt`` (zeros for no
+    block)."""
+    dev = part.device
+    if part.shape[0] == 0:
+        return torch.zeros_like(lt)
+    rows = torch.empty((0, 1), dtype=torch.float32, device=dev)
+    order = torch.empty((0,), dtype=torch.int32, device=dev)
+    offs = torch.zeros((1,), dtype=torch.int32, device=dev)
+    _, dlt = bwd_reduce_kernel(rows, order, offs, part)
+    return dlt.reshape(lt.shape)
+
+
+class BouncePlanesKernel(_Kernel):
+    """ctypes wrapper of ``bounce_planes_launch`` (kernel F): [13, N] next
+    state planes (o, d, L, beta, alive) of [46, N] input planes (52 with
+    the checker leaves), the int32 primitive kinds ``pkind``, material
+    kinds ``mkind`` and ``flags`` [N] and the light table ``lt``
+    [n_lights + 1, LT_COLS] (last row the background), as
+    ``ops/bounce_core.bounce_plane_core`` returns them."""
+
+    name = "bounce_planes"
+    library = "split"
+    entry = "bounce_planes_launch"
+    argtypes = (_P,) * 5 + (_I, _I, _P, _I)
+
+    def __call__(self, planes, pkind, mkind, flags, lt, n_lights: int):
         dev = planes.device
-        if part.shape[0] == 0:
-            return d_planes, torch.zeros_like(lt)
-        rows = torch.empty((0, 1), dtype=torch.float32, device=dev)
-        order = torch.empty((0,), dtype=torch.int32, device=dev)
-        offs = torch.zeros((1,), dtype=torch.int32, device=dev)
-        _, dlt = bwd_reduce_kernel(rows, order, offs, part)
-        return d_planes, dlt.reshape(lt.shape)
+        if dev.type != "cuda":
+            raise ValueError(f"bounce_planes kernel needs CUDA tensors, got "
+                             f"{dev}")
+        n = planes.shape[1] if planes.dim() == 2 else -1
+        n_in = planes.shape[0]
+        if n_in not in (N_IN_B, N_IN_B + N_CHK):
+            raise ValueError(f"planes must be [{N_IN_B} or "
+                             f"{N_IN_B + N_CHK}, N], got "
+                             f"{tuple(planes.shape)}")
+        if (n_lights + 1) * LT_COLS > 128:
+            raise ValueError(f"{n_lights} lights exceed the kernel's light "
+                             "table")
+        _check("planes", planes, dev, (n_in, n))
+        for nm, t in (("pkind", pkind), ("mkind", mkind), ("flags", flags)):
+            _check(nm, t, dev, (n,), torch.int32)
+        _check("lt", lt, dev, (n_lights + 1, LT_COLS))
+        self.load()
+        out = torch.empty((N_SU_OUT, n), dtype=torch.float32, device=dev)
+        self._launch(dev, _ptr(planes), _ptr(pkind), _ptr(mkind),
+                     _ptr(flags), _ptr(lt), n_lights, int(n_in > N_IN_B),
+                     _ptr(out), n)
+        return out
+
+
+class BouncePlanesBwdKernel(_Kernel):
+    """ctypes wrapper of ``bounce_planes_bwd_launch`` (kernel F'): for the
+    cotangents ``g`` [13, N] of kernel F's outputs, the cotangents of its
+    input planes (like ``planes``) and of the light table (like ``lt``),
+    as ``ops/bounce_core.bounce_plane_core_vjp`` returns them. F' leaves
+    the table's as one partial a block (:meth:`partials`), which
+    ``bwd_reduce_kernel`` (B') sums in block order: no float atomics."""
+
+    name = "bounce_planes_bwd"
+    library = "split"
+    entry = "bounce_planes_bwd_launch"
+    argtypes = (_P,) * 5 + (_I, _I) + (_P,) * 3 + (_I,)
+
+    def partials(self, planes, pkind, mkind, flags, lt, n_lights: int, g):
+        """Kernel F' alone: (dP like ``planes``, the blocks' light-table
+        partials [ceil(N / 128), (n_lights + 1) * LT_COLS])."""
+        dev = planes.device
+        if dev.type != "cuda":
+            raise ValueError(f"bounce_planes_bwd kernel needs CUDA tensors, "
+                             f"got {dev}")
+        n = planes.shape[1] if planes.dim() == 2 else -1
+        n_in = planes.shape[0]
+        ltn = (n_lights + 1) * LT_COLS
+        if n_in not in (N_IN_B, N_IN_B + N_CHK):
+            raise ValueError(f"planes must be [{N_IN_B} or "
+                             f"{N_IN_B + N_CHK}, N], got "
+                             f"{tuple(planes.shape)}")
+        if ltn > 128:
+            raise ValueError(f"{n_lights} lights exceed the kernel's light "
+                             "table")
+        _check("planes", planes, dev, (n_in, n))
+        for nm, t in (("pkind", pkind), ("mkind", mkind), ("flags", flags)):
+            _check(nm, t, dev, (n,), torch.int32)
+        _check("lt", lt, dev, (n_lights + 1, LT_COLS))
+        _check("g", g, dev, (N_SU_OUT, n))
+        self.load()
+        d_planes = torch.empty((n_in, n), dtype=torch.float32, device=dev)
+        part = torch.empty((-(-n // 128), ltn), dtype=torch.float32,
+                           device=dev)
+        self._launch(dev, _ptr(planes), _ptr(pkind), _ptr(mkind),
+                     _ptr(flags), _ptr(lt), n_lights, int(n_in > N_IN_B),
+                     _ptr(g), _ptr(d_planes), _ptr(part), n)
+        return d_planes, part
+
+    def __call__(self, planes, pkind, mkind, flags, lt, n_lights: int, g):
+        """(dP like ``planes``, dlt like ``lt``): F', then B''s sum of its
+        light-table partials."""
+        d_planes, part = self.partials(planes, pkind, mkind, flags, lt,
+                                       n_lights, g)
+        return d_planes, _light_sum(part, lt)
+
+
+class TileEnterKernel(_Kernel):
+    """ctypes wrapper of ``tile_enter_launch`` (kernel K): [n_tiles, K]
+    float32, the smallest entry distance of any ray of each 256-ray tile
+    (tiles restart at each chunk) into each cluster box, +inf where none
+    enters, as ``ops/search.tile_enter_plain`` returns it."""
+
+    name = "tile_enter"
+    library = "search"
+    entry = "tile_enter_launch"
+    argtypes = (_P,) * 3 + (_I,) * 3 + (_P,)
+
+    def __call__(self, rays, cl_min, cl_max, chunk=None):
+        """``rays`` [9, N] planes (o, d, time, t_min, t_max), the boxes
+        ``cl_min`` / ``cl_max`` [K, 3], ``chunk`` rays a chunk (None: N)."""
+        dev = rays.device
+        if dev.type != "cuda":
+            raise ValueError(f"tile_enter kernel needs CUDA tensors, got "
+                             f"{dev}")
+        n = rays.shape[1] if rays.dim() == 2 else -1
+        chunk = n if chunk is None else chunk
+        k = cl_min.shape[0]
+        _check("rays", rays, dev, (N_RAY, n))
+        _check("cl_min", cl_min, dev, (k, 3))
+        _check("cl_max", cl_max, dev, (k, 3))
+        tiles = tile_count(n, chunk)
+        self.load()
+        ent = torch.empty((tiles, k), dtype=torch.float32, device=dev)
+        self._launch(dev, _ptr(rays), _ptr(cl_min), _ptr(cl_max), n, chunk,
+                     k, _ptr(ent))
+        return ent
+
+
+class FusedSearchKernel(_Kernel):
+    """ctypes wrapper of ``fused_search_launch`` (kernel M): (best t [N]
+    float32, inf for none; kind [N] int32, 0 for none; index [N] int32
+    within its kind's table), as ``ops/search.fused_search_plain`` returns
+    them."""
+
+    name = "fused_search"
+    library = "search"
+    entry = "fused_search_launch"
+    argtypes = (_P,) * 5 + (_I,) * 7 + (_P,) * 3
+
+    def __call__(self, rays, ent, tabs, chunk=None):
+        """``rays`` [9, N] planes, ``ent`` [n_tiles, K] (kernel K's, or one
+        +inf column without triangles), ``tabs`` an
+        ``ops/search.SearchTables``, ``chunk`` rays a chunk (None: N)."""
+        dev = rays.device
+        if dev.type != "cuda":
+            raise ValueError(f"fused_search kernel needs CUDA tensors, got "
+                             f"{dev}")
+        n = rays.shape[1] if rays.dim() == 2 else -1
+        chunk = n if chunk is None else chunk
+        t_n, s_n, q_n = (tabs.tri.shape[0], tabs.sph.shape[0],
+                         tabs.quad.shape[0])
+        k = ent.shape[1] if ent.dim() == 2 else -1
+        _check("rays", rays, dev, (N_RAY, n))
+        _check("ent", ent, dev, (tile_count(n, chunk), k))
+        _check("tri", tabs.tri, dev, (t_n, TRI_COLS))
+        _check("sph", tabs.sph, dev, (s_n, 9))
+        _check("quad", tabs.quad, dev, (q_n, 9))
+        if s_n > 128 or q_n > 128:
+            raise ValueError(f"{s_n} spheres, {q_n} quads: the small tables "
+                             "hold 128 rows")
+        if t_n and t_n != k * tabs.width:
+            raise ValueError(f"{t_n} triangles are not {k} clusters of "
+                             f"{tabs.width}")
+        self.load()
+        best_t = torch.empty((n,), dtype=torch.float32, device=dev)
+        best_k = torch.empty((n,), dtype=torch.int32, device=dev)
+        best_i = torch.empty((n,), dtype=torch.int32, device=dev)
+        self._launch(dev, _ptr(rays), _ptr(ent), _ptr(tabs.tri),
+                     _ptr(tabs.sph), _ptr(tabs.quad), n, chunk, k,
+                     tabs.width, t_n, s_n, q_n, _ptr(best_t), _ptr(best_k),
+                     _ptr(best_i))
+        return best_t, best_k, best_i
 
 
 quad_search_kernel = QuadSearchKernel()
@@ -606,6 +797,10 @@ hit_attrs_kernel = HitAttrsKernel()
 shade_update_kernel = ShadeUpdateKernel()
 hit_attrs_bwd_kernel = HitAttrsBwdKernel()
 shade_update_bwd_kernel = ShadeUpdateBwdKernel()
+bounce_planes_kernel = BouncePlanesKernel()
+bounce_planes_bwd_kernel = BouncePlanesBwdKernel()
+tile_enter_kernel = TileEnterKernel()
+fused_search_kernel = FusedSearchKernel()
 
 
 def trace_kernel(ctx) -> TraceWaveKernel:

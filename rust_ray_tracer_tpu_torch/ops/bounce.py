@@ -1,29 +1,52 @@
-"""Shading and the estimator update of a split-route bounce, the albedo
-given: TPU kernel H and its backward H'.
+"""A split-route bounce's shading and estimator update: TPU kernels F and
+H, and their backward kernels F' and H'.
 
-Counterpart of ``rust_ray_tracer_tpu/ops/pallas_bounce.py:575-805``:
-:func:`su_plane_core` is the plain version of ``_su_plane_core``
-(``pallas_bounce.py:590-634``) — ``pallas_shade._plane_core``
-(:func:`ops.shade_core.plane_core`, all five materials and the light
-mixture) plus the estimator update — and the plain version of
-``shade_update_kernel`` (``csrc/split.cu``); :func:`su_plane_core_vjp` is
-its adjoint, the plain version of ``shade_update_bwd_kernel``.
-:func:`su_planes` and :func:`su_planes_bwd` run the one or the other by
-the device of their tensors, :class:`ShadeUpdate` pairs them for autograd
-(``_su_planes_call``'s ``custom_vjp``), and :func:`shade_update_fused` is
-``shade_update_fused`` (``:752``) on the port's plane layout.
+Counterpart of ``rust_ray_tracer_tpu/ops/pallas_bounce.py``:
 
-Plane layout ([N_SU, N]): 0..2 o, 3..5 d, 6..8 p, 9..11 n, 12..14 albedo,
-15 fuzz, 16 ior, 17..19 L, 20..22 beta, 23..31 ub (9 uniforms), 32..37 gb
-(6 normals), 38 alive, 39 hit (0/1). Output [N_SU_OUT, N]: o'(3) d'(3)
-L'(3) beta'(3) alive'.
+  * F, the fused bounce of a scene whose textures are solid or checkers
+    of solids (``bounce_fused``, ``pallas_bounce.py:822-899``, launched by
+    ``_bounce_planes_call``, ``:328-356``): hit attributes, the checker
+    select, shading and the estimator update in one kernel. Its plain
+    version is ``ops/bounce_core.bounce_plane_core`` (the whole-wave
+    trace's per-bounce core too), its adjoint (F', ``_bp_bwd``, ``:359-
+    407``) ``bounce_plane_core_vjp``. :func:`bounce_planes` and
+    :func:`bounce_planes_bwd` run the one or the other by the device of
+    their tensors (``bounce_planes_kernel`` / ``bounce_planes_bwd_kernel``
+    in ``csrc/split.cu`` on the card), :class:`BouncePlanes` pairs them
+    for autograd, and :func:`bounce_fused` packs a bounce's planes in
+    JAX's layout (``ops/bounce_core.py``'s docstring: 46 planes, 52 with
+    the checker leaves);
+  * H, for scenes with noise textures, whose albedo the glue evaluates
+    (``pallas_bounce.py:575-805``): :func:`su_plane_core` is the plain
+    version of ``_su_plane_core`` (``pallas_bounce.py:590-634``) —
+    ``pallas_shade._plane_core`` (:func:`ops.shade_core.plane_core`, all
+    five materials and the light mixture) plus the estimator update — and
+    of ``shade_update_kernel`` (``csrc/split.cu``); :func:`su_plane_core_vjp`
+    is its adjoint, the plain version of ``shade_update_bwd_kernel``.
+    :func:`su_planes` and :func:`su_planes_bwd` run the one or the other
+    by the device of their tensors, :class:`ShadeUpdate` pairs them for
+    autograd (``_su_planes_call``'s ``custom_vjp``), and
+    :func:`shade_update_fused` is ``shade_update_fused`` (``:752``) on the
+    port's plane layout.
+
+H's plane layout ([N_SU, N]): 0..2 o, 3..5 d, 6..8 p, 9..11 n, 12..14
+albedo, 15 fuzz, 16 ior, 17..19 L, 20..22 beta, 23..31 ub (9 uniforms),
+32..37 gb (6 normals), 38 alive, 39 hit (0/1). Output of F and H
+[N_SU_OUT, N]: o'(3) d'(3) L'(3) beta'(3) alive'.
 """
 
 from __future__ import annotations
 
 import torch
 
-from rust_ray_tracer_tpu_torch.ops.bounce_core import update_vjp
+from rust_ray_tracer_tpu_torch.ops.bounce_core import (N_IN_B,
+                                                       bounce_plane_core,
+                                                       bounce_plane_core_vjp,
+                                                       update_vjp)
+from rust_ray_tracer_tpu_torch.ops.intersect import (MATTR_ALBEDO, MATTR_EVEN,
+                                                     MATTR_FUZZ, MATTR_IOR,
+                                                     MATTR_ISCHK, MATTR_MKIND,
+                                                     MATTR_ODD)
 from rust_ray_tracer_tpu_torch.ops.shade_core import (LT_COLS, _light_table,
                                                       plane_core,
                                                       plane_core_vjp)
@@ -179,4 +202,94 @@ def shade_update_fused(st, hit, hit_planes, albedo, fuzz, ior, mkind, rnd_b,
     P = torch.cat([st[0:6], hit_planes[1:7], albedo, fuzz[None], ior[None],
                    st[8:14], rnd_b[0:15], st[7:8], hit.to(st.dtype)[None]])
     out = ShadeUpdate.apply(P, mkind, lt, n_lights)
+    return torch.cat([out[0:6], st[6:7], out[12:13], out[6:12]])
+
+
+# ---------------------------------------------------------------------------
+# F and F': the fused bounce of solid and checker scenes
+# ---------------------------------------------------------------------------
+
+def fused_eligible(scene) -> bool:
+    """``pallas_bounce.eligible`` (``:807-820``): no noise leaf, no image
+    leaf, and the light table with the background row fits the backward's
+    accumulator."""
+    return (scene.perlin_vec.shape[0] == 0 and scene.img_data.shape[0] == 0
+            and (scene.n_lights + 1) * LT_COLS <= 128)
+
+
+def bounce_planes(P, pkind, mkind, flags, lt, n_lights: int):
+    """[N_SU_OUT, N] next-state planes of one bounce of the planes ``P``
+    [46 (+6), N] (``ops/bounce_core.py``'s layout; the checker leaves when
+    52) with the int32 ``pkind``, ``mkind``, ``flags`` [N]:
+    :func:`ops.bounce_core.bounce_plane_core` for CPU tensors, kernel F
+    (``csrc/split.cu``) for CUDA tensors."""
+    dev = P.device.type
+    if dev == "cpu":
+        return bounce_plane_core(P, pkind, mkind, flags, lt, n_lights,
+                                 P.shape[0] > N_IN_B)
+    if dev != "cuda":
+        raise ValueError(f"unsupported device {P.device}")
+    from rust_ray_tracer_tpu_torch.kernels import bounce_planes_kernel
+    return bounce_planes_kernel(P, pkind, mkind, flags, lt, n_lights)
+
+
+def bounce_planes_bwd(P, pkind, mkind, flags, lt, n_lights: int, g):
+    """(dP like ``P``, dlt like ``lt``) for the cotangents ``g``
+    [N_SU_OUT, N] of :func:`bounce_planes`' outputs:
+    :func:`ops.bounce_core.bounce_plane_core_vjp` for CPU tensors, kernel
+    F' (``csrc/split.cu``) and B''s sum of its light-table partials for
+    CUDA tensors."""
+    dev = P.device.type
+    if dev == "cpu":
+        return bounce_plane_core_vjp(P, pkind, mkind, flags, lt, n_lights,
+                                     P.shape[0] > N_IN_B, g)
+    if dev != "cuda":
+        raise ValueError(f"unsupported device {P.device}")
+    from rust_ray_tracer_tpu_torch.kernels import bounce_planes_bwd_kernel
+    return bounce_planes_bwd_kernel(P, pkind, mkind, flags, lt, n_lights, g)
+
+
+class BouncePlanes(torch.autograd.Function):
+    """Kernel F as a differentiable function of its planes and the light
+    table: ``_bounce_planes_call``'s ``custom_vjp`` (``pallas_bounce.py:
+    359-407``). The forward is :func:`bounce_planes`, the backward
+    :func:`bounce_planes_bwd` (F' recomputes the forward from the saved
+    inputs), both by the tensors' device. The kind, material and flag
+    planes take no gradient."""
+
+    @staticmethod
+    def forward(fctx, P, pkind, mkind, flags, lt, n_lights: int):
+        fctx.save_for_backward(P, pkind, mkind, flags, lt)
+        fctx.n_lights = n_lights
+        return bounce_planes(P, pkind, mkind, flags, lt, n_lights)
+
+    @staticmethod
+    def backward(fctx, g):
+        P, pkind, mkind, flags, lt = fctx.saved_tensors
+        dP, dlt = bounce_planes_bwd(P, pkind, mkind, flags, lt,
+                                    fctx.n_lights, g.contiguous())
+        return dP, None, None, None, dlt, None
+
+
+def bounce_fused(st, sel, rnd_b, lt, n_lights: int, has_checker: bool):
+    """The next state [14, N] of one split-route bounce of ``st`` [14, N]
+    (o, d, time, alive, L, beta) for the phase-1 selection ``sel``
+    (``ops/intersect.Select``) and the bounce's randoms ``rnd_b`` [>= 15,
+    N]: ``bounce_fused`` (``pallas_bounce.py:822-899``) on the port's
+    plane layout, through :class:`BouncePlanes`. The winner's albedo, fuzz,
+    ior and (``has_checker``) checker leaves come from ``sel.attr``;
+    ``flags`` holds FlipFace (bit 0) and the checker flag (bit 1)."""
+    attr = sel.attr
+    cols = [st[0:7], sel.t_min[None], sel.t_max[None], sel.pack.T,
+            sel.t_med[None], attr[:, MATTR_ALBEDO].T,
+            attr[:, MATTR_FUZZ:MATTR_IOR + 1].T, st[8:14], rnd_b[0:15],
+            st[7:8]]
+    flags = sel.flip.to(torch.int32)
+    if has_checker:
+        cols += [attr[:, MATTR_EVEN].T, attr[:, MATTR_ODD].T]
+        flags = flags | ((attr[:, MATTR_ISCHK] > 0.5).to(torch.int32) << 1)
+    P = torch.cat(cols).contiguous()
+    out = BouncePlanes.apply(P, sel.kind.to(torch.int32).contiguous(),
+                             attr[:, MATTR_MKIND].to(torch.int32).contiguous(),
+                             flags.contiguous(), lt, n_lights)
     return torch.cat([out[0:6], st[6:7], out[12:13], out[6:12]])

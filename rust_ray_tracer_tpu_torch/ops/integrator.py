@@ -12,23 +12,34 @@ routes, chosen per scene as the JAX package chooses on the TPU:
     trace runs as :class:`ops.uber.TraceWave`, whose backward is the
     trace's adjoint (a second kernel on the card);
   * the split route (:func:`trace_wave_split`) for the others it can
-    take (:func:`split_reason`): media, noise beside checker textures.
-    It is ``trace_rays`` -> ``_bounce`` on the ``su_eligible`` branch
-    (``integrator.py:63-132``), run on the whole wave at once: each bounce
-    searches spheres in torch, quads with TPU kernel O, media with
-    ``_med_t``; computes the winners' hit attributes with TPU kernel J;
-    evaluates the albedo (``texture_value``) in torch; and shades and
-    updates the estimator with TPU kernel H. That render is
+    take (:func:`split_reason`): media, noise beside checker textures,
+    meshes and other tables past the trace kernel's 4,096 rows. It is
+    ``trace_rays`` -> ``_bounce`` (``integrator.py:63-132``), run on the
+    whole wave at once. Each bounce's phase 1
+    (``ops/intersect.intersect_select``) takes JAX's unified branch when
+    the scene has fewer than ``CLUSTER`` spheres and quads — TPU kernels K
+    (the tiles' cluster entries) and M (triangles, spheres and quads in one
+    search, ``ops/search.py``) — and otherwise searches spheres in torch
+    and quads with TPU kernel O; media fold in with ``_med_t``. Then, on
+    ``pallas_bounce.eligible``'s scenes (no noise or image leaf), TPU
+    kernel F runs the whole rest of the bounce: hit attributes, the
+    checker select, shading and the estimator update
+    (``ops/bounce.bounce_fused``). On the others (noise textures) TPU
+    kernel J computes the winners' hit attributes, ``texture_value``
+    evaluates the albedo in torch, and TPU kernel H shades and updates
+    the estimator (the ``su_eligible`` branch). That render is
     differentiable too: the split tables are built inside the autograd
     graph, phase 2 of the intersection (the winner-row gathers, the chosen
-    medium's distance) and the texture run as torch autograd, and J and H
-    run as autograd functions whose backward kernels are J' and H'
-    (``ops/hit.HitPlanes``, ``ops/bounce.ShadeUpdate``). Phase 1 (the
-    searches, O) is detached, as in JAX.
+    medium's distance) and the texture run as torch autograd, and F, J and
+    H run as autograd functions whose backward kernels are F', J' and H'
+    (``ops/bounce.BouncePlanes``, ``ops/hit.HitPlanes``,
+    ``ops/bounce.ShadeUpdate``). Phase 1 (K, M, O) is detached, as in JAX.
 
-Every per-lane step is independent of how the lanes are batched, and each
-lane's randoms are drawn from its (chunk, lane) as the JAX package draws
-them, so either route's image depends only on (seed, chunk_size).
+Every per-lane step is independent of how the lanes are batched (the
+search's 256-ray tiles restart at each chunk, as JAX's per-chunk calls
+do), and each lane's randoms are drawn from its (chunk, lane) as the JAX
+package draws them, so either route's image depends only on (seed,
+chunk_size).
 """
 
 from __future__ import annotations
@@ -40,8 +51,10 @@ import torch
 from rust_ray_tracer_tpu_torch.models.scene import CLUSTER, MED_POLY, \
     MED_SPHERE
 from rust_ray_tracer_tpu_torch.ops import camera as cam_ops
+from rust_ray_tracer_tpu_torch.ops import search as search_ops
 from rust_ray_tracer_tpu_torch.ops import uber
-from rust_ray_tracer_tpu_torch.ops.bounce import (light_table,
+from rust_ray_tracer_tpu_torch.ops.bounce import (bounce_fused,
+                                                  fused_eligible, light_table,
                                                   shade_update_fused)
 from rust_ray_tracer_tpu_torch.ops.hit import hit_attrs_fused
 from rust_ray_tracer_tpu_torch.ops.intersect import (
@@ -57,12 +70,16 @@ MAX_DEPTH = 4   # main.rs:56
 
 def split_reason(scene) -> str | None:
     """Why the split route cannot render ``scene`` (naming the unported
-    TPU kernel or ROADMAP item), or None when it can: no triangles, fewer
-    than ``CLUSTER`` spheres, quads in any number, media with Sphere or
-    Cuboid boundaries, solid, checker and noise textures."""
-    if scene.n_tris:
-        return ("triangles on the split route need the split-path triangle "
-                "search (TPU kernels L/M, ROADMAP queue 2)")
+    TPU kernel or ROADMAP item), or None when it can: triangles beside
+    fewer than ``CLUSTER`` spheres and quads (the unified search, K and
+    M), spheres in fewer than ``CLUSTER`` rows, quads in any number,
+    media with Sphere or Cuboid boundaries, solid, checker and noise
+    textures, up to 8 lights."""
+    if scene.n_tris and not search_ops.unified(scene):
+        return ("triangles beside 128 or more spheres or quads need the "
+                "split-path triangle search (TPU kernel L, ROADMAP queue 2)"
+                + (" and the cluster-culled sphere search (TPU kernel N)"
+                   if scene.n_spheres >= CLUSTER else ""))
     if scene.n_spheres >= CLUSTER:
         return (f"{scene.n_spheres} spheres on the split route need the "
                 "cluster-culled sphere search (TPU kernel N, ROADMAP "
@@ -76,31 +93,31 @@ def split_reason(scene) -> str | None:
                 "item 4)")
     if scene.img_data.shape[0]:
         return "image textures are not ported (ROADMAP queue 1 item 12)"
-    if not scene.n_media and not scene.perlin_vec.shape[0]:
-        rows = scene.n_spheres + scene.n_quads
-        return (f"{rows} solid/checker primitive rows need the split-path "
-                "search and bounce kernels (TPU kernels M and F/G, ROADMAP "
-                "queue 2)")
     return None
 
 
 @dataclasses.dataclass
 class SplitTables:
     """Scene-derived tables of the split route, built once per render
-    inside the autograd graph (all but O's table, which only the detached
-    search reads). ``uni``/``dflt``/offsets from
+    inside the autograd graph (but the search tables, which only the
+    detached phase 1 reads). ``uni``/``dflt``/offsets from
     ``ops/intersect.winner_table``; ``med_rows`` [M, 2 + A] a medium
-    winner's flip | material id | attrs; ``quads`` [Q, 9] kernel O's
-    table; ``lt`` [n_lights + 1, LT_COLS] kernel H's lights, the
-    background last."""
+    winner's flip | material id | attrs; ``search`` the unified search's
+    tables (``ops/search.search_tables``; None when the scene takes the
+    per-kind branch); ``quads`` [Q, 9] kernel O's table; ``lt``
+    [n_lights + 1, LT_COLS] the lights, the background last; ``fused``
+    whether kernel F runs the bounce (``ops/bounce.fused_eligible``)."""
 
     uni: torch.Tensor
     dflt: torch.Tensor
+    t_off: int
     s_off: int
     q_off: int
     med_rows: torch.Tensor
+    search: search_ops.SearchTables | None
     quads: torch.Tensor
     lt: torch.Tensor
+    fused: bool
 
 
 def make_split_tables(scene) -> SplitTables:
@@ -110,7 +127,7 @@ def make_split_tables(scene) -> SplitTables:
     reason = split_reason(scene)
     if reason is not None:
         raise NotImplementedError(reason)
-    uni, dflt, (_, s_off, q_off) = winner_table(scene)
+    uni, dflt, (t_off, s_off, q_off) = winner_table(scene)
     matt = _mat_attr_table(scene)
     med_rows = torch.cat(
         [torch.zeros((scene.n_media, 1), dtype=matt.dtype,
@@ -119,24 +136,34 @@ def make_split_tables(scene) -> SplitTables:
          matt[scene.med_mat.long()]], dim=1)
     with torch.no_grad():
         quads = quad_table(scene)
-    return SplitTables(uni=uni, dflt=dflt, s_off=s_off, q_off=q_off,
-                       med_rows=med_rows, quads=quads,
-                       lt=light_table(scene))
+    return SplitTables(
+        uni=uni, dflt=dflt, t_off=t_off, s_off=s_off, q_off=q_off,
+        med_rows=med_rows,
+        search=(search_ops.search_tables(scene)
+                if search_ops.unified(scene) else None),
+        quads=quads, lt=light_table(scene),
+        fused=fused_eligible(scene))
 
 
-def bounce_split(scene, st, rnd_b, tables: SplitTables):
+def bounce_split(scene, st, rnd_b, tables: SplitTables, chunk=None):
     """One bounce of every ray of ``st`` [14, N] (state planes) with the
-    randoms ``rnd_b`` [15 + M, N]: the next state. ``_bounce``'s
-    ``su_eligible`` branch (``integrator.py:80-115``): ``intersect``
-    (phase 1 and TPU kernel O, then kernel J), ``texture_value``, and
-    kernel H; differentiable in ``st`` and the tables (J' and H' in the
-    backward). A dead lane gets the collapsed window t_max = -1, so it
-    finds nothing and stays as it is."""
+    randoms ``rnd_b`` [15 + M, N]: the next state. ``_bounce``
+    (``integrator.py:63-132``): ``intersect_select`` (phase 1 — K and M,
+    or the sphere search and O — and the winner gathers), then kernel F
+    on ``tables.fused`` scenes, else kernel J, ``texture_value`` and
+    kernel H; differentiable in ``st`` and the tables (F', or J' and H',
+    in the backward). ``chunk`` rays a chunk (the search's tiles restart
+    at each; None: one chunk). A dead lane gets the collapsed window t_max
+    = -1, so it finds nothing and stays as it is."""
     o, d, time = st[0:3].T, st[3:6].T, st[6]
     alive = st[7] > 0.5
     t_max = torch.where(alive, torch.inf, -1.0).to(st.dtype)
     med_u = rnd_b[15:].T if scene.n_media else None
-    sel = intersect_select(scene, o, d, time, tables, med_u, t_max=t_max)
+    sel = intersect_select(scene, o, d, time, tables, med_u, t_max=t_max,
+                           chunk=chunk)
+    if tables.fused:
+        return bounce_fused(st, sel, rnd_b, tables.lt, scene.n_lights,
+                            scene.tex_even.shape[0] > 0)
     _, p, _, u, v, planes = hit_attrs_fused(
         o, d, time, sel.t_min, sel.t_max, sel.kind, sel.flip, sel.pack,
         sel.t_med)
@@ -147,13 +174,15 @@ def bounce_split(scene, st, rnd_b, tables: SplitTables):
         rnd_b, tables.lt, scene.n_lights)
 
 
-def trace_wave_split(scene, st0, rnd, depth: int, tables: SplitTables):
+def trace_wave_split(scene, st0, rnd, depth: int, tables: SplitTables,
+                     chunk=None):
     """``depth`` bounces of every ray of a wave on the split route: the
     final state [14, N] of ``st0`` [14, N] with randoms ``rnd``
-    [depth, 15 + M, N] (``ops/uber.wave_inputs``)."""
+    [depth, 15 + M, N] (``ops/uber.wave_inputs``), in chunks of ``chunk``
+    rays (None: one chunk)."""
     st = st0
     for b in range(depth):
-        st = bounce_split(scene, st, rnd[b], tables)
+        st = bounce_split(scene, st, rnd[b], tables, chunk)
     return st
 
 
@@ -191,7 +220,7 @@ def render_waves(scene, width: int, height: int, key, wave_start: int,
             rnd = rnd.reshape(depth, rnd.shape[1], k, -1)[..., :chunk_size]
             stf = trace_wave_split(scene, st0.reshape(uber.N_STATE, -1),
                                    rnd.reshape(depth, rnd.shape[1], -1),
-                                   depth, tables)
+                                   depth, tables, chunk_size)
             return stf[8:11].T
 
     acc = acc0

@@ -9,12 +9,15 @@ Counterpart of ``rust_ray_tracer_tpu/ops/intersect.py``:
   * the split route (scenes the trace kernel cannot render): the phase-1
     candidates ``_sphere_roots`` / ``_sph_candidates`` (``:172-213``)
     and the medium free flight ``_med_t`` (``:249``, sphere and polytope
-    boundaries); :func:`intersect_select` (``:578``, its non-unified
-    branch: spheres, quads (TPU kernel O, ``ops/quad.py``), media folded
-    with strict ``<``, then the winner-row gathers); ``_sphere_uv``
-    (``:368``). ``intersect`` (``:777``) is :func:`intersect_select`
-    followed by the hit attributes of TPU kernel J (``ops/hit.py``);
-    ``ops/integrator.bounce_split`` runs the two.
+    boundaries); :func:`intersect_select` (``:578``): its unified branch
+    (triangles with fewer than ``CLUSTER`` spheres and quads: TPU kernels
+    K and M, ``ops/search.py``) or its per-kind branch (spheres, and quads
+    by TPU kernel O, ``ops/quad.py``), media folded with strict ``<``,
+    then the winner-row gathers; ``_sphere_uv`` (``:368``).
+    ``intersect`` (``:777``) is :func:`intersect_select` followed by the
+    hit attributes of TPU kernel J (``ops/hit.py``), or by TPU kernel F's
+    whole bounce (``ops/bounce.py``); ``ops/integrator.bounce_split``
+    runs them.
 
 Vectors travel as ``[..., 3]`` tensors at the public functions, as in
 JAX; inside, the arithmetic runs on components with the formulas and
@@ -274,25 +277,37 @@ class Select(NamedTuple):
 
 
 def intersect_select(scene, o, d, time, tables, med_u=None, t_min=None,
-                     t_max=None) -> Select:
+                     t_max=None, chunk=None) -> Select:
     """Phase 1 and the winner gathers of the split route
-    (``intersect_select``, ``intersect.py:578``, its non-unified branch):
-    spheres (fewer than ``CLUSTER``: plain torch), quads (TPU kernel O on
-    the card, ``ops/quad.py``) and media (``_med_t``, uniforms ``med_u``
-    [C, M]) fold with strict ``<`` in that order, so a tie keeps the
-    earlier kind; then one gather from the unified table. Miss and medium
-    lanes take the first kind's row 0 as their pack and material 0's attrs
-    (a medium its own material's).
+    (``intersect_select``, ``intersect.py:578-775``). Phase 1 takes one of
+    JAX's two branches:
+
+      * the unified one (``:612-642``) when ``ops/search.unified`` holds
+        (any primitive rows, fewer than ``CLUSTER`` spheres and fewer than
+        ``CLUSTER`` quads): TPU kernel K (the tile-cluster entries, when
+        the scene has triangles) and TPU kernel M (triangles, spheres and
+        quads in one search, a tie going triangle > sphere > quad), by
+        ``ops/search.search`` with 256-ray tiles that restart at each
+        ``chunk``'s first ray (the whole input is one chunk when None);
+      * otherwise spheres (fewer than ``CLUSTER``: plain torch) and quads
+        (TPU kernel O on the card, ``ops/quad.py``) fold with strict
+        ``<`` in that order. ``ops/integrator.split_reason`` keeps a scene
+        with triangles off this branch (it needs TPU kernel L).
+
+    Media (``_med_t``, uniforms ``med_u`` [C, M]) fold last with strict
+    ``<``, so a tie keeps the earlier kind; then one gather from the
+    unified table. Miss and medium lanes take the first kind's row 0 as
+    their pack and material 0's attrs (a medium its own material's).
 
     ``tables`` (``ops/integrator.SplitTables``) gives ``uni``, ``dflt``,
-    ``s_off``, ``q_off`` (:func:`winner_table`), ``med_rows`` [M, 2 + A]
-    (a medium winner's flip | material id | attrs) and ``quads`` (O's
-    table). Triangles are not searched: ``ops/integrator.split_reason``
-    keeps their scenes off this route.
+    ``t_off``, ``s_off``, ``q_off`` (:func:`winner_table`), ``med_rows``
+    [M, 2 + A] (a medium winner's flip | material id | attrs), ``search``
+    (the unified search's tables, None off that branch) and ``quads`` (O's
+    table).
 
-    Phase 1 (the search, O, the fold) runs under ``no_grad``, as JAX's
-    runs on stop-gradient copies; phase 2 is differentiable: the gathers
-    from ``uni``, ``dflt`` and ``med_rows``, and (under grad) the chosen
+    Phase 1 (the search, the fold) runs under ``no_grad``, as JAX's runs on
+    stop-gradient copies; phase 2 is differentiable: the gathers from
+    ``uni``, ``dflt`` and ``med_rows``, and (under grad) the chosen
     medium's distance recomputed from the scene, the rays and the detached
     uniforms ``med_u``. The selection (kind, idx, hit, mat, flip) carries
     no gradient."""
@@ -316,13 +331,22 @@ def intersect_select(scene, o, d, time, tables, med_u=None, t_min=None,
 
     # ---- phase 1: the detached candidate search --------------------------
     with torch.no_grad():
-        if scene.n_spheres:
-            consider(KIND_SPH, *_sph_candidates(scene, o, d, time, t_min,
-                                                t_max))
-        if scene.n_quads:
-            # through the module, so a check can swap the dispatcher
-            consider(KIND_QUAD, *quad_ops.quad_search(
-                scene, o, d, t_min, t_max, tables.quads))
+        if tables.search is not None:
+            # K and M (through the module, so a check can swap them; the
+            # module imports this one)
+            from rust_ray_tracer_tpu_torch.ops import search as search_ops
+            best_t, best_kind, idx = search_ops.search(
+                search_ops.ray_planes(o, d, time, t_min, t_max),
+                tables.search, chunk)
+            best_idx = idx.long()
+        else:
+            if scene.n_spheres:
+                consider(KIND_SPH, *_sph_candidates(scene, o, d, time, t_min,
+                                                    t_max))
+            if scene.n_quads:
+                # through the module, so a check can swap the dispatcher
+                consider(KIND_QUAD, *quad_ops.quad_search(
+                    scene, o, d, t_min, t_max, tables.quads))
         if scene.n_media:
             t_med, i_med = torch.min(_med_t(scene, o, d, med_u, t_min,
                                             t_max), dim=-1)
@@ -331,7 +355,8 @@ def intersect_select(scene, o, d, time, tables, med_u=None, t_min=None,
         kind = torch.where(hit, best_kind, KIND_NONE).to(torch.int32)
         idx_u = torch.zeros_like(best_idx)
         prim = torch.zeros_like(hit)
-        for kd, off in ((KIND_SPH, tables.s_off), (KIND_QUAD, tables.q_off)):
+        for kd, off in ((KIND_TRI, tables.t_off), (KIND_SPH, tables.s_off),
+                        (KIND_QUAD, tables.q_off)):
             is_k = kind == kd
             idx_u = torch.where(is_k, best_idx + off, idx_u)
             prim = prim | is_k

@@ -1,0 +1,434 @@
+"""The split route's phase-1 search over triangles: TPU kernels K and M.
+
+Counterpart of ``rust_ray_tracer_tpu/ops/pallas_intersect.py``:
+
+  * :func:`tile_enter_plain` — ``tile_cluster_enter_pallas`` /
+    ``_mask_kernel`` (``pallas_intersect.py:180-281``, TPU kernel K): the
+    smallest entry distance of each 256-ray tile into each triangle
+    cluster's box, +inf where no ray of the tile enters it. The plain
+    version of ``tile_enter_kernel`` (``csrc/search.cu``);
+  * :func:`fused_search_plain` — ``fused_search`` (``:786-1072``, TPU
+    kernel M, both its dense and its pair-list grid): the closest (t,
+    kind, index) over the triangles of the clusters a ray's tile enters,
+    then the small sphere and quad tables (fewer than ``CLUSTER`` rows
+    each). The plain version of ``fused_search_kernel``;
+  * :func:`tile_enter` and :func:`fused_search` — the dispatchers: CPU
+    tensors take the plain versions, CUDA tensors the kernels (no
+    fallback);
+  * :func:`sphere_tests`, :func:`quad_tests` and :func:`tri_tests` — the
+    per-(primitive, ray) tests of ``_tri_eval_fold`` and
+    ``_fold_small_tables`` (``:439-473``, ``:580``), which the whole-wave
+    trace's plain search (``ops/uber._search_block``) runs too.
+
+Tiles are 256 rays (``BC``, ``pallas_intersect.py:62``) and restart at
+each chunk's first ray, as JAX's per-chunk calls do; a chunk that is not a
+multiple of 256 ends in a short tile (JAX's pad rays carry a collapsed
+window and enter nothing). Rays travel as one [9, N] tensor of planes: o,
+d, time, t_min, t_max (a dead lane has t_max < t_min).
+
+Tie rules, as the TPU kernel's: triangles fold lexicographically in (t,
+index), so a tie goes to the lowest triangle index whatever the order the
+clusters are swept in; then spheres, then quads, each with strict ``<``,
+so a tie goes triangle > sphere > quad. A triangle winner's index is
+clamped to the last row (``_finish``). A miss has kind 0, index 0 and t
+inf. The cull is conservative (a 1e-3 margin) and per tile, never per ray:
+every ray of a tile tests every cluster some ray of the tile enters.
+
+The TPU's in-kernel coefficient assembly for big meshes (``packed``,
+``_coeffs_from_pack``) and its search-order sort of the rays
+(``intersect._search_order``) select the same winners; they are HBM and
+tiling devices and are not ported (ROADMAP queue 2).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from rust_ray_tracer_tpu_torch.models.scene import CLUSTER
+from rust_ray_tracer_tpu_torch.ops.intersect import (KIND_QUAD, KIND_SPH,
+                                                     KIND_TRI, TRI_DET_EPS,
+                                                     _tri_coeffs)
+
+BC = 256                # rays per tile (pallas_intersect.py:62)
+CULL_EPS = 1e-3         # the cull box margin (_mask_kernel)
+TRI_COLS = 41           # a triangle's search row: det, u, v, t (10 each), dbl
+N_RAY = 9               # ray planes: o(3) d(3) time t_min t_max
+
+
+@dataclasses.dataclass
+class SearchTables:
+    """Detached tables of the unified search, built once per render.
+    ``tri`` [T, 41] a triangle's Plücker rows (det, u_num, v_num, t_num
+    over the ray features [o, d, o x d, 1]; ``intersect._tri_coeffs``)
+    and its double-sided flag; ``cl_min`` / ``cl_max`` [K, 3] the cluster
+    boxes (inverted for an all-pad cluster); ``width`` triangles a
+    cluster; ``sph`` [S, 9] c0, c1 - c0, t0, 1 / (t1 - t0), r; ``quad``
+    [Q, 9] q, u, v. Empty kinds have 0 rows."""
+
+    tri: torch.Tensor
+    cl_min: torch.Tensor
+    cl_max: torch.Tensor
+    width: int
+    sph: torch.Tensor
+    quad: torch.Tensor
+
+
+def unified(scene) -> bool:
+    """Does phase 1 take the unified search (``intersect.py:612-614``, the
+    TPU's predicate without ``on_tpu``): any primitive rows, fewer than
+    ``CLUSTER`` spheres and fewer than ``CLUSTER`` quads."""
+    return (scene.n_tris + scene.n_spheres + scene.n_quads > 0
+            and scene.n_spheres < CLUSTER and scene.n_quads < CLUSTER)
+
+
+def sphere_rows(scene):
+    """[S, 9] rows of the sphere table (``fused_search``'s, ``:566-577``):
+    c0, c1 - c0, t0, 1 / (t1 - t0) (|t1 - t0| floored at 1e-12), r."""
+    dt = scene.sph_t1 - scene.sph_t0
+    inv_dt = 1.0 / torch.where(dt.abs() < 1e-12,
+                               torch.where(dt < 0, -1e-12, 1e-12).to(dt.dtype),
+                               dt)
+    return torch.cat([scene.sph_c0, scene.sph_c1 - scene.sph_c0,
+                      scene.sph_t0[:, None], inv_dt[:, None],
+                      scene.sph_r[:, None]], dim=1)
+
+
+def search_tables(scene) -> SearchTables:
+    """The unified search's tables of ``scene``, detached."""
+    with torch.no_grad():
+        f32 = torch.float32
+        dev = scene.device
+        t_n = scene.n_tris
+        if t_n:
+            det, u, v, t = _tri_coeffs(scene.tri_v0, scene.tri_e1,
+                                       scene.tri_e2)
+            tri = torch.cat([det, u, v, t,
+                             scene.tri_double.to(f32)[None]], dim=0).T
+            k = scene.tri_cluster_min.shape[0]
+            width = t_n // k
+            if width * k != t_n or width % CLUSTER:
+                raise ValueError(f"{t_n} triangles in {k} clusters")
+        else:
+            tri = torch.zeros((0, TRI_COLS), dtype=f32, device=dev)
+            width = CLUSTER
+        sph = (sphere_rows(scene) if scene.n_spheres
+               else torch.zeros((0, 9), dtype=f32, device=dev))
+        quad = torch.cat([scene.quad_q, scene.quad_u, scene.quad_v], dim=1)
+        return SearchTables(
+            tri=tri.contiguous(),
+            cl_min=scene.tri_cluster_min.contiguous(),
+            cl_max=scene.tri_cluster_max.contiguous(), width=width,
+            sph=sph.contiguous(), quad=quad.contiguous())
+
+
+def ray_planes(o, d, time, t_min, t_max):
+    """[9, N] ray planes of ``o``, ``d`` [N, 3] and ``time``, ``t_min``,
+    ``t_max`` [N]."""
+    return torch.cat([o.T, d.T, time[None], t_min[None],
+                      t_max[None]]).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# per-(primitive, ray) tests: rays broadcast along the last axis
+# ---------------------------------------------------------------------------
+
+def tri_tests(f, tabs, tmin, tmax):
+    """(valid, t) [T, B] of the triangles whose coefficient rows are
+    ``tabs`` = (det, u, v, t) [T, 10] and double-sided flags ``tabs[4]``
+    [T, 1] for rays of Plücker features ``f`` (10 tensors [B]):
+    ``_tri_eval_fold``'s epilogue (``pallas_intersect.py:439-473``), each
+    dot summed term by term in feature order, as the kernels do."""
+    det_t, u_t, v_t, t_t, dbl = tabs
+
+    def dots(tab):
+        acc = tab[:, 0:1] * f[0]
+        for k in range(1, 10):
+            acc = acc + tab[:, k:k + 1] * f[k]
+        return acc
+
+    dm, um, vm, tm = (dots(x) for x in (det_t, u_t, v_t, t_t))
+    eps = TRI_DET_EPS * torch.sqrt(f[3] * f[3] + f[4] * f[4] + f[5] * f[5])
+    safe = torch.where(dm.abs() > eps, dm, torch.ones_like(dm))
+    inv = 1.0 / safe
+    u, v, t = um * inv, vm * inv, tm * inv
+    side_ok = (dm > eps) | ((dm < -eps) & (dbl > 0.5))
+    valid = (side_ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+             & (v < 1.0 - u) & (t >= tmin) & (t <= tmax))
+    return valid, t
+
+
+def sphere_tests(ray, sph, tmin, tmax):
+    """t [S, B] (inf: no hit in [tmin, tmax]) of the time-lerped spheres
+    of ``sph`` [S, 9] (:func:`sphere_rows`) for rays ``ray`` = (ox, oy,
+    oz, dx, dy, dz, time), each [B]: ``_fold_small_tables``' sphere test
+    (``pallas_intersect.py:601-630``). A far pad row (c0 = 1e30) gives a
+    NaN discriminant and no hit."""
+    ox, oy, oz, dx, dy, dz, time = ray
+    sp = sph[:, :, None]                         # [S, 9, 1]
+    c0x, c0y, c0z = sp[:, 0], sp[:, 1], sp[:, 2]
+    e1x, e1y, e1z = sp[:, 3], sp[:, 4], sp[:, 5]
+    st0, inv_dt, rr = sp[:, 6], sp[:, 7], sp[:, 8]
+    frac = (time - st0) * inv_dt                 # [S, B]
+    cx = c0x + frac * e1x
+    cy = c0y + frac * e1y
+    cz = c0z + frac * e1z
+    ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+    a = dx * dx + dy * dy + dz * dz
+    b = ocx * dx + ocy * dy + ocz * dz
+    cc = ocx * ocx + ocy * ocy + ocz * ocz - rr * rr
+    disc = b * b - a * cc
+    ok = disc > 0.0
+    sq = torch.sqrt(torch.maximum(disc, disc.new_tensor(1e-12))) * ok
+    inv_a = 1.0 / torch.maximum(a, a.new_tensor(1e-12))
+    root1 = (-b - sq) * inv_a
+    root2 = (-b + sq) * inv_a
+    ok1 = ok & (root1 >= tmin) & (root1 <= tmax)
+    ok2 = ok & (root2 >= tmin) & (root2 <= tmax)
+    return torch.where(ok1, root1, torch.where(ok2, root2, torch.inf))
+
+
+def quad_tests(ray, quad, tmin, tmax):
+    """t [Q, B] (inf: no hit) of the quads of ``quad`` [Q, 9] (q, u, v)
+    for rays ``ray`` = (ox, oy, oz, dx, dy, dz), each [B]:
+    ``_fold_small_tables``' quad test (``pallas_intersect.py:631-667``),
+    both sides, [0, 1]^2 inclusive. A zero-edge pad row has |denom| == 0
+    and no hit."""
+    ox, oy, oz, dx, dy, dz = ray
+    qd = quad[:, :, None]
+    qx, qy, qz = qd[:, 0], qd[:, 1], qd[:, 2]
+    ux, uy, uz = qd[:, 3], qd[:, 4], qd[:, 5]
+    vx, vy, vz = qd[:, 6], qd[:, 7], qd[:, 8]
+    wnx = uy * vz - uz * vy
+    wny = uz * vx - ux * vz
+    wnz = ux * vy - uy * vx
+    denom = dx * wnx + dy * wny + dz * wnz       # [Q, B]
+    dsafe = torch.where(denom.abs() < 1e-12,
+                        torch.where(denom < 0, -1e-12, 1e-12).to(
+                            denom.dtype), denom)
+    t = ((qx - ox) * wnx + (qy - oy) * wny + (qz - oz) * wnz) / dsafe
+    wx = ox + t * dx - qx
+    wy = oy + t * dy - qy
+    wz = oz + t * dz - qz
+    n2 = wnx * wnx + wny * wny + wnz * wnz
+    inv_n2 = 1.0 / torch.maximum(n2, n2.new_tensor(1e-12))
+    alpha = ((wy * vz - wz * vy) * wnx + (wz * vx - wx * vz) * wny
+             + (wx * vy - wy * vx) * wnz) * inv_n2
+    beta = ((uy * wz - uz * wy) * wnx + (uz * wx - ux * wz) * wny
+            + (ux * wy - uy * wx) * wnz) * inv_n2
+    valid = ((denom.abs() > 0.0) & (t >= tmin) & (t <= tmax)
+             & (alpha >= 0.0) & (alpha <= 1.0)
+             & (beta >= 0.0) & (beta <= 1.0))
+    return torch.where(valid, t, torch.inf)
+
+
+def first_min(tt):
+    """(min over rows, lowest row index attaining it) of tt [R, B] (the
+    index is meaningless where the min is inf; the fold ignores it)."""
+    loc_t = tt.amin(dim=0)
+    return loc_t, torch.argmax((tt == loc_t).to(torch.int32), dim=0)
+
+
+def fold(best, loc_t, loc_i, kind):
+    """Strict-``<`` fold of a later kind into the running winner (t, kind,
+    index)."""
+    bt, bk, bi = best
+    better = loc_t < bt
+    return (torch.where(better, loc_t, bt),
+            torch.where(better, torch.full_like(bk, kind), bk),
+            torch.where(better, loc_i.to(bi.dtype), bi))
+
+
+# ---------------------------------------------------------------------------
+# tiles
+# ---------------------------------------------------------------------------
+
+def _tiles(n: int, chunk: int | None):
+    """(chunk, tiles a chunk, padded chunk) of ``n`` rays cut into chunks
+    of ``chunk`` (the whole input when None)."""
+    chunk = n if chunk is None else chunk
+    if chunk <= 0 or n % chunk:
+        raise ValueError(f"{n} rays are not whole chunks of {chunk}")
+    tpc = -(-chunk // BC)
+    return chunk, tpc, tpc * BC
+
+
+def tile_count(n: int, chunk: int | None = None) -> int:
+    """256-ray tiles of ``n`` rays in chunks of ``chunk`` (None: one)."""
+    chunk, tpc, _ = _tiles(n, chunk)
+    return n // chunk * tpc
+
+
+def _tile_pad(x, chunk: int, chunk_p: int, value: float):
+    """[..., n] -> [..., n_chunks * chunk_p]: each chunk padded to whole
+    tiles with ``value``."""
+    lead = x.shape[:-1]
+    x = x.reshape(lead + (-1, chunk))
+    x = torch.nn.functional.pad(x, (0, chunk_p - chunk), value=value)
+    return x.reshape(lead + (-1,))
+
+
+def _padded_rays(rays, chunk: int | None):
+    """The [9, n_tiles * 256] ray planes of ``rays`` [9, N], each chunk
+    padded to whole tiles with rays of a collapsed window (o = d = 0,
+    t_min = 0, t_max = -1: ``fused_search``'s pads), and (n, chunk,
+    chunk_p)."""
+    n = rays.shape[1]
+    chunk, _, chunk_p = _tiles(n, chunk)
+    if chunk_p == chunk:
+        return rays, n, chunk, chunk_p
+    pads = [0.0] * 8 + [-1.0]
+    rp = torch.stack([_tile_pad(rays[c], chunk, chunk_p, pads[c])
+                      for c in range(N_RAY)])
+    return rp, n, chunk, chunk_p
+
+
+def _unpad(x, n: int, chunk: int, chunk_p: int):
+    if chunk_p == chunk:
+        return x
+    return x.reshape(-1, chunk_p)[:, :chunk].reshape(n)
+
+
+# ---------------------------------------------------------------------------
+# K: the tile-cluster entry distances
+# ---------------------------------------------------------------------------
+
+_ENTER_TILES = 8        # tiles a block of the plain version tests at once
+
+
+def tile_enter_plain(rays, cl_min, cl_max, chunk: int | None = None):
+    """[n_tiles, K] float32: the smallest entry distance of any ray of each
+    256-ray tile into each cluster box ``cl_min`` / ``cl_max`` [K, 3], +inf
+    where none enters (``_mask_kernel``, ``pallas_intersect.py:180-242``).
+
+    The slab test on unnormalised rays with the box grown by 1e-3: an
+    axis with |d| < 1e-12 asks for the origin inside the slab instead; an
+    inverted (empty) box and a ray whose window is empty (t_max <= t_min)
+    enter nothing; the entry is clamped up to t_min. Max and min propagate
+    NaN as ``jnp.maximum`` / ``jnp.minimum`` do."""
+    rp, _, _, _ = _padded_rays(rays, chunk)
+    lo = cl_min[None] - CULL_EPS                           # [1, K, 3]
+    hi = cl_max[None] + CULL_EPS
+    nonempty = (cl_min <= cl_max).all(dim=1)[None]         # [1, K]
+    step = _ENTER_TILES * BC
+    out = []
+    for s in range(0, rp.shape[1], step):
+        r = rp[:, s:s + step]
+        o = r[0:3].T[:, None, :]                           # [B, 1, 3]
+        d = r[3:6].T[:, None, :]
+        tmin, tmax = r[7][:, None], r[8][:, None]
+        small = d.abs() < 1e-12
+        inv = 1.0 / torch.where(small, torch.ones_like(d), d)
+        t0 = (lo - o) * inv                                # [B, K, 3]
+        t1 = (hi - o) * inv
+        tlo = torch.where(small, -torch.inf, torch.minimum(t0, t1))
+        thi = torch.where(small, torch.inf, torch.maximum(t0, t1))
+        enter = torch.maximum(torch.maximum(tlo[..., 0], tlo[..., 1]),
+                              tlo[..., 2])
+        exit_ = torch.minimum(torch.minimum(thi[..., 0], thi[..., 1]),
+                              thi[..., 2])
+        par_ok = (~small | ((o >= lo) & (o <= hi))).all(dim=2)
+        hit = (nonempty & par_ok & (enter <= exit_) & (exit_ >= tmin)
+               & (enter <= tmax) & (tmax > tmin))
+        ent = torch.where(hit, torch.maximum(enter, tmin), torch.inf)
+        out.append(ent.reshape(-1, BC, ent.shape[1]).amin(dim=1))
+    return torch.cat(out)
+
+
+# ---------------------------------------------------------------------------
+# M: the unified closest-hit search
+# ---------------------------------------------------------------------------
+
+def fused_search_plain(rays, ent, tabs: SearchTables,
+                       chunk: int | None = None):
+    """(best t [N] float32, inf for none; kind [N] int32, 0 for none;
+    index [N] int32 within its kind's table) of the rays ``rays`` [9, N]:
+    ``fused_search`` (``pallas_intersect.py:786-1072``).
+
+    Tile by tile, every ray tests the triangles of each cluster whose
+    entry ``ent`` [n_tiles, K] (:func:`tile_enter_plain`) is finite —
+    ``_tri_eval_fold``'s tests, the lowest index winning a tie in t over
+    all of them — then the spheres and the quads of ``tabs`` fold in with
+    strict ``<``. A triangle winner's index is clamped to the last row."""
+    rp, n, chunk, chunk_p = _padded_rays(rays, chunk)
+    dev = rays.device
+    width = tabs.width
+    t_n = tabs.tri.shape[0]
+    cols = torch.arange(width, device=dev)
+    bts, bks, bis = [], [], []
+    for tile in range(rp.shape[1] // BC):
+        r = rp[:, tile * BC:(tile + 1) * BC]
+        ox, oy, oz, dx, dy, dz, time, tmin, tmax = r
+        best = (torch.full_like(ox, torch.inf),
+                torch.zeros(BC, dtype=torch.int32, device=dev),
+                torch.zeros(BC, dtype=torch.int32, device=dev))
+        cs = (torch.nonzero(torch.isfinite(ent[tile]))[:, 0]
+              if t_n else cols[:0])
+        if cs.numel():
+            rows = (cs[:, None] * width + cols).reshape(-1)  # ascending
+            tab = tabs.tri[rows]
+            f = (ox, oy, oz, dx, dy, dz, oy * dz - oz * dy,
+                 oz * dx - ox * dz, ox * dy - oy * dx, torch.ones_like(ox))
+            valid, t = tri_tests(
+                f, (tab[:, 0:10], tab[:, 10:20], tab[:, 20:30],
+                    tab[:, 30:40], tab[:, 40:41]), tmin, tmax)
+            loc_t, loc_i = first_min(torch.where(valid, t, torch.inf))
+            best = fold(best, loc_t, rows[loc_i], KIND_TRI)
+        if tabs.sph.shape[0]:
+            best = fold(best, *first_min(sphere_tests(
+                (ox, oy, oz, dx, dy, dz, time), tabs.sph, tmin, tmax)),
+                KIND_SPH)
+        if tabs.quad.shape[0]:
+            best = fold(best, *first_min(quad_tests(
+                (ox, oy, oz, dx, dy, dz), tabs.quad, tmin, tmax)),
+                KIND_QUAD)
+        bts.append(best[0])
+        bks.append(best[1])
+        bis.append(best[2])
+    bt, bk, bi = (_unpad(torch.cat(x), n, chunk, chunk_p)
+                  for x in (bts, bks, bis))
+    if t_n:
+        bi = torch.where(bk == KIND_TRI, torch.clamp_max(bi, t_n - 1), bi)
+    return bt, bk, bi
+
+
+# ---------------------------------------------------------------------------
+# dispatchers
+# ---------------------------------------------------------------------------
+
+def tile_enter(rays, cl_min, cl_max, chunk: int | None = None):
+    """[n_tiles, K] tile-cluster entry distances: :func:`tile_enter_plain`
+    for CPU tensors, kernel K (``csrc/search.cu``) for CUDA tensors."""
+    dev = rays.device.type
+    if dev == "cpu":
+        return tile_enter_plain(rays, cl_min, cl_max, chunk)
+    if dev != "cuda":
+        raise ValueError(f"unsupported device {rays.device}")
+    from rust_ray_tracer_tpu_torch.kernels import tile_enter_kernel
+    return tile_enter_kernel(rays, cl_min, cl_max, chunk)
+
+
+def fused_search(rays, ent, tabs: SearchTables, chunk: int | None = None):
+    """(best t, kind, index) of :func:`fused_search_plain` for CPU
+    tensors, kernel M (``csrc/search.cu``) for CUDA tensors."""
+    dev = rays.device.type
+    if dev == "cpu":
+        return fused_search_plain(rays, ent, tabs, chunk)
+    if dev != "cuda":
+        raise ValueError(f"unsupported device {rays.device}")
+    from rust_ray_tracer_tpu_torch.kernels import fused_search_kernel
+    return fused_search_kernel(rays, ent, tabs, chunk)
+
+
+def search(rays, tabs: SearchTables, chunk: int | None = None):
+    """The unified phase 1 of rays ``rays`` [9, N]: K (when the scene has
+    triangles), then M. Without triangles M takes a one-column +inf entry
+    table (``pallas_intersect.py:876-886``) and folds the small tables
+    alone. Returns (best t, kind, index)."""
+    if tabs.tri.shape[0]:
+        ent = tile_enter(rays, tabs.cl_min, tabs.cl_max, chunk)
+    else:
+        ent = torch.full((tile_count(rays.shape[1], chunk), 1), torch.inf,
+                         dtype=torch.float32, device=rays.device)
+    return fused_search(rays, ent, tabs, chunk)

@@ -41,13 +41,14 @@ import dataclasses
 import torch
 
 from rust_ray_tracer_tpu_torch.ops import camera as cam_ops
+from rust_ray_tracer_tpu_torch.ops import search as search_ops
 from rust_ray_tracer_tpu_torch.ops.bounce import light_table
 from rust_ray_tracer_tpu_torch.ops.bounce_core import (
     bounce_plane_core, bounce_plane_core_vjp)
 from rust_ray_tracer_tpu_torch.ops.intersect import (
     KIND_QUAD, KIND_SPH, KIND_TRI, MATTR_ALBEDO, MATTR_EVEN, MATTR_FUZZ,
-    MATTR_IOR, MATTR_ISCHK, MATTR_MKIND, MATTR_ODD, T_MIN, TRI_DET_EPS,
-    _tri_coeffs, mattr_noise_cols, winner_table)
+    MATTR_IOR, MATTR_ISCHK, MATTR_MKIND, MATTR_ODD, T_MIN, _tri_coeffs,
+    mattr_noise_cols, winner_table)
 from rust_ray_tracer_tpu_torch.ops.perlin import PerlinTables
 from rust_ray_tracer_tpu_torch.ops.shade_core import LANES, LT_COLS
 from rust_ray_tracer_tpu_torch.utils import rng as rngu
@@ -253,22 +254,6 @@ def pack_state(o, d, time, L, beta, alive):
 # plain version of the trace kernel
 # ---------------------------------------------------------------------------
 
-def _fold(best, loc_t, loc_i, kind):
-    """Strict-``<`` fold of a later kind into the running winner."""
-    bt, bk, bi = best
-    better = loc_t < bt
-    return (torch.where(better, loc_t, bt),
-            torch.where(better, torch.full_like(bk, kind), bk),
-            torch.where(better, loc_i, bi))
-
-
-def _first_min(tt):
-    """(min over rows, lowest row index attaining it) of tt [R, B] (the
-    index is meaningless where the min is inf; the fold ignores it)."""
-    loc_t = tt.amin(dim=0)
-    return loc_t, torch.argmax((tt == loc_t).to(torch.int32), dim=0)
-
-
 def _search_block(st, ctx):
     """Phase 1 for one block of rays (a multiple of 128): (kind, idx)."""
     ox, oy, oz, dx, dy, dz, time, alive = (st[i] for i in range(8))
@@ -284,28 +269,12 @@ def _search_block(st, ctx):
 
     if ctx.n_tris:
         # Plücker features [o, d, o x d, 1]
-        mx = oy * dz - oz * dy
-        my = oz * dx - ox * dz
-        mz = ox * dy - oy * dx
-        f = (ox, oy, oz, dx, dy, dz, mx, my, mz, torch.ones_like(ox))
+        f = (ox, oy, oz, dx, dy, dz, oy * dz - oz * dy, oz * dx - ox * dz,
+             ox * dy - oy * dx, torch.ones_like(ox))
         nt = ctx.n_tri_chunks * TCC
-
-        def dots(tab):
-            acc = tab[:nt, 0:1] * f[0]
-            for k in range(1, 10):
-                acc = acc + tab[:nt, k:k + 1] * f[k]
-            return acc                               # [nt, B]
-
-        dm, um, vm, tm = (dots(x) for x in (ctx.det_t, ctx.u_t, ctx.v_t,
-                                            ctx.t_t))
-        eps = TRI_DET_EPS * torch.sqrt(dx * dx + dy * dy + dz * dz)
-        dbl = ctx.dbl_t[:nt]
-        safe = torch.where(dm.abs() > eps, dm, torch.ones_like(dm))
-        inv = 1.0 / safe
-        u, v, t = um * inv, vm * inv, tm * inv
-        side_ok = (dm > eps) | ((dm < -eps) & (dbl > 0.5))
-        valid = (side_ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
-                 & (v < 1.0 - u) & (t >= tmin) & (t <= tmax))
+        valid, t = search_ops.tri_tests(
+            f, tuple(x[:nt] for x in (ctx.det_t, ctx.u_t, ctx.v_t, ctx.t_t,
+                                      ctx.dbl_t)), tmin, tmax)
         # per-(128-ray row, chunk) AABB cull: a chunk is swept for a row
         # when any live ray of the row enters its box
         big = torch.tensor(1e-30, device=dev)
@@ -326,62 +295,18 @@ def _search_block(st, ctx):
         swept = swept.repeat_interleave(LANES, dim=1)
         valid = valid & swept.repeat_interleave(TCC, dim=0)
         tt = torch.where(valid, t, torch.inf)
-        loc_t, loc_i = _first_min(tt)
-        best = _fold(best, loc_t, loc_i + ctx.t_off, KIND_TRI)
+        loc_t, loc_i = search_ops.first_min(tt)
+        best = search_ops.fold(best, loc_t, loc_i + ctx.t_off, KIND_TRI)
 
     if ctx.n_sph:
-        sp = ctx.sph[:, :, None]                     # [S, 9, 1]
-        c0x, c0y, c0z = sp[:, 0], sp[:, 1], sp[:, 2]
-        e1x, e1y, e1z = sp[:, 3], sp[:, 4], sp[:, 5]
-        st0, inv_dt, rr = sp[:, 6], sp[:, 7], sp[:, 8]
-        frac = (time - st0) * inv_dt                 # [S, B]
-        cx = c0x + frac * e1x
-        cy = c0y + frac * e1y
-        cz = c0z + frac * e1z
-        ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
-        a = dx * dx + dy * dy + dz * dz
-        b = ocx * dx + ocy * dy + ocz * dz
-        cc = ocx * ocx + ocy * ocy + ocz * ocz - rr * rr
-        disc = b * b - a * cc
-        ok = disc > 0.0
-        sq = torch.sqrt(torch.maximum(disc, disc.new_tensor(1e-12))) * ok
-        inv_a = 1.0 / torch.maximum(a, a.new_tensor(1e-12))
-        root1 = (-b - sq) * inv_a
-        root2 = (-b + sq) * inv_a
-        ok1 = ok & (root1 >= tmin) & (root1 <= tmax)
-        ok2 = ok & (root2 >= tmin) & (root2 <= tmax)
-        t = torch.where(ok1, root1, torch.where(ok2, root2, torch.inf))
-        loc_t, loc_i = _first_min(t)
-        best = _fold(best, loc_t, loc_i + ctx.s_off, KIND_SPH)
+        loc_t, loc_i = search_ops.first_min(search_ops.sphere_tests(
+            (ox, oy, oz, dx, dy, dz, time), ctx.sph, tmin, tmax))
+        best = search_ops.fold(best, loc_t, loc_i + ctx.s_off, KIND_SPH)
 
     if ctx.n_quad:
-        qd = ctx.quad[:, :, None]
-        qx, qy, qz = qd[:, 0], qd[:, 1], qd[:, 2]
-        ux, uy, uz = qd[:, 3], qd[:, 4], qd[:, 5]
-        vx, vy, vz = qd[:, 6], qd[:, 7], qd[:, 8]
-        wnx = uy * vz - uz * vy
-        wny = uz * vx - ux * vz
-        wnz = ux * vy - uy * vx
-        denom = dx * wnx + dy * wny + dz * wnz       # [Q, B]
-        dsafe = torch.where(denom.abs() < 1e-12,
-                            torch.where(denom < 0, -1e-12, 1e-12).to(
-                                denom.dtype), denom)
-        t = ((qx - ox) * wnx + (qy - oy) * wny + (qz - oz) * wnz) / dsafe
-        wx = ox + t * dx - qx
-        wy = oy + t * dy - qy
-        wz = oz + t * dz - qz
-        n2 = wnx * wnx + wny * wny + wnz * wnz
-        inv_n2 = 1.0 / torch.maximum(n2, n2.new_tensor(1e-12))
-        alpha = ((wy * vz - wz * vy) * wnx + (wz * vx - wx * vz) * wny
-                 + (wx * vy - wy * vx) * wnz) * inv_n2
-        beta = ((uy * wz - uz * wy) * wnx + (uz * wx - ux * wz) * wny
-                + (ux * wy - uy * wx) * wnz) * inv_n2
-        valid = ((denom.abs() > 0.0) & (t >= tmin) & (t <= tmax)
-                 & (alpha >= 0.0) & (alpha <= 1.0)
-                 & (beta >= 0.0) & (beta <= 1.0))
-        tt = torch.where(valid, t, torch.inf)
-        loc_t, loc_i = _first_min(tt)
-        best = _fold(best, loc_t, loc_i + ctx.q_off, KIND_QUAD)
+        loc_t, loc_i = search_ops.first_min(search_ops.quad_tests(
+            (ox, oy, oz, dx, dy, dz), ctx.quad, tmin, tmax))
+        best = search_ops.fold(best, loc_t, loc_i + ctx.q_off, KIND_QUAD)
 
     _, kind, idx = best
     return kind, torch.where(kind > 0, idx, torch.zeros_like(idx))

@@ -1,5 +1,5 @@
 """The Hopper kernels (csrc/trace_wave.cu, csrc/trace_wave_bwd.cu,
-csrc/split.cu) against their plain versions.
+csrc/split.cu, csrc/search.cu) against their plain versions.
 
 Imports no JAX, so it runs on a GPU machine without it. tests/conftest.py
 imports JAX, so there it runs without the conftest (and without the
@@ -16,12 +16,16 @@ import numpy as np
 import pytest
 import torch
 
-from rust_ray_tracer_tpu_torch.kernels import (bwd_reduce_kernel,
+from rust_ray_tracer_tpu_torch.kernels import (bounce_planes_bwd_kernel,
+                                               bounce_planes_kernel,
+                                               bwd_reduce_kernel,
+                                               fused_search_kernel,
                                                hit_attrs_bwd_kernel,
                                                hit_attrs_kernel,
                                                quad_search_kernel,
                                                shade_update_bwd_kernel,
                                                shade_update_kernel,
+                                               tile_enter_kernel,
                                                trace_wave_bwd_kernel,
                                                trace_wave_bwd_noise_kernel,
                                                trace_wave_kernel,
@@ -35,7 +39,7 @@ from rust_ray_tracer_tpu_torch.utils import rng
 # by its own name (pytest puts tests/ on sys.path): on a machine where an
 # installed package is called ``tests``, ``tests.torch_parity`` is not found
 from torch_parity import (SMALL_SCENES, assert_flip_budget,
-                          assert_scaled_close, rel_l2, split_cots,
+                          assert_scaled_close, mesh, rel_l2, split_cots,
                           split_kernel_inputs, split_recorder, torch_scene)
 
 W = H = 32          # one 1024-ray chunk
@@ -338,13 +342,13 @@ SPLIT = (quad_search_kernel, hit_attrs_kernel, shade_update_kernel)
 
 def test_split_wrappers_refuse_cpu_tensors():
     x = split_kernel_inputs(torch_scene("fog"), 16, 16, 1)
-    o, d, t_min, t_max = x["quad"]
+    P = x["hit"][0]                 # o, d, time, t_min, t_max, ...
     before = [k.launches for k in SPLIT]
     ts = torch_scene("fog")
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        quad_search_kernel(torch.cat([o, d, t_min[:, None], t_max[:, None]],
-                                     1), torch.zeros(8, 9),
-                           ts.quad_cluster_min, ts.quad_cluster_max)
+        quad_search_kernel(torch.cat([P[0:6], P[7:9]]).T.contiguous(),
+                           torch.zeros(8, 9), ts.quad_cluster_min,
+                           ts.quad_cluster_max)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         hit_attrs_kernel(*x["hit"])
     with pytest.raises(ValueError, match="needs CUDA tensors"):
@@ -362,28 +366,33 @@ def _final_scene():
 def test_split_kernels_match_plain_on_card(name, cuda):
     """O, J and H against their plain versions on the card, on the inputs
     the split route gives them over two bounces of a 32x32 wave: O's
-    winners and t identical (both round alike: no FMA); J's and H's planes
-    within rtol 1e-5 of each lane's largest value / atol 1e-6, at most
-    0.5% of H's lanes outside (cosf, sinf, expf, logf of the card's torch
-    and of the kernel may round a branch's input apart). One launch
+    winners and t identical (both round alike: no FMA; final_scene's 1,408
+    quads — the fog scene's two take the unified search, M); J's and H's
+    planes within rtol 1e-5 of each lane's largest value / atol 1e-6, at
+    most 0.5% of H's lanes outside (cosf, sinf, expf, logf of the card's
+    torch and of the kernel may round a branch's input apart). One launch
     each."""
     from rust_ray_tracer_tpu_torch.ops import bounce, hit, quad
 
     ts = _final_scene() if name == "final_scene" else torch_scene(name)
     tg = ts.to(cuda)
     x = split_kernel_inputs(ts)
+    assert (x["quad"] is not None) == (name == "final_scene")
     before = [k.launches for k in SPLIT]
-    o, d, t_min, t_max = (v.to(cuda) for v in x["quad"])
-    got_t, got_i = quad.quad_search(tg, o, d, t_min, t_max)
+    if x["quad"] is not None:
+        o, d, t_min, t_max = (v.to(cuda) for v in x["quad"])
+        got_t, got_i = quad.quad_search(tg, o, d, t_min, t_max)
     P, kind, flip = (v.to(cuda) for v in x["hit"])
     got_h = hit.hit_planes(P, kind, flip)
     S, mkind, lt, n_lights = x["su"]
     S, mkind, lt = S.to(cuda), mkind.to(cuda), lt.to(cuda)
     got_s = bounce.su_planes(S, mkind, lt, n_lights)
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(SPLIT, before)] == [1, 1, 1]
-    ref_t, ref_i = quad._quad_candidates(tg, o, d, t_min, t_max)
-    assert torch.equal(got_i.long(), ref_i) and torch.equal(got_t, ref_t)
+    assert [k.launches - b for k, b in zip(SPLIT, before)] == [
+        int(x["quad"] is not None), 1, 1]
+    if x["quad"] is not None:
+        ref_t, ref_i = quad._quad_candidates(tg, o, d, t_min, t_max)
+        assert torch.equal(got_i.long(), ref_i) and torch.equal(got_t, ref_t)
     ref_h = hit.hit_plane_core(P, kind, flip)
     miss = kind == 0
     assert bool(torch.isinf(got_h[0, miss]).all())
@@ -402,19 +411,21 @@ def test_split_kernels_match_plain_on_card(name, cuda):
 
 @pytest.mark.gpu
 def test_render_waves_split_route_on_card(cuda):
-    """render_waves on a media scene goes through O, J and H (depth
-    launches each a wave), never the trace kernel, and matches the plain
-    route on the card within the flip budget."""
+    """render_waves on a media scene with noise textures goes through M
+    (the unified search: its spheres and two quads), J and H (depth
+    launches each a wave), never O, F or the trace kernel, and matches the
+    plain route on the card within the flip budget."""
     from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
 
     ts = torch_scene("fog").to(cuda)
-    before = [k.launches for k in SPLIT + (trace_wave_kernel,
-                                           trace_wave_noise_kernel)]
+    watched = SPLIT + (fused_search_kernel, tile_enter_kernel,
+                       bounce_planes_kernel, trace_wave_kernel,
+                       trace_wave_noise_kernel)
+    before = [k.launches for k in watched]
     got = render_waves(ts, 32, 32, rng.key(0), 0, 1, chunk_size=1024)
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(
-        SPLIT + (trace_wave_kernel, trace_wave_noise_kernel),
-        before)] == [DEPTH, DEPTH, DEPTH, 0, 0]
+    assert [k.launches - b for k, b in zip(watched, before)] == [
+        0, DEPTH, DEPTH, DEPTH, 0, 0, 0, 0]
     with split_recorder(plain=True):
         ref = render_waves(ts, 32, 32, rng.key(0), 0, 1, chunk_size=1024)
     assert_flip_budget(got.cpu().numpy(), ref.cpu().numpy())
@@ -506,15 +517,16 @@ def _fog_grads(device):
 @pytest.mark.gpu
 def test_render_waves_split_route_grads_on_card(cuda):
     """torch.autograd through render_waves on the fog scene on the card
-    runs O, J, H, J' and H' once a bounce and none of the whole-wave
-    kernels but B' (``bwd_reduce``, the row sums of the glue's gathers,
-    ``ops/gather.rows``); its gradients are finite, the same bits twice,
-    and within
+    runs M, J, H, J' and H' once a bounce, not O, and none of the
+    whole-wave kernels but B' (``bwd_reduce``, the row sums of the glue's
+    gathers, ``ops/gather.rows``); its gradients are finite, the same bits
+    twice, and within
     1e-6 + 2e-3 of each leaf's largest entry of the CPU plain route's
     (the card's sinf/cosf in the marble glue and the kernels' rounding
     move the last bits; a forked path would move a leaf by a ray's share,
     1 / 768 of a beta)."""
-    watched = SPLIT + SPLIT_BWD + (trace_wave_kernel, trace_wave_bwd_kernel)
+    watched = SPLIT + SPLIT_BWD + (fused_search_kernel, trace_wave_kernel,
+                                   trace_wave_bwd_kernel)
     out = []
     for _ in range(2):
         before = [k.launches for k in watched]
@@ -522,7 +534,7 @@ def test_render_waves_split_route_grads_on_card(cuda):
         out.append(_fog_grads(cuda))
         torch.cuda.synchronize()
         assert [k.launches - b for k, b in zip(watched, before)] == \
-            [DEPTH] * 5 + [0, 0]
+            [0] + [DEPTH] * 5 + [0, 0]
         assert bwd_reduce_kernel.launches > sums   # the glue's row sums
     ref = _fog_grads("cpu")
     for k, v in out[0].items():
@@ -564,3 +576,190 @@ def test_row_sums_on_card(cuda):
     mag = torch.zeros(256, 3, dtype=torch.float64).index_add_(0, idx,
                                                               g64.abs())
     assert bool(((got.cpu().double() - ref).abs() <= 1e-5 * mag).all())
+
+
+# ---- the triangle search (K, M) and the fused bounce (F, F') -------------
+
+SEARCH = (tile_enter_kernel, fused_search_kernel)
+FUSED = (bounce_planes_kernel, bounce_planes_bwd_kernel)
+
+
+def _mesh_calls():
+    """The calls of K, M and F over two bounces of a 32x18 wave of a
+    4,608-triangle mesh on the CPU (36 clusters; chunk 576: two whole
+    256-ray tiles and a short one)."""
+    from rust_ray_tracer_tpu_torch.models import scene as TS
+    from rust_ray_tracer_tpu_torch.ops import camera as tcam
+    from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
+
+    ts = compile_scene(mesh(TS, tcam, 4608), device="cpu")
+    with split_recorder() as rec:
+        render_waves(ts, 32, 18, rng.key(0, "cpu"), 0, 1, depth=2,
+                     chunk_size=576)
+    return rec
+
+
+def _fused_calls():
+    """The calls of F over two bounces of a 32x32 wave of the fog scene
+    with solid textures (checkers, media) on the CPU."""
+    from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
+
+    with split_recorder() as rec:
+        render_waves(torch_scene("solid_fog"), 32, 32, rng.key(7, "cpu"), 0,
+                     1, depth=2, chunk_size=1024)
+    return rec["bp"]
+
+
+def test_search_and_fused_wrappers_refuse_cpu_tensors():
+    rec = _mesh_calls()
+    bp = rec["bp"][0]
+    g = torch.zeros((13, bp[0].shape[1]))
+    before = [k.launches for k in SEARCH + FUSED]
+    for call in (lambda: tile_enter_kernel(*rec["enter"][0]),
+                 lambda: fused_search_kernel(*rec["search"][0]),
+                 lambda: bounce_planes_kernel(*bp),
+                 lambda: bounce_planes_bwd_kernel(*bp, g),
+                 lambda: bounce_planes_bwd_kernel.partials(*bp, g)):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            call()
+    assert [k.launches for k in SEARCH + FUSED] == before
+
+
+def test_search_and_fused_dispatchers_refuse_other_devices():
+    import dataclasses
+
+    from rust_ray_tracer_tpu_torch.ops import bounce, search
+
+    rec = _mesh_calls()
+    rays, cl_min, cl_max, chunk = rec["enter"][0]
+    _, ent, tabs, _ = rec["search"][0]
+    meta = dataclasses.replace(tabs, **{
+        k: v.to("meta") for k, v in dataclasses.asdict(tabs).items()
+        if torch.is_tensor(v)})
+    P, pk, mk, fl, lt, n_lights = rec["bp"][0]
+    with pytest.raises(ValueError, match="unsupported device"):
+        search.tile_enter(rays.to("meta"), cl_min.to("meta"),
+                          cl_max.to("meta"), chunk)
+    with pytest.raises(ValueError, match="unsupported device"):
+        search.fused_search(rays.to("meta"), ent.to("meta"), meta, chunk)
+    args = [x.to("meta") for x in (P, pk, mk, fl, lt)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        bounce.bounce_planes(*args, n_lights)
+    with pytest.raises(ValueError, match="unsupported device"):
+        bounce.bounce_planes_bwd(*args, n_lights,
+                                 torch.zeros((13, P.shape[1]),
+                                             device="meta"))
+
+
+def _to(x, dev):
+    import dataclasses
+
+    if torch.is_tensor(x):
+        return x.to(dev)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            k: v.to(dev) for k, v in dataclasses.asdict(x).items()
+            if torch.is_tensor(v)})
+    return x
+
+
+@pytest.mark.gpu
+def test_search_kernels_match_plain_on_card(cuda):
+    """K and M against their plain versions on the card, on the inputs the
+    split route gives them over two bounces of a 32x18 wave of a
+    4,608-triangle mesh: K's entries equal (the same arithmetic, no FMA),
+    M's kinds, indices and t equal. One launch each a call."""
+    from rust_ray_tracer_tpu_torch.ops import search
+
+    rec = _mesh_calls()
+    for enter, srch in zip(rec["enter"], rec["search"]):
+        before = [k.launches for k in SEARCH]
+        e_args = [_to(x, cuda) for x in enter]
+        s_args = [_to(x, cuda) for x in srch]
+        got_e = search.tile_enter(*e_args)
+        got_s = search.fused_search(*s_args)
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(SEARCH, before)] == [1, 1]
+        assert torch.equal(got_e, search.tile_enter_plain(*e_args))
+        for a, b in zip(got_s, search.fused_search_plain(*s_args)):
+            assert torch.equal(a, b)
+        assert bool((got_s[1] == 1).any())         # triangles won
+
+
+@pytest.mark.gpu
+def test_fused_bounce_kernels_match_plain_on_card(cuda):
+    """F and F' against their plain versions on the card, on the inputs
+    the split route gives F over two bounces of a 32x32 wave of the fog
+    scene with solid textures (checkers, media) and a cotangent from a
+    seed: F's planes within rtol 1e-5 of each lane's largest value / atol
+    1e-6, at most 0.5% of the lanes outside (the card's transcendentals in
+    torch and in the kernel may round a branch's input apart, as H's);
+    F''s dP within rtol 1e-4 / atol 1e-6, at most 0.5% of the lanes
+    outside, its light-table cotangent within relative L2 1e-4. One launch
+    of each (and one of B' for F''s light-table partials); a second run
+    of F' gives the same bits."""
+    from rust_ray_tracer_tpu_torch.ops import bounce
+    from rust_ray_tracer_tpu_torch.ops.bounce_core import (
+        N_IN_B, bounce_plane_core, bounce_plane_core_vjp)
+
+    for P, pk, mk, fl, lt, n_lights in _fused_calls():
+        P, pk, mk, fl, lt = (x.to(cuda) for x in (P, pk, mk, fl, lt))
+        g = torch.from_numpy(np.random.default_rng(3).normal(
+            size=(13, P.shape[1])).astype(np.float32)).to(cuda)
+        before = [k.launches for k in FUSED + (bwd_reduce_kernel,)]
+        out = bounce.bounce_planes(P, pk, mk, fl, lt, n_lights)
+        dP, dlt = bounce.bounce_planes_bwd(P, pk, mk, fl, lt, n_lights, g)
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(FUSED + (bwd_reduce_kernel,),
+                                               before)] == [1, 1, 1]
+        chk = P.shape[0] > N_IN_B
+        assert_scaled_close(
+            out.cpu().numpy(), bounce_plane_core(
+                P, pk, mk, fl, lt, n_lights, chk).cpu().numpy(), 1e-5, 1e-6,
+            axis=0, budget=0.005, what="F")
+        ref_p, ref_lt = bounce_plane_core_vjp(P, pk, mk, fl, lt, n_lights,
+                                              chk, g)
+        assert_scaled_close(dP.cpu().numpy(), ref_p.cpu().numpy(), 1e-4,
+                            1e-6, axis=0, budget=0.005, what="F' dP")
+        assert rel_l2(dlt.cpu().numpy(), ref_lt.cpu().numpy()) <= 1e-4
+        again = bounce_planes_bwd_kernel(P, pk, mk, fl, lt, n_lights, g)
+        assert torch.equal(dP, again[0]) and torch.equal(dlt, again[1])
+
+
+@pytest.mark.gpu
+def test_render_waves_mesh_on_card(cuda):
+    """render_waves and torch.autograd on a 4,608-triangle mesh on the
+    card go through K, M, F and F' once a bounce and none of A, B, O, J or
+    H; the image matches the plain route on the card within the flip
+    budget, and the gradients are finite and the same bits twice."""
+    from rust_ray_tracer_tpu_torch.models import scene as TS
+    from rust_ray_tracer_tpu_torch.models.scene import combine, partition
+    from rust_ray_tracer_tpu_torch.ops import camera as tcam
+    from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
+
+    ts = compile_scene(mesh(TS, tcam, 4608), device=cuda)
+    watched = SEARCH + FUSED + SPLIT + (trace_wave_kernel,
+                                        trace_wave_bwd_kernel)
+    before = [k.launches for k in watched]
+    got = render_waves(ts, 32, 18, rng.key(0), 0, 1, chunk_size=576)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(watched, before)] == \
+        [DEPTH] * 3 + [0] * 6
+    with split_recorder(plain=True):
+        ref = render_waves(ts, 32, 18, rng.key(0), 0, 1, chunk_size=576)
+    assert_flip_budget(got.cpu().numpy(), ref.cpu().numpy())
+    grads = []
+    for _ in range(2):
+        params, static = partition(ts)
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        before = bounce_planes_bwd_kernel.launches
+        render_waves(combine(leaves, static), 32, 18, rng.key(0), 0, 1,
+                     chunk_size=576).mean().backward()
+        torch.cuda.synchronize()
+        assert bounce_planes_bwd_kernel.launches - before == DEPTH
+        grads.append({k: v.grad for k, v in leaves.items()
+                      if v.grad is not None})
+    for k, v in grads[0].items():
+        assert bool(torch.isfinite(v).all()), k
+        assert torch.equal(v, grads[1][k]), k
+    assert float(grads[0]["tri_v0"].abs().max()) > 0

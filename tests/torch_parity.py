@@ -112,8 +112,60 @@ def fog(S, cam_mod):
     ], [lamp], (0.2, 0.3, 0.5))
 
 
+def solid_fog(S, cam_mod):
+    """The fog scene with solid textures (a checker ground of solids, no
+    noise): a media scene whose bounces run on the fused bounce (TPU
+    kernel F) after the unified search (M)."""
+    cam = cam_mod.make_camera(EYE, 60.0, 1.0)
+    lamp = S.XZRect(-1.0, 1.0, -5.0, -3.0, 3.0,
+                    S.DiffuseLight.from_color((5, 5, 5)))
+    return S.Scene(cam, [
+        S.Sphere((0, -101, -4), 100.0,
+                 S.Lambertian(S.Checker.from_colors((0.9, 0.1, 0.1),
+                                                    (0.1, 0.9, 0.1)))),
+        S.Sphere((0, 0, -4), 1.0, S.Lambertian.from_rgb(0.5, 0.4, 0.3)),
+        S.Sphere((2.2, 0, -4), 1.0, S.Dielectric(1.5)),
+        S.XYRect(-3.0, 3.0, -1.0, 3.0, -7.0,
+                 S.Lambertian.from_rgb(0.73, 0.73, 0.73)),
+        S.YZRect(-1.0, 3.0, -7.0, -2.0, -3.0,
+                 S.Metal((0.8, 0.85, 0.88), 0.05)),
+        S.ConstantMedium.from_color(
+            S.Translate(S.RotateY(S.Cuboid((-0.6, -0.6, -0.6),
+                                           (0.6, 0.6, 0.6),
+                                           S.Dielectric(1.5)), 30.0),
+                        (-1.6, 0.0, -3.2)), 0.8, (0.9, 0.9, 0.9)),
+        S.ConstantMedium.from_color(
+            S.Sphere((2.2, 0, -4), 1.0, S.Dielectric(1.5)), 1.5,
+            (0.2, 0.4, 0.9)),
+        lamp,
+    ], [lamp], (0.2, 0.3, 0.5))
+
+
+def mesh(S, cam_mod, n_tris=65536):
+    """The mesh workload: ``n_tris`` double-sided Lambertian triangles plus
+    the flagship's sphere lamp, camera and background. The triangles are
+    drawn as ``__graft_entry__.py:33-47`` draws the flagship's 968
+    (``default_rng(0)``, the same draws in the same order), their edges in
+    +-0.1 * sqrt(968 / n_tris) instead of +-0.1: the flagship's total
+    triangle area, cut finer (65,536 is the JAX package's
+    ``PACKED_MIN_TRIS``, ``pallas_intersect.py:78``)."""
+    rng = np.random.default_rng(0)
+    half = np.float32(0.1 * np.sqrt(968.0 / n_tris))
+    tris = []
+    mat = S.Lambertian.from_rgb(0.8, 0.8, 0.8)
+    for _ in range(n_tris):
+        v0 = rng.uniform(-1, 1, 3).astype(np.float32)
+        v0[2] -= 4.0
+        e = rng.uniform(-half, half, (2, 3)).astype(np.float32)
+        tris.append(S.Triangle(v0, v0 + e[0], v0 + e[1], mat,
+                               double_sided=True))
+    lamp = S.Sphere((3, 3, 0), 0.2, S.DiffuseLight.from_color((250,) * 3))
+    cam = cam_mod.make_camera(np.eye(3, 4, dtype=np.float32), 22.9, 16 / 9)
+    return S.Scene(cam, tris + [lamp], [lamp], (0.051, 0.051, 0.051))
+
+
 SMALL_SCENES = {"solid": solid, "checker": checker, "quad": quad,
-                "noise": noise, "fog": fog}
+                "noise": noise, "fog": fog, "solid_fog": solid_fog}
 
 
 def pin_jax_texture_cache(monkeypatch):
@@ -226,24 +278,36 @@ def rel_l2(got, ref) -> float:
 
 @contextlib.contextmanager
 def split_recorder(plain: bool = False):
-    """Inside ``with``, the split route's three dispatchers — quads (TPU
-    kernel O, ``ops/quad.quad_search``), hit attributes (J,
-    ``ops/hit.hit_planes``), shade+update (H, ``ops/bounce.su_planes``) —
-    record the arguments of each call in the yielded dict's lists
-    ``quad``, ``hit`` and ``su``. They then run as before or, with
-    ``plain``, run the plain versions on any device (the plain route on
-    the card, to hold the kernel route against)."""
-    from rust_ray_tracer_tpu_torch.ops import bounce, hit, quad
+    """Inside ``with``, the split route's dispatchers — quads (TPU kernel
+    O, ``ops/quad.quad_search``), hit attributes (J, ``ops/hit.hit_planes``),
+    shade+update (H, ``ops/bounce.su_planes``), the tile-cluster entries
+    (K, ``ops/search.tile_enter``), the unified search (M,
+    ``ops/search.fused_search``) and the fused bounce (F,
+    ``ops/bounce.bounce_planes``) — record the arguments of each call in
+    the yielded dict's lists ``quad``, ``hit``, ``su``, ``enter``,
+    ``search`` and ``bp``. They then run as before or, with ``plain``, run
+    the plain versions on any device (the plain route on the card, to hold
+    the kernel route against)."""
+    from rust_ray_tracer_tpu_torch.ops import bounce, bounce_core, hit, quad
+    from rust_ray_tracer_tpu_torch.ops import search
 
-    rec = {"quad": [], "hit": [], "su": []}
+    rec = {"quad": [], "hit": [], "su": [], "enter": [], "search": [],
+           "bp": []}
     sites = ((quad, "quad_search", "quad"), (hit, "hit_planes", "hit"),
-             (bounce, "su_planes", "su"))
+             (bounce, "su_planes", "su"), (search, "tile_enter", "enter"),
+             (search, "fused_search", "search"),
+             (bounce, "bounce_planes", "bp"))
     real = [getattr(mod, fn) for mod, fn, _ in sites]
     runs = real
     if plain:
         runs = [lambda sc, o, d, t_min, t_max, table=None:
                 quad._quad_candidates(sc, o, d, t_min, t_max),
-                hit.hit_plane_core, bounce.su_plane_core]
+                hit.hit_plane_core, bounce.su_plane_core,
+                search.tile_enter_plain, search.fused_search_plain,
+                lambda P, pk, mk, fl, lt, n_lights:
+                bounce_core.bounce_plane_core(
+                    P, pk, mk, fl, lt, n_lights,
+                    P.shape[0] > bounce_core.N_IN_B)]
 
     def recording(fn, key):
         def wrapped(*args):
