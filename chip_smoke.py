@@ -32,7 +32,18 @@ mesh (``tests/torch_parity.mesh``, 16x the trace kernel's rows) on the
 split route's unified search and fused bounce, forward (``mesh_forward``:
 K, M and F launched every bounce, each held against its plain version
 on a 128x72 wave's inputs) and ``bench.py``'s training step
-(``mesh_train``: K, M, F and F' every bounce). Last it runs the
+(``mesh_train``: K, M, F and F' every bounce). Then, in a temporary
+working directory holding a procedural 1024x512 ``earthmap.jpg`` (the
+earlier phases ran without it), the earth-map scenes on the split route:
+earth and final_scene at 64x64 against the plain route
+(``earth_checks``); random with the map, forward (``random_earth_forward``:
+TPU kernel N, the cluster-culled sphere search over its 1,024 sphere rows,
+J and H every bounce) and ``bench.py``'s training step
+(``random_earth_train``: N, J, H, J', H' every bounce, gradients non-zero
+on the image atlas); and random's world with the flagship's 968
+triangles (``tri_scene``: K and TPU kernel L, the triangle search alone,
+beside N), N and L held against their plain versions on every bounce of
+a 128x72 wave and on a full-size wave's bounce 0. Last it runs the
 inverse-rendering example for 60 steps and the CLI on the Cornell box,
 perlin_spheres and final_scene. Each phase prints
 one JSON line; any failure raises, so the exit code is non-zero. Then come
@@ -67,11 +78,13 @@ from rust_ray_tracer_tpu_torch.kernels import (bounce_planes_bwd_kernel,
                                                quad_search_kernel,
                                                shade_update_bwd_kernel,
                                                shade_update_kernel,
+                                               sph_search_kernel,
                                                tile_enter_kernel,
                                                trace_wave_bwd_kernel,
                                                trace_wave_bwd_noise_kernel,
                                                trace_wave_kernel,
-                                               trace_wave_noise_kernel)
+                                               trace_wave_noise_kernel,
+                                               tri_search_kernel)
 from rust_ray_tracer_tpu_torch.models import builders
 from rust_ray_tracer_tpu_torch.models import scene as S
 from rust_ray_tracer_tpu_torch.models.scene import (combine, compile_scene,
@@ -84,17 +97,21 @@ from rust_ray_tracer_tpu_torch.ops import hit as hit_ops
 from rust_ray_tracer_tpu_torch.ops import intersect as isect
 from rust_ray_tracer_tpu_torch.ops import quad as quad_ops
 from rust_ray_tracer_tpu_torch.ops import search as search_ops
+from rust_ray_tracer_tpu_torch.ops import sphere as sphere_ops
 from rust_ray_tracer_tpu_torch.ops import uber
 from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
 from rust_ray_tracer_tpu_torch.utils import cli
 from rust_ray_tracer_tpu_torch.utils import rng
+from rust_ray_tracer_tpu_torch.utils.image import decode_image
 
 # the split route's dispatcher hooks, shared with the tests (no JAX there)
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
 from torch_parity import mesh as mesh_host  # noqa: E402
+from torch_parity import random_tris as random_tris_host  # noqa: E402
 from torch_parity import solid_fog as solid_fog_host  # noqa: E402
 from torch_parity import split_cots, split_recorder  # noqa: E402
+from torch_parity import write_earth_map  # noqa: E402
 
 WIDTH, HEIGHT, SPP, DEPTH, CHUNK = 512, 288, 4, 4, 9216
 FLIP_ABS = 1e-3          # a pixel "flips" when any channel is off by more
@@ -152,6 +169,11 @@ SEARCH_KERNELS = (tile_enter_kernel, fused_search_kernel)
 FUSED_KERNELS = (bounce_planes_kernel,)
 FUSED_BWD_KERNELS = (bounce_planes_bwd_kernel,)
 MESH_W, MESH_H = 128, 72  # the mesh's check against the plain versions
+# the per-kind searches of the split route (TPU kernels N: csrc/sphere.cu,
+# and L: M's entry point in csrc/search.cu with no sphere or quad rows):
+# N per ray-sphere test OPS_PRIM, L per ray-triangle test OPS_TRI
+CULL_KERNELS = (sph_search_kernel, tri_search_kernel)
+EARTH_W, EARTH_H = 1024, 512  # the procedural earth map of the new phases
 
 
 def emit(obj) -> None:
@@ -512,8 +534,9 @@ class PlainCalls:
     the split route's ``_quad_candidates`` (as ``ops/quad`` calls it),
     ``hit_plane_core`` and ``hit_plane_core_vjp`` (``ops/hit``),
     ``su_plane_core``, ``su_plane_core_vjp``, ``bounce_plane_core`` and
-    ``bounce_plane_core_vjp`` (``ops/bounce``), ``tile_enter_plain`` and
-    ``fused_search_plain`` (``ops/search``) record their names in
+    ``bounce_plane_core_vjp`` (``ops/bounce``), ``tile_enter_plain``,
+    ``fused_search_plain`` and ``tri_search_plain`` (``ops/search``) and
+    ``sph_search_plain`` (``ops/sphere``) record their names in
     ``calls``; ``real`` and ``real_bwd`` stay the uncounted functions."""
 
     real = uber.trace_wave_plain
@@ -525,7 +548,9 @@ class PlainCalls:
              (search_ops, "tile_enter_plain"),
              (search_ops, "fused_search_plain"),
              (bounce_ops, "bounce_plane_core"),
-             (bounce_ops, "bounce_plane_core_vjp"))
+             (bounce_ops, "bounce_plane_core_vjp"),
+             (sphere_ops, "sph_search_plain"),
+             (search_ops, "tri_search_plain"))
 
     def __init__(self):
         self.calls = []
@@ -2123,6 +2148,527 @@ def mesh_rows(fwd, train, worst_small) -> list[dict]:
     return rows
 
 
+@contextlib.contextmanager
+def earth_map_dir():
+    """A temporary working directory holding a procedural EARTH_W x
+    EARTH_H ``earthmap.jpg`` (``tests/torch_parity.earth_map``; its bytes
+    a PNG from the port's ``encode_png``: the decoders know a format by
+    its bytes, as the reference's ``image`` crate does), entered for the
+    earth-map phases only and left in a ``finally``, so the earlier phases
+    compile random, earth and final_scene without it (solid yellow, on
+    their old routes) and no map is left behind. Yields the host's seconds
+    to write the map and to decode it, and which decoder ran."""
+    import tempfile
+
+    try:
+        import PIL  # noqa: F401
+        decoder = "PIL"
+    except ImportError:
+        decoder = "rust_ray_tracer_tpu_torch/utils/image.decode_image"
+    prev = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = write_earth_map(tmp, EARTH_W, EARTH_H)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        img = S.ImageTexture(path=path).load()
+        decode_s = time.perf_counter() - t0
+        if img is None or img.shape != (EARTH_H, EARTH_W, 3):
+            raise AssertionError("the earth map does not decode")
+        # the port's own decoder, which ImageTexture takes without PIL
+        t0 = time.perf_counter()
+        with open(path, "rb") as f:
+            own = decode_image(f.read())
+        own_s = time.perf_counter() - t0
+        if not np.array_equal(own.astype(np.float32) / 255.0, img):
+            raise AssertionError("utils/image.decode_image and the "
+                                 "texture's decoder disagree")
+        os.chdir(tmp)
+        try:
+            yield {"map": [EARTH_H, EARTH_W], "bytes": os.path.getsize(path),
+                   "decoder": decoder, "write_s": write_s,
+                   "decode_s": decode_s, "decode_image_s": own_s}
+        finally:
+            os.chdir(prev)
+
+
+def cull_vs_plain(calls, label, bounces) -> dict:
+    """N and L against their plain versions on the card, on the recorded
+    calls (``split_recorder``'s ``sph`` and ``tri``) of ``bounces``: the
+    winners' indices equal and t bitwise (inf on the same rays). Returns
+    each kernel's worst error (0) and the share of rays that hit."""
+    out = {}
+    for key, kern, plain in (
+            ("sph", sph_search_kernel, sphere_ops.sph_search_plain),
+            ("tri", tri_search_kernel, search_ops.tri_search_plain)):
+        for b in bounces:
+            if b >= len(calls[key]):
+                continue
+            got_t, got_i = kern(*calls[key][b])
+            ref_t, ref_i = plain(*calls[key][b])
+            bad = (got_i.long() != ref_i.long()) | (got_t != ref_t)
+            if bool(bad.any()):
+                raise AssertionError(f"{label}: {kern.name} differs from its "
+                                     f"plain version on {int(bad.sum())} "
+                                     f"rays at bounce {b}")
+            r = out.setdefault(kern.name, {
+                "lanes_outside": 0.0, "max_abs_err": 0.0,
+                "winners_equal": True, "t_bitwise": True, "hit_share": []})
+            r["hit_share"].append(float(torch.isfinite(ref_t).float()
+                                        .mean()))
+    return out
+
+
+def cull_work(calls) -> dict:
+    """What N and L must do on these recorded calls (one launch each a
+    bounce), counted from the data: N's ray-sphere tests (every live ray
+    of a 256-ray tile against the 128 rows of each cluster some ray of
+    the tile enters: ``_tile_cluster_mask``'s cull, what the algorithm
+    needs) and L's ray-triangle tests (K's cull, ``search_work``'s count
+    with no sphere or quad rows), and each kernel's bytes (the ray planes
+    and the tables read once, t and the index written once)."""
+    w = {"sph_tests": 0, "n_bytes": 0, "tri_tests": 0, "l_bytes": 0}
+    for rays, tab, cl_min, cl_max, _, chunk in calls["sph"]:
+        n = rays.shape[1]
+        ent = search_ops.tile_enter_plain(rays, cl_min, cl_max, chunk)
+        _, _, chunk_p = search_ops._tiles(n, chunk)
+        live_t = search_ops._tile_pad((rays[8] > rays[7]).float(), chunk,
+                                      chunk_p, 0.0).reshape(
+                                          -1, search_ops.BC).sum(1)
+        w["sph_tests"] += int((torch.isfinite(ent).sum(1).double()
+                               * live_t.double()).sum()) * S.CLUSTER
+        w["n_bytes"] += (9 * n + tab.numel() + cl_min.numel() * 2
+                         + 2 * n) * 4
+    if calls["tri"]:
+        tri = search_work({"enter": calls["enter"], "search": [
+            (r, e, search_ops.tri_only(t), c) for r, e, t, c in calls["tri"]]})
+        w["tri_tests"], w["l_bytes"] = tri["tri_tests"], tri["m_bytes"]
+    w["n_ops"] = w["sph_tests"] * OPS_PRIM
+    w["l_ops"] = w["tri_tests"] * OPS_TRI
+    return w
+
+
+def earth_checks(dev) -> dict:
+    """earth and final_scene with the earth map at 64x64 on the split
+    route (the image leaf: J, ``texture_value``, H; final_scene's quads
+    by O), the kernel route's image against the plain route's on the card
+    (every pixel outside RTOL / ATOL a flip), each kernel against its
+    plain version on the scene's bounce-0 inputs. Emits ``earth_checks``
+    per scene; returns the worst error per kernel."""
+    worst = {}
+    w = h = 64
+    for label in ("earth", "final_scene"):
+        t0 = time.perf_counter()
+        sg = compile_scene(builders.get_scene(label, 1.0), device=dev)
+        compile_s = time.perf_counter() - t0
+        if uber.uber_eligible(sg) or not sg.img_data.shape[0]:
+            raise AssertionError(f"{label} does not take the split route "
+                                 "with its earth map")
+        with torch.no_grad():
+            with split_recorder() as rec:
+                img_k = render_waves(sg, w, h, rng.key(0, dev), 0, 1,
+                                     depth=DEPTH, chunk_size=4096)
+            with split_recorder(plain=True):
+                img_p = render_waves(sg, w, h, rng.key(0, dev), 0, 1,
+                                     depth=DEPTH, chunk_size=4096)
+            torch.cuda.synchronize()
+            kern = split_kernels_vs_plain(rec, f"{label} earth map")
+            kern.update(cull_vs_plain(rec, f"{label} earth map", (0,)))
+        for name, r in kern.items():
+            worst[name] = {k: max(worst.get(name, {}).get(k, 0.0), r[k])
+                           for k in ("lanes_outside", "max_abs_err")}
+        emit({"phase": "earth_checks", "scene": label,
+              "shape": [h, w, 1, DEPTH], "compile_scene_s": compile_s,
+              "images": list(sg.img_data.shape),
+              "calls": {k: len(v) for k, v in rec.items()},
+              "image_vs_plain_cuda": compare(
+                  img_k, img_p, f"{label}: earth map, kernels vs plain",
+                  flip_abs=None),
+              "kernels": kern, "mean": float(img_k.mean())})
+    return worst
+
+
+def random_earth_forward(dev, smi) -> dict:
+    """random with the earth map at the bench shape on the split route
+    (its image leaf keeps it off the trace kernel, as in JAX): per wave
+    DEPTH launches each of N (1,024 sphere rows, the per-kind branch), J
+    and H, none of A, K, M, L, O or F, no plain call, a finite image; N
+    against its plain version on every bounce of a MESH_W x MESH_H wave
+    and on a full-size wave's bounce 0 (indices equal, t bitwise), J and
+    H on that bounce 0, the route's images against the plain route's;
+    sweep ms (median, min, max of 7), per-wave kernel and glue ms and
+    the busy share by the profiler; N's ms per launch out of L2 on every
+    bounce's recorded inputs of the full-size wave, in the path, and its
+    plain version's; the work for N's bound. Emits
+    ``random_earth_forward``."""
+    t0 = time.perf_counter()
+    scene = compile_scene(builders.random_scene(WIDTH / HEIGHT), device=dev)
+    compile_s = time.perf_counter() - t0
+    key = rng.key(0, dev)
+    if (uber.uber_eligible(scene) or scene.n_spheres < S.CLUSTER
+            or not scene.img_data.shape[0]):
+        raise AssertionError("random with the earth map is not an N-route "
+                             "scene")
+
+    def render(n_waves, w=WIDTH, h=HEIGHT):
+        with torch.no_grad():
+            return render_waves(scene, w, h, key, 0, n_waves, depth=DEPTH,
+                                chunk_size=CHUNK)
+
+    watched = (CULL_KERNELS + SPLIT_KERNELS + SEARCH_KERNELS + FUSED_KERNELS
+               + (trace_wave_kernel, trace_wave_noise_kernel))
+    with PlainCalls() as plain:
+        for k in watched:
+            k.launches = 0
+        img = render(SPP)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in watched}
+    want = {k.name: 0 for k in watched}
+    want.update({k.name: SPP * DEPTH for k in (sph_search_kernel,
+                                               hit_attrs_kernel,
+                                               shade_update_kernel)})
+    if launches != want:
+        raise AssertionError(f"random earth launches {launches}, expected "
+                             f"{want}")
+    if plain.calls:
+        raise AssertionError(f"plain versions ran on the main path: "
+                             f"{sorted(set(plain.calls))}")
+    if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(
+            torch.isfinite(img).all()):
+        raise AssertionError("random earth image: wrong shape or non-finite")
+
+    with split_recorder() as rec_s:
+        small_k = render(1, MESH_W, MESH_H)
+    with split_recorder(plain=True):
+        small_p = render(1, MESH_W, MESH_H)
+    small_img = compare(small_k, small_p, "random earth: kernels vs plain "
+                        f"route ({MESH_W}x{MESH_H})", flip_abs=None)
+    with torch.no_grad():
+        small = cull_vs_plain(rec_s, "random earth small", range(DEPTH))
+    with split_recorder() as rec:
+        wave_k = render(1)
+    with split_recorder(plain=True):
+        wave_p = render(1)
+    full_img = compare(wave_k, wave_p, "random earth: kernels vs plain "
+                       "route (full size)", flip_abs=None)
+    with torch.no_grad():
+        full = cull_vs_plain(rec, "random earth full size", (0,))
+        full.update(split_kernels_vs_plain(rec, "random earth full size"))
+
+    sweeps = cuda_ms(lambda: render(SPP), 7)
+    names = {"sph_search": "sph_search_kernel",
+             "hit_attrs": "hit_attrs_kernel",
+             "shade_update": "shade_update_kernel"}
+    prof = profile_device(lambda: render(1), tuple(names.values()), top=10)
+    per = prof["per_kernel"] or {}
+    in_path = {n: (per.get(k) or {}).get("ms_per_launch")
+               for n, k in names.items()}
+    with torch.no_grad():
+        n_cold = [median(cold_ms(lambda c=c: sph_search_kernel(*c)))
+                  for c in rec["sph"]]
+        n_plain = [median(cuda_ms(
+            lambda c=c: sphere_ops.sph_search_plain(*c), 3))
+            for c in rec["sph"]]
+        work = cull_work(rec)
+    med = median(sweeps)
+    wave_ms = med / SPP
+    kern_wave = (None if None in in_path.values()
+                 else sum(in_path[n] * DEPTH for n in names))
+    lane_bounces = WIDTH * HEIGHT * SPP * DEPTH
+    emit({"phase": "random_earth_forward", "card": smi,
+          "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
+          "compile_scene_s": compile_s,
+          "tables": {"spheres": scene.n_spheres,
+                     "sphere_clusters": scene.sph_cluster_min.shape[0],
+                     "images": list(scene.img_data.shape)},
+          "launches": launches, "plain_calls": len(plain.calls),
+          "image_mean": float(img.mean()) / SPP,
+          "small_wave_vs_plain_route": small_img,
+          "wave_vs_plain_route": full_img,
+          "kernels_vs_plain_small": small,
+          "kernels_vs_plain_full_bounce0": full,
+          "kernel_vs_plain_budget": {
+              "sph_search": "indices equal, t bitwise",
+              "hit_attrs_lanes_outside": 0.0,
+              "shade_update_lanes_outside": FLIP_BUDGET,
+              "image_flip": "any channel outside rtol/atol",
+              "flip_frac": FLIP_BUDGET, "rtol": RTOL, "atol": ATOL},
+          "sweep_ms_median": med, "sweep_ms_min": min(sweeps),
+          "sweep_ms_max": max(sweeps), "sweeps": len(sweeps),
+          "fwd_mrays_per_s": lane_bounces / (med / 1e3) / 1e6,
+          "fwd_mrays_per_s_min": lane_bounces / (max(sweeps) / 1e3) / 1e6,
+          "fwd_mrays_per_s_max": lane_bounces / (min(sweeps) / 1e3) / 1e6,
+          "ms_per_wave": {**{n: None if in_path[n] is None
+                             else in_path[n] * DEPTH for n in names},
+                          "glue": None if kern_wave is None
+                          else wave_ms - kern_wave, "wave": wave_ms},
+          "ms_per_launch_profiler": in_path,
+          "sph_search_ms_per_bounce_l2_flushed": n_cold,
+          "sph_search_plain_ms_per_bounce": n_plain,
+          "work_per_wave": work,
+          "profiled_wave": prof})
+    return {"launches": launches, "small": small, "full": full,
+            "ms": statistics.fmean(n_cold), "ms_in_path": in_path,
+            "plain_ms": statistics.fmean(n_plain), "work": work,
+            "scene": scene, "key": key}
+
+
+def random_earth_train(dev, smi, fwd) -> dict:
+    """``bench.py``'s training step on random with the earth map at the
+    bench shape: ``loss = mean(render_waves(...))``, ``backward()`` over
+    every float leaf of ``partition``. Per step SPP * DEPTH launches each
+    of N, J, H, J' and H', none of A, B, K, M, L, O, F or F', B'
+    (``bwd_reduce``) for H''s partials and the glue's row sums (the
+    texels' among them), no plain call; gradients finite, bitwise equal
+    over two steps, non-zero on ``img_data``, ``tex_color`` and
+    ``sph_c0``; the step's rate (median, min, max of 7), its forward and
+    backward apart, a profiled one-wave step (per-kernel ms, busy share),
+    the peak memory. Emits ``random_earth_train``."""
+    scene, key = fwd["scene"], fwd["key"]
+    params, static = partition(scene)
+
+    def run(n_waves):
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        loss = render_waves(combine(leaves, static), WIDTH, HEIGHT, key, 0,
+                            n_waves, depth=DEPTH, chunk_size=CHUNK).mean()
+        return loss, leaves
+
+    def step(n_waves=SPP):
+        loss, leaves = run(n_waves)
+        loss.backward()
+        return loss, {k: v.grad for k, v in leaves.items()}
+
+    watched = (CULL_KERNELS + SPLIT_KERNELS + SPLIT_BWD_KERNELS
+               + SEARCH_KERNELS + FUSED_KERNELS + FUSED_BWD_KERNELS
+               + WHOLE_WAVE_KERNELS + (bwd_reduce_kernel,))
+    with PlainCalls() as plain:
+        for k in watched:
+            k.launches = 0
+        loss, grads = step()
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in watched}
+        _, grads2 = step()
+        torch.cuda.synchronize()
+    want = {k.name: 0 for k in watched}
+    want.update({k.name: SPP * DEPTH for k in (sph_search_kernel,
+                                               hit_attrs_kernel,
+                                               shade_update_kernel)
+                 + SPLIT_BWD_KERNELS})
+    want["bwd_reduce"] = launches["bwd_reduce"]
+    if launches != want or launches["bwd_reduce"] <= SPP * DEPTH:
+        raise AssertionError(f"random earth training launches {launches}, "
+                             f"expected {want}")
+    if plain.calls:
+        raise AssertionError(f"plain versions ran on the training path: "
+                             f"{sorted(set(plain.calls))}")
+    grads = {k: v for k, v in grads.items() if v is not None}
+    for k, v in grads.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"non-finite gradient of {k}")
+        if not torch.equal(v, grads2[k]):
+            raise AssertionError(f"gradient of {k} differs between steps")
+    nonzero = {k: float(grads[k].abs().max())
+               for k in ("img_data", "tex_color", "sph_c0")}
+    if min(nonzero.values()) <= 0:
+        raise AssertionError(f"zero gradients: {nonzero}")
+    texels = int((grads["img_data"].abs().sum(-1) > 0).sum())
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps_ms = cuda_ms(step, 7)
+    peak = torch.cuda.max_memory_allocated(dev)
+    fwd_ms, bwd_ms = [], []
+    for _ in range(3):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        loss_t, _ = run(SPP)
+        e[1].record()
+        loss_t.backward()
+        e[2].record()
+        torch.cuda.synchronize()
+        fwd_ms.append(e[0].elapsed_time(e[1]))
+        bwd_ms.append(e[1].elapsed_time(e[2]))
+        del loss_t
+    names = {"sph_search": "sph_search_kernel",
+             "hit_attrs": "hit_attrs_kernel",
+             "shade_update": "shade_update_kernel",
+             "hit_attrs_bwd": "hit_attrs_bwd_kernel",
+             "shade_update_bwd": "shade_update_bwd_kernel",
+             "bwd_reduce": "bwd_reduce_kernel"}
+    prof = profile_device(lambda: step(1), tuple(names.values()), top=15)
+    per = prof["per_kernel"] or {}
+    in_path = {n: (per.get(k) or {}).get("ms_per_launch")
+               for n, k in names.items()}
+    step_med = median(steps_ms)
+    fwd_wave, bwd_wave = median(fwd_ms) / SPP, median(bwd_ms) / SPP
+    red = per.get("bwd_reduce_kernel") or {}
+    red_wave = (None if red.get("ms_per_launch") is None
+                else red["ms_per_launch"] * red["launches"])
+    wave_k = {n: None if in_path[n] is None else in_path[n] * DEPTH
+              for n in names if n != "bwd_reduce"}
+    fwd_k = [wave_k[n] for n in ("sph_search", "hit_attrs", "shade_update")]
+    bwd_k = [wave_k["hit_attrs_bwd"], wave_k["shade_update_bwd"], red_wave]
+    lane_bounces = WIDTH * HEIGHT * SPP * DEPTH
+    emit({"phase": "random_earth_train", "card": smi,
+          "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
+          "loss": float(loss.detach()), "launches": launches,
+          "plain_calls": len(plain.calls), "grads_finite": True,
+          "grads_bitwise_repeat": True, "grad_max_abs": nonzero,
+          "img_data_texels_with_grad": texels,
+          "leaves_with_grad": sorted(k for k, v in grads.items()
+                                     if bool(v.any())),
+          "step_ms_median": step_med, "step_ms_min": min(steps_ms),
+          "step_ms_max": max(steps_ms), "steps": len(steps_ms),
+          "fwd_bwd_mrays_per_s": lane_bounces / (step_med / 1e3) / 1e6,
+          "fwd_bwd_mrays_per_s_min": lane_bounces / (max(steps_ms) / 1e3)
+          / 1e6,
+          "fwd_bwd_mrays_per_s_max": lane_bounces / (min(steps_ms) / 1e3)
+          / 1e6,
+          "peak_memory_bytes": peak,
+          "ms_per_wave": {
+              "forward": fwd_wave, "backward": bwd_wave,
+              "glue_forward": None if None in fwd_k
+              else fwd_wave - sum(fwd_k),
+              "glue_backward": None if None in bwd_k
+              else bwd_wave - sum(bwd_k),
+              **wave_k, "bwd_reduce": red_wave},
+          "ms_per_launch_profiler": in_path,
+          "profiled_one_wave_step": prof})
+    return {"launches": launches, "ms_in_path": in_path}
+
+
+def tri_scene_phase(dev, smi) -> dict:
+    """The L check scene (``tests/torch_parity.random_tris``: random's
+    world with the earth map and the flagship's 968 triangles, 1,024
+    rows, beside its 1,024 sphere rows): the split route's per-kind
+    branch, K and L for the triangles and N for the spheres. One
+    full-size wave (1 spp) through ``render_waves``: DEPTH launches each
+    of K, L, N, J and H, none of M, O, F or A, no plain call; the share of
+    primaries whose first hit is a triangle; N and L against their plain
+    versions on every bounce of a MESH_W x MESH_H wave and on the
+    full-size wave's bounce 0, K on bounces 0 and 1 of the small wave,
+    the route's small image against the plain route's; L's ms per launch
+    out of L2 on every bounce's recorded inputs, in the path (the
+    profiler names it ``fused_search_kernel``: L is M's entry point),
+    and its plain version's; the work for L's bound. Emits
+    ``tri_scene``."""
+    t0 = time.perf_counter()
+    scene = compile_scene(random_tris_host(S, builders, WIDTH / HEIGHT),
+                          device=dev)
+    compile_s = time.perf_counter() - t0
+    key = rng.key(0, dev)
+    if search_ops.unified(scene) or not scene.n_tris:
+        raise AssertionError("the L check scene takes the unified search")
+
+    def render(n_waves, w=WIDTH, h=HEIGHT):
+        with torch.no_grad():
+            return render_waves(scene, w, h, key, 0, n_waves, depth=DEPTH,
+                                chunk_size=CHUNK)
+
+    watched = (CULL_KERNELS + SPLIT_KERNELS + SEARCH_KERNELS + FUSED_KERNELS
+               + (trace_wave_kernel, trace_wave_noise_kernel))
+    with PlainCalls() as plain, split_recorder() as rec:
+        for k in watched:
+            k.launches = 0
+        img = render(1)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in watched}
+    want = {k.name: 0 for k in watched}
+    want.update({k.name: DEPTH for k in CULL_KERNELS + (
+        tile_enter_kernel, hit_attrs_kernel, shade_update_kernel)})
+    if launches != want:
+        raise AssertionError(f"L scene launches {launches}, expected {want}")
+    if plain.calls:
+        raise AssertionError(f"plain versions ran on the main path: "
+                             f"{sorted(set(plain.calls))}")
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError("L scene image: non-finite pixels")
+    tri_share = float((rec["hit"][0][1] == isect.KIND_TRI).float().mean())
+    if tri_share < 0.05:
+        raise AssertionError(f"{tri_share:.2%} of primaries hit triangles")
+
+    with split_recorder() as rec_s:
+        small_k = render(1, MESH_W, MESH_H)
+    with split_recorder(plain=True):
+        small_p = render(1, MESH_W, MESH_H)
+    small_img = compare(small_k, small_p, "L scene: kernels vs plain route "
+                        f"({MESH_W}x{MESH_H})", flip_abs=None)
+    with torch.no_grad():
+        small = cull_vs_plain(rec_s, "L scene small", range(DEPTH))
+        small.update(search_fused_vs_plain(rec_s, "L scene small"))
+        full = cull_vs_plain(rec, "L scene full size", (0,))
+    names = {"tile_enter": "tile_enter_kernel",
+             "tri_search": "fused_search_kernel",
+             "sph_search": "sph_search_kernel",
+             "hit_attrs": "hit_attrs_kernel",
+             "shade_update": "shade_update_kernel"}
+    prof = profile_device(lambda: render(1), tuple(names.values()), top=10)
+    per = prof["per_kernel"] or {}
+    in_path = {n: (per.get(k) or {}).get("ms_per_launch")
+               for n, k in names.items()}
+    with torch.no_grad():
+        l_cold = [median(cold_ms(lambda c=c: tri_search_kernel(*c)))
+                  for c in rec["tri"]]
+        l_plain = [median(cuda_ms(
+            lambda c=c: search_ops.tri_search_plain(*c), 1))
+            for c in rec["tri"]]
+        work = cull_work(rec)
+    emit({"phase": "tri_scene", "card": smi,
+          "shape": [HEIGHT, WIDTH, 1, DEPTH], "chunk_size": CHUNK,
+          "compile_scene_s": compile_s,
+          "tables": {"triangles": scene.n_tris,
+                     "triangle_clusters": scene.tri_cluster_min.shape[0],
+                     "spheres": scene.n_spheres},
+          "launches": launches, "plain_calls": len(plain.calls),
+          "primary_triangle_share": tri_share,
+          "image_mean": float(img.mean()),
+          "small_wave_vs_plain_route": small_img,
+          "kernels_vs_plain_small": small,
+          "kernels_vs_plain_full_bounce0": full,
+          "ms_per_launch_profiler": in_path,
+          "tri_search_ms_per_bounce_l2_flushed": l_cold,
+          "tri_search_plain_ms_per_bounce": l_plain,
+          "work_per_wave": work,
+          "profiled_wave": prof})
+    return {"launches": launches, "small": small, "full": full,
+            "ms": statistics.fmean(l_cold), "ms_in_path": in_path,
+            "plain_ms": statistics.fmean(l_plain), "work": work}
+
+
+def cull_rows(rand, tri) -> list[dict]:
+    """The ``{"kernels": [...]}`` rows of N (random with the earth map,
+    forward) and L (the L check scene's full-size wave): launches on that
+    main path; device ms per launch out of L2 (``ms``) and in the path
+    (``ms_in_path``, the profiler's), plain ms, each averaged over the
+    wave's bounces on their recorded inputs; the bound of one launch from
+    the tests this run's cull leaves (N: x OPS_PRIM, L: x OPS_TRI) and the
+    bytes, averaged over the same bounces."""
+    rows = []
+    for name, ph, repl, src, nb, ops in (
+            ("sph_search", rand,
+             "rust_ray_tracer_tpu/ops/pallas_sphere.py:139",
+             "rust_ray_tracer_tpu_torch/csrc/sphere.cu",
+             rand["work"]["n_bytes"], rand["work"]["n_ops"]),
+            ("tri_search", tri,
+             "rust_ray_tracer_tpu/ops/pallas_intersect.py:326",
+             "rust_ray_tracer_tpu_torch/csrc/search.cu",
+             tri["work"]["l_bytes"], tri["work"]["l_ops"])):
+        b_ms, b_by = bound(nb / DEPTH, ops / DEPTH)
+        errs = [r[name]["max_abs_err"] for r in (ph["small"], ph["full"])]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": repl, "launches": ph["launches"][name],
+                     "max_abs_err": max(errs), "ms": ph["ms"],
+                     "ms_in_path": ph["ms_in_path"][name],
+                     "plain_ms": ph["plain_ms"], "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None,
+                     "bytes_per_launch": nb / DEPTH,
+                     "operations_per_launch": ops / DEPTH})
+    rows[0]["sphere_tests_per_launch"] = rand["work"]["sph_tests"] / DEPTH
+    rows[1]["triangle_tests_per_launch"] = tri["work"]["tri_tests"] / DEPTH
+    rows[1]["kernel"] = ("fused_search_kernel launched with no sphere or "
+                         "quad rows (M's triangle test is L's)")
+    return rows
+
+
 def bound(nbytes, ops):
     tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
     return max(tb, to), ("bytes" if tb >= to else "operations")
@@ -2276,7 +2822,8 @@ def main() -> int:
     for k in ((trace_wave_kernel, trace_wave_noise_kernel,
                trace_wave_bwd_kernel, trace_wave_bwd_noise_kernel,
                bwd_reduce_kernel) + SPLIT_KERNELS + SPLIT_BWD_KERNELS
-              + SEARCH_KERNELS + FUSED_KERNELS + FUSED_BWD_KERNELS):
+              + SEARCH_KERNELS + FUSED_KERNELS + FUSED_BWD_KERNELS
+              + CULL_KERNELS):
         k.load()
     emit({"phase": "build", "wall_seconds": time.perf_counter() - t0,
           "libraries": {n: {"file": b.path.name, "nvcc_seconds": b.seconds,
@@ -2308,7 +2855,22 @@ def main() -> int:
     mesh_fwd = mesh_forward(dev, smi)
     mesh_tr = mesh_train(dev, smi, mesh_fwd)
 
-    # ---- 10. the inverse-rendering example on the card -------------------
+    # ---- 10. the earth map (image textures): earth and final_scene at
+    # 64x64, random's N path at full size (forward, training step), the
+    # L check scene; the map lives in a temporary working directory
+    t0 = time.perf_counter()
+    with earth_map_dir() as emap:
+        emit({"phase": "earth_map", **emap})
+        earth_checks(dev)
+        rand_e_fwd = random_earth_forward(dev, smi)
+        random_earth_train(dev, smi, rand_e_fwd)
+        tri = tri_scene_phase(dev, smi)
+    if os.path.exists("earthmap.jpg"):
+        raise AssertionError("an earthmap.jpg was left in the working "
+                             "directory")
+    emit({"phase": "earth_map_phases", "seconds": time.perf_counter() - t0})
+
+    # ---- 11. the inverse-rendering example on the card -------------------
     t0 = time.perf_counter()
     inv = inverse_rendering.run(steps=60, device=dev, log=lambda _: None)
     inv_s = time.perf_counter() - t0
@@ -2320,7 +2882,7 @@ def main() -> int:
           "albedo": inv["albedo"], "target": inv["target"],
           "max_albedo_err": inv["max_albedo_err"]})
 
-    # ---- 11. CLI ---------------------------------------------------------
+    # ---- 12. CLI ---------------------------------------------------------
     emit({"phase": "cli", **cli_phase("cornell_box", 256, 16, 0.05, 0.4)})
     emit({"phase": "cli", **cli_phase("perlin_spheres", 128, 4, 0.05, 5.0)})
     # final_scene 128x128, 4 spp: the JAX package's render_image on the
@@ -2336,7 +2898,8 @@ def main() -> int:
             + kernel_rows(rand_fwd, rand_train, small, "noise")
             + split_rows(final_fwd, small_split)
             + split_bwd_rows(final_tr, small_split)
-            + mesh_rows(mesh_fwd, mesh_tr, small_split))
+            + mesh_rows(mesh_fwd, mesh_tr, small_split)
+            + cull_rows(rand_e_fwd, tri))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

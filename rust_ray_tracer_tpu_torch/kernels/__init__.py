@@ -53,7 +53,14 @@ Kernels (each wrapper counts its launches in ``launches``):
     ``pallas_intersect.py`` ``_mask_kernel``; plain version
     ``ops/search.tile_enter_plain``) and ``fused_search_kernel`` (TPU
     kernel M, ``_make_fused_kernel`` and ``_make_pair_kernel``; plain
-    version ``ops/search.fused_search_plain``).
+    version ``ops/search.fused_search_plain``); ``tri_search_kernel``
+    (TPU kernel L, ``pallas_intersect.py`` ``_kernel``, the triangle
+    search alone: M's entry point launched with no sphere or quad rows,
+    whose triangle test is L's; plain version
+    ``ops/search.tri_search_plain``);
+  * the cluster-culled sphere search, ``csrc/sphere.cu`` (library
+    ``sphere``): ``sph_search_kernel`` (TPU kernel N, ``pallas_sphere.py``
+    ``_kernel``; plain version ``ops/sphere.sph_search_plain``).
 """
 
 from __future__ import annotations
@@ -73,7 +80,8 @@ from rust_ray_tracer_tpu_torch.ops.bounce import N_SU, N_SU_OUT
 from rust_ray_tracer_tpu_torch.ops.bounce_core import N_CHK, N_IN_B
 from rust_ray_tracer_tpu_torch.ops.hit_core import N_IN as HIT_IN
 from rust_ray_tracer_tpu_torch.ops.hit_core import N_OUT as HIT_OUT
-from rust_ray_tracer_tpu_torch.ops.search import N_RAY, TRI_COLS, tile_count
+from rust_ray_tracer_tpu_torch.ops.search import (N_RAY, TRI_COLS, tile_count,
+                                                  tri_only)
 from rust_ray_tracer_tpu_torch.ops.shade_core import LT_COLS
 from rust_ray_tracer_tpu_torch.ops.uber import (A_COL, N_RND, N_STATE, TCC,
                                                 TILE)
@@ -102,6 +110,7 @@ LIBRARIES = {
     "trace_wave_bwd": ("trace_wave_bwd", ("--fmad=false",)),
     "split": ("split", ("--fmad=false",)),
     "search": ("search", ("--fmad=false",)),
+    "sphere": ("sphere", ("--fmad=false",)),
 }
 
 
@@ -792,6 +801,71 @@ class FusedSearchKernel(_Kernel):
         return best_t, best_k, best_i
 
 
+class TriSearchKernel(FusedSearchKernel):
+    """Kernel L: the closest triangle of each ray alone, (best t [N]
+    float32, inf for none; best index [N] int32, 0 for none), as
+    ``ops/search.tri_search_plain`` returns them. L's body is M's
+    triangle test over K's tile entries, so this launches M's entry point
+    with empty sphere and quad tables; it counts its own launches."""
+
+    name = "tri_search"
+
+    def __call__(self, rays, ent, tabs, chunk=None):
+        """``rays`` [9, N] planes, ``ent`` [n_tiles, K] (kernel K's),
+        ``tabs`` an ``ops/search.SearchTables`` (its triangle rows),
+        ``chunk`` rays a chunk (None: N)."""
+        if rays.device.type != "cuda":
+            raise ValueError(f"tri_search kernel needs CUDA tensors, got "
+                             f"{rays.device}")
+        if tabs.tri.shape[0] == 0:
+            raise ValueError("tri_search needs at least one triangle")
+        best_t, _, best_i = super().__call__(rays, ent, tri_only(tabs),
+                                             chunk)
+        return best_t, best_i
+
+
+SCL = 128        # spheres per cull cluster (models/scene.CLUSTER)
+
+
+class SphSearchKernel(_Kernel):
+    """ctypes wrapper of ``sph_search_launch`` (kernel N): the closest
+    sphere hit of each ray over a table of whole 128-sphere clusters,
+    (best t [N] float32, inf for none; best index [N] int32, 0 for none),
+    as ``ops/sphere.sph_search_plain`` returns them."""
+
+    name = "sph_search"
+    library = "sphere"
+    entry = "sph_search_launch"
+    argtypes = (_P,) * 4 + (_I,) * 4 + (_P, _P)
+
+    def __call__(self, rays, tab, cl_min, cl_max, n_sph, chunk=None):
+        """``rays`` [9, N] planes (o, d, time, t_min, t_max), ``tab``
+        [K * 128, 9] (``ops/sphere.sph_table``: c0, c1 - c0, t0,
+        1 / (t1 - t0), r; far pad rows), the swept boxes ``cl_min`` /
+        ``cl_max`` [K, 3], ``n_sph`` real rows (the index clamp),
+        ``chunk`` rays a chunk (None: N)."""
+        dev = rays.device
+        if dev.type != "cuda":
+            raise ValueError(f"sph_search kernel needs CUDA tensors, got "
+                             f"{dev}")
+        n = rays.shape[1] if rays.dim() == 2 else -1
+        chunk = n if chunk is None else chunk
+        k = cl_min.shape[0]
+        _check("rays", rays, dev, (N_RAY, n))
+        _check("tab", tab, dev, (k * SCL, 9))
+        _check("cl_min", cl_min, dev, (k, 3))
+        _check("cl_max", cl_max, dev, (k, 3))
+        if not 0 < n_sph <= k * SCL:
+            raise ValueError(f"{n_sph} spheres in {k} clusters")
+        tile_count(n, chunk)          # raises unless N is whole chunks
+        self.load()
+        best_t = torch.empty((n,), dtype=torch.float32, device=dev)
+        best_i = torch.empty((n,), dtype=torch.int32, device=dev)
+        self._launch(dev, _ptr(rays), _ptr(tab), _ptr(cl_min), _ptr(cl_max),
+                     n, chunk, k, n_sph, _ptr(best_t), _ptr(best_i))
+        return best_t, best_i
+
+
 quad_search_kernel = QuadSearchKernel()
 hit_attrs_kernel = HitAttrsKernel()
 shade_update_kernel = ShadeUpdateKernel()
@@ -801,6 +875,8 @@ bounce_planes_kernel = BouncePlanesKernel()
 bounce_planes_bwd_kernel = BouncePlanesBwdKernel()
 tile_enter_kernel = TileEnterKernel()
 fused_search_kernel = FusedSearchKernel()
+tri_search_kernel = TriSearchKernel()
+sph_search_kernel = SphSearchKernel()
 
 
 def trace_kernel(ctx) -> TraceWaveKernel:

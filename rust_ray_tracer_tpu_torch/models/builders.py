@@ -37,8 +37,9 @@ def _camera(lookfrom, lookat, vfov, aspect, time0=0.0, time1=1.0):
 
 
 def _earth_texture():
-    # ImageTexture::from_file("./earthmap.jpg"): the file does not exist in
-    # the reference repo either -> solid yellow fallback (texture.rs:129).
+    # ImageTexture::from_file("./earthmap.jpg"), read from the working
+    # directory when the scene compiles; without the file (the reference
+    # repo ships none) it is solid yellow (texture.rs:129).
     return S.ImageTexture(path="./earthmap.jpg")
 
 
@@ -80,7 +81,7 @@ def random_scene(aspect: float, seed: int = 0) -> S.Scene:
 
 def two_spheres(aspect: float, seed: int = 0) -> S.Scene:
     """scene.rs:94-121,427-441: a checker sphere under a sphere checkered
-    with the (missing, so solid yellow) earth texture."""
+    with the earth texture (solid yellow without ``./earthmap.jpg``)."""
     world = [
         S.Sphere((0, -10, 0), 10.0,
                  S.Lambertian(S.Checker.from_colors((0.2, 0.3, 0.1),

@@ -2,29 +2,27 @@
 
 Counterpart of ``rust_ray_tracer_tpu/models/scene.py``: the same host-side
 object API (Sphere, MovingSphere, Triangle, Quad and the XY/XZ/YZ rects,
-Cuboid, Translate, RotateY, FlipFace, the five materials, Solid, Checker
-and Noise textures) and the same ``compile_scene`` (``scene.py:755``),
-which bakes instance transforms into the primitives, lowers rects and
-cuboid faces to parallelogram quads, Morton-sorts and pads each primitive
-kind, emits per-cluster AABBs and draws the seeded Perlin tables. The
-arithmetic is the JAX package's float32 numpy, so the tables are
-identical; they are emitted as torch tensors in a :class:`SceneData`
-dataclass.
+Cuboid, Translate, RotateY, FlipFace, the five materials, Solid, Checker,
+Noise and Image textures) and the same ``compile_scene``
+(``scene.py:755``), which bakes instance transforms into the primitives,
+lowers rects and cuboid faces to parallelogram quads, Morton-sorts and
+pads each primitive kind, emits per-cluster AABBs, draws the seeded Perlin
+tables and packs the decoded images into one atlas. The arithmetic is the
+JAX package's float32 numpy, so the tables are identical; they are emitted
+as torch tensors in a :class:`SceneData` dataclass.
 
 ConstantMedium compiles as in JAX (``scene.py:627-690``): a Sphere boundary
 (``MED_SPHERE``) or a Cuboid one (``MED_POLY``, outward half-spaces), each
 unwrapped from Translate/RotateY, with an ``Isotropic`` material of the
 medium's texture.
 
-Not yet ported (each raises ``NotImplementedError``): decoding an image
-texture's file (ROADMAP queue 1 item 12; a missing file is solid yellow, as
-in JAX), Mesh and glTF, also as a ConstantMedium boundary (item 4).
+Not yet ported (each raises ``NotImplementedError``): Mesh and glTF, also
+as a ConstantMedium boundary (ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Sequence, Union
 
 import numpy as np
@@ -244,13 +242,36 @@ class Noise:
 
 @dataclasses.dataclass(frozen=True)
 class ImageTexture:
-    """Image texture (texture.rs:84-131). A missing file (or no path) is
-    solid yellow, as in the reference (texture.rs:129) and the JAX package
-    (``scene.py:530-534``). A file that exists raises
-    ``NotImplementedError`` at compile time: the port does not decode
-    images yet (ROADMAP queue 1 item 12), where the JAX package would
-    decode it, or turn an undecodable file yellow."""
+    """Image texture (texture.rs:84-131) from a file ``path`` or an
+    [H, W, 3+] array ``data`` of floats in [0, 1]. :meth:`load` reads the
+    file as the JAX package does (``scene.py:259-287``): through PIL where
+    it imports, else through ``utils/image.decode_image``, which knows the
+    format by its bytes, as the reference's ``image`` crate does. A
+    missing or undecodable file (or no path) loads as None and compiles to
+    solid yellow (texture.rs:129)."""
     path: str | None = None
+    data: np.ndarray | None = dataclasses.field(default=None, hash=False,
+                                                compare=False)
+
+    def load(self) -> np.ndarray | None:
+        """The image as float32 [H, W, C] in [0, 1], or None."""
+        if self.data is not None:
+            return np.asarray(self.data, np.float32)
+        if self.path is None:
+            return None
+        try:
+            from PIL import Image   # optional: the port does not need it
+            return np.asarray(Image.open(self.path).convert("RGB"),
+                              np.float32) / 255.0
+        except Exception:
+            pass
+        try:
+            from rust_ray_tracer_tpu_torch.utils.image import decode_image
+            with open(self.path, "rb") as f:
+                raw = f.read()
+            return np.asarray(decode_image(raw), np.float32) / 255.0
+        except Exception:
+            return None
 
 
 Texture = Union[SolidColor, Checker, Noise, ImageTexture]
@@ -474,6 +495,7 @@ class _Builder:
         self.media = []      # (c, r, neg_inv_d, mat, kind, planes)
         self.materials = []
         self.textures = []
+        self.images = []     # the decoded arrays, in atlas order
         # id(obj) -> (obj, row): holding obj keeps its id from being reused
         # by a later temporary (a Metal's albedo SolidColor is built on the
         # fly), which would alias two textures
@@ -493,10 +515,13 @@ class _Builder:
         elif isinstance(tex, Noise):
             row = dict(kind=TEX_NOISE, scale=float(tex.scale))
         elif isinstance(tex, ImageTexture):
-            if tex.path is not None and os.path.exists(tex.path):
-                raise _not_ported(f"decoding the ImageTexture {tex.path!r}",
-                                  "12")
-            row = dict(kind=TEX_SOLID, color=_v((1.0, 1.0, 0.0)))
+            data = tex.load()
+            if data is None:
+                # missing or undecodable: solid yellow (texture.rs:129)
+                row = dict(kind=TEX_SOLID, color=_v((1.0, 1.0, 0.0)))
+            else:
+                row = dict(kind=TEX_IMAGE, image=len(self.images))
+                self.images.append(np.asarray(data, np.float32))
         else:
             raise TypeError(f"unknown texture {tex!r}")
         tid = len(self.textures)
@@ -791,6 +816,20 @@ def compile_scene(scene: Scene, *, seed: int = 0,
         q_cl_min, q_cl_max = _cluster_boxes(qc.min(1), qc.max(1),
                                             len(b.quads), CLUSTER)
 
+    # the image atlas (scene.py:993-1004): every image at the top-left of
+    # a common [Hm, Wm] canvas, its own (h, w) beside it
+    if b.images:
+        hm = max(i.shape[0] for i in b.images)
+        wm = max(i.shape[1] for i in b.images)
+        atlas = np.zeros((len(b.images), hm, wm, 3), np.float32)
+        sizes = np.zeros((len(b.images), 2), np.int32)
+        for i, img in enumerate(b.images):
+            atlas[i, :img.shape[0], :img.shape[1]] = img[..., :3]
+            sizes[i] = (img.shape[0], img.shape[1])
+    else:
+        atlas = np.zeros((0, 1, 1, 3), np.float32)
+        sizes = np.ones((0, 2), np.int32)
+
     # polytope planes padded to the largest face count with no-constraint
     # half-spaces (n = 0, d = 1)
     n_med = len(b.media)
@@ -865,8 +904,7 @@ def compile_scene(scene: Scene, *, seed: int = 0,
         tex_even=t(tfield("even", 0, np.int32) if has_checker else no_chk),
         tex_odd=t(tfield("odd", 0, np.int32) if has_checker else no_chk),
         tex_image=t(tfield("image", 0, np.int32)),
-        img_data=t(np.zeros((0, 1, 1, 3), np.float32)),
-        img_size=t(np.ones((0, 2), np.int32)),
+        img_data=t(atlas), img_size=t(sizes),
         perlin_vec=t(perlin_vec),
         perlin_px=t(perms[0]), perlin_py=t(perms[1]), perlin_pz=t(perms[2]),
         light_kind=t(np.asarray([r[0] for r in lrows], np.int32)),

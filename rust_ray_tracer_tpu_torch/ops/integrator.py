@@ -12,28 +12,32 @@ routes, chosen per scene as the JAX package chooses on the TPU:
     trace runs as :class:`ops.uber.TraceWave`, whose backward is the
     trace's adjoint (a second kernel on the card);
   * the split route (:func:`trace_wave_split`) for the others it can
-    take (:func:`split_reason`): media, noise beside checker textures,
-    meshes and other tables past the trace kernel's 4,096 rows. It is
-    ``trace_rays`` -> ``_bounce`` (``integrator.py:63-132``), run on the
-    whole wave at once. Each bounce's phase 1
-    (``ops/intersect.intersect_select``) takes JAX's unified branch when
-    the scene has fewer than ``CLUSTER`` spheres and quads — TPU kernels K
-    (the tiles' cluster entries) and M (triangles, spheres and quads in one
-    search, ``ops/search.py``) — and otherwise searches spheres in torch
-    and quads with TPU kernel O; media fold in with ``_med_t``. Then, on
+    take (:func:`split_reason`): media, image textures, noise beside
+    checker textures, meshes and other tables past the trace kernel's
+    4,096 rows. It is ``trace_rays`` -> ``_bounce``
+    (``integrator.py:63-132``), run on the whole wave at once. Each
+    bounce's phase 1 (``ops/intersect.intersect_select``) takes JAX's
+    unified branch when the scene has fewer than ``CLUSTER`` spheres and
+    quads — TPU kernels K (the tiles' cluster entries) and M (triangles,
+    spheres and quads in one search, ``ops/search.py``) — and otherwise
+    searches each kind apart: triangles with K and TPU kernel L, spheres
+    with TPU kernel N from ``CLUSTER`` rows up (in torch below), quads
+    with TPU kernel O; media fold in with ``_med_t``. Then, on
     ``pallas_bounce.eligible``'s scenes (no noise or image leaf), TPU
     kernel F runs the whole rest of the bounce: hit attributes, the
     checker select, shading and the estimator update
-    (``ops/bounce.bounce_fused``). On the others (noise textures) TPU
-    kernel J computes the winners' hit attributes, ``texture_value``
-    evaluates the albedo in torch, and TPU kernel H shades and updates
-    the estimator (the ``su_eligible`` branch). That render is
+    (``ops/bounce.bounce_fused``). On the others (noise and image
+    textures) TPU kernel J computes the winners' hit attributes,
+    ``texture_value`` evaluates the albedo in torch, and TPU kernel H
+    shades and updates the estimator (the ``su_eligible`` branch). That
+    render is
     differentiable too: the split tables are built inside the autograd
     graph, phase 2 of the intersection (the winner-row gathers, the chosen
     medium's distance) and the texture run as torch autograd, and F, J and
     H run as autograd functions whose backward kernels are F', J' and H'
     (``ops/bounce.BouncePlanes``, ``ops/hit.HitPlanes``,
-    ``ops/bounce.ShadeUpdate``). Phase 1 (K, M, O) is detached, as in JAX.
+    ``ops/bounce.ShadeUpdate``). Phase 1 (K, M, L, N, O) is detached, as
+    in JAX.
 
 Every per-lane step is independent of how the lanes are batched (the
 search's 256-ray tiles restart at each chunk, as JAX's per-chunk calls
@@ -52,6 +56,7 @@ from rust_ray_tracer_tpu_torch.models.scene import CLUSTER, MED_POLY, \
     MED_SPHERE
 from rust_ray_tracer_tpu_torch.ops import camera as cam_ops
 from rust_ray_tracer_tpu_torch.ops import search as search_ops
+from rust_ray_tracer_tpu_torch.ops import sphere as sphere_ops
 from rust_ray_tracer_tpu_torch.ops import uber
 from rust_ray_tracer_tpu_torch.ops.bounce import (bounce_fused,
                                                   fused_eligible, light_table,
@@ -70,20 +75,9 @@ MAX_DEPTH = 4   # main.rs:56
 
 def split_reason(scene) -> str | None:
     """Why the split route cannot render ``scene`` (naming the unported
-    TPU kernel or ROADMAP item), or None when it can: triangles beside
-    fewer than ``CLUSTER`` spheres and quads (the unified search, K and
-    M), spheres in fewer than ``CLUSTER`` rows, quads in any number,
-    media with Sphere or Cuboid boundaries, solid, checker and noise
-    textures, up to 8 lights."""
-    if scene.n_tris and not search_ops.unified(scene):
-        return ("triangles beside 128 or more spheres or quads need the "
-                "split-path triangle search (TPU kernel L, ROADMAP queue 2)"
-                + (" and the cluster-culled sphere search (TPU kernel N)"
-                   if scene.n_spheres >= CLUSTER else ""))
-    if scene.n_spheres >= CLUSTER:
-        return (f"{scene.n_spheres} spheres on the split route need the "
-                "cluster-culled sphere search (TPU kernel N, ROADMAP "
-                "queue 2)")
+    TPU kernel or ROADMAP item), or None when it can. It refuses 9 or more
+    lights (TPU kernel I) and Mesh medium boundaries (ROADMAP queue 1 item
+    4); ``render_waves`` refuses the compact wavefront (item 14)."""
     if (scene.n_lights + 1) * LT_COLS > LANES:
         return (f"{scene.n_lights} lights need the split-path shade kernel "
                 "(TPU kernel I, ROADMAP queue 2)")
@@ -91,8 +85,6 @@ def split_reason(scene) -> str | None:
                                    | (scene.med_kind == MED_POLY)).all()):
         return ("Mesh medium boundaries are not ported (ROADMAP queue 1 "
                 "item 4)")
-    if scene.img_data.shape[0]:
-        return "image textures are not ported (ROADMAP queue 1 item 12)"
     return None
 
 
@@ -102,9 +94,12 @@ class SplitTables:
     inside the autograd graph (but the search tables, which only the
     detached phase 1 reads). ``uni``/``dflt``/offsets from
     ``ops/intersect.winner_table``; ``med_rows`` [M, 2 + A] a medium
-    winner's flip | material id | attrs; ``search`` the unified search's
-    tables (``ops/search.search_tables``; None when the scene takes the
-    per-kind branch); ``quads`` [Q, 9] kernel O's table; ``lt``
+    winner's flip | material id | attrs; ``unified`` whether phase 1
+    takes the unified search (``ops/search.unified``); ``search`` its
+    tables, or on the per-kind branch kernel L's (``ops/search.
+    search_tables``; None there without triangles); ``sph`` kernel N's
+    table (``ops/sphere.sph_table``; None below ``CLUSTER`` sphere rows
+    or on the unified branch); ``quads`` [Q, 9] kernel O's table; ``lt``
     [n_lights + 1, LT_COLS] the lights, the background last; ``fused``
     whether kernel F runs the bounce (``ops/bounce.fused_eligible``)."""
 
@@ -114,7 +109,9 @@ class SplitTables:
     s_off: int
     q_off: int
     med_rows: torch.Tensor
+    unified: bool
     search: search_ops.SearchTables | None
+    sph: torch.Tensor | None
     quads: torch.Tensor
     lt: torch.Tensor
     fused: bool
@@ -136,11 +133,14 @@ def make_split_tables(scene) -> SplitTables:
          matt[scene.med_mat.long()]], dim=1)
     with torch.no_grad():
         quads = quad_table(scene)
+    unified = search_ops.unified(scene)
     return SplitTables(
         uni=uni, dflt=dflt, t_off=t_off, s_off=s_off, q_off=q_off,
-        med_rows=med_rows,
+        med_rows=med_rows, unified=unified,
         search=(search_ops.search_tables(scene)
-                if search_ops.unified(scene) else None),
+                if unified or scene.n_tris else None),
+        sph=(sphere_ops.sph_table(scene)
+             if not unified and scene.n_spheres >= CLUSTER else None),
         quads=quads, lt=light_table(scene),
         fused=fused_eligible(scene))
 
@@ -149,7 +149,8 @@ def bounce_split(scene, st, rnd_b, tables: SplitTables, chunk=None):
     """One bounce of every ray of ``st`` [14, N] (state planes) with the
     randoms ``rnd_b`` [15 + M, N]: the next state. ``_bounce``
     (``integrator.py:63-132``): ``intersect_select`` (phase 1 — K and M,
-    or the sphere search and O — and the winner gathers), then kernel F
+    or K and L, N or the sphere search, and O — and the winner gathers),
+    then kernel F
     on ``tables.fused`` scenes, else kernel J, ``texture_value`` and
     kernel H; differentiable in ``st`` and the tables (F', or J' and H',
     in the backward). ``chunk`` rays a chunk (the search's tiles restart

@@ -10,10 +10,12 @@ Counterpart of ``rust_ray_tracer_tpu/ops/intersect.py``:
     candidates ``_sphere_roots`` / ``_sph_candidates`` (``:172-213``)
     and the medium free flight ``_med_t`` (``:249``, sphere and polytope
     boundaries); :func:`intersect_select` (``:578``): its unified branch
-    (triangles with fewer than ``CLUSTER`` spheres and quads: TPU kernels
-    K and M, ``ops/search.py``) or its per-kind branch (spheres, and quads
-    by TPU kernel O, ``ops/quad.py``), media folded with strict ``<``,
-    then the winner-row gathers; ``_sphere_uv`` (``:368``).
+    (fewer than ``CLUSTER`` spheres and quads: TPU kernels K and M,
+    ``ops/search.py``) or its per-kind branch (triangles by K and TPU
+    kernel L, ``ops/search.py``; spheres by TPU kernel N from ``CLUSTER``
+    rows up, ``ops/sphere.py``; quads by TPU kernel O, ``ops/quad.py``),
+    media folded with strict ``<``, then the winner-row gathers;
+    ``_sphere_uv`` (``:368``).
     ``intersect`` (``:777``) is :func:`intersect_select` followed by the
     hit attributes of TPU kernel J (``ops/hit.py``), or by TPU kernel F's
     whole bounce (``ops/bounce.py``); ``ops/integrator.bounce_split``
@@ -137,7 +139,8 @@ def _sphere_roots(o, d, time, c0, c1, st0, st1, r):
 
 def _sph_candidates(scene, o, d, time, t_min, t_max):
     """[C] best (t, index) over the spheres (``intersect.py:192-213``, the
-    XLA branch: fewer than ``CLUSTER`` spheres)."""
+    XLA branch: fewer than ``CLUSTER`` spheres; from ``CLUSTER`` rows up
+    the search is TPU kernel N, ``ops/sphere.py``)."""
     oc = tuple(x[:, None] for x in _xyz(o))
     dc = tuple(x[:, None] for x in _xyz(d))
     root1, root2, ok, _ = _sphere_roots(
@@ -289,10 +292,11 @@ def intersect_select(scene, o, d, time, tables, med_u=None, t_min=None,
         quads in one search, a tie going triangle > sphere > quad), by
         ``ops/search.search`` with 256-ray tiles that restart at each
         ``chunk``'s first ray (the whole input is one chunk when None);
-      * otherwise spheres (fewer than ``CLUSTER``: plain torch) and quads
-        (TPU kernel O on the card, ``ops/quad.py``) fold with strict
-        ``<`` in that order. ``ops/integrator.split_reason`` keeps a scene
-        with triangles off this branch (it needs TPU kernel L).
+      * otherwise (``intersect.py:640-653``) triangles (K's entries and
+        TPU kernel L, ``ops/search.tri_candidates``), spheres (TPU kernel
+        N from ``CLUSTER`` rows up, ``ops/sphere.sph_search``; plain torch
+        below) and quads (TPU kernel O, ``ops/quad.py``) fold with strict
+        ``<`` in that order, so a tie keeps the earlier kind.
 
     Media (``_med_t``, uniforms ``med_u`` [C, M]) fold last with strict
     ``<``, so a tie keeps the earlier kind; then one gather from the
@@ -301,8 +305,10 @@ def intersect_select(scene, o, d, time, tables, med_u=None, t_min=None,
 
     ``tables`` (``ops/integrator.SplitTables``) gives ``uni``, ``dflt``,
     ``t_off``, ``s_off``, ``q_off`` (:func:`winner_table`), ``med_rows``
-    [M, 2 + A] (a medium winner's flip | material id | attrs), ``search``
-    (the unified search's tables, None off that branch) and ``quads`` (O's
+    [M, 2 + A] (a medium winner's flip | material id | attrs), ``unified``
+    (which branch), ``search`` (the search tables of the unified branch,
+    or of L on the other; None without triangles there), ``sph`` (N's
+    table; None below ``CLUSTER`` sphere rows) and ``quads`` (O's
     table).
 
     Phase 1 (the search, the fold) runs under ``no_grad``, as JAX's runs on
@@ -331,16 +337,25 @@ def intersect_select(scene, o, d, time, tables, med_u=None, t_min=None,
 
     # ---- phase 1: the detached candidate search --------------------------
     with torch.no_grad():
-        if tables.search is not None:
-            # K and M (through the module, so a check can swap them; the
-            # module imports this one)
-            from rust_ray_tracer_tpu_torch.ops import search as search_ops
-            best_t, best_kind, idx = search_ops.search(
-                search_ops.ray_planes(o, d, time, t_min, t_max),
-                tables.search, chunk)
+        # the searches through their modules, so a check can swap the
+        # dispatchers (those modules import this one)
+        from rust_ray_tracer_tpu_torch.ops import search as search_ops
+        from rust_ray_tracer_tpu_torch.ops import sphere as sphere_ops
+        rays = search_ops.ray_planes(o, d, time, t_min, t_max)
+        if tables.unified:
+            # K and M
+            best_t, best_kind, idx = search_ops.search(rays, tables.search,
+                                                       chunk)
             best_idx = idx.long()
         else:
-            if scene.n_spheres:
+            if scene.n_tris:
+                consider(KIND_TRI, *search_ops.tri_candidates(
+                    rays, tables.search, chunk))
+            if tables.sph is not None:
+                consider(KIND_SPH, *sphere_ops.sph_search(
+                    rays, tables.sph, scene.sph_cluster_min,
+                    scene.sph_cluster_max, scene.n_spheres, chunk))
+            elif scene.n_spheres:
                 consider(KIND_SPH, *_sph_candidates(scene, o, d, time, t_min,
                                                     t_max))
             if scene.n_quads:

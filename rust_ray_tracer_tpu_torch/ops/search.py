@@ -1,4 +1,4 @@
-"""The split route's phase-1 search over triangles: TPU kernels K and M.
+"""The split route's phase-1 search over triangles: TPU kernels K, M and L.
 
 Counterpart of ``rust_ray_tracer_tpu/ops/pallas_intersect.py``:
 
@@ -12,9 +12,16 @@ Counterpart of ``rust_ray_tracer_tpu/ops/pallas_intersect.py``:
     kind, index) over the triangles of the clusters a ray's tile enters,
     then the small sphere and quad tables (fewer than ``CLUSTER`` rows
     each). The plain version of ``fused_search_kernel``;
-  * :func:`tile_enter` and :func:`fused_search` — the dispatchers: CPU
-    tensors take the plain versions, CUDA tensors the kernels (no
-    fallback);
+  * :func:`tri_search_plain` — ``tri_search`` (``:283-345``, body
+    ``_kernel`` ``:81-133``, TPU kernel L): the closest (t, index) over
+    the triangles alone, for the per-kind branch (spheres or quads in
+    ``CLUSTER`` rows or more). Its arithmetic is M's triangle test, and
+    its cull K's, so it is M's sweep with empty sphere and quad tables,
+    and the kernel is ``fused_search_kernel`` launched so
+    (``kernels.tri_search_kernel``);
+  * :func:`tile_enter`, :func:`fused_search` and :func:`tri_search` — the
+    dispatchers: CPU tensors take the plain versions, CUDA tensors the
+    kernels (no fallback);
   * :func:`sphere_tests`, :func:`quad_tests` and :func:`tri_tests` — the
     per-(primitive, ray) tests of ``_tri_eval_fold`` and
     ``_fold_small_tables`` (``:439-473``, ``:580``), which the whole-wave
@@ -421,6 +428,40 @@ def fused_search(rays, ent, tabs: SearchTables, chunk: int | None = None):
     return fused_search_kernel(rays, ent, tabs, chunk)
 
 
+def tri_only(tabs: SearchTables) -> SearchTables:
+    """``tabs`` without its sphere and quad rows: L's tables."""
+    return dataclasses.replace(tabs, sph=tabs.sph[:0], quad=tabs.quad[:0])
+
+
+def tri_search_plain(rays, ent, tabs: SearchTables,
+                     chunk: int | None = None):
+    """(best t [N] float32, inf for none; best index [N] int32, 0 for
+    none) over the triangles of ``tabs`` alone: ``tri_search``
+    (``pallas_intersect.py:283-345``, TPU kernel L). L's body is M's
+    triangle test (the ten Plücker features against the det/u/v/t rows,
+    ``eps = TRI_DET_EPS * |d|``, ``inv = 1 / safe``, ``side_ok`` by the
+    double-sided flag, ``v < 1 - u``, the t window, the lowest index
+    winning a tie) over the clusters each tile enters, so this is
+    :func:`fused_search_plain` of :func:`tri_only` tables. The cluster
+    width comes from the tables (``tabs.width``, the triangles over the
+    cluster boxes)."""
+    bt, _, bi = fused_search_plain(rays, ent, tri_only(tabs), chunk)
+    return bt, bi
+
+
+def tri_search(rays, ent, tabs: SearchTables, chunk: int | None = None):
+    """(best t, best index) of :func:`tri_search_plain` for CPU tensors,
+    kernel L (``kernels.tri_search_kernel``: M's kernel with no sphere
+    or quad rows) for CUDA tensors."""
+    dev = rays.device.type
+    if dev == "cpu":
+        return tri_search_plain(rays, ent, tabs, chunk)
+    if dev != "cuda":
+        raise ValueError(f"unsupported device {rays.device}")
+    from rust_ray_tracer_tpu_torch.kernels import tri_search_kernel
+    return tri_search_kernel(rays, ent, tabs, chunk)
+
+
 def search(rays, tabs: SearchTables, chunk: int | None = None):
     """The unified phase 1 of rays ``rays`` [9, N]: K (when the scene has
     triangles), then M. Without triangles M takes a one-column +inf entry
@@ -432,3 +473,11 @@ def search(rays, tabs: SearchTables, chunk: int | None = None):
         ent = torch.full((tile_count(rays.shape[1], chunk), 1), torch.inf,
                          dtype=torch.float32, device=rays.device)
     return fused_search(rays, ent, tabs, chunk)
+
+
+def tri_candidates(rays, tabs: SearchTables, chunk: int | None = None):
+    """The triangles of the per-kind phase 1 (``_tri_candidates``,
+    ``intersect.py:136-148``): K's tile-cluster entries, then L. Returns
+    (best t, best index)."""
+    ent = tile_enter(rays, tabs.cl_min, tabs.cl_max, chunk)
+    return tri_search(rays, ent, tabs, chunk)

@@ -1,5 +1,6 @@
 """The Hopper kernels (csrc/trace_wave.cu, csrc/trace_wave_bwd.cu,
-csrc/split.cu, csrc/search.cu) against their plain versions.
+csrc/split.cu, csrc/search.cu, csrc/sphere.cu) against their plain
+versions.
 
 Imports no JAX, so it runs on a GPU machine without it. tests/conftest.py
 imports JAX, so there it runs without the conftest (and without the
@@ -25,11 +26,13 @@ from rust_ray_tracer_tpu_torch.kernels import (bounce_planes_bwd_kernel,
                                                quad_search_kernel,
                                                shade_update_bwd_kernel,
                                                shade_update_kernel,
+                                               sph_search_kernel,
                                                tile_enter_kernel,
                                                trace_wave_bwd_kernel,
                                                trace_wave_bwd_noise_kernel,
                                                trace_wave_kernel,
-                                               trace_wave_noise_kernel)
+                                               trace_wave_noise_kernel,
+                                               tri_search_kernel)
 from rust_ray_tracer_tpu_torch.models import builders
 from rust_ray_tracer_tpu_torch.models.scene import (LIGHT_SPHERE,
                                                     compile_scene)
@@ -39,8 +42,10 @@ from rust_ray_tracer_tpu_torch.utils import rng
 # by its own name (pytest puts tests/ on sys.path): on a machine where an
 # installed package is called ``tests``, ``tests.torch_parity`` is not found
 from torch_parity import (SMALL_SCENES, assert_flip_budget,
-                          assert_scaled_close, mesh, rel_l2, split_cots,
-                          split_kernel_inputs, split_recorder, torch_scene)
+                          assert_scaled_close, mesh, random_earth_view,
+                          random_tris, rel_l2, split_cots,
+                          split_kernel_inputs, split_recorder, torch_scene,
+                          write_earth_map)
 
 W = H = 32          # one 1024-ray chunk
 DEPTH = 4
@@ -763,3 +768,114 @@ def test_render_waves_mesh_on_card(cuda):
         assert bool(torch.isfinite(v).all()), k
         assert torch.equal(v, grads[1][k]), k
     assert float(grads[0]["tri_v0"].abs().max()) > 0
+
+
+CULL = (sph_search_kernel, tri_search_kernel)
+
+
+def _cull_calls(tmp_path, monkeypatch):
+    """The calls of N and L over two bounces of a 32x16 wave of
+    ``torch_parity.random_tris`` (random's 1,024 sphere rows beside 1,024
+    triangle rows) with a 64x32 earth map, on the CPU: {"sph": [...],
+    "tri": [...]}."""
+    from rust_ray_tracer_tpu_torch.models import scene as TS
+    from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
+
+    write_earth_map(tmp_path, 64, 32)
+    monkeypatch.chdir(tmp_path)
+    ts = compile_scene(random_tris(TS, builders, 2.0), device="cpu")
+    with split_recorder() as rec:
+        render_waves(ts, 32, 16, rng.key(7, "cpu"), 0, 1, depth=2,
+                     chunk_size=512)
+    return rec
+
+
+def test_cull_wrappers_refuse_cpu_tensors(tmp_path, monkeypatch):
+    rec = _cull_calls(tmp_path, monkeypatch)
+    before = [k.launches for k in CULL]
+    for call in (lambda: sph_search_kernel(*rec["sph"][0]),
+                 lambda: tri_search_kernel(*rec["tri"][0])):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            call()
+    assert [k.launches for k in CULL] == before
+
+
+def test_cull_dispatchers_refuse_other_devices(tmp_path, monkeypatch):
+    from rust_ray_tracer_tpu_torch.ops import search, sphere
+
+    rec = _cull_calls(tmp_path, monkeypatch)
+    rays, tab, cl_min, cl_max, n_sph, chunk = rec["sph"][0]
+    with pytest.raises(ValueError, match="unsupported device"):
+        sphere.sph_search(rays.to("meta"), tab.to("meta"), cl_min.to("meta"),
+                          cl_max.to("meta"), n_sph, chunk)
+    rays, ent, tabs, chunk = rec["tri"][0]
+    with pytest.raises(ValueError, match="unsupported device"):
+        search.tri_search(rays.to("meta"), ent.to("meta"),
+                          _to(tabs, "meta"), chunk)
+
+
+@pytest.mark.gpu
+def test_cull_kernels_match_plain_on_card(cuda, tmp_path, monkeypatch):
+    """N and L against their plain versions on the card, on the inputs the
+    split route gives them over two bounces of a 32x16 wave of the L
+    check scene: the same indices and the same bits of t. One launch
+    each a call."""
+    from rust_ray_tracer_tpu_torch.ops import search, sphere
+
+    rec = _cull_calls(tmp_path, monkeypatch)
+    for sph, tri in zip(rec["sph"], rec["tri"]):
+        before = [k.launches for k in CULL]
+        s_args = [_to(x, cuda) for x in sph]
+        t_args = [_to(x, cuda) for x in tri]
+        got_s = sphere.sph_search(*s_args)
+        got_t = search.tri_search(*t_args)
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(CULL, before)] == [1, 1]
+        for got, ref in ((got_s, sphere.sph_search_plain(*s_args)),
+                         (got_t, search.tri_search_plain(*t_args))):
+            assert torch.equal(got[0], ref[0])
+            assert torch.equal(got[1].long(), ref[1].long())
+        assert bool(torch.isfinite(got_s[0]).any())
+        assert bool(torch.isfinite(got_t[0]).any())
+
+
+@pytest.mark.gpu
+def test_render_waves_earth_on_card(cuda, tmp_path, monkeypatch):
+    """random with a 64x32 earth map and a second earth sphere in view, on
+    the card: N, J and H once a bounce and none of A, K, M, L, O or F; the
+    image within the flip budget of the plain route on the card (every
+    pixel outside rtol 3e-4 / atol 3e-5 a flip: the marble ground); the
+    gradients finite, the same bits twice, and non-zero on ``img_data``."""
+    from rust_ray_tracer_tpu_torch.models import scene as TS
+    from rust_ray_tracer_tpu_torch.models.scene import combine, partition
+    from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
+
+    write_earth_map(tmp_path, 64, 32)
+    monkeypatch.chdir(tmp_path)
+    ts = compile_scene(random_earth_view(TS, builders, 2.0), device=cuda)
+    watched = CULL + SPLIT + SEARCH + FUSED + (trace_wave_kernel,
+                                               trace_wave_noise_kernel)
+    before = [k.launches for k in watched]
+    got = render_waves(ts, 32, 16, rng.key(0), 0, 1, chunk_size=512)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(watched, before)] == \
+        [DEPTH, 0, 0, DEPTH, DEPTH] + [0] * 6
+    with split_recorder(plain=True):
+        ref = render_waves(ts, 32, 16, rng.key(0), 0, 1, chunk_size=512)
+    got, ref = got.cpu().numpy(), ref.cpu().numpy()
+    outside = (np.abs(got - ref) > 3e-5 + 3e-4 * np.abs(ref)).any(-1)
+    assert outside.mean() <= 0.005
+    grads = []
+    for _ in range(2):
+        params, static = partition(ts)
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        render_waves(combine(leaves, static), 32, 16, rng.key(0), 0, 1,
+                     chunk_size=512).mean().backward()
+        torch.cuda.synchronize()
+        grads.append({k: v.grad for k, v in leaves.items()
+                      if v.grad is not None})
+    for k, v in grads[0].items():
+        assert bool(torch.isfinite(v).all()), k
+        assert torch.equal(v, grads[1][k]), k
+    assert float(grads[0]["img_data"].abs().max()) > 0
+

@@ -194,15 +194,18 @@ def test_unported_scene_parts_raise():
     from rust_ray_tracer_tpu_torch.ops import camera as tcam
 
     cam = tcam.make_camera(np.eye(3, 4, dtype=np.float32), 60.0, 1.0)
-    # an image file that exists: the port does not decode images yet; a
-    # medium inside a Mesh boundary waits for the Mesh port
-    for obj in (TS.Sphere((0, 0, -4), 1.0,
-                          TS.Lambertian(TS.ImageTexture(__file__))),
-                TS.ConstantMedium(TS.Mesh([((0, 0, -4), (1, 0, -4),
-                                            (0, 1, -4))]), 0.5,
-                                  TS.SolidColor((1, 1, 1)))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            compile_scene(TS.Scene(cam, [obj], [], (0, 0, 0)), device="cpu")
+    # a medium inside a Mesh boundary waits for the Mesh port
+    obj = TS.ConstantMedium(TS.Mesh([((0, 0, -4), (1, 0, -4), (0, 1, -4))]),
+                            0.5, TS.SolidColor((1, 1, 1)))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        compile_scene(TS.Scene(cam, [obj], [], (0, 0, 0)), device="cpu")
+    # an image file that exists is decoded now (it used to raise here):
+    # a file that is no image is solid yellow, as in JAX (scene.py:530-534)
+    ts = compile_scene(TS.Scene(cam, [TS.Sphere(
+        (0, 0, -4), 1.0, TS.Lambertian(TS.ImageTexture(__file__)))], [],
+        (0, 0, 0)), device="cpu")
+    assert ts.tex_kind.tolist() == [TS.TEX_SOLID]
+    assert ts.tex_color.tolist() == [[1.0, 1.0, 0.0]]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tb.get_scene("composite", 1.0)
     with pytest.raises(ValueError, match="unknown scene"):

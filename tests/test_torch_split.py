@@ -47,7 +47,8 @@ from rust_ray_tracer_tpu_torch.models.scene import (combine, compile_scene,
                                                     partition)
 from rust_ray_tracer_tpu_torch.ops import bounce, hit, quad, uber
 from rust_ray_tracer_tpu_torch.ops import camera as tcam
-from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
+from rust_ray_tracer_tpu_torch.ops.integrator import (render_waves,
+                                                      split_reason)
 from rust_ray_tracer_tpu_torch.utils import rng
 
 from tests.torch_parity import (assert_flip_budget, assert_scaled_close,
@@ -213,11 +214,13 @@ def _refused_scenes():
                                     "item 12", "item 4"])
 def test_split_route_refuses_naming_what_is_missing(kernel):
     """A scene the split route cannot take yet raises, naming the unported
-    TPU kernel or ROADMAP item: a triangle beside 128 quads (the
-    non-unified triangle search, L), 128 spheres (N), 9 lights (I), an
-    image texture's table (item 12), a Mesh medium boundary (item 4).
-    Meshes and scenes past the trace kernel's 4,096 rows render
-    (``tests/test_torch_mesh.py``)."""
+    TPU kernel or ROADMAP item: 9 lights (I), a Mesh medium boundary (item
+    4). The cases "kernel L" (a triangle beside 128 quads), "kernel N"
+    (128 spheres) and "item 12" (an image texture's table) used to raise
+    too; their kernels and the image leaf are ported now, so these cases
+    keep their names (tests are tracked by name) and check that the scene
+    takes the split route and renders finite. Meshes and scenes past the
+    trace kernel's 4,096 rows render (``tests/test_torch_mesh.py``)."""
     if kernel == "item 4":
         ts = _scene([_fog()])
         ts = dataclasses.replace(ts, med_kind=torch.full_like(
@@ -228,5 +231,10 @@ def test_split_route_refuses_naming_what_is_missing(kernel):
     else:
         ts = _refused_scenes()[kernel]()
     assert not uber.uber_eligible(ts)
+    if kernel in ("kernel L", "kernel N", "item 12"):
+        assert split_reason(ts) is None
+        img = render_waves(ts, 8, 8, rng.key(0, "cpu"), 0, 1, chunk_size=64)
+        assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+        return
     with pytest.raises(NotImplementedError, match=kernel):
         render_waves(ts, 8, 8, rng.key(0, "cpu"), 0, 1)

@@ -141,14 +141,12 @@ def solid_fog(S, cam_mod):
     ], [lamp], (0.2, 0.3, 0.5))
 
 
-def mesh(S, cam_mod, n_tris=65536):
-    """The mesh workload: ``n_tris`` double-sided Lambertian triangles plus
-    the flagship's sphere lamp, camera and background. The triangles are
-    drawn as ``__graft_entry__.py:33-47`` draws the flagship's 968
+def flagship_tris(S, n_tris=968):
+    """``n_tris`` double-sided Lambertian triangles drawn as
+    ``__graft_entry__.py:33-47`` draws the flagship's 968
     (``default_rng(0)``, the same draws in the same order), their edges in
-    +-0.1 * sqrt(968 / n_tris) instead of +-0.1: the flagship's total
-    triangle area, cut finer (65,536 is the JAX package's
-    ``PACKED_MIN_TRIS``, ``pallas_intersect.py:78``)."""
+    +-0.1 * sqrt(968 / n_tris): the flagship's total triangle area, cut
+    finer for more triangles (for 968 they are the flagship's)."""
     rng = np.random.default_rng(0)
     half = np.float32(0.1 * np.sqrt(968.0 / n_tris))
     tris = []
@@ -159,9 +157,73 @@ def mesh(S, cam_mod, n_tris=65536):
         e = rng.uniform(-half, half, (2, 3)).astype(np.float32)
         tris.append(S.Triangle(v0, v0 + e[0], v0 + e[1], mat,
                                double_sided=True))
+    return tris
+
+
+def mesh(S, cam_mod, n_tris=65536):
+    """The mesh workload: ``n_tris`` triangles of :func:`flagship_tris`
+    plus the flagship's sphere lamp, camera and background (65,536 is the
+    JAX package's ``PACKED_MIN_TRIS``, ``pallas_intersect.py:78``)."""
+    tris = flagship_tris(S, n_tris)
     lamp = S.Sphere((3, 3, 0), 0.2, S.DiffuseLight.from_color((250,) * 3))
     cam = cam_mod.make_camera(np.eye(3, 4, dtype=np.float32), 22.9, 16 / 9)
     return S.Scene(cam, tris + [lamp], [lamp], (0.051, 0.051, 0.051))
+
+
+def earth_map(w: int, h: int, seed: int = 0) -> np.ndarray:
+    """A procedural [h, w, 3] uint8 stand-in for the reference's
+    ``earthmap.jpg``: blue sea, green-brown land from a few sines of
+    longitude and latitude, speckled by ``default_rng(seed)``."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    lon, lat = x / w * 2.0 * np.pi, y / h * np.pi
+    land = (np.sin(3.0 * lon) * np.sin(2.0 * lat)
+            + 0.5 * np.sin(7.0 * lon + 1.0) * np.cos(5.0 * lat)) > 0.1
+    rgb = np.where(land[..., None], (0.35, 0.5, 0.2), (0.05, 0.2, 0.6))
+    rgb = rgb + 0.15 * np.random.default_rng(seed).random((h, w, 3))
+    return (np.clip(rgb, 0.0, 1.0) * 255.0).astype(np.uint8)
+
+
+def write_earth_map(directory, w: int, h: int) -> str:
+    """Write :func:`earth_map` into ``directory`` as ``earthmap.jpg``, the
+    file the builders' earth texture reads from the working directory.
+    Its bytes are a PNG (the port's ``encode_png``): the decoders know a
+    format by its bytes, not its name, as the reference's ``image`` crate
+    does. Returns the path."""
+    from rust_ray_tracer_tpu_torch.utils.image import encode_png
+
+    path = os.path.join(str(directory), "earthmap.jpg")
+    with open(path, "wb") as f:
+        f.write(encode_png(earth_map(w, h)))
+    return path
+
+
+# where random_tris puts the flagship's triangle cloud: in front of the
+# random scene's camera, where 7.3% of a 128x72 wave's primaries hit a
+# triangle first
+TRI_OFFSET = (4.9, 0.3, -10.6)
+
+
+def random_tris(S, builders_mod, aspect):
+    """The reference's random scene plus the flagship's 968 triangles
+    (:func:`flagship_tris`) moved by :data:`TRI_OFFSET`: triangles beside
+    1,024 sphere rows, the split route's per-kind branch (TPU kernels K
+    and L for the triangles, N for the spheres)."""
+    host = builders_mod.random_scene(aspect)
+    return S.Scene(host.camera, list(host.world) + [
+        S.Translate(flagship_tris(S), TRI_OFFSET)], host.lights,
+        host.background)
+
+
+def random_earth_view(S, builders_mod, aspect):
+    """The reference's random scene with a second earth sphere where its
+    camera looks (the first, at (4, 1, 0), is out of its view at the
+    reference's pose): random's 1,024 sphere rows with an image leaf that
+    primary rays hit, so ``img_data`` takes a gradient."""
+    host = builders_mod.random_scene(aspect)
+    earth = S.Sphere((4.9, 0.75, -14.6), 0.7, S.Lambertian(
+        S.ImageTexture(path="./earthmap.jpg")))
+    return S.Scene(host.camera, list(host.world) + [earth], host.lights,
+                   host.background)
 
 
 SMALL_SCENES = {"solid": solid, "checker": checker, "quad": quad,
@@ -250,6 +312,31 @@ def assert_flip_budget(got, ref, budget=0.005):
     return flips.mean()
 
 
+def assert_flips_arbitrated(got, ref, exact, budget=0.005):
+    """:func:`assert_flip_budget` of ``got`` against ``ref`` with a float64
+    render ``exact`` of the same scene and rays as the arbiter: a pixel
+    of ``got`` within 1e-3 of ``exact`` on every channel is on float64's
+    side of any difference from ``ref`` and is taken as ``ref``'s; the
+    rest must pass the flip budget (a flip off by more than 1e-3, the
+    others within rtol 3e-4 / atol 3e-5). And ``got`` may leave ``exact``
+    (by the same rtol / atol) on at most 1.25x as many pixels as ``ref``
+    does, plus one (``tests/test_torch_render.py``'s rule for the marble
+    scenes). Returns (the flip share, the port's and ``ref``'s pixels off
+    ``exact``)."""
+    got, ref, exact = (np.asarray(x) for x in (got, ref, exact))
+    near = (np.abs(got - exact) <= 1e-3).all(-1)
+    frac = assert_flip_budget(np.where(near[..., None], ref, got), ref,
+                              budget)
+
+    def off(a):
+        return int((np.abs(a - exact) > 3e-5 + 3e-4 * np.abs(exact))
+                   .any(-1).sum())
+
+    n_got, n_ref = off(got), off(ref)
+    assert n_got <= 1.25 * n_ref + 1, (n_got, n_ref)
+    return frac, n_got, n_ref
+
+
 def assert_scaled_close(got, ref, rtol, atol, axis, budget=0.0, what=""):
     """``|got - ref| <= atol + rtol * scale`` with ``scale`` the largest
     ``|ref|`` along ``axis`` (a ray's planes, a table row's columns): an
@@ -282,21 +369,24 @@ def split_recorder(plain: bool = False):
     O, ``ops/quad.quad_search``), hit attributes (J, ``ops/hit.hit_planes``),
     shade+update (H, ``ops/bounce.su_planes``), the tile-cluster entries
     (K, ``ops/search.tile_enter``), the unified search (M,
-    ``ops/search.fused_search``) and the fused bounce (F,
-    ``ops/bounce.bounce_planes``) — record the arguments of each call in
-    the yielded dict's lists ``quad``, ``hit``, ``su``, ``enter``,
-    ``search`` and ``bp``. They then run as before or, with ``plain``, run
-    the plain versions on any device (the plain route on the card, to hold
-    the kernel route against)."""
+    ``ops/search.fused_search``), the fused bounce (F,
+    ``ops/bounce.bounce_planes``), the per-kind triangle search (L,
+    ``ops/search.tri_search``) and the cluster-culled sphere search (N,
+    ``ops/sphere.sph_search``) — record the arguments of each call in the
+    yielded dict's lists ``quad``, ``hit``, ``su``, ``enter``, ``search``,
+    ``bp``, ``tri`` and ``sph``. They then run as before or, with
+    ``plain``, run the plain versions on any device (the plain route on
+    the card, to hold the kernel route against)."""
     from rust_ray_tracer_tpu_torch.ops import bounce, bounce_core, hit, quad
-    from rust_ray_tracer_tpu_torch.ops import search
+    from rust_ray_tracer_tpu_torch.ops import search, sphere
 
     rec = {"quad": [], "hit": [], "su": [], "enter": [], "search": [],
-           "bp": []}
+           "bp": [], "tri": [], "sph": []}
     sites = ((quad, "quad_search", "quad"), (hit, "hit_planes", "hit"),
              (bounce, "su_planes", "su"), (search, "tile_enter", "enter"),
              (search, "fused_search", "search"),
-             (bounce, "bounce_planes", "bp"))
+             (bounce, "bounce_planes", "bp"),
+             (search, "tri_search", "tri"), (sphere, "sph_search", "sph"))
     real = [getattr(mod, fn) for mod, fn, _ in sites]
     runs = real
     if plain:
@@ -307,7 +397,8 @@ def split_recorder(plain: bool = False):
                 lambda P, pk, mk, fl, lt, n_lights:
                 bounce_core.bounce_plane_core(
                     P, pk, mk, fl, lt, n_lights,
-                    P.shape[0] > bounce_core.N_IN_B)]
+                    P.shape[0] > bounce_core.N_IN_B),
+                search.tri_search_plain, sphere.sph_search_plain]
 
     def recording(fn, key):
         def wrapped(*args):
@@ -325,11 +416,13 @@ def split_recorder(plain: bool = False):
 
 
 def split_kernel_inputs(ts, w=32, h=32, depth=2, seed=7):
-    """The inputs the split route gives kernels O, J and H over ``depth``
-    bounces of one w x h wave of the CPU scene ``ts``, every bounce's
-    rays concatenated: {"quad": (o, d, t_min, t_max) or None, "hit":
-    (planes [19, N], kind, flip), "su": (planes [40, N], mkind, lt,
-    n_lights)}."""
+    """The inputs the split route gives kernels O, J, H, N and L over
+    ``depth`` bounces of one w x h wave of the CPU scene ``ts``, every
+    bounce's rays concatenated: {"quad": (o, d, t_min, t_max) or None,
+    "hit": (planes [19, N], kind, flip), "su": (planes [40, N], mkind, lt,
+    n_lights), "sph": (ray planes [9, N], table, cl_min, cl_max, n_sph,
+    chunk) or None, "tri": (ray planes [9, N], K's entries, search
+    tables, chunk) or None}; each bounce is one chunk of w * h rays."""
     import torch
 
     from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
@@ -347,7 +440,11 @@ def split_kernel_inputs(ts, w=32, h=32, depth=2, seed=7):
     hit = tuple(cat(rec["hit"], i, 1 if i == 0 else 0) for i in range(3))
     su = (cat(rec["su"], 0, 1), cat(rec["su"], 1, 0), rec["su"][0][2],
           rec["su"][0][3])
-    return {"quad": quad, "hit": hit, "su": su}
+    sph = ((cat(rec["sph"], 0, 1),) + rec["sph"][0][1:]
+           if rec["sph"] else None)
+    tri = ((cat(rec["tri"], 0, 1), cat(rec["tri"], 1, 0))
+           + rec["tri"][0][2:] if rec["tri"] else None)
+    return {"quad": quad, "hit": hit, "su": su, "sph": sph, "tri": tri}
 
 
 def split_cots(kind, n_su, seed):
