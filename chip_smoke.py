@@ -43,9 +43,20 @@ J and H every bounce) and ``bench.py``'s training step
 on the image atlas); and random's world with the flagship's 968
 triangles (``tri_scene``: K and TPU kernel L, the triangle search alone,
 beside N), N and L held against their plain versions on every bounce of
-a 128x72 wave and on a full-size wave's bounce 0. Last it runs the
+a 128x72 wave and on a full-size wave's bounce 0. Then it runs the
 inverse-rendering example for 60 steps and the CLI on the Cornell box,
-perlin_spheres and final_scene. Each phase prints
+perlin_spheres and final_scene. Last, with glTF files it writes into a
+temporary directory (``tests/torch_parity.write_gltf_flagship``: the
+flagship's 968 triangles with 1, 9 or 16 point lights), the glTF scenes:
+the single-light ``.glb`` flagship on the trace kernel
+(``gltf_flagship_forward``); the 9-light flagship on the split route,
+whose light table overflows A, F and H, forward (``gltf_lights_forward``:
+K, M, J and TPU kernel I every bounce; I and its backward I' held against
+their plain versions on bounces 0 and 1 of a full-size wave at 9 and at
+16 lights) and ``bench.py``'s training step (``gltf_lights_train``: K,
+M, J, I, J', I' every bounce); a Mesh-boundary medium at 64x64
+(``mesh_medium``); and the CLI's ``-g`` on the 9-light file
+(``cli_gltf``). Each phase prints
 one JSON line; any failure raises, so the exit code is non-zero. Then come
 the ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -76,6 +87,8 @@ from rust_ray_tracer_tpu_torch.kernels import (bounce_planes_bwd_kernel,
                                                hit_attrs_bwd_kernel,
                                                hit_attrs_kernel,
                                                quad_search_kernel,
+                                               shade_bwd_kernel,
+                                               shade_kernel,
                                                shade_update_bwd_kernel,
                                                shade_update_kernel,
                                                sph_search_kernel,
@@ -87,6 +100,7 @@ from rust_ray_tracer_tpu_torch.kernels import (bounce_planes_bwd_kernel,
                                                tri_search_kernel)
 from rust_ray_tracer_tpu_torch.models import builders
 from rust_ray_tracer_tpu_torch.models import scene as S
+from rust_ray_tracer_tpu_torch.models.gltf import load_gltf_scene
 from rust_ray_tracer_tpu_torch.models.scene import (combine, compile_scene,
                                                     partition)
 from rust_ray_tracer_tpu_torch.ops import bounce as bounce_ops
@@ -97,9 +111,11 @@ from rust_ray_tracer_tpu_torch.ops import hit as hit_ops
 from rust_ray_tracer_tpu_torch.ops import intersect as isect
 from rust_ray_tracer_tpu_torch.ops import quad as quad_ops
 from rust_ray_tracer_tpu_torch.ops import search as search_ops
+from rust_ray_tracer_tpu_torch.ops import shade as shade_ops
 from rust_ray_tracer_tpu_torch.ops import sphere as sphere_ops
 from rust_ray_tracer_tpu_torch.ops import uber
-from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
+from rust_ray_tracer_tpu_torch.ops.integrator import (make_split_tables,
+                                                      render_waves)
 from rust_ray_tracer_tpu_torch.utils import cli
 from rust_ray_tracer_tpu_torch.utils import rng
 from rust_ray_tracer_tpu_torch.utils.image import decode_image
@@ -108,10 +124,12 @@ from rust_ray_tracer_tpu_torch.utils.image import decode_image
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
 from torch_parity import mesh as mesh_host  # noqa: E402
+from torch_parity import mesh_medium as mesh_medium_host  # noqa: E402
 from torch_parity import random_tris as random_tris_host  # noqa: E402
 from torch_parity import solid_fog as solid_fog_host  # noqa: E402
 from torch_parity import split_cots, split_recorder  # noqa: E402
 from torch_parity import write_earth_map  # noqa: E402
+from torch_parity import write_gltf_flagship  # noqa: E402
 
 WIDTH, HEIGHT, SPP, DEPTH, CHUNK = 512, 288, 4, 4, 9216
 FLIP_ABS = 1e-3          # a pixel "flips" when any channel is off by more
@@ -174,6 +192,16 @@ MESH_W, MESH_H = 128, 72  # the mesh's check against the plain versions
 # N per ray-sphere test OPS_PRIM, L per ray-triangle test OPS_TRI
 CULL_KERNELS = (sph_search_kernel, tri_search_kernel)
 EARTH_W, EARTH_H = 1024, 512  # the procedural earth map of the new phases
+# the shading of 9 or more lights (TPU kernels I, I': csrc/shade.cu): I per
+# lane OPS_SHADE and, for a Lambertian lane, OPS_LIGHT_PDF per light of the
+# mixture pdf (a sphere light's cone: the offset, a 3-term dot, the
+# discriminant, a root, the solid angle); I' about twice I's
+OPS_LIGHT_PDF = 60
+SHADE_KERNELS = (shade_kernel, shade_bwd_kernel)
+# the CLI's -g on the 9-light flagship at 128x72, 4 spp: the port's plain
+# route on the CPU gives mean radiance 0.979852; the band leaves room for
+# paths that fork apart between the card's and the host's float32
+CLI_GLTF_LO, CLI_GLTF_HI = 0.93, 1.03
 
 
 def emit(obj) -> None:
@@ -535,8 +563,9 @@ class PlainCalls:
     ``hit_plane_core`` and ``hit_plane_core_vjp`` (``ops/hit``),
     ``su_plane_core``, ``su_plane_core_vjp``, ``bounce_plane_core`` and
     ``bounce_plane_core_vjp`` (``ops/bounce``), ``tile_enter_plain``,
-    ``fused_search_plain`` and ``tri_search_plain`` (``ops/search``) and
-    ``sph_search_plain`` (``ops/sphere``) record their names in
+    ``fused_search_plain`` and ``tri_search_plain`` (``ops/search``),
+    ``sph_search_plain`` (``ops/sphere``) and ``shade_plane_core`` and
+    ``shade_plane_core_vjp`` (``ops/shade``) record their names in
     ``calls``; ``real`` and ``real_bwd`` stay the uncounted functions."""
 
     real = uber.trace_wave_plain
@@ -550,7 +579,9 @@ class PlainCalls:
              (bounce_ops, "bounce_plane_core"),
              (bounce_ops, "bounce_plane_core_vjp"),
              (sphere_ops, "sph_search_plain"),
-             (search_ops, "tri_search_plain"))
+             (search_ops, "tri_search_plain"),
+             (shade_ops, "shade_plane_core"),
+             (shade_ops, "shade_plane_core_vjp"))
 
     def __init__(self):
         self.calls = []
@@ -624,8 +655,9 @@ def row_sums_vs_float64(calls) -> dict:
 
 
 def split_kernels_vs_plain(calls, label) -> dict:
-    """O, J and H against their plain versions on the card, on the first
-    recorded call of each (bounce 0 of a wave): O's winners and t equal;
+    """O, J and H (where the route ran it) against their plain versions on
+    the card, on the first recorded call of each (bounce 0 of a wave):
+    O's winners and t equal;
     J's planes within RTOL / ATOL of each lane's largest value (the sphere
     UV source on sphere lanes, where the epilogue reads it); H's within
     the same, at most FLIP_BUDGET of the lanes outside (the card's
@@ -669,6 +701,8 @@ def split_kernels_vs_plain(calls, label) -> dict:
                         "max_abs_err": max(a[1], b[1]),
                         "kinds": torch.bincount(kind.long(), minlength=5)
                         .tolist()}
+    if not calls["su"]:                  # the I route: no H
+        return out
     S_, mkind, lt, n_lights = calls["su"][0]
     frac, err = scaled_close(shade_update_kernel(S_, mkind, lt, n_lights),
                              bounce_ops.su_plane_core(S_, mkind, lt,
@@ -874,7 +908,7 @@ def small_scene_checks(dev) -> dict:
     for label, host in (("solid", solid_scene()),
                         ("solid_checker", solid_scene(checker=True)),
                         ("cornell_box", builders.cornell_box(1.0)),
-                        ("flagship", builders.flagship()),
+                        ("flagship", builders.procedural_flagship()),
                         ("noise", noise_scene()),
                         ("perlin_spheres", builders.perlin_spheres(1.0)),
                         ("rect_light", builders.rect_light(1.0)),
@@ -1024,14 +1058,25 @@ def small_scene_checks(dev) -> dict:
     return {"fwd": worst, "bwd": worst_b}
 
 
-def forward_phase(label, host_fn, dev, smi) -> dict:
+def forward_phase(label, host_fn, dev, smi, tris=None) -> dict:
     """The forward render of ``host_fn()`` at full size through
     ``render_waves``: SPP launches of its trace-kernel variant, no plain
     call, a finite image; the glue bitwise against the CPU; the kernel
     against its plain version on one full-size wave; sweep, kernel, glue
-    and plain times. Emits ``<label>_forward``; returns what the training
-    phase and the kernel rows need."""
+    and plain times. With ``tris``, the scene must hold that many
+    triangles. Emits ``<label>_forward`` with the scene's triangle and
+    sphere counts; returns what the training phase and the kernel rows
+    need."""
     scene = compile_scene(host_fn(), device=dev)
+    # triangles: the rows with an edge (the pad rows have none)
+    tables = {"triangles": int((scene.tri_e1.ne(0).any(1)
+                                | scene.tri_e2.ne(0).any(1)).sum()),
+              "triangle_rows": scene.n_tris,
+              "double_sided": int(scene.tri_double.sum()),
+              "spheres": scene.n_spheres, "lights": scene.n_lights}
+    if tris is not None and tables["triangles"] != tris:
+        raise AssertionError(f"{label}: {tables['triangles']} triangles, "
+                             f"expected {tris}")
     key = rng.key(0, dev)
     ctx = uber.make_ctx(scene)
     kern = K.trace_kernel(ctx)
@@ -1089,6 +1134,7 @@ def forward_phase(label, host_fn, dev, smi) -> dict:
     p_med = median(plain_ms)
     emit({"phase": f"{label}_forward", "card": smi, "kernel": kern.name,
           "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
+          "tables": tables,
           "kernel_launches": launches, "plain_calls": len(plain.calls),
           "image_mean": float(img.mean()) / SPP,
           "glue_bitwise_vs_cpu": True, "kernel_vs_plain": full,
@@ -1355,6 +1401,214 @@ def split_rows(fwd, worst_small) -> list[dict]:
     return rows
 
 
+# ---- the split route's phases: one skeleton for the forward and one for
+# bench.py's training step, shared by final_scene, the mesh, random with the
+# earth map and the 9-light glTF flagship -----------------------------------
+
+def main_path_forward(label, render, on_path, off_path):
+    """The main path's forward: the counts of ``on_path`` and ``off_path``
+    set to 0 just before ``render(SPP)`` runs under :class:`PlainCalls`
+    and read just after. Fails unless each kernel of ``on_path`` launched
+    SPP * DEPTH times and none of ``off_path`` did, no plain version ran,
+    and the image is finite and of the bench shape. Returns (image,
+    launches, plain calls)."""
+    watched = on_path + off_path
+    with PlainCalls() as plain:
+        for k in watched:
+            k.launches = 0
+        img = render(SPP)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in watched}
+    want = {k.name: 0 for k in off_path}
+    want.update({k.name: SPP * DEPTH for k in on_path})
+    if launches != want:
+        raise AssertionError(f"{label} launches {launches}, expected {want}")
+    if plain.calls:
+        raise AssertionError(f"plain versions ran on the main path: "
+                             f"{sorted(set(plain.calls))}")
+    if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(
+            torch.isfinite(img).all()):
+        raise AssertionError(f"{label} image: wrong shape or non-finite")
+    return img, launches, len(plain.calls)
+
+
+def rate_fields(prefix, times_ms) -> dict:
+    """Median, min and max of per-call ``times_ms`` of SPP waves, and the
+    Mrays/s (ray-bounces a second) of each."""
+    lane_bounces = WIDTH * HEIGHT * SPP * DEPTH
+    med = median(times_ms)
+    return {f"{prefix}_ms_median": med, f"{prefix}_ms_min": min(times_ms),
+            f"{prefix}_ms_max": max(times_ms),
+            f"{prefix}s": len(times_ms),
+            "mrays": lane_bounces / (med / 1e3) / 1e6,
+            "mrays_min": lane_bounces / (max(times_ms) / 1e3) / 1e6,
+            "mrays_max": lane_bounces / (min(times_ms) / 1e3) / 1e6}
+
+
+def forward_timing(render, names, reps, dev) -> dict:
+    """``reps`` sweeps of ``render(SPP)`` timed by CUDA events, their peak
+    memory, and one profiled wave: per kernel (``names``: row name ->
+    profiler name) ms per launch and per wave, the glue's ms a wave (the
+    wave less its kernels; None where the profiler saw no launch of one)
+    and its share, the busy share. Returns the phase's fields and the
+    in-path ms per launch."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    sweeps = cuda_ms(lambda: render(SPP), reps)
+    peak = torch.cuda.max_memory_allocated(dev)
+    prof = profile_device(lambda: render(1), tuple(names.values()), top=10)
+    per = prof["per_kernel"] or {}
+    in_path = {n: (per.get(k) or {}).get("ms_per_launch")
+               for n, k in names.items()}
+    r = rate_fields("sweep", sweeps)
+    wave_ms = r["sweep_ms_median"] / SPP
+    kern_wave = (None if None in in_path.values()
+                 else sum(in_path[n] * DEPTH for n in names))
+    glue = None if kern_wave is None else wave_ms - kern_wave
+    return {"fields": {
+        **{k: v for k, v in r.items() if k.startswith("sweep")},
+        "fwd_mrays_per_s": r["mrays"], "fwd_mrays_per_s_min": r["mrays_min"],
+        "fwd_mrays_per_s_max": r["mrays_max"], "peak_memory_bytes": peak,
+        "ms_per_wave": {**{n: None if in_path[n] is None
+                           else in_path[n] * DEPTH for n in names},
+                        "glue": glue, "wave": wave_ms},
+        "glue_share": None if glue is None else glue / wave_ms,
+        "ms_per_launch_profiler": in_path, "profiled_wave": prof},
+        "in_path": in_path}
+
+
+def bounce_times(pairs, plain_reps=3, loop=False) -> dict:
+    """Device ms per launch of a kernel and of its plain version on each
+    recorded bounce (``pairs``: (kernel, plain) callables; a plain of None
+    is not timed): the kernel out of L2 (``cold``), in a back-to-back
+    loop with ``loop``, the plain version over ``plain_reps`` calls."""
+    with torch.no_grad():
+        out = {"cold": [median(cold_ms(k)) for k, _ in pairs]}
+        if loop:
+            out["loop"] = [median(loop_ms(k)) for k, _ in pairs]
+        out["plain"] = [median(cuda_ms(p, plain_reps)) for _, p in pairs
+                        if p is not None]
+    return out
+
+
+def light_sum_call(part):
+    """A call of B' (``bwd_reduce``) on a backward kernel's light-table
+    partials ``part`` alone, its empty row inputs made once."""
+    dev = part.device
+    no_rows = (torch.empty((0, 1), dtype=torch.float32, device=dev),
+               torch.empty((0,), dtype=torch.int32, device=dev),
+               torch.zeros((1,), dtype=torch.int32, device=dev))
+    return lambda: bwd_reduce_kernel(*no_rows, part)
+
+
+def main_path_train(label, scene, key, on_path, off_path, nonzero_keys,
+                    names, fwd_names, bwd_names, reps, dev) -> dict:
+    """``bench.py``'s training step on ``scene`` at the bench shape: ``loss
+    = mean(render_waves(...))``, ``backward()`` over every float leaf of
+    ``partition``. The counts set to 0 just before the first of two steps
+    under :class:`PlainCalls` and read just after it: SPP * DEPTH launches
+    of each kernel of ``on_path``, none of ``off_path``, B'
+    (``bwd_reduce``) more than SPP * DEPTH times (the backward kernels'
+    light-table partials and the glue's row sums), no plain call;
+    gradients finite, bitwise equal over the two steps, non-zero on
+    ``nonzero_keys``. Then ``reps`` timed steps and their peak memory,
+    three steps' forward and backward apart, and a profiled one-wave step
+    (``names``: row name -> profiler name; the glue's ms a wave in the
+    forward and the backward from the kernels of ``fwd_names`` and
+    ``bwd_names`` and B'). Returns the phase's fields, the in-path ms per
+    launch, the gradients and the step."""
+    params, static = partition(scene)
+
+    def run(n_waves):
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        loss = render_waves(combine(leaves, static), WIDTH, HEIGHT, key, 0,
+                            n_waves, depth=DEPTH, chunk_size=CHUNK).mean()
+        return loss, leaves
+
+    def step(n_waves=SPP):
+        loss, leaves = run(n_waves)
+        loss.backward()
+        return loss, {k: v.grad for k, v in leaves.items()}
+
+    watched = on_path + off_path + (bwd_reduce_kernel,)
+    with PlainCalls() as plain:
+        for k in watched:
+            k.launches = 0
+        loss, grads = step()
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in watched}
+        _, grads2 = step()
+        torch.cuda.synchronize()
+    want = {k.name: 0 for k in off_path}
+    want.update({k.name: SPP * DEPTH for k in on_path})
+    want["bwd_reduce"] = launches["bwd_reduce"]
+    if launches != want or launches["bwd_reduce"] <= SPP * DEPTH:
+        raise AssertionError(f"{label} training launches {launches}, "
+                             f"expected {want}")
+    if plain.calls:
+        raise AssertionError(f"plain versions ran on the training path: "
+                             f"{sorted(set(plain.calls))}")
+    grads = {k: v for k, v in grads.items() if v is not None}
+    for k, v in grads.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"non-finite gradient of {k}")
+        if not torch.equal(v, grads2[k]):
+            raise AssertionError(f"gradient of {k} differs between steps")
+    nonzero = {k: float(grads[k].abs().max()) for k in nonzero_keys}
+    if min(nonzero.values()) <= 0:
+        raise AssertionError(f"zero gradients: {nonzero}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps_ms = cuda_ms(step, reps)
+    peak = torch.cuda.max_memory_allocated(dev)
+    # the forward (with the graph) and the backward of a step, apart
+    fwd_ms, bwd_ms = [], []
+    for _ in range(3):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        loss_t, _ = run(SPP)
+        e[1].record()
+        loss_t.backward()
+        e[2].record()
+        torch.cuda.synchronize()
+        fwd_ms.append(e[0].elapsed_time(e[1]))
+        bwd_ms.append(e[1].elapsed_time(e[2]))
+        del loss_t
+    names = {**names, "bwd_reduce": "bwd_reduce_kernel"}
+    prof = profile_device(lambda: step(1), tuple(names.values()), top=15)
+    per = prof["per_kernel"] or {}
+    in_path = {n: (per.get(k) or {}).get("ms_per_launch")
+               for n, k in names.items()}
+    red = per.get("bwd_reduce_kernel") or {}
+    red_wave = (None if red.get("ms_per_launch") is None
+                else red["ms_per_launch"] * red["launches"])
+    wave_k = {n: None if in_path[n] is None else in_path[n] * DEPTH
+              for n in names if n != "bwd_reduce"}
+    fwd_wave, bwd_wave = median(fwd_ms) / SPP, median(bwd_ms) / SPP
+    fwd_k = [wave_k[n] for n in fwd_names]
+    bwd_k = [wave_k[n] for n in bwd_names] + [red_wave]
+    r = rate_fields("step", steps_ms)
+    fields = {
+        "loss": float(loss.detach()), "launches": launches,
+        "plain_calls": len(plain.calls), "grads_finite": True,
+        "grads_bitwise_repeat": True, "grad_max_abs": nonzero,
+        "leaves_with_grad": sorted(k for k, v in grads.items()
+                                   if bool(v.any())),
+        **{k: v for k, v in r.items() if k.startswith("step")},
+        "fwd_bwd_mrays_per_s": r["mrays"],
+        "fwd_bwd_mrays_per_s_min": r["mrays_min"],
+        "fwd_bwd_mrays_per_s_max": r["mrays_max"],
+        "peak_memory_bytes": peak,
+        "ms_per_wave": {
+            "forward": fwd_wave, "backward": bwd_wave,
+            "glue_forward": None if None in fwd_k else fwd_wave - sum(fwd_k),
+            "glue_backward": None if None in bwd_k
+            else bwd_wave - sum(bwd_k),
+            **wave_k, "bwd_reduce": red_wave},
+        "ms_per_launch_profiler": in_path, "profiled_one_wave_step": prof}
+    return {"fields": fields, "in_path": in_path, "launches": launches,
+            "grads": grads, "step": step}
+
+
 def final_forward(dev, smi) -> dict:
     """The serving path on the split route: final_scene at the bench shape
     through ``render_waves`` — DEPTH launches each of O, J and H a wave,
@@ -1373,24 +1627,9 @@ def final_forward(dev, smi) -> dict:
             return render_waves(scene, WIDTH, HEIGHT, key, 0, n_waves,
                                 depth=DEPTH, chunk_size=CHUNK)
 
-    watched = SPLIT_KERNELS + (trace_wave_kernel, trace_wave_noise_kernel)
-    with PlainCalls() as plain:
-        for k in watched:
-            k.launches = 0
-        img = render(SPP)
-        torch.cuda.synchronize()
-        launches = {k.name: k.launches for k in watched}
-    want = {k.name: SPP * DEPTH for k in SPLIT_KERNELS}
-    want.update({trace_wave_kernel.name: 0, trace_wave_noise_kernel.name: 0})
-    if launches != want:
-        raise AssertionError(f"final_scene launches {launches}, expected "
-                             f"{want}")
-    if plain.calls:
-        raise AssertionError(f"plain versions ran on the main path: "
-                             f"{sorted(set(plain.calls))}")
-    if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(
-            torch.isfinite(img).all()):
-        raise AssertionError("final_scene image: wrong shape or non-finite")
+    img, launches, n_plain = main_path_forward(
+        "final_scene", render, SPLIT_KERNELS,
+        (trace_wave_kernel, trace_wave_noise_kernel))
 
     # one full-size wave: kernels against the plain route on the card, and
     # each kernel against its plain version on the wave's bounce-0 inputs
@@ -1403,11 +1642,8 @@ def final_forward(dev, smi) -> dict:
     with torch.no_grad():
         full = split_kernels_vs_plain(rec, "final_scene full size")
 
-    sweeps = cuda_ms(lambda: render(SPP), 7)
-    prof = profile_device(lambda: render(1), ("quad_search_kernel",
-                                              "hit_attrs_kernel",
-                                              "shade_update_kernel"))
-    per = prof["per_kernel"] or {}
+    timing = forward_timing(render, {n: f"{n}_kernel" for n in (
+        "quad_search", "hit_attrs", "shade_update")}, 7, dev)
     # each kernel and its plain version on every bounce's recorded inputs
     qtab = quad_ops.quad_table(scene)
     cl_min = scene.quad_cluster_min.contiguous()
@@ -1426,23 +1662,9 @@ def final_forward(dev, smi) -> dict:
             "shade_update": [((lambda c=c: shade_update_kernel(*c)),
                               (lambda c=c: bounce_ops.su_plane_core(*c)))
                              for c in rec["su"]]}
-    ms, in_path, loop, plain_ms = {}, {}, {}, {}
-    with torch.no_grad():
-        for name, pairs in runs.items():
-            ms[name] = statistics.fmean(median(cold_ms(k)) for k, _ in pairs)
-            loop[name] = statistics.fmean(median(loop_ms(k))
-                                          for k, _ in pairs)
-            in_path[name] = (per.get(f"{name}_kernel") or {}).get(
-                "ms_per_launch")
-            plain_ms[name] = statistics.fmean(median(cuda_ms(p, 3))
-                                              for _, p in pairs)
-    med = median(sweeps)
-    wave_ms = med / SPP
-    # the glue's share needs every kernel's in-path time (None where the
-    # profiler saw no launch of one)
-    kern_wave = (None if None in in_path.values()
-                 else sum(in_path[n] * DEPTH for n in ms))
-    lane_bounces = WIDTH * HEIGHT * SPP * DEPTH
+    times = {n: bounce_times(pairs, loop=True) for n, pairs in runs.items()}
+    ms = {n: statistics.fmean(t["cold"]) for n, t in times.items()}
+    plain_ms = {n: statistics.fmean(t["plain"]) for n, t in times.items()}
     emit({"phase": "final_forward", "card": smi,
           "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
           "tables": {"spheres": scene.n_spheres, "quads": scene.n_quads,
@@ -1450,7 +1672,7 @@ def final_forward(dev, smi) -> dict:
                      "media": scene.n_media, "lights": scene.n_lights},
           "launches": launches, "launches_per_wave": {
               k.name: launches[k.name] / SPP for k in SPLIT_KERNELS},
-          "plain_calls": len(plain.calls),
+          "plain_calls": n_plain,
           "image_mean": float(img.mean()) / SPP,
           "wave_vs_plain_route": full_img, "kernels_vs_plain": full,
           "kernel_vs_plain_budget": {
@@ -1459,22 +1681,14 @@ def final_forward(dev, smi) -> dict:
               "quad_search": "winners and t equal",
               "hit_attrs_lanes_outside": 0.0,
               "shade_update_lanes_outside": FLIP_BUDGET},
-          "sweep_ms_median": med, "sweep_ms_min": min(sweeps),
-          "sweep_ms_max": max(sweeps), "sweeps": len(sweeps),
-          "fwd_mrays_per_s": lane_bounces / (med / 1e3) / 1e6,
-          "ms_per_wave": {**{n: None if in_path[n] is None
-                             else in_path[n] * DEPTH for n in ms},
-                          "glue": None if kern_wave is None
-                          else wave_ms - kern_wave, "wave": wave_ms},
-          "ms_per_launch_profiler": {n: (per.get(f"{n}_kernel") or {})
-                                     .get("ms_per_launch") for n in ms},
-          "ms_per_launch_looped_events": loop,
+          **timing["fields"],
+          "ms_per_launch_looped_events": {
+              n: statistics.fmean(t["loop"]) for n, t in times.items()},
           "ms_per_launch_l2_flushed": ms,
-          "plain_ms_per_launch": plain_ms,
-          "profiled_wave": prof})
+          "plain_ms_per_launch": plain_ms})
     return {"launches": launches, "full": full, "ms": ms,
-            "ms_in_path": in_path, "plain_ms": plain_ms, "calls": rec,
-            "scene": scene, "key": key}
+            "ms_in_path": timing["in_path"], "plain_ms": plain_ms,
+            "calls": rec, "scene": scene, "key": key}
 
 
 def su_bwd_bytes(calls) -> int:
@@ -1505,97 +1719,32 @@ def su_bwd_bytes(calls) -> int:
 
 def final_train(dev, smi, fwd) -> dict:
     """``bench.py``'s training step on final_scene at the bench shape on
-    the split route: ``loss = mean(render_waves(...))``, ``backward()``
-    over every float leaf of ``partition``. Per step SPP * DEPTH launches
-    each of O, J, H, J' and H', none of A or B, B' (``bwd_reduce``) once
-    for each H' (its light-table partials) and for the row sums of the
-    glue's gathers (``ops/gather.rows``), no plain call; gradients finite,
-    bitwise equal over two steps, non-zero on ``tex_color`` and
-    ``background`` (JAX's at this scene's size); the step's rate (7 timed
-    steps, CUDA events), its forward and backward apart, a profiled
-    one-wave step (per-kernel device ms, busy share), the peak memory;
-    every row sum of a one-wave step's glue gathers against float64
-    (``row_sums_vs_float64``); then J' and H' on every bounce's recorded
-    inputs of one wave with seeded cotangents, against their plain
-    versions, timed out of L2 and in a loop, H' also without its
-    light-table sum and that sum alone. Emits ``final_train``; returns the
-    rows' inputs."""
+    the split route (:func:`main_path_train`): per step SPP * DEPTH
+    launches each of O, J, H, J' and H', none of A or B, B'
+    (``bwd_reduce``) once for each H' (its light-table partials) and for
+    the row sums of the glue's gathers (``ops/gather.rows``), no plain
+    call; gradients finite, bitwise equal over two steps, non-zero on
+    ``tex_color`` and ``background`` (JAX's at this scene's size); the
+    step's rate (7 timed steps), its forward and backward apart, a
+    profiled one-wave step, the peak memory; every row sum of a one-wave
+    step's glue gathers against float64 (``row_sums_vs_float64``); then J'
+    and H' on every bounce's recorded inputs of one wave with seeded
+    cotangents, against their plain versions, timed out of L2 and in a
+    loop, H' also without its light-table sum and that sum alone. Emits
+    ``final_train``; returns the rows' inputs."""
     scene, key = fwd["scene"], fwd["key"]
-    params, static = partition(scene)
-
-    def run(n_waves):
-        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
-        loss = render_waves(combine(leaves, static), WIDTH, HEIGHT, key, 0,
-                            n_waves, depth=DEPTH, chunk_size=CHUNK).mean()
-        return loss, leaves
-
-    def step(n_waves=SPP):
-        loss, leaves = run(n_waves)
-        loss.backward()
-        return loss, {k: v.grad for k, v in leaves.items()}
-
-    watched = (SPLIT_KERNELS + SPLIT_BWD_KERNELS + WHOLE_WAVE_KERNELS
-               + (bwd_reduce_kernel,))
-    with PlainCalls() as plain:
-        for k in watched:
-            k.launches = 0
-        loss, grads = step()
-        torch.cuda.synchronize()
-        launches = {k.name: k.launches for k in watched}
-        _, grads2 = step()
-        torch.cuda.synchronize()
-    want = {k.name: SPP * DEPTH for k in SPLIT_KERNELS + SPLIT_BWD_KERNELS}
-    want.update({k.name: 0 for k in WHOLE_WAVE_KERNELS})
-    # B' sums each H' launch's light-table partials and the glue's row
-    # gathers' cotangents (ops/gather.rows)
-    want["bwd_reduce"] = launches["bwd_reduce"]
-    if launches != want or launches["bwd_reduce"] <= SPP * DEPTH:
-        raise AssertionError(f"final_scene training launches {launches}, "
-                             f"expected {want}")
-    if plain.calls:
-        raise AssertionError(f"plain versions ran on the training path: "
-                             f"{sorted(set(plain.calls))}")
-    grads = {k: v for k, v in grads.items() if v is not None}
-    for k, v in grads.items():
-        if not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"non-finite gradient of {k}")
-        if not torch.equal(v, grads2[k]):
-            raise AssertionError(f"gradient of {k} differs between steps")
-    nonzero = {k: float(grads[k].abs().max()) for k in ("tex_color",
-                                                       "background")}
-    if min(nonzero.values()) <= 0:
-        raise AssertionError(f"zero gradients: {nonzero}")
-
-    torch.cuda.reset_peak_memory_stats(dev)
-    steps_ms = cuda_ms(step, 7)
-    peak = torch.cuda.max_memory_allocated(dev)
-    # the forward (with the graph) and the backward of a step, apart
-    fwd_ms, bwd_ms = [], []
-    for _ in range(3):
-        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        e[0].record()
-        loss_t, _ = run(SPP)
-        e[1].record()
-        loss_t.backward()
-        e[2].record()
-        torch.cuda.synchronize()
-        fwd_ms.append(e[0].elapsed_time(e[1]))
-        bwd_ms.append(e[1].elapsed_time(e[2]))
-        del loss_t
-    names = {"quad_search": "quad_search_kernel",
-             "hit_attrs": "hit_attrs_kernel",
-             "shade_update": "shade_update_kernel",
-             "hit_attrs_bwd": "hit_attrs_bwd_kernel",
-             "shade_update_bwd": "shade_update_bwd_kernel",
-             "bwd_reduce": "bwd_reduce_kernel"}
-    prof = profile_device(lambda: step(1), tuple(names.values()), top=15)
-    per = prof["per_kernel"] or {}
-    in_path = {n: (per.get(k) or {}).get("ms_per_launch")
-               for n, k in names.items()}
+    fwd_names = ("quad_search", "hit_attrs", "shade_update")
+    bwd_names = ("hit_attrs_bwd", "shade_update_bwd")
+    t = main_path_train(
+        "final_scene", scene, key, SPLIT_KERNELS + SPLIT_BWD_KERNELS,
+        WHOLE_WAVE_KERNELS, ("tex_color", "background"),
+        {n: f"{n}_kernel" for n in fwd_names + bwd_names}, fwd_names,
+        bwd_names, 7, dev)
+    launches = t["launches"]
     # B' at the shapes the path gives it: every row sum of a one-wave
     # step's glue gathers against float64
     with RowSumCalls() as sums:
-        step(1)
+        t["step"](1)
         torch.cuda.synchronize()
     row_sums = row_sums_vs_float64(sums.calls)
     del sums
@@ -1604,13 +1753,10 @@ def final_train(dev, smi, fwd) -> dict:
     with split_recorder() as rec, torch.no_grad():
         render_waves(scene, WIDTH, HEIGHT, key, 0, 1, depth=DEPTH,
                      chunk_size=CHUNK)
-    full, cold, loop, plain_ms = {}, {}, {}, {}
+    full = {}
     pairs = {"hit_attrs_bwd": [], "shade_update_bwd": []}
     # H' alone, and B''s sum of its light-table partials alone
     h_parts = {"kernel": [], "light_table_sum": []}
-    no_rows = (torch.empty((0, 1), dtype=torch.float32, device=dev),
-               torch.empty((0,), dtype=torch.int32, device=dev),
-               torch.zeros((1,), dtype=torch.int32, device=dev))
     for b, (hc, sc) in enumerate(zip(rec["hit"], rec["su"])):
         r = split_bwd_vs_plain(hc, sc, f"final_scene bounce {b}", seed=11 + b)
         for n_, v in r.items():
@@ -1625,63 +1771,29 @@ def final_train(dev, smi, fwd) -> dict:
              lambda sc=sc, gs=gs: bounce_ops.su_plane_core_vjp(*sc, gs)))
         part = shade_update_bwd_kernel.partials(*sc, gs)[1]
         h_parts["kernel"].append(
-            lambda sc=sc, gs=gs: shade_update_bwd_kernel.partials(*sc, gs))
+            (lambda sc=sc, gs=gs: shade_update_bwd_kernel.partials(*sc, gs),
+             None))
         h_parts["light_table_sum"].append(
-            lambda part=part: bwd_reduce_kernel(*no_rows, part))
-    with torch.no_grad():
-        for n_, ps in pairs.items():
-            cold[n_] = statistics.fmean(median(cold_ms(k)) for k, _ in ps)
-            loop[n_] = statistics.fmean(median(loop_ms(k)) for k, _ in ps)
-            plain_ms[n_] = statistics.fmean(median(cuda_ms(p, 3))
-                                            for _, p in ps)
-        h_cold = {n_: statistics.fmean(median(cold_ms(f)) for f in fs)
-                  for n_, fs in h_parts.items()}
-    step_med = median(steps_ms)
-    fwd_wave, bwd_wave = median(fwd_ms) / SPP, median(bwd_ms) / SPP
-    # the profiler's kernel ms of the one-wave step; the glue's shares need
-    # every kernel's (None where the profiler saw no launch of one)
-    red = per.get("bwd_reduce_kernel") or {}
-    red_wave = (None if red.get("ms_per_launch") is None
-                else red["ms_per_launch"] * red["launches"])
-    wave_k = {n: None if in_path[n] is None else in_path[n] * DEPTH
-              for n in names if n != "bwd_reduce"}
-    fwd_k = [wave_k[n] for n in ("quad_search", "hit_attrs", "shade_update")]
-    bwd_k = [wave_k[n] for n in pairs] + [red_wave]
-    lane_bounces = WIDTH * HEIGHT * SPP * DEPTH
+            (light_sum_call(part), None))
+    times = {n: bounce_times(ps, loop=True) for n, ps in pairs.items()}
+    cold = {n: statistics.fmean(v["cold"]) for n, v in times.items()}
+    plain_ms = {n: statistics.fmean(v["plain"]) for n, v in times.items()}
+    h_cold = {n: statistics.fmean(bounce_times(fs)["cold"])
+              for n, fs in h_parts.items()}
     emit({"phase": "final_train", "card": smi,
           "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
-          "loss": float(loss.detach()), "launches": launches,
-          "plain_calls": len(plain.calls), "grads_finite": True,
-          "grads_bitwise_repeat": True, "grad_max_abs": nonzero,
-          "leaves_with_grad": sorted(k for k, v in grads.items()
-                                     if bool(v.any())),
-          "step_ms_median": step_med, "step_ms_min": min(steps_ms),
-          "step_ms_max": max(steps_ms), "steps": len(steps_ms),
-          "fwd_bwd_mrays_per_s": lane_bounces / (step_med / 1e3) / 1e6,
-          "fwd_bwd_mrays_per_s_min": lane_bounces / (max(steps_ms) / 1e3)
-          / 1e6,
-          "fwd_bwd_mrays_per_s_max": lane_bounces / (min(steps_ms) / 1e3)
-          / 1e6,
-          "peak_memory_bytes": peak,
-          "ms_per_wave": {
-              "forward": fwd_wave, "backward": bwd_wave,
-              "glue_forward": None if None in fwd_k
-              else fwd_wave - sum(fwd_k),
-              "glue_backward": None if None in bwd_k
-              else bwd_wave - sum(bwd_k),
-              **wave_k, "bwd_reduce": red_wave},
+          **t["fields"],
           "bwd_reduce_launches": {
               "shade_update_bwd_light_table": SPP * DEPTH,
               "glue_row_sums": launches["bwd_reduce"] - SPP * DEPTH},
           "row_sums_vs_float64": row_sums,
-          "ms_per_launch_profiler": in_path,
           "bwd_ms_per_launch_l2_flushed": cold,
           "shade_update_bwd_parts_ms_l2_flushed": h_cold,
-          "bwd_ms_per_launch_looped_events": loop,
+          "bwd_ms_per_launch_looped_events": {
+              n: statistics.fmean(v["loop"]) for n, v in times.items()},
           "bwd_plain_ms_per_launch": plain_ms,
-          "bwd_kernels_vs_plain_full_size": full,
-          "profiled_one_wave_step": prof})
-    return {"launches": launches, "ms": cold, "ms_in_path": in_path,
+          "bwd_kernels_vs_plain_full_size": full})
+    return {"launches": launches, "ms": cold, "ms_in_path": t["in_path"],
             "plain_ms": plain_ms, "full": full, "calls": rec,
             "h_parts": h_cold}
 
@@ -1839,24 +1951,9 @@ def mesh_forward(dev, smi) -> dict:
             return render_waves(scene, w, h, key, 0, n_waves, depth=DEPTH,
                                 chunk_size=CHUNK)
 
-    watched = (SEARCH_KERNELS + FUSED_KERNELS + SPLIT_KERNELS
-               + (trace_wave_kernel, trace_wave_noise_kernel))
-    with PlainCalls() as plain:
-        for k in watched:
-            k.launches = 0
-        img = render(SPP)
-        torch.cuda.synchronize()
-        launches = {k.name: k.launches for k in watched}
-    want = {k.name: 0 for k in watched}
-    want.update({k.name: SPP * DEPTH for k in SEARCH_KERNELS + FUSED_KERNELS})
-    if launches != want:
-        raise AssertionError(f"mesh launches {launches}, expected {want}")
-    if plain.calls:
-        raise AssertionError(f"plain versions ran on the main path: "
-                             f"{sorted(set(plain.calls))}")
-    if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(
-            torch.isfinite(img).all()):
-        raise AssertionError("mesh image: wrong shape or non-finite")
+    img, launches, n_plain = main_path_forward(
+        "mesh", render, SEARCH_KERNELS + FUSED_KERNELS,
+        SPLIT_KERNELS + (trace_wave_kernel, trace_wave_noise_kernel))
 
     # every bounce of a small wave: each kernel against its plain version,
     # and the route against the plain route
@@ -1875,16 +1972,8 @@ def mesh_forward(dev, smi) -> dict:
     with torch.no_grad():
         full = search_fused_vs_plain(rec, "mesh full size", bounces=(0,))
 
-    torch.cuda.reset_peak_memory_stats(dev)
-    sweeps = cuda_ms(lambda: render(SPP), 5)
-    peak = torch.cuda.max_memory_allocated(dev)
-    names = {"tile_enter": "tile_enter_kernel",
-             "fused_search": "fused_search_kernel",
-             "bounce_planes": "bounce_planes_kernel"}
-    prof = profile_device(lambda: render(1), tuple(names.values()), top=10)
-    per = prof["per_kernel"] or {}
-    in_path = {n: (per.get(k) or {}).get("ms_per_launch")
-               for n, k in names.items()}
+    timing = forward_timing(render, {n: f"{n}_kernel" for n in (
+        "tile_enter", "fused_search", "bounce_planes")}, 5, dev)
     runs = {"tile_enter": [((lambda c=c: tile_enter_kernel(*c)),
                             (lambda c=c: search_ops.tile_enter_plain(*c)))
                            for c in rec["enter"]],
@@ -1896,24 +1985,16 @@ def mesh_forward(dev, smi) -> dict:
                  (lambda c=c: bounce_core.bounce_plane_core(
                      *c, c[0].shape[0] > bounce_core.N_IN_B)))
                 for c in rec["bp"]]}
-    ms, by_bounce, plain_ms = {}, {}, {}
-    with torch.no_grad():
-        for name, pairs in runs.items():
-            by_bounce[name] = [median(cold_ms(k)) for k, _ in pairs]
-            ms[name] = statistics.fmean(by_bounce[name])
-            # the plain M takes seconds a full-size bounce: one run each
-            plain_ms[name] = statistics.fmean(
-                median(cuda_ms(p, 1 if name == "fused_search" else 3))
-                for _, p in pairs)
+    # the plain M takes seconds a full-size bounce: one run each
+    times = {n: bounce_times(pairs, 1 if n == "fused_search" else 3)
+             for n, pairs in runs.items()}
+    by_bounce = {n: t["cold"] for n, t in times.items()}
+    ms = {n: statistics.fmean(v) for n, v in by_bounce.items()}
+    plain_ms = {n: statistics.fmean(t["plain"]) for n, t in times.items()}
     # per bounce: live rays, M's tests after K's cull (search_work's count)
     per_bounce = [dict(search_work({"enter": [e], "search": [c]}),
                        live_rays=int((c[0][8] > c[0][7]).sum()))
                   for e, c in zip(rec["enter"], rec["search"])]
-    med = median(sweeps)
-    wave_ms = med / SPP
-    kern_wave = (None if None in in_path.values()
-                 else sum(in_path[n] * DEPTH for n in names))
-    lane_bounces = WIDTH * HEIGHT * SPP * DEPTH
     work = search_work(rec)
     emit({"phase": "mesh_forward", "card": smi,
           "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
@@ -1922,7 +2003,7 @@ def mesh_forward(dev, smi) -> dict:
                      "clusters": scene.tri_cluster_min.shape[0],
                      "spheres": scene.n_spheres, "quads": scene.n_quads,
                      "lights": scene.n_lights},
-          "launches": launches, "plain_calls": len(plain.calls),
+          "launches": launches, "plain_calls": n_plain,
           "image_mean": float(img.mean()) / SPP,
           "small_wave_vs_plain_route": small_img,
           "kernels_vs_plain_small": small,
@@ -1935,164 +2016,62 @@ def mesh_forward(dev, smi) -> dict:
                       "dP_lanes_outside": FLIP_BUDGET,
                       "dlt_rel_l2": BWD_REL_L2,
                       "cotangent": "normal draws, seed 5 + bounce"}},
-          "sweep_ms_median": med, "sweep_ms_min": min(sweeps),
-          "sweep_ms_max": max(sweeps), "sweeps": len(sweeps),
-          "fwd_mrays_per_s": lane_bounces / (med / 1e3) / 1e6,
-          "peak_memory_bytes": peak,
-          "ms_per_wave": {**{n: None if in_path[n] is None
-                             else in_path[n] * DEPTH for n in names},
-                          "glue": None if kern_wave is None
-                          else wave_ms - kern_wave, "wave": wave_ms},
-          "ms_per_launch_profiler": in_path,
+          **timing["fields"],
           "ms_per_launch_l2_flushed": ms,
           "ms_per_bounce_l2_flushed": by_bounce,
           "plain_ms_per_launch": plain_ms,
           "work_per_wave": work,
           "work_per_bounce": [{k: b[k] for k in ("live_rays", "box_tests",
                                                  "tri_tests")}
-                              for b in per_bounce],
-          "profiled_wave": prof})
+                              for b in per_bounce]})
     return {"launches": launches, "small": small, "full": full, "ms": ms,
-            "ms_in_path": in_path, "plain_ms": plain_ms, "calls": rec,
-            "work": work, "scene": scene, "key": key}
+            "ms_in_path": timing["in_path"], "plain_ms": plain_ms,
+            "calls": rec, "work": work, "scene": scene, "key": key}
 
 
 def mesh_train(dev, smi, fwd) -> dict:
-    """``bench.py``'s training step on the mesh at the bench shape:
-    ``loss = mean(render_waves(...))``, ``backward()`` over every float
-    leaf of ``partition``. Per step SPP * DEPTH launches each of K, M, F
-    and F', none of A, B, O, J, H, J' or H', B' (``bwd_reduce``) once for
-    each F' (its light-table partials) and for the glue's row sums, no
+    """``bench.py``'s training step on the mesh at the bench shape
+    (:func:`main_path_train`): per step SPP * DEPTH launches each of K, M,
+    F and F', none of A, B, O, J, H, J' or H', B' (``bwd_reduce``) once
+    for each F' (its light-table partials) and for the glue's row sums, no
     plain call; gradients finite, bitwise equal over two steps, non-zero
     on ``tri_v0``, ``tex_color`` and ``light_c``; the step's rate, its
-    forward and backward apart, a profiled one-wave step (per-kernel ms,
-    busy share), the peak memory; F' on every bounce's recorded inputs of
-    a full-size wave with a seeded cotangent against its plain version,
-    timed out of L2. Emits ``mesh_train``."""
-    scene, key = fwd["scene"], fwd["key"]
-    params, static = partition(scene)
-
-    def run(n_waves):
-        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
-        loss = render_waves(combine(leaves, static), WIDTH, HEIGHT, key, 0,
-                            n_waves, depth=DEPTH, chunk_size=CHUNK).mean()
-        return loss, leaves
-
-    def step(n_waves=SPP):
-        loss, leaves = run(n_waves)
-        loss.backward()
-        return loss, {k: v.grad for k, v in leaves.items()}
-
-    watched = (SEARCH_KERNELS + FUSED_KERNELS + FUSED_BWD_KERNELS
-               + SPLIT_KERNELS + SPLIT_BWD_KERNELS + WHOLE_WAVE_KERNELS
-               + (bwd_reduce_kernel,))
-    with PlainCalls() as plain:
-        for k in watched:
-            k.launches = 0
-        loss, grads = step()
-        torch.cuda.synchronize()
-        launches = {k.name: k.launches for k in watched}
-        _, grads2 = step()
-        torch.cuda.synchronize()
-    want = {k.name: 0 for k in watched}
-    want.update({k.name: SPP * DEPTH for k in
-                 SEARCH_KERNELS + FUSED_KERNELS + FUSED_BWD_KERNELS})
-    want["bwd_reduce"] = launches["bwd_reduce"]
-    if launches != want or launches["bwd_reduce"] <= SPP * DEPTH:
-        raise AssertionError(f"mesh training launches {launches}, expected "
-                             f"{want}")
-    if plain.calls:
-        raise AssertionError(f"plain versions ran on the training path: "
-                             f"{sorted(set(plain.calls))}")
-    grads = {k: v for k, v in grads.items() if v is not None}
-    for k, v in grads.items():
-        if not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"non-finite gradient of {k}")
-        if not torch.equal(v, grads2[k]):
-            raise AssertionError(f"gradient of {k} differs between steps")
-    nonzero = {k: float(grads[k].abs().max()) for k in ("tri_v0",
-                                                       "tex_color",
-                                                       "light_c")}
-    if min(nonzero.values()) <= 0:
-        raise AssertionError(f"zero gradients: {nonzero}")
-
-    torch.cuda.reset_peak_memory_stats(dev)
-    steps_ms = cuda_ms(step, 5)
-    peak = torch.cuda.max_memory_allocated(dev)
-    fwd_ms, bwd_ms = [], []
-    for _ in range(3):
-        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        e[0].record()
-        loss_t, _ = run(SPP)
-        e[1].record()
-        loss_t.backward()
-        e[2].record()
-        torch.cuda.synchronize()
-        fwd_ms.append(e[0].elapsed_time(e[1]))
-        bwd_ms.append(e[1].elapsed_time(e[2]))
-        del loss_t
-    names = {"tile_enter": "tile_enter_kernel",
-             "fused_search": "fused_search_kernel",
-             "bounce_planes": "bounce_planes_kernel",
-             "bounce_planes_bwd": "bounce_planes_bwd_kernel",
-             "bwd_reduce": "bwd_reduce_kernel"}
-    prof = profile_device(lambda: step(1), tuple(names.values()), top=15)
-    per = prof["per_kernel"] or {}
-    in_path = {n: (per.get(k) or {}).get("ms_per_launch")
-               for n, k in names.items()}
+    forward and backward apart, a profiled one-wave step, the peak memory;
+    F' on every bounce's recorded inputs of a full-size wave with a seeded
+    cotangent against its plain version, timed out of L2. Emits
+    ``mesh_train``."""
+    fwd_names = ("tile_enter", "fused_search", "bounce_planes")
+    t = main_path_train(
+        "mesh", fwd["scene"], fwd["key"],
+        SEARCH_KERNELS + FUSED_KERNELS + FUSED_BWD_KERNELS,
+        SPLIT_KERNELS + SPLIT_BWD_KERNELS + WHOLE_WAVE_KERNELS,
+        ("tri_v0", "tex_color", "light_c"),
+        {n: f"{n}_kernel" for n in fwd_names + ("bounce_planes_bwd",)},
+        fwd_names, ("bounce_planes_bwd",), 5, dev)
 
     # F' on every bounce's recorded inputs of one full-size wave
     calls = fwd["calls"]["bp"]
-    cold, plain_ms, full = [], [], {}
+    pairs = []
+    for b, c in enumerate(calls):
+        g = torch.from_numpy(np.random.default_rng(11 + b).normal(
+            size=(13, c[0].shape[1])).astype(np.float32)).to(dev)
+        pairs.append((lambda c=c, g=g: bounce_planes_bwd_kernel(*c, g),
+                      lambda c=c, g=g: bounce_core.bounce_plane_core_vjp(
+                          *c, c[0].shape[0] > bounce_core.N_IN_B, g)))
+    times = bounce_times(pairs)
     with torch.no_grad():
-        for b, c in enumerate(calls):
-            g = torch.from_numpy(np.random.default_rng(11 + b).normal(
-                size=(13, c[0].shape[1])).astype(np.float32)).to(dev)
-            cold.append(median(cold_ms(
-                lambda c=c, g=g: bounce_planes_bwd_kernel(*c, g))))
-            plain_ms.append(median(cuda_ms(
-                lambda c=c, g=g: bounce_core.bounce_plane_core_vjp(
-                    *c, c[0].shape[0] > bounce_core.N_IN_B, g), 3)))
         full = search_fused_vs_plain({"enter": [], "search": [],
                                       "bp": calls}, "mesh full size F'",
                                      bounces=range(len(calls)))
-    step_med = median(steps_ms)
-    lane_bounces = WIDTH * HEIGHT * SPP * DEPTH
-    red = per.get("bwd_reduce_kernel") or {}
-    red_wave = (None if red.get("ms_per_launch") is None
-                else red["ms_per_launch"] * red["launches"])
-    wave_k = {n: None if in_path[n] is None else in_path[n] * DEPTH
-              for n in names if n != "bwd_reduce"}
-    fwd_wave, bwd_wave = median(fwd_ms) / SPP, median(bwd_ms) / SPP
-    fwd_k = [wave_k[n] for n in ("tile_enter", "fused_search",
-                                 "bounce_planes")]
-    bwd_k = [wave_k["bounce_planes_bwd"], red_wave]
     emit({"phase": "mesh_train", "card": smi,
           "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
-          "loss": float(loss.detach()), "launches": launches,
-          "plain_calls": len(plain.calls), "grads_finite": True,
-          "grads_bitwise_repeat": True, "grad_max_abs": nonzero,
-          "leaves_with_grad": sorted(k for k, v in grads.items()
-                                     if bool(v.any())),
-          "step_ms_median": step_med, "step_ms_min": min(steps_ms),
-          "step_ms_max": max(steps_ms), "steps": len(steps_ms),
-          "fwd_bwd_mrays_per_s": lane_bounces / (step_med / 1e3) / 1e6,
-          "peak_memory_bytes": peak,
-          "ms_per_wave": {
-              "forward": fwd_wave, "backward": bwd_wave,
-              "glue_forward": None if None in fwd_k
-              else fwd_wave - sum(fwd_k),
-              "glue_backward": None if None in bwd_k
-              else bwd_wave - sum(bwd_k),
-              **wave_k, "bwd_reduce": red_wave},
-          "ms_per_launch_profiler": in_path,
-          "bounce_planes_bwd_ms_l2_flushed": statistics.fmean(cold),
-          "bounce_planes_bwd_plain_ms": statistics.fmean(plain_ms),
-          "bounce_planes_bwd_vs_plain_full_size": full,
-          "profiled_one_wave_step": prof})
-    return {"launches": launches, "ms": statistics.fmean(cold),
-            "ms_in_path": in_path["bounce_planes_bwd"],
-            "plain_ms": statistics.fmean(plain_ms), "full": full}
+          **t["fields"],
+          "bounce_planes_bwd_ms_l2_flushed": statistics.fmean(times["cold"]),
+          "bounce_planes_bwd_plain_ms": statistics.fmean(times["plain"]),
+          "bounce_planes_bwd_vs_plain_full_size": full})
+    return {"launches": t["launches"], "ms": statistics.fmean(times["cold"]),
+            "ms_in_path": t["in_path"]["bounce_planes_bwd"],
+            "plain_ms": statistics.fmean(times["plain"]), "full": full}
 
 
 def mesh_rows(fwd, train, worst_small) -> list[dict]:
@@ -2315,27 +2294,11 @@ def random_earth_forward(dev, smi) -> dict:
             return render_waves(scene, w, h, key, 0, n_waves, depth=DEPTH,
                                 chunk_size=CHUNK)
 
-    watched = (CULL_KERNELS + SPLIT_KERNELS + SEARCH_KERNELS + FUSED_KERNELS
-               + (trace_wave_kernel, trace_wave_noise_kernel))
-    with PlainCalls() as plain:
-        for k in watched:
-            k.launches = 0
-        img = render(SPP)
-        torch.cuda.synchronize()
-        launches = {k.name: k.launches for k in watched}
-    want = {k.name: 0 for k in watched}
-    want.update({k.name: SPP * DEPTH for k in (sph_search_kernel,
-                                               hit_attrs_kernel,
-                                               shade_update_kernel)})
-    if launches != want:
-        raise AssertionError(f"random earth launches {launches}, expected "
-                             f"{want}")
-    if plain.calls:
-        raise AssertionError(f"plain versions ran on the main path: "
-                             f"{sorted(set(plain.calls))}")
-    if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(
-            torch.isfinite(img).all()):
-        raise AssertionError("random earth image: wrong shape or non-finite")
+    img, launches, n_plain = main_path_forward(
+        "random earth", render,
+        (sph_search_kernel, hit_attrs_kernel, shade_update_kernel),
+        (tri_search_kernel, quad_search_kernel) + SEARCH_KERNELS
+        + FUSED_KERNELS + (trace_wave_kernel, trace_wave_noise_kernel))
 
     with split_recorder() as rec_s:
         small_k = render(1, MESH_W, MESH_H)
@@ -2355,33 +2318,20 @@ def random_earth_forward(dev, smi) -> dict:
         full = cull_vs_plain(rec, "random earth full size", (0,))
         full.update(split_kernels_vs_plain(rec, "random earth full size"))
 
-    sweeps = cuda_ms(lambda: render(SPP), 7)
-    names = {"sph_search": "sph_search_kernel",
-             "hit_attrs": "hit_attrs_kernel",
-             "shade_update": "shade_update_kernel"}
-    prof = profile_device(lambda: render(1), tuple(names.values()), top=10)
-    per = prof["per_kernel"] or {}
-    in_path = {n: (per.get(k) or {}).get("ms_per_launch")
-               for n, k in names.items()}
+    timing = forward_timing(render, {n: f"{n}_kernel" for n in (
+        "sph_search", "hit_attrs", "shade_update")}, 7, dev)
+    times = bounce_times([
+        (lambda c=c: sph_search_kernel(*c),
+         lambda c=c: sphere_ops.sph_search_plain(*c)) for c in rec["sph"]])
     with torch.no_grad():
-        n_cold = [median(cold_ms(lambda c=c: sph_search_kernel(*c)))
-                  for c in rec["sph"]]
-        n_plain = [median(cuda_ms(
-            lambda c=c: sphere_ops.sph_search_plain(*c), 3))
-            for c in rec["sph"]]
         work = cull_work(rec)
-    med = median(sweeps)
-    wave_ms = med / SPP
-    kern_wave = (None if None in in_path.values()
-                 else sum(in_path[n] * DEPTH for n in names))
-    lane_bounces = WIDTH * HEIGHT * SPP * DEPTH
     emit({"phase": "random_earth_forward", "card": smi,
           "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
           "compile_scene_s": compile_s,
           "tables": {"spheres": scene.n_spheres,
                      "sphere_clusters": scene.sph_cluster_min.shape[0],
                      "images": list(scene.img_data.shape)},
-          "launches": launches, "plain_calls": len(plain.calls),
+          "launches": launches, "plain_calls": n_plain,
           "image_mean": float(img.mean()) / SPP,
           "small_wave_vs_plain_route": small_img,
           "wave_vs_plain_route": full_img,
@@ -2393,147 +2343,43 @@ def random_earth_forward(dev, smi) -> dict:
               "shade_update_lanes_outside": FLIP_BUDGET,
               "image_flip": "any channel outside rtol/atol",
               "flip_frac": FLIP_BUDGET, "rtol": RTOL, "atol": ATOL},
-          "sweep_ms_median": med, "sweep_ms_min": min(sweeps),
-          "sweep_ms_max": max(sweeps), "sweeps": len(sweeps),
-          "fwd_mrays_per_s": lane_bounces / (med / 1e3) / 1e6,
-          "fwd_mrays_per_s_min": lane_bounces / (max(sweeps) / 1e3) / 1e6,
-          "fwd_mrays_per_s_max": lane_bounces / (min(sweeps) / 1e3) / 1e6,
-          "ms_per_wave": {**{n: None if in_path[n] is None
-                             else in_path[n] * DEPTH for n in names},
-                          "glue": None if kern_wave is None
-                          else wave_ms - kern_wave, "wave": wave_ms},
-          "ms_per_launch_profiler": in_path,
-          "sph_search_ms_per_bounce_l2_flushed": n_cold,
-          "sph_search_plain_ms_per_bounce": n_plain,
-          "work_per_wave": work,
-          "profiled_wave": prof})
+          **timing["fields"],
+          "sph_search_ms_per_bounce_l2_flushed": times["cold"],
+          "sph_search_plain_ms_per_bounce": times["plain"],
+          "work_per_wave": work})
     return {"launches": launches, "small": small, "full": full,
-            "ms": statistics.fmean(n_cold), "ms_in_path": in_path,
-            "plain_ms": statistics.fmean(n_plain), "work": work,
+            "ms": statistics.fmean(times["cold"]),
+            "ms_in_path": timing["in_path"],
+            "plain_ms": statistics.fmean(times["plain"]), "work": work,
             "scene": scene, "key": key}
 
 
 def random_earth_train(dev, smi, fwd) -> dict:
     """``bench.py``'s training step on random with the earth map at the
-    bench shape: ``loss = mean(render_waves(...))``, ``backward()`` over
-    every float leaf of ``partition``. Per step SPP * DEPTH launches each
-    of N, J, H, J' and H', none of A, B, K, M, L, O, F or F', B'
+    bench shape (:func:`main_path_train`): per step SPP * DEPTH launches
+    each of N, J, H, J' and H', none of A, B, K, M, L, O, F or F', B'
     (``bwd_reduce``) for H''s partials and the glue's row sums (the
     texels' among them), no plain call; gradients finite, bitwise equal
     over two steps, non-zero on ``img_data``, ``tex_color`` and
     ``sph_c0``; the step's rate (median, min, max of 7), its forward and
     backward apart, a profiled one-wave step (per-kernel ms, busy share),
     the peak memory. Emits ``random_earth_train``."""
-    scene, key = fwd["scene"], fwd["key"]
-    params, static = partition(scene)
-
-    def run(n_waves):
-        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
-        loss = render_waves(combine(leaves, static), WIDTH, HEIGHT, key, 0,
-                            n_waves, depth=DEPTH, chunk_size=CHUNK).mean()
-        return loss, leaves
-
-    def step(n_waves=SPP):
-        loss, leaves = run(n_waves)
-        loss.backward()
-        return loss, {k: v.grad for k, v in leaves.items()}
-
-    watched = (CULL_KERNELS + SPLIT_KERNELS + SPLIT_BWD_KERNELS
-               + SEARCH_KERNELS + FUSED_KERNELS + FUSED_BWD_KERNELS
-               + WHOLE_WAVE_KERNELS + (bwd_reduce_kernel,))
-    with PlainCalls() as plain:
-        for k in watched:
-            k.launches = 0
-        loss, grads = step()
-        torch.cuda.synchronize()
-        launches = {k.name: k.launches for k in watched}
-        _, grads2 = step()
-        torch.cuda.synchronize()
-    want = {k.name: 0 for k in watched}
-    want.update({k.name: SPP * DEPTH for k in (sph_search_kernel,
-                                               hit_attrs_kernel,
-                                               shade_update_kernel)
-                 + SPLIT_BWD_KERNELS})
-    want["bwd_reduce"] = launches["bwd_reduce"]
-    if launches != want or launches["bwd_reduce"] <= SPP * DEPTH:
-        raise AssertionError(f"random earth training launches {launches}, "
-                             f"expected {want}")
-    if plain.calls:
-        raise AssertionError(f"plain versions ran on the training path: "
-                             f"{sorted(set(plain.calls))}")
-    grads = {k: v for k, v in grads.items() if v is not None}
-    for k, v in grads.items():
-        if not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"non-finite gradient of {k}")
-        if not torch.equal(v, grads2[k]):
-            raise AssertionError(f"gradient of {k} differs between steps")
-    nonzero = {k: float(grads[k].abs().max())
-               for k in ("img_data", "tex_color", "sph_c0")}
-    if min(nonzero.values()) <= 0:
-        raise AssertionError(f"zero gradients: {nonzero}")
-    texels = int((grads["img_data"].abs().sum(-1) > 0).sum())
-
-    torch.cuda.reset_peak_memory_stats(dev)
-    steps_ms = cuda_ms(step, 7)
-    peak = torch.cuda.max_memory_allocated(dev)
-    fwd_ms, bwd_ms = [], []
-    for _ in range(3):
-        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        e[0].record()
-        loss_t, _ = run(SPP)
-        e[1].record()
-        loss_t.backward()
-        e[2].record()
-        torch.cuda.synchronize()
-        fwd_ms.append(e[0].elapsed_time(e[1]))
-        bwd_ms.append(e[1].elapsed_time(e[2]))
-        del loss_t
-    names = {"sph_search": "sph_search_kernel",
-             "hit_attrs": "hit_attrs_kernel",
-             "shade_update": "shade_update_kernel",
-             "hit_attrs_bwd": "hit_attrs_bwd_kernel",
-             "shade_update_bwd": "shade_update_bwd_kernel",
-             "bwd_reduce": "bwd_reduce_kernel"}
-    prof = profile_device(lambda: step(1), tuple(names.values()), top=15)
-    per = prof["per_kernel"] or {}
-    in_path = {n: (per.get(k) or {}).get("ms_per_launch")
-               for n, k in names.items()}
-    step_med = median(steps_ms)
-    fwd_wave, bwd_wave = median(fwd_ms) / SPP, median(bwd_ms) / SPP
-    red = per.get("bwd_reduce_kernel") or {}
-    red_wave = (None if red.get("ms_per_launch") is None
-                else red["ms_per_launch"] * red["launches"])
-    wave_k = {n: None if in_path[n] is None else in_path[n] * DEPTH
-              for n in names if n != "bwd_reduce"}
-    fwd_k = [wave_k[n] for n in ("sph_search", "hit_attrs", "shade_update")]
-    bwd_k = [wave_k["hit_attrs_bwd"], wave_k["shade_update_bwd"], red_wave]
-    lane_bounces = WIDTH * HEIGHT * SPP * DEPTH
+    fwd_names = ("sph_search", "hit_attrs", "shade_update")
+    bwd_names = ("hit_attrs_bwd", "shade_update_bwd")
+    t = main_path_train(
+        "random earth", fwd["scene"], fwd["key"],
+        (sph_search_kernel, hit_attrs_kernel, shade_update_kernel)
+        + SPLIT_BWD_KERNELS,
+        (tri_search_kernel, quad_search_kernel) + SEARCH_KERNELS
+        + FUSED_KERNELS + FUSED_BWD_KERNELS + WHOLE_WAVE_KERNELS,
+        ("img_data", "tex_color", "sph_c0"),
+        {n: f"{n}_kernel" for n in fwd_names + bwd_names}, fwd_names,
+        bwd_names, 7, dev)
+    texels = int((t["grads"]["img_data"].abs().sum(-1) > 0).sum())
     emit({"phase": "random_earth_train", "card": smi,
           "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
-          "loss": float(loss.detach()), "launches": launches,
-          "plain_calls": len(plain.calls), "grads_finite": True,
-          "grads_bitwise_repeat": True, "grad_max_abs": nonzero,
-          "img_data_texels_with_grad": texels,
-          "leaves_with_grad": sorted(k for k, v in grads.items()
-                                     if bool(v.any())),
-          "step_ms_median": step_med, "step_ms_min": min(steps_ms),
-          "step_ms_max": max(steps_ms), "steps": len(steps_ms),
-          "fwd_bwd_mrays_per_s": lane_bounces / (step_med / 1e3) / 1e6,
-          "fwd_bwd_mrays_per_s_min": lane_bounces / (max(steps_ms) / 1e3)
-          / 1e6,
-          "fwd_bwd_mrays_per_s_max": lane_bounces / (min(steps_ms) / 1e3)
-          / 1e6,
-          "peak_memory_bytes": peak,
-          "ms_per_wave": {
-              "forward": fwd_wave, "backward": bwd_wave,
-              "glue_forward": None if None in fwd_k
-              else fwd_wave - sum(fwd_k),
-              "glue_backward": None if None in bwd_k
-              else bwd_wave - sum(bwd_k),
-              **wave_k, "bwd_reduce": red_wave},
-          "ms_per_launch_profiler": in_path,
-          "profiled_one_wave_step": prof})
-    return {"launches": launches, "ms_in_path": in_path}
+          **t["fields"], "img_data_texels_with_grad": texels})
+    return {"launches": t["launches"], "ms_in_path": t["in_path"]}
 
 
 def tri_scene_phase(dev, smi) -> dict:
@@ -2667,6 +2513,396 @@ def cull_rows(rand, tri) -> list[dict]:
     rows[1]["kernel"] = ("fused_search_kernel launched with no sphere or "
                          "quad rows (M's triangle test is L's)")
     return rows
+
+
+# ---- glTF scenes: the 9-light flagship on the split route (TPU kernels I,
+# I'), the single-light flagship on A, a Mesh-boundary medium, the CLI -g --
+
+@contextlib.contextmanager
+def gltf_dir():
+    """A temporary directory holding the glTF files of the new phases
+    (``tests/torch_parity.write_gltf_flagship``): the flagship's 968
+    triangles with 9 point lights (``f9.gltf``, a data-URI buffer), with
+    16 (``f16.gltf``) and with its one lamp as a point light
+    (``f1.glb``). Yields {name: path}; the directory is removed after."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        yield {"f9": write_gltf_flagship(os.path.join(tmp, "f9.gltf"), 9),
+               "f16": write_gltf_flagship(os.path.join(tmp, "f16.gltf"), 16),
+               "f1": write_gltf_flagship(os.path.join(tmp, "f1.glb"), 1,
+                                         "glb")}
+
+
+def shade_cots(n, seed):
+    """Seeded normal cotangents [9, n] of kernel I's emitted, weight and
+    direction planes, on the card."""
+    g = np.random.default_rng(seed).normal(size=(9, n)).astype(np.float32)
+    return torch.from_numpy(g).to("cuda")
+
+
+def shade_vs_plain(calls, label, bounces=(0, 1), seed=21) -> dict:
+    """I and I' against their plain versions on the card, on the recorded
+    calls (``split_recorder``'s ``shade``) of ``bounces``: I's planes
+    within RTOL / ATOL of each lane's largest value, at most FLIP_BUDGET
+    of the lanes outside (as H is held); I' with B's budget (d_data per
+    lane within BWD_RTOL of its largest plane / BWD_ATOL, at most
+    FLIP_BUDGET of the lanes outside; the light table's cotangent within
+    relative L2 BWD_REL_L2 and each row within BWD_REL_L2 of its largest
+    entry) for a seeded cotangent, run twice for the same bits. Returns
+    each kernel's share outside and worst error."""
+    out = {"shade": {"lanes_outside": 0.0, "max_abs_err": 0.0},
+           "shade_bwd": {"lanes_outside": 0.0, "max_abs_err": 0.0,
+                         "dlt_rel_l2": 0.0, "dlt_rows_err": 0.0,
+                         "bitwise_repeat": True}}
+    for b in bounces:
+        data, rng_p, kind, lt, n_lights = calls["shade"][b]
+        what = f"{label} bounce {b}"
+        got = shade_kernel(data, rng_p, kind, lt, n_lights)
+        ref = shade_ops.shade_plane_core(data, rng_p, kind, lt, n_lights)
+        if not torch.equal(got[9], ref[9]):
+            raise AssertionError(f"{what}: shade's alive plane differs on "
+                                 f"{int((got[9] != ref[9]).sum())} lanes")
+        f, e = scaled_close(got, ref, RTOL, ATOL, FLIP_BUDGET,
+                            f"{what}: shade")
+        g = shade_cots(data.shape[1], seed + b)
+        got_d, got_lt = shade_bwd_kernel(data, rng_p, kind, lt, n_lights, g)
+        again_d, again_lt = shade_bwd_kernel(data, rng_p, kind, lt,
+                                             n_lights, g)
+        torch.cuda.synchronize()
+        if not (torch.equal(got_d, again_d) and torch.equal(got_lt,
+                                                            again_lt)):
+            raise AssertionError(f"{what}: two runs of I' differ")
+        ref_d, ref_lt = shade_ops.shade_plane_core_vjp(data, rng_p, kind, lt,
+                                                       n_lights, g)
+        fb, eb = scaled_close(got_d, ref_d, BWD_RTOL, BWD_ATOL, FLIP_BUDGET,
+                              f"{what}: shade_bwd d_data")
+        r = {"lanes_outside": fb, "max_abs_err": eb,
+             "dlt_rel_l2": rel_l2(got_lt, ref_lt, f"{what}: I' dlt",
+                                  BWD_REL_L2),
+             "dlt_rows_err": rows_close(got_lt, ref_lt,
+                                        f"{what}: I' dlt rows")}
+        sph = lt[:, 0] == S.LIGHT_SPHERE
+        if not float(got_lt[sph][:, 1:5].abs().amax(1).min()) > 0:
+            raise AssertionError(f"{what}: a sphere light took no cotangent")
+        for k, v in (("lanes_outside", f), ("max_abs_err", e)):
+            out["shade"][k] = max(out["shade"][k], v)
+        for k, v in r.items():
+            out["shade_bwd"][k] = max(out["shade_bwd"][k], v)
+    return out
+
+
+# Floats a lane of each material kind reads in kernel I (shade(),
+# csrc/trace_common.cuh) beside its kind: Lambertian its normal, albedo and
+# randoms 0, 1 (with lights also p and randoms 3, 4, and 5, 6 where it
+# samples a light: LAMB_LIGHTS_FWD, LAMB_SAMPLE); metal d, n, albedo, fuzz
+# and randoms 7, 9-11; dielectric d, n, ior and random 2; light d, n and
+# albedo; isotropic albedo and randoms 8, 12-14.
+SHADE_READS = {S.MAT_LAMBERTIAN: 8, S.MAT_METAL: 14, S.MAT_DIELECTRIC: 8,
+               S.MAT_LIGHT: 9, S.MAT_ISOTROPIC: 7}
+# ... and in kernel I' (shade_fwd + shade_vjp, csrc/trace_bwd_common.cuh),
+# with the cotangents each kind's adjoint reads: Lambertian n, albedo,
+# randoms 0, 1 and weight's cotangent (with lights as in I); metal d, n,
+# randoms 7, 9-11 and the cotangents of weight and direction; dielectric
+# d, n, ior, random 2 and direction's; light d, n and emitted's; isotropic
+# weight's.
+SHADE_BWD_READS = {S.MAT_LAMBERTIAN: 11, S.MAT_METAL: 16,
+                   S.MAT_DIELECTRIC: 11, S.MAT_LIGHT: 9, S.MAT_ISOTROPIC: 3}
+LAMB_LIGHTS_FWD = 5     # p and randoms 3, 4 of a Lambertian lane with lights
+LAMB_SAMPLE = 2         # randoms 5, 6 of a lane that samples a light
+
+
+def shade_lane_reads(calls, reads) -> int:
+    """Floats the lanes of these recorded calls read by material kind
+    (``reads``), the light-mixture inputs of Lambertian lanes included,
+    from this run's kinds and randoms."""
+    total = 0
+    for _, rng_p, kind, _, n_lights in calls:
+        total += sum(reads[k] * int((kind == k).sum()) for k in reads)
+        if n_lights:
+            lam = kind == S.MAT_LAMBERTIAN
+            total += (LAMB_LIGHTS_FWD * int(lam.sum())
+                      + LAMB_SAMPLE * int((lam & (rng_p[3] >= 0.5)).sum()))
+    return total
+
+
+def shade_bytes(calls) -> int:
+    """Bytes kernel I must move on these recorded calls: every lane its
+    kind in and its 10 planes out, and what its material reads
+    (``SHADE_READS``); the light table once a launch."""
+    return 4 * (shade_lane_reads(calls, SHADE_READS)
+                + sum(data.shape[1] * (1 + 10) + lt.numel()
+                      for data, _, _, lt, _ in calls))
+
+
+def shade_bwd_bytes(calls) -> int:
+    """Bytes kernel I' must move on these recorded calls: every lane its
+    kind in and its 14 data-plane cotangents out, and what its material's
+    adjoint reads (``SHADE_BWD_READS``); the light table in once, and the
+    per-block partials written and read back once with their sum out."""
+    return 4 * (shade_lane_reads(calls, SHADE_BWD_READS)
+                + sum(data.shape[1] * (1 + 14) + lt.numel()
+                      + 2 * lt.numel() * (-(-data.shape[1] // 128))
+                      + lt.numel() for data, _, _, lt, _ in calls))
+
+
+def shade_ops_count(calls) -> int:
+    """fp32 operations of kernel I on these calls: OPS_SHADE a lane and,
+    for a Lambertian lane, OPS_LIGHT_PDF for each light of the mixture
+    pdf."""
+    total = 0
+    for data, _, kind, _, n_lights in calls:
+        lam = int((kind == S.MAT_LAMBERTIAN).sum())
+        total += data.shape[1] * OPS_SHADE + lam * n_lights * OPS_LIGHT_PDF
+    return total
+
+
+def gltf_scene(path, dev):
+    return compile_scene(load_gltf_scene(path, WIDTH / HEIGHT), device=dev)
+
+
+def gltf_lights_forward(dev, smi, paths) -> dict:
+    """The 9-light glTF flagship at the bench shape on the split route
+    (the light table overflows A, F and H): per wave DEPTH launches each
+    of K, M (the unified search: 968 triangles, 9 spheres), J and I, none
+    of A, H, F, O, L, N, no plain call, a finite image; one full-size
+    wave against the plain route; I and I' against their plain versions
+    on the full-size wave's bounces 0 and 1, and on the 16-light file's;
+    sweep ms, per-wave kernel and glue ms and the busy share by the
+    profiler; I's ms per launch out of L2 and in a loop on every bounce's
+    recorded inputs, in the path, and its plain version's. Emits
+    ``gltf_lights_forward``; returns what the rows and the training phase
+    need."""
+    scene = gltf_scene(paths["f9"], dev)
+    key = rng.key(0, dev)
+    tables = make_split_tables(scene)
+    if (scene.n_lights != 9 or uber.uber_eligible(scene) or tables.fused
+            or tables.su or not tables.unified):
+        raise AssertionError("the 9-light flagship is not on the I route")
+
+    def render(n_waves, sc=scene):
+        with torch.no_grad():
+            return render_waves(sc, WIDTH, HEIGHT, key, 0, n_waves,
+                                depth=DEPTH, chunk_size=CHUNK)
+
+    img, launches, n_plain = main_path_forward(
+        "9-light", render, SEARCH_KERNELS + (hit_attrs_kernel, shade_kernel),
+        (shade_update_kernel, quad_search_kernel) + FUSED_KERNELS
+        + CULL_KERNELS + (trace_wave_kernel, trace_wave_noise_kernel))
+
+    with split_recorder() as rec:
+        wave_k = render(1)
+    with split_recorder(plain=True):
+        wave_p = render(1)
+    full_img = compare(wave_k, wave_p, "9 lights: kernels vs plain route",
+                       flip_abs=None)
+    with torch.no_grad():
+        full = shade_vs_plain(rec, "9 lights full size")
+        full.update(split_kernels_vs_plain(rec, "9 lights full size"))
+    scene16 = gltf_scene(paths["f16"], dev)
+    with split_recorder() as rec16:
+        render(1, scene16)
+    if scene16.n_lights != 16 or len(rec16["shade"]) != DEPTH:
+        raise AssertionError("the 16-light flagship did not run I")
+    with torch.no_grad():
+        full16 = shade_vs_plain(rec16, "16 lights full size")
+    # I and I' out of L2 at 16 lights: I''s shared memory a block grows
+    # from 65 KB (9 lights) to 116 KB
+    calls16 = rec16["shade"]
+    cots16 = [shade_cots(c[0].shape[1], 41 + b) for b, c in enumerate(calls16)]
+    ms16 = {"shade": bounce_times([(lambda c=c: shade_kernel(*c), None)
+                                   for c in calls16])["cold"],
+            "shade_bwd": bounce_times([
+                (lambda c=c, g=g: shade_bwd_kernel(*c, g), None)
+                for c, g in zip(calls16, cots16)])["cold"]}
+    del rec16, calls16, cots16
+
+    timing = forward_timing(render, {n: f"{n}_kernel" for n in (
+        "tile_enter", "fused_search", "hit_attrs", "shade")}, 5, dev)
+    calls = rec["shade"]
+    times = bounce_times([(lambda c=c: shade_kernel(*c),
+                           lambda c=c: shade_ops.shade_plane_core(*c))
+                          for c in calls], loop=True)
+    emit({"phase": "gltf_lights_forward", "card": smi,
+          "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
+          "tables": {"triangles": scene.n_tris, "spheres": scene.n_spheres,
+                     "lights": scene.n_lights},
+          "launches": launches, "plain_calls": n_plain,
+          "image_mean": float(img.mean()) / SPP,
+          "wave_vs_plain_route": full_img,
+          "kernels_vs_plain_9_lights": full,
+          "kernels_vs_plain_16_lights": full16,
+          "ms_per_bounce_16_lights_l2_flushed": ms16,
+          "kernel_vs_plain_budget": {
+              "shade_lanes_outside": FLIP_BUDGET, "rtol": RTOL,
+              "atol": ATOL, "shade_bwd": [BWD_RTOL, BWD_ATOL, BWD_REL_L2],
+              "image_flip": "any channel outside rtol/atol",
+              "flip_frac": FLIP_BUDGET},
+          **timing["fields"],
+          "shade_ms_per_bounce_l2_flushed": times["cold"],
+          "shade_ms_per_bounce_looped": times["loop"],
+          "shade_plain_ms_per_bounce": times["plain"],
+          "shade_lanes_per_bounce": [c[0].shape[1] for c in calls]})
+    return {"launches": launches, "full": full, "full16": full16,
+            "ms": statistics.fmean(times["cold"]),
+            "ms_in_path": timing["in_path"]["shade"],
+            "plain_ms": statistics.fmean(times["plain"]), "calls": calls,
+            "scene": scene, "key": key}
+
+
+def gltf_lights_train(dev, smi, fwd) -> dict:
+    """``bench.py``'s training step on the 9-light glTF flagship at the
+    bench shape (:func:`main_path_train`): per step SPP * DEPTH launches
+    each of K, M, J, I, J' and I', none of A, B, H, H', F, F', B' once for
+    each I' (its light-table partials) and for the glue's row sums, no
+    plain call; gradients finite, bitwise equal over two steps and
+    non-zero on ``tri_v0``, ``tex_color``, ``light_c``, ``light_r`` and
+    ``camera.c2w``; the step's rate (5 timed steps), its forward and
+    backward apart, a profiled one-wave step, the peak memory; then I' on
+    every bounce's recorded inputs of one wave with seeded cotangents,
+    timed out of L2 (with B''s sum of its partials, and apart) and in a
+    loop, beside its plain version. Emits ``gltf_lights_train``."""
+    fwd_names = ("tile_enter", "fused_search", "hit_attrs", "shade")
+    bwd_names = ("hit_attrs_bwd", "shade_bwd")
+    t = main_path_train(
+        "9-light", fwd["scene"], fwd["key"],
+        SEARCH_KERNELS + (hit_attrs_kernel, shade_kernel,
+                          hit_attrs_bwd_kernel, shade_bwd_kernel),
+        WHOLE_WAVE_KERNELS + FUSED_KERNELS + FUSED_BWD_KERNELS
+        + (shade_update_kernel, shade_update_bwd_kernel),
+        ("tri_v0", "tex_color", "light_c", "light_r", "camera.c2w"),
+        {n: f"{n}_kernel" for n in fwd_names + bwd_names}, fwd_names,
+        bwd_names, 5, dev)
+
+    # I' on every bounce's recorded inputs of one wave, seeded cotangents
+    pairs, parts = [], {"kernel": [], "light_table_sum": []}
+    for b, c in enumerate(fwd["calls"]):
+        g = shade_cots(c[0].shape[1], 31 + b)
+        pairs.append((lambda c=c, g=g: shade_bwd_kernel(*c, g),
+                      lambda c=c, g=g: shade_ops.shade_plane_core_vjp(*c, g)))
+        part = shade_bwd_kernel.partials(*c, g)[1]
+        parts["kernel"].append(
+            (lambda c=c, g=g: shade_bwd_kernel.partials(*c, g), None))
+        parts["light_table_sum"].append((light_sum_call(part), None))
+    times = bounce_times(pairs, loop=True)
+    part_ms = {n: bounce_times(fs)["cold"] for n, fs in parts.items()}
+    emit({"phase": "gltf_lights_train", "card": smi,
+          "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
+          **t["fields"],
+          "shade_bwd_ms_per_bounce_l2_flushed": times["cold"],
+          "shade_bwd_ms_per_bounce_looped": times["loop"],
+          "shade_bwd_plain_ms_per_bounce": times["plain"],
+          "shade_bwd_parts_ms_l2_flushed": part_ms})
+    return {"launches": t["launches"], "ms": statistics.fmean(times["cold"]),
+            "ms_in_path": t["in_path"]["shade_bwd"],
+            "plain_ms": statistics.fmean(times["plain"]),
+            "parts": {n: statistics.fmean(v) for n, v in part_ms.items()}}
+
+
+def shade_rows(fwd, train) -> list[dict]:
+    """The ``{"kernels": [...]}`` rows of I and I' from the 9-light
+    flagship's forward and training step: launches on the main path;
+    device ms per launch out of L2 (``ms``; I''s with B''s sum of its
+    partials, which its plain version's time includes too) and in the
+    path (``ms_in_path``, the profiler's), plain ms, each averaged over a
+    wave's bounces on their recorded inputs; the bound of one launch
+    averaged over the same bounces. No single PyTorch call computes the
+    material mixture: ``library_ms`` is null."""
+    calls = fwd["calls"]
+    n_w = len(calls)
+    err = {k: max(fwd["full"][k]["max_abs_err"], fwd["full16"][k][
+        "max_abs_err"]) for k in ("shade", "shade_bwd")}
+    ops = shade_ops_count(calls)
+    rows = []
+    for name, repl, nb, nops, src in (
+            ("shade", "rust_ray_tracer_tpu/ops/pallas_shade.py:442",
+             shade_bytes(calls), ops, fwd),
+            ("shade_bwd", "rust_ray_tracer_tpu/ops/pallas_shade.py:491",
+             shade_bwd_bytes(calls), 2 * ops, train)):
+        b_ms, b_by = bound(nb / n_w, nops / n_w)
+        launches = (fwd if name == "shade" else train)["launches"][name]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "rust_ray_tracer_tpu_torch/csrc/shade.cu",
+                     "replaces": repl, "launches": launches,
+                     "max_abs_err": err[name], "ms": src["ms"],
+                     "ms_in_path": src["ms_in_path"],
+                     "plain_ms": src["plain_ms"], "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None,
+                     "bytes_per_launch": nb / n_w,
+                     "operations_per_launch": nops / n_w})
+    rows[1]["ms_parts"] = train["parts"]
+    return rows
+
+
+def mesh_medium_phase(dev, smi) -> dict:
+    """A Mesh-boundary medium on the split route at 64x64, 2 spp: the
+    compile (``MED_MESH``, 12 ``med_tri`` rows), the image against the
+    plain route on the card and on the CPU, and one training step with
+    finite gradients, non-zero on ``med_neg_inv_d`` and bitwise equal over
+    two runs. Emits ``mesh_medium``."""
+    w = h = 64
+    scene = compile_scene(mesh_medium_host(S, cam_ops), device=dev)
+    if (scene.med_kind.tolist() != [S.MED_MESH]
+            or tuple(scene.med_tri.shape) != (1, 12, 10)):
+        raise AssertionError("the Mesh boundary did not compile to MED_MESH")
+    key = rng.key(0, dev)
+
+    def render(sc=scene, k=key, plain=False):
+        with torch.no_grad(), split_recorder(plain=plain):
+            return render_waves(sc, w, h, k, 0, 2, depth=DEPTH,
+                                chunk_size=w * h)
+
+    img = render()
+    ref = render(plain=True)
+    cpu = render(compile_scene(mesh_medium_host(S, cam_ops), device="cpu"),
+                 rng.key(0, "cpu"))
+    vs_plain = compare(img, ref, "mesh medium: kernels vs plain route",
+                       flip_abs=None)
+    vs_cpu = compare(img, cpu, "mesh medium: card vs CPU")
+    params, static = partition(scene)
+
+    def step():
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        render_waves(combine(leaves, static), w, h, key, 0, 1, depth=DEPTH,
+                     chunk_size=w * h).mean().backward()
+        return {k: v.grad for k, v in leaves.items() if v.grad is not None}
+
+    g1, g2 = step(), step()
+    for k, v in g1.items():
+        if not bool(torch.isfinite(v).all()) or not torch.equal(v, g2[k]):
+            raise AssertionError(f"mesh medium: gradient of {k} non-finite "
+                                 "or not repeatable")
+    if not float(g1["med_neg_inv_d"].abs().max()) > 0:
+        raise AssertionError("mesh medium: no gradient of the density")
+    emit({"phase": "mesh_medium", "card": smi, "shape": [h, w, 2, DEPTH],
+          "image_mean": float(img.mean()) / 2, "vs_plain_route": vs_plain,
+          "vs_cpu": vs_cpu, "grads_finite": True,
+          "grads_bitwise_repeat": True,
+          "grad_med_neg_inv_d": float(g1["med_neg_inv_d"].abs().max())})
+    return {"vs_plain": vs_plain}
+
+
+def cli_gltf_phase(path, height, spp, lo, hi) -> dict:
+    """The CLI's ``-g`` on the card: a PNG of the glTF file written and a
+    finite mean radiance in [lo, hi]."""
+    os.makedirs("output", exist_ok=True)
+    out_png = os.path.join("output", "gltf_torch.png")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(height), str(spp), "-g", path, "-a",
+                       str(WIDTH / HEIGHT), "-o", out_png, "--device",
+                       "cuda"])
+    line = buf.getvalue().strip()
+    if rc != 0:
+        raise AssertionError(f"CLI -g exited {rc}: {line}")
+    m = re.search(r"mean radiance ([0-9.eE+-]+|nan|inf), finite (\w+)", line)
+    if not m or m.group(2) != "True":
+        raise AssertionError(f"CLI -g image not finite: {line}")
+    mean = float(m.group(1))
+    if not lo <= mean <= hi:
+        raise AssertionError(f"implausible glTF mean radiance {mean}")
+    return {"file": os.path.basename(path), "output": out_png,
+            "mean_radiance": mean, "stdout": line}
 
 
 def bound(nbytes, ops):
@@ -2823,9 +3059,10 @@ def main() -> int:
                trace_wave_bwd_kernel, trace_wave_bwd_noise_kernel,
                bwd_reduce_kernel) + SPLIT_KERNELS + SPLIT_BWD_KERNELS
               + SEARCH_KERNELS + FUSED_KERNELS + FUSED_BWD_KERNELS
-              + CULL_KERNELS):
+              + CULL_KERNELS + SHADE_KERNELS):
         k.load()
     emit({"phase": "build", "wall_seconds": time.perf_counter() - t0,
+          "shade_max_lights": K.shade_max_lights(),
           "libraries": {n: {"file": b.path.name, "nvcc_seconds": b.seconds,
                             "ptxas": ptxas_report(b.log)}
                         for n, b in builds.items()}})
@@ -2835,7 +3072,10 @@ def main() -> int:
     small_split = split_scene_checks(dev)
 
     # ---- 4, 5. flagship forward and training step at full size -----------
-    flag_fwd = forward_phase("flagship", builders.flagship, dev, smi)
+    # the procedural flagship whether or not the reference's assets are
+    # on the machine (builders.flagship() would load suzanne.gltf there)
+    flag_fwd = forward_phase("flagship", builders.procedural_flagship, dev,
+                             smi, tris=968)
     flag_train = train_phase("flagship", flag_fwd, dev, smi,
                              ("tri_v0", "tex_color", "camera.c2w"),
                              ("sph_c0", "sph_r", "light_c", "light_r"))
@@ -2893,13 +3133,30 @@ def main() -> int:
     # over eight seeds at 64x36, 2 spp), so the band holds either
     emit({"phase": "cli", **cli_phase("final_scene", 128, 4, 0.203, 0.248)})
 
+    # ---- 13. glTF scenes, the files in a temporary directory: the
+    # single-light flagship on A, the 9-light flagship on the split route
+    # through I and I' (forward, training step; I and I' against their
+    # plain versions at 9 and 16 lights), a Mesh-boundary medium, CLI -g
+    t0 = time.perf_counter()
+    with gltf_dir() as paths:
+        forward_phase("gltf_flagship",
+                      lambda: load_gltf_scene(paths["f1"], 16 / 9), dev, smi,
+                      tris=968)
+        gltf_fwd = gltf_lights_forward(dev, smi, paths)
+        gltf_tr = gltf_lights_train(dev, smi, gltf_fwd)
+        mesh_medium_phase(dev, smi)
+        emit({"phase": "cli_gltf",
+              **cli_gltf_phase(paths["f9"], 72, 4, CLI_GLTF_LO, CLI_GLTF_HI)})
+    emit({"phase": "gltf_phases", "seconds": time.perf_counter() - t0})
+
     # ---- result ----------------------------------------------------------
     rows = (kernel_rows(flag_fwd, flag_train, small, "plain")
             + kernel_rows(rand_fwd, rand_train, small, "noise")
             + split_rows(final_fwd, small_split)
             + split_bwd_rows(final_tr, small_split)
             + mesh_rows(mesh_fwd, mesh_tr, small_split)
-            + cull_rows(rand_e_fwd, tri))
+            + cull_rows(rand_e_fwd, tri)
+            + shade_rows(gltf_fwd, gltf_tr))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -60,7 +60,13 @@ Kernels (each wrapper counts its launches in ``launches``):
     ``ops/search.tri_search_plain``);
   * the cluster-culled sphere search, ``csrc/sphere.cu`` (library
     ``sphere``): ``sph_search_kernel`` (TPU kernel N, ``pallas_sphere.py``
-    ``_kernel``; plain version ``ops/sphere.sph_search_plain``).
+    ``_kernel``; plain version ``ops/sphere.sph_search_plain``);
+  * the split route's shading for 9 or more lights, ``csrc/shade.cu``
+    (library ``shade``): ``shade_kernel`` (TPU kernel I,
+    ``pallas_shade.py`` ``_make_kernel``; plain version
+    ``ops/shade_core.plane_core``) and ``shade_bwd_kernel`` (TPU kernel
+    I', ``_make_bwd_kernel``; plain version ``plane_core_vjp``), whose
+    per-block light-table partials ``bwd_reduce_kernel`` sums.
 """
 
 from __future__ import annotations
@@ -82,7 +88,8 @@ from rust_ray_tracer_tpu_torch.ops.hit_core import N_IN as HIT_IN
 from rust_ray_tracer_tpu_torch.ops.hit_core import N_OUT as HIT_OUT
 from rust_ray_tracer_tpu_torch.ops.search import (N_RAY, TRI_COLS, tile_count,
                                                   tri_only)
-from rust_ray_tracer_tpu_torch.ops.shade_core import LT_COLS
+from rust_ray_tracer_tpu_torch.ops.shade import N_OUT as SHADE_OUT
+from rust_ray_tracer_tpu_torch.ops.shade_core import LT_COLS, N_DATA, N_RNG
 from rust_ray_tracer_tpu_torch.ops.uber import (A_COL, N_RND, N_STATE, TCC,
                                                 TILE)
 
@@ -111,6 +118,7 @@ LIBRARIES = {
     "split": ("split", ("--fmad=false",)),
     "search": ("search", ("--fmad=false",)),
     "sphere": ("sphere", ("--fmad=false",)),
+    "shade": ("shade", ("--fmad=false",)),
 }
 
 
@@ -621,9 +629,9 @@ class ShadeUpdateBwdKernel(_Kernel):
 def _light_sum(part, lt):
     """B''s sum of a backward kernel's light-table partials ``part``
     [blocks, (n_lights + 1) * LT_COLS], shaped like ``lt`` (zeros for no
-    block)."""
+    block or no light)."""
     dev = part.device
-    if part.shape[0] == 0:
+    if part.numel() == 0:
         return torch.zeros_like(lt)
     rows = torch.empty((0, 1), dtype=torch.float32, device=dev)
     order = torch.empty((0,), dtype=torch.int32, device=dev)
@@ -866,6 +874,94 @@ class SphSearchKernel(_Kernel):
         return best_t, best_i
 
 
+def shade_max_lights() -> int:
+    """The most lights kernels I and I' take: what a block of I' holds in
+    shared memory (``shade_max_lights`` in ``csrc/shade.cu``). Builds the
+    library if needed."""
+    return shade_bwd_kernel.max_lights()
+
+
+def _check_shade(name, data, rng, kind, lt, n_lights):
+    """The device of kernel I's or I''s inputs, after checking them."""
+    dev = data.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} kernel needs CUDA tensors, got {dev}")
+    most = shade_max_lights()
+    if not 0 <= n_lights <= most:
+        raise ValueError(f"{n_lights} lights: {name} takes at most {most} "
+                         "(kernel I' keeps each ray's light-table cotangent "
+                         "in shared memory)")
+    n = data.shape[1] if data.dim() == 2 else -1
+    _check("data", data, dev, (N_DATA, n))
+    _check("rng", rng, dev, (N_RNG, n))
+    _check("kind", kind, dev, (n,), torch.int32)
+    _check("lt", lt, dev, (n_lights, LT_COLS))
+    return dev, n
+
+
+class ShadeKernel(_Kernel):
+    """ctypes wrapper of ``shade_launch`` (kernel I): [10, N] planes
+    (emitted, weight, direction, alive) of the data planes [14, N], the
+    randoms [15, N], the int32 material kinds [N] and the lights ``lt``
+    [n_lights, LT_COLS], as ``ops/shade_core.plane_core`` returns them."""
+
+    name = library = "shade"
+    entry = "shade_launch"
+    argtypes = (_P,) * 4 + (_I, _P, _I)
+
+    def __call__(self, data, rng, kind, lt, n_lights: int):
+        dev, n = _check_shade(self.name, data, rng, kind, lt, n_lights)
+        self.load()
+        out = torch.empty((SHADE_OUT, n), dtype=torch.float32, device=dev)
+        self._launch(dev, _ptr(data), _ptr(rng), _ptr(kind), _ptr(lt),
+                     n_lights, _ptr(out), n)
+        return out
+
+
+class ShadeBwdKernel(_Kernel):
+    """ctypes wrapper of ``shade_bwd_launch`` (kernel I'): for the
+    cotangents ``g`` [9, N] of kernel I's emitted, weight and direction
+    planes, the cotangents of its data planes [14, N] and of the light
+    table (like ``lt``), as ``ops/shade_core.plane_core_vjp`` returns them.
+    I' leaves the table's as one partial a block (:meth:`partials`), which
+    ``bwd_reduce_kernel`` (B') sums in block order: no float atomics."""
+
+    name = "shade_bwd"
+    library = "shade"
+    entry = "shade_bwd_launch"
+    argtypes = (_P,) * 4 + (_I,) + (_P,) * 3 + (_I,)
+
+    def __init__(self):
+        super().__init__()
+        self._max_lights = None
+
+    def max_lights(self) -> int:
+        """The library's ``shade_max_lights()`` (building it if needed)."""
+        if self._max_lights is None:
+            lib = ctypes.CDLL(str(self.load().path))
+            self._max_lights = int(lib.shade_max_lights())
+        return self._max_lights
+
+    def partials(self, data, rng, kind, lt, n_lights: int, g):
+        """Kernel I' alone: (d_data [14, N], the blocks' light-table
+        partials [ceil(N / 128), n_lights * LT_COLS])."""
+        dev, n = _check_shade(self.name, data, rng, kind, lt, n_lights)
+        _check("g", g, dev, (9, n))
+        self.load()
+        d_data = torch.empty((N_DATA, n), dtype=torch.float32, device=dev)
+        part = torch.empty((-(-n // 128), n_lights * LT_COLS),
+                           dtype=torch.float32, device=dev)
+        self._launch(dev, _ptr(data), _ptr(rng), _ptr(kind), _ptr(lt),
+                     n_lights, _ptr(g), _ptr(d_data), _ptr(part), n)
+        return d_data, part
+
+    def __call__(self, data, rng, kind, lt, n_lights: int, g):
+        """(d_data [14, N], dlt like ``lt``): I', then B''s sum of its
+        light-table partials."""
+        d_data, part = self.partials(data, rng, kind, lt, n_lights, g)
+        return d_data, _light_sum(part, lt)
+
+
 quad_search_kernel = QuadSearchKernel()
 hit_attrs_kernel = HitAttrsKernel()
 shade_update_kernel = ShadeUpdateKernel()
@@ -877,6 +973,8 @@ tile_enter_kernel = TileEnterKernel()
 fused_search_kernel = FusedSearchKernel()
 tri_search_kernel = TriSearchKernel()
 sph_search_kernel = SphSearchKernel()
+shade_kernel = ShadeKernel()
+shade_bwd_kernel = ShadeBwdKernel()
 
 
 def trace_kernel(ctx) -> TraceWaveKernel:

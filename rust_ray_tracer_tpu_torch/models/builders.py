@@ -6,27 +6,25 @@ reference scenes (``builders.py:51-217``) — ``random``, ``two_spheres``,
 ``cornell_triangle`` and ``final_scene`` — with the same content, camera
 poses (``look_at_rh`` fed as camera-to-world, the reference quirk) and
 light lists; ``random`` and ``final_scene`` draw their layouts with the
-same ``np.random.default_rng(seed)`` sequences. Plus :func:`flagship` —
-the procedural scene of ``__graft_entry__._flagship_scene`` (968 random
-triangles and a sphere lamp) drawn with the same
-``np.random.default_rng(0)`` sequence, so the port reaches the bench
+same ``np.random.default_rng(seed)`` sequences; and ``composite``
+(``models/composite.py``), which reads the reference's assets and raises
+``FileNotFoundError`` without them. Plus :func:`flagship`, the scene of
+``__graft_entry__._flagship_scene``: ``suzanne.gltf`` where the
+reference's assets are, else :func:`procedural_flagship` (968 random
+triangles and a sphere lamp, drawn with the same
+``np.random.default_rng(0)`` sequence), so the port reaches the bench
 workload without importing JAX.
-
-The ``composite`` scene name is recognised and raises
-``NotImplementedError`` naming the ROADMAP item that ports what it needs.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
+from rust_ray_tracer_tpu_torch.models import composite
 from rust_ray_tracer_tpu_torch.models import scene as S
 from rust_ray_tracer_tpu_torch.ops.camera import look_at_rh, make_camera
-
-# scene -> (what it needs, ROADMAP queue 1 item that ports it)
-_NOT_PORTED = {
-    "composite": ("glTF meshes", "4"),
-}
 
 _SKY = (0.7, 0.8, 1.0)
 
@@ -220,8 +218,19 @@ def final_scene(aspect: float, seed: int = 0) -> S.Scene:
 
 
 def flagship() -> S.Scene:
-    """The bench workload's scene: 968 random double-sided triangles in
-    front of the camera plus a sphere lamp, Lambertian + DiffuseLight,
+    """The bench workload's scene (``__graft_entry__.py:20-47``):
+    ``suzanne.gltf`` at 16:9 where the reference's assets are
+    (``composite.ASSETS``), else :func:`procedural_flagship`."""
+    path = os.path.join(composite.ASSETS, "suzanne.gltf")
+    if os.path.exists(path):
+        from rust_ray_tracer_tpu_torch.models.gltf import load_gltf_scene
+        return load_gltf_scene(path, 16 / 9)
+    return procedural_flagship()
+
+
+def procedural_flagship() -> S.Scene:
+    """The flagship without the assets: 968 random double-sided triangles
+    in front of the camera plus a sphere lamp, Lambertian + DiffuseLight,
     16:9 (``__graft_entry__.py:33-47``, same draws in the same order)."""
     rng = np.random.default_rng(0)
     tris = []
@@ -246,20 +255,16 @@ _BUILDERS = {
     "cornell_box": cornell_box,
     "cornell_triangle": cornell_triangle,
     "final_scene": final_scene,
+    "composite": lambda aspect, seed=0: composite.composite_scene(
+        aspect, seed, assets_dir=composite.ASSETS),
 }
 
 
 def get_scene(name: str, aspect: float, seed: int = 0) -> S.Scene:
     """Build a named scene (``get_scene``, scene.rs:406)."""
-    if name in _NOT_PORTED:
-        what, item = _NOT_PORTED[name]
-        raise NotImplementedError(
-            f"scene {name!r} needs {what}, not ported to the torch package "
-            f"yet (ROADMAP queue 1 item {item})")
     try:
         builder = _BUILDERS[name]
     except KeyError:
         raise ValueError(
-            f"unknown scene {name!r}; one of "
-            f"{sorted(_BUILDERS) + sorted(_NOT_PORTED)}") from None
+            f"unknown scene {name!r}; one of {sorted(_BUILDERS)}") from None
     return builder(aspect, seed)

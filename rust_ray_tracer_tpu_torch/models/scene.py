@@ -11,13 +11,13 @@ tables and packs the decoded images into one atlas. The arithmetic is the
 JAX package's float32 numpy, so the tables are identical; they are emitted
 as torch tensors in a :class:`SceneData` dataclass.
 
+A ``Mesh`` (the glTF importer's triangle soup, ``models/gltf.py``) expands
+to its ``Triangle``s as a world object (``scene.py:618-625``).
 ConstantMedium compiles as in JAX (``scene.py:627-690``): a Sphere boundary
-(``MED_SPHERE``) or a Cuboid one (``MED_POLY``, outward half-spaces), each
-unwrapped from Translate/RotateY, with an ``Isotropic`` material of the
-medium's texture.
-
-Not yet ported (each raises ``NotImplementedError``): Mesh and glTF, also
-as a ConstantMedium boundary (ROADMAP queue 1 item 4).
+(``MED_SPHERE``), a Cuboid one (``MED_POLY``, outward half-spaces) or a
+Mesh one (``MED_MESH``: its triangles in ``med_tri`` [M, Tm, 10] rows
+p0, e1, e2, double-sided, zero-edge pad rows), each unwrapped from
+Translate/RotateY, with an ``Isotropic`` material of the medium's texture.
 """
 
 from __future__ import annotations
@@ -398,7 +398,12 @@ class Cuboid:
 
 @dataclasses.dataclass
 class Mesh:
-    """Triangle soup (the glTF importer's output) — not yet ported."""
+    """Triangle soup: a world object and a ConstantMedium boundary
+    (``scene.py:417``). ``triangles``: (v0, v1, v2) vertex triples. A
+    boundary should be closed and double-sided: the reference's exit query
+    (constant_medium.rs:48) hits the inside of the far face, which a
+    single-sided triangle culls, so a single-sided boundary yields no
+    medium, here and in the reference alike."""
     triangles: Sequence
     material: Material | None = None
     double_sided: bool = True
@@ -425,8 +430,8 @@ class FlipFace:
 @dataclasses.dataclass
 class ConstantMedium:
     """Participating medium of constant ``density`` inside ``boundary``
-    (constant_medium.rs): a Sphere or a Cuboid, optionally wrapped in
-    Translate/RotateY; a Mesh boundary is not ported yet."""
+    (constant_medium.rs): a Sphere, a Cuboid or a Mesh, optionally wrapped
+    in Translate/RotateY."""
     boundary: object
     density: float
     texture: Texture
@@ -448,12 +453,6 @@ class Scene:
 # ---------------------------------------------------------------------------
 # Compilation: object graph -> SceneData
 # ---------------------------------------------------------------------------
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the torch package yet "
-        f"(ROADMAP queue 1 item {item})")
-
 
 def _rot_y(deg: float) -> np.ndarray:
     """Object-to-world rotation matching RotateY (transform.rs:112-121)."""
@@ -492,7 +491,7 @@ class _Builder:
         self.tris = []       # (v0, e1, e2, mat, double, flip)
         self.sphs = []       # (c0, c1, t0, t1, r, mat, flip)
         self.quads = []      # (q, u, v, mat, flip)
-        self.media = []      # (c, r, neg_inv_d, mat, kind, planes)
+        self.media = []      # (c, r, neg_inv_d, mat, kind, planes, tris)
         self.materials = []
         self.textures = []
         self.images = []     # the decoded arrays, in atlas order
@@ -596,7 +595,14 @@ class _Builder:
             v = _apply_d(affine, obj.v)
             self.quads.append((q, u, v, self.material_id(obj.material), flip))
         elif isinstance(obj, Mesh):
-            raise _not_ported("Mesh", "4")
+            if obj.material is None:
+                raise ValueError("a world-object Mesh needs a material "
+                                 "(only ConstantMedium boundaries may "
+                                 "omit it)")
+            for (v0, v1, v2) in obj.triangles:
+                self.add(Triangle(v0, v1, v2, obj.material,
+                                  double_sided=obj.double_sided),
+                         affine, flip)
         elif isinstance(obj, ConstantMedium):
             self.add_medium(obj, affine)
         else:
@@ -604,8 +610,8 @@ class _Builder:
 
 
     def add_medium(self, obj: ConstantMedium, affine: np.ndarray):
-        """The JAX package's ConstantMedium compile (``scene.py:627-690``)
-        for Sphere and Cuboid boundaries."""
+        """The JAX package's ConstantMedium compile (``scene.py:627-690``):
+        Sphere, Cuboid and Mesh boundaries."""
         b = obj.boundary
         a2 = affine
         while isinstance(b, (Translate, RotateY)):
@@ -614,19 +620,34 @@ class _Builder:
             else:
                 a2 = _compose(a2, _affine(rot=_rot_y(b.angle_deg)))
             b = b.base
-        if isinstance(b, Mesh):
-            raise _not_ported("a Mesh ConstantMedium boundary", "4")
-        if not isinstance(b, (Sphere, Cuboid)):
+        if not isinstance(b, (Sphere, Cuboid, Mesh)):
             raise NotImplementedError(
-                "ConstantMedium boundaries: Sphere or Cuboid (optionally "
-                "Translate/RotateY-wrapped); a flat rect has no exit hit and "
-                "yields no medium in the reference either "
+                "ConstantMedium boundaries: Sphere, Cuboid or Mesh "
+                "(optionally Translate/RotateY-wrapped); a flat rect has no "
+                "exit hit and yields no medium in the reference either "
                 "(constant_medium.rs:47-49)")
         nid = -1.0 / float(obj.density)
         mat = self.material_id(Isotropic(obj.texture))
+        no_tris = np.zeros((0, 10), np.float32)
         if isinstance(b, Sphere):
             self.media.append((_apply_p(a2, b.center), float(b.radius), nid,
-                               mat, MED_SPHERE, []))
+                               mat, MED_SPHERE, [], no_tris))
+            return
+        if isinstance(b, Mesh):
+            # the entry/exit pair is two closest-hit queries over the same
+            # triangles (constant_medium.rs:47-49), ops/intersect._med_t
+            dbl = 1.0 if b.double_sided else 0.0
+            rows = []
+            for (v0, v1, v2) in b.triangles:
+                p0 = _apply_p(a2, _v(v0))
+                p1 = _apply_p(a2, _v(v1))
+                p2 = _apply_p(a2, _v(v2))
+                rows.append(np.concatenate(
+                    [p0, p1 - p0, p2 - p0, [dbl]]).astype(np.float32))
+            if not rows:
+                raise ValueError("empty Mesh boundary")
+            self.media.append((np.zeros(3, np.float32), 0.0, nid, mat,
+                               MED_MESH, [], np.asarray(rows, np.float32)))
             return
         # convex polytope: one outward half-space n.p <= d per face, the
         # slab interval of the reference's entry/exit pair
@@ -643,7 +664,7 @@ class _Builder:
                 n = -n     # orient outward
             planes.append((n.astype(np.float32), float(np.dot(n, q))))
         self.media.append((np.zeros(3, np.float32), 0.0, nid, mat, MED_POLY,
-                           planes))
+                           planes, no_tris))
 
 
 def _stack(rows, pick, shape, dtype=np.float32):
@@ -840,6 +861,11 @@ def compile_scene(scene: Scene, *, seed: int = 0,
         for j, (nrm, off) in enumerate(row[5]):
             med_pl_n[i, j] = nrm
             med_pl_d[i, j] = off
+    # mesh boundary triangles, padded with zero-edge rows (never valid)
+    n_mt = max([r[6].shape[0] for r in b.media], default=0)
+    med_tri = np.zeros((n_med, n_mt, 10), np.float32)
+    for i, row in enumerate(b.media):
+        med_tri[i, :row[6].shape[0]] = row[6]
 
     mats = b.materials or [dict(kind=MAT_LAMBERTIAN, tex=0)]
     texs = b.textures or [dict(kind=TEX_SOLID, color=np.zeros(3, np.float32))]
@@ -891,7 +917,7 @@ def compile_scene(scene: Scene, *, seed: int = 0,
         med_mat=t(_stack(b.media, lambda r: r[3], (), np.int32)),
         med_kind=t(_stack(b.media, lambda r: r[4], (), np.int32)),
         med_pl_n=t(med_pl_n), med_pl_d=t(med_pl_d),
-        med_tri=t(np.zeros((n_med, 0, 10), np.float32)),
+        med_tri=t(med_tri),
         mat_kind=t(mfield("kind", 0, np.int32)),
         mat_tex=t(mfield("tex", 0, np.int32)),
         mat_fuzz=t(mfield("fuzz", 0.0)),

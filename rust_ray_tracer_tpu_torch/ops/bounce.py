@@ -209,12 +209,19 @@ def shade_update_fused(st, hit, hit_planes, albedo, fuzz, ior, mkind, rnd_b,
 # F and F': the fused bounce of solid and checker scenes
 # ---------------------------------------------------------------------------
 
+def su_eligible(scene) -> bool:
+    """``pallas_bounce.su_eligible`` (``:740-749``): kernel H takes any
+    texture set; the light table with the background row must fit its
+    backward's accumulator row (at most 8 lights)."""
+    return (scene.n_lights + 1) * LT_COLS <= 128
+
+
 def fused_eligible(scene) -> bool:
     """``pallas_bounce.eligible`` (``:807-820``): no noise leaf, no image
     leaf, and the light table with the background row fits the backward's
     accumulator."""
     return (scene.perlin_vec.shape[0] == 0 and scene.img_data.shape[0] == 0
-            and (scene.n_lights + 1) * LT_COLS <= 128)
+            and su_eligible(scene))
 
 
 def bounce_planes(P, pkind, mkind, flags, lt, n_lights: int):

@@ -22,22 +22,25 @@ routes, chosen per scene as the JAX package chooses on the TPU:
     spheres and quads in one search, ``ops/search.py``) — and otherwise
     searches each kind apart: triangles with K and TPU kernel L, spheres
     with TPU kernel N from ``CLUSTER`` rows up (in torch below), quads
-    with TPU kernel O; media fold in with ``_med_t``. Then, on
-    ``pallas_bounce.eligible``'s scenes (no noise or image leaf), TPU
-    kernel F runs the whole rest of the bounce: hit attributes, the
-    checker select, shading and the estimator update
-    (``ops/bounce.bounce_fused``). On the others (noise and image
-    textures) TPU kernel J computes the winners' hit attributes,
-    ``texture_value`` evaluates the albedo in torch, and TPU kernel H
-    shades and updates the estimator (the ``su_eligible`` branch). That
-    render is
+    with TPU kernel O; media fold in with ``_med_t`` (sphere, polytope
+    and mesh boundaries). Then, on ``pallas_bounce.eligible``'s scenes (no
+    noise or image leaf, at most 8 lights), TPU kernel F runs the whole
+    rest of the bounce: hit attributes, the checker select, shading and
+    the estimator update (``ops/bounce.bounce_fused``). On the others TPU
+    kernel J computes the winners' hit attributes and ``texture_value``
+    evaluates the albedo in torch; then, with at most 8 lights, TPU
+    kernel H shades and updates the estimator (the ``su_eligible``
+    branch), and with 9 or more (glTF point lights) the plain tail of
+    ``_bounce`` (``integrator.py:121-131``) runs: TPU kernel I shades
+    (``ops/shade.shade``) and torch updates the estimator. That render is
     differentiable too: the split tables are built inside the autograd
     graph, phase 2 of the intersection (the winner-row gathers, the chosen
-    medium's distance) and the texture run as torch autograd, and F, J and
-    H run as autograd functions whose backward kernels are F', J' and H'
-    (``ops/bounce.BouncePlanes``, ``ops/hit.HitPlanes``,
-    ``ops/bounce.ShadeUpdate``). Phase 1 (K, M, L, N, O) is detached, as
-    in JAX.
+    medium's distance), the texture and the tail's update run as torch
+    autograd, and F, J, H and I run as autograd functions whose backward
+    kernels are F', J', H' and I' (``ops/bounce.BouncePlanes``,
+    ``ops/hit.HitPlanes``, ``ops/bounce.ShadeUpdate``,
+    ``ops/shade.ShadeFused``). Phase 1 (K, M, L, N, O) is detached, as in
+    JAX.
 
 Every per-lane step is independent of how the lanes are batched (the
 search's 256-ray tiles restart at each chunk, as JAX's per-chunk calls
@@ -52,21 +55,21 @@ import dataclasses
 
 import torch
 
-from rust_ray_tracer_tpu_torch.models.scene import CLUSTER, MED_POLY, \
-    MED_SPHERE
+from rust_ray_tracer_tpu_torch.models.scene import CLUSTER
 from rust_ray_tracer_tpu_torch.ops import camera as cam_ops
 from rust_ray_tracer_tpu_torch.ops import search as search_ops
 from rust_ray_tracer_tpu_torch.ops import sphere as sphere_ops
 from rust_ray_tracer_tpu_torch.ops import uber
 from rust_ray_tracer_tpu_torch.ops.bounce import (bounce_fused,
                                                   fused_eligible, light_table,
-                                                  shade_update_fused)
+                                                  shade_update_fused,
+                                                  su_eligible)
 from rust_ray_tracer_tpu_torch.ops.hit import hit_attrs_fused
 from rust_ray_tracer_tpu_torch.ops.intersect import (
     MATTR_FUZZ, MATTR_IOR, MATTR_MKIND, _mat_attr_table, intersect_select,
     winner_table)
 from rust_ray_tracer_tpu_torch.ops.quad import quad_table
-from rust_ray_tracer_tpu_torch.ops.shade_core import LANES, LT_COLS
+from rust_ray_tracer_tpu_torch.ops.shade import shade
 from rust_ray_tracer_tpu_torch.ops.texture import texture_value
 from rust_ray_tracer_tpu_torch.utils import rng as rngu
 
@@ -74,17 +77,20 @@ MAX_DEPTH = 4   # main.rs:56
 
 
 def split_reason(scene) -> str | None:
-    """Why the split route cannot render ``scene`` (naming the unported
-    TPU kernel or ROADMAP item), or None when it can. It refuses 9 or more
-    lights (TPU kernel I) and Mesh medium boundaries (ROADMAP queue 1 item
-    4); ``render_waves`` refuses the compact wavefront (item 14)."""
-    if (scene.n_lights + 1) * LT_COLS > LANES:
-        return (f"{scene.n_lights} lights need the split-path shade kernel "
-                "(TPU kernel I, ROADMAP queue 2)")
-    if scene.n_media and not bool(((scene.med_kind == MED_SPHERE)
-                                   | (scene.med_kind == MED_POLY)).all()):
-        return ("Mesh medium boundaries are not ported (ROADMAP queue 1 "
-                "item 4)")
+    """Why the split route cannot render ``scene``, or None when it can.
+    On the card it refuses more lights than kernel I' holds in a block's
+    shared memory (``kernels.shade_max_lights``, which asks the built
+    library); the plain versions on the CPU take any count, as the JAX
+    package's XLA route does. ``render_waves`` refuses the compact
+    wavefront (ROADMAP queue 1 item 14)."""
+    if scene.device.type != "cuda":
+        return None
+    from rust_ray_tracer_tpu_torch.kernels import shade_max_lights
+    most = shade_max_lights()
+    if scene.n_lights > most:
+        return (f"{scene.n_lights} lights: the shade kernels on the card "
+                f"take at most {most} (kernel I' keeps each ray's "
+                "light-table cotangent in shared memory)")
     return None
 
 
@@ -101,7 +107,9 @@ class SplitTables:
     table (``ops/sphere.sph_table``; None below ``CLUSTER`` sphere rows
     or on the unified branch); ``quads`` [Q, 9] kernel O's table; ``lt``
     [n_lights + 1, LT_COLS] the lights, the background last; ``fused``
-    whether kernel F runs the bounce (``ops/bounce.fused_eligible``)."""
+    whether kernel F runs the bounce (``ops/bounce.fused_eligible``);
+    ``su`` whether, without F, kernel H does (``ops/bounce.su_eligible``),
+    else kernel I and torch's update (``_bounce``'s plain tail)."""
 
     uni: torch.Tensor
     dflt: torch.Tensor
@@ -115,6 +123,7 @@ class SplitTables:
     quads: torch.Tensor
     lt: torch.Tensor
     fused: bool
+    su: bool
 
 
 def make_split_tables(scene) -> SplitTables:
@@ -142,7 +151,7 @@ def make_split_tables(scene) -> SplitTables:
         sph=(sphere_ops.sph_table(scene)
              if not unified and scene.n_spheres >= CLUSTER else None),
         quads=quads, lt=light_table(scene),
-        fused=fused_eligible(scene))
+        fused=fused_eligible(scene), su=su_eligible(scene))
 
 
 def bounce_split(scene, st, rnd_b, tables: SplitTables, chunk=None):
@@ -150,12 +159,13 @@ def bounce_split(scene, st, rnd_b, tables: SplitTables, chunk=None):
     randoms ``rnd_b`` [15 + M, N]: the next state. ``_bounce``
     (``integrator.py:63-132``): ``intersect_select`` (phase 1 — K and M,
     or K and L, N or the sphere search, and O — and the winner gathers),
-    then kernel F
-    on ``tables.fused`` scenes, else kernel J, ``texture_value`` and
-    kernel H; differentiable in ``st`` and the tables (F', or J' and H',
-    in the backward). ``chunk`` rays a chunk (the search's tiles restart
-    at each; None: one chunk). A dead lane gets the collapsed window t_max
-    = -1, so it finds nothing and stays as it is."""
+    then kernel F on ``tables.fused`` scenes, else kernel J and
+    ``texture_value``, then kernel H on ``tables.su`` scenes, else kernel I
+    and :func:`update_plain`; differentiable in ``st`` and the tables (F',
+    or J' and H' or I', in the backward). ``chunk`` rays a chunk (the
+    search's tiles restart at each; None: one chunk). A dead lane gets the
+    collapsed window t_max = -1, so it finds nothing and stays as it
+    is."""
     o, d, time = st[0:3].T, st[3:6].T, st[6]
     alive = st[7] > 0.5
     t_max = torch.where(alive, torch.inf, -1.0).to(st.dtype)
@@ -165,14 +175,41 @@ def bounce_split(scene, st, rnd_b, tables: SplitTables, chunk=None):
     if tables.fused:
         return bounce_fused(st, sel, rnd_b, tables.lt, scene.n_lights,
                             scene.tex_even.shape[0] > 0)
-    _, p, _, u, v, planes = hit_attrs_fused(
+    _, p, nrm, u, v, planes = hit_attrs_fused(
         o, d, time, sel.t_min, sel.t_max, sel.kind, sel.flip, sel.pack,
         sel.t_med)
+    if not tables.su:
+        n = scene.n_lights
+        sc = shade(scene, d, p, nrm, u, v, sel.mat, sel.attr, rnd_b,
+                   tables.lt[:n])
+        return update_plain(st, sel.hit, p, sc, tables.lt[n, 0:3])
     albedo = texture_value(scene, scene.mat_tex[sel.mat.long()], u, v, p)
     return shade_update_fused(
         st, sel.hit, planes, albedo.T, sel.attr[:, MATTR_FUZZ],
         sel.attr[:, MATTR_IOR], sel.attr[:, MATTR_MKIND].to(torch.int32),
         rnd_b, tables.lt, scene.n_lights)
+
+
+def update_plain(st, hit, p, sc, background):
+    """The next state [14, N] of ``st`` [14, N] (o, d, time, alive, L,
+    beta) after the shading ``sc`` (``ops/shade.Scatter``) of the rays
+    that ``hit`` [N] bool at ``p`` [N, 3]: the tail of ``_bounce``
+    (``integrator.py:121-131``) as torch ops. A live miss adds ``beta *
+    background``, a live hit ``beta * emitted`` and multiplies beta by the
+    weight; a hit whose material scatters moves to ``p`` along the new
+    direction, the others stop."""
+    o, d, L, beta = st[0:3], st[3:6], st[8:11], st[11:14]
+    alive = st[7] > 0.5
+    zero = torch.zeros_like(L)
+    miss = alive & ~hit
+    live = alive & hit
+    L = L + torch.where(miss, beta * background[:, None], zero)
+    L = L + torch.where(live, beta * sc.emitted.T, zero)
+    beta = torch.where(live, beta * sc.weight.T, beta)
+    alive2 = live & sc.alive
+    o = torch.where(alive2, p.T, o)
+    d = torch.where(alive2, sc.direction.T, d)
+    return torch.cat([o, d, st[6:7], alive2.to(st.dtype)[None], L, beta])
 
 
 def trace_wave_split(scene, st0, rnd, depth: int, tables: SplitTables,

@@ -8,8 +8,8 @@ Counterpart of ``rust_ray_tracer_tpu/ops/intersect.py``:
     ``mattr_noise_cols`` (``:571``), which the whole-wave trace uses;
   * the split route (scenes the trace kernel cannot render): the phase-1
     candidates ``_sphere_roots`` / ``_sph_candidates`` (``:172-213``)
-    and the medium free flight ``_med_t`` (``:249``, sphere and polytope
-    boundaries); :func:`intersect_select` (``:578``): its unified branch
+    and the medium free flight ``_med_t`` (``:249``, sphere, polytope and
+    mesh boundaries); :func:`intersect_select` (``:578``): its unified branch
     (fewer than ``CLUSTER`` spheres and quads: TPU kernels K and M,
     ``ops/search.py``) or its per-kind branch (triangles by K and TPU
     kernel L, ``ops/search.py``; spheres by TPU kernel N from ``CLUSTER``
@@ -32,8 +32,8 @@ from typing import NamedTuple
 
 import torch
 
-from rust_ray_tracer_tpu_torch.models.scene import (MED_POLY, TEX_CHECKER,
-                                                    TEX_NOISE)
+from rust_ray_tracer_tpu_torch.models.scene import (MED_MESH, MED_POLY,
+                                                    TEX_CHECKER, TEX_NOISE)
 from rust_ray_tracer_tpu_torch.ops import gather
 from rust_ray_tracer_tpu_torch.ops import quad as quad_ops
 from rust_ray_tracer_tpu_torch.ops.shade_core import (_dot, _safe_div,
@@ -161,9 +161,10 @@ def _med_t(scene, o, d, med_u, t_min, t_max):
 
     ``intersect.py:249-348``: the boundary's entry/exit pair over (-inf,
     inf) — quadratic roots for a sphere, the half-space slab interval for
-    a polytope — clamped to [t_min, t_max], then the exponential free
-    flight ``neg_inv_d * log(max(u, 1e-30))`` through the length inside.
-    Mesh boundaries are not ported (``models/scene.py`` refuses them).
+    a polytope, two closest-hit queries over its ``med_tri`` rows for a
+    mesh — clamped to [t_min, t_max], then the exponential free flight
+    ``neg_inv_d * log(max(u, 1e-30))`` through the length inside. Plain
+    torch, as the JAX package leaves it to XLA.
     """
     oc = tuple(x[:, None] for x in _xyz(o))
     dc = tuple(x[:, None] for x in _xyz(d))
@@ -198,6 +199,41 @@ def _med_t(scene, o, d, med_u, t_min, t_max):
         root1 = torch.where(is_poly, t1_p, root1)
         root2 = torch.where(is_poly, t2_p, root2)
         ok = torch.where(is_poly, ok_p, ok)
+    if scene.med_tri.shape[1]:
+        # triangle-mesh boundary (intersect.py:293-333): the entry/exit
+        # pair is two closest-hit queries over the same triangles — hit1
+        # over (-inf, inf), hit2 over (hit1 + 1e-4, inf) — each with the
+        # triangle's facing rule (backface cull unless double-sided), so a
+        # single-sided closed boundary finds no exit and no medium, as in
+        # the reference. A dense Möller-Trumbore with the main path's
+        # scale-invariant cutoff |det| / |n| > 1e-5 |d|
+        mt = scene.med_tri[None]                        # [1, M, Tm, 10]
+        v0, e1, e2, dbl = mt[..., 0:3], mt[..., 3:6], mt[..., 6:9], mt[..., 9]
+        o4 = o[:, None, None, :]
+        d4 = d[:, None, None, :]
+        n = _cross(e1, e2)
+        inv_n = 1.0 / torch.clamp_min(_safe_sqrt(_sum3(n * n)), 1e-30)
+        pv = _cross(d4, e2)
+        det = _sum3(e1 * pv) * inv_n                    # [C, M, Tm]
+        eps = 1e-5 * _safe_sqrt(_sum3(d * d))[:, None, None]
+        side_ok = (det > eps) | ((det < -eps) & (dbl > 0.5))
+        inv = 1.0 / torch.where(det.abs() > eps, det, torch.ones_like(det))
+        tv = o4 - v0
+        u = _sum3(tv * pv) * inv_n * inv
+        qv = _cross(tv, e1)
+        v = _sum3(d4 * qv) * inv_n * inv
+        t = _sum3(e2 * qv) * inv_n * inv
+        valid = (side_ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+                 & (v < 1.0 - u))
+        inf = torch.full_like(t, torch.inf)
+        tt = torch.where(valid, t, inf)
+        t1_m = tt.amin(dim=-1)                          # [C, M] hit1
+        t2_m = torch.where(tt > t1_m[..., None] + 1e-4, tt, inf).amin(dim=-1)
+        ok_m = (t1_m < torch.inf) & (t2_m < torch.inf)
+        is_mesh = (scene.med_kind == MED_MESH)[None]
+        root1 = torch.where(is_mesh, t1_m, root1)
+        root2 = torch.where(is_mesh, t2_m, root2)
+        ok = torch.where(is_mesh, ok_m, ok)
     t1 = torch.maximum(root1, t_min[:, None])
     # the t_max clamp only matters for a dead lane's collapsed window
     t2 = torch.minimum(root2, t_max[:, None])

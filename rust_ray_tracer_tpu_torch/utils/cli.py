@@ -2,16 +2,19 @@
 
 Counterpart of ``rust_ray_tracer_tpu/utils/cli.py`` (and the reference
 binary, ``src/main.rs:26-118`` of the reference): positional HEIGHT and
-SAMPLES, ``-o`` output PNG, ``-a`` aspect ratio, ``--scene``, ``--depth``,
-``--seed`` and ``--chunk-size``, plus ``--device``. The device defaults to
-``cuda`` and the run fails when no GPU is present — it never drops to the
-CPU on its own; ``--device cpu`` runs the plain version.
+SAMPLES, ``-o`` output PNG, ``-g`` glTF (or .glb) input, ``-a`` aspect
+ratio, ``--scene`` (which overrides ``-g``; the Cornell box without
+either), ``--depth``, ``--seed`` and ``--chunk-size``, plus ``--device``.
+The device defaults to ``cuda`` and the run fails when no GPU is present —
+it never drops to the CPU on its own; ``--device cpu`` runs the plain
+version.
 
-glTF input (``-g``), ``--compact``, checkpointing and the multi-host flags
-are not ported yet and exit with a message saying so.
+``--compact``, checkpointing and the multi-host flags are not ported yet
+and exit with a message saying so.
 
     python -m rust_ray_tracer_tpu_torch 256 16 --scene cornell_box -a 1.0 \\
         -o cornell.png --device cuda
+    python -m rust_ray_tracer_tpu_torch 144 16 -g scene.gltf -o scene.png
 """
 
 from __future__ import annotations
@@ -22,7 +25,6 @@ import time
 
 # flag -> ROADMAP queue 1 item that ports it
 _NOT_PORTED = {
-    "gltf": ("-g/--gltf", "4"),
     "compact": ("--compact", "14"),
     "checkpoint": ("--checkpoint", "16"),
     "coordinator": ("--coordinator", "16"),
@@ -44,10 +46,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="output PNG path")
     p.add_argument("-a", "--aspect", type=float, default=16 / 9,
                    help="aspect ratio (width = height * aspect)")
-    p.add_argument("--scene", default="cornell_box",
+    p.add_argument("-g", "--gltf", default=None,
+                   help="glTF 2.0 scene file (.gltf or .glb)")
+    p.add_argument("--scene", default=None,
                    help="procedural scene name (random, two_spheres, "
                         "perlin_spheres, earth, rect_light, cornell_box, "
-                        "cornell_triangle, final_scene)")
+                        "cornell_triangle, final_scene, composite); "
+                        "overrides --gltf; cornell_box without either")
     p.add_argument("--depth", type=int, default=4,
                    help="max bounce depth (reference MAX_DEPTH=4)")
     p.add_argument("--seed", type=int, default=0,
@@ -60,7 +65,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-flip", action="store_true",
                    help="skip the reference's vertical flip at write time")
     # not yet ported: accepted so the message can say so
-    p.add_argument("-g", "--gltf", default=None, help=argparse.SUPPRESS)
     p.add_argument("--compact", nargs="?", const="on", default=None,
                    help=argparse.SUPPRESS)
     p.add_argument("--checkpoint", default=None, help=argparse.SUPPRESS)
@@ -91,6 +95,7 @@ def main(argv=None) -> int:
         return 2
 
     from rust_ray_tracer_tpu_torch.models import builders
+    from rust_ray_tracer_tpu_torch.models.gltf import load_gltf_scene
     from rust_ray_tracer_tpu_torch.models.scene import compile_scene
     from rust_ray_tracer_tpu_torch.ops.integrator import render_image
     from rust_ray_tracer_tpu_torch.ops.tonemap import tonemap_mean
@@ -102,8 +107,12 @@ def main(argv=None) -> int:
     width = int(height * args.aspect)
     spp = args.samples
     try:
-        host_scene = builders.get_scene(args.scene, args.aspect, args.seed)
-    except (ValueError, NotImplementedError) as e:
+        if args.gltf and not args.scene:
+            host_scene = load_gltf_scene(args.gltf, args.aspect)
+        else:
+            host_scene = builders.get_scene(args.scene or "cornell_box",
+                                            args.aspect, args.seed)
+    except (ValueError, NotImplementedError, FileNotFoundError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     scene = compile_scene(host_scene, seed=0, device=device)

@@ -1,6 +1,6 @@
 """The Hopper kernels (csrc/trace_wave.cu, csrc/trace_wave_bwd.cu,
-csrc/split.cu, csrc/search.cu, csrc/sphere.cu) against their plain
-versions.
+csrc/split.cu, csrc/search.cu, csrc/sphere.cu, csrc/shade.cu) against
+their plain versions.
 
 Imports no JAX, so it runs on a GPU machine without it. tests/conftest.py
 imports JAX, so there it runs without the conftest (and without the
@@ -24,6 +24,8 @@ from rust_ray_tracer_tpu_torch.kernels import (bounce_planes_bwd_kernel,
                                                hit_attrs_bwd_kernel,
                                                hit_attrs_kernel,
                                                quad_search_kernel,
+                                               shade_bwd_kernel,
+                                               shade_kernel,
                                                shade_update_bwd_kernel,
                                                shade_update_kernel,
                                                sph_search_kernel,
@@ -34,8 +36,10 @@ from rust_ray_tracer_tpu_torch.kernels import (bounce_planes_bwd_kernel,
                                                trace_wave_noise_kernel,
                                                tri_search_kernel)
 from rust_ray_tracer_tpu_torch.models import builders
+from rust_ray_tracer_tpu_torch.models.gltf import load_gltf_scene
 from rust_ray_tracer_tpu_torch.models.scene import (LIGHT_SPHERE,
                                                     compile_scene)
+from rust_ray_tracer_tpu_torch.ops import shade as shade_ops
 from rust_ray_tracer_tpu_torch.ops import uber
 from rust_ray_tracer_tpu_torch.utils import rng
 
@@ -45,7 +49,7 @@ from torch_parity import (SMALL_SCENES, assert_flip_budget,
                           assert_scaled_close, mesh, random_earth_view,
                           random_tris, rel_l2, split_cots,
                           split_kernel_inputs, split_recorder, torch_scene,
-                          write_earth_map)
+                          write_earth_map, write_gltf_flagship)
 
 W = H = 32          # one 1024-ray chunk
 DEPTH = 4
@@ -55,7 +59,7 @@ def _scene(name):
     if name in SMALL_SCENES:
         return torch_scene(name)
     if name == "flagship":          # the one with a sphere light
-        return compile_scene(builders.flagship(), device="cpu")
+        return compile_scene(builders.procedural_flagship(), device="cpu")
     return compile_scene(builders.get_scene(name, 1.0), device="cpu")
 
 
@@ -107,7 +111,7 @@ def test_kernel_matches_plain_on_card(name, cuda):
 def test_wave_inputs_bitwise_on_card(cuda):
     """The camera rays and threefry draws on the card are the CPU's, bit
     for bit (and so JAX's): the image depends only on (seed, chunk)."""
-    ts = compile_scene(builders.flagship(), device="cpu")
+    ts = compile_scene(builders.procedural_flagship(), device="cpu")
     key = rng.wave_key(rng.key(3, "cpu"), 1)
     want = uber.wave_inputs(ts, key, 48, 27, DEPTH, 500)
     got = uber.wave_inputs(ts.to(cuda), key.to(cuda), 48, 27, DEPTH, 500)
@@ -879,3 +883,152 @@ def test_render_waves_earth_on_card(cuda, tmp_path, monkeypatch):
         assert torch.equal(v, grads[1][k]), k
     assert float(grads[0]["img_data"].abs().max()) > 0
 
+
+
+# ---- the shading of 9 or more lights: kernels I and I' (csrc/shade.cu) --
+
+def _gltf_lights(tmp_path, n_lights):
+    return compile_scene(load_gltf_scene(write_gltf_flagship(
+        tmp_path / f"f{n_lights}.gltf", n_lights), 16 / 9), device="cpu")
+
+
+def _render_cpu(ts, w=32, h=18):
+    from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
+
+    with torch.no_grad():
+        return render_waves(ts, w, h, rng.key(0, "cpu"), 0, 1,
+                            chunk_size=w * h)
+
+
+def test_shade_wrappers_refuse_cpu_tensors_and_light_counts(monkeypatch):
+    """The wrappers refuse CPU tensors at any light count, before they
+    build anything, and launch nothing. The light limit is the built
+    library's (``shade_max_lights``, checked on the card below): with it
+    stubbed at 32, the split route on the card refuses a 33-light scene,
+    naming the limit, and takes 32; on the CPU it takes any count."""
+    from types import SimpleNamespace
+
+    from rust_ray_tracer_tpu_torch.ops.integrator import split_reason
+
+    data, rng_p = torch.zeros((14, 128)), torch.zeros((15, 128))
+    kind = torch.zeros((128,), dtype=torch.int32)
+    for k in (shade_kernel, shade_bwd_kernel):
+        before = k.launches
+        for nl in (9, 33):
+            args = ((data, rng_p, kind, torch.zeros((nl, 14)), nl)
+                    + ((torch.zeros((9, 128)),) if k is shade_bwd_kernel
+                       else ()))
+            with pytest.raises(ValueError, match="needs CUDA tensors"):
+                k(*args)
+        assert k.launches == before
+    monkeypatch.setattr(shade_bwd_kernel, "_max_lights", 32)
+    card = torch.device("cuda")
+    assert "at most 32" in split_reason(SimpleNamespace(device=card,
+                                                        n_lights=33))
+    assert split_reason(SimpleNamespace(device=card, n_lights=32)) is None
+    assert split_reason(SimpleNamespace(device=torch.device("cpu"),
+                                        n_lights=33)) is None
+
+
+@pytest.mark.gpu
+def test_shade_wrappers_refuse_light_counts_past_the_library(cuda):
+    """On the card the wrappers take the light count the built library
+    gives (32: I''s shared memory a block) and refuse one more, naming
+    the limit, without a launch."""
+    from rust_ray_tracer_tpu_torch.kernels import shade_max_lights
+
+    most = shade_max_lights()
+    assert most == 32
+    n = 128
+    data = torch.zeros((14, n), device=cuda)
+    rng_p = torch.zeros((15, n), device=cuda)
+    kind = torch.zeros((n,), dtype=torch.int32, device=cuda)
+    g = torch.zeros((9, n), device=cuda)
+    for nl, ok in ((most, True), (most + 1, False)):
+        lt = torch.zeros((nl, 14), device=cuda)
+        for k in (shade_kernel, shade_bwd_kernel):
+            args = (data, rng_p, kind, lt, nl) + (
+                (g,) if k is shade_bwd_kernel else ())
+            before = k.launches
+            if ok:
+                k(*args)
+                assert k.launches == before + 1
+            else:
+                with pytest.raises(ValueError, match=f"at most {most}"):
+                    k(*args)
+                assert k.launches == before
+    torch.cuda.synchronize()
+
+
+def test_shade_dispatchers_refuse_other_devices():
+    meta = [torch.zeros((14, 128), device="meta"),
+            torch.zeros((15, 128), device="meta"),
+            torch.zeros((128,), dtype=torch.int32, device="meta"),
+            torch.zeros((9, 14), device="meta"), 9]
+    with pytest.raises(ValueError, match="unsupported device"):
+        shade_ops.shade_planes(*meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        shade_ops.shade_planes_bwd(*meta, torch.zeros((9, 128),
+                                                      device="meta"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_lights", [9, 16])
+def test_shade_kernels_match_plain_on_card(n_lights, cuda, tmp_path):
+    """I and I' on the inputs a CPU wave of the glTF flagship gives them
+    (bounces 0 and 1): I's planes within rtol 3e-4 of each lane's largest
+    value / atol 3e-5, at most 0.5% of the lanes outside, alive equal; I'
+    with a seeded cotangent within B's budget (rtol 1e-4 / atol 1e-6 per
+    lane, the light table's cotangent within relative L2 1e-4), twice for
+    the same bits."""
+    ts = _gltf_lights(tmp_path, n_lights)
+    with split_recorder() as rec:
+        _render_cpu(ts)
+    for b, call in enumerate(rec["shade"][:2]):
+        data, rng_p, kind, lt, nl = (x.to(cuda) if torch.is_tensor(x) else x
+                                     for x in call)
+        before = shade_kernel.launches
+        got = shade_kernel(data, rng_p, kind, lt, nl)
+        assert shade_kernel.launches == before + 1
+        ref = shade_ops.shade_plane_core(*call)
+        assert torch.equal(got[9].cpu(), ref[9])
+        assert_scaled_close(got.cpu().numpy(), ref.numpy(), 3e-4, 3e-5,
+                            axis=0, budget=0.005, what=f"I bounce {b}")
+        g = torch.from_numpy(np.random.default_rng(b).normal(
+            size=(9, data.shape[1])).astype(np.float32))
+        d1, l1 = shade_bwd_kernel(data, rng_p, kind, lt, nl, g.to(cuda))
+        d2, l2 = shade_bwd_kernel(data, rng_p, kind, lt, nl, g.to(cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(d1, d2) and torch.equal(l1, l2)
+        rd, rl = shade_ops.shade_plane_core_vjp(*call, g)
+        assert_scaled_close(d1.cpu().numpy(), rd.numpy(), 1e-4, 1e-6,
+                            axis=0, budget=0.005, what=f"I' bounce {b}")
+        assert rel_l2(l1.cpu().numpy(), rl.numpy()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_render_waves_gltf_lights_on_card(cuda, tmp_path):
+    """The 9-light glTF flagship through render_waves on the card (K, M,
+    J, I every bounce) against the CPU's plain route, and its gradients
+    finite (J', I' in the backward)."""
+    from rust_ray_tracer_tpu_torch.models.scene import combine, partition
+    from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
+
+    ts = _gltf_lights(tmp_path, 9)
+    before = shade_kernel.launches
+    got = render_waves(ts.to(cuda), 32, 18, rng.key(0, cuda), 0, 1,
+                       chunk_size=576)
+    torch.cuda.synchronize()
+    assert shade_kernel.launches == before + DEPTH
+    ref = _render_cpu(ts)
+    assert_flip_budget(got.cpu().numpy(), ref.numpy())
+    params, static = partition(ts.to(cuda))
+    leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+    before = shade_bwd_kernel.launches
+    render_waves(combine(leaves, static), 32, 18, rng.key(0, cuda), 0, 1,
+                 chunk_size=576).mean().backward()
+    torch.cuda.synchronize()
+    assert shade_bwd_kernel.launches == before + DEPTH
+    for k, v in leaves.items():
+        assert v.grad is None or bool(torch.isfinite(v.grad).all()), k
+    assert float(leaves["light_c"].grad.abs().max()) > 0

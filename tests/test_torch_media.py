@@ -62,11 +62,26 @@ def test_media_compile_matches_jax(name, monkeypatch):
 
 
 def test_mesh_medium_boundary_raises():
+    """A Mesh boundary used to raise (ROADMAP queue 1 item 4); the name is
+    kept (tests are tracked by name) and it now checks the compile: a
+    ``MED_MESH`` medium whose ``med_tri`` rows are each triangle's p0, e1,
+    e2 and double-sided flag under the boundary's Translate, with the
+    Isotropic material of the medium's colour."""
     cam = tcam.make_camera(np.eye(3, 4, dtype=np.float32), 60.0, 1.0)
-    mesh = TS.Mesh([((0, 0, 0), (1, 0, 0), (0, 1, 0))])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        compile_scene(TS.Scene(cam, [TS.ConstantMedium.from_color(
-            mesh, 0.5, (1, 1, 1))], [], (0, 0, 0)), device="cpu")
+    tris = [((0, 0, 0), (1, 0, 0), (0, 1, 0)), ((0, 0, 0), (0, 1, 0),
+                                                 (0, 0, 1))]
+    mesh = TS.Translate(TS.Mesh(tris, double_sided=False), (1, 2, 3))
+    ts = compile_scene(TS.Scene(cam, [TS.ConstantMedium.from_color(
+        mesh, 0.5, (0.3, 0.6, 0.9))], [], (0, 0, 0)), device="cpu")
+    assert ts.med_kind.tolist() == [TS.MED_MESH]
+    assert ts.med_neg_inv_d.tolist() == [-2.0]
+    assert ts.mat_kind[ts.med_mat.long()].tolist() == [TS.MAT_ISOTROPIC]
+    np.testing.assert_allclose(
+        ts.tex_color[ts.mat_tex[ts.med_mat.long()].long()].numpy(),
+        [[0.3, 0.6, 0.9]], rtol=1e-6)
+    np.testing.assert_array_equal(ts.med_tri.numpy(), np.array([[
+        [1, 2, 3, 1, 0, 0, 0, 1, 0, 0],
+        [1, 2, 3, 0, 1, 0, 0, 0, 1, 0]]], np.float32))
 
 
 # the fog scene's media: the Cuboid's centre (its Translate) and the sphere

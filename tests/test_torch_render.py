@@ -155,7 +155,7 @@ def test_cli_cuda_without_gpu_fails_clearly(tmp_path, capsys):
     assert not (tmp_path / "x.png").exists()
 
 
-@pytest.mark.parametrize("flag", [["-g", "scene.gltf"], ["--compact"],
+@pytest.mark.parametrize("flag", [["--devices", "2"], ["--compact"],
                                   ["--checkpoint", "x.ckpt"],
                                   ["--coordinator", "localhost:1234"]])
 def test_cli_unported_flags_exit_with_message(flag, capsys):

@@ -16,6 +16,7 @@ from rust_ray_tracer_tpu.models.scene import compile_scene as jcompile
 from rust_ray_tracer_tpu.ops import camera as jcam
 from rust_ray_tracer_tpu.ops import pallas_uber as pu
 from rust_ray_tracer_tpu_torch.models import builders as tb
+from rust_ray_tracer_tpu_torch.models import composite as tcomposite
 from rust_ray_tracer_tpu_torch.models.scene import (SceneData, combine,
                                                     compile_scene, partition,
                                                     scene_from_numpy)
@@ -189,16 +190,18 @@ def test_ineligible_scenes_raise_naming_the_kernel(make):
     assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 
 
-def test_unported_scene_parts_raise():
+def test_unported_scene_parts_raise(tmp_path, monkeypatch):
     from rust_ray_tracer_tpu_torch.models import scene as TS
     from rust_ray_tracer_tpu_torch.ops import camera as tcam
 
     cam = tcam.make_camera(np.eye(3, 4, dtype=np.float32), 60.0, 1.0)
-    # a medium inside a Mesh boundary waits for the Mesh port
+    # a medium inside a Mesh boundary used to raise; the Mesh is ported,
+    # and it compiles now (tests/test_torch_media.py checks its rows)
     obj = TS.ConstantMedium(TS.Mesh([((0, 0, -4), (1, 0, -4), (0, 1, -4))]),
                             0.5, TS.SolidColor((1, 1, 1)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_scene(TS.Scene(cam, [obj], [], (0, 0, 0)), device="cpu")
+    ts = compile_scene(TS.Scene(cam, [obj], [], (0, 0, 0)), device="cpu")
+    assert ts.med_kind.tolist() == [TS.MED_MESH]
+    assert tuple(ts.med_tri.shape) == (1, 1, 10)
     # an image file that exists is decoded now (it used to raise here):
     # a file that is no image is solid yellow, as in JAX (scene.py:530-534)
     ts = compile_scene(TS.Scene(cam, [TS.Sphere(
@@ -206,7 +209,11 @@ def test_unported_scene_parts_raise():
         (0, 0, 0)), device="cpu")
     assert ts.tex_kind.tolist() == [TS.TEX_SOLID]
     assert ts.tex_color.tolist() == [[1.0, 1.0, 0.0]]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # composite reads the reference's assets and raises without them, as
+    # the JAX package's does (builders.py:217-223): here from an empty
+    # directory, so the test never reads the assets where they are
+    monkeypatch.setattr(tcomposite, "ASSETS", str(tmp_path))
+    with pytest.raises(FileNotFoundError):
         tb.get_scene("composite", 1.0)
     with pytest.raises(ValueError, match="unknown scene"):
         tb.get_scene("nope", 1.0)

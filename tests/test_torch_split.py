@@ -52,8 +52,8 @@ from rust_ray_tracer_tpu_torch.ops.integrator import (render_waves,
 from rust_ray_tracer_tpu_torch.utils import rng
 
 from tests.torch_parity import (assert_flip_budget, assert_scaled_close,
-                                both, jax_compile, split_kernel_inputs,
-                                torch_scene)
+                                both, cube_mesh, jax_compile,
+                                split_kernel_inputs, torch_scene)
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -213,28 +213,25 @@ def _refused_scenes():
 @pytest.mark.parametrize("kernel", ["kernel L", "kernel N", "kernel I",
                                     "item 12", "item 4"])
 def test_split_route_refuses_naming_what_is_missing(kernel):
-    """A scene the split route cannot take yet raises, naming the unported
-    TPU kernel or ROADMAP item: 9 lights (I), a Mesh medium boundary (item
-    4). The cases "kernel L" (a triangle beside 128 quads), "kernel N"
-    (128 spheres) and "item 12" (an image texture's table) used to raise
-    too; their kernels and the image leaf are ported now, so these cases
-    keep their names (tests are tracked by name) and check that the scene
-    takes the split route and renders finite. Meshes and scenes past the
-    trace kernel's 4,096 rows render (``tests/test_torch_mesh.py``)."""
+    """The scenes the split route used to refuse, naming the unported TPU
+    kernel or ROADMAP item: "kernel L" (a triangle beside 128 quads),
+    "kernel N" (128 spheres), "kernel I" (9 lights), "item 12" (an image
+    texture's table) and "item 4" (a Mesh medium boundary). Their kernels
+    and modules are ported now, so these cases keep their names (tests
+    are tracked by name) and check that the scene takes the split route
+    and renders finite. Meshes and scenes past the trace kernel's 4,096
+    rows render (``tests/test_torch_mesh.py``), and the 9-light and Mesh
+    media scenes are held against JAX in ``tests/test_torch_gltf.py``."""
     if kernel == "item 4":
-        ts = _scene([_fog()])
-        ts = dataclasses.replace(ts, med_kind=torch.full_like(
-            ts.med_kind, TS.MED_MESH))
+        ts = _scene([TS.ConstantMedium.from_color(
+            cube_mesh(TS, (-1, -1, -5), (1, 1, -3)), 0.5, (1, 1, 1))])
+        assert ts.med_kind.tolist() == [TS.MED_MESH]
     elif kernel == "item 12":
         ts = dataclasses.replace(_scene([_fog()]), img_data=torch.zeros(
             (1, 2, 2, 3)), img_size=torch.full((1, 2), 2, dtype=torch.int32))
     else:
         ts = _refused_scenes()[kernel]()
     assert not uber.uber_eligible(ts)
-    if kernel in ("kernel L", "kernel N", "item 12"):
-        assert split_reason(ts) is None
-        img = render_waves(ts, 8, 8, rng.key(0, "cpu"), 0, 1, chunk_size=64)
-        assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
-        return
-    with pytest.raises(NotImplementedError, match=kernel):
-        render_waves(ts, 8, 8, rng.key(0, "cpu"), 0, 1)
+    assert split_reason(ts) is None
+    img = render_waves(ts, 8, 8, rng.key(0, "cpu"), 0, 1, chunk_size=64)
+    assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())

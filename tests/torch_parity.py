@@ -226,6 +226,228 @@ def random_earth_view(S, builders_mod, aspect):
                    host.background)
 
 
+class GltfWriter:
+    """A minimal glTF 2.0 writer for the tests and ``chip_smoke.py`` (the
+    packages have none; ``tests/test_gltf.py:89-185`` writes its files by
+    hand the same way): meshes of float32 positions with u16 or u32
+    indices or none, optionally strided; Lambertian or metal materials;
+    KHR_lights_punctual point lights; a perspective camera; a node tree
+    of TRS or matrix nodes. :meth:`save` writes a .gltf with a data-URI
+    buffer or an external .bin, or a .glb."""
+
+    def __init__(self):
+        self.doc = {"asset": {"version": "2.0"}, "buffers": [],
+                    "bufferViews": [], "accessors": [], "meshes": [],
+                    "materials": [], "nodes": [], "cameras": [],
+                    "scenes": [{"nodes": []}], "scene": 0}
+        self.lights = []
+        self.buf = bytearray()
+
+    def _view(self, data: bytes, stride=None) -> int:
+        self.buf += b"\0" * (-len(self.buf) % 4)
+        view = {"buffer": 0, "byteOffset": len(self.buf),
+                "byteLength": len(data)}
+        if stride is not None:
+            view["byteStride"] = stride
+        self.buf += data
+        self.doc["bufferViews"].append(view)
+        return len(self.doc["bufferViews"]) - 1
+
+    def _accessor(self, view, ctype, count, typ) -> int:
+        self.doc["accessors"].append({"bufferView": view,
+                                      "componentType": ctype,
+                                      "count": count, "type": typ})
+        return len(self.doc["accessors"]) - 1
+
+    def material(self, color, metallic=0.0, roughness=1.0) -> int:
+        self.doc["materials"].append({"pbrMetallicRoughness": {
+            "baseColorFactor": [float(c) for c in color] + [1.0],
+            "metallicFactor": float(metallic),
+            "roughnessFactor": float(roughness)}})
+        return len(self.doc["materials"]) - 1
+
+    def mesh(self, tris, material=None, index="u32", strided=False) -> int:
+        """A mesh of one primitive: ``tris`` [T, 3, 3], each triangle's
+        three vertices, stored in reverse order and indexed back by u16 or
+        u32 (``index``), or in order with no index accessor (None);
+        ``strided`` pads each position to 16 bytes (byteStride 16)."""
+        pos = np.asarray(tris, np.float32).reshape(-1, 3)
+        if index is not None:
+            pos = pos[::-1]            # stored reversed, indexed back
+        if strided:
+            padded = np.zeros((len(pos), 4), np.float32)
+            padded[:, :3] = pos
+            view = self._view(padded.tobytes(), stride=16)
+        else:
+            view = self._view(pos.tobytes())
+        prim = {"attributes": {"POSITION": self._accessor(
+            view, 5126, len(pos), "VEC3")}}
+        if index is not None:
+            dtype, ctype = {"u16": (np.uint16, 5123),
+                            "u32": (np.uint32, 5125)}[index]
+            idx = np.arange(len(pos), dtype=dtype)[::-1].copy()
+            prim["indices"] = self._accessor(self._view(idx.tobytes()),
+                                             ctype, len(idx), "SCALAR")
+        if material is not None:
+            prim["material"] = material
+        self.doc["meshes"].append({"primitives": [prim]})
+        return len(self.doc["meshes"]) - 1
+
+    def light(self, color, intensity) -> int:
+        self.lights.append({"type": "point",
+                            "color": [float(c) for c in color],
+                            "intensity": float(intensity)})
+        return len(self.lights) - 1
+
+    def camera(self, yfov, aspect=None) -> int:
+        persp = {"yfov": float(yfov), "znear": 0.01}
+        if aspect is not None:
+            persp["aspectRatio"] = float(aspect)
+        self.doc["cameras"].append({"type": "perspective",
+                                    "perspective": persp})
+        return len(self.doc["cameras"]) - 1
+
+    def node(self, root=True, light=None, **fields) -> int:
+        """A node with ``fields`` (mesh, camera, translation, rotation,
+        scale, matrix, children) and, with ``light``, that punctual light;
+        listed in the scene's roots when ``root``."""
+        node = {k: v for k, v in fields.items() if v is not None}
+        if light is not None:
+            node["extensions"] = {"KHR_lights_punctual": {"light": light}}
+        self.doc["nodes"].append(node)
+        i = len(self.doc["nodes"]) - 1
+        if root:
+            self.doc["scenes"][0]["nodes"].append(i)
+        return i
+
+    def save(self, path, form="data_uri") -> str:
+        """Write ``path`` as a .gltf whose buffer is a data URI
+        (``form="data_uri"``) or ``path``'s name with .bin beside it
+        (``"bin"``), or as a .glb (``"glb"``). Returns ``path``."""
+        import base64
+        import json
+        import struct
+
+        doc = dict(self.doc)
+        if self.lights:
+            doc["extensions"] = {"KHR_lights_punctual": {
+                "lights": self.lights}}
+        data = bytes(self.buf) + b"\0" * (-len(self.buf) % 4)
+        buf = {"byteLength": len(data)}
+        if form == "data_uri":
+            buf["uri"] = ("data:application/octet-stream;base64,"
+                          + base64.b64encode(data).decode())
+        elif form == "bin":
+            name = os.path.splitext(os.path.basename(str(path)))[0] + ".bin"
+            with open(os.path.join(os.path.dirname(str(path)), name),
+                      "wb") as f:
+                f.write(data)
+            buf["uri"] = name
+        elif form != "glb":
+            raise ValueError(f"unknown form {form!r}")
+        doc["buffers"] = [buf]
+        text = json.dumps(doc).encode()
+        if form != "glb":
+            with open(path, "wb") as f:
+                f.write(text)
+            return str(path)
+        text += b" " * (-len(text) % 4)
+        with open(path, "wb") as f:
+            f.write(b"glTF" + struct.pack("<II", 2, 12 + 8 + len(text) + 8
+                                          + len(data))
+                    + struct.pack("<I4s", len(text), b"JSON") + text
+                    + struct.pack("<I4s", len(data), b"BIN\x00") + data)
+        return str(path)
+
+
+# the glTF flagship's point lights: (position, colour, intensity) around
+# the triangle cloud (x, y in [-1, 1], z in [-5, -3]), the flagship's lamp
+# first; the 9-light file takes the first nine, the 16-light one all
+GLTF_LIGHTS = (
+    ((3.0, 3.0, 0.0), (1.0, 1.0, 1.0), 250.0),
+    ((-2.5, 1.5, -2.0), (1.0, 0.3, 0.2), 60.0),
+    ((2.5, -1.0, -2.5), (0.2, 0.6, 1.0), 80.0),
+    ((0.0, 2.5, -4.0), (0.9, 0.9, 0.4), 40.0),
+    ((-2.0, -2.0, -3.0), (0.3, 1.0, 0.4), 50.0),
+    ((1.5, 0.5, -6.5), (1.0, 0.5, 1.0), 120.0),
+    ((-1.0, 0.0, -1.0), (0.6, 0.6, 0.6), 20.0),
+    ((0.5, -2.5, -5.0), (1.0, 0.8, 0.1), 70.0),
+    ((-3.0, 0.5, -5.5), (0.4, 0.9, 1.0), 90.0),
+    ((3.0, 1.0, -4.0), (0.8, 0.2, 0.6), 35.0),
+    ((-0.5, 3.0, -6.0), (0.2, 0.8, 0.8), 45.0),
+    ((2.0, 2.0, -1.5), (1.0, 0.6, 0.3), 55.0),
+    ((-2.5, -1.0, -6.5), (0.5, 0.5, 1.0), 65.0),
+    ((0.0, -3.0, -3.0), (0.9, 0.4, 0.4), 30.0),
+    ((1.0, 1.5, -7.5), (0.6, 1.0, 0.6), 100.0),
+    ((-1.5, 2.5, -2.5), (1.0, 1.0, 0.7), 25.0),
+)
+
+
+def write_gltf_flagship(path, n_lights=9, form="data_uri") -> str:
+    """The flagship as a glTF file: ``builders.procedural_flagship()``'s
+    968 triangles (single-sided, as the loader builds them), one Lambertian
+    material (0.8 grey, ``metallicFactor`` 0), the flagship's camera
+    (identity pose, 22.9 degrees, 16:9) and the first ``n_lights`` of
+    :data:`GLTF_LIGHTS` as point lights. With one light it is the
+    flagship's lamp (emit 250 at (3, 3, 0)), so the file compiles to
+    ``procedural_flagship()``'s tables but for the triangles'
+    double-sided flag. Returns ``path``."""
+    from rust_ray_tracer_tpu_torch.models import builders
+
+    tris = [(t.v0, t.v1, t.v2)
+            for t in builders.procedural_flagship().world
+            if isinstance(t, TS.Triangle)]
+    w = GltfWriter()
+    mat = w.material((0.8, 0.8, 0.8), metallic=0.0)
+    w.node(mesh=w.mesh(tris, mat))
+    w.node(camera=w.camera(np.deg2rad(22.9), 16 / 9))
+    for pos, color, intensity in GLTF_LIGHTS[:n_lights]:
+        w.node(translation=list(pos), light=w.light(color, intensity))
+    return w.save(path, form)
+
+
+def cube_mesh(S, mn, mx, double_sided=True):
+    """The 12-triangle cube between corners ``mn`` and ``mx`` as a Mesh
+    with no material (a ConstantMedium boundary), as the JAX package's
+    ``tests/test_intersect.py:293-306`` builds it."""
+    mn, mx = np.asarray(mn, np.float64), np.asarray(mx, np.float64)
+    corners = [(mn[0] if i & 1 == 0 else mx[0],
+                mn[1] if i & 2 == 0 else mx[1],
+                mn[2] if i & 4 == 0 else mx[2]) for i in range(8)]
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1),
+             (2, 3, 7, 6), (0, 2, 6, 4), (1, 5, 7, 3)]
+    tris = []
+    for a, b, c, d in quads:
+        tris.append((corners[a], corners[b], corners[c]))
+        tris.append((corners[a], corners[c], corners[d]))
+    return S.Mesh(tris, double_sided=double_sided)
+
+
+def mesh_medium(S, cam_mod):
+    """A Mesh-boundary fog (:func:`cube_mesh`, Translate/RotateY-wrapped
+    once) beside a grey sphere and a metal tetrahedron (a world-object
+    Mesh) on a checker ground, under a rect light: the split route with a
+    ``MED_MESH`` medium."""
+    cam = cam_mod.make_camera(EYE, 60.0, 1.0)
+    lamp = S.XZRect(-1.0, 1.0, -5.0, -3.0, 3.0,
+                    S.DiffuseLight.from_color((6, 6, 6)))
+    fog = S.Translate(S.RotateY(cube_mesh(S, (-0.5, -0.5, -0.5),
+                                          (0.5, 0.5, 0.5)), 30.0),
+                      (-0.6, 0.0, -3.6))
+    tet = ((0.4, -0.9, -2.6), (1.0, -0.9, -2.9), (0.5, -0.9, -3.3),
+           (0.6, -0.3, -2.9))
+    return S.Scene(cam, [
+        S.Sphere((0, -101, -4), 100.0,
+                 S.Lambertian(S.Checker.from_colors((0.9, 0.1, 0.1),
+                                                    (0.1, 0.9, 0.1)))),
+        S.Sphere((1.4, 0, -4), 0.8, S.Lambertian.from_rgb(0.5, 0.4, 0.3)),
+        S.ConstantMedium.from_color(fog, 1.2, (0.9, 0.9, 0.9)),
+        S.Mesh([(tet[a], tet[b], tet[c]) for a, b, c in (
+            (0, 1, 2), (0, 3, 1), (0, 2, 3), (1, 3, 2))],
+               S.Metal((0.8, 0.7, 0.6), 0.1)),
+        lamp], [lamp], (0.2, 0.3, 0.5))
+
+
 SMALL_SCENES = {"solid": solid, "checker": checker, "quad": quad,
                 "noise": noise, "fog": fog, "solid_fog": solid_fog}
 
@@ -372,21 +594,23 @@ def split_recorder(plain: bool = False):
     ``ops/search.fused_search``), the fused bounce (F,
     ``ops/bounce.bounce_planes``), the per-kind triangle search (L,
     ``ops/search.tri_search``) and the cluster-culled sphere search (N,
-    ``ops/sphere.sph_search``) — record the arguments of each call in the
-    yielded dict's lists ``quad``, ``hit``, ``su``, ``enter``, ``search``,
-    ``bp``, ``tri`` and ``sph``. They then run as before or, with
-    ``plain``, run the plain versions on any device (the plain route on
-    the card, to hold the kernel route against)."""
+    ``ops/sphere.sph_search``) and the shading of 9 or more lights (I,
+    ``ops/shade.shade_planes``) — record the arguments of each call in
+    the yielded dict's lists ``quad``, ``hit``, ``su``, ``enter``,
+    ``search``, ``bp``, ``tri``, ``sph`` and ``shade``. They then run as
+    before or, with ``plain``, run the plain versions on any device (the
+    plain route on the card, to hold the kernel route against)."""
     from rust_ray_tracer_tpu_torch.ops import bounce, bounce_core, hit, quad
-    from rust_ray_tracer_tpu_torch.ops import search, sphere
+    from rust_ray_tracer_tpu_torch.ops import search, shade, sphere
 
     rec = {"quad": [], "hit": [], "su": [], "enter": [], "search": [],
-           "bp": [], "tri": [], "sph": []}
+           "bp": [], "tri": [], "sph": [], "shade": []}
     sites = ((quad, "quad_search", "quad"), (hit, "hit_planes", "hit"),
              (bounce, "su_planes", "su"), (search, "tile_enter", "enter"),
              (search, "fused_search", "search"),
              (bounce, "bounce_planes", "bp"),
-             (search, "tri_search", "tri"), (sphere, "sph_search", "sph"))
+             (search, "tri_search", "tri"), (sphere, "sph_search", "sph"),
+             (shade, "shade_planes", "shade"))
     real = [getattr(mod, fn) for mod, fn, _ in sites]
     runs = real
     if plain:
@@ -398,7 +622,8 @@ def split_recorder(plain: bool = False):
                 bounce_core.bounce_plane_core(
                     P, pk, mk, fl, lt, n_lights,
                     P.shape[0] > bounce_core.N_IN_B),
-                search.tri_search_plain, sphere.sph_search_plain]
+                search.tri_search_plain, sphere.sph_search_plain,
+                shade.shade_plane_core]
 
     def recording(fn, key):
         def wrapped(*args):
