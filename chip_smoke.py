@@ -73,6 +73,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -116,6 +117,10 @@ from rust_ray_tracer_tpu_torch.ops import sphere as sphere_ops
 from rust_ray_tracer_tpu_torch.ops import uber
 from rust_ray_tracer_tpu_torch.ops.integrator import (make_split_tables,
                                                       render_waves)
+from rust_ray_tracer_tpu_torch.parallel import (load_state, make_mesh,
+                                                multihost_init,
+                                                render_waves_sharded,
+                                                render_with_checkpoints)
 from rust_ray_tracer_tpu_torch.utils import cli
 from rust_ray_tracer_tpu_torch.utils import rng
 from rust_ray_tracer_tpu_torch.utils.image import decode_image
@@ -202,6 +207,12 @@ SHADE_KERNELS = (shade_kernel, shade_bwd_kernel)
 # route on the CPU gives mean radiance 0.979852; the band leaves room for
 # paths that fork apart between the card's and the host's float32
 CLI_GLTF_LO, CLI_GLTF_HI = 0.93, 1.03
+# the per-chunk path of the sharded renderer (TPU kernels D, D': one uber
+# bounce a launch and its backward, csrc/trace_wave.cu, trace_wave_bwd.cu)
+D_KERNELS = (K.bounce_uber_kernel, K.bounce_uber_noise_kernel)
+D_BWD_KERNELS = (K.bounce_uber_bwd_kernel, K.bounce_uber_bwd_noise_kernel)
+SHARD_W, SHARD_H, SHARD_CHUNK = 128, 72, 1024   # two ranks, checkpoints
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def emit(obj) -> None:
@@ -564,12 +575,16 @@ class PlainCalls:
     ``su_plane_core``, ``su_plane_core_vjp``, ``bounce_plane_core`` and
     ``bounce_plane_core_vjp`` (``ops/bounce``), ``tile_enter_plain``,
     ``fused_search_plain`` and ``tri_search_plain`` (``ops/search``),
-    ``sph_search_plain`` (``ops/sphere``) and ``shade_plane_core`` and
-    ``shade_plane_core_vjp`` (``ops/shade``) record their names in
-    ``calls``; ``real`` and ``real_bwd`` stay the uncounted functions."""
+    ``sph_search_plain`` (``ops/sphere``), ``shade_plane_core`` and
+    ``shade_plane_core_vjp`` (``ops/shade``) and ``fused_bounce_plain``
+    and ``fused_bounce_bwd_plain`` (``ops/uber``) record their names in
+    ``calls``; ``real``, ``real_bwd``, ``real_fused`` and
+    ``real_fused_bwd`` stay the uncounted functions."""
 
     real = uber.trace_wave_plain
     real_bwd = uber.trace_wave_bwd_plain
+    real_fused = uber.fused_bounce_plain
+    real_fused_bwd = uber.fused_bounce_bwd_plain
     SITES = ((uber, "trace_wave_plain"), (uber, "trace_wave_bwd_plain"),
              (quad_ops, "_quad_candidates"), (hit_ops, "hit_plane_core"),
              (bounce_ops, "su_plane_core"), (hit_ops, "hit_plane_core_vjp"),
@@ -581,7 +596,8 @@ class PlainCalls:
              (sphere_ops, "sph_search_plain"),
              (search_ops, "tri_search_plain"),
              (shade_ops, "shade_plane_core"),
-             (shade_ops, "shade_plane_core_vjp"))
+             (shade_ops, "shade_plane_core_vjp"),
+             (uber, "fused_bounce_plain"), (uber, "fused_bounce_bwd_plain"))
 
     def __init__(self):
         self.calls = []
@@ -2137,7 +2153,6 @@ def earth_map_dir():
     compile random, earth and final_scene without it (solid yellow, on
     their old routes) and no map is left behind. Yields the host's seconds
     to write the map and to decode it, and which decoder ran."""
-    import tempfile
 
     try:
         import PIL  # noqa: F401
@@ -2525,7 +2540,6 @@ def gltf_dir():
     triangles with 9 point lights (``f9.gltf``, a data-URI buffer), with
     16 (``f16.gltf``) and with its one lamp as a point light
     (``f1.glb``). Yields {name: path}; the directory is removed after."""
-    import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         yield {"f9": write_gltf_flagship(os.path.join(tmp, "f9.gltf"), 9),
@@ -2888,13 +2902,17 @@ def cli_gltf_phase(path, height, spp, lo, hi) -> dict:
     os.makedirs("output", exist_ok=True)
     out_png = os.path.join("output", "gltf_torch.png")
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    # a fresh checkpoint, so that every wave renders on the card
+    with tempfile.TemporaryDirectory() as td, \
+            contextlib.redirect_stdout(buf):
         rc = cli.main([str(height), str(spp), "-g", path, "-a",
                        str(WIDTH / HEIGHT), "-o", out_png, "--device",
-                       "cuda"])
+                       "cuda", "--checkpoint", os.path.join(td, "g.ckpt")])
     line = buf.getvalue().strip()
     if rc != 0:
         raise AssertionError(f"CLI -g exited {rc}: {line}")
+    if f"wave {spp}/{spp}" not in line:
+        raise AssertionError(f"CLI -g rendered no wave: {line}")
     m = re.search(r"mean radiance ([0-9.eE+-]+|nan|inf), finite (\w+)", line)
     if not m or m.group(2) != "True":
         raise AssertionError(f"CLI -g image not finite: {line}")
@@ -2910,15 +2928,12 @@ def bound(nbytes, ops):
     return max(tb, to), ("bytes" if tb >= to else "operations")
 
 
-def kernel_rows(fwd, train, small, variant) -> list[dict]:
-    """The ``{"kernels": [...]}`` rows of one variant's A and B (and, for
-    the variant without noise, bwd_reduce) from its scene's main path:
-    launches and device times from the training step, the bound from this
-    run's residuals."""
-    ctx, st0 = fwd["ctx"], fwd["st0"]
-    hist, kind, idx = train["hist"], train["kind"], train["idx"]
-    part, offs, m_found = train["part"], train["offs"], train["m_found"]
-    n = st0.shape[1]
+def trace_costs(ctx, hist, kind, idx) -> dict:
+    """What the trace kernels need for the residuals ``hist`` [depth, 14,
+    N], ``kind``, ``idx`` [depth, N] of ``depth`` bounces: A's bytes and
+    fp32 operations (with the residuals' bytes apart) and B's, as the
+    kernel rows count them; with depth 1, D's and D''s."""
+    depth, _, n = hist.shape
     w_cols = ctx.uni.shape[1]
     tables = sum(x.numel() * 4 for x in (ctx.uni, ctx.det_t, ctx.u_t,
                                          ctx.v_t, ctx.t_t, ctx.dbl_t,
@@ -2931,8 +2946,8 @@ def kernel_rows(fwd, train, small, variant) -> list[dict]:
     # A: st0 + rnd in, stf out (+ the residuals when training); the ray
     # tests this wave's rays make, the shading of each live ray-bounce and
     # the marble of each noise hit
-    a_bytes = (14 * n * 2 + DEPTH * 15 * n) * 4 + tables
-    a_res_bytes = a_bytes + (DEPTH * 14 * n + 2 * DEPTH * n) * 4
+    a_bytes = (14 * n * 2 + depth * 15 * n) * 4 + tables
+    a_res_bytes = a_bytes + (depth * 14 * n + 2 * depth * n) * 4
     a_ops = (swept_tri_tests(hist, ctx) * OPS_TRI
              + n_live * (prims * OPS_PRIM + OPS_SHADE) + n_noise * OPS_MARBLE)
     # B: what this run's residuals need. Every ray-bounce: its alive
@@ -2940,17 +2955,38 @@ def kernel_rows(fwd, train, small, variant) -> list[dict]:
     # ray-bounce: o, d, time, its winner, the randoms its material's
     # adjoint reads, and its row cotangent with its key out. Once: g in,
     # dst out, the tables, the per-block partials.
-    found = alive & (kind > 0)           # m_found of them
+    found = alive & (kind > 0)
+    m_found = int(found.sum())
     mat = ctx.uni[idx[found].long(), uber.A_COL].long()
     rnd_cols = torch.zeros(5, dtype=torch.long, device=mat.device)
     rnd_cols[S.MAT_LAMBERTIAN] = 6 if ctx.n_lights else 2
     rnd_cols[S.MAT_METAL] = 4
     rnd_cols[S.MAT_DIELECTRIC] = 1
-    b_bytes = (DEPTH * n + n_live * 4 + m_found * (7 + 1 + 1 + w_cols)
+    part = (n // 128) * (ctx.n_lights + 1) * 14
+    b_bytes = (depth * n + n_live * 4 + m_found * (7 + 1 + 1 + w_cols)
                + int(rnd_cols[mat].sum()) + 2 * 14 * n + ctx.uni.numel()
-               + ctx.lt.numel() + part.numel()) * 4 + (
+               + ctx.lt.numel() + part) * 4 + (
                    ctx.perlin.vec.numel() + ctx.perlin.perm.numel()) * 4
     b_ops = m_found * OPS_BWD + n_noise * OPS_MARBLE_BWD
+    return {"a_bytes": a_bytes, "a_res_bytes": a_res_bytes, "a_ops": a_ops,
+            "b_bytes": b_bytes, "b_ops": b_ops, "live": n_live,
+            "found": m_found, "noise": n_noise}
+
+
+def kernel_rows(fwd, train, small, variant) -> list[dict]:
+    """The ``{"kernels": [...]}`` rows of one variant's A and B (and, for
+    the variant without noise, bwd_reduce) from its scene's main path:
+    launches and device times from the training step, the bound from this
+    run's residuals."""
+    ctx, st0 = fwd["ctx"], fwd["st0"]
+    hist, kind, idx = train["hist"], train["kind"], train["idx"]
+    part, offs, m_found = train["part"], train["offs"], train["m_found"]
+    n = st0.shape[1]
+    w_cols = ctx.uni.shape[1]
+    c = trace_costs(ctx, hist, kind, idx)
+    a_bytes, a_res_bytes, a_ops = c["a_bytes"], c["a_res_bytes"], c["a_ops"]
+    b_bytes, b_ops = c["b_bytes"], c["b_ops"]
+    n_live, n_noise = c["live"], c["noise"]
     # bwd_reduce: the found cotangents, their order and the partials in;
     # duni and dlt out; one add per value
     r_bytes = (m_found * (w_cols + 1) + offs.numel() + part.numel()
@@ -3008,18 +3044,467 @@ def kernel_rows(fwd, train, small, variant) -> list[dict]:
     return rows
 
 
+# ---- the per-chunk path: kernels D and D', the sharded renderer, two
+# ranks, checkpoints ---------------------------------------------------------
+
+def d_profiler_names(ctx):
+    """The profiler's names of kernels D and D' (template instances)."""
+    v = "true" if ctx.has_noise else "false"
+    return (f"fused_bounce_kernel<{v}>", f"fused_bounce_bwd_kernel<{v}>")
+
+
+def fused_bounce_checks(label, fwd, seed=31) -> dict:
+    """Kernels D and D' (the scene's variants) against
+    ``fused_bounce_plain`` / ``fused_bounce_bwd_plain`` on the card, on the
+    recorded inputs of bounces 0 and 1 of the forward phase's full-size
+    wave (D's own output feeds bounce 1): D's winners equal the plain
+    version's but for at most FLIP_BUDGET of the lanes and its state
+    within RTOL / ATOL of each lane's largest plane, FLIP_BUDGET outside;
+    D' with a seeded cotangent within B's budget; each the same bits over
+    two launches. Per bounce: ms out of L2 (D' alone and with the sort and
+    B''s sums), the plain versions' ms, the work. Emits
+    ``<label>_fused_bounce_checks``."""
+    ctx, st, rnd = fwd["ctx"], fwd["st0"], fwd["rnd"]
+    d, dp = K.fused_bounce_kernel(ctx), K.fused_bounce_bwd_kernel(ctx)
+    n = st.shape[1]
+    g = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(14, n)).astype(np.float32)).to(st.device)
+    bounces, pairs_d, pairs_dp, pairs_sum = [], [], [], []
+    for b in (0, 1):
+        rb = rnd[b]
+        with torch.no_grad():
+            st2, kind, idx = d(st, rb, ctx)
+            again = d(st, rb, ctx)
+            ref2, ref_kind, ref_idx = PlainCalls.real_fused(st, rb, ctx)
+        if not all(torch.equal(x, y) for x, y in zip((st2, kind, idx),
+                                                     again)):
+            raise AssertionError(f"{label}: {d.name} differs between runs")
+        forked = int(((kind != ref_kind) | (idx != ref_idx)).sum())
+        if forked > FLIP_BUDGET * n:
+            raise AssertionError(f"{label}: {forked} winners of {d.name} "
+                                 "differ from the plain version's")
+        st_out, st_err = scaled_close(st2, ref2, RTOL, ATOL, FLIP_BUDGET,
+                                      f"{label}: {d.name} state")
+        bk = K.fused_bounce_backward(st, rb, kind, idx, ctx, g)
+        bk2 = K.fused_bounce_backward(st, rb, kind, idx, ctx, g)
+        if not all(torch.equal(x, y) for x, y in zip(bk, bk2)):
+            raise AssertionError(f"{label}: {dp.name} differs between runs")
+        bp = PlainCalls.real_fused_bwd(st, rb, kind, idx, ctx, g)
+        dst_out, dst_err = scaled_close(bk[0], bp[0], BWD_RTOL, BWD_ATOL,
+                                        FLIP_BUDGET, f"{label}: {dp.name} dst")
+        costs = trace_costs(ctx, st[None], kind[None], idx[None])
+        bounces.append({
+            "bounce": b, "winners_forked": forked, "state_outside": st_out,
+            "state_err": st_err, "dst_outside": dst_out, "dst_err": dst_err,
+            "duni_rel_l2": rel_l2(bk[1], bp[1], f"{label}: duni",
+                                  BWD_REL_L2),
+            "dlt_rel_l2": rel_l2(bk[2], bp[2], f"{label}: dlt", BWD_REL_L2),
+            "dlt_rows_err": rows_close(bk[2], bp[2], f"{label}: dlt rows"),
+            "live": costs["live"], "found": costs["found"],
+            "noise_hits": costs["noise"],
+            "d_bytes": costs["a_bytes"] + 2 * n * 4,
+            "d_ops": costs["a_ops"], "dp_bytes": costs["b_bytes"],
+            "dp_ops": costs["b_ops"]})
+        args = (st, rb, kind, idx, ctx, g)
+        pairs_d.append((lambda a=(st, rb, ctx): d(*a),
+                        lambda a=(st, rb, ctx): PlainCalls.real_fused(*a)))
+        pairs_dp.append((lambda a=args: dp(*a),
+                         lambda a=args: PlainCalls.real_fused_bwd(*a)))
+        pairs_sum.append((lambda a=args: K.fused_bounce_backward(*a), None))
+        st = st2
+    t_d = bounce_times(pairs_d, plain_reps=2)
+    t_dp = bounce_times(pairs_dp, plain_reps=2)
+    t_sum = bounce_times(pairs_sum)
+    regs = [r for lib in (d.library, dp.library)
+            for r in ptxas_report(K.build(lib).log)
+            if "fused_bounce" in r["function"]]
+    out = {"phase": f"{label}_fused_bounce_checks", "kernels": [d.name,
+                                                                dp.name],
+           "rays": n, "bounces": bounces,
+           "ms_per_launch_l2_flushed": {d.name: t_d["cold"],
+                                        dp.name: t_dp["cold"],
+                                        f"{dp.name}+sort+bwd_reduce":
+                                            t_sum["cold"]},
+           "plain_ms_per_launch": {d.name: t_d["plain"],
+                                   dp.name: t_dp["plain"]},
+           "budget": {"state": [RTOL, ATOL, FLIP_BUDGET],
+                      "dst": [BWD_RTOL, BWD_ATOL, FLIP_BUDGET],
+                      "tables_rel_l2": BWD_REL_L2},
+           "ptxas": regs}
+    emit(out)
+    return {"ctx": ctx, "bounces": bounces, "t_d": t_d, "t_dp": t_dp,
+            "t_sum": t_sum}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_forward(label, fwd, mesh, dev, smi) -> dict:
+    """The forward render through ``render_waves_sharded`` on ``mesh`` at
+    the bench shape: the counts of A, B, D and D' (both variants) set to 0
+    just before it runs under :class:`PlainCalls` and read just after —
+    SPP * DEPTH launches of the scene's D and none of the others, no plain
+    call; the image against ``render_waves`` (A) on the same key, bitwise
+    or its differing pixels counted and within the flip budget; sweep ms,
+    the profiled wave (D in the path, glue, busy share), peak memory.
+    Emits ``sharded_<label>_forward``."""
+    scene, key, ctx = fwd["scene"], fwd["key"], fwd["ctx"]
+    d = K.fused_bounce_kernel(ctx)
+    watched = ((trace_wave_kernel, trace_wave_noise_kernel,
+                trace_wave_bwd_kernel, trace_wave_bwd_noise_kernel)
+               + D_KERNELS + D_BWD_KERNELS)
+
+    def render(n_waves):
+        with torch.no_grad():
+            return render_waves_sharded(scene, WIDTH, HEIGHT, key, 0,
+                                        n_waves, mesh, DEPTH, CHUNK)
+
+    with PlainCalls() as plain:
+        for k in watched:
+            k.launches = 0
+        img = render(SPP)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in watched}
+    want = {k.name: 0 for k in watched}
+    want[d.name] = SPP * DEPTH
+    if launches != want:
+        raise AssertionError(f"sharded {label} launches {launches}, "
+                             f"expected {want}")
+    if plain.calls:
+        raise AssertionError(f"plain versions ran: {sorted(set(plain.calls))}")
+    if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(
+            torch.isfinite(img).all()):
+        raise AssertionError(f"sharded {label} image: shape or non-finite")
+    with torch.no_grad():
+        ref = render_waves(scene, WIDTH, HEIGHT, key, 0, SPP, depth=DEPTH,
+                           chunk_size=CHUNK)
+    bitwise = torch.equal(img, ref)
+    differ = int((img != ref).any(-1).sum())
+    vs_a = compare(img, ref, f"sharded {label} vs render_waves (A)",
+                   flip_abs=None)
+    t = forward_timing(render, {d.name: d_profiler_names(ctx)[0]}, 7, dev)
+    emit({"phase": f"sharded_{label}_forward", "card": smi,
+          "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
+          "world": mesh.size, "backend": mesh.backend, "launches": launches,
+          "plain_calls": len(plain.calls), "image_mean": float(img.mean())
+          / SPP, "bitwise_vs_whole_wave": bitwise,
+          "pixels_differing_from_whole_wave": differ,
+          "vs_whole_wave": vs_a, **t["fields"]})
+    return {"launches": launches, "in_path": t["in_path"]}
+
+
+def sharded_train(label, fwd, mesh, dev, smi, nonzero_keys) -> dict:
+    """``bench.py``'s training step through ``render_waves_sharded`` on
+    ``mesh``: the counts set to 0 just before the first of two steps under
+    :class:`PlainCalls` and read just after it — SPP * DEPTH launches each
+    of the scene's D and D' and of B' (one sum of D''s rows and light
+    partials a bounce), none of A, B or the other variants, no plain call;
+    gradients finite, bitwise over the two steps, non-zero on
+    ``nonzero_keys``, and within B's budget (per leaf BWD_ATOL + BWD_RTOL
+    of its largest entry) of the whole-wave route's (A and B) gradients;
+    step times, a profiled step, peak memory. Emits
+    ``sharded_<label>_train``."""
+    scene, key, ctx = fwd["scene"], fwd["key"], fwd["ctx"]
+    d, dp = K.fused_bounce_kernel(ctx), K.fused_bounce_bwd_kernel(ctx)
+    params, static = partition(scene)
+
+    def step(sharded=True):
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        sc = combine(leaves, static)
+        img = (render_waves_sharded(sc, WIDTH, HEIGHT, key, 0, SPP, mesh,
+                                    DEPTH, CHUNK) if sharded else
+               render_waves(sc, WIDTH, HEIGHT, key, 0, SPP, depth=DEPTH,
+                            chunk_size=CHUNK))
+        loss = img.mean()
+        loss.backward()
+        return loss, {k: v.grad for k, v in leaves.items()
+                      if v.grad is not None}
+
+    watched = ((trace_wave_kernel, trace_wave_noise_kernel,
+                trace_wave_bwd_kernel, trace_wave_bwd_noise_kernel,
+                bwd_reduce_kernel) + D_KERNELS + D_BWD_KERNELS)
+    with PlainCalls() as plain:
+        for k in watched:
+            k.launches = 0
+        loss, grads = step()
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in watched}
+        _, grads2 = step()
+        torch.cuda.synchronize()
+    want = {k.name: 0 for k in watched}
+    for k in (d, dp, bwd_reduce_kernel):
+        want[k.name] = SPP * DEPTH
+    if launches != want:
+        raise AssertionError(f"sharded {label} training launches "
+                             f"{launches}, expected {want}")
+    if plain.calls:
+        raise AssertionError(f"plain versions ran: {sorted(set(plain.calls))}")
+    for k, v in grads.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"non-finite gradient of {k}")
+        if not torch.equal(v, grads2[k]):
+            raise AssertionError(f"gradient of {k} differs between steps")
+    nonzero = {k: float(grads[k].abs().max()) for k in nonzero_keys}
+    if min(nonzero.values()) <= 0:
+        raise AssertionError(f"zero gradients: {nonzero}")
+    _, ref = step(sharded=False)
+    worst, worst_key = 0.0, None
+    for k, r in ref.items():
+        scale = float(r.abs().max()) if r.numel() else 0.0
+        err = float((grads[k] - r).abs().max()) if r.numel() else 0.0
+        if err > BWD_ATOL + BWD_RTOL * scale:
+            raise AssertionError(f"sharded {label}: gradient of {k} off the "
+                                 f"whole-wave route's by {err:.3g} (its "
+                                 f"largest {scale:.3g})")
+        if scale > 0 and err / scale > worst:
+            worst, worst_key = err / scale, k
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps_ms = cuda_ms(step, 7)
+    peak = torch.cuda.max_memory_allocated(dev)
+    names = d_profiler_names(ctx)
+    prof = profile_device(step, names + ("bwd_reduce_kernel",), top=10)
+    per = prof["per_kernel"] or {}
+    in_path = {k.name: (per.get(nm) or {}).get("ms_per_launch")
+               for k, nm in zip((d, dp, bwd_reduce_kernel),
+                                names + ("bwd_reduce_kernel",))}
+    r = rate_fields("step", steps_ms)
+    wave = r["step_ms_median"] / SPP
+    kern = (None if None in in_path.values()
+            else DEPTH * sum(in_path.values()))
+    emit({"phase": f"sharded_{label}_train", "card": smi,
+          "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
+          "world": mesh.size, "backend": mesh.backend, "launches": launches,
+          "plain_calls": len(plain.calls), "loss": float(loss.detach()),
+          "grads_finite": True, "grads_bitwise_repeat": True,
+          "grad_max_abs": nonzero,
+          "grads_vs_whole_wave_worst": {"leaf": worst_key,
+                                        "err_over_largest": worst,
+                                        "budget": [BWD_RTOL, BWD_ATOL]},
+          **{k: v for k, v in r.items() if k.startswith("step")},
+          "fwd_bwd_mrays_per_s": r["mrays"],
+          "fwd_bwd_mrays_per_s_min": r["mrays_min"],
+          "fwd_bwd_mrays_per_s_max": r["mrays_max"],
+          "peak_memory_bytes": peak, "ms_per_launch_profiler": in_path,
+          "ms_per_wave": {"step": wave, "kernels": kern,
+                          "glue": None if kern is None else wave - kern},
+          "profiled_step": prof})
+    return {"launches": launches, "in_path": in_path}
+
+
+def sharded_two_ranks(dev, smi) -> dict:
+    """Two gloo ranks on the one card (NCCL refuses two ranks on one GPU;
+    gloo's collectives go through the host, ``parallel/render.py``), each a
+    process of ``python -m rust_ray_tracer_tpu_torch.parallel.dryrun``:
+    the flagship at SHARD_W x SHARD_H, 2 spp, depth DEPTH, chunk
+    SHARD_CHUNK (9 chunks, padded to 10, 5 a rank), the image, one
+    training step and an SGD step. Both ranks' images must equal the
+    one-rank render bitwise, their gradients must be equal to each other
+    and within B's budget of the one-rank gradients (not twice them), the
+    loss after the step finite. Emits ``sharded_two_ranks``."""
+
+    from rust_ray_tracer_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        out = os.path.join(td, "rank.pt")
+        addr = f"127.0.0.1:{free_port()}"
+        env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", "")}
+        cmd = [sys.executable, "-m", "rust_ray_tracer_tpu_torch.parallel."
+               "dryrun", "--device", dev.type, "--backend", "gloo", "--scene",
+               "flagship", "--width", str(SHARD_W), "--height",
+               str(SHARD_H), "--spp", "2", "--depth", str(DEPTH),
+               "--chunk-size", str(SHARD_CHUNK), "--out",
+               out, "--coordinator", addr, "--num-processes", "2"]
+        procs = []
+        try:
+            for r in (0, 1):
+                procs.append(subprocess.Popen(
+                    cmd + ["--process-id", str(r)], env=env, cwd=ROOT,
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+            logs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for p, log in zip(procs, logs):
+            if p.returncode != 0:
+                raise AssertionError(f"a rank exited {p.returncode}:\n"
+                                     f"{log[-3000:]}")
+        ranks = [torch.load(os.path.join(td, f"rank.{r}.pt"))
+                 for r in (0, 1)]
+    ranks_s = time.perf_counter() - t0
+    one = dryrun.run(make_mesh(device=dev), "flagship", SHARD_W, SHARD_H, 2,
+                     DEPTH, SHARD_CHUNK)
+    for r in ranks:
+        if not torch.equal(r["image"], one["image"]):
+            raise AssertionError(f"rank {r['rank']}'s image differs from the "
+                                 "one-rank render")
+    worst = 0.0
+    for k, ref in one["grads"].items():
+        a, b = ranks[0]["grads"][k], ranks[1]["grads"][k]
+        if not torch.equal(a, b):
+            raise AssertionError(f"gradient of {k} differs between ranks")
+        if not ref.numel():
+            continue
+        scale = float(ref.abs().max())
+        err = float((a - ref).abs().max())
+        if err > BWD_ATOL + BWD_RTOL * scale:
+            raise AssertionError(f"two ranks: gradient of {k} off the "
+                                 f"one-rank one by {err:.3g} (largest "
+                                 f"{scale:.3g})")
+        worst = max(worst, err / scale if scale else 0.0)
+    if not bool(torch.isfinite(ranks[0]["loss_after_step"])):
+        raise AssertionError("two ranks: non-finite loss after the step")
+    out = {"phase": "sharded_two_ranks", "card": smi, "backend": "gloo",
+           "world": 2, "shape": [SHARD_H, SHARD_W, 2, DEPTH],
+           "chunk_size": SHARD_CHUNK, "images_bitwise_vs_one_rank": True,
+           "grads_equal_across_ranks": True,
+           "grads_vs_one_rank_worst_err_over_largest": worst,
+           "loss": float(ranks[0]["loss"]),
+           "loss_after_step": float(ranks[0]["loss_after_step"]),
+           "ranks_seconds": ranks_s}
+    emit(out)
+    return out
+
+
+def checkpoint_resume(dev, smi) -> dict:
+    """``render_with_checkpoints`` at SHARD_W x SHARD_H, 4 spp,
+    ``ckpt_every=2`` on a one-rank mesh (D a bounce), stopped after its
+    first segment and resumed: equal to the monolithic sharded render
+    bitwise. Then the CLI with ``--checkpoint`` twice on the card: the
+    second run renders no wave and writes the same PNG. Emits
+    ``checkpoint_resume``."""
+
+    scene = compile_scene(builders.procedural_flagship(), device=dev)
+    mesh = make_mesh(device=dev)
+    d = K.bounce_uber_kernel
+
+    class Stop(Exception):
+        pass
+
+    def stop(done, total):
+        raise Stop
+
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "r.ckpt")
+        kw = dict(ckpt_every=2, depth=DEPTH, chunk_size=SHARD_CHUNK,
+                  mesh=mesh)
+        d.launches = 0
+        try:
+            render_with_checkpoints(scene, SHARD_W, SHARD_H, 4, 0, path,
+                                    progress=stop, **kw)
+        except Stop:
+            pass
+        first = load_state(path).waves_done
+        seen = []
+        img = render_with_checkpoints(scene, SHARD_W, SHARD_H, 4, 0, path,
+                                      progress=lambda a, b: seen.append(a),
+                                      **kw)
+        torch.cuda.synchronize()
+        launches = d.launches
+        with torch.no_grad():
+            ref = render_waves_sharded(scene, SHARD_W, SHARD_H,
+                                       rng.key(0, dev), 0, 4, mesh, DEPTH,
+                                       SHARD_CHUNK) / 4
+        if first != 2 or seen != [4] or not torch.equal(img, ref):
+            raise AssertionError(f"resume: first segment {first}, then "
+                                 f"{seen}, bitwise {torch.equal(img, ref)}")
+        if launches != 4 * DEPTH:
+            raise AssertionError(f"{launches} launches of {d.name} in the "
+                                 "checkpointed render")
+        png, ckpt = os.path.join(td, "c.png"), os.path.join(td, "c.ckpt")
+        runs = []
+        for _ in range(2):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["72", "4", "--scene", "cornell_box", "-a",
+                               "1.0", "-o", png, "--device", dev.type,
+                               "--checkpoint", ckpt, "--ckpt-every", "2"])
+            with open(png, "rb") as f:
+                runs.append((rc, buf.getvalue(), f.read(),
+                             os.stat(ckpt).st_mtime_ns))
+        (rc1, log1, png1, m1), (rc2, log2, png2, m2) = runs
+        if rc1 or rc2 or "wave 4/4" not in log1 or "wave" in log2 or \
+                png1 != png2 or m1 != m2:
+            raise AssertionError(f"CLI restart: exits {rc1}, {rc2}; "
+                                 f"{log1!r} / {log2!r}")
+    out = {"phase": "checkpoint_resume", "card": smi,
+           "shape": [SHARD_H, SHARD_W, 4, DEPTH], "ckpt_every": 2,
+           "chunk_size": SHARD_CHUNK, "resumed_bitwise": True,
+           "d_launches": launches, "cli_second_run_noop": True,
+           "cli_stdout": log1.strip().splitlines()[-1]}
+    emit(out)
+    return out
+
+
+def fused_rows(checks, trains) -> list[dict]:
+    """The ``{"kernels": [...]}`` rows of D, D-noise, D' and D'-noise: the
+    launches of the sharded training step (flagship, random); ms out of L2
+    and plain ms averaged over bounces 0 and 1 of the full-size wave; the
+    bound from those bounces' data, as A's and B's rows count it; the
+    profiler's in-path ms beside them."""
+    rows = []
+    src = "rust_ray_tracer_tpu_torch/csrc/"
+    for variant in ("plain", "noise"):
+        c, tr = checks[variant], trains[variant]
+        ctx = c["ctx"]
+        d, dp = K.fused_bounce_kernel(ctx), K.fused_bounce_bwd_kernel(ctx)
+        bs = c["bounces"]
+        for k, file, line, ms, pms, nb, ops, err, extra in (
+                (d, "trace_wave.cu", 724, c["t_d"]["cold"],
+                 c["t_d"]["plain"], "d_bytes", "d_ops",
+                 max(b["state_err"] for b in bs), {}),
+                (dp, "trace_wave_bwd.cu", 802, c["t_dp"]["cold"],
+                 c["t_dp"]["plain"], "dp_bytes", "dp_ops",
+                 max(b["dst_err"] for b in bs),
+                 {"ms_with_sort_and_bwd_reduce": statistics.mean(
+                     c["t_sum"]["cold"])})):
+            bounds = [bound(b[nb], b[ops]) for b in bs]
+            row = {"name": k.name, "route": "cuda", "source": src + file,
+                   "replaces": f"rust_ray_tracer_tpu/ops/pallas_uber.py:"
+                               f"{line}",
+                   "launches": tr["launches"][k.name], "max_abs_err": err,
+                   "ms": statistics.mean(ms), "plain_ms": statistics.mean(
+                       pms),
+                   "bound_ms": statistics.mean(x[0] for x in bounds),
+                   "bound_by": bounds[0][1], "library_ms": None,
+                   "ms_in_path": tr["in_path"].get(k.name),
+                   "ms_per_bounce": ms, "bound_ms_per_bounce": [
+                       x[0] for x in bounds],
+                   "bytes_per_bounce": [b[nb] for b in bs],
+                   "operations_per_bounce": [b[ops] for b in bs], **extra}
+            if variant == "noise":
+                row["contains"] = ("TPU kernel C: rust_ray_tracer_tpu/ops/"
+                                   "pallas_bounce.py:125 _noise_row, :166 "
+                                   "_marble_row")
+            rows.append(row)
+    return rows
+
+
 def cli_phase(scene, height, spp, lo, hi) -> dict:
     """The CLI on the card: a PNG written and a finite mean radiance in
     [lo, hi]."""
     os.makedirs("output", exist_ok=True)
     out_png = os.path.join("output", f"{scene}_torch.png")
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    # a fresh checkpoint, so that every wave renders on the card
+    with tempfile.TemporaryDirectory() as td, \
+            contextlib.redirect_stdout(buf):
         rc = cli.main([str(height), str(spp), "--scene", scene, "-a", "1.0",
-                       "-o", out_png, "--device", "cuda"])
+                       "-o", out_png, "--device", "cuda", "--checkpoint",
+                       os.path.join(td, "c.ckpt")])
     line = buf.getvalue().strip()
     if rc != 0:
         raise AssertionError(f"CLI exited {rc}: {line}")
+    if f"wave {spp}/{spp}" not in line:
+        raise AssertionError(f"CLI rendered no wave: {line}")
     m = re.search(r"mean radiance ([0-9.eE+-]+|nan|inf), finite (\w+)", line)
     if not m or m.group(2) != "True":
         raise AssertionError(f"CLI image not finite: {line}")
@@ -3059,7 +3544,7 @@ def main() -> int:
                trace_wave_bwd_kernel, trace_wave_bwd_noise_kernel,
                bwd_reduce_kernel) + SPLIT_KERNELS + SPLIT_BWD_KERNELS
               + SEARCH_KERNELS + FUSED_KERNELS + FUSED_BWD_KERNELS
-              + CULL_KERNELS + SHADE_KERNELS):
+              + CULL_KERNELS + SHADE_KERNELS + D_KERNELS + D_BWD_KERNELS):
         k.load()
     emit({"phase": "build", "wall_seconds": time.perf_counter() - t0,
           "shade_max_lights": K.shade_max_lights(),
@@ -3086,6 +3571,33 @@ def main() -> int:
     rand_train = train_phase("random", rand_fwd, dev, smi,
                              ("tex_scale", "sph_c0", "sph_r", "tex_color"),
                              ("background", "camera.c2w"), ("perlin_vec",))
+
+    # ---- 7b. the per-chunk path (the sharded renderer's body): kernels D
+    # and D' against their plain versions on a full-size wave's bounces 0
+    # and 1; the sharded forward and training step of the flagship and of
+    # random on a one-rank NCCL world; two gloo ranks on the one card;
+    # checkpoint / resume and the CLI's restart
+    t0 = time.perf_counter()
+    d_checks = {"plain": fused_bounce_checks("flagship", flag_fwd),
+                "noise": fused_bounce_checks("random", rand_fwd)}
+    multihost_init(f"127.0.0.1:{free_port()}", 1, 0, "cuda")
+    try:
+        mesh = make_mesh(device=dev)
+        if mesh.backend != "nccl" or mesh.size != 1:
+            raise AssertionError(f"mesh {mesh}")
+        d_trains = {}
+        for variant, fwd, keys in (
+                ("plain", flag_fwd, ("tri_v0", "tex_color", "camera.c2w")),
+                ("noise", rand_fwd, ("tex_scale", "sph_c0", "tex_color"))):
+            label = "flagship" if variant == "plain" else "random"
+            sharded_forward(label, fwd, mesh, dev, smi)
+            d_trains[variant] = sharded_train(label, fwd, mesh, dev, smi,
+                                              keys)
+    finally:
+        torch.distributed.destroy_process_group()
+    sharded_two_ranks(dev, smi)
+    checkpoint_resume(dev, smi)
+    emit({"phase": "per_chunk_phases", "seconds": time.perf_counter() - t0})
 
     # ---- 8. final_scene (media, the split route): forward, training step -
     final_fwd = final_forward(dev, smi)
@@ -3156,7 +3668,8 @@ def main() -> int:
             + split_bwd_rows(final_tr, small_split)
             + mesh_rows(mesh_fwd, mesh_tr, small_split)
             + cull_rows(rand_e_fwd, tri)
-            + shade_rows(gltf_fwd, gltf_tr))
+            + shade_rows(gltf_fwd, gltf_tr)
+            + fused_rows(d_checks, d_trains))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

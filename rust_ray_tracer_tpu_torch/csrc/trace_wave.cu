@@ -8,6 +8,16 @@
 // pallas_shade._plane_core. Its plain PyTorch version is
 // ops/uber.py:trace_wave_plain, which follows these formulas line for line.
 //
+// The same body, trace_rays, is kernel D too: one uber bounce, replacing
+// pallas_uber.py _make_fused_kernel (:568, launched by _fused_impl, :724),
+// which the per-chunk path (ops/integrator.trace_rays, the sharded
+// renderer's body) runs once a bounce. Its plain version is
+// ops/uber.py:fused_bounce_plain. D is launched with depth 1 as a launch
+// argument, so its loop is A's, instruction for instruction, and a chain
+// of D launches gives A's bits; it writes the winners (kind, idx) for its
+// backward D' and no copy of its input state, which the caller holds. Per
+// bounce it moves A's bytes: 14 state floats in and out and 15 randoms.
+//
 // What bounds it on the card: fp32 ALU work of the triangle sweep (four
 // 10-term Plücker dots and a division per ray x triangle in every culled
 // chunk a ray's row enters), and warp divergence, because rays die at
@@ -80,13 +90,15 @@ struct Tables {
       has_checker;
 };
 
+// ``depth`` bounces of the block's 128 rays from st0 into stf, the body of
+// kernels A and D. With hist, bounce b's input state goes to hist[b]; with
+// kind_out / idx_out, its winner (kind, row; 0 on a miss) to [b].
 template <bool HAS_NOISE>
-__global__ void __launch_bounds__(ROW)
-trace_wave_kernel(const float* __restrict__ st0,
-                  const float* __restrict__ rnd, const Tables tb,
-                  float* __restrict__ stf, float* __restrict__ hist,
-                  int* __restrict__ kind_out, int* __restrict__ idx_out,
-                  int n, int depth) {
+__device__ __forceinline__ void
+trace_rays(const float* __restrict__ st0, const float* __restrict__ rnd,
+           const Tables& tb, float* __restrict__ stf,
+           float* __restrict__ hist, int* __restrict__ kind_out,
+           int* __restrict__ idx_out, int n, int depth) {
   extern __shared__ float perlin_smem[];     // PERLIN_SMEM bytes if noise
   Perlin perlin{nullptr, nullptr};
   if constexpr (HAS_NOISE) {                 // before any vote or break
@@ -106,7 +118,8 @@ trace_wave_kernel(const float* __restrict__ st0,
 
   // the backward's residuals (pallas_uber.py:887-916), when asked for:
   // bounce b's input state, and its winner (kind, row), 0 on a miss
-  const bool res = hist != nullptr && in;
+  const bool keep_st = hist != nullptr && in;
+  const bool keep_win = kind_out != nullptr && in;
   auto save_state = [&](int b) {
     const float st[14] = {o.x, o.y, o.z, d.x, d.y, d.z, time, alive,
                           L.x, L.y, L.z, beta.x, beta.y, beta.z};
@@ -119,15 +132,12 @@ trace_wave_kernel(const float* __restrict__ st0,
   };
 
   for (int b = 0; b < depth; ++b) {
-    if (res) save_state(b);
+    if (keep_st) save_state(b);
     const bool live_in = alive > 0.5f;
     if (!__syncthreads_or(live_in)) {        // the whole row is dead:
-      if (res) {                             // the state stands still
-        save_winner(b, KIND_NONE, 0);
-        for (int bb = b + 1; bb < depth; ++bb) {
-          save_state(bb);
-          save_winner(bb, KIND_NONE, 0);
-        }
+      for (int bb = b; bb < depth; ++bb) {   // the state stands still
+        if (keep_st && bb > b) save_state(bb);
+        if (keep_win) save_winner(bb, KIND_NONE, 0);
       }
       break;
     }
@@ -176,7 +186,7 @@ trace_wave_kernel(const float* __restrict__ st0,
       }
     }
     if (!live_in) {           // a dead ray passes its state through
-      if (res) save_winner(b, KIND_NONE, 0);
+      if (keep_win) save_winner(b, KIND_NONE, 0);
       continue;
     }
     for (int k = 0; k < tb.n_sph; ++k) {
@@ -237,7 +247,7 @@ trace_wave_kernel(const float* __restrict__ st0,
       }
     }
 
-    if (res) save_winner(b, best_k, best_k == KIND_NONE ? 0 : best_i);
+    if (keep_win) save_winner(b, best_k, best_k == KIND_NONE ? 0 : best_i);
 
     // ---- miss: background, the path ends -------------------------------
     if (best_k == KIND_NONE) {
@@ -288,6 +298,31 @@ trace_wave_kernel(const float* __restrict__ st0,
   for (int c = 0; c < 14; ++c) stf[(size_t)c * n + i] = out[c];
 }
 
+// Kernel A: every bounce of the wave, the residuals when hist is not null.
+template <bool HAS_NOISE>
+__global__ void __launch_bounds__(ROW)
+trace_wave_kernel(const float* __restrict__ st0,
+                  const float* __restrict__ rnd, const Tables tb,
+                  float* __restrict__ stf, float* __restrict__ hist,
+                  int* __restrict__ kind_out, int* __restrict__ idx_out,
+                  int n, int depth) {
+  trace_rays<HAS_NOISE>(st0, rnd, tb, stf, hist, kind_out, idx_out, n,
+                        depth);
+}
+
+// Kernel D: one bounce (the caller passes depth 1, a launch argument, so
+// the loop is A's instruction for instruction) of the lanes of one or
+// more whole chunks, with its winners, and no copy of the input state.
+template <bool HAS_NOISE>
+__global__ void __launch_bounds__(ROW)
+fused_bounce_kernel(const float* __restrict__ st,
+                    const float* __restrict__ rnd, const Tables tb,
+                    float* __restrict__ st2, int* __restrict__ kind_out,
+                    int* __restrict__ idx_out, int n, int depth) {
+  trace_rays<HAS_NOISE>(st, rnd, tb, st2, nullptr, kind_out, idx_out, n,
+                        depth);
+}
+
 #ifdef TRACE_WAVE_NOISE
 constexpr bool kNoise = true;    // the noise variant's library
 #else
@@ -323,6 +358,34 @@ extern "C" int trace_wave_launch(
     trace_wave_kernel<kNoise><<<blocks, ROW, kNoise ? PERLIN_SMEM : 0,
                                 static_cast<cudaStream_t>(stream)>>>(
         st0, rnd, tb, stf, hist, kind, idx, n, depth);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch kernel D on ``stream``; returns cudaGetLastError() (0 =
+// launched). st and st2 [14, n], rnd [15, n] float32 (this bounce's 9
+// uniforms and 6 normals); kind and idx [n] int32, written for every lane
+// (0 on a miss and for a dead ray). n is a multiple of 128; the tables and
+// the noise arguments are trace_wave_launch's.
+extern "C" int fused_bounce_launch(
+    const float* st, const float* rnd, const float* uni, const float* det_t,
+    const float* u_t, const float* v_t, const float* t_t,
+    const float* dbl_t, const float* sph, const float* quad,
+    const float* cab, const float* lt, float* st2, int* kind, int* idx,
+    int n, int w, int n_tri_chunks, int n_sph, int n_quad, int t_off,
+    int s_off, int q_off, int n_lights, int has_checker,
+    const float* perlin_vec, const int* perlin_perm, int has_noise,
+    void* stream) {
+  Tables tb{uni, det_t, u_t, v_t, t_t, dbl_t, sph, quad, cab, lt,
+            perlin_vec, perlin_perm, w, n_tri_chunks, n_sph, n_quad, t_off,
+            s_off, q_off, n_lights, has_checker};
+  if ((has_noise != 0) != kNoise || kind == nullptr || idx == nullptr)
+    return -1;
+  const int blocks = (n + ROW - 1) / ROW;
+  if (blocks > 0) {
+    fused_bounce_kernel<kNoise><<<blocks, ROW, kNoise ? PERLIN_SMEM : 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+        st, rnd, tb, st2, kind, idx, n, 1);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,8 +8,15 @@
 // idx), rebuilds each ray's winner row, takes jax.vjp of _tile_core and
 // adds the row and light-table cotangents into revisited blocks in grid
 // order (:979-1012). Its plain PyTorch version is
-// ops/uber.py:trace_wave_bwd_plain. The adjoint below runs the device
-// functions of trace_bwd_common.cuh (update_found_vjp, update_miss_vjp,
+// ops/uber.py:trace_wave_bwd_plain. The same body, trace_rays_bwd, is
+// kernel D' too: the adjoint of one uber bounce, replacing pallas_uber.py
+// _make_fused_bwd_kernel (:619, launched by _fused_bwd, :802), from kernel
+// D's input state and winners; its plain version is
+// ops/uber.py:fused_bounce_bwd_plain. D' is launched with depth 1 as a
+// launch argument and votes on B's 1024-ray tile; its row cotangents and
+// light-table partials are summed by bwd_reduce, as B's are. The adjoint
+// below runs the device functions of trace_bwd_common.cuh
+// (update_found_vjp, update_miss_vjp,
 // shade_fwd + shade_vjp, hit_attrs_vjp), the per-ray transliteration of
 // ops/{hit,shade,bounce}_core.py's *_vjp functions, winner's kind and
 // material only; the split route's backward kernels J' and H' (split.cu)
@@ -70,16 +77,17 @@ struct BwdTables {
   int w, n_lights, has_checker, p_rows;
 };
 
+// The adjoint of ``depth`` bounces of the block's 128 rays replayed from
+// the residuals, the body of kernels B and D': dst, each (bounce, ray)'s
+// winner-row cotangent and key, and the block's light-table partial.
 template <bool HAS_NOISE>
-__global__ void __launch_bounds__(ROW)
-trace_wave_bwd_kernel(const float* __restrict__ hist,
-                      const float* __restrict__ rnd,
-                      const int* __restrict__ kind,
-                      const int* __restrict__ idx,
-                      const float* __restrict__ g_in, const BwdTables tb,
-                      float* __restrict__ dst, float* __restrict__ contrib,
-                      int* __restrict__ keys, float* __restrict__ dlt_part,
-                      int n, int depth) {
+__device__ __forceinline__ void
+trace_rays_bwd(const float* __restrict__ hist, const float* __restrict__ rnd,
+               const int* __restrict__ kind, const int* __restrict__ idx,
+               const float* __restrict__ g_in, const BwdTables& tb,
+               float* __restrict__ dst, float* __restrict__ contrib,
+               int* __restrict__ keys, float* __restrict__ dlt_part, int n,
+               int depth) {
   extern __shared__ float perlin_smem[];     // PERLIN_SMEM bytes if noise
   Perlin perlin{nullptr, nullptr};
   if constexpr (HAS_NOISE) {                 // before any vote or continue
@@ -278,6 +286,38 @@ trace_wave_bwd_kernel(const float* __restrict__ hist,
   }
 }
 
+// Kernel B: the adjoint of every bounce of the wave.
+template <bool HAS_NOISE>
+__global__ void __launch_bounds__(ROW)
+trace_wave_bwd_kernel(const float* __restrict__ hist,
+                      const float* __restrict__ rnd,
+                      const int* __restrict__ kind,
+                      const int* __restrict__ idx,
+                      const float* __restrict__ g_in, const BwdTables tb,
+                      float* __restrict__ dst, float* __restrict__ contrib,
+                      int* __restrict__ keys, float* __restrict__ dlt_part,
+                      int n, int depth) {
+  trace_rays_bwd<HAS_NOISE>(hist, rnd, kind, idx, g_in, tb, dst, contrib,
+                            keys, dlt_part, n, depth);
+}
+
+// Kernel D': the adjoint of one bounce (the caller passes depth 1, a
+// launch argument, so the body is B's instruction for instruction) from
+// kernel D's input state ``st`` and winners, voting on B's 1024-ray tile.
+template <bool HAS_NOISE>
+__global__ void __launch_bounds__(ROW)
+fused_bounce_bwd_kernel(const float* __restrict__ st,
+                        const float* __restrict__ rnd,
+                        const int* __restrict__ kind,
+                        const int* __restrict__ idx,
+                        const float* __restrict__ g_in, const BwdTables tb,
+                        float* __restrict__ dst, float* __restrict__ contrib,
+                        int* __restrict__ keys, float* __restrict__ dlt_part,
+                        int n, int depth) {
+  trace_rays_bwd<HAS_NOISE>(st, rnd, kind, idx, g_in, tb, dst, contrib,
+                            keys, dlt_part, n, depth);
+}
+
 // Fixed-order sums of the winner-row cotangents. The contributions in the
 // order of ``perm`` (the stable sort of the keys; row p's segment is
 // offs[p]..offs[p+1]) are cut at the multiples of ``piece``, so row p
@@ -399,6 +439,32 @@ extern "C" int trace_wave_bwd_launch(
     trace_wave_bwd_kernel<false><<<blocks, ROW, 0, s>>>(
         hist, rnd, kind, idx, g, tb, dst, contrib, keys, dlt_part, n,
         depth);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch kernel D' on ``stream``; returns cudaGetLastError() (0 =
+// launched). st (kernel D's input), g and dst [14, n], rnd [15, n]
+// float32; kind, idx and keys [n] int32; contrib [n, w]; dlt_part
+// [n / 128, (n_lights + 1) * 14]. n is a multiple of 1024; has_noise picks
+// the variant, as in trace_wave_bwd_launch.
+extern "C" int fused_bounce_bwd_launch(
+    const float* st, const float* rnd, const int* kind, const int* idx,
+    const float* g, const float* uni, const float* lt, float* dst,
+    float* contrib, int* keys, float* dlt_part, int n, int w, int p_rows,
+    int n_lights, int has_checker, const float* perlin_vec,
+    const int* perlin_perm, int has_noise, void* stream) {
+  if (n % TILE != 0 || (n_lights + 1) * LT_COLS > MAX_LT) return -1;
+  BwdTables tb{uni, lt, perlin_vec, perlin_perm, w, n_lights, has_checker,
+               p_rows};
+  const int blocks = n / ROW;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (blocks > 0 && has_noise) {
+    fused_bounce_bwd_kernel<true><<<blocks, ROW, PERLIN_SMEM, s>>>(
+        st, rnd, kind, idx, g, tb, dst, contrib, keys, dlt_part, n, 1);
+  } else if (blocks > 0) {
+    fused_bounce_bwd_kernel<false><<<blocks, ROW, 0, s>>>(
+        st, rnd, kind, idx, g, tb, dst, contrib, keys, dlt_part, n, 1);
   }
   return static_cast<int>(cudaGetLastError());
 }

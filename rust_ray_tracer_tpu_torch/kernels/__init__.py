@@ -29,6 +29,17 @@ Kernels (each wrapper counts its launches in ``launches``):
     ``pallas_bounce._noise_row`` / ``_marble_row``) and its adjoint.
     :func:`trace_kernel` and :func:`trace_bwd_kernel` pick the variant for
     a ``TraceCtx``; each wrapper refuses a context of the other kind;
+  * ``bounce_uber_kernel`` and ``bounce_uber_noise_kernel`` (names
+    ``fused_bounce``, ``fused_bounce_noise``) — kernel D, the same body as
+    A launched for one bounce with its winners (replaces ``pallas_uber.py``
+    ``_make_fused_kernel``; plain version ``ops/uber.fused_bounce_plain``),
+    in A's libraries; ``bounce_uber_bwd_kernel`` and
+    ``bounce_uber_bwd_noise_kernel`` (``fused_bounce_bwd``,
+    ``fused_bounce_bwd_noise``) — kernel D', B's body for one bounce
+    (replaces ``_make_fused_bwd_kernel``; plain version
+    ``ops/uber.fused_bounce_bwd_plain``), whose sums ``bwd_reduce_kernel``
+    takes. :func:`fused_bounce_kernel` and :func:`fused_bounce_bwd_kernel`
+    pick the variant; :func:`fused_bounce_backward` chains D' and B';
   * the split route's kernels, ``csrc/split.cu`` (library ``split``):
     ``quad_search_kernel`` (TPU kernel O, ``pallas_quad.py`` ``_kernel``;
     plain version ``ops/quad._quad_candidates``),
@@ -262,6 +273,53 @@ def _perlin_args(ctx, dev, noise: bool):
     return _ptr(vec), _ptr(perm), 1
 
 
+def _check_trace(kernel, st, st_name, rnd, rnd_lead, ctx):
+    """The device of a launch of kernel A or D after checking the state
+    planes ``st`` [14, N] (N % 128 == 0), the randoms ``rnd`` [*rnd_lead,
+    N] and the tables of ``ctx`` (an ``ops.uber.TraceCtx``)."""
+    dev = st.device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel.name} kernel needs CUDA tensors, got "
+                         f"{dev}")
+    n = st.shape[1] if st.dim() == 2 else -1
+    if n < 0 or n % 128:
+        raise ValueError(f"{st_name} must be [{N_STATE}, N] with N % 128 == "
+                         f"0, got {tuple(st.shape)}")
+    _check_variant(kernel, ctx)
+    w_min = _attr_cols(ctx)
+    _check(st_name, st, dev, (N_STATE, n))
+    _check("rnd", rnd, dev, tuple(rnd_lead) + (n,))
+    _check("uni", ctx.uni, dev)
+    if ctx.uni.dim() != 2 or ctx.uni.shape[1] < w_min:
+        raise ValueError(f"uni must be [P, >= {w_min}], got "
+                         f"{tuple(ctx.uni.shape)}")
+    tp = ctx.det_t.shape[0]
+    for nm in ("det_t", "u_t", "v_t", "t_t"):
+        _check(nm, getattr(ctx, nm), dev, (tp, 10))
+    _check("dbl_t", ctx.dbl_t, dev, (tp, 1))
+    if ctx.n_tri_chunks * TCC > tp:
+        raise ValueError("triangle tables shorter than the chunk count")
+    _check("sph", ctx.sph, dev, (ctx.sph.shape[0], 9))
+    _check("quad", ctx.quad, dev, (ctx.quad.shape[0], 9))
+    _check("cab", ctx.cab, dev, (max(1, -(-tp // TCC)), 8))
+    _check("lt", ctx.lt, dev, (ctx.n_lights + 1, LT_COLS))
+    return dev
+
+
+def _trace_tables(ctx):
+    """(table pointers, counts) of a launch of kernel A or D: uni, the
+    search tables, cab and lt; then w, the triangle chunks, the sphere and
+    quad rows, the three offsets, the lights and the checker flag."""
+    tables = tuple(_ptr(x) for x in (ctx.uni, ctx.det_t, ctx.u_t, ctx.v_t,
+                                     ctx.t_t, ctx.dbl_t, ctx.sph, ctx.quad,
+                                     ctx.cab, ctx.lt))
+    counts = (ctx.uni.shape[1], ctx.n_tri_chunks,
+              ctx.sph.shape[0] if ctx.n_sph else 0,
+              ctx.quad.shape[0] if ctx.n_quad else 0, ctx.t_off, ctx.s_off,
+              ctx.q_off, ctx.n_lights, int(ctx.has_checker))
+    return tables, counts
+
+
 def _check_variant(kernel, ctx):
     if ctx.has_noise != kernel.noise:
         which = "with" if kernel.noise else "without"
@@ -286,32 +344,8 @@ class TraceWaveKernel(_Kernel):
         (an ``ops.uber.TraceCtx``), all on one CUDA device; with
         ``residuals`` also (hist [depth, 14, N], kind, idx [depth, N]
         int32), as ``ops.uber.trace_wave_plain`` returns them."""
-        dev = st0.device
-        if dev.type != "cuda":
-            raise ValueError(f"trace_wave kernel needs CUDA tensors, got "
-                             f"{dev}")
-        n = st0.shape[1] if st0.dim() == 2 else -1
-        if n < 0 or n % 128:
-            raise ValueError(f"st0 must be [{N_STATE}, N] with N % 128 == 0, "
-                             f"got {tuple(st0.shape)}")
-        _check_variant(self, ctx)
-        w_min = _attr_cols(ctx)
-        _check("st0", st0, dev, (N_STATE, n))
-        _check("rnd", rnd, dev, (depth, N_RND, n))
-        _check("uni", ctx.uni, dev)
-        if ctx.uni.dim() != 2 or ctx.uni.shape[1] < w_min:
-            raise ValueError(f"uni must be [P, >= {w_min}], got "
-                             f"{tuple(ctx.uni.shape)}")
-        tp = ctx.det_t.shape[0]
-        for nm in ("det_t", "u_t", "v_t", "t_t"):
-            _check(nm, getattr(ctx, nm), dev, (tp, 10))
-        _check("dbl_t", ctx.dbl_t, dev, (tp, 1))
-        if ctx.n_tri_chunks * TCC > tp:
-            raise ValueError("triangle tables shorter than the chunk count")
-        _check("sph", ctx.sph, dev, (ctx.sph.shape[0], 9))
-        _check("quad", ctx.quad, dev, (ctx.quad.shape[0], 9))
-        _check("cab", ctx.cab, dev, (max(1, -(-tp // TCC)), 8))
-        _check("lt", ctx.lt, dev, (ctx.n_lights + 1, LT_COLS))
+        dev = _check_trace(self, st0, "st0", rnd, (depth, N_RND), ctx)
+        n = st0.shape[1]
         perlin = _perlin_args(ctx, dev, self.noise)
         self.load()
         stf = torch.empty_like(st0)
@@ -322,16 +356,12 @@ class TraceWaveKernel(_Kernel):
                                device=dev)
             kind = torch.empty((depth, n), dtype=torch.int32, device=dev)
             idx = torch.empty_like(kind)
+        tables, counts = _trace_tables(ctx)
         self._launch(
-            dev, _ptr(st0), _ptr(rnd), _ptr(ctx.uni), _ptr(ctx.det_t),
-            _ptr(ctx.u_t), _ptr(ctx.v_t), _ptr(ctx.t_t), _ptr(ctx.dbl_t),
-            _ptr(ctx.sph), _ptr(ctx.quad), _ptr(ctx.cab), _ptr(ctx.lt),
-            _ptr(stf), _ptr(hist) if residuals else null,
+            dev, _ptr(st0), _ptr(rnd), *tables, _ptr(stf),
+            _ptr(hist) if residuals else null,
             _ptr(kind) if residuals else null,
-            _ptr(idx) if residuals else null, n, depth, ctx.uni.shape[1],
-            ctx.n_tri_chunks, ctx.sph.shape[0] if ctx.n_sph else 0,
-            ctx.quad.shape[0] if ctx.n_quad else 0, ctx.t_off, ctx.s_off,
-            ctx.q_off, ctx.n_lights, int(ctx.has_checker), *perlin)
+            _ptr(idx) if residuals else null, n, depth, *counts, *perlin)
         return (stf, hist, kind, idx) if residuals else stf
 
 
@@ -348,6 +378,37 @@ trace_wave_kernel = TraceWaveKernel()
 trace_wave_noise_kernel = TraceWaveNoiseKernel()
 
 
+def _check_trace_bwd(kernel, st, st_name, lead, rnd, kind, idx, ctx, g):
+    """(device, N, light-table entries) of a launch of kernel B or D'
+    after checking the cotangent ``g`` [14, N] (N % 1024 == 0), the input
+    states ``st`` [*lead, 14, N], randoms [*lead, 15, N], winners [*lead,
+    N] int32 and the tables of ``ctx``."""
+    dev = g.device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel.name} kernel needs CUDA tensors, got "
+                         f"{dev}")
+    n = g.shape[1] if g.dim() == 2 else -1
+    if n < 0 or n % TILE:
+        raise ValueError(f"g must be [{N_STATE}, N] with N % {TILE} == 0, "
+                         f"got {tuple(g.shape)}")
+    ltn = (ctx.n_lights + 1) * LT_COLS
+    if ltn > 128:
+        raise ValueError(f"{ctx.n_lights} lights exceed the kernel's light "
+                         "table")
+    lead = tuple(lead)
+    _check("g", g, dev, (N_STATE, n))
+    _check(st_name, st, dev, lead + (N_STATE, n))
+    _check("rnd", rnd, dev, lead + (N_RND, n))
+    _check("kind", kind, dev, lead + (n,), torch.int32)
+    _check("idx", idx, dev, lead + (n,), torch.int32)
+    _check_variant(kernel, ctx)
+    _check("uni", ctx.uni, dev)
+    if ctx.uni.shape[1] < _attr_cols(ctx):
+        raise ValueError(f"uni has {ctx.uni.shape[1]} columns")
+    _check("lt", ctx.lt, dev, (ctx.n_lights + 1, LT_COLS))
+    return dev, n, ltn
+
+
 class TraceWaveBwdKernel(_Kernel):
     """ctypes wrapper of ``trace_wave_bwd_launch`` (kernel B), the variant
     without noise: the adjoint of every bounce of a wave, replayed from
@@ -362,30 +423,10 @@ class TraceWaveBwdKernel(_Kernel):
     noise = False
 
     def __call__(self, hist, rnd, kind, idx, ctx, g):
-        dev = g.device
-        if dev.type != "cuda":
-            raise ValueError(f"trace_wave_bwd kernel needs CUDA tensors, "
-                             f"got {dev}")
-        n = g.shape[1] if g.dim() == 2 else -1
-        if n < 0 or n % TILE:
-            raise ValueError(f"g must be [{N_STATE}, N] with N % {TILE} == 0,"
-                             f" got {tuple(g.shape)}")
         depth = hist.shape[0]
+        dev, n, ltn = _check_trace_bwd(self, hist, "hist", (depth,), rnd,
+                                       kind, idx, ctx, g)
         p_rows, w = ctx.uni.shape
-        ltn = (ctx.n_lights + 1) * LT_COLS
-        if ltn > 128:
-            raise ValueError(f"{ctx.n_lights} lights exceed the kernel's "
-                             "light table")
-        _check("g", g, dev, (N_STATE, n))
-        _check("hist", hist, dev, (depth, N_STATE, n))
-        _check("rnd", rnd, dev, (depth, N_RND, n))
-        _check("kind", kind, dev, (depth, n), torch.int32)
-        _check("idx", idx, dev, (depth, n), torch.int32)
-        _check_variant(self, ctx)
-        _check("uni", ctx.uni, dev)
-        if w < _attr_cols(ctx):
-            raise ValueError(f"uni has {w} columns")
-        _check("lt", ctx.lt, dev, (ctx.n_lights + 1, LT_COLS))
         perlin = _perlin_args(ctx, dev, self.noise)
         self.load()
         dst = torch.empty_like(g)
@@ -405,6 +446,89 @@ class TraceWaveBwdNoiseKernel(TraceWaveBwdKernel):
 
     name = "trace_wave_bwd_noise"
     noise = True
+
+
+class FusedBounceKernel(_Kernel):
+    """ctypes wrapper of ``fused_bounce_launch`` (kernel D), the variant
+    without noise: one uber bounce of the lanes of one or more whole
+    chunks, with its winners."""
+
+    name = "fused_bounce"
+    library = "trace_wave"
+    entry = "fused_bounce_launch"
+    argtypes = (_P,) * 15 + (_I,) * 10 + (_P, _P, _I)
+    noise = False
+
+    def __call__(self, st: torch.Tensor, rnd_b: torch.Tensor, ctx):
+        """(st2 [14, N], kind, idx [N] int32) of one bounce from ``st``
+        [14, N] with this bounce's randoms ``rnd_b`` [15, N] over the
+        tables of ``ctx``, all on one CUDA device, as
+        ``ops.uber.fused_bounce_plain`` returns them."""
+        dev = _check_trace(self, st, "st", rnd_b, (N_RND,), ctx)
+        n = st.shape[1]
+        perlin = _perlin_args(ctx, dev, self.noise)
+        self.load()
+        st2 = torch.empty_like(st)
+        kind = torch.empty((n,), dtype=torch.int32, device=dev)
+        idx = torch.empty_like(kind)
+        tables, counts = _trace_tables(ctx)
+        self._launch(dev, _ptr(st), _ptr(rnd_b), *tables, _ptr(st2),
+                     _ptr(kind), _ptr(idx), n, *counts, *perlin)
+        return st2, kind, idx
+
+
+class FusedBounceNoiseKernel(FusedBounceKernel):
+    """Kernel D's variant with the marble noise of TPU kernel C: A's
+    noise library, the same entry point."""
+
+    name = "fused_bounce_noise"
+    library = "trace_wave_noise"
+    noise = True
+
+
+class FusedBounceBwdKernel(_Kernel):
+    """ctypes wrapper of ``fused_bounce_bwd_launch`` (kernel D'), the
+    variant without noise: the adjoint of one uber bounce from kernel D's
+    input state and winners. Returns dst [14, N], the per-ray winner-row
+    cotangents ``contrib`` [N, W] with their rows ``keys`` [N] int32 (P
+    where the ray found none), and the per-block light-table partials
+    [N / 128, (n_lights + 1) * 14], which ``bwd_reduce_kernel`` sums."""
+
+    name = "fused_bounce_bwd"
+    library = "trace_wave_bwd"
+    entry = "fused_bounce_bwd_launch"
+    argtypes = (_P,) * 11 + (_I,) * 5 + (_P, _P, _I)
+    noise = False
+
+    def __call__(self, st, rnd_b, kind, idx, ctx, g):
+        dev, n, ltn = _check_trace_bwd(self, st, "st", (), rnd_b, kind, idx,
+                                       ctx, g)
+        p_rows, w = ctx.uni.shape
+        perlin = _perlin_args(ctx, dev, self.noise)
+        self.load()
+        dst = torch.empty_like(g)
+        contrib = torch.empty((n, w), dtype=torch.float32, device=dev)
+        keys = torch.empty((n,), dtype=torch.int32, device=dev)
+        part = torch.empty((n // 128, ltn), dtype=torch.float32, device=dev)
+        self._launch(dev, _ptr(st), _ptr(rnd_b), _ptr(kind), _ptr(idx),
+                     _ptr(g), _ptr(ctx.uni), _ptr(ctx.lt), _ptr(dst),
+                     _ptr(contrib), _ptr(keys), _ptr(part), n, w, p_rows,
+                     ctx.n_lights, int(ctx.has_checker), *perlin)
+        return dst, contrib, keys, part
+
+
+class FusedBounceBwdNoiseKernel(FusedBounceBwdKernel):
+    """Kernel D''s variant with the adjoint of the marble noise (TPU
+    kernel C)."""
+
+    name = "fused_bounce_bwd_noise"
+    noise = True
+
+
+bounce_uber_kernel = FusedBounceKernel()
+bounce_uber_noise_kernel = FusedBounceNoiseKernel()
+bounce_uber_bwd_kernel = FusedBounceBwdKernel()
+bounce_uber_bwd_noise_kernel = FusedBounceBwdNoiseKernel()
 
 
 PIECE = 1024     # contributions one reduction block sums at most
@@ -988,6 +1112,17 @@ def trace_bwd_kernel(ctx) -> TraceWaveBwdKernel:
             else trace_wave_bwd_kernel)
 
 
+def fused_bounce_kernel(ctx) -> FusedBounceKernel:
+    """Kernel D's variant for ``ctx``: with marble noise or without."""
+    return bounce_uber_noise_kernel if ctx.has_noise else bounce_uber_kernel
+
+
+def fused_bounce_bwd_kernel(ctx) -> FusedBounceBwdKernel:
+    """Kernel D''s variant for ``ctx``: with marble noise or without."""
+    return (bounce_uber_bwd_noise_kernel if ctx.has_noise
+            else bounce_uber_bwd_kernel)
+
+
 def reduce_order(keys: torch.Tensor, p_rows: int):
     """(perm int32, offs int32 [p_rows + 1]): the (bounce, ray) pairs in
     the stable order of their winner rows, and each row's segment. Sorting
@@ -1006,6 +1141,18 @@ def trace_backward(hist, rnd, kind, idx, ctx, g):
     ``ops.uber.trace_wave_bwd_plain``."""
     dst, contrib, keys, part = trace_bwd_kernel(ctx)(hist, rnd, kind, idx,
                                                     ctx, g)
+    perm, offs = reduce_order(keys, ctx.uni.shape[0])
+    duni, dlt = bwd_reduce_kernel(contrib, perm, offs, part)
+    return dst, duni, dlt.reshape(ctx.lt.shape)
+
+
+def fused_bounce_backward(st, rnd_b, kind, idx, ctx, g):
+    """One uber bounce's backward on the card: kernel D' (its variant for
+    ``ctx``), the stable sort of its row keys, then ``bwd_reduce``.
+    Returns (dst [14, N], duni like ``ctx.uni``, dlt like ``ctx.lt``), as
+    ``ops.uber.fused_bounce_bwd_plain``."""
+    dst, contrib, keys, part = fused_bounce_bwd_kernel(ctx)(
+        st, rnd_b, kind, idx, ctx, g)
     perm, offs = reduce_order(keys, ctx.uni.shape[0])
     duni, dlt = bwd_reduce_kernel(contrib, perm, offs, part)
     return dst, duni, dlt.reshape(ctx.lt.shape)

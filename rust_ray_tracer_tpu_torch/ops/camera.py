@@ -147,12 +147,14 @@ def camera_rays_for_chunks(cam: CameraData, wkey: torch.Tensor,
 
     Jitter and shutter time come from keys folded with the GLOBAL chunk
     id, so any partition of chunks over loop steps gives the same rays.
-    Positions past the image clamp to the last pixel; callers crop them.
+    Positions past the image clamp to the last pixel, and a chunk id past
+    the last chunk (the sharded renderer's pad chunks) reads the last
+    chunk's pixels, as JAX's clamped gather does; callers crop them.
     """
     device = wkey.device
     table = torch.from_numpy(
         _pixel_order_chunked(width, height, chunk_size).astype(np.int64))
-    pix = table.to(device)[chunk_ids]
+    pix = table.to(device)[chunk_ids.clamp(max=table.shape[0] - 1)]
     yy = torch.div(pix, width, rounding_mode="floor").to(torch.float32)
     xx = torch.remainder(pix, width).to(torch.float32)
     ckey = rngu.fold_in(wkey, chunk_ids)

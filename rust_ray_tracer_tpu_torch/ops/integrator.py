@@ -11,8 +11,8 @@ routes, chosen per scene as the JAX package chooses on the TPU:
     the autograd graph, and when a scene leaf requires grad each wave's
     trace runs as :class:`ops.uber.TraceWave`, whose backward is the
     trace's adjoint (a second kernel on the card);
-  * the split route (:func:`trace_wave_split`) for the others it can
-    take (:func:`split_reason`): media, image textures, noise beside
+  * the split route (:func:`render_chunk` over a wave's chunks) for the
+    others it can take (:func:`split_reason`): media, image textures, noise beside
     checker textures, meshes and other tables past the trace kernel's
     4,096 rows. It is ``trace_rays`` -> ``_bounce``
     (``integrator.py:63-132``), run on the whole wave at once. Each
@@ -212,16 +212,68 @@ def update_plain(st, hit, p, sc, background):
     return torch.cat([o, d, st[6:7], alive2.to(st.dtype)[None], L, beta])
 
 
-def trace_wave_split(scene, st0, rnd, depth: int, tables: SplitTables,
-                     chunk=None):
-    """``depth`` bounces of every ray of a wave on the split route: the
-    final state [14, N] of ``st0`` [14, N] with randoms ``rnd``
-    [depth, 15 + M, N] (``ops/uber.wave_inputs``), in chunks of ``chunk``
-    rays (None: one chunk)."""
-    st = st0
-    for b in range(depth):
-        st = bounce_split(scene, st, rnd[b], tables, chunk)
-    return st
+def trace_prep(scene):
+    """The tables :func:`trace_rays` renders ``scene`` with, built once
+    per render (inside the autograd graph): ``ops/uber.make_ctx``'s on
+    the trace kernel's scenes, else :func:`make_split_tables`'s."""
+    if uber.uber_eligible(scene):
+        return uber.make_ctx(scene)
+    return make_split_tables(scene)
+
+
+def trace_rays(scene, o, d, time, keys, depth: int = MAX_DEPTH, prep=None):
+    """Trace the rays of one or more whole chunks to completion: radiance
+    [K, C, 3] of the camera rays ``o``, ``d`` [K, C, 3], ``time`` [K, C]
+    whose chunks' CHUNK-stream keys are ``keys`` [K, 2].
+
+    Counterpart of ``trace_rays`` (``integrator.py:358-393``) and, on the
+    trace kernel's scenes, ``_trace_rays_uber`` (``:303-355``): each
+    chunk's ``depth`` bounces of randoms are drawn at once, keyed by
+    (chunk key, bounce) as JAX draws them (its ``RRT_UBER_XRND=1`` hoist,
+    bitwise the per-bounce draw), so the image depends only on (seed,
+    chunk_size). Uber-eligible scenes run ``depth`` launches of TPU kernel
+    D (``ops/uber.bounce_uber``) over all the chunks' lanes, each chunk
+    padded to a multiple of 1024 dead lanes; the others run the split
+    route's :func:`bounce_split` on the same lanes unpadded, as JAX's
+    ``trace_rays`` falls back to ``_bounce``. JAX's chunk-level
+    ``lax.cond(any(alive))`` (``:132``) is the identity on a dead chunk:
+    D passes dead rows through, so no host sync decides it. ``prep``:
+    :func:`trace_prep`'s tables (built here if None)."""
+    if prep is None:
+        prep = trace_prep(scene)
+    k, c = o.shape[:2]
+    st = uber.chunk_state(o, d, time)                        # [14, K, Cp]
+    if isinstance(prep, uber.TraceCtx):
+        cp = st.shape[-1]
+        rnd = uber.chunk_randoms(scene, keys, c, depth, cp)
+        st = st.reshape(uber.N_STATE, -1)
+        for b in range(depth):
+            st = uber.bounce_uber(scene, rnd[b], st, prep)
+        L = st[8:11].reshape(3, k, cp)[:, :, :c]
+    else:
+        st = st[:, :, :c].reshape(uber.N_STATE, -1)
+        rnd = uber.chunk_randoms(scene, keys, c, depth)
+        for b in range(depth):
+            st = bounce_split(scene, st, rnd[b], prep, c)
+        L = st[8:11].reshape(3, k, c)
+    return L.permute(1, 2, 0)
+
+
+def render_chunk(scene, wkey, chunk_ids, chunk_size: int, width: int,
+                 height: int, depth: int = MAX_DEPTH, prep=None):
+    """Radiance [len(chunk_ids), chunk_size, 3] of the global pixel
+    chunks ``chunk_ids`` [K] of one sample wave — the unit of work of the
+    sharded renderer (``integrator.render_chunk``, ``:529-542``). All
+    randomness derives from (wave key, global chunk id), so which rank or
+    call computes a chunk never changes its value; ids past the last chunk
+    (the sharded renderer's pad) render the last chunk's pixels with their
+    own keys. ``prep``: :func:`trace_prep`'s tables."""
+    chunk_ids = torch.as_tensor(chunk_ids, dtype=torch.int64,
+                                device=wkey.device).reshape(-1)
+    o, d, t, ckey = cam_ops.camera_rays_for_chunks(
+        scene.camera, wkey, chunk_ids, chunk_size, width, height)
+    return trace_rays(scene, o, d, t, rngu.stream(ckey, rngu.CHUNK), depth,
+                      prep)
 
 
 def render_waves(scene, width: int, height: int, key, wave_start: int,
@@ -240,26 +292,19 @@ def render_waves(scene, width: int, height: int, key, wave_start: int,
             "compact wavefront not ported yet (ROADMAP queue 1 item 14)")
     n = width * height
     key = key.to(scene.device)
-    if uber.uber_eligible(scene):
-        ctx = uber.make_ctx(scene)
-
+    prep = trace_prep(scene)
+    if isinstance(prep, uber.TraceCtx):
         def wave_rows(wkey):
             return uber.trace_wave_uber(scene, wkey, width, height, depth,
-                                        chunk_size, ctx=ctx)
+                                        chunk_size, ctx=prep)
     else:
-        tables = make_split_tables(scene)
+        k = -(-n // chunk_size)
+        ids = torch.arange(k, device=scene.device)
 
         def wave_rows(wkey):
-            # the split route needs no pad lanes: keep each chunk's own
-            st0, rnd = uber.wave_inputs(scene, wkey, width, height, depth,
-                                        chunk_size)
-            k = -(-n // chunk_size)
-            st0 = st0.reshape(uber.N_STATE, k, -1)[:, :, :chunk_size]
-            rnd = rnd.reshape(depth, rnd.shape[1], k, -1)[..., :chunk_size]
-            stf = trace_wave_split(scene, st0.reshape(uber.N_STATE, -1),
-                                   rnd.reshape(depth, rnd.shape[1], -1),
-                                   depth, tables, chunk_size)
-            return stf[8:11].T
+            # the split route needs no pad lanes: each chunk keeps its own
+            return render_chunk(scene, wkey, ids, chunk_size, width, height,
+                                depth, prep).reshape(-1, 3)
 
     acc = acc0
     if acc is None:

@@ -26,7 +26,14 @@ Counterpart of ``rust_ray_tracer_tpu/ops/pallas_uber.py``:
     tensors take the plain versions, CUDA tensors the kernels (no
     fallback);
   * :func:`trace_wave_uber` — one sample wave with the per-chunk keying
-    and padding of ``:1151-1218``.
+    and padding of ``:1151-1218``;
+  * :func:`fused_bounce_plain` and :func:`fused_bounce_bwd_plain` — one
+    bounce of the trace and of its backward: the plain versions of TPU
+    kernels D and D' (``_make_fused_kernel``, ``:568``, and
+    ``_make_fused_bwd_kernel``, ``:619``); :class:`FusedBounce`, the
+    ``custom_vjp`` of ``_fused_call`` (``:766``); :func:`bounce_uber`, the
+    per-chunk path's bounce (``:1449``), with its dispatcher to the
+    kernels.
 
 State layout: structure of arrays ``[N_STATE, N]`` float32 with planes
 o(3) d(3) time alive L(3) beta(3) — a reshape of JAX's ``[14, CR, 128]``
@@ -544,34 +551,155 @@ def trace_wave(st0, rnd, ctx: TraceCtx, depth: int):
     return _trace_forward(st0, rnd, ctx, depth, False)
 
 
-def wave_inputs(scene, wkey, width: int, height: int, depth: int,
-                chunk_size: int):
-    """(st0 [N_STATE, N], rnd [depth, 15 + M, N]) of one sample wave, N =
-    n_chunks * Cp: camera rays and randoms keyed by (wave key, global
-    chunk id, bounce) exactly as the JAX package draws them
-    (``integrator._wave_bounce_randoms``, ``integrator.py:396-422``): per
-    bounce 9 uniforms (SCATTER), 6 normals (FUZZ), then for a scene with
-    M media M uniforms (MEDIUM) — none for the trace kernel's scenes."""
-    n = width * height
-    n_chunks = -(-n // chunk_size)
-    dev = wkey.device
-    ids = torch.arange(n_chunks, device=dev)
-    o, d, t, ckey = cam_ops.camera_rays_for_chunks(
-        scene.camera, wkey, ids, chunk_size, width, height)
-    st = pack_state(o, d, t, torch.zeros_like(o), torch.ones_like(o),
-                    torch.ones_like(t, dtype=torch.bool))   # [14, K, Cp]
-    ck = rngu.stream(ckey, rngu.CHUNK)                       # [K, 2]
-    bk = rngu.bounce_key(ck[:, None, :], torch.arange(depth, device=dev))
+def chunk_randoms(scene, keys, chunk_size: int, depth: int,
+                  lanes: int | None = None):
+    """[depth, 15 + M, K * lanes] randoms of the chunks whose CHUNK-stream
+    keys are ``keys`` [K, 2], chunk-major, each chunk padded from
+    ``chunk_size`` to ``lanes`` (default: no padding) with zeros: per
+    bounce 9 uniforms (SCATTER), 6 normals (FUZZ), then for a scene with M
+    media M uniforms (MEDIUM). Every chunk's ``depth`` bounces are drawn
+    at once, keyed by (chunk key, bounce) exactly as the JAX package draws
+    them per bounce (``integrator._wave_bounce_randoms``,
+    ``integrator.py:396-422``; ``pallas_uber.bounce_uber``)."""
+    lanes = chunk_size if lanes is None else lanes
+    bk = rngu.bounce_key(keys[:, None, :],
+                         torch.arange(depth, device=keys.device))
     cols = [rngu.uniform(rngu.stream(bk, rngu.SCATTER), (chunk_size, 9)),
             rngu.normal(rngu.stream(bk, rngu.FUZZ), (chunk_size, 6))]
     if scene.n_media:
         cols.append(rngu.uniform(rngu.stream(bk, rngu.MEDIUM),
                                  (chunk_size, scene.n_media)))
     rnd = torch.nn.functional.pad(                           # [D, R, K, Cp]
-        torch.cat(cols, dim=-1).permute(1, 3, 0, 2),
-        (0, st.shape[-1] - chunk_size))
-    return (st.reshape(N_STATE, -1),
-            rnd.reshape(depth, rnd.shape[1], -1).contiguous())
+        torch.cat(cols, dim=-1).permute(1, 3, 0, 2), (0, lanes - chunk_size))
+    return rnd.reshape(depth, rnd.shape[1], -1).contiguous()
+
+
+def chunk_state(o, d, t):
+    """[N_STATE, K, Cp] primary state of the camera rays ``o``, ``d`` [K,
+    C, 3], ``t`` [K, C]: L 0, beta 1, alive; each chunk padded to a
+    multiple of TILE lanes with dead ones."""
+    return pack_state(o, d, t, torch.zeros_like(o), torch.ones_like(o),
+                      torch.ones_like(t, dtype=torch.bool))
+
+
+def wave_inputs(scene, wkey, width: int, height: int, depth: int,
+                chunk_size: int):
+    """(st0 [N_STATE, N], rnd [depth, 15 + M, N]) of one sample wave, N =
+    n_chunks * Cp: camera rays and randoms keyed by (wave key, global
+    chunk id, bounce) exactly as the JAX package draws them
+    (:func:`chunk_randoms`) — no MEDIUM draws for the trace kernel's
+    scenes."""
+    n = width * height
+    n_chunks = -(-n // chunk_size)
+    dev = wkey.device
+    ids = torch.arange(n_chunks, device=dev)
+    o, d, t, ckey = cam_ops.camera_rays_for_chunks(
+        scene.camera, wkey, ids, chunk_size, width, height)
+    st = chunk_state(o, d, t)                                # [14, K, Cp]
+    rnd = chunk_randoms(scene, rngu.stream(ckey, rngu.CHUNK), chunk_size,
+                        depth, st.shape[-1])
+    return st.reshape(N_STATE, -1), rnd
+
+
+# ---------------------------------------------------------------------------
+# one uber bounce (TPU kernel D) and its backward (D')
+# ---------------------------------------------------------------------------
+
+def fused_bounce_plain(st, rnd_b, ctx: TraceCtx):
+    """One bounce of :func:`trace_wave_plain` from ``st`` [N_STATE, N]
+    with this bounce's randoms ``rnd_b`` [15, N]: (st2 [N_STATE, N], kind,
+    idx [N] int32; 0 on a miss and for a dead ray) — the plain version of
+    kernel D (``csrc/trace_wave.cu`` ``fused_bounce_kernel``), mirroring
+    ``_make_fused_kernel`` (``pallas_uber.py:568-610``): phase 1, the
+    winner row with the miss default, ``_tile_core``. A dead ray passes
+    its state through (JAX's dead-tile pass-through is that identity)."""
+    st2, _, kind, idx = trace_wave_plain(st, rnd_b[None], ctx, 1,
+                                         residuals=True)
+    return st2, kind[0], idx[0]
+
+
+def fused_bounce_bwd_plain(st, rnd_b, kind, idx, ctx: TraceCtx, g):
+    """The backward of one uber bounce from its input state ``st``, its
+    randoms and winners, for the next-state cotangent ``g`` [N_STATE, N]:
+    (dst [N_STATE, N], duni like ``ctx.uni``, dlt like ``ctx.lt``) — one
+    bounce of :func:`trace_wave_bwd_plain`, the plain version of kernel D'
+    (``fused_bounce_bwd_kernel``), mirroring ``_make_fused_bwd_kernel``
+    and ``_fused_bwd`` (``pallas_uber.py:619-710, 787-846``): a 1024-ray
+    tile with no live ray keeps ``g``; the selection, the search tables,
+    the randoms and the Perlin tables take none."""
+    return trace_wave_bwd_plain(st[None], rnd_b[None], kind[None],
+                                idx[None], ctx, g)
+
+
+def _fused_forward(st, rnd_b, ctx: TraceCtx):
+    dev = st.device.type
+    if dev == "cpu":
+        return fused_bounce_plain(st, rnd_b, ctx)
+    if dev != "cuda":
+        raise ValueError(f"unsupported device {st.device}")
+    from rust_ray_tracer_tpu_torch.kernels import fused_bounce_kernel
+    return fused_bounce_kernel(ctx)(st, rnd_b, ctx)
+
+
+def fused_bounce_bwd(st, rnd_b, kind, idx, ctx: TraceCtx, g):
+    """One uber bounce's backward: :func:`fused_bounce_bwd_plain` for CPU
+    tensors, kernel D' and the fixed-order sums of B' for CUDA tensors."""
+    dev = g.device.type
+    if dev == "cpu":
+        return fused_bounce_bwd_plain(st, rnd_b, kind, idx, ctx, g)
+    if dev != "cuda":
+        raise ValueError(f"unsupported device {g.device}")
+    from rust_ray_tracer_tpu_torch.kernels import fused_bounce_backward
+    return fused_bounce_backward(st, rnd_b, kind, idx, ctx, g)
+
+
+class FusedBounce(torch.autograd.Function):
+    """One uber bounce as a differentiable function of ``st``, ``uni``
+    and ``lt`` — ``_fused_call``'s ``custom_vjp``
+    (``pallas_uber.py:766-846``). The forward saves (st, rnd, kind, idx),
+    the residual set of JAX's remat policy (the winners are its
+    ``isect_sel``); the backward runs :func:`fused_bounce_bwd`. The
+    randoms, the miss default and the search tables take no gradient."""
+
+    @staticmethod
+    def forward(fctx, st, rnd_b, uni, lt, ctx: TraceCtx):
+        st2, kind, idx = _fused_forward(st, rnd_b, ctx)
+        fctx.save_for_backward(st, rnd_b, kind, idx)
+        fctx.trace_ctx = ctx
+        return st2
+
+    @staticmethod
+    def backward(fctx, g):
+        st, rnd_b, kind, idx = fctx.saved_tensors
+        dst, duni, dlt = fused_bounce_bwd(st, rnd_b, kind, idx,
+                                          fctx.trace_ctx, g.contiguous())
+        return dst, None, duni, dlt, None
+
+
+def bounce_uber(scene, bkey_or_rnd, st, ctx: TraceCtx | None = None):
+    """One uber bounce of every lane of ``st`` [N_STATE, N] (whole
+    chunks, each padded to a multiple of TILE lanes): the next state.
+    Counterpart of ``pallas_uber.bounce_uber`` (``:1449-1504``).
+    ``bkey_or_rnd`` is this bounce's randoms [15, N], or a bounce key [2]
+    from which they are drawn for all N lanes as JAX draws them (9
+    SCATTER uniforms, 6 FUZZ normals). CPU tensors take
+    :func:`fused_bounce_plain`, CUDA tensors kernel D (no fallback); when a
+    gradient is wanted the bounce runs as :class:`FusedBounce`."""
+    if st.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {st.device}")
+    if ctx is None:
+        ctx = make_ctx(scene)
+    rnd_b = bkey_or_rnd
+    if rnd_b.dim() == 1:
+        n = st.shape[1]
+        rnd_b = torch.cat(
+            [rngu.uniform(rngu.stream(bkey_or_rnd, rngu.SCATTER), (n, 9)),
+             rngu.normal(rngu.stream(bkey_or_rnd, rngu.FUZZ), (n, 6))],
+            dim=1).T.contiguous()
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (st, ctx.uni, ctx.lt)):
+        return FusedBounce.apply(st, rnd_b, ctx.uni, ctx.lt, ctx)
+    return _fused_forward(st, rnd_b, ctx)[0]
 
 
 def wave_radiance(stf, width: int, height: int, chunk_size: int):

@@ -9,29 +9,34 @@ The device defaults to ``cuda`` and the run fails when no GPU is present —
 it never drops to the CPU on its own; ``--device cpu`` runs the plain
 version.
 
-``--compact``, checkpointing and the multi-host flags are not ported yet
-and exit with a message saying so.
+The render goes through ``parallel.checkpoint.render_with_checkpoints``,
+as JAX's CLI does: a checkpoint every ``--ckpt-every`` waves into
+``--checkpoint`` (default ``<output>.ckpt``), left in place when the
+render ends, so a second run with the same settings is a no-op restart.
+``--devices N`` (default: every visible card; 1 with ``--device cpu``)
+with N > 1 starts N local worker processes joined over a local TCP
+rendezvous, one card each (or N CPU processes with ``--device cpu``), and
+shards the rays over them (``parallel.render_waves_sharded``: TPU kernel
+D on the trace kernel's scenes); ``--coordinator host:port
+--num-processes N --process-id R`` joins such a run by hand, one process
+per host or card, and ``torchrun`` sets the same through the environment.
+Rank 0 writes the PNG. ``--compact`` is not ported yet and exits with a
+message saying so.
 
     python -m rust_ray_tracer_tpu_torch 256 16 --scene cornell_box -a 1.0 \\
         -o cornell.png --device cuda
     python -m rust_ray_tracer_tpu_torch 144 16 -g scene.gltf -o scene.png
+    python -m rust_ray_tracer_tpu_torch 64 4 --devices 2 --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import socket
+import subprocess
 import sys
 import time
-
-# flag -> ROADMAP queue 1 item that ports it
-_NOT_PORTED = {
-    "compact": ("--compact", "14"),
-    "checkpoint": ("--checkpoint", "16"),
-    "coordinator": ("--coordinator", "16"),
-    "num_processes": ("--num-processes", "16"),
-    "process_id": ("--process-id", "16"),
-    "devices": ("--devices", "16"),
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,28 +69,61 @@ def build_parser() -> argparse.ArgumentParser:
                         "versions")
     p.add_argument("--no-flip", action="store_true",
                    help="skip the reference's vertical flip at write time")
+    p.add_argument("--devices", type=int, default=None,
+                   help="processes to shard rays over, one card each "
+                        "(default: every visible card; 1 with --device "
+                        "cpu)")
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint file for resumable rendering "
+                        "(default: <output>.ckpt)")
+    p.add_argument("--ckpt-every", type=int, default=8,
+                   help="checkpoint every N sample waves")
+    p.add_argument("--coordinator", default=None,
+                   help="multi-process rendezvous address (host:port)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     # not yet ported: accepted so the message can say so
     p.add_argument("--compact", nargs="?", const="on", default=None,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--checkpoint", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--coordinator", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--num-processes", type=int, default=None,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--process-id", type=int, default=None,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--devices", type=int, default=None,
                    help=argparse.SUPPRESS)
     return p
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn(argv, n: int, device: str) -> int:
+    """Run the CLI as ``n`` local worker processes joined at a local TCP
+    rendezvous, one card each (``LOCAL_RANK``); the worst exit code."""
+    addr = f"127.0.0.1:{_free_port()}"
+    env = dict(os.environ)
+    if device == "cpu" and "OMP_NUM_THREADS" not in env:
+        env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 1) // n))
+    procs = []
+    try:
+        for r in range(n):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "rust_ray_tracer_tpu_torch", *argv,
+                 "--coordinator", addr, "--num-processes", str(n),
+                 "--process-id", str(r)], env={**env, "LOCAL_RANK": str(r)}))
+        return max(p.wait() for p in procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
-    for attr, (flag, item) in _NOT_PORTED.items():
-        if getattr(args, attr) is not None:
-            print(f"error: {flag} is not yet ported to "
-                  f"rust_ray_tracer_tpu_torch (ROADMAP queue 1 item {item})",
-                  file=sys.stderr)
-            return 2
+    if args.compact is not None:
+        print("error: --compact is not yet ported to "
+              "rust_ray_tracer_tpu_torch (ROADMAP queue 1 item 14)",
+              file=sys.stderr)
+        return 2
 
     import torch
 
@@ -94,15 +132,52 @@ def main(argv=None) -> int:
               "(use --device cpu for the plain version)", file=sys.stderr)
         return 2
 
+    from rust_ray_tracer_tpu_torch.parallel import make_mesh, multihost_init
+
+    joined = (args.coordinator is not None or (args.num_processes or 1) > 1
+              or int(os.environ.get("WORLD_SIZE", "1")) > 1)
+    if not joined:
+        n_dev = args.devices or (torch.cuda.device_count()
+                                 if args.device == "cuda" else 1)
+        if n_dev < 1:
+            print(f"error: --devices {n_dev}", file=sys.stderr)
+            return 2
+        if args.device == "cuda" and n_dev > torch.cuda.device_count():
+            print(f"error: --devices {n_dev} but found "
+                  f"{torch.cuda.device_count()} CUDA device(s)",
+                  file=sys.stderr)
+            return 2
+        if n_dev > 1:
+            return _spawn(argv, n_dev, args.device)
+    try:
+        multihost_init(args.coordinator, args.num_processes,
+                       args.process_id, args.device)
+        mesh = make_mesh(n_devices=args.devices if joined else None,
+                         device=args.device)
+    except (ValueError, RuntimeError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    try:
+        return _render(args, mesh)
+    finally:
+        if mesh.group is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _render(args, mesh) -> int:
+    """Render on ``mesh``'s device, sharded over its ranks when it has
+    more than one, and on rank 0 write the PNG."""
+    import torch
+
     from rust_ray_tracer_tpu_torch.models import builders
     from rust_ray_tracer_tpu_torch.models.gltf import load_gltf_scene
     from rust_ray_tracer_tpu_torch.models.scene import compile_scene
-    from rust_ray_tracer_tpu_torch.ops.integrator import render_image
     from rust_ray_tracer_tpu_torch.ops.tonemap import tonemap_mean
-    from rust_ray_tracer_tpu_torch.utils import rng
+    from rust_ray_tracer_tpu_torch.parallel.checkpoint import (
+        render_with_checkpoints)
     from rust_ray_tracer_tpu_torch.utils.image import save_png
 
-    device = torch.device(args.device)
+    device = mesh.device
     height = args.height
     width = int(height * args.aspect)
     spp = args.samples
@@ -116,18 +191,35 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     scene = compile_scene(host_scene, seed=0, device=device)
-
+    ckpt = args.checkpoint or (args.output + ".ckpt")
     t0 = time.perf_counter()
-    img = render_image(scene, width, height, spp, rng.key(args.seed, device),
-                       depth=args.depth, chunk_size=args.chunk_size)
+
+    def progress(done, total):
+        if mesh.rank == 0:
+            dt = time.perf_counter() - t0
+            rate = width * height * done * args.depth / max(dt, 1e-9)
+            print(f"  wave {done}/{total}  {rate / 1e6:.2f} Mrays/s",
+                  flush=True)
+
+    try:
+        img = render_with_checkpoints(
+            scene, width, height, spp, args.seed, ckpt,
+            ckpt_every=args.ckpt_every, depth=args.depth,
+            chunk_size=args.chunk_size,
+            mesh=mesh if mesh.size > 1 else None, progress=progress)
+    except (ValueError, NotImplementedError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if mesh.rank != 0:
+        return 0
     u8 = tonemap_mean(img).cpu().numpy()
     dt = time.perf_counter() - t0
     save_png(args.output, u8, flip_vertical=not args.no_flip)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"wrote {args.output} ({width}x{height}, {spp}spp, depth "
-          f"{args.depth}, {name}) in {dt:.2f}s including set-up; "
-          f"mean radiance {float(img.mean()):.6f}, finite "
+          f"{args.depth}, {name}, {mesh.size} process(es)) in {dt:.2f}s "
+          f"including set-up; mean radiance {float(img.mean()):.6f}, finite "
           f"{bool(torch.isfinite(img).all())}")
     return 0
 

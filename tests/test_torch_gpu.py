@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from rust_ray_tracer_tpu_torch import kernels as K
 from rust_ray_tracer_tpu_torch.kernels import (bounce_planes_bwd_kernel,
                                                bounce_planes_kernel,
                                                bwd_reduce_kernel,
@@ -83,6 +84,24 @@ def test_dispatcher_refuses_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         uber.trace_wave(st0.to("meta"), rnd.to("meta"), uber.make_ctx(ts),
                         DEPTH)
+
+
+def test_fused_bounce_wrappers_refuse_cpu_tensors():
+    """Kernels D and D' take CUDA tensors only; ops/uber.bounce_uber
+    refuses other devices."""
+    ts = _scene("solid")
+    st0, rnd = _inputs(ts)
+    ctx = uber.make_ctx(ts)
+    kind = torch.zeros(st0.shape[1], dtype=torch.int32)
+    for kern, args in ((K.fused_bounce_kernel(ctx), (st0, rnd[0], ctx)),
+                       (K.fused_bounce_bwd_kernel(ctx),
+                        (st0, rnd[0], kind, kind, ctx, st0))):
+        before = kern.launches
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            kern(*args)
+        assert kern.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        uber.bounce_uber(ts, rnd[0].to("meta"), st0.to("meta"), ctx)
 
 
 @pytest.fixture
@@ -1032,3 +1051,50 @@ def test_render_waves_gltf_lights_on_card(cuda, tmp_path):
     for k, v in leaves.items():
         assert v.grad is None or bool(torch.isfinite(v.grad).all()), k
     assert float(leaves["light_c"].grad.abs().max()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["solid", "checker", "noise", "flagship"])
+def test_fused_bounce_kernels_match_plain_on_card(name, cuda):
+    """Kernels D and D' (their variant for the scene) against
+    fused_bounce_plain / fused_bounce_bwd_plain on bounces 0 and 1 of a
+    1024-ray chunk: the winners equal at bounce 0, the state under the flip
+    budget, D' within B's budget (dst per lane rtol 1e-4 of its largest
+    plane, at most 0.5% of the lanes outside; duni, dlt relative L2 1e-4)
+    and the same bits twice; and four D launches give A's state."""
+    ts = _scene(name)
+    st0, rnd = _inputs(ts)
+    ctx_c, ctx = uber.make_ctx(ts), uber.make_ctx(ts.to(cuda))
+    d, d_bwd = K.fused_bounce_kernel(ctx), K.fused_bounce_bwd_kernel(ctx)
+    st, st_c = st0.to(cuda), st0
+    g = torch.from_numpy(np.random.default_rng(5).normal(
+        size=tuple(st0.shape)).astype(np.float32))
+    for b in range(DEPTH):
+        before = d.launches
+        st2, kind, idx = d(st, rnd[b].to(cuda), ctx)
+        torch.cuda.synchronize()
+        assert d.launches == before + 1
+        if b < 2:
+            ref2, ref_kind, ref_idx = uber.fused_bounce_plain(st_c, rnd[b],
+                                                              ctx_c)
+            if b == 0:
+                assert torch.equal(kind.cpu(), ref_kind)
+                assert torch.equal(idx.cpu(), ref_idx)
+            assert_flip_budget(st2[8:11].cpu().numpy().T,
+                               ref2[8:11].numpy().T)
+            got = K.fused_bounce_backward(st, rnd[b].to(cuda), kind, idx,
+                                          ctx, g.to(cuda))
+            again = K.fused_bounce_backward(st, rnd[b].to(cuda), kind, idx,
+                                            ctx, g.to(cuda))
+            want = uber.fused_bounce_bwd_plain(
+                st.cpu(), rnd[b], kind.cpu(), idx.cpu(), ctx_c, g)
+            assert all(torch.equal(x, y) for x, y in zip(got, again))
+            assert_scaled_close(got[0].cpu().numpy(), want[0].numpy(), 1e-4,
+                                1e-6, axis=0, budget=0.005, what="dst")
+            assert rel_l2(got[1].cpu(), want[1]) < 1e-4
+            assert rel_l2(got[2].cpu(), want[2]) < 1e-4
+            st_c = ref2
+        st = st2
+    assert d_bwd.launches > 0
+    whole = K.trace_kernel(ctx)(st0.to(cuda), rnd.to(cuda), ctx, DEPTH)
+    assert torch.equal(st, whole)

@@ -155,9 +155,84 @@ def test_cli_cuda_without_gpu_fails_clearly(tmp_path, capsys):
     assert not (tmp_path / "x.png").exists()
 
 
-@pytest.mark.parametrize("flag", [["--devices", "2"], ["--compact"],
-                                  ["--checkpoint", "x.ckpt"],
-                                  ["--coordinator", "localhost:1234"]])
+@pytest.mark.parametrize("flag", [["--compact"]])
 def test_cli_unported_flags_exit_with_message(flag, capsys):
     assert cli.main(["16", "1", *flag]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not yet ported" in err and "item 14" in err
+
+
+_SMALL = ("24", "2", "--scene", "cornell_box", "-a", "1.0", "--device",
+          "cpu", "--chunk-size", "128")
+
+
+def test_cli_checkpoint_resume_is_bitwise(tmp_path):
+    """A 1-spp run leaves its checkpoint; a 2-spp run with the same
+    --checkpoint resumes from it (the settings it checks are seed, size,
+    chunk and depth) and writes the uninterrupted 2-spp render's PNG bit
+    for bit; a third run is a no-op restart: no wave rendered, the same
+    PNG, the checkpoint untouched."""
+    ckpt = tmp_path / "c.ckpt"
+    ref = tmp_path / "ref.png"
+    assert _cli(*_SMALL, "-o", str(ref)).returncode == 0
+    assert (tmp_path / "ref.png.ckpt").exists()       # the default path
+    one = _cli("24", "1", *_SMALL[2:], "-o", str(tmp_path / "one.png"),
+               "--checkpoint", str(ckpt), "--ckpt-every", "1")
+    assert one.returncode == 0, one.stderr
+    out = tmp_path / "out.png"
+    two = _cli(*_SMALL, "-o", str(out), "--checkpoint", str(ckpt),
+               "--ckpt-every", "1")
+    assert two.returncode == 0, two.stderr
+    assert "wave 2/2" in two.stdout and "wave 1/2" not in two.stdout
+    assert out.read_bytes() == ref.read_bytes()
+    stamp = ckpt.stat().st_mtime_ns
+    out.unlink()
+    three = _cli(*_SMALL, "-o", str(out), "--checkpoint", str(ckpt))
+    assert three.returncode == 0, three.stderr
+    assert "wave" not in three.stdout
+    assert out.read_bytes() == ref.read_bytes()
+    assert ckpt.stat().st_mtime_ns == stamp
+
+
+def test_cli_devices_two_cpu_processes_match_one(tmp_path):
+    """--devices 2 --device cpu starts two local processes that shard the
+    rays (the per-chunk path over gloo); rank 0's PNG equals the one-process
+    run's bit for bit, and only rank 0 writes it."""
+    one, two = tmp_path / "one.png", tmp_path / "two.png"
+    a = _cli(*_SMALL, "-o", str(one), "--devices", "1")
+    b = _cli(*_SMALL, "-o", str(two), "--devices", "2")
+    assert a.returncode == 0 and b.returncode == 0, (a.stderr, b.stderr)
+    assert "1 process(es)" in a.stdout and "2 process(es)" in b.stdout
+    assert b.stdout.count("wrote ") == 1
+    assert two.read_bytes() == one.read_bytes()
+
+
+def test_cli_coordinator_flags_join_two_processes(tmp_path):
+    """--coordinator / --num-processes / --process-id across two processes
+    started by hand: rank 0 writes the PNG, equal to a one-process run's."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{s.getsockname()[1]}"
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    out = tmp_path / "mp.png"
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "rust_ray_tracer_tpu_torch", *_SMALL, "-o",
+         str(out), "--coordinator", addr, "--num-processes", "2",
+         "--process-id", str(r)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    try:
+        logs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert [p.returncode for p in procs] == [0, 0], logs
+    assert "wrote " in logs[0] and "wrote " not in logs[1]
+    ref = tmp_path / "ref.png"
+    assert _cli(*_SMALL, "-o", str(ref)).returncode == 0
+    assert out.read_bytes() == ref.read_bytes()
