@@ -56,8 +56,15 @@ their plain versions on bounces 0 and 1 of a full-size wave at 9 and at
 16 lights) and ``bench.py``'s training step (``gltf_lights_train``: K,
 M, J, I, J', I' every bounce); a Mesh-boundary medium at 64x64
 (``mesh_medium``); and the CLI's ``-g`` on the 9-light file
-(``cli_gltf``). Each phase prints
-one JSON line; any failure raises, so the exit code is non-zero. Then come
+(``cli_gltf``). Between the whole-wave phases and final_scene run the
+per-chunk path's (TPU kernels D and D': the sharded renderer's body) and
+the unfused bounce's (``RRT_NO_UBER_FUSED=1``: TPU kernels E, G and G'
+against their plain versions on the flagship's and a checker scene's
+full-size bounces, E's winners against D's; the flagship's forward and
+training step through ``render_waves`` with ``RRT_UBER_WAVE=0``; a
+one-rank ``render_waves_sharded`` and the CLI under the flag). Each phase
+prints one JSON line; any failure raises, so the exit code is non-zero.
+Then come
 the ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Needs one CUDA GPU; imports no JAX.
@@ -212,6 +219,17 @@ CLI_GLTF_LO, CLI_GLTF_HI = 0.93, 1.03
 D_KERNELS = (K.bounce_uber_kernel, K.bounce_uber_noise_kernel)
 D_BWD_KERNELS = (K.bounce_uber_bwd_kernel, K.bounce_uber_bwd_noise_kernel)
 SHARD_W, SHARD_H, SHARD_CHUNK = 128, 72, 1024   # two ranks, checkpoints
+# the unfused uber bounce (RRT_NO_UBER_FUSED=1): TPU kernel E
+# (csrc/trace_wave.cu select_kernel, A's search alone) and G, G'
+# (csrc/split.cu: F and F' launched with the tiles' liveness flags); the
+# profiler names G and G' as F and F', which the path does not run
+UNFUSED_KERNELS = (K.select_kernel, K.bounce_planes_live_kernel,
+                   K.bounce_planes_live_bwd_kernel)
+UNFUSED_NAMES = {"select": "::select_kernel(",
+                 "bounce_planes_live": "bounce_planes_kernel",
+                 "bounce_planes_live_bwd": "bounce_planes_bwd_kernel"}
+UNFUSED_OFF = (WHOLE_WAVE_KERNELS + D_KERNELS + D_BWD_KERNELS
+               + FUSED_KERNELS + FUSED_BWD_KERNELS)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -576,15 +594,20 @@ class PlainCalls:
     ``bounce_plane_core_vjp`` (``ops/bounce``), ``tile_enter_plain``,
     ``fused_search_plain`` and ``tri_search_plain`` (``ops/search``),
     ``sph_search_plain`` (``ops/sphere``), ``shade_plane_core`` and
-    ``shade_plane_core_vjp`` (``ops/shade``) and ``fused_bounce_plain``
-    and ``fused_bounce_bwd_plain`` (``ops/uber``) record their names in
-    ``calls``; ``real``, ``real_bwd``, ``real_fused`` and
-    ``real_fused_bwd`` stay the uncounted functions."""
+    ``shade_plane_core_vjp`` (``ops/shade``), ``fused_bounce_plain``,
+    ``fused_bounce_bwd_plain`` and ``select_plain`` (``ops/uber``) and
+    ``bounce_planes_live_plain`` and ``bounce_planes_live_bwd_plain``
+    (``ops/bounce``) record their names in ``calls``; ``real``,
+    ``real_bwd``, ``real_fused``, ``real_fused_bwd``, ``real_select``,
+    ``real_live`` and ``real_live_bwd`` stay the uncounted functions."""
 
     real = uber.trace_wave_plain
     real_bwd = uber.trace_wave_bwd_plain
     real_fused = uber.fused_bounce_plain
     real_fused_bwd = uber.fused_bounce_bwd_plain
+    real_select = uber.select_plain
+    real_live = bounce_ops.bounce_planes_live_plain
+    real_live_bwd = bounce_ops.bounce_planes_live_bwd_plain
     SITES = ((uber, "trace_wave_plain"), (uber, "trace_wave_bwd_plain"),
              (quad_ops, "_quad_candidates"), (hit_ops, "hit_plane_core"),
              (bounce_ops, "su_plane_core"), (hit_ops, "hit_plane_core_vjp"),
@@ -597,7 +620,9 @@ class PlainCalls:
              (search_ops, "tri_search_plain"),
              (shade_ops, "shade_plane_core"),
              (shade_ops, "shade_plane_core_vjp"),
-             (uber, "fused_bounce_plain"), (uber, "fused_bounce_bwd_plain"))
+             (uber, "fused_bounce_plain"), (uber, "fused_bounce_bwd_plain"),
+             (uber, "select_plain"), (bounce_ops, "bounce_planes_live_plain"),
+             (bounce_ops, "bounce_planes_live_bwd_plain"))
 
     def __init__(self):
         self.calls = []
@@ -668,6 +693,24 @@ def row_sums_vs_float64(calls) -> dict:
     return {"calls": len(calls), "widths": sorted(widths),
             "terms": sorted(ns), "largest_row_share": top_share,
             "worst_err_over_magnitude": worst, "budget": 1e-5}
+
+
+def row_sums_bound(calls, light_parts=()) -> dict:
+    """B''s bound on these recorded calls of ``ops/gather.row_sums`` (a
+    one-wave step's) and light-table sums (``light_parts``: the partials'
+    shapes): per row sum the cotangent rows, their order and the row
+    offsets read once and the table's cotangent [rows, W] written once,
+    empty rows included (the gradient is the whole table); per light sum
+    the partials read and the row written. Bytes over HBM's rate: B' does
+    one add a term, far below the fp32 rate."""
+    nb = sum((g.numel() + idx.numel() + n_rows + 1 + n_rows * g.shape[1])
+             * 4 for idx, g, n_rows, _ in calls)
+    nb += sum((blocks * ltn + ltn) * 4 for blocks, ltn in light_parts)
+    launches = len(calls) + len(light_parts)
+    ms = nb / PEAK_BYTES * 1e3
+    return {"launches": launches, "bytes": nb, "bound_ms": ms,
+            "bound_ms_per_launch": ms / max(launches, 1),
+            "table_rows": sum(n for _, _, n, _ in calls)}
 
 
 def split_kernels_vs_plain(calls, label) -> dict:
@@ -1763,6 +1806,11 @@ def final_train(dev, smi, fwd) -> dict:
         t["step"](1)
         torch.cuda.synchronize()
     row_sums = row_sums_vs_float64(sums.calls)
+    # B''s bound for a one-wave step: the glue's row sums and a light-table
+    # sum of H''s partials a bounce
+    n = WIDTH * HEIGHT
+    red_bound = row_sums_bound(sums.calls, [(
+        -(-n // 128), (scene.n_lights + 1) * bounce_ops.LT_COLS)] * DEPTH)
     del sums
 
     # J' and H' on every bounce's recorded inputs of one full-size wave
@@ -1803,6 +1851,7 @@ def final_train(dev, smi, fwd) -> dict:
               "shade_update_bwd_light_table": SPP * DEPTH,
               "glue_row_sums": launches["bwd_reduce"] - SPP * DEPTH},
           "row_sums_vs_float64": row_sums,
+          "bwd_reduce_bound_one_wave_step": red_bound,
           "bwd_ms_per_launch_l2_flushed": cold,
           "shade_update_bwd_parts_ms_l2_flushed": h_cold,
           "bwd_ms_per_launch_looped_events": {
@@ -2391,9 +2440,18 @@ def random_earth_train(dev, smi, fwd) -> dict:
         {n: f"{n}_kernel" for n in fwd_names + bwd_names}, fwd_names,
         bwd_names, 7, dev)
     texels = int((t["grads"]["img_data"].abs().sum(-1) > 0).sum())
+    # B''s bound for a one-wave step (the atlas's row sums among them)
+    with RowSumCalls() as sums:
+        t["step"](1)
+        torch.cuda.synchronize()
+    red_bound = row_sums_bound(sums.calls, [(
+        -(-WIDTH * HEIGHT // 128),
+        (fwd["scene"].n_lights + 1) * bounce_ops.LT_COLS)] * DEPTH)
+    del sums
     emit({"phase": "random_earth_train", "card": smi,
           "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
-          **t["fields"], "img_data_texels_with_grad": texels})
+          **t["fields"], "img_data_texels_with_grad": texels,
+          "bwd_reduce_bound_one_wave_step": red_bound})
     return {"launches": t["launches"], "ms_in_path": t["in_path"]}
 
 
@@ -3488,6 +3546,364 @@ def fused_rows(checks, trains) -> list[dict]:
     return rows
 
 
+# ---- the unfused uber bounce (RRT_NO_UBER_FUSED=1): kernels E, G, G' -----
+
+@contextlib.contextmanager
+def route_env(**env):
+    """The route flags ``env`` set in ``os.environ`` inside ``with``, the
+    earlier values restored after it, so later phases keep their routes."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def wave_setup(label, host_fn, dev) -> dict:
+    """A scene at the bench shape and its first wave's inputs: what
+    ``forward_phase`` returns for the checks of one bounce, without its
+    render."""
+    scene = compile_scene(host_fn(), device=dev)
+    key = rng.key(0, dev)
+    st0, rnd = uber.wave_inputs(scene, rng.wave_key(key, 0), WIDTH, HEIGHT,
+                                DEPTH, CHUNK)
+    return {"label": label, "scene": scene, "key": key,
+            "ctx": uber.make_ctx(scene), "st0": st0, "rnd": rnd}
+
+
+def select_costs(ctx, st) -> tuple[int, int]:
+    """(bytes, operations) of kernel E on the state ``st`` [14, N]: every
+    lane reads 8 state planes and writes its row (W planes) and its two
+    winner words, the tables once; the ray tests this state's rays make
+    (A's sweep for one bounce, ``swept_tri_tests``, and every sphere and
+    quad for each live ray)."""
+    n, w = st.shape[1], ctx.uni.shape[1]
+    tables = sum(x.numel() * 4 for x in (ctx.uni, ctx.dflt, ctx.det_t,
+                                         ctx.u_t, ctx.v_t, ctx.t_t,
+                                         ctx.dbl_t, ctx.sph, ctx.quad,
+                                         ctx.cab))
+    n_live = int((st[7] > 0.5).sum())
+    ops = (swept_tri_tests(st[None], ctx) * OPS_TRI
+           + n_live * (ctx.n_sph + ctx.n_quad) * OPS_PRIM)
+    return (8 + w + 2) * n * 4 + tables, ops
+
+
+def live_costs(args, tlive) -> tuple[tuple[int, int], tuple[int, int]]:
+    """((bytes, operations) of G, of G') on F's inputs ``args`` and the
+    tiles' flags ``tlive``: a live tile's lanes by F's and F''s lane
+    classes (``bp_bytes``, ``bp_bwd_bytes``); a dead tile's lanes read 13
+    planes and write 13 (G), read 12 cotangents and write every input
+    plane's (G'), its blocks write a zero light-table partial that B'
+    reads; the flags once."""
+    P, pkind, mkind, flags, lt, n_lights = args
+    live = torch.repeat_interleave(tlive > 0, bounce_ops.LIVE_TILE)
+    sub = [(P[:, live], pkind[live], mkind[live], flags[live], lt,
+            n_lights)]
+    g_bytes, g_ops = bp_bytes(sub)
+    gp_bytes, gp_ops = bp_bwd_bytes(sub)
+    n_dead = int((~live).sum())
+    g_bytes += (n_dead * 26 + tlive.numel()) * 4
+    gp_bytes += (n_dead * (12 + P.shape[0]) + tlive.numel()
+                 + 2 * lt.numel() * (n_dead // 128)) * 4
+    return (g_bytes, g_ops), (gp_bytes, gp_ops)
+
+
+def unfused_bounce_checks(label, fwd, seed=41) -> dict:
+    """Kernels E, G and G' against ``select_plain``,
+    ``bounce_planes_live_plain`` and ``bounce_planes_live_bwd_plain`` on
+    the card, on bounces 0 and 1 of the scene's full-size wave (G's own
+    output feeds bounce 1): E's winners equal kernel D's on the same state
+    bit for bit and the plain version's but for at most FLIP_BUDGET of the
+    lanes, its rows equal where the winners are; G within RTOL / ATOL of
+    each lane's largest plane, FLIP_BUDGET outside; G' with B''s sum
+    within B's budget for a seeded cotangent; a dead tile's lanes passed
+    through (G) and given the copy's cotangent and zero light-table
+    partials (G') bit for bit; a live tile's equal to F's and F''s (a null
+    flag array) bit for bit; each the same bits over two launches. Per
+    bounce: ms out of L2 (G' alone, B' on its partials, G' with B'), the
+    plain versions' ms, the work. Emits ``<label>_unfused_bounce_checks``."""
+    ctx, st, rnd = fwd["ctx"], fwd["st0"], fwd["rnd"]
+    e, g_k, gp_k = UNFUSED_KERNELS
+    d = K.fused_bounce_kernel(ctx)
+    n = st.shape[1]
+    g = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(13, n)).astype(np.float32)).to(st.device)
+    bounces, pairs = [], {k: [] for k in ("e", "g", "gp", "sum", "red")}
+    for b in (0, 1):
+        rb = rnd[b]
+        st8 = st[0:8]
+        with torch.no_grad():
+            selv, kind, idx = e(st8, ctx)
+            again = e(st8, ctx)
+            d_st2, d_kind, d_idx = d(st, rb, ctx)
+            ref_selv, ref_kind, ref_idx = PlainCalls.real_select(st, ctx)
+        if not all(torch.equal(x, y) for x, y in zip((selv, kind, idx),
+                                                     again)):
+            raise AssertionError(f"{label}: {e.name} differs between runs")
+        if not (torch.equal(kind, d_kind) and torch.equal(idx, d_idx)):
+            raise AssertionError(f"{label}: {e.name}'s winners differ from "
+                                 f"{d.name}'s on the same state")
+        same = (kind == ref_kind) & (idx == ref_idx)
+        forked = int((~same).sum())
+        if forked > FLIP_BUDGET * n:
+            raise AssertionError(f"{label}: {forked} winners of {e.name} "
+                                 "differ from the plain version's")
+        if not torch.equal(selv[:, same], ref_selv[:, same]):
+            raise AssertionError(f"{label}: {e.name}'s rows differ")
+        tlive = bounce_ops.live_tiles(st[7])
+        P, mkind, flags = uber._tile_planes(st, rb, selv, ctx)
+        args = (P, kind, mkind, flags, ctx.lt, ctx.n_lights)
+        with torch.no_grad():
+            out, out2 = g_k(*args, tlive), g_k(*args, tlive)
+            ref = PlainCalls.real_live(*args, tlive)
+            dP, part = gp_k.partials(*args, tlive, g)
+            bk, bk2 = gp_k(*args, tlive, g), gp_k(*args, tlive, g)
+            bp = PlainCalls.real_live_bwd(*args, tlive, g)
+            f_out = bounce_planes_kernel(*args)
+            f_dP, _ = bounce_planes_bwd_kernel(*args, g)
+        if not (torch.equal(out, out2) and torch.equal(bk[0], bk2[0])
+                and torch.equal(bk[1], bk2[1])
+                and torch.equal(dP, bk[0])):
+            raise AssertionError(f"{label}: {g_k.name} or {gp_k.name} "
+                                 "differs between runs")
+        st_out, st_err = scaled_close(out, ref, RTOL, ATOL, FLIP_BUDGET,
+                                      f"{label}: {g_k.name}")
+        dst_out, dst_err = scaled_close(bk[0], bp[0], BWD_RTOL, BWD_ATOL,
+                                        FLIP_BUDGET, f"{label}: {gp_k.name}")
+        live = torch.repeat_interleave(tlive > 0, bounce_ops.LIVE_TILE)
+        through = torch.cat([P[0:6], P[24:30], P[45:46]])
+        cot = torch.zeros_like(dP)
+        cot[0:6], cot[24:30] = g[0:6], g[6:12]
+        dead_parts = part.reshape(-1, 8, part.shape[1])[tlive == 0]
+        if not (torch.equal(out[:, ~live], through[:, ~live])
+                and torch.equal(dP[:, ~live], cot[:, ~live])
+                and not bool(dead_parts.any())):
+            raise AssertionError(f"{label}: a dead tile did not pass "
+                                 "through")
+        if not (torch.equal(out[:, live], f_out[:, live])
+                and torch.equal(dP[:, live], f_dP[:, live])):
+            raise AssertionError(f"{label}: G, G' differ from F, F' on a "
+                                 "live tile")
+        st2 = torch.cat([out[0:6], st[6:7], out[12:13], out[6:12]])
+        vs_d, _ = scaled_close(st2, d_st2, RTOL, ATOL, FLIP_BUDGET,
+                               f"{label}: E + G vs D")
+        e_cost = select_costs(ctx, st)
+        g_cost, gp_cost = live_costs(args, tlive)
+        bounces.append({
+            "bounce": b, "live": int((st[7] > 0.5).sum()),
+            "found": int((kind > 0).sum()),
+            "tiles": tlive.numel(), "dead_tiles": int((tlive == 0).sum()),
+            "winners_equal_fused_bounce": True,
+            "winners_forked_vs_plain": forked, "state_outside": st_out,
+            "state_err": st_err, "state_vs_fused_bounce_outside": vs_d,
+            "dst_outside": dst_out, "dst_err": dst_err,
+            "dlt_rel_l2": rel_l2(bk[1], bp[1], f"{label}: dlt", BWD_REL_L2),
+            "dlt_rows_err": rows_close(bk[1], bp[1], f"{label}: dlt rows"),
+            "e_bytes": e_cost[0], "e_ops": e_cost[1],
+            "g_bytes": g_cost[0], "g_ops": g_cost[1],
+            "gp_bytes": gp_cost[0], "gp_ops": gp_cost[1]})
+        pairs["e"].append((lambda a=(st8, ctx): e(*a),
+                           lambda a=(st, ctx): PlainCalls.real_select(*a)))
+        pairs["g"].append((lambda a=args + (tlive,): g_k(*a),
+                           lambda a=args + (tlive,): PlainCalls.real_live(
+                               *a)))
+        pairs["gp"].append((
+            lambda a=args + (tlive, g): gp_k.partials(*a),
+            lambda a=args + (tlive, g): PlainCalls.real_live_bwd(*a)))
+        pairs["sum"].append((lambda a=args + (tlive, g): gp_k(*a), None))
+        pairs["red"].append((light_sum_call(part), None))
+        st = st2
+    t = {k: bounce_times(v, plain_reps=2) for k, v in pairs.items()}
+    regs = [r for lib in (e.library, g_k.library)
+            for r in ptxas_report(K.build(lib).log)
+            if any(f in r["function"] for f in (
+                "select_kernel", "trace_wave_kernel", "fused_bounce_kernel",
+                "bounce_planes_kernel", "bounce_planes_bwd_kernel"))]
+    emit({"phase": f"{label}_unfused_bounce_checks",
+          "kernels": [k.name for k in UNFUSED_KERNELS], "rays": n,
+          "has_checker": ctx.has_checker, "bounces": bounces,
+          "ms_per_launch_l2_flushed": {
+              e.name: t["e"]["cold"], g_k.name: t["g"]["cold"],
+              gp_k.name: t["gp"]["cold"],
+              "bwd_reduce (its partials)": t["red"]["cold"],
+              f"{gp_k.name}+bwd_reduce": t["sum"]["cold"]},
+          "plain_ms_per_launch": {e.name: t["e"]["plain"],
+                                  g_k.name: t["g"]["plain"],
+                                  gp_k.name: t["gp"]["plain"]},
+          "budget": {"state": [RTOL, ATOL, FLIP_BUDGET],
+                     "dst": [BWD_RTOL, BWD_ATOL, FLIP_BUDGET],
+                     "tables_rel_l2": BWD_REL_L2},
+          "ptxas": regs})
+    return {"bounces": bounces, "t": t}
+
+
+def unfused_forward(fwd, dev, smi) -> dict:
+    """The flagship's forward render at the bench shape through
+    ``render_waves`` under ``RRT_NO_UBER_FUSED=1 RRT_UBER_WAVE=0`` (the
+    per-chunk path, E and G a bounce): the counts set to 0 just before it
+    and read just after (SPP * DEPTH launches of E and G, none of A, B, D,
+    D', F, F', G', no plain call); the image against the fused per-chunk
+    route's (``RRT_UBER_WAVE=0`` alone: D) within the fork budget, its
+    differing pixels counted; 7 sweeps, the profiled wave (E, G in the
+    path, glue, busy share), peak memory. Emits
+    ``unfused_flagship_forward``."""
+    scene, key = fwd["scene"], fwd["key"]
+    e, g_k, gp_k = UNFUSED_KERNELS
+
+    def render(n_waves):
+        with torch.no_grad():
+            return render_waves(scene, WIDTH, HEIGHT, key, 0, n_waves,
+                                depth=DEPTH, chunk_size=CHUNK)
+
+    with route_env(RRT_NO_UBER_FUSED="1", RRT_UBER_WAVE="0"):
+        img, launches, n_plain = main_path_forward(
+            "unfused flagship", render, (e, g_k), UNFUSED_OFF + (gp_k,))
+        t = forward_timing(render, {e.name: UNFUSED_NAMES[e.name],
+                                    g_k.name: UNFUSED_NAMES[g_k.name]}, 7,
+                           dev)
+    with route_env(RRT_UBER_WAVE="0"):
+        ref = render(SPP)
+    vs_d = compare(img, ref, "unfused vs fused per-chunk flagship",
+                   flip_abs=None)
+    emit({"phase": "unfused_flagship_forward", "card": smi,
+          "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
+          "env": {"RRT_NO_UBER_FUSED": "1", "RRT_UBER_WAVE": "0"},
+          "launches": launches, "plain_calls": n_plain,
+          "image_mean": float(img.mean()) / SPP,
+          "pixels_differing_from_fused": int((img != ref).any(-1).sum()),
+          "vs_fused_per_chunk": vs_d, **t["fields"]})
+    return {"launches": launches, "in_path": t["in_path"]}
+
+
+def unfused_train(fwd, dev, smi) -> dict:
+    """``bench.py``'s training step on the flagship under
+    ``RRT_NO_UBER_FUSED=1 RRT_UBER_WAVE=0`` (``main_path_train``): SPP *
+    DEPTH launches each of E, G and G', B' twice a bounce (G''s light-table
+    partials, E's row sums), none of A, B, D, D', F, F', no plain call;
+    gradients finite, bitwise over two steps, non-zero on tri_v0,
+    tex_color and camera.c2w; 7 timed steps, forward and backward apart,
+    the profiled one-wave step (E, G, G', B' in the path), peak memory.
+    Emits ``unfused_flagship_train``."""
+    with route_env(RRT_NO_UBER_FUSED="1", RRT_UBER_WAVE="0"):
+        r = main_path_train(
+            "unfused flagship", fwd["scene"], fwd["key"], UNFUSED_KERNELS,
+            UNFUSED_OFF, ("tri_v0", "tex_color", "camera.c2w"),
+            UNFUSED_NAMES, ("select", "bounce_planes_live"),
+            ("bounce_planes_live_bwd",), 7, dev)
+    emit({"phase": "unfused_flagship_train", "card": smi,
+          "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
+          "env": {"RRT_NO_UBER_FUSED": "1", "RRT_UBER_WAVE": "0"},
+          **r["fields"]})
+    return {"launches": r["launches"], "in_path": r["in_path"]}
+
+
+def unfused_sharded(fwd, mesh, smi) -> dict:
+    """``render_waves_sharded`` on the one-rank world at 128x72, SPP spp,
+    under ``RRT_NO_UBER_FUSED=1``: SPP * DEPTH launches of E and G, none of
+    D; its image equal bit for bit to ``render_waves``' under
+    ``RRT_NO_UBER_FUSED=1 RRT_UBER_WAVE=0``. Emits ``unfused_sharded``."""
+    scene, key = fwd["scene"], fwd["key"]
+    e, g_k, _ = UNFUSED_KERNELS
+    watched = (e, g_k) + D_KERNELS
+    with route_env(RRT_NO_UBER_FUSED="1"), torch.no_grad():
+        for k in watched:
+            k.launches = 0
+        img = render_waves_sharded(scene, SHARD_W, SHARD_H, key, 0, SPP,
+                                   mesh, DEPTH, SHARD_CHUNK)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in watched}
+        with route_env(RRT_UBER_WAVE="0"):
+            ref = render_waves(scene, SHARD_W, SHARD_H, key, 0, SPP,
+                               depth=DEPTH, chunk_size=SHARD_CHUNK)
+    want = {k.name: 0 for k in watched}
+    want[e.name] = want[g_k.name] = SPP * DEPTH
+    if launches != want:
+        raise AssertionError(f"unfused sharded launches {launches}, "
+                             f"expected {want}")
+    if not torch.equal(img, ref):
+        raise AssertionError("unfused sharded image differs from "
+                             "render_waves'")
+    out = {"phase": "unfused_sharded", "card": smi,
+           "shape": [SHARD_H, SHARD_W, SPP, DEPTH],
+           "chunk_size": SHARD_CHUNK, "world": mesh.size,
+           "backend": mesh.backend, "launches": launches,
+           "bitwise_vs_render_waves": True}
+    emit(out)
+    return out
+
+
+def unfused_cli(smi) -> dict:
+    """The CLI on the card under ``RRT_NO_UBER_FUSED=1 RRT_UBER_WAVE=0``
+    (the Cornell box, 72x72, 2 spp, a fresh checkpoint): E and G launched
+    DEPTH times a wave, no D; a finite image. Emits ``unfused_cli``."""
+    e, g_k, _ = UNFUSED_KERNELS
+    watched = (e, g_k) + D_KERNELS + WHOLE_WAVE_KERNELS
+    buf = io.StringIO()
+    with route_env(RRT_NO_UBER_FUSED="1", RRT_UBER_WAVE="0"), \
+            tempfile.TemporaryDirectory() as td, \
+            contextlib.redirect_stdout(buf):
+        for k in watched:
+            k.launches = 0
+        rc = cli.main(["72", "2", "--scene", "cornell_box", "-a", "1.0",
+                       "-o", os.path.join(td, "c.png"), "--device", "cuda",
+                       "--devices", "1", "--checkpoint",
+                       os.path.join(td, "c.ckpt")])
+        launches = {k.name: k.launches for k in watched}
+    line = buf.getvalue().strip()
+    want = {k.name: 0 for k in watched}
+    want[e.name] = want[g_k.name] = 2 * DEPTH
+    if rc != 0 or "finite True" not in line or launches != want:
+        raise AssertionError(f"unfused CLI: exit {rc}, launches {launches}"
+                             f", expected {want}: {line}")
+    out = {"phase": "unfused_cli", "card": smi, "launches": launches,
+           "stdout": line.splitlines()[-1]}
+    emit(out)
+    return out
+
+
+def unfused_rows(checks, fwd, train) -> list[dict]:
+    """The ``{"kernels": [...]}`` rows of E, G and G': the launches of the
+    unfused training step; ms out of L2 and plain ms averaged over the
+    flagship's bounces 0 and 1, the bound from those bounces' data; the
+    profiler's in-path ms (E and G in the forward, G' in the step)."""
+    c = checks["flagship"]
+    bs, t = c["bounces"], c["t"]
+    src = "rust_ray_tracer_tpu_torch/csrc/"
+    rows = []
+    for k, file, repl, key, err, in_path, extra in (
+            (K.select_kernel, "trace_wave.cu", "pallas_uber.py:392", "e",
+             0.0, fwd["in_path"].get("select"),
+             {"winners_forked_vs_plain": [b["winners_forked_vs_plain"]
+                                          for b in bs]}),
+            (K.bounce_planes_live_kernel, "split.cu", "pallas_bounce.py:497",
+             "g", max(b["state_err"] for b in bs),
+             fwd["in_path"].get("bounce_planes_live"), {}),
+            (K.bounce_planes_live_bwd_kernel, "split.cu",
+             "pallas_bounce.py:532", "gp", max(b["dst_err"] for b in bs),
+             train["in_path"].get("bounce_planes_live_bwd"),
+             {"ms_with_bwd_reduce": statistics.mean(t["sum"]["cold"])})):
+        bounds = [bound(b[f"{key}_bytes"], b[f"{key}_ops"]) for b in bs]
+        rows.append({
+            "name": k.name, "route": "cuda", "source": src + file,
+            "replaces": f"rust_ray_tracer_tpu/ops/{repl}",
+            "launches": train["launches"][k.name], "max_abs_err": err,
+            "ms": statistics.mean(t[key]["cold"]),
+            "plain_ms": statistics.mean(t[key]["plain"]),
+            "bound_ms": statistics.mean(x[0] for x in bounds),
+            "bound_by": bounds[0][1], "library_ms": None,
+            "ms_in_path": in_path, "ms_per_bounce": t[key]["cold"],
+            "bound_ms_per_bounce": [x[0] for x in bounds],
+            "bytes_per_bounce": [b[f"{key}_bytes"] for b in bs],
+            "operations_per_bounce": [b[f"{key}_ops"] for b in bs],
+            **extra})
+    return rows
+
+
 def cli_phase(scene, height, spp, lo, hi) -> dict:
     """The CLI on the card: a PNG written and a finite mean radiance in
     [lo, hi]."""
@@ -3544,7 +3960,8 @@ def main() -> int:
                trace_wave_bwd_kernel, trace_wave_bwd_noise_kernel,
                bwd_reduce_kernel) + SPLIT_KERNELS + SPLIT_BWD_KERNELS
               + SEARCH_KERNELS + FUSED_KERNELS + FUSED_BWD_KERNELS
-              + CULL_KERNELS + SHADE_KERNELS + D_KERNELS + D_BWD_KERNELS):
+              + CULL_KERNELS + SHADE_KERNELS + D_KERNELS + D_BWD_KERNELS
+              + UNFUSED_KERNELS):
         k.load()
     emit({"phase": "build", "wall_seconds": time.perf_counter() - t0,
           "shade_max_lights": K.shade_max_lights(),
@@ -3580,6 +3997,24 @@ def main() -> int:
     t0 = time.perf_counter()
     d_checks = {"plain": fused_bounce_checks("flagship", flag_fwd),
                 "noise": fused_bounce_checks("random", rand_fwd)}
+    # ---- 7c. the unfused bounce (RRT_NO_UBER_FUSED=1): E, G and G' against
+    # their plain versions on the full-size bounces 0 and 1 of the flagship
+    # and of the checker-ground scene of phase 3 (triangles, spheres of
+    # three materials, a rect light), the flagship's forward and training
+    # step
+    # through render_waves with RRT_UBER_WAVE=0; each phase restores the
+    # environment, so the later phases keep their routes
+    t1 = time.perf_counter()
+    chk = wave_setup("solid_checker", lambda: solid_scene(checker=True),
+                     dev)
+    u_checks = {"flagship": unfused_bounce_checks("flagship", flag_fwd),
+                "solid_checker": unfused_bounce_checks("solid_checker",
+                                                       chk)}
+    if not sum(b["dead_tiles"] for b in u_checks["flagship"]["bounces"]):
+        raise AssertionError("no dead tile on the flagship's bounces")
+    u_fwd = unfused_forward(flag_fwd, dev, smi)
+    u_train = unfused_train(flag_fwd, dev, smi)
+    u_seconds = time.perf_counter() - t1
     multihost_init(f"127.0.0.1:{free_port()}", 1, 0, "cuda")
     try:
         mesh = make_mesh(device=dev)
@@ -3593,11 +4028,18 @@ def main() -> int:
             sharded_forward(label, fwd, mesh, dev, smi)
             d_trains[variant] = sharded_train(label, fwd, mesh, dev, smi,
                                               keys)
+        t1 = time.perf_counter()
+        unfused_sharded(flag_fwd, mesh, smi)
+        u_seconds += time.perf_counter() - t1
     finally:
         torch.distributed.destroy_process_group()
+    t1 = time.perf_counter()
+    unfused_cli(smi)
+    u_seconds += time.perf_counter() - t1
     sharded_two_ranks(dev, smi)
     checkpoint_resume(dev, smi)
-    emit({"phase": "per_chunk_phases", "seconds": time.perf_counter() - t0})
+    emit({"phase": "per_chunk_phases", "seconds": time.perf_counter() - t0,
+          "unfused_seconds": u_seconds})
 
     # ---- 8. final_scene (media, the split route): forward, training step -
     final_fwd = final_forward(dev, smi)
@@ -3669,7 +4111,8 @@ def main() -> int:
             + mesh_rows(mesh_fwd, mesh_tr, small_split)
             + cull_rows(rand_e_fwd, tri)
             + shade_rows(gltf_fwd, gltf_tr)
-            + fused_rows(d_checks, d_trains))
+            + fused_rows(d_checks, d_trains)
+            + unfused_rows(u_checks, u_fwd, u_train))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

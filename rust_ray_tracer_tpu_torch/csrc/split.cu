@@ -36,6 +36,16 @@
 //     _make_bwd_kernel (launched by _bp_bwd, pallas_bounce.py:369, its
 //     per-tile light-table partials summed at :399-401): F's adjoint.
 //     Plain version: ops/bounce_core.py bounce_plane_core_vjp.
+//   * G and G' are F and F' launched with tlive, one flag a 1024-lane tile
+//     (bounce_planes_live_launch, bounce_planes_live_bwd_launch). G replaces
+//     pallas_bounce.py _make_kernel_live (launched by bounce_planes_live,
+//     :497) and G' _make_bwd_kernel_live (launched by _bpl_bwd, :532, its
+//     partials summed at :566): the unfused uber bounce's shading
+//     (RRT_NO_UBER_FUSED=1), after kernel E (trace_wave.cu). A block of a
+//     tile with no live lane copies o, d, L, beta and alive through (G), or
+//     writes that copy's cotangent, zeros and a zero light-table partial
+//     (G'). Plain versions: ops/bounce.py bounce_planes_live_plain and
+//     bounce_planes_live_bwd_plain. A null tlive is F and F'.
 //
 // What bounds them on the card. O: fp32 work, ~45 operations per ray and
 // quad tested (1,408 quads on final_scene, 11 clusters of 128); a block of
@@ -51,7 +61,10 @@
 // of a dead lane and ~50 of a found one and writes 13; F' reads 13 to ~50
 // and writes every input plane's cotangent. One thread per ray, the planes
 // read and written coalesced; F' recomputes F's forward from the saved
-// planes and keeps the light table's cotangent as H' does.
+// planes and keeps the light table's cotangent as H' does. G and G' move
+// F's and F''s bytes on a live tile; on a dead one G reads 13 planes and
+// writes 13, G' reads 12 and writes every input plane's, so a dead tile
+// costs a copy, not the shading.
 //
 // J and H call the device functions that kernel A runs inline
 // (trace_common.cuh: hit_attrs, shade, update_found, update_miss), so the
@@ -381,8 +394,16 @@ shade_update_bwd_kernel(const float* __restrict__ P,
 }
 
 // ---- F and F': the fused bounce of solid and checker scenes ------------
+// ---- G and G': F and F' that skip a 1024-lane tile with no live ray ----
 
 constexpr int N_IN_B = 46, N_CHK = 6;
+constexpr int TILE_ROWS = 8;       // blocks a liveness flag covers
+
+// G's and G''s test: tlive holds one flag a 1024-lane tile (1: a live
+// lane), the tile of pallas_bounce._LIVE_BR rows of 128; null for F, F'.
+__device__ __forceinline__ bool tile_dead(const int* __restrict__ tlive) {
+  return tlive != nullptr && tlive[blockIdx.x / TILE_ROWS] == 0;
+}
 
 // F: P [46 (+6), n] = o(3) d(3) time tmin tmax pack(9) tmed | albedo(3)
 // fuzz ior | L(3) beta(3) | ub(9) gb(6) | alive (| even(3) odd(3) with
@@ -390,14 +411,27 @@ constexpr int N_IN_B = 46, N_CHK = 6;
 // lt [(n_lights + 1), LT_COLS], the last row the background. out [13, n]
 // = o' d' L' beta' alive'. The winner's hit attributes (J's hit_attrs),
 // the checker select at the hit point, the shading and the estimator
-// update (H's shade, update_found, update_miss), one thread per ray.
+// update (H's shade, update_found, update_miss), one thread per ray. G:
+// the same with tlive (tile_dead).
 __global__ void __launch_bounds__(ROW)
 bounce_planes_kernel(const float* __restrict__ P,
                      const int* __restrict__ pkind,
                      const int* __restrict__ mkind,
                      const int* __restrict__ flags,
+                     const int* __restrict__ tlive,
                      const float* __restrict__ lt, int n_lights,
                      int has_checker, float* __restrict__ out, int n) {
+  if (tile_dead(tlive)) {               // G's all-dead tile
+    const int i = blockIdx.x * ROW + threadIdx.x;
+    if (i < n) {
+      // o, d, L, beta and alive (0) through (pallas_bounce.py:434-441)
+      for (int c = 0; c < N_SU_OUT; ++c) {
+        const int src = c < 6 ? c : (c < 12 ? c + 18 : 45);
+        out[(size_t)c * n + i] = P[(size_t)src * n + i];
+      }
+    }
+    return;
+  }
   __shared__ float slt[MAX_LT];
   for (int k = threadIdx.x; k < (n_lights + 1) * LT_COLS; k += ROW)
     slt[k] = lt[k];
@@ -448,20 +482,34 @@ bounce_planes_kernel(const float* __restrict__ P,
 // attributes (trace_bwd_common.cuh, the functions B, J' and H' run). The
 // light table's cotangent leaves as one partial a block in kernel B's
 // layout, as H''s does, for bwd_reduce_kernel to sum in block order: no
-// float atomics.
+// float atomics. G': the same with tlive (tile_dead).
 __global__ void __launch_bounds__(ROW)
 bounce_planes_bwd_kernel(const float* __restrict__ P,
                          const int* __restrict__ pkind,
                          const int* __restrict__ mkind,
                          const int* __restrict__ flags,
+                         const int* __restrict__ tlive,
                          const float* __restrict__ lt, int n_lights,
                          int has_checker, const float* __restrict__ g,
                          float* __restrict__ dP, float* __restrict__ dlt_part,
                          int n) {
-  __shared__ float slt[MAX_LT];
-  __shared__ float red[ROW / 32][MAX_LT];
   const int ltn = (n_lights + 1) * LT_COLS;
   const int n_in = has_checker ? N_IN_B + N_CHK : N_IN_B;
+  if (tile_dead(tlive)) {    // G''s all-dead tile: the pass-through's vjp
+    const int i = blockIdx.x * ROW + threadIdx.x;
+    if (i < n) {
+      for (int c = 0; c < n_in; ++c) {
+        const int src = c < 6 ? c : (c >= 24 && c < 30 ? c - 18 : -1);
+        dP[(size_t)c * n + i] = src < 0 ? 0.f : g[(size_t)src * n + i];
+      }
+    }
+    // a zero partial: B' sums every block's in block order
+    for (int k = threadIdx.x; k < ltn; k += ROW)
+      dlt_part[(size_t)blockIdx.x * ltn + k] = 0.f;
+    return;
+  }
+  __shared__ float slt[MAX_LT];
+  __shared__ float red[ROW / 32][MAX_LT];
   for (int k = threadIdx.x; k < ltn; k += ROW) slt[k] = lt[k];
   __syncthreads();
   const int i = blockIdx.x * ROW + threadIdx.x;
@@ -623,7 +671,24 @@ extern "C" int bounce_planes_launch(const float* P, const int* pkind,
   if (n > 0)
     bounce_planes_kernel<<<(n + ROW - 1) / ROW, ROW, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-        P, pkind, mkind, flags, lt, n_lights, has_checker, out, n);
+        P, pkind, mkind, flags, nullptr, lt, n_lights, has_checker, out, n);
+  return launched(n);
+}
+
+// G: F with tlive [n / 1024] int32, one flag a 1024-lane tile; n a
+// multiple of 1024.
+extern "C" int bounce_planes_live_launch(const float* P, const int* pkind,
+                                         const int* mkind, const int* flags,
+                                         const int* tlive, const float* lt,
+                                         int n_lights, int has_checker,
+                                         float* out, int n, void* stream) {
+  if ((n_lights + 1) * LT_COLS > MAX_LT || n % (TILE_ROWS * ROW) ||
+      tlive == nullptr)
+    return -1;
+  if (n > 0)
+    bounce_planes_kernel<<<n / ROW, ROW, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        P, pkind, mkind, flags, tlive, lt, n_lights, has_checker, out, n);
   return launched(n);
 }
 
@@ -639,7 +704,24 @@ extern "C" int bounce_planes_bwd_launch(const float* P, const int* pkind,
   if (n > 0)
     bounce_planes_bwd_kernel<<<(n + ROW - 1) / ROW, ROW, 0,
                                static_cast<cudaStream_t>(stream)>>>(
-        P, pkind, mkind, flags, lt, n_lights, has_checker, g, dP, dlt_part,
-        n);
+        P, pkind, mkind, flags, nullptr, lt, n_lights, has_checker, g, dP,
+        dlt_part, n);
+  return launched(n);
+}
+
+// G': F' with G's tlive; dlt_part [n / 128, (n_lights + 1) * LT_COLS], a
+// dead tile's blocks writing zeros.
+extern "C" int bounce_planes_live_bwd_launch(
+    const float* P, const int* pkind, const int* mkind, const int* flags,
+    const int* tlive, const float* lt, int n_lights, int has_checker,
+    const float* g, float* dP, float* dlt_part, int n, void* stream) {
+  if ((n_lights + 1) * LT_COLS > MAX_LT || n % (TILE_ROWS * ROW) ||
+      tlive == nullptr)
+    return -1;
+  if (n > 0)
+    bounce_planes_bwd_kernel<<<n / ROW, ROW, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        P, pkind, mkind, flags, tlive, lt, n_lights, has_checker, g, dP,
+        dlt_part, n);
   return launched(n);
 }

@@ -18,6 +18,16 @@
 // backward D' and no copy of its input state, which the caller holds. Per
 // bounce it moves A's bytes: 14 state floats in and out and 15 randoms.
 //
+// Its phase 1, closest_hit, is kernel E too: the search alone with the
+// winner's row of the table fetched, replacing pallas_uber.py
+// _make_select_kernel (:346, launched by _select_impl, :392), which the
+// unfused uber bounce (RRT_NO_UBER_FUSED=1) runs before kernel G
+// (split.cu). Its plain version is ops/uber.py:select_plain. It shares A's
+// library and flags, so its winners are D's bit for bit on the same state.
+// The TPU fetched the row by a one-hot matrix product; here a found ray
+// reads uni[row] and a miss the default row. It reads 8 state floats a ray
+// and writes w + 2 words, and its time is A's sweep for one bounce.
+//
 // What bounds it on the card: fp32 ALU work of the triangle sweep (four
 // 10-term Plücker dots and a division per ray x triangle in every culled
 // chunk a ray's row enters), and warp divergence, because rays die at
@@ -90,6 +100,121 @@ struct Tables {
       has_checker;
 };
 
+// Phase 1 (pallas_uber._search_row): the closest hit of the ray (o, d) at
+// ``time``, the body of kernel E and of A's and D's bounce. Every thread of
+// the block calls it together: the per-(row, chunk) cull is a block-wide
+// vote. A dead ray (live_in false) takes part in the votes with an empty
+// window (tmax -1) and finds nothing. The winner's row is 0 on a miss.
+struct Winner {
+  float t;
+  int k, i;
+};
+
+__device__ __forceinline__ Winner
+closest_hit(const Tables& tb, V3 o, V3 d, float time, bool live_in) {
+  const float tmin = T_MIN;
+  const float tmax = live_in ? INFINITY : -1.f;
+  const float ox = o.x, oy = o.y, oz = o.z, dx = d.x, dy = d.y, dz = d.z;
+  float best_t = INFINITY;
+  int best_k = KIND_NONE, best_i = 0;
+  if (tb.n_tri_chunks > 0) {
+    const float f[10] = {ox, oy, oz, dx, dy, dz, oy * dz - oz * dy,
+                         oz * dx - ox * dz, ox * dy - oy * dx, 1.f};
+    const float eps = TRI_DET_EPS * sqrtf(dx * dx + dy * dy + dz * dz);
+    const float ivx = 1.f / (fabsf(dx) < 1e-30f ? 1e-30f : dx);
+    const float ivy = 1.f / (fabsf(dy) < 1e-30f ? 1e-30f : dy);
+    const float ivz = 1.f / (fabsf(dz) < 1e-30f ? 1e-30f : dz);
+    for (int c = 0; c < tb.n_tri_chunks; ++c) {
+      const float* box = tb.cab + c * 8;
+      const float t0x = (box[0] - ox) * ivx, t1x = (box[3] - ox) * ivx;
+      const float t0y = (box[1] - oy) * ivy, t1y = (box[4] - oy) * ivy;
+      const float t0z = (box[2] - oz) * ivz, t1z = (box[5] - oz) * ivz;
+      const float tn = jmax(jmax(jmin(t0x, t1x), jmin(t0y, t1y)),
+                            jmax(jmin(t0z, t1z), tmin));
+      const float tf = jmin(jmin(jmax(t0x, t1x), jmax(t0y, t1y)),
+                            jmax(t0z, t1z));
+      if (!__syncthreads_or(tf >= tn && live_in)) continue;
+      if (!live_in) continue;
+      for (int j = c * TCC; j < (c + 1) * TCC; ++j) {
+        const float dm = dot10(tb.det + (size_t)j * 10, f);
+        const bool side_ok =
+            dm > eps || (dm < -eps && tb.dbl[j] > 0.5f);
+        if (!side_ok) continue;
+        const float inv = 1.f / (fabsf(dm) > eps ? dm : 1.f);
+        const float u = dot10(tb.um + (size_t)j * 10, f) * inv;
+        const float v = dot10(tb.vm + (size_t)j * 10, f) * inv;
+        const float t = dot10(tb.tm + (size_t)j * 10, f) * inv;
+        const bool valid = u >= 0.f && u <= 1.f && v >= 0.f &&
+                           v < 1.f - u && t >= tmin && t <= tmax;
+        if (valid && t < best_t) {
+          best_t = t;
+          best_k = KIND_TRI;
+          best_i = tb.t_off + j;
+        }
+      }
+    }
+  }
+  if (!live_in) return {INFINITY, KIND_NONE, 0};
+  for (int k = 0; k < tb.n_sph; ++k) {
+    const float* sp = tb.sph + k * 9;
+    const float frac = (time - sp[6]) * sp[7];
+    const float cx = sp[0] + frac * sp[3];
+    const float cy = sp[1] + frac * sp[4];
+    const float cz = sp[2] + frac * sp[5];
+    const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
+    const float a = dx * dx + dy * dy + dz * dz;
+    const float bq = ocx * dx + ocy * dy + ocz * dz;
+    const float cc = ocx * ocx + ocy * ocy + ocz * ocz - sp[8] * sp[8];
+    const float disc = bq * bq - a * cc;
+    const bool ok = disc > 0.f;
+    const float sq = sqrtf(jmax(disc, 1e-12f)) * (ok ? 1.f : 0.f);
+    const float inv_a = 1.f / jmax(a, 1e-12f);
+    const float root1 = (-bq - sq) * inv_a;
+    const float root2 = (-bq + sq) * inv_a;
+    const bool ok1 = ok && root1 >= tmin && root1 <= tmax;
+    const bool ok2 = ok && root2 >= tmin && root2 <= tmax;
+    const float t = ok1 ? root1 : (ok2 ? root2 : INFINITY);
+    if (t < best_t) {
+      best_t = t;
+      best_k = KIND_SPH;
+      best_i = tb.s_off + k;
+    }
+  }
+  for (int k = 0; k < tb.n_quad; ++k) {
+    const float* qd = tb.quad + k * 9;
+    const float qx = qd[0], qy = qd[1], qz = qd[2];
+    const float ux = qd[3], uy = qd[4], uz = qd[5];
+    const float vx = qd[6], vy = qd[7], vz = qd[8];
+    const float wnx = uy * vz - uz * vy;
+    const float wny = uz * vx - ux * vz;
+    const float wnz = ux * vy - uy * vx;
+    const float denom = dx * wnx + dy * wny + dz * wnz;
+    const float dsafe = fabsf(denom) < 1e-12f
+                            ? (denom < 0.f ? -1e-12f : 1e-12f) : denom;
+    const float t = ((qx - ox) * wnx + (qy - oy) * wny +
+                     (qz - oz) * wnz) / dsafe;
+    const float wx = ox + t * dx - qx;
+    const float wy = oy + t * dy - qy;
+    const float wz = oz + t * dz - qz;
+    const float n2 = wnx * wnx + wny * wny + wnz * wnz;
+    const float inv_n2 = 1.f / jmax(n2, 1e-12f);
+    const float qa = ((wy * vz - wz * vy) * wnx +
+                      (wz * vx - wx * vz) * wny +
+                      (wx * vy - wy * vx) * wnz) * inv_n2;
+    const float qb = ((uy * wz - uz * wy) * wnx +
+                      (uz * wx - ux * wz) * wny +
+                      (ux * wy - uy * wx) * wnz) * inv_n2;
+    const bool valid = fabsf(denom) > 0.f && t >= tmin && t <= tmax &&
+                       qa >= 0.f && qa <= 1.f && qb >= 0.f && qb <= 1.f;
+    if (valid && t < best_t) {
+      best_t = t;
+      best_k = KIND_QUAD;
+      best_i = tb.q_off + k;
+    }
+  }
+  return {best_t, best_k, best_k == KIND_NONE ? 0 : best_i};
+}
+
 // ``depth`` bounces of the block's 128 rays from st0 into stf, the body of
 // kernels A and D. With hist, bounce b's input state goes to hist[b]; with
 // kind_out / idx_out, its winner (kind, row; 0 on a miss) to [b].
@@ -141,113 +266,14 @@ trace_rays(const float* __restrict__ st0, const float* __restrict__ rnd,
       }
       break;
     }
-    const float tmin = T_MIN;
-    const float tmax = live_in ? INFINITY : -1.f;
-    const float ox = o.x, oy = o.y, oz = o.z, dx = d.x, dy = d.y, dz = d.z;
-
-    // ---- phase 1: closest hit (pallas_uber._search_row) ----------------
-    float best_t = INFINITY;
-    int best_k = KIND_NONE, best_i = 0;
-    if (tb.n_tri_chunks > 0) {
-      const float f[10] = {ox, oy, oz, dx, dy, dz, oy * dz - oz * dy,
-                           oz * dx - ox * dz, ox * dy - oy * dx, 1.f};
-      const float eps = TRI_DET_EPS * sqrtf(dx * dx + dy * dy + dz * dz);
-      const float ivx = 1.f / (fabsf(dx) < 1e-30f ? 1e-30f : dx);
-      const float ivy = 1.f / (fabsf(dy) < 1e-30f ? 1e-30f : dy);
-      const float ivz = 1.f / (fabsf(dz) < 1e-30f ? 1e-30f : dz);
-      for (int c = 0; c < tb.n_tri_chunks; ++c) {
-        const float* box = tb.cab + c * 8;
-        const float t0x = (box[0] - ox) * ivx, t1x = (box[3] - ox) * ivx;
-        const float t0y = (box[1] - oy) * ivy, t1y = (box[4] - oy) * ivy;
-        const float t0z = (box[2] - oz) * ivz, t1z = (box[5] - oz) * ivz;
-        const float tn = jmax(jmax(jmin(t0x, t1x), jmin(t0y, t1y)),
-                              jmax(jmin(t0z, t1z), tmin));
-        const float tf = jmin(jmin(jmax(t0x, t1x), jmax(t0y, t1y)),
-                              jmax(t0z, t1z));
-        if (!__syncthreads_or(tf >= tn && live_in)) continue;
-        if (!live_in) continue;
-        for (int j = c * TCC; j < (c + 1) * TCC; ++j) {
-          const float dm = dot10(tb.det + (size_t)j * 10, f);
-          const bool side_ok =
-              dm > eps || (dm < -eps && tb.dbl[j] > 0.5f);
-          if (!side_ok) continue;
-          const float inv = 1.f / (fabsf(dm) > eps ? dm : 1.f);
-          const float u = dot10(tb.um + (size_t)j * 10, f) * inv;
-          const float v = dot10(tb.vm + (size_t)j * 10, f) * inv;
-          const float t = dot10(tb.tm + (size_t)j * 10, f) * inv;
-          const bool valid = u >= 0.f && u <= 1.f && v >= 0.f &&
-                             v < 1.f - u && t >= tmin && t <= tmax;
-          if (valid && t < best_t) {
-            best_t = t;
-            best_k = KIND_TRI;
-            best_i = tb.t_off + j;
-          }
-        }
-      }
-    }
+    const Winner win = closest_hit(tb, o, d, time, live_in);
     if (!live_in) {           // a dead ray passes its state through
       if (keep_win) save_winner(b, KIND_NONE, 0);
       continue;
     }
-    for (int k = 0; k < tb.n_sph; ++k) {
-      const float* sp = tb.sph + k * 9;
-      const float frac = (time - sp[6]) * sp[7];
-      const float cx = sp[0] + frac * sp[3];
-      const float cy = sp[1] + frac * sp[4];
-      const float cz = sp[2] + frac * sp[5];
-      const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
-      const float a = dx * dx + dy * dy + dz * dz;
-      const float bq = ocx * dx + ocy * dy + ocz * dz;
-      const float cc = ocx * ocx + ocy * ocy + ocz * ocz - sp[8] * sp[8];
-      const float disc = bq * bq - a * cc;
-      const bool ok = disc > 0.f;
-      const float sq = sqrtf(jmax(disc, 1e-12f)) * (ok ? 1.f : 0.f);
-      const float inv_a = 1.f / jmax(a, 1e-12f);
-      const float root1 = (-bq - sq) * inv_a;
-      const float root2 = (-bq + sq) * inv_a;
-      const bool ok1 = ok && root1 >= tmin && root1 <= tmax;
-      const bool ok2 = ok && root2 >= tmin && root2 <= tmax;
-      const float t = ok1 ? root1 : (ok2 ? root2 : INFINITY);
-      if (t < best_t) {
-        best_t = t;
-        best_k = KIND_SPH;
-        best_i = tb.s_off + k;
-      }
-    }
-    for (int k = 0; k < tb.n_quad; ++k) {
-      const float* qd = tb.quad + k * 9;
-      const float qx = qd[0], qy = qd[1], qz = qd[2];
-      const float ux = qd[3], uy = qd[4], uz = qd[5];
-      const float vx = qd[6], vy = qd[7], vz = qd[8];
-      const float wnx = uy * vz - uz * vy;
-      const float wny = uz * vx - ux * vz;
-      const float wnz = ux * vy - uy * vx;
-      const float denom = dx * wnx + dy * wny + dz * wnz;
-      const float dsafe = fabsf(denom) < 1e-12f
-                              ? (denom < 0.f ? -1e-12f : 1e-12f) : denom;
-      const float t = ((qx - ox) * wnx + (qy - oy) * wny +
-                       (qz - oz) * wnz) / dsafe;
-      const float wx = ox + t * dx - qx;
-      const float wy = oy + t * dy - qy;
-      const float wz = oz + t * dz - qz;
-      const float n2 = wnx * wnx + wny * wny + wnz * wnz;
-      const float inv_n2 = 1.f / jmax(n2, 1e-12f);
-      const float qa = ((wy * vz - wz * vy) * wnx +
-                        (wz * vx - wx * vz) * wny +
-                        (wx * vy - wy * vx) * wnz) * inv_n2;
-      const float qb = ((uy * wz - uz * wy) * wnx +
-                        (uz * wx - ux * wz) * wny +
-                        (ux * wy - uy * wx) * wnz) * inv_n2;
-      const bool valid = fabsf(denom) > 0.f && t >= tmin && t <= tmax &&
-                         qa >= 0.f && qa <= 1.f && qb >= 0.f && qb <= 1.f;
-      if (valid && t < best_t) {
-        best_t = t;
-        best_k = KIND_QUAD;
-        best_i = tb.q_off + k;
-      }
-    }
-
-    if (keep_win) save_winner(b, best_k, best_k == KIND_NONE ? 0 : best_i);
+    const float tmin = T_MIN, tmax = INFINITY;
+    const int best_k = win.k, best_i = win.i;
+    if (keep_win) save_winner(b, best_k, best_i);
 
     // ---- miss: background, the path ends -------------------------------
     if (best_k == KIND_NONE) {
@@ -323,6 +349,36 @@ fused_bounce_kernel(const float* __restrict__ st,
                         depth);
 }
 
+// Kernel E: phase 1 alone, for the unfused bounce (RRT_NO_UBER_FUSED=1):
+// each ray's winner (kind, row; 0 on a miss and for a dead ray) and the
+// winner's row of uni, or dflt on a miss, as W planes. A block is one
+// 128-ray row of A, with A's cull votes; a row with no live ray, so every
+// row of a tile with none, writes kind 0, row 0 and dflt without a search
+// (the dead tile of pallas_uber._make_select_kernel, :357-362). The
+// variant without noise only: under that flag a noise scene takes the
+// split route (pallas_uber.py:1261-1262).
+__global__ void __launch_bounds__(ROW)
+select_kernel(const float* __restrict__ st, const Tables tb,
+              const float* __restrict__ dflt, float* __restrict__ selv,
+              int* __restrict__ kind_out, int* __restrict__ idx_out, int n) {
+  const int i = blockIdx.x * ROW + threadIdx.x;
+  const bool in = i < n;
+  float s[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) s[c] = in ? st[(size_t)c * n + i] : 0.f;
+  const bool live_in = s[7] > 0.5f;
+  Winner win{INFINITY, KIND_NONE, 0};
+  if (__syncthreads_or(live_in))
+    win = closest_hit(tb, {s[0], s[1], s[2]}, {s[3], s[4], s[5]}, s[6],
+                      live_in);
+  if (!in) return;
+  kind_out[i] = win.k;
+  idx_out[i] = win.i;
+  const float* __restrict__ row =
+      win.k == KIND_NONE ? dflt : tb.uni + (size_t)win.i * tb.w;
+  for (int c = 0; c < tb.w; ++c) selv[(size_t)c * n + i] = row[c];
+}
+
 #ifdef TRACE_WAVE_NOISE
 constexpr bool kNoise = true;    // the noise variant's library
 #else
@@ -386,6 +442,30 @@ extern "C" int fused_bounce_launch(
     fused_bounce_kernel<kNoise><<<blocks, ROW, kNoise ? PERLIN_SMEM : 0,
                                   static_cast<cudaStream_t>(stream)>>>(
         st, rnd, tb, st2, kind, idx, n, 1);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch kernel E on ``stream``; returns cudaGetLastError() (0 =
+// launched), or -1 in the noise variant's library, which launches no E.
+// st [8, n] float32 (o, d, time, alive), n a multiple of 128; dflt [w] the
+// miss default; selv [w, n] float32, kind and idx [n] int32, written for
+// every lane. The tables are trace_wave_launch's (no light table).
+extern "C" int select_launch(
+    const float* st, const float* uni, const float* dflt,
+    const float* det_t, const float* u_t, const float* v_t,
+    const float* t_t, const float* dbl_t, const float* sph,
+    const float* quad, const float* cab, float* selv, int* kind, int* idx,
+    int n, int w, int n_tri_chunks, int n_sph, int n_quad, int t_off,
+    int s_off, int q_off, void* stream) {
+  if (kNoise) return -1;
+  Tables tb{uni, det_t, u_t, v_t, t_t, dbl_t, sph, quad, cab, nullptr,
+            nullptr, nullptr, w, n_tri_chunks, n_sph, n_quad, t_off,
+            s_off, q_off, 0, 0};
+  const int blocks = (n + ROW - 1) / ROW;
+  if (blocks > 0) {
+    select_kernel<<<blocks, ROW, 0, static_cast<cudaStream_t>(stream)>>>(
+        st, tb, dflt, selv, kind, idx, n);
   }
   return static_cast<int>(cudaGetLastError());
 }

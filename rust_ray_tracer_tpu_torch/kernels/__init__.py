@@ -40,6 +40,12 @@ Kernels (each wrapper counts its launches in ``launches``):
     ``ops/uber.fused_bounce_bwd_plain``), whose sums ``bwd_reduce_kernel``
     takes. :func:`fused_bounce_kernel` and :func:`fused_bounce_bwd_kernel`
     pick the variant; :func:`fused_bounce_backward` chains D' and B';
+  * ``select_kernel`` (name ``select``) — kernel E, A's phase 1 launched
+    alone with the winners' rows fetched, for the unfused uber bounce
+    (replaces ``pallas_uber.py`` ``_make_select_kernel``, :346, launched
+    by ``_select_impl``, :392; plain version ``ops/uber.select_plain``), in
+    A's library without noise; its backward is the glue's row sums
+    (``ops/gather.row_sums``, B');
   * the split route's kernels, ``csrc/split.cu`` (library ``split``):
     ``quad_search_kernel`` (TPU kernel O, ``pallas_quad.py`` ``_kernel``;
     plain version ``ops/quad._quad_candidates``),
@@ -58,7 +64,16 @@ Kernels (each wrapper counts its launches in ``launches``):
     ``_make_kernel``; plain version ``ops/bounce_core.bounce_plane_core``)
     and its adjoint ``bounce_planes_bwd_kernel`` (TPU kernel F',
     ``_make_bwd_kernel``; plain version ``bounce_plane_core_vjp``), whose
-    light-table partials ``bwd_reduce_kernel`` sums too;
+    light-table partials ``bwd_reduce_kernel`` sums too; and F and F'
+    launched with a liveness flag per 1024-lane tile for the unfused uber
+    bounce, ``bounce_planes_live_kernel`` (TPU kernel G,
+    ``pallas_bounce.py`` ``_make_kernel_live``, :420, launched by
+    ``bounce_planes_live``, :497; plain version
+    ``ops/bounce.bounce_planes_live_plain``) and
+    ``bounce_planes_live_bwd_kernel`` (TPU kernel G',
+    ``_make_bwd_kernel_live``, :444, launched by ``_bpl_bwd``, :532; plain
+    version ``bounce_planes_live_bwd_plain``), whose partials
+    ``_light_sum`` (B') sums;
   * the split route's triangle search, ``csrc/search.cu`` (library
     ``search``): ``tile_enter_kernel`` (TPU kernel K,
     ``pallas_intersect.py`` ``_mask_kernel``; plain version
@@ -286,9 +301,17 @@ def _check_trace(kernel, st, st_name, rnd, rnd_lead, ctx):
         raise ValueError(f"{st_name} must be [{N_STATE}, N] with N % 128 == "
                          f"0, got {tuple(st.shape)}")
     _check_variant(kernel, ctx)
-    w_min = _attr_cols(ctx)
     _check(st_name, st, dev, (N_STATE, n))
     _check("rnd", rnd, dev, tuple(rnd_lead) + (n,))
+    _check_search_tables(ctx, dev)
+    _check("lt", ctx.lt, dev, (ctx.n_lights + 1, LT_COLS))
+    return dev
+
+
+def _check_search_tables(ctx, dev):
+    """Check the winner rows and the search tables of ``ctx`` (an
+    ``ops.uber.TraceCtx``) for a launch of kernel A, D or E on ``dev``."""
+    w_min = _attr_cols(ctx)
     _check("uni", ctx.uni, dev)
     if ctx.uni.dim() != 2 or ctx.uni.shape[1] < w_min:
         raise ValueError(f"uni must be [P, >= {w_min}], got "
@@ -302,8 +325,6 @@ def _check_trace(kernel, st, st_name, rnd, rnd_lead, ctx):
     _check("sph", ctx.sph, dev, (ctx.sph.shape[0], 9))
     _check("quad", ctx.quad, dev, (ctx.quad.shape[0], 9))
     _check("cab", ctx.cab, dev, (max(1, -(-tp // TCC)), 8))
-    _check("lt", ctx.lt, dev, (ctx.n_lights + 1, LT_COLS))
-    return dev
 
 
 def _trace_tables(ctx):
@@ -486,6 +507,48 @@ class FusedBounceNoiseKernel(FusedBounceKernel):
     noise = True
 
 
+class SelectKernel(_Kernel):
+    """ctypes wrapper of ``select_launch`` (kernel E): phase 1 alone and
+    the winners' rows, for the unfused uber bounce. In A's library without
+    noise, so its winners are kernel D's bit for bit; it refuses a context
+    with noise, which takes the split route under ``RRT_NO_UBER_FUSED=1``."""
+
+    name = "select"
+    library = "trace_wave"
+    entry = "select_launch"
+    argtypes = (_P,) * 14 + (_I,) * 8
+
+    def __call__(self, st: torch.Tensor, ctx):
+        """(selv [W, N] float32, kind, idx [N] int32) of the lanes of
+        ``st`` [8, N] (o, d, time, alive; N % 128 == 0) over the tables of
+        ``ctx``, W = ``ctx.uni``'s columns, as ``ops.uber.select_plain``
+        returns them."""
+        if ctx.has_noise:
+            raise ValueError("kernel E has no marble: under "
+                             "RRT_NO_UBER_FUSED=1 a noise scene takes the "
+                             "split route")
+        dev = st.device
+        if dev.type != "cuda":
+            raise ValueError(f"select kernel needs CUDA tensors, got {dev}")
+        n = st.shape[1] if st.dim() == 2 else -1
+        if n < 0 or n % 128:
+            raise ValueError(f"st must be [8, N] with N % 128 == 0, got "
+                             f"{tuple(st.shape)}")
+        _check("st", st, dev, (8, n))
+        _check_search_tables(ctx, dev)
+        w = ctx.uni.shape[1]
+        _check("dflt", ctx.dflt, dev, (w,))
+        self.load()
+        selv = torch.empty((w, n), dtype=torch.float32, device=dev)
+        kind = torch.empty((n,), dtype=torch.int32, device=dev)
+        idx = torch.empty_like(kind)
+        tables, counts = _trace_tables(ctx)
+        self._launch(dev, _ptr(st), _ptr(ctx.uni), _ptr(ctx.dflt),
+                     *tables[1:9], _ptr(selv), _ptr(kind), _ptr(idx), n,
+                     *counts[:7])
+        return selv, kind, idx
+
+
 class FusedBounceBwdKernel(_Kernel):
     """ctypes wrapper of ``fused_bounce_bwd_launch`` (kernel D'), the
     variant without noise: the adjoint of one uber bounce from kernel D's
@@ -525,6 +588,7 @@ class FusedBounceBwdNoiseKernel(FusedBounceBwdKernel):
     noise = True
 
 
+select_kernel = SelectKernel()
 bounce_uber_kernel = FusedBounceKernel()
 bounce_uber_noise_kernel = FusedBounceNoiseKernel()
 bounce_uber_bwd_kernel = FusedBounceBwdKernel()
@@ -764,6 +828,30 @@ def _light_sum(part, lt):
     return dlt.reshape(lt.shape)
 
 
+def _check_bounce_planes(name, planes, pkind, mkind, flags, lt, n_lights,
+                         g=None):
+    """(device, N, plane count) of a launch of kernel F, F', G or G' after
+    checking its planes [46 or 52, N], the int32 ``pkind``, ``mkind``,
+    ``flags`` [N], ``lt`` and, for a backward, ``g`` [13, N]."""
+    dev = planes.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} kernel needs CUDA tensors, got {dev}")
+    n = planes.shape[1] if planes.dim() == 2 else -1
+    n_in = planes.shape[0]
+    if n_in not in (N_IN_B, N_IN_B + N_CHK):
+        raise ValueError(f"planes must be [{N_IN_B} or {N_IN_B + N_CHK}, N], "
+                         f"got {tuple(planes.shape)}")
+    if (n_lights + 1) * LT_COLS > 128:
+        raise ValueError(f"{n_lights} lights exceed the kernel's light table")
+    _check("planes", planes, dev, (n_in, n))
+    for nm, t in (("pkind", pkind), ("mkind", mkind), ("flags", flags)):
+        _check(nm, t, dev, (n,), torch.int32)
+    _check("lt", lt, dev, (n_lights + 1, LT_COLS))
+    if g is not None:
+        _check("g", g, dev, (N_SU_OUT, n))
+    return dev, n, n_in
+
+
 class BouncePlanesKernel(_Kernel):
     """ctypes wrapper of ``bounce_planes_launch`` (kernel F): [13, N] next
     state planes (o, d, L, beta, alive) of [46, N] input planes (52 with
@@ -778,23 +866,8 @@ class BouncePlanesKernel(_Kernel):
     argtypes = (_P,) * 5 + (_I, _I, _P, _I)
 
     def __call__(self, planes, pkind, mkind, flags, lt, n_lights: int):
-        dev = planes.device
-        if dev.type != "cuda":
-            raise ValueError(f"bounce_planes kernel needs CUDA tensors, got "
-                             f"{dev}")
-        n = planes.shape[1] if planes.dim() == 2 else -1
-        n_in = planes.shape[0]
-        if n_in not in (N_IN_B, N_IN_B + N_CHK):
-            raise ValueError(f"planes must be [{N_IN_B} or "
-                             f"{N_IN_B + N_CHK}, N], got "
-                             f"{tuple(planes.shape)}")
-        if (n_lights + 1) * LT_COLS > 128:
-            raise ValueError(f"{n_lights} lights exceed the kernel's light "
-                             "table")
-        _check("planes", planes, dev, (n_in, n))
-        for nm, t in (("pkind", pkind), ("mkind", mkind), ("flags", flags)):
-            _check(nm, t, dev, (n,), torch.int32)
-        _check("lt", lt, dev, (n_lights + 1, LT_COLS))
+        dev, n, n_in = _check_bounce_planes(self.name, planes, pkind, mkind,
+                                            flags, lt, n_lights)
         self.load()
         out = torch.empty((N_SU_OUT, n), dtype=torch.float32, device=dev)
         self._launch(dev, _ptr(planes), _ptr(pkind), _ptr(mkind),
@@ -819,29 +892,12 @@ class BouncePlanesBwdKernel(_Kernel):
     def partials(self, planes, pkind, mkind, flags, lt, n_lights: int, g):
         """Kernel F' alone: (dP like ``planes``, the blocks' light-table
         partials [ceil(N / 128), (n_lights + 1) * LT_COLS])."""
-        dev = planes.device
-        if dev.type != "cuda":
-            raise ValueError(f"bounce_planes_bwd kernel needs CUDA tensors, "
-                             f"got {dev}")
-        n = planes.shape[1] if planes.dim() == 2 else -1
-        n_in = planes.shape[0]
-        ltn = (n_lights + 1) * LT_COLS
-        if n_in not in (N_IN_B, N_IN_B + N_CHK):
-            raise ValueError(f"planes must be [{N_IN_B} or "
-                             f"{N_IN_B + N_CHK}, N], got "
-                             f"{tuple(planes.shape)}")
-        if ltn > 128:
-            raise ValueError(f"{n_lights} lights exceed the kernel's light "
-                             "table")
-        _check("planes", planes, dev, (n_in, n))
-        for nm, t in (("pkind", pkind), ("mkind", mkind), ("flags", flags)):
-            _check(nm, t, dev, (n,), torch.int32)
-        _check("lt", lt, dev, (n_lights + 1, LT_COLS))
-        _check("g", g, dev, (N_SU_OUT, n))
+        dev, n, n_in = _check_bounce_planes(self.name, planes, pkind, mkind,
+                                            flags, lt, n_lights, g)
         self.load()
         d_planes = torch.empty((n_in, n), dtype=torch.float32, device=dev)
-        part = torch.empty((-(-n // 128), ltn), dtype=torch.float32,
-                           device=dev)
+        part = torch.empty((-(-n // 128), (n_lights + 1) * LT_COLS),
+                           dtype=torch.float32, device=dev)
         self._launch(dev, _ptr(planes), _ptr(pkind), _ptr(mkind),
                      _ptr(flags), _ptr(lt), n_lights, int(n_in > N_IN_B),
                      _ptr(g), _ptr(d_planes), _ptr(part), n)
@@ -852,6 +908,73 @@ class BouncePlanesBwdKernel(_Kernel):
         light-table partials."""
         d_planes, part = self.partials(planes, pkind, mkind, flags, lt,
                                        n_lights, g)
+        return d_planes, _light_sum(part, lt)
+
+
+def _check_tlive(tlive, dev, n):
+    """Check G's and G''s liveness flags: [N / 1024] int32, N whole tiles."""
+    if n % TILE:
+        raise ValueError(f"{n} lanes are not whole {TILE}-lane tiles")
+    _check("tlive", tlive, dev, (n // TILE,), torch.int32)
+
+
+class BouncePlanesLiveKernel(BouncePlanesKernel):
+    """ctypes wrapper of ``bounce_planes_live_launch`` (kernel G): kernel F
+    with ``tlive`` [N / 1024] int32, one flag a 1024-lane tile; a tile
+    whose flag is 0 copies o, d, L, beta and alive through, as
+    ``ops/bounce.bounce_planes_live_plain`` returns them."""
+
+    name = "bounce_planes_live"
+    entry = "bounce_planes_live_launch"
+    argtypes = (_P,) * 6 + (_I, _I, _P, _I)
+
+    def __call__(self, planes, pkind, mkind, flags, lt, n_lights: int,
+                 tlive):
+        dev, n, n_in = _check_bounce_planes(self.name, planes, pkind, mkind,
+                                            flags, lt, n_lights)
+        _check_tlive(tlive, dev, n)
+        self.load()
+        out = torch.empty((N_SU_OUT, n), dtype=torch.float32, device=dev)
+        self._launch(dev, _ptr(planes), _ptr(pkind), _ptr(mkind),
+                     _ptr(flags), _ptr(tlive), _ptr(lt), n_lights,
+                     int(n_in > N_IN_B), _ptr(out), n)
+        return out
+
+
+class BouncePlanesLiveBwdKernel(BouncePlanesBwdKernel):
+    """ctypes wrapper of ``bounce_planes_live_bwd_launch`` (kernel G'):
+    kernel F' with G's ``tlive``; a dead tile's lanes take the
+    pass-through's cotangent and its blocks a zero light-table partial, as
+    ``ops/bounce.bounce_planes_live_bwd_plain`` returns them. The partials
+    are summed by B' (``_light_sum``)."""
+
+    name = "bounce_planes_live_bwd"
+    entry = "bounce_planes_live_bwd_launch"
+    argtypes = (_P,) * 6 + (_I, _I) + (_P,) * 3 + (_I,)
+
+    def partials(self, planes, pkind, mkind, flags, lt, n_lights: int, tlive,
+                 g):
+        """Kernel G' alone: (dP like ``planes``, the blocks' light-table
+        partials [N / 128, (n_lights + 1) * LT_COLS])."""
+        dev, n, n_in = _check_bounce_planes(self.name, planes, pkind, mkind,
+                                            flags, lt, n_lights, g)
+        _check_tlive(tlive, dev, n)
+        self.load()
+        d_planes = torch.empty((n_in, n), dtype=torch.float32, device=dev)
+        part = torch.empty((n // 128, (n_lights + 1) * LT_COLS),
+                           dtype=torch.float32, device=dev)
+        self._launch(dev, _ptr(planes), _ptr(pkind), _ptr(mkind),
+                     _ptr(flags), _ptr(tlive), _ptr(lt), n_lights,
+                     int(n_in > N_IN_B), _ptr(g), _ptr(d_planes), _ptr(part),
+                     n)
+        return d_planes, part
+
+    def __call__(self, planes, pkind, mkind, flags, lt, n_lights: int, tlive,
+                 g):
+        """(dP like ``planes``, dlt like ``lt``): G', then B''s sum of its
+        light-table partials."""
+        d_planes, part = self.partials(planes, pkind, mkind, flags, lt,
+                                       n_lights, tlive, g)
         return d_planes, _light_sum(part, lt)
 
 
@@ -1093,6 +1216,8 @@ hit_attrs_bwd_kernel = HitAttrsBwdKernel()
 shade_update_bwd_kernel = ShadeUpdateBwdKernel()
 bounce_planes_kernel = BouncePlanesKernel()
 bounce_planes_bwd_kernel = BouncePlanesBwdKernel()
+bounce_planes_live_kernel = BouncePlanesLiveKernel()
+bounce_planes_live_bwd_kernel = BouncePlanesLiveBwdKernel()
 tile_enter_kernel = TileEnterKernel()
 fused_search_kernel = FusedSearchKernel()
 tri_search_kernel = TriSearchKernel()

@@ -16,6 +16,18 @@ Counterpart of ``rust_ray_tracer_tpu/ops/pallas_bounce.py``:
     for autograd, and :func:`bounce_fused` packs a bounce's planes in
     JAX's layout (``ops/bounce_core.py``'s docstring: 46 planes, 52 with
     the checker leaves);
+  * G and G', F and F' gated by a liveness flag per 1024-lane tile
+    (``bounce_planes_live``, ``pallas_bounce.py:492-572``:
+    ``_make_kernel_live`` :420, ``_make_bwd_kernel_live`` :444), the
+    shading of the unfused uber bounce (``ops/uber.bounce_uber`` under
+    ``RRT_NO_UBER_FUSED=1``): a tile with no live lane copies o, d, L,
+    beta and alive through, and in the backward that copy's cotangent
+    with a zero light-table share.
+    :func:`bounce_planes_live_plain` and :func:`bounce_planes_live_bwd_plain`
+    are their plain versions, :func:`bounce_planes_live` and
+    :func:`bounce_planes_live_bwd` the dispatchers (``bounce_planes_kernel``
+    / ``bounce_planes_bwd_kernel`` of ``csrc/split.cu`` launched with the
+    flags on the card), :class:`BouncePlanesLive` the ``custom_vjp``;
   * H, for scenes with noise textures, whose albedo the glue evaluates
     (``pallas_bounce.py:575-805``): :func:`su_plane_core` is the plain
     version of ``_su_plane_core`` (``pallas_bounce.py:590-634``) —
@@ -47,12 +59,14 @@ from rust_ray_tracer_tpu_torch.ops.intersect import (MATTR_ALBEDO, MATTR_EVEN,
                                                      MATTR_FUZZ, MATTR_IOR,
                                                      MATTR_ISCHK, MATTR_MKIND,
                                                      MATTR_ODD)
-from rust_ray_tracer_tpu_torch.ops.shade_core import (LT_COLS, _light_table,
+from rust_ray_tracer_tpu_torch.ops.shade_core import (LANES, LT_COLS,
+                                                      _light_table,
                                                       plane_core,
                                                       plane_core_vjp)
 
 N_SU = 40
 N_SU_OUT = 13
+LIVE_TILE = 8 * LANES   # lanes one liveness flag of G and G' covers
 
 
 def su_plane_core(P, mkind, lt, n_lights: int):
@@ -276,6 +290,103 @@ class BouncePlanes(torch.autograd.Function):
         dP, dlt = bounce_planes_bwd(P, pkind, mkind, flags, lt,
                                     fctx.n_lights, g.contiguous())
         return dP, None, None, None, dlt, None
+
+
+# ---------------------------------------------------------------------------
+# G and G': F and F' that pass a tile with no live lane through
+# ---------------------------------------------------------------------------
+
+def live_tiles(alive):
+    """[N / LIVE_TILE] int32: 1 where the 1024-lane tile of the alive
+    plane ``alive`` [N] holds a live lane (``pallas_uber.py:1490-1492``)."""
+    return (alive > 0.5).reshape(-1, LIVE_TILE).any(dim=1).to(torch.int32)
+
+
+def _live_lanes(tlive):
+    return torch.repeat_interleave(tlive > 0, LIVE_TILE)
+
+
+def bounce_planes_live_plain(P, pkind, mkind, flags, lt, n_lights: int,
+                             tlive):
+    """Kernel G's plain version: :func:`ops.bounce_core.bounce_plane_core`
+    of ``P`` [46 (+6), N], where a tile whose flag in ``tlive`` [N / 1024]
+    is 0 copies its o, d, L, beta and alive planes through
+    (``_make_kernel_live``, ``pallas_bounce.py:420-441``)."""
+    out = bounce_plane_core(P, pkind, mkind, flags, lt, n_lights,
+                            P.shape[0] > N_IN_B)
+    through = torch.cat([P[0:6], P[24:30], P[45:46]])
+    return torch.where(_live_lanes(tlive), out, through)
+
+
+def bounce_planes_live_bwd_plain(P, pkind, mkind, flags, lt, n_lights: int,
+                                 tlive, g):
+    """Kernel G''s plain version: (dP like ``P``, dlt like ``lt``) for the
+    cotangents ``g`` [13, N] of :func:`bounce_planes_live_plain`'s outputs
+    (``_make_bwd_kernel_live``, ``pallas_bounce.py:444-487``). A live tile
+    takes :func:`ops.bounce_core.bounce_plane_core_vjp`; a dead one the
+    pass-through's cotangent (o, d, L, beta from ``g``, every other plane
+    0) and no share of dlt."""
+    live = _live_lanes(tlive)
+    dP, dlt = bounce_plane_core_vjp(P, pkind, mkind, flags, lt, n_lights,
+                                    P.shape[0] > N_IN_B,
+                                    torch.where(live, g, 0.0))
+    through = torch.zeros_like(P)
+    through[0:6] = g[0:6]
+    through[24:30] = g[6:12]
+    return torch.where(live, dP, through), dlt
+
+
+def bounce_planes_live(P, pkind, mkind, flags, lt, n_lights: int, tlive):
+    """[N_SU_OUT, N] next-state planes of G: :func:`bounce_planes_live_plain`
+    for CPU tensors, kernel G (``csrc/split.cu``) for CUDA tensors."""
+    dev = P.device.type
+    if dev == "cpu":
+        return bounce_planes_live_plain(P, pkind, mkind, flags, lt, n_lights,
+                                        tlive)
+    if dev != "cuda":
+        raise ValueError(f"unsupported device {P.device}")
+    from rust_ray_tracer_tpu_torch.kernels import bounce_planes_live_kernel
+    return bounce_planes_live_kernel(P, pkind, mkind, flags, lt, n_lights,
+                                     tlive)
+
+
+def bounce_planes_live_bwd(P, pkind, mkind, flags, lt, n_lights: int, tlive,
+                           g):
+    """(dP like ``P``, dlt like ``lt``): :func:`bounce_planes_live_bwd_plain`
+    for CPU tensors, kernel G' (``csrc/split.cu``) and B''s sum of its
+    light-table partials for CUDA tensors."""
+    dev = P.device.type
+    if dev == "cpu":
+        return bounce_planes_live_bwd_plain(P, pkind, mkind, flags, lt,
+                                            n_lights, tlive, g)
+    if dev != "cuda":
+        raise ValueError(f"unsupported device {P.device}")
+    from rust_ray_tracer_tpu_torch.kernels import (
+        bounce_planes_live_bwd_kernel)
+    return bounce_planes_live_bwd_kernel(P, pkind, mkind, flags, lt,
+                                         n_lights, tlive, g)
+
+
+class BouncePlanesLive(torch.autograd.Function):
+    """Kernel G as a differentiable function of its planes and the light
+    table: ``bounce_planes_live``'s ``custom_vjp`` (``pallas_bounce.py:
+    492-572``). The forward is :func:`bounce_planes_live`, the backward
+    :func:`bounce_planes_live_bwd` (G' recomputes the forward from the
+    saved inputs), both by the tensors' device. The kind, material, flag
+    and liveness planes take no gradient."""
+
+    @staticmethod
+    def forward(fctx, P, pkind, mkind, flags, lt, n_lights: int, tlive):
+        fctx.save_for_backward(P, pkind, mkind, flags, lt, tlive)
+        fctx.n_lights = n_lights
+        return bounce_planes_live(P, pkind, mkind, flags, lt, n_lights, tlive)
+
+    @staticmethod
+    def backward(fctx, g):
+        P, pkind, mkind, flags, lt, tlive = fctx.saved_tensors
+        dP, dlt = bounce_planes_live_bwd(P, pkind, mkind, flags, lt,
+                                         fctx.n_lights, tlive, g.contiguous())
+        return dP, None, None, None, dlt, None, None
 
 
 def bounce_fused(st, sel, rnd_b, lt, n_lights: int, has_checker: bool):

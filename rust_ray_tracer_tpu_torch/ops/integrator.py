@@ -42,6 +42,11 @@ routes, chosen per scene as the JAX package chooses on the TPU:
     ``ops/shade.ShadeFused``). Phase 1 (K, M, L, N, O) is detached, as in
     JAX.
 
+With ``RRT_UBER_WAVE=0`` the trace kernel's scenes take the per-chunk
+path instead (:func:`render_chunk` over the wave's chunks, TPU kernel D a
+bounce; ``integrator.py:568-570``), and with ``RRT_NO_UBER_FUSED=1`` too
+each bounce there runs TPU kernels E and G (``ops/uber.unfused_bounce``).
+
 Every per-lane step is independent of how the lanes are batched (the
 search's 256-ray tiles restart at each chunk, as JAX's per-chunk calls
 do), and each lane's randoms are drawn from its (chunk, lane) as the JAX
@@ -52,6 +57,7 @@ chunk_size).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -293,7 +299,12 @@ def render_waves(scene, width: int, height: int, key, wave_start: int,
     n = width * height
     key = key.to(scene.device)
     prep = trace_prep(scene)
-    if isinstance(prep, uber.TraceCtx):
+    # RRT_UBER_WAVE=0 renders the trace kernel's scenes chunk by chunk
+    # through render_chunk, as JAX does (integrator.py:568-570); like JAX,
+    # RRT_NO_UBER_FUSED=1 alone leaves them on the whole-wave kernel A
+    # (a reference defect, ADVICE.md:4, mirrored)
+    if isinstance(prep, uber.TraceCtx) and os.environ.get(
+            "RRT_UBER_WAVE", "") != "0":
         def wave_rows(wkey):
             return uber.trace_wave_uber(scene, wkey, width, height, depth,
                                         chunk_size, ctx=prep)
@@ -302,7 +313,8 @@ def render_waves(scene, width: int, height: int, key, wave_start: int,
         ids = torch.arange(k, device=scene.device)
 
         def wave_rows(wkey):
-            # the split route needs no pad lanes: each chunk keeps its own
+            # the split route needs no pad lanes: each chunk keeps its own;
+            # the trace kernel's scenes pad each chunk to whole tiles
             return render_chunk(scene, wkey, ids, chunk_size, width, height,
                                 depth, prep).reshape(-1, 3)
 

@@ -33,7 +33,15 @@ Counterpart of ``rust_ray_tracer_tpu/ops/pallas_uber.py``:
     ``_make_fused_bwd_kernel``, ``:619``); :class:`FusedBounce`, the
     ``custom_vjp`` of ``_fused_call`` (``:766``); :func:`bounce_uber`, the
     per-chunk path's bounce (``:1449``), with its dispatcher to the
-    kernels.
+    kernels;
+  * the unfused bounce of ``bounce_uber`` under ``RRT_NO_UBER_FUSED=1``
+    (``:1507-1545``): :func:`select_plain`, the plain version of TPU
+    kernel E (``_make_select_kernel``, ``:346``, launched by
+    ``_select_impl``, ``:392``; ``csrc/trace_wave.cu`` ``select_kernel``):
+    phase 1 alone with the winner's row fetched; :func:`select`, its
+    dispatcher; :class:`SelectRows`, the ``custom_vjp`` of ``_select_call``
+    (``:436-474``); then ``_tile_planes`` and TPU kernel G
+    (``ops/bounce.BouncePlanesLive``).
 
 State layout: structure of arrays ``[N_STATE, N]`` float32 with planes
 o(3) d(3) time alive L(3) beta(3) — a reshape of JAX's ``[14, CR, 128]``
@@ -44,12 +52,16 @@ Each chunk is padded to a multiple of 1024 rays with dead lanes.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
 from rust_ray_tracer_tpu_torch.ops import camera as cam_ops
+from rust_ray_tracer_tpu_torch.ops import gather
 from rust_ray_tracer_tpu_torch.ops import search as search_ops
-from rust_ray_tracer_tpu_torch.ops.bounce import light_table
+from rust_ray_tracer_tpu_torch.ops.bounce import (LIVE_TILE,
+                                                  BouncePlanesLive,
+                                                  light_table, live_tiles)
 from rust_ray_tracer_tpu_torch.ops.bounce_core import (
     bounce_plane_core, bounce_plane_core_vjp)
 from rust_ray_tracer_tpu_torch.ops.intersect import (
@@ -62,7 +74,7 @@ from rust_ray_tracer_tpu_torch.utils import rng as rngu
 
 N_STATE = 14
 N_RND = 15
-TILE = 8 * LANES        # rays per TPU tile: the per-chunk padding grain
+TILE = LIVE_TILE        # rays per TPU tile: the per-chunk padding grain
 ROWS_MAX = 4096         # eligibility: total winner-table rows
 TCC = 512               # triangle rows per culled sweep chunk
 A_COL = 11              # uni column where the material-attr block starts
@@ -84,10 +96,20 @@ def ineligible_reason(scene) -> str | None:
     if scene.perlin_vec.shape[0] and scene.tex_even.shape[0]:
         return ("noise textures beside checker textures: the trace "
                 "kernel's marble does not evaluate a checker's leaves")
+    if scene.perlin_vec.shape[0] and unfused():
+        return ("noise textures under RRT_NO_UBER_FUSED=1: the unfused "
+                "bounce's kernels E and G have no marble")
     rows = scene.n_tris + scene.n_spheres + scene.n_quads
     if not 0 < rows <= ROWS_MAX:
         return f"{rows} primitive rows (trace kernel: 1..{ROWS_MAX})"
     return None
+
+
+def unfused() -> bool:
+    """``RRT_NO_UBER_FUSED=1``, read at each call as JAX reads it
+    (``pallas_uber.py:1261, 1497``): the per-chunk bounce runs kernels E
+    and G instead of D, and noise scenes leave the trace kernel."""
+    return os.environ.get("RRT_NO_UBER_FUSED", "") == "1"
 
 
 def uber_eligible(scene) -> bool:
@@ -413,8 +435,7 @@ def _select_rows(kind, idx, ctx: TraceCtx):
 def _live_tiles(alive):
     """[N] bool: the ray's 1024-ray tile holds a live ray — the liveness
     predicate of the TPU trace kernels (``pallas_uber.py:889, 945``)."""
-    live = (alive > 0.5).reshape(-1, TILE).any(dim=1)
-    return live.repeat_interleave(TILE)
+    return torch.repeat_interleave(live_tiles(alive) > 0, TILE)
 
 
 def trace_wave_plain(st0, rnd, ctx: TraceCtx, depth: int,
@@ -676,6 +697,81 @@ class FusedBounce(torch.autograd.Function):
         return dst, None, duni, dlt, None
 
 
+# ---------------------------------------------------------------------------
+# the unfused uber bounce: phase 1 (TPU kernel E), then kernel G
+# ---------------------------------------------------------------------------
+
+def select_plain(st, ctx: TraceCtx):
+    """Phase 1 of every lane of ``st`` [>= 8, N] (o, d, time, alive; N a
+    multiple of 128) and the winners' rows: (selv [W, N], kind, idx [N]
+    int32), W = ``uni``'s columns. A found lane's plane column is its row
+    of ``uni``, a miss's ``dflt`` — the plain version of kernel E
+    (``csrc/trace_wave.cu`` ``select_kernel``), mirroring
+    ``_make_select_kernel`` (``pallas_uber.py:346-381``): the search of
+    :func:`search_row_plain`, the fetch of ``_select_rows``. A dead ray
+    finds nothing (kind 0, idx 0, ``dflt``), so a tile with no live ray
+    gives what the kernel's dead-tile branch (``:357-362``) writes."""
+    kind, idx = search_row_plain(st, ctx)
+    return _select_rows(kind, idx, ctx), kind, idx.to(torch.int32)
+
+
+def select(st, ctx: TraceCtx):
+    """Phase 1 and the winners' rows of ``st`` [8, N]: :func:`select_plain`
+    for CPU tensors, kernel E for CUDA tensors (no fallback)."""
+    dev = st.device.type
+    if dev == "cpu":
+        return select_plain(st, ctx)
+    if dev != "cuda":
+        raise ValueError(f"unsupported device {st.device}")
+    from rust_ray_tracer_tpu_torch.kernels import select_kernel
+    return select_kernel(st, ctx)
+
+
+class SelectRows(torch.autograd.Function):
+    """Phase 1 and the winners' rows as a function of ``uni``, the only
+    input that takes a gradient — ``_select_call``'s ``custom_vjp``
+    (``pallas_uber.py:436-474``). The forward is :func:`select` on the
+    detached state; the backward (``_select_bwd``, ``:454-471``) sums each
+    found lane's row cotangent into its ``uni`` row by
+    :func:`ops.gather.row_sums` (B' on the card), in a fixed order. The
+    state, the miss default and the search tables take none."""
+
+    @staticmethod
+    def forward(fctx, st, uni, ctx: TraceCtx):
+        selv, kind, idx = select(st, ctx)
+        fctx.save_for_backward(kind, idx)
+        fctx.p_rows = uni.shape[0]
+        fctx.mark_non_differentiable(kind, idx)
+        return selv, kind, idx
+
+    @staticmethod
+    def backward(fctx, g_selv, _g_kind, _g_idx):
+        kind, idx = fctx.saved_tensors
+        p = fctx.p_rows
+        # a miss goes to the extra row p, which is dropped
+        rows = torch.where(kind > 0, idx.long(), p)
+        return None, gather.row_sums(g_selv.T, rows, p + 1)[:p], None
+
+
+def unfused_bounce(st, rnd_b, ctx: TraceCtx):
+    """The next state [N_STATE, N] of ``st`` through kernels E and G:
+    ``bounce_uber``'s ``RRT_NO_UBER_FUSED=1`` branch
+    (``pallas_uber.py:1507-1545``). The liveness of each 1024-lane tile
+    (``:1490-1492``), phase 1 on the detached state (:class:`SelectRows`),
+    the planes of ``_tile_planes``, then G (``ops/bounce.BouncePlanesLive``)
+    and the state's order."""
+    if ctx.has_noise:
+        raise ValueError("the unfused bounce has no marble: under "
+                         "RRT_NO_UBER_FUSED=1 a noise scene takes the split "
+                         "route (make_ctx refuses it)")
+    tlive = live_tiles(st[7])
+    selv, kind, _ = SelectRows.apply(st[0:8].detach(), ctx.uni, ctx)
+    P, mkind, flags = _tile_planes(st, rnd_b, selv, ctx)
+    out = BouncePlanesLive.apply(P, kind, mkind, flags, ctx.lt, ctx.n_lights,
+                                 tlive)
+    return torch.cat([out[0:6], st[6:7], out[12:13], out[6:9], out[9:12]])
+
+
 def bounce_uber(scene, bkey_or_rnd, st, ctx: TraceCtx | None = None):
     """One uber bounce of every lane of ``st`` [N_STATE, N] (whole
     chunks, each padded to a multiple of TILE lanes): the next state.
@@ -684,7 +780,9 @@ def bounce_uber(scene, bkey_or_rnd, st, ctx: TraceCtx | None = None):
     from which they are drawn for all N lanes as JAX draws them (9
     SCATTER uniforms, 6 FUZZ normals). CPU tensors take
     :func:`fused_bounce_plain`, CUDA tensors kernel D (no fallback); when a
-    gradient is wanted the bounce runs as :class:`FusedBounce`."""
+    gradient is wanted the bounce runs as :class:`FusedBounce`. Under
+    ``RRT_NO_UBER_FUSED=1`` it runs :func:`unfused_bounce` (E, then G;
+    their plain versions on the CPU)."""
     if st.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {st.device}")
     if ctx is None:
@@ -696,6 +794,8 @@ def bounce_uber(scene, bkey_or_rnd, st, ctx: TraceCtx | None = None):
             [rngu.uniform(rngu.stream(bkey_or_rnd, rngu.SCATTER), (n, 9)),
              rngu.normal(rngu.stream(bkey_or_rnd, rngu.FUZZ), (n, 6))],
             dim=1).T.contiguous()
+    if unfused():
+        return unfused_bounce(st, rnd_b, ctx)
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (st, ctx.uni, ctx.lt)):
         return FusedBounce.apply(st, rnd_b, ctx.uni, ctx.lt, ctx)

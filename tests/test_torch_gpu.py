@@ -715,7 +715,7 @@ def test_search_kernels_match_plain_on_card(cuda):
 
 
 @pytest.mark.gpu
-def test_fused_bounce_kernels_match_plain_on_card(cuda):
+def test_bounce_planes_kernels_match_plain_on_card(cuda):
     """F and F' against their plain versions on the card, on the inputs
     the split route gives F over two bounces of a 32x32 wave of the fog
     scene with solid textures (checkers, media) and a cotangent from a
@@ -1098,3 +1098,168 @@ def test_fused_bounce_kernels_match_plain_on_card(name, cuda):
     assert d_bwd.launches > 0
     whole = K.trace_kernel(ctx)(st0.to(cuda), rnd.to(cuda), ctx, DEPTH)
     assert torch.equal(st, whole)
+
+
+# ---- the unfused uber bounce: kernels E (csrc/trace_wave.cu), G and G'
+# (csrc/split.cu) ---------------------------------------------------------
+
+UNFUSED = (K.select_kernel, K.bounce_planes_live_kernel,
+           K.bounce_planes_live_bwd_kernel)
+
+
+def _unfused_pair(ts):
+    """(st [14, 2048], rnd [DEPTH, 15, 2048]): a 1024-ray chunk's
+    primaries, then the same rays all dead (a tile with no live ray)."""
+    st0, rnd = _inputs(ts)
+    dead = st0.clone()
+    dead[7] = 0.0
+    return torch.cat([st0, dead], 1), torch.cat([rnd, rnd], 2)
+
+
+def _live_inputs(st, rnd_b, ctx):
+    """Kernel G's inputs of the state ``st``: E's plain version's rows and
+    winners through ``_tile_planes``, and the tiles' flags."""
+    from rust_ray_tracer_tpu_torch.ops import bounce
+
+    selv, kind, _ = uber.select_plain(st, ctx)
+    P, mkind, flags = uber._tile_planes(st, rnd_b, selv, ctx)
+    return (P, kind, mkind, flags, ctx.lt, ctx.n_lights,
+            bounce.live_tiles(st[7]))
+
+
+def test_unfused_wrappers_refuse_cpu_tensors():
+    """Kernels E, G and G' take CUDA tensors only (E no noise scene), and
+    their dispatchers refuse other devices; nothing is launched."""
+    from rust_ray_tracer_tpu_torch.ops import bounce
+
+    ts = _scene("solid")
+    st, rnd = _unfused_pair(ts)
+    ctx = uber.make_ctx(ts)
+    args = _live_inputs(st, rnd[0], ctx)
+    g = torch.zeros((13, st.shape[1]))
+    before = [k.launches for k in UNFUSED]
+    for call in (lambda: K.select_kernel(st[0:8], ctx),
+                 lambda: K.bounce_planes_live_kernel(*args),
+                 lambda: K.bounce_planes_live_bwd_kernel(*args, g),
+                 lambda: K.bounce_planes_live_bwd_kernel.partials(*args, g)):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            call()
+    with pytest.raises(ValueError, match="no marble"):
+        K.select_kernel(st[0:8], uber.make_ctx(_scene("noise")))
+    assert [k.launches for k in UNFUSED] == before
+    meta = [x.to("meta") if torch.is_tensor(x) else x for x in args]
+    with pytest.raises(ValueError, match="unsupported device"):
+        uber.select(st[0:8].to("meta"), ctx)
+    with pytest.raises(ValueError, match="unsupported device"):
+        bounce.bounce_planes_live(*meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        bounce.bounce_planes_live_bwd(*meta, g.to("meta"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["solid", "checker", "quad", "flagship"])
+def test_unfused_kernels_match_plain_on_card(name, cuda):
+    """E, G and G' against their plain versions on the card, on bounces 0
+    and 1 of a 1024-ray chunk and a tile of the same rays all dead: E's
+    winners equal kernel D's on the same state bit for bit, and its plain
+    version's but for at most 0.5% of the lanes (FMA contraction in the
+    search), the rows of equal winners equal; G's planes within rtol 1e-5
+    of each lane's largest / atol 1e-6, at most 0.5% of the lanes outside
+    (F's bounds on the card); G''s dP within rtol 1e-4 / atol 1e-6, at
+    most 0.5% outside, dlt within relative L2 1e-4 (B's budget); the dead
+    tile passes through (G) and takes the copy's cotangent (G') bit for
+    bit; on the live tile G and G' equal F and F' (a null flag array) bit
+    for bit; G' the same bits twice; one launch of each a call."""
+    from rust_ray_tracer_tpu_torch.ops import bounce
+
+    ts = _scene(name)
+    st0, rnd = _unfused_pair(ts)
+    ctx = uber.make_ctx(ts.to(cuda))
+    st = st0.to(cuda)
+    n = st.shape[1]
+    live = torch.arange(n, device=cuda) < W * H
+    g = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(13, n)).astype(np.float32)).to(cuda)
+    for b in range(2):
+        rnd_b = rnd[b].to(cuda)
+        before = [k.launches for k in UNFUSED]
+        selv, kind, idx = K.select_kernel(st[0:8], ctx)
+        _, d_kind, d_idx = K.fused_bounce_kernel(ctx)(st, rnd_b, ctx)
+        assert torch.equal(kind, d_kind) and torch.equal(idx, d_idx)
+        ref_selv, ref_kind, ref_idx = uber.select_plain(st, ctx)
+        same = (kind == ref_kind) & (idx == ref_idx)
+        assert float((~same).float().mean()) <= 0.005
+        assert torch.equal(selv[:, same], ref_selv[:, same])
+        assert not bool(kind[~live].any()) and not bool(idx[~live].any())
+        assert torch.equal(selv[:, ~live],
+                           ctx.dflt[:, None].expand(-1, int((~live).sum())))
+
+        P, _, mkind, flags, lt, n_lights, tlive = _live_inputs(st, rnd_b,
+                                                               ctx)
+        args = (P, kind, mkind, flags, lt, n_lights)
+        out = bounce.bounce_planes_live(*args, tlive)
+        dP, dlt = bounce.bounce_planes_live_bwd(*args, tlive, g)
+        again = K.bounce_planes_live_bwd_kernel(*args, tlive, g)
+        torch.cuda.synchronize()
+        assert [k.launches - x for k, x in zip(UNFUSED, before)] == [1, 1, 2]
+        assert torch.equal(dP, again[0]) and torch.equal(dlt, again[1])
+        assert_scaled_close(
+            out.cpu().numpy(), bounce.bounce_planes_live_plain(
+                *args, tlive).cpu().numpy(), 1e-5, 1e-6, axis=0,
+            budget=0.005, what="G")
+        ref_p, ref_lt = bounce.bounce_planes_live_bwd_plain(*args, tlive, g)
+        assert_scaled_close(dP.cpu().numpy(), ref_p.cpu().numpy(), 1e-4,
+                            1e-6, axis=0, budget=0.005, what="G' dP")
+        assert rel_l2(dlt.cpu().numpy(), ref_lt.cpu().numpy()) <= 1e-4
+        through = torch.cat([P[0:6], P[24:30], P[45:46]])
+        assert torch.equal(out[:, ~live], through[:, ~live])
+        want = torch.zeros_like(dP[:, ~live])
+        want[0:6] = g[0:6, ~live]
+        want[24:30] = g[6:12, ~live]
+        assert torch.equal(dP[:, ~live], want)
+        f_out = bounce_planes_kernel(*args)
+        f_dP, _ = bounce_planes_bwd_kernel(*args, g)
+        assert torch.equal(out[:, live], f_out[:, live])
+        assert torch.equal(dP[:, live], f_dP[:, live])
+        st = torch.cat([out[0:6], st[6:7], out[12:13], out[6:12]])
+
+
+@pytest.mark.gpu
+def test_render_waves_unfused_on_card(cuda, monkeypatch):
+    """render_waves and torch.autograd on the card under
+    ``RRT_NO_UBER_FUSED=1 RRT_UBER_WAVE=0`` go through E and G once a
+    bounce and G' in the backward, never D, D', A or B; the image is the
+    fused per-chunk route's (D) under the flip budget (D contracts FMAs,
+    G does not); the gradients are finite and the same bits twice."""
+    from rust_ray_tracer_tpu_torch.models.scene import combine, partition
+    from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
+
+    ts = _scene("checker").to(cuda)
+    monkeypatch.setenv("RRT_UBER_WAVE", "0")
+    off = (K.bounce_uber_kernel, K.bounce_uber_bwd_kernel,
+           trace_wave_kernel, trace_wave_bwd_kernel)
+
+    def step():
+        params, static = partition(ts)
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        img = render_waves(combine(leaves, static), W, 24,
+                           rng.key(1, cuda), 0, 2, chunk_size=256)
+        img.mean().backward()
+        return img.detach(), {k: v.grad for k, v in leaves.items()
+                              if v.grad is not None}
+
+    with torch.no_grad():
+        ref = render_waves(ts, W, 24, rng.key(1, cuda), 0, 2,
+                           chunk_size=256)
+    monkeypatch.setenv("RRT_NO_UBER_FUSED", "1")
+    before = [k.launches for k in UNFUSED + off]
+    img, grads = step()
+    torch.cuda.synchronize()
+    got = [k.launches - x for k, x in zip(UNFUSED + off, before)]
+    assert got == [2 * DEPTH] * 3 + [0] * len(off)
+    assert_flip_budget(img.cpu().numpy(), ref.cpu().numpy())
+    _, grads2 = step()
+    for k, v in grads.items():
+        assert bool(torch.isfinite(v).all()), k
+        assert torch.equal(v, grads2[k]), k
+    assert grads["tex_color"].abs().max() > 0

@@ -207,6 +207,21 @@ def test_cli_devices_two_cpu_processes_match_one(tmp_path):
     assert two.read_bytes() == one.read_bytes()
 
 
+def test_cli_devices_two_cpu_processes_unfused(tmp_path, monkeypatch):
+    """Under ``RRT_NO_UBER_FUSED=1`` --devices 2 --device cpu shards the
+    rays over two processes whose per-chunk bounce is the unfused one (the
+    plain versions of TPU kernels E and G, ``ops/uber.unfused_bounce``);
+    on the CPU it renders the fused route's pixels, so rank 0's PNG equals
+    a one-process run's without the flag bit for bit."""
+    one, two = tmp_path / "one.png", tmp_path / "two.png"
+    a = _cli(*_SMALL, "-o", str(one), "--devices", "1")
+    monkeypatch.setenv("RRT_NO_UBER_FUSED", "1")
+    b = _cli(*_SMALL, "-o", str(two), "--devices", "2")
+    assert a.returncode == 0 and b.returncode == 0, (a.stderr, b.stderr)
+    assert "2 process(es)" in b.stdout
+    assert two.read_bytes() == one.read_bytes()
+
+
 def test_cli_coordinator_flags_join_two_processes(tmp_path):
     """--coordinator / --num-processes / --process-id across two processes
     started by hand: rank 0 writes the PNG, equal to a one-process run's."""
