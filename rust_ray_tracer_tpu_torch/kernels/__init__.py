@@ -15,7 +15,10 @@ Kernels (each wrapper counts its launches in ``launches``):
   * ``trace_wave_kernel`` — ``csrc/trace_wave.cu``, the whole-wave bounce
     loop, optionally writing the backward's residuals (replaces
     ``rust_ray_tracer_tpu/ops/pallas_uber.py`` ``_make_trace_kernel``);
-    plain version ``ops/uber.trace_wave_plain``;
+    plain version ``ops/uber.trace_wave_plain``. It, D and E search the
+    packed tables ``TraceCtx.tri_pack``, ``sph_pack`` and ``quad_pack``
+    (16-byte aligned; :func:`trace_wave_occupancy` gives their resident
+    blocks);
   * ``trace_wave_bwd_kernel`` — ``csrc/trace_wave_bwd.cu``, the adjoint
     of the bounce loop replayed from the residuals (replaces
     ``_make_trace_bwd_kernel``); ``bwd_reduce_kernel`` — the same file,
@@ -117,27 +120,33 @@ from rust_ray_tracer_tpu_torch.ops.search import (N_RAY, TRI_COLS, tile_count,
 from rust_ray_tracer_tpu_torch.ops.shade import N_OUT as SHADE_OUT
 from rust_ray_tracer_tpu_torch.ops.shade_core import LT_COLS, N_DATA, N_RNG
 from rust_ray_tracer_tpu_torch.ops.uber import (A_COL, N_RND, N_STATE, TCC,
-                                                TILE)
+                                                PRIM_PACK, TILE, TRI_PACK)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# library -> (source in csrc/, extra nvcc flags). The backward rounds as
-# its plain version does: no a*b+c contraction, so its recomputed forward
-# and adjoint of an ill-conditioned hit (a ray grazing a large sphere) stay
-# within the comparison's budget; it is bound by memory, so the unfused
-# instructions cost little. The forward's noise variant is the same source
-# built without contraction too: the marble's albedo moves ~50 per unit of
-# the hit point, so an FMA's last-ulp change of a far hit point (|p| ~ 1000
-# on a noise ground) moves a pixel by more than the comparison's 1e-3.
-# The split route's kernels round as their plain versions (torch
-# elementwise ops) do, for the same reason: final_scene has a noise sphere,
-# and free-flight distances through log; and the search, so that its
-# winners are its plain version's.
+# library -> (source in csrc/, extra nvcc flags). Every library is built
+# without a*b+c contraction (--fmad=false), so each product and sum rounds
+# as its plain version's (torch elementwise ops) does:
+#   * the searches (A, D and E in trace_wave and trace_wave_noise, K, M,
+#     L, N, O) find their plain versions' winners, and E's are D's and A's;
+#   * the whole-wave forward shades as the split route's kernels G, F and H
+#     do, so the unfused bounce's image (E, then G) is the fused one's (D);
+#   * the marble's albedo moves ~50 per unit of the hit point, so an FMA's
+#     last-ulp change of a far hit point (|p| ~ 1000 on a noise ground)
+#     would move a pixel by more than the comparison's 1e-3; free-flight
+#     distances go through log;
+#   * the backward's recomputed forward and adjoint of an ill-conditioned
+#     hit (a ray grazing a large sphere) stay within the comparison's
+#     budget.
+# The searches are bound by instruction issue (trace_wave.cu's note), the
+# backward kernels by memory, so the unfused instructions cost little.
+# trace_wave_noise is trace_wave's source with -DTRACE_WAVE_NOISE=1: the
+# kernels' instantiation with the marble.
 LIBRARIES = {
-    "trace_wave": ("trace_wave", ()),
+    "trace_wave": ("trace_wave", ("--fmad=false",)),
     "trace_wave_noise": ("trace_wave", ("--fmad=false",
                                         "-DTRACE_WAVE_NOISE=1")),
     "trace_wave_bwd": ("trace_wave_bwd", ("--fmad=false",)),
@@ -316,27 +325,31 @@ def _check_search_tables(ctx, dev):
     if ctx.uni.dim() != 2 or ctx.uni.shape[1] < w_min:
         raise ValueError(f"uni must be [P, >= {w_min}], got "
                          f"{tuple(ctx.uni.shape)}")
-    tp = ctx.det_t.shape[0]
-    for nm in ("det_t", "u_t", "v_t", "t_t"):
-        _check(nm, getattr(ctx, nm), dev, (tp, 10))
-    _check("dbl_t", ctx.dbl_t, dev, (tp, 1))
+    tp = ctx.tri_pack.shape[0]
+    _check("tri_pack", ctx.tri_pack, dev, (tp, TRI_PACK))
     if ctx.n_tri_chunks * TCC > tp:
         raise ValueError("triangle tables shorter than the chunk count")
-    _check("sph", ctx.sph, dev, (ctx.sph.shape[0], 9))
-    _check("quad", ctx.quad, dev, (ctx.quad.shape[0], 9))
+    _check("sph_pack", ctx.sph_pack, dev, (ctx.sph_pack.shape[0], PRIM_PACK))
+    _check("quad_pack", ctx.quad_pack, dev,
+           (ctx.quad_pack.shape[0], PRIM_PACK))
+    for nm in ("tri_pack", "sph_pack", "quad_pack"):
+        if getattr(ctx, nm).data_ptr() % 16:
+            raise ValueError(f"{nm} must be 16-byte aligned (the kernels "
+                             "read it as float4)")
     _check("cab", ctx.cab, dev, (max(1, -(-tp // TCC)), 8))
 
 
 def _trace_tables(ctx):
     """(table pointers, counts) of a launch of kernel A or D: uni, the
-    search tables, cab and lt; then w, the triangle chunks, the sphere and
-    quad rows, the three offsets, the lights and the checker flag."""
-    tables = tuple(_ptr(x) for x in (ctx.uni, ctx.det_t, ctx.u_t, ctx.v_t,
-                                     ctx.t_t, ctx.dbl_t, ctx.sph, ctx.quad,
-                                     ctx.cab, ctx.lt))
+    packed triangle, sphere and quad tables, cab and lt; then w, the
+    triangle chunks, the sphere and quad rows, the three offsets, the
+    lights and the checker flag."""
+    tables = tuple(_ptr(x) for x in (ctx.uni, ctx.tri_pack, ctx.sph_pack,
+                                     ctx.quad_pack, ctx.cab, ctx.lt))
     counts = (ctx.uni.shape[1], ctx.n_tri_chunks,
-              ctx.sph.shape[0] if ctx.n_sph else 0,
-              ctx.quad.shape[0] if ctx.n_quad else 0, ctx.t_off, ctx.s_off,
+              ctx.sph_pack.shape[0] if ctx.n_sph else 0,
+              ctx.quad_pack.shape[0] if ctx.n_quad else 0, ctx.t_off,
+              ctx.s_off,
               ctx.q_off, ctx.n_lights, int(ctx.has_checker))
     return tables, counts
 
@@ -355,7 +368,7 @@ class TraceWaveKernel(_Kernel):
 
     name = library = "trace_wave"
     entry = "trace_wave_launch"
-    argtypes = (_P,) * 16 + (_I,) * 11 + (_P, _P, _I)
+    argtypes = (_P,) * 12 + (_I,) * 11 + (_P, _P, _I)
     noise = False
 
     def __call__(self, st0: torch.Tensor, rnd: torch.Tensor, ctx,
@@ -477,7 +490,7 @@ class FusedBounceKernel(_Kernel):
     name = "fused_bounce"
     library = "trace_wave"
     entry = "fused_bounce_launch"
-    argtypes = (_P,) * 15 + (_I,) * 10 + (_P, _P, _I)
+    argtypes = (_P,) * 11 + (_I,) * 10 + (_P, _P, _I)
     noise = False
 
     def __call__(self, st: torch.Tensor, rnd_b: torch.Tensor, ctx):
@@ -516,7 +529,7 @@ class SelectKernel(_Kernel):
     name = "select"
     library = "trace_wave"
     entry = "select_launch"
-    argtypes = (_P,) * 14 + (_I,) * 8
+    argtypes = (_P,) * 10 + (_I,) * 8
 
     def __call__(self, st: torch.Tensor, ctx):
         """(selv [W, N] float32, kind, idx [N] int32) of the lanes of
@@ -544,7 +557,7 @@ class SelectKernel(_Kernel):
         idx = torch.empty_like(kind)
         tables, counts = _trace_tables(ctx)
         self._launch(dev, _ptr(st), _ptr(ctx.uni), _ptr(ctx.dflt),
-                     *tables[1:9], _ptr(selv), _ptr(kind), _ptr(idx), n,
+                     *tables[1:5], _ptr(selv), _ptr(kind), _ptr(idx), n,
                      *counts[:7])
         return selv, kind, idx
 
@@ -1224,6 +1237,25 @@ tri_search_kernel = TriSearchKernel()
 sph_search_kernel = SphSearchKernel()
 shade_kernel = ShadeKernel()
 shade_bwd_kernel = ShadeBwdKernel()
+
+
+def trace_wave_occupancy(library: str, triangles: bool = True,
+                         device=None) -> dict[str, int]:
+    """Resident blocks per multiprocessor of kernels A, D and E of
+    ``library`` (``trace_wave`` or ``trace_wave_noise``, whose E is 0) on
+    the CUDA ``device`` (the current one by default), from the CUDA
+    runtime's occupancy calculator at their launch's block size and shared
+    memory for a scene with (``triangles``) or without a triangle chunk."""
+    if library not in ("trace_wave", "trace_wave_noise"):
+        raise ValueError(f"{library} holds no trace kernels")
+    lib = ctypes.CDLL(str(build(library).path))
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        err = lib.trace_wave_occupancy(out, ctypes.c_int(int(triangles)))
+    if err != 0:
+        raise RuntimeError(f"occupancy query of {library}: CUDA error {err}")
+    return dict(zip(("trace_wave_kernel", "fused_bounce_kernel",
+                     "select_kernel"), out))
 
 
 def trace_kernel(ctx) -> TraceWaveKernel:

@@ -8,6 +8,10 @@ Counterpart of ``rust_ray_tracer_tpu/ops/pallas_uber.py``:
   * ``_scene_tables``, ``_search_tables``, ``_chunk_aabbs`` and
     :func:`make_ctx` (``:1294-1446``), with the cull grain fixed at
     ``TCC = 512`` triangles;
+  * :func:`pack_tri_rows` and :func:`tri_cols` — the four coefficient
+    tables and the double-sided flags packed into one row a triangle for
+    the kernels' 16-byte loads, and the plain versions' column views of
+    it (no JAX counterpart: the TPU took the tables as matrix operands);
   * :func:`pack_state` (``:1270``);
   * :func:`search_row_plain` — phase 1 (closest hit) for all rays at once,
     mirroring ``_search_row`` (``:121-343``) with its per-(128-ray row,
@@ -77,6 +81,8 @@ N_RND = 15
 TILE = LIVE_TILE        # rays per TPU tile: the per-chunk padding grain
 ROWS_MAX = 4096         # eligibility: total winner-table rows
 TCC = 512               # triangle rows per culled sweep chunk
+TRI_PACK = 44           # floats a row of the kernels' triangle table
+PRIM_PACK = 12          # floats a row of their sphere and quad tables
 A_COL = 11              # uni column where the material-attr block starts
 _RAY_BLOCK = 8192       # rays per block of the plain search (memory bound)
 
@@ -122,12 +128,15 @@ class TraceCtx:
     """Scene-derived tables of the trace, built once per render.
 
     ``uni`` [P, W] winner rows (pack(9), flip, mat, material attrs) with
-    ``dflt`` [W] the miss default; the detached search tables ``det_t``,
-    ``u_t``, ``v_t``, ``t_t`` [Tp, 10], ``dbl_t`` [Tp, 1], ``sph`` [S, 9]
-    (c0, c1-c0, t0, 1/(t1-t0), r; far pads), ``quad`` [Q, 9] (q, u, v),
-    ``cab`` [Tp/TCC, 8] cull boxes; ``lt`` [n_lights+1, LT_COLS] lights
-    plus the background row; ``perlin`` the detached Perlin tables
-    (0-length without noise), read when ``has_noise``.
+    ``dflt`` [W] the miss default; the detached search tables, packed for
+    the kernels' 16-byte loads: ``tri_pack`` [Tp, TRI_PACK] (det | u | v
+    | t, 10 each, | dbl | 3 zeros; :func:`tri_cols` gives the plain
+    versions' views), ``sph_pack`` [S, PRIM_PACK] (c0, c1-c0, t0,
+    1/(t1-t0), r | 3 zeros; far pads), ``quad_pack`` [Q, PRIM_PACK] (q,
+    u, v | 3 zeros); ``cab`` [Tp/TCC, 8] cull boxes; ``lt``
+    [n_lights+1, LT_COLS] lights plus the background row; ``perlin`` the
+    detached Perlin tables (0-length without noise), read when
+    ``has_noise``.
     """
 
     uni: torch.Tensor
@@ -135,13 +144,9 @@ class TraceCtx:
     t_off: int
     s_off: int
     q_off: int
-    det_t: torch.Tensor
-    u_t: torch.Tensor
-    v_t: torch.Tensor
-    t_t: torch.Tensor
-    dbl_t: torch.Tensor
-    sph: torch.Tensor
-    quad: torch.Tensor
+    tri_pack: torch.Tensor
+    sph_pack: torch.Tensor
+    quad_pack: torch.Tensor
     cab: torch.Tensor
     lt: torch.Tensor
     n_tris: int
@@ -177,34 +182,50 @@ def _scene_tables(scene):
     return _pad_rows(uni, 8), dflt, offsets
 
 
+def _pad_cols(x, width):
+    pad = torch.zeros((x.shape[0], width - x.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    return torch.cat([x, pad], dim=1).contiguous()
+
+
+def pack_tri_rows(det_t, u_t, v_t, t_t, dbl_t):
+    """[T, TRI_PACK] float32 rows det | u | v | t (10 each) | dbl | 3 zeros
+    of the coefficient tables [T, 10] and the double-sided flags [T, 1]:
+    the trace kernels read a triangle as eleven 16-byte loads of one row
+    (``csrc/trace_wave.cu``). Contiguous, so each row is 16-byte aligned
+    where the tensor's storage is."""
+    return _pad_cols(torch.cat([det_t, u_t, v_t, t_t, dbl_t], dim=1),
+                     TRI_PACK)
+
+
+def tri_cols(tri_pack):
+    """(det, u, v, t [T, 10], dbl [T, 1]): the column views of the packed
+    triangle rows that the plain versions read."""
+    return tuple(tri_pack[:, 10 * k:10 * k + 10] for k in range(4)) + (
+        tri_pack[:, 40:41],)
+
+
 def _search_tables(scene):
-    """Detached search tables: ([T,10] x4, dbl [T,1]) padded to TCC rows,
-    sphere [S,9] with far pads, quad [Q,9] with zero pads."""
+    """Detached search tables, packed: triangles [Tp, TRI_PACK] padded to
+    TCC rows (:func:`pack_tri_rows`), spheres [S, PRIM_PACK] with far
+    pads, quads [Q, PRIM_PACK] with zero pads (three zero columns each)."""
     f32 = torch.float32
     dev = scene.device
     if scene.n_tris:
         det_c, u_c, v_c, t_c = _tri_coeffs(scene.tri_v0, scene.tri_e1,
                                            scene.tri_e2)
-        det_t, u_t, v_t, t_t = det_c.T, u_c.T, v_c.T, t_c.T
-        dbl_t = scene.tri_double.to(f32)[:, None]
+        tri = pack_tri_rows(det_c.T, u_c.T, v_c.T, t_c.T,
+                            scene.tri_double.to(f32)[:, None])
     else:
-        det_t = u_t = v_t = t_t = torch.zeros((8, 10), dtype=f32, device=dev)
-        dbl_t = torch.zeros((8, 1), dtype=f32, device=dev)
-    # pad coefficient rows are zeros -> det 0 -> always rejected
-    det_t, u_t, v_t, t_t, dbl_t = (_pad_rows(x, TCC).contiguous() for x in
-                                   (det_t, u_t, v_t, t_t, dbl_t))
+        tri = torch.zeros((8, TRI_PACK), dtype=f32, device=dev)
+    # pad rows are zeros -> det 0 -> always rejected
+    tri = _pad_rows(tri, TCC)
 
     far = torch.zeros((8, 9), dtype=f32, device=dev)
     far[:, 0:3] = 1e30      # c0 = 1e30 -> disc = inf - inf = NaN: rejected
     s_n = scene.n_spheres
     if s_n:
-        dt = scene.sph_t1 - scene.sph_t0
-        inv_dt = 1.0 / torch.where(dt.abs() < 1e-12,
-                                   torch.where(dt < 0, -1e-12, 1e-12).to(f32),
-                                   dt)
-        sph = torch.cat([scene.sph_c0, scene.sph_c1 - scene.sph_c0,
-                         scene.sph_t0[:, None], inv_dt[:, None],
-                         scene.sph_r[:, None]], dim=1)
+        sph = search_ops.sphere_rows(scene)
         pad = (-s_n) % 8
         if pad:
             sph = torch.cat([sph, far[:pad]], dim=0)
@@ -215,7 +236,7 @@ def _search_tables(scene):
                                     scene.quad_v], dim=1), 8)
     else:
         quad = torch.zeros((8, 9), dtype=f32, device=dev)
-    return det_t, u_t, v_t, t_t, dbl_t, sph.contiguous(), quad.contiguous()
+    return tri, _pad_cols(sph, PRIM_PACK), _pad_cols(quad, PRIM_PACK)
 
 
 def _chunk_aabbs(scene, tp: int):
@@ -254,16 +275,16 @@ def make_ctx(scene) -> TraceCtx:
     scene_s = dataclasses.replace(
         scene, **{f.name: getattr(scene, f.name).detach()
                   for f in dataclasses.fields(scene) if f.name != "camera"})
-    det_t, u_t, v_t, t_t, dbl_t, sph, quad = _search_tables(scene_s)
+    tri_pack, sph_pack, quad_pack = _search_tables(scene_s)
     lt = light_table(scene)
     # the Perlin tables, detached (pallas_uber.py:1407-1416)
     perlin = PerlinTables(scene_s.perlin_vec.contiguous(), torch.stack(
         [scene_s.perlin_px, scene_s.perlin_py, scene_s.perlin_pz]))
     return TraceCtx(
         uni=uni.contiguous(), dflt=dflt.contiguous(), t_off=t_off,
-        s_off=s_off, q_off=q_off, det_t=det_t, u_t=u_t, v_t=v_t, t_t=t_t,
-        dbl_t=dbl_t, sph=sph, quad=quad,
-        cab=_chunk_aabbs(scene_s, det_t.shape[0]), lt=lt,
+        s_off=s_off, q_off=q_off, tri_pack=tri_pack, sph_pack=sph_pack,
+        quad_pack=quad_pack, cab=_chunk_aabbs(scene_s, tri_pack.shape[0]),
+        lt=lt,
         n_tris=scene.n_tris, n_sph=scene.n_spheres, n_quad=scene.n_quads,
         n_lights=scene.n_lights, has_checker=scene.tex_even.shape[0] > 0,
         has_noise=scene.perlin_vec.shape[0] > 0, perlin=perlin)
@@ -302,8 +323,7 @@ def _search_block(st, ctx):
              ox * dy - oy * dx, torch.ones_like(ox))
         nt = ctx.n_tri_chunks * TCC
         valid, t = search_ops.tri_tests(
-            f, tuple(x[:nt] for x in (ctx.det_t, ctx.u_t, ctx.v_t, ctx.t_t,
-                                      ctx.dbl_t)), tmin, tmax)
+            f, tri_cols(ctx.tri_pack[:nt]), tmin, tmax)
         # per-(128-ray row, chunk) AABB cull: a chunk is swept for a row
         # when any live ray of the row enters its box
         big = torch.tensor(1e-30, device=dev)
@@ -329,12 +349,13 @@ def _search_block(st, ctx):
 
     if ctx.n_sph:
         loc_t, loc_i = search_ops.first_min(search_ops.sphere_tests(
-            (ox, oy, oz, dx, dy, dz, time), ctx.sph, tmin, tmax))
+            (ox, oy, oz, dx, dy, dz, time), ctx.sph_pack[:, :9], tmin,
+            tmax))
         best = search_ops.fold(best, loc_t, loc_i + ctx.s_off, KIND_SPH)
 
     if ctx.n_quad:
         loc_t, loc_i = search_ops.first_min(search_ops.quad_tests(
-            (ox, oy, oz, dx, dy, dz), ctx.quad, tmin, tmax))
+            (ox, oy, oz, dx, dy, dz), ctx.quad_pack[:, :9], tmin, tmax))
         best = search_ops.fold(best, loc_t, loc_i + ctx.q_off, KIND_QUAD)
 
     _, kind, idx = best

@@ -77,9 +77,12 @@ def test_make_ctx_tables_match(name, monkeypatch):
     _assert_same(uni, ctx.uni, "uni")
     _assert_same(dflt[0], ctx.dflt, "dflt")
     assert offs == (ctx.t_off, ctx.s_off, ctx.q_off)
-    for nm, ref in zip(("det_t", "u_t", "v_t", "t_t", "dbl_t", "sph",
-                        "quad"), search):
-        _assert_same(ref, getattr(ctx, nm), nm)
+    # the port packs them (uber.tri_cols and [:, :9] are the plain views)
+    ours = uber.tri_cols(ctx.tri_pack) + (ctx.sph_pack[:, :9],
+                                          ctx.quad_pack[:, :9])
+    for nm, ref, got in zip(("det_t", "u_t", "v_t", "t_t", "dbl_t", "sph",
+                             "quad"), search, ours):
+        _assert_same(ref, got, nm)
     _assert_same(cab, ctx.cab, "cab")
     _assert_same(lt, ctx.lt, "lt")
     assert ctx.has_noise == bool(js.perlin_vec.shape[0])
