@@ -30,8 +30,11 @@ bounce, and ``bench.py``'s training step on final_scene, with O, J, H, J'
 and H' launched every bounce (``final_train``); and a 65,536-triangle
 mesh (``tests/torch_parity.mesh``, 16x the trace kernel's rows) on the
 split route's unified search and fused bounce, forward (``mesh_forward``:
-K, M and F launched every bounce, each held against its plain version
-on a 128x72 wave's inputs) and ``bench.py``'s training step
+K, M and F launched every bounce on rays the search-order sort permuted,
+each held against its plain version on a 128x72 wave's inputs and on a
+full-size wave's bounces 0 and 1, the sort's permutation against the
+host's, M timed a bounce beside its bound by stage) and ``bench.py``'s
+training step
 (``mesh_train``: K, M, F and F' every bounce). Then, in a temporary
 working directory holding a procedural 1024x512 ``earthmap.jpg`` (the
 earlier phases ran without it), the earth-map scenes on the split route:
@@ -73,6 +76,7 @@ Needs one CUDA GPU; imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -157,12 +161,11 @@ RTOL, ATOL = 3e-4, 3e-5  # the rest (FMA contraction, division order)
 BWD_RTOL, BWD_ATOL, BWD_REL_L2 = 1e-4, 1e-6, 1e-4
 # the card's published peaks (H100 SXM, 700 W): fp32 non-tensor, HBM3
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
-# fp32 operations of the split route's searches M and L per ray-triangle
-# test (csrc/search.cu: four 10-term dots, a division, the compares), of M
-# and N per sphere test, and per live ray-bounce of shading and update;
-# the backward's per found ray-bounce (the recomputed forward plus its
-# adjoint)
-OPS_TRI, OPS_PRIM, OPS_SHADE, OPS_BWD = 80, 40, 300, 600
+# fp32 operations of N per sphere test, and per live ray-bounce of
+# shading and update; the backward's per found ray-bounce (the recomputed
+# forward plus its adjoint). M and L count each triangle test by stage
+# (tools/search_times.m_work: OPS_M_DET, OPS_M_T, OPS_M_UV)
+OPS_PRIM, OPS_SHADE, OPS_BWD = 40, 300, 600
 # fp32 operations of closest_hit (csrc/trace_wave.cu: A, D, E) by the
 # stage of a test that the closest hit needs, counted from the code
 # (closest_hit_work counts the stages in the run). A triangle: the
@@ -210,9 +213,9 @@ WHOLE_WAVE_KERNELS = (trace_wave_kernel, trace_wave_noise_kernel,
 # the split route's search (csrc/search.cu) and fused bounce (csrc/split.cu)
 # on triangle meshes and solid or checker scenes: K per live ray and
 # nonempty cluster box (3 axes x (2 subtractions, 2 products, min, max, 2
-# selects, 2 compares) and the window and entry tests); M per ray-triangle
-# test OPS_TRI, per sphere test OPS_PRIM, per quad test OPS_QUAD; F per
-# found ray the hit attributes and the shading, F' their adjoints
+# selects, 2 compares) and the window and entry tests); M by the stage of
+# each triangle test the closest hit needs (tools/search_times.m_work); F
+# per found ray the hit attributes and the shading, F' their adjoints
 OPS_BOX = 40
 SEARCH_KERNELS = (tile_enter_kernel, fused_search_kernel)
 FUSED_KERNELS = (bounce_planes_kernel,)
@@ -220,7 +223,7 @@ FUSED_BWD_KERNELS = (bounce_planes_bwd_kernel,)
 MESH_W, MESH_H = 128, 72  # the mesh's check against the plain versions
 # the per-kind searches of the split route (TPU kernels N: csrc/sphere.cu,
 # and L: M's entry point in csrc/search.cu with no sphere or quad rows):
-# N per ray-sphere test OPS_PRIM, L per ray-triangle test OPS_TRI
+# N per ray-sphere test OPS_PRIM, L as M
 CULL_KERNELS = (sph_search_kernel, tri_search_kernel)
 EARTH_W, EARTH_H = 1024, 512  # the procedural earth map of the new phases
 # the shading of 9 or more lights (TPU kernels I, I': csrc/shade.cu): I per
@@ -1938,35 +1941,35 @@ def split_bwd_rows(train, worst_small) -> list[dict]:
 def search_work(calls) -> dict:
     """What kernels K and M must do on these recorded calls (one launch
     each a bounce), counted from the data: K's (live ray, nonempty box)
-    tests; M's ray-triangle tests (every live ray of a tile tests the
-    triangles of every cluster the tile enters — K's cull, what the
-    algorithm needs), its sphere and quad tests (every live ray), and each
-    kernel's bytes (every input read once, every output written once)."""
-    w = {"box_tests": 0, "tri_tests": 0, "sph_tests": 0, "quad_tests": 0,
-         "k_bytes": 0, "m_bytes": 0}
-    for (rays, cl_min, cl_max, chunk), (_, ent, tabs, _) in zip(
-            calls["enter"], calls["search"]):
+    tests and bytes (the rays, through the permutation where the route
+    sorted them, the boxes, the entries written once); M's by
+    ``tools/search_times.m_work`` on the kernel's winners (which the
+    checks hold to the plain version's): per live ray the triangles of
+    its tile's entered clusters whose entry is at most its final t, by
+    stage, K's full-cull count beside them, the operations and bytes.
+    ``per_bounce`` holds each call's counts."""
+    w = {"box_tests": 0, "k_bytes": 0, "tri_tests": 0, "t_tests": 0,
+         "uv_tests": 0, "full_cull_tests": 0, "sph_tests": 0,
+         "quad_tests": 0, "m_ops": 0, "m_bytes": 0, "per_bounce": []}
+    for e_args, s_args in zip(calls["enter"], calls["search"]):
+        rays, cl_min = e_args[0], e_args[1]
+        tabs = s_args[2]
         n = rays.shape[1]
-        live = rays[8] > rays[7]
-        nonempty = int((cl_min <= cl_max).all(1).sum())
-        w["box_tests"] += int(live.sum()) * nonempty
-        w["k_bytes"] += (8 * n + 6 * cl_min.shape[0] + ent.numel()) * 4
-        # live rays a tile, in the kernel's tile order
-        _, _, chunk_p = search_ops._tiles(n, chunk)
-        live_t = search_ops._tile_pad(live.float(), chunk, chunk_p,
-                                      0.0).reshape(-1, search_ops.BC).sum(1)
-        w["tri_tests"] += int((torch.isfinite(ent).sum(1).double()
-                               * live_t.double()).sum()) * tabs.width
-    for rays, ent, tabs, _ in calls["search"]:
         n_live = int((rays[8] > rays[7]).sum())
+        nonempty = int((cl_min <= e_args[2]).all(1).sum())
+        w["box_tests"] += n_live * nonempty
+        w["k_bytes"] += (8 * n + 6 * cl_min.shape[0] + s_args[1].numel()
+                         ) * 4 + (8 * n if len(e_args) > 4 else 0)
+        mw = search_times.m_work(s_args, fused_search_kernel(*s_args)[0])
+        w["tri_tests"] += mw["tests"]
+        for k in ("t_tests", "uv_tests", "full_cull_tests"):
+            w[k] += mw[k]
         w["sph_tests"] += n_live * tabs.sph.shape[0]
         w["quad_tests"] += n_live * tabs.quad.shape[0]
-        w["m_bytes"] += (9 * rays.shape[1] + ent.numel() + tabs.tri.numel()
-                         + tabs.sph.numel() + tabs.quad.numel()
-                         + 3 * rays.shape[1]) * 4
+        w["m_ops"] += mw["ops"]
+        w["m_bytes"] += mw["bytes"]
+        w["per_bounce"].append(mw)
     w["k_ops"] = w["box_tests"] * OPS_BOX
-    w["m_ops"] = (w["tri_tests"] * OPS_TRI + w["sph_tests"] * OPS_PRIM
-                  + w["quad_tests"] * OPS_QUAD)
     return w
 
 
@@ -2031,11 +2034,15 @@ def mesh_forward(dev, smi) -> dict:
     no plain call, a finite image; K, M, F and F' against their plain
     versions on every bounce's recorded inputs of a MESH_W x MESH_H wave
     and the route's image against the plain route's on the card, and on
-    a full-size wave's bounce-0 inputs; sweep ms, the profiler's per-kernel
-    ms, the glue per wave and the busy share of a profiled wave; each
-    kernel's ms per launch out of L2 and its plain version's on the
-    full-size wave's recorded inputs; the peak memory of the sweeps.
-    Emits ``mesh_forward``."""
+    a full-size wave's bounces 0 and 1; the sort's permutation on the
+    card against the host's (bounce 1); sweep ms, the profiler's
+    per-kernel ms, the glue per wave and the busy share of a profiled
+    wave; each kernel's ms per launch out of L2 and its plain version's
+    on the full-size wave's recorded inputs; per bounce M out of L2 and in
+    the path, the sort's ms, the live rays and tiles, the (tile, cluster)
+    pairs K lets through, M's tests by stage and its bound, K's full-cull
+    count; ptxas' registers and spills of library ``search``; the peak
+    memory of the sweeps. Emits ``mesh_forward``."""
     t0 = time.perf_counter()
     scene = compile_scene(mesh_host(S, cam_ops), device=dev)
     compile_s = time.perf_counter() - t0
@@ -2064,11 +2071,22 @@ def mesh_forward(dev, smi) -> dict:
     with torch.no_grad():
         small = search_fused_vs_plain(rec_s, "mesh small",
                                       bounces=range(DEPTH))
-    # one full-size wave's bounce-0 inputs
+    # one full-size wave's bounces 0 and 1; the sort's permutation on the
+    # card against the host's on bounce 1's rays
     with split_recorder() as rec:
         render(1)
     with torch.no_grad():
-        full = search_fused_vs_plain(rec, "mesh full size", bounces=(0,))
+        full = search_fused_vs_plain(rec, "mesh full size", bounces=(0, 1))
+        rays, tabs, chunk = rec["order"][1]
+        host = dataclasses.replace(tabs, cl_min=tabs.cl_min.cpu(),
+                                   cl_max=tabs.cl_max.cpu())
+        perm_equal = torch.equal(
+            search_ops.search_order(rays, tabs, chunk).cpu(),
+            search_ops.search_order(rays.cpu(), host, chunk))
+    if not perm_equal or len(rec["order"]) != DEPTH:
+        raise AssertionError("mesh: the sort's permutation on the card "
+                             "differs from the host's, or a bounce was not "
+                             "sorted")
 
     timing = forward_timing(render, {n: f"{n}_kernel" for n in (
         "tile_enter", "fused_search", "bounce_planes")}, 5, dev)
@@ -2089,11 +2107,23 @@ def mesh_forward(dev, smi) -> dict:
     by_bounce = {n: t["cold"] for n, t in times.items()}
     ms = {n: statistics.fmean(v) for n, v in by_bounce.items()}
     plain_ms = {n: statistics.fmean(t["plain"]) for n, t in times.items()}
-    # per bounce: live rays, M's tests after K's cull (search_work's count)
-    per_bounce = [dict(search_work({"enter": [e], "search": [c]}),
-                       live_rays=int((c[0][8] > c[0][7]).sum()))
-                  for e, c in zip(rec["enter"], rec["search"])]
-    work = search_work(rec)
+    # per bounce: M in the path (the profiler's launches in bounce order),
+    # the sort (plain torch, charged to the glue), M's work by stage
+    m_path = search_times.device_ms_in_order(lambda: render(1),
+                                             "fused_search_kernel")
+    with torch.no_grad():
+        sort_ms = [median(loop_ms(lambda a=a: search_ops.search_order(*a)))
+                   for a in rec["order"]]
+        work = search_work(rec)
+    per_bounce = [{"live_rays": b["live_rays"], "live_tiles": b["live_tiles"],
+                   "tiles_entered": b["pairs"], "tri_tests": b["tests"],
+                   "t_tests": b["t_tests"], "uv_tests": b["uv_tests"],
+                   "full_cull_tests": b["full_cull_tests"],
+                   "m_bound_ms": bound(b["bytes"], b["ops"])[0],
+                   "m_ms_l2_flushed": c, "m_ms_in_path": p, "sort_ms": t}
+                  for b, c, p, t in zip(work["per_bounce"],
+                                        by_bounce["fused_search"], m_path,
+                                        sort_ms)]
     emit({"phase": "mesh_forward", "card": smi,
           "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
           "compile_scene_s": compile_s,
@@ -2118,13 +2148,15 @@ def mesh_forward(dev, smi) -> dict:
           "ms_per_launch_l2_flushed": ms,
           "ms_per_bounce_l2_flushed": by_bounce,
           "plain_ms_per_launch": plain_ms,
-          "work_per_wave": work,
-          "work_per_bounce": [{k: b[k] for k in ("live_rays", "box_tests",
-                                                 "tri_tests")}
-                              for b in per_bounce]})
+          "work_per_wave": {k: v for k, v in work.items()
+                            if k != "per_bounce"},
+          "search_per_bounce": per_bounce,
+          "sort_permutation_card_equals_host": perm_equal,
+          "ptxas_search": ptxas_report(K.build("search").log)})
     return {"launches": launches, "small": small, "full": full, "ms": ms,
             "ms_in_path": timing["in_path"], "plain_ms": plain_ms,
-            "calls": rec, "work": work, "scene": scene, "key": key}
+            "calls": rec, "work": work, "scene": scene, "key": key,
+            "sort_ms": statistics.fmean(sort_ms)}
 
 
 def mesh_train(dev, smi, fwd) -> dict:
@@ -2220,7 +2252,10 @@ def mesh_rows(fwd, train, worst_small) -> list[dict]:
     rows[1]["also_replaces"] = ("rust_ray_tracer_tpu/ops/"
                                 "pallas_intersect.py:1019")
     rows[1]["tests_per_launch"] = {
-        k: work[k] / n_w for k in ("tri_tests", "sph_tests", "quad_tests")}
+        k: work[k] / n_w for k in ("tri_tests", "t_tests", "uv_tests",
+                                   "full_cull_tests", "sph_tests",
+                                   "quad_tests")}
+    rows[1]["sort_ms_per_bounce"] = fwd["sort_ms"]
     rows[0]["box_tests_per_launch"] = work["box_tests"] / n_w
     return rows
 
@@ -2300,10 +2335,12 @@ def cull_work(calls) -> dict:
     bounce), counted from the data: N's ray-sphere tests (every live ray
     of a 256-ray tile against the 128 rows of each cluster some ray of
     the tile enters: ``_tile_cluster_mask``'s cull, what the algorithm
-    needs) and L's ray-triangle tests (K's cull, ``search_work``'s count
-    with no sphere or quad rows), and each kernel's bytes (the ray planes
-    and the tables read once, t and the index written once)."""
-    w = {"sph_tests": 0, "n_bytes": 0, "tri_tests": 0, "l_bytes": 0}
+    needs) and L's ray-triangle tests and operations (``search_work``'s
+    stage count on L's winners, no sphere or quad rows; K's full-cull
+    count beside it), and each kernel's bytes (the ray planes and the
+    tables read once, t and the index written once)."""
+    w = {"sph_tests": 0, "n_bytes": 0, "tri_tests": 0, "l_bytes": 0,
+         "l_ops": 0, "full_cull_tri_tests": 0}
     for rays, tab, cl_min, cl_max, _, chunk in calls["sph"]:
         n = rays.shape[1]
         ent = search_ops.tile_enter_plain(rays, cl_min, cl_max, chunk)
@@ -2315,12 +2352,15 @@ def cull_work(calls) -> dict:
                                * live_t.double()).sum()) * S.CLUSTER
         w["n_bytes"] += (9 * n + tab.numel() + cl_min.numel() * 2
                          + 2 * n) * 4
-    if calls["tri"]:
-        tri = search_work({"enter": calls["enter"], "search": [
-            (r, e, search_ops.tri_only(t), c) for r, e, t, c in calls["tri"]]})
-        w["tri_tests"], w["l_bytes"] = tri["tri_tests"], tri["m_bytes"]
+    for args in calls["tri"]:
+        lw = search_times.m_work(
+            (args[0], args[1], search_ops.tri_only(args[2]), args[3]),
+            tri_search_kernel(*args)[0])
+        w["tri_tests"] += lw["tests"]
+        w["l_bytes"] += lw["bytes"]
+        w["l_ops"] += lw["ops"]
+        w["full_cull_tri_tests"] += lw["full_cull_tests"]
     w["n_ops"] = w["sph_tests"] * OPS_PRIM
-    w["l_ops"] = w["tri_tests"] * OPS_TRI
     return w
 
 
@@ -2557,6 +2597,8 @@ def tri_scene_phase(dev, smi) -> dict:
     per = prof["per_kernel"] or {}
     in_path = {n: (per.get(k) or {}).get("ms_per_launch")
                for n, k in names.items()}
+    l_path = search_times.device_ms_in_order(lambda: render(1),
+                                             "fused_search_kernel")
     with torch.no_grad():
         l_cold = [median(cold_ms(lambda c=c: tri_search_kernel(*c)))
                   for c in rec["tri"]]
@@ -2578,6 +2620,7 @@ def tri_scene_phase(dev, smi) -> dict:
           "kernels_vs_plain_full_bounce0": full,
           "ms_per_launch_profiler": in_path,
           "tri_search_ms_per_bounce_l2_flushed": l_cold,
+          "tri_search_ms_per_bounce_in_path": l_path,
           "tri_search_plain_ms_per_bounce": l_plain,
           "work_per_wave": work,
           "profiled_wave": prof})
@@ -2592,7 +2635,7 @@ def cull_rows(rand, tri) -> list[dict]:
     main path; device ms per launch out of L2 (``ms``) and in the path
     (``ms_in_path``, the profiler's), plain ms, each averaged over the
     wave's bounces on their recorded inputs; the bound of one launch from
-    the tests this run's cull leaves (N: x OPS_PRIM, L: x OPS_TRI) and the
+    the tests this run's cull leaves (N: x OPS_PRIM; L by stage) and the
     bytes, averaged over the same bounces."""
     rows = []
     for name, ph, repl, src, nb, ops in (
@@ -2775,7 +2818,9 @@ def gltf_lights_forward(dev, smi, paths) -> dict:
     on the full-size wave's bounces 0 and 1, and on the 16-light file's;
     sweep ms, per-wave kernel and glue ms and the busy share by the
     profiler; I's ms per launch out of L2 and in a loop on every bounce's
-    recorded inputs, in the path, and its plain version's. Emits
+    recorded inputs, in the path, and its plain version's; M's (K's and
+    M's winners held by ``split_kernels_vs_plain`` on bounces 0 and 1) out
+    of L2 and in the path on every bounce, beside its bound by stage. Emits
     ``gltf_lights_forward``; returns what the rows and the training phase
     need."""
     scene = gltf_scene(paths["f9"], dev)
@@ -2824,6 +2869,14 @@ def gltf_lights_forward(dev, smi, paths) -> dict:
 
     timing = forward_timing(render, {n: f"{n}_kernel" for n in (
         "tile_enter", "fused_search", "hit_attrs", "shade")}, 5, dev)
+    # M on every bounce's recorded inputs out of L2 and in the path (the
+    # profiler's launches in bounce order), its work by stage
+    m_cold = bounce_times([(lambda c=c: fused_search_kernel(*c), None)
+                           for c in rec["search"]])["cold"]
+    m_path = search_times.device_ms_in_order(lambda: render(1),
+                                             "fused_search_kernel")
+    with torch.no_grad():
+        m_work = search_work(rec)
     calls = rec["shade"]
     times = bounce_times([(lambda c=c: shade_kernel(*c),
                            lambda c=c: shade_ops.shade_plane_core(*c))
@@ -2847,7 +2900,15 @@ def gltf_lights_forward(dev, smi, paths) -> dict:
           "shade_ms_per_bounce_l2_flushed": times["cold"],
           "shade_ms_per_bounce_looped": times["loop"],
           "shade_plain_ms_per_bounce": times["plain"],
-          "shade_lanes_per_bounce": [c[0].shape[1] for c in calls]})
+          "shade_lanes_per_bounce": [c[0].shape[1] for c in calls],
+          "fused_search_ms_per_bounce_l2_flushed": m_cold,
+          "fused_search_ms_per_bounce_in_path": m_path,
+          "fused_search_bound_ms_per_bounce": [
+              bound(b["bytes"], b["ops"])[0] for b in m_work["per_bounce"]],
+          "fused_search_tests_per_bounce": [
+              {k: b[k] for k in ("live_rays", "pairs", "tests", "t_tests",
+                                 "uv_tests", "full_cull_tests")}
+              for b in m_work["per_bounce"]]})
     return {"launches": launches, "full": full, "full16": full16,
             "ms": statistics.fmean(times["cold"]),
             "ms_in_path": timing["in_path"]["shade"],

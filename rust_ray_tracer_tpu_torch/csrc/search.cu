@@ -13,51 +13,118 @@
 //     :1019): the closest (t, kind, index) over the triangles of the
 //     clusters a ray's tile enters, then the small sphere and quad tables
 //     (fewer than 128 rows each). Plain version: ops/search.py
-//     fused_search_plain.
+//     fused_search_plain. Launched with no sphere or quad rows it is TPU
+//     kernel L (pallas_intersect.py:326 tri_search; plain version
+//     ops/search.py tri_search_plain).
 //
 // Tiles are 256 rays and restart at each chunk's first ray, as JAX's
 // per-chunk calls do; a chunk that is not a multiple of 256 ends in a
-// short tile.
+// short tile. With a permutation (ops/search.py search_order, JAX's
+// intersect._search_order: dead rays last, live ones by direction octant,
+// then Morton order of the origin) position j of the wave is the ray
+// perm[j]: both kernels read the rays through it and M writes each winner
+// back to the ray's own position, so no sorted copy is made.
 //
-// What bounds them on the card. K: fp32 work, ~30 operations per (ray,
-// box) over every ray and every cluster (147,456 rays x 512 clusters a
-// bounce of the mesh workload); its inputs and its [tiles, clusters]
-// output are a few MB. M: fp32 work, ~80 operations per ray-triangle test
-// (four 10-term Plücker dots, a division, the compares) over every ray of
-// a tile and every triangle of the clusters the tile enters; the
-// coefficient rows are read once per (tile, surviving cluster).
+// What bounds them on the card. K: fp32 work, ~40 operations per (live
+// ray, box) over every ray and every cluster (147,456 rays x 512 clusters
+// a bounce of the mesh workload); its inputs and its [tiles, clusters]
+// output are a few MB. M: fp32 work per ray-triangle test: the
+// determinant's 3-term dot and the face test on every test, the t dot and
+// a division where the face is seen, the u and v dots where t can win
+// (8, 12 and 29 operations; tools/search_times.py m_work counts the tests
+// each stage needs). Its table is read once per (tile, swept cluster),
+// from L2: the search is bound by the instructions a warp issues a test
+// and by how many warps the live tiles can keep busy.
 //
-// What the designs do about it:
-//   * K: one block per tile. The tile's rays (o, d, t_min, t_max) go into
-//     shared memory once; each thread takes the clusters tid, tid + 256,
-//     ... and reduces the minimum over the 256 rays, reading each ray from
-//     shared memory as a broadcast. Its output is the per-tile cull of M.
-//   * M: one block of 256 threads per tile, one thread per ray. The block
-//     scans its row of K's output in cluster order; for each finite entry
-//     it stages the cluster's coefficient rows (128 at a time: det, u_num,
-//     v_num, t_num x 10 plus the double-sided flag, 20,992 bytes) in
-//     shared memory, and every live thread tests all of them in fp32, each
-//     row a broadcast read. The sphere and quad tables are staged once. A
-//     ray with an empty window skips the tests but still takes part in
-//     the block's barriers. The cull is per tile, never per ray (a ray's
-//     own slab test could miss a hit at the fp edge), so every ray tests
-//     what its TPU tile tested and finds the TPU's winner.
-//   * The TPU sorts each tile's survivors front to back (dense grid) or
-//     lists them in id order (pair grid) and folds triangles
-//     lexicographically in (t, index); sweeping in id order with strict <
-//     gives the same winner, so no sort and no pair list are built here.
+// What M's first port lost, measured (PERF.md, kernel table): after a
+// bounce the few live rays sat in warps of dead ones, so every warp swept
+// its tile's cluster union for one or two lanes, and a tile's union grew
+// to a half-space; each test read 41 floats as scalar loads and computed
+// four 10-term dots before any check; clusters were swept in id order, so
+// a ray that had hit kept testing the clusters behind its hit. The design:
+//   * the sort (above) puts a chunk's live rays into its first tiles and
+//     near rays, going the same way, into the same tile; the dead ones
+//     fill whole tiles at the chunk's end. On the mesh a tile's rays
+//     still reach across the cloud (a few thousand live rays a chunk
+//     against 512 clusters): a live tile enters 200-400 of them;
+//   * parts: so a bounce's few live tiles, each entering hundreds of
+//     clusters, do not sit on a few SMs while the rest idle (measured: 16
+//     live tiles took 10.5 ms where the parent's 384 sparse ones took
+//     6.7), the grid's y is the part: a tile of m entered clusters is
+//     swept by min(32, m / 8) blocks (at least one), each taking every
+//     parts-th cluster of the tile's order. Each keeps its rays' least
+//     (t, row) and meets the others' in a 64-bit word a ray by an integer
+//     atomicMin of (the t's ordered bits, the row): the least of the same
+//     candidates whatever the order the parts end in. The last part to
+//     finish (a counter a tile) folds the spheres and quads and writes
+//     the winners. No float atomics;
+//   * live rays packed per tile: a ballot and a prefix over the block's 8
+//     warps put the tile's n live rays into the first n slots of shared
+//     memory; the first ceil(n / 32) warps sweep them and the rest only
+//     stage and wait. A tile without a live ray writes its misses and
+//     leaves before it stages anything;
+//   * the compact triangle row: _tri_coeffs' rows have structural zeros
+//     (det = -n.d lives on d: 3 terms; t_num = n.o - v0.n on o and the
+//     constant: 4; u_num and v_num on d and o x d: 6 each), so a row is
+//     19 coefficients and the flag, 20 floats, five 16-byte loads
+//     (ops/search.py compact_rows: det | t_o0, t_o1 t_o2 t_1 flag, u, v);
+//   * staged tests: det and the face test, then t against the window and
+//     the ray's best (t <= best, kept for the lexicographic tie), then u
+//     and v. The same values compared in another order;
+//   * front to back with a per-warp prune: the block sorts the clusters
+//     its tile enters by K's entry (then by id) in shared memory (a rank
+//     sort of the compacted row; or it reads an order given to it) and
+//     sweeps its part of them in that order. Before each cluster a warp
+//     whose every live ray already has its best t strictly below the
+//     cluster's entry stops (every later cluster enters later still); the
+//     block stops staging once all its warps have stopped. On the mesh it
+//     seldom fires: two rays in three miss the cloud, and a warp with a
+//     miss sweeps on;
+//   * the staged tile stays in shared memory: two buffers of 128 rows
+//     (10 KB each), the next cluster's copied by cp.async while the
+//     current one is swept, every lane of a warp reading the same row (a
+//     broadcast). The sphere and quad rows are read from global memory,
+//     also as broadcasts, by the packed rays alone.
 //
-// Numerics: built with --fmad=false, so every product rounds before its
-// sum, as the plain version's torch elementwise ops do; each Plücker dot
-// sums its ten terms in feature order, as the plain version does. IEEE
-// division, no fast-math. Max and min are written out (jmax/jmin propagate
-// NaN like jnp.maximum/minimum): fminf/fmaxf drop NaN, and a far sphere pad
-// row (c0 = 1e30) relies on a NaN discriminant to be rejected.
+// Why the compact sums are the plain version's. The plain version sums
+// all ten products of a row in feature order; the kernel sums the live
+// ones in the same order (--fmad=false: every product and sum rounds on
+// its own). A structural zero's product with a finite feature is +0 or
+// -0, and in round-to-nearest x + (+-0) = x for any x != 0 and is a zero
+// for x = +-0. So, step by step, the two sums are equal or both zero: they
+// can differ only in the sign of a zero result. A zero determinant fails
+// the face test either way (|det| > eps fails, eps >= 0), a zero t
+// numerator gives t = +-0, which fails the window's t >= t_min (the route
+// searches from T_MIN = 1e-4), and a zero u or v numerator compares as
+// +0 in every test. So the tests, the winners and their t are the plain
+// version's bit for bit (tests/test_torch_search_order.py replays this
+// sweep; chip_smoke.py holds the kernel to the plain version on every
+// lane).
 //
-// Tie rules, the TPU kernel's: the lowest triangle index wins a tie in t;
+// Why the prune keeps the winner. A triangle of cluster c that a ray of
+// the tile hits lies inside c's box; the box K tests is grown by CULL_EPS
+// = 1e-3 on every side, so the ray's exact entry into it is at least 1e-3
+// / |d| before the exact hit, and K's entry e_c (the least over the
+// tile's rays, clamped up to t_min) is at most that. If the computed t of
+// the hit lies within that margin of the exact one, t >= e_c. A ray whose
+// best t is strictly below e_c then cannot take a triangle of c or of any
+// later cluster (entries ascend), nor tie one. The margin holds unless the
+// hit grazes the triangle (t's rounding grows as 1 / |n.d|); the card's
+// check holds every lane of the mesh's recorded bounces against the plain
+// version, and a lane that differed would take the prune out.
+//
+// Numerics: built with --fmad=false; IEEE division, no fast-math. Max and
+// min are written out (jmax/jmin propagate NaN like jnp.maximum/minimum):
+// fminf/fmaxf drop NaN, and a far sphere pad row (c0 = 1e30) relies on a
+// NaN discriminant to be rejected. No float atomics.
+//
+// Tie rules, the TPU kernel's: triangles fold lexicographically in (t,
+// index), so the lowest index wins a tie in t whatever the sweep's order;
 // then spheres, then quads, each with strict <, so a tie goes triangle >
 // sphere > quad. A triangle winner's index is clamped to the last row; a
 // miss has kind 0, index 0 and t inf.
+
+#include <cuda_pipeline.h>
 
 #include "trace_common.cuh"
 
@@ -66,12 +133,27 @@ namespace {
 using namespace trace;
 
 constexpr int BC = 256;          // rays per tile (pallas_intersect.py:62)
+constexpr int WARPS = BC / 32;
 constexpr int STAGE = 128;       // triangle rows staged at a time
-constexpr int TRI_COLS = 41;     // det, u, v, t (10 each), double-sided
+constexpr int TRI_ROW = 20;      // floats of a compact triangle row
+constexpr int ROW_F4 = TRI_ROW / 4;
+constexpr int STAGE_F4 = STAGE * ROW_F4;
 constexpr int SMALL = 128;       // the sphere and quad tables' row bound
 constexpr float CULL_EPS = 1e-3f;
+// M's resident blocks an SM (__launch_bounds__): 4 at 64 registers
+#ifndef SEARCH_MIN_BLOCKS
+#define SEARCH_MIN_BLOCKS 4
+#endif
+constexpr int M_MIN_BLOCKS = SEARCH_MIN_BLOCKS;
+// a tile's clusters go to up to MAX_PARTS blocks, at least PART_CLUSTERS
+// of them each
+#ifndef SEARCH_PART_CLUSTERS
+#define SEARCH_PART_CLUSTERS 8
+#endif
+constexpr int MAX_PARTS = 32;
+constexpr int PART_CLUSTERS = SEARCH_PART_CLUSTERS;
 
-// The rays of tile `tile`: [start, start + count) of the [9, n] planes.
+// The rays of tile `tile`: [start, start + count) of the wave's positions.
 __device__ __forceinline__ void tile_span(int tile, int chunk, int n,
                                           int& start, int& count) {
   const int tpc = (chunk + BC - 1) / BC;
@@ -80,10 +162,17 @@ __device__ __forceinline__ void tile_span(int tile, int chunk, int n,
   count = min(BC, min(chunk - j * BC, n - start));
 }
 
-// K: rays [9, n] planes (o, d, time, t_min, t_max); cl_min / cl_max
-// [k, 3]; ent [n_tiles, k].
+// The ray at wave position j: perm[j], or j without a permutation.
+__device__ __forceinline__ int ray_at(const long long* __restrict__ perm,
+                                      int j) {
+  return perm ? static_cast<int>(perm[j]) : j;
+}
+
+// K: rays [9, n] planes (o, d, time, t_min, t_max), perm [n] or null;
+// cl_min / cl_max [k, 3]; ent [n_tiles, k].
 __global__ void __launch_bounds__(BC)
 tile_enter_kernel(const float* __restrict__ rays,
+                  const long long* __restrict__ perm,
                   const float* __restrict__ cl_min,
                   const float* __restrict__ cl_max, int n, int chunk, int k,
                   float* __restrict__ ent) {
@@ -93,10 +182,11 @@ tile_enter_kernel(const float* __restrict__ rays,
   tile_span(tile, chunk, n, start, count);
   const int r = threadIdx.x;
   const bool in = r < count;
+  const int src = in ? ray_at(perm, start + r) : 0;
   const int plane[8] = {0, 1, 2, 3, 4, 5, 7, 8};
 #pragma unroll
   for (int c = 0; c < 8; ++c)
-    sr[c][r] = in ? rays[(size_t)plane[c] * n + start + r]
+    sr[c][r] = in ? rays[(size_t)plane[c] * n + src]
                   : (c == 7 ? -1.f : 0.f);   // a pad ray: no window
   __syncthreads();
   for (int cl = threadIdx.x; cl < k; cl += BC) {
@@ -138,175 +228,393 @@ tile_enter_kernel(const float* __restrict__ rays,
   }
 }
 
+// M's static shared memory: the tile's live rays packed in thread order
+// (o, d, time, t_min, t_max and the ray's index), the per-warp counts of a
+// block-wide prefix, and whether this block finishes the tile.
+struct SearchSmem {
+  float ray[9][BC];
+  int src[BC];
+  int warp_cnt[WARPS];
+  int last;
+};
+
+// This thread's place among the block's threads whose `flag` is set, in
+// thread order, and (in total) how many are set. Every thread calls it.
+__device__ __forceinline__ int block_slot(bool flag, int* warp_cnt,
+                                          int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned m = __ballot_sync(0xffffffffu, flag);
+  if (lane == 0) warp_cnt[warp] = __popc(m);
+  __syncthreads();
+  int slot = __popc(m & ((1u << lane) - 1u));
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    const int c = warp_cnt[w];
+    slot += w < warp ? c : 0;
+    total += c;
+  }
+  __syncthreads();                           // warp_cnt is free again
+  return slot;
+}
+
+// Bits of a non-NaN float that order as the float does (-0 before +0),
+// and back.
+__device__ __forceinline__ unsigned int order_bits(float x) {
+  const unsigned int u = __float_as_uint(x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float from_order_bits(unsigned int b) {
+  return __uint_as_float((b & 0x80000000u) ? (b & 0x7fffffffu) : ~b);
+}
+
+// The block's dynamic shared memory: two stages of compact triangle rows,
+// then (without a given order) the tile's entered clusters as 64-bit keys
+// (entry bits, cluster id), compacted and sorted.
+__device__ __forceinline__ float4* search_dyn_smem() {
+  extern __shared__ float4 search_dyn[];
+  return search_dyn;
+}
+
 // M: rays [9, n]; ent [n_tiles, k] (K's, or one +inf column without
-// triangles); tri [n_tris, 41] (det, u_num, v_num, t_num rows over the ray
-// features [o, d, o x d, 1], then the double-sided flag), `width` rows a
-// cluster; sph [n_sph, 9] (c0, c1 - c0, t0, 1 / (t1 - t0), r); quad
-// [n_quad, 9] (q, u, v). best_t [n] (inf: none), best_kind [n], best_idx
-// [n] (the index within its kind's table; 0 for none).
-__global__ void __launch_bounds__(BC)
+// triangles); order [n_tiles, k] each tile's clusters by ascending entry
+// (a stable argsort of ent's rows) or null to sort them in the block;
+// perm [n] or null; tri [n_tris, 20] compact rows, `width` rows a cluster
+// (a multiple of STAGE, n_tris = k * width); sph [n_sph, 9] (c0, c1 - c0,
+// t0, 1 / (t1 - t0), r); quad [n_quad, 9] (q, u, v). best_t [n] (inf:
+// none), best_kind [n], best_idx [n] (the index within its kind's table;
+// 0 for none), at each ray's own index. With `merge` ([n + n_tiles], every
+// word all ones), the grid's y is the part: a tile whose clusters are many
+// is swept by several blocks, each taking every parts-th of them, whose
+// least (t, row) a ray meet in merge[ray] (an integer atomicMin of the
+// ordered t bits and the row: the same least, whatever the order); the
+// last of them (the counter merge[n + tile]) finishes the tile.
+__global__ void __launch_bounds__(BC, M_MIN_BLOCKS)
 fused_search_kernel(const float* __restrict__ rays,
                     const float* __restrict__ ent,
+                    const long long* __restrict__ order,
+                    const long long* __restrict__ perm,
                     const float* __restrict__ tri,
                     const float* __restrict__ sph,
                     const float* __restrict__ quad, int n, int chunk, int k,
                     int width, int n_tris, int n_sph, int n_quad,
                     float* __restrict__ best_t, int* __restrict__ best_kind,
-                    int* __restrict__ best_idx) {
-  __shared__ float st[STAGE * TRI_COLS];
-  __shared__ float ss[SMALL * 9];
-  __shared__ float sq[SMALL * 9];
-  const int tile = blockIdx.x;
+                    int* __restrict__ best_idx,
+                    unsigned long long* __restrict__ merge) {
+  __shared__ SearchSmem sm;
+  const int tile = blockIdx.x, part = blockIdx.y;
   int start, count;
   tile_span(tile, chunk, n, start, count);
-  for (int j = threadIdx.x; j < n_sph * 9; j += BC) ss[j] = sph[j];
-  for (int j = threadIdx.x; j < n_quad * 9; j += BC) sq[j] = quad[j];
+  const int s = threadIdx.x, warp = s >> 5;
 
-  const int r = threadIdx.x;
-  const bool in = r < count;
-  const int i = start + r;
-  auto ray = [&](int c) { return in ? rays[(size_t)c * n + i] : 0.f; };
-  const float ox = ray(0), oy = ray(1), oz = ray(2);
-  const float dx = ray(3), dy = ray(4), dz = ray(5), time = ray(6);
-  const float tmin = ray(7), tmax = in ? ray(8) : -1.f;
-  const bool live = tmax > tmin;
-  const float f[10] = {ox, oy, oz, dx, dy, dz, oy * dz - oz * dy,
-                       oz * dx - ox * dz, ox * dy - oy * dx, 1.f};
+  // ---- the clusters the tile enters: how many, and the tile's parts ---
+  const float* __restrict__ erow = ent + (size_t)tile * k;
+  int m = 0;
+  if (n_tris > 0)
+    for (int c0 = 0; c0 < k; c0 += BC)
+      m += __syncthreads_count(c0 + s < k && erow[c0 + s] < INFINITY);
+  const int parts =
+      merge ? max(1, min(static_cast<int>(gridDim.y), m / PART_CLUSTERS))
+            : 1;
+  if (part >= parts) return;                 // the same for the whole block
+
+  // ---- pack the tile's live rays into the first n_live slots ----------
+  const bool in = s < count;
+  const int src = in ? ray_at(perm, start + s) : 0;
+  const float tmin0 = in ? rays[(size_t)7 * n + src] : 0.f;
+  const float tmax0 = in ? rays[(size_t)8 * n + src] : -1.f;
+  const bool live = tmax0 > tmin0;
+  int n_live;
+  const int slot = block_slot(live, sm.warp_cnt, n_live);
+  if (part == 0 && in && !live) {            // an empty window: a miss
+    best_t[src] = INFINITY;
+    best_kind[src] = KIND_NONE;
+    best_idx[src] = 0;
+  }
+  if (n_live == 0) return;                   // the same for the whole block
+  if (live) {
+#pragma unroll
+    for (int c = 0; c < 7; ++c) sm.ray[c][slot] = rays[(size_t)c * n + src];
+    sm.ray[7][slot] = tmin0;
+    sm.ray[8][slot] = tmax0;
+    sm.src[slot] = src;
+  }
+
+  // ---- the entered clusters by ascending entry ------------------------
+  float4* stage = search_dyn_smem();
+  unsigned long long* ckey =
+      reinterpret_cast<unsigned long long*>(stage + 2 * STAGE_F4);
+  unsigned long long* skey = ckey + k;
+  if (n_tris > 0 && order == nullptr) {
+    int at0 = 0;
+    for (int c0 = 0; c0 < k; c0 += BC) {
+      const int c = c0 + s;
+      const float e = c < k ? erow[c] : INFINITY;
+      const bool fin = e < INFINITY;
+      int tot;
+      const int at = block_slot(fin, sm.warp_cnt, tot);
+      if (fin)
+        ckey[at0 + at] = (static_cast<unsigned long long>(order_bits(e))
+                          << 32) | static_cast<unsigned int>(c);
+      at0 += tot;
+    }
+    __syncthreads();
+    for (int j = s; j < m; j += BC) {         // a rank sort: keys distinct
+      const unsigned long long kj = ckey[j];
+      int rank = 0;
+      for (int i = 0; i < m; ++i) rank += ckey[i] < kj ? 1 : 0;
+      skey[rank] = kj;
+    }
+  }
+  __syncthreads();                           // the rays and keys are set
+  // the j-th cluster of this part: the (part + j * parts)-th by entry
+  auto cluster_at = [&](int j) -> int {
+    const int at = part + j * parts;
+    return order ? static_cast<int>(order[(size_t)tile * k + at])
+                 : static_cast<int>(static_cast<unsigned int>(skey[at]));
+  };
+
+  // ---- this thread's packed ray ----------------------------------------
+  const bool mine = s < n_live;
+  const int me = mine ? s : 0;
+  const float ox = sm.ray[0][me], oy = sm.ray[1][me], oz = sm.ray[2][me];
+  const float dx = sm.ray[3][me], dy = sm.ray[4][me], dz = sm.ray[5][me];
+  const float tmin = sm.ray[7][me], tmax = sm.ray[8][me];
+  const float cx = oy * dz - oz * dy;
+  const float cy = oz * dx - ox * dz;
+  const float cz = ox * dy - oy * dx;
   const float eps = TRI_DET_EPS * sqrtf(dx * dx + dy * dy + dz * dz);
   float bt = INFINITY;
-  int bk = KIND_NONE, bi = 0;
+  int bi = -1;                               // no triangle yet
 
-  // ---- triangles: the clusters this tile enters, in id order ----------
-  const float* __restrict__ erow = ent + (size_t)tile * k;
-  for (int c = 0; n_tris > 0 && c < k; ++c) {
-    if (!(erow[c] < INFINITY)) continue;     // the same for the whole block
-    for (int base = c * width; base < (c + 1) * width; base += STAGE) {
-      const int rows = min(STAGE, n_tris - base);
-      __syncthreads();                       // the last stage is consumed
-      const float* __restrict__ src = tri + (size_t)base * TRI_COLS;
-      for (int j = threadIdx.x; j < rows * TRI_COLS; j += BC) st[j] = src[j];
-      __syncthreads();
-      if (!live) continue;
-      for (int q = 0; q < rows; ++q) {
-        const float* row = st + q * TRI_COLS;
-        const float dm = dot10(row, f);
-        const bool side_ok = dm > eps || (dm < -eps && row[40] > 0.5f);
-        if (!side_ok) continue;
+  // ---- triangles: front to back, two staged buffers -------------------
+  const int m_part = part < m ? (m - part + parts - 1) / parts : 0;
+  if (m_part > 0) {
+    const float4* __restrict__ tri4 = reinterpret_cast<const float4*>(tri);
+    const int spc = width / STAGE;           // stages a cluster
+    const int n_st = m_part * spc;
+    auto copy = [&](int st, float4* dst) {
+      const float4* __restrict__ from =
+          tri4 + ((size_t)cluster_at(st / spc) * width + (st % spc) * STAGE)
+                     * ROW_F4;
+      for (int i = s; i < STAGE_F4; i += BC)
+        __pipeline_memcpy_async(dst + i, from + i, sizeof(float4));
+    };
+    // warps past the packed rays never sweep
+    bool wdone = warp * 32 >= n_live;
+    copy(0, stage);
+    __pipeline_commit();
+    for (int st = 0; st < n_st; ++st) {
+      const int c = cluster_at(st / spc);
+      const float e = erow[c];
+      // a warp stops once every live ray in it has best t below the entry
+      if (!wdone) wdone = __all_sync(0xffffffffu, !mine || bt < e);
+      if (!__syncthreads_or(!wdone)) break;  // also: the last stage is read
+      if (st + 1 < n_st) copy(st + 1, stage + ((st + 1) & 1) * STAGE_F4);
+      __pipeline_commit();
+      __pipeline_wait_prior(1);
+      __syncthreads();                       // stage st is in place
+      if (wdone || !mine) continue;
+      const float4* buf = stage + (st & 1) * STAGE_F4;
+      const int base = c * width + (st % spc) * STAGE;
+      for (int q = 0; q < STAGE; ++q) {
+        const float4* r = buf + q * ROW_F4;
+        const float4 r0 = r[0], r1 = r[1];
+        float dm = r0.x * dx;
+        dm = dm + r0.y * dy;
+        dm = dm + r0.z * dz;
+        if (!(dm > eps || (dm < -eps && r1.w > 0.5f))) continue;
+        float tm = r0.w * ox;
+        tm = tm + r1.x * oy;
+        tm = tm + r1.y * oz;
+        tm = tm + r1.z;                      // the constant's term x 1
         const float inv = 1.f / (fabsf(dm) > eps ? dm : 1.f);
-        const float u = dot10(row + 10, f) * inv;
-        const float v = dot10(row + 20, f) * inv;
-        const float t = dot10(row + 30, f) * inv;
-        const bool valid = u >= 0.f && u <= 1.f && v >= 0.f && v < 1.f - u &&
-                           t >= tmin && t <= tmax;
-        // ascending ids with strict <: the lowest index wins a tie in t
-        if (valid && t < bt) {
+        const float t = tm * inv;
+        if (!(t >= tmin && t <= tmax && t <= bt)) continue;
+        const float4 r2 = r[2], r3 = r[3], r4 = r[4];
+        float um = r2.x * dx;
+        um = um + r2.y * dy;
+        um = um + r2.z * dz;
+        um = um + r2.w * cx;
+        um = um + r3.x * cy;
+        um = um + r3.y * cz;
+        float vm = r3.z * dx;
+        vm = vm + r3.w * dy;
+        vm = vm + r4.x * dz;
+        vm = vm + r4.y * cx;
+        vm = vm + r4.z * cy;
+        vm = vm + r4.w * cz;
+        const float u = um * inv, v = vm * inv;
+        if (!(u >= 0.f && u <= 1.f && v >= 0.f && v < 1.f - u)) continue;
+        // lexicographic in (t, index): t <= bt here
+        const int row = base + q;
+        if (t < bt || row < bi) {
           bt = t;
-          bk = KIND_TRI;
-          bi = base + q;
+          bi = row;
         }
       }
     }
+    __pipeline_wait_prior(0);                // a prefetch the break left
   }
-  __syncthreads();                           // the small tables are staged
+
+  // ---- the parts' least (t, row) of each ray: the last part finishes --
+  const int dst = sm.src[me];
+  if (parts > 1) {
+    if (mine && bi >= 0)
+      atomicMin(merge + dst,
+                (static_cast<unsigned long long>(order_bits(bt)) << 32) |
+                    static_cast<unsigned int>(bi));
+    __threadfence();
+    __syncthreads();
+    if (s == 0)
+      sm.last = atomicAdd(merge + n + tile, 1ull) ==
+                static_cast<unsigned long long>(parts - 2);
+    __syncthreads();
+    if (!sm.last) return;
+    __threadfence();
+    if (mine) {
+      const unsigned long long key = atomicOr(merge + dst, 0ull);
+      bt = key == ~0ull ? INFINITY : from_order_bits(key >> 32);
+      bi = key == ~0ull ? -1 : static_cast<int>(key & 0xffffffffu);
+    }
+  }
+  if (!mine) return;
 
   // ---- the small tables, after every triangle: strict < --------------
-  if (live) {
-    for (int q = 0; q < n_sph; ++q) {
-      const float* sp = ss + q * 9;
-      const float frac = (time - sp[6]) * sp[7];
-      const float cx = sp[0] + frac * sp[3];
-      const float cy = sp[1] + frac * sp[4];
-      const float cz = sp[2] + frac * sp[5];
-      const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
-      const float a = dx * dx + dy * dy + dz * dz;
-      const float bq = ocx * dx + ocy * dy + ocz * dz;
-      const float cc = ocx * ocx + ocy * ocy + ocz * ocz - sp[8] * sp[8];
-      const float disc = bq * bq - a * cc;
-      const bool ok = disc > 0.f;
-      const float sqd = sqrtf(jmax(disc, 1e-12f)) * (ok ? 1.f : 0.f);
-      const float inv_a = 1.f / jmax(a, 1e-12f);
-      const float root1 = (-bq - sqd) * inv_a;
-      const float root2 = (-bq + sqd) * inv_a;
-      const bool ok1 = ok && root1 >= tmin && root1 <= tmax;
-      const bool ok2 = ok && root2 >= tmin && root2 <= tmax;
-      const float t = ok1 ? root1 : (ok2 ? root2 : INFINITY);
-      if (t < bt) {
-        bt = t;
-        bk = KIND_SPH;
-        bi = q;
-      }
-    }
-    for (int q = 0; q < n_quad; ++q) {
-      const float* qd = sq + q * 9;
-      const float qx = qd[0], qy = qd[1], qz = qd[2];
-      const float ux = qd[3], uy = qd[4], uz = qd[5];
-      const float vx = qd[6], vy = qd[7], vz = qd[8];
-      const float wnx = uy * vz - uz * vy;
-      const float wny = uz * vx - ux * vz;
-      const float wnz = ux * vy - uy * vx;
-      const float denom = dx * wnx + dy * wny + dz * wnz;
-      const float dsafe = fabsf(denom) < 1e-12f
-                              ? (denom < 0.f ? -1e-12f : 1e-12f) : denom;
-      const float t = ((qx - ox) * wnx + (qy - oy) * wny +
-                       (qz - oz) * wnz) / dsafe;
-      const float wx = ox + t * dx - qx;
-      const float wy = oy + t * dy - qy;
-      const float wz = oz + t * dz - qz;
-      const float n2 = wnx * wnx + wny * wny + wnz * wnz;
-      const float inv_n2 = 1.f / jmax(n2, 1e-12f);
-      const float qa = ((wy * vz - wz * vy) * wnx +
-                        (wz * vx - wx * vz) * wny +
-                        (wx * vy - wy * vx) * wnz) * inv_n2;
-      const float qb = ((uy * wz - uz * wy) * wnx +
-                        (uz * wx - ux * wz) * wny +
-                        (ux * wy - uy * wx) * wnz) * inv_n2;
-      const bool valid = fabsf(denom) > 0.f && t >= tmin && t <= tmax &&
-                         qa >= 0.f && qa <= 1.f && qb >= 0.f && qb <= 1.f;
-      if (valid && t < bt) {
-        bt = t;
-        bk = KIND_QUAD;
-        bi = q;
-      }
+  int bk = bi >= 0 ? KIND_TRI : KIND_NONE;
+  bi = bi >= 0 ? min(bi, n_tris - 1) : 0;
+  const float time = sm.ray[6][me];
+  for (int q = 0; q < n_sph; ++q) {
+    const float* sp = sph + q * 9;
+    const float frac = (time - sp[6]) * sp[7];
+    const float cx_ = sp[0] + frac * sp[3];
+    const float cy_ = sp[1] + frac * sp[4];
+    const float cz_ = sp[2] + frac * sp[5];
+    const float ocx = ox - cx_, ocy = oy - cy_, ocz = oz - cz_;
+    const float a = dx * dx + dy * dy + dz * dz;
+    const float bq = ocx * dx + ocy * dy + ocz * dz;
+    const float cc = ocx * ocx + ocy * ocy + ocz * ocz - sp[8] * sp[8];
+    const float disc = bq * bq - a * cc;
+    const bool ok = disc > 0.f;
+    const float sqd = sqrtf(jmax(disc, 1e-12f)) * (ok ? 1.f : 0.f);
+    const float inv_a = 1.f / jmax(a, 1e-12f);
+    const float root1 = (-bq - sqd) * inv_a;
+    const float root2 = (-bq + sqd) * inv_a;
+    const bool ok1 = ok && root1 >= tmin && root1 <= tmax;
+    const bool ok2 = ok && root2 >= tmin && root2 <= tmax;
+    const float t = ok1 ? root1 : (ok2 ? root2 : INFINITY);
+    if (t < bt) {
+      bt = t;
+      bk = KIND_SPH;
+      bi = q;
     }
   }
-  if (!in) return;
-  best_t[i] = bt;
-  best_kind[i] = bk;
-  best_idx[i] = bk == KIND_TRI ? min(bi, n_tris - 1) : bi;
+  for (int q = 0; q < n_quad; ++q) {
+    const float* qd = quad + q * 9;
+    const float qx = qd[0], qy = qd[1], qz = qd[2];
+    const float ux = qd[3], uy = qd[4], uz = qd[5];
+    const float vx = qd[6], vy = qd[7], vz = qd[8];
+    const float wnx = uy * vz - uz * vy;
+    const float wny = uz * vx - ux * vz;
+    const float wnz = ux * vy - uy * vx;
+    const float denom = dx * wnx + dy * wny + dz * wnz;
+    const float dsafe = fabsf(denom) < 1e-12f
+                            ? (denom < 0.f ? -1e-12f : 1e-12f) : denom;
+    const float t = ((qx - ox) * wnx + (qy - oy) * wny +
+                     (qz - oz) * wnz) / dsafe;
+    const float wx = ox + t * dx - qx;
+    const float wy = oy + t * dy - qy;
+    const float wz = oz + t * dz - qz;
+    const float n2 = wnx * wnx + wny * wny + wnz * wnz;
+    const float inv_n2 = 1.f / jmax(n2, 1e-12f);
+    const float qa = ((wy * vz - wz * vy) * wnx +
+                      (wz * vx - wx * vz) * wny +
+                      (wx * vy - wy * vx) * wnz) * inv_n2;
+    const float qb = ((uy * wz - uz * wy) * wnx +
+                      (uz * wx - ux * wz) * wny +
+                      (ux * wy - uy * wx) * wnz) * inv_n2;
+    const bool valid = fabsf(denom) > 0.f && t >= tmin && t <= tmax &&
+                       qa >= 0.f && qa <= 1.f && qb >= 0.f && qb <= 1.f;
+    if (valid && t < bt) {
+      bt = t;
+      bk = KIND_QUAD;
+      bi = q;
+    }
+  }
+  best_t[dst] = bt;
+  best_kind[dst] = bk;
+  best_idx[dst] = bi;
 }
 
 int n_tiles(int n, int chunk) {
   return n / chunk * ((chunk + BC - 1) / BC);
 }
 
+// M's dynamic shared memory for k clusters: the two stages and, without a
+// given order, the compacted and the sorted keys.
+size_t search_smem(int k, bool ordered, bool triangles) {
+  if (!triangles) return 0;
+  return 2 * STAGE_F4 * sizeof(float4) +
+         (ordered ? 0 : 2 * (size_t)k * sizeof(unsigned long long));
+}
+
 }  // namespace
 
 // Each entry launches on ``stream`` and returns cudaGetLastError() (0 =
 // launched), -1 for arguments it refuses. n is a multiple of chunk.
-extern "C" int tile_enter_launch(const float* rays, const float* cl_min,
-                                 const float* cl_max, int n, int chunk, int k,
-                                 float* ent, void* stream) {
+extern "C" int tile_enter_launch(const float* rays, const long long* perm,
+                                 const float* cl_min, const float* cl_max,
+                                 int n, int chunk, int k, float* ent,
+                                 void* stream) {
   if (chunk <= 0 || n % chunk) return -1;
   const int tiles = n_tiles(n, chunk);
   if (tiles > 0 && k > 0)
     tile_enter_kernel<<<tiles, BC, 0, static_cast<cudaStream_t>(stream)>>>(
-        rays, cl_min, cl_max, n, chunk, k, ent);
+        rays, perm, cl_min, cl_max, n, chunk, k, ent);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The largest cluster count M sorts in the block (its keys in shared
+// memory); past it the caller gives the order.
+extern "C" int fused_search_max_sorted_clusters() {
+  int dev = 0, limit = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return -1;
+  const long long free_bytes = limit - (long long)sizeof(SearchSmem) -
+                               2LL * STAGE_F4 * (long long)sizeof(float4);
+  return static_cast<int>(free_bytes /
+                          (2 * (long long)sizeof(unsigned long long)));
+}
+
+// merge: null, or [n + n_tiles] words, all ones: the tiles' clusters are
+// then split over up to MAX_PARTS blocks each.
 extern "C" int fused_search_launch(const float* rays, const float* ent,
-                                   const float* tri, const float* sph,
-                                   const float* quad, int n, int chunk, int k,
-                                   int width, int n_tris, int n_sph,
-                                   int n_quad, float* best_t, int* best_kind,
-                                   int* best_idx, void* stream) {
+                                   const long long* order,
+                                   const long long* perm, const float* tri,
+                                   const float* sph, const float* quad,
+                                   int n, int chunk, int k, int width,
+                                   int n_tris, int n_sph, int n_quad,
+                                   float* best_t, int* best_kind,
+                                   int* best_idx, unsigned long long* merge,
+                                   void* stream) {
   if (chunk <= 0 || n % chunk || n_sph > SMALL || n_quad > SMALL ||
-      (n_tris > 0 && (width <= 0 || n_tris > k * width)))
+      (n_tris > 0 && (width <= 0 || width % STAGE || n_tris != k * width)))
     return -1;
   const int tiles = n_tiles(n, chunk);
+  const size_t smem = search_smem(k, order != nullptr, n_tris > 0);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(tiles, merge ? MAX_PARTS : 1);
   if (tiles > 0)
-    fused_search_kernel<<<tiles, BC, 0, static_cast<cudaStream_t>(stream)>>>(
-        rays, ent, tri, sph, quad, n, chunk, k, width, n_tris, n_sph, n_quad,
-        best_t, best_kind, best_idx);
+    fused_search_kernel<<<grid, BC, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+        rays, ent, order, perm, tri, sph, quad, n, chunk, k, width, n_tris,
+        n_sph, n_quad, best_t, best_kind, best_idx, merge);
   return static_cast<int>(cudaGetLastError());
 }

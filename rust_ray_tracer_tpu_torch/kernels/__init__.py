@@ -82,7 +82,10 @@ Kernels (each wrapper counts its launches in ``launches``):
     ``pallas_intersect.py`` ``_mask_kernel``; plain version
     ``ops/search.tile_enter_plain``) and ``fused_search_kernel`` (TPU
     kernel M, ``_make_fused_kernel`` and ``_make_pair_kernel``; plain
-    version ``ops/search.fused_search_plain``); ``tri_search_kernel``
+    version ``ops/search.fused_search_plain``), both reading the rays
+    through ``ops/search.search_order``'s permutation where one is given,
+    M reading the compact triangle rows (``ops/search.compact_rows``);
+    ``tri_search_kernel``
     (TPU kernel L, ``pallas_intersect.py`` ``_kernel``, the triangle
     search alone: M's entry point launched with no sphere or quad rows,
     whose triangle test is L's; plain version
@@ -115,7 +118,7 @@ from rust_ray_tracer_tpu_torch.ops.bounce import N_SU, N_SU_OUT
 from rust_ray_tracer_tpu_torch.ops.bounce_core import N_CHK, N_IN_B
 from rust_ray_tracer_tpu_torch.ops.hit_core import N_IN as HIT_IN
 from rust_ray_tracer_tpu_torch.ops.hit_core import N_OUT as HIT_OUT
-from rust_ray_tracer_tpu_torch.ops.search import (N_RAY, TRI_COLS, tile_count,
+from rust_ray_tracer_tpu_torch.ops.search import (N_RAY, TRI_ROW, tile_count,
                                                   tri_only)
 from rust_ray_tracer_tpu_torch.ops.shade import N_OUT as SHADE_OUT
 from rust_ray_tracer_tpu_torch.ops.shade_core import LT_COLS, N_DATA, N_RNG
@@ -991,6 +994,39 @@ class BouncePlanesLiveBwdKernel(BouncePlanesBwdKernel):
         return d_planes, _light_sum(part, lt)
 
 
+def _check_perm(perm, dev, n):
+    """Check a ray permutation ``perm`` [n] int64 (``ops/search.
+    search_order``) for a launch of kernel K or M on ``dev``."""
+    if perm is not None:
+        _check("perm", perm, dev, (n,), torch.int64)
+
+
+STAGE = 128      # triangle rows M stages at a time (csrc/search.cu)
+
+
+def _check_unified_tables(tabs, dev, k):
+    """Check the tables of kernel M (an ``ops/search.SearchTables``) for a
+    launch on ``dev`` with ``k`` entry columns: the compact triangle rows
+    [T, 20] 16-byte aligned (M reads them as float4), ``k`` clusters of
+    ``width`` rows, ``width`` whole 128-row stages; the sphere and quad
+    rows [*, 9], at most 128 each."""
+    t_n, s_n, q_n = (tabs.tri.shape[0], tabs.sph.shape[0],
+                     tabs.quad.shape[0])
+    _check("tri", tabs.tri, dev, (t_n, TRI_ROW))
+    _check("sph", tabs.sph, dev, (s_n, 9))
+    _check("quad", tabs.quad, dev, (q_n, 9))
+    if s_n > 128 or q_n > 128:
+        raise ValueError(f"{s_n} spheres, {q_n} quads: the small tables "
+                         "hold 128 rows")
+    if t_n:
+        if t_n != k * tabs.width or tabs.width % STAGE:
+            raise ValueError(f"{t_n} triangles are not {k} clusters of "
+                             f"{tabs.width} (whole {STAGE}-row stages)")
+        if tabs.tri.data_ptr() % 16:
+            raise ValueError("tri must be 16-byte aligned (M reads its "
+                             "rows as float4)")
+
+
 class TileEnterKernel(_Kernel):
     """ctypes wrapper of ``tile_enter_launch`` (kernel K): [n_tiles, K]
     float32, the smallest entry distance of any ray of each 256-ray tile
@@ -1000,11 +1036,13 @@ class TileEnterKernel(_Kernel):
     name = "tile_enter"
     library = "search"
     entry = "tile_enter_launch"
-    argtypes = (_P,) * 3 + (_I,) * 3 + (_P,)
+    argtypes = (_P,) * 4 + (_I,) * 3 + (_P,)
 
-    def __call__(self, rays, cl_min, cl_max, chunk=None):
+    def __call__(self, rays, cl_min, cl_max, chunk=None, perm=None):
         """``rays`` [9, N] planes (o, d, time, t_min, t_max), the boxes
-        ``cl_min`` / ``cl_max`` [K, 3], ``chunk`` rays a chunk (None: N)."""
+        ``cl_min`` / ``cl_max`` [K, 3], ``chunk`` rays a chunk (None: N),
+        ``perm`` [N] int64 (``ops/search.search_order``; None: the rays'
+        own order): tile position j holds the ray ``perm[j]``."""
         dev = rays.device
         if dev.type != "cuda":
             raise ValueError(f"tile_enter kernel needs CUDA tensors, got "
@@ -1013,59 +1051,91 @@ class TileEnterKernel(_Kernel):
         chunk = n if chunk is None else chunk
         k = cl_min.shape[0]
         _check("rays", rays, dev, (N_RAY, n))
+        _check_perm(perm, dev, n)
         _check("cl_min", cl_min, dev, (k, 3))
         _check("cl_max", cl_max, dev, (k, 3))
         tiles = tile_count(n, chunk)
         self.load()
         ent = torch.empty((tiles, k), dtype=torch.float32, device=dev)
-        self._launch(dev, _ptr(rays), _ptr(cl_min), _ptr(cl_max), n, chunk,
-                     k, _ptr(ent))
+        self._launch(dev, _ptr(rays), _ptr_or_null(perm), _ptr(cl_min),
+                     _ptr(cl_max), n, chunk, k, _ptr(ent))
         return ent
+
+
+def _ptr_or_null(t):
+    return ctypes.c_void_p(None) if t is None else _ptr(t)
 
 
 class FusedSearchKernel(_Kernel):
     """ctypes wrapper of ``fused_search_launch`` (kernel M): (best t [N]
     float32, inf for none; kind [N] int32, 0 for none; index [N] int32
     within its kind's table), as ``ops/search.fused_search_plain`` returns
-    them."""
+    them. Each block sorts the clusters its tile enters by their entry in
+    shared memory; past the cluster count that fits
+    (``max_sorted_clusters``), or with ``sort_in_block=False``, the
+    wrapper gives the order (a stable ``torch.argsort`` of ``ent``'s
+    rows) instead."""
 
     name = "fused_search"
     library = "search"
     entry = "fused_search_launch"
-    argtypes = (_P,) * 5 + (_I,) * 7 + (_P,) * 3
+    argtypes = (_P,) * 7 + (_I,) * 7 + (_P,) * 4
 
-    def __call__(self, rays, ent, tabs, chunk=None):
+    def __init__(self):
+        super().__init__()
+        self._max_sorted = None
+
+    def max_sorted_clusters(self) -> int:
+        """The most clusters a block sorts in its shared memory."""
+        if self._max_sorted is None:
+            fn = getattr(ctypes.CDLL(str(self.load().path)),
+                         "fused_search_max_sorted_clusters")
+            fn.restype = ctypes.c_int
+            self._max_sorted = fn()
+            if self._max_sorted < 0:
+                raise RuntimeError("fused_search: shared-memory query "
+                                   "failed")
+        return self._max_sorted
+
+    def __call__(self, rays, ent, tabs, chunk=None, perm=None,
+                 sort_in_block=True, parts=True):
         """``rays`` [9, N] planes, ``ent`` [n_tiles, K] (kernel K's, or one
         +inf column without triangles), ``tabs`` an
-        ``ops/search.SearchTables``, ``chunk`` rays a chunk (None: N)."""
+        ``ops/search.SearchTables``, ``chunk`` rays a chunk (None: N),
+        ``perm`` [N] int64 as kernel K's (the winners are written at each
+        ray's own index). With ``parts`` a tile that enters many clusters
+        is swept by several blocks (``csrc/search.cu``); the winners are
+        the same without."""
         dev = rays.device
         if dev.type != "cuda":
             raise ValueError(f"fused_search kernel needs CUDA tensors, got "
                              f"{dev}")
         n = rays.shape[1] if rays.dim() == 2 else -1
         chunk = n if chunk is None else chunk
-        t_n, s_n, q_n = (tabs.tri.shape[0], tabs.sph.shape[0],
-                         tabs.quad.shape[0])
         k = ent.shape[1] if ent.dim() == 2 else -1
         _check("rays", rays, dev, (N_RAY, n))
+        _check_perm(perm, dev, n)
         _check("ent", ent, dev, (tile_count(n, chunk), k))
-        _check("tri", tabs.tri, dev, (t_n, TRI_COLS))
-        _check("sph", tabs.sph, dev, (s_n, 9))
-        _check("quad", tabs.quad, dev, (q_n, 9))
-        if s_n > 128 or q_n > 128:
-            raise ValueError(f"{s_n} spheres, {q_n} quads: the small tables "
-                             "hold 128 rows")
-        if t_n and t_n != k * tabs.width:
-            raise ValueError(f"{t_n} triangles are not {k} clusters of "
-                             f"{tabs.width}")
+        _check_unified_tables(tabs, dev, k)
         self.load()
+        order = None
+        if tabs.tri.shape[0] and (not sort_in_block
+                                  or k > self.max_sorted_clusters()):
+            order = torch.argsort(ent, dim=1, stable=True)
         best_t = torch.empty((n,), dtype=torch.float32, device=dev)
         best_k = torch.empty((n,), dtype=torch.int32, device=dev)
         best_i = torch.empty((n,), dtype=torch.int32, device=dev)
-        self._launch(dev, _ptr(rays), _ptr(ent), _ptr(tabs.tri),
-                     _ptr(tabs.sph), _ptr(tabs.quad), n, chunk, k,
-                     tabs.width, t_n, s_n, q_n, _ptr(best_t), _ptr(best_k),
-                     _ptr(best_i))
+        # the parts' meeting words: each ray's least (t, row), each tile's
+        # count of finished parts; all ones
+        merge = (torch.full((n + ent.shape[0],), -1, dtype=torch.int64,
+                            device=dev)
+                 if parts and tabs.tri.shape[0] else None)
+        self._launch(dev, _ptr(rays), _ptr(ent), _ptr_or_null(order),
+                     _ptr_or_null(perm), _ptr(tabs.tri), _ptr(tabs.sph),
+                     _ptr(tabs.quad), n, chunk, k, tabs.width,
+                     tabs.tri.shape[0], tabs.sph.shape[0],
+                     tabs.quad.shape[0], _ptr(best_t), _ptr(best_k),
+                     _ptr(best_i), _ptr_or_null(merge))
         return best_t, best_k, best_i
 
 

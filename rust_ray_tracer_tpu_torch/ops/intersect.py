@@ -328,6 +328,9 @@ def intersect_select(scene, o, d, time, tables, med_u=None, t_min=None,
         quads in one search, a tie going triangle > sphere > quad), by
         ``ops/search.search`` with 256-ray tiles that restart at each
         ``chunk``'s first ray (the whole input is one chunk when None);
+        from ``ops/search.PACKED_MIN_TRIS`` triangles on, the rays of each
+        chunk sorted first (``ops/search.search_order``, JAX's
+        ``_search_order``: dead last, then octant and Morton order);
       * otherwise (``intersect.py:640-653``) triangles (K's entries and
         TPU kernel L, ``ops/search.tri_candidates``), spheres (TPU kernel
         N from ``CLUSTER`` rows up, ``ops/sphere.sph_search``; plain torch
@@ -379,9 +382,12 @@ def intersect_select(scene, o, d, time, tables, med_u=None, t_min=None,
         from rust_ray_tracer_tpu_torch.ops import sphere as sphere_ops
         rays = search_ops.ray_planes(o, d, time, t_min, t_max)
         if tables.unified:
-            # K and M
+            # K and M; from PACKED_MIN_TRIS triangles on the rays sorted
+            # first (intersect.py:626-636), the winners in the rays' order
+            perm = (search_ops.search_order(rays, tables.search, chunk)
+                    if scene.n_tris >= search_ops.PACKED_MIN_TRIS else None)
             best_t, best_kind, idx = search_ops.search(rays, tables.search,
-                                                       chunk)
+                                                       chunk, perm)
             best_idx = idx.long()
         else:
             if scene.n_tris:

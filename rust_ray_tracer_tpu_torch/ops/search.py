@@ -41,10 +41,26 @@ clamped to the last row (``_finish``). A miss has kind 0, index 0 and t
 inf. The cull is conservative (a 1e-3 margin) and per tile, never per ray:
 every ray of a tile tests every cluster some ray of the tile enters.
 
-The TPU's in-kernel coefficient assembly for big meshes (``packed``,
-``_coeffs_from_pack``) and its search-order sort of the rays
-(``intersect._search_order``) select the same winners; they are HBM and
-tiling devices and are not ported (ROADMAP queue 2).
+  * :func:`search_order` — ``intersect._search_order`` (``intersect.py:
+    460-494``): the permutation of the rays before the unified search of a
+    scene of at least :data:`PACKED_MIN_TRIS` triangles (the gate of
+    ``intersect.py:626-636``, taken in ``ops/intersect.intersect_select``):
+    dead lanes last, live ones by direction octant, then by the Morton
+    code of the origin in the clusters' bounds, so a tile's live rays are
+    near one another and its cluster union small. JAX sorts each chunk's
+    rays in its per-chunk call; the port searches a whole wave at once, so
+    the sort is segmented by chunk. K and M take the permutation
+    (``perm``): the tiles hold the sorted rays, and the winners come back
+    in the rays' own order.
+
+The triangle table is compact (:data:`TRI_ROW` floats a row,
+:func:`compact_rows`): the columns of ``_tri_coeffs``' rows that are not
+structural zeros, and the double-sided flag. The plain versions expand a
+row back to the four 10-term rows (:func:`full_rows`) and sum every term;
+kernels M and L sum the live terms alone (``csrc/search.cu``'s header
+says why the sums agree). The TPU's in-kernel coefficient assembly for big
+meshes (``packed``, ``_coeffs_from_pack``) selects the same winners; it
+saves HBM bytes and is not ported (ROADMAP queue 2).
 """
 
 from __future__ import annotations
@@ -60,19 +76,37 @@ from rust_ray_tracer_tpu_torch.ops.intersect import (KIND_QUAD, KIND_SPH,
 
 BC = 256                # rays per tile (pallas_intersect.py:62)
 CULL_EPS = 1e-3         # the cull box margin (_mask_kernel)
-TRI_COLS = 41           # a triangle's search row: det, u, v, t (10 each), dbl
 N_RAY = 9               # ray planes: o(3) d(3) time t_min t_max
+# the sort's gate: triangles from which phase 1 sorts the rays
+# (pallas_intersect.py:78, intersect.py:626)
+PACKED_MIN_TRIS = 65536
+DEAD_KEY = 0x7FFFFFFF   # a dead lane's sort key: after every live one
+
+# The compact triangle row: (row of _tri_coeffs, its feature columns) in
+# the row's order, then the double-sided flag. Feature columns: o 0-2,
+# d 3-5, o x d 6-8, the constant 9. det = -n.d lives on d; t_num =
+# n.o - v0.n on o and the constant; u_num and v_num on d and o x d. The
+# kernel reads the row as five float4: (det | t_o0), (t_o1 t_o2 t_1
+# flag), u, then v.
+DET, U, V, T = range(4)
+TRI_LIVE = ((DET, (3, 4, 5)), (T, (0, 1, 2, 9)), (U, (3, 4, 5, 6, 7, 8)),
+            (V, (3, 4, 5, 6, 7, 8)))
+TRI_FLAG = 7            # the flag's column, between t's terms and u's
+TRI_ROW = 20            # floats a compact row (19 coefficients, the flag)
 
 
 @dataclasses.dataclass
 class SearchTables:
     """Detached tables of the unified search, built once per render.
-    ``tri`` [T, 41] a triangle's Plücker rows (det, u_num, v_num, t_num
-    over the ray features [o, d, o x d, 1]; ``intersect._tri_coeffs``)
-    and its double-sided flag; ``cl_min`` / ``cl_max`` [K, 3] the cluster
+    ``tri`` [T, 20] a triangle's compact row (:func:`compact_rows`: the
+    live terms of its Plücker rows det, u_num, v_num, t_num over the ray
+    features [o, d, o x d, 1], ``intersect._tri_coeffs``, and its
+    double-sided flag); ``cl_min`` / ``cl_max`` [K, 3] the cluster
     boxes (inverted for an all-pad cluster); ``width`` triangles a
     cluster; ``sph`` [S, 9] c0, c1 - c0, t0, 1 / (t1 - t0), r; ``quad``
-    [Q, 9] q, u, v. Empty kinds have 0 rows."""
+    [Q, 9] q, u, v. Empty kinds have 0 rows. ``key_tables``: what
+    :func:`search_order`'s key reads besides the rays (:func:`key_tables`:
+    the boxes' bounds, the spread bits; None without triangles)."""
 
     tri: torch.Tensor
     cl_min: torch.Tensor
@@ -80,6 +114,7 @@ class SearchTables:
     width: int
     sph: torch.Tensor
     quad: torch.Tensor
+    key_tables: tuple | None = None
 
 
 def unified(scene) -> bool:
@@ -88,6 +123,31 @@ def unified(scene) -> bool:
     ``CLUSTER`` spheres and fewer than ``CLUSTER`` quads."""
     return (scene.n_tris + scene.n_spheres + scene.n_quads > 0
             and scene.n_spheres < CLUSTER and scene.n_quads < CLUSTER)
+
+
+def compact_rows(coeffs, double):
+    """[T, 20] compact rows of the four [10, T] rows ``coeffs`` = (det,
+    u_num, v_num, t_num) of ``intersect._tri_coeffs`` and the flags
+    ``double`` [T]: the columns :data:`TRI_LIVE` names, in its order, with
+    the flag at :data:`TRI_FLAG`. Every other column of ``_tri_coeffs`` is
+    a structural zero (``full_rows`` restores them)."""
+    cols = [coeffs[r][list(fs)] for r, fs in TRI_LIVE]
+    cols.insert(2, double.to(coeffs[0].dtype)[None])
+    return torch.cat(cols, dim=0).T.contiguous()
+
+
+def full_rows(tri):
+    """(det, u_num, v_num, t_num) [R, 10] and the flag [R, 1] of compact
+    rows ``tri`` [R, 20]: the structural zeros of ``_tri_coeffs`` put back
+    (+0.0, as ``_tri_coeffs`` makes them), every coefficient as stored."""
+    out = [tri.new_zeros((tri.shape[0], 10)) for _ in range(4)]
+    at = 0
+    for r, fs in TRI_LIVE:
+        if at == TRI_FLAG:
+            at += 1
+        out[r][:, list(fs)] = tri[:, at:at + len(fs)]
+        at += len(fs)
+    return (*out, tri[:, TRI_FLAG:TRI_FLAG + 1])
 
 
 def sphere_rows(scene):
@@ -109,16 +169,14 @@ def search_tables(scene) -> SearchTables:
         dev = scene.device
         t_n = scene.n_tris
         if t_n:
-            det, u, v, t = _tri_coeffs(scene.tri_v0, scene.tri_e1,
-                                       scene.tri_e2)
-            tri = torch.cat([det, u, v, t,
-                             scene.tri_double.to(f32)[None]], dim=0).T
+            tri = compact_rows(_tri_coeffs(scene.tri_v0, scene.tri_e1,
+                                           scene.tri_e2), scene.tri_double)
             k = scene.tri_cluster_min.shape[0]
             width = t_n // k
             if width * k != t_n or width % CLUSTER:
                 raise ValueError(f"{t_n} triangles in {k} clusters")
         else:
-            tri = torch.zeros((0, TRI_COLS), dtype=f32, device=dev)
+            tri = torch.zeros((0, TRI_ROW), dtype=f32, device=dev)
             width = CLUSTER
         sph = (sphere_rows(scene) if scene.n_spheres
                else torch.zeros((0, 9), dtype=f32, device=dev))
@@ -127,7 +185,9 @@ def search_tables(scene) -> SearchTables:
             tri=tri.contiguous(),
             cl_min=scene.tri_cluster_min.contiguous(),
             cl_max=scene.tri_cluster_max.contiguous(), width=width,
-            sph=sph.contiguous(), quad=quad.contiguous())
+            sph=sph.contiguous(), quad=quad.contiguous(),
+            key_tables=(key_tables(scene.tri_cluster_min,
+                                   scene.tri_cluster_max) if t_n else None))
 
 
 def ray_planes(o, d, time, t_min, t_max):
@@ -304,16 +364,21 @@ def _unpad(x, n: int, chunk: int, chunk_p: int):
 _ENTER_TILES = 8        # tiles a block of the plain version tests at once
 
 
-def tile_enter_plain(rays, cl_min, cl_max, chunk: int | None = None):
+def tile_enter_plain(rays, cl_min, cl_max, chunk: int | None = None,
+                     perm=None):
     """[n_tiles, K] float32: the smallest entry distance of any ray of each
     256-ray tile into each cluster box ``cl_min`` / ``cl_max`` [K, 3], +inf
     where none enters (``_mask_kernel``, ``pallas_intersect.py:180-242``).
+    With ``perm`` (:func:`search_order`), the tiles hold the rays
+    ``rays[:, perm]``.
 
     The slab test on unnormalised rays with the box grown by 1e-3: an
     axis with |d| < 1e-12 asks for the origin inside the slab instead; an
     inverted (empty) box and a ray whose window is empty (t_max <= t_min)
     enter nothing; the entry is clamped up to t_min. Max and min propagate
     NaN as ``jnp.maximum`` / ``jnp.minimum`` do."""
+    if perm is not None:
+        rays = rays[:, perm]
     rp, _, _, _ = _padded_rays(rays, chunk)
     lo = cl_min[None] - CULL_EPS                           # [1, K, 3]
     hi = cl_max[None] + CULL_EPS
@@ -348,16 +413,23 @@ def tile_enter_plain(rays, cl_min, cl_max, chunk: int | None = None):
 # ---------------------------------------------------------------------------
 
 def fused_search_plain(rays, ent, tabs: SearchTables,
-                       chunk: int | None = None):
+                       chunk: int | None = None, perm=None):
     """(best t [N] float32, inf for none; kind [N] int32, 0 for none;
     index [N] int32 within its kind's table) of the rays ``rays`` [9, N]:
     ``fused_search`` (``pallas_intersect.py:786-1072``).
 
     Tile by tile, every ray tests the triangles of each cluster whose
     entry ``ent`` [n_tiles, K] (:func:`tile_enter_plain`) is finite —
-    ``_tri_eval_fold``'s tests, the lowest index winning a tie in t over
-    all of them — then the spheres and the quads of ``tabs`` fold in with
-    strict ``<``. A triangle winner's index is clamped to the last row."""
+    ``_tri_eval_fold``'s tests on the full 10-term rows, the lowest index
+    winning a tie in t over all of them — then the spheres and the quads
+    of ``tabs`` fold in with strict ``<``. A triangle winner's index is
+    clamped to the last row. With ``perm`` (:func:`search_order`), the
+    tiles hold the rays ``rays[:, perm]`` and each ray's winner is
+    returned at its own position."""
+    if perm is not None:
+        out = fused_search_plain(rays[:, perm], ent, tabs, chunk)
+        return tuple(torch.empty_like(x).index_copy_(0, perm, x)
+                     for x in out)
     rp, n, chunk, chunk_p = _padded_rays(rays, chunk)
     dev = rays.device
     width = tabs.width
@@ -377,9 +449,7 @@ def fused_search_plain(rays, ent, tabs: SearchTables,
             tab = tabs.tri[rows]
             f = (ox, oy, oz, dx, dy, dz, oy * dz - oz * dy,
                  oz * dx - ox * dz, ox * dy - oy * dx, torch.ones_like(ox))
-            valid, t = tri_tests(
-                f, (tab[:, 0:10], tab[:, 10:20], tab[:, 20:30],
-                    tab[:, 30:40], tab[:, 40:41]), tmin, tmax)
+            valid, t = tri_tests(f, full_rows(tab), tmin, tmax)
             loc_t, loc_i = first_min(torch.where(valid, t, torch.inf))
             best = fold(best, loc_t, rows[loc_i], KIND_TRI)
         if tabs.sph.shape[0]:
@@ -404,28 +474,31 @@ def fused_search_plain(rays, ent, tabs: SearchTables,
 # dispatchers
 # ---------------------------------------------------------------------------
 
-def tile_enter(rays, cl_min, cl_max, chunk: int | None = None):
+def tile_enter(rays, cl_min, cl_max, chunk: int | None = None, perm=None):
     """[n_tiles, K] tile-cluster entry distances: :func:`tile_enter_plain`
-    for CPU tensors, kernel K (``csrc/search.cu``) for CUDA tensors."""
+    for CPU tensors, kernel K (``csrc/search.cu``) for CUDA tensors; with
+    ``perm`` (:func:`search_order`) the tiles hold the sorted rays."""
     dev = rays.device.type
     if dev == "cpu":
-        return tile_enter_plain(rays, cl_min, cl_max, chunk)
+        return tile_enter_plain(rays, cl_min, cl_max, chunk, perm)
     if dev != "cuda":
         raise ValueError(f"unsupported device {rays.device}")
     from rust_ray_tracer_tpu_torch.kernels import tile_enter_kernel
-    return tile_enter_kernel(rays, cl_min, cl_max, chunk)
+    return tile_enter_kernel(rays, cl_min, cl_max, chunk, perm)
 
 
-def fused_search(rays, ent, tabs: SearchTables, chunk: int | None = None):
+def fused_search(rays, ent, tabs: SearchTables, chunk: int | None = None,
+                 perm=None):
     """(best t, kind, index) of :func:`fused_search_plain` for CPU
-    tensors, kernel M (``csrc/search.cu``) for CUDA tensors."""
+    tensors, kernel M (``csrc/search.cu``) for CUDA tensors; ``perm`` as
+    :func:`tile_enter`'s."""
     dev = rays.device.type
     if dev == "cpu":
-        return fused_search_plain(rays, ent, tabs, chunk)
+        return fused_search_plain(rays, ent, tabs, chunk, perm)
     if dev != "cuda":
         raise ValueError(f"unsupported device {rays.device}")
     from rust_ray_tracer_tpu_torch.kernels import fused_search_kernel
-    return fused_search_kernel(rays, ent, tabs, chunk)
+    return fused_search_kernel(rays, ent, tabs, chunk, perm)
 
 
 def tri_only(tabs: SearchTables) -> SearchTables:
@@ -462,17 +535,92 @@ def tri_search(rays, ent, tabs: SearchTables, chunk: int | None = None):
     return tri_search_kernel(rays, ent, tabs, chunk)
 
 
-def search(rays, tabs: SearchTables, chunk: int | None = None):
+def search(rays, tabs: SearchTables, chunk: int | None = None,
+           perm=None):
     """The unified phase 1 of rays ``rays`` [9, N]: K (when the scene has
     triangles), then M. Without triangles M takes a one-column +inf entry
     table (``pallas_intersect.py:876-886``) and folds the small tables
-    alone. Returns (best t, kind, index)."""
+    alone. With ``perm`` (:func:`search_order`) both search the rays in
+    that order, through the permutation (no sorted copy is made), and the
+    winners come back in the rays' own order. Returns (best t, kind,
+    index). An unsorted search passes K and M no permutation argument at
+    all, so their recorded calls keep the four arguments they had."""
+    extra = () if perm is None else (perm,)
     if tabs.tri.shape[0]:
-        ent = tile_enter(rays, tabs.cl_min, tabs.cl_max, chunk)
+        ent = tile_enter(rays, tabs.cl_min, tabs.cl_max, chunk, *extra)
     else:
         ent = torch.full((tile_count(rays.shape[1], chunk), 1), torch.inf,
                          dtype=torch.float32, device=rays.device)
-    return fused_search(rays, ent, tabs, chunk)
+    return fused_search(rays, ent, tabs, chunk, *extra)
+
+
+def _spread(v):
+    """The 9 low bits of ``v`` spread to every third bit (``spread``)."""
+    v = v & 0x1FF
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    return (v | (v << 2)) & 0x09249249
+
+
+def key_tables(cl_min, cl_max):
+    """What :func:`search_key` reads besides the rays, on the device of the
+    cluster boxes ``cl_min`` / ``cl_max`` [K, 3]: ``lo = min(cl_min)`` and
+    ``span = max(max(cl_max) - lo, 1e-30)`` [3] (``intersect.py:475-477``);
+    :func:`_spread` of every 9-bit value, shifted by 0, 1 and 2 for x, y
+    and z ([3 * 512]: x's at 0, y's at 512, z's at 1024) and the three
+    offsets; the octant's sign bits 27, 28 and 29 [3]."""
+    lo = cl_min.amin(dim=0)
+    span = torch.clamp_min(cl_max.amax(dim=0) - lo, 1e-30)
+    sp = _spread(torch.arange(512, dtype=torch.int32))
+    tab = torch.cat([sp, sp << 1, sp << 2])
+    offs = torch.tensor([0, 512, 1024], dtype=torch.int32)
+    octb = torch.tensor([1 << 27, 1 << 28, 1 << 29], dtype=torch.int32)
+    return (lo, span) + tuple(x.to(cl_min.device) for x in (tab, offs, octb))
+
+
+def _order_key(rays, lo, span, tab, offs, octb):
+    """:func:`search_key` of ``rays`` with :func:`key_tables`' tables. The
+    three axes go through each op together; each 9-bit value's spread
+    bits come from the table, and the axes' disjoint bits are summed (an
+    or)."""
+    q = torch.clamp((rays[0:3].T - lo) / span, 0.0, 1.0)
+    at = (q * 511.0).to(torch.int32) + offs
+    bits = tab[at] + (rays[3:6].T < 0) * octb                  # [N, 3]
+    return torch.where(rays[8] > rays[7], bits.sum(1, dtype=torch.int32),
+                       DEAD_KEY)
+
+
+def search_key(rays, cl_min, cl_max):
+    """[N] int32 sort keys of the rays ``rays`` [9, N] (``_search_order``,
+    ``intersect.py:475-493``): the origin quantised to 9 bits a axis in
+    the bounds of the cluster boxes ``cl_min`` / ``cl_max`` [K, 3] (``q =
+    clip((o - lo) / max(hi - lo, 1e-30), 0, 1)``, truncated ``q * 511``),
+    the three interleaved as a Morton code in bits 0-26, the direction's
+    octant (the signs of d) in bits 27-29; a dead lane (t_max <= t_min)
+    :data:`DEAD_KEY`. The same values as JAX's op for op."""
+    return _order_key(rays, *key_tables(cl_min, cl_max))
+
+
+def search_order(rays, tabs: SearchTables, chunk: int | None = None):
+    """[N] int64 permutation of the rays ``rays`` [9, N] for the unified
+    search (``intersect._search_order``): within each chunk of ``chunk``
+    rays (the whole input when None), the chunk's rays sorted stably by
+    :func:`search_key` in the bounds of ``tabs``' clusters (its
+    ``key_tables``) — dead lanes last, live ones by octant, then Morton
+    order of the origin. JAX sorts each per-chunk call's rays;
+    ``perm[c * chunk + j]`` is the ray at position j of chunk c's sorted
+    order. Detached: it orders rays and carries no gradient."""
+    with torch.no_grad():
+        n = rays.shape[1]
+        chunk, _, _ = _tiles(n, chunk)
+        kt = tabs.key_tables
+        if kt is None or kt[0].device != rays.device:   # tables moved
+            kt = key_tables(tabs.cl_min, tabs.cl_max)
+        key = _order_key(rays, *kt).reshape(-1, chunk)
+        order = torch.argsort(key, dim=1, stable=True)
+        offs = torch.arange(0, n, chunk, device=rays.device)[:, None]
+        return (order + offs).reshape(n)
 
 
 def tri_candidates(rays, tabs: SearchTables, chunk: int | None = None):

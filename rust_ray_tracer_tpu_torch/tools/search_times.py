@@ -1,11 +1,13 @@
 """Times of the search kernels of library ``trace_wave`` (TPU kernels A, D
-and E, and the noise variants of A and D) on one CUDA card, for holding
-one tree's kernels against another's in the same call; ``chip_smoke.py``
-runs :func:`search_report` as its search checks and times its kernels
-with :func:`cold_ms` and :func:`loop_ms`.
+and E, and the noise variants of A and D) and of library ``search`` (K
+and M, with the unified search's sort of the rays) on one CUDA card, for
+holding one tree's kernels against another's in the same call;
+``chip_smoke.py`` runs :func:`search_report` as its search checks, counts
+M's work with :func:`m_work` and times its kernels with :func:`cold_ms`
+and :func:`loop_ms`.
 
     PYTHONPATH=<tree> python3 search_times.py --label new \\
-        --out output/search_new.json --save <dir>/new.pt
+        --out output/search_new.json --save <dir>/new.pt [--scenes mesh]
 
 Run from the root of the tree whose package ``PYTHONPATH`` names (the
 script uses only the package's public kernels and tables, so it runs
@@ -34,15 +36,34 @@ rays, depth 4, chunk 9216), wave 0's inputs. It writes one JSON object:
   * the lanes on which D's and E's winners differ from A's residual
     winners of the bounce.
 
-``--save`` writes A's final states and winners and E's winners to a
-``.pt`` file; ``--compare a.pt b.pt ...`` then prints, for each file
-after the first, whether each of those tensors equals the first file's
-bit for bit. Needs one CUDA card, imports no JAX.
+The mesh (``--scenes`` names the parts to run; all five by default):
+the 65,536-triangle mesh of the tree's ``tests/torch_parity.py`` at the
+same wave, wave 0's recorded calls of K and M (and of
+``ops/search.search_order`` where the tree has it) on bounces 0-3: per
+bounce the live rays, the tiles that hold one, the (tile, cluster) pairs
+K lets through, K's and M's ms out of L2, M's in a loop, the sort's ms in
+a loop and out of L2, M's ms in a one-wave render (``torch.profiler``,
+the launches in bounce order), and M's work (:func:`m_work`); on a tree
+with the sort also M reading an order from ``torch.argsort``, M on sorted
+copies of the rays (the gather, M and the scatter back), M with one block
+a tile, and the sort as one flat ``argsort`` (``flat_order``);
+with ``--check`` every lane's winner against ``fused_search_plain``.
+``tri`` and ``gltf``: K's and L's ms out of L2 on each bounce of the L
+check scene's wave 0 (``torch_parity.random_tris``), K's and M's on the
+9-light glTF flagship's (``write_gltf_flagship``), and L's and M's in a
+one-wave render.
+
+``--save`` writes A's final states and winners, E's winners and M's
+winners of each mesh bounce to a ``.pt`` file; ``--compare a.pt b.pt
+...`` then prints, for each file after the first, whether each of those
+tensors equals the first file's bit for bit. Needs one CUDA card,
+imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -51,12 +72,14 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 
 import torch
 
 from rust_ray_tracer_tpu_torch import kernels as K
 from rust_ray_tracer_tpu_torch.models import builders
 from rust_ray_tracer_tpu_torch.models.scene import compile_scene
+from rust_ray_tracer_tpu_torch.ops import search as search_ops
 from rust_ray_tracer_tpu_torch.ops import uber
 from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
 from rust_ray_tracer_tpu_torch.utils import rng
@@ -64,6 +87,17 @@ from rust_ray_tracer_tpu_torch.utils import rng
 WIDTH, HEIGHT, SPP, DEPTH, CHUNK = 512, 288, 4, 4, 9216
 L2_FLUSH_BYTES = 256 << 20
 ROW, WARP = 128, 32
+# fp32 operations of M's triangle test by stage (csrc/search.cu, counted
+# from the code): the determinant's 3 products and 2 sums and the face
+# test's 3 compares on every test; where the face is seen, the t
+# numerator's 3 products and 3 sums, the guard's |det| compare and
+# select, the division, the product and the window's 3 compares; where t
+# lies in the window at or below the ray's closest hit, u's and v's 6
+# products and 5 sums each, their 2 products and the 5 barycentric
+# compares. A sphere test 40 and a quad test 45, as before
+OPS_M_DET, OPS_M_T, OPS_M_UV = 8, 12, 29
+OPS_M_SPH, OPS_M_QUAD = 40, 45
+PAIRS_A_BATCH = 1 << 16
 
 
 def loop_ms(fn, reps: int = 20, rounds: int = 5) -> list[float]:
@@ -261,6 +295,300 @@ def scene_times(label, host_fn, dev, save):
     return out
 
 
+def _parity():
+    """The tree's ``tests/torch_parity.py`` (the working directory's)."""
+    tests = os.path.join(os.getcwd(), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_parity
+    return torch_parity
+
+
+def mesh_scene(dev):
+    """The mesh workload of the tree in the working directory
+    (``tests/torch_parity.mesh``: 65,536 double-sided triangles in 512
+    clusters and the flagship's sphere lamp)."""
+    from rust_ray_tracer_tpu_torch.models import scene as S
+    from rust_ray_tracer_tpu_torch.ops import camera as cam
+    return compile_scene(_parity().mesh(S, cam), device=dev)
+
+
+def tri_scene(dev):
+    """The L check scene (``torch_parity.random_tris``: random's world
+    with a procedural 1024x512 earth map, written to a temporary working
+    directory, and the flagship's 968 triangles), on the per-kind
+    branch: K and L for the triangles."""
+    from rust_ray_tracer_tpu_torch.models import scene as S
+    tp = _parity()
+    prev = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        tp.write_earth_map(tmp, 1024, 512)
+        os.chdir(tmp)
+        try:
+            return compile_scene(tp.random_tris(S, builders, WIDTH / HEIGHT),
+                                 device=dev)
+        finally:
+            os.chdir(prev)
+
+
+def gltf9_scene(dev):
+    """The 9-light glTF flagship (``torch_parity.write_gltf_flagship``:
+    968 triangles, 9 point lights), on the unified search below the
+    sort's gate: K and M."""
+    from rust_ray_tracer_tpu_torch.models.gltf import load_gltf_scene
+    with tempfile.TemporaryDirectory() as tmp:
+        path = _parity().write_gltf_flagship(os.path.join(tmp, "f9.gltf"), 9)
+        return compile_scene(load_gltf_scene(path, WIDTH / HEIGHT),
+                             device=dev)
+
+
+def wave_report(scene, kernel, key_name):
+    """K's and ``kernel``'s (M or L) ms out of L2 on each bounce's
+    recorded calls of wave 0 of ``scene``, and ``kernel``'s in a one-wave
+    render (the profiler's launches in bounce order; both are
+    ``fused_search_kernel``)."""
+    key = rng.key(0, scene.tri_v0.device)
+
+    def render():
+        with torch.no_grad():
+            return render_waves(scene, WIDTH, HEIGHT, key, 0, 1, depth=DEPTH,
+                                chunk_size=CHUNK)
+
+    render()
+    with search_recorder() as rec:
+        render()
+    torch.cuda.synchronize()
+    k = K.tile_enter_kernel
+    out = {"bounces": [], "in_path_ms": device_ms_in_order(
+        render, "fused_search_kernel")}
+    for e_args, args in zip(rec["enter"], rec[key_name]):
+        with torch.no_grad():
+            bt = kernel(*args)[0]
+            out["bounces"].append({
+                "live_rays": int((args[0][8] > args[0][7]).sum()),
+                "k_ms": times(lambda a=e_args: k(*a)),
+                "ms": times(lambda a=args: kernel(*a)),
+                "tests": m_work(args, bt)["tests"] if key_name == "search"
+                else None})
+    return out
+
+
+@contextlib.contextmanager
+def search_recorder():
+    """Inside ``with``, the arguments of each call of ``ops/search``'s
+    ``search_order`` (where the tree has it), ``tile_enter`` (K),
+    ``fused_search`` (M) and ``tri_search`` (L) in the yielded dict's
+    lists ``order``, ``enter``, ``search`` and ``tri``."""
+    rec = {"order": [], "enter": [], "search": [], "tri": []}
+    sites = [(fn, key) for fn, key in (("search_order", "order"),
+                                       ("tile_enter", "enter"),
+                                       ("fused_search", "search"),
+                                       ("tri_search", "tri"))
+             if hasattr(search_ops, fn)]
+    real = {fn: getattr(search_ops, fn) for fn, _ in sites}
+
+    def recording(fn, key):
+        def wrapped(*args):
+            rec[key].append(args)
+            return fn(*args)
+        return wrapped
+
+    for fn, key in sites:
+        setattr(search_ops, fn, recording(real[fn], key))
+    try:
+        yield rec
+    finally:
+        for fn, _ in sites:
+            setattr(search_ops, fn, real[fn])
+
+
+def _det_t_rows(tri):
+    """(det, t_num) [T, 10] and the flag [T] of a tree's triangle table:
+    the full rows [T, 41] (det, u, v, t, flag) or the compact rows [T, 20]
+    (``ops/search.full_rows``)."""
+    if tri.shape[1] == 41:
+        return tri[:, 0:10], tri[:, 30:40], tri[:, 40]
+    det, _, _, t_num, flag = search_ops.full_rows(tri)
+    return det, t_num, flag[:, 0]
+
+
+def m_work(args, best_t) -> dict:
+    """What kernel M must do on one recorded call ``args`` (rays, ent,
+    tabs, chunk[, perm]) whose winners have t ``best_t`` [N] (in the rays'
+    order), counted from the data on the card:
+
+      * ``full_cull_tests``: every live ray of a tile against every
+        triangle of every cluster the tile enters (K's cull alone);
+      * ``tests``: per live ray, the triangles of its tile's entered
+        clusters whose entry is at most the ray's final t (inf for a
+        miss). No search that keeps these winners tests fewer: a cluster
+        entered before the hit may hold a nearer one. Of them, ``t_tests``
+        see the face (|det| > eps, a back face where double-sided) and
+        ``uv_tests`` have t in the window at or below the final t;
+      * ``ops``: ``tests`` x OPS_M_DET + ``t_tests`` x OPS_M_T +
+        ``uv_tests`` x OPS_M_UV + the sphere and quad tests of every live
+        ray (OPS_M_SPH, OPS_M_QUAD); ``bytes``: the rays, the entries,
+        the tables and the permutation read once, the winners written
+        once;
+      * ``live_rays``, ``live_tiles`` (tiles holding one), ``pairs`` (the
+        (tile, cluster) pairs K lets through)."""
+    rays, ent, tabs, chunk = args[:4]
+    perm = args[4] if len(args) > 4 else None
+    if perm is not None:
+        rays, best_t = rays[:, perm], best_t[perm]
+    n = rays.shape[1]
+    chunk = n if chunk is None else chunk
+    tpc = -(-chunk // search_ops.BC)
+    pos = torch.arange(n, device=rays.device)
+    tile = pos // chunk * tpc + pos % chunk // search_ops.BC
+    live = rays[8] > rays[7]
+    width = tabs.width
+    w = {"live_rays": int(live.sum()),
+         "live_tiles": int(torch.unique(tile[live]).numel()),
+         "pairs": int(torch.isfinite(ent).sum()) if tabs.tri.shape[0]
+         else 0,
+         "full_cull_tests": 0, "tests": 0, "t_tests": 0, "uv_tests": 0}
+    if tabs.tri.shape[0]:
+        det, t_num, flag = _det_t_rows(tabs.tri)
+        fin = torch.isfinite(ent)
+        w["full_cull_tests"] = int(fin.sum(1)[tile[live]].sum()) * width
+        lp = pos[live]
+        for s0 in range(0, lp.numel(), 8192):
+            p = lp[s0:s0 + 8192]
+            need = fin[tile[p]] & (ent[tile[p]] <= best_t[p, None])
+            pr, cl = torch.nonzero(need, as_tuple=True)
+            for b0 in range(0, pr.numel(), PAIRS_A_BATCH):
+                rp, cp = p[pr[b0:b0 + PAIRS_A_BATCH]], cl[b0:b0 +
+                                                          PAIRS_A_BATCH]
+                rows = (cp[:, None] * width
+                        + torch.arange(width, device=rays.device))
+                o, d = rays[0:3, rp], rays[3:6, rp]
+                f = (o[0], o[1], o[2], d[0], d[1], d[2],
+                     o[1] * d[2] - o[2] * d[1], o[2] * d[0] - o[0] * d[2],
+                     o[0] * d[1] - o[1] * d[0], torch.ones_like(o[0]))
+
+                def dot(tab):
+                    acc = tab[rows, 0] * f[0][:, None]
+                    for j in range(1, 10):
+                        acc = acc + tab[rows, j] * f[j][:, None]
+                    return acc
+
+                dm, tm = dot(det), dot(t_num)
+                eps = 1e-5 * torch.sqrt(d[0] * d[0] + d[1] * d[1]
+                                        + d[2] * d[2])[:, None]
+                seen = (dm > eps) | ((dm < -eps) & (flag[rows] > 0.5))
+                t = tm / torch.where(dm.abs() > eps, dm,
+                                     torch.ones_like(dm))
+                win = (seen & (t >= rays[7, rp, None])
+                       & (t <= rays[8, rp, None]) & (t <= best_t[rp, None]))
+                w["tests"] += rows.numel()
+                w["t_tests"] += int(seen.sum())
+                w["uv_tests"] += int(win.sum())
+    n_live = w["live_rays"]
+    w["ops"] = (w["tests"] * OPS_M_DET + w["t_tests"] * OPS_M_T
+                + w["uv_tests"] * OPS_M_UV
+                + n_live * (tabs.sph.shape[0] * OPS_M_SPH
+                            + tabs.quad.shape[0] * OPS_M_QUAD))
+    w["bytes"] = (4 * (9 * n + ent.numel() + tabs.tri.numel()
+                       + tabs.sph.numel() + tabs.quad.numel() + 3 * n)
+                  + (8 * n if perm is not None else 0))
+    return w
+
+
+def flat_order(rays, tabs, chunk):
+    """``ops/search.search_order`` as one flat ``argsort`` of int64 keys
+    (the chunk above the key), to time against the sort along each
+    chunk."""
+    n = rays.shape[1]
+    key = search_ops.search_key(rays, tabs.cl_min, tabs.cl_max)
+    at = torch.arange(n, device=rays.device) // chunk
+    return torch.argsort(key.to(torch.int64) | (at << 31), stable=True)
+
+
+def device_ms_in_order(fn, name):
+    """Device ms of each launch whose profiler name holds ``name``, in
+    launch order, over one call of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and name in e.name),
+                  key=lambda e: e.time_range.start)
+    return [e.time_range.elapsed_us() / 1e3 for e in kern]
+
+
+def mesh_report(dev, save=None, label="", check=False):
+    """K, the sort and M on the recorded calls of the mesh's wave 0 (the
+    module docstring's mesh part)."""
+    scene = mesh_scene(dev)
+    key = rng.key(0, dev)
+
+    def render():
+        with torch.no_grad():
+            return render_waves(scene, WIDTH, HEIGHT, key, 0, 1, depth=DEPTH,
+                                chunk_size=CHUNK)
+
+    render()
+    with search_recorder() as rec:
+        render()
+    torch.cuda.synchronize()
+    k, m = K.tile_enter_kernel, K.fused_search_kernel
+    out = {"triangles": scene.n_tris, "rays": WIDTH * HEIGHT,
+           "sorted": bool(rec["order"]), "bounces": [],
+           "winners_differing_plain": [] if check else None,
+           "m_in_path_ms": device_ms_in_order(render,
+                                              "fused_search_kernel"),
+           "k_in_path_ms": device_ms_in_order(render, "tile_enter_kernel")}
+    for b, (e_args, s_args) in enumerate(zip(rec["enter"], rec["search"])):
+        with torch.no_grad():
+            bt, bk, bi = m(*s_args)
+            row = {"bounce": b, **m_work(s_args, bt),
+                   "k_ms": times(lambda a=e_args: k(*a)),
+                   "m_ms": times(lambda a=s_args: m(*a))}
+            if rec["order"]:
+                o_args = rec["order"][b]
+                row["sort_ms"] = times(
+                    lambda a=o_args: search_ops.search_order(*a))
+                perm = s_args[4]
+                row["m_argsort_order_ms"] = times(
+                    lambda: m(*s_args, sort_in_block=False))
+
+                def copies(a=s_args):
+                    rays, ent, tabs, chunk, perm = a
+                    t, kk, ii = m(rays[:, perm].contiguous(), ent, tabs,
+                                  chunk)
+                    return tuple(torch.empty_like(x).index_copy_(0, perm, x)
+                                 for x in (t, kk, ii))
+
+                row["m_sorted_copies_ms"] = times(copies)
+                row["m_one_block_a_tile_ms"] = times(
+                    lambda: m(*s_args, parts=False))
+                alt = [m(*s_args, sort_in_block=False), copies(),
+                       m(*s_args, parts=False)]
+                row["variants_equal"] = all(
+                    torch.equal(x, y) for v in alt
+                    for x, y in zip(v, (bt, bk, bi)))
+                row["sort_flat_ms"] = times(lambda a=o_args: flat_order(*a))
+                row["sort_flat_equal"] = torch.equal(flat_order(*o_args),
+                                                     perm)
+            if check:
+                ref = search_ops.fused_search_plain(*s_args)
+                out["winners_differing_plain"].append(int(
+                    ((bk != ref[1]) | (bi != ref[2])
+                     | ((bt != ref[0]) & ~(torch.isinf(bt)
+                                           & torch.isinf(ref[0])))).sum()))
+        if save is not None:
+            for nm, x in (("t", bt), ("kind", bk), ("idx", bi)):
+                save[f"{label}.mesh{b}.{nm}"] = x.cpu()
+        out["bounces"].append(row)
+    return out
+
+
 def compare(paths):
     first = torch.load(paths[0])
     for p in paths[1:]:
@@ -280,6 +608,12 @@ def main(argv=None) -> int:
     ap.add_argument("--out")
     ap.add_argument("--save")
     ap.add_argument("--compare", nargs="+")
+    ap.add_argument("--scenes", default="flagship,random,mesh,tri,gltf",
+                    help="comma-separated parts: flagship, random, mesh, "
+                         "tri, gltf")
+    ap.add_argument("--check", action="store_true",
+                    help="hold M's winners on every mesh bounce against "
+                         "the plain version")
     args = ap.parse_args(argv)
     if args.compare:
         return compare(args.compare)
@@ -293,17 +627,27 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     save = {}
+    parts = args.scenes.split(",")
     res = {"label": args.label, "card": smi,
            "trace_wave_flags": list(K.LIBRARIES["trace_wave"][1]),
            "ptxas": {n: ptxas_report(builds[n].log)
-                     for n in ("trace_wave", "trace_wave_noise")},
-           "flagship": scene_times("flagship", builders.procedural_flagship,
-                                   dev, save),
-           "random": scene_times(
-               "random", lambda: builders.random_scene(WIDTH / HEIGHT), dev,
-               save)}
+                     for n in ("trace_wave", "trace_wave_noise", "search")}}
+    if "flagship" in parts:
+        res["flagship"] = scene_times(
+            "flagship", builders.procedural_flagship, dev, save)
+    if "random" in parts:
+        res["random"] = scene_times(
+            "random", lambda: builders.random_scene(WIDTH / HEIGHT), dev,
+            save)
+    if "mesh" in parts:
+        res["mesh"] = mesh_report(dev, save, "mesh", args.check)
+    if "tri" in parts:
+        res["tri"] = wave_report(tri_scene(dev), K.tri_search_kernel, "tri")
+    if "gltf" in parts:
+        res["gltf9"] = wave_report(gltf9_scene(dev), K.fused_search_kernel,
+                                   "search")
     res["sms"] = torch.cuda.get_device_properties(dev).multi_processor_count
-    res["grid_blocks"] = math.ceil(res["flagship"]["rays"] / ROW)
+    res["grid_blocks"] = math.ceil(WIDTH * HEIGHT / ROW)
     line = json.dumps(res)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

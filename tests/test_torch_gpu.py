@@ -728,6 +728,36 @@ def test_search_kernels_match_plain_on_card(cuda):
 
 
 @pytest.mark.gpu
+def test_sorted_search_kernels_match_plain_on_card(cuda, monkeypatch):
+    """K and M on the rays the search-order sort permutes, against their
+    plain versions on the card: the 4,608-triangle mesh's calls recorded
+    with the sort's gate lowered below its triangles (two bounces, chunk
+    576: a short tile a chunk), the permutation the card's the host's, K's
+    entries and M's kinds, indices and t equal, M with one block a tile
+    and with ``torch.argsort``'s order the same."""
+    from rust_ray_tracer_tpu_torch.ops import search
+
+    monkeypatch.setattr(search, "PACKED_MIN_TRIS", 4096)
+    rec = _mesh_calls()
+    assert len(rec["order"]) == 2
+    for order, enter, srch in zip(rec["order"], rec["enter"], rec["search"]):
+        o_args = [_to(x, cuda) for x in order]
+        perm = search.search_order(*o_args)
+        assert torch.equal(perm.cpu(), srch[4])
+        e_args = [_to(x, cuda) for x in enter]
+        s_args = [_to(x, cuda) for x in srch]
+        got_e = search.tile_enter(*e_args)
+        got_s = search.fused_search(*s_args)
+        torch.cuda.synchronize()
+        assert torch.equal(got_e, search.tile_enter_plain(*e_args))
+        ref = search.fused_search_plain(*s_args)
+        for got in (got_s, fused_search_kernel(*s_args, parts=False),
+                    fused_search_kernel(*s_args, sort_in_block=False)):
+            for a, b in zip(got, ref):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
 def test_bounce_planes_kernels_match_plain_on_card(cuda):
     """F and F' against their plain versions on the card, on the inputs
     the split route gives F over two bounces of a 32x32 wave of the fog

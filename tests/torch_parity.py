@@ -599,18 +599,21 @@ def split_recorder(plain: bool = False):
     the yielded dict's lists ``quad``, ``hit``, ``su``, ``enter``,
     ``search``, ``bp``, ``tri``, ``sph`` and ``shade``. They then run as
     before or, with ``plain``, run the plain versions on any device (the
-    plain route on the card, to hold the kernel route against)."""
+    plain route on the card, to hold the kernel route against). The
+    unified search's sort of the rays (``ops/search.search_order``, plain
+    torch on every device) records its arguments in ``order``."""
     from rust_ray_tracer_tpu_torch.ops import bounce, bounce_core, hit, quad
     from rust_ray_tracer_tpu_torch.ops import search, shade, sphere
 
     rec = {"quad": [], "hit": [], "su": [], "enter": [], "search": [],
-           "bp": [], "tri": [], "sph": [], "shade": []}
+           "bp": [], "tri": [], "sph": [], "shade": [], "order": []}
     sites = ((quad, "quad_search", "quad"), (hit, "hit_planes", "hit"),
              (bounce, "su_planes", "su"), (search, "tile_enter", "enter"),
              (search, "fused_search", "search"),
              (bounce, "bounce_planes", "bp"),
              (search, "tri_search", "tri"), (sphere, "sph_search", "sph"),
-             (shade, "shade_planes", "shade"))
+             (shade, "shade_planes", "shade"),
+             (search, "search_order", "order"))
     real = [getattr(mod, fn) for mod, fn, _ in sites]
     runs = real
     if plain:
@@ -623,7 +626,7 @@ def split_recorder(plain: bool = False):
                     P, pk, mk, fl, lt, n_lights,
                     P.shape[0] > bounce_core.N_IN_B),
                 search.tri_search_plain, sphere.sph_search_plain,
-                shade.shade_plane_core]
+                shade.shade_plane_core, search.search_order]
 
     def recording(fn, key):
         def wrapped(*args):
