@@ -71,15 +71,15 @@
 //   * staged tests: det and the face test, then t against the window and
 //     the ray's best (t <= best, kept for the lexicographic tie), then u
 //     and v. The same values compared in another order;
-//   * front to back with a per-warp prune: the block sorts the clusters
-//     its tile enters by K's entry (then by id) in shared memory (a rank
-//     sort of the compacted row; or it reads an order given to it) and
-//     sweeps its part of them in that order. Before each cluster a warp
-//     whose every live ray already has its best t strictly below the
-//     cluster's entry stops (every later cluster enters later still); the
-//     block stops staging once all its warps have stopped. On the mesh it
-//     seldom fires: two rays in three miss the cloud, and a warp with a
-//     miss sweeps on;
+//   * front to back: the wrapper gives each tile's entered clusters in
+//     ascending K entry (a stable argsort of ent's rows, the order of
+//     JAX's dense grid, pallas_intersect.py:992), and each part sweeps its
+//     share of them in that order. Near clusters first give a ray a small
+//     best t early, so the t <= best check skips the u and v dots of the
+//     triangles behind its hit. No warp stops early: a prune on K's entry
+//     would need t's rounding to stay below the box's CULL_EPS margin,
+//     and near a grazing hit (|n.d| down to the face test's 1e-5 |d|) it
+//     does not, so a pruned cluster could hold the plain version's winner;
 //   * the staged tile stays in shared memory: two buffers of 128 rows
 //     (10 KB each), the next cluster's copied by cp.async while the
 //     current one is swept, every lane of a warp reading the same row (a
@@ -100,18 +100,6 @@
 // version's bit for bit (tests/test_torch_search_order.py replays this
 // sweep; chip_smoke.py holds the kernel to the plain version on every
 // lane).
-//
-// Why the prune keeps the winner. A triangle of cluster c that a ray of
-// the tile hits lies inside c's box; the box K tests is grown by CULL_EPS
-// = 1e-3 on every side, so the ray's exact entry into it is at least 1e-3
-// / |d| before the exact hit, and K's entry e_c (the least over the
-// tile's rays, clamped up to t_min) is at most that. If the computed t of
-// the hit lies within that margin of the exact one, t >= e_c. A ray whose
-// best t is strictly below e_c then cannot take a triangle of c or of any
-// later cluster (entries ascend), nor tie one. The margin holds unless the
-// hit grazes the triangle (t's rounding grows as 1 / |n.d|); the card's
-// check holds every lane of the mesh's recorded bounces against the plain
-// version, and a lane that differed would take the prune out.
 //
 // Numerics: built with --fmad=false; IEEE division, no fast-math. Max and
 // min are written out (jmax/jmin propagate NaN like jnp.maximum/minimum):
@@ -141,17 +129,11 @@ constexpr int STAGE_F4 = STAGE * ROW_F4;
 constexpr int SMALL = 128;       // the sphere and quad tables' row bound
 constexpr float CULL_EPS = 1e-3f;
 // M's resident blocks an SM (__launch_bounds__): 4 at 64 registers
-#ifndef SEARCH_MIN_BLOCKS
-#define SEARCH_MIN_BLOCKS 4
-#endif
-constexpr int M_MIN_BLOCKS = SEARCH_MIN_BLOCKS;
+constexpr int M_MIN_BLOCKS = 4;
 // a tile's clusters go to up to MAX_PARTS blocks, at least PART_CLUSTERS
 // of them each
-#ifndef SEARCH_PART_CLUSTERS
-#define SEARCH_PART_CLUSTERS 8
-#endif
 constexpr int MAX_PARTS = 32;
-constexpr int PART_CLUSTERS = SEARCH_PART_CLUSTERS;
+constexpr int PART_CLUSTERS = 8;
 
 // The rays of tile `tile`: [start, start + count) of the wave's positions.
 __device__ __forceinline__ void tile_span(int tile, int chunk, int n,
@@ -268,9 +250,7 @@ __device__ __forceinline__ float from_order_bits(unsigned int b) {
   return __uint_as_float((b & 0x80000000u) ? (b & 0x7fffffffu) : ~b);
 }
 
-// The block's dynamic shared memory: two stages of compact triangle rows,
-// then (without a given order) the tile's entered clusters as 64-bit keys
-// (entry bits, cluster id), compacted and sorted.
+// The block's dynamic shared memory: two stages of compact triangle rows.
 __device__ __forceinline__ float4* search_dyn_smem() {
   extern __shared__ float4 search_dyn[];
   return search_dyn;
@@ -278,17 +258,18 @@ __device__ __forceinline__ float4* search_dyn_smem() {
 
 // M: rays [9, n]; ent [n_tiles, k] (K's, or one +inf column without
 // triangles); order [n_tiles, k] each tile's clusters by ascending entry
-// (a stable argsort of ent's rows) or null to sort them in the block;
-// perm [n] or null; tri [n_tris, 20] compact rows, `width` rows a cluster
+// (a stable argsort of ent's rows; null without triangles); perm [n] or
+// null; tri [n_tris, 20] compact rows, `width` rows a cluster
 // (a multiple of STAGE, n_tris = k * width); sph [n_sph, 9] (c0, c1 - c0,
 // t0, 1 / (t1 - t0), r); quad [n_quad, 9] (q, u, v). best_t [n] (inf:
 // none), best_kind [n], best_idx [n] (the index within its kind's table;
-// 0 for none), at each ray's own index. With `merge` ([n + n_tiles], every
-// word all ones), the grid's y is the part: a tile whose clusters are many
-// is swept by several blocks, each taking every parts-th of them, whose
-// least (t, row) a ray meet in merge[ray] (an integer atomicMin of the
-// ordered t bits and the row: the same least, whatever the order); the
-// last of them (the counter merge[n + tile]) finishes the tile.
+// 0 for none), at each ray's own index. merge ([n + n_tiles], every word
+// all ones; null without triangles): the grid's y is the part, and a tile
+// whose clusters are many is swept by several blocks, each taking every
+// parts-th of them, whose least (t, row) a ray meet in merge[ray] (an
+// integer atomicMin of the ordered t bits and the row: the same least,
+// whatever the order); the last of them (the counter merge[n + tile])
+// finishes the tile.
 __global__ void __launch_bounds__(BC, M_MIN_BLOCKS)
 fused_search_kernel(const float* __restrict__ rays,
                     const float* __restrict__ ent,
@@ -305,7 +286,7 @@ fused_search_kernel(const float* __restrict__ rays,
   const int tile = blockIdx.x, part = blockIdx.y;
   int start, count;
   tile_span(tile, chunk, n, start, count);
-  const int s = threadIdx.x, warp = s >> 5;
+  const int s = threadIdx.x;
 
   // ---- the clusters the tile enters: how many, and the tile's parts ---
   const float* __restrict__ erow = ent + (size_t)tile * k;
@@ -314,8 +295,7 @@ fused_search_kernel(const float* __restrict__ rays,
     for (int c0 = 0; c0 < k; c0 += BC)
       m += __syncthreads_count(c0 + s < k && erow[c0 + s] < INFINITY);
   const int parts =
-      merge ? max(1, min(static_cast<int>(gridDim.y), m / PART_CLUSTERS))
-            : 1;
+      max(1, min(static_cast<int>(gridDim.y), m / PART_CLUSTERS));
   if (part >= parts) return;                 // the same for the whole block
 
   // ---- pack the tile's live rays into the first n_live slots ----------
@@ -340,38 +320,10 @@ fused_search_kernel(const float* __restrict__ rays,
     sm.src[slot] = src;
   }
 
-  // ---- the entered clusters by ascending entry ------------------------
-  float4* stage = search_dyn_smem();
-  unsigned long long* ckey =
-      reinterpret_cast<unsigned long long*>(stage + 2 * STAGE_F4);
-  unsigned long long* skey = ckey + k;
-  if (n_tris > 0 && order == nullptr) {
-    int at0 = 0;
-    for (int c0 = 0; c0 < k; c0 += BC) {
-      const int c = c0 + s;
-      const float e = c < k ? erow[c] : INFINITY;
-      const bool fin = e < INFINITY;
-      int tot;
-      const int at = block_slot(fin, sm.warp_cnt, tot);
-      if (fin)
-        ckey[at0 + at] = (static_cast<unsigned long long>(order_bits(e))
-                          << 32) | static_cast<unsigned int>(c);
-      at0 += tot;
-    }
-    __syncthreads();
-    for (int j = s; j < m; j += BC) {         // a rank sort: keys distinct
-      const unsigned long long kj = ckey[j];
-      int rank = 0;
-      for (int i = 0; i < m; ++i) rank += ckey[i] < kj ? 1 : 0;
-      skey[rank] = kj;
-    }
-  }
-  __syncthreads();                           // the rays and keys are set
+  __syncthreads();                           // the rays are set
   // the j-th cluster of this part: the (part + j * parts)-th by entry
   auto cluster_at = [&](int j) -> int {
-    const int at = part + j * parts;
-    return order ? static_cast<int>(order[(size_t)tile * k + at])
-                 : static_cast<int>(static_cast<unsigned int>(skey[at]));
+    return static_cast<int>(order[(size_t)tile * k + part + j * parts]);
   };
 
   // ---- this thread's packed ray ----------------------------------------
@@ -393,6 +345,7 @@ fused_search_kernel(const float* __restrict__ rays,
     const float4* __restrict__ tri4 = reinterpret_cast<const float4*>(tri);
     const int spc = width / STAGE;           // stages a cluster
     const int n_st = m_part * spc;
+    float4* stage = search_dyn_smem();
     auto copy = [&](int st, float4* dst) {
       const float4* __restrict__ from =
           tri4 + ((size_t)cluster_at(st / spc) * width + (st % spc) * STAGE)
@@ -400,21 +353,16 @@ fused_search_kernel(const float* __restrict__ rays,
       for (int i = s; i < STAGE_F4; i += BC)
         __pipeline_memcpy_async(dst + i, from + i, sizeof(float4));
     };
-    // warps past the packed rays never sweep
-    bool wdone = warp * 32 >= n_live;
     copy(0, stage);
     __pipeline_commit();
     for (int st = 0; st < n_st; ++st) {
       const int c = cluster_at(st / spc);
-      const float e = erow[c];
-      // a warp stops once every live ray in it has best t below the entry
-      if (!wdone) wdone = __all_sync(0xffffffffu, !mine || bt < e);
-      if (!__syncthreads_or(!wdone)) break;  // also: the last stage is read
+      __syncthreads();                       // stage st - 1's buffer is read
       if (st + 1 < n_st) copy(st + 1, stage + ((st + 1) & 1) * STAGE_F4);
       __pipeline_commit();
       __pipeline_wait_prior(1);
       __syncthreads();                       // stage st is in place
-      if (wdone || !mine) continue;
+      if (!mine) continue;                   // warps past the packed rays too
       const float4* buf = stage + (st & 1) * STAGE_F4;
       const int base = c * width + (st % spc) * STAGE;
       for (int q = 0; q < STAGE; ++q) {
@@ -454,7 +402,6 @@ fused_search_kernel(const float* __restrict__ rays,
         }
       }
     }
-    __pipeline_wait_prior(0);                // a prefetch the break left
   }
 
   // ---- the parts' least (t, row) of each ray: the last part finishes --
@@ -550,12 +497,9 @@ int n_tiles(int n, int chunk) {
   return n / chunk * ((chunk + BC - 1) / BC);
 }
 
-// M's dynamic shared memory for k clusters: the two stages and, without a
-// given order, the compacted and the sorted keys.
-size_t search_smem(int k, bool ordered, bool triangles) {
-  if (!triangles) return 0;
-  return 2 * STAGE_F4 * sizeof(float4) +
-         (ordered ? 0 : 2 * (size_t)k * sizeof(unsigned long long));
+// M's dynamic shared memory: the two stages, with triangles.
+size_t search_smem(bool triangles) {
+  return triangles ? 2 * STAGE_F4 * sizeof(float4) : 0;
 }
 
 }  // namespace
@@ -574,22 +518,9 @@ extern "C" int tile_enter_launch(const float* rays, const long long* perm,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The largest cluster count M sorts in the block (its keys in shared
-// memory); past it the caller gives the order.
-extern "C" int fused_search_max_sorted_clusters() {
-  int dev = 0, limit = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return -1;
-  const long long free_bytes = limit - (long long)sizeof(SearchSmem) -
-                               2LL * STAGE_F4 * (long long)sizeof(float4);
-  return static_cast<int>(free_bytes /
-                          (2 * (long long)sizeof(unsigned long long)));
-}
-
-// merge: null, or [n + n_tiles] words, all ones: the tiles' clusters are
-// then split over up to MAX_PARTS blocks each.
+// order and merge ([n + n_tiles] words, all ones) are given with
+// triangles and null without: the tiles' clusters are split over up to
+// MAX_PARTS blocks each.
 extern "C" int fused_search_launch(const float* rays, const float* ent,
                                    const long long* order,
                                    const long long* perm, const float* tri,
@@ -600,19 +531,13 @@ extern "C" int fused_search_launch(const float* rays, const float* ent,
                                    int* best_idx, unsigned long long* merge,
                                    void* stream) {
   if (chunk <= 0 || n % chunk || n_sph > SMALL || n_quad > SMALL ||
-      (n_tris > 0 && (width <= 0 || width % STAGE || n_tris != k * width)))
+      (n_tris > 0 && (width <= 0 || width % STAGE || n_tris != k * width ||
+                      !order || !merge)))
     return -1;
   const int tiles = n_tiles(n, chunk);
-  const size_t smem = search_smem(k, order != nullptr, n_tris > 0);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid(tiles, merge ? MAX_PARTS : 1);
+  const dim3 grid(tiles, n_tris > 0 ? MAX_PARTS : 1);
   if (tiles > 0)
-    fused_search_kernel<<<grid, BC, smem,
+    fused_search_kernel<<<grid, BC, search_smem(n_tris > 0),
                           static_cast<cudaStream_t>(stream)>>>(
         rays, ent, order, perm, tri, sph, quad, n, chunk, k, width, n_tris,
         n_sph, n_quad, best_t, best_kind, best_idx, merge);

@@ -1070,42 +1070,21 @@ class FusedSearchKernel(_Kernel):
     """ctypes wrapper of ``fused_search_launch`` (kernel M): (best t [N]
     float32, inf for none; kind [N] int32, 0 for none; index [N] int32
     within its kind's table), as ``ops/search.fused_search_plain`` returns
-    them. Each block sorts the clusters its tile enters by their entry in
-    shared memory; past the cluster count that fits
-    (``max_sorted_clusters``), or with ``sort_in_block=False``, the
-    wrapper gives the order (a stable ``torch.argsort`` of ``ent``'s
-    rows) instead."""
+    them. M sweeps each tile's entered clusters in the order this wrapper
+    gives it, a stable ``torch.argsort`` of ``ent``'s rows (ascending
+    entry)."""
 
     name = "fused_search"
     library = "search"
     entry = "fused_search_launch"
     argtypes = (_P,) * 7 + (_I,) * 7 + (_P,) * 4
 
-    def __init__(self):
-        super().__init__()
-        self._max_sorted = None
-
-    def max_sorted_clusters(self) -> int:
-        """The most clusters a block sorts in its shared memory."""
-        if self._max_sorted is None:
-            fn = getattr(ctypes.CDLL(str(self.load().path)),
-                         "fused_search_max_sorted_clusters")
-            fn.restype = ctypes.c_int
-            self._max_sorted = fn()
-            if self._max_sorted < 0:
-                raise RuntimeError("fused_search: shared-memory query "
-                                   "failed")
-        return self._max_sorted
-
-    def __call__(self, rays, ent, tabs, chunk=None, perm=None,
-                 sort_in_block=True, parts=True):
+    def __call__(self, rays, ent, tabs, chunk=None, perm=None):
         """``rays`` [9, N] planes, ``ent`` [n_tiles, K] (kernel K's, or one
         +inf column without triangles), ``tabs`` an
         ``ops/search.SearchTables``, ``chunk`` rays a chunk (None: N),
         ``perm`` [N] int64 as kernel K's (the winners are written at each
-        ray's own index). With ``parts`` a tile that enters many clusters
-        is swept by several blocks (``csrc/search.cu``); the winners are
-        the same without."""
+        ray's own index)."""
         dev = rays.device
         if dev.type != "cuda":
             raise ValueError(f"fused_search kernel needs CUDA tensors, got "
@@ -1118,18 +1097,16 @@ class FusedSearchKernel(_Kernel):
         _check("ent", ent, dev, (tile_count(n, chunk), k))
         _check_unified_tables(tabs, dev, k)
         self.load()
-        order = None
-        if tabs.tri.shape[0] and (not sort_in_block
-                                  or k > self.max_sorted_clusters()):
+        order = merge = None
+        if tabs.tri.shape[0]:
             order = torch.argsort(ent, dim=1, stable=True)
+            # the parts' meeting words: each ray's least (t, row), each
+            # tile's count of finished parts; all ones
+            merge = torch.full((n + ent.shape[0],), -1, dtype=torch.int64,
+                               device=dev)
         best_t = torch.empty((n,), dtype=torch.float32, device=dev)
         best_k = torch.empty((n,), dtype=torch.int32, device=dev)
         best_i = torch.empty((n,), dtype=torch.int32, device=dev)
-        # the parts' meeting words: each ray's least (t, row), each tile's
-        # count of finished parts; all ones
-        merge = (torch.full((n + ent.shape[0],), -1, dtype=torch.int64,
-                            device=dev)
-                 if parts and tabs.tri.shape[0] else None)
         self._launch(dev, _ptr(rays), _ptr(ent), _ptr_or_null(order),
                      _ptr_or_null(perm), _ptr(tabs.tri), _ptr(tabs.sph),
                      _ptr(tabs.quad), n, chunk, k, tabs.width,

@@ -104,9 +104,7 @@ class SearchTables:
     double-sided flag); ``cl_min`` / ``cl_max`` [K, 3] the cluster
     boxes (inverted for an all-pad cluster); ``width`` triangles a
     cluster; ``sph`` [S, 9] c0, c1 - c0, t0, 1 / (t1 - t0), r; ``quad``
-    [Q, 9] q, u, v. Empty kinds have 0 rows. ``key_tables``: what
-    :func:`search_order`'s key reads besides the rays (:func:`key_tables`:
-    the boxes' bounds, the spread bits; None without triangles)."""
+    [Q, 9] q, u, v. Empty kinds have 0 rows."""
 
     tri: torch.Tensor
     cl_min: torch.Tensor
@@ -114,7 +112,6 @@ class SearchTables:
     width: int
     sph: torch.Tensor
     quad: torch.Tensor
-    key_tables: tuple | None = None
 
 
 def unified(scene) -> bool:
@@ -185,9 +182,7 @@ def search_tables(scene) -> SearchTables:
             tri=tri.contiguous(),
             cl_min=scene.tri_cluster_min.contiguous(),
             cl_max=scene.tri_cluster_max.contiguous(), width=width,
-            sph=sph.contiguous(), quad=quad.contiguous(),
-            key_tables=(key_tables(scene.tri_cluster_min,
-                                   scene.tri_cluster_max) if t_n else None))
+            sph=sph.contiguous(), quad=quad.contiguous())
 
 
 def ray_planes(o, d, time, t_min, t_max):
@@ -563,32 +558,23 @@ def _spread(v):
     return (v | (v << 2)) & 0x09249249
 
 
-def key_tables(cl_min, cl_max):
-    """What :func:`search_key` reads besides the rays, on the device of the
-    cluster boxes ``cl_min`` / ``cl_max`` [K, 3]: ``lo = min(cl_min)`` and
-    ``span = max(max(cl_max) - lo, 1e-30)`` [3] (``intersect.py:475-477``);
+_KEY_BITS = {}          # device -> search_key's constant tables
+
+
+def _key_bits(device):
+    """The constant tables of :func:`search_key` on ``device``, made once:
     :func:`_spread` of every 9-bit value, shifted by 0, 1 and 2 for x, y
     and z ([3 * 512]: x's at 0, y's at 512, z's at 1024) and the three
     offsets; the octant's sign bits 27, 28 and 29 [3]."""
-    lo = cl_min.amin(dim=0)
-    span = torch.clamp_min(cl_max.amax(dim=0) - lo, 1e-30)
-    sp = _spread(torch.arange(512, dtype=torch.int32))
-    tab = torch.cat([sp, sp << 1, sp << 2])
-    offs = torch.tensor([0, 512, 1024], dtype=torch.int32)
-    octb = torch.tensor([1 << 27, 1 << 28, 1 << 29], dtype=torch.int32)
-    return (lo, span) + tuple(x.to(cl_min.device) for x in (tab, offs, octb))
-
-
-def _order_key(rays, lo, span, tab, offs, octb):
-    """:func:`search_key` of ``rays`` with :func:`key_tables`' tables. The
-    three axes go through each op together; each 9-bit value's spread
-    bits come from the table, and the axes' disjoint bits are summed (an
-    or)."""
-    q = torch.clamp((rays[0:3].T - lo) / span, 0.0, 1.0)
-    at = (q * 511.0).to(torch.int32) + offs
-    bits = tab[at] + (rays[3:6].T < 0) * octb                  # [N, 3]
-    return torch.where(rays[8] > rays[7], bits.sum(1, dtype=torch.int32),
-                       DEAD_KEY)
+    bits = _KEY_BITS.get(device)
+    if bits is None:
+        sp = _spread(torch.arange(512, dtype=torch.int32))
+        bits = tuple(x.to(device) for x in (
+            torch.cat([sp, sp << 1, sp << 2]),
+            torch.tensor([0, 512, 1024], dtype=torch.int32),
+            torch.tensor([1 << 27, 1 << 28, 1 << 29], dtype=torch.int32)))
+        _KEY_BITS[device] = bits
+    return bits
 
 
 def search_key(rays, cl_min, cl_max):
@@ -598,26 +584,31 @@ def search_key(rays, cl_min, cl_max):
     clip((o - lo) / max(hi - lo, 1e-30), 0, 1)``, truncated ``q * 511``),
     the three interleaved as a Morton code in bits 0-26, the direction's
     octant (the signs of d) in bits 27-29; a dead lane (t_max <= t_min)
-    :data:`DEAD_KEY`. The same values as JAX's op for op."""
-    return _order_key(rays, *key_tables(cl_min, cl_max))
+    :data:`DEAD_KEY`. The same values as JAX's op for op: the three axes
+    go through each op together, each 9-bit value's spread bits come from
+    a table, and the axes' disjoint bits are summed (an or)."""
+    lo = cl_min.amin(dim=0)
+    span = torch.clamp_min(cl_max.amax(dim=0) - lo, 1e-30)
+    tab, offs, octb = _key_bits(rays.device)
+    q = torch.clamp((rays[0:3].T - lo) / span, 0.0, 1.0)
+    at = (q * 511.0).to(torch.int32) + offs
+    bits = tab[at] + (rays[3:6].T < 0) * octb                  # [N, 3]
+    return torch.where(rays[8] > rays[7], bits.sum(1, dtype=torch.int32),
+                       DEAD_KEY)
 
 
 def search_order(rays, tabs: SearchTables, chunk: int | None = None):
     """[N] int64 permutation of the rays ``rays`` [9, N] for the unified
     search (``intersect._search_order``): within each chunk of ``chunk``
     rays (the whole input when None), the chunk's rays sorted stably by
-    :func:`search_key` in the bounds of ``tabs``' clusters (its
-    ``key_tables``) — dead lanes last, live ones by octant, then Morton
-    order of the origin. JAX sorts each per-chunk call's rays;
+    :func:`search_key` in the bounds of ``tabs``' clusters — dead lanes
+    last, live ones by octant, then Morton order of the origin. JAX sorts each per-chunk call's rays;
     ``perm[c * chunk + j]`` is the ray at position j of chunk c's sorted
     order. Detached: it orders rays and carries no gradient."""
     with torch.no_grad():
         n = rays.shape[1]
         chunk, _, _ = _tiles(n, chunk)
-        kt = tabs.key_tables
-        if kt is None or kt[0].device != rays.device:   # tables moved
-            kt = key_tables(tabs.cl_min, tabs.cl_max)
-        key = _order_key(rays, *kt).reshape(-1, chunk)
+        key = search_key(rays, tabs.cl_min, tabs.cl_max).reshape(-1, chunk)
         order = torch.argsort(key, dim=1, stable=True)
         offs = torch.arange(0, n, chunk, device=rays.device)[:, None]
         return (order + offs).reshape(n)

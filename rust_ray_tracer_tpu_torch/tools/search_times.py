@@ -43,11 +43,9 @@ same wave, wave 0's recorded calls of K and M (and of
 bounce the live rays, the tiles that hold one, the (tile, cluster) pairs
 K lets through, K's and M's ms out of L2, M's in a loop, the sort's ms in
 a loop and out of L2, M's ms in a one-wave render (``torch.profiler``,
-the launches in bounce order), and M's work (:func:`m_work`); on a tree
-with the sort also M reading an order from ``torch.argsort``, M on sorted
-copies of the rays (the gather, M and the scatter back), M with one block
-a tile, and the sort as one flat ``argsort`` (``flat_order``);
-with ``--check`` every lane's winner against ``fused_search_plain``.
+the launches in bounce order), and M's work (:func:`m_work`); with
+``--check`` every lane's winner against ``fused_search_plain``. The
+calls are recorded by the tree's ``torch_parity.split_recorder``.
 ``tri`` and ``gltf``: K's and L's ms out of L2 on each bounce of the L
 check scene's wave 0 (``torch_parity.random_tris``), K's and M's on the
 9-light glTF flagship's (``write_gltf_flagship``), and L's and M's in a
@@ -63,7 +61,6 @@ imports no JAX.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
 import math
@@ -355,7 +352,7 @@ def wave_report(scene, kernel, key_name):
                                 chunk_size=CHUNK)
 
     render()
-    with search_recorder() as rec:
+    with _parity().split_recorder() as rec:
         render()
     torch.cuda.synchronize()
     k = K.tile_enter_kernel
@@ -371,35 +368,6 @@ def wave_report(scene, kernel, key_name):
                 "tests": m_work(args, bt)["tests"] if key_name == "search"
                 else None})
     return out
-
-
-@contextlib.contextmanager
-def search_recorder():
-    """Inside ``with``, the arguments of each call of ``ops/search``'s
-    ``search_order`` (where the tree has it), ``tile_enter`` (K),
-    ``fused_search`` (M) and ``tri_search`` (L) in the yielded dict's
-    lists ``order``, ``enter``, ``search`` and ``tri``."""
-    rec = {"order": [], "enter": [], "search": [], "tri": []}
-    sites = [(fn, key) for fn, key in (("search_order", "order"),
-                                       ("tile_enter", "enter"),
-                                       ("fused_search", "search"),
-                                       ("tri_search", "tri"))
-             if hasattr(search_ops, fn)]
-    real = {fn: getattr(search_ops, fn) for fn, _ in sites}
-
-    def recording(fn, key):
-        def wrapped(*args):
-            rec[key].append(args)
-            return fn(*args)
-        return wrapped
-
-    for fn, key in sites:
-        setattr(search_ops, fn, recording(real[fn], key))
-    try:
-        yield rec
-    finally:
-        for fn, _ in sites:
-            setattr(search_ops, fn, real[fn])
 
 
 def _det_t_rows(tri):
@@ -495,16 +463,6 @@ def m_work(args, best_t) -> dict:
     return w
 
 
-def flat_order(rays, tabs, chunk):
-    """``ops/search.search_order`` as one flat ``argsort`` of int64 keys
-    (the chunk above the key), to time against the sort along each
-    chunk."""
-    n = rays.shape[1]
-    key = search_ops.search_key(rays, tabs.cl_min, tabs.cl_max)
-    at = torch.arange(n, device=rays.device) // chunk
-    return torch.argsort(key.to(torch.int64) | (at << 31), stable=True)
-
-
 def device_ms_in_order(fn, name):
     """Device ms of each launch whose profiler name holds ``name``, in
     launch order, over one call of ``fn``."""
@@ -534,12 +492,13 @@ def mesh_report(dev, save=None, label="", check=False):
                                 chunk_size=CHUNK)
 
     render()
-    with search_recorder() as rec:
+    with _parity().split_recorder() as rec:
         render()
     torch.cuda.synchronize()
+    orders = rec.get("order", [])      # a tree without the sort: none
     k, m = K.tile_enter_kernel, K.fused_search_kernel
     out = {"triangles": scene.n_tris, "rays": WIDTH * HEIGHT,
-           "sorted": bool(rec["order"]), "bounces": [],
+           "sorted": bool(orders), "bounces": [],
            "winners_differing_plain": [] if check else None,
            "m_in_path_ms": device_ms_in_order(render,
                                               "fused_search_kernel"),
@@ -550,32 +509,9 @@ def mesh_report(dev, save=None, label="", check=False):
             row = {"bounce": b, **m_work(s_args, bt),
                    "k_ms": times(lambda a=e_args: k(*a)),
                    "m_ms": times(lambda a=s_args: m(*a))}
-            if rec["order"]:
-                o_args = rec["order"][b]
+            if orders:
                 row["sort_ms"] = times(
-                    lambda a=o_args: search_ops.search_order(*a))
-                perm = s_args[4]
-                row["m_argsort_order_ms"] = times(
-                    lambda: m(*s_args, sort_in_block=False))
-
-                def copies(a=s_args):
-                    rays, ent, tabs, chunk, perm = a
-                    t, kk, ii = m(rays[:, perm].contiguous(), ent, tabs,
-                                  chunk)
-                    return tuple(torch.empty_like(x).index_copy_(0, perm, x)
-                                 for x in (t, kk, ii))
-
-                row["m_sorted_copies_ms"] = times(copies)
-                row["m_one_block_a_tile_ms"] = times(
-                    lambda: m(*s_args, parts=False))
-                alt = [m(*s_args, sort_in_block=False), copies(),
-                       m(*s_args, parts=False)]
-                row["variants_equal"] = all(
-                    torch.equal(x, y) for v in alt
-                    for x, y in zip(v, (bt, bk, bi)))
-                row["sort_flat_ms"] = times(lambda a=o_args: flat_order(*a))
-                row["sort_flat_equal"] = torch.equal(flat_order(*o_args),
-                                                     perm)
+                    lambda a=orders[b]: search_ops.search_order(*a))
             if check:
                 ref = search_ops.fused_search_plain(*s_args)
                 out["winners_differing_plain"].append(int(

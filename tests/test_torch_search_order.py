@@ -17,11 +17,11 @@ M (``csrc/search.cu``), against the JAX package on the CPU.
     in both packages so the sort runs at 384 triangles;
   * (c) a replay of M's sweep (:func:`replay_search`: the live rays packed
     per tile, the compact 20-float rows summed term by term, the staged
-    checks, the clusters front to back by K's entry, dealt to parts, the
-    per-warp prune) held to ``fused_search_plain`` on every lane of (a)'s
-    recorded bounces (tiles of up to 24 parts) and of two walls, one
-    behind the other, where the prune stops warps: t, kind and index bit
-    for bit;
+    checks, the clusters front to back by K's entry, dealt to parts) held
+    to ``fused_search_plain`` on every lane of (a)'s recorded bounces
+    (tiles of up to 24 parts) and of two walls, one behind the other,
+    where the staged t check skips the back wall's u and v dots: t, kind
+    and index bit for bit;
   * (d) ``search_tables``' compact rows are exactly the columns of
     ``_tri_coeffs`` that are not structural zeros, and the flag.
 """
@@ -46,9 +46,6 @@ from rust_ray_tracer_tpu_torch.utils import rng
 
 from tests.test_torch_search import _tie_rays, _tie_scenes
 from tests.torch_parity import mesh, split_recorder
-
-WARP = 32
-
 
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
@@ -187,10 +184,13 @@ def _features(r):
 
 
 def _cluster_best(tabs, cs, feats):
-    """(t [G, L], index [G, L]): for each cluster of ``cs`` [G], the least
-    (t, index) over its rows that count for the packed rays ``feats``
-    (:func:`_features`), inf where none: M's staged tests on the compact
-    rows, each dot summed over its live terms in feature order."""
+    """(t [G, L], index [G, L], staged t [G, width, L]): for each cluster
+    of ``cs`` [G], the least (t, index) over its rows that count for the
+    packed rays ``feats`` (:func:`_features`), inf where none: M's staged
+    tests on the compact rows, each dot summed over its live terms in
+    feature order. The staged t is a row's t where the face is seen and t
+    lies in the window (the rows whose t M compares with its best), inf
+    elsewhere."""
     (ox, oy, oz, dx, dy, dz, cx, cy, cz), eps, tmin, tmax = feats
     rows = (cs[:, None] * tabs.width
             + torch.arange(tabs.width)).reshape(-1)  # ascending a cluster
@@ -210,66 +210,63 @@ def _cluster_best(tabs, cs, feats):
         um = um + w[8 + j] * f
         vm = vm + w[14 + j] * f
     u, v = um * inv, vm * inv
-    ok = (side & (t >= tmin) & (t <= tmax) & (u >= 0.0) & (u <= 1.0)
-          & (v >= 0.0) & (v < 1.0 - u))
-    tt = torch.where(ok, t, torch.inf).reshape(cs.numel(), tabs.width, -1)
+    staged = side & (t >= tmin) & (t <= tmax)
+    ok = staged & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (v < 1.0 - u)
+    shape = (cs.numel(), tabs.width, -1)
+    tt = torch.where(ok, t, torch.inf).reshape(shape)
     loc_t = tt.amin(dim=1)
     at = torch.argmax((tt == loc_t[:, None]).to(torch.int32), dim=1)
-    return loc_t, cs[:, None] * tabs.width + at
+    return (loc_t, cs[:, None] * tabs.width + at,
+            torch.where(staged, t, torch.inf).reshape(shape))
 
 
-def _sweep(tabs, cs, e, feats, warp):
-    """(best t, best row, warps that stopped early) of one block of M over
-    the clusters ``cs`` (in sweep order; ``e`` the tile's entries) for the
-    packed rays ``feats``, ``warp`` each ray's warp: before each cluster a
-    warp whose every ray has its best t strictly below the cluster's entry
-    stops, and the block once every warp has. The kernel takes a row whose
-    t is at most its best so far and, on a tie in t, a lower index: after
-    a cluster its best is the least (t, index) of the cluster's rows that
-    count and its best before, which this takes at once."""
+def _sweep(tabs, cs, feats):
+    """(best t, best row, u and v tests skipped) of one block of M over the
+    clusters ``cs`` (in sweep order) for the packed rays ``feats``. The
+    kernel takes a row whose t is at most its best so far and, on a tie in
+    t, a lower index: after a cluster its best is the least (t, index) of
+    the cluster's rows that count and its best before, which this takes
+    at once. The skipped tests are the staged rows whose t is above the
+    ray's best before their cluster: M skips their u and v dots (and more,
+    its best falling within a cluster)."""
     bt = torch.full_like(feats[0][0], torch.inf)
     bi = torch.full(bt.shape, -1, dtype=torch.int64)
-    done = torch.zeros(int(warp[-1]) + 1, dtype=torch.bool)
+    skipped = 0
     for g0 in range(0, cs.numel(), GROUP):
         group = cs[g0:g0 + GROUP]
-        for c, (loc_t, row) in zip(group.tolist(), zip(*_cluster_best(
-                tabs, group, feats))):
-            waiting = torch.zeros(done.shape, dtype=torch.int64).index_add_(
-                0, warp, (~(bt < e[c])).long())
-            done |= waiting == 0
-            if bool(done.all()):
-                return bt, bi, int(done.sum())
-            take = ~done[warp] & ((loc_t < bt) | (
-                (loc_t == bt) & torch.isfinite(loc_t) & (row < bi)))
+        for loc_t, row, staged in zip(*_cluster_best(tabs, group, feats)):
+            skipped += int((torch.isfinite(staged) & (staged > bt)).sum())
+            take = (loc_t < bt) | (
+                (loc_t == bt) & torch.isfinite(loc_t) & (row < bi))
             bt = torch.where(take, loc_t, bt)
             bi = torch.where(take, row, bi)
-    return bt, bi, int(done.sum())
+    return bt, bi, skipped
 
 
 def replay_search(rays, ent, tabs, chunk=None, perm=None):
-    """(best t, kind, index, warps that stopped early) of M's sweep
+    """(best t, kind, index, u and v tests skipped) of M's sweep
     (``csrc/search.cu`` ``fused_search_kernel``), replayed in torch: per
     256-ray tile, the live rays packed in thread order, 32 a warp; the
     tile's entered clusters by ascending entry, then id, dealt to
     ``parts`` blocks (every parts-th each; parts = m // PART_CLUSTERS of
-    the m clusters, 1 to MAX_PARTS), each swept by :func:`_sweep` with its
-    per-warp prune; the parts' bests met as the least (t, row); each row's
+    the m clusters, 1 to MAX_PARTS), each swept by :func:`_sweep`; the
+    parts' bests met as the least (t, row); each row's
     det, t, u and v summed over the compact row's live terms in feature
     order; a row counts where the face is seen (|det| > eps, a back face
     only when double-sided), t lies in [t_min, t_max] and u, v inside.
     The spheres and quads fold as the plain version's (strict <, triangle
     > sphere > quad)."""
     if perm is not None:
-        t, k, i, pruned = replay_search(rays[:, perm], ent, tabs, chunk)
+        t, k, i, skipped = replay_search(rays[:, perm], ent, tabs, chunk)
         back = [torch.empty_like(x).index_copy_(0, perm, x)
                 for x in (t, k, i)]
-        return (*back, pruned)
+        return (*back, skipped)
     rp, n, chunk, chunk_p = search._padded_rays(rays, chunk)
     t_n = tabs.tri.shape[0]
     out_t = torch.full((rp.shape[1],), torch.inf)
     out_k = torch.zeros(rp.shape[1], dtype=torch.int32)
     out_i = torch.zeros(rp.shape[1], dtype=torch.int32)
-    pruned = 0
+    skipped = 0
     for tile in range(rp.shape[1] // search.BC):
         r = rp[:, tile * search.BC:(tile + 1) * search.BC]
         lanes = torch.nonzero(r[8] > r[7])[:, 0]
@@ -277,7 +274,6 @@ def replay_search(rays, ent, tabs, chunk=None, perm=None):
             continue
         ox, oy, oz, dx, dy, dz, time, tmin, tmax = r[:, lanes]
         lanes_f = _features(r[:, lanes])
-        warp = torch.arange(lanes.numel()) // WARP
         e = ent[tile]
         cs = torch.nonzero(torch.isfinite(e))[:, 0] if t_n else e[:0].long()
         cs = cs[torch.argsort(e[cs], stable=True)]
@@ -285,8 +281,8 @@ def replay_search(rays, ent, tabs, chunk=None, perm=None):
         bt = torch.full_like(ox, torch.inf)
         bi = torch.full(ox.shape, -1, dtype=torch.int64)
         for p in range(parts):
-            pt, pi, stopped = _sweep(tabs, cs[p::parts], e, lanes_f, warp)
-            pruned += stopped
+            pt, pi, n_skip = _sweep(tabs, cs[p::parts], lanes_f)
+            skipped += n_skip
             take = (pi >= 0) & ((pt < bt) | ((pt == bt) & (pi < bi)))
             bt = torch.where(take, pt, bt)
             bi = torch.where(take, pi, bi)
@@ -305,16 +301,16 @@ def replay_search(rays, ent, tabs, chunk=None, perm=None):
         out_t[at], out_k[at], out_i[at] = (best[0], best[1],
                                            best[2].to(torch.int32))
     return (*(search._unpad(x, n, chunk, chunk_p)
-              for x in (out_t, out_k, out_i)), pruned)
+              for x in (out_t, out_k, out_i)), skipped)
 
 
 def _assert_replay_matches_plain(args, ref=None):
-    got_t, got_k, got_i, pruned = replay_search(*args)
+    got_t, got_k, got_i, skipped = replay_search(*args)
     ref_t, ref_k, ref_i = ref or search.fused_search_plain(*args)
     assert torch.equal(got_t.view(torch.int32), ref_t.view(torch.int32))
     assert torch.equal(got_k, ref_k)
     assert torch.equal(got_i, ref_i)
-    return pruned, ref_k
+    return skipped, ref_k
 
 
 def test_replayed_sweep_matches_plain(mesh_calls):
@@ -363,10 +359,10 @@ def test_replayed_sweep_prunes_behind_a_wall():
     ent = search.tile_enter_plain(rays, tabs.cl_min, tabs.cl_max, chunk,
                                   perm)
     assert int(torch.isfinite(ent).sum(1).max()) == 4
-    pruned, kind = _assert_replay_matches_plain(
+    skipped, kind = _assert_replay_matches_plain(
         (rays, ent, tabs, chunk, perm))
     assert bool((kind[t_max > 0] == tisect.KIND_TRI).all())
-    assert pruned > 0
+    assert skipped > 0
 
 
 def test_compact_rows_are_the_live_columns(mesh_calls):
