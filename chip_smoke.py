@@ -194,11 +194,12 @@ OPS_SPH_DISC, OPS_SPH_ROOT, OPS_QUAD_T, OPS_QUAD_IN = 27, 14, 21, 43
 # accumulations)) = 7 x 267 = 1869, and cosf and the chain rule (~30):
 # 921 + 896 + 1869 + 30 = 3716
 OPS_MARBLE, OPS_MARBLE_BWD = 921, 3716
-# the split route's kernels (csrc/split.cu), counted from the code: O per
-# ray and quad tested (the plane hit and its division, the point, the two
-# sub-area dots, the compares); J per ray (one kind's attributes and the
+# the split route's kernels (csrc/split.cu), counted from the code: O by
+# the stage of each test, as closest_hit's quads (OPS_QUAD_T for t on
+# every test, OPS_QUAD_IN where t can win: quad_vs_plain counts them from
+# ops/quad.quad_sweep_replay); J per ray (one kind's attributes and the
 # sphere reading of the pack); H per live found ray is OPS_SHADE
-OPS_QUAD, OPS_HIT = 45, 150
+OPS_HIT = 150
 SPLIT_KERNELS = (quad_search_kernel, hit_attrs_kernel, shade_update_kernel)
 # their backward kernels (csrc/split.cu): J' per ray recomputes J's
 # attributes (OPS_HIT) and runs the winner's adjoint plus the sphere
@@ -700,14 +701,26 @@ class RowSumCalls:
         gather.row_sums = self._real
 
 
+def replay_equal(got, args, what) -> None:
+    """B''s (duni, dlt) ``got`` on ``args`` (contrib, sorted keys, perm,
+    rows, partials) equal bit for bit to ``ops/uber.bwd_reduce_replay``,
+    its order of operations in torch on the same card."""
+    want = uber.bwd_reduce_replay(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        bad = int((got[0] != want[0]).any(1).sum())
+        raise AssertionError(f"{what}: {bad} rows differ from the order "
+                             "replay")
+
+
 def row_sums_vs_float64(calls) -> dict:
     """Each recorded ``row_sums`` result against a float64 ``index_add_``
     of the same cotangent rows: within 1e-5 of the sum of the terms'
     magnitudes, entry by entry (the bound ``tests/test_torch_gpu.py::
     test_row_sums_on_card`` derives: B''s fixed order rounds a term at most
-    ~110 times at float32's 6e-8). Returns the worst error in those units,
-    the calls' widths and sizes, and the largest share of one call's rows
-    that went to one row (a wave's miss lanes read row 0)."""
+    ~120 times at float32's 6e-8), and bit for bit the order replay's
+    (``ops/uber.bwd_reduce_replay``). Returns the worst error in those
+    units, the calls' widths and sizes, and the largest share of one
+    call's rows that went to one row (a wave's miss lanes read row 0)."""
     if not calls:
         raise AssertionError("no row sums recorded on the training path")
     worst, widths, ns, top_share = 0.0, set(), set(), 0.0
@@ -721,6 +734,10 @@ def row_sums_vs_float64(calls) -> dict:
             raise AssertionError(
                 f"row_sums [{g.shape[0]}, {g.shape[1]}] into {n_rows} rows: "
                 f"off by {float(err.max())} of the float64 sum")
+        keys, perm = K.reduce_order(idx.to(torch.int32))
+        replay_equal((got,), (g.contiguous(), keys, perm, n_rows,
+                              torch.empty((0, 0), device=g.device)),
+                     f"row_sums into {n_rows} rows")
         worst = max(worst, float((err / mag.clamp_min(1e-300)).max()))
         widths.add(int(g.shape[1]))
         ns.add(int(g.shape[0]))
@@ -728,25 +745,36 @@ def row_sums_vs_float64(calls) -> dict:
             idx, minlength=n_rows).max()) / max(int(idx.numel()), 1))
     return {"calls": len(calls), "widths": sorted(widths),
             "terms": sorted(ns), "largest_row_share": top_share,
-            "worst_err_over_magnitude": worst, "budget": 1e-5}
+            "worst_err_over_magnitude": worst, "budget": 1e-5,
+            "replay_bitwise": True}
 
 
 def row_sums_bound(calls, light_parts=()) -> dict:
     """B''s bound on these recorded calls of ``ops/gather.row_sums`` (a
     one-wave step's) and light-table sums (``light_parts``: the partials'
-    shapes): per row sum the cotangent rows, their order and the row
-    offsets read once and the table's cotangent [rows, W] written once,
-    empty rows included (the gradient is the whole table); per light sum
-    the partials read and the row written. Bytes over HBM's rate: B' does
-    one add a term, far below the fp32 rate."""
-    nb = sum((g.numel() + idx.numel() + n_rows + 1 + n_rows * g.shape[1])
-             * 4 for idx, g, n_rows, _ in calls)
+    shapes): per row sum the cotangent rows, their sorted keys and order
+    read once and the table's cotangent [rows, W] written once, empty rows
+    included (the gradient is the whole table); per light sum the partials
+    read and the row written. Bytes over HBM's rate: B' does one add a
+    term, far below the fp32 rate."""
+    nb = sum((g.numel() + 2 * idx.numel() + n_rows * g.shape[1]) * 4
+             for idx, g, n_rows, _ in calls)
     nb += sum((blocks * ltn + ltn) * 4 for blocks, ltn in light_parts)
     launches = len(calls) + len(light_parts)
     ms = nb / PEAK_BYTES * 1e3
     return {"launches": launches, "bytes": nb, "bound_ms": ms,
             "bound_ms_per_launch": ms / max(launches, 1),
             "table_rows": sum(n for _, _, n, _ in calls)}
+
+
+def row_sum_times(calls, light_parts) -> dict:
+    """B' on these recorded row sums of a one-wave step (``calls``) and
+    on the light-table sums of ``light_parts`` (partials of those shapes)
+    beside ``index_add_``: ``tools/search_times.reduce_report``."""
+    dev = calls[0][1].device
+    return search_times.reduce_report(
+        [(g, idx, n_rows) for idx, g, n_rows, _ in calls],
+        [torch.randn(sh, device=dev) for sh in light_parts])
 
 
 def split_kernels_vs_plain(calls, label) -> dict:
@@ -1120,9 +1148,11 @@ def small_scene_checks(dev) -> dict:
                             for k in worst_b[var]}
         # bwd_reduce alone against its plain version on the same inputs
         _, contrib, keys, part = kern_b(hist, rnd_g, kind, idx, ctx_gpu, g)
-        perm, offs = K.reduce_order(keys, ctx_gpu.uni.shape[0])
-        red = bwd_reduce_kernel(contrib, perm, offs, part)
-        red_p = uber.bwd_reduce_plain(contrib, perm, offs, part)
+        red_args = (contrib,) + K.reduce_order(keys) + (
+            ctx_gpu.uni.shape[0], part)
+        red = bwd_reduce_kernel(*red_args)
+        red_p = uber.bwd_reduce_plain(*red_args)
+        replay_equal(red, red_args, f"{label}: bwd_reduce")
         rel_l2(red[0], red_p[0], f"{label}: bwd_reduce duni", BWD_REL_L2)
         rel_l2(red[1], red_p[1], f"{label}: bwd_reduce dlt", BWD_REL_L2)
         red_err = max(float((a - b).abs().max()) for a, b in zip(red, red_p))
@@ -1320,15 +1350,17 @@ def train_phase(label, fwd, dev, smi, nonzero_keys, any_keys,
                        5)
     b_ms = loop_ms(lambda: kern_b(hist, rnd, kind, idx, ctx, g_st))
     _, contrib, keys, part = kern_b(hist, rnd, kind, idx, ctx, g_st)
-    order_ms = loop_ms(lambda: K.reduce_order(keys, ctx.uni.shape[0]))
-    perm, offs = K.reduce_order(keys, ctx.uni.shape[0])
-    red_ms = loop_ms(lambda: bwd_reduce_kernel(contrib, perm, offs, part))
-    red_plain_ms = loop_ms(lambda: uber.bwd_reduce_plain(contrib, perm, offs,
-                                                         part))
-    m_found = int(offs[-1])
-    found_rows = keys.reshape(-1)[perm[:m_found].long()].long()
+    p_rows = ctx.uni.shape[0]
+    order_ms = loop_ms(lambda: K.reduce_order(keys))
+    skeys, perm = K.reduce_order(keys)
+    red_args = (contrib, skeys, perm, p_rows, part)
+    red_ms = loop_ms(lambda: bwd_reduce_kernel(*red_args))
+    red_plain_ms = loop_ms(lambda: uber.bwd_reduce_plain(*red_args))
+    found = skeys < p_rows
+    m_found = int(found.sum())
+    found_rows = skeys[found].long()
     found_contrib = contrib.reshape(-1, contrib.shape[-1])[
-        perm[:m_found].long()]
+        perm[found].long()]
     lib_red_ms = loop_ms(lambda: torch.zeros_like(ctx.uni).index_add_(
         0, found_rows, found_contrib))
     # the profiler's names: the template instances of the noise variants
@@ -1336,8 +1368,9 @@ def train_phase(label, fwd, dev, smi, nonzero_keys, any_keys,
              if ctx.has_noise else
              ("trace_wave_kernel", "trace_wave_bwd_kernel"))
     prof = profile_device(step, names + ("bwd_reduce_kernel",))
-    red = bwd_reduce_kernel(contrib, perm, offs, part)
-    red_p = uber.bwd_reduce_plain(contrib, perm, offs, part)
+    red = bwd_reduce_kernel(*red_args)
+    red_p = uber.bwd_reduce_plain(*red_args)
+    replay_equal(red, red_args, f"{label}: bwd_reduce")
     red_full_err = max(float((a - b).abs().max()) for a, b in zip(red, red_p))
     rel_l2(red[0], red_p[0], f"{label}: bwd_reduce duni", BWD_REL_L2)
     rel_l2(red[1], red_p[1], f"{label}: bwd_reduce dlt", BWD_REL_L2)
@@ -1384,9 +1417,10 @@ def train_phase(label, fwd, dev, smi, nonzero_keys, any_keys,
           "profiled_step": prof,
           "found_ray_bounces": m_found,
           "noise_ray_bounces": noise_hits(hist, kind, idx, ctx),
-          "largest_row_contributions": int((offs[1:] - offs[:-1]).max())})
+          "largest_row_contributions": int(torch.bincount(
+              found_rows, minlength=p_rows).max())})
     return {"launches": train_launches, "prof": prof, "hist": hist,
-            "kind": kind, "idx": idx, "part": part, "offs": offs,
+            "kind": kind, "idx": idx, "part": part,
             "m_found": m_found, "a_res_med": a_res_med, "b_med": b_med,
             "red_med": red_med, "red_plain_ms": median(red_plain_ms),
             "lib_red_ms": median(lib_red_ms),
@@ -1394,45 +1428,36 @@ def train_phase(label, fwd, dev, smi, nonzero_keys, any_keys,
             "red_full_err": red_full_err, "names": names}
 
 
-def quad_tests(calls) -> tuple[int, int]:
-    """Ray-quad tests on these recorded calls of kernel O: (per ray, per
-    block). Per ray: every live ray tests the quads of each cluster whose
-    box it enters (the slab test of ``pallas_intersect._tile_cluster_mask``
-    with its 1e-3 margin), what the data needs. Per block: what the kernel
-    makes, every live ray of a 128-ray block testing each cluster that
-    some live ray of the block enters (its ``__syncthreads_or`` vote)."""
-    per_ray = per_block = 0
-    for sc, o, d, t_min, t_max in (c[:5] for c in calls):
-        lo, hi = sc.quad_cluster_min, sc.quad_cluster_max      # [K, 3]
-        n = o.shape[0]
-        live = t_max > t_min
-        enter = torch.full((lo.shape[0], n), -torch.inf, device=o.device)
-        exit_ = torch.full_like(enter, torch.inf)
-        ok = (lo <= hi).all(1)[:, None] & live[None]
-        for a in range(3):
-            small = d[:, a].abs() < 1e-12
-            inv = 1.0 / torch.where(small, torch.ones_like(d[:, a]), d[:, a])
-            t0 = (lo[:, a:a + 1] - 1e-3 - o[:, a]) * inv
-            t1 = (hi[:, a:a + 1] + 1e-3 - o[:, a]) * inv
-            enter = torch.where(small, enter,
-                                torch.maximum(enter, torch.minimum(t0, t1)))
-            exit_ = torch.where(small, exit_,
-                                torch.minimum(exit_, torch.maximum(t0, t1)))
-            ok = ok & (~small | ((o[:, a] >= lo[:, a:a + 1] - 1e-3)
-                                 & (o[:, a] <= hi[:, a:a + 1] + 1e-3)))
-        hit = ok & (enter <= exit_) & (exit_ >= t_min) & (enter <= t_max)
-        q = sc.n_quads
-        per_cluster = torch.tensor(
-            [min(128, q - 128 * k) for k in range(lo.shape[0])],
-            device=o.device)
-        per_ray += int((hit * per_cluster[:, None]).sum())
-        pad = (-n) % 128
-        hit_b = torch.nn.functional.pad(hit, (0, pad)).reshape(
-            hit.shape[0], -1, 128).any(2)                    # [K, blocks]
-        live_b = torch.nn.functional.pad(live, (0, pad)).reshape(
-            -1, 128).sum(1)
-        per_block += int((hit_b * live_b[None] * per_cluster[:, None]).sum())
-    return per_ray, per_block
+def quad_vs_plain(calls, label) -> dict:
+    """Kernel O on every recorded call (each bounce of a wave): winners and
+    t equal to ``_quad_candidates``' and to ``ops/quad.quad_sweep_replay``'s
+    (its sweep replayed in torch on the card) on every lane. Returns the
+    replay's work summed over the calls: the live rays, the warps that
+    sweep and their (warp, cluster) pairs, ``tests`` / ``ab_tests`` (a
+    live ray's tests under its warp's vote, and those where t could win:
+    what the kernel makes) and ``ray_tests`` / ``ray_ab_tests`` (each ray
+    alone testing the clusters it enters: what the data needs)."""
+    work = {}
+    for b, (sc, o, d, t_min, t_max) in enumerate(c[:5] for c in calls):
+        rays = torch.cat([o, d, t_min[:, None], t_max[:, None]],
+                         1).contiguous()
+        tab = quad_ops.quad_table(sc)
+        lo = sc.quad_cluster_min.contiguous()
+        hi = sc.quad_cluster_max.contiguous()
+        got_t, got_i = quad_search_kernel(rays, tab, lo, hi)
+        ref_t, ref_i = quad_ops._quad_candidates(sc, o, d, t_min, t_max)
+        rep_t, rep_i, w = quad_ops.quad_sweep_replay(rays, tab, lo, hi)
+        for what, t_, i_ in (("plain version's", ref_t, ref_i),
+                             ("sweep replay's", rep_t, rep_i)):
+            if not (torch.equal(got_i.long(), i_) and torch.equal(got_t,
+                                                                 t_)):
+                bad = int(((got_i.long() != i_) | (got_t != t_)).sum())
+                raise AssertionError(f"{label} bounce {b}: quad_search "
+                                     f"differs from the {what} on {bad} "
+                                     "rays")
+        for k, v in w.items():
+            work[k] = work.get(k, 0) + v
+    return work
 
 
 def su_bytes(calls) -> int:
@@ -1463,7 +1488,7 @@ def split_rows(fwd, worst_small) -> list[dict]:
     o_bytes = sum((c[1].shape[0] * (8 + 2) + c[0].n_quads * 9
                    + c[0].quad_cluster_min.numel() * 2) * 4
                   for c in calls["quad"])
-    tests_ray, tests_block = quad_tests(calls["quad"])
+    qw = fwd["quad_work"]
     j_bytes = sum((19 + 2 + 12) * 4 * c[0].shape[1] for c in calls["hit"])
     j_ops = sum(OPS_HIT * c[0].shape[1] for c in calls["hit"])
     h_bytes = su_bytes(calls["su"])
@@ -1471,7 +1496,8 @@ def split_rows(fwd, worst_small) -> list[dict]:
                 for c in calls["su"])
     src = "rust_ray_tracer_tpu_torch/csrc/split.cu"
     spec = (("quad_search", "rust_ray_tracer_tpu/ops/pallas_quad.py:121",
-             o_bytes, tests_ray * OPS_QUAD),
+             o_bytes, qw["ray_tests"] * OPS_QUAD_T
+             + qw["ray_ab_tests"] * OPS_QUAD_IN),
             ("hit_attrs", "rust_ray_tracer_tpu/ops/pallas_hit.py:218",
              j_bytes, j_ops),
             ("shade_update", "rust_ray_tracer_tpu/ops/pallas_bounce.py:678",
@@ -1489,10 +1515,10 @@ def split_rows(fwd, worst_small) -> list[dict]:
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                      "bytes_per_launch": nb / n_w,
                      "operations_per_launch": ops / n_w})
-    rows[0]["quad_tests_per_launch"] = {"per_ray": tests_ray / n_w,
-                                        "per_block_vote": tests_block / n_w}
-    rows[0]["bound_ms_per_block_vote"] = bound(
-        o_bytes / n_w, tests_block * OPS_QUAD / n_w)[0]
+    rows[0]["work_per_launch"] = {k: v / n_w for k, v in qw.items()}
+    rows[0]["bound_ms_per_warp_vote"] = bound(
+        o_bytes / n_w, (qw["tests"] * OPS_QUAD_T
+                        + qw["ab_tests"] * OPS_QUAD_IN) / n_w)[0]
     return rows
 
 
@@ -1589,10 +1615,9 @@ def light_sum_call(part):
     """A call of B' (``bwd_reduce``) on a backward kernel's light-table
     partials ``part`` alone, its empty row inputs made once."""
     dev = part.device
-    no_rows = (torch.empty((0, 1), dtype=torch.float32, device=dev),
-               torch.empty((0,), dtype=torch.int32, device=dev),
-               torch.zeros((1,), dtype=torch.int32, device=dev))
-    return lambda: bwd_reduce_kernel(*no_rows, part)
+    none = torch.empty((0,), dtype=torch.int32, device=dev)
+    rows = torch.empty((0, 1), dtype=torch.float32, device=dev)
+    return lambda: bwd_reduce_kernel(rows, none, none, 0, part)
 
 
 def main_path_train(label, scene, key, on_path, off_path, nonzero_keys,
@@ -1736,6 +1761,7 @@ def final_forward(dev, smi) -> dict:
                        "(cuda)", flip_abs=None)
     with torch.no_grad():
         full = split_kernels_vs_plain(rec, "final_scene full size")
+        quad_work = quad_vs_plain(rec["quad"], "final_scene full size")
 
     timing = forward_timing(render, {n: f"{n}_kernel" for n in (
         "quad_search", "hit_attrs", "shade_update")}, 7, dev)
@@ -1780,8 +1806,11 @@ def final_forward(dev, smi) -> dict:
           "ms_per_launch_looped_events": {
               n: statistics.fmean(t["loop"]) for n, t in times.items()},
           "ms_per_launch_l2_flushed": ms,
-          "plain_ms_per_launch": plain_ms})
+          "plain_ms_per_launch": plain_ms,
+          "quad_search_every_bounce": {
+              "winners_equal_plain_and_replay": True, "work": quad_work}})
     return {"launches": launches, "full": full, "ms": ms,
+            "quad_work": quad_work,
             "ms_in_path": timing["in_path"], "plain_ms": plain_ms,
             "calls": rec, "scene": scene, "key": key}
 
@@ -1845,8 +1874,10 @@ def final_train(dev, smi, fwd) -> dict:
     # B''s bound for a one-wave step: the glue's row sums and a light-table
     # sum of H''s partials a bounce
     n = WIDTH * HEIGHT
-    red_bound = row_sums_bound(sums.calls, [(
-        -(-n // 128), (scene.n_lights + 1) * bounce_ops.LT_COLS)] * DEPTH)
+    light = [(-(-n // 128), (scene.n_lights + 1) * bounce_ops.LT_COLS)
+             ] * DEPTH
+    red_bound = row_sums_bound(sums.calls, light)
+    red_times = row_sum_times(sums.calls, light)
     del sums
 
     # J' and H' on every bounce's recorded inputs of one full-size wave
@@ -1888,6 +1919,7 @@ def final_train(dev, smi, fwd) -> dict:
               "glue_row_sums": launches["bwd_reduce"] - SPP * DEPTH},
           "row_sums_vs_float64": row_sums,
           "bwd_reduce_bound_one_wave_step": red_bound,
+          "bwd_reduce_one_wave_step": red_times,
           "bwd_ms_per_launch_l2_flushed": cold,
           "shade_update_bwd_parts_ms_l2_flushed": h_cold,
           "bwd_ms_per_launch_looped_events": {
@@ -1896,7 +1928,7 @@ def final_train(dev, smi, fwd) -> dict:
           "bwd_kernels_vs_plain_full_size": full})
     return {"launches": launches, "ms": cold, "ms_in_path": t["in_path"],
             "plain_ms": plain_ms, "full": full, "calls": rec,
-            "h_parts": h_cold}
+            "h_parts": h_cold, "red": {**red_times, **red_bound}}
 
 
 def split_bwd_rows(train, worst_small) -> list[dict]:
@@ -2517,15 +2549,20 @@ def random_earth_train(dev, smi, fwd) -> dict:
     with RowSumCalls() as sums:
         t["step"](1)
         torch.cuda.synchronize()
-    red_bound = row_sums_bound(sums.calls, [(
-        -(-WIDTH * HEIGHT // 128),
-        (fwd["scene"].n_lights + 1) * bounce_ops.LT_COLS)] * DEPTH)
+    light = [(-(-WIDTH * HEIGHT // 128),
+              (fwd["scene"].n_lights + 1) * bounce_ops.LT_COLS)] * DEPTH
+    red_bound = row_sums_bound(sums.calls, light)
+    row_sums = row_sums_vs_float64(sums.calls)
+    red_times = row_sum_times(sums.calls, light)
     del sums
     emit({"phase": "random_earth_train", "card": smi,
           "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
           **t["fields"], "img_data_texels_with_grad": texels,
-          "bwd_reduce_bound_one_wave_step": red_bound})
-    return {"launches": t["launches"], "ms_in_path": t["in_path"]}
+          "row_sums_vs_float64": row_sums,
+          "bwd_reduce_bound_one_wave_step": red_bound,
+          "bwd_reduce_one_wave_step": red_times})
+    return {"launches": t["launches"], "ms_in_path": t["in_path"],
+            "red": {**red_times, **red_bound}}
 
 
 def tri_scene_phase(dev, smi) -> dict:
@@ -3131,17 +3168,17 @@ def kernel_rows(fwd, train, small, variant) -> list[dict]:
     run's residuals."""
     ctx, st0 = fwd["ctx"], fwd["st0"]
     hist, kind, idx = train["hist"], train["kind"], train["idx"]
-    part, offs, m_found = train["part"], train["offs"], train["m_found"]
+    part, m_found = train["part"], train["m_found"]
     n = st0.shape[1]
     w_cols = ctx.uni.shape[1]
     c = trace_costs(ctx, hist, kind, idx)
     a_bytes, a_res_bytes, a_ops = c["a_bytes"], c["a_res_bytes"], c["a_ops"]
     b_bytes, b_ops = c["b_bytes"], c["b_ops"]
     n_live, n_noise = c["live"], c["noise"]
-    # bwd_reduce: the found cotangents, their order and the partials in;
-    # duni and dlt out; one add per value
-    r_bytes = (m_found * (w_cols + 1) + offs.numel() + part.numel()
-               + ctx.uni.numel() + ctx.lt.numel()) * 4
+    # bwd_reduce: the found cotangents with their sorted keys and order
+    # and the partials in; duni (every row) and dlt out; one add per value
+    r_bytes = (m_found * (w_cols + 2) + part.numel() + ctx.uni.numel()
+               + ctx.lt.numel()) * 4
     r_ops = m_found * w_cols + part.numel()
     per = train["prof"]["per_kernel"] or {}
     names = train["names"]
@@ -4196,7 +4233,7 @@ def main() -> int:
         emit({"phase": "earth_map", **emap})
         earth_checks(dev)
         rand_e_fwd = random_earth_forward(dev, smi)
-        random_earth_train(dev, smi, rand_e_fwd)
+        rand_e_tr = random_earth_train(dev, smi, rand_e_fwd)
         tri = tri_scene_phase(dev, smi)
     if os.path.exists("earthmap.jpg"):
         raise AssertionError("an earthmap.jpg was left in the working "
@@ -4252,6 +4289,11 @@ def main() -> int:
             + shade_rows(gltf_fwd, gltf_tr)
             + fused_rows(d_checks, d_trains)
             + unfused_rows(u_checks, u_fwd, u_train))
+    # B' on the other cells' one-wave steps: the row sums and light sums
+    for r in rows:
+        if r["name"] == "bwd_reduce":
+            r["cells"] = {"final_scene": final_tr["red"],
+                          "random_earth": rand_e_tr["red"]}
     # the resident blocks per SM of A, D and E (closest_hit's kernels)
     for variant, funcs in (
             ("plain", {"trace_wave": "trace_wave_kernel",

@@ -47,12 +47,23 @@
 //     (G'). Plain versions: ops/bounce.py bounce_planes_live_plain and
 //     bounce_planes_live_bwd_plain. A null tlive is F and F'.
 //
-// What bounds them on the card. O: fp32 work, ~45 operations per ray and
-// quad tested (1,408 quads on final_scene, 11 clusters of 128); a block of
-// 128 rays votes the slab test of each cluster (__syncthreads_or, as A culls
-// its triangle chunks), skips the clusters none of its live rays enters,
-// and stages the others' quads in shared memory, with the normal and
-// 1/|n|^2 computed once per quad. J and H: memory, 19 + 2 planes in and 12
+// What bounds them on the card. O: per test and warp, ~25 fp32
+// operations for t (the denominator, the numerator and an IEEE division;
+// the library is built --fmad=false, so no product and sum fuse), ~30
+// more for alpha and beta where t can win (1,408 quads on final_scene, 11
+// clusters of 128). Its design: a 128-ray block packs its live rays (a
+// ballot and a prefix over its warps) so full warps sweep and a dead lane
+// is written (inf, 0) at once, and sorts them by the set of clusters each
+// enters, so a warp's rays agree; each warp votes the slab test of each
+// cluster (__any_sync) and sweeps only the clusters one of its rays
+// enters; the quads come as 16-float rows (q, u, v, n, 1 / |n|^2) that
+// ops/quad.py quad_table builds once a scene, staged in shared memory per
+// cluster (read from L1 they measured slower); a test computes t first, 4
+// quads at a time, and goes on to alpha and beta only where t can win
+// (strict <, so nothing else changes). After bounce 0 the rays scatter and
+// a block walks most clusters behind two barriers each with few warps
+// busy: latency, not issue, bounds it.
+// J and H: memory, 19 + 2 planes in and 12
 // out (J), 40 + 1 in and 13 out (H), a few hundred operations per ray: one
 // thread per ray, every plane read and written coalesced. H keeps the light
 // table in shared memory.
@@ -94,7 +105,10 @@ namespace {
 using namespace trace;
 
 constexpr int QCL = 128;      // quads per cluster (models/scene.py CLUSTER)
-constexpr int QCOLS = 13;     // staged quad: q, u, v, n, 1 / |n|^2
+constexpr int QBLOCK = 128;   // rays per block of quad_search_kernel
+constexpr int QMIN_BLOCKS = 9;   // its resident blocks an SM, at least
+constexpr int QUNROLL = 4;    // quads whose t a sweep computes together
+constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr float CULL_EPS = 1e-3f;   // the cull box margin
 constexpr int N_HIT_IN = 19, N_HIT_OUT = 12;
 constexpr int N_SU = 40, N_SU_OUT = 13;
@@ -103,22 +117,24 @@ constexpr int MAX_LT = 128;   // (n_lights + 1) * LT_COLS <= 128
 // Does the ray enter the box [lo - eps, hi + eps] within [tmin, tmax]?
 // pallas_intersect._tile_cluster_mask for one ray: axes with |d| < 1e-12
 // ask for the origin inside the slab; an inverted (empty) box never passes.
-__device__ __forceinline__ bool enters_box(V3 o, V3 d, float tmin,
+// inv[a] = 1 / d[a], computed once a ray (the same IEEE quotient each time).
+__device__ __forceinline__ bool enters_box(const float oo[3],
+                                           const float dd[3],
+                                           const float inv[3], float tmin,
                                            float tmax,
                                            const float* __restrict__ lo,
                                            const float* __restrict__ hi) {
-  const float oo[3] = {o.x, o.y, o.z}, dd[3] = {d.x, d.y, d.z};
   float enter = -INFINITY, exit_ = INFINITY;
   bool ok = tmax > tmin;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    ok = ok && lo[a] <= hi[a];
-    const float l = lo[a] - CULL_EPS, h = hi[a] + CULL_EPS;
+    const float la = __ldg(lo + a), ha = __ldg(hi + a);
+    ok = ok && la <= ha;
+    const float l = la - CULL_EPS, h = ha + CULL_EPS;
     if (fabsf(dd[a]) < 1e-12f) {
       ok = ok && oo[a] >= l && oo[a] <= h;
     } else {
-      const float inv = 1.f / dd[a];
-      const float t0 = (l - oo[a]) * inv, t1 = (h - oo[a]) * inv;
+      const float t0 = (l - oo[a]) * inv[a], t1 = (h - oo[a]) * inv[a];
       enter = jmax(enter, jmin(t0, t1));
       exit_ = jmin(exit_, jmax(t0, t1));
     }
@@ -126,76 +142,166 @@ __device__ __forceinline__ bool enters_box(V3 o, V3 d, float tmin,
   return ok && enter <= exit_ && exit_ >= tmin && enter <= tmax;
 }
 
-// rays [n, 8] = o, d, tmin, tmax (a dead lane has tmax < tmin); quads
-// [n_quads, 9] = q, u, v (zero-edge pads never hit); cluster boxes
-// [n_clusters, 3] each. best_t [n] (inf: none), best_i [n] (0: none).
-__global__ void __launch_bounds__(ROW)
+// One warp's sweep of a cluster's staged rows ``row`` [cnt, 4] (float4)
+// for its ray, QUNROLL quads at a time: their t first, (q - o) . n /
+// (d . n) in the plain version's order, then in ascending order only a t
+// that can win (|denom| > 0, tmin <= t <= tmax, t < bt: strict <, so the
+// lowest index keeps a tie) goes on to alpha and beta.
+__device__ __forceinline__ void sweep_quads(const float4* row, int base,
+                                            int cnt, const float oo[3],
+                                            const float dd[3], float tmin,
+                                            float tmax, float& bt, int& bi) {
+  for (int k = 0; k < cnt; k += QUNROLL) {
+    float den[QUNROLL], tq[QUNROLL];
+#pragma unroll
+    for (int j = 0; j < QUNROLL; ++j) {
+      const int kk = min(k + j, cnt - 1);
+      const float4 qa = row[4 * kk];        // qx qy qz ux
+      const float4 qc = row[4 * kk + 2];    // vz nx ny nz
+      den[j] = dd[0] * qc.y + dd[1] * qc.z + dd[2] * qc.w;
+      tq[j] = safe_div((qa.x - oo[0]) * qc.y + (qa.y - oo[1]) * qc.z +
+                           (qa.z - oo[2]) * qc.w, den[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < QUNROLL; ++j) {
+      if (k + j >= cnt) break;
+      if (!(fabsf(den[j]) > 0.f && tq[j] >= tmin && tq[j] <= tmax &&
+            tq[j] < bt))
+        continue;
+      const float4 qa = row[4 * (k + j)];
+      const float4 qb = row[4 * (k + j) + 1];   // uy uz vx vy
+      const float4 qc = row[4 * (k + j) + 2];
+      const float inv_n2 = row[4 * (k + j) + 3].x;   // 1 / |n|^2
+      const float ux = qa.w, uy = qb.x, uz = qb.y;
+      const float vx = qb.z, vy = qb.w, vz = qc.x;
+      const float nx = qc.y, ny = qc.z, nz = qc.w;
+      const float t = tq[j];
+      const float wx = oo[0] + t * dd[0] - qa.x;
+      const float wy = oo[1] + t * dd[1] - qa.y;
+      const float wz = oo[2] + t * dd[2] - qa.z;
+      const float al = ((wy * vz - wz * vy) * nx + (wz * vx - wx * vz) * ny +
+                        (wx * vy - wy * vx) * nz) * inv_n2;
+      const float be = ((uy * wz - uz * wy) * nx + (uz * wx - ux * wz) * ny +
+                        (ux * wy - uy * wx) * nz) * inv_n2;
+      if (al >= 0.f && al <= 1.f && be >= 0.f && be <= 1.f) {
+        bt = t;
+        bi = base + k + j;
+      }
+    }
+  }
+}
+
+// The slab test's 1 / d once a ray (the same IEEE quotient each time).
+__device__ __forceinline__ void inv_dir(const float dd[3], float inv[3]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    inv[a] = fabsf(dd[a]) < 1e-12f ? 0.f : 1.f / dd[a];
+}
+
+// rays [n, 8] = o, d, tmin, tmax (a dead lane has tmax <= tmin); quads
+// [n_quads, 16] = q, u, v, n = u x v, 1 / |n|^2, 3 zeros (ops/quad.py
+// quad_table; zero-edge pads never hit); cluster boxes [n_clusters, 3]
+// each. best_t [n] (inf: none), best_i [n] (0: none). A block's live rays
+// are packed (a ballot and a prefix) and sorted by the set of clusters
+// each enters (bit c % 32 of a mask, then the packed order), so a warp's
+// rays tend to enter the same clusters; the warps vote each cluster
+// (__any_sync), the block stages a cluster some warp enters in shared
+// memory and only those warps sweep it, in ascending order.
+__global__ void __launch_bounds__(QBLOCK, QMIN_BLOCKS)
 quad_search_kernel(const float* __restrict__ rays,
-                   const float* __restrict__ quads,
+                   const float4* __restrict__ quads,
                    const float* __restrict__ cl_min,
                    const float* __restrict__ cl_max, int n, int n_quads,
                    int n_clusters, float* __restrict__ best_t,
                    int* __restrict__ best_i) {
-  __shared__ float sq[QCL * QCOLS];
-  const int i = blockIdx.x * ROW + threadIdx.x;
-  const bool in = i < n;
-  const float* ray = rays + (size_t)(in ? i : 0) * 8;
-  const V3 o = {ray[0], ray[1], ray[2]}, d = {ray[3], ray[4], ray[5]};
-  const float tmin = ray[6];
-  const float tmax = in ? ray[7] : -INFINITY;
-  const bool live = in && tmax > tmin;
+  __shared__ float pray[8][QBLOCK];     // the live rays, packed
+  __shared__ int pidx[QBLOCK];
+  __shared__ unsigned long long skey[QBLOCK];   // (mask, packed slot)
+  __shared__ int wlive[QBLOCK / 32];
+  __shared__ float4 srow[QCL * 4];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int i = blockIdx.x * QBLOCK + t;
+  float r[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (i < n) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(rays) + 2 * i);
+    const float4 b = __ldg(reinterpret_cast<const float4*>(rays) + 2 * i + 1);
+    r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
+    r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
+  }
+  const bool live = i < n && r[7] > r[6];
+  if (i < n && !live) {                 // a dead lane finds nothing
+    best_t[i] = INFINITY;
+    best_i[i] = 0;
+  }
+  unsigned mask = 0u;                   // the clusters this ray enters
+  if (live) {
+    float inv[3];
+    inv_dir(r + 3, inv);
+    for (int c = 0; c < n_clusters; ++c)
+      if (enters_box(r, r + 3, inv, r[6], r[7], cl_min + 3 * c,
+                     cl_max + 3 * c))
+        mask |= 1u << (c & 31);
+  }
+  // pack: a ballot in each warp, the warps' counts in order
+  const unsigned bal = __ballot_sync(FULL_MASK, live);
+  if (lane == 0) wlive[warp] = __popc(bal);
+  __syncthreads();
+  int off = 0, n_live = 0;
+#pragma unroll
+  for (int j = 0; j < QBLOCK / 32; ++j) {
+    off += j < warp ? wlive[j] : 0;
+    n_live += wlive[j];
+  }
+  if (n_live == 0) return;
+  if (live) {
+    const int slot = off + __popc(bal & ((1u << lane) - 1u));
+#pragma unroll
+    for (int q = 0; q < 8; ++q) pray[q][slot] = r[q];
+    pidx[slot] = i;
+    skey[slot] = (static_cast<unsigned long long>(mask) << 8) | slot;
+  }
+  if (t >= n_live) skey[t] = ~0ull;
+  __syncthreads();
+  // bitonic sort of the keys, ascending
+  for (int k = 2; k <= QBLOCK; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const int o = t ^ j;
+      if (o > t) {
+        const unsigned long long x = skey[t], y = skey[o];
+        if ((x > y) == ((t & k) == 0)) {
+          skey[t] = y;
+          skey[o] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  const int slot = warp * 32 + lane;
+  const bool act = slot < n_live;
+  const int k_ray = act ? static_cast<int>(skey[slot] & 0xffu) : 0;
+  const float oo[3] = {pray[0][k_ray], pray[1][k_ray], pray[2][k_ray]};
+  const float dd[3] = {pray[3][k_ray], pray[4][k_ray], pray[5][k_ray]};
+  const float tmin = pray[6][k_ray], tmax = pray[7][k_ray];
+  float inv[3];
+  inv_dir(dd, inv);
   float bt = INFINITY;
   int bi = 0;
   for (int c = 0; c < n_clusters; ++c) {
-    const bool enter = live && enters_box(o, d, tmin, tmax, cl_min + 3 * c,
-                                          cl_max + 3 * c);
-    if (!__syncthreads_or(enter)) continue;
+    const bool enter = act && enters_box(oo, dd, inv, tmin, tmax,
+                                         cl_min + 3 * c, cl_max + 3 * c);
+    const bool wany = __any_sync(FULL_MASK, enter);
     const int base = c * QCL;
     const int cnt = min(QCL, n_quads - base);
-    for (int k = threadIdx.x; k < cnt; k += ROW) {
-      const float* qd = quads + (size_t)(base + k) * 9;
-      float* s = sq + k * QCOLS;
-#pragma unroll
-      for (int j = 0; j < 9; ++j) s[j] = qd[j];
-      const float nx = qd[4] * qd[8] - qd[5] * qd[7];
-      const float ny = qd[5] * qd[6] - qd[3] * qd[8];
-      const float nz = qd[3] * qd[7] - qd[4] * qd[6];
-      s[9] = nx;
-      s[10] = ny;
-      s[11] = nz;
-      s[12] = safe_div(1.f, nx * nx + ny * ny + nz * nz);
-    }
+    if (!__syncthreads_or(wany)) continue;
+    for (int j = t; j < cnt * 4; j += QBLOCK)
+      srow[j] = __ldg(quads + (size_t)base * 4 + j);
     __syncthreads();
-    if (live) {
-      for (int k = 0; k < cnt; ++k) {
-        const float* s = sq + k * QCOLS;
-        const float qx = s[0], qy = s[1], qz = s[2];
-        const float ux = s[3], uy = s[4], uz = s[5];
-        const float vx = s[6], vy = s[7], vz = s[8];
-        const float nx = s[9], ny = s[10], nz = s[11], inv_n2 = s[12];
-        const float denom = d.x * nx + d.y * ny + d.z * nz;
-        const float t = safe_div((qx - o.x) * nx + (qy - o.y) * ny +
-                                     (qz - o.z) * nz, denom);
-        const float wx = o.x + t * d.x - qx;
-        const float wy = o.y + t * d.y - qy;
-        const float wz = o.z + t * d.z - qz;
-        const float al = ((wy * vz - wz * vy) * nx + (wz * vx - wx * vz) * ny +
-                          (wx * vy - wy * vx) * nz) * inv_n2;
-        const float be = ((uy * wz - uz * wy) * nx + (uz * wx - ux * wz) * ny +
-                          (ux * wy - uy * wx) * nz) * inv_n2;
-        const bool valid = fabsf(denom) > 0.f && t >= tmin && t <= tmax &&
-                           al >= 0.f && al <= 1.f && be >= 0.f && be <= 1.f;
-        if (valid && t < bt) {
-          bt = t;
-          bi = base + k;
-        }
-      }
-    }
-    __syncthreads();      // the next cluster overwrites sq
+    if (wany && act) sweep_quads(srow, base, cnt, oo, dd, tmin, tmax, bt, bi);
+    __syncthreads();                    // the next cluster overwrites srow
   }
-  if (in) {
-    best_t[i] = bt;
-    best_i[i] = min(bi, n_quads - 1);
+  if (act) {
+    best_t[pidx[k_ray]] = bt;
+    best_i[pidx[k_ray]] = min(bi, n_quads - 1);
   }
 }
 
@@ -611,9 +717,10 @@ extern "C" int quad_search_launch(const float* rays, const float* quads,
                                   int n, int n_quads, int n_clusters,
                                   float* best_t, int* best_i, void* stream) {
   if (n > 0)
-    quad_search_kernel<<<(n + ROW - 1) / ROW, ROW, 0,
+    quad_search_kernel<<<(n + QBLOCK - 1) / QBLOCK, QBLOCK, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-        rays, quads, cl_min, cl_max, n, n_quads, n_clusters, best_t, best_i);
+        rays, reinterpret_cast<const float4*>(quads), cl_min, cl_max, n,
+        n_quads, n_clusters, best_t, best_i);
   return launched(n);
 }
 

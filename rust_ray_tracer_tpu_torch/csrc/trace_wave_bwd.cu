@@ -39,7 +39,8 @@
 //     of the alive plane is the TPU's too;
 //   * no float atomics: blocks run in no order, so the row cotangents go to
 //     a contributions buffer keyed by winner row, which the host sorts
-//     stably and bwd_reduce sums segment by segment in that fixed order;
+//     stably and bwd_reduce sums run by run in an order fixed by the
+//     positions alone;
 //     the light-table cotangents are summed per block in thread order and
 //     then across blocks in block order. Gradients are bitwise repeatable;
 //   * a scene with Noise textures runs the HAS_NOISE instantiation: the
@@ -318,19 +319,37 @@ fused_bounce_bwd_kernel(const float* __restrict__ st,
                             keys, dlt_part, n, depth);
 }
 
-// Fixed-order sums of the winner-row cotangents. The contributions in the
-// order of ``perm`` (the stable sort of the keys; row p's segment is
-// offs[p]..offs[p+1]) are cut at the multiples of ``piece``, so row p
-// spans floor(offs[p+1] / piece) - floor(offs[p] / piece) + 1 blocks (at
-// least one) and its first block is floor(offs[p] / piece) + p, a closed
-// form of offs that a block inverts by binary search. Each thread sums the
-// elements t, t + RED, ... of its block's part of the row in order, and a
-// fixed tree the threads' sums. A row of one block is written at once; for
-// a longer row the block sums go to ``partial`` and the row's last block to
-// finish (an integer counter, which orders nothing) adds them in block
-// order. So a row hit by most rays (a lamp) spreads over many blocks and
-// the result is the same bits in every run. Blocks past the rows' add the
-// k-th light-table entry of every kernel-B block's partial, in block order.
+// Fixed-order sums of the row cotangents (B'). The terms come sorted by
+// row: ``keys`` [m] is the stable sort of their rows and ``perm`` [m] the
+// position of each term's cotangent row in ``contrib``; a key >= p_rows (a
+// ray that found no row) is no row. The sorted terms are cut into pieces
+// of PIECE, one block each, so the work follows the terms, not the table:
+// the launch zeroes duni and a row no term names stays zero. Inside a piece
+// thread t takes the PER consecutive terms from PER * t and adds each run
+// of equal keys among them left to right; a run that ends inside the
+// thread is written at once, and the thread's last run (its tail), which
+// may go on into the next threads, is summed across the threads by a
+// segmented inclusive scan: five shuffle steps in each warp (lane l adds
+// lane l - s's value before its own unless a run starts between them),
+// then the warps' totals carried in warp order. A run that goes on past its
+// piece is written as one partial a piece (slot 1 of its first piece, slot
+// 0 of the others), and the last block to finish (an integer counter of
+// the piece where the run starts) adds them in piece order. Every order is
+// fixed by the positions alone, so the sums repeat bit for bit;
+// ops/uber.py bwd_reduce_replay replays them on the CPU. Blocks past the
+// pieces add the k-th light-table entry of every partial, in block order.
+// What bounds it: a call moves ~3 MB (147,456 terms of a wave), a
+// microsecond of HBM, so its time is a chain of dependent accesses: the
+// terms, their rows, the scan's barrier, and for a run that crosses
+// pieces a fence, a counter and the partials. The loads of a thread's
+// terms are issued together, warp 0 finds the crossing runs' pieces while
+// they land, and the column loop stays rolled (its unrolled code missed
+// the instruction cache on every block).
+constexpr int PIECE = 1024;            // sorted terms one block sums
+constexpr int PER = PIECE / RED;       // consecutive terms a thread adds
+constexpr int COLS = 8;                // columns whose terms load together
+constexpr unsigned FULL = 0xffffffffu;
+
 __device__ float block_sum(float v, float* red) {
   const int t = threadIdx.x;
   red[t] = v;
@@ -344,71 +363,279 @@ __device__ float block_sum(float v, float* red) {
   return r;
 }
 
-__device__ __forceinline__ int first_block(const int* __restrict__ offs,
-                                           int p, int piece) {
-  return offs[p] / piece + p;
+// The first piece i in [lo, hi) whose key at i * PIECE + off is >= r (gt:
+// > r), else hi; keys[i * PIECE + off] rises with i. Called by a whole
+// warp: the first round probes the 32 pieces at the end of the range
+// nearest the caller (near: lo or hi), where a run's end usually lies,
+// then 32 probes a round over what is left.
+__device__ int first_piece(const int* __restrict__ keys, int lo, int hi,
+                           int off, int r, bool gt, bool near_lo) {
+  const int lane = threadIdx.x & 31;
+  auto pred = [&](int i) {
+    const int key = keys[(size_t)i * PIECE + off];
+    return gt ? key > r : key >= r;
+  };
+  if (lo < hi) {
+    const int w0 = near_lo ? lo : max(lo, hi - 32);
+    const int i = w0 + lane;
+    const unsigned b = __ballot_sync(FULL, i < hi ? pred(i) : true);
+    const int f = __ffs(b) - 1;
+    if (near_lo) {
+      if (b != 0) return min(w0 + f, hi);
+      lo = w0 + 32;                         // all 32 below the answer
+    } else {
+      if (b == 0) return hi;                // the top 32 below it: all are
+      if (f > 0 || w0 == lo) return min(w0 + f, hi);
+      hi = w0;                              // at or below w0
+    }
+  }
+  while (lo < hi) {
+    const int step = (hi - lo + 31) / 32;
+    const int i = lo + lane * step;
+    const bool p = i < hi ? pred(i) : true; // probes past hi vote yes
+    const unsigned b = __ballot_sync(FULL, p);
+    if (b == 0) {                           // past the last probe
+      lo += 31 * step + 1;
+      continue;
+    }
+    const int f = __ffs(b) - 1;
+    if (f == 0) return lo;
+    const int nlo = lo + (f - 1) * step + 1;
+    hi = min(hi, lo + f * step);
+    lo = nlo;
+  }
+  return hi;
+}
+
+struct Piece {
+  int k, kfirst, klast, p_rows, w;
+  bool lead, trail;     // the first run began before, the last goes on
+};
+
+// Row r's sum in this piece, column c: to duni when the run lies inside
+// the piece, else to the piece's partial slot (0: the run began before the
+// piece, 1: it begins here and goes on).
+__device__ __forceinline__ bool put(const Piece& pc, int r, int c, float v,
+                                    float* __restrict__ partial,
+                                    float* __restrict__ duni) {
+  if (r >= pc.p_rows) return false;
+  if (pc.lead && r == pc.kfirst) {
+    partial[((size_t)pc.k * 2) * pc.w + c] = v;
+    return true;
+  }
+  if (pc.trail && r == pc.klast) {
+    partial[((size_t)pc.k * 2 + 1) * pc.w + c] = v;
+    return true;
+  }
+  duni[(size_t)r * pc.w + c] = v;
+  return false;
+}
+
+// A run's sum over its pieces k0 .. k1, column ``lane``: the first
+// piece's slot 1, then the others' slot 0, in piece order, 16 loads in
+// flight.
+__device__ __forceinline__ void add_partials(const float* __restrict__ partial,
+                                             int k0, int k1, int w, int lane,
+                                             float* __restrict__ out) {
+  float sum = __ldcg(partial + ((size_t)k0 * 2 + 1) * w + lane);
+  for (int q0 = k0 + 1; q0 <= k1; q0 += 16) {
+    float v[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      v[j] = q0 + j <= k1 ? __ldcg(partial + ((size_t)(q0 + j) * 2) * w + lane)
+                          : 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (q0 + j <= k1) sum += v[j];
+  }
+  *out = sum;
+}
+
+// Columns c0 .. c0 + COLS - 1 of the thread's terms (rows pp[0 .. cnt -
+// 1] of contrib [*, w]), all loads issued together; zeros past either end.
+__device__ __forceinline__ void load_terms(const float* __restrict__ contrib,
+                                           const int (&pp)[PER], int cnt,
+                                           int w, int c0,
+                                           float (&v)[PER][COLS]) {
+#pragma unroll
+  for (int i = 0; i < PER; ++i)
+#pragma unroll
+    for (int j = 0; j < COLS; ++j)
+      v[i][j] = i < cnt && c0 + j < w
+                    ? __ldg(contrib + (size_t)pp[i] * w + c0 + j)
+                    : 0.f;
 }
 
 __global__ void __launch_bounds__(RED)
 bwd_reduce_kernel(const float* __restrict__ contrib,
-                  const int* __restrict__ perm, const int* __restrict__ offs,
-                  int p_rows, int w, int piece, int max_blocks,
+                  const int* __restrict__ keys, const int* __restrict__ perm,
+                  int m, int p_rows, int w, int n_pieces,
                   float* __restrict__ partial, int* __restrict__ done,
                   const float* __restrict__ dlt_part, int n_part, int ltn,
                   float* __restrict__ duni, float* __restrict__ dlt) {
   __shared__ float red[RED];
-  __shared__ bool last;
-  const int t = threadIdx.x;
+  __shared__ float wtot[RED / 32][W_MAX];   // each warp's scanned tail
+  __shared__ float hsum[W_MAX][RED];        // each thread's head sums
+  __shared__ bool wflag[RED / 32];          // a run starts in the warp
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int k = blockIdx.x;
-  if (k >= max_blocks) {                    // a light-table entry
+  if (k >= n_pieces) {                      // a light-table entry
     float acc = 0.f;
     for (int j = t; j < n_part; j += RED)
-      acc += dlt_part[(size_t)j * ltn + (k - max_blocks)];
+      acc += dlt_part[(size_t)j * ltn + (k - n_pieces)];
     acc = block_sum(acc, red);
-    if (t == 0) dlt[k - max_blocks] = acc;
+    if (t == 0) dlt[k - n_pieces] = acc;
     return;
   }
-  if (k >= first_block(offs, p_rows, piece)) return;   // past the rows
-  int lo = 0, hi = p_rows;                  // the row: first_block <= k
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) / 2;
-    if (first_block(offs, mid, piece) <= k) lo = mid; else hi = mid;
-  }
-  const int p = lo;
-  const int b0 = first_block(offs, p, piece);
-  const int n_blocks = first_block(offs, p + 1, piece) - b0;
-  const int cut = (offs[p] / piece + (k - b0)) * piece;
-  const int j0 = max(offs[p], cut);
-  const int j1 = min(offs[p + 1], cut + piece);
-  float acc[W_MAX];
+  const int base = k * PIECE, end = min(base + PIECE, m);
+  Piece pc;
+  pc.k = k;
+  pc.p_rows = p_rows;
+  pc.w = w;
+  // the piece's ends and their neighbours, and this thread's terms p0 ..
+  // p0 + cnt - 1, all loaded before anything waits on them
+  pc.kfirst = keys[base];
+  pc.klast = keys[end - 1];
+  const int kbefore = base > 0 ? keys[base - 1] : -1;
+  const int kafter = end < m ? keys[end] : -1;
+  const int p0 = base + PER * t;
+  const int cnt = max(0, min(PER, end - p0));
+  int kk[PER], pp[PER];
 #pragma unroll
-  for (int c = 0; c < W_MAX; ++c) acc[c] = 0.f;
-  for (int j = j0 + t; j < j1; j += RED) {
-    const float* __restrict__ src = contrib + (size_t)perm[j] * w;
-#pragma unroll
-    for (int c = 0; c < W_MAX; ++c)
-      if (c < w) acc[c] += src[c];
+  for (int i = 0; i < PER; ++i) {
+    kk[i] = i < cnt ? keys[p0 + i] : -1;
+    pp[i] = i < cnt ? perm[p0 + i] : 0;
   }
-  float* __restrict__ out = n_blocks == 1 ? duni + (size_t)p * w
-                                          : partial + (size_t)k * w;
+  const int kprev = cnt > 0 && p0 > base ? keys[p0 - 1] : -1;
+  const int knext = cnt > 0 && p0 + cnt < end ? keys[p0 + cnt] : -1;
+  if (pc.kfirst >= p_rows) return;          // sorted: no row from here on
+  pc.lead = kbefore == pc.kfirst;
+  pc.trail = pc.klast < p_rows && kafter == pc.klast;
+  // s[i]: a run starts at term i inside the piece
+  bool s[PER];
 #pragma unroll
-  for (int c = 0; c < W_MAX; ++c) {
-    if (c >= w) break;
-    const float v = block_sum(acc[c], red);
-    if (t == 0) out[c] = v;
+  for (int i = 0; i < PER; ++i)
+    s[i] = i == 0 ? (cnt > 0 && (p0 == base || kprev != kk[0]))
+                  : (i < cnt && kk[i] != kk[i - 1]);
+  // the tail's run ends with this thread's last term; the thread's first
+  // run came from the thread before and ends inside this one (head)
+  const bool tail_ends = cnt > 0 && (p0 + cnt == end ||
+                                     knext != kk[cnt - 1]);
+  bool head = false, f = cnt == 0;
+#pragma unroll
+  for (int i = 1; i < PER; ++i) head = head || s[i];
+  head = head && !s[0];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) f = f || s[i];
+
+  // the segmented scan's flags: a run starts in lanes (lane - st, lane]
+  // before its step of distance st, and in [0, lane] after the last
+  int ktail = kk[0];
+#pragma unroll
+  for (int i = 1; i < PER; ++i) ktail = i < cnt ? kk[i] : ktail;
+  const unsigned fb = __ballot_sync(FULL, f);
+  bool gs[5];
+#pragma unroll
+  for (int q = 0; q < 5; ++q) {
+    const int lo = max(0, lane - (1 << q) + 1);
+    gs[q] = ((fb >> lo) & ((2u << (lane - lo)) - 1u)) != 0u;
   }
-  if (n_blocks == 1) return;
-  __threadfence();                          // the block sums, then count
-  if (t == 0) last = atomicAdd(done + p, 1) == n_blocks - 1;
+  const bool g = (fb & ((2u << lane) - 1u)) != 0u;
+  if (lane == 31) wflag[warp] = g;
+  bool wrote = false;                       // a partial slot, to fence
+  // COLS columns at a time: the thread's PER x COLS values loaded
+  // together and added run by run in term order (a head's sum waits in
+  // shared memory); the tails' segmented scan in each warp (lane l adds
+  // lane l - st's value before its own unless a run starts between), the
+  // warps' totals to shared memory; then the carry of the warps before and
+  // each run's sum where its last term lies
+  float v[PER][COLS];
+  load_terms(contrib, pp, cnt, w, 0, v);
+  // while they load, warp 0 finds the pieces of the runs that cross this
+  // one's ends: the lead run began in the first piece whose last key is
+  // its key; a run ends in the last piece whose first key is its key
+  const bool both = pc.lead && pc.trail && pc.klast == pc.kfirst;
+  const bool lead = pc.lead, trail = pc.trail && !both;
+  int k0 = k, k1a = k, k1b = k;
+  if (warp == 0) {
+    if (lead)
+      k0 = first_piece(keys, 0, k, PIECE - 1, pc.kfirst, false, false);
+    if (both)
+      k1a = first_piece(keys, k + 1, n_pieces, 0, pc.kfirst, true, true) - 1;
+    if (trail)
+      k1b = first_piece(keys, k + 1, n_pieces, 0, pc.klast, true, true) - 1;
+  }
+#pragma unroll 1
+  for (int c0 = 0; c0 < w; c0 += COLS) {
+    float tv[COLS];
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) {
+      const int c = c0 + j;
+      float acc = 0.f;
+      bool first = true;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        if (i >= cnt || c >= w) break;
+        if (i > 0 && s[i]) {                // the run before ends at i - 1
+          if (first && !s[0]) hsum[c][t] = acc;
+          else wrote |= put(pc, kk[i - 1], c, acc, partial, duni);
+          first = false;
+          acc = 0.f;
+        }
+        acc += v[i][j];
+      }
+      tv[j] = acc;
+    }
+    // the next columns' loads in flight across this chunk's scan and barrier
+    if (c0 + COLS < w) load_terms(contrib, pp, cnt, w, c0 + COLS, v);
+#pragma unroll
+    for (int q = 0; q < 5; ++q) {
+      const int st = 1 << q;
+#pragma unroll
+      for (int j = 0; j < COLS; ++j) {
+        if (c0 + j >= w) break;
+        const float up = __shfl_up_sync(FULL, tv[j], st);
+        if (lane >= st && !gs[q]) tv[j] = up + tv[j];
+      }
+    }
+    if (lane == 31) {
+#pragma unroll
+      for (int j = 0; j < COLS; ++j) wtot[warp][c0 + j] = tv[j];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) {
+      const int c = c0 + j;
+      if (c >= w) break;
+      float carry = wtot[0][c];
+      for (int q = 1; q < warp; ++q)
+        carry = wflag[q] ? wtot[q][c] : carry + wtot[q][c];
+      const float sum = (warp == 0 || g) ? tv[j] : carry + tv[j];
+      const float up = __shfl_up_sync(FULL, sum, 1);
+      const float prev = lane == 0 ? carry : up;   // thread t - 1's sum
+      if (tail_ends) wrote |= put(pc, ktail, c, sum, partial, duni);
+      if (head) wrote |= put(pc, kk[0], c, prev + hsum[c][t], partial, duni);
+    }
+  }
+  // the runs that cross a piece boundary: count this piece in (both runs'
+  // counters at once), and the last of a run's pieces adds its partials
+  if (wrote) __threadfence();
   __syncthreads();
-  if (!last) return;
+  if (warp != 0) return;
+  int arrived = -1;
+  if (lane == 0 && lead) arrived = atomicAdd(done + k0, 1);
+  if (lane == 1 && trail) arrived = atomicAdd(done + k, 1);
+  const bool last_a = lead && __shfl_sync(FULL, arrived, 0) == k1a - k0;
+  const bool last_b = trail && __shfl_sync(FULL, arrived, 1) == k1b - k;
+  if (!last_a && !last_b) return;
   __threadfence();
-  if (t < w) {
-    float sum = 0.f;
-    for (int i = 0; i < n_blocks; ++i)
-      sum += __ldcg(partial + (size_t)(b0 + i) * w + t);
-    duni[(size_t)p * w + t] = sum;
-  }
+  if (lane >= w) return;
+  if (last_a)
+    add_partials(partial, k0, k1a, w, lane,
+                 duni + (size_t)pc.kfirst * w + lane);
+  if (last_b)
+    add_partials(partial, k, k1b, w, lane,
+                 duni + (size_t)pc.klast * w + lane);
 }
 
 }  // namespace
@@ -469,20 +696,27 @@ extern "C" int fused_bounce_bwd_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch bwd_reduce on ``stream``: duni [p_rows, w], dlt [ltn]. The
-// sorted contributions are cut every ``piece``; max_blocks = p_rows +
-// (number of contributions) / piece bounds the blocks without reading
-// offs; partial [max_blocks, w] is scratch and done [p_rows] int32 zeros.
-extern "C" int bwd_reduce_launch(const float* contrib, const int* perm,
-                                 const int* offs, int p_rows, int w,
-                                 int piece, int max_blocks, float* partial,
-                                 int* done, const float* dlt_part,
-                                 int n_part, int ltn, float* duni,
+// Launch bwd_reduce on ``stream``: zero out (duni [p_rows, w], then done
+// [pieces] int32: one memset), then one block per PIECE of the m sorted
+// terms (keys, perm) and one per light-table entry, dlt [ltn] the sums of
+// dlt_part [n_part, ltn]. partial [pieces, 2, w] is scratch.
+extern "C" int bwd_reduce_launch(const float* contrib, const int* keys,
+                                 const int* perm, int m, int p_rows, int w,
+                                 float* partial, float* out,
+                                 const float* dlt_part, int n_part, int ltn,
                                  float* dlt, void* stream) {
-  if (w > W_MAX || w > RED || piece <= 0) return -1;
-  bwd_reduce_kernel<<<max_blocks + ltn, RED, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      contrib, perm, offs, p_rows, w, piece, max_blocks, partial, done,
-      dlt_part, n_part, ltn, duni, dlt);
+  if (w <= 0 || w > W_MAX || m < 0 || p_rows < 0) return -1;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_pieces = (m + PIECE - 1) / PIECE;
+  const size_t zeros = (size_t)p_rows * w + n_pieces;
+  if (zeros > 0) {
+    const cudaError_t e = cudaMemsetAsync(out, 0, zeros * sizeof(float), s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  int* done = reinterpret_cast<int*>(out + (size_t)p_rows * w);
+  if (n_pieces + ltn > 0)
+    bwd_reduce_kernel<<<n_pieces + ltn, RED, 0, s>>>(
+        contrib, keys, perm, m, p_rows, w, n_pieces, partial, done, dlt_part,
+        n_part, ltn, out, dlt);
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,7 +23,9 @@ Kernels (each wrapper counts its launches in ``launches``):
     of the bounce loop replayed from the residuals (replaces
     ``_make_trace_bwd_kernel``); ``bwd_reduce_kernel`` — the same file,
     the fixed-order sums of the winner-row and light-table cotangents
-    (the in-kernel accumulation of ``pallas_uber.py:979-1012``).
+    (the in-kernel accumulation of ``pallas_uber.py:979-1012``; plain
+    version ``ops/uber.bwd_reduce_plain``, its order replayed by
+    ``bwd_reduce_replay``).
     :func:`trace_backward` chains them; its plain version is
     ``ops/uber.trace_wave_bwd_plain``;
   * ``trace_wave_noise_kernel`` and ``trace_wave_bwd_noise_kernel`` — the
@@ -51,7 +53,8 @@ Kernels (each wrapper counts its launches in ``launches``):
     (``ops/gather.row_sums``, B');
   * the split route's kernels, ``csrc/split.cu`` (library ``split``):
     ``quad_search_kernel`` (TPU kernel O, ``pallas_quad.py`` ``_kernel``;
-    plain version ``ops/quad._quad_candidates``),
+    plain version ``ops/quad._quad_candidates``, its sweep replayed by
+    ``quad_sweep_replay``),
     ``hit_attrs_kernel`` (TPU kernel J, ``pallas_hit.py`` ``_kernel``;
     plain version ``ops/hit_core.hit_plane_core``) and
     ``shade_update_kernel`` (TPU kernel H, ``pallas_bounce.py``
@@ -118,12 +121,14 @@ from rust_ray_tracer_tpu_torch.ops.bounce import N_SU, N_SU_OUT
 from rust_ray_tracer_tpu_torch.ops.bounce_core import N_CHK, N_IN_B
 from rust_ray_tracer_tpu_torch.ops.hit_core import N_IN as HIT_IN
 from rust_ray_tracer_tpu_torch.ops.hit_core import N_OUT as HIT_OUT
+from rust_ray_tracer_tpu_torch.ops.quad import QUAD_ROW
 from rust_ray_tracer_tpu_torch.ops.search import (N_RAY, TRI_ROW, tile_count,
                                                   tri_only)
 from rust_ray_tracer_tpu_torch.ops.shade import N_OUT as SHADE_OUT
 from rust_ray_tracer_tpu_torch.ops.shade_core import LT_COLS, N_DATA, N_RNG
 from rust_ray_tracer_tpu_torch.ops.uber import (A_COL, N_RND, N_STATE, TCC,
-                                                PRIM_PACK, TILE, TRI_PACK)
+                                                PRIM_PACK, REDUCE_PIECE,
+                                                TILE, TRI_PACK)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -611,51 +616,54 @@ bounce_uber_bwd_kernel = FusedBounceBwdKernel()
 bounce_uber_bwd_noise_kernel = FusedBounceBwdNoiseKernel()
 
 
-PIECE = 1024     # contributions one reduction block sums at most
+W_MAX = 32       # columns B' takes
 
 
 class BwdReduceKernel(_Kernel):
-    """ctypes wrapper of ``bwd_reduce_launch``: duni [P, W] sums row p's
-    contributions in the order of ``perm`` (the segment
-    ``offs[p]:offs[p + 1]``), cut at the multiples of :data:`PIECE` of
-    that order into parts that separate blocks sum and the row's last
-    block adds in order; dlt [(n_lights + 1) * 14] sums the per-block
-    partials in block order. No float atomics: the sums are bitwise
-    repeatable."""
+    """ctypes wrapper of ``bwd_reduce_launch`` (B'): duni [P, W] with row
+    r the sum of the terms whose sorted key is r, from ``keys`` and
+    ``perm`` as :func:`reduce_order` returns them (a key >= P names no
+    row), and dlt [(n_lights + 1) * 14] the sums of the per-block
+    partials. One block per ``REDUCE_PIECE`` sorted terms, so the cost
+    follows the terms, not P; every row no term names is zero. The sums'
+    order is fixed by the positions alone (``ops/uber.bwd_reduce_replay``
+    replays it); no float atomics, so they repeat bit for bit."""
 
     name = "bwd_reduce"
     library = "trace_wave_bwd"
     entry = "bwd_reduce_launch"
-    argtypes = (_P,) * 3 + (_I,) * 4 + (_P,) * 3 + (_I,) * 2 + (_P,) * 2
+    argtypes = (_P,) * 3 + (_I,) * 3 + (_P,) * 3 + (_I,) * 2 + (_P,)
 
-    def __call__(self, contrib, perm, offs, part):
+    def __call__(self, contrib, keys, perm, p_rows: int, part):
         dev = contrib.device
         if dev.type != "cuda":
             raise ValueError(f"bwd_reduce kernel needs CUDA tensors, got "
                              f"{dev}")
         w = contrib.shape[-1]
-        if w > 32:
-            raise ValueError(f"{w} columns exceed the reduction's 32")
-        m = contrib.numel() // w
-        p_rows = offs.shape[0] - 1
+        if w > W_MAX:
+            raise ValueError(f"{w} columns exceed the reduction's {W_MAX}")
+        m = keys.numel()
         _check("contrib", contrib, dev)
+        if contrib.numel() != m * w:
+            raise ValueError(f"contrib holds {contrib.numel()} values, "
+                             f"expected {m} terms of {w}")
+        _check("keys", keys, dev, (m,), torch.int32)
         _check("perm", perm, dev, (m,), torch.int32)
-        _check("offs", offs, dev, (p_rows + 1,), torch.int32)
         _check("part", part, dev)
         n_part, ltn = part.shape
         self.load()
-        # row p takes offs[p+1] // PIECE - offs[p] // PIECE + 1 blocks, so
-        # all rows at most p_rows + m // PIECE: known without reading offs
-        max_blocks = p_rows + m // PIECE
-        partial = torch.empty((max_blocks, w), dtype=torch.float32,
+        pieces = -(-m // REDUCE_PIECE)
+        partial = torch.empty((pieces, 2, w), dtype=torch.float32,
                               device=dev)
-        done = torch.zeros((p_rows,), dtype=torch.int32, device=dev)
-        duni = torch.empty((p_rows, w), dtype=torch.float32, device=dev)
+        # duni, then the pieces' int32 counters: the launch zeroes both
+        # with one memset
+        out = torch.empty((p_rows * w + pieces,), dtype=torch.float32,
+                          device=dev)
         dlt = torch.empty((ltn,), dtype=torch.float32, device=dev)
-        self._launch(dev, _ptr(contrib), _ptr(perm), _ptr(offs), p_rows, w,
-                     PIECE, max_blocks, _ptr(partial), _ptr(done),
-                     _ptr(part), n_part, ltn, _ptr(duni), _ptr(dlt))
-        return duni, dlt
+        self._launch(dev, _ptr(contrib), _ptr(keys), _ptr(perm), m, p_rows,
+                     w, _ptr(partial), _ptr(out), _ptr(part), n_part, ltn,
+                     _ptr(dlt))
+        return out[:p_rows * w].view(p_rows, w), dlt
 
 
 trace_wave_bwd_kernel = TraceWaveBwdKernel()
@@ -678,8 +686,10 @@ class QuadSearchKernel(_Kernel):
     argtypes = (_P,) * 4 + (_I,) * 3 + (_P, _P)
 
     def __call__(self, rays, quads, cl_min, cl_max):
-        """``rays`` [N, 8] (o, d, tmin, tmax), ``quads`` [Q, 9] (q, u, v),
-        the cluster boxes ``cl_min`` / ``cl_max`` [ceil(Q / 128), 3]."""
+        """``rays`` [N, 8] (o, d, tmin, tmax), ``quads`` [Q, 16]
+        (``ops/quad.quad_table``: q, u, v, n, 1 / |n|^2, zeros), the
+        cluster boxes ``cl_min`` / ``cl_max`` [ceil(Q / 128), 3]; rays
+        and quads 16-byte aligned."""
         dev = rays.device
         if dev.type != "cuda":
             raise ValueError(f"quad_search kernel needs CUDA tensors, got "
@@ -689,9 +699,11 @@ class QuadSearchKernel(_Kernel):
         if q == 0:
             raise ValueError("quad_search needs at least one quad")
         _check("rays", rays, dev, (n, 8))
-        _check("quads", quads, dev, (q, 9))
+        _check("quads", quads, dev, (q, QUAD_ROW))
         _check("cl_min", cl_min, dev, (k, 3))
         _check("cl_max", cl_max, dev, (k, 3))
+        if rays.data_ptr() % 16 or quads.data_ptr() % 16:
+            raise ValueError("rays and quads must be 16-byte aligned")
         self.load()
         best_t = torch.empty((n,), dtype=torch.float32, device=dev)
         best_i = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -838,9 +850,8 @@ def _light_sum(part, lt):
     if part.numel() == 0:
         return torch.zeros_like(lt)
     rows = torch.empty((0, 1), dtype=torch.float32, device=dev)
-    order = torch.empty((0,), dtype=torch.int32, device=dev)
-    offs = torch.zeros((1,), dtype=torch.int32, device=dev)
-    _, dlt = bwd_reduce_kernel(rows, order, offs, part)
+    none = torch.empty((0,), dtype=torch.int32, device=dev)
+    _, dlt = bwd_reduce_kernel(rows, none, none, 0, part)
     return dlt.reshape(lt.shape)
 
 
@@ -1327,15 +1338,13 @@ def fused_bounce_bwd_kernel(ctx) -> FusedBounceBwdKernel:
             else bounce_uber_bwd_kernel)
 
 
-def reduce_order(keys: torch.Tensor, p_rows: int):
-    """(perm int32, offs int32 [p_rows + 1]): the (bounce, ray) pairs in
-    the stable order of their winner rows, and each row's segment. Sorting
-    integers is exact, so the order is the same in every run."""
+def reduce_order(keys: torch.Tensor):
+    """(sorted keys int32, perm int32): the (bounce, ray) pairs' row keys
+    in stable sorted order and each one's position. Sorting integers is
+    exact, so the order is the same in every run; ``bwd_reduce_kernel``
+    finds each row's run itself."""
     sorted_keys, perm = torch.sort(keys.reshape(-1), stable=True)
-    offs = torch.searchsorted(
-        sorted_keys, torch.arange(p_rows + 1, dtype=torch.int32,
-                                  device=keys.device))
-    return perm.to(torch.int32), offs.to(torch.int32)
+    return sorted_keys.to(torch.int32), perm.to(torch.int32)
 
 
 def trace_backward(hist, rnd, kind, idx, ctx, g):
@@ -1345,8 +1354,9 @@ def trace_backward(hist, rnd, kind, idx, ctx, g):
     ``ops.uber.trace_wave_bwd_plain``."""
     dst, contrib, keys, part = trace_bwd_kernel(ctx)(hist, rnd, kind, idx,
                                                     ctx, g)
-    perm, offs = reduce_order(keys, ctx.uni.shape[0])
-    duni, dlt = bwd_reduce_kernel(contrib, perm, offs, part)
+    skeys, perm = reduce_order(keys)
+    duni, dlt = bwd_reduce_kernel(contrib, skeys, perm, ctx.uni.shape[0],
+                                  part)
     return dst, duni, dlt.reshape(ctx.lt.shape)
 
 
@@ -1357,6 +1367,7 @@ def fused_bounce_backward(st, rnd_b, kind, idx, ctx, g):
     ``ops.uber.fused_bounce_bwd_plain``."""
     dst, contrib, keys, part = fused_bounce_bwd_kernel(ctx)(
         st, rnd_b, kind, idx, ctx, g)
-    perm, offs = reduce_order(keys, ctx.uni.shape[0])
-    duni, dlt = bwd_reduce_kernel(contrib, perm, offs, part)
+    skeys, perm = reduce_order(keys)
+    duni, dlt = bwd_reduce_kernel(contrib, skeys, perm, ctx.uni.shape[0],
+                                  part)
     return dst, duni, dlt.reshape(ctx.lt.shape)

@@ -11,9 +11,10 @@ final_scene training step on an H100 (PERF.md). :func:`rows` runs
 the backward through the port's own fixed-order reduction instead:
 ``kernels.reduce_order`` (a stable sort of the row ids) and
 ``bwd_reduce_kernel`` (B', which also sums kernel B's winner-row
-cotangents), which cuts a long run into pieces summed by separate blocks
-and adds the pieces in order. No float atomics: the gradients repeat bit
-for bit. On the CPU the backward is ``index_add_``.
+cotangents), one block per 1024 sorted terms whatever the table's size;
+a run that crosses blocks is summed as partials added in block order. No
+float atomics: the gradients repeat bit for bit. On the CPU the backward
+is ``index_add_``.
 """
 
 from __future__ import annotations
@@ -34,8 +35,8 @@ def row_sums(g, idx, n_rows: int):
         raise ValueError(f"unsupported device {g.device}")
     from rust_ray_tracer_tpu_torch.kernels import (bwd_reduce_kernel,
                                                    reduce_order)
-    perm, offs = reduce_order(idx.to(torch.int32), n_rows)
-    sums, _ = bwd_reduce_kernel(g.contiguous(), perm, offs,
+    keys, perm = reduce_order(idx.to(torch.int32))
+    sums, _ = bwd_reduce_kernel(g.contiguous(), keys, perm, n_rows,
                                 torch.empty((0, 0), dtype=g.dtype,
                                             device=g.device))
     return sums

@@ -514,21 +514,158 @@ def trace_wave_bwd_plain(hist, rnd, kind, idx, ctx: TraceCtx, g):
     return dst, duni, dlt
 
 
-def bwd_reduce_plain(contrib, perm, offs, part):
+def bwd_reduce_plain(contrib, keys, perm, p_rows: int, part):
     """Plain version of ``bwd_reduce`` (``csrc/trace_wave_bwd.cu``): duni
-    [P, W] with row p the sum of the contributions ``perm[offs[p]:offs[p +
-    1]]`` of ``contrib`` [..., W], and dlt [(n_lights + 1) * 14] the sum of
-    the per-block partials ``part``."""
+    [P, W] with row r the sum of the terms ``contrib.reshape(-1, W)[perm[
+    j]]`` whose sorted key ``keys[j]`` is r (a key >= P names no row), and
+    dlt [(n_lights + 1) * 14] the sum of the per-block partials ``part``;
+    ``keys`` and ``perm`` as ``kernels.reduce_order`` returns them."""
     w = contrib.shape[-1]
-    p_rows = offs.shape[0] - 1
-    m = int(offs[-1])
-    rows = torch.repeat_interleave(
-        torch.arange(p_rows, device=contrib.device),
-        (offs[1:] - offs[:-1]).long())
+    found = keys < p_rows
     duni = torch.zeros((p_rows, w), dtype=contrib.dtype,
                        device=contrib.device)
-    duni.index_add_(0, rows, contrib.reshape(-1, w)[perm[:m].long()])
+    duni.index_add_(0, keys[found].long(),
+                    contrib.reshape(-1, w)[perm[found].long()])
     return duni, part.sum(dim=0)
+
+
+REDUCE_PIECE = 1024     # sorted terms a block of B' sums (csrc PIECE)
+REDUCE_THREADS = 256    # threads of a block of B' (csrc RED)
+_PER = REDUCE_PIECE // REDUCE_THREADS
+_WARP = 32
+
+
+def bwd_reduce_replay(contrib, keys, perm, p_rows: int, part):
+    """What ``bwd_reduce_kernel`` computes, in its order of operations, as
+    torch ops on any device (float32 adds, so the kernel's sums equal it
+    bit for bit): the sorted terms cut into pieces of
+    :data:`REDUCE_PIECE`; in a piece thread t adds each run of equal keys
+    among its terms 4t .. 4t + 3 from 0, left to right; the threads' last
+    runs go through a segmented Hillis-Steele scan in each warp of 32
+    (lane l takes lane l - s's value before its own, s = 1, 2, 4, 8, 16,
+    unless a run starts between them), then the carry of the warps before
+    in warp order; a thread's first run that came from the thread before
+    is thread t - 1's scanned sum plus its own; a run that crosses pieces
+    is its first piece's partial plus the next pieces' in piece order. The
+    light table: thread t adds the partials' rows t, t + 256, ... from 0,
+    then a tree (t += t + s for s = 128, 64, ..., 1). Arguments and
+    results as :func:`bwd_reduce_plain`."""
+    w = contrib.shape[-1]
+    dev = contrib.device
+    m = keys.numel()
+    duni = torch.zeros((p_rows, w), dtype=torch.float32, device=dev)
+    dlt = _light_sum_replay(part)
+    if m == 0:
+        return duni, dlt
+    pieces = -(-m // REDUCE_PIECE)
+    n_thr = pieces * REDUCE_THREADS
+    key = keys.long()
+    val = contrib.reshape(-1, w)[perm.long()]
+    # each thread's terms [T, PER] (masked past m), its first term p0
+    p0 = torch.arange(n_thr, device=dev) * _PER
+    cnt = (m - p0).clamp(0, _PER)
+    pos = (p0[:, None] + torch.arange(_PER, device=dev)).clamp(max=m - 1)
+    kk, vv = key[pos], val[pos]
+    act = torch.arange(_PER, device=dev) < cnt[:, None]
+    base = p0 // REDUCE_PIECE * REDUCE_PIECE
+    prev = key[(p0 - 1).clamp(0, m - 1)]
+    s = torch.zeros_like(act)
+    s[:, 0] = act[:, 0] & ((p0 == base) | (prev != kk[:, 0]))
+    s[:, 1:] = act[:, 1:] & (kk[:, 1:] != kk[:, :-1])
+    end = torch.minimum(base + REDUCE_PIECE, torch.full_like(base, m))
+    last = (p0 + cnt - 1).clamp(0, m - 1)
+    nxt = key[(p0 + cnt).clamp(max=m - 1)]
+    tail_ends = (cnt > 0) & ((p0 + cnt == end) | (nxt != key[last]))
+    head = s[:, 1:].any(1) & ~s[:, 0]
+    f = s.any(1) | (cnt == 0)
+    # the thread-local runs; a run ending inside a thread is written as
+    # (key, value), unless it is the head, kept for after the scan
+    writes = []
+    acc = torch.zeros((n_thr, w), dtype=torch.float32, device=dev)
+    hv = torch.zeros_like(acc)
+    first = torch.ones(n_thr, dtype=torch.bool, device=dev)
+    for i in range(_PER):
+        if i > 0:
+            b = s[:, i]
+            keep = b & first & ~s[:, 0]
+            hv = torch.where(keep[:, None], acc, hv)
+            out = b & ~(first & ~s[:, 0])
+            writes.append((out, kk[:, i - 1], acc))
+            first = first & ~b
+            acc = torch.where(b[:, None], torch.zeros_like(acc), acc)
+        acc = torch.where(act[:, i, None], acc + vv[:, i], acc)
+    # the warps' segmented scan of the tails, then the warps' carries
+    tv = acc.reshape(pieces, REDUCE_THREADS // _WARP, _WARP, w)
+    g = f.reshape(pieces, REDUCE_THREADS // _WARP, _WARP)
+    lane = torch.arange(_WARP, device=dev)[None, None, :]
+    for st in (1, 2, 4, 8, 16):
+        up = torch.roll(tv, st, dims=2)
+        gu = torch.roll(g, st, dims=2)
+        on = lane >= st
+        tv = torch.where((on & ~g)[..., None], up + tv, tv)
+        g = g | (on & gu)
+    n_warps = REDUCE_THREADS // _WARP
+    carry = torch.zeros((pieces, n_warps, w), dtype=torch.float32,
+                        device=dev)
+    carry[:, 0] = carry[:, 1] = tv[:, 0, _WARP - 1]
+    for j in range(1, n_warps - 1):
+        carry[:, j + 1] = torch.where(g[:, j, _WARP - 1, None],
+                                      tv[:, j, _WARP - 1],
+                                      carry[:, j] + tv[:, j, _WARP - 1])
+    warp0 = torch.arange(n_warps, device=dev)[None, :, None] == 0
+    ssum = torch.where((warp0 | g)[..., None], tv, carry[:, :, None] + tv)
+    sprev = torch.roll(ssum, 1, dims=2)
+    sprev[:, :, 0] = carry
+    ssum = ssum.reshape(n_thr, w)
+    sprev = sprev.reshape(n_thr, w)
+    writes.append((tail_ends, key[last], ssum))
+    writes.append((head, kk[:, 0], sprev + hv))
+    # each piece's first run began before it (lead), its last goes on
+    # (trail): their sums go to the piece's partial slots 0 and 1
+    pb = torch.arange(pieces, device=dev) * REDUCE_PIECE
+    pe = torch.minimum(pb + REDUCE_PIECE, torch.full_like(pb, m))
+    kfirst, klast = key[pb], key[pe - 1]
+    lead = (pb > 0) & (key[(pb - 1).clamp(min=0)] == kfirst)
+    trail = (pe < m) & (klast < p_rows) & (key[pe.clamp(max=m - 1)] == klast)
+    partial = torch.zeros((pieces, 2, w), dtype=torch.float32, device=dev)
+    piece = torch.arange(n_thr, device=dev) // REDUCE_THREADS
+    for on, r, v in writes:
+        on = on & (r < p_rows)
+        to0 = on & lead[piece] & (r == kfirst[piece])
+        to1 = on & ~to0 & trail[piece] & (r == klast[piece])
+        inside = on & ~to0 & ~to1
+        duni[r[inside]] = v[inside]
+        partial[piece[to0], 0] = v[to0]
+        partial[piece[to1], 1] = v[to1]
+    # the runs that cross pieces: first piece's slot 1, then slot 0s
+    starts = trail & ~(lead & (klast == kfirst))
+    for q in torch.nonzero(starts).flatten().tolist():
+        r = int(klast[q])
+        q1 = q + 1
+        while q1 + 1 < pieces and bool(lead[q1 + 1]) and \
+                int(kfirst[q1 + 1]) == r:
+            q1 += 1
+        total = partial[q, 1]
+        for q_ in range(q + 1, q1 + 1):
+            total = total + partial[q_, 0]
+        duni[r] = total
+    return duni, dlt
+
+
+def _light_sum_replay(part):
+    """``bwd_reduce_kernel``'s light-table sums of ``part`` [n_part, ltn]
+    in its order (:func:`bwd_reduce_replay`)."""
+    n_part, ltn = part.shape
+    acc = torch.zeros((REDUCE_THREADS, ltn), dtype=torch.float32,
+                      device=part.device)
+    for j0 in range(0, n_part, REDUCE_THREADS):
+        rows = part[j0:j0 + REDUCE_THREADS]
+        acc[:rows.shape[0]] = acc[:rows.shape[0]] + rows
+    h = REDUCE_THREADS // 2
+    while h > 0:
+        acc[:h] = acc[:h] + acc[h:2 * h]
+        h //= 2
+    return acc[0].clone()
 
 
 def _trace_forward(st0, rnd, ctx: TraceCtx, depth: int, residuals: bool):

@@ -51,8 +51,21 @@ check scene's wave 0 (``torch_parity.random_tris``), K's and M's on the
 9-light glTF flagship's (``write_gltf_flagship``), and L's and M's in a
 one-wave render.
 
+``final``: final_scene's wave 0 on the split route: kernel O on each
+bounce's recorded call (live rays, ms out of L2 and in a loop, in a
+one-wave render; where the tree has ``ops/quad.quad_sweep_replay``, the
+tests by stage, per warp and per ray, and the bound by stage), and B' on
+each row sum and light-table sum of a one-wave training step, out of L2
+and in a loop, beside ``index_add_`` on the same row sums. ``earth``:
+the same B' times on random with a procedural 1024x512 earth map (the
+atlas's 524,288 texel rows among the tables). ``bwd``: B' on the
+flagship's kernel-B sums of one wave, beside ``index_add_``. B' is called
+through the tree's own interface (sorted keys and order, or an older
+tree's order and row offsets), its sort outside the timed call.
+
 ``--save`` writes A's final states and winners, E's winners and M's
-winners of each mesh bounce to a ``.pt`` file; ``--compare a.pt b.pt
+winners of each mesh bounce (and O's of each final_scene bounce) to a
+``.pt`` file; ``--compare a.pt b.pt
 ...`` then prints, for each file after the first, whether each of those
 tensors equals the first file's bit for bit. Needs one CUDA card,
 imports no JAX.
@@ -62,6 +75,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import json
 import math
 import os
@@ -525,6 +539,229 @@ def mesh_report(dev, save=None, label="", check=False):
     return out
 
 
+# fp32 operations of kernel O's quad test by stage (csrc/split.cu, as
+# chip_smoke's OPS_QUAD_T and OPS_QUAD_IN): t's dots and division on
+# every test; the point, alpha, beta and their compares where t can win
+OPS_O_T, OPS_O_AB = 21, 43
+
+
+def _reduce_call(g, idx, n_rows, part=None):
+    """A callable of the tree's B' (``bwd_reduce_kernel``) on one row sum
+    (cotangents ``g`` [N, W] into ``n_rows`` rows by ``idx`` [N]), its
+    sort done here, once: the (sorted keys, perm) interface, or the
+    (perm, offsets) one of trees before it."""
+    part = (torch.empty((0, 0), device=g.device) if part is None else part)
+    idx32 = idx.to(torch.int32)
+    if "p_rows" in inspect.signature(K.bwd_reduce_kernel.__call__).parameters:
+        args = (g.contiguous(),) + K.reduce_order(idx32) + (n_rows, part)
+    else:
+        args = (g.contiguous(),) + K.reduce_order(idx32, n_rows) + (part,)
+    return lambda: K.bwd_reduce_kernel(*args)
+
+
+def step_sums(scene, key):
+    """The row sums (``ops/gather.row_sums``: cotangents, row ids, rows)
+    and the light-table partials B' sums (``kernels._light_sum``) of a
+    one-wave training step of ``scene`` (``bench.py``'s loss), recorded."""
+    from rust_ray_tracer_tpu_torch.models.scene import combine, partition
+    from rust_ray_tracer_tpu_torch.ops import gather
+
+    params, static = partition(scene)
+    sums, parts = [], []
+    real_rs, real_ls = gather.row_sums, K._light_sum
+
+    def rs(g, idx, n_rows):
+        sums.append((g, idx, n_rows))
+        return real_rs(g, idx, n_rows)
+
+    def ls(part, lt):
+        parts.append(part)
+        return real_ls(part, lt)
+
+    gather.row_sums, K._light_sum = rs, ls
+    try:
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        render_waves(combine(leaves, static), WIDTH, HEIGHT, key, 0, 1,
+                     depth=DEPTH, chunk_size=CHUNK).mean().backward()
+        torch.cuda.synchronize()
+    finally:
+        gather.row_sums, K._light_sum = real_rs, real_ls
+    return sums, parts
+
+
+def reduce_report(sums, parts):
+    """B' out of L2 and in a loop on each recorded row sum and light sum
+    of one wave, beside ``index_add_`` into a zeroed table (the library
+    call for the same function; ``sum(0)`` on a light sum): the calls'
+    sums (ms a wave), their mean (ms a launch) and the largest table's
+    call apart; and the row sums' kernel time back to back under the
+    profiler, with the memsets and fills apart."""
+    red, lib, big = [], [], None
+    with torch.no_grad():
+        for g, idx, n_rows in sums:
+            r = times(_reduce_call(g, idx, n_rows))
+            li = times(lambda g=g, idx=idx, n=n_rows: torch.zeros(
+                (n, g.shape[1]), device=g.device).index_add_(0, idx, g))
+            red.append(r)
+            lib.append(li)
+            if big is None or n_rows > big["rows"]:
+                big = {"rows": n_rows, "terms": int(idx.numel()),
+                       "width": int(g.shape[1]), "ms": r, "index_add_ms": li}
+        for part in parts:
+            red.append(times(lambda p=part: K._light_sum(
+                p, torch.empty((1, p.shape[1]), device=p.device))))
+            lib.append(times(lambda p=part: p.sum(0)))
+
+    def total(xs, k):
+        return sum(x[k] for x in xs)
+
+    # every row sum once, back to back (each call's inputs cold: they
+    # outgrow the L2 together), the profiler's device time of B''s kernel
+    # and of the rest (memsets, fills) the calls launch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = [_reduce_call(g, idx, n_rows) for g, idx, n_rows in sums]
+    with torch.no_grad():
+        for c in calls:
+            c()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for c in calls:
+                c()
+            torch.cuda.synchronize()
+    dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = [e.time_range.elapsed_us() / 1e3 for e in dev_ev
+            if "bwd_reduce_kernel" in e.name]
+    rest = sum(e.time_range.elapsed_us() / 1e3 for e in dev_ev
+               if "bwd_reduce_kernel" not in e.name)
+
+    return {"row_sums": len(sums), "light_sums": len(parts),
+            "ms_a_wave": {k: total(red, k) for k in ("cold", "loop")},
+            "ms_a_launch": {k: total(red, k) / len(red)
+                            for k in ("cold", "loop")},
+            "index_add_ms_a_wave": {k: total(lib, k)
+                                    for k in ("cold", "loop")},
+            "index_add_ms_a_launch": {k: total(lib, k) / len(lib)
+                                      for k in ("cold", "loop")},
+            "largest_table_call": big,
+            "row_sums_back_to_back": {
+                "kernel_ms": sum(kern), "launches": len(kern),
+                "other_device_ms": rest},
+            "bytes_a_wave": sum((g.numel() + 2 * idx.numel()
+                                 + n_rows * g.shape[1]) * 4
+                                for g, idx, n_rows in sums)
+            + sum((p.numel() + p.shape[1]) * 4 for p in parts)}
+
+
+def quad_report(scene, key, save=None, label="final"):
+    """Kernel O on each bounce's recorded call of wave 0 of ``scene``: the
+    live rays, its ms out of L2 and in a loop (and its staged variant's,
+    where the tree has one), its work by stage where the tree has
+    ``ops/quad.quad_sweep_replay`` (t for every test the per-warp cull
+    makes and for the per-ray cull's, alpha and beta where t can win) and
+    the bound by stage, and its ms in a one-wave render."""
+    from rust_ray_tracer_tpu_torch.ops import quad as quad_ops
+
+    def render():
+        with torch.no_grad():
+            return render_waves(scene, WIDTH, HEIGHT, key, 0, 1, depth=DEPTH,
+                                chunk_size=CHUNK)
+
+    render()
+    with _parity().split_recorder() as rec:
+        render()
+    torch.cuda.synchronize()
+    k = K.quad_search_kernel
+    tab = quad_ops.quad_table(scene)
+    lo = scene.quad_cluster_min.contiguous()
+    hi = scene.quad_cluster_max.contiguous()
+    out = {"quads": scene.n_quads, "clusters": lo.shape[0],
+           "in_path_ms": device_ms_in_order(render, "quad_search_kernel"),
+           "bounces": []}
+    for b, (_, o, d, t_min, t_max) in enumerate(c[:5] for c in rec["quad"]):
+        rays = torch.cat([o, d, t_min[:, None], t_max[:, None]],
+                         1).contiguous()
+        with torch.no_grad():
+            bt, bi = k(rays, tab, lo, hi)
+            row = {"bounce": b, "rays": rays.shape[0],
+                   "live_rays": int((t_max > t_min).sum()),
+                   "ms": times(lambda: k(rays, tab, lo, hi))}
+            if hasattr(quad_ops, "quad_sweep_replay"):
+                rt, ri, work = quad_ops.quad_sweep_replay(rays, tab, lo, hi)
+                ops = (work["ray_tests"] * OPS_O_T
+                       + work["ray_ab_tests"] * OPS_O_AB)
+                nbytes = (rays.numel() + 2 * rays.shape[0] + tab.numel()
+                          + 2 * lo.numel()) * 4
+                row.update(work, ops=ops, bytes=nbytes,
+                           bound_ms=max(ops / 67e12, nbytes / 3.35e12) * 1e3,
+                           replay_differing=int(((ri != bi.long())
+                                                 | (rt != bt)).sum()))
+        if save is not None:
+            save[f"{label}.quad{b}.t"] = bt.cpu()
+            save[f"{label}.quad{b}.i"] = bi.cpu()
+        out["bounces"].append(row)
+    return out
+
+
+def final_report(dev, save=None):
+    """final_scene (the split route: O for the quads, the glue's row sums
+    by B'): :func:`quad_report` and B' on a one-wave training step's row
+    and light sums (:func:`reduce_report`)."""
+    scene = compile_scene(builders.final_scene(WIDTH / HEIGHT), device=dev)
+    key = rng.key(0, dev)
+    out = {"quad_search": quad_report(scene, key, save)}
+    out["bwd_reduce"] = reduce_report(*step_sums(scene, key))
+    return out
+
+
+def earth_report(dev):
+    """random with a procedural 1024x512 earth map (the split route: the
+    atlas's 524,288 texel rows among the row sums): B' on a one-wave
+    training step's row and light sums (:func:`reduce_report`)."""
+    tp = _parity()
+    prev = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        tp.write_earth_map(tmp, 1024, 512)
+        os.chdir(tmp)
+        try:
+            scene = compile_scene(builders.random_scene(WIDTH / HEIGHT),
+                                  device=dev)
+            sums, parts = step_sums(scene, rng.key(0, dev))
+        finally:
+            os.chdir(prev)
+    return {"atlas_rows": int(scene.img_data.shape[0]),
+            "bwd_reduce": reduce_report(sums, parts)}
+
+
+def bwd_report(dev):
+    """B' on the flagship's sums of one wave's backward (kernel B's
+    winner-row cotangents and light-table partials, a seeded cotangent),
+    beside ``index_add_`` of the same found rows."""
+    scene = compile_scene(builders.procedural_flagship(), device=dev)
+    key = rng.key(0, dev)
+    ctx = uber.make_ctx(scene)
+    st0, rnd = uber.wave_inputs(scene, rng.wave_key(key, 0), WIDTH, HEIGHT,
+                                DEPTH, CHUNK)
+    a, b = K.trace_kernel(ctx), K.trace_bwd_kernel(ctx)
+    g = torch.randn(st0.shape, generator=torch.Generator(dev).manual_seed(5),
+                    device=dev)
+    with torch.no_grad():
+        _, hist, kind, idx = a(st0, rnd, ctx, DEPTH, residuals=True)
+        _, contrib, keys, part = b(hist, rnd, kind, idx, ctx, g)
+    p_rows, w = ctx.uni.shape
+    found = keys.reshape(-1) < p_rows
+    rows = keys.reshape(-1)[found].long()
+    terms = contrib.reshape(-1, w)[found]
+    call = _reduce_call(contrib.reshape(-1, w), keys.reshape(-1), p_rows,
+                        part)
+    return {"terms": int(found.numel()), "found": int(found.sum()),
+            "width": w, "rows": p_rows, "ms": times(call),
+            "index_add_ms": times(lambda: torch.zeros_like(
+                ctx.uni).index_add_(0, rows, terms))}
+
+
 def compare(paths):
     first = torch.load(paths[0])
     for p in paths[1:]:
@@ -546,7 +783,7 @@ def main(argv=None) -> int:
     ap.add_argument("--compare", nargs="+")
     ap.add_argument("--scenes", default="flagship,random,mesh,tri,gltf",
                     help="comma-separated parts: flagship, random, mesh, "
-                         "tri, gltf")
+                         "tri, gltf, final, earth, bwd")
     ap.add_argument("--check", action="store_true",
                     help="hold M's winners on every mesh bounce against "
                          "the plain version")
@@ -567,7 +804,8 @@ def main(argv=None) -> int:
     res = {"label": args.label, "card": smi,
            "trace_wave_flags": list(K.LIBRARIES["trace_wave"][1]),
            "ptxas": {n: ptxas_report(builds[n].log)
-                     for n in ("trace_wave", "trace_wave_noise", "search")}}
+                     for n in ("trace_wave", "trace_wave_noise", "search",
+                               "trace_wave_bwd", "split")}}
     if "flagship" in parts:
         res["flagship"] = scene_times(
             "flagship", builders.procedural_flagship, dev, save)
@@ -582,6 +820,12 @@ def main(argv=None) -> int:
     if "gltf" in parts:
         res["gltf9"] = wave_report(gltf9_scene(dev), K.fused_search_kernel,
                                    "search")
+    if "final" in parts:
+        res["final"] = final_report(dev, save)
+    if "earth" in parts:
+        res["earth"] = earth_report(dev)
+    if "bwd" in parts:
+        res["bwd"] = bwd_report(dev)
     res["sms"] = torch.cuda.get_device_properties(dev).multi_processor_count
     res["grid_blocks"] = math.ceil(WIDTH * HEIGHT / ROW)
     line = json.dumps(res)

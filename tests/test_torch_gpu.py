@@ -169,7 +169,7 @@ def test_bwd_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         i32 = torch.int32
         bwd_reduce_kernel(torch.zeros(4, 17), torch.zeros(4, dtype=i32),
-                          torch.zeros(3, dtype=i32), torch.zeros(8, 28))
+                          torch.zeros(4, dtype=i32), 3, torch.zeros(8, 28))
     assert (trace_wave_bwd_kernel.launches,
             bwd_reduce_kernel.launches) == before
 
@@ -388,7 +388,7 @@ def test_split_wrappers_refuse_cpu_tensors():
     ts = torch_scene("fog")
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         quad_search_kernel(torch.cat([P[0:6], P[7:9]]).T.contiguous(),
-                           torch.zeros(8, 9), ts.quad_cluster_min,
+                           torch.zeros(8, 16), ts.quad_cluster_min,
                            ts.quad_cluster_max)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         hit_attrs_kernel(*x["hit"])
@@ -593,13 +593,15 @@ def test_render_waves_split_route_grads_on_card(cuda):
 def test_row_sums_on_card(cuda):
     """``ops/gather.row_sums`` on the card (``reduce_order`` +
     ``bwd_reduce_kernel``) on 147,456 rows, 100,000 of them into row 0 (a
-    wave's miss lanes), the same bits twice, and against a float64 sum
-    within 1e-5 of the sum of the terms' magnitudes: the fixed order
-    rounds each term at most ~110 times (4 a thread, an 8-level tree, ~100
-    pieces in turn), 6.6e-6 at float32's 6e-8. (Against the CPU's float32
-    ``index_add_``, which adds in series, it differed by 8e-4 on row 0's
-    sum of 43, whose terms' magnitudes add to ~80,000: cancellation, not a
-    bound for either order; measured on the H100.)"""
+    wave's miss lanes): equal bit for bit to ``ops/uber.
+    bwd_reduce_replay`` (the kernel's order of operations on the host),
+    the same bits twice, and against a float64 sum within 1e-5 of the sum
+    of the terms' magnitudes: the fixed order rounds each term at most
+    ~120 times (4 in its thread, 5 scan steps, 8 warps, ~100 pieces in
+    turn), 7e-6 at float32's 6e-8. (Against the CPU's float32
+    ``index_add_``, which adds in series, an earlier order differed by
+    8e-4 on row 0's sum of 43, whose terms' magnitudes add to ~80,000:
+    cancellation, not a bound for either order; measured on the H100.)"""
     from rust_ray_tracer_tpu_torch.ops import gather
 
     r = np.random.default_rng(3)
@@ -612,11 +614,144 @@ def test_row_sums_on_card(cuda):
     torch.cuda.synchronize()
     assert bwd_reduce_kernel.launches - before == 2
     assert torch.equal(got, again)
+    keys, perm = K.reduce_order(idx.to(torch.int32))
+    replay = uber.bwd_reduce_replay(g, keys, perm, 256,
+                                    torch.zeros((0, 0)))[0]
+    assert torch.equal(got.cpu(), replay)
     g64 = g.double()
     ref = torch.zeros(256, 3, dtype=torch.float64).index_add_(0, idx, g64)
     mag = torch.zeros(256, 3, dtype=torch.float64).index_add_(0, idx,
                                                               g64.abs())
     assert bool(((got.cpu().double() - ref).abs() <= 1e-5 * mag).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [1, 3, 17, 32])
+def test_bwd_reduce_atlas_on_card(w, cuda):
+    """B' on an atlas-sized table (524,288 rows, the earth map's) whose
+    147,456 terms go to ~80 rows, with keys past the table (rays that found
+    no row) and a light table of partials: duni and dlt equal to the
+    host's replay bit for bit, twice, and every other row exactly zero."""
+    r = np.random.default_rng(11)
+    rows = r.choice(524_288 - 1, size=79, replace=False).tolist()
+    rows.append(524_287)                        # the last row
+    keys = np.asarray(rows)[np.minimum(r.geometric(0.05, size=147_456) - 1,
+                                       79)]
+    keys[r.random(keys.size) < 0.2] = 524_288   # no row
+    k = torch.from_numpy(keys.astype(np.int32))
+    contrib = torch.from_numpy(r.normal(size=(keys.size, w))
+                               .astype(np.float32))
+    part = torch.from_numpy(r.normal(size=(1152, 28)).astype(np.float32))
+    skeys, perm = K.reduce_order(k)
+    want = uber.bwd_reduce_replay(contrib, skeys, perm, 524_288, part)
+    args = (contrib.to(cuda), skeys.to(cuda), perm.to(cuda), 524_288,
+            part.to(cuda))
+    before = bwd_reduce_kernel.launches
+    got = bwd_reduce_kernel(*args)
+    again = bwd_reduce_kernel(*args)
+    torch.cuda.synchronize()
+    assert bwd_reduce_kernel.launches - before == 2
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    named = torch.zeros(524_288, dtype=torch.bool)
+    named[rows] = True
+    assert bool((got[0].cpu()[~named] == 0).all())
+
+
+def quad_cases(device="cpu"):
+    """Kernel O's edge cases: a scene-like table of 300 unit quads in 3
+    clusters and 333 rays (not a multiple of 32 or 128), as (scene with
+    ``quad_q``, ``quad_u``, ``quad_v``, ``n_quads``, the cluster boxes;
+    rays [333, 8]). Clusters 0 and 1 are 16 x 8 grids of unit squares at
+    z = 5 around x = 0 and x = 100; cluster 2 repeats quads 0-43, so a ray
+    there hits two quads at the same t and the lower index must win. The
+    rays go down -z from z = 10 (t = 5 exactly) onto corners, edges and
+    centres (alpha, beta exactly 0, 1 or 0.5), alternating between the two
+    grids, so a warp's rays enter disjoint clusters; some have t exactly at
+    tmin or tmax, some run parallel to the plane (denom = 0), some are dead
+    (tmax < tmin: a collapsed window is a dead lane to JAX's kernel and
+    to this one), some miss."""
+    import types
+
+    j = np.arange(128)
+    grid = np.stack([j % 16, j // 16 % 8, np.full(128, 5.0)], 1)
+    q = np.concatenate([grid, grid + [100.0, 0.0, 0.0], grid[:44]])
+    u = np.tile([1.0, 0.0, 0.0], (300, 1))
+    v = np.tile([0.0, 1.0, 0.0], (300, 1))
+    corners = np.stack([q, q + u, q + v, q + u + v])
+    lo = np.stack([corners[:, c * 128:(c + 1) * 128].min((0, 1))
+                   for c in range(3)])
+    hi = np.stack([corners[:, c * 128:(c + 1) * 128].max((0, 1))
+                   for c in range(3)])
+    r = np.random.default_rng(12)
+    n = 333
+    side = np.arange(n) % 2 * 100.0
+    x = r.integers(0, 33, n) / 2.0 + side
+    y = r.integers(0, 17, n) / 2.0
+    o = np.stack([x, y, np.full(n, 10.0)], 1)
+    d = np.tile([0.0, 0.0, -1.0], (n, 1))
+    tmin, tmax = np.full(n, 1e-3), np.full(n, np.inf)
+    tmax[7::31] = 5.0                     # t exactly at tmax
+    tmin[11::29], tmax[11::29] = 5.0, np.inf   # t exactly at tmin
+    tmax[13::17] = -1.0                   # dead
+    flat = np.arange(3, n, 37)            # parallel to the quads' plane
+    o[flat, 2], d[flat], tmin[flat] = 5.0, [1.0, 0.0, 0.0], 0.0
+    o[5::41, 0] = 50.0                    # between the grids: a miss
+    rays = np.concatenate([o, d, tmin[:, None], tmax[:, None]], 1)
+
+    def t32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)
+                                ).to(device)
+
+    scene = types.SimpleNamespace(
+        quad_q=t32(q), quad_u=t32(u), quad_v=t32(v), n_quads=300,
+        quad_cluster_min=t32(lo), quad_cluster_max=t32(hi))
+    return scene, t32(rays)
+
+
+@pytest.mark.gpu
+def test_quad_search_on_card(cuda):
+    """Kernel O on final_scene's recorded rays (two bounces of a 32x32
+    wave, dead lanes among them) and on :func:`quad_cases`: through
+    ``ops/quad.quad_search`` one launch and no call of the plain version
+    (a spy on ``_quad_candidates``), then winners and t equal to the plain
+    version's and to ``quad_sweep_replay``'s bit for bit, the dead lanes
+    (inf, 0)."""
+    from rust_ray_tracer_tpu_torch.ops import quad
+
+    ts = _final_scene()
+    tg = ts.to(cuda)
+    o, d, t_min, t_max = (v.to(cuda) for v in split_kernel_inputs(ts)["quad"])
+    real = quad._quad_candidates
+    plain_calls = []
+
+    def spy(*a):
+        plain_calls.append(1)
+        return real(*a)
+
+    quad._quad_candidates = spy
+    try:
+        before = quad_search_kernel.launches
+        got_t, got_i = quad.quad_search(tg, o, d, t_min, t_max)
+        torch.cuda.synchronize()
+    finally:
+        quad._quad_candidates = real
+    assert not plain_calls and quad_search_kernel.launches == before + 1
+    cases = [(tg, torch.cat([o, d, t_min[:, None], t_max[:, None]], 1)
+              .contiguous(), got_t, got_i)]
+    sc, rays = quad_cases(cuda)
+    cases.append((sc, rays) + quad_search_kernel(
+        rays, quad.quad_table(sc), sc.quad_cluster_min, sc.quad_cluster_max))
+    for sc, rays, bt, bi in cases:
+        ref_t, ref_i = real(sc, rays[:, 0:3], rays[:, 3:6], rays[:, 6],
+                            rays[:, 7])
+        rep_t, rep_i, _ = quad.quad_sweep_replay(
+            rays, quad.quad_table(sc), sc.quad_cluster_min,
+            sc.quad_cluster_max)
+        assert torch.equal(bi.long(), ref_i) and torch.equal(bt, ref_t)
+        assert torch.equal(bi.long(), rep_i) and torch.equal(bt, rep_t)
+        dead = rays[:, 7] <= rays[:, 6]
+        assert bool(torch.isinf(bt[dead]).all()) and not bool(bi[dead].any())
 
 
 # ---- the triangle search (K, M) and the fused bounce (F, F') -------------

@@ -49,6 +49,7 @@ from rust_ray_tracer_tpu_torch.ops import bounce, hit, quad, uber
 from rust_ray_tracer_tpu_torch.ops import camera as tcam
 from rust_ray_tracer_tpu_torch.ops.integrator import (render_waves,
                                                       split_reason)
+from rust_ray_tracer_tpu_torch.ops.shade_core import _dot, _safe_div
 from rust_ray_tracer_tpu_torch.utils import rng
 
 from tests.torch_parity import (assert_flip_budget, assert_scaled_close,
@@ -86,6 +87,70 @@ def test_quad_search_matches_kernel_o(interpret, monkeypatch):
     hits = np.isfinite(np.asarray(ref_t))
     assert 0.05 < hits.mean() < 0.95
     assert len(np.unique(np.asarray(ref_i)[hits] // 128)) > 3   # clusters
+
+
+@pytest.fixture(scope="module")
+def final_quad_rays():
+    """final_scene's rays as ``test_quad_search_matches_kernel_o`` records
+    them (two bounces of a 32x32 wave), [N, 8], and the CPU scene."""
+    ts = compile_scene(tb.get_scene("final_scene", 1.0), device="cpu")
+    o, d, t_min, t_max = split_kernel_inputs(ts)["quad"]
+    return ts, torch.cat([o, d, t_min[:, None], t_max[:, None]], 1)
+
+
+def _edge_cases():
+    from tests.test_torch_gpu import quad_cases
+    return quad_cases()
+
+
+@pytest.mark.parametrize("case", ["final_scene", "edges"])
+def test_quad_sweep_replay_matches_plain(case, final_quad_rays):
+    """Kernel O's sweep as ``ops/quad.quad_sweep_replay`` replays it (live
+    rays packed 128 to a block and sorted by the clusters they enter, each
+    warp sweeping the clusters one of its rays enters, t before alpha and
+    beta) gives ``_quad_candidates``' winners and t bit for bit: on final_scene's rays (dead lanes among
+    them), and on ``test_torch_gpu.quad_cases``: equal t in two clusters
+    (the lower index wins), t exactly at tmin and tmax, alpha and beta
+    exactly 0 and 1, denom = 0, dead lanes, 333 rays, warps whose rays
+    enter disjoint clusters. The per-warp vote sweeps more than each ray
+    alone needs, and the staged test skips alpha and beta on most
+    tests."""
+    sc, rays = final_quad_rays if case == "final_scene" else _edge_cases()
+    bt, bi, work = quad.quad_sweep_replay(
+        rays, quad.quad_table(sc), sc.quad_cluster_min, sc.quad_cluster_max)
+    ref_t, ref_i = quad._quad_candidates(sc, rays[:, 0:3], rays[:, 3:6],
+                                         rays[:, 6], rays[:, 7])
+    assert torch.equal(bi, ref_i) and torch.equal(bt, ref_t)
+    live = rays[:, 7] > rays[:, 6]
+    assert work["live_rays"] == int(live.sum()) < rays.shape[0]
+    assert work["ray_tests"] < work["tests"]
+    assert work["ray_ab_tests"] <= work["ab_tests"] < work["tests"]
+    hits = torch.isfinite(bt)
+    assert 0.05 < float(hits.float().mean()) < 0.95
+    if case == "edges":
+        # ties across clusters: the copies (256-299) never win
+        assert int(bi[hits].max()) < 256
+        assert bool((bt[hits] == 5.0).all())
+        assert work["warp_clusters"] > work["warps"]
+
+
+def test_quad_table_rows_are_the_plain_operations(final_quad_rays):
+    """``quad_table``'s 16-float rows: q, u, v, then n and 1 / |n|^2 equal
+    to ``_quad_quants``' per-pair values bit for bit, three zeros."""
+    sc = final_quad_rays[0]
+    tab = quad.quad_table(sc)
+    assert tab.shape == (sc.n_quads, 16) and tab.is_contiguous()
+    comps = [tuple(x[None, :, a] for a in range(3))
+             for x in (sc.quad_q, sc.quad_u, sc.quad_v)]
+    ray = tuple(torch.ones((1, 1)) for _ in range(3))
+    n = quad._quad_quants(ray, ray, *comps)[3]
+    n = tuple(x[0] for x in n)
+    assert torch.equal(tab[:, :9], torch.cat([sc.quad_q, sc.quad_u,
+                                              sc.quad_v], 1))
+    assert torch.equal(tab[:, 9:12], torch.stack(n, 1))
+    assert torch.equal(tab[:, 12], _safe_div(torch.ones_like(n[0]),
+                                             _dot(*n, *n)))
+    assert not bool(tab[:, 13:].any())
 
 
 def test_hit_planes_match_kernel_j(interpret, monkeypatch):
