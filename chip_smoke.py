@@ -712,6 +712,22 @@ def replay_equal(got, args, what) -> None:
                              "replay")
 
 
+def within_float64(got, idx, g, n_rows, what) -> float:
+    """B''s row sums ``got`` [n_rows, W] of the terms ``g`` [N, W] by row
+    ``idx`` [N] against a float64 ``index_add_``: within 1e-5 of the sum of
+    the terms' magnitudes, entry by entry. Returns the worst error in
+    those units."""
+    g64 = g.double()
+    ref = torch.zeros((n_rows, g.shape[1]), dtype=torch.float64,
+                      device=g.device).index_add_(0, idx, g64)
+    mag = torch.zeros_like(ref).index_add_(0, idx, g64.abs())
+    err = (got.double() - ref).abs()
+    if not bool((err <= 1e-5 * mag).all()):
+        raise AssertionError(f"{what}: off by {float(err.max())} of the "
+                             "float64 sum")
+    return float((err / mag.clamp_min(1e-300)).max())
+
+
 def row_sums_vs_float64(calls) -> dict:
     """Each recorded ``row_sums`` result against a float64 ``index_add_``
     of the same cotangent rows: within 1e-5 of the sum of the terms'
@@ -725,20 +741,11 @@ def row_sums_vs_float64(calls) -> dict:
         raise AssertionError("no row sums recorded on the training path")
     worst, widths, ns, top_share = 0.0, set(), set(), 0.0
     for idx, g, n_rows, got in calls:
-        g64 = g.double()
-        ref = torch.zeros((n_rows, g.shape[1]), dtype=torch.float64,
-                          device=g.device).index_add_(0, idx, g64)
-        mag = torch.zeros_like(ref).index_add_(0, idx, g64.abs())
-        err = (got.double() - ref).abs()
-        if not bool((err <= 1e-5 * mag).all()):
-            raise AssertionError(
-                f"row_sums [{g.shape[0]}, {g.shape[1]}] into {n_rows} rows: "
-                f"off by {float(err.max())} of the float64 sum")
+        what = f"row_sums [{g.shape[0]}, {g.shape[1]}] into {n_rows} rows"
+        worst = max(worst, within_float64(got, idx, g, n_rows, what))
         keys, perm = K.reduce_order(idx.to(torch.int32))
         replay_equal((got,), (g.contiguous(), keys, perm, n_rows,
-                              torch.empty((0, 0), device=g.device)),
-                     f"row_sums into {n_rows} rows")
-        worst = max(worst, float((err / mag.clamp_min(1e-300)).max()))
+                              torch.empty((0, 0), device=g.device)), what)
         widths.add(int(g.shape[1]))
         ns.add(int(g.shape[0]))
         top_share = max(top_share, float(torch.bincount(
@@ -1371,6 +1378,8 @@ def train_phase(label, fwd, dev, smi, nonzero_keys, any_keys,
     red = bwd_reduce_kernel(*red_args)
     red_p = uber.bwd_reduce_plain(*red_args)
     replay_equal(red, red_args, f"{label}: bwd_reduce")
+    red_vs_f64 = within_float64(red[0], found_rows, found_contrib, p_rows,
+                                f"{label}: bwd_reduce")
     red_full_err = max(float((a - b).abs().max()) for a, b in zip(red, red_p))
     rel_l2(red[0], red_p[0], f"{label}: bwd_reduce duni", BWD_REL_L2)
     rel_l2(red[1], red_p[1], f"{label}: bwd_reduce dlt", BWD_REL_L2)
@@ -1413,7 +1422,10 @@ def train_phase(label, fwd, dev, smi, nonzero_keys, any_keys,
                            "dlt_rel_l2": full_dlt_l2,
                            "dlt_rows_err": full_dlt_rows,
                            "dlt_rows": bwd_k[2].tolist(),
-                           "bwd_reduce_max_abs_err": red_full_err},
+                           "bwd_reduce_max_abs_err": red_full_err,
+                           "bwd_reduce_replay_bitwise": True,
+                           "bwd_reduce_err_over_float64_magnitude":
+                               red_vs_f64},
           "profiled_step": prof,
           "found_ray_bounces": m_found,
           "noise_ray_bounces": noise_hits(hist, kind, idx, ctx),
