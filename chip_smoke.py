@@ -32,8 +32,9 @@ mesh (``tests/torch_parity.mesh``, 16x the trace kernel's rows) on the
 split route's unified search and fused bounce, forward (``mesh_forward``:
 K, M and F launched every bounce on rays the search-order sort permuted,
 each held against its plain version on a 128x72 wave's inputs and on a
-full-size wave's bounces 0 and 1, the sort's permutation against the
-host's, M timed a bounce beside its bound by stage) and ``bench.py``'s
+full-size wave's bounces 0 and 1 (K on all four), the sort's
+permutation against the host's, K and M timed a bounce beside their
+bounds by stage) and ``bench.py``'s
 training step
 (``mesh_train``: K, M, F and F' every bounce). Then, in a temporary
 working directory holding a procedural 1024x512 ``earthmap.jpg`` (the
@@ -45,8 +46,9 @@ J and H every bounce) and ``bench.py``'s training step
 (``random_earth_train``: N, J, H, J', H' every bounce, gradients non-zero
 on the image atlas); and random's world with the flagship's 968
 triangles (``tri_scene``: K and TPU kernel L, the triangle search alone,
-beside N), N and L held against their plain versions on every bounce of
-a 128x72 wave and on a full-size wave's bounce 0. Then it runs the
+beside N), N, L and K held against their plain versions on every bounce
+of a 128x72 wave and of a full-size wave (N on random earth's too, and
+against ``ops/sphere.sph_sweep_replay``). Then it runs the
 inverse-rendering example for 60 steps and the CLI on the Cornell box,
 perlin_spheres and final_scene. Last, with glTF files it writes into a
 temporary directory (``tests/torch_parity.write_gltf_flagship``: the
@@ -56,10 +58,10 @@ the single-light ``.glb`` flagship on the trace kernel
 whose light table overflows A, F and H, forward (``gltf_lights_forward``:
 K, M, J and TPU kernel I every bounce; I and its backward I' held against
 their plain versions on bounces 0 and 1 of a full-size wave at 9 and at
-16 lights) and ``bench.py``'s training step (``gltf_lights_train``: K,
-M, J, I, J', I' every bounce); a Mesh-boundary medium at 64x64
-(``mesh_medium``); and the CLI's ``-g`` on the 9-light file
-(``cli_gltf``). Between the whole-wave phases and final_scene run the
+16 lights, K on every bounce) and ``bench.py``'s training step
+(``gltf_lights_train``: K, M, J, I, J', I' every bounce); a Mesh-boundary
+medium at 64x64 (``mesh_medium``); and the CLI's ``-g`` on the 9-light
+file (``cli_gltf``). Between the whole-wave phases and final_scene run the
 per-chunk path's (TPU kernels D and D': the sharded renderer's body) and
 the unfused bounce's (``RRT_NO_UBER_FUSED=1``: TPU kernels E, G and G'
 against their plain versions on the flagship's and a checker scene's
@@ -161,11 +163,12 @@ RTOL, ATOL = 3e-4, 3e-5  # the rest (FMA contraction, division order)
 BWD_RTOL, BWD_ATOL, BWD_REL_L2 = 1e-4, 1e-6, 1e-4
 # the card's published peaks (H100 SXM, 700 W): fp32 non-tensor, HBM3
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
-# fp32 operations of N per sphere test, and per live ray-bounce of
-# shading and update; the backward's per found ray-bounce (the recomputed
-# forward plus its adjoint). M and L count each triangle test by stage
-# (tools/search_times.m_work: OPS_M_DET, OPS_M_T, OPS_M_UV)
-OPS_PRIM, OPS_SHADE, OPS_BWD = 40, 300, 600
+# fp32 operations per live ray-bounce of shading and update; the
+# backward's per found ray-bounce (the recomputed forward plus its
+# adjoint). M and L count each triangle test by stage
+# (tools/search_times.m_work: OPS_M_DET, OPS_M_T, OPS_M_UV), N each
+# sphere test (OPS_SPH_DISC, OPS_SPH_ROOT below)
+OPS_SHADE, OPS_BWD = 300, 600
 # fp32 operations of closest_hit (csrc/trace_wave.cu: A, D, E) by the
 # stage of a test that the closest hit needs, counted from the code
 # (closest_hit_work counts the stages in the run). A triangle: the
@@ -212,19 +215,21 @@ SPLIT_BWD_KERNELS = (hit_attrs_bwd_kernel, shade_update_bwd_kernel)
 WHOLE_WAVE_KERNELS = (trace_wave_kernel, trace_wave_noise_kernel,
                       trace_wave_bwd_kernel, trace_wave_bwd_noise_kernel)
 # the split route's search (csrc/search.cu) and fused bounce (csrc/split.cu)
-# on triangle meshes and solid or checker scenes: K per live ray and
-# nonempty cluster box (3 axes x (2 subtractions, 2 products, min, max, 2
-# selects, 2 compares) and the window and entry tests); M by the stage of
-# each triangle test the closest hit needs (tools/search_times.m_work); F
-# per found ray the hit attributes and the shading, F' their adjoints
-OPS_BOX = 40
+# on triangle meshes and solid or checker scenes: K by stage, counted from
+# the code: per live ray its three inverses (|d| < 1e-12, a select and a
+# division an axis: OPS_K_RAY), per (live ray, nonempty box) the slab test
+# (tools/search_times.OPS_SLAB, which N's box tests count too); M by the
+# stage of each triangle test the closest hit needs
+# (tools/search_times.m_work); F per found ray the hit attributes and the
+# shading, F' their adjoints
+OPS_K_RAY = 9
 SEARCH_KERNELS = (tile_enter_kernel, fused_search_kernel)
 FUSED_KERNELS = (bounce_planes_kernel,)
 FUSED_BWD_KERNELS = (bounce_planes_bwd_kernel,)
 MESH_W, MESH_H = 128, 72  # the mesh's check against the plain versions
 # the per-kind searches of the split route (TPU kernels N: csrc/sphere.cu,
-# and L: M's entry point in csrc/search.cu with no sphere or quad rows):
-# N per ray-sphere test OPS_PRIM, L as M
+# and L: M's entry point in csrc/search.cu with no sphere or quad rows): N
+# by stage (tools/search_times.n_work), L as M
 CULL_KERNELS = (sph_search_kernel, tri_search_kernel)
 EARTH_W, EARTH_H = 1024, 512  # the procedural earth map of the new phases
 # the shading of 9 or more lights (TPU kernels I, I': csrc/shade.cu): I per
@@ -843,10 +848,55 @@ def split_kernels_vs_plain(calls, label) -> dict:
     return out
 
 
+def enter_vs_plain(args, label, b) -> dict:
+    """K against its plain version on the card on one recorded call
+    ``args`` (bounce ``b``): the surviving (tile, cluster) pairs equal and
+    each entry within 1 ulp; whether every entry has the plain version's
+    bits; two runs bit for bit."""
+    got = tile_enter_kernel(*args)
+    again = tile_enter_kernel(*args)
+    ref = search_ops.tile_enter_plain(*args)
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"{label}: two runs of tile_enter differ at "
+                             f"bounce {b}")
+    fin = torch.isfinite(ref)
+    if not torch.equal(torch.isfinite(got), fin):
+        raise AssertionError(f"{label}: tile_enter's surviving (tile, "
+                             f"cluster) pairs differ at bounce {b}")
+    ulps = int((got[fin].view(torch.int32).long()
+                - ref[fin].view(torch.int32).long()).abs().max()) \
+        if bool(fin.any()) else 0
+    if ulps > 1:
+        raise AssertionError(f"{label}: tile_enter off by {ulps} ulps at "
+                             f"bounce {b}")
+    return {"lanes_outside": 0.0,
+            "max_abs_err": float((got[fin] - ref[fin]).abs().max())
+            if bool(fin.any()) else 0.0, "max_ulps": float(ulps),
+            "bitwise": bool(torch.equal(got.view(torch.int32),
+                                        ref.view(torch.int32))),
+            "bitwise_repeat": True,
+            "survivor_share": float(fin.float().mean())}
+
+
+def enter_every_bounce(calls, label) -> dict:
+    """:func:`enter_vs_plain` on every recorded call of K: the worst of
+    the bounces, and whether all were bitwise."""
+    rows = [enter_vs_plain(a, label, b) for b, a in enumerate(calls["enter"])]
+    if not rows:
+        return {}
+    return {"tile_enter": {
+        "lanes_outside": 0.0,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_ulps": max(r["max_ulps"] for r in rows),
+        "bitwise": all(r["bitwise"] for r in rows), "bitwise_repeat": True,
+        "bounces": len(rows)}}
+
+
 def search_fused_vs_plain(calls, label, bounces=(0, 1)) -> dict:
     """K, M, F and F' against their plain versions on the card, on the
     recorded calls of ``bounces`` (bounce 0 and 1 of a wave): K's entries
-    finite where the plain version's are and within 1 ulp; M's kinds,
+    finite where the plain version's are and within 1 ulp, whether they
+    are bitwise, two runs bit for bit (:func:`enter_vs_plain`); M's kinds,
     indices and t equal; F's planes within RTOL / ATOL of each lane's
     largest value, at most FLIP_BUDGET of the lanes outside (a checker
     parity or a shading branch rounded apart, as H's); F' with a seeded
@@ -861,29 +911,13 @@ def search_fused_vs_plain(calls, label, bounces=(0, 1)) -> dict:
     def merge(name, **r):
         prev = out.get(name)
         out[name] = r if prev is None else {
-            k: (max(prev[k], v) if isinstance(v, float) else v)
+            k: (max(prev[k], v) if isinstance(v, float) else
+                (prev[k] and v) if isinstance(v, bool) else v)
             for k, v in r.items()}
 
     for b in bounces:
         if b < len(calls["enter"]):
-            args = calls["enter"][b]
-            got = tile_enter_kernel(*args)
-            ref = search_ops.tile_enter_plain(*args)
-            fin = torch.isfinite(ref)
-            if not torch.equal(torch.isfinite(got), fin):
-                raise AssertionError(f"{label}: tile_enter's surviving "
-                                     f"(tile, cluster) pairs differ at "
-                                     f"bounce {b}")
-            ulps = int((got[fin].view(torch.int32).long()
-                        - ref[fin].view(torch.int32).long()).abs().max()) \
-                if bool(fin.any()) else 0
-            if ulps > 1:
-                raise AssertionError(f"{label}: tile_enter off by {ulps} "
-                                     f"ulps at bounce {b}")
-            merge("tile_enter", lanes_outside=0.0,
-                  max_abs_err=float((got[fin] - ref[fin]).abs().max())
-                  if bool(fin.any()) else 0.0, max_ulps=float(ulps),
-                  survivor_share=float(fin.float().mean()))
+            merge("tile_enter", **enter_vs_plain(calls["enter"][b], label, b))
         if b < len(calls["search"]):
             args = calls["search"][b]
             got = fused_search_kernel(*args)
@@ -1984,15 +2018,17 @@ def split_bwd_rows(train, worst_small) -> list[dict]:
 
 def search_work(calls) -> dict:
     """What kernels K and M must do on these recorded calls (one launch
-    each a bounce), counted from the data: K's (live ray, nonempty box)
-    tests and bytes (the rays, through the permutation where the route
-    sorted them, the boxes, the entries written once); M's by
+    each a bounce), counted from the data: K's by stage (the live rays'
+    inverses, then the (live ray, nonempty box) slab tests) and bytes (the
+    rays, through the permutation where the route sorted them, the boxes,
+    the entries written once), with its bound per bounce; M's by
     ``tools/search_times.m_work`` on the kernel's winners (which the
     checks hold to the plain version's): per live ray the triangles of
     its tile's entered clusters whose entry is at most its final t, by
     stage, K's full-cull count beside them, the operations and bytes.
     ``per_bounce`` holds each call's counts."""
-    w = {"box_tests": 0, "k_bytes": 0, "tri_tests": 0, "t_tests": 0,
+    w = {"box_tests": 0, "k_live_rays": 0, "k_per_bounce": [],
+         "k_bytes": 0, "tri_tests": 0, "t_tests": 0,
          "uv_tests": 0, "full_cull_tests": 0, "sph_tests": 0,
          "quad_tests": 0, "m_ops": 0, "m_bytes": 0, "per_bounce": []}
     for e_args, s_args in zip(calls["enter"], calls["search"]):
@@ -2002,8 +2038,15 @@ def search_work(calls) -> dict:
         n_live = int((rays[8] > rays[7]).sum())
         nonempty = int((cl_min <= e_args[2]).all(1).sum())
         w["box_tests"] += n_live * nonempty
-        w["k_bytes"] += (8 * n + 6 * cl_min.shape[0] + s_args[1].numel()
-                         ) * 4 + (8 * n if len(e_args) > 4 else 0)
+        w["k_live_rays"] += n_live
+        k_bytes = (8 * n + 6 * cl_min.shape[0] + s_args[1].numel()
+                   ) * 4 + (8 * n if len(e_args) > 4 else 0)
+        w["k_bytes"] += k_bytes
+        w["k_per_bounce"].append({
+            "live_rays": n_live, "box_tests": n_live * nonempty,
+            "bound_ms": bound(k_bytes, n_live * OPS_K_RAY
+                              + n_live * nonempty
+                              * search_times.OPS_SLAB)[0]})
         mw = search_times.m_work(s_args, fused_search_kernel(*s_args)[0])
         w["tri_tests"] += mw["tests"]
         for k in ("t_tests", "uv_tests", "full_cull_tests"):
@@ -2013,7 +2056,8 @@ def search_work(calls) -> dict:
         w["m_ops"] += mw["ops"]
         w["m_bytes"] += mw["bytes"]
         w["per_bounce"].append(mw)
-    w["k_ops"] = w["box_tests"] * OPS_BOX
+    w["k_ops"] = (w["k_live_rays"] * OPS_K_RAY
+                  + w["box_tests"] * search_times.OPS_SLAB)
     return w
 
 
@@ -2121,6 +2165,7 @@ def mesh_forward(dev, smi) -> dict:
         render(1)
     with torch.no_grad():
         full = search_fused_vs_plain(rec, "mesh full size", bounces=(0, 1))
+        full.update(enter_every_bounce(rec, "mesh full size"))
         rays, tabs, chunk = rec["order"][1]
         host = dataclasses.replace(tabs, cl_min=tabs.cl_min.cpu(),
                                    cl_max=tabs.cl_max.cpu())
@@ -2164,10 +2209,12 @@ def mesh_forward(dev, smi) -> dict:
                    "t_tests": b["t_tests"], "uv_tests": b["uv_tests"],
                    "full_cull_tests": b["full_cull_tests"],
                    "m_bound_ms": bound(b["bytes"], b["ops"])[0],
-                   "m_ms_l2_flushed": c, "m_ms_in_path": p, "sort_ms": t}
-                  for b, c, p, t in zip(work["per_bounce"],
-                                        by_bounce["fused_search"], m_path,
-                                        sort_ms)]
+                   "m_ms_l2_flushed": c, "m_ms_in_path": p, "sort_ms": t,
+                   "k_box_tests": kb["box_tests"],
+                   "k_bound_ms": kb["bound_ms"], "k_ms_l2_flushed": kc}
+                  for b, c, p, t, kb, kc in zip(
+                      work["per_bounce"], by_bounce["fused_search"], m_path,
+                      sort_ms, work["k_per_bounce"], by_bounce["tile_enter"])]
     emit({"phase": "mesh_forward", "card": smi,
           "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
           "compile_scene_s": compile_s,
@@ -2179,7 +2226,7 @@ def mesh_forward(dev, smi) -> dict:
           "image_mean": float(img.mean()) / SPP,
           "small_wave_vs_plain_route": small_img,
           "kernels_vs_plain_small": small,
-          "kernels_vs_plain_full_bounce0": full,
+          "kernels_vs_plain_full_size": full,
           "kernel_vs_plain_budget": {
               "tile_enter": "survivors equal, <= 1 ulp",
               "fused_search": "kinds, indices and t equal",
@@ -2198,6 +2245,7 @@ def mesh_forward(dev, smi) -> dict:
           "sort_permutation_card_equals_host": perm_equal,
           "ptxas_search": ptxas_report(K.build("search").log)})
     return {"launches": launches, "small": small, "full": full, "ms": ms,
+            "ms_per_bounce": by_bounce,
             "ms_in_path": timing["in_path"], "plain_ms": plain_ms,
             "calls": rec, "work": work, "scene": scene, "key": key,
             "sort_ms": statistics.fmean(sort_ms)}
@@ -2301,6 +2349,13 @@ def mesh_rows(fwd, train, worst_small) -> list[dict]:
                                    "quad_tests")}
     rows[1]["sort_ms_per_bounce"] = fwd["sort_ms"]
     rows[0]["box_tests_per_launch"] = work["box_tests"] / n_w
+    rows[0]["ms_per_bounce"] = fwd["ms_per_bounce"]["tile_enter"]
+    rows[0]["bound_ms_per_bounce"] = [b["bound_ms"]
+                                      for b in work["k_per_bounce"]]
+    rows[0]["live_rays_per_bounce"] = [b["live_rays"]
+                                       for b in work["k_per_bounce"]]
+    rows[0]["bitwise"] = all(fwd[p]["tile_enter"]["bitwise"]
+                             for p in ("small", "full"))
     return rows
 
 
@@ -2350,8 +2405,10 @@ def earth_map_dir():
 def cull_vs_plain(calls, label, bounces) -> dict:
     """N and L against their plain versions on the card, on the recorded
     calls (``split_recorder``'s ``sph`` and ``tri``) of ``bounces``: the
-    winners' indices equal and t bitwise (inf on the same rays). Returns
-    each kernel's worst error (0) and the share of rays that hit."""
+    winners' indices equal and t bitwise (inf on the same rays); N also
+    against ``ops/sphere.sph_sweep_replay`` (the same) and twice for the
+    same bits. Returns each kernel's worst error (0) and the share of rays
+    that hit."""
     out = {}
     for key, kern, plain in (
             ("sph", sph_search_kernel, sphere_ops.sph_search_plain),
@@ -2360,42 +2417,58 @@ def cull_vs_plain(calls, label, bounces) -> dict:
             if b >= len(calls[key]):
                 continue
             got_t, got_i = kern(*calls[key][b])
-            ref_t, ref_i = plain(*calls[key][b])
-            bad = (got_i.long() != ref_i.long()) | (got_t != ref_t)
-            if bool(bad.any()):
-                raise AssertionError(f"{label}: {kern.name} differs from its "
-                                     f"plain version on {int(bad.sum())} "
-                                     f"rays at bounce {b}")
+            refs = [plain(*calls[key][b])]
+            if key == "sph":
+                refs.append(sphere_ops.sph_sweep_replay(*calls[key][b])[:2])
+                again = kern(*calls[key][b])
+                if not (torch.equal(again[0].view(torch.int32),
+                                    got_t.view(torch.int32))
+                        and torch.equal(again[1], got_i)):
+                    raise AssertionError(f"{label}: two runs of "
+                                         f"{kern.name} differ at bounce {b}")
+            for what, (ref_t, ref_i) in zip(("plain version", "replay"),
+                                            refs):
+                bad = (got_i.long() != ref_i.long()) | (
+                    got_t.view(torch.int32) != ref_t.view(torch.int32))
+                if bool(bad.any()):
+                    raise AssertionError(
+                        f"{label}: {kern.name} differs from its {what} on "
+                        f"{int(bad.sum())} rays at bounce {b}")
             r = out.setdefault(kern.name, {
                 "lanes_outside": 0.0, "max_abs_err": 0.0,
-                "winners_equal": True, "t_bitwise": True, "hit_share": []})
-            r["hit_share"].append(float(torch.isfinite(ref_t).float()
+                "winners_equal": True, "t_bitwise": True, "bounces": 0,
+                "hit_share": []})
+            r["bounces"] += 1
+            r["hit_share"].append(float(torch.isfinite(refs[0][0]).float()
                                         .mean()))
+            if key == "sph":
+                r["replay_equal"] = r["bitwise_repeat"] = True
     return out
 
 
 def cull_work(calls) -> dict:
     """What N and L must do on these recorded calls (one launch each a
-    bounce), counted from the data: N's ray-sphere tests (every live ray
-    of a 256-ray tile against the 128 rows of each cluster some ray of
-    the tile enters: ``_tile_cluster_mask``'s cull, what the algorithm
-    needs) and L's ray-triangle tests and operations (``search_work``'s
-    stage count on L's winners, no sphere or quad rows; K's full-cull
-    count beside it), and each kernel's bytes (the ray planes and the
-    tables read once, t and the index written once)."""
-    w = {"sph_tests": 0, "n_bytes": 0, "tri_tests": 0, "l_bytes": 0,
-         "l_ops": 0, "full_cull_tri_tests": 0}
-    for rays, tab, cl_min, cl_max, _, chunk in calls["sph"]:
-        n = rays.shape[1]
-        ent = search_ops.tile_enter_plain(rays, cl_min, cl_max, chunk)
-        _, _, chunk_p = search_ops._tiles(n, chunk)
-        live_t = search_ops._tile_pad((rays[8] > rays[7]).float(), chunk,
-                                      chunk_p, 0.0).reshape(
-                                          -1, search_ops.BC).sum(1)
-        w["sph_tests"] += int((torch.isfinite(ent).sum(1).double()
-                               * live_t.double()).sum()) * S.CLUSTER
-        w["n_bytes"] += (9 * n + tab.numel() + cl_min.numel() * 2
-                         + 2 * n) * 4
+    bounce), counted from the data: N's by stage as
+    ``tools/search_times.n_work`` counts them on the replay of its sweep
+    (per bounce the live rays; each ray's own box tests, sphere tests and
+    positive discriminants, which give the bound; beside them the tile's
+    and the warps' votes, the tests the kernel makes and those where a
+    lane of the warp has a positive discriminant, which give the warp
+    vote's bound, and the per-tile cull's tests), and L's ray-triangle
+    tests and operations (``search_work``'s stage count on L's winners,
+    no sphere or quad rows; K's full-cull count beside it), and each
+    kernel's bytes (the ray planes, the tables and the boxes read once, t
+    and the index written once)."""
+    sums = ("tests", "root_tests", "box_tests", "tile_tests", "ray_tests",
+            "ray_box_tests", "ray_root_tests", "live_rays", "bytes", "ops",
+            "warp_ops")
+    w = {**{f"n_{k}": 0 for k in sums}, "n_per_bounce": [], "tri_tests": 0,
+         "l_bytes": 0, "l_ops": 0, "full_cull_tri_tests": 0}
+    for args in calls["sph"]:
+        work = search_times.n_work(args)[2]
+        for k in sums:
+            w[f"n_{k}"] += work[k]
+        w["n_per_bounce"].append(work)
     for args in calls["tri"]:
         lw = search_times.m_work(
             (args[0], args[1], search_ops.tri_only(args[2]), args[3]),
@@ -2404,7 +2477,6 @@ def cull_work(calls) -> dict:
         w["l_bytes"] += lw["bytes"]
         w["l_ops"] += lw["ops"]
         w["full_cull_tri_tests"] += lw["full_cull_tests"]
-    w["n_ops"] = w["sph_tests"] * OPS_PRIM
     return w
 
 
@@ -2453,13 +2525,14 @@ def random_earth_forward(dev, smi) -> dict:
     (its image leaf keeps it off the trace kernel, as in JAX): per wave
     DEPTH launches each of N (1,024 sphere rows, the per-kind branch), J
     and H, none of A, K, M, L, O or F, no plain call, a finite image; N
-    against its plain version on every bounce of a MESH_W x MESH_H wave
-    and on a full-size wave's bounce 0 (indices equal, t bitwise), J and
-    H on that bounce 0, the route's images against the plain route's;
-    sweep ms (median, min, max of 7), per-wave kernel and glue ms and
-    the busy share by the profiler; N's ms per launch out of L2 on every
-    bounce's recorded inputs of the full-size wave, in the path, and its
-    plain version's; the work for N's bound. Emits
+    against its plain version and ``ops/sphere.sph_sweep_replay`` on
+    every bounce of a MESH_W x MESH_H wave and of a full-size wave
+    (indices equal, t bitwise, two runs bit for bit), J and H on bounce
+    0, the route's images against the plain route's; sweep ms (median,
+    min, max of 7), per-wave kernel and glue ms and the busy share by the
+    profiler; N's ms per launch out of L2 on every bounce's recorded
+    inputs of the full-size wave, in the path, and its plain version's;
+    N's work and bound by stage on each bounce. Emits
     ``random_earth_forward``."""
     t0 = time.perf_counter()
     scene = compile_scene(builders.random_scene(WIDTH / HEIGHT), device=dev)
@@ -2496,7 +2569,7 @@ def random_earth_forward(dev, smi) -> dict:
     full_img = compare(wave_k, wave_p, "random earth: kernels vs plain "
                        "route (full size)", flip_abs=None)
     with torch.no_grad():
-        full = cull_vs_plain(rec, "random earth full size", (0,))
+        full = cull_vs_plain(rec, "random earth full size", range(DEPTH))
         full.update(split_kernels_vs_plain(rec, "random earth full size"))
 
     timing = forward_timing(render, {n: f"{n}_kernel" for n in (
@@ -2517,7 +2590,7 @@ def random_earth_forward(dev, smi) -> dict:
           "small_wave_vs_plain_route": small_img,
           "wave_vs_plain_route": full_img,
           "kernels_vs_plain_small": small,
-          "kernels_vs_plain_full_bounce0": full,
+          "kernels_vs_plain_full_size": full,
           "kernel_vs_plain_budget": {
               "sph_search": "indices equal, t bitwise",
               "hit_attrs_lanes_outside": 0.0,
@@ -2530,6 +2603,7 @@ def random_earth_forward(dev, smi) -> dict:
           "work_per_wave": work})
     return {"launches": launches, "small": small, "full": full,
             "ms": statistics.fmean(times["cold"]),
+            "ms_per_bounce": times["cold"],
             "ms_in_path": timing["in_path"],
             "plain_ms": statistics.fmean(times["plain"]), "work": work,
             "scene": scene, "key": key}
@@ -2584,10 +2658,10 @@ def tri_scene_phase(dev, smi) -> dict:
     branch, K and L for the triangles and N for the spheres. One
     full-size wave (1 spp) through ``render_waves``: DEPTH launches each
     of K, L, N, J and H, none of M, O, F or A, no plain call; the share of
-    primaries whose first hit is a triangle; N and L against their plain
-    versions on every bounce of a MESH_W x MESH_H wave and on the
-    full-size wave's bounce 0, K on bounces 0 and 1 of the small wave,
-    the route's small image against the plain route's; L's ms per launch
+    primaries whose first hit is a triangle; N, L and K against their
+    plain versions on every bounce of a MESH_W x MESH_H wave and of the
+    full-size wave (M's check on bounces 0 and 1 of the small one), the
+    route's small image against the plain route's; L's ms per launch
     out of L2 on every bounce's recorded inputs, in the path (the
     profiler names it ``fused_search_kernel``: L is M's entry point),
     and its plain version's; the work for L's bound. Emits
@@ -2636,7 +2710,9 @@ def tri_scene_phase(dev, smi) -> dict:
     with torch.no_grad():
         small = cull_vs_plain(rec_s, "L scene small", range(DEPTH))
         small.update(search_fused_vs_plain(rec_s, "L scene small"))
-        full = cull_vs_plain(rec, "L scene full size", (0,))
+        small.update(enter_every_bounce(rec_s, "L scene small"))
+        full = cull_vs_plain(rec, "L scene full size", range(DEPTH))
+        full.update(enter_every_bounce(rec, "L scene full size"))
     names = {"tile_enter": "tile_enter_kernel",
              "tri_search": "fused_search_kernel",
              "sph_search": "sph_search_kernel",
@@ -2666,7 +2742,7 @@ def tri_scene_phase(dev, smi) -> dict:
           "image_mean": float(img.mean()),
           "small_wave_vs_plain_route": small_img,
           "kernels_vs_plain_small": small,
-          "kernels_vs_plain_full_bounce0": full,
+          "kernels_vs_plain_full_size": full,
           "ms_per_launch_profiler": in_path,
           "tri_search_ms_per_bounce_l2_flushed": l_cold,
           "tri_search_ms_per_bounce_in_path": l_path,
@@ -2683,9 +2759,9 @@ def cull_rows(rand, tri) -> list[dict]:
     forward) and L (the L check scene's full-size wave): launches on that
     main path; device ms per launch out of L2 (``ms``) and in the path
     (``ms_in_path``, the profiler's), plain ms, each averaged over the
-    wave's bounces on their recorded inputs; the bound of one launch from
-    the tests this run's cull leaves (N: x OPS_PRIM; L by stage) and the
-    bytes, averaged over the same bounces."""
+    wave's bounces on their recorded inputs, and N's and its bound per
+    bounce; the bound of one launch from the tests this run's cull leaves
+    (N and L by stage) and the bytes, averaged over the same bounces."""
     rows = []
     for name, ph, repl, src, nb, ops in (
             ("sph_search", rand,
@@ -2706,7 +2782,19 @@ def cull_rows(rand, tri) -> list[dict]:
                      "bound_by": b_by, "library_ms": None,
                      "bytes_per_launch": nb / DEPTH,
                      "operations_per_launch": ops / DEPTH})
-    rows[0]["sphere_tests_per_launch"] = rand["work"]["sph_tests"] / DEPTH
+    rw = rand["work"]
+    nb = rw["n_per_bounce"]
+    rows[0]["sphere_tests_per_launch"] = rw["n_ray_tests"] / DEPTH
+    rows[0]["sphere_tests_per_launch_warp_vote"] = rw["n_tests"] / DEPTH
+    rows[0]["bound_ms_per_warp_vote"] = bound(
+        rw["n_bytes"] / DEPTH, rw["n_warp_ops"] / DEPTH)[0]
+    rows[0]["ms_per_bounce"] = rand["ms_per_bounce"]
+    rows[0]["bound_ms_per_bounce"] = [b["bound_ms"] for b in nb]
+    rows[0]["work_per_bounce"] = [
+        {k: b[k] for k in ("live_rays", "cluster_tests", "ray_box_tests",
+                           "ray_tests", "ray_root_tests", "box_tests",
+                           "tests", "root_tests", "tile_tests",
+                           "warp_bound_ms")} for b in nb]
     rows[1]["triangle_tests_per_launch"] = tri["work"]["tri_tests"] / DEPTH
     rows[1]["kernel"] = ("fused_search_kernel launched with no sphere or "
                          "quad rows (M's triangle test is L's)")
@@ -2898,6 +2986,7 @@ def gltf_lights_forward(dev, smi, paths) -> dict:
     with torch.no_grad():
         full = shade_vs_plain(rec, "9 lights full size")
         full.update(split_kernels_vs_plain(rec, "9 lights full size"))
+        full.update(enter_every_bounce(rec, "9 lights full size"))
     scene16 = gltf_scene(paths["f16"], dev)
     with split_recorder() as rec16:
         render(1, scene16)

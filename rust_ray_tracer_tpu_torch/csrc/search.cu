@@ -25,10 +25,45 @@
 // perm[j]: both kernels read the rays through it and M writes each winner
 // back to the ray's own position, so no sorted copy is made.
 //
-// What bounds them on the card. K: fp32 work, ~40 operations per (live
-// ray, box) over every ray and every cluster (147,456 rays x 512 clusters
-// a bounce of the mesh workload); its inputs and its [tiles, clusters]
-// output are a few MB. M: fp32 work per ray-triangle test: the
+// What bounds them on the card. K: fp32 work, the slab test's ~36
+// operations per (live ray, nonempty box) (147,456 rays x 512 clusters on
+// bounce 0 of the mesh workload) after three IEEE divisions per live ray;
+// its inputs and its [tiles, clusters] output are a few MB.
+//
+// What K's first port lost (PERF.md, kernel table): one 256-thread block
+// a tile, a thread a cluster, walked every ray of its tile, dead ones
+// included, and divided by d in every (ray, box) test; since the sort
+// puts a chunk's live rays into its first tiles, a bounce's work sat on a
+// fraction of the blocks, each serial over up to 256 rays. The design:
+//   * packed live rays, their inverses computed once: a ballot and a
+//     prefix (block_slot, below) put the tile's n live rays into the first
+//     n slots of shared memory, each as its origin, 1 / d (the quotient
+//     1 / (|d| < 1e-12 ? 1 : d) the test always used, so every (lo - o) *
+//     inv rounds as before), t_min, t_max and a bit per axis with |d| <
+//     1e-12. A tile without a live ray writes its +inf row and leaves;
+//   * a short test for the common ray: where no axis has |d| < 1e-12,
+//     o is finite and 1 / d holds no NaN, no t of a nonempty box is NaN,
+//     so the NaN-propagating jmin / jmax become their plain compares and
+//     selects (the same selections, ties and signed zeros included) and
+//     the per-axis selects of the parallel case drop out; other rays
+//     take the full test;
+//   * a live tile spread over blocks: the grid's y splits the clusters,
+//     cpb of them a block (ENTER_CPB = 64, or the least power of two that
+//     holds k; 64 measured 5% under 32 and 128, PERF.md), so a tile's k
+//     clusters go to ceil(k / cpb) blocks and no entry is met across
+//     blocks. A block's threads are cpb clusters x 256 / cpb slices of
+//     the packed rays: a warp's lanes test neighbouring
+//     clusters against the same ray (a broadcast read), each thread keeps
+//     the least entry of its slice, and the slices meet in shared memory
+//     in slice order. Each (tile, cluster) entry is the least of the same
+//     values as before (strict <, no float atomics), so K gives the plain
+//     version's entries. The other way to spread a tile, its packed rays
+//     split over 2 or 4 blocks of a grid z met by an integer atomicMin of
+//     the entries' bits (and the output filled with +inf first), measured
+//     8% and 29% slower on the mean of the mesh's bounces, each bounce
+//     slower (PERF.md): the cluster split already gives a live tile
+//     ceil(k / 64) blocks with no merge.
+// M: fp32 work per ray-triangle test: the
 // determinant's 3-term dot and the face test on every test, the t dot and
 // a division where the face is seen, the u and v dots where t can win
 // (8, 12 and 29 operations; tools/search_times.py m_work counts the tests
@@ -128,6 +163,7 @@ constexpr int ROW_F4 = TRI_ROW / 4;
 constexpr int STAGE_F4 = STAGE * ROW_F4;
 constexpr int SMALL = 128;       // the sphere and quad tables' row bound
 constexpr float CULL_EPS = 1e-3f;
+constexpr int ENTER_CPB = 64;    // K's clusters a block, at most
 // M's resident blocks an SM (__launch_bounds__): 4 at 64 registers
 constexpr int M_MIN_BLOCKS = 4;
 // a tile's clusters go to up to MAX_PARTS blocks, at least PART_CLUSTERS
@@ -150,74 +186,16 @@ __device__ __forceinline__ int ray_at(const long long* __restrict__ perm,
   return perm ? static_cast<int>(perm[j]) : j;
 }
 
-// K: rays [9, n] planes (o, d, time, t_min, t_max), perm [n] or null;
-// cl_min / cl_max [k, 3]; ent [n_tiles, k].
-__global__ void __launch_bounds__(BC)
-tile_enter_kernel(const float* __restrict__ rays,
-                  const long long* __restrict__ perm,
-                  const float* __restrict__ cl_min,
-                  const float* __restrict__ cl_max, int n, int chunk, int k,
-                  float* __restrict__ ent) {
-  __shared__ float sr[8][BC];      // ox oy oz dx dy dz tmin tmax
-  const int tile = blockIdx.x;
-  int start, count;
-  tile_span(tile, chunk, n, start, count);
-  const int r = threadIdx.x;
-  const bool in = r < count;
-  const int src = in ? ray_at(perm, start + r) : 0;
-  const int plane[8] = {0, 1, 2, 3, 4, 5, 7, 8};
-#pragma unroll
-  for (int c = 0; c < 8; ++c)
-    sr[c][r] = in ? rays[(size_t)plane[c] * n + src]
-                  : (c == 7 ? -1.f : 0.f);   // a pad ray: no window
-  __syncthreads();
-  for (int cl = threadIdx.x; cl < k; cl += BC) {
-    float lo[3], hi[3];
-    bool nonempty = true;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float mn = cl_min[cl * 3 + a], mx = cl_max[cl * 3 + a];
-      nonempty = nonempty && mn <= mx;
-      lo[a] = mn - CULL_EPS;
-      hi[a] = mx + CULL_EPS;
-    }
-    float best = INFINITY;
-    if (nonempty) {
-      for (int q = 0; q < count; ++q) {
-        const float tmin = sr[6][q], tmax = sr[7][q];
-        if (!(tmax > tmin)) continue;          // an empty window
-        float enter = 0.f, exit_ = 0.f;
-        bool par_ok = true;
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const float o = sr[a][q], d = sr[3 + a][q];
-          const bool small = fabsf(d) < 1e-12f;
-          const float inv = 1.f / (small ? 1.f : d);
-          const float t0 = (lo[a] - o) * inv, t1 = (hi[a] - o) * inv;
-          const float tlo = small ? -INFINITY : jmin(t0, t1);
-          const float thi = small ? INFINITY : jmax(t0, t1);
-          enter = a == 0 ? tlo : jmax(enter, tlo);
-          exit_ = a == 0 ? thi : jmin(exit_, thi);
-          par_ok = par_ok && (!small || (o >= lo[a] && o <= hi[a]));
-        }
-        if (par_ok && enter <= exit_ && exit_ >= tmin && enter <= tmax) {
-          const float e = jmax(enter, tmin);
-          best = e < best ? e : best;
-        }
-      }
-    }
-    ent[(size_t)tile * k + cl] = best;
-  }
-}
-
-// M's static shared memory: the tile's live rays packed in thread order
-// (o, d, time, t_min, t_max and the ray's index), the per-warp counts of a
-// block-wide prefix, and whether this block finishes the tile.
-struct SearchSmem {
-  float ray[9][BC];
-  int src[BC];
+// K's static shared memory: the tile's live rays packed in thread order
+// (o, the slab test's 1 / d, t_min, t_max; a bit an axis where |d| <
+// 1e-12, and SLOW_RAY where the ray takes the full test), the per-warp
+// counts of the block's prefix, and each thread's least entry.
+constexpr int SLOW_RAY = 8;
+struct EnterSmem {
+  float4 ray[2][BC];               // (ox oy oz tmin), (ix iy iz tmax)
+  int small[BC];
+  float part[BC];
   int warp_cnt[WARPS];
-  int last;
 };
 
 // This thread's place among the block's threads whose `flag` is set, in
@@ -239,6 +217,141 @@ __device__ __forceinline__ int block_slot(bool flag, int* warp_cnt,
   __syncthreads();                           // warp_cnt is free again
   return slot;
 }
+
+// K: rays [9, n] planes (o, d, time, t_min, t_max), perm [n] or null;
+// cl_min / cl_max [k, 3]; ent [n_tiles, k]. Block (tile, y) computes the
+// entries of clusters [y * cpb, y * cpb + cpb) of the tile; cpb is a power
+// of two of at most BC.
+__global__ void __launch_bounds__(BC)
+tile_enter_kernel(const float* __restrict__ rays,
+                  const long long* __restrict__ perm,
+                  const float* __restrict__ cl_min,
+                  const float* __restrict__ cl_max, int n, int chunk, int k,
+                  int cpb, float* __restrict__ ent) {
+  __shared__ EnterSmem sm;
+  const int tile = blockIdx.x;
+  int start, count;
+  tile_span(tile, chunk, n, start, count);
+  const int s = threadIdx.x;
+  const int c0 = blockIdx.y * cpb, nc = min(cpb, k - c0);
+  float* __restrict__ row = ent + (size_t)tile * k + c0;
+
+  // ---- pack the tile's live rays, their inverses once a ray -----------
+  const bool in = s < count;
+  const int src = in ? ray_at(perm, start + s) : 0;
+  const float tmin0 = in ? rays[(size_t)7 * n + src] : 0.f;
+  const float tmax0 = in ? rays[(size_t)8 * n + src] : -1.f;
+  const bool live = tmax0 > tmin0;           // a pad ray: no window
+  int n_live;
+  const int slot = block_slot(live, sm.warp_cnt, n_live);
+  if (n_live == 0) {                         // the same for the whole block
+    for (int c = s; c < nc; c += BC) row[c] = INFINITY;
+    return;
+  }
+  if (live) {
+    float o[3], inv[3];
+    int small = 0;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      o[a] = rays[(size_t)a * n + src];
+      const float d = rays[(size_t)(3 + a) * n + src];
+      const bool sm_a = fabsf(d) < 1e-12f;
+      inv[a] = 1.f / (sm_a ? 1.f : d);
+      small |= sm_a ? 1 << a : 0;
+      small |= (!(fabsf(o[a]) < INFINITY) || inv[a] != inv[a]) ? SLOW_RAY
+                                                              : 0;
+    }
+    small |= small ? SLOW_RAY : 0;
+    sm.ray[0][slot] = make_float4(o[0], o[1], o[2], tmin0);
+    sm.ray[1][slot] = make_float4(inv[0], inv[1], inv[2], tmax0);
+    sm.small[slot] = small;
+  }
+  __syncthreads();
+
+  // ---- cpb clusters x BC / cpb slices of the packed rays --------------
+  const int slices = BC / cpb;
+  const int cl = s & (cpb - 1), sl = s / cpb;
+  float best = INFINITY;
+  if (cl < nc) {
+    const int c = c0 + cl;
+    float lo[3], hi[3];
+    bool nonempty = true;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float mn = cl_min[c * 3 + a], mx = cl_max[c * 3 + a];
+      nonempty = nonempty && mn <= mx;
+      lo[a] = mn - CULL_EPS;
+      hi[a] = mx + CULL_EPS;
+    }
+    if (nonempty) {
+      for (int q = sl; q < n_live; q += slices) {
+        const float4 ro = sm.ray[0][q], ri = sm.ray[1][q];
+        const int small = sm.small[q];
+        const float o[3] = {ro.x, ro.y, ro.z}, inv[3] = {ri.x, ri.y, ri.z};
+        const float tmin = ro.w, tmax = ri.w;
+        if (!(small & SLOW_RAY)) {
+          // no axis with |d| < 1e-12, o finite, 1 / d not NaN: a nonempty
+          // box's bounds are not NaN, so no t below is NaN and jmin /
+          // jmax reduce to their compares, the same selections
+          float enter = 0.f, exit_ = 0.f;
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            const float t0 = (lo[a] - o[a]) * inv[a];
+            const float t1 = (hi[a] - o[a]) * inv[a];
+            const float tlo = t0 < t1 ? t0 : t1;
+            const float thi = t0 > t1 ? t0 : t1;
+            enter = a == 0 ? tlo : (enter > tlo ? enter : tlo);
+            exit_ = a == 0 ? thi : (exit_ < thi ? exit_ : thi);
+          }
+          if (enter <= exit_ && exit_ >= tmin && enter <= tmax) {
+            const float e = enter > tmin ? enter : tmin;
+            best = e < best ? e : best;
+          }
+          continue;
+        }
+        float enter = 0.f, exit_ = 0.f;
+        bool par_ok = true;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const bool sm_a = (small >> a) & 1;
+          const float t0 = (lo[a] - o[a]) * inv[a];
+          const float t1 = (hi[a] - o[a]) * inv[a];
+          const float tlo = sm_a ? -INFINITY : jmin(t0, t1);
+          const float thi = sm_a ? INFINITY : jmax(t0, t1);
+          enter = a == 0 ? tlo : jmax(enter, tlo);
+          exit_ = a == 0 ? thi : jmin(exit_, thi);
+          par_ok = par_ok && (!sm_a || (o[a] >= lo[a] && o[a] <= hi[a]));
+        }
+        if (par_ok && enter <= exit_ && exit_ >= tmin && enter <= tmax) {
+          const float e = jmax(enter, tmin);
+          best = e < best ? e : best;
+        }
+      }
+    }
+  }
+
+  // ---- the slices meet in slice order ---------------------------------
+  sm.part[s] = best;
+  __syncthreads();
+  if (s < nc) {
+    float b = sm.part[s];
+    for (int j = 1; j < slices; ++j) {
+      const float v = sm.part[j * cpb + s];
+      b = v < b ? v : b;
+    }
+    row[s] = b;
+  }
+}
+
+// M's static shared memory: the tile's live rays packed in thread order
+// (o, d, time, t_min, t_max and the ray's index), the per-warp counts of a
+// block-wide prefix, and whether this block finishes the tile.
+struct SearchSmem {
+  float ray[9][BC];
+  int src[BC];
+  int warp_cnt[WARPS];
+  int last;
+};
 
 // Bits of a non-NaN float that order as the float does (-0 before +0),
 // and back.
@@ -512,9 +625,12 @@ extern "C" int tile_enter_launch(const float* rays, const long long* perm,
                                  void* stream) {
   if (chunk <= 0 || n % chunk) return -1;
   const int tiles = n_tiles(n, chunk);
+  int c = 1;                                 // ENTER_CPB, or the least
+  while (c < ENTER_CPB && c < k) c <<= 1;    // power of two that holds k
   if (tiles > 0 && k > 0)
-    tile_enter_kernel<<<tiles, BC, 0, static_cast<cudaStream_t>(stream)>>>(
-        rays, perm, cl_min, cl_max, n, chunk, k, ent);
+    tile_enter_kernel<<<dim3(tiles, (k + c - 1) / c), BC, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        rays, perm, cl_min, cl_max, n, chunk, k, c, ent);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -126,6 +126,7 @@ from rust_ray_tracer_tpu_torch.ops.search import (N_RAY, TRI_ROW, tile_count,
                                                   tri_only)
 from rust_ray_tracer_tpu_torch.ops.shade import N_OUT as SHADE_OUT
 from rust_ray_tracer_tpu_torch.ops.shade_core import LT_COLS, N_DATA, N_RNG
+from rust_ray_tracer_tpu_torch.ops.sphere import SPH_ROW, SUB_ROWS
 from rust_ray_tracer_tpu_torch.ops.uber import (A_COL, N_RND, N_STATE, TCC,
                                                 PRIM_PACK, REDUCE_PIECE,
                                                 TILE, TRI_PACK)
@@ -1162,33 +1163,44 @@ class SphSearchKernel(_Kernel):
     name = "sph_search"
     library = "sphere"
     entry = "sph_search_launch"
-    argtypes = (_P,) * 4 + (_I,) * 4 + (_P, _P)
+    argtypes = (_P,) * 5 + (_I,) * 4 + (_P, _P)
 
-    def __call__(self, rays, tab, cl_min, cl_max, n_sph, chunk=None):
+    def __call__(self, rays, tab, cl_min, cl_max, n_sph, chunk=None,
+                 boxes=None):
         """``rays`` [9, N] planes (o, d, time, t_min, t_max), ``tab``
-        [K * 128, 9] (``ops/sphere.sph_table``: c0, c1 - c0, t0,
-        1 / (t1 - t0), r; far pad rows), the swept boxes ``cl_min`` /
-        ``cl_max`` [K, 3], ``n_sph`` real rows (the index clamp),
-        ``chunk`` rays a chunk (None: N)."""
+        [K * 128, 12] (``ops/sphere.sph_table``: c0, c1 - c0, t0,
+        1 / (t1 - t0), r, r * r, two zeros; far pad rows; 16-byte
+        aligned), the swept boxes ``cl_min`` / ``cl_max`` [K, 3],
+        ``n_sph`` real rows (the index clamp), ``chunk`` rays a chunk
+        (None: N), ``boxes`` [K * 4, 8] the 32-row sub-boxes
+        (``ops/sphere.sph_boxes``, 16-byte aligned)."""
         dev = rays.device
         if dev.type != "cuda":
             raise ValueError(f"sph_search kernel needs CUDA tensors, got "
                              f"{dev}")
+        if boxes is None:
+            raise ValueError("sph_search kernel needs the sub-boxes "
+                             "(ops/sphere.sph_boxes)")
         n = rays.shape[1] if rays.dim() == 2 else -1
         chunk = n if chunk is None else chunk
         k = cl_min.shape[0]
         _check("rays", rays, dev, (N_RAY, n))
-        _check("tab", tab, dev, (k * SCL, 9))
+        _check("tab", tab, dev, (k * SCL, SPH_ROW))
+        _check("boxes", boxes, dev, (k * SCL // SUB_ROWS, 8))
         _check("cl_min", cl_min, dev, (k, 3))
         _check("cl_max", cl_max, dev, (k, 3))
+        if tab.data_ptr() % 16 or boxes.data_ptr() % 16:
+            raise ValueError("tab and boxes must be 16-byte aligned (N "
+                             "reads their rows as float4)")
         if not 0 < n_sph <= k * SCL:
             raise ValueError(f"{n_sph} spheres in {k} clusters")
         tile_count(n, chunk)          # raises unless N is whole chunks
         self.load()
         best_t = torch.empty((n,), dtype=torch.float32, device=dev)
         best_i = torch.empty((n,), dtype=torch.int32, device=dev)
-        self._launch(dev, _ptr(rays), _ptr(tab), _ptr(cl_min), _ptr(cl_max),
-                     n, chunk, k, n_sph, _ptr(best_t), _ptr(best_i))
+        self._launch(dev, _ptr(rays), _ptr(tab), _ptr(boxes), _ptr(cl_min),
+                     _ptr(cl_max), n, chunk, k, n_sph, _ptr(best_t),
+                     _ptr(best_i))
         return best_t, best_i
 
 

@@ -111,8 +111,10 @@ class SplitTables:
     tables, or on the per-kind branch kernel L's (``ops/search.
     search_tables``; None there without triangles); ``sph`` kernel N's
     table (``ops/sphere.sph_table``; None below ``CLUSTER`` sphere rows
-    or on the unified branch); ``quads`` [Q, 9] kernel O's table; ``lt``
-    [n_lights + 1, LT_COLS] the lights, the background last; ``fused``
+    or on the unified branch) and ``sph_boxes`` its sub-boxes
+    (``ops/sphere.sph_boxes``; None with it); ``quads`` [Q, 9] kernel O's
+    table; ``lt`` [n_lights + 1, LT_COLS] the lights, the background
+    last; ``fused``
     whether kernel F runs the bounce (``ops/bounce.fused_eligible``);
     ``su`` whether, without F, kernel H does (``ops/bounce.su_eligible``),
     else kernel I and torch's update (``_bounce``'s plain tail)."""
@@ -126,6 +128,7 @@ class SplitTables:
     unified: bool
     search: search_ops.SearchTables | None
     sph: torch.Tensor | None
+    sph_boxes: torch.Tensor | None
     quads: torch.Tensor
     lt: torch.Tensor
     fused: bool
@@ -149,13 +152,14 @@ def make_split_tables(scene) -> SplitTables:
     with torch.no_grad():
         quads = quad_table(scene)
     unified = search_ops.unified(scene)
+    sph_n = not unified and scene.n_spheres >= CLUSTER
     return SplitTables(
         uni=uni, dflt=dflt, t_off=t_off, s_off=s_off, q_off=q_off,
         med_rows=med_rows, unified=unified,
         search=(search_ops.search_tables(scene)
                 if unified or scene.n_tris else None),
-        sph=(sphere_ops.sph_table(scene)
-             if not unified and scene.n_spheres >= CLUSTER else None),
+        sph=sphere_ops.sph_table(scene) if sph_n else None,
+        sph_boxes=sphere_ops.sph_boxes(scene) if sph_n else None,
         quads=quads, lt=light_table(scene),
         fused=fused_eligible(scene), su=su_eligible(scene))
 

@@ -346,9 +346,9 @@ def intersect_select(scene, o, d, time, tables, med_u=None, t_min=None,
     ``t_off``, ``s_off``, ``q_off`` (:func:`winner_table`), ``med_rows``
     [M, 2 + A] (a medium winner's flip | material id | attrs), ``unified``
     (which branch), ``search`` (the search tables of the unified branch,
-    or of L on the other; None without triangles there), ``sph`` (N's
-    table; None below ``CLUSTER`` sphere rows) and ``quads`` (O's
-    table).
+    or of L on the other; None without triangles there), ``sph`` and
+    ``sph_boxes`` (N's table and sub-boxes; None below ``CLUSTER`` sphere
+    rows) and ``quads`` (O's table).
 
     Phase 1 (the search, the fold) runs under ``no_grad``, as JAX's runs on
     stop-gradient copies; phase 2 is differentiable: the gathers from
@@ -396,7 +396,8 @@ def intersect_select(scene, o, d, time, tables, med_u=None, t_min=None,
             if tables.sph is not None:
                 consider(KIND_SPH, *sphere_ops.sph_search(
                     rays, tables.sph, scene.sph_cluster_min,
-                    scene.sph_cluster_max, scene.n_spheres, chunk))
+                    scene.sph_cluster_max, scene.n_spheres, chunk,
+                    tables.sph_boxes))
             elif scene.n_spheres:
                 consider(KIND_SPH, *_sph_candidates(scene, o, d, time, t_min,
                                                     t_max))

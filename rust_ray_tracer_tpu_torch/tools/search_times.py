@@ -1,6 +1,7 @@
 """Times of the search kernels of library ``trace_wave`` (TPU kernels A, D
-and E, and the noise variants of A and D) and of library ``search`` (K
-and M, with the unified search's sort of the rays) on one CUDA card, for
+and E, and the noise variants of A and D), of library ``search`` (K and
+M, with the unified search's sort of the rays) and of library ``sphere``
+(N) on one CUDA card, for
 holding one tree's kernels against another's in the same call;
 ``chip_smoke.py`` runs :func:`search_report` as its search checks, counts
 M's work with :func:`m_work` and times its kernels with :func:`cold_ms`
@@ -36,7 +37,8 @@ rays, depth 4, chunk 9216), wave 0's inputs. It writes one JSON object:
   * the lanes on which D's and E's winners differ from A's residual
     winners of the bounce.
 
-The mesh (``--scenes`` names the parts to run; all five by default):
+The mesh (``--scenes`` names the parts to run; the first five by
+default):
 the 65,536-triangle mesh of the tree's ``tests/torch_parity.py`` at the
 same wave, wave 0's recorded calls of K and M (and of
 ``ops/search.search_order`` where the tree has it) on bounces 0-3: per
@@ -51,6 +53,14 @@ check scene's wave 0 (``torch_parity.random_tris``), K's and M's on the
 9-light glTF flagship's (``write_gltf_flagship``), and L's and M's in a
 one-wave render.
 
+``sph``: random with a procedural 1024x512 earth map (the per-kind
+branch: kernel N for its 1,024 sphere rows) on each bounce's recorded
+call of wave 0: the live rays, N's ms out of L2 and in a loop, in a
+one-wave render, and where the tree has ``ops/sphere.sph_sweep_replay``
+its tests by stage, per warp and per ray, the bound by stage
+(:func:`n_work`) and whether its winners are the kernel's. (To time a variant of K or N, such as K's ``ENTER_CPB`` or N's
+``ROWS``, edit it in a copy of the tree with ``sed`` and time the copy.)
+
 ``final``: final_scene's wave 0 on the split route: kernel O on each
 bounce's recorded call (live rays, ms out of L2 and in a loop, in a
 one-wave render; where the tree has ``ops/quad.quad_sweep_replay``, the
@@ -63,8 +73,9 @@ flagship's kernel-B sums of one wave, beside ``index_add_``. B' is called
 through the tree's own interface (sorted keys and order, or an older
 tree's order and row offsets), its sort outside the timed call.
 
-``--save`` writes A's final states and winners, E's winners and M's
-winners of each mesh bounce (and O's of each final_scene bounce) to a
+``--save`` writes A's final states and winners, E's winners, M's and
+K's of each mesh bounce (and O's of each final_scene bounce, N's of each
+random earth bounce) to a
 ``.pt`` file; ``--compare a.pt b.pt
 ...`` then prints, for each file after the first, whether each of those
 tensors equals the first file's bit for bit. Needs one CUDA card,
@@ -523,6 +534,7 @@ def mesh_report(dev, save=None, label="", check=False):
             row = {"bounce": b, **m_work(s_args, bt),
                    "k_ms": times(lambda a=e_args: k(*a)),
                    "m_ms": times(lambda a=s_args: m(*a))}
+            ent = k(*e_args)
             if orders:
                 row["sort_ms"] = times(
                     lambda a=orders[b]: search_ops.search_order(*a))
@@ -533,7 +545,7 @@ def mesh_report(dev, save=None, label="", check=False):
                      | ((bt != ref[0]) & ~(torch.isinf(bt)
                                            & torch.isinf(ref[0])))).sum()))
         if save is not None:
-            for nm, x in (("t", bt), ("kind", bk), ("idx", bi)):
+            for nm, x in (("t", bt), ("kind", bk), ("idx", bi), ("ent", ent)):
                 save[f"{label}.mesh{b}.{nm}"] = x.cpu()
         out["bounces"].append(row)
     return out
@@ -695,12 +707,123 @@ def quad_report(scene, key, save=None, label="final"):
                 nbytes = (rays.numel() + 2 * rays.shape[0] + tab.numel()
                           + 2 * lo.numel()) * 4
                 row.update(work, ops=ops, bytes=nbytes,
-                           bound_ms=max(ops / 67e12, nbytes / 3.35e12) * 1e3,
+                           bound_ms=bound_ms(nbytes, ops),
                            replay_differing=int(((ri != bi.long())
                                                  | (rt != bt)).sum()))
         if save is not None:
             save[f"{label}.quad{b}.t"] = bt.cpu()
             save[f"{label}.quad{b}.i"] = bi.cpu()
+        out["bounces"].append(row)
+    return out
+
+
+# fp32 operations of kernel N by stage (csrc/sphere.cu, counted from the
+# code): per live ray its inverses, |d|^2 and 1 / |d|^2; per slab test of
+# a box K's test (3 axes x (2 subtractions, 2 products, min, max, 2
+# selects), 2 maxima and 2 minima across the axes, the window's 3
+# compares, the clamp to t_min and the running minimum; chip_smoke counts
+# K's with it); per sphere test the lerped centre, b, c and b^2 - a c; the
+# square root, the roots and their windows where the discriminant is
+# positive
+OPS_N_RAY, OPS_SLAB, OPS_N_DISC, OPS_N_ROOT = 15, 33, 27, 14
+# the card's published peaks (H100 SXM, 700 W): fp32 non-tensor, HBM3
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+
+
+def bound_ms(nbytes, ops) -> float:
+    """The least ms the card could take: bytes over its memory rate or
+    operations over its fp32 rate, the larger."""
+    return max(ops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+
+
+def n_work(args):
+    """Kernel N's sweep on one recorded call ``args`` (``sph_search``'s
+    seven arguments), replayed by ``ops/sphere.sph_sweep_replay``: (best t
+    [N], best index [N], the work), the work holding the replay's counts
+    and:
+
+      * ``ops`` and ``bound_ms``: what the data needs, each live ray alone:
+        its inverses (OPS_N_RAY), the cluster boxes and the sub-boxes of
+        the clusters it enters (``cluster_tests`` + ``ray_box_tests``, OPS_SLAB
+        each), its sphere tests up to the discriminant (``ray_tests``,
+        OPS_N_DISC) and the roots where its own discriminant is positive
+        (``ray_root_tests``, OPS_N_ROOT);
+      * ``warp_ops`` and ``warp_bound_ms``: what the kernel's votes make
+        (the tile's and the warps' box tests, every swept test, the roots
+        where a lane of the warp has disc > 0);
+      * ``bytes``: the rays, the table, the sub-boxes and the cluster boxes
+        read once, t and the index written once."""
+    from rust_ray_tracer_tpu_torch.ops import sphere as sphere_ops
+
+    rays, tab, cl_min, _, _, _, boxes = args
+    bt, bi, w = sphere_ops.sph_sweep_replay(*args)
+    rays_ops = w["live_rays"] * OPS_N_RAY
+    w["ops"] = (rays_ops
+                + (w["cluster_tests"] + w["ray_box_tests"]) * OPS_SLAB
+                + w["ray_tests"] * OPS_N_DISC
+                + w["ray_root_tests"] * OPS_N_ROOT)
+    w["warp_ops"] = (rays_ops + (w["cluster_tests"] + w["box_tests"])
+                     * OPS_SLAB + w["tests"] * OPS_N_DISC
+                     + w["root_tests"] * OPS_N_ROOT)
+    w["bytes"] = (rays.numel() + tab.numel() + boxes.numel()
+                  + 2 * cl_min.numel() + 2 * rays.shape[1]) * 4
+    w["bound_ms"] = bound_ms(w["bytes"], w["ops"])
+    w["warp_bound_ms"] = bound_ms(w["bytes"], w["warp_ops"])
+    return bt, bi, w
+
+
+def earth_scene(dev):
+    """random with a procedural 1024x512 earth map (written to a temporary
+    working directory), on the split route's per-kind branch: N."""
+    tp = _parity()
+    prev = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        tp.write_earth_map(tmp, 1024, 512)
+        os.chdir(tmp)
+        try:
+            return compile_scene(builders.random_scene(WIDTH / HEIGHT),
+                                 device=dev)
+        finally:
+            os.chdir(prev)
+
+
+def sph_report(dev, save=None, label="sph"):
+    """Kernel N on each bounce's recorded call of wave 0 of random with the
+    earth map (the module docstring's ``sph`` part)."""
+    from rust_ray_tracer_tpu_torch.ops import sphere as sphere_ops
+
+    scene = earth_scene(dev)
+    key = rng.key(0, dev)
+
+    def render():
+        with torch.no_grad():
+            return render_waves(scene, WIDTH, HEIGHT, key, 0, 1, depth=DEPTH,
+                                chunk_size=CHUNK)
+
+    render()
+    with _parity().split_recorder() as rec:
+        render()
+    torch.cuda.synchronize()
+    n = K.sph_search_kernel
+    out = {"spheres": scene.n_spheres,
+           "clusters": scene.sph_cluster_min.shape[0],
+           "in_path_ms": device_ms_in_order(render, "sph_search_kernel"),
+           "bounces": []}
+    replay = hasattr(sphere_ops, "sph_sweep_replay")
+    for b, args in enumerate(rec["sph"]):
+        rays = args[0]
+        with torch.no_grad():
+            bt, bi = n(*args)
+            row = {"bounce": b, "rays": rays.shape[1],
+                   "live_rays": int((rays[8] > rays[7]).sum()),
+                   "ms": times(lambda a=args: n(*a))}
+            if replay:
+                rt, ri, work = n_work(args)
+                row.update(work, replay_differing=int(((ri != bi.long())
+                                                       | (rt != bt)).sum()))
+        if save is not None:
+            save[f"{label}.sph{b}.t"] = bt.cpu()
+            save[f"{label}.sph{b}.i"] = bi.cpu()
         out["bounces"].append(row)
     return out
 
@@ -720,17 +843,8 @@ def earth_report(dev):
     """random with a procedural 1024x512 earth map (the split route: the
     atlas's 524,288 texel rows among the row sums): B' on a one-wave
     training step's row and light sums (:func:`reduce_report`)."""
-    tp = _parity()
-    prev = os.getcwd()
-    with tempfile.TemporaryDirectory() as tmp:
-        tp.write_earth_map(tmp, 1024, 512)
-        os.chdir(tmp)
-        try:
-            scene = compile_scene(builders.random_scene(WIDTH / HEIGHT),
-                                  device=dev)
-            sums, parts = step_sums(scene, rng.key(0, dev))
-        finally:
-            os.chdir(prev)
+    scene = earth_scene(dev)
+    sums, parts = step_sums(scene, rng.key(0, dev))
     return {"atlas_rows": int(scene.img_data.shape[0]),
             "bwd_reduce": reduce_report(sums, parts)}
 
@@ -783,7 +897,7 @@ def main(argv=None) -> int:
     ap.add_argument("--compare", nargs="+")
     ap.add_argument("--scenes", default="flagship,random,mesh,tri,gltf",
                     help="comma-separated parts: flagship, random, mesh, "
-                         "tri, gltf, final, earth, bwd")
+                         "tri, gltf, sph, final, earth, bwd")
     ap.add_argument("--check", action="store_true",
                     help="hold M's winners on every mesh bounce against "
                          "the plain version")
@@ -805,7 +919,7 @@ def main(argv=None) -> int:
            "trace_wave_flags": list(K.LIBRARIES["trace_wave"][1]),
            "ptxas": {n: ptxas_report(builds[n].log)
                      for n in ("trace_wave", "trace_wave_noise", "search",
-                               "trace_wave_bwd", "split")}}
+                               "sphere", "trace_wave_bwd", "split")}}
     if "flagship" in parts:
         res["flagship"] = scene_times(
             "flagship", builders.procedural_flagship, dev, save)
@@ -822,6 +936,8 @@ def main(argv=None) -> int:
                                    "search")
     if "final" in parts:
         res["final"] = final_report(dev, save)
+    if "sph" in parts:
+        res["sph"] = sph_report(dev, save)
     if "earth" in parts:
         res["earth"] = earth_report(dev)
     if "bwd" in parts:

@@ -47,10 +47,10 @@ from rust_ray_tracer_tpu_torch.utils import rng
 # by its own name (pytest puts tests/ on sys.path): on a machine where an
 # installed package is called ``tests``, ``tests.torch_parity`` is not found
 from torch_parity import (SMALL_SCENES, assert_flip_budget,
-                          assert_scaled_close, mesh, random_earth_view,
-                          random_tris, rel_l2, split_cots,
-                          split_kernel_inputs, split_recorder, torch_scene,
-                          write_earth_map, write_gltf_flagship)
+                          assert_scaled_close, enter_cases, hollow_spheres,
+                          mesh, random_earth_view, random_tris, rel_l2,
+                          split_cots, split_kernel_inputs, split_recorder,
+                          torch_scene, write_earth_map, write_gltf_flagship)
 
 W = H = 32          # one 1024-ray chunk
 DEPTH = 4
@@ -1001,10 +1001,10 @@ def test_cull_dispatchers_refuse_other_devices(tmp_path, monkeypatch):
     from rust_ray_tracer_tpu_torch.ops import search, sphere
 
     rec = _cull_calls(tmp_path, monkeypatch)
-    rays, tab, cl_min, cl_max, n_sph, chunk = rec["sph"][0]
+    rays, tab, cl_min, cl_max, n_sph, chunk, boxes = rec["sph"][0]
     with pytest.raises(ValueError, match="unsupported device"):
         sphere.sph_search(rays.to("meta"), tab.to("meta"), cl_min.to("meta"),
-                          cl_max.to("meta"), n_sph, chunk)
+                          cl_max.to("meta"), n_sph, chunk, boxes.to("meta"))
     rays, ent, tabs, chunk = rec["tri"][0]
     with pytest.raises(ValueError, match="unsupported device"):
         search.tri_search(rays.to("meta"), ent.to("meta"),
@@ -1034,6 +1034,130 @@ def test_cull_kernels_match_plain_on_card(cuda, tmp_path, monkeypatch):
             assert torch.equal(got[1].long(), ref[1].long())
         assert bool(torch.isfinite(got_s[0]).any())
         assert bool(torch.isfinite(got_t[0]).any())
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _enter_inputs(dev):
+    """``torch_parity.enter_cases`` on ``dev``: (rays, chunk, {name:
+    (cl_min, cl_max)}, perm)."""
+    rays, chunk, boxes, perm = enter_cases()
+    return (torch.from_numpy(rays).to(dev), chunk,
+            {k: tuple(torch.from_numpy(x).to(dev) for x in v)
+             for k, v in boxes.items()},
+            torch.from_numpy(perm).to(dev))
+
+
+def test_enter_cases_reach_the_edges():
+    """The K cases the card's test takes, through the plain version on the
+    CPU: chunks of 600 (a short third tile), one tile with no live ray
+    (a row of +inf), 40 and 300 clusters, some entered and some not."""
+    from rust_ray_tracer_tpu_torch.ops import search
+
+    rays, chunk, boxes, perm = _enter_inputs("cpu")
+    assert rays.shape[1] % 256 and chunk % 256 and rays.is_contiguous()
+    for lo, hi in boxes.values():
+        ent = search.tile_enter_plain(rays, lo, hi, chunk)
+        assert ent.shape == (6, lo.shape[0])
+        assert bool(torch.isinf(ent[3]).all())           # the dead tile
+        fin = torch.isfinite(ent)
+        assert 0.05 < float(fin[[0, 1, 2, 4, 5]].float().mean()) < 0.95
+        assert not bool(fin[:, 5].any())                 # the empty box
+        sorted_ent = search.tile_enter_plain(rays, lo, hi, chunk, perm)
+        assert not torch.equal(sorted_ent, ent)
+
+
+@pytest.mark.gpu
+def test_tile_enter_kernel_edges_on_card(cuda):
+    """K bit for bit against ``tile_enter_plain`` on the card, on
+    ``torch_parity.enter_cases``: a chunk that is not a multiple of 256, a
+    tile with no live ray, k = 40 (< 256; one part-filled block a tile)
+    and 300 (> 256; five blocks a tile, the last part-filled), rays
+    parallel to an axis, with and without a permutation. One launch a
+    call; two give the same bits."""
+    from rust_ray_tracer_tpu_torch.ops import search
+
+    rays, chunk, boxes, perm = _enter_inputs(cuda)
+    for lo, hi in boxes.values():
+        for pm in (None, perm):
+            ref = search.tile_enter_plain(rays, lo, hi, chunk, pm)
+            before = tile_enter_kernel.launches
+            got = search.tile_enter(rays, lo, hi, chunk, pm)
+            again = search.tile_enter(rays, lo, hi, chunk, pm)
+            torch.cuda.synchronize()
+            assert tile_enter_kernel.launches == before + 2
+            assert torch.equal(_bits(got), _bits(ref)), pm
+            assert torch.equal(_bits(again), _bits(got))
+            if pm is None:                           # the dead tile
+                assert bool(torch.isinf(got[3]).all())
+
+
+def _hollow_calls(dev):
+    """N's calls on ``torch_parity.hollow_spheres`` on ``dev``: the 300
+    rays as one chunk and as two of 150."""
+    import types
+
+    from rust_ray_tracer_tpu_torch.ops import sphere
+
+    fields, rays = hollow_spheres()
+    sc = types.SimpleNamespace(**{k: torch.from_numpy(v).to(dev)
+                                  for k, v in fields.items()})
+    rays = torch.from_numpy(rays).to(dev)
+    tab = sphere.sph_table(sc)
+    return [(rays, tab, sc.sph_cluster_min, sc.sph_cluster_max,
+             sc.sph_c0.shape[0], chunk, sphere.sph_boxes(sc))
+            for chunk in (None, 150)]
+
+
+@pytest.mark.gpu
+def test_sph_search_kernel_edges_on_card(cuda, tmp_path, monkeypatch):
+    """N against ``sph_search_plain`` on the card (t bit for bit, indices
+    equal) and against ``ops/sphere.sph_sweep_replay`` (the same): on the
+    hollow table (hollow spheres at 32-row edges in two flagged clusters
+    beside one the warps vote on, empty and collapsed windows, a short
+    tile) and on the L check scene's recorded calls. Two runs give the
+    same bits."""
+    from rust_ray_tracer_tpu_torch.ops import sphere
+
+    rec = _cull_calls(tmp_path, monkeypatch)
+    calls = _hollow_calls(cuda) + [tuple(_to(x, cuda) for x in c)
+                                   for c in rec["sph"]]
+    for args in calls:
+        ref = sphere.sph_search_plain(*args)
+        rep = sphere.sph_sweep_replay(*args)
+        got = sphere.sph_search(*args)
+        again = sphere.sph_search(*args)
+        torch.cuda.synchronize()
+        for r in (ref, rep[:2]):
+            assert torch.equal(_bits(got[0]), _bits(r[0]))
+            assert torch.equal(got[1].long(), r[1].long())
+        assert torch.equal(_bits(again[0]), _bits(got[0]))
+        assert torch.equal(again[1], got[1])
+        assert bool(torch.isfinite(ref[0]).any())
+
+
+def test_hollow_calls_hit_hollow_rows():
+    """The hollow table's calls on the CPU: a hollow row of a flagged
+    cluster wins on some ray of each, and so does a row of the cluster
+    without one (sub-boxes flagged and not, so the card's call runs the
+    warps' vote beside the flagged path); the dead lanes miss."""
+    from rust_ray_tracer_tpu_torch.models.scene import CLUSTER
+    from rust_ray_tracer_tpu_torch.ops import sphere
+
+    for args in _hollow_calls("cpu"):
+        assert all(x.is_contiguous() for x in args if torch.is_tensor(x))
+        flags = args[6][:, 3]
+        assert bool((flags == 1).any()) and bool((flags == 0).any())
+        t, i = sphere.sph_search_plain(*args)
+        fields, _ = hollow_spheres()
+        r = torch.from_numpy(fields["sph_r"])
+        won = i[torch.isfinite(t)]
+        assert bool((r[won] < 0).any())
+        assert bool((won >= 2 * CLUSTER).any())
+        dead = args[0][8] <= args[0][7]
+        assert not bool(torch.isfinite(t[dead]).any())
 
 
 @pytest.mark.gpu

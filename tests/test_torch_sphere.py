@@ -127,7 +127,7 @@ def test_sph_search_matches_kernel_n(interpret, earth_dir, monkeypatch):
     ts = compile_scene(tb.get_scene("random", 2.0), device="cpu")
     assert ts.n_spheres == 1024 and ts.img_data.shape[0] == 1
     assert not uber.uber_eligible(ts) and split_reason(ts) is None
-    rays, tab, cl_min, cl_max, n_sph, chunk = split_kernel_inputs(
+    rays, tab, cl_min, cl_max, n_sph, chunk, _ = split_kernel_inputs(
         ts, 32, 16, 2)["sph"]
     assert rays.shape == (9, 1024) and chunk == 512
     assert cl_min.shape == (8, 3)
@@ -181,7 +181,7 @@ def test_sph_search_pad_rows_and_dead_lanes(monkeypatch):
     rays = torch.from_numpy(np.concatenate(
         [o.T, d.T, time[None], t_min[None], t_max[None]]))
     tab = sphere.sph_table(ts)
-    assert tab.shape == (128, 9) and bool((tab[104:, 0] == sphere.FAR).all())
+    assert tab.shape == (128, 12) and bool((tab[104:, 0] == sphere.FAR).all())
     got_t, got_i = sphere.sph_search_plain(
         rays, tab, ts.sph_cluster_min, ts.sph_cluster_max, ts.n_spheres)
     fin = _assert_same_hits((got_t, got_i), _jax_sph(js, rays),

@@ -383,6 +383,91 @@ GLTF_LIGHTS = (
 )
 
 
+def hollow_spheres(n_rows=320, n_rays=300, seed=3):
+    """A hand-made sphere table and rays for kernel N (numpy, float32):
+    ``n_rows`` spheres (every third moving over [0, 1]) in the order given
+    (no Morton sort), in three 128-row clusters. The first two lie in a
+    [-6, 6]^3 cloud with hollow ones (r < 0) at the edges of 32-row
+    groups: row 31 inside row 30's glass sphere, a lone one at row 32,
+    row 160 inside row 159's; so both clusters are flagged. The third
+    holds no hollow sphere, so its sub-boxes take the warps' vote: rows
+    256-287 near (0, 9, 0), the rest near (0, -9, 0), and far pad rows
+    past ``n_rows``. ``rays`` [9, n_rays] (o, d, time, t_min, t_max) aim
+    from outside the cloud at points near its spheres' centres (the first
+    30 near the hollow rows'); every seventh has an empty window (t_max
+    -1), every eleventh a collapsed one (t_max = t_min). Returns (fields,
+    rays): fields holds ``sph_c0``, ``sph_c1``, ``sph_t0``, ``sph_t1``,
+    ``sph_r`` and the 128-row cluster boxes ``sph_cluster_min`` /
+    ``sph_cluster_max`` (``models/scene.py`` ``_cluster_boxes``, the
+    compiler's rule)."""
+    g = np.random.default_rng(seed)
+    c0 = g.uniform(-6.0, 6.0, (n_rows, 3)).astype(np.float32)
+    third = np.arange(n_rows) >= 2 * TS.CLUSTER
+    side = np.where(np.arange(n_rows) < 2 * TS.CLUSTER + 32, 9.0, -9.0)
+    c0[third] = g.uniform(-1.5, 1.5, (int(third.sum()), 3)).astype(
+        np.float32) + np.stack([0 * side, side, 0 * side], 1)[third].astype(
+        np.float32)
+    c1 = c0.copy()
+    c1[::3] += g.uniform(-0.5, 0.5, (len(c1[::3]), 3)).astype(np.float32)
+    r = g.uniform(0.2, 0.6, n_rows).astype(np.float32)
+    for inner, outer in ((31, 30), (160, 159)):
+        c0[inner], c1[inner] = c0[outer], c1[outer]
+        r[inner] = -0.9 * r[outer]
+    r[32] = -0.5
+    lo = np.minimum(c0, c1) - r[:, None]
+    hi = np.maximum(c0, c1) + r[:, None]
+    cl_min, cl_max = TS._cluster_boxes(lo, hi, n_rows, TS.CLUSTER)
+    fields = {"sph_c0": c0, "sph_c1": c1,
+              "sph_t0": np.zeros(n_rows, np.float32),
+              "sph_t1": np.ones(n_rows, np.float32), "sph_r": r,
+              "sph_cluster_min": cl_min, "sph_cluster_max": cl_max}
+    o = g.normal(size=(n_rays, 3)).astype(np.float32)
+    o *= (12.0 / np.linalg.norm(o, axis=1, keepdims=True)).astype(np.float32)
+    at = g.integers(0, n_rows, n_rays)
+    at[:30] = [30, 31, 32, 159, 160] * 6    # the hollow rows and partners
+    aim = c0[at] + g.normal(
+        0.0, 0.3, (n_rays, 3)).astype(np.float32)
+    d = (aim - o) * g.uniform(0.5, 2.0, (n_rays, 1)).astype(np.float32)
+    time = g.uniform(0.0, 1.0, n_rays).astype(np.float32)
+    t_min = np.full(n_rays, 1e-4, np.float32)
+    t_max = np.full(n_rays, np.inf, np.float32)
+    t_max[::7] = -1.0
+    t_max[::11] = t_min[::11]
+    rays = np.concatenate([o.T, d.T, time[None], t_min[None], t_max[None]])
+    return fields, np.ascontiguousarray(rays, dtype=np.float32)
+
+
+def enter_cases(seed=11):
+    """Inputs of kernel K that reach its edges (numpy, float32): two chunks
+    of 600 rays (tiles of 256, 256 and a short 88), the second chunk's
+    first tile all dead; ``boxes_small`` 40 cluster boxes and
+    ``boxes_large`` 300 (some inverted, some thin), and a permutation of
+    the rays. Returns (rays [9, 1200], chunk, {name: (cl_min, cl_max)},
+    perm [1200] int64)."""
+    g = np.random.default_rng(seed)
+    n, chunk = 1200, 600
+    o = g.uniform(-8.0, 8.0, (n, 3)).astype(np.float32)
+    d = g.normal(size=(n, 3)).astype(np.float32)
+    d[::13, 1] = 0.0                    # axis-parallel: |d| < 1e-12
+    time = g.uniform(0.0, 1.0, n).astype(np.float32)
+    t_min = np.full(n, 1e-4, np.float32)
+    t_max = np.where(g.uniform(size=n) < 0.3, 20.0, np.inf).astype(
+        np.float32)
+    t_max[::5] = -1.0
+    t_max[chunk:chunk + 256] = -1.0     # a tile with no live ray
+    rays = np.ascontiguousarray(np.concatenate(
+        [o.T, d.T, time[None], t_min[None], t_max[None]]), dtype=np.float32)
+    boxes = {}
+    for name, k in (("boxes_small", 40), ("boxes_large", 300)):
+        lo = g.uniform(-10.0, 8.0, (k, 3)).astype(np.float32)
+        hi = lo + g.uniform(0.0, 3.0, (k, 3)).astype(np.float32)
+        hi[::17, 0] = lo[::17, 0]       # a flat box
+        lo[5], hi[5] = np.inf, -np.inf  # an inverted (empty) one
+        boxes[name] = (lo, hi)
+    perm = g.permutation(n).astype(np.int64)
+    return rays, chunk, boxes, perm
+
+
 def write_gltf_flagship(path, n_lights=9, form="data_uri") -> str:
     """The flagship as a glTF file: ``builders.procedural_flagship()``'s
     968 triangles (single-sided, as the loader builds them), one Lambertian
@@ -649,7 +734,7 @@ def split_kernel_inputs(ts, w=32, h=32, depth=2, seed=7):
     bounce's rays concatenated: {"quad": (o, d, t_min, t_max) or None,
     "hit": (planes [19, N], kind, flip), "su": (planes [40, N], mkind, lt,
     n_lights), "sph": (ray planes [9, N], table, cl_min, cl_max, n_sph,
-    chunk) or None, "tri": (ray planes [9, N], K's entries, search
+    chunk, sub-boxes) or None, "tri": (ray planes [9, N], K's entries, search
     tables, chunk) or None}; each bounce is one chunk of w * h rays."""
     import torch
 
