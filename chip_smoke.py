@@ -1390,6 +1390,8 @@ def train_phase(label, fwd, dev, smi, nonzero_keys, any_keys,
     a_res_ms = loop_ms(lambda: kern_a(st0, rnd, ctx, DEPTH, residuals=True),
                        5)
     b_ms = loop_ms(lambda: kern_b(hist, rnd, kind, idx, ctx, g_st))
+    with torch.no_grad():
+        b_cold = cold_ms(lambda: kern_b(hist, rnd, kind, idx, ctx, g_st))
     _, contrib, keys, part = kern_b(hist, rnd, kind, idx, ctx, g_st)
     p_rows = ctx.uni.shape[0]
     order_ms = loop_ms(lambda: K.reduce_order(keys))
@@ -1446,7 +1448,9 @@ def train_phase(label, fwd, dev, smi, nonzero_keys, any_keys,
           "ms_per_wave": {
               kern_a.name: fwd["k_med"],
               f"{kern_a.name}_with_residuals": a_res_med,
-              kern_b.name: b_med, "reduce_order_sort": order_med,
+              kern_b.name: b_med,
+              f"{kern_b.name}_l2_flushed": median(b_cold),
+              "reduce_order_sort": order_med,
               "bwd_reduce": red_med, "bwd_reduce_plain": median(red_plain_ms),
               "index_add_yardstick": median(lib_red_ms),
               "glue_rest_of_step": glue_wave,
@@ -1468,6 +1472,7 @@ def train_phase(label, fwd, dev, smi, nonzero_keys, any_keys,
     return {"launches": train_launches, "prof": prof, "hist": hist,
             "kind": kind, "idx": idx, "part": part,
             "m_found": m_found, "a_res_med": a_res_med, "b_med": b_med,
+            "b_cold": median(b_cold),
             "red_med": red_med, "red_plain_ms": median(red_plain_ms),
             "lib_red_ms": median(lib_red_ms),
             "bwd_plain_ms": median(bwd_plain_ms), "full_b_err": full_b_err,
@@ -3224,7 +3229,6 @@ def trace_costs(ctx, hist, kind, idx) -> dict:
     fp32 operations (with the residuals' bytes apart) and B's, as the
     kernel rows count them; with depth 1, D's and D''s."""
     depth, _, n = hist.shape
-    w_cols = ctx.uni.shape[1]
     tables = sum(x.numel() * 4 for x in (ctx.uni, ctx.tri_pack,
                                          ctx.sph_pack, ctx.quad_pack,
                                          ctx.cab, ctx.lt,
@@ -3239,27 +3243,25 @@ def trace_costs(ctx, hist, kind, idx) -> dict:
     a_res_bytes = a_bytes + (depth * 14 * n + 2 * depth * n) * 4
     work = closest_hit_work(hist, ctx)
     a_ops = work["ops"] + n_live * OPS_SHADE + n_noise * OPS_MARBLE
-    # B: what this run's residuals need. Every ray-bounce: its alive
-    # plane. A live ray: its kind and beta (a miss needs no more). A found
-    # ray-bounce: o, d, time, its winner, the randoms its material's
-    # adjoint reads, and its row cotangent with its key out. Once: g in,
-    # dst out, the tables, the per-block partials.
-    found = alive & (kind > 0)
-    m_found = int(found.sum())
-    mat = ctx.uni[idx[found].long(), uber.A_COL].long()
-    rnd_cols = torch.zeros(5, dtype=torch.long, device=mat.device)
-    rnd_cols[S.MAT_LAMBERTIAN] = 6 if ctx.n_lights else 2
-    rnd_cols[S.MAT_METAL] = 4
-    rnd_cols[S.MAT_DIELECTRIC] = 1
-    part = (n // 128) * (ctx.n_lights + 1) * 14
-    b_bytes = (depth * n + n_live * 4 + m_found * (7 + 1 + 1 + w_cols)
-               + int(rnd_cols[mat].sum()) + 2 * 14 * n + ctx.uni.numel()
-               + ctx.lt.numel() + part) * 4 + (
-                   ctx.perlin.vec.numel() + ctx.perlin.perm.numel()) * 4
+    # B: what this run's residuals need (tools/search_times.bwd_bytes)
+    m_found = int((alive & (kind > 0)).sum())
+    b_bytes = search_times.bwd_bytes(hist, kind, idx, ctx.uni, ctx.lt,
+                                     ctx.n_lights,
+                                     (ctx.perlin.vec, ctx.perlin.perm))
     b_ops = m_found * OPS_BWD + n_noise * OPS_MARBLE_BWD
     return {"a_bytes": a_bytes, "a_res_bytes": a_res_bytes, "a_ops": a_ops,
             "b_bytes": b_bytes, "b_ops": b_ops, "live": n_live,
             "found": m_found, "noise": n_noise, "search": work}
+
+
+def bwd_ptxas(kernel, ctx) -> dict:
+    """The ptxas line (registers, stack frame, spills) of ``kernel`` (B's
+    or D''s template name) in the instance of ``ctx``'s variant."""
+    inst = "ILb1E" if ctx.has_noise else "ILb0E"
+    for r in ptxas_report(K.build("trace_wave_bwd").log):
+        if kernel in r["function"] and inst in r["function"]:
+            return r
+    raise AssertionError(f"no ptxas line of {kernel} ({inst})")
 
 
 def kernel_rows(fwd, train, small, variant) -> list[dict]:
@@ -3324,6 +3326,9 @@ def kernel_rows(fwd, train, small, variant) -> list[dict]:
                      "bytes": nb, "operations": ops})
     rows[1]["ray_bounces"] = {"all": DEPTH * n, "live": n_live,
                               "found": m_found, "noise": n_noise}
+    rows[1]["ms_l2_flushed"] = train["b_cold"]
+    rows[1]["ms_loop"] = train["b_med"]
+    rows[1]["ptxas"] = bwd_ptxas("trace_wave_bwd_kernel", ctx)
     rows[0]["search_tests"] = c["search"]
     rows[0]["ms_without_residuals"] = fwd["k_med"]
     rows[0]["bound_ms_without_residuals"] = bound(a_bytes, a_ops)[0]
@@ -3791,7 +3796,8 @@ def fused_rows(checks, trains) -> list[dict]:
                  c["t_dp"]["plain"], "dp_bytes", "dp_ops",
                  max(b["dst_err"] for b in bs),
                  {"ms_with_sort_and_bwd_reduce": statistics.mean(
-                     c["t_sum"]["cold"])})):
+                     c["t_sum"]["cold"]),
+                  "ptxas": bwd_ptxas("fused_bounce_bwd_kernel", ctx)})):
             bounds = [bound(b[nb], b[ops]) for b in bs]
             row = {"name": k.name, "route": "cuda", "source": src + file,
                    "replaces": f"rust_ray_tracer_tpu/ops/pallas_uber.py:"

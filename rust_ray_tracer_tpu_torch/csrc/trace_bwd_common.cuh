@@ -75,7 +75,8 @@ __device__ __forceinline__ void cross_bwd(V3 a, V3 b, V3 g, V3& ga,
 }
 
 // One sphere light's pdf adjoint: cotangents of its centre and radius
-// (added into dl[1..4]) and of p.
+// (added into dl[1..4], entries S apart) and of p.
+template <int S = 1>
 __device__ void sphere_pdf_bwd(const float* __restrict__ l, V3 p, V3 sd,
                                float g, float* dl, V3& gp) {
   const V3 c = {l[1], l[2], l[3]};
@@ -104,14 +105,16 @@ __device__ void sphere_pdf_bwd(const float* __restrict__ l, V3 p, V3 sd,
   const float g_rr = g_q / m_d;
   const float g_dsq = pick_bwd(dist_sq, m_d, EPS, -g_q * rr / (m_d * m_d));
   const V3 g_tc = scl(2.f * g_dsq, tc);
-  dl[1] += g_tc.x;
-  dl[2] += g_tc.y;
-  dl[3] += g_tc.z;
-  dl[4] += 2.f * r * g_rr;
+  dl[1 * S] += g_tc.x;
+  dl[2 * S] += g_tc.y;
+  dl[3 * S] += g_tc.z;
+  dl[4 * S] += 2.f * r * g_rr;
   gp = sub(gp, g_tc);
 }
 
-// One quad light's pdf adjoint: cotangents of q, u, v (dl[5..13]) and p.
+// One quad light's pdf adjoint: cotangents of q, u, v (dl[5..13], entries
+// S apart) and p.
+template <int S = 1>
 __device__ void quad_pdf_bwd(const float* __restrict__ l, V3 p, V3 sd,
                              float g, float* dl, V3& gp) {
   const V3 q = {l[5], l[6], l[7]};
@@ -163,15 +166,15 @@ __device__ void quad_pdf_bwd(const float* __restrict__ l, V3 p, V3 sd,
   V3 g_lu = {0.f, 0.f, 0.f}, g_lv = {0.f, 0.f, 0.f};
   cross_bwd(lu, lv, g_wn, g_lu, g_lv);
   const V3 g_q = scl(g_num, wn);
-  dl[5] += g_q.x;
-  dl[6] += g_q.y;
-  dl[7] += g_q.z;
-  dl[8] += g_lu.x;
-  dl[9] += g_lu.y;
-  dl[10] += g_lu.z;
-  dl[11] += g_lv.x;
-  dl[12] += g_lv.y;
-  dl[13] += g_lv.z;
+  dl[5 * S] += g_q.x;
+  dl[6 * S] += g_q.y;
+  dl[7 * S] += g_q.z;
+  dl[8 * S] += g_lu.x;
+  dl[9 * S] += g_lu.y;
+  dl[10 * S] += g_lu.z;
+  dl[11 * S] += g_lv.x;
+  dl[12 * S] += g_lv.y;
+  dl[13 * S] += g_lv.z;
   gp = sub(gp, g_q);
 }
 
@@ -297,13 +300,15 @@ __device__ __forceinline__ UpdateVjp update_found_vjp(V3 beta, V3 em, V3 wt,
 }
 
 // A live ray that found nothing (update_miss: L += beta * bg): beta's
-// cotangent; the background row's share goes into dbg[0..2].
+// cotangent; the background row's share goes into dbg[0..2], entries S
+// apart.
+template <int S = 1>
 __device__ __forceinline__ V3 update_miss_vjp(const float* __restrict__ bg,
                                               V3 beta, V3 gL, V3 gb,
                                               float* dbg) {
   dbg[0] += gL.x * beta.x;
-  dbg[1] += gL.y * beta.y;
-  dbg[2] += gL.z * beta.z;
+  dbg[S] += gL.y * beta.y;
+  dbg[2 * S] += gL.z * beta.z;
   return {gb.x + gL.x * bg[0], gb.y + gL.y * bg[1], gb.z + gL.z * bg[2]};
 }
 
@@ -311,8 +316,9 @@ __device__ __forceinline__ V3 update_miss_vjp(const float* __restrict__ bg,
 
 // For the cotangents of the emitted radiance, the weight and the scattered
 // direction: adds d's and p's into g_d and g_p, the light rows' into dlt
-// (n_lights rows of LT_COLS), and returns the normal's, the albedo's, the
-// fuzz's and the ior's.
+// (n_lights rows of LT_COLS, entries S apart), and returns the normal's,
+// the albedo's, the fuzz's and the ior's.
+template <int S = 1>
 __device__ __forceinline__ void shade_vjp(
     const ShadeFwd& f, int mkind, V3 d, V3 nrm, V3 p, V3 alb, float ior,
     const float* __restrict__ lt, int n_lights, const float* __restrict__ r,
@@ -340,9 +346,9 @@ __device__ __forceinline__ void shade_vjp(
       for (int l = 0; l < n_lights; ++l) {
         const float* lr = lt + l * LT_COLS;
         if (lr[0] == LIGHT_SPHERE_F)
-          sphere_pdf_bwd(lr, p, lam, g_ps, dlt + l * LT_COLS, g_p);
+          sphere_pdf_bwd<S>(lr, p, lam, g_ps, dlt + l * LT_COLS * S, g_p);
         else if (lr[0] == LIGHT_QUAD_F)
-          quad_pdf_bwd(lr, p, lam, g_ps, dlt + l * LT_COLS, g_p);
+          quad_pdf_bwd<S>(lr, p, lam, g_ps, dlt + l * LT_COLS * S, g_p);
       }
     }
     const float g_c = pick_bwd(f.cos_in, jmax(f.cos_in, 0.f), 0.f, g_cos) /

@@ -27,22 +27,38 @@
 // (14 floats), its randoms (15), its winner (kind, idx) and one winner row,
 // and writes one row cotangent (w floats) for the reduction; the carried
 // cotangent stays in registers across the bounces. The recomputed forward
-// plus its adjoint is a few hundred flops per ray and bounce.
+// plus its adjoint is a few hundred flops per ray and bounce. Its bound
+// (tools/search_times.py bwd_bytes) is a few microseconds, so what it
+// takes beyond that is latency: chains of dependent loads, barriers, and
+// stores that touch many sectors.
 //
 // What the design does about it:
 //   * one thread per ray and a 128-ray block, as the forward; the bounces
 //     run in reverse inside the thread, the cotangent in registers;
 //   * every residual plane is read with neighbouring threads on
-//     neighbouring addresses (structure of arrays), once;
+//     neighbouring addresses (structure of arrays), once; a bounce's loads
+//     (the tile's alive plane, the ray's winner, a live ray's state and
+//     its winner row's leading columns) are all issued before the tile's
+//     vote, so they land while the block waits at its barrier;
 //   * the liveness skip is the TPU's (a 1024-ray tile with no live ray at
 //     bounce b keeps its cotangent, pallas_uber.py:944-947), so the adjoint
 //     of the alive plane is the TPU's too;
 //   * no float atomics: blocks run in no order, so the row cotangents go to
 //     a contributions buffer keyed by winner row, which the host sorts
 //     stably and bwd_reduce sums run by run in an order fixed by the
-//     positions alone;
-//     the light-table cotangents are summed per block in thread order and
-//     then across blocks in block order. Gradients are bitwise repeatable;
+//     positions alone. A warp's 32 rows of that buffer are contiguous: the
+//     lanes write their non-zero columns into the warp's zeroed stage in
+//     shared memory and the warp stores the 32 rows as 16-byte pieces,
+//     consecutive lanes on consecutive addresses (a warp with no row to
+//     store stores nothing; the rows of its rays without a winner hold
+//     zeros, which bwd_reduce never reads, as their key is no row);
+//   * each ray's light-table share lives in shared memory ([entry][ray],
+//     ray t in column t, so the adds are the ray's own, in its order) and
+//     the block's partial is summed after one barrier: warp v takes the
+//     entries v mod 4, each in a halving tree's association over thread
+//     order (t + 64, t + 32, then five shuffles); bwd_reduce sums the
+//     partials across blocks in block order. The light table itself is
+//     read from shared memory. Gradients are bitwise repeatable;
 //   * a scene with Noise textures runs the HAS_NOISE instantiation: the
 //     Perlin tables go to shared memory once per block, before the bounce
 //     loop, and a noise hit recomputes its marble albedo and sends the
@@ -69,6 +85,8 @@ constexpr int TILE = 1024;           // the TPU kernels' liveness grain
 constexpr int MAX_LT = 128;          // (n_lights + 1) * LT_COLS <= 128
 constexpr int RED = 256;             // threads of a reduction block
 constexpr int W_MAX = 32;            // winner-row columns a block sums
+constexpr int WARPS = ROW / 32;
+constexpr unsigned FULL = 0xffffffffu;
 
 struct BwdTables {
   const float* uni;   // [P, w] winner rows (a miss reads none)
@@ -77,6 +95,14 @@ struct BwdTables {
   const int* perlin_perm;    // [3, 256]
   int w, n_lights, has_checker, p_rows;
 };
+
+// Dynamic shared memory of a block of kernel B or D': the Perlin tables
+// (noise variants), each ray's light-table share [ltn][ROW] and each
+// warp's stage of 32 winner-row cotangents [WARPS][32][w].
+constexpr size_t bwd_smem(bool noise, int ltn, int w) {
+  return (noise ? PERLIN_SMEM : 0) + (size_t)ltn * ROW * 4 +
+         (size_t)WARPS * 32 * w * 4;
+}
 
 // The adjoint of ``depth`` bounces of the block's 128 rays replayed from
 // the residuals, the body of kernels B and D': dst, each (bounce, ray)'s
@@ -89,201 +115,248 @@ trace_rays_bwd(const float* __restrict__ hist, const float* __restrict__ rnd,
                float* __restrict__ dst, float* __restrict__ contrib,
                int* __restrict__ keys, float* __restrict__ dlt_part, int n,
                int depth) {
-  extern __shared__ float perlin_smem[];     // PERLIN_SMEM bytes if noise
-  Perlin perlin{nullptr, nullptr};
-  if constexpr (HAS_NOISE) {                 // before any vote or continue
-    perlin = perlin_load(perlin_smem, tb.perlin_vec, tb.perlin_perm);
-    __syncthreads();
-  }
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  __shared__ float slt[MAX_LT];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int i = blockIdx.x * ROW + threadIdx.x;   // n % TILE == 0
   const int tile0 = i / TILE * TILE;
   const int w = tb.w;
   const int ltn = (tb.n_lights + 1) * LT_COLS;
+  Perlin perlin{nullptr, nullptr};
+  float* sdl = smem;                       // [ltn][ROW]
+  if constexpr (HAS_NOISE) {
+    perlin = perlin_load(smem, tb.perlin_vec, tb.perlin_perm);
+    sdl = smem + PERLIN_SMEM / 4;
+  }
+  float* stage = sdl + ltn * ROW + warp * 32 * w;   // this warp's [32][w]
+  for (int k = threadIdx.x; k < ltn; k += ROW) slt[k] = tb.lt[k];
+  const float* __restrict__ lt = slt;
+  float* dl = sdl + threadIdx.x;           // this ray's share, ROW apart
+  for (int k = 0; k < ltn; ++k) dl[k * ROW] = 0.f;
+  for (int k = lane; k < 8 * w; k += 32)
+    reinterpret_cast<float4*>(stage)[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
   float gs[14];
 #pragma unroll
   for (int c = 0; c < 14; ++c) gs[c] = g_in[(size_t)c * n + i];
-  float dlt[MAX_LT];                       // this ray's light-table share
-  for (int k = 0; k < ltn; ++k) dlt[k] = 0.f;
-  const float* __restrict__ bg = tb.lt + tb.n_lights * LT_COLS;
+  const float* __restrict__ bg = lt + tb.n_lights * LT_COLS;
 
   for (int b = depth - 1; b >= 0; --b) {
     const float* __restrict__ H = hist + (size_t)b * 14 * n;
-    bool any = false;
+    const size_t bi = (size_t)b * n + i;
+    // every load of the bounce in flight before the tile's vote: the
+    // tile's alive plane, the ray's winner, and for a live ray its state
+    // and its winner row's leading columns
+    float av[TILE / ROW];
 #pragma unroll
     for (int k = 0; k < TILE / ROW; ++k)
-      any = any || H[(size_t)7 * n + tile0 + threadIdx.x + ROW * k] > 0.5f;
-    const size_t bi = (size_t)b * n + i;
+      av[k] = H[(size_t)7 * n + tile0 + threadIdx.x + ROW * k];
+    const int kd = kind[bi];
+    const int row_id = idx[bi];
+    float s[14];
+    s[7] = H[(size_t)7 * n + i];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < TILE / ROW; ++k) any = any || av[k] > 0.5f;
+    const bool live = s[7] > 0.5f;
+    float pk[10] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float at0 = 0.f, at1 = 0.f, at2 = 0.f;
+    const float* __restrict__ row = tb.uni + (size_t)row_id * w;
+    if (live) {
+#pragma unroll
+      for (int c = 0; c < 14; ++c)
+        if (c != 7) s[c] = H[(size_t)c * n + i];
+      if (kd != KIND_NONE) {
+#pragma unroll
+        for (int c = 0; c < 10; ++c) pk[c] = row[c];
+        at0 = row[A_COL];
+        at1 = row[A_COL + 1];
+        at2 = row[A_COL + 2];
+      }
+    }
     if (!__syncthreads_or(any)) {           // a dead tile keeps dst
       keys[bi] = tb.p_rows;
       continue;
     }
-    const int kd = kind[bi];
-    const int row_id = idx[bi];
     keys[bi] = kd > 0 ? row_id : tb.p_rows;
-    float s[14];
-#pragma unroll
-    for (int c = 0; c < 14; ++c) s[c] = H[(size_t)c * n + i];
     gs[7] = 0.f;                            // alive: a select of constants
-    if (!(s[7] > 0.5f)) continue;           // a dead ray passes through
-    const V3 beta = {s[11], s[12], s[13]};
-    const V3 gL = {gs[8], gs[9], gs[10]};
-    if (kd == KIND_NONE) {                  // miss: L += beta * background
-      const V3 gb = update_miss_vjp(bg, beta, gL, {gs[11], gs[12], gs[13]},
-                                    dlt + tb.n_lights * LT_COLS);
+    bool wrote = false;                     // a row cotangent to store
+    if (live && kd == KIND_NONE) {          // miss: L += beta * background
+      const V3 gb = update_miss_vjp<ROW>(
+          bg, {s[11], s[12], s[13]}, {gs[8], gs[9], gs[10]},
+          {gs[11], gs[12], gs[13]}, dl + tb.n_lights * LT_COLS * ROW);
       gs[11] = gb.x;
       gs[12] = gb.y;
       gs[13] = gb.z;
-      continue;
-    }
+    } else if (live) {                      // a dead ray passes through
+      wrote = true;
+      const V3 beta = {s[11], s[12], s[13]};
+      const V3 gL = {gs[8], gs[9], gs[10]};
 
-    // ---- forward, recomputed (trace_wave.cu) --------------------------
-    const V3 o = {s[0], s[1], s[2]};
-    const V3 d = {s[3], s[4], s[5]};
-    const float time = s[6];
-    const float* __restrict__ row = tb.uni + (size_t)row_id * w;
-    const float* pk = row;
-    const bool flip = row[9] > 0.5f;
-    const float* att = row + A_COL;
-    const int mkind = (int)att[0];
-    const float fuzz = att[1], ior = att[2];
-    const bool is_chk = tb.has_checker && att[12] > 0.5f;
+      // ---- forward, recomputed (trace_wave.cu) ------------------------
+      const V3 o = {s[0], s[1], s[2]};
+      const V3 d = {s[3], s[4], s[5]};
+      const float time = s[6];
+      const bool flip = pk[9] > 0.5f;
+      const float* att = row + A_COL;
+      const int mkind = (int)at0;
+      const float fuzz = at1, ior = at2;
+      const bool is_chk = tb.has_checker && att[12] > 0.5f;
 
-    float t;
-    V3 nrm;
-    if (kd == KIND_TRI) {
-      const V3 v0 = {pk[0], pk[1], pk[2]};
-      const V3 e1 = {pk[3], pk[4], pk[5]}, e2 = {pk[6], pk[7], pk[8]};
-      const V3 tn = cross(e1, e2);
-      const float det = -(d.x * tn.x + d.y * tn.y + d.z * tn.z);
-      const float t_num = dot3(o, tn) - dot3(v0, tn);
-      t = t_num * safe_div(1.f, det);
-      const float sgn = det > 0.f ? 1.f : (det < 0.f ? -1.f : 0.f);
-      nrm = normalize(tn);
-      nrm = {nrm.x * sgn, nrm.y * sgn, nrm.z * sgn};
-    } else if (kd == KIND_SPH) {
-      const V3 c0 = {pk[0], pk[1], pk[2]}, c1 = {pk[3], pk[4], pk[5]};
-      const float st0_ = pk[6], st1_ = pk[7], sr = pk[8];
-      const float frac = safe_div(time - st0_, st1_ - st0_);
-      const V3 cen = {c0.x + frac * (c1.x - c0.x),
-                      c0.y + frac * (c1.y - c0.y),
-                      c0.z + frac * (c1.z - c0.z)};
-      const V3 oc = {o.x - cen.x, o.y - cen.y, o.z - cen.z};
-      const float a = d.x * d.x + d.y * d.y + d.z * d.z;
-      const float bq = dot3(oc, d);
-      const float cc = dot3(oc, oc) - sr * sr;
-      const float disc = bq * bq - a * cc;
-      const float sq = safe_sqrt(disc);
-      const float root1 = safe_div(-bq - sq, a);
-      const float root2 = safe_div(-bq + sq, a);
-      const bool ok1 = disc > 0.f && root1 >= T_MIN && root1 <= INFINITY;
-      t = ok1 ? root1 : root2;
-      const float inv_r = 1.f / jmax(sr, 1e-12f);
-      nrm = {(o.x + t * d.x - cen.x) * inv_r, (o.y + t * d.y - cen.y) * inv_r,
-             (o.z + t * d.z - cen.z) * inv_r};
-    } else {
-      const V3 q = {pk[0], pk[1], pk[2]};
-      const V3 qu = {pk[3], pk[4], pk[5]}, qv = {pk[6], pk[7], pk[8]};
-      const V3 wn = cross(qu, qv);
-      const float denom = dot3(d, wn);
-      t = safe_div(dot3({q.x - o.x, q.y - o.y, q.z - o.z}, wn), denom);
-      nrm = normalize(wn);
-      const float dsign = dot3(d, nrm) > 0.f ? -1.f : 1.f;
-      nrm = {nrm.x * dsign, nrm.y * dsign, nrm.z * dsign};
-    }
-    const V3 p = {o.x + t * d.x, o.y + t * d.y, o.z + t * d.z};
-    const float ny_pre = nrm.y;
-    if (flip) nrm.y = -fabsf(nrm.y);
-
-    int leaf = 3;                           // albedo column in att
-    if (is_chk) {
-      const float sines = sinf(10.f * p.x) * sinf(10.f * p.y) *
-                          sinf(10.f * p.z);
-      leaf = sines < 0.f ? 9 : 6;
-    }
-    V3 alb = {att[leaf], att[leaf + 1], att[leaf + 2]};
-    const int sc_col = tb.has_checker ? 13 : 6;   // noise scale, then flag
-    const bool is_nz = HAS_NOISE && att[sc_col + 1] > 0.5f;
-    if constexpr (HAS_NOISE) {
-      if (is_nz) {
-        const float m = marble(perlin, p, att[sc_col]);
-        alb = {m, m, m};
+      float t;
+      V3 nrm;
+      if (kd == KIND_TRI) {
+        const V3 v0 = {pk[0], pk[1], pk[2]};
+        const V3 e1 = {pk[3], pk[4], pk[5]}, e2 = {pk[6], pk[7], pk[8]};
+        const V3 tn = cross(e1, e2);
+        const float det = -(d.x * tn.x + d.y * tn.y + d.z * tn.z);
+        const float t_num = dot3(o, tn) - dot3(v0, tn);
+        t = t_num * safe_div(1.f, det);
+        const float sgn = det > 0.f ? 1.f : (det < 0.f ? -1.f : 0.f);
+        nrm = normalize(tn);
+        nrm = {nrm.x * sgn, nrm.y * sgn, nrm.z * sgn};
+      } else if (kd == KIND_SPH) {
+        const V3 c0 = {pk[0], pk[1], pk[2]}, c1 = {pk[3], pk[4], pk[5]};
+        const float st0_ = pk[6], st1_ = pk[7], sr = pk[8];
+        const float frac = safe_div(time - st0_, st1_ - st0_);
+        const V3 cen = {c0.x + frac * (c1.x - c0.x),
+                        c0.y + frac * (c1.y - c0.y),
+                        c0.z + frac * (c1.z - c0.z)};
+        const V3 oc = {o.x - cen.x, o.y - cen.y, o.z - cen.z};
+        const float a = d.x * d.x + d.y * d.y + d.z * d.z;
+        const float bq = dot3(oc, d);
+        const float cc = dot3(oc, oc) - sr * sr;
+        const float disc = bq * bq - a * cc;
+        const float sq = safe_sqrt(disc);
+        const float root1 = safe_div(-bq - sq, a);
+        const float root2 = safe_div(-bq + sq, a);
+        const bool ok1 = disc > 0.f && root1 >= T_MIN && root1 <= INFINITY;
+        t = ok1 ? root1 : root2;
+        const float inv_r = 1.f / jmax(sr, 1e-12f);
+        nrm = {(o.x + t * d.x - cen.x) * inv_r,
+               (o.y + t * d.y - cen.y) * inv_r,
+               (o.z + t * d.z - cen.z) * inv_r};
+      } else {
+        const V3 q = {pk[0], pk[1], pk[2]};
+        const V3 qu = {pk[3], pk[4], pk[5]}, qv = {pk[6], pk[7], pk[8]};
+        const V3 wn = cross(qu, qv);
+        const float denom = dot3(d, wn);
+        t = safe_div(dot3({q.x - o.x, q.y - o.y, q.z - o.z}, wn), denom);
+        nrm = normalize(wn);
+        const float dsign = dot3(d, nrm) > 0.f ? -1.f : 1.f;
+        nrm = {nrm.x * dsign, nrm.y * dsign, nrm.z * dsign};
       }
-    }
+      const V3 p = {o.x + t * d.x, o.y + t * d.y, o.z + t * d.z};
+      const float ny_pre = nrm.y;
+      if (flip) nrm.y = -fabsf(nrm.y);
 
-    // ---- the shading recomputed, the adjoints of the estimator update
-    // and of the shading (trace_bwd_common.cuh) --------------------------
-    const float* __restrict__ r = rnd + (size_t)b * 15 * n + i;
-    const ShadeFwd sf = shade_fwd(mkind, d, nrm, p, alb, fuzz, tb.lt,
-                                  tb.n_lights, r, (size_t)n);
-    const UpdateVjp u = update_found_vjp(
-        beta, sf.em, sf.wt, sf.alive, {gs[0], gs[1], gs[2]},
-        {gs[3], gs[4], gs[5]}, gL, {gs[11], gs[12], gs[13]});
-    gs[11] = u.g_beta.x;
-    gs[12] = u.g_beta.y;
-    gs[13] = u.g_beta.z;
-    V3 g_o = u.g_o, g_d = u.g_d, g_p = u.g_p, g_n, g_a;
-    float g_fuzz, g_ior;
-    shade_vjp(sf, mkind, d, nrm, p, alb, ior, tb.lt, tb.n_lights, r,
-              (size_t)n, u.g_em, u.g_wt, u.g_sd, g_d, g_p, g_n, g_a, g_fuzz,
-              g_ior, dlt);
-
-    // ---- adjoint of the marble: the albedo's cotangent, summed over the
-    // three channels, into the hit point and the texture's scale ----------
-    float g_scale = 0.f;
-    if constexpr (HAS_NOISE) {
-      if (is_nz) {
-        const MarbleGrad mg = marble_vjp(perlin, p, att[sc_col],
-                                         g_a.x + g_a.y + g_a.z);
-        g_p = add(g_p, mg.p);
-        g_scale = mg.scale;
+      int leaf = 3;                         // albedo column in att
+      if (is_chk) {
+        const float sines = sinf(10.f * p.x) * sinf(10.f * p.y) *
+                            sinf(10.f * p.z);
+        leaf = sines < 0.f ? 9 : 6;
       }
-    }
+      V3 alb = {att[leaf], att[leaf + 1], att[leaf + 2]};
+      const int sc_col = tb.has_checker ? 13 : 6;  // noise scale, then flag
+      const bool is_nz = HAS_NOISE && att[sc_col + 1] > 0.5f;
+      if constexpr (HAS_NOISE) {
+        if (is_nz) {
+          const float m = marble(perlin, p, att[sc_col]);
+          alb = {m, m, m};
+        }
+      }
 
-    // ---- adjoint of the hit attributes (trace_bwd_common.cuh) ----------
-    float g_pk[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    float g_time = 0.f, g_tmed = 0.f;
-    hit_attrs_vjp<false>(kd, o, d, time, T_MIN, INFINITY, pk, flip, ny_pre,
-                         t, p, {0.f, g_p, g_n, 0.f, 0.f, {0.f, 0.f, 0.f}},
-                         g_o, g_d, g_time, g_pk, g_tmed);
+      // ---- the shading recomputed, the adjoints of the estimator update
+      // and of the shading (trace_bwd_common.cuh) ------------------------
+      const float* __restrict__ r = rnd + (size_t)b * 15 * n + i;
+      const ShadeFwd sf = shade_fwd(mkind, d, nrm, p, alb, fuzz, lt,
+                                    tb.n_lights, r, (size_t)n);
+      const UpdateVjp u = update_found_vjp(
+          beta, sf.em, sf.wt, sf.alive, {gs[0], gs[1], gs[2]},
+          {gs[3], gs[4], gs[5]}, gL, {gs[11], gs[12], gs[13]});
+      gs[11] = u.g_beta.x;
+      gs[12] = u.g_beta.y;
+      gs[13] = u.g_beta.z;
+      V3 g_o = u.g_o, g_d = u.g_d, g_p = u.g_p, g_n, g_a;
+      float g_fuzz, g_ior;
+      shade_vjp<ROW>(sf, mkind, d, nrm, p, alb, ior, lt, tb.n_lights, r,
+                    (size_t)n, u.g_em, u.g_wt, u.g_sd, g_d, g_p, g_n, g_a,
+                    g_fuzz, g_ior, dl);
 
-    gs[0] = g_o.x;
-    gs[1] = g_o.y;
-    gs[2] = g_o.z;
-    gs[3] = g_d.x;
-    gs[4] = g_d.y;
-    gs[5] = g_d.z;
-    gs[6] += g_time;
+      // ---- adjoint of the marble: the albedo's cotangent, summed over
+      // the three channels, into the hit point and the texture's scale --
+      float g_scale = 0.f;
+      if constexpr (HAS_NOISE) {
+        if (is_nz) {
+          const MarbleGrad mg = marble_vjp(perlin, p, att[sc_col],
+                                           g_a.x + g_a.y + g_a.z);
+          g_p = add(g_p, mg.p);
+          g_scale = mg.scale;
+        }
+      }
 
-    // this (bounce, ray)'s winner-row cotangent, for bwd_reduce
-    float* __restrict__ out = contrib + bi * w;
-    for (int c = 0; c < w; ++c) out[c] = 0.f;
+      // ---- adjoint of the hit attributes (trace_bwd_common.cuh) --------
+      float g_pk[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      float g_time = 0.f, g_tmed = 0.f;
+      hit_attrs_vjp<false>(kd, o, d, time, T_MIN, INFINITY, pk, flip,
+                           ny_pre, t, p,
+                           {0.f, g_p, g_n, 0.f, 0.f, {0.f, 0.f, 0.f}},
+                           g_o, g_d, g_time, g_pk, g_tmed);
+
+      gs[0] = g_o.x;
+      gs[1] = g_o.y;
+      gs[2] = g_o.z;
+      gs[3] = g_d.x;
+      gs[4] = g_d.y;
+      gs[5] = g_d.z;
+      gs[6] += g_time;
+
+      // this (bounce, ray)'s winner-row cotangent, for bwd_reduce
+      float* __restrict__ out = stage + lane * w;   // zeros elsewhere
 #pragma unroll
-    for (int k = 0; k < 9; ++k) out[k] = g_pk[k];
-    out[A_COL + 1] = g_fuzz;
-    out[A_COL + 2] = g_ior;
-    if (is_nz) {
-      out[A_COL + sc_col] = g_scale;
-    } else {
-      out[A_COL + leaf] = g_a.x;
-      out[A_COL + leaf + 1] = g_a.y;
-      out[A_COL + leaf + 2] = g_a.z;
+      for (int k = 0; k < 9; ++k) out[k] = g_pk[k];
+      out[A_COL + 1] = g_fuzz;
+      out[A_COL + 2] = g_ior;
+      if (is_nz) {
+        out[A_COL + sc_col] = g_scale;
+      } else {
+        out[A_COL + leaf] = g_a.x;
+        out[A_COL + leaf + 1] = g_a.y;
+        out[A_COL + leaf + 2] = g_a.z;
+      }
+    }
+    // the warp's 32 rows of contrib are contiguous: stored from the stage
+    // in 16-byte pieces, consecutive lanes on consecutive addresses, and
+    // the stage zeroed for the next bounce (whose writes follow its vote's
+    // barrier)
+    if (__any_sync(FULL, wrote)) {
+      __syncwarp();
+      float4* st4 = reinterpret_cast<float4*>(stage);
+      float4* out4 = reinterpret_cast<float4*>(
+          contrib + ((size_t)b * n + blockIdx.x * ROW + warp * 32) * w);
+      for (int k = lane; k < 8 * w; k += 32) {
+        const float4 v = st4[k];
+        st4[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+        out4[k] = v;
+      }
     }
   }
 
 #pragma unroll
   for (int c = 0; c < 14; ++c) dst[(size_t)c * n + i] = gs[c];
 
-  // the block's light-table share, summed over its rays in thread order
-  __shared__ float red[ROW];
-  for (int k = 0; k < ltn; ++k) {
-    red[threadIdx.x] = dlt[k];
-    __syncthreads();
-    for (int s = ROW / 2; s > 0; s >>= 1) {
-      if ((int)threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-      __syncthreads();
-    }
-    if (threadIdx.x == 0) dlt_part[(size_t)blockIdx.x * ltn + k] = red[0];
-    __syncthreads();
+  // the block's light-table partial: warp v takes the entries k = v mod
+  // WARPS, each summed over the block's rays in the association of a
+  // halving tree over thread order (t + 64, then t + 32, then a shuffle
+  // tree over the warp)
+  __syncthreads();
+  for (int k = warp; k < ltn; k += WARPS) {
+    const float* x = sdl + k * ROW;
+    float v = (x[lane] + x[lane + 64]) + (x[lane + 32] + x[lane + 96]);
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) v = v + __shfl_down_sync(FULL, v, s);
+    if (lane == 0) dlt_part[(size_t)blockIdx.x * ltn + k] = v;
   }
 }
 
@@ -348,7 +421,6 @@ fused_bounce_bwd_kernel(const float* __restrict__ st,
 constexpr int PIECE = 1024;            // sorted terms one block sums
 constexpr int PER = PIECE / RED;       // consecutive terms a thread adds
 constexpr int COLS = 8;                // columns whose terms load together
-constexpr unsigned FULL = 0xffffffffu;
 
 __device__ float block_sum(float v, float* red) {
   const int t = threadIdx.x;
@@ -638,14 +710,39 @@ bwd_reduce_kernel(const float* __restrict__ contrib,
                  duni + (size_t)pc.klast * w + lane);
 }
 
+// The launch of kernel ``kern`` (B or D', either variant) over n / ROW
+// blocks with its dynamic shared memory, which past 48 KB (8 lights) the
+// kernel must be allowed first; 0 = launched.
+template <typename Kernel>
+int launch_bwd(Kernel kern, bool noise, const float* hist, const float* rnd,
+               const int* kind, const int* idx, const float* g,
+               const BwdTables& tb, float* dst, float* contrib, int* keys,
+               float* dlt_part, int n, int depth, void* stream) {
+  const int ltn = (tb.n_lights + 1) * LT_COLS;
+  if (n % TILE != 0 || ltn > MAX_LT ||
+      reinterpret_cast<size_t>(contrib) % 16 != 0)
+    return -1;
+  const int blocks = n / ROW;
+  if (blocks == 0) return 0;
+  const size_t smem = bwd_smem(noise, ltn, tb.w);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kern<<<blocks, ROW, smem, static_cast<cudaStream_t>(stream)>>>(
+      hist, rnd, kind, idx, g, tb, dst, contrib, keys, dlt_part, n, depth);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launch kernel B on ``stream``; returns cudaGetLastError() (0 =
 // launched). hist [depth, 14, n], rnd [depth, 15, n], g and dst [14, n]
-// float32; kind, idx and keys [depth, n] int32; contrib [depth, n, w];
-// dlt_part [n / 128, (n_lights + 1) * 14]. n is a multiple of 1024.
-// has_noise picks the variant with the marble's adjoint, which reads
-// perlin_vec [256, 3] and perlin_perm [3, 256].
+// float32; kind, idx and keys [depth, n] int32; contrib [depth, n, w],
+// 16-byte aligned; dlt_part [n / 128, (n_lights + 1) * 14]. n is a
+// multiple of 1024. has_noise picks the variant with the marble's
+// adjoint, which reads perlin_vec [256, 3] and perlin_perm [3, 256].
 extern "C" int trace_wave_bwd_launch(
     const float* hist, const float* rnd, const int* kind, const int* idx,
     const float* g, const float* uni, const float* lt,
@@ -653,47 +750,37 @@ extern "C" int trace_wave_bwd_launch(
     int depth, int w, int p_rows, int n_lights, int has_checker,
     const float* perlin_vec, const int* perlin_perm, int has_noise,
     void* stream) {
-  if (n % TILE != 0 || (n_lights + 1) * LT_COLS > MAX_LT) return -1;
-  BwdTables tb{uni, lt, perlin_vec, perlin_perm, w, n_lights, has_checker,
-               p_rows};
-  const int blocks = n / ROW;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (blocks > 0 && has_noise) {
-    trace_wave_bwd_kernel<true><<<blocks, ROW, PERLIN_SMEM, s>>>(
-        hist, rnd, kind, idx, g, tb, dst, contrib, keys, dlt_part, n,
-        depth);
-  } else if (blocks > 0) {
-    trace_wave_bwd_kernel<false><<<blocks, ROW, 0, s>>>(
-        hist, rnd, kind, idx, g, tb, dst, contrib, keys, dlt_part, n,
-        depth);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const BwdTables tb{uni, lt, perlin_vec, perlin_perm, w, n_lights,
+                     has_checker, p_rows};
+  return has_noise
+             ? launch_bwd(trace_wave_bwd_kernel<true>, true, hist, rnd, kind,
+                          idx, g, tb, dst, contrib, keys, dlt_part, n, depth,
+                          stream)
+             : launch_bwd(trace_wave_bwd_kernel<false>, false, hist, rnd,
+                          kind, idx, g, tb, dst, contrib, keys, dlt_part, n,
+                          depth, stream);
 }
 
 // Launch kernel D' on ``stream``; returns cudaGetLastError() (0 =
 // launched). st (kernel D's input), g and dst [14, n], rnd [15, n]
-// float32; kind, idx and keys [n] int32; contrib [n, w]; dlt_part
-// [n / 128, (n_lights + 1) * 14]. n is a multiple of 1024; has_noise picks
-// the variant, as in trace_wave_bwd_launch.
+// float32; kind, idx and keys [n] int32; contrib [n, w], 16-byte aligned;
+// dlt_part [n / 128, (n_lights + 1) * 14]. n is a multiple of 1024;
+// has_noise picks the variant, as in trace_wave_bwd_launch.
 extern "C" int fused_bounce_bwd_launch(
     const float* st, const float* rnd, const int* kind, const int* idx,
     const float* g, const float* uni, const float* lt, float* dst,
     float* contrib, int* keys, float* dlt_part, int n, int w, int p_rows,
     int n_lights, int has_checker, const float* perlin_vec,
     const int* perlin_perm, int has_noise, void* stream) {
-  if (n % TILE != 0 || (n_lights + 1) * LT_COLS > MAX_LT) return -1;
-  BwdTables tb{uni, lt, perlin_vec, perlin_perm, w, n_lights, has_checker,
-               p_rows};
-  const int blocks = n / ROW;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (blocks > 0 && has_noise) {
-    fused_bounce_bwd_kernel<true><<<blocks, ROW, PERLIN_SMEM, s>>>(
-        st, rnd, kind, idx, g, tb, dst, contrib, keys, dlt_part, n, 1);
-  } else if (blocks > 0) {
-    fused_bounce_bwd_kernel<false><<<blocks, ROW, 0, s>>>(
-        st, rnd, kind, idx, g, tb, dst, contrib, keys, dlt_part, n, 1);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const BwdTables tb{uni, lt, perlin_vec, perlin_perm, w, n_lights,
+                     has_checker, p_rows};
+  return has_noise
+             ? launch_bwd(fused_bounce_bwd_kernel<true>, true, st, rnd, kind,
+                          idx, g, tb, dst, contrib, keys, dlt_part, n, 1,
+                          stream)
+             : launch_bwd(fused_bounce_bwd_kernel<false>, false, st, rnd,
+                          kind, idx, g, tb, dst, contrib, keys, dlt_part, n,
+                          1, stream);
 }
 
 // Launch bwd_reduce on ``stream``: zero out (duni [p_rows, w], then done

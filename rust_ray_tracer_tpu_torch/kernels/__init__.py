@@ -457,8 +457,9 @@ class TraceWaveBwdKernel(_Kernel):
     without noise: the adjoint of every bounce of a wave, replayed from
     the forward's residuals. Returns dst [14, N], the per-(bounce, ray)
     winner-row cotangents ``contrib`` [depth, N, W] with their winner rows
-    ``keys`` [depth, N] int32 (P where the ray found none), and the
-    per-block light-table partials [N / 128, (n_lights + 1) * 14]."""
+    ``keys`` [depth, N] int32 (P where the ray found none: that row of
+    ``contrib`` is scratch), and the per-block light-table partials
+    [N / 128, (n_lights + 1) * 14]."""
 
     name = library = "trace_wave_bwd"
     entry = "trace_wave_bwd_launch"
@@ -576,8 +577,9 @@ class FusedBounceBwdKernel(_Kernel):
     variant without noise: the adjoint of one uber bounce from kernel D's
     input state and winners. Returns dst [14, N], the per-ray winner-row
     cotangents ``contrib`` [N, W] with their rows ``keys`` [N] int32 (P
-    where the ray found none), and the per-block light-table partials
-    [N / 128, (n_lights + 1) * 14], which ``bwd_reduce_kernel`` sums."""
+    where the ray found none: that row of ``contrib`` is scratch), and the
+    per-block light-table partials [N / 128, (n_lights + 1) * 14], which
+    ``bwd_reduce_kernel`` sums."""
 
     name = "fused_bounce_bwd"
     library = "trace_wave_bwd"

@@ -1,7 +1,8 @@
 """Times of the search kernels of library ``trace_wave`` (TPU kernels A, D
 and E, and the noise variants of A and D), of library ``search`` (K and
 M, with the unified search's sort of the rays) and of library ``sphere``
-(N) on one CUDA card, for
+(N), and of the backward trace kernels B and D' (``--scenes trace_bwd``)
+on one CUDA card, for
 holding one tree's kernels against another's in the same call;
 ``chip_smoke.py`` runs :func:`search_report` as its search checks, counts
 M's work with :func:`m_work` and times its kernels with :func:`cold_ms`
@@ -73,13 +74,23 @@ flagship's kernel-B sums of one wave, beside ``index_add_``. B' is called
 through the tree's own interface (sorted keys and order, or an older
 tree's order and row offsets), its sort outside the timed call.
 
+``trace_bwd``: the backward trace kernels (TPU kernels B and D', each
+scene's variant) on the flagship and random: B on wave 0's residuals
+(A's, depth 4), D' on bounces 0 and 1 of D's inputs, with a seeded
+cotangent, each out of L2 and in a loop beside its byte bound
+(:func:`bwd_bytes`, which ``chip_smoke.py`` counts with too), each in a
+one-wave training step (``torch.profiler``; D' on the per-chunk route,
+``RRT_UBER_WAVE=0``), and the library's ptxas registers, stack frames
+and spills of B and D'.
+
 ``--save`` writes A's final states and winners, E's winners, M's and
 K's of each mesh bounce (and O's of each final_scene bounce, N's of each
-random earth bounce) to a
+random earth bounce; B's and D''s dst, keys, light-table partials and
+the contrib rows of ray-bounces with a winner) to a
 ``.pt`` file; ``--compare a.pt b.pt
 ...`` then prints, for each file after the first, whether each of those
-tensors equals the first file's bit for bit. Needs one CUDA card,
-imports no JAX.
+tensors equals the first file's bit for bit (floats by their bit
+patterns). Needs one CUDA card, imports no JAX.
 """
 
 from __future__ import annotations
@@ -190,18 +201,23 @@ def lane_shares(alive):
 
 
 def ptxas_report(log: str) -> list[dict]:
-    """Registers, static shared memory and spills of each kernel from
-    ``-Xptxas -v``."""
-    out, name = [], None
+    """Registers, static shared memory, stack frame and spills of each
+    kernel from ``-Xptxas -v`` (a device function's own properties, which
+    ptxas prints where it is not inlined, are skipped)."""
+    out, name, props = [], None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and name:
-            out.append({"function": name, "spill_stores": int(m.group(1)),
-                        "spill_loads": int(m.group(2))})
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            props = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name and props == name:
+            out.append({"function": name, "stack_frame": int(m.group(1)),
+                        "spill_stores": int(m.group(2)),
+                        "spill_loads": int(m.group(3))})
         m = re.search(r"Used (\d+) registers", line)
         if m and out and "registers" not in out[-1]:
             out[-1]["registers"] = int(m.group(1))
@@ -210,24 +226,36 @@ def ptxas_report(log: str) -> list[dict]:
     return out
 
 
-def in_path(scene, key, names, env):
+def in_path(scene, key, names, env, step=False):
     """Device ms per launch of each profiler name in ``names`` over a
-    one-wave forward render of ``scene`` with the route flags ``env``."""
+    one-wave forward render of ``scene`` (with ``step``, a one-wave
+    training step: ``bench.py``'s loss and its backward over every float
+    scene leaf) with the route flags ``env``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from rust_ray_tracer_tpu_torch.models.scene import combine, partition
+
+    def run():
+        if not step:
+            with torch.no_grad():
+                render_waves(scene, WIDTH, HEIGHT, key, 0, 1, depth=DEPTH,
+                             chunk_size=CHUNK)
+        else:
+            params, static = partition(scene)
+            leaves = {k: v.clone().requires_grad_()
+                      for k, v in params.items()}
+            render_waves(combine(leaves, static), WIDTH, HEIGHT, key, 0, 1,
+                         depth=DEPTH, chunk_size=CHUNK).mean().backward()
+        torch.cuda.synchronize()
 
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        with torch.no_grad():
-            render_waves(scene, WIDTH, HEIGHT, key, 0, 1, depth=DEPTH,
-                         chunk_size=CHUNK)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                render_waves(scene, WIDTH, HEIGHT, key, 0, 1, depth=DEPTH,
-                             chunk_size=CHUNK)
-                torch.cuda.synchronize()
+        run()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
     finally:
         for k, v in saved.items():
             if v is None:
@@ -876,13 +904,130 @@ def bwd_report(dev):
                 ctx.uni).index_add_(0, rows, terms))}
 
 
+# random columns a found ray's material adjoint reads (csrc/
+# trace_bwd_common.cuh shade_fwd / shade_vjp), by material id:
+# Lambertian 2 (6 with lights: the light choice and its sample), metal 4
+# (the fuzz ball), dielectric 1 (the Fresnel draw), light and isotropic 0
+_BWD_RND_COLS = (2, 4, 1, 0, 0)
+
+
+def bwd_bytes(hist, kind, idx, uni, lt, n_lights, tables=()) -> int:
+    """The bytes kernel B (or D' with ``depth`` 1) must move for the
+    residuals ``hist`` [depth, 14, N], ``kind``, ``idx`` [depth, N] over
+    the winner rows ``uni`` [P, W] and the light table ``lt``, counted from
+    the data: every ray-bounce's alive plane; a live ray's kind and beta
+    (a miss needs no more); a found ray-bounce's o, d, time, its winner
+    index, the randoms its material's adjoint reads and its key and row
+    cotangent (W floats) out; once, g in and dst out (14 planes each),
+    ``uni``, ``lt``, the ``tables`` (the Perlin tables) and the per-block
+    light-table partials out. Every input is read once, every output
+    written once. Pure: no device work, any device."""
+    depth, _, n = hist.shape
+    alive = hist[:, 7] > 0.5
+    found = alive & (kind > 0)
+    m_found = int(found.sum())
+    cols = torch.tensor(_BWD_RND_COLS, dtype=torch.long)
+    if n_lights:
+        cols[0] = 6
+    mat = uni[idx[found].long(), uber.A_COL].long().cpu()
+    floats = (depth * n + int(alive.sum()) * 4
+              + m_found * (7 + 1 + 1 + uni.shape[1])
+              + int(cols[mat].sum()) + 2 * 14 * n + uni.numel() + lt.numel()
+              + (n // ROW) * (n_lights + 1) * 14
+              + sum(t.numel() for t in tables))
+    return floats * 4
+
+
+def _bits(x):
+    """``x`` with its float32 values as their int32 bit patterns."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _bwd_outputs(save, label, out, p_rows):
+    """Kernel B's or D''s (dst, contrib, keys, part) into ``save``: the
+    contrib rows of the ray-bounces with a winner (key below ``p_rows``),
+    zeros elsewhere (those rows are scratch B' never reads)."""
+    dst, contrib, keys, part = out
+    found = (keys < p_rows)[..., None]
+    save[f"{label}.dst"] = dst.cpu()
+    save[f"{label}.keys"] = keys.cpu()
+    save[f"{label}.part"] = part.cpu()
+    save[f"{label}.contrib"] = torch.where(
+        found, contrib, torch.zeros_like(contrib)).cpu()
+
+
+def trace_bwd_report(dev, save=None, seed=5):
+    """Kernels B and D' (each scene's variant) on the flagship and random
+    (the ``trace_bwd`` part): B on wave 0's residuals (kernel A's, depth
+    4), D' on bounces 0 and 1 of kernel D's inputs (D's own output feeds
+    bounce 1), each with a seeded cotangent: ms out of L2 and in a loop,
+    the live and found ray-bounces, the bytes (:func:`bwd_bytes`) and the
+    bound; each in a one-wave training step (:func:`in_path`: B on the
+    whole-wave route, D' on the per-chunk one, ``RRT_UBER_WAVE=0``); the
+    library's ptxas lines of B and D'."""
+    out = {"ptxas": [r for r in ptxas_report(K.build("trace_wave_bwd").log)
+                     if "bwd_kernel" in r["function"]]}
+    for label, host_fn in (("flagship", builders.procedural_flagship),
+                           ("random", lambda: builders.random_scene(
+                               WIDTH / HEIGHT))):
+        scene = compile_scene(host_fn(), device=dev)
+        ctx = uber.make_ctx(scene)
+        st0, rnd = uber.wave_inputs(scene, rng.wave_key(rng.key(0, dev), 0),
+                                    WIDTH, HEIGHT, DEPTH, CHUNK)
+        a, b = K.trace_kernel(ctx), K.trace_bwd_kernel(ctx)
+        d, dp = K.fused_bounce_kernel(ctx), K.fused_bounce_bwd_kernel(ctx)
+        g = torch.randn(st0.shape, device=dev,
+                        generator=torch.Generator(dev).manual_seed(seed))
+        p_rows = ctx.uni.shape[0]
+        tables = (ctx.perlin.vec, ctx.perlin.perm)
+
+        def row(kern, hist, kind, idx, call):
+            nbytes = bwd_bytes(hist, kind, idx, ctx.uni, ctx.lt,
+                               ctx.n_lights, tables)
+            alive = hist[:, 7] > 0.5
+            return {"kernel": kern.name,
+                    "live": int(alive.sum()),
+                    "found": int((alive & (kind > 0)).sum()),
+                    "bytes": nbytes, "bound_ms": bound_ms(nbytes, 0),
+                    "ms": times(call)}
+
+        with torch.no_grad():
+            _, hist, kind, idx = a(st0, rnd, ctx, DEPTH, residuals=True)
+            args = (hist, rnd, kind, idx, ctx, g)
+            rep = {"b": row(b, hist, kind, idx, lambda: b(*args)),
+                   "d_prime": []}
+            if save is not None:
+                _bwd_outputs(save, f"{label}.b", b(*args), p_rows)
+            st = st0
+            for bb in (0, 1):
+                st2, dk, di = d(st, rnd[bb], ctx)
+                dargs = (st, rnd[bb], dk, di, ctx, g)
+                rep["d_prime"].append({"bounce": bb, **row(
+                    dp, st[None], dk[None], di[None],
+                    lambda a_=dargs: dp(*a_))})
+                if save is not None:
+                    _bwd_outputs(save, f"{label}.dp{bb}", dp(*dargs),
+                                 p_rows)
+                st = st2
+        key = rng.key(0, dev)
+        rep["in_step"] = {
+            "b": in_path(scene, key, ("trace_wave_bwd_kernel",), {},
+                         step=True),
+            "d_prime": in_path(scene, key, ("fused_bounce_bwd_kernel",),
+                               {"RRT_UBER_WAVE": "0"}, step=True)}
+        out[label] = rep
+    return out
+
+
 def compare(paths):
     first = torch.load(paths[0])
     for p in paths[1:]:
         other = torch.load(p)
-        diff = {k: int((first[k] != other[k]).reshape(
-            first[k].shape[0], -1).any(0).sum()) if first[k].dim() > 1
-            else int((first[k] != other[k]).sum()) for k in first}
+        diff = {}
+        for k in first:
+            ne = _bits(first[k]) != _bits(other[k])
+            diff[k] = (int(ne.reshape(ne.shape[0], -1).any(0).sum())
+                       if ne.dim() > 1 else int(ne.sum()))
         print(json.dumps({"vs": paths[0], "file": p,
                           "bitwise": all(v == 0 for v in diff.values()),
                           "lanes_differing": diff}), flush=True)
@@ -897,7 +1042,7 @@ def main(argv=None) -> int:
     ap.add_argument("--compare", nargs="+")
     ap.add_argument("--scenes", default="flagship,random,mesh,tri,gltf",
                     help="comma-separated parts: flagship, random, mesh, "
-                         "tri, gltf, sph, final, earth, bwd")
+                         "tri, gltf, sph, final, earth, bwd, trace_bwd")
     ap.add_argument("--check", action="store_true",
                     help="hold M's winners on every mesh bounce against "
                          "the plain version")
@@ -942,6 +1087,8 @@ def main(argv=None) -> int:
         res["earth"] = earth_report(dev)
     if "bwd" in parts:
         res["bwd"] = bwd_report(dev)
+    if "trace_bwd" in parts:
+        res["trace_bwd"] = trace_bwd_report(dev, save)
     res["sms"] = torch.cuda.get_device_properties(dev).multi_processor_count
     res["grid_blocks"] = math.ceil(WIDTH * HEIGHT / ROW)
     line = json.dumps(res)

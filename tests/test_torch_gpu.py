@@ -249,6 +249,78 @@ def test_bwd_kernel_bitwise_repeatable(cuda):
         assert torch.equal(a, b)
 
 
+def _found_outputs(out, p_rows):
+    """A backward kernel's (dst, contrib, keys, part) with the contrib rows
+    of ray-bounces without a winner (key p_rows, scratch B' never reads)
+    zeroed."""
+    dst, contrib, keys, part = out
+    found = (keys < p_rows)[..., None]
+    return dst, torch.where(found, contrib, torch.zeros_like(contrib)), \
+        keys, part
+
+
+@pytest.mark.gpu
+def test_bwd_kernels_eight_lights_on_card(cuda, tmp_path):
+    """B and D' on the 8-light glTF flagship (968 triangles, 8 point
+    lights: 126 light-table entries), where each ray's light-table share
+    and the warps' row stages take more than 48 KB of a block's dynamic
+    shared memory. B + bwd_reduce against trace_wave_bwd_plain, and D' +
+    its sums against fused_bounce_bwd_plain on bounces 0 and 1, under
+    test_bwd_kernel_matches_plain_on_card's budgets (dst per ray rtol 1e-4
+    of its largest plane, at most 0.5% outside; duni and dlt relative L2
+    1e-4; each light's row of dlt within 1e-4 of its largest entry); each
+    kernel's dst, keys, partials and found rows the same bits twice."""
+    path = write_gltf_flagship(str(tmp_path / "f8.gltf"), 8)
+    ts = compile_scene(load_gltf_scene(path, 1.0), device="cpu")
+    assert ts.n_lights == 8 and uber.uber_eligible(ts)
+    st0, rnd = _inputs(ts)
+    ctx_c, ctx = uber.make_ctx(ts), uber.make_ctx(ts.to(cuda))
+    p_rows = ctx.uni.shape[0]
+    g = torch.from_numpy(np.random.default_rng(5).normal(
+        size=tuple(st0.shape)).astype(np.float32))
+    gc, rndc = g.to(cuda), rnd.to(cuda)
+    _, hist, kind, idx = trace_wave_kernel(st0.to(cuda), rndc, ctx, DEPTH,
+                                           residuals=True)
+
+    def held(got, want):
+        dst, duni, dlt = (x.cpu().numpy() for x in got)
+        assert_scaled_close(dst, want[0].numpy(), 1e-4, 1e-6, axis=0,
+                            budget=0.005, what="dst")
+        assert rel_l2(duni, want[1]) <= 1e-4
+        assert rel_l2(dlt, want[2]) <= 1e-4
+        ref_dlt = want[2].numpy()
+        for r in range(ref_dlt.shape[0]):
+            assert np.abs(dlt[r] - ref_dlt[r]).max() <= (
+                1e-6 + 1e-4 * np.abs(ref_dlt[r]).max()), f"dlt row {r}"
+        assert np.abs(ref_dlt[:-1]).max() > 0
+
+    before = trace_wave_bwd_kernel.launches
+    got = uber.trace_wave_bwd(hist, rndc, kind, idx, ctx, gc)
+    torch.cuda.synchronize()
+    assert trace_wave_bwd_kernel.launches == before + 1
+    held(got, uber.trace_wave_bwd_plain(hist.cpu(), rnd, kind.cpu(),
+                                        idx.cpu(), ctx_c, g))
+    runs = [_found_outputs(trace_wave_bwd_kernel(hist, rndc, kind, idx, ctx,
+                                                 gc), p_rows)
+            for _ in range(2)]
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+    d, d_bwd = K.fused_bounce_kernel(ctx), K.fused_bounce_bwd_kernel(ctx)
+    st = st0.to(cuda)
+    for b in (0, 1):
+        st2, dk, di = d(st, rndc[b], ctx)
+        before = d_bwd.launches
+        got = K.fused_bounce_backward(st, rndc[b], dk, di, ctx, gc)
+        torch.cuda.synchronize()
+        assert d_bwd.launches == before + 1
+        held(got, uber.fused_bounce_bwd_plain(st.cpu(), rnd[b], dk.cpu(),
+                                              di.cpu(), ctx_c, g))
+        runs = [_found_outputs(d_bwd(st, rndc[b], dk, di, ctx, gc), p_rows)
+                for _ in range(2)]
+        assert all(torch.equal(x, y) for x, y in zip(*runs))
+        st = st2
+
+
 @pytest.mark.gpu
 def test_render_waves_grads_on_card(cuda):
     """torch.autograd through render_waves on the card goes through A
