@@ -135,8 +135,9 @@ from rust_ray_tracer_tpu_torch.parallel import (load_state, make_mesh,
                                                 render_waves_sharded,
                                                 render_with_checkpoints)
 from rust_ray_tracer_tpu_torch.tools import search_times
-from rust_ray_tracer_tpu_torch.tools.search_times import (cold_ms, loop_ms,
-                                                          ptxas_report)
+from rust_ray_tracer_tpu_torch.tools.search_times import (
+    OPS_HIT_BWD, OPS_SU_BWD, SHADE_READS, bp_bwd_bytes, bp_live_bwd_bytes,
+    cold_ms, loop_ms, ptxas_report, shade_bwd_bytes, shade_lane_reads)
 from rust_ray_tracer_tpu_torch.utils import cli
 from rust_ray_tracer_tpu_torch.utils import rng
 from rust_ray_tracer_tpu_torch.utils.image import decode_image
@@ -204,13 +205,8 @@ OPS_MARBLE, OPS_MARBLE_BWD = 921, 3716
 # sphere reading of the pack); H per live found ray is OPS_SHADE
 OPS_HIT = 150
 SPLIT_KERNELS = (quad_search_kernel, hit_attrs_kernel, shade_update_kernel)
-# their backward kernels (csrc/split.cu): J' per ray recomputes J's
-# attributes (OPS_HIT) and runs the winner's adjoint plus the sphere
-# reading's (~2 x 150); H' per found ray recomputes the shading (OPS_SHADE)
-# and runs the update's and the shading's adjoints (~300). Both are bound
-# by their bytes by an order of magnitude, so these estimates do not decide
-# the bound
-OPS_HIT_BWD, OPS_SU_BWD = 450, 600
+# their backward kernels (csrc/split.cu) count by
+# tools/search_times.OPS_HIT_BWD and OPS_SU_BWD
 SPLIT_BWD_KERNELS = (hit_attrs_bwd_kernel, shade_update_bwd_kernel)
 WHOLE_WAVE_KERNELS = (trace_wave_kernel, trace_wave_noise_kernel,
                       trace_wave_bwd_kernel, trace_wave_bwd_noise_kernel)
@@ -2066,16 +2062,6 @@ def search_work(calls) -> dict:
     return w
 
 
-def _rnd_cols(n_lights, device):
-    """The randoms a found ray's material reads in the backward (H''s
-    count): Lambertian 2, or 6 with lights; metal 4; dielectric 1."""
-    cols = torch.zeros(5, dtype=torch.long, device=device)
-    cols[S.MAT_LAMBERTIAN] = 6 if n_lights else 2
-    cols[S.MAT_METAL] = 4
-    cols[S.MAT_DIELECTRIC] = 1
-    return cols
-
-
 def bp_bytes(calls) -> tuple[int, int]:
     """(bytes, operations) kernel F must move and do on these recorded
     calls, by lane class (``bounce_planes_kernel``, ``csrc/split.cu``):
@@ -2093,29 +2079,6 @@ def bp_bytes(calls) -> tuple[int, int]:
         nb += (P.shape[1] * 26 + int(alive.sum()) + n_found * (32 + 2)
                + lt.numel()) * 4
         ops += n_found * (OPS_HIT + OPS_SHADE)
-    return nb, ops
-
-
-def bp_bwd_bytes(calls) -> tuple[int, int]:
-    """(bytes, operations) kernel F' must move and do on these recorded
-    calls, by lane class (``bounce_planes_bwd_kernel``): every lane reads
-    its alive flag and the 12 cotangents of o', d', L', beta' and writes
-    every plane of dP; a live lane also reads its kind and beta (4); a
-    found lane also reads o, d, time, the window, the pack, tmed, one
-    albedo leaf, fuzz and ior (26), its material kind and flags and the
-    randoms its material's adjoint reads. The light table in and its
-    partials out once a block, read back by B'. Operations: F's forward
-    recomputed and both adjoints a found lane (OPS_HIT_BWD + OPS_SU_BWD)."""
-    nb = ops = 0
-    for P, pkind, mkind, _, lt, n_lights in calls:
-        n = P.shape[1]
-        alive = P[45] > 0.5
-        found = alive & (pkind != isect.KIND_NONE)
-        rnd = int(_rnd_cols(n_lights, P.device)[mkind[found].long()].sum())
-        nb += (n * (13 + P.shape[0]) + int(alive.sum()) * 4
-               + int(found.sum()) * 28 + rnd + lt.numel()
-               + 2 * lt.numel() * (-(-n // 128))) * 4
-        ops += int(found.sum()) * (OPS_HIT_BWD + OPS_SU_BWD)
     return nb, ops
 
 
@@ -2882,40 +2845,8 @@ def shade_vs_plain(calls, label, bounces=(0, 1), seed=21) -> dict:
     return out
 
 
-# Floats a lane of each material kind reads in kernel I (shade(),
-# csrc/trace_common.cuh) beside its kind: Lambertian its normal, albedo and
-# randoms 0, 1 (with lights also p and randoms 3, 4, and 5, 6 where it
-# samples a light: LAMB_LIGHTS_FWD, LAMB_SAMPLE); metal d, n, albedo, fuzz
-# and randoms 7, 9-11; dielectric d, n, ior and random 2; light d, n and
-# albedo; isotropic albedo and randoms 8, 12-14.
-SHADE_READS = {S.MAT_LAMBERTIAN: 8, S.MAT_METAL: 14, S.MAT_DIELECTRIC: 8,
-               S.MAT_LIGHT: 9, S.MAT_ISOTROPIC: 7}
-# ... and in kernel I' (shade_fwd + shade_vjp, csrc/trace_bwd_common.cuh),
-# with the cotangents each kind's adjoint reads: Lambertian n, albedo,
-# randoms 0, 1 and weight's cotangent (with lights as in I); metal d, n,
-# randoms 7, 9-11 and the cotangents of weight and direction; dielectric
-# d, n, ior, random 2 and direction's; light d, n and emitted's; isotropic
-# weight's.
-SHADE_BWD_READS = {S.MAT_LAMBERTIAN: 11, S.MAT_METAL: 16,
-                   S.MAT_DIELECTRIC: 11, S.MAT_LIGHT: 9, S.MAT_ISOTROPIC: 3}
-LAMB_LIGHTS_FWD = 5     # p and randoms 3, 4 of a Lambertian lane with lights
-LAMB_SAMPLE = 2         # randoms 5, 6 of a lane that samples a light
-
-
-def shade_lane_reads(calls, reads) -> int:
-    """Floats the lanes of these recorded calls read by material kind
-    (``reads``), the light-mixture inputs of Lambertian lanes included,
-    from this run's kinds and randoms."""
-    total = 0
-    for _, rng_p, kind, _, n_lights in calls:
-        total += sum(reads[k] * int((kind == k).sum()) for k in reads)
-        if n_lights:
-            lam = kind == S.MAT_LAMBERTIAN
-            total += (LAMB_LIGHTS_FWD * int(lam.sum())
-                      + LAMB_SAMPLE * int((lam & (rng_p[3] >= 0.5)).sum()))
-    return total
-
-
+# what a lane reads by material kind: tools/search_times.SHADE_READS,
+# SHADE_BWD_READS, shade_lane_reads
 def shade_bytes(calls) -> int:
     """Bytes kernel I must move on these recorded calls: every lane its
     kind in and its 10 planes out, and what its material reads
@@ -2923,17 +2854,6 @@ def shade_bytes(calls) -> int:
     return 4 * (shade_lane_reads(calls, SHADE_READS)
                 + sum(data.shape[1] * (1 + 10) + lt.numel()
                       for data, _, _, lt, _ in calls))
-
-
-def shade_bwd_bytes(calls) -> int:
-    """Bytes kernel I' must move on these recorded calls: every lane its
-    kind in and its 14 data-plane cotangents out, and what its material's
-    adjoint reads (``SHADE_BWD_READS``); the light table in once, and the
-    per-block partials written and read back once with their sum out."""
-    return 4 * (shade_lane_reads(calls, SHADE_BWD_READS)
-                + sum(data.shape[1] * (1 + 14) + lt.numel()
-                      + 2 * lt.numel() * (-(-data.shape[1] // 128))
-                      + lt.numel() for data, _, _, lt, _ in calls))
 
 
 def shade_ops_count(calls) -> int:
@@ -2999,8 +2919,9 @@ def gltf_lights_forward(dev, smi, paths) -> dict:
         raise AssertionError("the 16-light flagship did not run I")
     with torch.no_grad():
         full16 = shade_vs_plain(rec16, "16 lights full size")
-    # I and I' out of L2 at 16 lights: I''s shared memory a block grows
-    # from 65 KB (9 lights) to 116 KB
+    # I and I' out of L2 at 16 lights: the mixture pdf's loop (and I''s
+    # light-major steps) grow with the lights, I''s shared memory a block
+    # by the table's 56 bytes a light
     calls16 = rec16["shade"]
     cots16 = [shade_cots(c[0].shape[1], 41 + b) for b, c in enumerate(calls16)]
     ms16 = {"shade": bounce_times([(lambda c=c: shade_kernel(*c), None)
@@ -3864,22 +3785,15 @@ def select_costs(ctx, st) -> tuple[int, int]:
 
 def live_costs(args, tlive) -> tuple[tuple[int, int], tuple[int, int]]:
     """((bytes, operations) of G, of G') on F's inputs ``args`` and the
-    tiles' flags ``tlive``: a live tile's lanes by F's and F''s lane
-    classes (``bp_bytes``, ``bp_bwd_bytes``); a dead tile's lanes read 13
-    planes and write 13 (G), read 12 cotangents and write every input
-    plane's (G'), its blocks write a zero light-table partial that B'
-    reads; the flags once."""
+    tiles' flags ``tlive``: a live tile's lanes by F's lane classes
+    (``bp_bytes``), a dead tile's read 13 planes and write 13, the flags
+    once (G); G''s by ``tools/search_times.bp_live_bwd_bytes``."""
     P, pkind, mkind, flags, lt, n_lights = args
     live = torch.repeat_interleave(tlive > 0, bounce_ops.LIVE_TILE)
-    sub = [(P[:, live], pkind[live], mkind[live], flags[live], lt,
-            n_lights)]
-    g_bytes, g_ops = bp_bytes(sub)
-    gp_bytes, gp_ops = bp_bwd_bytes(sub)
-    n_dead = int((~live).sum())
-    g_bytes += (n_dead * 26 + tlive.numel()) * 4
-    gp_bytes += (n_dead * (12 + P.shape[0]) + tlive.numel()
-                 + 2 * lt.numel() * (n_dead // 128)) * 4
-    return (g_bytes, g_ops), (gp_bytes, gp_ops)
+    g_bytes, g_ops = bp_bytes([(P[:, live], pkind[live], mkind[live],
+                                flags[live], lt, n_lights)])
+    g_bytes += (int((~live).sum()) * 26 + tlive.numel()) * 4
+    return (g_bytes, g_ops), bp_live_bwd_bytes(args, tlive)
 
 
 def unfused_bounce_checks(label, fwd, seed=41) -> dict:

@@ -27,21 +27,34 @@
 // to 15 floats; metal 14, dielectric 8, light 9, isotropic 7. I writes
 // 10 planes (40 bytes); I' reads the cotangents its kind's adjoint needs
 // besides and writes 14. Both do a few hundred operations a lane, plus ~60
-// for each light of a Lambertian lane's mixture pdf (and its adjoint).
+// for each light of a Lambertian lane's mixture pdf; I' runs that light's
+// hit test again in its adjoint, and on the H100 this per-light work, not
+// its bytes, sets I''s time (about 2.6 us a light on a 147,456-ray wave).
 // One thread per ray, every plane read and written coalesced.
 //
 // What the design does about the light table. I stages it in dynamic
 // shared memory, n_lights * LT_COLS floats, read by every lane of the
-// block. I' keeps each ray's share of its cotangent in dynamic shared
-// memory too, a row of n_lights * LT_COLS + 1 floats a thread (the odd
-// stride puts a warp's 32 rows on 32 banks), because a per-thread local
-// array would need its size at compile time; the block then sums each
-// entry over its 128 rays in thread order into dlt_part [gridDim.x,
-// n_lights * LT_COLS], kernel B's layout, which bwd_reduce_kernel sums in
-// block order. No float atomics: the same bits in every run. The shared
-// memory a block of I' needs grows as 4 * (14 L + 128 (14 L + 1)) bytes,
-// so it takes at most 32 lights (232,448 bytes, the H100's per-block
-// limit); the launcher refuses more. Each light's pdf is summed in light
+// block; I' stages it too. I' takes the lights' cotangents light-major:
+// each lane runs its forward and the part of the adjoint that reads no
+// light row first (lambertian_vjp_head, or shade_vjp for the other kinds),
+// then the block steps through the lights together. For light l a
+// Lambertian lane of the mixture puts its share of the light's 14 entries
+// (sphere_pdf_bwd / quad_pdf_bwd, the adjoint shade_vjp runs for that
+// light) into a stage [LT_COLS][ROW + 1] in shared memory (the odd stride
+// spreads the summing threads over the banks), and the warps' ballots
+// mark the lanes whose share is not all zero. After one barrier 14
+// threads each sum one entry over the marked lanes in thread order into
+// dlt_part [gridDim.x, n_lights * LT_COLS], kernel B's layout, which
+// bwd_reduce_kernel sums in block order. Two stages alternate, so one
+// barrier a light is enough. A lane's adds to its g_p come light by light,
+// in shade_vjp's order, and each entry of a ray takes at most one add (0 +
+// x, never -0), so a lane left out adds +0, which changes no sum: every
+// bit of dlt_part is what a sum over all 128 rays in thread order gives.
+// No float atomics: the same bits in every run. The shared memory a block
+// of I' needs is 4 * (14 L + 2 * 14 * 129) + 32 bytes, 14,984 at 9
+// lights, so occupancy is set by registers,
+// and the cap (shade_max_lights) is what the H100's 227 KB a block holds
+// of the light table: 3,892 lights. Each light's pdf is summed in light
 // order, as plane_core sums it.
 //
 // The library is built with --fmad=false, so it rounds as its plain
@@ -54,6 +67,9 @@ namespace {
 using namespace trace;
 
 constexpr int N_DATA = 14, N_OUT = 10;
+constexpr int SP = ROW + 1;           // the stage's stride a light entry
+constexpr int WARPS = ROW / 32;
+constexpr unsigned FULL = 0xffffffffu;
 constexpr size_t SMEM_MAX = 232448;   // a block's opt-in shared memory
 
 // data [14, n] = d(3) p(3) n(3) albedo(3) fuzz ior; rng [15, n] = ub(9)
@@ -81,58 +97,120 @@ shade_kernel(const float* __restrict__ data, const float* __restrict__ rng,
   for (int c = 0; c < N_OUT; ++c) out[(size_t)c * n + i] = y[c];
 }
 
+// shade_vjp's Lambertian branch with lights (trace_bwd_common.cuh) but its
+// loop over the lights, which adds only into g_p and the light rows: the
+// cotangents of the normal and the albedo, and g_ps, the cotangent of each
+// light's pdf, which I' hands the lights one at a time. The operations
+// and their order are shade_vjp's.
+__device__ __forceinline__ void lambertian_vjp_head(const ShadeFwd& f,
+                                                    V3 nrm, V3 alb,
+                                                    int n_lights, V3 g_wt,
+                                                    V3& g_n, V3& g_a,
+                                                    float& g_ps) {
+  const V3 lam = f.lam;
+  const float pdf = f.pdf, spdf = f.spdf, lam_w = f.lam_w;
+  g_n = {0.f, 0.f, 0.f};
+  g_a = {g_wt.x * lam_w, g_wt.y * lam_w, g_wt.z * lam_w};
+  const float g_lamw = g_wt.x * alb.x + g_wt.y * alb.y + g_wt.z * alb.z;
+  const float g_spdf = g_lamw / pdf;
+  const float g_pdf = f.pdf_raw > PDF_FLOOR ? -g_lamw * spdf / (pdf * pdf)
+                                            : 0.f;
+  const float g_s = pick_bwd(f.s_in, spdf, 0.f, g_spdf) / PI_F;
+  g_n = add(g_n, scl(g_s, normalize(lam)));
+  const float g_cos = 0.5f * g_pdf;
+  g_ps = (g_pdf / (float)n_lights) * 0.5f;
+  const float g_c = pick_bwd(f.cos_in, jmax(f.cos_in, 0.f), 0.f, g_cos) /
+                    PI_F;
+  g_n = add(g_n, normalize_bwd(nrm, scl(g_c, normalize(lam))));
+}
+
 // I': data, rng, kind, lt as I's; g [9, n] the cotangents of emitted,
 // weight and direction. d_data [14, n]; dlt_part [gridDim.x, n_lights *
-// LT_COLS] the block's sum of its rays' light-table cotangents.
+// LT_COLS] the block's sum of its rays' light-table cotangents, light by
+// light (the header's design).
 __global__ void __launch_bounds__(ROW)
 shade_bwd_kernel(const float* __restrict__ data,
                  const float* __restrict__ rng, const int* __restrict__ kind,
                  const float* __restrict__ lt, int n_lights,
                  const float* __restrict__ g, float* __restrict__ d_data,
                  float* __restrict__ dlt_part, int n) {
-  extern __shared__ float smem[];          // the table, then the rays' rows
+  extern __shared__ float smem[];          // the table, stages and masks
   const int ltn = n_lights * LT_COLS;
-  const int stride = ltn + 1;
   float* slt = smem;
-  float* dl = smem + ltn + threadIdx.x * stride;   // this ray's share
+  float* stage = smem + ltn;               // [2][LT_COLS][SP]
+  unsigned* smask = reinterpret_cast<unsigned*>(stage + 2 * LT_COLS * SP);
   for (int k = threadIdx.x; k < ltn; k += ROW) slt[k] = lt[k];
-  for (int k = 0; k < ltn; ++k) dl[k] = 0.f;
   __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int i = blockIdx.x * ROW + threadIdx.x;
+  V3 p = {0.f, 0.f, 0.f}, lam = p, g_d = p, g_p = p, g_n = p, g_a = p;
+  float g_fuzz = 0.f, g_ior = 0.f, g_ps = 0.f;
+  bool mix = false;                        // Lambertian, the lights' pdfs
   if (i < n) {
     auto at = [&](int c) { return data[(size_t)c * n + i]; };
     auto gat = [&](int c) { return g[(size_t)c * n + i]; };
-    const V3 d = {at(0), at(1), at(2)}, p = {at(3), at(4), at(5)};
+    const V3 d = {at(0), at(1), at(2)};
     const V3 nrm = {at(6), at(7), at(8)}, alb = {at(9), at(10), at(11)};
+    p = {at(3), at(4), at(5)};
     const int mk = kind[i];
     const float* __restrict__ r = rng + i;
     const ShadeFwd sf = shade_fwd(mk, d, nrm, p, alb, at(12), slt, n_lights,
                                   r, (size_t)n);
-    V3 g_d = {0.f, 0.f, 0.f}, g_p = g_d, g_n = g_d, g_a = g_d;
-    float g_fuzz = 0.f, g_ior = 0.f;
-    shade_vjp(sf, mk, d, nrm, p, alb, at(13), slt, n_lights, r, (size_t)n,
-              {gat(0), gat(1), gat(2)}, {gat(3), gat(4), gat(5)},
-              {gat(6), gat(7), gat(8)}, g_d, g_p, g_n, g_a, g_fuzz, g_ior,
-              dl);
+    const V3 g_wt = {gat(3), gat(4), gat(5)};
+    mix = mk == MAT_LAMBERTIAN && n_lights > 0;
+    if (mix) {
+      lam = sf.lam;
+      lambertian_vjp_head(sf, nrm, alb, n_lights, g_wt, g_n, g_a, g_ps);
+    } else {                               // no light row is read
+      shade_vjp(sf, mk, d, nrm, p, alb, at(13), slt, n_lights, r, (size_t)n,
+                {gat(0), gat(1), gat(2)}, g_wt, {gat(6), gat(7), gat(8)},
+                g_d, g_p, g_n, g_a, g_fuzz, g_ior, nullptr);
+    }
+  }
+  // the lights one at a time: the lanes' shares staged, the block's sums
+  for (int l = 0; l < n_lights; ++l) {
+    const int b = l & 1;
+    float* st = stage + b * LT_COLS * SP;
+    bool nz = false;
+    if (mix) {
+      float* c = st + threadIdx.x;         // this ray's share, SP apart
+#pragma unroll
+      for (int e = 0; e < LT_COLS; ++e) c[e * SP] = 0.f;
+      const float* lr = slt + l * LT_COLS;
+      if (lr[0] == LIGHT_SPHERE_F)
+        sphere_pdf_bwd<SP>(lr, p, lam, g_ps, c, g_p);
+      else if (lr[0] == LIGHT_QUAD_F)
+        quad_pdf_bwd<SP>(lr, p, lam, g_ps, c, g_p);
+#pragma unroll
+      for (int e = 0; e < LT_COLS; ++e) nz = nz || c[e * SP] != 0.f;
+    }
+    const unsigned m = __ballot_sync(FULL, nz);
+    if (lane == 0) smask[b * WARPS + warp] = m;
+    __syncthreads();
+    if (threadIdx.x < LT_COLS) {
+      // entry e of light l over the marked lanes, in thread order
+      const float* x = st + threadIdx.x * SP;
+      float acc = 0.f;
+      for (int w = 0; w < WARPS; ++w)
+        for (unsigned mm = smask[b * WARPS + w]; mm; mm &= mm - 1)
+          acc += x[w * 32 + __ffs(mm) - 1];
+      dlt_part[(size_t)blockIdx.x * ltn + l * LT_COLS + threadIdx.x] = acc;
+    }
+  }
+  if (i < n) {
     const float y[N_DATA] = {g_d.x, g_d.y, g_d.z, g_p.x, g_p.y, g_p.z,
                              g_n.x, g_n.y, g_n.z, g_a.x, g_a.y, g_a.z,
                              g_fuzz, g_ior};
 #pragma unroll
     for (int c = 0; c < N_DATA; ++c) d_data[(size_t)c * n + i] = y[c];
   }
-  __syncthreads();
-  // the block's partial: each entry summed over the rays in thread order
-  const float* rows = smem + ltn;
-  for (int k = threadIdx.x; k < ltn; k += ROW) {
-    float acc = rows[k];
-    for (int t = 1; t < ROW; ++t) acc += rows[t * stride + k];
-    dlt_part[(size_t)blockIdx.x * ltn + k] = acc;
-  }
 }
 
+// Shared memory of a block of I': the light table, two stages and their
+// masks.
 size_t bwd_smem(int n_lights) {
-  const size_t ltn = (size_t)n_lights * LT_COLS;
-  return (ltn + (size_t)ROW * (ltn + 1)) * sizeof(float);
+  return ((size_t)n_lights * LT_COLS + 2 * LT_COLS * SP) * sizeof(float) +
+         2 * WARPS * sizeof(unsigned);
 }
 
 // Opt the kernel in to ``bytes`` of dynamic shared memory past the default
@@ -150,21 +228,34 @@ int launched(int n) {
 
 }  // namespace
 
-// The most lights shade_bwd_launch takes (its shared memory).
+// The most lights shade_launch and shade_bwd_launch take: what a block of
+// I' holds in shared memory (I's table alone is smaller).
 extern "C" int shade_max_lights() {
   int l = 0;
   while (bwd_smem(l + 1) <= SMEM_MAX) ++l;
   return l;
 }
 
+// I''s resident blocks per multiprocessor at n_lights, from the CUDA
+// runtime's occupancy calculator at the launch's shared memory: out[0]
+// the blocks, out[1] the dynamic shared memory a block (bytes).
+extern "C" int shade_bwd_occupancy(int n_lights, int* out) {
+  const size_t smem = bwd_smem(n_lights);
+  if (n_lights < 0 || smem > SMEM_MAX) return -1;
+  if (const int e = allow_smem(shade_bwd_kernel, smem)) return e;
+  out[1] = (int)smem;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, shade_bwd_kernel, ROW, smem));
+}
+
 // Each entry launches on ``stream`` and returns cudaGetLastError() (0 =
-// launched), or -1 for a light count past the shared memory. Shapes as
-// above; n is the ray count (any n >= 0).
+// launched), or -1 for a light count past shade_max_lights (both take
+// the route's cap). Shapes as above; n is the ray count (any n >= 0).
 extern "C" int shade_launch(const float* data, const float* rng,
                             const int* kind, const float* lt, int n_lights,
                             float* out, int n, void* stream) {
   const size_t smem = (size_t)n_lights * LT_COLS * sizeof(float);
-  if (n_lights < 0 || smem > SMEM_MAX) return -1;
+  if (n_lights < 0 || bwd_smem(n_lights) > SMEM_MAX) return -1;
   if (const int e = allow_smem(shade_kernel, smem)) return e;
   if (n > 0)
     shade_kernel<<<(n + ROW - 1) / ROW, ROW, smem,

@@ -72,10 +72,23 @@
 // of a dead lane and ~50 of a found one and writes 13; F' reads 13 to ~50
 // and writes every input plane's cotangent. One thread per ray, the planes
 // read and written coalesced; F' recomputes F's forward from the saved
-// planes and keeps the light table's cotangent as H' does. G and G' move
-// F's and F''s bytes on a live tile; on a dead one G reads 13 planes and
-// writes 13, G' reads 12 and writes every input plane's, so a dead tile
-// costs a copy, not the shading.
+// planes. G and G' move F's and F''s bytes on a live tile; on a dead one G
+// reads 13 planes and writes 13, G' reads 12 and writes every input
+// plane's, so a dead tile costs a copy, not the shading.
+//
+// F''s light-table cotangent: each ray's share lives in dynamic shared
+// memory laid out [entry][ray] (ray t in column t, entries ROW apart: the
+// adjoints' template stride, so the adds are the ray's own, in its order),
+// kernel B's layout. A thread zeroes only the (n_lights + 1) * LT_COLS
+// entries the scene has; the light table itself is read from shared
+// memory. After one barrier warp v takes the entries k = v mod 4, and each
+// is the sum of the block's four 32-ray warps, each warp by warp_sum's
+// shuffle tree, then added in warp order: a fixed association, so the
+// partials repeat bit for bit. A block holds
+// (n_lights + 1) * 14 * 512 bytes, 14,336 at 1 light and 64,512 at 8 (the
+// cap of F and F', MAX_LT), past the default 48 KB from 6 lights, where
+// the launch raises the kernel's limit. B' (bwd_reduce_kernel) sums the
+// block partials in block order: no float atomics.
 //
 // J and H call the device functions that kernel A runs inline
 // (trace_common.cuh: hit_attrs, shade, update_found, update_miss), so the
@@ -90,8 +103,8 @@
 // shading) from the saved inputs instead of reading residuals. H''s
 // light-table cotangent stays in each thread's local array and is summed
 // in a fixed order, per block and then across the blocks by B'
-// (bwd_reduce_kernel) in block order, as F''s: no float atomics, so the
-// gradients repeat bit for bit.
+// (bwd_reduce_kernel) in block order: no float atomics, so the gradients
+// repeat bit for bit.
 //
 // The library is built with --fmad=false: its plain versions are torch
 // elementwise ops, which never contract a*b+c, and final_scene's noise
@@ -587,8 +600,10 @@ bounce_planes_kernel(const float* __restrict__ P,
 // planes; then the adjoints of the update, the shading and the hit
 // attributes (trace_bwd_common.cuh, the functions B, J' and H' run). The
 // light table's cotangent leaves as one partial a block in kernel B's
-// layout, as H''s does, for bwd_reduce_kernel to sum in block order: no
-// float atomics. G': the same with tlive (tile_dead).
+// layout, each ray's share kept in the dynamic shared memory ``sdl``
+// [(n_lights + 1) * LT_COLS][ROW] (the header's design), for
+// bwd_reduce_kernel to sum in block order: no float atomics. G': the same
+// with tlive (tile_dead).
 __global__ void __launch_bounds__(ROW)
 bounce_planes_bwd_kernel(const float* __restrict__ P,
                          const int* __restrict__ pkind,
@@ -614,13 +629,13 @@ bounce_planes_bwd_kernel(const float* __restrict__ P,
       dlt_part[(size_t)blockIdx.x * ltn + k] = 0.f;
     return;
   }
+  extern __shared__ float sdl[];           // the rays' shares [ltn][ROW]
   __shared__ float slt[MAX_LT];
-  __shared__ float red[ROW / 32][MAX_LT];
   for (int k = threadIdx.x; k < ltn; k += ROW) slt[k] = lt[k];
+  float* dl = sdl + threadIdx.x;           // this ray's share, ROW apart
+  for (int k = 0; k < ltn; ++k) dl[k * ROW] = 0.f;
   __syncthreads();
   const int i = blockIdx.x * ROW + threadIdx.x;
-  float dl[MAX_LT];                        // this ray's light-table share
-  for (int k = 0; k < ltn; ++k) dl[k] = 0.f;
   if (i < n) {
     auto at = [&](int c) { return P[(size_t)c * n + i]; };
     auto gat = [&](int c) { return g[(size_t)c * n + i]; };
@@ -664,16 +679,16 @@ bounce_planes_bwd_kernel(const float* __restrict__ P,
         g_o = u.g_o;
         g_d = u.g_d;
         V3 g_p = u.g_p, g_n;
-        shade_vjp(sf, mk, d, nrm, h.p, alb, at(23), slt, n_lights, r,
-                  (size_t)n, u.g_em, u.g_wt, u.g_sd, g_d, g_p, g_n, g_a,
-                  g_fuzz, g_ior, dl);
+        shade_vjp<ROW>(sf, mk, d, nrm, h.p, alb, at(23), slt, n_lights, r,
+                       (size_t)n, u.g_em, u.g_wt, u.g_sd, g_d, g_p, g_n,
+                       g_a, g_fuzz, g_ior, dl);
         hit_attrs_vjp<true>(kd, o, d, time, tmin, tmax, pk, flip, h.n.y,
                             h.t, h.p, {0.f, g_p, g_n, 0.f, 0.f,
                                        {0.f, 0.f, 0.f}},
                             g_o, g_d, g_time, g_pk, g_tmed);
       } else {
-        g_beta = update_miss_vjp(slt + n_lights * LT_COLS, beta, gL, gb,
-                                 dl + n_lights * LT_COLS);
+        g_beta = update_miss_vjp<ROW>(slt + n_lights * LT_COLS, beta, gL,
+                                      gb, dl + n_lights * LT_COLS * ROW);
       }
     }
     const float y[30] = {g_o.x, g_o.y, g_o.z, g_d.x, g_d.y, g_d.z, g_time,
@@ -689,23 +704,37 @@ bounce_planes_bwd_kernel(const float* __restrict__ P,
     dP[(size_t)(leaf + 2) * n + i] = g_a.z;
   }
 
-  // the block's partial
+  // the block's partial: warp v takes the entries k = v mod 4; each is the
+  // sum of its four 32-ray warps' warp_sum trees, added in warp order
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int k = 0; k < ltn; ++k) {
-    const float v = warp_sum(dl[k]);
-    if (lane == 0) red[warp][k] = v;
-  }
   __syncthreads();
-  for (int k = threadIdx.x; k < ltn; k += ROW) {
-    float acc = red[0][k];
+  for (int k = warp; k < ltn; k += ROW / 32) {
+    const float* x = sdl + k * ROW;
+    float v[ROW / 32];
 #pragma unroll
-    for (int w = 1; w < ROW / 32; ++w) acc += red[w][k];
-    dlt_part[(size_t)blockIdx.x * ltn + k] = acc;
+    for (int w = 0; w < ROW / 32; ++w) v[w] = warp_sum(x[w * 32 + lane]);
+    if (lane == 0) {
+      float acc = v[0];
+#pragma unroll
+      for (int w = 1; w < ROW / 32; ++w) acc += v[w];
+      dlt_part[(size_t)blockIdx.x * ltn + k] = acc;
+    }
   }
 }
 
 int launched(int n) {
   return n > 0 ? static_cast<int>(cudaGetLastError()) : 0;
+}
+
+// Dynamic shared memory of a block of F' or G': each ray's light-table
+// share [ltn][ROW]. Past the default 48 KB (from 6 lights) the launch
+// raises the kernel's limit first; 0 on success.
+int bp_bwd_smem(int n_lights, size_t& bytes) {
+  bytes = (size_t)(n_lights + 1) * LT_COLS * ROW * sizeof(float);
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      bounce_planes_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes));
 }
 
 }  // namespace
@@ -808,12 +837,26 @@ extern "C" int bounce_planes_bwd_launch(const float* P, const int* pkind,
                                         float* dP, float* dlt_part, int n,
                                         void* stream) {
   if ((n_lights + 1) * LT_COLS > MAX_LT) return -1;
+  size_t smem;
+  if (const int e = bp_bwd_smem(n_lights, smem)) return e;
   if (n > 0)
-    bounce_planes_bwd_kernel<<<(n + ROW - 1) / ROW, ROW, 0,
+    bounce_planes_bwd_kernel<<<(n + ROW - 1) / ROW, ROW, smem,
                                static_cast<cudaStream_t>(stream)>>>(
         P, pkind, mkind, flags, nullptr, lt, n_lights, has_checker, g, dP,
         dlt_part, n);
   return launched(n);
+}
+
+// F''s (and G''s) resident blocks per multiprocessor at n_lights, from
+// the CUDA runtime's occupancy calculator at the launch's shared memory:
+// out[0] the blocks, out[1] the dynamic shared memory a block (bytes).
+extern "C" int bounce_planes_bwd_occupancy(int n_lights, int* out) {
+  if ((n_lights + 1) * LT_COLS > MAX_LT) return -1;
+  size_t smem;
+  if (const int e = bp_bwd_smem(n_lights, smem)) return e;
+  out[1] = (int)smem;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, bounce_planes_bwd_kernel, ROW, smem));
 }
 
 // G': F' with G's tlive; dlt_part [n / 128, (n_lights + 1) * LT_COLS], a
@@ -825,8 +868,10 @@ extern "C" int bounce_planes_live_bwd_launch(
   if ((n_lights + 1) * LT_COLS > MAX_LT || n % (TILE_ROWS * ROW) ||
       tlive == nullptr)
     return -1;
+  size_t smem;
+  if (const int e = bp_bwd_smem(n_lights, smem)) return e;
   if (n > 0)
-    bounce_planes_bwd_kernel<<<n / ROW, ROW, 0,
+    bounce_planes_bwd_kernel<<<n / ROW, ROW, smem,
                                static_cast<cudaStream_t>(stream)>>>(
         P, pkind, mkind, flags, tlive, lt, n_lights, has_checker, g, dP,
         dlt_part, n);

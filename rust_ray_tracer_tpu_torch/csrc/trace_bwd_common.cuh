@@ -317,7 +317,9 @@ __device__ __forceinline__ V3 update_miss_vjp(const float* __restrict__ bg,
 // For the cotangents of the emitted radiance, the weight and the scattered
 // direction: adds d's and p's into g_d and g_p, the light rows' into dlt
 // (n_lights rows of LT_COLS, entries S apart), and returns the normal's,
-// the albedo's, the fuzz's and the ior's.
+// the albedo's, the fuzz's and the ior's. Kernel I' (shade.cu) runs the
+// Lambertian branch with lights light-major: lambertian_vjp_head there is
+// this branch but its loop, which I' steps through with the block.
 template <int S = 1>
 __device__ __forceinline__ void shade_vjp(
     const ShadeFwd& f, int mkind, V3 d, V3 nrm, V3 p, V3 alb, float ior,

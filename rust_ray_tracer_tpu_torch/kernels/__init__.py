@@ -1207,9 +1207,10 @@ class SphSearchKernel(_Kernel):
 
 
 def shade_max_lights() -> int:
-    """The most lights kernels I and I' take: what a block of I' holds in
-    shared memory (``shade_max_lights`` in ``csrc/shade.cu``). Builds the
-    library if needed."""
+    """The most lights kernels I and I' take: the light table a block of
+    I' holds in shared memory beside its two light-major stages
+    (``shade_max_lights`` in ``csrc/shade.cu``: 3,892 on the H100). Builds
+    the library if needed."""
     return shade_bwd_kernel.max_lights()
 
 
@@ -1221,8 +1222,8 @@ def _check_shade(name, data, rng, kind, lt, n_lights):
     most = shade_max_lights()
     if not 0 <= n_lights <= most:
         raise ValueError(f"{n_lights} lights: {name} takes at most {most} "
-                         "(kernel I' keeps each ray's light-table cotangent "
-                         "in shared memory)")
+                         "(kernel I' holds the light table in a block's "
+                         "shared memory)")
     n = data.shape[1] if data.dim() == 2 else -1
     _check("data", data, dev, (N_DATA, n))
     _check("rng", rng, dev, (N_RNG, n))

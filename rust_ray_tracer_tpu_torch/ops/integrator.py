@@ -86,8 +86,9 @@ def split_reason(scene) -> str | None:
     """Why the split route cannot render ``scene``, or None when it can.
     On the card it refuses more lights than kernel I' holds in a block's
     shared memory (``kernels.shade_max_lights``, which asks the built
-    library); the plain versions on the CPU take any count, as the JAX
-    package's XLA route does. ``render_waves`` refuses the compact
+    library: 3,892, the light table beside I''s light-major stages); the
+    plain versions on the CPU take any count, as the JAX package's XLA
+    route does. ``render_waves`` refuses the compact
     wavefront (ROADMAP queue 1 item 14)."""
     if scene.device.type != "cuda":
         return None
@@ -95,8 +96,8 @@ def split_reason(scene) -> str | None:
     most = shade_max_lights()
     if scene.n_lights > most:
         return (f"{scene.n_lights} lights: the shade kernels on the card "
-                f"take at most {most} (kernel I' keeps each ray's "
-                "light-table cotangent in shared memory)")
+                f"take at most {most} (kernel I' holds the light table in "
+                "a block's shared memory)")
     return None
 
 

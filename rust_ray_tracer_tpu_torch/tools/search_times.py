@@ -1,8 +1,9 @@
 """Times of the search kernels of library ``trace_wave`` (TPU kernels A, D
 and E, and the noise variants of A and D), of library ``search`` (K and
 M, with the unified search's sort of the rays) and of library ``sphere``
-(N), and of the backward trace kernels B and D' (``--scenes trace_bwd``)
-on one CUDA card, for
+(N), of the backward trace kernels B and D' (``--scenes trace_bwd``) and
+of the split route's backward kernels F', G' and I' (``--scenes
+split_bwd``) on one CUDA card, for
 holding one tree's kernels against another's in the same call;
 ``chip_smoke.py`` runs :func:`search_report` as its search checks, counts
 M's work with :func:`m_work` and times its kernels with :func:`cold_ms`
@@ -83,10 +84,22 @@ one-wave training step (``torch.profiler``; D' on the per-chunk route,
 ``RRT_UBER_WAVE=0``), and the library's ptxas registers, stack frames
 and spills of B and D'.
 
+``split_bwd``: the split route's backward kernels F', G' and I' on
+their cells' recorded calls of wave 0 (bounces 0-3), each with a seeded
+cotangent: F' on the mesh's calls of kernel F, G' on the unfused
+flagship's calls of kernel G (``RRT_NO_UBER_FUSED=1 RRT_UBER_WAVE=0``),
+I' on the 9-light glTF flagship's calls of kernel I and on the 16-light
+file's; each out of L2 and in a loop, alone (``partials``) and with B''s
+sum of its partials, beside its byte bound (:func:`bp_bwd_bytes`,
+:func:`shade_bwd_bytes`, which ``chip_smoke.py`` counts with too), and in
+a one-wave training step (``torch.profiler``); the ptxas lines of the two
+kernels and their resident blocks an SM (:func:`bwd_occupancy`).
+
 ``--save`` writes A's final states and winners, E's winners, M's and
 K's of each mesh bounce (and O's of each final_scene bounce, N's of each
 random earth bounce; B's and D''s dst, keys, light-table partials and
-the contrib rows of ray-bounces with a winner) to a
+the contrib rows of ray-bounces with a winner; F''s, G''s and I''s dP or
+d_data and partials) to a
 ``.pt`` file; ``--compare a.pt b.pt
 ...`` then prints, for each file after the first, whether each of those
 tensors equals the first file's bit for bit (floats by their bit
@@ -96,6 +109,7 @@ patterns). Needs one CUDA card, imports no JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import inspect
 import json
@@ -111,7 +125,9 @@ import torch
 
 from rust_ray_tracer_tpu_torch import kernels as K
 from rust_ray_tracer_tpu_torch.models import builders
+from rust_ray_tracer_tpu_torch.models import scene as S
 from rust_ray_tracer_tpu_torch.models.scene import compile_scene
+from rust_ray_tracer_tpu_torch.ops import intersect as isect
 from rust_ray_tracer_tpu_torch.ops import search as search_ops
 from rust_ray_tracer_tpu_torch.ops import uber
 from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
@@ -226,6 +242,22 @@ def ptxas_report(log: str) -> list[dict]:
     return out
 
 
+@contextlib.contextmanager
+def _env(env):
+    """The route flags ``env`` set in ``os.environ`` inside the block,
+    the earlier values back after it."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def in_path(scene, key, names, env, step=False):
     """Device ms per launch of each profiler name in ``names`` over a
     one-wave forward render of ``scene`` (with ``step``, a one-wave
@@ -249,19 +281,11 @@ def in_path(scene, key, names, env, step=False):
                          depth=DEPTH, chunk_size=CHUNK).mean().backward()
         torch.cuda.synchronize()
 
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
+    with _env(env):
         run()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             run()
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     out = {}
     for n in names:
@@ -1019,6 +1043,291 @@ def trace_bwd_report(dev, save=None, seed=5):
     return out
 
 
+# fp32 operations of the split route's backward kernels (csrc/split.cu):
+# J' per ray recomputes J's attributes (~150) and runs the winner's
+# adjoint plus the sphere reading's (~2 x 150); H' per found ray
+# recomputes the shading (~300) and runs the update's and the shading's
+# adjoints (~300); F' (and G' on a live tile) both a found ray. Each is
+# bound by its bytes by an order of magnitude, so these estimates do not
+# decide the bound
+OPS_HIT_BWD, OPS_SU_BWD = 450, 600
+
+
+def _rnd_cols(n_lights, device):
+    """The randoms a found ray's material reads in the backward (H''s and
+    F''s count, B's ``_BWD_RND_COLS``): Lambertian 2, or 6 with lights;
+    metal 4; dielectric 1."""
+    cols = torch.tensor(_BWD_RND_COLS, dtype=torch.long, device=device)
+    if n_lights:
+        cols[S.MAT_LAMBERTIAN] = 6
+    return cols
+
+
+def bp_bwd_bytes(calls) -> tuple[int, int]:
+    """(bytes, operations) kernel F' must move and do on these recorded
+    calls (kernel F's arguments: P, pkind, mkind, flags, lt, n_lights), by
+    lane class (``bounce_planes_bwd_kernel``, ``csrc/split.cu``): every
+    lane reads its alive flag and the 12 cotangents of o', d', L', beta'
+    and writes every plane of dP; a live lane also reads its kind and beta
+    (4); a found lane also reads o, d, time, the window, the pack, tmed,
+    one albedo leaf, fuzz and ior (26), its material kind and flags and
+    the randoms its material's adjoint reads. The light table in and its
+    partials out once a block, read back by B'. Operations: F's forward
+    recomputed and both adjoints a found lane (OPS_HIT_BWD + OPS_SU_BWD).
+    ``chip_smoke.py`` counts F''s and G''s bounds with it. Pure: no device
+    work."""
+    nb = ops = 0
+    for P, pkind, mkind, _, lt, n_lights in calls:
+        n = P.shape[1]
+        alive = P[45] > 0.5
+        found = alive & (pkind != isect.KIND_NONE)
+        rnd = int(_rnd_cols(n_lights, P.device)[mkind[found].long()].sum())
+        nb += (n * (13 + P.shape[0]) + int(alive.sum()) * 4
+               + int(found.sum()) * 28 + rnd + lt.numel()
+               + 2 * lt.numel() * (-(-n // ROW))) * 4
+        ops += int(found.sum()) * (OPS_HIT_BWD + OPS_SU_BWD)
+    return nb, ops
+
+
+def bp_live_bwd_bytes(args, tlive) -> tuple[int, int]:
+    """(bytes, operations) kernel G' must move and do on F's arguments
+    ``args`` and the tiles' flags ``tlive`` (1024 lanes a flag): a live
+    tile's lanes by F''s lane classes (:func:`bp_bwd_bytes`); a dead
+    tile's read 12 cotangents and write every input plane's, its blocks a
+    zero light-table partial that B' reads; the flags once."""
+    P, pkind, mkind, flags, lt, n_lights = args
+    live = torch.repeat_interleave(tlive > 0, 1024)
+    nb, ops = bp_bwd_bytes([(P[:, live], pkind[live], mkind[live],
+                             flags[live], lt, n_lights)])
+    n_dead = int((~live).sum())
+    return nb + (n_dead * (12 + P.shape[0]) + tlive.numel()
+                 + 2 * lt.numel() * (n_dead // ROW)) * 4, ops
+
+
+# Floats a lane of each material kind reads in kernel I (shade(),
+# csrc/trace_common.cuh) beside its kind: Lambertian its normal, albedo and
+# randoms 0, 1 (with lights also p and randoms 3, 4, and 5, 6 where it
+# samples a light: LAMB_LIGHTS_FWD, LAMB_SAMPLE); metal d, n, albedo, fuzz
+# and randoms 7, 9-11; dielectric d, n, ior and random 2; light d, n and
+# albedo; isotropic albedo and randoms 8, 12-14.
+SHADE_READS = {S.MAT_LAMBERTIAN: 8, S.MAT_METAL: 14, S.MAT_DIELECTRIC: 8,
+               S.MAT_LIGHT: 9, S.MAT_ISOTROPIC: 7}
+# ... and in kernel I' (shade_fwd + shade_vjp, csrc/trace_bwd_common.cuh),
+# with the cotangents each kind's adjoint reads: Lambertian n, albedo,
+# randoms 0, 1 and weight's cotangent (with lights as in I); metal d, n,
+# randoms 7, 9-11 and the cotangents of weight and direction; dielectric
+# d, n, ior, random 2 and direction's; light d, n and emitted's; isotropic
+# weight's.
+SHADE_BWD_READS = {S.MAT_LAMBERTIAN: 11, S.MAT_METAL: 16,
+                   S.MAT_DIELECTRIC: 11, S.MAT_LIGHT: 9, S.MAT_ISOTROPIC: 3}
+LAMB_LIGHTS_FWD = 5     # p and randoms 3, 4 of a Lambertian lane with lights
+LAMB_SAMPLE = 2         # randoms 5, 6 of a lane that samples a light
+
+
+def shade_lane_reads(calls, reads) -> int:
+    """Floats the lanes of these recorded calls (kernel I's arguments:
+    data, rng, kind, lt, n_lights) read by material kind (``reads``), the
+    light-mixture inputs of Lambertian lanes included, from this run's
+    kinds and randoms."""
+    total = 0
+    for _, rng_p, kind, _, n_lights in calls:
+        total += sum(reads[k] * int((kind == k).sum()) for k in reads)
+        if n_lights:
+            lam = kind == S.MAT_LAMBERTIAN
+            total += (LAMB_LIGHTS_FWD * int(lam.sum())
+                      + LAMB_SAMPLE * int((lam & (rng_p[3] >= 0.5)).sum()))
+    return total
+
+
+def shade_bwd_bytes(calls) -> int:
+    """Bytes kernel I' must move on these recorded calls: every lane its
+    kind in and its 14 data-plane cotangents out, and what its material's
+    adjoint reads (``SHADE_BWD_READS``); the light table in once, and the
+    per-block partials written and read back once with their sum out.
+    ``chip_smoke.py`` counts I''s bound with it. Pure: no device work."""
+    return 4 * (shade_lane_reads(calls, SHADE_BWD_READS)
+                + sum(data.shape[1] * (1 + 14) + lt.numel()
+                      + 2 * lt.numel() * (-(-data.shape[1] // ROW))
+                      + lt.numel() for data, _, _, lt, _ in calls))
+
+
+# the H100's multiprocessor (compute capability 9.0): registers, threads,
+# blocks and shared memory (bytes; each block reserves 1 KB more)
+SM_REGS, SM_THREADS, SM_BLOCKS, SM_SMEM, BLOCK_SMEM_RESERVED = (
+    65536, 2048, 32, 233472, 1024)
+
+
+def resident_blocks(registers: int, smem: int, threads: int = ROW) -> int:
+    """Blocks of ``threads`` an H100 multiprocessor holds at once for a
+    kernel of ``registers`` a thread (allocated per warp in units of 256)
+    and ``smem`` bytes of shared memory a block (static and dynamic):
+    the CUDA occupancy rules, from the ptxas counts."""
+    warps = -(-threads // WARP)
+    per_warp = -(-registers * WARP // 256) * 256
+    by_regs = (SM_REGS // per_warp) // warps if per_warp else SM_BLOCKS
+    by_smem = SM_SMEM // (smem + BLOCK_SMEM_RESERVED)
+    return min(by_regs, by_smem, SM_THREADS // threads, SM_BLOCKS)
+
+
+def bwd_occupancy(line, n_lights) -> dict:
+    """Resident blocks per multiprocessor of F' (G') or I' (the ptxas
+    ``line`` of ``bounce_planes_bwd_kernel`` or ``shade_bwd_kernel``) at
+    ``n_lights``: the library's occupancy query
+    (``bounce_planes_bwd_occupancy``, ``shade_bwd_occupancy``: the CUDA
+    runtime's calculator) beside :func:`resident_blocks` of the ptxas
+    counts; a tree without the query (before the light-table redesign)
+    by the formula alone, with its dynamic shared memory: none for F', a
+    row of 14 n_lights + 1 floats a ray and the table for I'."""
+    import ctypes
+
+    shade = "shade_bwd" in line["function"]
+    lib = ctypes.CDLL(str(K.build("shade" if shade else "split").path))
+    entry = "shade_bwd_occupancy" if shade else "bounce_planes_bwd_occupancy"
+    res = {"n_lights": n_lights}
+    if hasattr(lib, entry):
+        out = (ctypes.c_int * 2)()
+        err = getattr(lib, entry)(ctypes.c_int(n_lights), out)
+        if err != 0:
+            raise RuntimeError(f"{entry}: CUDA error {err}")
+        res.update(blocks=out[0], dynamic_smem=out[1], by="runtime")
+    else:
+        ltn = n_lights * 14
+        res.update(dynamic_smem=4 * (ltn + ROW * (ltn + 1)) if shade else 0,
+                   by="formula")
+    res["formula_blocks"] = resident_blocks(
+        line["registers"], line["smem"] + res["dynamic_smem"])
+    return res
+
+
+def _seeded(shape, seed, dev):
+    g = torch.Generator(dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev)
+
+
+@contextlib.contextmanager
+def _live_recorder():
+    """Records the arguments of each call of ``ops/bounce.
+    bounce_planes_live`` (kernel G's dispatcher) in the yielded list."""
+    from rust_ray_tracer_tpu_torch.ops import bounce
+
+    calls, real = [], bounce.bounce_planes_live
+
+    def recorded(*args):
+        calls.append(args)
+        return real(*args)
+
+    bounce.bounce_planes_live = recorded
+    try:
+        yield calls
+    finally:
+        bounce.bounce_planes_live = real
+
+
+def _bwd_rows(kern, calls, seed, extra, save, label, nbytes):
+    """``kern`` (F', G' or I') on each recorded call with a seeded
+    cotangent: ms out of L2 and in a loop alone (``partials``) and with
+    B''s sum of its partials, the bytes and the bound; with ``save`` its
+    outputs (dP or d_data, and the partials) under ``label``."""
+    rows = []
+    for b, args in enumerate(calls):
+        n = args[0].shape[1]
+        cots = 9 if kern is K.shade_bwd_kernel else 13
+        g = _seeded((cots, n), seed + b, args[0].device)
+        a = args + extra[b] + (g,)
+        with torch.no_grad():
+            nb = nbytes(args, extra[b])
+            rows.append({"bounce": b, "lanes": n, "bytes": nb,
+                         "bound_ms": bound_ms(nb, 0),
+                         "ms": times(lambda a=a: kern.partials(*a)),
+                         "ms_with_sum": times(lambda a=a: kern(*a))})
+            if save is not None:
+                d, part = kern.partials(*a)
+                save[f"{label}{b}.d"] = d.cpu()
+                save[f"{label}{b}.part"] = part.cpu()
+    return rows
+
+
+def split_bwd_report(dev, save=None, seed=11):
+    """Kernels F', G' and I' (the ``split_bwd`` part): F' on the mesh's
+    recorded calls of wave 0 (bounces 0-3), G' on the unfused flagship's
+    (``RRT_NO_UBER_FUSED=1 RRT_UBER_WAVE=0``), I' on the 9-light glTF
+    flagship's and on its 16-light twin's; each with a seeded cotangent,
+    out of L2 and in a loop, alone and with B''s sum of its partials,
+    beside its byte bound (:func:`bp_bwd_bytes`, :func:`shade_bwd_bytes`),
+    and in a one-wave training step (:func:`in_path`); the ptxas lines of
+    the two kernels with their resident blocks at the cells' light
+    counts."""
+    from rust_ray_tracer_tpu_torch.models.gltf import load_gltf_scene
+
+    lines = {r["function"]: r for lib in ("split", "shade")
+             for r in ptxas_report(K.build(lib).log)
+             if re.search(r"bounce_planes_bwd_kernel|shade_bwd_kernel",
+                          r["function"])}
+    out = {"ptxas": list(lines.values()),
+           "occupancy": [bwd_occupancy(r, nl) for r in lines.values()
+                         for nl in ((9, 16) if "shade" in r["function"]
+                                    else (1, 8))]}
+
+    def record(scene, env=None, live=False):
+        key = rng.key(0, dev)
+        with _env(env or {}), torch.no_grad():
+            render_waves(scene, WIDTH, HEIGHT, key, 0, 1, depth=DEPTH,
+                         chunk_size=CHUNK)
+            with (_live_recorder() if live
+                  else _parity().split_recorder()) as rec:
+                render_waves(scene, WIDTH, HEIGHT, key, 0, 1, depth=DEPTH,
+                             chunk_size=CHUNK)
+        torch.cuda.synchronize()
+        return key, rec
+
+    def bp_nbytes(args, extra):
+        return (bp_live_bwd_bytes(args, *extra) if extra
+                else bp_bwd_bytes([args]))[0]
+
+    # F' on the mesh
+    scene = mesh_scene(dev)
+    key, rec = record(scene)
+    calls = rec["bp"]
+    out["mesh_f_prime"] = {
+        "bounces": _bwd_rows(K.bounce_planes_bwd_kernel, calls, seed,
+                             [()] * len(calls), save, "fp", bp_nbytes),
+        "in_step": in_path(scene, key, ("bounce_planes_bwd_kernel",), {},
+                           step=True)}
+    del rec, calls, scene
+
+    # G' on the unfused flagship
+    env = {"RRT_NO_UBER_FUSED": "1", "RRT_UBER_WAVE": "0"}
+    scene = compile_scene(builders.procedural_flagship(), device=dev)
+    key, calls = record(scene, env, live=True)
+    args = [c[:6] for c in calls]
+    tlive = [(c[6],) for c in calls]
+    out["unfused_g_prime"] = {
+        "bounces": _bwd_rows(K.bounce_planes_live_bwd_kernel, args, seed,
+                             tlive, save, "gp", bp_nbytes),
+        "dead_tiles": [int((t[0] == 0).sum()) for t in tlive],
+        "in_step": in_path(scene, key, ("bounce_planes_bwd_kernel",), env,
+                           step=True)}
+    del calls, args, tlive, scene
+
+    # I' on the glTF flagship at 9 and 16 lights
+    for nl in (9, 16):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = _parity().write_gltf_flagship(
+                os.path.join(tmp, f"f{nl}.gltf"), nl)
+            scene = compile_scene(load_gltf_scene(path, WIDTH / HEIGHT),
+                                  device=dev)
+        key, rec = record(scene)
+        calls = rec["shade"]
+        out[f"gltf{nl}_i_prime"] = {
+            "bounces": _bwd_rows(K.shade_bwd_kernel, calls, seed,
+                                 [()] * len(calls), save, f"ip{nl}.",
+                                 lambda a, _: shade_bwd_bytes([a])),
+            "in_step": in_path(scene, key, ("shade_bwd_kernel",), {},
+                               step=True)}
+        del rec, calls, scene
+    return out
+
+
 def compare(paths):
     first = torch.load(paths[0])
     for p in paths[1:]:
@@ -1042,7 +1351,8 @@ def main(argv=None) -> int:
     ap.add_argument("--compare", nargs="+")
     ap.add_argument("--scenes", default="flagship,random,mesh,tri,gltf",
                     help="comma-separated parts: flagship, random, mesh, "
-                         "tri, gltf, sph, final, earth, bwd, trace_bwd")
+                         "tri, gltf, sph, final, earth, bwd, trace_bwd, "
+                         "split_bwd")
     ap.add_argument("--check", action="store_true",
                     help="hold M's winners on every mesh bounce against "
                          "the plain version")
@@ -1064,7 +1374,8 @@ def main(argv=None) -> int:
            "trace_wave_flags": list(K.LIBRARIES["trace_wave"][1]),
            "ptxas": {n: ptxas_report(builds[n].log)
                      for n in ("trace_wave", "trace_wave_noise", "search",
-                               "sphere", "trace_wave_bwd", "split")}}
+                               "sphere", "trace_wave_bwd", "split",
+                               "shade")}}
     if "flagship" in parts:
         res["flagship"] = scene_times(
             "flagship", builders.procedural_flagship, dev, save)
@@ -1089,6 +1400,8 @@ def main(argv=None) -> int:
         res["bwd"] = bwd_report(dev)
     if "trace_bwd" in parts:
         res["trace_bwd"] = trace_bwd_report(dev, save)
+    if "split_bwd" in parts:
+        res["split_bwd"] = split_bwd_report(dev, save)
     res["sms"] = torch.cuda.get_device_properties(dev).multi_processor_count
     res["grid_blocks"] = math.ceil(WIDTH * HEIGHT / ROW)
     line = json.dumps(res)

@@ -1,15 +1,22 @@
-"""The byte bound of the backward trace kernels B and D'
-(``tools/search_times.bwd_bytes``, which ``chip_smoke.py`` counts with)
-against counts made by hand: a two-bounce input written out ray by ray,
-and the plain forward's residuals of a 32x32 wave of the flagship counted
-one ray-bounce at a time."""
+"""The byte bounds of the backward kernels against counts made by hand:
+B's and D''s (``tools/search_times.bwd_bytes``, which ``chip_smoke.py``
+counts with) on a two-bounce input written out ray by ray and on the plain
+forward's residuals of a 32x32 wave of the flagship counted one ray-bounce
+at a time; F''s (and G''s) and I''s (``bp_bwd_bytes``, ``shade_bwd_bytes``)
+on a few hundred lanes of every lane class and material kind."""
 
+import pytest
 import torch
 
 from rust_ray_tracer_tpu_torch.models import builders
 from rust_ray_tracer_tpu_torch.models.scene import compile_scene
 from rust_ray_tracer_tpu_torch.ops import uber
-from rust_ray_tracer_tpu_torch.tools.search_times import bwd_bytes
+from rust_ray_tracer_tpu_torch.tools.search_times import (OPS_HIT_BWD,
+                                                          OPS_SU_BWD,
+                                                          bp_bwd_bytes,
+                                                          bp_live_bwd_bytes,
+                                                          bwd_bytes,
+                                                          shade_bwd_bytes)
 from rust_ray_tracer_tpu_torch.utils import rng
 
 W_COLS = 17
@@ -89,3 +96,113 @@ def test_bwd_bytes_recorded_wave_by_ray():
     assert found > 0
     assert bwd_bytes(hist, kind, idx, ctx.uni, ctx.lt,
                      ctx.n_lights) == 4 * floats
+
+
+# ---- F' (G') and I': the split route's backward kernels ------------------
+
+# randoms a found lane's material adjoint reads, by material id, with a
+# light table (csrc/trace_bwd_common.cuh shade_fwd + shade_vjp):
+# Lambertian 6, metal 4, dielectric 1, light and isotropic 0
+RND_WITH_LIGHTS = (6, 4, 1, 0, 0)
+
+
+def _bp_calls(n, has_checker, seed):
+    """Kernel F's arguments on ``n`` lanes with one light: lanes 3k dead,
+    3k + 1 live misses, 3k + 2 found (the five material kinds in turn)."""
+    gen = torch.Generator().manual_seed(seed)
+    P = torch.rand((52 if has_checker else 46, n), generator=gen)
+    lane = torch.arange(n)
+    P[45] = (lane % 3 != 0).float()
+    pkind = torch.where(lane % 3 == 2, 1 + lane % 3, 0).to(torch.int32)
+    mkind = (lane // 3 % 5).to(torch.int32)
+    flags = (lane % 2).to(torch.int32)
+    return P, pkind, mkind, flags, torch.zeros((2, 14)), 1
+
+
+def _bp_by_hand(P, pkind, mkind, lt):
+    """F''s floats counted lane by lane: every lane its alive flag, the 12
+    cotangents in and every plane of dP out; a live lane its kind and beta;
+    a found lane o, d, time, the window, the pack, tmed, an albedo leaf,
+    fuzz, ior, its material kind, flags and randoms; the light table in,
+    and each block's partial out and back."""
+    n_in, n = P.shape
+    floats = 0
+    for i in range(n):
+        floats += 1 + 12 + n_in
+        if P[45, i] > 0.5:
+            floats += 4
+            if pkind[i] != 0:
+                floats += 26 + 2 + RND_WITH_LIGHTS[int(mkind[i])]
+    blocks = -(-n // 128)
+    return floats + lt.numel() + 2 * lt.numel() * blocks
+
+
+def _shade_calls(n, n_lights, seed):
+    """Kernel I's arguments on ``n`` lanes: the five material kinds in
+    turn, randoms from a seed (random 3 picks the light sample)."""
+    gen = torch.Generator().manual_seed(seed)
+    data = torch.rand((14, n), generator=gen)
+    rng_p = torch.rand((15, n), generator=gen)
+    kind = (torch.arange(n) % 5).to(torch.int32)
+    return data, rng_p, kind, torch.zeros((n_lights, 14)), n_lights
+
+
+def _shade_by_hand(data, rng_p, kind, lt, n_lights):
+    """I''s floats counted lane by lane: its kind in, 14 cotangents out,
+    and what its kind reads (Lambertian n, albedo, randoms 0, 1, weight's
+    cotangent; with lights also p, randoms 3, 4, and 5, 6 where it samples
+    a light; metal d, n, randoms 7, 9-11, weight's and direction's
+    cotangents; dielectric d, n, ior, random 2, direction's; light d, n,
+    emitted's; isotropic weight's); the table in, the partials out and
+    back, their sum out."""
+    per_kind = {0: 3 + 3 + 2 + 3, 1: 3 + 3 + 4 + 3 + 3, 2: 3 + 3 + 1 + 1 + 3,
+                3: 3 + 3 + 3, 4: 3}
+    n = data.shape[1]
+    floats = 0
+    for i in range(n):
+        k = int(kind[i])
+        floats += 1 + 14 + per_kind[k]
+        if k == 0 and n_lights:
+            floats += 3 + 2 + (2 if rng_p[3, i] >= 0.5 else 0)
+    blocks = -(-n // 128)
+    return floats + 2 * lt.numel() + 2 * lt.numel() * blocks
+
+
+@pytest.mark.parametrize("case", [
+    ("bp", 300, False), ("bp", 384, True), ("bp_dead", 256, False),
+    ("bp_live", 2048, True), ("shade", 300, 9), ("shade", 256, 16),
+    ("shade", 130, 0)])
+def test_split_bwd_bytes_by_hand(case):
+    """F''s byte bound (``bp_bwd_bytes``) with one light, on a few hundred
+    live, dead, found and missed lanes (with and without the checker
+    leaves, and every lane dead), G''s (``bp_live_bwd_bytes``) on a live
+    and a dead 1024-lane tile, and I''s (``shade_bwd_bytes``) on the five
+    material kinds at 9, 16 and no lights, against counts made lane by
+    lane; a list of calls is the sum of its calls."""
+    what, n, arg = case
+    if what == "bp_live":
+        # tile 0 live (F''s lane classes), tile 1 dead: its lanes read 12
+        # cotangents and write every plane, its 8 blocks a zero partial
+        P, pkind, mkind, flags, lt, nl = _bp_calls(n, arg, n)
+        tlive = torch.tensor([1, 0], dtype=torch.int32)
+        nb, ops = bp_live_bwd_bytes((P, pkind, mkind, flags, lt, nl), tlive)
+        live = _bp_by_hand(P[:, :1024], pkind[:1024], mkind[:1024], lt)
+        dead = 1024 * (12 + P.shape[0]) + 2 + 2 * lt.numel() * 8
+        assert nb == 4 * (live + dead)
+        found = int(((P[45, :1024] > 0.5) & (pkind[:1024] != 0)).sum())
+        assert ops == found * (OPS_HIT_BWD + OPS_SU_BWD)
+    elif what.startswith("bp"):
+        call = _bp_calls(n, arg, n)
+        if what == "bp_dead":
+            call[0][45] = 0.0
+        P, pkind, mkind, _, lt, _ = call
+        nb, ops = bp_bwd_bytes([call])
+        assert nb == 4 * _bp_by_hand(P, pkind, mkind, lt)
+        found = int(((P[45] > 0.5) & (pkind != 0)).sum())
+        assert ops == found * (OPS_HIT_BWD + OPS_SU_BWD)
+        assert bp_bwd_bytes([call, call]) == (2 * nb, 2 * ops)
+    else:
+        call = _shade_calls(n, arg, n)
+        nb = shade_bwd_bytes([call])
+        assert nb == 4 * _shade_by_hand(*call)
+        assert shade_bwd_bytes([call, call]) == 2 * nb

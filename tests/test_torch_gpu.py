@@ -1001,6 +1001,109 @@ def test_bounce_planes_kernels_match_plain_on_card(cuda):
 
 
 @pytest.mark.gpu
+def test_bounce_planes_bwd_eight_lights_on_card(cuda, tmp_path):
+    """F' and G' at 8 lights (126 light-table entries: each ray's share
+    takes 64,512 bytes of a block's dynamic shared memory, past the
+    default 48 KB) on bounces 0 and 1 of the 8-light glTF flagship's
+    1024-ray chunk beside a tile of the same rays all dead (kernel G's
+    inputs): F' (no flags) against ``bounce_plane_core_vjp`` and G'
+    against ``bounce_planes_live_bwd_plain`` with a seeded cotangent, dP
+    within rtol 1e-4 / atol 1e-6 of each lane's largest plane (at most
+    0.5% of the lanes outside) and dlt within relative L2 1e-4, some light
+    row non-zero; each twice for the same bits; G' equal to F' on the live
+    tile bit for bit."""
+    from rust_ray_tracer_tpu_torch.ops import bounce
+    from rust_ray_tracer_tpu_torch.ops.bounce_core import (
+        N_IN_B, bounce_plane_core_vjp)
+
+    path = write_gltf_flagship(str(tmp_path / "f8.gltf"), 8)
+    ts = compile_scene(load_gltf_scene(path, 1.0), device="cpu")
+    assert ts.n_lights == 8
+    st, rnd = _unfused_pair(ts)
+    ctx = uber.make_ctx(ts)
+    live = torch.arange(st.shape[1], device=cuda) < W * H
+    g = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(13, st.shape[1])).astype(np.float32))
+    for b in range(2):
+        P, kind, mkind, flags, lt, n_lights, tlive = _live_inputs(st, rnd[b],
+                                                                  ctx)
+        assert n_lights == 8 and lt.shape == (9, 14)
+        cpu = (P, kind, mkind, flags, lt, n_lights)
+        args = tuple(x.to(cuda) if torch.is_tensor(x) else x for x in cpu)
+        gc, tl = g.to(cuda), tlive.to(cuda)
+        f_runs = [bounce_planes_bwd_kernel(*args, gc) for _ in range(2)]
+        g_runs = [K.bounce_planes_live_bwd_kernel(*args, tl, gc)
+                  for _ in range(2)]
+        torch.cuda.synchronize()
+        for runs in (f_runs, g_runs):
+            assert all(torch.equal(x, y) for x, y in zip(*runs))
+        refs = (bounce_plane_core_vjp(*cpu, P.shape[0] > N_IN_B, g),
+                bounce.bounce_planes_live_bwd_plain(*cpu, tlive, g))
+        for what, (dP, dlt), (ref_p, ref_lt) in zip(
+                ("F'", "G'"), (f_runs[0], g_runs[0]), refs):
+            assert_scaled_close(dP.cpu().numpy(), ref_p.numpy(), 1e-4, 1e-6,
+                                axis=0, budget=0.005,
+                                what=f"{what} 8 lights bounce {b}")
+            assert rel_l2(dlt.cpu().numpy(), ref_lt.numpy()) <= 1e-4
+            assert float(dlt[:8].abs().max()) > 0
+        assert torch.equal(g_runs[0][0][:, live], f_runs[0][0][:, live])
+        st = _next_state(st, rnd[b], ctx)
+
+
+def _next_state(st, rnd_b, ctx):
+    """The next state of ``st`` [14, N] for its bounce's randoms: kernel
+    G's plain version on E's plain winners, as the unfused bounce takes
+    it."""
+    from rust_ray_tracer_tpu_torch.ops import bounce
+
+    out = bounce.bounce_planes_live_plain(*_live_inputs(st, rnd_b, ctx))
+    return torch.cat([out[0:6], st[6:7], out[12:13], out[6:12]])
+
+
+@pytest.mark.gpu
+def test_bounce_planes_live_bwd_mixed_tiles_on_card(cuda):
+    """G' on a wave of four tiles, live, dead, dead, live (the flagship's
+    1024-ray chunk and the same rays all dead): each dead tile's lanes take
+    the pass-through's cotangent and its eight blocks a zero light-table
+    partial, bit for bit; each live tile's lanes and block partials equal
+    F''s (no flags) on the same wave bit for bit; dP and dlt within B's
+    budget of ``bounce_planes_live_bwd_plain``."""
+    from rust_ray_tracer_tpu_torch.ops import bounce
+
+    ts = _scene("flagship")
+    st2, rnd2 = _unfused_pair(ts)
+    n1 = W * H
+    st = torch.cat([st2[:, :n1], st2[:, n1:], st2[:, n1:], st2[:, :n1]], 1)
+    rnd = torch.cat([rnd2[:, :, :n1], rnd2[:, :, n1:], rnd2[:, :, n1:],
+                     rnd2[:, :, :n1]], 2)
+    ctx = uber.make_ctx(ts)
+    cpu = _live_inputs(st, rnd[0], ctx)
+    tlive = cpu[6]
+    assert tlive.tolist() == [1, 0, 0, 1]
+    args = tuple(x.to(cuda) if torch.is_tensor(x) else x for x in cpu)
+    g = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(13, st.shape[1])).astype(np.float32))
+    gc = g.to(cuda)
+    dP, part = K.bounce_planes_live_bwd_kernel.partials(*args, gc)
+    f_dP, f_part = bounce_planes_bwd_kernel.partials(*args[:6], gc)
+    _, dlt = K.bounce_planes_live_bwd_kernel(*args, gc)
+    torch.cuda.synchronize()
+    live = torch.repeat_interleave(tlive > 0, 1024).to(cuda)
+    blk = torch.repeat_interleave(tlive > 0, 8).to(cuda)
+    assert torch.equal(dP[:, live], f_dP[:, live])
+    assert torch.equal(part[blk], f_part[blk])
+    assert not bool(part[~blk].any())
+    want = torch.zeros_like(dP[:, ~live])
+    want[0:6] = gc[0:6, ~live]
+    want[24:30] = gc[6:12, ~live]
+    assert torch.equal(dP[:, ~live], want)
+    ref_p, ref_lt = bounce.bounce_planes_live_bwd_plain(*cpu, g)
+    assert_scaled_close(dP.cpu().numpy(), ref_p.numpy(), 1e-4, 1e-6, axis=0,
+                        budget=0.005, what="G' mixed tiles")
+    assert rel_l2(dlt.cpu().numpy(), ref_lt.numpy()) <= 1e-4
+
+
+@pytest.mark.gpu
 def test_render_waves_mesh_on_card(cuda):
     """render_waves and torch.autograd on a 4,608-triangle mesh on the
     card go through K, M, F and F' once a bounce and none of A, B, O, J or
@@ -1322,12 +1425,13 @@ def test_shade_wrappers_refuse_cpu_tensors_and_light_counts(monkeypatch):
 @pytest.mark.gpu
 def test_shade_wrappers_refuse_light_counts_past_the_library(cuda):
     """On the card the wrappers take the light count the built library
-    gives (32: I''s shared memory a block) and refuse one more, naming
-    the limit, without a launch."""
+    gives (3,892: the light table a block of I' holds in shared memory
+    beside its two light-major stages) and refuse one more, naming the
+    limit, without a launch."""
     from rust_ray_tracer_tpu_torch.kernels import shade_max_lights
 
     most = shade_max_lights()
-    assert most == 32
+    assert most == 3892
     n = 128
     data = torch.zeros((14, n), device=cuda)
     rng_p = torch.zeros((15, n), device=cuda)
@@ -1347,6 +1451,81 @@ def test_shade_wrappers_refuse_light_counts_past_the_library(cuda):
                     k(*args)
                 assert k.launches == before
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_shade_launchers_refuse_past_the_cap_on_card(cuda):
+    """The C launchers of I and I' themselves (not only the wrappers)
+    return -1 for one light past ``shade_max_lights`` and 0 at it (n = 0:
+    nothing to launch), so no caller of the library can run I' past the
+    shared memory a block holds."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(shade_bwd_kernel.load().path))
+    most = int(lib.shade_max_lights())
+    null = ctypes.c_void_p(None)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    for nl, want in ((most, 0), (most + 1, -1)):
+        assert lib.shade_launch(null, null, null, null, ctypes.c_int(nl),
+                                null, ctypes.c_int(0), stream) == want
+        assert lib.shade_bwd_launch(null, null, null, null,
+                                    ctypes.c_int(nl), null, null, null,
+                                    ctypes.c_int(0), stream) == want
+
+
+def _lights(lt9, n_lights):
+    """``n_lights`` rows from the 9-light table ``lt9``: row k is row k mod
+    9 with its centre (a sphere) or corner (a quad) moved by k // 9 steps
+    of (0.05, -0.05, 0.025)."""
+    k = torch.arange(n_lights)
+    lt = lt9[k % 9].clone()
+    step = (k // 9).to(lt.dtype)[:, None] * torch.tensor([0.05, -0.05,
+                                                          0.025])
+    sph = lt[:, 0] == LIGHT_SPHERE
+    lt[sph, 1:4] += step[sph]
+    lt[~sph, 5:8] += step[~sph]
+    return lt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_lights", [1, 9, 16, 32, "cap"])
+def test_shade_bwd_light_counts_on_card(n_lights, cuda, tmp_path):
+    """I' at 1, 9, 16, 32 lights and at the cap (``shade_max_lights``) on
+    the lanes a CPU wave of the 9-light glTF flagship gives I (bounces 0
+    and 1; 256 lanes of bounce 0 at the cap), the table built from its 9
+    lights (:func:`_lights`), against its plain version with a seeded
+    cotangent under B's budget (rtol 1e-4 / atol 1e-6 a lane, at most 0.5%
+    of the lanes outside, the light table's cotangent within relative L2
+    1e-4 and some light taking one), twice for the same bits, one launch
+    a call and one of B' for its partials."""
+    from rust_ray_tracer_tpu_torch.kernels import shade_max_lights
+
+    nl = shade_max_lights() if n_lights == "cap" else n_lights
+    ts = _gltf_lights(tmp_path, 9)
+    with split_recorder() as rec:
+        _render_cpu(ts)
+    calls = rec["shade"][:1] if n_lights == "cap" else rec["shade"][:2]
+    for b, (data, rng_p, kind, lt9, _) in enumerate(calls):
+        if n_lights == "cap":
+            data, rng_p, kind = data[:, :256], rng_p[:, :256], kind[:256]
+        lt = _lights(lt9, nl)
+        args = [x.contiguous() for x in (data, rng_p, kind, lt)]
+        g = torch.from_numpy(np.random.default_rng(b).normal(
+            size=(9, data.shape[1])).astype(np.float32))
+        dev = [x.to(cuda) for x in args] + [nl, g.to(cuda)]
+        before = [shade_bwd_kernel.launches, bwd_reduce_kernel.launches]
+        d1, l1 = shade_bwd_kernel(*dev)
+        d2, l2 = shade_bwd_kernel(*dev)
+        torch.cuda.synchronize()
+        assert [shade_bwd_kernel.launches - before[0],
+                bwd_reduce_kernel.launches - before[1]] == [2, 2]
+        assert torch.equal(d1, d2) and torch.equal(l1, l2)
+        rd, rl = shade_ops.shade_plane_core_vjp(*args, nl, g)
+        assert_scaled_close(d1.cpu().numpy(), rd.numpy(), 1e-4, 1e-6,
+                            axis=0, budget=0.005,
+                            what=f"I' {nl} lights bounce {b}")
+        assert rel_l2(l1.cpu().numpy(), rl.numpy()) <= 1e-4
+        assert float(l1.abs().max()) > 0
 
 
 def test_shade_dispatchers_refuse_other_devices():
