@@ -136,8 +136,9 @@ from rust_ray_tracer_tpu_torch.parallel import (load_state, make_mesh,
                                                 render_with_checkpoints)
 from rust_ray_tracer_tpu_torch.tools import search_times
 from rust_ray_tracer_tpu_torch.tools.search_times import (
-    OPS_HIT_BWD, OPS_SU_BWD, SHADE_READS, bp_bwd_bytes, bp_live_bwd_bytes,
-    cold_ms, loop_ms, ptxas_report, shade_bwd_bytes, shade_lane_reads)
+    OPS_HIT, OPS_HIT_BWD, OPS_SHADE, SHADE_READS, bp_bwd_bytes, bp_fwd_bytes,
+    bp_live_bwd_bytes, bp_live_bytes, cold_ms, loop_ms, ptxas_report,
+    shade_bwd_bytes, shade_lane_reads, su_bwd_bytes)
 from rust_ray_tracer_tpu_torch.utils import cli
 from rust_ray_tracer_tpu_torch.utils import rng
 from rust_ray_tracer_tpu_torch.utils.image import decode_image
@@ -164,12 +165,12 @@ RTOL, ATOL = 3e-4, 3e-5  # the rest (FMA contraction, division order)
 BWD_RTOL, BWD_ATOL, BWD_REL_L2 = 1e-4, 1e-6, 1e-4
 # the card's published peaks (H100 SXM, 700 W): fp32 non-tensor, HBM3
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
-# fp32 operations per live ray-bounce of shading and update; the
-# backward's per found ray-bounce (the recomputed forward plus its
-# adjoint). M and L count each triangle test by stage
+# fp32 operations of the backward per found ray-bounce (the recomputed
+# forward plus its adjoint; per live ray-bounce of shading and update
+# tools/search_times.OPS_SHADE). M and L count each triangle test by stage
 # (tools/search_times.m_work: OPS_M_DET, OPS_M_T, OPS_M_UV), N each
 # sphere test (OPS_SPH_DISC, OPS_SPH_ROOT below)
-OPS_SHADE, OPS_BWD = 300, 600
+OPS_BWD = 600
 # fp32 operations of closest_hit (csrc/trace_wave.cu: A, D, E) by the
 # stage of a test that the closest hit needs, counted from the code
 # (closest_hit_work counts the stages in the run). A triangle: the
@@ -201,9 +202,8 @@ OPS_MARBLE, OPS_MARBLE_BWD = 921, 3716
 # the split route's kernels (csrc/split.cu), counted from the code: O by
 # the stage of each test, as closest_hit's quads (OPS_QUAD_T for t on
 # every test, OPS_QUAD_IN where t can win: quad_vs_plain counts them from
-# ops/quad.quad_sweep_replay); J per ray (one kind's attributes and the
-# sphere reading of the pack); H per live found ray is OPS_SHADE
-OPS_HIT = 150
+# ops/quad.quad_sweep_replay); J and H by tools/search_times.OPS_HIT and
+# OPS_SHADE
 SPLIT_KERNELS = (quad_search_kernel, hit_attrs_kernel, shade_update_kernel)
 # their backward kernels (csrc/split.cu) count by
 # tools/search_times.OPS_HIT_BWD and OPS_SU_BWD
@@ -1862,32 +1862,6 @@ def final_forward(dev, smi) -> dict:
             "calls": rec, "scene": scene, "key": key}
 
 
-def su_bwd_bytes(calls) -> int:
-    """Bytes kernel H' must move on these recorded calls, by lane class
-    (``shade_update_bwd_kernel``, ``csrc/split.cu``): every lane reads its
-    alive flag and the cotangents of o', d', L', beta' (13 floats) and
-    writes all 40 planes of dP; a live lane also reads its hit flag and
-    beta (4); a found lane also reads d, p, n, albedo, fuzz, ior (14), its
-    material kind and the randoms its material's adjoint reads (Lambertian
-    2, or 6 with lights; metal 4; dielectric 1). The light table in and
-    its cotangent out once a launch, and the per-block partials written
-    and read back once."""
-    total = 0
-    for P, mkind, lt, n_lights in calls:
-        alive = P[38] > 0.5
-        found = alive & (P[39] > 0.5)
-        rnd_cols = torch.zeros(5, dtype=torch.long, device=P.device)
-        rnd_cols[S.MAT_LAMBERTIAN] = 6 if n_lights else 2
-        rnd_cols[S.MAT_METAL] = 4
-        rnd_cols[S.MAT_DIELECTRIC] = 1
-        n = P.shape[1]
-        total += (n * (13 + 40) + int(alive.sum()) * 4
-                  + int(found.sum()) * 15
-                  + int(rnd_cols[mkind[found].long()].sum())
-                  + 2 * lt.numel() + 2 * lt.numel() * (-(-n // 128))) * 4
-    return total
-
-
 def final_train(dev, smi, fwd) -> dict:
     """``bench.py``'s training step on final_scene at the bench shape on
     the split route (:func:`main_path_train`): per step SPP * DEPTH
@@ -1991,9 +1965,7 @@ def split_bwd_rows(train, worst_small) -> list[dict]:
     j_bytes = sum((19 + 2 + 12 + 19) * 4 * c[0].shape[1]
                   for c in calls["hit"])
     j_ops = sum(OPS_HIT_BWD * c[0].shape[1] for c in calls["hit"])
-    h_bytes = su_bwd_bytes(calls["su"])
-    h_ops = sum(int(((c[0][38] > 0.5) & (c[0][39] > 0.5)).sum()) * OPS_SU_BWD
-                for c in calls["su"])
+    h_bytes, h_ops = su_bwd_bytes(calls["su"])
     src = "rust_ray_tracer_tpu_torch/csrc/split.cu"
     rows = []
     for name, repl, nb, ops in (
@@ -2060,26 +2032,6 @@ def search_work(calls) -> dict:
     w["k_ops"] = (w["k_live_rays"] * OPS_K_RAY
                   + w["box_tests"] * search_times.OPS_SLAB)
     return w
-
-
-def bp_bytes(calls) -> tuple[int, int]:
-    """(bytes, operations) kernel F must move and do on these recorded
-    calls, by lane class (``bounce_planes_kernel``, ``csrc/split.cu``):
-    every lane reads o, d, L, beta and alive (13 planes) and writes 13; a
-    live lane also reads its kind; a found lane also reads time, the
-    window, the pack, tmed, one albedo leaf, fuzz, ior and the 15 randoms
-    (32 planes), its material kind and flags. The light table once a
-    launch. Operations: the hit attributes and the shading of each found
-    lane (OPS_HIT + OPS_SHADE)."""
-    nb = ops = 0
-    for P, pkind, _, _, lt, _ in calls:
-        alive = P[45] > 0.5
-        found = alive & (pkind != isect.KIND_NONE)
-        n_found = int(found.sum())
-        nb += (P.shape[1] * 26 + int(alive.sum()) + n_found * (32 + 2)
-               + lt.numel()) * 4
-        ops += n_found * (OPS_HIT + OPS_SHADE)
-    return nb, ops
 
 
 def mesh_forward(dev, smi) -> dict:
@@ -2273,7 +2225,7 @@ def mesh_rows(fwd, train, worst_small) -> list[dict]:
     bounces, from the work this run's data needs."""
     n_w = DEPTH
     work = fwd["work"]
-    f_bytes, f_ops = bp_bytes(fwd["calls"]["bp"])
+    f_bytes, f_ops = bp_fwd_bytes(fwd["calls"]["bp"])
     fb_bytes, fb_ops = bp_bwd_bytes(fwd["calls"]["bp"])
     src_s = "rust_ray_tracer_tpu_torch/csrc/search.cu"
     src_f = "rust_ray_tracer_tpu_torch/csrc/split.cu"
@@ -3783,19 +3735,6 @@ def select_costs(ctx, st) -> tuple[int, int]:
     return (8 + w + 2) * n * 4 + tables, closest_hit_work(st[None], ctx)["ops"]
 
 
-def live_costs(args, tlive) -> tuple[tuple[int, int], tuple[int, int]]:
-    """((bytes, operations) of G, of G') on F's inputs ``args`` and the
-    tiles' flags ``tlive``: a live tile's lanes by F's lane classes
-    (``bp_bytes``), a dead tile's read 13 planes and write 13, the flags
-    once (G); G''s by ``tools/search_times.bp_live_bwd_bytes``."""
-    P, pkind, mkind, flags, lt, n_lights = args
-    live = torch.repeat_interleave(tlive > 0, bounce_ops.LIVE_TILE)
-    g_bytes, g_ops = bp_bytes([(P[:, live], pkind[live], mkind[live],
-                                flags[live], lt, n_lights)])
-    g_bytes += (int((~live).sum()) * 26 + tlive.numel()) * 4
-    return (g_bytes, g_ops), bp_live_bwd_bytes(args, tlive)
-
-
 def unfused_bounce_checks(label, fwd, seed=41) -> dict:
     """Kernels E, G and G' against ``select_plain``,
     ``bounce_planes_live_plain`` and ``bounce_planes_live_bwd_plain`` on
@@ -3878,7 +3817,8 @@ def unfused_bounce_checks(label, fwd, seed=41) -> dict:
             raise AssertionError(f"{label}: E + G differ from D on {vs_d} "
                                  "lanes")
         e_cost = select_costs(ctx, st)
-        g_cost, gp_cost = live_costs(args, tlive)
+        g_cost = bp_live_bytes(args, tlive)
+        gp_cost = bp_live_bwd_bytes(args, tlive)
         bounces.append({
             "bounce": b, "live": int((st[7] > 0.5).sum()),
             "found": int((kind > 0).sum()),

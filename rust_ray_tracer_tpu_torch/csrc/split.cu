@@ -68,27 +68,35 @@
 // thread per ray, every plane read and written coalesced. H keeps the light
 // table in shared memory.
 //
-// F and F' are bound by memory as J, H, J' and H' are: F reads 13 planes
-// of a dead lane and ~50 of a found one and writes 13; F' reads 13 to ~50
-// and writes every input plane's cotangent. One thread per ray, the planes
-// read and written coalesced; F' recomputes F's forward from the saved
-// planes. G and G' move F's and F''s bytes on a live tile; on a dead one G
-// reads 13 planes and writes 13, G' reads 12 and writes every input
-// plane's, so a dead tile costs a copy, not the shading.
+// F and F' move what J, H, J' and H' move: F reads 13 planes of a dead
+// lane and ~40 of a found one and writes 13; F' reads 13 to ~50 and writes
+// every input plane's cotangent. One thread per ray, the planes read and
+// written coalesced; F' recomputes F's forward from the saved planes. G
+// and G' move F's and F''s bytes on a live tile; on a dead one G reads 13
+// planes and writes 13, G' reads 12 and writes every input plane's, so a
+// dead tile costs a copy, not the shading. F runs at ~3x its bytes,
+// bound by latency: a found lane's loads depend on its alive flag and
+// kind, and its checker leaf on the hit point. F issues them in two rounds
+// ahead of its branches (both checker leaves in the second), the carried
+// state (o, d, L, beta) by cp.async into shared memory, so that it holds
+// 56 registers without spill and a wave's 1,152 blocks are resident at
+// once (9 an SM); on a bounce where every lane shades, the state's trip
+// through shared memory costs about what the ninth block gains.
 //
-// F''s light-table cotangent: each ray's share lives in dynamic shared
-// memory laid out [entry][ray] (ray t in column t, entries ROW apart: the
-// adjoints' template stride, so the adds are the ray's own, in its order),
-// kernel B's layout. A thread zeroes only the (n_lights + 1) * LT_COLS
-// entries the scene has; the light table itself is read from shared
-// memory. After one barrier warp v takes the entries k = v mod 4, and each
-// is the sum of the block's four 32-ray warps, each warp by warp_sum's
-// shuffle tree, then added in warp order: a fixed association, so the
-// partials repeat bit for bit. A block holds
+// F''s and H''s light-table cotangent: each ray's share lives in dynamic
+// shared memory laid out [entry][ray] (ray t in column t, entries ROW
+// apart: the adjoints' template stride, so the adds are the ray's own, in
+// its order), kernel B's layout. A thread zeroes only the (n_lights + 1) *
+// LT_COLS entries the scene has; the light table itself is read from
+// shared memory. After one barrier warp v takes the entries k = v mod 4,
+// and each is the sum of the block's four 32-ray warps, each warp by
+// warp_sum's shuffle tree, then added in warp order (lt_share_partial): a
+// fixed association, so the partials repeat bit for bit. A block holds
 // (n_lights + 1) * 14 * 512 bytes, 14,336 at 1 light and 64,512 at 8 (the
-// cap of F and F', MAX_LT), past the default 48 KB from 6 lights, where
-// the launch raises the kernel's limit. B' (bwd_reduce_kernel) sums the
-// block partials in block order: no float atomics.
+// split kernels' cap, MAX_LT), past the default 48 KB from 6 lights,
+// where the launch raises the kernel's limit (lt_share_smem). B'
+// (bwd_reduce_kernel) sums the block partials in block order: no float
+// atomics.
 //
 // J and H call the device functions that kernel A runs inline
 // (trace_common.cuh: hit_attrs, shade, update_found, update_miss), so the
@@ -100,16 +108,20 @@
 // and H: 19 + 2 + 12 planes in and 19 out (J'); for H', by lane class, a
 // dead lane reads 13 planes and a found one ~47, and every lane writes
 // 40. One thread per ray recomputes its forward (J's attributes, H's
-// shading) from the saved inputs instead of reading residuals. H''s
-// light-table cotangent stays in each thread's local array and is summed
-// in a fixed order, per block and then across the blocks by B'
-// (bwd_reduce_kernel) in block order: no float atomics, so the gradients
-// repeat bit for bit.
+// shading) from the saved inputs instead of reading residuals. What holds
+// H' past its bytes is latency: a lane's state and randoms depend on its
+// alive and hit flags and its material kind. H' issues its loads in two
+// rounds ahead of its branches, the second the state and the randoms its
+// class reads (load_randoms: one material's, at most 6 registers), and
+// keeps its light-table share in shared memory as F' does, so it has no
+// stack.
 //
 // The library is built with --fmad=false: its plain versions are torch
 // elementwise ops, which never contract a*b+c, and final_scene's noise
 // sphere and free-flight distances amplify an FMA's last ulp. Ties and predicates are the plain versions' exactly: strict <,
 // ascending quad ids, |denom| > 0, t in [tmin, tmax], 0 <= alpha, beta <= 1.
+
+#include <cuda_pipeline.h>
 
 #include "trace_bwd_common.cuh"
 
@@ -432,14 +444,81 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// A block's light-table partial from its rays' shares ``sdl`` [ltn][ROW]
+// (after a barrier), into row blockIdx.x of dlt_part: warp v takes the
+// entries k = v mod 4; each is the sum of its four 32-ray warps' warp_sum
+// trees, added in warp order (F', G' and H').
+__device__ __forceinline__ void lt_share_partial(const float* sdl, int ltn,
+                                                 float* __restrict__ dlt_part) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int k = warp; k < ltn; k += ROW / 32) {
+    const float* x = sdl + k * ROW;
+    float v[ROW / 32];
+#pragma unroll
+    for (int w = 0; w < ROW / 32; ++w) v[w] = warp_sum(x[w * 32 + lane]);
+    if (lane == 0) {
+      float acc = v[0];
+#pragma unroll
+      for (int w = 1; w < ROW / 32; ++w) acc += v[w];
+      dlt_part[(size_t)blockIdx.x * ltn + k] = acc;
+    }
+  }
+}
+
+// A found lane's material's randoms (r its first, the next rs apart),
+// loaded together ahead of its shading into rv, in order: Lambertian 0, 1
+// and with lights 3-6; metal 7, 9-11; dielectric 2; isotropic 8, 12-14
+// (its adjoint reads none of them).
+template <bool ADJOINT>
+__device__ __forceinline__ void load_randoms(const float* __restrict__ r,
+                                             size_t rs, int mk, int n_lights,
+                                             float rv[6]) {
+  auto R = [&](int c) { return r[c * rs]; };
+  if (mk == MAT_LAMBERTIAN) {
+    rv[0] = R(0);
+    rv[1] = R(1);
+    if (n_lights > 0) {
+      rv[2] = R(3);
+      rv[3] = R(4);
+      rv[4] = R(5);
+      rv[5] = R(6);
+    }
+  } else if (mk == MAT_METAL) {
+    rv[0] = R(7);
+    rv[1] = R(9);
+    rv[2] = R(10);
+    rv[3] = R(11);
+  } else if (mk == MAT_DIELECTRIC) {
+    rv[0] = R(2);
+  } else if (!ADJOINT && mk == MAT_ISOTROPIC) {
+    rv[0] = R(8);
+    rv[1] = R(12);
+    rv[2] = R(13);
+    rv[3] = R(14);
+  }
+}
+
+// The 15 randoms as shade, shade_fwd and shade_vjp index them (stride 1)
+// from load_randoms' rv: each material's branch reads only its own, so
+// the materials' slots share rv's registers.
+__device__ __forceinline__ void expand_randoms(const float rv[6],
+                                               float rr[15]) {
+  constexpr int slot[15] = {0, 1, 0, 2, 3, 4, 5, 0, 0, 1, 2, 3, 1, 2, 3};
+#pragma unroll
+  for (int c = 0; c < 15; ++c) rr[c] = rv[slot[c]];
+}
+
 // H': P, mkind, lt as H's; g [13, n] the cotangents of H's outputs. dP
 // [40, n]: those of o, d, p, n, albedo, fuzz, ior, L and beta (the randoms,
-// alive and hit take none). The light table's, through the mixture pdf of
-// Lambertian hits and the background of live misses, leaves as one partial
-// a block: each ray keeps its share in a local array, and a block sums its
-// rays' (each warp by a fixed tree, then the warps in order) into
-// dlt_part [gridDim.x, (n_lights + 1) * LT_COLS], kernel B's layout, which
-// bwd_reduce_kernel's light-table blocks sum in block order. No float
+// alive and hit take none). A lane issues its loads in two rounds ahead of
+// its branches: its flags, material kind and cotangents, then what its
+// class reads (beta for a live lane; d, p, n, albedo, fuzz, ior and its
+// material's randoms for a found one). The light table's cotangent,
+// through the mixture pdf of Lambertian hits and the background of live
+// misses, leaves as one partial a block in dlt_part [gridDim.x, ltn],
+// kernel B's layout, each ray's share kept in the dynamic shared memory
+// ``sdl`` [ltn][ROW] (the header's design) and summed by lt_share_partial,
+// and bwd_reduce_kernel sums the partials in block order. No float
 // atomics: the same bits in every run.
 __global__ void __launch_bounds__(ROW)
 shade_update_bwd_kernel(const float* __restrict__ P,
@@ -447,45 +526,66 @@ shade_update_bwd_kernel(const float* __restrict__ P,
                         const float* __restrict__ lt, int n_lights,
                         const float* __restrict__ g, float* __restrict__ dP,
                         float* __restrict__ dlt_part, int n) {
+  extern __shared__ float sdl[];           // the rays' shares [ltn][ROW]
   __shared__ float slt[MAX_LT];
-  __shared__ float red[ROW / 32][MAX_LT];
   const int ltn = (n_lights + 1) * LT_COLS;
-  for (int k = threadIdx.x; k < ltn; k += ROW) slt[k] = lt[k];
-  __syncthreads();
   const int i = blockIdx.x * ROW + threadIdx.x;
-  float dl[MAX_LT];                        // this ray's light-table share
-  for (int k = 0; k < ltn; ++k) dl[k] = 0.f;
+  auto at = [&](int c) { return P[(size_t)c * n + i]; };
+  // first round: the lane's class and its cotangents
+  float f_alive = 0.f, f_hit = 0.f;
+  int mk = 0;
+  float gc[12];
+#pragma unroll
+  for (int c = 0; c < 12; ++c) gc[c] = 0.f;
   if (i < n) {
-    auto at = [&](int c) { return P[(size_t)c * n + i]; };
-    auto gat = [&](int c) { return g[(size_t)c * n + i]; };
-    const V3 go = {gat(0), gat(1), gat(2)}, gd = {gat(3), gat(4), gat(5)};
-    const V3 gL = {gat(6), gat(7), gat(8)}, gb = {gat(9), gat(10), gat(11)};
+    f_alive = at(38);
+    f_hit = at(39);
+    mk = mkind[i];
+#pragma unroll
+    for (int c = 0; c < 12; ++c) gc[c] = g[(size_t)c * n + i];
+  }
+  const bool live = f_alive > 0.5f, found = live && f_hit > 0.5f;
+  // second round: what the lane's class reads
+  V3 beta = {0.f, 0.f, 0.f}, d = beta, p = beta, nrm = beta, alb = beta;
+  float fuzz = 0.f, ior = 0.f;
+  float rv[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (live) beta = {at(20), at(21), at(22)};
+  if (found) {
+    d = {at(3), at(4), at(5)};
+    p = {at(6), at(7), at(8)};
+    nrm = {at(9), at(10), at(11)};
+    alb = {at(12), at(13), at(14)};
+    fuzz = at(15);
+    ior = at(16);
+    load_randoms<true>(P + (size_t)23 * n + i, (size_t)n, mk, n_lights, rv);
+  }
+  for (int k = threadIdx.x; k < ltn; k += ROW) slt[k] = lt[k];
+  float* dl = sdl + threadIdx.x;           // this ray's share, ROW apart
+  for (int k = 0; k < ltn; ++k) dl[k * ROW] = 0.f;
+  __syncthreads();
+  if (i < n) {
+    const V3 go = {gc[0], gc[1], gc[2]}, gd = {gc[3], gc[4], gc[5]};
+    const V3 gL = {gc[6], gc[7], gc[8]}, gb = {gc[9], gc[10], gc[11]};
     V3 g_o = go, g_d = gd, g_beta = gb;    // a dead lane passes through
     V3 g_p = {0.f, 0.f, 0.f}, g_n = g_p, g_a = g_p;
     float g_fuzz = 0.f, g_ior = 0.f;
-    if (at(38) > 0.5f) {                   // a live ray
-      const V3 beta = {at(20), at(21), at(22)};
-      if (at(39) > 0.5f) {                 // that found something
-        const V3 d = {at(3), at(4), at(5)}, p = {at(6), at(7), at(8)};
-        const V3 nrm = {at(9), at(10), at(11)};
-        const V3 alb = {at(12), at(13), at(14)};
-        const float* __restrict__ r = P + (size_t)23 * n + i;
-        const int mk = mkind[i];
-        const ShadeFwd sf = shade_fwd(mk, d, nrm, p, alb, at(15), slt,
-                                      n_lights, r, (size_t)n);
-        const UpdateVjp u = update_found_vjp(beta, sf.em, sf.wt, sf.alive,
-                                             go, gd, gL, gb);
-        g_beta = u.g_beta;
-        g_o = u.g_o;
-        g_d = u.g_d;
-        g_p = u.g_p;
-        shade_vjp(sf, mk, d, nrm, p, alb, at(16), slt, n_lights, r,
-                  (size_t)n, u.g_em, u.g_wt, u.g_sd, g_d, g_p, g_n, g_a,
-                  g_fuzz, g_ior, dl);
-      } else {
-        g_beta = update_miss_vjp(slt + n_lights * LT_COLS, beta, gL, gb,
-                                 dl + n_lights * LT_COLS);
-      }
+    if (found) {
+      float rr[15];
+      expand_randoms(rv, rr);
+      const ShadeFwd sf = shade_fwd(mk, d, nrm, p, alb, fuzz, slt, n_lights,
+                                    rr, 1);
+      const UpdateVjp u = update_found_vjp(beta, sf.em, sf.wt, sf.alive, go,
+                                           gd, gL, gb);
+      g_beta = u.g_beta;
+      g_o = u.g_o;
+      g_d = u.g_d;
+      g_p = u.g_p;
+      shade_vjp<ROW>(sf, mk, d, nrm, p, alb, ior, slt, n_lights, rr, 1,
+                     u.g_em, u.g_wt, u.g_sd, g_d, g_p, g_n, g_a, g_fuzz,
+                     g_ior, dl);
+    } else if (live) {
+      g_beta = update_miss_vjp<ROW>(slt + n_lights * LT_COLS, beta, gL, gb,
+                                    dl + n_lights * LT_COLS * ROW);
     }
     const float y[23] = {g_o.x, g_o.y, g_o.z, g_d.x, g_d.y, g_d.z,
                          g_p.x, g_p.y, g_p.z, g_n.x, g_n.y, g_n.z,
@@ -496,20 +596,8 @@ shade_update_bwd_kernel(const float* __restrict__ P,
 #pragma unroll
     for (int c = 23; c < N_SU; ++c) dP[(size_t)c * n + i] = 0.f;
   }
-
-  // the block's partial
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int k = 0; k < ltn; ++k) {
-    const float v = warp_sum(dl[k]);
-    if (lane == 0) red[warp][k] = v;
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < ltn; k += ROW) {
-    float acc = red[0][k];
-#pragma unroll
-    for (int w = 1; w < ROW / 32; ++w) acc += red[w][k];
-    dlt_part[(size_t)blockIdx.x * ltn + k] = acc;
-  }
+  __syncthreads();                         // then the block's partial
+  lt_share_partial(sdl, ltn, dlt_part);
 }
 
 // ---- F and F': the fused bounce of solid and checker scenes ------------
@@ -517,6 +605,7 @@ shade_update_bwd_kernel(const float* __restrict__ P,
 
 constexpr int N_IN_B = 46, N_CHK = 6;
 constexpr int TILE_ROWS = 8;       // blocks a liveness flag covers
+constexpr int BP_MIN_BLOCKS = 9;   // F's resident blocks an SM, at least
 
 // G's and G''s test: tlive holds one flag a 1024-lane tile (1: a live
 // lane), the tile of pallas_bounce._LIVE_BR rows of 128; null for F, F'.
@@ -530,9 +619,16 @@ __device__ __forceinline__ bool tile_dead(const int* __restrict__ tlive) {
 // lt [(n_lights + 1), LT_COLS], the last row the background. out [13, n]
 // = o' d' L' beta' alive'. The winner's hit attributes (J's hit_attrs),
 // the checker select at the hit point, the shading and the estimator
-// update (H's shade, update_found, update_miss), one thread per ray. G:
-// the same with tlive (tile_dead).
-__global__ void __launch_bounds__(ROW)
+// update (H's shade, update_found, update_miss), one thread per ray. A
+// lane's loads go out in two rounds ahead of its branches: the state it
+// carries (o, d, L, beta) copied into shared memory by cp.async, which
+// holds no register, beside its alive flag, kinds and flags; then, if it
+// found something, the window, the pack, tmed, fuzz, ior, its albedo leaf
+// (both leaves on a checker lane) and its material's randoms. The state
+// is read back where the hit attributes, the shading and the update use
+// it, so the kernel fits BP_MIN_BLOCKS blocks an SM. G: the same with
+// tlive (tile_dead).
+__global__ void __launch_bounds__(ROW, BP_MIN_BLOCKS)
 bounce_planes_kernel(const float* __restrict__ P,
                      const int* __restrict__ pkind,
                      const int* __restrict__ mkind,
@@ -540,8 +636,8 @@ bounce_planes_kernel(const float* __restrict__ P,
                      const int* __restrict__ tlive,
                      const float* __restrict__ lt, int n_lights,
                      int has_checker, float* __restrict__ out, int n) {
+  const int t = threadIdx.x, i = blockIdx.x * ROW + t;
   if (tile_dead(tlive)) {               // G's all-dead tile
-    const int i = blockIdx.x * ROW + threadIdx.x;
     if (i < n) {
       // o, d, L, beta and alive (0) through (pallas_bounce.py:434-441)
       for (int c = 0; c < N_SU_OUT; ++c) {
@@ -552,39 +648,84 @@ bounce_planes_kernel(const float* __restrict__ P,
     return;
   }
   __shared__ float slt[MAX_LT];
-  for (int k = threadIdx.x; k < (n_lights + 1) * LT_COLS; k += ROW)
-    slt[k] = lt[k];
-  __syncthreads();
-  const int i = blockIdx.x * ROW + threadIdx.x;
-  if (i >= n) return;
+  __shared__ float sst[12][ROW];        // the lanes' o, d, L, beta
   auto at = [&](int c) { return P[(size_t)c * n + i]; };
-  V3 o = {at(0), at(1), at(2)}, d = {at(3), at(4), at(5)};
-  V3 L = {at(24), at(25), at(26)}, beta = {at(27), at(28), at(29)};
-  float alive = 0.f;
-  if (at(45) > 0.5f) {                  // a live ray
-    const int kd = pkind[i];
-    if (kd != KIND_NONE) {              // that found something
-      const int fl = flags[i];
-      float pk[9];
+  auto st = [&](int c) {                // a V3 of the state from row c
+    return V3{sst[c][t], sst[c + 1][t], sst[c + 2][t]};
+  };
+  // first round: the state into shared memory, the lane's class
+  float f_alive = 0.f;
+  int kd = KIND_NONE, mk = 0, fl = 0;
+  if (i < n) {
 #pragma unroll
-      for (int c = 0; c < 9; ++c) pk[c] = at(9 + c);
-      const HitAttrs h = hit_attrs(kd, o, d, at(6), at(7), at(8), pk,
-                                   at(18), (fl & 1) != 0);
-      int leaf = 19;                    // the albedo planes
-      if (has_checker && (fl & 2)) {
-        // checker (texture.rs:50-57): the sin-product sign picks the leaf
-        const float sines = sinf(10.f * h.p.x) * sinf(10.f * h.p.y) *
-                            sinf(10.f * h.p.z);
-        leaf = sines < 0.f ? N_IN_B + 3 : N_IN_B;
-      }
-      const Scatter sc = shade(mkind[i], d, h.n, h.p,
-                               {at(leaf), at(leaf + 1), at(leaf + 2)},
-                               at(22), at(23), slt, n_lights,
-                               P + (size_t)30 * n + i, (size_t)n);
-      update_found(sc, h.p, o, d, L, beta, alive);
+    for (int c = 0; c < 12; ++c)        // planes 0-5 and 24-29
+      __pipeline_memcpy_async(&sst[c][t], P + (size_t)(c < 6 ? c : c + 18) *
+                                              n + i, sizeof(float));
+    __pipeline_commit();
+    f_alive = at(45);
+    kd = pkind[i];
+    mk = mkind[i];
+    fl = flags[i];
+  }
+  const bool live = f_alive > 0.5f, found = live && kd != KIND_NONE;
+  const bool chk = has_checker && (fl & 2);
+  // second round: what a found lane reads
+  float time = 0.f, tmin = 0.f, tmax = 0.f, tmed = 0.f, fuzz = 0.f;
+  float ior = 0.f;
+  float pk[9];
+  V3 alb = {0.f, 0.f, 0.f}, alb_odd = alb;
+  float rv[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < 9; ++c) pk[c] = 0.f;
+  if (found) {
+    time = at(6);
+    tmin = at(7);
+    tmax = at(8);
+#pragma unroll
+    for (int c = 0; c < 9; ++c) pk[c] = at(9 + c);
+    tmed = at(18);
+    fuzz = at(22);
+    ior = at(23);
+    if (!chk) {
+      alb = {at(19), at(20), at(21)};
     } else {
-      update_miss(slt + n_lights * LT_COLS, L, beta, alive);
+      alb = {at(N_IN_B), at(N_IN_B + 1), at(N_IN_B + 2)};
+      alb_odd = {at(N_IN_B + 3), at(N_IN_B + 4), at(N_IN_B + 5)};
     }
+    load_randoms<false>(P + (size_t)30 * n + i, (size_t)n, mk, n_lights,
+                        rv);
+  }
+  for (int k = t; k < (n_lights + 1) * LT_COLS; k += ROW) slt[k] = lt[k];
+  __syncthreads();
+  if (i >= n) return;
+  __pipeline_wait_prior(0);             // the lane's own state has landed
+  float alive = 0.f;
+  V3 o, d, L, beta;
+  if (found) {
+    const HitAttrs h = hit_attrs(kd, st(0), st(3), time, tmin, tmax, pk,
+                                 tmed, (fl & 1) != 0);
+    if (chk) {
+      // checker (texture.rs:50-57): the sin-product sign picks the leaf
+      const float sines = sinf(10.f * h.p.x) * sinf(10.f * h.p.y) *
+                          sinf(10.f * h.p.z);
+      if (sines < 0.f) alb = alb_odd;
+    }
+    float rr[15];
+    expand_randoms(rv, rr);
+    const Scatter sc = shade(mk, st(3), h.n, h.p, alb, fuzz, ior, slt,
+                             n_lights, rr, 1);
+    asm volatile("" ::: "memory");      // the state read anew, not kept
+    o = st(0);
+    d = st(3);
+    L = st(6);
+    beta = st(9);
+    update_found(sc, h.p, o, d, L, beta, alive);
+  } else {
+    o = st(0);
+    d = st(3);
+    L = st(6);
+    beta = st(9);
+    if (live) update_miss(slt + n_lights * LT_COLS, L, beta, alive);
   }
   const float y[N_SU_OUT] = {o.x, o.y, o.z, d.x, d.y, d.z, L.x, L.y, L.z,
                              beta.x, beta.y, beta.z, alive};
@@ -703,38 +844,36 @@ bounce_planes_bwd_kernel(const float* __restrict__ P,
     dP[(size_t)(leaf + 1) * n + i] = g_a.y;
     dP[(size_t)(leaf + 2) * n + i] = g_a.z;
   }
-
-  // the block's partial: warp v takes the entries k = v mod 4; each is the
-  // sum of its four 32-ray warps' warp_sum trees, added in warp order
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  for (int k = warp; k < ltn; k += ROW / 32) {
-    const float* x = sdl + k * ROW;
-    float v[ROW / 32];
-#pragma unroll
-    for (int w = 0; w < ROW / 32; ++w) v[w] = warp_sum(x[w * 32 + lane]);
-    if (lane == 0) {
-      float acc = v[0];
-#pragma unroll
-      for (int w = 1; w < ROW / 32; ++w) acc += v[w];
-      dlt_part[(size_t)blockIdx.x * ltn + k] = acc;
-    }
-  }
+  __syncthreads();                         // then the block's partial
+  lt_share_partial(sdl, ltn, dlt_part);
 }
 
 int launched(int n) {
   return n > 0 ? static_cast<int>(cudaGetLastError()) : 0;
 }
 
-// Dynamic shared memory of a block of F' or G': each ray's light-table
-// share [ltn][ROW]. Past the default 48 KB (from 6 lights) the launch
-// raises the kernel's limit first; 0 on success.
-int bp_bwd_smem(int n_lights, size_t& bytes) {
+// Dynamic shared memory of a block of a kernel that keeps its rays'
+// light-table shares [ltn][ROW] (F', G', H'). Past the default 48 KB (from
+// 6 lights) the launch raises the kernel's limit first; 0 on success.
+template <typename Kernel>
+int lt_share_smem(Kernel* kernel, int n_lights, size_t& bytes) {
   bytes = (size_t)(n_lights + 1) * LT_COLS * ROW * sizeof(float);
   if (bytes <= 48 * 1024) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
-      bounce_planes_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
+}
+
+// Such a kernel's resident blocks per multiprocessor at n_lights, from the
+// CUDA runtime's occupancy calculator at the launch's shared memory:
+// out[0] the blocks, out[1] the dynamic shared memory a block (bytes).
+template <typename Kernel>
+int lt_share_occupancy(Kernel* kernel, int n_lights, int* out) {
+  if ((n_lights + 1) * LT_COLS > MAX_LT) return -1;
+  size_t smem;
+  if (const int e = lt_share_smem(kernel, n_lights, smem)) return e;
+  out[1] = (int)smem;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, kernel, ROW, smem));
 }
 
 }  // namespace
@@ -791,8 +930,11 @@ extern "C" int shade_update_bwd_launch(const float* P, const int* mkind,
                                        const float* g, float* dP,
                                        float* dlt_part, int n, void* stream) {
   if ((n_lights + 1) * LT_COLS > MAX_LT) return -1;
+  size_t smem;
+  if (const int e = lt_share_smem(shade_update_bwd_kernel, n_lights, smem))
+    return e;
   if (n > 0)
-    shade_update_bwd_kernel<<<(n + ROW - 1) / ROW, ROW, 0,
+    shade_update_bwd_kernel<<<(n + ROW - 1) / ROW, ROW, smem,
                               static_cast<cudaStream_t>(stream)>>>(
         P, mkind, lt, n_lights, g, dP, dlt_part, n);
   return launched(n);
@@ -809,6 +951,15 @@ extern "C" int bounce_planes_launch(const float* P, const int* pkind,
                            static_cast<cudaStream_t>(stream)>>>(
         P, pkind, mkind, flags, nullptr, lt, n_lights, has_checker, out, n);
   return launched(n);
+}
+
+// F''s (and G''s) resident blocks per multiprocessor, from the CUDA
+// runtime's occupancy calculator: out[0] the blocks, out[1] 0 (no dynamic
+// shared memory).
+extern "C" int bounce_planes_occupancy(int* out) {
+  out[1] = 0;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, bounce_planes_kernel, ROW, 0));
 }
 
 // G: F with tlive [n / 1024] int32, one flag a 1024-lane tile; n a
@@ -838,7 +989,8 @@ extern "C" int bounce_planes_bwd_launch(const float* P, const int* pkind,
                                         void* stream) {
   if ((n_lights + 1) * LT_COLS > MAX_LT) return -1;
   size_t smem;
-  if (const int e = bp_bwd_smem(n_lights, smem)) return e;
+  if (const int e = lt_share_smem(bounce_planes_bwd_kernel, n_lights, smem))
+    return e;
   if (n > 0)
     bounce_planes_bwd_kernel<<<(n + ROW - 1) / ROW, ROW, smem,
                                static_cast<cudaStream_t>(stream)>>>(
@@ -847,16 +999,15 @@ extern "C" int bounce_planes_bwd_launch(const float* P, const int* pkind,
   return launched(n);
 }
 
-// F''s (and G''s) resident blocks per multiprocessor at n_lights, from
-// the CUDA runtime's occupancy calculator at the launch's shared memory:
-// out[0] the blocks, out[1] the dynamic shared memory a block (bytes).
+// F''s (and G''s) and H''s resident blocks per multiprocessor at
+// n_lights (lt_share_occupancy): out[0] the blocks, out[1] the dynamic
+// shared memory a block (bytes).
 extern "C" int bounce_planes_bwd_occupancy(int n_lights, int* out) {
-  if ((n_lights + 1) * LT_COLS > MAX_LT) return -1;
-  size_t smem;
-  if (const int e = bp_bwd_smem(n_lights, smem)) return e;
-  out[1] = (int)smem;
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, bounce_planes_bwd_kernel, ROW, smem));
+  return lt_share_occupancy(bounce_planes_bwd_kernel, n_lights, out);
+}
+
+extern "C" int shade_update_bwd_occupancy(int n_lights, int* out) {
+  return lt_share_occupancy(shade_update_bwd_kernel, n_lights, out);
 }
 
 // G': F' with G's tlive; dlt_part [n / 128, (n_lights + 1) * LT_COLS], a
@@ -869,7 +1020,8 @@ extern "C" int bounce_planes_live_bwd_launch(
       tlive == nullptr)
     return -1;
   size_t smem;
-  if (const int e = bp_bwd_smem(n_lights, smem)) return e;
+  if (const int e = lt_share_smem(bounce_planes_bwd_kernel, n_lights, smem))
+    return e;
   if (n > 0)
     bounce_planes_bwd_kernel<<<n / ROW, ROW, smem,
                                static_cast<cudaStream_t>(stream)>>>(

@@ -1,9 +1,10 @@
 """Times of the search kernels of library ``trace_wave`` (TPU kernels A, D
 and E, and the noise variants of A and D), of library ``search`` (K and
 M, with the unified search's sort of the rays) and of library ``sphere``
-(N), of the backward trace kernels B and D' (``--scenes trace_bwd``) and
-of the split route's backward kernels F', G' and I' (``--scenes
-split_bwd``) on one CUDA card, for
+(N), of the backward trace kernels B and D' (``--scenes trace_bwd``), of
+the split route's backward kernels F', G' and I' (``--scenes
+split_bwd``), its fused bounce F and G (``--scenes split_fwd``) and H'
+(``--scenes su_bwd``) on one CUDA card, for
 holding one tree's kernels against another's in the same call;
 ``chip_smoke.py`` runs :func:`search_report` as its search checks, counts
 M's work with :func:`m_work` and times its kernels with :func:`cold_ms`
@@ -93,13 +94,23 @@ file's; each out of L2 and in a loop, alone (``partials``) and with B''s
 sum of its partials, beside its byte bound (:func:`bp_bwd_bytes`,
 :func:`shade_bwd_bytes`, which ``chip_smoke.py`` counts with too), and in
 a one-wave training step (``torch.profiler``); the ptxas lines of the two
-kernels and their resident blocks an SM (:func:`bwd_occupancy`).
+kernels and their resident blocks an SM (:func:`occupancy`).
+
+``split_fwd``: kernel F on the mesh's recorded calls of wave 0 (bounces
+0-3) and G on the unfused flagship's, each out of L2 and in a loop beside
+its bound (:func:`bp_fwd_bytes`, :func:`bp_live_bytes`, which
+``chip_smoke.py`` counts with too) and in a one-wave forward render; the
+ptxas line of ``bounce_planes_kernel`` and its resident blocks an SM.
+``su_bwd``: kernel H' on final_scene's and random earth's recorded calls
+of kernel H of wave 0, with a seeded cotangent, alone and with B''s sum,
+out of L2 and in a loop beside its bound (:func:`su_bwd_bytes`), and in
+a one-wave training step; its ptxas line and resident blocks.
 
 ``--save`` writes A's final states and winners, E's winners, M's and
 K's of each mesh bounce (and O's of each final_scene bounce, N's of each
 random earth bounce; B's and D''s dst, keys, light-table partials and
-the contrib rows of ray-bounces with a winner; F''s, G''s and I''s dP or
-d_data and partials) to a
+the contrib rows of ray-bounces with a winner; F''s, G''s, H''s and I''s
+dP or d_data, partials and their sum by B'; F's and G's output) to a
 ``.pt`` file; ``--compare a.pt b.pt
 ...`` then prints, for each file after the first, whether each of those
 tensors equals the first file's bit for bit (floats by their bit
@@ -1043,6 +1054,11 @@ def trace_bwd_report(dev, save=None, seed=5):
     return out
 
 
+# fp32 operations of the split route's forward kernels (csrc/split.cu),
+# counted from the code: J per ray (one kind's attributes and the sphere
+# reading of the pack), H per live found ray its shading and update; F
+# (and G on a live tile) both a found ray
+OPS_HIT, OPS_SHADE = 150, 300
 # fp32 operations of the split route's backward kernels (csrc/split.cu):
 # J' per ray recomputes J's attributes (~150) and runs the winner's
 # adjoint plus the sphere reading's (~2 x 150); H' per found ray
@@ -1061,6 +1077,78 @@ def _rnd_cols(n_lights, device):
     if n_lights:
         cols[S.MAT_LAMBERTIAN] = 6
     return cols
+
+
+# random columns a found ray's material reads in the forward shading
+# (csrc/trace_common.cuh shade, kernel F's early load): as the backward's
+# (_BWD_RND_COLS), and isotropic 4 (its scatter ball)
+_FWD_RND_COLS = (2, 4, 1, 0, 4)
+
+
+def bp_fwd_bytes(calls) -> tuple[int, int]:
+    """(bytes, operations) kernel F must move and do on these recorded
+    calls (P, pkind, mkind, flags, lt, n_lights), by lane class
+    (``bounce_planes_kernel``, ``csrc/split.cu``): every lane reads o, d,
+    L, beta and alive (13 planes) and writes 13; a live lane also reads
+    its kind; a found lane also reads time, the window, the pack, tmed,
+    fuzz, ior and the one albedo leaf that its shading uses (18 planes,
+    checker or not: the select at the hit point reads one leaf), its
+    material kind and flags and the randoms its material reads
+    (Lambertian 2, or 6 with lights; metal 4; dielectric 1; isotropic 4).
+    The light table once a launch. Operations: the hit attributes and the shading of each found
+    lane (OPS_HIT + OPS_SHADE). ``chip_smoke.py`` counts F's bound with
+    it. Pure: no device work."""
+    nb = ops = 0
+    for P, pkind, mkind, _, lt, n_lights in calls:
+        alive = P[45] > 0.5
+        found = alive & (pkind != isect.KIND_NONE)
+        cols = torch.tensor(_FWD_RND_COLS, dtype=torch.long, device=P.device)
+        if n_lights:
+            cols[S.MAT_LAMBERTIAN] = 6
+        n_found = int(found.sum())
+        nb += (P.shape[1] * 26 + int(alive.sum()) + n_found * (18 + 2)
+               + int(cols[mkind[found].long()].sum())
+               + lt.numel()) * 4
+        ops += n_found * (OPS_HIT + OPS_SHADE)
+    return nb, ops
+
+
+def bp_live_bytes(args, tlive) -> tuple[int, int]:
+    """(bytes, operations) kernel G must move and do on F's arguments
+    ``args`` and the tiles' flags ``tlive`` (1024 lanes a flag): a live
+    tile's lanes by F's lane classes (:func:`bp_fwd_bytes`), a dead tile's
+    read 13 planes and write 13, the flags once."""
+    P, pkind, mkind, flags, lt, n_lights = args
+    live = torch.repeat_interleave(tlive > 0, 1024)
+    nb, ops = bp_fwd_bytes([(P[:, live], pkind[live], mkind[live],
+                             flags[live], lt, n_lights)])
+    return nb + (int((~live).sum()) * 26 + tlive.numel()) * 4, ops
+
+
+def su_bwd_bytes(calls) -> tuple[int, int]:
+    """(bytes, operations) kernel H' must move and do on these recorded
+    calls (kernel H's arguments: P, mkind, lt, n_lights), by lane class
+    (``shade_update_bwd_kernel``, ``csrc/split.cu``): every lane reads its
+    alive flag and the cotangents of o', d', L', beta' (13 floats) and
+    writes all 40 planes of dP; a live lane also reads its hit flag and
+    beta (4); a found lane also reads d, p, n, albedo, fuzz, ior (14), its
+    material kind and the randoms its material's adjoint reads
+    (Lambertian 2, or 6 with lights; metal 4; dielectric 1). The light
+    table in and its cotangent out once a launch, and the per-block
+    partials written and read back once. Operations: the recomputed
+    shading and both adjoints a found lane (OPS_SU_BWD). ``chip_smoke.py``
+    counts H''s bound with it. Pure: no device work."""
+    nb = ops = 0
+    for P, mkind, lt, n_lights in calls:
+        alive = P[38] > 0.5
+        found = alive & (P[39] > 0.5)
+        n = P.shape[1]
+        nb += (n * (13 + 40) + int(alive.sum()) * 4 + int(found.sum()) * 15
+               + int(_rnd_cols(n_lights, P.device)[mkind[found].long()]
+                     .sum())
+               + 2 * lt.numel() + 2 * lt.numel() * (-(-n // ROW))) * 4
+        ops += int(found.sum()) * OPS_SU_BWD
+    return nb, ops
 
 
 def bp_bwd_bytes(calls) -> tuple[int, int]:
@@ -1169,34 +1257,59 @@ def resident_blocks(registers: int, smem: int, threads: int = ROW) -> int:
     return min(by_regs, by_smem, SM_THREADS // threads, SM_BLOCKS)
 
 
-def bwd_occupancy(line, n_lights) -> dict:
-    """Resident blocks per multiprocessor of F' (G') or I' (the ptxas
-    ``line`` of ``bounce_planes_bwd_kernel`` or ``shade_bwd_kernel``) at
-    ``n_lights``: the library's occupancy query
-    (``bounce_planes_bwd_occupancy``, ``shade_bwd_occupancy``: the CUDA
-    runtime's calculator) beside :func:`resident_blocks` of the ptxas
-    counts; a tree without the query (before the light-table redesign)
-    by the formula alone, with its dynamic shared memory: none for F', a
-    row of 14 n_lights + 1 floats a ray and the table for I'."""
+# the split route's kernels whose resident blocks :func:`occupancy`
+# reports: a pattern of the ptxas name -> (library, the library's
+# occupancy query, whether it takes the light count, the dynamic shared
+# memory a block of a tree without the query: none for F, F' and H'
+# before their redesigns, a row of 14 n_lights + 1 floats a ray and the
+# table for I')
+_OCCUPANCY = {
+    "bounce_planes_kernel": ("split", "bounce_planes_occupancy", False,
+                             lambda nl: 0),
+    "bounce_planes_bwd_kernel": ("split", "bounce_planes_bwd_occupancy",
+                                 True, lambda nl: 0),
+    "shade_update_bwd_kernel": ("split", "shade_update_bwd_occupancy", True,
+                                lambda nl: 0),
+    "shade_bwd_kernel": ("shade", "shade_bwd_occupancy", True,
+                         lambda nl: 4 * (14 * nl + ROW * (14 * nl + 1))),
+}
+
+
+def occupancy(line, n_lights) -> dict:
+    """Resident blocks per multiprocessor of F (G), F' (G'), H' or I' (the
+    ptxas ``line`` of its function) at ``n_lights``: the library's
+    occupancy query (``bounce_planes_occupancy``,
+    ``bounce_planes_bwd_occupancy``, ``shade_update_bwd_occupancy``,
+    ``shade_bwd_occupancy``: the CUDA runtime's calculator) beside
+    :func:`resident_blocks` of the ptxas counts; a tree without the query
+    by the formula alone (``_OCCUPANCY``)."""
     import ctypes
 
-    shade = "shade_bwd" in line["function"]
-    lib = ctypes.CDLL(str(K.build("shade" if shade else "split").path))
-    entry = "shade_bwd_occupancy" if shade else "bounce_planes_bwd_occupancy"
-    res = {"n_lights": n_lights}
+    name = next(k for k in _OCCUPANCY
+                if re.search(rf"\d{k}E", line["function"]))
+    library, entry, lights, smem = _OCCUPANCY[name]
+    lib = ctypes.CDLL(str(K.build(library).path))
+    res = {"kernel": name, "n_lights": n_lights}
     if hasattr(lib, entry):
         out = (ctypes.c_int * 2)()
-        err = getattr(lib, entry)(ctypes.c_int(n_lights), out)
+        args = (ctypes.c_int(n_lights), out) if lights else (out,)
+        err = getattr(lib, entry)(*args)
         if err != 0:
             raise RuntimeError(f"{entry}: CUDA error {err}")
         res.update(blocks=out[0], dynamic_smem=out[1], by="runtime")
     else:
-        ltn = n_lights * 14
-        res.update(dynamic_smem=4 * (ltn + ROW * (ltn + 1)) if shade else 0,
-                   by="formula")
+        res.update(dynamic_smem=smem(n_lights), by="formula")
     res["formula_blocks"] = resident_blocks(
         line["registers"], line["smem"] + res["dynamic_smem"])
     return res
+
+
+def ptxas_lines(pattern) -> list[dict]:
+    """The ptxas lines of library ``split``'s and ``shade``'s kernels
+    whose names match ``pattern``."""
+    return [r for lib in ("split", "shade")
+            for r in ptxas_report(K.build(lib).log)
+            if re.search(pattern, r["function"])]
 
 
 def _seeded(shape, seed, dev):
@@ -1244,7 +1357,58 @@ def _bwd_rows(kern, calls, seed, extra, save, label, nbytes):
                 d, part = kern.partials(*a)
                 save[f"{label}{b}.d"] = d.cpu()
                 save[f"{label}{b}.part"] = part.cpu()
+                save[f"{label}{b}.dlt"] = kern(*a)[1].cpu()
     return rows
+
+
+def _fwd_rows(kern, calls, extra, save, label, nbytes):
+    """``kern`` (F or G) on each recorded call: the live and found lanes,
+    ms out of L2 and in a loop, the bytes, operations and bound; with
+    ``save`` its output under ``label``."""
+    rows = []
+    for b, args in enumerate(calls):
+        a = args + extra[b]
+        P, pkind = args[0], args[1]
+        alive = P[45] > 0.5
+        with torch.no_grad():
+            nb, ops = nbytes(args, extra[b])
+            rows.append({"bounce": b, "lanes": P.shape[1],
+                         "live": int(alive.sum()),
+                         "found": int((alive & (pkind != isect.KIND_NONE))
+                                      .sum()),
+                         "bytes": nb, "operations": ops,
+                         "bound_ms": bound_ms(nb, ops),
+                         "ms": times(lambda a=a: kern(*a))})
+            if save is not None:
+                save[f"{label}{b}.out"] = kern(*a).cpu()
+    return rows
+
+
+def _record(scene, env=None, live=False):
+    """(key, the recorded calls) of wave 0 of ``scene`` at the bench wave
+    under the route flags ``env``: the split route's dispatchers'
+    (``torch_parity.split_recorder``) or, with ``live``, kernel G's
+    (:func:`_live_recorder`), after a warm-up render."""
+    key = rng.key(0, scene.tri_v0.device)
+    with _env(env or {}), torch.no_grad():
+        render_waves(scene, WIDTH, HEIGHT, key, 0, 1, depth=DEPTH,
+                     chunk_size=CHUNK)
+        with (_live_recorder() if live
+              else _parity().split_recorder()) as rec:
+            render_waves(scene, WIDTH, HEIGHT, key, 0, 1, depth=DEPTH,
+                         chunk_size=CHUNK)
+    torch.cuda.synchronize()
+    return key, rec
+
+
+def _bp_nbytes(args, extra):
+    """F''s or G''s bytes on one recorded call (G' with ``extra``, the
+    tiles' flags)."""
+    return (bp_live_bwd_bytes(args, *extra) if extra
+            else bp_bwd_bytes([args]))[0]
+
+
+UNFUSED_ENV = {"RRT_NO_UBER_FUSED": "1", "RRT_UBER_WAVE": "0"}
 
 
 def split_bwd_report(dev, save=None, seed=11):
@@ -1259,54 +1423,34 @@ def split_bwd_report(dev, save=None, seed=11):
     counts."""
     from rust_ray_tracer_tpu_torch.models.gltf import load_gltf_scene
 
-    lines = {r["function"]: r for lib in ("split", "shade")
-             for r in ptxas_report(K.build(lib).log)
-             if re.search(r"bounce_planes_bwd_kernel|shade_bwd_kernel",
-                          r["function"])}
-    out = {"ptxas": list(lines.values()),
-           "occupancy": [bwd_occupancy(r, nl) for r in lines.values()
+    lines = ptxas_lines(r"bounce_planes_bwd_kernel|shade_bwd_kernel")
+    out = {"ptxas": lines,
+           "occupancy": [occupancy(r, nl) for r in lines
                          for nl in ((9, 16) if "shade" in r["function"]
                                     else (1, 8))]}
 
-    def record(scene, env=None, live=False):
-        key = rng.key(0, dev)
-        with _env(env or {}), torch.no_grad():
-            render_waves(scene, WIDTH, HEIGHT, key, 0, 1, depth=DEPTH,
-                         chunk_size=CHUNK)
-            with (_live_recorder() if live
-                  else _parity().split_recorder()) as rec:
-                render_waves(scene, WIDTH, HEIGHT, key, 0, 1, depth=DEPTH,
-                             chunk_size=CHUNK)
-        torch.cuda.synchronize()
-        return key, rec
-
-    def bp_nbytes(args, extra):
-        return (bp_live_bwd_bytes(args, *extra) if extra
-                else bp_bwd_bytes([args]))[0]
-
     # F' on the mesh
     scene = mesh_scene(dev)
-    key, rec = record(scene)
+    key, rec = _record(scene)
     calls = rec["bp"]
     out["mesh_f_prime"] = {
         "bounces": _bwd_rows(K.bounce_planes_bwd_kernel, calls, seed,
-                             [()] * len(calls), save, "fp", bp_nbytes),
+                             [()] * len(calls), save, "fp", _bp_nbytes),
         "in_step": in_path(scene, key, ("bounce_planes_bwd_kernel",), {},
                            step=True)}
     del rec, calls, scene
 
     # G' on the unfused flagship
-    env = {"RRT_NO_UBER_FUSED": "1", "RRT_UBER_WAVE": "0"}
     scene = compile_scene(builders.procedural_flagship(), device=dev)
-    key, calls = record(scene, env, live=True)
+    key, calls = _record(scene, UNFUSED_ENV, live=True)
     args = [c[:6] for c in calls]
     tlive = [(c[6],) for c in calls]
     out["unfused_g_prime"] = {
         "bounces": _bwd_rows(K.bounce_planes_live_bwd_kernel, args, seed,
-                             tlive, save, "gp", bp_nbytes),
+                             tlive, save, "gp", _bp_nbytes),
         "dead_tiles": [int((t[0] == 0).sum()) for t in tlive],
-        "in_step": in_path(scene, key, ("bounce_planes_bwd_kernel",), env,
-                           step=True)}
+        "in_step": in_path(scene, key, ("bounce_planes_bwd_kernel",),
+                           UNFUSED_ENV, step=True)}
     del calls, args, tlive, scene
 
     # I' on the glTF flagship at 9 and 16 lights
@@ -1316,13 +1460,74 @@ def split_bwd_report(dev, save=None, seed=11):
                 os.path.join(tmp, f"f{nl}.gltf"), nl)
             scene = compile_scene(load_gltf_scene(path, WIDTH / HEIGHT),
                                   device=dev)
-        key, rec = record(scene)
+        key, rec = _record(scene)
         calls = rec["shade"]
         out[f"gltf{nl}_i_prime"] = {
             "bounces": _bwd_rows(K.shade_bwd_kernel, calls, seed,
                                  [()] * len(calls), save, f"ip{nl}.",
                                  lambda a, _: shade_bwd_bytes([a])),
             "in_step": in_path(scene, key, ("shade_bwd_kernel",), {},
+                               step=True)}
+        del rec, calls, scene
+    return out
+
+
+def split_fwd_report(dev, save=None):
+    """Kernels F and G (the ``split_fwd`` part): F on the mesh's recorded
+    calls of wave 0 (bounces 0-3), G on the unfused flagship's
+    (``RRT_NO_UBER_FUSED=1 RRT_UBER_WAVE=0``); each out of L2 and in a
+    loop beside its bound (:func:`bp_fwd_bytes`, :func:`bp_live_bytes`),
+    and in a one-wave forward render (:func:`in_path`); the ptxas line of
+    ``bounce_planes_kernel`` with its resident blocks an SM."""
+    lines = ptxas_lines(r"\dbounce_planes_kernelE")
+    out = {"ptxas": lines, "occupancy": [occupancy(r, 0) for r in lines]}
+    scene = mesh_scene(dev)
+    key, rec = _record(scene)
+    calls = rec["bp"]
+    out["mesh_f"] = {
+        "bounces": _fwd_rows(K.bounce_planes_kernel, calls,
+                             [()] * len(calls), save, "f",
+                             lambda a, _: bp_fwd_bytes([a])),
+        "in_path": in_path(scene, key, ("bounce_planes_kernel",), {})}
+    del rec, calls, scene
+
+    scene = compile_scene(builders.procedural_flagship(), device=dev)
+    key, calls = _record(scene, UNFUSED_ENV, live=True)
+    args = [c[:6] for c in calls]
+    tlive = [(c[6],) for c in calls]
+    out["unfused_g"] = {
+        "bounces": _fwd_rows(K.bounce_planes_live_kernel, args, tlive, save,
+                             "g", lambda a, t: bp_live_bytes(a, *t)),
+        "dead_tiles": [int((t[0] == 0).sum()) for t in tlive],
+        "in_path": in_path(scene, key, ("bounce_planes_kernel",),
+                           UNFUSED_ENV)}
+    return out
+
+
+def su_bwd_report(dev, save=None, seed=11):
+    """Kernel H' (the ``su_bwd`` part) on final_scene's and random earth's
+    recorded calls of kernel H of wave 0 (bounces 0-3), each with a seeded
+    cotangent: out of L2 and in a loop, alone (``partials``) and with B''s
+    sum of its partials, beside its bound (:func:`su_bwd_bytes`), and in a
+    one-wave training step (:func:`in_path`); the ptxas line of
+    ``shade_update_bwd_kernel`` with its resident blocks at the scenes'
+    light counts."""
+    lines = ptxas_lines(r"shade_update_bwd_kernel")
+    out = {"ptxas": lines}
+    scenes = (("final", lambda: compile_scene(
+        builders.final_scene(WIDTH / HEIGHT), device=dev)),
+              ("earth", lambda: earth_scene(dev)))
+    for label, make in scenes:
+        scene = make()
+        key, rec = _record(scene)
+        calls = rec["su"]
+        out[f"{label}_h_prime"] = {
+            "n_lights": scene.n_lights,
+            "occupancy": [occupancy(r, scene.n_lights) for r in lines],
+            "bounces": _bwd_rows(K.shade_update_bwd_kernel, calls, seed,
+                                 [()] * len(calls), save, f"hp{label}",
+                                 lambda a, _: su_bwd_bytes([a])[0]),
+            "in_step": in_path(scene, key, ("shade_update_bwd_kernel",), {},
                                step=True)}
         del rec, calls, scene
     return out
@@ -1352,7 +1557,7 @@ def main(argv=None) -> int:
     ap.add_argument("--scenes", default="flagship,random,mesh,tri,gltf",
                     help="comma-separated parts: flagship, random, mesh, "
                          "tri, gltf, sph, final, earth, bwd, trace_bwd, "
-                         "split_bwd")
+                         "split_bwd, split_fwd, su_bwd")
     ap.add_argument("--check", action="store_true",
                     help="hold M's winners on every mesh bounce against "
                          "the plain version")
@@ -1402,6 +1607,10 @@ def main(argv=None) -> int:
         res["trace_bwd"] = trace_bwd_report(dev, save)
     if "split_bwd" in parts:
         res["split_bwd"] = split_bwd_report(dev, save)
+    if "split_fwd" in parts:
+        res["split_fwd"] = split_fwd_report(dev, save)
+    if "su_bwd" in parts:
+        res["su_bwd"] = su_bwd_report(dev, save)
     res["sms"] = torch.cuda.get_device_properties(dev).multi_processor_count
     res["grid_blocks"] = math.ceil(WIDTH * HEIGHT / ROW)
     line = json.dumps(res)

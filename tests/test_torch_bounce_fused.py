@@ -44,6 +44,7 @@ from rust_ray_tracer_tpu_torch.utils import rng
 
 from tests.torch_parity import (assert_scaled_close, rel_l2, split_recorder,
                                 torch_scene)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-5, 1e-6
 

@@ -2,8 +2,10 @@
 B's and D''s (``tools/search_times.bwd_bytes``, which ``chip_smoke.py``
 counts with) on a two-bounce input written out ray by ray and on the plain
 forward's residuals of a 32x32 wave of the flagship counted one ray-bounce
-at a time; F''s (and G''s) and I''s (``bp_bwd_bytes``, ``shade_bwd_bytes``)
-on a few hundred lanes of every lane class and material kind."""
+at a time; F''s (and G''s), H''s and I''s (``bp_bwd_bytes``,
+``su_bwd_bytes``, ``shade_bwd_bytes``) and the forward kernels F's and
+G's (``bp_fwd_bytes``, ``bp_live_bytes``) on a few hundred lanes of every
+lane class and material kind."""
 
 import pytest
 import torch
@@ -11,13 +13,12 @@ import torch
 from rust_ray_tracer_tpu_torch.models import builders
 from rust_ray_tracer_tpu_torch.models.scene import compile_scene
 from rust_ray_tracer_tpu_torch.ops import uber
-from rust_ray_tracer_tpu_torch.tools.search_times import (OPS_HIT_BWD,
-                                                          OPS_SU_BWD,
-                                                          bp_bwd_bytes,
-                                                          bp_live_bwd_bytes,
-                                                          bwd_bytes,
-                                                          shade_bwd_bytes)
+from rust_ray_tracer_tpu_torch.tools.search_times import (
+    OPS_HIT, OPS_HIT_BWD, OPS_SHADE, OPS_SU_BWD, bp_bwd_bytes, bp_fwd_bytes,
+    bp_live_bwd_bytes, bp_live_bytes, bwd_bytes, shade_bwd_bytes,
+    su_bwd_bytes)
 from rust_ray_tracer_tpu_torch.utils import rng
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 W_COLS = 17
 
@@ -104,6 +105,9 @@ def test_bwd_bytes_recorded_wave_by_ray():
 # light table (csrc/trace_bwd_common.cuh shade_fwd + shade_vjp):
 # Lambertian 6, metal 4, dielectric 1, light and isotropic 0
 RND_WITH_LIGHTS = (6, 4, 1, 0, 0)
+# ... and in the forward shading (csrc/trace_common.cuh shade), without
+# and with lights: isotropic reads 4 more (its scatter ball)
+RND_FWD = ((2, 4, 1, 0, 4), (6, 4, 1, 0, 4))
 
 
 def _bp_calls(n, has_checker, seed):
@@ -135,6 +139,55 @@ def _bp_by_hand(P, pkind, mkind, lt):
                 floats += 26 + 2 + RND_WITH_LIGHTS[int(mkind[i])]
     blocks = -(-n // 128)
     return floats + lt.numel() + 2 * lt.numel() * blocks
+
+
+def _bp_fwd_by_hand(P, pkind, mkind, flags, lt, n_lights):
+    """F's floats counted lane by lane: every lane o, d, L, beta, alive in
+    and 13 planes out; a live lane its kind; a found lane time, the
+    window, the pack, tmed, fuzz, ior and one albedo leaf (the one the
+    checker's select picks on a checker lane), its material kind, flags
+    and randoms; the table in."""
+    floats = 0
+    for i in range(P.shape[1]):
+        floats += 13 + 13
+        if P[45, i] > 0.5:
+            floats += 1
+            if pkind[i] != 0:
+                floats += (15 + 3 + 2
+                           + RND_FWD[n_lights > 0][int(mkind[i])])
+    return floats + lt.numel()
+
+
+def _su_calls(n, n_lights, seed):
+    """Kernel H's arguments on ``n`` lanes: lanes 3k dead, 3k + 1 live
+    misses, 3k + 2 found (the five material kinds in turn)."""
+    gen = torch.Generator().manual_seed(seed)
+    P = torch.rand((40, n), generator=gen)
+    lane = torch.arange(n)
+    P[38] = (lane % 3 != 0).float()
+    P[39] = (lane % 3 == 2).float()
+    mkind = (lane // 3 % 5).to(torch.int32)
+    return P, mkind, torch.zeros((n_lights + 1, 14)), n_lights
+
+
+def _su_by_hand(P, mkind, lt, n_lights):
+    """H''s floats counted lane by lane: every lane its alive flag and 13
+    cotangents in, 40 planes of dP out; a live lane its hit flag and beta;
+    a found lane d, p, n, albedo, fuzz, ior, its material kind and the
+    randoms its material's adjoint reads; the table in, its cotangent out,
+    each block's partial out and back."""
+    n = P.shape[1]
+    floats = 0
+    for i in range(n):
+        floats += 13 + 40
+        if P[38, i] > 0.5:
+            floats += 4
+            if P[39, i] > 0.5:
+                rnd = (RND_WITH_LIGHTS if n_lights
+                       else (2, 4, 1, 0, 0))[int(mkind[i])]
+                floats += 14 + 1 + rnd
+    blocks = -(-n // 128)
+    return floats + 2 * lt.numel() + 2 * lt.numel() * blocks
 
 
 def _shade_calls(n, n_lights, seed):
@@ -171,14 +224,16 @@ def _shade_by_hand(data, rng_p, kind, lt, n_lights):
 @pytest.mark.parametrize("case", [
     ("bp", 300, False), ("bp", 384, True), ("bp_dead", 256, False),
     ("bp_live", 2048, True), ("shade", 300, 9), ("shade", 256, 16),
-    ("shade", 130, 0)])
+    ("shade", 130, 0), ("su", 300, 1), ("su", 260, 0), ("su_dead", 256, 8)])
 def test_split_bwd_bytes_by_hand(case):
     """F''s byte bound (``bp_bwd_bytes``) with one light, on a few hundred
     live, dead, found and missed lanes (with and without the checker
     leaves, and every lane dead), G''s (``bp_live_bwd_bytes``) on a live
-    and a dead 1024-lane tile, and I''s (``shade_bwd_bytes``) on the five
-    material kinds at 9, 16 and no lights, against counts made lane by
-    lane; a list of calls is the sum of its calls."""
+    and a dead 1024-lane tile, I''s (``shade_bwd_bytes``) on the five
+    material kinds at 9, 16 and no lights, and H''s (``su_bwd_bytes``) on
+    dead, live, missed and found lanes of every material kind at one and
+    no light (and every lane dead at 8), against counts made lane by lane;
+    a list of calls is the sum of its calls."""
     what, n, arg = case
     if what == "bp_live":
         # tile 0 live (F''s lane classes), tile 1 dead: its lanes read 12
@@ -201,8 +256,51 @@ def test_split_bwd_bytes_by_hand(case):
         found = int(((P[45] > 0.5) & (pkind != 0)).sum())
         assert ops == found * (OPS_HIT_BWD + OPS_SU_BWD)
         assert bp_bwd_bytes([call, call]) == (2 * nb, 2 * ops)
+    elif what.startswith("su"):
+        call = _su_calls(n, arg, n)
+        if what == "su_dead":
+            call[0][38] = 0.0
+        nb, ops = su_bwd_bytes([call])
+        assert nb == 4 * _su_by_hand(*call)
+        found = int(((call[0][38] > 0.5) & (call[0][39] > 0.5)).sum())
+        assert ops == found * OPS_SU_BWD
+        assert su_bwd_bytes([call, call]) == (2 * nb, 2 * ops)
     else:
         call = _shade_calls(n, arg, n)
         nb = shade_bwd_bytes([call])
         assert nb == 4 * _shade_by_hand(*call)
         assert shade_bwd_bytes([call, call]) == 2 * nb
+
+
+@pytest.mark.parametrize("case", [
+    ("bp", 300, False, 1), ("bp", 384, True, 1), ("bp", 330, True, 0),
+    ("bp_dead", 256, False, 1), ("bp_live", 2048, True, 1)])
+def test_split_fwd_bytes_by_hand(case):
+    """F's byte bound (``bp_fwd_bytes``) on a few hundred live, dead,
+    found and missed lanes of every material kind, with and without the
+    checker leaves (a checker lane counts the one leaf its select picks),
+    with one light and none, and every lane dead; G's (``bp_live_bytes``)
+    on a live and a dead 1024-lane tile; against counts made lane by lane;
+    a list of calls is the sum of its calls."""
+    what, n, checker, n_lights = case
+    P, pkind, mkind, _, _, _ = _bp_calls(n, checker, n)
+    flags = (torch.arange(n) % 4).to(torch.int32)   # FlipFace, checker
+    lt = torch.zeros((n_lights + 1, 14))
+    call = (P, pkind, mkind, flags, lt, n_lights)
+    if what == "bp_dead":
+        P[45] = 0.0
+    if what == "bp_live":
+        # tile 0 live (F's lane classes), tile 1 dead: its lanes read 13
+        # planes and write 13
+        tlive = torch.tensor([1, 0], dtype=torch.int32)
+        nb, ops = bp_live_bytes(call, tlive)
+        live = _bp_fwd_by_hand(P[:, :1024], pkind[:1024], mkind[:1024],
+                               flags[:1024], lt, n_lights)
+        assert nb == 4 * (live + 1024 * 26 + 2)
+        found = int(((P[45, :1024] > 0.5) & (pkind[:1024] != 0)).sum())
+    else:
+        nb, ops = bp_fwd_bytes([call])
+        assert nb == 4 * _bp_fwd_by_hand(*call)
+        assert bp_fwd_bytes([call, call]) == (2 * nb, 2 * ops)
+        found = int(((P[45] > 0.5) & (pkind != 0)).sum())
+    assert ops == found * (OPS_HIT + OPS_SHADE)

@@ -8,6 +8,7 @@ import torch
 from rust_ray_tracer_tpu.ops import camera as jc
 from rust_ray_tracer_tpu_torch.ops import camera as tc
 from rust_ray_tracer_tpu_torch.utils import rng
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("w,h", [(64, 36), (37, 23), (512, 288)])

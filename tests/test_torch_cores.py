@@ -21,6 +21,7 @@ from rust_ray_tracer_tpu.ops import pallas_shade as js
 from rust_ray_tracer_tpu_torch.ops import bounce_core as tbo
 from rust_ray_tracer_tpu_torch.ops import hit_core as th
 from rust_ray_tracer_tpu_torch.ops import shade_core as ts
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 S = (8, 128)
 RTOL, ATOL = 1e-5, 1e-6

@@ -22,8 +22,6 @@ call).
 
 import jax
 import numpy as np
-import pytest
-import torch
 
 from rust_ray_tracer_tpu.models import builders as jb
 from rust_ray_tracer_tpu.ops.integrator import render_waves as jax_render
@@ -34,6 +32,7 @@ from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
 from rust_ray_tracer_tpu_torch.utils import rng
 
 from tests.torch_parity import jax_compile
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 W, H, SPP, CHUNK = 64, 36, 2, 1152
 SEEDS = range(4)
@@ -43,19 +42,7 @@ def _off(img, ref):
     return int((np.abs(img - ref) > 1e-3).any(-1).sum())
 
 
-@pytest.fixture
-def one_torch_thread():
-    """The port's renders here are thousands of small ops: measured alone
-    they take 16 s on 8 intra-op threads and 45 s on one, but beside the
-    other test workers the 8 threads' pool slowed them to ~250 s."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def test_final_scene_no_farther_from_float64_than_jax(monkeypatch,
-                                                      one_torch_thread):
+def test_final_scene_no_farther_from_float64_than_jax(monkeypatch):
     js = jax_compile(jb.get_scene("final_scene", W / H), monkeypatch)
     ts = compile_scene(tb.get_scene("final_scene", W / H), device="cpu")
     params, static = partition(ts)

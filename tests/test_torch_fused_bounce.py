@@ -40,6 +40,7 @@ from rust_ray_tracer_tpu_torch.utils import rng
 from tests.test_torch_noise import _double_ctx
 from tests.torch_parity import (assert_flip_budget, assert_scaled_close,
                                 both, rel_l2, torch_scene)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 W = H = 32          # one 1024-ray chunk
 

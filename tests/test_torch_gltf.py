@@ -75,19 +75,9 @@ from rust_ray_tracer_tpu_torch.utils.image import decode_image
 from tests.torch_parity import (GLTF_LIGHTS, GltfWriter, assert_flip_budget,
                                 jax_compile, mesh_medium, scene_dict,
                                 split_recorder, write_gltf_flagship)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 NONZERO = ("tri_v0", "tex_color", "light_c", "light_r", "camera.c2w")
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """The port's CPU renders here are thousands of small ops; beside the
-    other test workers an 8-thread intra-op pool slows them tens of times
-    over (``tests/test_torch_final_scene.py`` measured the same)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _tris(seed, n, z):

@@ -38,7 +38,7 @@ from rust_ray_tracer_tpu_torch.kernels import (bounce_planes_bwd_kernel,
                                                tri_search_kernel)
 from rust_ray_tracer_tpu_torch.models import builders
 from rust_ray_tracer_tpu_torch.models.gltf import load_gltf_scene
-from rust_ray_tracer_tpu_torch.models.scene import (LIGHT_SPHERE,
+from rust_ray_tracer_tpu_torch.models.scene import (LIGHT_QUAD, LIGHT_SPHERE,
                                                     compile_scene)
 from rust_ray_tracer_tpu_torch.ops import shade as shade_ops
 from rust_ray_tracer_tpu_torch.ops import uber
@@ -51,6 +51,7 @@ from torch_parity import (SMALL_SCENES, assert_flip_budget,
                           mesh, random_earth_view, random_tris, rel_l2,
                           split_cots, split_kernel_inputs, split_recorder,
                           torch_scene, write_earth_map, write_gltf_flagship)
+from torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 W = H = 32          # one 1024-ray chunk
 DEPTH = 4
@@ -616,6 +617,104 @@ def test_split_bwd_kernels_match_plain_on_card(name, cuda):
     assert torch.equal(got_s, again[0]) and torch.equal(got_lt, again[1])
 
 
+def _int_bits_zero(x):
+    """Every float of ``x`` is +0 (bit pattern 0)."""
+    return not bool(x.contiguous().view(torch.int32).any())
+
+
+def _final_lights(n_lights):
+    """``n_lights`` light rows in final_scene's frame (:func:`_lights`):
+    the reference's ceiling rectangle (an XZRect over x 123-423, z 147-412
+    at y = 554) and a sphere light at its glass sphere ((260, 150, 45),
+    radius 50) in turn. (final_scene's own light takes the Hittable
+    defaults: no pdf, no cotangent.)"""
+    base = torch.zeros((2, 14))
+    base[0, 0] = LIGHT_QUAD
+    base[0, 5:14] = torch.tensor([123.0, 554.0, 147.0, 300.0, 0.0, 0.0,
+                                  0.0, 0.0, 265.0])
+    base[1, 0] = LIGHT_SPHERE
+    base[1, 1:5] = torch.tensor([260.0, 150.0, 45.0, 50.0])
+    return _lights(base, n_lights)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_lights", [1, 6, 8])
+def test_shade_update_bwd_light_counts_on_card(n_lights, cuda):
+    """H' at 1, 6 and 8 lights (8: 126 light-table entries, each ray's
+    share 64,512 bytes of a block's dynamic shared memory, past the
+    default 48 KB) on the inputs the split route gives H over two bounces
+    of a 32x32 wave of final_scene, the table's rows
+    (:func:`_final_lights`) beside its background: against
+    ``su_plane_core_vjp`` with a seeded cotangent under B's budget (dP
+    within rtol 1e-4 / atol 1e-6 of each lane's largest plane, at most
+    0.5% of the lanes outside; dlt within relative L2 1e-4, some light
+    row non-zero), twice for the same bits, one launch a call and one of
+    B' for its partials."""
+    from rust_ray_tracer_tpu_torch.ops import bounce
+
+    x = split_kernel_inputs(_final_scene())
+    P, mkind, lt0, _ = x["su"]
+    lt = torch.cat([_final_lights(n_lights), lt0[-1:]])
+    g = torch.from_numpy(np.random.default_rng(n_lights).normal(
+        size=(13, P.shape[1])).astype(np.float32))
+    args = (P.to(cuda), mkind.to(cuda), lt.to(cuda), n_lights, g.to(cuda))
+    before = [shade_update_bwd_kernel.launches, bwd_reduce_kernel.launches]
+    runs = [shade_update_bwd_kernel(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert [shade_update_bwd_kernel.launches - before[0],
+            bwd_reduce_kernel.launches - before[1]] == [2, 2]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    ref_p, ref_lt = bounce.su_plane_core_vjp(P, mkind, lt, n_lights, g)
+    dP, dlt = runs[0]
+    assert_scaled_close(dP.cpu().numpy(), ref_p.numpy(), 1e-4, 1e-6, axis=0,
+                        budget=0.005, what=f"H' {n_lights} lights")
+    assert rel_l2(dlt.cpu().numpy(), ref_lt.numpy()) <= 1e-4
+    assert float(dlt[:n_lights].abs().max()) > 0
+
+
+@pytest.mark.gpu
+def test_shade_update_bwd_blocks_without_adds_on_card(cuda):
+    """H' on final_scene's bounce-0 inputs of a 32x32 wave, rearranged so
+    that block 0 is all dead, block 1 all found on metal (neither adds to
+    the light table) and the rest as the route gave them: the first two
+    blocks' partials +0 bit for bit, block 0's lanes the pass-through's
+    cotangents (o, d, L, beta from ``g``, every other plane +0), the rest
+    within B's budget of ``su_plane_core_vjp``; on a wave all dead every
+    partial +0 and dlt +0; twice for the same bits."""
+    from rust_ray_tracer_tpu_torch.ops import bounce
+    from rust_ray_tracer_tpu_torch.models.scene import MAT_METAL
+
+    x = split_kernel_inputs(_final_scene(), depth=1)
+    P, mkind, lt, n_lights = (v.clone() if torch.is_tensor(v) else v
+                              for v in x["su"])
+    P[38, :128] = 0.0
+    P[38:40, 128:256] = 1.0
+    mkind[128:256] = MAT_METAL
+    g = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(13, P.shape[1])).astype(np.float32))
+    args = (P.to(cuda), mkind.to(cuda), lt.to(cuda), n_lights, g.to(cuda))
+    dP, part = shade_update_bwd_kernel.partials(*args)
+    again = shade_update_bwd_kernel.partials(*args)
+    _, dlt = shade_update_bwd_kernel(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(dP, again[0]) and torch.equal(part, again[1])
+    assert _int_bits_zero(part[:2])
+    want = torch.zeros((40, 128))
+    want[0:6] = g[0:6, :128]
+    want[17:23] = g[6:12, :128]
+    assert torch.equal(dP[:, :128].cpu(), want)
+    ref_p, ref_lt = bounce.su_plane_core_vjp(P, mkind, lt, n_lights, g)
+    assert_scaled_close(dP.cpu().numpy(), ref_p.numpy(), 1e-4, 1e-6, axis=0,
+                        budget=0.005, what="H' blocks without adds")
+    assert rel_l2(dlt.cpu().numpy(), ref_lt.numpy()) <= 1e-4
+    dead = args[0].clone()
+    dead[38] = 0.0
+    d_dP, d_part = shade_update_bwd_kernel.partials(dead, *args[1:])
+    _, d_dlt = shade_update_bwd_kernel(dead, *args[1:])
+    assert _int_bits_zero(d_part) and _int_bits_zero(d_dlt)
+    assert torch.equal(d_dP[23:], torch.zeros_like(d_dP[23:]))
+
+
 def _fog_grads(device):
     from rust_ray_tracer_tpu_torch.models.scene import combine, partition
     from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
@@ -998,6 +1097,72 @@ def test_bounce_planes_kernels_match_plain_on_card(cuda):
         assert rel_l2(dlt.cpu().numpy(), ref_lt.cpu().numpy()) <= 1e-4
         again = bounce_planes_bwd_kernel(P, pk, mk, fl, lt, n_lights, g)
         assert torch.equal(dP, again[0]) and torch.equal(dlt, again[1])
+
+
+def _mixed_bounce_planes(n, seed=13):
+    """Kernel F's arguments on ``n`` lanes drawn from the split route's
+    two bounces of the fog scene with solid textures (checkers, media):
+    lanes in a seeded order so that each 128-lane block mixes live, dead,
+    found and missed lanes, a seeded tenth of them dead."""
+    calls = _fused_calls()
+    P = torch.cat([c[0] for c in calls], 1)
+    pk, mk, fl = (torch.cat([c[i] for c in calls]) for i in (1, 2, 3))
+    gen = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, P.shape[1], (n,), generator=gen)
+    P, pk, mk, fl = P[:, idx].contiguous(), pk[idx], mk[idx], fl[idx]
+    P[45, torch.rand(n, generator=gen) < 0.1] = 0.0
+    _, _, _, _, lt, n_lights = calls[0]
+    return P, pk, mk, fl, lt, n_lights
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("checker", [True, False])
+def test_bounce_planes_mixed_blocks_on_card(checker, cuda):
+    """F and G on 163,840 lanes (more than a round of resident blocks:
+    9 an SM on 132 SMs hold 152,064) whose every block mixes live, dead,
+    found and missed lanes (:func:`_mixed_bounce_planes`), with the
+    checker leaves and without (the leaves dropped, flag bit 1 cleared):
+    F on n - 37 lanes (a short last block) against
+    ``bounce_plane_core``, G with every fifth tile dead against
+    ``bounce_planes_live_plain``, both within F's budget (rtol 1e-5 of
+    each lane's largest plane / atol 1e-6, at most 0.5% of the lanes
+    outside); each twice for the same bits, G equal to F on its live
+    tiles and its dead tiles' planes copied bit for bit."""
+    from rust_ray_tracer_tpu_torch.ops import bounce
+    from rust_ray_tracer_tpu_torch.ops.bounce_core import (N_IN_B,
+                                                           bounce_plane_core)
+
+    n = 160 * 1024
+    P, pk, mk, fl, lt, n_lights = _mixed_bounce_planes(n)
+    if not checker:
+        P, fl = P[:N_IN_B].contiguous(), fl & ~2
+    assert bool((fl & 2).any()) == checker
+    args = tuple(x.to(cuda) for x in (P, pk, mk, fl, lt)) + (n_lights,)
+    m = n - 37
+    short = tuple(x[..., :m].contiguous() if i < 4 else x
+                  for i, x in enumerate(args))
+    tlive = (torch.arange(n // 1024) % 5 != 0).to(torch.int32).to(cuda)
+    before = [bounce_planes_kernel.launches,
+              K.bounce_planes_live_kernel.launches]
+    f_runs = [bounce_planes_kernel(*short) for _ in range(2)]
+    g_runs = [K.bounce_planes_live_kernel(*args, tlive) for _ in range(2)]
+    f_full = bounce_planes_kernel(*args)
+    torch.cuda.synchronize()
+    assert [bounce_planes_kernel.launches - before[0],
+            K.bounce_planes_live_kernel.launches - before[1]] == [3, 2]
+    assert torch.equal(*f_runs) and torch.equal(*g_runs)
+    chk = short[0].shape[0] > N_IN_B
+    assert_scaled_close(f_runs[0].cpu().numpy(),
+                        bounce_plane_core(*short, chk).cpu().numpy(), 1e-5,
+                        1e-6, axis=0, budget=0.005, what="F mixed blocks")
+    assert_scaled_close(
+        g_runs[0].cpu().numpy(),
+        bounce.bounce_planes_live_plain(*args, tlive).cpu().numpy(), 1e-5,
+        1e-6, axis=0, budget=0.005, what="G mixed blocks")
+    live = torch.repeat_interleave(tlive > 0, 1024)
+    assert torch.equal(g_runs[0][:, live], f_full[:, live])
+    through = torch.cat([args[0][0:6], args[0][24:30], args[0][45:46]])
+    assert torch.equal(g_runs[0][:, ~live], through[:, ~live])
 
 
 @pytest.mark.gpu
@@ -1474,12 +1639,13 @@ def test_shade_launchers_refuse_past_the_cap_on_card(cuda):
 
 
 def _lights(lt9, n_lights):
-    """``n_lights`` rows from the 9-light table ``lt9``: row k is row k mod
-    9 with its centre (a sphere) or corner (a quad) moved by k // 9 steps
-    of (0.05, -0.05, 0.025)."""
+    """``n_lights`` rows from the m-light table ``lt9`` (9 rows where I's
+    tests take it): row k is row k mod m with its centre (a sphere) or
+    corner (a quad) moved by k // m steps of (0.05, -0.05, 0.025)."""
     k = torch.arange(n_lights)
-    lt = lt9[k % 9].clone()
-    step = (k // 9).to(lt.dtype)[:, None] * torch.tensor([0.05, -0.05,
+    m = lt9.shape[0]
+    lt = lt9[k % m].clone()
+    step = (k // m).to(lt.dtype)[:, None] * torch.tensor([0.05, -0.05,
                                                           0.025])
     sph = lt[:, 0] == LIGHT_SPHERE
     lt[sph, 1:4] += step[sph]

@@ -22,6 +22,7 @@ from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
 from rust_ray_tracer_tpu_torch.utils import rng
 
 from tests.torch_parity import both
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 LEAVES = ("tex_color", "sph_c0", "sph_r", "tri_v0", "quad_q", "mat_fuzz",
           "mat_ior", "background", "light_q", "light_u", "light_v",

@@ -83,6 +83,7 @@ from rust_ray_tracer_tpu_torch.utils import rng
 from tests.torch_parity import (assert_flips_arbitrated, jax_compile,
                                 random_earth_view, scene_dict, split_recorder,
                                 write_earth_map)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture

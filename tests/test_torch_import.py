@@ -5,6 +5,7 @@ import os
 import subprocess
 import sys
 import textwrap
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 _SCRIPT = textwrap.dedent("""
     import shutil, sys

@@ -28,6 +28,7 @@ from rust_ray_tracer_tpu_torch.ops import intersect as ti
 from rust_ray_tracer_tpu_torch.ops import texture as tt
 
 from tests.torch_parity import both, jax_compile
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 
 def _scenes(name, monkeypatch):

@@ -48,6 +48,7 @@ from rust_ray_tracer_tpu_torch.ops.integrator import (make_split_tables,
 from rust_ray_tracer_tpu_torch.utils import rng
 
 from tests.torch_parity import assert_flip_budget, both, jax_compile, mesh
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 NONZERO = ("tri_v0", "tex_color", "light_c", "light_r", "camera.c2w")
 

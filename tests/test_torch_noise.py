@@ -30,6 +30,7 @@ from tests.test_torch_trace import DEPTH, _jax_trace, interpret_mode  # noqa
 from tests.test_torch_trace import _inputs as _trace_inputs
 from tests.test_torch_vjp import S, _bounce_inputs, _close, _jlt
 from tests.torch_parity import assert_scaled_close, both, rel_l2
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 ROWS = 8
 

@@ -30,6 +30,7 @@ from rust_ray_tracer_tpu_torch.parallel import (RenderState, dryrun,
                                                 render_with_checkpoints,
                                                 save_state)
 from rust_ray_tracer_tpu_torch.utils import rng
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the dry run's shape: 4 chunks of 256 rays, two on each of two ranks

@@ -25,6 +25,7 @@ from rust_ray_tracer_tpu_torch.utils import image as timage
 from rust_ray_tracer_tpu_torch.utils import rng
 
 from tests.torch_parity import assert_flip_budget, jax_compile, jax_flagship
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("name,w,h", [("flagship", 64, 36),

@@ -13,6 +13,7 @@ import torch
 
 from rust_ray_tracer_tpu.utils import rng as jrng
 from rust_ray_tracer_tpu_torch.utils import rng
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 
 def test_partitionable_threefry_is_the_default():

@@ -23,6 +23,7 @@ import torch
 
 from rust_ray_tracer_tpu_torch.kernels import reduce_order
 from rust_ray_tracer_tpu_torch.ops import uber
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 BUDGET = 1e-5
 

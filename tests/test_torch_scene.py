@@ -25,6 +25,7 @@ from rust_ray_tracer_tpu_torch.ops.integrator import render_waves, split_reason
 from rust_ray_tracer_tpu_torch.utils import rng
 
 from tests.torch_parity import both, jax_compile, jax_flagship, scene_dict
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 
 def _scenes(name, monkeypatch):

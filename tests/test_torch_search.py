@@ -45,6 +45,7 @@ from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
 from rust_ray_tracer_tpu_torch.utils import rng
 
 from tests.torch_parity import jax_compile, mesh, split_recorder
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 T_RTOL = 1e-5
 

@@ -46,17 +46,7 @@ from rust_ray_tracer_tpu_torch.utils import rng
 
 from tests.test_torch_search import _tie_rays, _tie_scenes
 from tests.torch_parity import mesh, split_recorder
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """Thousands of small torch ops (the plain M, the replay); beside the
-    other test workers an 8-thread intra-op pool slows them tens of times
-    over (measured: the replay took 223 s beside five other workers, 5 s
-    alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

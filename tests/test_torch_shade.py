@@ -57,21 +57,11 @@ from rust_ray_tracer_tpu_torch.utils import rng as trng
 
 from tests.torch_parity import (assert_scaled_close, jax_compile, rel_l2,
                                 write_gltf_flagship)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 C = 2048
 LEAVES = ("d_in", "p", "normal", "albedo", "fuzz", "ior")
 LIGHT_LEAVES = ("light_c", "light_r", "light_q", "light_u", "light_v")
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """The port's CPU renders here are thousands of small ops; beside the
-    other test workers an 8-thread intra-op pool slows them tens of times
-    over (``tests/test_torch_final_scene.py`` measured the same)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _light_scene(S, cam_mod, n_lights):

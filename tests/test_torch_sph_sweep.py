@@ -44,6 +44,7 @@ from tests.test_torch_sphere import _assert_same_hits, _exact, _jax_sph
 from tests.torch_parity import (hollow_spheres, jax_compile,
                                 split_kernel_inputs, split_recorder,
                                 write_earth_map)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 # t of the hollow table against JAX's: the discriminant cancels and XLA
 # contracts it into an FMA (tests/test_torch_sphere.py); measured 2.6e-5

@@ -70,6 +70,7 @@ from rust_ray_tracer_tpu_torch.utils import rng
 from tests.torch_parity import (assert_flips_arbitrated, jax_compile,
                                 random_tris, split_kernel_inputs,
                                 write_earth_map)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 T_RTOL = 1e-5
 

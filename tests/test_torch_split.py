@@ -55,6 +55,7 @@ from rust_ray_tracer_tpu_torch.utils import rng
 from tests.torch_parity import (assert_flip_budget, assert_scaled_close,
                                 both, cube_mesh, jax_compile,
                                 split_kernel_inputs, torch_scene)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-5, 1e-6
 

@@ -55,6 +55,7 @@ from rust_ray_tracer_tpu_torch.ops.hit_core import (hit_plane_core,
 
 from tests.torch_parity import (assert_scaled_close, rel_l2, split_cots,
                                 split_kernel_inputs, torch_scene)
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-5, 1e-6
 

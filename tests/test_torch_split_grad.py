@@ -50,6 +50,7 @@ from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
 from rust_ray_tracer_tpu_torch.utils import rng
 
 from tests.torch_parity import both, jax_compile, torch_scene
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 FOG_NONZERO = ("perlin_vec", "tex_scale", "tex_color", "sph_c0", "sph_r",
                "quad_q", "med_neg_inv_d", "med_pl_d", "background",

@@ -26,6 +26,7 @@ from rust_ray_tracer_tpu_torch.ops import search as search_ops
 from rust_ray_tracer_tpu_torch.ops import uber
 from rust_ray_tracer_tpu_torch.utils import rng
 from tests.torch_parity import mesh
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 TRI_SCENES = ["flagship", "cornell_triangle", "chunk_full", "chunk_and_one"]
 

@@ -39,6 +39,7 @@ from rust_ray_tracer_tpu_torch.ops import shade_core as ts
 from rust_ray_tracer_tpu_torch.ops import uber
 
 from tests.test_torch_cores import _hit_planes, _lights
+from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 S = (8, 128)
 RTOL, ATOL = 1e-5, 1e-6
