@@ -58,7 +58,9 @@ the single-light ``.glb`` flagship on the trace kernel
 whose light table overflows A, F and H, forward (``gltf_lights_forward``:
 K, M, J and TPU kernel I every bounce; I and its backward I' held against
 their plain versions on bounces 0 and 1 of a full-size wave at 9 and at
-16 lights, K on every bounce) and ``bench.py``'s training step
+16 lights and with the 9 lights spread to 40 (past one 32-light chunk of
+I's candidate mask), I's candidate lights and work by stage, K on every
+bounce) and ``bench.py``'s training step
 (``gltf_lights_train``: K, M, J, I, J', I' every bounce); a Mesh-boundary
 medium at 64x64 (``mesh_medium``); and the CLI's ``-g`` on the 9-light
 file (``cli_gltf``). Between the whole-wave phases and final_scene run the
@@ -136,9 +138,10 @@ from rust_ray_tracer_tpu_torch.parallel import (load_state, make_mesh,
                                                 render_with_checkpoints)
 from rust_ray_tracer_tpu_torch.tools import search_times
 from rust_ray_tracer_tpu_torch.tools.search_times import (
-    OPS_HIT, OPS_HIT_BWD, OPS_SHADE, SHADE_READS, bp_bwd_bytes, bp_fwd_bytes,
-    bp_live_bwd_bytes, bp_live_bytes, cold_ms, loop_ms, ptxas_report,
-    shade_bwd_bytes, shade_lane_reads, su_bwd_bytes)
+    OPS_HIT, OPS_HIT_BWD, OPS_SHADE, bp_bwd_bytes, bp_fwd_bytes,
+    bp_live_bwd_bytes, bp_live_bytes, cold_ms, kernel_ptxas, loop_ms,
+    ptxas_report, shade_bwd_bytes, shade_fwd_bytes, shade_work,
+    su_bwd_bytes, su_fwd_bytes)
 from rust_ray_tracer_tpu_torch.utils import cli
 from rust_ray_tracer_tpu_torch.utils import rng
 from rust_ray_tracer_tpu_torch.utils.image import decode_image
@@ -151,6 +154,7 @@ from torch_parity import mesh_medium as mesh_medium_host  # noqa: E402
 from torch_parity import random_tris as random_tris_host  # noqa: E402
 from torch_parity import solid_fog as solid_fog_host  # noqa: E402
 from torch_parity import split_cots, split_recorder  # noqa: E402
+from torch_parity import spread_lights  # noqa: E402
 from torch_parity import write_earth_map  # noqa: E402
 from torch_parity import write_gltf_flagship  # noqa: E402
 
@@ -228,11 +232,17 @@ MESH_W, MESH_H = 128, 72  # the mesh's check against the plain versions
 # by stage (tools/search_times.n_work), L as M
 CULL_KERNELS = (sph_search_kernel, tri_search_kernel)
 EARTH_W, EARTH_H = 1024, 512  # the procedural earth map of the new phases
-# the shading of 9 or more lights (TPU kernels I, I': csrc/shade.cu): I per
-# lane OPS_SHADE and, for a Lambertian lane, OPS_LIGHT_PDF per light of the
-# mixture pdf (a sphere light's cone: the offset, a 3-term dot, the
-# discriminant, a root, the solid angle); I' about twice I's
+# the shading of 9 or more lights (TPU kernels I, I': csrc/shade.cu): I by
+# stage (tools/search_times.shade_work: each lane's shading, each light's
+# discriminant a Lambertian lane, each candidate light's full test); I'
+# twice OPS_SHADE a lane and, for a Lambertian lane, twice OPS_LIGHT_PDF
+# per light (its forward's mixture pdf runs every light's whole test: the
+# offset, a 3-term dot, the discriminant, a root, the solid angle; its
+# adjoint runs it again)
 OPS_LIGHT_PDF = 60
+# I's check past one chunk of its candidate mask: 40 lights, the 9-light
+# flagship's spread by tests/torch_parity.spread_lights
+WIDE_LIGHTS = 40
 SHADE_KERNELS = (shade_kernel, shade_bwd_kernel)
 # the CLI's -g on the 9-light flagship at 128x72, 4 spp: the port's plain
 # route on the CPU gives mean radiance 0.979852; the band leaves room for
@@ -1507,23 +1517,6 @@ def quad_vs_plain(calls, label) -> dict:
     return work
 
 
-def su_bytes(calls) -> int:
-    """Bytes kernel H must move on these recorded calls, by lane class
-    (``shade_update_kernel``, ``csrc/split.cu``): every lane reads o, d,
-    L, beta and alive (13 floats) and writes 13; a live lane also reads
-    its hit flag; a live lane that found something also reads p, n,
-    albedo, fuzz, ior, its 15 randoms and its material kind (all 40 planes
-    and mkind). The light table once a launch."""
-    total = 0
-    for P, _, lt, _ in calls:
-        alive = P[38] > 0.5
-        found = alive & (P[39] > 0.5)
-        n_alive, n_found = int(alive.sum()), int(found.sum())
-        total += (P.shape[1] * (13 + 13) + n_alive + n_found * (40 - 14 + 1)
-                  + lt.numel()) * 4
-    return total
-
-
 def split_rows(fwd, worst_small) -> list[dict]:
     """The ``{"kernels": [...]}`` rows of O, J and H from the final_scene
     forward: launches on the main path; device ms per launch with the
@@ -1538,9 +1531,7 @@ def split_rows(fwd, worst_small) -> list[dict]:
     qw = fwd["quad_work"]
     j_bytes = sum((19 + 2 + 12) * 4 * c[0].shape[1] for c in calls["hit"])
     j_ops = sum(OPS_HIT * c[0].shape[1] for c in calls["hit"])
-    h_bytes = su_bytes(calls["su"])
-    h_ops = sum(int(((c[0][38] > 0.5) & (c[0][39] > 0.5)).sum()) * OPS_SHADE
-                for c in calls["su"])
+    h_bytes, h_ops = su_fwd_bytes(calls["su"])
     src = "rust_ray_tracer_tpu_torch/csrc/split.cu"
     spec = (("quad_search", "rust_ray_tracer_tpu/ops/pallas_quad.py:121",
              o_bytes, qw["ray_tests"] * OPS_QUAD_T
@@ -1563,6 +1554,7 @@ def split_rows(fwd, worst_small) -> list[dict]:
                      "bytes_per_launch": nb / n_w,
                      "operations_per_launch": ops / n_w})
     rows[0]["work_per_launch"] = {k: v / n_w for k, v in qw.items()}
+    rows[2]["ptxas"] = kernel_ptxas("shade_update_kernel")
     rows[0]["bound_ms_per_warp_vote"] = bound(
         o_bytes / n_w, (qw["tests"] * OPS_QUAD_T
                         + qw["ab_tests"] * OPS_QUAD_IN) / n_w)[0]
@@ -2797,26 +2789,16 @@ def shade_vs_plain(calls, label, bounces=(0, 1), seed=21) -> dict:
     return out
 
 
-# what a lane reads by material kind: tools/search_times.SHADE_READS,
-# SHADE_BWD_READS, shade_lane_reads
-def shade_bytes(calls) -> int:
-    """Bytes kernel I must move on these recorded calls: every lane its
-    kind in and its 10 planes out, and what its material reads
-    (``SHADE_READS``); the light table once a launch."""
-    return 4 * (shade_lane_reads(calls, SHADE_READS)
-                + sum(data.shape[1] * (1 + 10) + lt.numel()
-                      for data, _, _, lt, _ in calls))
-
-
-def shade_ops_count(calls) -> int:
-    """fp32 operations of kernel I on these calls: OPS_SHADE a lane and,
-    for a Lambertian lane, OPS_LIGHT_PDF for each light of the mixture
-    pdf."""
+def shade_bwd_ops(calls) -> int:
+    """fp32 operations of kernel I' on these calls: twice OPS_SHADE a lane
+    and, for a Lambertian lane, twice OPS_LIGHT_PDF for each light of the
+    mixture pdf (its forward and its adjoint each run every light's
+    test)."""
     total = 0
     for data, _, kind, _, n_lights in calls:
         lam = int((kind == S.MAT_LAMBERTIAN).sum())
         total += data.shape[1] * OPS_SHADE + lam * n_lights * OPS_LIGHT_PDF
-    return total
+    return 2 * total
 
 
 def gltf_scene(path, dev):
@@ -2829,7 +2811,10 @@ def gltf_lights_forward(dev, smi, paths) -> dict:
     of K, M (the unified search: 968 triangles, 9 spheres), J and I, none
     of A, H, F, O, L, N, no plain call, a finite image; one full-size
     wave against the plain route; I and I' against their plain versions
-    on the full-size wave's bounces 0 and 1, and on the 16-light file's;
+    on the full-size wave's bounces 0 and 1, on the 16-light file's and
+    on the 9-light inputs with WIDE_LIGHTS lights (past one 32-light chunk
+    of I's candidate mask); I's work by stage and candidate lights a
+    bounce (``tools/search_times.shade_work``);
     sweep ms, per-wave kernel and glue ms and the busy share by the
     profiler; I's ms per launch out of L2 and in a loop on every bounce's
     recorded inputs, in the path, and its plain version's; M's (K's and
@@ -2869,11 +2854,16 @@ def gltf_lights_forward(dev, smi, paths) -> dict:
         render(1, scene16)
     if scene16.n_lights != 16 or len(rec16["shade"]) != DEPTH:
         raise AssertionError("the 16-light flagship did not run I")
+    # I past one chunk of its candidate mask: the 9-light wave's inputs of
+    # bounces 0 and 1 with the lights spread to WIDE_LIGHTS
+    wide = {"shade": [c[:3] + (spread_lights(c[3], WIDE_LIGHTS),
+                               WIDE_LIGHTS) for c in rec["shade"][:2]]}
     with torch.no_grad():
         full16 = shade_vs_plain(rec16, "16 lights full size")
-    # I and I' out of L2 at 16 lights: the mixture pdf's loop (and I''s
+        full_wide = shade_vs_plain(wide, f"{WIDE_LIGHTS} lights full size")
+    # I and I' out of L2 at 16 lights: the mixture pdf's loops (and I''s
     # light-major steps) grow with the lights, I''s shared memory a block
-    # by the table's 56 bytes a light
+    # by the table's 56 bytes a light; I at WIDE_LIGHTS on bounces 0 and 1
     calls16 = rec16["shade"]
     cots16 = [shade_cots(c[0].shape[1], 41 + b) for b, c in enumerate(calls16)]
     ms16 = {"shade": bounce_times([(lambda c=c: shade_kernel(*c), None)
@@ -2881,7 +2871,12 @@ def gltf_lights_forward(dev, smi, paths) -> dict:
             "shade_bwd": bounce_times([
                 (lambda c=c, g=g: shade_bwd_kernel(*c, g), None)
                 for c, g in zip(calls16, cots16)])["cold"]}
-    del rec16, calls16, cots16
+    ms_wide = bounce_times([(lambda c=c: shade_kernel(*c), None)
+                            for c in wide["shade"]])["cold"]
+    with torch.no_grad():
+        work16 = shade_work(calls16)
+        work_wide = shade_work(wide["shade"])
+    del rec16, calls16, cots16, wide
 
     timing = forward_timing(render, {n: f"{n}_kernel" for n in (
         "tile_enter", "fused_search", "hit_attrs", "shade")}, 5, dev)
@@ -2897,6 +2892,8 @@ def gltf_lights_forward(dev, smi, paths) -> dict:
     times = bounce_times([(lambda c=c: shade_kernel(*c),
                            lambda c=c: shade_ops.shade_plane_core(*c))
                           for c in calls], loop=True)
+    with torch.no_grad():
+        work = shade_work(calls)
     emit({"phase": "gltf_lights_forward", "card": smi,
           "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
           "tables": {"triangles": scene.n_tris, "spheres": scene.n_spheres,
@@ -2906,7 +2903,13 @@ def gltf_lights_forward(dev, smi, paths) -> dict:
           "wave_vs_plain_route": full_img,
           "kernels_vs_plain_9_lights": full,
           "kernels_vs_plain_16_lights": full16,
+          f"kernels_vs_plain_{WIDE_LIGHTS}_lights": full_wide,
           "ms_per_bounce_16_lights_l2_flushed": ms16,
+          f"shade_ms_bounces_0_1_{WIDE_LIGHTS}_lights_l2_flushed": ms_wide,
+          "shade_work_per_bounce": work["per_bounce"],
+          "shade_work_per_bounce_16_lights": work16["per_bounce"],
+          f"shade_work_bounces_0_1_{WIDE_LIGHTS}_lights":
+              work_wide["per_bounce"],
           "kernel_vs_plain_budget": {
               "shade_lanes_outside": FLIP_BUDGET, "rtol": RTOL,
               "atol": ATOL, "shade_bwd": [BWD_RTOL, BWD_ATOL, BWD_REL_L2],
@@ -2926,6 +2929,7 @@ def gltf_lights_forward(dev, smi, paths) -> dict:
                                  "uv_tests", "full_cull_tests")}
               for b in m_work["per_bounce"]]})
     return {"launches": launches, "full": full, "full16": full16,
+            "full_wide": full_wide, "work": work,
             "ms": statistics.fmean(times["cold"]),
             "ms_in_path": timing["in_path"]["shade"],
             "plain_ms": statistics.fmean(times["plain"]), "calls": calls,
@@ -2988,19 +2992,22 @@ def shade_rows(fwd, train) -> list[dict]:
     partials, which its plain version's time includes too) and in the
     path (``ms_in_path``, the profiler's), plain ms, each averaged over a
     wave's bounces on their recorded inputs; the bound of one launch
-    averaged over the same bounces. No single PyTorch call computes the
+    averaged over the same bounces (I's operations by stage from its
+    candidate lights, ``shade_work``; I''s by ``shade_bwd_ops``); I's
+    ptxas line and resident blocks. No single PyTorch call computes the
     material mixture: ``library_ms`` is null."""
     calls = fwd["calls"]
     n_w = len(calls)
-    err = {k: max(fwd["full"][k]["max_abs_err"], fwd["full16"][k][
-        "max_abs_err"]) for k in ("shade", "shade_bwd")}
-    ops = shade_ops_count(calls)
+    err = {k: max(fwd[f][k]["max_abs_err"] for f in ("full", "full16",
+                                                     "full_wide"))
+           for k in ("shade", "shade_bwd")}
+    work = fwd["work"]
     rows = []
     for name, repl, nb, nops, src in (
             ("shade", "rust_ray_tracer_tpu/ops/pallas_shade.py:442",
-             shade_bytes(calls), ops, fwd),
+             shade_fwd_bytes(calls), work["total"]["ops"], fwd),
             ("shade_bwd", "rust_ray_tracer_tpu/ops/pallas_shade.py:491",
-             shade_bwd_bytes(calls), 2 * ops, train)):
+             shade_bwd_bytes(calls), shade_bwd_ops(calls), train)):
         b_ms, b_by = bound(nb / n_w, nops / n_w)
         launches = (fwd if name == "shade" else train)["launches"][name]
         rows.append({"name": name, "route": "cuda",
@@ -3012,6 +3019,8 @@ def shade_rows(fwd, train) -> list[dict]:
                      "bound_by": b_by, "library_ms": None,
                      "bytes_per_launch": nb / n_w,
                      "operations_per_launch": nops / n_w})
+    rows[0]["ptxas"] = kernel_ptxas("shade_kernel", 9)
+    rows[0]["work_per_bounce"] = work["per_bounce"]
     rows[1]["ms_parts"] = train["parts"]
     return rows
 

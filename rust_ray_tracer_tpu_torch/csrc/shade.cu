@@ -21,16 +21,33 @@
 // shade; trace_bwd_common.cuh shade_fwd + shade_vjp), so I computes what
 // A, H and F compute for a lane, and I' what B, H' and F' compute.
 //
-// What bounds them on the card: memory. A lane reads its kind and the
-// planes its material needs: a Lambertian lane with lights its normal, p,
-// albedo and randoms 0, 1, 3, 4 (and 5, 6 where it samples a light), 13
-// to 15 floats; metal 14, dielectric 8, light 9, isotropic 7. I writes
-// 10 planes (40 bytes); I' reads the cotangents its kind's adjoint needs
-// besides and writes 14. Both do a few hundred operations a lane, plus ~60
-// for each light of a Lambertian lane's mixture pdf; I' runs that light's
-// hit test again in its adjoint, and on the H100 this per-light work, not
-// its bytes, sets I''s time (about 2.6 us a light on a 147,456-ray wave).
-// One thread per ray, every plane read and written coalesced.
+// What bounds them on the card. A lane reads its kind and the planes its
+// material needs: a Lambertian lane with lights its normal, p, albedo and
+// randoms 0, 1, 3, 4 (and 5, 6 where it samples a light), 13 to 15
+// floats; metal 14, dielectric 8, light 9, isotropic 7. I writes 10
+// planes (40 bytes); I' reads the cotangents its kind's adjoint needs
+// besides and writes 14. Both do a few hundred operations a lane, plus,
+// for a Lambertian lane, each light's term of the mixture pdf; I' runs
+// that light's hit test again in its adjoint, and on the H100 this
+// per-light work, not its bytes, sets I''s time (about 2.6 us a light on
+// a 147,456-ray wave). One thread per ray, every plane read and written
+// coalesced.
+//
+// What I's design does about it. (1) A lane's loads go out in two rounds
+// ahead of its branches: p, its normal, its albedo and its kind, then the
+// other data planes its kind reads and its material's randoms
+// (trace_common.cuh load_randoms: a Lambertian lane's 5 and 6 whether or
+// not it samples a light), expanded into the 15 slots shade reads with
+// stride 1. A Lambertian lane reads 16 floats, not 21: all 14 data planes
+// in the first round ran 6% slower. (2) The mixture pdf runs over each lane's
+// candidate lights only (CandidateLights): a light's pdf is non-zero only
+// where the lane's ray line crosses it, which a sphere light's
+// discriminant tells for ~20 operations, against ~60 and three IEEE
+// divisions and two square roots for the whole test (the library is
+// built --fmad=false, so each is a sequence of instructions). The terms
+// left out are exactly +0, so the sum keeps its bits. (3) The full test
+// of a candidate sphere takes only the far root: r1 <= r2, so r1 >= 1e-4
+// implies r2 >= 1e-4, and the near root's division goes.
 //
 // What the design does about the light table. I stages it in dynamic
 // shared memory, n_lights * LT_COLS floats, read by every lane of the
@@ -72,24 +89,124 @@ constexpr int WARPS = ROW / 32;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr size_t SMEM_MAX = 232448;   // a block's opt-in shared memory
 
+// The discriminant of the sphere light l against the line p + t sd, with
+// light_pdf's operations (trace_common.cuh), and the line's aa and bb.
+__device__ __forceinline__ float sphere_disc(const float* __restrict__ l,
+                                             V3 p, V3 sd, float& aa,
+                                             float& bb) {
+  const V3 c = {l[1], l[2], l[3]};
+  const float r = l[4];
+  const V3 oc = {p.x - c.x, p.y - c.y, p.z - c.z};
+  aa = dot3(sd, sd);
+  bb = dot3(oc, sd);
+  const float cc = dot3(oc, oc) - r * r;
+  return bb * bb - aa * cc;
+}
+
+// light_pdf of a sphere light whose discriminant is positive, its hit
+// test on the far root alone: safe_sqrt gives sq >= 0, so -bb - sq <= -bb
+// + sq, and rounding and the division by aas > 0 keep the order, so r1 <=
+// r2 and (r1 >= 1e-4 || r2 >= 1e-4) is r2 >= 1e-4. The cone's solid
+// angle only where the line hits. Every operation that remains is
+// light_pdf's, so the value is its bit for bit.
+__device__ __forceinline__ float sphere_candidate_pdf(
+    const float* __restrict__ l, V3 p, V3 sd) {
+  float aa, bb;
+  const float disc = sphere_disc(l, p, sd, aa, bb);
+  const float sq = safe_sqrt(disc);
+  const float aas = jmax(aa, EPS);
+  const float r2 = (-bb + sq) / aas;
+  if (!(r2 >= 1e-4f)) return 0.f;
+  const V3 c = {l[1], l[2], l[3]};
+  const float r = l[4];
+  const V3 cp = {c.x - p.x, c.y - p.y, c.z - p.z};
+  const float dist_sq = dot3(cp, cp);
+  const float cos_max = safe_sqrt(1.f - r * r / jmax(dist_sq, EPS));
+  const float solid = TWO_PI_F * (1.f - cos_max);
+  return 1.f / jmax(solid, EPS);
+}
+
+// I's LightPdfSum for shade (trace_common.cuh: the terms of its loop over
+// every light, in light order, without those that are exactly +0). Pass
+// 1, cheap: for each light in order, bit l of a 32-bit mask where a
+// sphere light's discriminant is positive; a quad light is always a
+// candidate (its pdf as light_pdf computes it), a row of another kind
+// never (light_pdf gives it +0). Pass 2: the full pdf over the set bits
+// in ascending order. Past 32 lights the lights go in chunks of 32, in
+// order. A light left out has light_pdf +0 (disc > 0 fails), pdf_sum
+// starts at +0 and no term is negative, so pdf_sum + 0.f would be pdf_sum
+// bit for bit: the sum is the loop's. A warp runs pass 2 as many times as
+// its lane with the most candidates.
+struct CandidateLights {
+  static __device__ __forceinline__ float sum(const float* __restrict__ lt,
+                                              int n_lights, V3 p, V3 sd) {
+    float pdf_sum = 0.f;
+    for (int base = 0; base < n_lights; base += 32) {
+      const float* __restrict__ chunk = lt + base * LT_COLS;
+      const int m = min(n_lights - base, 32);
+      unsigned cand = 0u;
+      for (int k = 0; k < m; ++k) {
+        const float* __restrict__ l = chunk + k * LT_COLS;
+        float aa, bb;
+        const bool c = l[0] == LIGHT_SPHERE_F
+                           ? sphere_disc(l, p, sd, aa, bb) > 0.f
+                           : l[0] == LIGHT_QUAD_F;
+        cand |= (c ? 1u : 0u) << k;
+      }
+      for (; cand; cand &= cand - 1u) {
+        const float* __restrict__ l = chunk + (__ffs(cand) - 1) * LT_COLS;
+        pdf_sum = pdf_sum + (l[0] == LIGHT_SPHERE_F
+                                 ? sphere_candidate_pdf(l, p, sd)
+                                 : light_pdf(l, p, sd));
+      }
+    }
+    return pdf_sum;
+  }
+};
+
 // data [14, n] = d(3) p(3) n(3) albedo(3) fuzz ior; rng [15, n] = ub(9)
 // gb(6); kind [n]; lt [n_lights, LT_COLS]. out [10, n] = emitted(3)
-// weight(3) direction(3) alive (1 / 0).
+// weight(3) direction(3) alive (1 / 0). A lane issues its loads in two
+// rounds ahead of its branches and ahead of the block's barrier: p, the
+// normal, the albedo and its kind, then what its kind reads besides (d,
+// fuzz, ior) and its material's randoms; then shade with CandidateLights
+// (the header's design). A plane a lane's kind does not read stays 0.
 __global__ void __launch_bounds__(ROW)
 shade_kernel(const float* __restrict__ data, const float* __restrict__ rng,
              const int* __restrict__ kind, const float* __restrict__ lt,
              int n_lights, float* __restrict__ out, int n) {
   extern __shared__ float smem[];          // the light table
+  const int i = blockIdx.x * ROW + threadIdx.x;
+  // first round: p, the normal, the albedo and the material kind
+  float x[N_DATA] = {};
+  int mk = MAT_LIGHT;
+  if (i < n) {
+#pragma unroll
+    for (int c = 3; c < 12; ++c) x[c] = data[(size_t)c * n + i];
+    mk = kind[i];
+  }
+  // second round: d, fuzz and ior where the kind reads them (shade's
+  // Lambertian and isotropic branches read none), the material's randoms
+  float rv[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (i < n) {
+    if (mk == MAT_METAL || mk == MAT_DIELECTRIC || mk == MAT_LIGHT) {
+      x[0] = data[i];
+      x[1] = data[(size_t)n + i];
+      x[2] = data[(size_t)2 * n + i];
+    }
+    if (mk == MAT_METAL) x[12] = data[(size_t)12 * n + i];
+    if (mk == MAT_DIELECTRIC) x[13] = data[(size_t)13 * n + i];
+    load_randoms<false>(rng + i, (size_t)n, mk, n_lights, rv);
+  }
   for (int k = threadIdx.x; k < n_lights * LT_COLS; k += ROW)
     smem[k] = lt[k];
   __syncthreads();
-  const int i = blockIdx.x * ROW + threadIdx.x;
   if (i >= n) return;
-  auto at = [&](int c) { return data[(size_t)c * n + i]; };
-  const Scatter sc = shade(kind[i], {at(0), at(1), at(2)},
-                           {at(6), at(7), at(8)}, {at(3), at(4), at(5)},
-                           {at(9), at(10), at(11)}, at(12), at(13), smem,
-                           n_lights, rng + i, (size_t)n);
+  float rr[15];
+  expand_randoms(rv, rr);
+  const Scatter sc = shade<CandidateLights>(
+      mk, {x[0], x[1], x[2]}, {x[6], x[7], x[8]}, {x[3], x[4], x[5]},
+      {x[9], x[10], x[11]}, x[12], x[13], smem, n_lights, rr, 1);
   const float y[N_OUT] = {sc.em.x, sc.em.y, sc.em.z, sc.wt.x, sc.wt.y,
                           sc.wt.z, sc.dr.x, sc.dr.y, sc.dr.z,
                           sc.alive ? 1.f : 0.f};
@@ -246,6 +363,18 @@ extern "C" int shade_bwd_occupancy(int n_lights, int* out) {
   out[1] = (int)smem;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       out, shade_bwd_kernel, ROW, smem));
+}
+
+// I's resident blocks per multiprocessor at n_lights, from the CUDA
+// runtime's occupancy calculator at the launch's shared memory: out[0]
+// the blocks, out[1] the dynamic shared memory a block (bytes).
+extern "C" int shade_occupancy(int n_lights, int* out) {
+  const size_t smem = (size_t)n_lights * LT_COLS * sizeof(float);
+  if (n_lights < 0 || bwd_smem(n_lights) > SMEM_MAX) return -1;
+  if (const int e = allow_smem(shade_kernel, smem)) return e;
+  out[1] = (int)smem;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, shade_kernel, ROW, smem));
 }
 
 // Each entry launches on ``stream`` and returns cudaGetLastError() (0 =

@@ -66,7 +66,10 @@
 // J and H: memory, 19 + 2 planes in and 12
 // out (J), 40 + 1 in and 13 out (H), a few hundred operations per ray: one
 // thread per ray, every plane read and written coalesced. H keeps the light
-// table in shared memory.
+// table in shared memory and issues its loads in two rounds ahead of its
+// branches, as H' does: a found lane's shading inputs and randoms depend
+// only on its flags and material kind, so they go out in the second round,
+// not after the branches.
 //
 // F and F' move what J, H, J' and H' move: F reads 13 planes of a dead
 // lane and ~40 of a found one and writes 13; F' reads 13 to ~50 and writes
@@ -362,33 +365,59 @@ hit_attrs_kernel(const float* __restrict__ P, const int* __restrict__ kind,
 
 // P [40, n] = o(3) d(3) p(3) n(3) albedo(3) fuzz ior L(3) beta(3) ub(9)
 // gb(6) alive hit; mkind [n]; lt [(n_lights + 1), LT_COLS], the last row
-// the background. out [13, n] = o' d' L' beta' alive'.
+// the background. out [13, n] = o' d' L' beta' alive'. A lane issues its
+// loads in two rounds ahead of its branches and of the block's barrier,
+// as H' does: its flags, material kind and the state it carries (o, d, L,
+// beta), then, if it found something, p, n, albedo, its fuzz (metal) or
+// ior (dielectric) and its material's randoms (load_randoms).
 __global__ void __launch_bounds__(ROW)
 shade_update_kernel(const float* __restrict__ P,
                     const int* __restrict__ mkind,
                     const float* __restrict__ lt, int n_lights,
                     float* __restrict__ out, int n) {
   __shared__ float slt[MAX_LT];
+  const int i = blockIdx.x * ROW + threadIdx.x;
+  auto at = [&](int c) { return P[(size_t)c * n + i]; };
+  // first round: the lane's class and its state
+  float f_alive = 0.f, f_hit = 0.f;
+  int mk = 0;
+  V3 o = {0.f, 0.f, 0.f}, d = o, L = o, beta = o;
+  if (i < n) {
+    f_alive = at(38);
+    f_hit = at(39);
+    mk = mkind[i];
+    o = {at(0), at(1), at(2)};
+    d = {at(3), at(4), at(5)};
+    L = {at(17), at(18), at(19)};
+    beta = {at(20), at(21), at(22)};
+  }
+  const bool live = f_alive > 0.5f, found = live && f_hit > 0.5f;
+  // second round: what a found lane shades with
+  V3 p = {0.f, 0.f, 0.f}, nrm = p, alb = p;
+  float fuzz = 0.f, ior = 0.f;
+  float rv[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (found) {
+    p = {at(6), at(7), at(8)};
+    nrm = {at(9), at(10), at(11)};
+    alb = {at(12), at(13), at(14)};
+    if (mk == MAT_METAL) fuzz = at(15);
+    if (mk == MAT_DIELECTRIC) ior = at(16);
+    load_randoms<false>(P + (size_t)23 * n + i, (size_t)n, mk, n_lights,
+                        rv);
+  }
   for (int k = threadIdx.x; k < (n_lights + 1) * LT_COLS; k += ROW)
     slt[k] = lt[k];
   __syncthreads();
-  const int i = blockIdx.x * ROW + threadIdx.x;
   if (i >= n) return;
-  auto at = [&](int c) { return P[(size_t)c * n + i]; };
-  V3 o = {at(0), at(1), at(2)}, d = {at(3), at(4), at(5)};
-  V3 L = {at(17), at(18), at(19)}, beta = {at(20), at(21), at(22)};
   float alive = 0.f;
-  if (at(38) > 0.5f) {                  // a live ray
-    if (at(39) > 0.5f) {                // that found something
-      const V3 p = {at(6), at(7), at(8)};
-      const Scatter sc = shade(mkind[i], d, {at(9), at(10), at(11)}, p,
-                               {at(12), at(13), at(14)}, at(15), at(16),
-                               slt, n_lights, P + (size_t)23 * n + i,
-                               (size_t)n);
-      update_found(sc, p, o, d, L, beta, alive);
-    } else {
-      update_miss(slt + n_lights * LT_COLS, L, beta, alive);
-    }
+  if (found) {
+    float rr[15];
+    expand_randoms(rv, rr);
+    const Scatter sc = shade(mk, d, nrm, p, alb, fuzz, ior, slt, n_lights,
+                             rr, 1);
+    update_found(sc, p, o, d, L, beta, alive);
+  } else if (live) {
+    update_miss(slt + n_lights * LT_COLS, L, beta, alive);
   }
   const float y[N_SU_OUT] = {o.x, o.y, o.z, d.x, d.y, d.z, L.x, L.y, L.z,
                              beta.x, beta.y, beta.z, alive};
@@ -463,49 +492,6 @@ __device__ __forceinline__ void lt_share_partial(const float* sdl, int ltn,
       dlt_part[(size_t)blockIdx.x * ltn + k] = acc;
     }
   }
-}
-
-// A found lane's material's randoms (r its first, the next rs apart),
-// loaded together ahead of its shading into rv, in order: Lambertian 0, 1
-// and with lights 3-6; metal 7, 9-11; dielectric 2; isotropic 8, 12-14
-// (its adjoint reads none of them).
-template <bool ADJOINT>
-__device__ __forceinline__ void load_randoms(const float* __restrict__ r,
-                                             size_t rs, int mk, int n_lights,
-                                             float rv[6]) {
-  auto R = [&](int c) { return r[c * rs]; };
-  if (mk == MAT_LAMBERTIAN) {
-    rv[0] = R(0);
-    rv[1] = R(1);
-    if (n_lights > 0) {
-      rv[2] = R(3);
-      rv[3] = R(4);
-      rv[4] = R(5);
-      rv[5] = R(6);
-    }
-  } else if (mk == MAT_METAL) {
-    rv[0] = R(7);
-    rv[1] = R(9);
-    rv[2] = R(10);
-    rv[3] = R(11);
-  } else if (mk == MAT_DIELECTRIC) {
-    rv[0] = R(2);
-  } else if (!ADJOINT && mk == MAT_ISOTROPIC) {
-    rv[0] = R(8);
-    rv[1] = R(12);
-    rv[2] = R(13);
-    rv[3] = R(14);
-  }
-}
-
-// The 15 randoms as shade, shade_fwd and shade_vjp index them (stride 1)
-// from load_randoms' rv: each material's branch reads only its own, so
-// the materials' slots share rv's registers.
-__device__ __forceinline__ void expand_randoms(const float rv[6],
-                                               float rr[15]) {
-  constexpr int slot[15] = {0, 1, 0, 2, 3, 4, 5, 0, 0, 1, 2, 3, 1, 2, 3};
-#pragma unroll
-  for (int c = 0; c < 15; ++c) rr[c] = rv[slot[c]];
 }
 
 // H': P, mkind, lt as H's; g [13, n] the cotangents of H's outputs. dP
@@ -1008,6 +994,15 @@ extern "C" int bounce_planes_bwd_occupancy(int n_lights, int* out) {
 
 extern "C" int shade_update_bwd_occupancy(int n_lights, int* out) {
   return lt_share_occupancy(shade_update_bwd_kernel, n_lights, out);
+}
+
+// H's resident blocks per multiprocessor (its light table is static
+// shared memory): out[0] the blocks, out[1] the dynamic shared memory a
+// block (0).
+extern "C" int shade_update_occupancy(int* out) {
+  out[1] = 0;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, shade_update_kernel, ROW, 0));
 }
 
 // G': F' with G's tlive; dlt_part [n / 128, (n_lights + 1) * LT_COLS], a

@@ -3,7 +3,8 @@
 // constants, the NaN-propagating max/min of jnp.maximum/minimum, and the
 // per-ray forms of pallas_shade._normalize, _safe_sqrt, _onb, _ball and one
 // light's sample and pdf; the phase-2 hit attributes of a winner
-// (pallas_hit._hit_plane_core), its shading (pallas_shade._plane_core) and
+// (pallas_hit._hit_plane_core), its material's randoms in one round of
+// loads, its shading (pallas_shade._plane_core) and
 // the estimator update (pallas_bounce._bounce_plane_core), which kernel A
 // runs inline and kernels J and H run on their own; and the marble texture
 // of TPU kernel C with its adjoint. Every kernel takes the forward values
@@ -14,6 +15,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace trace {
 
@@ -281,9 +284,58 @@ struct Scatter {
   bool alive;  // the path goes on
 };
 
+// A lane's material's randoms (r its first, the next rs apart), loaded
+// together ahead of its shading into rv, in order: Lambertian 0, 1 and
+// with lights 3-6; metal 7, 9-11; dielectric 2; isotropic 8, 12-14 (its
+// adjoint reads none of them). Kernels I, F, H and H' issue these loads
+// in one round once the lane's material kind is known.
+template <bool ADJOINT>
+__device__ __forceinline__ void load_randoms(const float* __restrict__ r,
+                                             size_t rs, int mk, int n_lights,
+                                             float rv[6]) {
+  auto R = [&](int c) { return r[c * rs]; };
+  if (mk == MAT_LAMBERTIAN) {
+    rv[0] = R(0);
+    rv[1] = R(1);
+    if (n_lights > 0) {
+      rv[2] = R(3);
+      rv[3] = R(4);
+      rv[4] = R(5);
+      rv[5] = R(6);
+    }
+  } else if (mk == MAT_METAL) {
+    rv[0] = R(7);
+    rv[1] = R(9);
+    rv[2] = R(10);
+    rv[3] = R(11);
+  } else if (mk == MAT_DIELECTRIC) {
+    rv[0] = R(2);
+  } else if (!ADJOINT && mk == MAT_ISOTROPIC) {
+    rv[0] = R(8);
+    rv[1] = R(12);
+    rv[2] = R(13);
+    rv[3] = R(14);
+  }
+}
+
+// The 15 randoms as shade, shade_fwd and shade_vjp index them (stride 1)
+// from load_randoms' rv: each material's branch reads only its own, so
+// the materials' slots share rv's registers.
+__device__ __forceinline__ void expand_randoms(const float rv[6],
+                                               float rr[15]) {
+  constexpr int slot[15] = {0, 1, 0, 2, 3, 4, 5, 0, 0, 1, 2, 3, 1, 2, 3};
+#pragma unroll
+  for (int c = 0; c < 15; ++c) rr[c] = rv[slot[c]];
+}
+
 // r points at the ray's first random, the next ones rs apart: 9 uniforms
 // (u0..u4, ul0, ul1, ufr, uir), then 6 normals. lt holds n_lights light
-// rows of LT_COLS.
+// rows of LT_COLS. A Lambertian lane's mixture pdf adds every light's pdf
+// in light order; kernel I passes LightPdfSum (csrc/shade.cu
+// CandidateLights), whose sum(lt, n_lights, p, sd) adds the same terms in
+// the same order but leaves out those that are exactly +0. The default
+// keeps the loop here, so the other kernels compile as they did.
+template <class LightPdfSum = void>
 __device__ __forceinline__ Scatter shade(int mkind, V3 d, V3 nrm, V3 p,
                                          V3 alb, float fuzz, float ior,
                                          const float* __restrict__ lt,
@@ -317,8 +369,12 @@ __device__ __forceinline__ Scatter shade(int mkind, V3 d, V3 nrm, V3 p,
       const V3 nd = normalize(lam);
       const float cos_pdf = jmax(dot3(nd, bw) / PI_F, 0.f);
       float pdf_sum = 0.f;
-      for (int l = 0; l < n_lights; ++l)
-        pdf_sum = pdf_sum + light_pdf(lt + l * LT_COLS, p, lam);
+      if constexpr (std::is_void_v<LightPdfSum>) {
+        for (int l = 0; l < n_lights; ++l)
+          pdf_sum = pdf_sum + light_pdf(lt + l * LT_COLS, p, lam);
+      } else {
+        pdf_sum = LightPdfSum::sum(lt, n_lights, p, lam);
+      }
       pdf = 0.5f * cos_pdf + 0.5f * pdf_sum / (float)n_lights;
     } else {
       lam = cosd;

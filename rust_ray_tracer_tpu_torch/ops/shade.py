@@ -44,10 +44,18 @@ import torch
 
 from rust_ray_tracer_tpu_torch.ops.intersect import (MATTR_FUZZ, MATTR_IOR,
                                                      MATTR_MKIND)
-from rust_ray_tracer_tpu_torch.ops.shade_core import plane_core, plane_core_vjp
+from rust_ray_tracer_tpu_torch.models.scene import (LIGHT_QUAD, LIGHT_SPHERE,
+                                                    MAT_LAMBERTIAN)
+from rust_ray_tracer_tpu_torch.ops.shade_core import (EPS, PI, _dot, _max,
+                                                      _plane_fwd,
+                                                      _quad_pdf_fwd,
+                                                      _safe_sqrt, _where,
+                                                      plane_core,
+                                                      plane_core_vjp)
 from rust_ray_tracer_tpu_torch.ops.texture import texture_value
 
 N_OUT = 10
+CAND_CHUNK = 32         # kernel I's lights a candidate mask covers
 
 
 class Scatter(NamedTuple):
@@ -64,6 +72,75 @@ def shade_plane_core(data, rng, kind, lt, n_lights: int):
     on stacked planes)."""
     return torch.stack(plane_core(tuple(data), tuple(rng), kind, lt,
                                   n_lights))
+
+
+def _sphere_disc(lt, l, p, sd):
+    """(disc, aa, bb) of sphere light row ``l`` against the lines p + t sd,
+    with ``_sphere_pdf_fwd``'s operations (kernel I's ``sphere_disc``)."""
+    c, r = (lt[l, 1], lt[l, 2], lt[l, 3]), lt[l, 4]
+    ocx, ocy, ocz = p[0] - c[0], p[1] - c[1], p[2] - c[2]
+    aa = _dot(*sd, *sd)
+    bb = _dot(ocx, ocy, ocz, *sd)
+    cc = _dot(ocx, ocy, ocz, ocx, ocy, ocz) - r * r
+    return bb * bb - aa * cc, aa, bb
+
+
+def _sphere_candidate_pdf(lt, l, p, sd):
+    """Kernel I's ``sphere_candidate_pdf``: the sphere light's pdf where
+    its discriminant is positive, the hit test on the far root alone."""
+    disc, aa, bb = _sphere_disc(lt, l, p, sd)
+    r2 = (-bb + _safe_sqrt(disc)) / _max(aa, EPS)
+    c, r = (lt[l, 1], lt[l, 2], lt[l, 3]), lt[l, 4]
+    tc = (c[0] - p[0], c[1] - p[1], c[2] - p[2])
+    cos_max = _safe_sqrt(1.0 - r * r / _max(_dot(*tc, *tc), EPS))
+    solid = 2.0 * PI * (1.0 - cos_max)
+    return _where(r2 >= 1e-4, 1.0 / _max(solid, EPS), 0.0)
+
+
+def shade_candidates_replay(data, rng, kind, lt, n_lights: int):
+    """Kernel I's order of work (``csrc/shade.cu`` ``CandidateLights``)
+    replayed in torch: (the [10, N] output planes, the candidate lights of
+    each lane [N] int32, 0 off the Lambertian lanes). The lights' part of
+    the mixture pdf goes in chunks of CAND_CHUNK lights, in order: pass 1
+    marks a sphere light where its discriminant is positive, a quad light
+    always, a row of another kind never; pass 2 adds the full pdf of each
+    marked light in light order, a sphere's on its far root alone. Every
+    other operation is :func:`shade_plane_core`'s, and the planes are its
+    bit for bit: a light left out has pdf +0, the sum starts at +0 and no
+    term is negative. Takes ``lt`` rows' kinds from the host."""
+    n_cand = torch.zeros(kind.shape, dtype=torch.int32, device=kind.device)
+    kinds = lt[:n_lights, 0].tolist()
+
+    def candidate_pdf_sum(lt, n_lights, p, sd):
+        nonlocal n_cand
+        pdf_sum = torch.zeros_like(p[0])
+        for base in range(0, n_lights, CAND_CHUNK):
+            chunk = range(base, min(base + CAND_CHUNK, n_lights))
+            marks = []
+            for l in chunk:                         # pass 1
+                if kinds[l] == LIGHT_SPHERE:
+                    marks.append(_sphere_disc(lt, l, p, sd)[0] > 0.0)
+                else:
+                    marks.append(torch.full_like(pdf_sum, kinds[l]
+                                                 == LIGHT_QUAD,
+                                                 dtype=torch.bool))
+            for l, mark in zip(chunk, marks):       # pass 2
+                if kinds[l] == LIGHT_SPHERE:
+                    term = _sphere_candidate_pdf(lt, l, p, sd)
+                else:
+                    term = _quad_pdf_fwd((lt[l, 5], lt[l, 6], lt[l, 7]),
+                                         (lt[l, 8], lt[l, 9], lt[l, 10]),
+                                         (lt[l, 11], lt[l, 12], lt[l, 13]),
+                                         p, sd)[0]
+                pdf_sum = torch.where(mark, pdf_sum + term, pdf_sum)
+                n_cand = n_cand + mark.to(torch.int32)
+        return pdf_sum
+
+    out = _plane_fwd(tuple(data), tuple(rng), kind, lt, n_lights,
+                     candidate_pdf_sum)["out"]
+    n_cand = torch.where(kind == MAT_LAMBERTIAN, n_cand,
+                         torch.zeros_like(n_cand))
+    return torch.stack(out), n_cand
 
 
 def shade_plane_core_vjp(data, rng, kind, lt, n_lights: int, g):

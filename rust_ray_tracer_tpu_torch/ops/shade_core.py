@@ -246,9 +246,26 @@ def _quad_pdf_fwd(q, lu, lv, p, sd):
                      s1=s1, m1=m1, m2=m2, cosq=cosq, ca=ca, m_c=m_c)
 
 
-def _plane_fwd(data, rng, kind, lt, n_lights: int) -> dict:
+def every_light_pdf_sum(lt, n_lights: int, p, sd):
+    """The lights' part of the mixture pdf for the direction ``sd`` from
+    ``p``: each light's pdf (sphere solid angle, quad area, else 0) added
+    in light order."""
+    pdf_sum = torch.zeros_like(p[0])
+    for l in range(n_lights):
+        kf, c, r, q, lu, lv = _light_rows(lt, l)
+        pdf_s, _ = _sphere_pdf_fwd(c, r, p, sd)
+        pdf_q, _ = _quad_pdf_fwd(q, lu, lv, p, sd)
+        kf_pdf = _where(kf == float(LIGHT_SPHERE), pdf_s,
+                        _where(kf == float(LIGHT_QUAD), pdf_q, 0.0))
+        pdf_sum = pdf_sum + kf_pdf
+    return pdf_sum
+
+
+def _plane_fwd(data, rng, kind, lt, n_lights: int,
+               light_pdf_sum=every_light_pdf_sum) -> dict:
     """Forward of :func:`plane_core` with the intermediates its adjoint
-    reads."""
+    reads; ``light_pdf_sum(lt, n_lights, p, sd)`` gives the lights' part
+    of the mixture pdf (:func:`every_light_pdf_sum`)."""
     dx, dy, dz, px, py, pz, nx, ny, nz, ax, ay, az, fuzz, ior = data
     u0, u1, u2, u3, u4, ul0, ul1, ufr, uir, g0, g1, g2, g3, g4, g5 = rng
     p = (px, py, pz)
@@ -310,14 +327,7 @@ def _plane_fwd(data, rng, kind, lt, n_lights: int) -> dict:
         ndx, ndy, ndz = _normalize(sdx, sdy, sdz)
         cos_in = _dot(ndx, ndy, ndz, bwx, bwy, bwz) / PI
         cos_pdf = _max(cos_in, 0.0)
-        pdf_sum = torch.zeros_like(dx)
-        for l in range(n_lights):
-            kf, c, r, q, lu, lv = _light_rows(lt, l)
-            pdf_s, _ = _sphere_pdf_fwd(c, r, p, sd)
-            pdf_q, _ = _quad_pdf_fwd(q, lu, lv, p, sd)
-            kf_pdf = _where(kf == float(LIGHT_SPHERE), pdf_s,
-                            _where(kf == float(LIGHT_QUAD), pdf_q, 0.0))
-            pdf_sum = pdf_sum + kf_pdf
+        pdf_sum = light_pdf_sum(lt, n_lights, p, sd)
         pdf = 0.5 * cos_pdf + 0.5 * pdf_sum / n_lights
         lamx, lamy, lamz = sdx, sdy, sdz
     else:

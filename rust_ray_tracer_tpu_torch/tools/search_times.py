@@ -3,8 +3,9 @@ and E, and the noise variants of A and D), of library ``search`` (K and
 M, with the unified search's sort of the rays) and of library ``sphere``
 (N), of the backward trace kernels B and D' (``--scenes trace_bwd``), of
 the split route's backward kernels F', G' and I' (``--scenes
-split_bwd``), its fused bounce F and G (``--scenes split_fwd``) and H'
-(``--scenes su_bwd``) on one CUDA card, for
+split_bwd``), its fused bounce F and G (``--scenes split_fwd``), H'
+(``--scenes su_bwd``), H (``--scenes su_fwd``) and I (``--scenes
+shade_fwd``) on one CUDA card, for
 holding one tree's kernels against another's in the same call;
 ``chip_smoke.py`` runs :func:`search_report` as its search checks, counts
 M's work with :func:`m_work` and times its kernels with :func:`cold_ms`
@@ -105,12 +106,24 @@ ptxas line of ``bounce_planes_kernel`` and its resident blocks an SM.
 of kernel H of wave 0, with a seeded cotangent, alone and with B''s sum,
 out of L2 and in a loop beside its bound (:func:`su_bwd_bytes`), and in
 a one-wave training step; its ptxas line and resident blocks.
+``su_fwd``: kernel H on the same calls (final_scene's and random
+earth's), out of L2 and in a loop beside its bound by lane class
+(:func:`su_fwd_bytes`, which ``chip_smoke.py`` counts with too), and in
+a one-wave forward render; its ptxas line and resident blocks.
+``shade_fwd``: kernel I on the 9-light glTF flagship's recorded calls of
+wave 0 and on its 16-light twin's, out of L2 and in a loop beside its
+bound (:func:`shade_fwd_bytes` and the operations by stage of
+:func:`shade_work`, which ``chip_smoke.py`` counts with too: each
+bounce's candidate lights from the tree's ``ops/shade.
+shade_candidates_replay``), and in a one-wave forward render; its ptxas
+line and resident blocks at 9 and 16 lights.
 
 ``--save`` writes A's final states and winners, E's winners, M's and
 K's of each mesh bounce (and O's of each final_scene bounce, N's of each
 random earth bounce; B's and D''s dst, keys, light-table partials and
 the contrib rows of ray-bounces with a winner; F''s, G''s, H''s and I''s
-dP or d_data, partials and their sum by B'; F's and G's output) to a
+dP or d_data, partials and their sum by B'; F's, G's, H's and I's
+output) to a
 ``.pt`` file; ``--compare a.pt b.pt
 ...`` then prints, for each file after the first, whether each of those
 tensors equals the first file's bit for bit (floats by their bit
@@ -1239,6 +1252,118 @@ def shade_bwd_bytes(calls) -> int:
                       + lt.numel() for data, _, _, lt, _ in calls))
 
 
+def shade_fwd_bytes(calls) -> int:
+    """Bytes kernel I must move on these recorded calls: every lane its
+    kind in and its 10 planes out, and what its material reads
+    (``SHADE_READS``); the light table once a launch. ``chip_smoke.py``
+    counts I's bound with it. Pure: no device work."""
+    return 4 * (shade_lane_reads(calls, SHADE_READS)
+                + sum(data.shape[1] * (1 + 10) + lt.numel()
+                      for data, _, _, lt, _ in calls))
+
+
+# fp32 operations of kernel I's mixture pdf by stage (csrc/shade.cu
+# CandidateLights, sphere_candidate_pdf; light_pdf in trace_common.cuh),
+# counted from the code: each sphere light's discriminant on every
+# Lambertian lane of the mixture (the offset 3, bb 5, cc 7, disc 3 and the
+# compare: 19; |sd|^2 once a lane); each candidate sphere's full test past
+# it (safe_sqrt 4, the clamp of aa, the far root 2 and its compare, the
+# centre offset 3, dist_sq 5, cos_max 9, the solid angle 2 and its
+# reciprocal 2: 29); a quad light, always a candidate, its whole area pdf
+# (the normal 9, |n|^2 5, the denominator and its guard 8, t 9, the point
+# 9, alpha and beta 32, the compares 7, the area 4, the distance 8, the
+# cosine 13, the pdf 3: 107)
+OPS_LIGHT_DISC, OPS_SPHERE_FULL, OPS_QUAD_PDF = 19, 29, 107
+
+
+def shade_work(calls) -> dict:
+    """Kernel I's work by stage on these recorded calls (kernel I's
+    arguments: data, rng, kind, lt, n_lights), per bounce: the lanes, the
+    Lambertian lanes of the mixture pdf and, from the tree's replay of I's
+    order (``ops/shade.shade_candidates_replay``, where the tree has it),
+    their candidate lights: the total, the mean a Lambertian lane, the
+    mean over the warps that hold one of a 32-lane warp's most (the
+    iterations its pass 2 runs) and the largest; and the operations: the
+    shading of every lane (OPS_SHADE), each sphere light's discriminant a
+    Lambertian lane (OPS_LIGHT_DISC), each candidate sphere's full test
+    (OPS_SPHERE_FULL), each quad light's pdf (OPS_QUAD_PDF). Without the
+    replay the candidates and the operations are None. Sums over the
+    bounces in ``total``."""
+    from rust_ray_tracer_tpu_torch.ops import shade as shade_ops
+
+    replay = getattr(shade_ops, "shade_candidates_replay", None)
+    rows = []
+    for data, rng_p, kind, lt, n_lights in calls:
+        n = data.shape[1]
+        lam = (kind == S.MAT_LAMBERTIAN) & (n_lights > 0)
+        n_lam = int(lam.sum())
+        kinds = lt[:n_lights, 0]
+        n_sph = int((kinds == S.LIGHT_SPHERE).sum())
+        n_quad = int((kinds == S.LIGHT_QUAD).sum())
+        row = {"lanes": n, "lambertian": n_lam, "lights": n_lights,
+               "candidates": None, "ops": None}
+        if replay is not None:
+            _, n_cand = replay(data, rng_p, kind, lt, n_lights)
+            pad = -n % WARP
+            most = torch.nn.functional.pad(n_cand, (0, pad)).reshape(
+                -1, WARP).amax(1)
+            held = torch.nn.functional.pad(lam, (0, pad)).reshape(
+                -1, WARP).any(1)
+            cand = int(n_cand.sum())
+            stages = {"shading": n * OPS_SHADE,
+                      "discriminants": n_lam * n_sph * OPS_LIGHT_DISC,
+                      "full_tests": (cand - n_lam * n_quad) * OPS_SPHERE_FULL
+                      + n_lam * n_quad * OPS_QUAD_PDF}
+            row.update(candidates=cand,
+                       mean_candidates=cand / n_lam if n_lam else 0.0,
+                       warp_most_mean=float(most[held].float().mean())
+                       if bool(held.any()) else 0.0,
+                       warp_most_max=int(most.max()),
+                       ops_by_stage=stages, ops=sum(stages.values()))
+        rows.append(row)
+    ops = [r["ops"] for r in rows]
+    return {"per_bounce": rows,
+            "total": {"lanes": sum(r["lanes"] for r in rows),
+                      "ops": None if None in ops else sum(ops)}}
+
+
+# Floats a found lane of each material kind reads in kernel H (shade() and
+# update_found(), csrc/trace_common.cuh) beside its kind and the state every
+# lane carries (o, d, L, beta), by material kind as SHADE_READS counts I's:
+# Lambertian p, n, albedo; metal p, n, albedo, fuzz; dielectric p, n, ior;
+# light n, albedo (its path ends, so o keeps its value); isotropic p and
+# albedo. Its randoms on top (_FWD_RND_COLS; with lights a Lambertian lane
+# also reads randoms 3, 4 and, where it samples a light, 5, 6).
+SU_READS = (9, 10, 7, 6, 6)
+
+
+def su_fwd_bytes(calls) -> tuple[int, int]:
+    """(bytes, operations) kernel H must move and do on these recorded
+    calls (P, mkind, lt, n_lights), by lane class
+    (``shade_update_kernel``, ``csrc/split.cu``): every lane reads o, d,
+    L, beta and alive (13 planes) and writes 13; a live lane also reads
+    its hit flag; a found lane also reads its material kind, what its
+    shading reads by kind (``SU_READS``) and its material's randoms. The
+    light table once a launch. Operations: the shading of each found lane
+    (OPS_SHADE). ``chip_smoke.py`` counts H's bound with it. Pure: no
+    device work."""
+    nb = ops = 0
+    for P, mkind, lt, n_lights in calls:
+        alive = P[38] > 0.5
+        found = alive & (P[39] > 0.5)
+        per_kind = 1 + torch.tensor(SU_READS, dtype=torch.long,
+                                    device=P.device) + torch.tensor(
+            _FWD_RND_COLS, dtype=torch.long, device=P.device)
+        nb += (P.shape[1] * 26 + int(alive.sum())
+               + int(per_kind[mkind[found].long()].sum()) + lt.numel()) * 4
+        if n_lights:
+            lam = found & (mkind == S.MAT_LAMBERTIAN)
+            nb += (2 * int(lam.sum())
+                   + LAMB_SAMPLE * int((lam & (P[26] >= 0.5)).sum())) * 4
+        ops += int(found.sum()) * OPS_SHADE
+    return nb, ops
+
+
 # the H100's multiprocessor (compute capability 9.0): registers, threads,
 # blocks and shared memory (bytes; each block reserves 1 KB more)
 SM_REGS, SM_THREADS, SM_BLOCKS, SM_SMEM, BLOCK_SMEM_RESERVED = (
@@ -1260,9 +1385,9 @@ def resident_blocks(registers: int, smem: int, threads: int = ROW) -> int:
 # the split route's kernels whose resident blocks :func:`occupancy`
 # reports: a pattern of the ptxas name -> (library, the library's
 # occupancy query, whether it takes the light count, the dynamic shared
-# memory a block of a tree without the query: none for F, F' and H'
-# before their redesigns, a row of 14 n_lights + 1 floats a ray and the
-# table for I')
+# memory a block of a tree without the query: none for F, F', H' and H
+# (H's table is static), a row of 14 n_lights + 1 floats a ray and the
+# table for I', the table for I)
 _OCCUPANCY = {
     "bounce_planes_kernel": ("split", "bounce_planes_occupancy", False,
                              lambda nl: 0),
@@ -1272,15 +1397,19 @@ _OCCUPANCY = {
                                 lambda nl: 0),
     "shade_bwd_kernel": ("shade", "shade_bwd_occupancy", True,
                          lambda nl: 4 * (14 * nl + ROW * (14 * nl + 1))),
+    "shade_kernel": ("shade", "shade_occupancy", True, lambda nl: 4 * 14 * nl),
+    "shade_update_kernel": ("split", "shade_update_occupancy", False,
+                            lambda nl: 0),
 }
 
 
 def occupancy(line, n_lights) -> dict:
-    """Resident blocks per multiprocessor of F (G), F' (G'), H' or I' (the
-    ptxas ``line`` of its function) at ``n_lights``: the library's
+    """Resident blocks per multiprocessor of F (G), F' (G'), H', I', I or H
+    (the ptxas ``line`` of its function) at ``n_lights``: the library's
     occupancy query (``bounce_planes_occupancy``,
     ``bounce_planes_bwd_occupancy``, ``shade_update_bwd_occupancy``,
-    ``shade_bwd_occupancy``: the CUDA runtime's calculator) beside
+    ``shade_bwd_occupancy``, ``shade_occupancy``,
+    ``shade_update_occupancy``: the CUDA runtime's calculator) beside
     :func:`resident_blocks` of the ptxas counts; a tree without the query
     by the formula alone (``_OCCUPANCY``)."""
     import ctypes
@@ -1310,6 +1439,16 @@ def ptxas_lines(pattern) -> list[dict]:
     return [r for lib in ("split", "shade")
             for r in ptxas_report(K.build(lib).log)
             if re.search(pattern, r["function"])]
+
+
+def kernel_ptxas(name, n_lights=0) -> dict:
+    """The ptxas line (registers, stack frame, spills, static shared
+    memory) of kernel ``name`` of library ``split`` or ``shade``, with its
+    resident blocks an SM at ``n_lights`` (:func:`occupancy`)."""
+    lines = ptxas_lines(rf"\d{name}E")
+    if not lines:
+        raise AssertionError(f"no ptxas line of {name}")
+    return {**lines[0], "occupancy": occupancy(lines[0], n_lights)}
 
 
 def _seeded(shape, seed, dev):
@@ -1361,27 +1500,34 @@ def _bwd_rows(kern, calls, seed, extra, save, label, nbytes):
     return rows
 
 
-def _fwd_rows(kern, calls, extra, save, label, nbytes):
-    """``kern`` (F or G) on each recorded call: the live and found lanes,
-    ms out of L2 and in a loop, the bytes, operations and bound; with
-    ``save`` its output under ``label``."""
+def _fwd_rows(kern, calls, save, label, count):
+    """``kern`` (F, G, H or I) on each recorded call's arguments: ms out of
+    L2 and in a loop beside ``count(call)``, a dict whose ``bytes`` and
+    ``ops`` give the bound (none where ``ops`` is None); with ``save`` its
+    output under ``label``."""
     rows = []
     for b, args in enumerate(calls):
-        a = args + extra[b]
-        P, pkind = args[0], args[1]
-        alive = P[45] > 0.5
         with torch.no_grad():
-            nb, ops = nbytes(args, extra[b])
-            rows.append({"bounce": b, "lanes": P.shape[1],
-                         "live": int(alive.sum()),
-                         "found": int((alive & (pkind != isect.KIND_NONE))
-                                      .sum()),
-                         "bytes": nb, "operations": ops,
-                         "bound_ms": bound_ms(nb, ops),
-                         "ms": times(lambda a=a: kern(*a))})
+            row = {"bounce": b, **count(args)}
+            row["bound_ms"] = (bound_ms(row["bytes"], row["ops"])
+                               if row["ops"] is not None else None)
+            row["ms"] = times(lambda a=args: kern(*a))
+            rows.append(row)
             if save is not None:
-                save[f"{label}{b}.out"] = kern(*a).cpu()
+                save[f"{label}{b}.out"] = kern(*args).cpu()
     return rows
+
+
+def _bp_count(args):
+    """F's (six arguments) or G's (seven: the tiles' flags last) lanes,
+    bytes and operations on one recorded call."""
+    P, pkind = args[0], args[1]
+    alive = P[45] > 0.5
+    nb, ops = (bp_live_bytes(args[:6], args[6]) if len(args) > 6
+               else bp_fwd_bytes([args]))
+    return {"lanes": P.shape[1], "live": int(alive.sum()),
+            "found": int((alive & (pkind != isect.KIND_NONE)).sum()),
+            "bytes": nb, "ops": ops}
 
 
 def _record(scene, env=None, live=False):
@@ -1485,20 +1631,17 @@ def split_fwd_report(dev, save=None):
     key, rec = _record(scene)
     calls = rec["bp"]
     out["mesh_f"] = {
-        "bounces": _fwd_rows(K.bounce_planes_kernel, calls,
-                             [()] * len(calls), save, "f",
-                             lambda a, _: bp_fwd_bytes([a])),
+        "bounces": _fwd_rows(K.bounce_planes_kernel, calls, save, "f",
+                             _bp_count),
         "in_path": in_path(scene, key, ("bounce_planes_kernel",), {})}
     del rec, calls, scene
 
     scene = compile_scene(builders.procedural_flagship(), device=dev)
     key, calls = _record(scene, UNFUSED_ENV, live=True)
-    args = [c[:6] for c in calls]
-    tlive = [(c[6],) for c in calls]
     out["unfused_g"] = {
-        "bounces": _fwd_rows(K.bounce_planes_live_kernel, args, tlive, save,
-                             "g", lambda a, t: bp_live_bytes(a, *t)),
-        "dead_tiles": [int((t[0] == 0).sum()) for t in tlive],
+        "bounces": _fwd_rows(K.bounce_planes_live_kernel, calls, save,
+                             "g", _bp_count),
+        "dead_tiles": [int((c[6] == 0).sum()) for c in calls],
         "in_path": in_path(scene, key, ("bounce_planes_kernel",),
                            UNFUSED_ENV)}
     return out
@@ -1533,6 +1676,69 @@ def su_bwd_report(dev, save=None, seed=11):
     return out
 
 
+def _shade_count(args):
+    w = shade_work([args])["per_bounce"][0]
+    return {**w, "bytes": shade_fwd_bytes([args])}
+
+
+def shade_fwd_report(dev, save=None):
+    """Kernel I (the ``shade_fwd`` part) on the 9-light glTF flagship's
+    recorded calls of wave 0 (bounces 0-3) and on its 16-light twin's: out
+    of L2 and in a loop beside its bound (:func:`shade_fwd_bytes` and the
+    operations by stage of :func:`shade_work`, with each bounce's
+    candidate lights), and in a one-wave forward render (:func:`in_path`);
+    the ptxas line of ``shade_kernel`` with its resident blocks at 9 and
+    16 lights. ``--save`` keeps I's output planes."""
+    from rust_ray_tracer_tpu_torch.models.gltf import load_gltf_scene
+
+    out = {"ptxas": [kernel_ptxas("shade_kernel", nl) for nl in (9, 16)]}
+    for nl in (9, 16):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = _parity().write_gltf_flagship(
+                os.path.join(tmp, f"f{nl}.gltf"), nl)
+            scene = compile_scene(load_gltf_scene(path, WIDTH / HEIGHT),
+                                  device=dev)
+        key, rec = _record(scene)
+        out[f"gltf{nl}_i"] = {
+            "bounces": _fwd_rows(K.shade_kernel, rec["shade"], save,
+                                 f"i{nl}.", _shade_count),
+            "in_path": in_path(scene, key, ("shade_kernel",), {})}
+        del rec, scene
+    return out
+
+
+def _su_count(args):
+    P = args[0]
+    alive = P[38] > 0.5
+    nb, ops = su_fwd_bytes([args])
+    return {"lanes": P.shape[1], "live": int(alive.sum()),
+            "found": int((alive & (P[39] > 0.5)).sum()), "bytes": nb,
+            "ops": ops}
+
+
+def su_fwd_report(dev, save=None):
+    """Kernel H (the ``su_fwd`` part) on final_scene's and random earth's
+    recorded calls of wave 0 (bounces 0-3): the live and found lanes, out
+    of L2 and in a loop beside its bound (:func:`su_fwd_bytes`), and in a
+    one-wave forward render (:func:`in_path`); the ptxas line of
+    ``shade_update_kernel`` with its resident blocks an SM. ``--save``
+    keeps H's output planes."""
+    out = {"ptxas": kernel_ptxas("shade_update_kernel")}
+    scenes = (("final", lambda: compile_scene(
+        builders.final_scene(WIDTH / HEIGHT), device=dev)),
+              ("earth", lambda: earth_scene(dev)))
+    for label, make in scenes:
+        scene = make()
+        key, rec = _record(scene)
+        out[f"{label}_h"] = {
+            "n_lights": scene.n_lights,
+            "bounces": _fwd_rows(K.shade_update_kernel, rec["su"], save,
+                                 f"h{label}", _su_count),
+            "in_path": in_path(scene, key, ("shade_update_kernel",), {})}
+        del rec, scene
+    return out
+
+
 def compare(paths):
     first = torch.load(paths[0])
     for p in paths[1:]:
@@ -1557,7 +1763,7 @@ def main(argv=None) -> int:
     ap.add_argument("--scenes", default="flagship,random,mesh,tri,gltf",
                     help="comma-separated parts: flagship, random, mesh, "
                          "tri, gltf, sph, final, earth, bwd, trace_bwd, "
-                         "split_bwd, split_fwd, su_bwd")
+                         "split_bwd, split_fwd, su_bwd, su_fwd, shade_fwd")
     ap.add_argument("--check", action="store_true",
                     help="hold M's winners on every mesh bounce against "
                          "the plain version")
@@ -1611,6 +1817,10 @@ def main(argv=None) -> int:
         res["split_fwd"] = split_fwd_report(dev, save)
     if "su_bwd" in parts:
         res["su_bwd"] = su_bwd_report(dev, save)
+    if "su_fwd" in parts:
+        res["su_fwd"] = su_fwd_report(dev, save)
+    if "shade_fwd" in parts:
+        res["shade_fwd"] = shade_fwd_report(dev, save)
     res["sms"] = torch.cuda.get_device_properties(dev).multi_processor_count
     res["grid_blocks"] = math.ceil(WIDTH * HEIGHT / ROW)
     line = json.dumps(res)

@@ -3,9 +3,11 @@ B's and D''s (``tools/search_times.bwd_bytes``, which ``chip_smoke.py``
 counts with) on a two-bounce input written out ray by ray and on the plain
 forward's residuals of a 32x32 wave of the flagship counted one ray-bounce
 at a time; F''s (and G''s), H''s and I''s (``bp_bwd_bytes``,
-``su_bwd_bytes``, ``shade_bwd_bytes``) and the forward kernels F's and
-G's (``bp_fwd_bytes``, ``bp_live_bytes``) on a few hundred lanes of every
-lane class and material kind."""
+``su_bwd_bytes``, ``shade_bwd_bytes``) and the forward kernels F's, G's,
+H's and I's (``bp_fwd_bytes``, ``bp_live_bytes``, ``su_fwd_bytes``,
+``shade_fwd_bytes``) on a few hundred lanes of every lane class and
+material kind; I's operations by stage (``shade_work``) against its
+candidate lights counted light by light."""
 
 import pytest
 import torch
@@ -13,10 +15,15 @@ import torch
 from rust_ray_tracer_tpu_torch.models import builders
 from rust_ray_tracer_tpu_torch.models.scene import compile_scene
 from rust_ray_tracer_tpu_torch.ops import uber
+from rust_ray_tracer_tpu_torch.models.scene import (LIGHT_QUAD,
+                                                    LIGHT_SPHERE,
+                                                    MAT_LAMBERTIAN)
+from rust_ray_tracer_tpu_torch.ops import shade as shade_ops
 from rust_ray_tracer_tpu_torch.tools.search_times import (
-    OPS_HIT, OPS_HIT_BWD, OPS_SHADE, OPS_SU_BWD, bp_bwd_bytes, bp_fwd_bytes,
+    OPS_HIT, OPS_HIT_BWD, OPS_LIGHT_DISC, OPS_QUAD_PDF, OPS_SHADE,
+    OPS_SPHERE_FULL, OPS_SU_BWD, bp_bwd_bytes, bp_fwd_bytes,
     bp_live_bwd_bytes, bp_live_bytes, bwd_bytes, shade_bwd_bytes,
-    su_bwd_bytes)
+    shade_fwd_bytes, shade_work, su_bwd_bytes, su_fwd_bytes)
 from rust_ray_tracer_tpu_torch.utils import rng
 from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
@@ -304,3 +311,116 @@ def test_split_fwd_bytes_by_hand(case):
         assert bp_fwd_bytes([call, call]) == (2 * nb, 2 * ops)
         found = int(((P[45] > 0.5) & (pkind != 0)).sum())
     assert ops == found * (OPS_HIT + OPS_SHADE)
+
+
+def _su_fwd_by_hand(P, mkind, lt, n_lights):
+    """H's floats counted lane by lane: every lane o, d, L, beta, alive in
+    and 13 planes out; a live lane its hit flag; a found lane its material
+    kind and what its kind reads (Lambertian p, n, albedo, randoms 0, 1,
+    with lights also randoms 3, 4, and 5, 6 where it samples a light;
+    metal p, n, albedo, fuzz, randoms 7, 9-11; dielectric p, n, ior,
+    random 2; light n, albedo; isotropic p, albedo, randoms 8, 12-14); the
+    table in."""
+    per_kind = {0: 3 + 3 + 3 + 2, 1: 3 + 3 + 3 + 1 + 4, 2: 3 + 3 + 1 + 1,
+                3: 3 + 3, 4: 3 + 3 + 4}
+    floats = 0
+    for i in range(P.shape[1]):
+        floats += 13 + 13
+        if P[38, i] > 0.5:
+            floats += 1
+            if P[39, i] > 0.5:
+                k = int(mkind[i])
+                floats += 1 + per_kind[k]
+                if k == 0 and n_lights:
+                    floats += 2 + (2 if P[26, i] >= 0.5 else 0)
+    return floats + lt.numel()
+
+
+def _shade_fwd_by_hand(data, rng_p, kind, lt, n_lights):
+    """I's floats counted lane by lane: its kind in, 10 planes out, and
+    what its kind reads (Lambertian n, albedo, randoms 0, 1, with lights
+    also p, randoms 3, 4, and 5, 6 where it samples a light; metal d, n,
+    albedo, fuzz, randoms 7, 9-11; dielectric d, n, ior, random 2; light
+    d, n, albedo; isotropic albedo, randoms 8, 12-14); the table in."""
+    per_kind = {0: 3 + 3 + 2, 1: 3 + 3 + 3 + 1 + 4, 2: 3 + 3 + 1 + 1,
+                3: 3 + 3 + 3, 4: 3 + 4}
+    floats = 0
+    for i in range(data.shape[1]):
+        k = int(kind[i])
+        floats += 1 + 10 + per_kind[k]
+        if k == 0 and n_lights:
+            floats += 3 + 2 + (2 if rng_p[3, i] >= 0.5 else 0)
+    return floats + lt.numel()
+
+
+@pytest.mark.parametrize("case", [
+    ("su", 300, 1), ("su", 260, 0), ("su_dead", 256, 8), ("shade", 300, 9),
+    ("shade", 256, 16), ("shade", 130, 0)])
+def test_su_and_shade_fwd_bytes_by_hand(case):
+    """H's byte bound (``su_fwd_bytes``) on dead, live, missed and found
+    lanes of every material kind at one and no light (and every lane dead
+    at 8), and I's (``shade_fwd_bytes``) on the five material kinds at 9,
+    16 and no lights, against counts made lane by lane; H's operations the
+    shading of each found lane; a list of calls is the sum of its calls."""
+    what, n, n_lights = case
+    if what.startswith("su"):
+        call = _su_calls(n, n_lights, n)
+        if what == "su_dead":
+            call[0][38] = 0.0
+        nb, ops = su_fwd_bytes([call])
+        assert nb == 4 * _su_fwd_by_hand(*call)
+        found = int(((call[0][38] > 0.5) & (call[0][39] > 0.5)).sum())
+        assert ops == found * OPS_SHADE
+        assert su_fwd_bytes([call, call]) == (2 * nb, 2 * ops)
+    else:
+        call = _shade_calls(n, n_lights, n)
+        nb = shade_fwd_bytes([call])
+        assert nb == 4 * _shade_fwd_by_hand(*call)
+        assert shade_fwd_bytes([call, call]) == 2 * nb
+
+
+@pytest.mark.parametrize("n_lights", [9, 40])
+def test_shade_work_by_stage(n_lights):
+    """I's work (``shade_work``) on 320 lanes of the five material kinds
+    with sphere lights of radius 0.3 in [-2, 2]^3 and two quad lights:
+    each Lambertian lane's candidate lights (a sphere whose discriminant
+    against the lane's direction is positive, every quad) counted light
+    by light from the plain version's directions; the operations the
+    shading of every lane, each sphere's discriminant and each quad's pdf
+    a Lambertian lane, and each candidate sphere's full test; the warps'
+    most candidates."""
+    gen = torch.Generator().manual_seed(n_lights)
+    data, rng_p, kind, _, _ = _shade_calls(320, n_lights, n_lights)
+    data[3:6] = data[3:6] * 4.0 - 2.0
+    lt = torch.zeros((n_lights, 14))
+    lt[:, 0] = LIGHT_SPHERE
+    lt[:, 1:4] = torch.rand((n_lights, 3), generator=gen) * 4.0 - 2.0
+    lt[:, 4] = 0.3
+    lt[:2, 0] = LIGHT_QUAD
+    lt[:2, 5:14] = torch.rand((2, 9), generator=gen) - 0.5
+    call = (data, rng_p, kind, lt, n_lights)
+    w = shade_work([call])
+    row = w["per_bounce"][0]
+    sd = tuple(shade_ops.shade_plane_core(*call)[6:9])
+    lam = kind == MAT_LAMBERTIAN
+    n_lam = int(lam.sum())
+    cand = torch.zeros(320, dtype=torch.int32)
+    for l in range(n_lights):
+        if l < 2:
+            cand += 1
+        else:
+            disc = shade_ops._sphere_disc(lt, l, tuple(data[3:6]), sd)[0]
+            cand += (disc > 0).int()
+    cand = torch.where(lam, cand, torch.zeros_like(cand))
+    n_cand = int(cand.sum())
+    assert row["lambertian"] == n_lam and row["candidates"] == n_cand
+    assert n_cand > n_lam * 2       # every quad, and some spheres
+    assert row["ops_by_stage"] == {
+        "shading": 320 * OPS_SHADE,
+        "discriminants": n_lam * (n_lights - 2) * OPS_LIGHT_DISC,
+        "full_tests": (n_cand - 2 * n_lam) * OPS_SPHERE_FULL
+        + 2 * n_lam * OPS_QUAD_PDF}
+    assert row["ops"] == sum(row["ops_by_stage"].values())
+    assert w["total"]["ops"] == row["ops"]
+    assert row["warp_most_max"] == int(cand.reshape(-1, 32).amax(1).max())
+    assert row["mean_candidates"] == n_cand / n_lam

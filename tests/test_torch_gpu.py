@@ -50,7 +50,8 @@ from torch_parity import (SMALL_SCENES, assert_flip_budget,
                           assert_scaled_close, enter_cases, hollow_spheres,
                           mesh, random_earth_view, random_tris, rel_l2,
                           split_cots, split_kernel_inputs, split_recorder,
-                          torch_scene, write_earth_map, write_gltf_flagship)
+                          spread_lights, torch_scene, write_earth_map,
+                          write_gltf_flagship)
 from torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 W = H = 32          # one 1024-ray chunk
@@ -623,18 +624,18 @@ def _int_bits_zero(x):
 
 
 def _final_lights(n_lights):
-    """``n_lights`` light rows in final_scene's frame (:func:`_lights`):
-    the reference's ceiling rectangle (an XZRect over x 123-423, z 147-412
-    at y = 554) and a sphere light at its glass sphere ((260, 150, 45),
-    radius 50) in turn. (final_scene's own light takes the Hittable
-    defaults: no pdf, no cotangent.)"""
+    """``n_lights`` light rows in final_scene's frame
+    (``torch_parity.spread_lights``): the reference's ceiling rectangle (an
+    XZRect over x 123-423, z 147-412 at y = 554) and a sphere light at its
+    glass sphere ((260, 150, 45), radius 50) in turn. (final_scene's own
+    light takes the Hittable defaults: no pdf, no cotangent.)"""
     base = torch.zeros((2, 14))
     base[0, 0] = LIGHT_QUAD
     base[0, 5:14] = torch.tensor([123.0, 554.0, 147.0, 300.0, 0.0, 0.0,
                                   0.0, 0.0, 265.0])
     base[1, 0] = LIGHT_SPHERE
     base[1, 1:5] = torch.tensor([260.0, 150.0, 45.0, 50.0])
-    return _lights(base, n_lights)
+    return spread_lights(base, n_lights)
 
 
 @pytest.mark.gpu
@@ -713,6 +714,33 @@ def test_shade_update_bwd_blocks_without_adds_on_card(cuda):
     _, d_dlt = shade_update_bwd_kernel(dead, *args[1:])
     assert _int_bits_zero(d_part) and _int_bits_zero(d_dlt)
     assert torch.equal(d_dP[23:], torch.zeros_like(d_dP[23:]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_lights", [1, 8])
+def test_shade_update_light_counts_on_card(n_lights, cuda):
+    """H at 1 and 8 lights (8: the split kernels' cap, 126 light-table
+    entries) on the inputs the split route gives it over two bounces of a
+    32x32 wave of final_scene, the table's rows (:func:`_final_lights`)
+    beside its background: against ``su_plane_core`` within
+    :func:`test_split_kernels_match_plain_on_card`'s bound (rtol 1e-5 of
+    each lane's largest value / atol 1e-6, at most 0.5% of the lanes
+    outside), twice for the same bits, one launch a call."""
+    from rust_ray_tracer_tpu_torch.ops import bounce
+
+    x = split_kernel_inputs(_final_scene())
+    P, mkind, lt0, _ = x["su"]
+    lt = torch.cat([_final_lights(n_lights), lt0[-1:]])
+    args = (P.to(cuda), mkind.to(cuda), lt.to(cuda), n_lights)
+    before = shade_update_kernel.launches
+    runs = [shade_update_kernel(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert shade_update_kernel.launches - before == 2
+    assert torch.equal(runs[0], runs[1])
+    ref = bounce.su_plane_core(P, mkind, lt, n_lights)
+    assert_scaled_close(runs[0].cpu().numpy(), ref.numpy(), 1e-5, 1e-6,
+                        axis=0, budget=0.005,
+                        what=f"H {n_lights} lights")
 
 
 def _fog_grads(device):
@@ -1638,32 +1666,17 @@ def test_shade_launchers_refuse_past_the_cap_on_card(cuda):
                                     ctypes.c_int(0), stream) == want
 
 
-def _lights(lt9, n_lights):
-    """``n_lights`` rows from the m-light table ``lt9`` (9 rows where I's
-    tests take it): row k is row k mod m with its centre (a sphere) or
-    corner (a quad) moved by k // m steps of (0.05, -0.05, 0.025)."""
-    k = torch.arange(n_lights)
-    m = lt9.shape[0]
-    lt = lt9[k % m].clone()
-    step = (k // m).to(lt.dtype)[:, None] * torch.tensor([0.05, -0.05,
-                                                          0.025])
-    sph = lt[:, 0] == LIGHT_SPHERE
-    lt[sph, 1:4] += step[sph]
-    lt[~sph, 5:8] += step[~sph]
-    return lt
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_lights", [1, 9, 16, 32, "cap"])
 def test_shade_bwd_light_counts_on_card(n_lights, cuda, tmp_path):
     """I' at 1, 9, 16, 32 lights and at the cap (``shade_max_lights``) on
     the lanes a CPU wave of the 9-light glTF flagship gives I (bounces 0
     and 1; 256 lanes of bounce 0 at the cap), the table built from its 9
-    lights (:func:`_lights`), against its plain version with a seeded
-    cotangent under B's budget (rtol 1e-4 / atol 1e-6 a lane, at most 0.5%
-    of the lanes outside, the light table's cotangent within relative L2
-    1e-4 and some light taking one), twice for the same bits, one launch
-    a call and one of B' for its partials."""
+    lights (``torch_parity.spread_lights``), against its plain version
+    with a seeded cotangent under B's budget (rtol 1e-4 / atol 1e-6 a
+    lane, at most 0.5% of the lanes outside, the light table's cotangent
+    within relative L2 1e-4 and some light taking one), twice for the
+    same bits, one launch a call and one of B' for its partials."""
     from rust_ray_tracer_tpu_torch.kernels import shade_max_lights
 
     nl = shade_max_lights() if n_lights == "cap" else n_lights
@@ -1674,7 +1687,7 @@ def test_shade_bwd_light_counts_on_card(n_lights, cuda, tmp_path):
     for b, (data, rng_p, kind, lt9, _) in enumerate(calls):
         if n_lights == "cap":
             data, rng_p, kind = data[:, :256], rng_p[:, :256], kind[:256]
-        lt = _lights(lt9, nl)
+        lt = spread_lights(lt9, nl)
         args = [x.contiguous() for x in (data, rng_p, kind, lt)]
         g = torch.from_numpy(np.random.default_rng(b).normal(
             size=(9, data.shape[1])).astype(np.float32))
@@ -1692,6 +1705,34 @@ def test_shade_bwd_light_counts_on_card(n_lights, cuda, tmp_path):
                             what=f"I' {nl} lights bounce {b}")
         assert rel_l2(l1.cpu().numpy(), rl.numpy()) <= 1e-4
         assert float(l1.abs().max()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_lights", [9, 16, 40])
+def test_shade_kernel_light_counts_on_card(n_lights, cuda, tmp_path):
+    """I at 9, 16 and 40 lights (40: past one 32-light chunk of its
+    candidate mask) on the lanes a CPU wave of the 9-light glTF flagship
+    gives it (bounces 0 and 1), the table spread from its 9 lights
+    (``torch_parity.spread_lights``), against ``shade_plane_core`` with
+    ``chip_smoke.shade_vs_plain``'s tolerance (rtol 3e-4 of each lane's
+    largest value / atol 3e-5, at most 0.5% of the lanes outside, alive
+    equal), twice for the same bits, one launch a call."""
+    ts = _gltf_lights(tmp_path, 9)
+    with split_recorder() as rec:
+        _render_cpu(ts)
+    for b, (data, rng_p, kind, lt9, _) in enumerate(rec["shade"][:2]):
+        args = (data, rng_p, kind, spread_lights(lt9, n_lights), n_lights)
+        dev = [x.to(cuda) if torch.is_tensor(x) else x for x in args]
+        before = shade_kernel.launches
+        got, again = shade_kernel(*dev), shade_kernel(*dev)
+        torch.cuda.synchronize()
+        assert shade_kernel.launches == before + 2
+        assert torch.equal(got, again)
+        ref = shade_ops.shade_plane_core(*args)
+        assert torch.equal(got[9].cpu(), ref[9])
+        assert_scaled_close(got.cpu().numpy(), ref.numpy(), 3e-4, 3e-5,
+                            axis=0, budget=0.005,
+                            what=f"I {n_lights} lights bounce {b}")
 
 
 def test_shade_dispatchers_refuse_other_devices():

@@ -383,6 +383,25 @@ GLTF_LIGHTS = (
 )
 
 
+def spread_lights(lt, n_lights):
+    """``n_lights`` light rows from the m-row table ``lt`` (torch, on its
+    device): row k is row k mod m with its centre (a sphere) or corner (a
+    quad) moved by k // m steps of (0.05, -0.05, 0.025). Kernel I's and
+    I''s checks past the glTF flagship's 9 lights take their tables from
+    it."""
+    import torch
+
+    k = torch.arange(n_lights, device=lt.device)
+    m = lt.shape[0]
+    out = lt[k % m].clone()
+    step = (k // m).to(out.dtype)[:, None] * torch.tensor(
+        [0.05, -0.05, 0.025], dtype=out.dtype, device=lt.device)
+    sph = out[:, 0] == TS.LIGHT_SPHERE
+    out[sph, 1:4] += step[sph]
+    out[~sph, 5:8] += step[~sph]
+    return out
+
+
 def hollow_spheres(n_rows=320, n_rays=300, seed=3):
     """A hand-made sphere table and rays for kernel N (numpy, float32):
     ``n_rows`` spheres (every third moving over [0, 1]) in the order given
