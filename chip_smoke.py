@@ -138,9 +138,9 @@ from rust_ray_tracer_tpu_torch.parallel import (load_state, make_mesh,
                                                 render_with_checkpoints)
 from rust_ray_tracer_tpu_torch.tools import search_times
 from rust_ray_tracer_tpu_torch.tools.search_times import (
-    OPS_HIT, OPS_HIT_BWD, OPS_SHADE, bp_bwd_bytes, bp_fwd_bytes,
-    bp_live_bwd_bytes, bp_live_bytes, cold_ms, kernel_ptxas, loop_ms,
-    ptxas_report, shade_bwd_bytes, shade_fwd_bytes, shade_work,
+    HIT_ODD_N, OPS_SHADE, bp_bwd_bytes, bp_fwd_bytes, bp_live_bwd_bytes,
+    bp_live_bytes, cold_ms, hit_bytes, hit_lanes, hit_ptxas, kernel_ptxas,
+    loop_ms, ptxas_report, shade_bwd_bytes, shade_fwd_bytes, shade_work,
     su_bwd_bytes, su_fwd_bytes)
 from rust_ray_tracer_tpu_torch.utils import cli
 from rust_ray_tracer_tpu_torch.utils import rng
@@ -206,11 +206,11 @@ OPS_MARBLE, OPS_MARBLE_BWD = 921, 3716
 # the split route's kernels (csrc/split.cu), counted from the code: O by
 # the stage of each test, as closest_hit's quads (OPS_QUAD_T for t on
 # every test, OPS_QUAD_IN where t can win: quad_vs_plain counts them from
-# ops/quad.quad_sweep_replay); J and H by tools/search_times.OPS_HIT and
+# ops/quad.quad_sweep_replay); J by tools/search_times.hit_bytes, H by
 # OPS_SHADE
 SPLIT_KERNELS = (quad_search_kernel, hit_attrs_kernel, shade_update_kernel)
 # their backward kernels (csrc/split.cu) count by
-# tools/search_times.OPS_HIT_BWD and OPS_SU_BWD
+# tools/search_times.hit_bytes and OPS_SU_BWD
 SPLIT_BWD_KERNELS = (hit_attrs_bwd_kernel, shade_update_bwd_kernel)
 WHOLE_WAVE_KERNELS = (trace_wave_kernel, trace_wave_noise_kernel,
                       trace_wave_bwd_kernel, trace_wave_bwd_noise_kernel)
@@ -795,12 +795,33 @@ def row_sum_times(calls, light_parts) -> dict:
         [torch.randn(sh, device=dev) for sh in light_parts])
 
 
+def hit_vs_plain(P, kind, flip, label):
+    """J against its plain version on one call: inf on every miss lane,
+    the planes within RTOL / ATOL of each lane's largest value (the sphere
+    UV source on sphere lanes, where the epilogue reads it). Returns (share
+    outside, worst error)."""
+    got = hit_attrs_kernel(P, kind, flip)
+    ref = hit_ops.hit_plane_core(P, kind, flip)
+    miss = kind == isect.KIND_NONE
+    if not bool(torch.isinf(got[0, miss]).all()):
+        raise AssertionError(f"{label}: hit_attrs found a hit on a miss lane")
+    got[0, miss] = ref[0, miss] = 0.0
+    sph = kind == isect.KIND_SPH
+    a = scaled_close(got[:9], ref[:9], RTOL, ATOL, 0.0,
+                     f"{label}: hit_attrs")
+    b = scaled_close(got[9:, sph], ref[9:, sph], RTOL, ATOL, 0.0,
+                     f"{label}: hit_attrs sphere UV source") \
+        if bool(sph.any()) else (0.0, 0.0)
+    return max(a[0], b[0]), max(a[1], b[1])
+
+
 def split_kernels_vs_plain(calls, label) -> dict:
     """O, J and H (where the route ran it) against their plain versions on
     the card, on the first recorded call of each (bounce 0 of a wave):
     O's winners and t equal;
     J's planes within RTOL / ATOL of each lane's largest value (the sphere
-    UV source on sphere lanes, where the epilogue reads it); H's within
+    UV source on sphere lanes, where the epilogue reads it), on the call
+    and on ``hit_lanes`` of it for each odd n of HIT_ODD_N; H's within
     the same, at most FLIP_BUDGET of the lanes outside (the card's
     transcendentals in torch and in the kernel may round a branch's input
     apart). K, M, F and F' by ``search_fused_vs_plain`` where the route
@@ -826,20 +847,12 @@ def split_kernels_vs_plain(calls, label) -> dict:
     if not calls["hit"]:
         return out
     P, kind, flip = calls["hit"][0]
-    got = hit_attrs_kernel(P, kind, flip)
-    ref = hit_ops.hit_plane_core(P, kind, flip)
-    miss = kind == isect.KIND_NONE
-    if not bool(torch.isinf(got[0, miss]).all()):
-        raise AssertionError(f"{label}: hit_attrs found a hit on a miss lane")
-    got[0, miss] = ref[0, miss] = 0.0
-    sph = kind == isect.KIND_SPH
-    a = scaled_close(got[:9], ref[:9], RTOL, ATOL, 0.0,
-                     f"{label}: hit_attrs")
-    b = scaled_close(got[9:, sph], ref[9:, sph], RTOL, ATOL, 0.0,
-                     f"{label}: hit_attrs sphere UV source") \
-        if bool(sph.any()) else (0.0, 0.0)
-    out["hit_attrs"] = {"lanes_outside": max(a[0], b[0]),
-                        "max_abs_err": max(a[1], b[1]),
+    frac, err = hit_vs_plain(P, kind, flip, label)
+    odd = [hit_vs_plain(*hit_lanes(calls["hit"][0], m), f"{label} {m} rays")
+           for m in HIT_ODD_N]
+    out["hit_attrs"] = {"lanes_outside": max([frac] + [o[0] for o in odd]),
+                        "max_abs_err": max([err] + [o[1] for o in odd]),
+                        "odd_n": dict(zip(HIT_ODD_N, odd)),
                         "kinds": torch.bincount(kind.long(), minlength=5)
                         .tolist()}
     if not calls["su"]:                  # the I route: no H
@@ -970,9 +983,10 @@ def split_bwd_vs_plain(hit_call, su_call, label, seed=5) -> dict:
     budget: dP per lane within BWD_RTOL of its largest plane / BWD_ATOL, at
     most FLIP_BUDGET of the lanes outside; H''s light-table cotangent
     within relative L2 BWD_REL_L2 and each row within BWD_REL_L2 of its
-    largest entry. Each runs twice and must give the same bits. The
-    cotangents are ``torch_parity.split_cots``' (the sphere-UV source's on
-    sphere lanes only)."""
+    largest entry. Each runs twice and must give the same bits; J' also on
+    ``hit_lanes`` of the call for each odd n of HIT_ODD_N. The cotangents
+    are ``torch_parity.split_cots``' (the sphere-UV source's on sphere
+    lanes only)."""
     P, kind, flip = hit_call
     S_, mkind, lt, n_lights = su_call
     gh, gs = split_cots(kind, S_.shape[1], seed)
@@ -987,11 +1001,24 @@ def split_bwd_vs_plain(hit_call, su_call, label, seed=5) -> dict:
     frac_j, err_j = scaled_close(got, hit_ops.hit_plane_core_vjp(
         P, kind, flip, gh), BWD_RTOL, BWD_ATOL, FLIP_BUDGET,
         f"{label}: hit_attrs_bwd dP")
+    odd = {}
+    for m in HIT_ODD_N:                 # J' at an odd ray count, twice
+        a = hit_lanes(hit_call, m)
+        a += (split_cots(a[1], 1, seed)[0],)
+        got_m = hit_attrs_bwd_kernel(*a)
+        if not torch.equal(got_m, hit_attrs_bwd_kernel(*a)):
+            raise AssertionError(f"{label}: two runs of J' at {m} rays "
+                                 "differ")
+        odd[m] = scaled_close(got_m, hit_ops.hit_plane_core_vjp(*a),
+                              BWD_RTOL, BWD_ATOL, FLIP_BUDGET,
+                              f"{label}: hit_attrs_bwd dP at {m} rays")
+    frac_j = max([frac_j] + [o[0] for o in odd.values()])
+    err_j = max([err_j] + [o[1] for o in odd.values()])
     ref_s, ref_lt = bounce_ops.su_plane_core_vjp(S_, mkind, lt, n_lights, gs)
     frac_h, err_h = scaled_close(got_s, ref_s, BWD_RTOL, BWD_ATOL,
                                  FLIP_BUDGET, f"{label}: shade_update_bwd dP")
     return {"hit_attrs_bwd": {"lanes_outside": frac_j, "max_abs_err": err_j,
-                              "bitwise_repeat": True},
+                              "odd_n": odd, "bitwise_repeat": True},
             "shade_update_bwd": {
                 "lanes_outside": frac_h, "max_abs_err": err_h,
                 "dlt_rel_l2": rel_l2(got_lt, ref_lt, f"{label}: H' dlt",
@@ -1529,8 +1556,7 @@ def split_rows(fwd, worst_small) -> list[dict]:
                    + c[0].quad_cluster_min.numel() * 2) * 4
                   for c in calls["quad"])
     qw = fwd["quad_work"]
-    j_bytes = sum((19 + 2 + 12) * 4 * c[0].shape[1] for c in calls["hit"])
-    j_ops = sum(OPS_HIT * c[0].shape[1] for c in calls["hit"])
+    j_bytes, j_ops = hit_bytes(calls["hit"])
     h_bytes, h_ops = su_fwd_bytes(calls["su"])
     src = "rust_ray_tracer_tpu_torch/csrc/split.cu"
     spec = (("quad_search", "rust_ray_tracer_tpu/ops/pallas_quad.py:121",
@@ -1554,6 +1580,8 @@ def split_rows(fwd, worst_small) -> list[dict]:
                      "bytes_per_launch": nb / n_w,
                      "operations_per_launch": ops / n_w})
     rows[0]["work_per_launch"] = {k: v / n_w for k, v in qw.items()}
+    rows[1]["ptxas"] = hit_ptxas("hit_attrs_kernel",
+                                 calls["hit"][0][0].shape[1])
     rows[2]["ptxas"] = kernel_ptxas("shade_update_kernel")
     rows[0]["bound_ms_per_warp_vote"] = bound(
         o_bytes / n_w, (qw["tests"] * OPS_QUAD_T
@@ -1954,9 +1982,7 @@ def split_bwd_rows(train, worst_small) -> list[dict]:
     recorded inputs; and the bound of one launch averaged over the same
     bounces."""
     calls, n_w = train["calls"], DEPTH
-    j_bytes = sum((19 + 2 + 12 + 19) * 4 * c[0].shape[1]
-                  for c in calls["hit"])
-    j_ops = sum(OPS_HIT_BWD * c[0].shape[1] for c in calls["hit"])
+    j_bytes, j_ops = hit_bytes(calls["hit"], bwd=True)
     h_bytes, h_ops = su_bwd_bytes(calls["su"])
     src = "rust_ray_tracer_tpu_torch/csrc/split.cu"
     rows = []
@@ -1977,6 +2003,8 @@ def split_bwd_rows(train, worst_small) -> list[dict]:
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                      "bytes_per_launch": nb / n_w,
                      "operations_per_launch": ops / n_w})
+    rows[0]["ptxas"] = hit_ptxas("hit_attrs_bwd_kernel",
+                                 calls["hit"][0][0].shape[1])
     rows[1]["ms_parts"] = train["h_parts"]
     return rows
 

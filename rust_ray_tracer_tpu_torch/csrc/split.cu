@@ -65,7 +65,10 @@
 // busy: latency, not issue, bounds it.
 // J and H: memory, 19 + 2 planes in and 12
 // out (J), 40 + 1 in and 13 out (H), a few hundred operations per ray: one
-// thread per ray, every plane read and written coalesced. H keeps the light
+// thread per ray, every plane read and written coalesced. Out of L2, J
+// runs at about the time a torch copy of the same bytes takes; J''s ring
+// of staged tiles, and a tile's rays sorted by winner kind, measured no
+// faster for J, so it keeps one block a tile. H keeps the light
 // table in shared memory and issues its loads in two rounds ahead of its
 // branches, as H' does: a found lane's shading inputs and randoms depend
 // only on its flags and material kind, so they go out in the second round,
@@ -107,11 +110,18 @@
 // call the adjoints that kernel B runs (trace_bwd_common.cuh:
 // hit_attrs_vjp, shade_fwd + shade_vjp, update_found_vjp,
 // update_miss_vjp), so the split route's backward and the whole-wave
-// route's are one copy. J' and H' are bound by memory, as J
-// and H: 19 + 2 + 12 planes in and 19 out (J'); for H', by lane class, a
-// dead lane reads 13 planes and a found one ~47, and every lane writes
-// 40. One thread per ray recomputes its forward (J's attributes, H's
-// shading) from the saved inputs instead of reading residuals. What holds
+// route's are one copy. J' moves 19 + 2 + 12 planes in and 19 out, but
+// its arithmetic bounds it: every lane recomputes J's attributes and runs
+// the adjoint, the sphere reading's on every lane, so with its inputs in
+// L2 it takes about twice its bytes' time. A block walks tiles of rays
+// with the next tile's planes in flight (cp.async into a ring in shared
+// memory) while it computes the current one, so its 90 registers need no
+// second round of blocks for a wave. Sorting a tile's rays by winner kind
+// cost more (barriers, the exchange) than the divergence it saved. H'
+// is bound by memory: by lane class, a dead lane reads 13 planes and a
+// found one ~47, and every lane writes 40. One thread per ray recomputes
+// its forward (J's attributes, H's shading) from the saved inputs instead
+// of reading residuals. What holds
 // H' past its bytes is latency: a lane's state and randoms depend on its
 // alive and hit flags and its material kind. H' issues its loads in two
 // rounds ahead of its branches, the second the state and the randoms its
@@ -427,43 +437,103 @@ shade_update_kernel(const float* __restrict__ P,
 
 // ---- the backward kernels ------------------------------------------------
 
+// J' walks tiles of ROW consecutive rays: the grid holds at most
+// HIT_BWD_BLOCKS blocks an SM (hit_bwd_grid: fewer where the runtime's
+// occupancy calculator allows fewer) and block b walks tiles b, b + grid,
+// ... Each thread copies its own ray's column of the tile's input planes
+// (P's 19, g's 12), kind and flip into a ring of HIT_BWD_STAGES stages in
+// shared memory, 4 bytes a cp.async, one commit group a tile, so the next
+// tile's copies are in flight while it computes its ray of the current
+// tile from shared memory and stores the 19 cotangents, coalesced, from
+// registers. A thread reads only what it copied itself, so its own
+// cp.async.wait_group orders the ring: no barrier, and any n (plane c
+// starts at c * n * 4 bytes, so a 16-byte copy would need n % 4 == 0; a
+// last tile's rays past n copy nothing and commit an empty group).
+constexpr int N_HIT_BWD_IN = N_HIT_IN + N_HIT_OUT;   // P's planes, g's
+constexpr int HIT_BWD_STAGES = 2, HIT_BWD_BLOCKS = 4;
+constexpr int HIT_BWD_STAGE = (N_HIT_BWD_IN + 2) * ROW;   // floats a stage
+static_assert(HIT_BWD_STAGES * HIT_BWD_STAGE * sizeof(float) <= 48 * 1024,
+              "J''s ring is static shared memory");
+
+// Thread t's copies of ray i's column into the stage st [33][ROW]: P's
+// planes, g's, then kind and flip as their bits; one commit group, empty
+// where i >= n.
+__device__ __forceinline__ void hit_bwd_stage(float* st,
+                                              const float* __restrict__ P,
+                                              const float* __restrict__ g,
+                                              const int* __restrict__ kind,
+                                              const int* __restrict__ flip,
+                                              int n, long long i, int t) {
+  if (i < n) {
+#pragma unroll
+    for (int c = 0; c < N_HIT_BWD_IN; ++c)
+      __pipeline_memcpy_async(st + c * ROW + t,
+                              c < N_HIT_IN ? P + (size_t)c * n + i
+                                           : g + (size_t)(c - N_HIT_IN) * n
+                                                 + i,
+                              sizeof(float));
+    __pipeline_memcpy_async(st + N_HIT_BWD_IN * ROW + t, kind + i,
+                            sizeof(int));
+    __pipeline_memcpy_async(st + (N_HIT_BWD_IN + 1) * ROW + t, flip + i,
+                            sizeof(int));
+  }
+  __pipeline_commit();
+}
+
 // J': P, kind, flip as J's; g [12, n] the cotangents of J's outputs. dP
 // [19, n]: those of o, d, time, (tmin, tmax: none), the pack and tmed.
-__global__ void __launch_bounds__(ROW)
+__global__ void __launch_bounds__(ROW, HIT_BWD_BLOCKS)
 hit_attrs_bwd_kernel(const float* __restrict__ P, const int* __restrict__ kind,
                      const int* __restrict__ flip, const float* __restrict__ g,
                      float* __restrict__ dP, int n) {
-  const int i = blockIdx.x * ROW + threadIdx.x;
-  if (i >= n) return;
-  float x[N_HIT_IN];
+  __shared__ float ring[HIT_BWD_STAGES][HIT_BWD_STAGE];
+  const int t = threadIdx.x;
+  const int tiles = (n + ROW - 1) / ROW;
+  long long next = blockIdx.x;          // the next tile to copy
 #pragma unroll
-  for (int c = 0; c < N_HIT_IN; ++c) x[c] = P[(size_t)c * n + i];
-  float gc[N_HIT_OUT];
+  for (int s = 0; s + 1 < HIT_BWD_STAGES; ++s, next += gridDim.x)
+    hit_bwd_stage(ring[s], P, g, kind, flip, n, next * ROW + t, t);
+  int s = 0;
+  for (int tile = blockIdx.x; tile < tiles;
+       tile += gridDim.x, next += gridDim.x) {
+    hit_bwd_stage(ring[(s + HIT_BWD_STAGES - 1) % HIT_BWD_STAGES], P, g, kind,
+                  flip, n, next * ROW + t, t);
+    __pipeline_wait_prior(HIT_BWD_STAGES - 1);   // this tile's copies
+    const float* st = ring[s];
+    s = (s + 1) % HIT_BWD_STAGES;
+    const int i = tile * ROW + t;
+    if (i >= n) continue;
+    float x[N_HIT_IN];
 #pragma unroll
-  for (int c = 0; c < N_HIT_OUT; ++c) gc[c] = g[(size_t)c * n + i];
-  const V3 o = {x[0], x[1], x[2]}, d = {x[3], x[4], x[5]};
-  const float time = x[6], tmin = x[7], tmax = x[8];
-  const float* pk = x + 9;
-  const int kd = kind[i];
-  // the forward without the FlipFace fold: the raw t (0 on a miss), the
-  // hit point, and the normal's y whose sign picks the branch of -|ny|
-  const HitAttrs h = hit_attrs(kd, o, d, time, tmin, tmax, pk, x[18],
-                               false);
-  const float t = kd == KIND_NONE ? 0.f : h.t;
-  V3 g_o = {0.f, 0.f, 0.f}, g_d = {0.f, 0.f, 0.f};
-  float g_time = 0.f, g_tmed = 0.f;
-  float g_pk[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  hit_attrs_vjp<true>(kd, o, d, time, tmin, tmax, pk, flip[i] > 0, h.n.y, t,
-                      h.p, {gc[0], {gc[1], gc[2], gc[3]},
-                            {gc[4], gc[5], gc[6]}, gc[7], gc[8],
-                            {gc[9], gc[10], gc[11]}},
-                      g_o, g_d, g_time, g_pk, g_tmed);
-  const float y[N_HIT_IN] = {g_o.x, g_o.y, g_o.z, g_d.x, g_d.y, g_d.z,
-                             g_time, 0.f, 0.f, g_pk[0], g_pk[1], g_pk[2],
-                             g_pk[3], g_pk[4], g_pk[5], g_pk[6], g_pk[7],
-                             g_pk[8], g_tmed};
+    for (int c = 0; c < N_HIT_IN; ++c) x[c] = st[c * ROW + t];
+    float gc[N_HIT_OUT];
 #pragma unroll
-  for (int c = 0; c < N_HIT_IN; ++c) dP[(size_t)c * n + i] = y[c];
+    for (int c = 0; c < N_HIT_OUT; ++c) gc[c] = st[(N_HIT_IN + c) * ROW + t];
+    const int* sk = reinterpret_cast<const int*>(st + N_HIT_BWD_IN * ROW);
+    const V3 o = {x[0], x[1], x[2]}, d = {x[3], x[4], x[5]};
+    const float time = x[6], tmin = x[7], tmax = x[8];
+    const float* pk = x + 9;
+    const int kd = sk[t];
+    // the forward without the FlipFace fold: the raw t (0 on a miss), the
+    // hit point, and the normal's y whose sign picks the branch of -|ny|
+    const HitAttrs h = hit_attrs(kd, o, d, time, tmin, tmax, pk, x[18],
+                                 false);
+    const float tr = kd == KIND_NONE ? 0.f : h.t;
+    V3 g_o = {0.f, 0.f, 0.f}, g_d = {0.f, 0.f, 0.f};
+    float g_time = 0.f, g_tmed = 0.f;
+    float g_pk[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    hit_attrs_vjp<true>(kd, o, d, time, tmin, tmax, pk, sk[ROW + t] > 0,
+                        h.n.y, tr, h.p, {gc[0], {gc[1], gc[2], gc[3]},
+                                         {gc[4], gc[5], gc[6]}, gc[7], gc[8],
+                                         {gc[9], gc[10], gc[11]}},
+                        g_o, g_d, g_time, g_pk, g_tmed);
+    const float y[N_HIT_IN] = {g_o.x, g_o.y, g_o.z, g_d.x, g_d.y, g_d.z,
+                               g_time, 0.f, 0.f, g_pk[0], g_pk[1], g_pk[2],
+                               g_pk[3], g_pk[4], g_pk[5], g_pk[6], g_pk[7],
+                               g_pk[8], g_tmed};
+#pragma unroll
+    for (int c = 0; c < N_HIT_IN; ++c) dP[(size_t)c * n + i] = y[c];
+  }
 }
 
 // Sum of v over a warp (a fixed tree: the same bits in every run).
@@ -862,6 +932,27 @@ int lt_share_occupancy(Kernel* kernel, int n_lights, int* out) {
       out, kernel, ROW, smem));
 }
 
+// J''s launch over n > 0 rays: out[0] its resident blocks an SM by the
+// runtime's occupancy calculator, out[1] its dynamic shared memory (none:
+// the ring is static), out[2] the grid, a block for each tile up to
+// min(out[0], HIT_BWD_BLOCKS) blocks an SM. 0 on success.
+int hit_bwd_grid(int n, int* out) {
+  int dev, sms;
+  if (const cudaError_t e = cudaGetDevice(&dev)) return static_cast<int>(e);
+  if (const cudaError_t e = cudaDeviceGetAttribute(
+          &sms, cudaDevAttrMultiProcessorCount, dev))
+    return static_cast<int>(e);
+  if (const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          out, hit_attrs_bwd_kernel, ROW, 0))
+    return static_cast<int>(e);
+  out[1] = 0;
+  const int tiles = (n + ROW - 1) / ROW;
+  const int blocks =
+      (out[0] < HIT_BWD_BLOCKS ? out[0] : HIT_BWD_BLOCKS) * sms;
+  out[2] = tiles < blocks ? tiles : blocks;
+  return out[2] > 0 ? 0 : -1;
+}
+
 }  // namespace
 
 // Each entry launches on ``stream`` and returns cudaGetLastError() (0 =
@@ -902,11 +993,27 @@ extern "C" int shade_update_launch(const float* P, const int* mkind,
 extern "C" int hit_attrs_bwd_launch(const float* P, const int* kind,
                                     const int* flip, const float* g,
                                     float* dP, int n, void* stream) {
-  if (n > 0)
-    hit_attrs_bwd_kernel<<<(n + ROW - 1) / ROW, ROW, 0,
-                           static_cast<cudaStream_t>(stream)>>>(P, kind, flip,
-                                                                g, dP, n);
+  if (n <= 0) return 0;
+  int occ[3];
+  if (const int e = hit_bwd_grid(n, occ)) return e;
+  hit_attrs_bwd_kernel<<<occ[2], ROW, 0,
+                         static_cast<cudaStream_t>(stream)>>>(P, kind, flip,
+                                                              g, dP, n);
   return launched(n);
+}
+
+// J's and J''s launch over n > 0 rays: out[0] the resident blocks an SM
+// by the runtime's occupancy calculator, out[1] the dynamic shared memory
+// a block (none), out[2] the grid (J: a block a tile; J': hit_bwd_grid).
+extern "C" int hit_attrs_occupancy(int n, int* out) {
+  out[1] = 0;
+  out[2] = (n + ROW - 1) / ROW;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, hit_attrs_kernel, ROW, 0));
+}
+
+extern "C" int hit_attrs_bwd_occupancy(int n, int* out) {
+  return hit_bwd_grid(n, out);
 }
 
 // dlt_part [ceil(n / ROW), (n_lights + 1) * LT_COLS]: the blocks'

@@ -4,8 +4,9 @@ M, with the unified search's sort of the rays) and of library ``sphere``
 (N), of the backward trace kernels B and D' (``--scenes trace_bwd``), of
 the split route's backward kernels F', G' and I' (``--scenes
 split_bwd``), its fused bounce F and G (``--scenes split_fwd``), H'
-(``--scenes su_bwd``), H (``--scenes su_fwd``) and I (``--scenes
-shade_fwd``) on one CUDA card, for
+(``--scenes su_bwd``), H (``--scenes su_fwd``), I (``--scenes
+shade_fwd``), J (``--scenes hit_fwd``) and J' (``--scenes hit_bwd``) on
+one CUDA card, for
 holding one tree's kernels against another's in the same call;
 ``chip_smoke.py`` runs :func:`search_report` as its search checks, counts
 M's work with :func:`m_work` and times its kernels with :func:`cold_ms`
@@ -117,13 +118,22 @@ bound (:func:`shade_fwd_bytes` and the operations by stage of
 bounce's candidate lights from the tree's ``ops/shade.
 shade_candidates_replay``), and in a one-wave forward render; its ptxas
 line and resident blocks at 9 and 16 lights.
+``hit_fwd`` and ``hit_bwd``: kernels J and J' on final_scene's and random
+earth's recorded calls of J of wave 0 (J also on the 9-light glTF
+flagship's), J' with ``torch_parity.split_cots``' cotangents; out of L2
+and in a loop beside the bound (:func:`hit_bytes`, which
+``chip_smoke.py`` counts with too) and beside one torch copy of the same
+bytes (:func:`copy_times`), in a one-wave forward render (J, and the
+``torch.cat`` that packs its planes) or training step (J'); both at odd
+ray counts (``HIT_ODD_N`` and the wave less one); the ptxas lines, the
+resident blocks, the grid and its rounds (:func:`hit_ptxas`).
 
 ``--save`` writes A's final states and winners, E's winners, M's and
 K's of each mesh bounce (and O's of each final_scene bounce, N's of each
 random earth bounce; B's and D''s dst, keys, light-table partials and
 the contrib rows of ray-bounces with a winner; F''s, G''s, H''s and I''s
-dP or d_data, partials and their sum by B'; F's, G's, H's and I's
-output) to a
+dP or d_data, partials and their sum by B'; F's, G's, H's, I's, J's
+and J''s output) to a
 ``.pt`` file; ``--compare a.pt b.pt
 ...`` then prints, for each file after the first, whether each of those
 tensors equals the first file's bit for bit (floats by their bit
@@ -1441,14 +1451,21 @@ def ptxas_lines(pattern) -> list[dict]:
             if re.search(pattern, r["function"])]
 
 
+def kernel_ptxas_line(name) -> dict:
+    """The ptxas line of kernel ``name`` of library ``split`` or
+    ``shade``."""
+    lines = ptxas_lines(rf"\d{name}E")
+    if not lines:
+        raise AssertionError(f"no ptxas line of {name}")
+    return lines[0]
+
+
 def kernel_ptxas(name, n_lights=0) -> dict:
     """The ptxas line (registers, stack frame, spills, static shared
     memory) of kernel ``name`` of library ``split`` or ``shade``, with its
     resident blocks an SM at ``n_lights`` (:func:`occupancy`)."""
-    lines = ptxas_lines(rf"\d{name}E")
-    if not lines:
-        raise AssertionError(f"no ptxas line of {name}")
-    return {**lines[0], "occupancy": occupancy(lines[0], n_lights)}
+    line = kernel_ptxas_line(name)
+    return {**line, "occupancy": occupancy(line, n_lights)}
 
 
 def _seeded(shape, seed, dev):
@@ -1739,6 +1756,216 @@ def su_fwd_report(dev, save=None):
     return out
 
 
+# Floats kernel J moves a lane: its 19 input planes, kind and flip in and
+# 12 planes out; J' also reads J's 12 output cotangents and writes 19
+# planes (csrc/split.cu hit_attrs_kernel, hit_attrs_bwd_kernel)
+HIT_FLOATS, HIT_BWD_FLOATS = 19 + 2 + 12, 19 + 2 + 12 + 19
+# the odd ray counts J and J' are held at beside the wave's (hit_lanes of
+# a recorded call): neither a multiple of 4 (a plane then starts off 16
+# bytes) nor of the 128-ray tile
+HIT_ODD_N = (1001, 129)
+
+
+def hit_bytes(calls, bwd=False) -> tuple[int, int]:
+    """(bytes, operations) kernel J (with ``bwd``, J') must move and do on
+    these recorded calls of J (P, kind, flip): every lane reads its 19
+    planes, kind and flip and writes 12 planes (J' also reads the 12
+    cotangents and writes 19 planes, the zero tmin and tmax rows
+    included); OPS_HIT (OPS_HIT_BWD) operations a lane. ``chip_smoke.py``
+    counts J's and J''s bounds with it. Pure: no device work."""
+    lanes = sum(c[0].shape[1] for c in calls)
+    if bwd:
+        return HIT_BWD_FLOATS * 4 * lanes, OPS_HIT_BWD * lanes
+    return HIT_FLOATS * 4 * lanes, OPS_HIT * lanes
+
+
+def copy_times(nbytes, dev):
+    """ms of one torch copy whose traffic (reads plus writes) is
+    ``nbytes``: nbytes / 2 of float32 copied into another tensor, out of
+    L2 and in a loop (:func:`times`). The card's practical floor for that
+    traffic, beside the bound at HBM's published rate."""
+    src = torch.ones(nbytes // 8, dtype=torch.float32, device=dev)
+    dst = torch.empty_like(src)
+    return times(lambda: dst.copy_(src))
+
+
+def hit_occupancy(name, n) -> dict:
+    """Kernel ``name``'s (``hit_attrs_kernel`` or ``hit_attrs_bwd_kernel``)
+    launch over ``n`` rays: its resident blocks an SM, dynamic shared
+    memory a block, grid, the tiles (128 rays) a block walks and the rounds
+    of resident blocks the grid takes; from the library's query
+    (``hit_attrs_occupancy``, ``hit_attrs_bwd_occupancy``: the CUDA
+    runtime's calculator) where the tree has it, else (a tree that launches
+    a block a tile) :func:`resident_blocks` of the ptxas counts, which are
+    given beside the query's too."""
+    import ctypes
+
+    line = kernel_ptxas_line(name)
+    lib = ctypes.CDLL(str(K.build("split").path))
+    entry = name.replace("_kernel", "_occupancy")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = -(-n // ROW)
+    res = {"kernel": name, "lanes": n}
+    if hasattr(lib, entry):
+        out = (ctypes.c_int * 3)()
+        err = getattr(lib, entry)(ctypes.c_int(n), out)
+        if err != 0:
+            raise RuntimeError(f"{entry}: CUDA error {err}")
+        res.update(blocks=out[0], dynamic_smem=out[1], grid=out[2],
+                   by="runtime")
+    else:
+        res.update(blocks=resident_blocks(line["registers"], line["smem"]),
+                   dynamic_smem=0, grid=tiles, by="formula")
+    res["formula_blocks"] = resident_blocks(
+        line["registers"], line["smem"] + res["dynamic_smem"])
+    res["tiles_a_block"] = -(-tiles // res["grid"])
+    res["rounds"] = res["grid"] / (res["blocks"] * sms)
+    return res
+
+
+def hit_ptxas(name, n) -> dict:
+    """The ptxas line of kernel J or J' (``name``) with its launch over
+    ``n`` rays (:func:`hit_occupancy`)."""
+    return {**kernel_ptxas_line(name), "occupancy": hit_occupancy(name, n)}
+
+
+def _hit_cots(kind, seed):
+    """J''s cotangents for a recorded call of J (``torch_parity.
+    split_cots``: normal draws, the sphere-UV source's on sphere lanes
+    only)."""
+    return _parity().split_cots(kind, 1, seed)[0]
+
+
+def _hit_rows(calls, bwd, seed, save, label):
+    """J (with ``bwd``, J' with :func:`_hit_cots` of ``seed`` + bounce) on
+    each recorded call: ms out of L2 and in a loop beside the bound
+    (:func:`hit_bytes`) and a copy of the same bytes (:func:`copy_times`);
+    with ``save`` the output under ``label``."""
+    kern = K.hit_attrs_bwd_kernel if bwd else K.hit_attrs_kernel
+    rows = []
+    for b, (P, kind, flip) in enumerate(calls):
+        args = (P, kind, flip) + ((_hit_cots(kind, seed + b),) if bwd
+                                  else ())
+        nb, ops = hit_bytes([(P, kind, flip)], bwd)
+        with torch.no_grad():
+            rows.append({"bounce": b, "lanes": P.shape[1], "bytes": nb,
+                         "ops": ops, "bound_ms": bound_ms(nb, ops),
+                         "copy_ms": copy_times(nb, P.device),
+                         "ms": times(lambda a=args: kern(*a))})
+            if save is not None:
+                save[f"{label}{b}.out"] = kern(*args).cpu()
+    return rows
+
+
+def hit_lanes(call, m):
+    """``m`` lanes of a recorded call of kernel J (P, kind, flip) spread
+    over all of its lanes (lane j (n // m) in column j), each contiguous:
+    an odd ray count for J and J'."""
+    P, kind, flip = call
+    lanes = torch.arange(m, device=P.device) * (P.shape[1] // m)
+    return (P[:, lanes].contiguous(), kind[lanes].contiguous(),
+            flip[lanes].contiguous())
+
+
+def hit_odd_rows(call, seed, save):
+    """J and J' on ``hit_lanes`` of one recorded call of J for each n of
+    ``HIT_ODD_N`` and for all its lanes but the last: ms out of L2 and in
+    a loop, the outputs under ``jodd<n>`` and ``jpodd<n>`` with
+    ``save``."""
+    P = call[0]
+    rows = []
+    for m in HIT_ODD_N + (P.shape[1] - 1,):
+        a = hit_lanes(call, m)
+        g = _hit_cots(a[1], seed)
+        with torch.no_grad():
+            rows.append({"lanes": m,
+                         "j_ms": times(lambda: K.hit_attrs_kernel(*a)),
+                         "j_prime_ms": times(
+                             lambda: K.hit_attrs_bwd_kernel(*a, g))})
+            if save is not None:
+                save[f"jodd{m}.out"] = K.hit_attrs_kernel(*a).cpu()
+                save[f"jpodd{m}.out"] = K.hit_attrs_bwd_kernel(*a, g).cpu()
+    return rows
+
+
+def cat_before(scene, key, name="hit_attrs_kernel", cat="CatArrayBatched"):
+    """Device ms per launch, over a profiled one-wave forward render of
+    ``scene``, of the last ``torch.cat`` kernel (a profiler name holding
+    ``cat``) before each launch of kernel ``name``: for J, the cat that
+    packs its 19 planes (``ops/hit.hit_attrs_fused``; the kind and flip
+    casts run between)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        with torch.no_grad():
+            render_waves(scene, WIDTH, HEIGHT, key, 0, 1, depth=DEPTH,
+                         chunk_size=CHUNK)
+        torch.cuda.synchronize()
+
+    run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    kern = sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    ds, last = [], None
+    for e in kern:
+        if cat in e.name:
+            last = e
+        elif name in e.name and last is not None:
+            ds.append(last.time_range.elapsed_us() / 1e3)
+            last = None
+    return {"ms_per_launch": sum(ds) / len(ds) if ds else None,
+            "launches": len(ds)}
+
+
+def hit_report(dev, parts, save=None, seed=13):
+    """Kernels J (``hit_fwd``) and J' (``hit_bwd``) on the recorded calls of
+    kernel J of wave 0 (bounces 0-3) of final_scene and random earth, J
+    also on the 9-light glTF flagship's; J' with :func:`_hit_cots` of
+    ``seed`` + bounce. Each out of L2 and in a loop beside its bound
+    (:func:`hit_bytes`) and a copy of the same bytes (:func:`copy_times`),
+    and in a one-wave forward render (J, with the device ms of the
+    ``torch.cat`` that packs its planes, :func:`cat_before`) or training
+    step (J'); the ptxas lines and the launch at the wave's lanes
+    (:func:`hit_ptxas`: resident blocks, grid, rounds); J and J' at odd
+    lane counts on final_scene's bounce 0 (:func:`hit_odd_rows`).
+    ``--save`` keeps every output."""
+    fwd, bwd = "hit_fwd" in parts, "hit_bwd" in parts
+    scenes = [("final", lambda: compile_scene(
+        builders.final_scene(WIDTH / HEIGHT), device=dev)),
+              ("earth", lambda: earth_scene(dev))]
+    if fwd:
+        scenes.append(("gltf9", lambda: gltf9_scene(dev)))
+    n = WIDTH * HEIGHT
+    out = {"ptxas": [hit_ptxas(k, n) for k, on in (
+        ("hit_attrs_kernel", fwd), ("hit_attrs_bwd_kernel", bwd)) if on]}
+    for label, make in scenes:
+        scene = make()
+        key, rec = _record(scene)
+        calls = rec["hit"]
+        rep = {"kinds": [torch.bincount(c[1].long(), minlength=5).tolist()
+                         for c in calls]}
+        if fwd:
+            rep["j"] = {"bounces": _hit_rows(calls, False, seed, save,
+                                             f"j{label}"),
+                        "in_path": in_path(scene, key, ("hit_attrs_kernel",),
+                                           {}),
+                        "cat_in_path": cat_before(scene, key)}
+        if bwd and label != "gltf9":
+            rep["j_prime"] = {
+                "bounces": _hit_rows(calls, True, seed, save, f"jp{label}"),
+                "in_step": in_path(scene, key, ("hit_attrs_bwd_kernel",), {},
+                                   step=True)}
+        if label == "final":
+            rep["odd"] = hit_odd_rows(calls[0], seed, save)
+        out[label] = rep
+        del rec, calls, scene
+    return out
+
+
 def compare(paths):
     first = torch.load(paths[0])
     for p in paths[1:]:
@@ -1763,7 +1990,8 @@ def main(argv=None) -> int:
     ap.add_argument("--scenes", default="flagship,random,mesh,tri,gltf",
                     help="comma-separated parts: flagship, random, mesh, "
                          "tri, gltf, sph, final, earth, bwd, trace_bwd, "
-                         "split_bwd, split_fwd, su_bwd, su_fwd, shade_fwd")
+                         "split_bwd, split_fwd, su_bwd, su_fwd, shade_fwd, "
+                         "hit_fwd, hit_bwd")
     ap.add_argument("--check", action="store_true",
                     help="hold M's winners on every mesh bounce against "
                          "the plain version")
@@ -1821,6 +2049,8 @@ def main(argv=None) -> int:
         res["su_fwd"] = su_fwd_report(dev, save)
     if "shade_fwd" in parts:
         res["shade_fwd"] = shade_fwd_report(dev, save)
+    if "hit_fwd" in parts or "hit_bwd" in parts:
+        res["hit"] = hit_report(dev, parts, save)
     res["sms"] = torch.cuda.get_device_properties(dev).multi_processor_count
     res["grid_blocks"] = math.ceil(WIDTH * HEIGHT / ROW)
     line = json.dumps(res)

@@ -7,7 +7,8 @@ at a time; F''s (and G''s), H''s and I''s (``bp_bwd_bytes``,
 H's and I's (``bp_fwd_bytes``, ``bp_live_bytes``, ``su_fwd_bytes``,
 ``shade_fwd_bytes``) on a few hundred lanes of every lane class and
 material kind; I's operations by stage (``shade_work``) against its
-candidate lights counted light by light."""
+candidate lights counted light by light; J's and J''s (``hit_bytes``)
+plane by plane."""
 
 import pytest
 import torch
@@ -22,8 +23,9 @@ from rust_ray_tracer_tpu_torch.ops import shade as shade_ops
 from rust_ray_tracer_tpu_torch.tools.search_times import (
     OPS_HIT, OPS_HIT_BWD, OPS_LIGHT_DISC, OPS_QUAD_PDF, OPS_SHADE,
     OPS_SPHERE_FULL, OPS_SU_BWD, bp_bwd_bytes, bp_fwd_bytes,
-    bp_live_bwd_bytes, bp_live_bytes, bwd_bytes, shade_bwd_bytes,
-    shade_fwd_bytes, shade_work, su_bwd_bytes, su_fwd_bytes)
+    bp_live_bwd_bytes, bp_live_bytes, bwd_bytes, hit_bytes,
+    shade_bwd_bytes, shade_fwd_bytes, shade_work, su_bwd_bytes,
+    su_fwd_bytes)
 from rust_ray_tracer_tpu_torch.utils import rng
 from tests.torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
@@ -424,3 +426,33 @@ def test_shade_work_by_stage(n_lights):
     assert w["total"]["ops"] == row["ops"]
     assert row["warp_most_max"] == int(cand.reshape(-1, 32).amax(1).max())
     assert row["mean_candidates"] == n_cand / n_lam
+
+
+def _hit_by_hand(n, bwd):
+    """J's floats on n lanes counted plane by plane: the 19 input planes
+    (o, d, time, tmin, tmax, the 9-float pack, tmed), kind and flip in, the
+    12 output planes (t, p, n, u, v, the sphere-UV source) out; J' also
+    the 12 cotangents in and the 19 input planes' cotangents out (tmin's
+    and tmax's zero rows included)."""
+    planes_in = 3 + 3 + 1 + 1 + 1 + 9 + 1
+    ints_in = 2
+    planes_out = 1 + 3 + 3 + 1 + 1 + 3
+    if bwd:
+        return n * (planes_in + ints_in + planes_out + planes_in)
+    return n * (planes_in + ints_in + planes_out)
+
+
+@pytest.mark.parametrize("case", [(False, 1001), (False, 147_456),
+                                  (True, 129), (True, 147_456)])
+def test_hit_bytes_by_hand(case):
+    """J's and J''s byte bound (``hit_bytes``) against the count plane by
+    plane, at odd ray counts and the wave's; OPS_HIT (OPS_HIT_BWD) a lane;
+    a list of calls is the sum of its calls. Only the shapes count: J and
+    J' read and write every plane of every lane."""
+    bwd, n = case
+    call = (torch.zeros((19, n)), torch.zeros(n, dtype=torch.int32),
+            torch.zeros(n, dtype=torch.int32))
+    nb, ops = hit_bytes([call], bwd)
+    assert nb == 4 * _hit_by_hand(n, bwd)
+    assert ops == n * (OPS_HIT_BWD if bwd else OPS_HIT)
+    assert hit_bytes([call, call], bwd) == (2 * nb, 2 * ops)

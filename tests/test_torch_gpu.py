@@ -13,6 +13,8 @@ The tests marked ``gpu`` skip where there is no CUDA device; the others
 check on the CPU what the wrapper and the dispatcher refuse.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -616,6 +618,59 @@ def test_split_bwd_kernels_match_plain_on_card(name, cuda):
     assert torch.equal(got_h, hit_attrs_bwd_kernel(P, kind, flip, gh))
     again = shade_update_bwd_kernel(S, mkind, lt, n_lights, gs)
     assert torch.equal(got_s, again[0]) and torch.equal(got_lt, again[1])
+
+
+@functools.lru_cache(maxsize=1)
+def _final_hit_inputs():
+    return split_kernel_inputs(_final_scene())["hit"]
+
+
+def _hit_inputs(n):
+    """Kernel J's inputs (P, kind, flip) at ``n`` rays and J''s cotangent:
+    final_scene's 32x32 inputs over two bounces (2,048 lanes), lane 7 j
+    mod 2,048 in column j (every kind among the first 129); ``split_cots``'
+    cotangent of them."""
+    P, kind, flip = _final_hit_inputs()
+    lanes = torch.arange(n) * 7 % P.shape[1]
+    P, kind, flip = P[:, lanes].contiguous(), kind[lanes], flip[lanes]
+    return P, kind, flip, split_cots(kind, 1, 3)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1001, 129, 147_456])
+def test_hit_kernels_any_n_on_card(n, cuda):
+    """J and J' at n rays: 1,001 and 129 (neither a multiple of 4, so a
+    plane starts off 16 bytes, nor of the 128-ray tile a block walks) and
+    the wave's 147,456 (more tiles than the grid has blocks), on
+    final_scene's inputs, against their plain versions within the
+    tolerances of ``test_split_kernels_match_plain_on_card`` and
+    ``test_split_bwd_kernels_match_plain_on_card``; each twice, bitwise,
+    one launch a call."""
+    from rust_ray_tracer_tpu_torch.ops import hit
+
+    P, kind, flip, g = (v.to(cuda) for v in _hit_inputs(n))
+    before = [k.launches for k in (hit_attrs_kernel, hit_attrs_bwd_kernel)]
+    got = hit.hit_planes(P, kind, flip)
+    got_b = hit.hit_planes_bwd(P, kind, flip, g)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(
+        (hit_attrs_kernel, hit_attrs_bwd_kernel), before)] == [1, 1]
+    assert torch.equal(got, hit_attrs_kernel(P, kind, flip))
+    assert torch.equal(got_b, hit_attrs_bwd_kernel(P, kind, flip, g))
+    ref = hit.hit_plane_core(P, kind, flip)
+    miss = kind == 0
+    assert bool(torch.isinf(got[0, miss]).all())
+    got[0, miss] = ref[0, miss] = 0.0
+    sph = (kind == 2).cpu().numpy()
+    assert_scaled_close(got[:9].cpu().numpy(), ref[:9].cpu().numpy(), 1e-5,
+                        1e-6, axis=0, what="hit attrs")
+    assert_scaled_close(got[9:].cpu().numpy()[:, sph],
+                        ref[9:].cpu().numpy()[:, sph], 1e-5, 1e-6, axis=0,
+                        what="sphere UV source")
+    assert_scaled_close(got_b.cpu().numpy(),
+                        hit.hit_plane_core_vjp(P, kind, flip, g).cpu().numpy(),
+                        1e-4, 1e-6, axis=0, budget=0.005, what="J' dP")
+    assert sph.any() and (kind == 3).any() and (kind == 4).any()
 
 
 def _int_bits_zero(x):
