@@ -85,6 +85,7 @@ import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -124,6 +125,7 @@ from rust_ray_tracer_tpu_torch.ops import bounce_core
 from rust_ray_tracer_tpu_torch.ops import camera as cam_ops
 from rust_ray_tracer_tpu_torch.ops import gather
 from rust_ray_tracer_tpu_torch.ops import hit as hit_ops
+from rust_ray_tracer_tpu_torch.ops import integrator
 from rust_ray_tracer_tpu_torch.ops import intersect as isect
 from rust_ray_tracer_tpu_torch.ops import quad as quad_ops
 from rust_ray_tracer_tpu_torch.ops import search as search_ops
@@ -145,6 +147,7 @@ from rust_ray_tracer_tpu_torch.tools.search_times import (
 from rust_ray_tracer_tpu_torch.utils import cli
 from rust_ray_tracer_tpu_torch.utils import rng
 from rust_ray_tracer_tpu_torch.utils.image import decode_image
+from rust_ray_tracer_tpu_torch.utils.metrics import occupancy_probe
 
 # the split route's dispatcher hooks, shared with the tests (no JAX there)
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1593,13 +1596,13 @@ def split_rows(fwd, worst_small) -> list[dict]:
 # bench.py's training step, shared by final_scene, the mesh, random with the
 # earth map and the 9-light glTF flagship -----------------------------------
 
-def main_path_forward(label, render, on_path, off_path):
+def main_path_forward(label, render, on_path, off_path, per_kernel=None):
     """The main path's forward: the counts of ``on_path`` and ``off_path``
     set to 0 just before ``render(SPP)`` runs under :class:`PlainCalls`
     and read just after. Fails unless each kernel of ``on_path`` launched
-    SPP * DEPTH times and none of ``off_path`` did, no plain version ran,
-    and the image is finite and of the bench shape. Returns (image,
-    launches, plain calls)."""
+    ``per_kernel`` (default SPP * DEPTH) times and none of ``off_path``
+    did, no plain version ran, and the image is finite and of the bench
+    shape. Returns (image, launches, plain calls)."""
     watched = on_path + off_path
     with PlainCalls() as plain:
         for k in watched:
@@ -1608,7 +1611,7 @@ def main_path_forward(label, render, on_path, off_path):
         torch.cuda.synchronize()
         launches = {k.name: k.launches for k in watched}
     want = {k.name: 0 for k in off_path}
-    want.update({k.name: SPP * DEPTH for k in on_path})
+    want.update({k.name: per_kernel or SPP * DEPTH for k in on_path})
     if launches != want:
         raise AssertionError(f"{label} launches {launches}, expected {want}")
     if plain.calls:
@@ -1688,17 +1691,20 @@ def light_sum_call(part):
 
 
 def main_path_train(label, scene, key, on_path, off_path, nonzero_keys,
-                    names, fwd_names, bwd_names, reps, dev) -> dict:
+                    names, fwd_names, bwd_names, reps, dev, compact=False,
+                    per_kernel=None, splits=3) -> dict:
     """``bench.py``'s training step on ``scene`` at the bench shape: ``loss
     = mean(render_waves(...))``, ``backward()`` over every float leaf of
-    ``partition``. The counts set to 0 just before the first of two steps
-    under :class:`PlainCalls` and read just after it: SPP * DEPTH launches
-    of each kernel of ``on_path``, none of ``off_path``, B'
-    (``bwd_reduce``) more than SPP * DEPTH times (the backward kernels'
-    light-table partials and the glue's row sums), no plain call;
+    ``partition`` (through the compact wavefront with ``compact``). The
+    counts set to 0 just before the first of two steps under
+    :class:`PlainCalls` and read just after it: ``per_kernel`` (default
+    SPP * DEPTH) launches of each kernel of ``on_path``, none of
+    ``off_path``, B' (``bwd_reduce``) more than that (the backward
+    kernels' light-table partials and the glue's row sums), no plain call;
     gradients finite, bitwise equal over the two steps, non-zero on
     ``nonzero_keys``. Then ``reps`` timed steps and their peak memory,
-    three steps' forward and backward apart, and a profiled one-wave step
+    ``splits`` steps' forward and backward apart, and a profiled one-wave
+    step
     (``names``: row name -> profiler name; the glue's ms a wave in the
     forward and the backward from the kernels of ``fwd_names`` and
     ``bwd_names`` and B'). Returns the phase's fields, the in-path ms per
@@ -1708,7 +1714,8 @@ def main_path_train(label, scene, key, on_path, off_path, nonzero_keys,
     def run(n_waves):
         leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
         loss = render_waves(combine(leaves, static), WIDTH, HEIGHT, key, 0,
-                            n_waves, depth=DEPTH, chunk_size=CHUNK).mean()
+                            n_waves, depth=DEPTH, chunk_size=CHUNK,
+                            compact=compact).mean()
         return loss, leaves
 
     def step(n_waves=SPP):
@@ -1725,10 +1732,11 @@ def main_path_train(label, scene, key, on_path, off_path, nonzero_keys,
         launches = {k.name: k.launches for k in watched}
         _, grads2 = step()
         torch.cuda.synchronize()
+    per_kernel = per_kernel or SPP * DEPTH
     want = {k.name: 0 for k in off_path}
-    want.update({k.name: SPP * DEPTH for k in on_path})
+    want.update({k.name: per_kernel for k in on_path})
     want["bwd_reduce"] = launches["bwd_reduce"]
-    if launches != want or launches["bwd_reduce"] <= SPP * DEPTH:
+    if launches != want or launches["bwd_reduce"] <= per_kernel:
         raise AssertionError(f"{label} training launches {launches}, "
                              f"expected {want}")
     if plain.calls:
@@ -1749,7 +1757,7 @@ def main_path_train(label, scene, key, on_path, off_path, nonzero_keys,
     peak = torch.cuda.max_memory_allocated(dev)
     # the forward (with the graph) and the backward of a step, apart
     fwd_ms, bwd_ms = [], []
-    for _ in range(3):
+    for _ in range(splits):
         e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         e[0].record()
         loss_t, _ = run(SPP)
@@ -3542,10 +3550,12 @@ def sharded_two_ranks(dev, smi) -> dict:
     process of ``python -m rust_ray_tracer_tpu_torch.parallel.dryrun``:
     the flagship at SHARD_W x SHARD_H, 2 spp, depth DEPTH, chunk
     SHARD_CHUNK (9 chunks, padded to 10, 5 a rank), the image, one
-    training step and an SGD step. Both ranks' images must equal the
-    one-rank render bitwise, their gradients must be equal to each other
-    and within B's budget of the one-rank gradients (not twice them), the
-    loss after the step finite. Emits ``sharded_two_ranks``."""
+    training step and an SGD step, then (``--also-compact``) all three again
+    through the compact wavefront, each rank compacting its own chunks.
+    On each route both ranks' images must equal the one-rank render
+    bitwise, their gradients must be equal to each other and within B's
+    budget of the one-rank gradients (not twice them), the loss after the
+    step finite. Emits ``sharded_two_ranks``."""
 
     from rust_ray_tracer_tpu_torch.parallel import dryrun
 
@@ -3559,7 +3569,7 @@ def sharded_two_ranks(dev, smi) -> dict:
                "dryrun", "--device", dev.type, "--backend", "gloo", "--scene",
                "flagship", "--width", str(SHARD_W), "--height",
                str(SHARD_H), "--spp", "2", "--depth", str(DEPTH),
-               "--chunk-size", str(SHARD_CHUNK), "--out",
+               "--chunk-size", str(SHARD_CHUNK), "--also-compact", "--out",
                out, "--coordinator", addr, "--num-processes", "2"]
         procs = []
         try:
@@ -3581,36 +3591,42 @@ def sharded_two_ranks(dev, smi) -> dict:
         ranks = [torch.load(os.path.join(td, f"rank.{r}.pt"))
                  for r in (0, 1)]
     ranks_s = time.perf_counter() - t0
-    one = dryrun.run(make_mesh(device=dev), "flagship", SHARD_W, SHARD_H, 2,
-                     DEPTH, SHARD_CHUNK)
-    for r in ranks:
-        if not torch.equal(r["image"], one["image"]):
-            raise AssertionError(f"rank {r['rank']}'s image differs from the "
-                                 "one-rank render")
-    worst = 0.0
-    for k, ref in one["grads"].items():
-        a, b = ranks[0]["grads"][k], ranks[1]["grads"][k]
-        if not torch.equal(a, b):
-            raise AssertionError(f"gradient of {k} differs between ranks")
-        if not ref.numel():
-            continue
-        scale = float(ref.abs().max())
-        err = float((a - ref).abs().max())
-        if err > BWD_ATOL + BWD_RTOL * scale:
-            raise AssertionError(f"two ranks: gradient of {k} off the "
-                                 f"one-rank one by {err:.3g} (largest "
-                                 f"{scale:.3g})")
-        worst = max(worst, err / scale if scale else 0.0)
-    if not bool(torch.isfinite(ranks[0]["loss_after_step"])):
-        raise AssertionError("two ranks: non-finite loss after the step")
     out = {"phase": "sharded_two_ranks", "card": smi, "backend": "gloo",
            "world": 2, "shape": [SHARD_H, SHARD_W, 2, DEPTH],
-           "chunk_size": SHARD_CHUNK, "images_bitwise_vs_one_rank": True,
-           "grads_equal_across_ranks": True,
-           "grads_vs_one_rank_worst_err_over_largest": worst,
-           "loss": float(ranks[0]["loss"]),
-           "loss_after_step": float(ranks[0]["loss_after_step"]),
-           "ranks_seconds": ranks_s}
+           "chunk_size": SHARD_CHUNK, "ranks_seconds": ranks_s}
+    for compact in (False, True):
+        one = dryrun.run(make_mesh(device=dev), "flagship", SHARD_W,
+                         SHARD_H, 2, DEPTH, SHARD_CHUNK, compact=compact)
+        rs = [r["compact"] if compact else r for r in ranks]
+        what = "compact" if compact else "per-chunk"
+        for r in rs:
+            if not torch.equal(r["image"], one["image"]):
+                raise AssertionError(f"rank {r['rank']}'s {what} image "
+                                     "differs from the one-rank render")
+        worst = 0.0
+        for k, ref in one["grads"].items():
+            a, b = rs[0]["grads"][k], rs[1]["grads"][k]
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: gradient of {k} differs "
+                                     "between ranks")
+            if not ref.numel():
+                continue
+            scale = float(ref.abs().max())
+            err = float((a - ref).abs().max())
+            if err > BWD_ATOL + BWD_RTOL * scale:
+                raise AssertionError(f"two ranks, {what}: gradient of {k} "
+                                     f"off the one-rank one by {err:.3g} "
+                                     f"(largest {scale:.3g})")
+            worst = max(worst, err / scale if scale else 0.0)
+        if not bool(torch.isfinite(rs[0]["loss_after_step"])):
+            raise AssertionError(f"two ranks, {what}: non-finite loss "
+                                 "after the step")
+        out["compact" if compact else "per_chunk"] = {
+            "images_bitwise_vs_one_rank": True,
+            "grads_equal_across_ranks": True,
+            "grads_vs_one_rank_worst_err_over_largest": worst,
+            "loss": float(rs[0]["loss"]),
+            "loss_after_step": float(rs[0]["loss_after_step"])}
     emit(out)
     return out
 
@@ -4070,9 +4086,302 @@ def unfused_rows(checks, fwd, train) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the compact wavefront (render_waves(compact=True), the CLI's --compact):
+# every scene on the split route's kernels, each bounce on the live rays
+# ---------------------------------------------------------------------------
+
+COMPACT_FWD_ALL = (SPLIT_KERNELS + SEARCH_KERNELS + FUSED_KERNELS
+                   + CULL_KERNELS + (shade_kernel,))
+COMPACT_BWD_ALL = SPLIT_BWD_KERNELS + FUSED_BWD_KERNELS + (shade_bwd_kernel,)
+COMPACT_OFF = (WHOLE_WAVE_KERNELS + D_KERNELS + D_BWD_KERNELS
+               + UNFUSED_KERNELS)
+# scene -> (forward kernels a bounce, backward kernels a bounce, leaves whose
+# gradient must be non-zero): what bounce_split runs on each
+COMPACT_ROUTES = {
+    "flagship": ((tile_enter_kernel, fused_search_kernel,
+                  bounce_planes_kernel), FUSED_BWD_KERNELS,
+                 ("tri_v0", "tex_color", "camera.c2w")),
+    "random": ((sph_search_kernel, hit_attrs_kernel, shade_update_kernel),
+               SPLIT_BWD_KERNELS, ("tex_scale", "sph_c0", "tex_color")),
+    "final_scene": ((quad_search_kernel, hit_attrs_kernel,
+                     shade_update_kernel), SPLIT_BWD_KERNELS,
+                    ("tex_color", "background")),
+    "random_earth": ((sph_search_kernel, hit_attrs_kernel,
+                      shade_update_kernel), SPLIT_BWD_KERNELS,
+                     ("img_data", "tex_color", "sph_c0")),
+}
+# rounds of the compact route's forward sweep and step timed in turns
+# with the scene's own route's (alternate_ms)
+COMPACT_REPS = 2
+
+
+class CompactStats:
+    """Inside ``with``, each wave ``render_waves`` sends through
+    ``ops/integrator.trace_wave_compact`` records its bounces' live rays,
+    lanes and host sync (the function's ``stats``) in ``waves``, a list a
+    wave."""
+
+    def __enter__(self):
+        self.waves = []
+        self._real = integrator.trace_wave_compact
+
+        def recorded(*args, **kw):
+            self.waves.append([])
+            return self._real(*args, **kw, stats=self.waves[-1])
+        integrator.trace_wave_compact = recorded
+        return self
+
+    def __exit__(self, *exc):
+        integrator.trace_wave_compact = self._real
+
+    def bounces_run(self) -> int:
+        return sum(1 for w in self.waves for b in w if b["n_alive"])
+
+
+def recorded_lanes(rec) -> dict:
+    """The rays each recorded dispatcher call covered
+    (``split_recorder``'s lists): {key: [rays a call]}."""
+    return {key: [int(c[1].shape[0]) if key == "quad" else
+                  int(c[0].shape[-1]) for c in calls]
+            for key, calls in rec.items() if calls and key != "order"}
+
+
+def alternate_ms(fns, reps) -> list[list[float]]:
+    """Device ms of each of ``fns`` by CUDA events, ``reps`` rounds
+    calling them in turn (the callers have run each before: no
+    warm-up)."""
+    torch.cuda.synchronize()
+    out = [[] for _ in fns]
+    for _ in range(reps):
+        for f, times in zip(fns, out):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            f()
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+    return out
+
+
+def compact_phase(label, host_fn, dev, smi, probe=False) -> dict:
+    """``render_waves(compact=True)`` on ``label``'s scene at the bench
+    shape: the split route's kernels (``COMPACT_ROUTES``) on every bounce
+    that has a live ray, none of the others, no plain call; the image
+    finite, the same bits twice, against the same scene's render on its
+    own route (the trace kernel A on the flagship and random) bitwise or
+    its differing pixels counted within FLIP_BUDGET (outside RTOL / ATOL);
+    on one recorded wave each kernel against its plain version on the
+    compacted inputs of bounces 0 and 1 (K, M, F, F', N) and of bounce 1
+    (O, J, H, J', H'), and every launch covering the live prefix only
+    (its rays equal the bounce's lanes, ``ceil(n_alive / CHUNK) * CHUNK``);
+    forward and step ms against the route's own in turns (CUDA events),
+    each bounce's live rays and host sync, a profiled wave;
+    ``bench.py``'s training step through it (:func:`main_path_train`:
+    gradients finite, bitwise over two steps, non-zero on the route's
+    leaves; peak memory), the gradients' relative L2 distance from the
+    route's own; with ``probe`` (the flagship and random), B' on the
+    one-wave step's row sums against float64 and the order replay, and
+    ``utils/metrics.occupancy_probe`` of wave 0 against the compact
+    wave's live counts. Emits ``compact_<label>``."""
+    fwd_k, bwd_k, nonzero = COMPACT_ROUTES[label]
+    scene = compile_scene(host_fn(), device=dev)
+    key = rng.key(0, dev)
+    tables = make_split_tables(scene)
+    route = {"trace_kernel_scene": uber.uber_eligible(scene),
+             "fused": tables.fused, "su": tables.su,
+             "unified": tables.unified, "sphere_kernel": tables.sph
+             is not None, "auto_compact": integrator.auto_compact(scene)}
+
+    def render(n_waves, compact=True):
+        with torch.no_grad():
+            return render_waves(scene, WIDTH, HEIGHT, key, 0, n_waves,
+                                depth=DEPTH, chunk_size=CHUNK,
+                                compact=compact)
+
+    watched = COMPACT_FWD_ALL + COMPACT_BWD_ALL + COMPACT_OFF
+    with CompactStats() as warm:
+        render(SPP)
+    runs = warm.bounces_run()
+    img, launches, n_plain = main_path_forward(
+        f"{label} compact", render, fwd_k,
+        tuple(k for k in watched if k not in fwd_k) + (bwd_reduce_kernel,),
+        per_kernel=runs)
+    if not torch.equal(img, render(SPP)):
+        raise AssertionError(f"{label}: two compact renders differ")
+    own = render(SPP, compact=False)
+    vs_own = compare(img, own, f"{label}: compact vs its own route",
+                     flip_abs=None)
+    vs_own.update(bitwise=bool(torch.equal(img, own)),
+                  pixels_differing=int((img != own).any(-1).sum()),
+                  budget={"flip_frac": FLIP_BUDGET, "rtol": RTOL,
+                          "atol": ATOL})
+
+    with torch.no_grad(), split_recorder() as rec, CompactStats() as one:
+        wave = render(1)
+    stats = one.waves[0]
+    ran = [b["lanes"] for b in stats if b["n_alive"]]
+    lanes = recorded_lanes(rec)
+    for k, v in lanes.items():
+        if v != ran:
+            raise AssertionError(f"{label}: {k} launches covered {v} rays, "
+                                 f"the live prefixes are {ran}")
+    with torch.no_grad():
+        checks = split_kernels_vs_plain({k: v[1:] for k, v in rec.items()},
+                                        f"{label} compact bounce 1")
+        checks.update(search_fused_vs_plain(rec, f"{label} compact"))
+        checks.update(cull_vs_plain(rec, f"{label} compact", (0, 1)))
+    del rec
+    names = {k.name: f"{k.name}_kernel" for k in fwd_k}
+    timing = forward_timing(render, names, 1, dev)
+    fwd_c, fwd_own = alternate_ms(
+        [lambda: render(SPP), lambda: render(SPP, compact=False)],
+        COMPACT_REPS)
+    prof_own = profile_device(lambda: render(1, compact=False), ())
+
+    bwd_names = tuple(k.name for k in bwd_k)
+    t = main_path_train(
+        f"{label} compact", scene, key, fwd_k + bwd_k,
+        tuple(k for k in watched if k not in fwd_k + bwd_k),
+        nonzero, {**names, **{n: f"{n}_kernel" for n in bwd_names}},
+        tuple(names), bwd_names, 1, dev, compact=True, per_kernel=runs,
+        splits=1)
+    params, static = partition(scene)
+
+    def step_own():
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        render_waves(combine(leaves, static), WIDTH, HEIGHT, key, 0, SPP,
+                     depth=DEPTH, chunk_size=CHUNK).mean().backward()
+        return {k: v.grad for k, v in leaves.items()}
+
+    g_own = step_own()
+    step_c, step_own_ms = alternate_ms([t["step"], step_own], COMPACT_REPS)
+    row_sums = None
+    if probe:
+        with RowSumCalls() as sums:
+            t["step"](1)
+            torch.cuda.synchronize()
+        row_sums = row_sums_vs_float64(sums.calls)
+        del sums
+    out = {"phase": f"compact_{label}", "card": smi,
+           "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
+           "route": route, "launches": launches, "plain_calls": n_plain,
+           "bounces_run": runs, "image_mean": float(img.mean()) / SPP,
+           "vs_own_route": vs_own, "wave_finite": bool(
+               torch.isfinite(wave).all()),
+           "live_rays_per_bounce": [b["n_alive"] for b in stats],
+           "lanes_per_bounce": [b["lanes"] for b in stats],
+           "sync_ms_per_bounce": [b["sync_ms"] for b in stats],
+           "lanes_per_launch": lanes, "kernels_vs_plain": checks,
+           **timing["fields"],
+           "fwd_ms_compact": fwd_c, "fwd_ms_own_route": fwd_own,
+           "fwd_mrays_per_s_compact": rate_fields("x", fwd_c)["mrays"],
+           "fwd_mrays_per_s_own_route": rate_fields("x", fwd_own)["mrays"],
+           "busy_share_own_route_wave": prof_own["busy_share"],
+           "train": t["fields"], "step_ms_compact": step_c,
+           "step_ms_own_route": step_own_ms,
+           "step_mrays_per_s_compact": rate_fields("x", step_c)["mrays"],
+           "step_mrays_per_s_own_route": rate_fields("x",
+                                                     step_own_ms)["mrays"],
+           "grad_rel_l2_vs_own_route": {
+               k: rel_l2_of(v, g_own[k]) for k, v in t["grads"].items()
+               if g_own.get(k) is not None and bool(g_own[k].any())},
+           "row_sums_vs_float64": row_sums}
+    if probe:
+        occ = occupancy_probe(scene, WIDTH, HEIGHT, key, DEPTH, CHUNK)
+        total = -(-WIDTH * HEIGHT // CHUNK) * CHUNK
+        counts = np.rint(occ.occupancy * total).astype(int).tolist()
+        if counts[:len(stats)] != [b["n_alive"] for b in stats]:
+            raise AssertionError(f"{label}: occupancy_probe {counts} vs the "
+                                 f"compact wave's live rays {stats}")
+        out["occupancy_probe"] = {
+            "occupancy": occ.occupancy.tolist(),
+            "depth_histogram": occ.depth_histogram.tolist(),
+            "wall_s": occ.wall_s, "equals_compact_live_rays": True}
+    emit(out)
+    return {"launches": t["launches"], "forward_launches": launches,
+            "label": label}
+
+
+def compact_cli(smi, paths) -> dict:
+    """The CLI's ``--compact`` on the card at 128x72, 2 spp: ``auto`` (the
+    default) on random (a trace-kernel scene: off, kernel A) and on
+    final_scene (probed), the decision printed and the kernels launched
+    accordingly; ``--compact on --devices 1`` on the single-light glTF
+    flagship (``paths["f1"]``: K, M, F, no A); then final_scene's auto run
+    again in a new process with ``--cache-dir`` at a copy of this run's
+    build directory: the same PNG, no library rebuilt (the copy's files
+    and times unchanged). Emits ``compact_cli``."""
+    watched = (COMPACT_FWD_ALL + COMPACT_BWD_ALL + COMPACT_OFF
+               + (bwd_reduce_kernel,))
+    out = {"phase": "compact_cli", "card": smi}
+    with tempfile.TemporaryDirectory() as td:
+        cases = (("random", ["--scene", "random"], [], "off"),
+                 ("final_scene", ["--scene", "final_scene"], [], "on"),
+                 ("flagship", ["-g", paths["f1"]],
+                  ["--compact", "on", "--devices", "1"], None))
+        for name, scene_args, extra, decision in cases:
+            buf = io.StringIO()
+            png = os.path.join(td, f"{name}.png")
+            with contextlib.redirect_stdout(buf):
+                for k in watched:
+                    k.launches = 0
+                rc = cli.main(["72", "2", *scene_args, "-o", png,
+                               "--device", "cuda", *extra])
+                launches = {k.name: k.launches for k in watched
+                            if k.launches}
+            text = buf.getvalue()
+            m = re.search(r"compact=auto -> (on|off)", text)
+            got = m.group(1) if m else None
+            if rc != 0 or "finite True" not in text or got != decision:
+                raise AssertionError(f"compact CLI on {name}: exit {rc}, "
+                                     f"decision {got}: {text}")
+            on = decision != "off"
+            a_ran = any(launches.get(k.name) for k in WHOLE_WAVE_KERNELS)
+            if a_ran == on or (on and not any(
+                    launches.get(k.name) for k in COMPACT_FWD_ALL)):
+                raise AssertionError(f"compact CLI on {name}: launches "
+                                     f"{launches}")
+            out[name] = {"decision": got or "on", "launches": launches,
+                         "stdout": text.strip().splitlines()[-1]}
+        cache = os.path.join(td, "kernels")
+        shutil.copytree(K.BUILD_DIR, cache)
+        before = {f: os.stat(os.path.join(cache, f)).st_mtime_ns
+                  for f in os.listdir(cache)}
+        env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", "")}
+        png = os.path.join(td, "final_cache.png")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "rust_ray_tracer_tpu_torch", "72", "2",
+             "--scene", "final_scene", "-o", png, "--device", "cuda",
+             "--cache-dir", cache], capture_output=True, text=True,
+            timeout=300, env=env, cwd=td)
+        seconds = time.perf_counter() - t0
+        after = {f: os.stat(os.path.join(cache, f)).st_mtime_ns
+                 for f in os.listdir(cache)}
+        if proc.returncode != 0 or after != before:
+            raise AssertionError(f"--cache-dir: exit {proc.returncode}, "
+                                 f"files {sorted(set(after) ^ set(before))}"
+                                 f": {proc.stderr[-2000:]}")
+        with open(png, "rb") as f, open(os.path.join(
+                td, "final_scene.png"), "rb") as g:
+            same = f.read() == g.read()
+        if not same:
+            raise AssertionError("--cache-dir: final_scene's PNG differs")
+        out["cache_dir"] = {"libraries": len(before), "rebuilt": 0,
+                            "png_equal": True, "process_seconds": seconds,
+                            "stdout": proc.stdout.strip().splitlines()[-1]}
+    emit(out)
+    return out
+
+
 def cli_phase(scene, height, spp, lo, hi) -> dict:
-    """The CLI on the card: a PNG written and a finite mean radiance in
-    [lo, hi]."""
+    """The CLI on the card through the per-chunk route (``--compact off``
+    named, so that the CLI's default cannot change what this phase
+    drives; ``compact_cli`` drives ``auto``): a PNG written and a finite
+    mean radiance in [lo, hi]."""
     os.makedirs("output", exist_ok=True)
     out_png = os.path.join("output", f"{scene}_torch.png")
     buf = io.StringIO()
@@ -4080,8 +4389,8 @@ def cli_phase(scene, height, spp, lo, hi) -> dict:
     with tempfile.TemporaryDirectory() as td, \
             contextlib.redirect_stdout(buf):
         rc = cli.main([str(height), str(spp), "--scene", scene, "-a", "1.0",
-                       "-o", out_png, "--device", "cuda", "--checkpoint",
-                       os.path.join(td, "c.ckpt")])
+                       "-o", out_png, "--device", "cuda", "--compact",
+                       "off", "--checkpoint", os.path.join(td, "c.ckpt")])
     line = buf.getvalue().strip()
     if rc != 0:
         raise AssertionError(f"CLI exited {rc}: {line}")
@@ -4277,6 +4586,26 @@ def main() -> int:
               **cli_gltf_phase(paths["f9"], 72, 4, CLI_GLTF_LO, CLI_GLTF_HI)})
     emit({"phase": "gltf_phases", "seconds": time.perf_counter() - t0})
 
+    # ---- 14. the compact wavefront (render_waves(compact=True), the CLI's
+    # default --compact auto): the flagship, random, final_scene and random
+    # with the earth map on the split route's kernels, each bounce on its
+    # live rays only; the CLI's --compact and --cache-dir
+    t0 = time.perf_counter()
+    compact = [
+        compact_phase("flagship", builders.procedural_flagship, dev, smi,
+                      probe=True),
+        compact_phase("random", lambda: builders.random_scene(WIDTH / HEIGHT),
+                      dev, smi, probe=True),
+        compact_phase("final_scene", lambda: builders.get_scene(
+            "final_scene", WIDTH / HEIGHT), dev, smi)]
+    with earth_map_dir():
+        compact.append(compact_phase(
+            "random_earth", lambda: builders.random_scene(WIDTH / HEIGHT),
+            dev, smi))
+    with gltf_dir() as paths:
+        compact_cli(smi, paths)
+    emit({"phase": "compact_phases", "seconds": time.perf_counter() - t0})
+
     # ---- result ----------------------------------------------------------
     rows = (kernel_rows(flag_fwd, flag_train, small, "plain")
             + kernel_rows(rand_fwd, rand_train, small, "noise")
@@ -4287,6 +4616,12 @@ def main() -> int:
             + shade_rows(gltf_fwd, gltf_tr)
             + fused_rows(d_checks, d_trains)
             + unfused_rows(u_checks, u_fwd, u_train))
+    # the compact route's launches a training step, by scene
+    for c in compact:
+        for r in rows:
+            if r["name"] in c["launches"] and c["launches"][r["name"]]:
+                r.setdefault("launches_compact", {})[c["label"]] = \
+                    c["launches"][r["name"]]
     # B' on the other cells' one-wave steps: the row sums and light sums
     for r in rows:
         if r["name"] == "bwd_reduce":

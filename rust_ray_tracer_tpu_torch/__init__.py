@@ -26,6 +26,6 @@ is passed, and raise when there is no card.
 """
 
 from rust_ray_tracer_tpu_torch.models.scene import SceneData, compile_scene
-from rust_ray_tracer_tpu_torch.ops.integrator import render_image
+from rust_ray_tracer_tpu_torch.ops.integrator import render_image, trace_rays
 
-__all__ = ["SceneData", "compile_scene", "render_image"]
+__all__ = ["SceneData", "compile_scene", "render_image", "trace_rays"]

@@ -195,6 +195,15 @@ def _library(name: str) -> Path:
 _BUILDS: dict[str, Build] = {}
 
 
+def set_build_dir(path) -> None:
+    """Build and load the libraries in the directory ``path`` from now on
+    (the CLI's ``--cache-dir``; default ``build/torch_kernels/`` beside
+    the package). A library already found there for these sources and
+    flags is loaded, not rebuilt; kernels already bound keep theirs."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).resolve()
+
+
 def build_all() -> dict[str, Build]:
     """Compile every library of :data:`LIBRARIES` that does not exist yet
     for these sources and flags, one ``nvcc`` each, all at once; raises if

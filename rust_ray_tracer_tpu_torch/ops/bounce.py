@@ -49,6 +49,8 @@ albedo, 15 fuzz, 16 ior, 17..19 L, 20..22 beta, 23..31 ub (9 uniforms),
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from rust_ray_tracer_tpu_torch.ops.bounce_core import (N_IN_B,
@@ -223,11 +225,28 @@ def shade_update_fused(st, hit, hit_planes, albedo, fuzz, ior, mkind, rnd_b,
 # F and F': the fused bounce of solid and checker scenes
 # ---------------------------------------------------------------------------
 
+MEGAKERNEL_FLAGS = ("RRT_NO_MEGAKERNEL", "RRT_NO_PALLAS_SHADE")
+
+
+def megakernels_off() -> str | None:
+    """The first of ``RRT_NO_MEGAKERNEL=1`` and ``RRT_NO_PALLAS_SHADE=1``
+    that is set, read at each call as JAX reads them
+    (``pallas_bounce.py:745-747, 811-813``), or None: under either the
+    split route's bounce runs neither F nor H, but J, ``texture_value``,
+    I and the torch update, and the trace kernel is off too
+    (``ops/uber.ineligible_reason``). (Under ``RRT_NO_PALLAS_SHADE=1`` JAX
+    also shades by XLA; the port's card shades by I, its counterpart.)"""
+    return next((f for f in MEGAKERNEL_FLAGS if os.environ.get(f, "") == "1"),
+                None)
+
+
 def su_eligible(scene) -> bool:
     """``pallas_bounce.su_eligible`` (``:740-749``): kernel H takes any
     texture set; the light table with the background row must fit its
-    backward's accumulator row (at most 8 lights)."""
-    return (scene.n_lights + 1) * LT_COLS <= 128
+    backward's accumulator row (at most 8 lights); off under
+    :func:`megakernels_off`."""
+    return (megakernels_off() is None
+            and (scene.n_lights + 1) * LT_COLS <= 128)
 
 
 def fused_eligible(scene) -> bool:

@@ -42,6 +42,11 @@ routes, chosen per scene as the JAX package chooses on the TPU:
     ``ops/shade.ShadeFused``). Phase 1 (K, M, L, N, O) is detached, as in
     JAX.
 
+With ``compact=True`` (:func:`trace_wave_compact`, JAX's ``:425-526``)
+every scene takes the split route's bounce, the trace kernel's too: each
+bounce runs on the wave's live rays only, packed to the front across all
+its chunks. :func:`auto_compact` is JAX's rule for when to ask for it.
+
 With ``RRT_UBER_WAVE=0`` the trace kernel's scenes take the per-chunk
 path instead (:func:`render_chunk` over the wave's chunks, TPU kernel D a
 bounce; ``integrator.py:568-570``), and with ``RRT_NO_UBER_FUSED=1`` too
@@ -58,10 +63,13 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 
+import numpy as np
 import torch
 
-from rust_ray_tracer_tpu_torch.models.scene import CLUSTER
+from rust_ray_tracer_tpu_torch.models.scene import (CLUSTER, MED_MESH,
+                                                    MED_POLY, MED_SPHERE)
 from rust_ray_tracer_tpu_torch.ops import camera as cam_ops
 from rust_ray_tracer_tpu_torch.ops import search as search_ops
 from rust_ray_tracer_tpu_torch.ops import sphere as sphere_ops
@@ -88,8 +96,7 @@ def split_reason(scene) -> str | None:
     shared memory (``kernels.shade_max_lights``, which asks the built
     library: 3,892, the light table beside I''s light-major stages); the
     plain versions on the CPU take any count, as the JAX package's XLA
-    route does. ``render_waves`` refuses the compact
-    wavefront (ROADMAP queue 1 item 14)."""
+    route does."""
     if scene.device.type != "cuda":
         return None
     from rust_ray_tracer_tpu_torch.kernels import shade_max_lights
@@ -270,6 +277,230 @@ def trace_rays(scene, o, d, time, keys, depth: int = MAX_DEPTH, prep=None):
     return L.permute(1, 2, 0)
 
 
+class _Permute(torch.autograd.Function):
+    """``x[:, idx]`` for a permutation ``idx`` [N] of the columns of ``x``
+    [R, N]; the backward gathers the cotangent's columns by ``inv``, the
+    inverse permutation, so neither pass adds into a column (indexing's
+    own backward would scatter-add)."""
+
+    @staticmethod
+    def forward(fctx, x, idx, inv):
+        fctx.save_for_backward(inv)
+        return x[:, idx]
+
+    @staticmethod
+    def backward(fctx, g):
+        inv, = fctx.saved_tensors
+        return g[:, inv], None, None
+
+
+def trace_wave_compact(scene, wkey, width: int, height: int,
+                       depth: int = MAX_DEPTH, chunk_size: int = 32768,
+                       chunk_ids=None, proc_chunk: int | None = None,
+                       prep=None, stats: list | None = None):
+    """One sample wave with cross-chunk alive compaction: the radiance
+    rows [len(chunk_ids) * chunk_size, 3] of the chunks ``chunk_ids``
+    (default: the whole wave) in chunk-major order, the pad tail
+    included. Counterpart of ``trace_wave_compact``
+    (``integrator.py:425-526``).
+
+    The bounces run wave-major on the split route
+    (:func:`bounce_split`, whatever the scene). Before each bounce the
+    rays are stably partitioned alive-first over all the chunks (pad lanes
+    past ``width * height`` ride along alive, as in JAX), the live count
+    is read on the host (the bounce's one synchronisation) and the bounce
+    runs on the leading ``ceil(n_alive / proc_chunk) * proc_chunk`` lanes
+    only, ``proc_chunk`` (default ``chunk_size``) rays a search chunk; the
+    dead tail passes through untouched, as JAX's ``lax.cond`` skips a dead
+    processing chunk. A bounce with no live ray ends the wave. Each ray's
+    randoms are gathered from its original (chunk, lane)
+    (``uber.chunk_randoms`` over the chunks' CHUNK-stream keys, JAX's
+    ``_wave_bounce_randoms``, ``:396``) and every per-lane step is
+    independent of the lane's position, so the image is the per-chunk
+    split route's and does not depend on ``proc_chunk``, which must
+    divide the padded ray count (ValueError otherwise). The permutations
+    are gathers both ways (:class:`_Permute`): the gradients are bitwise
+    repeatable and differ from the per-chunk route's by summation order
+    only.
+
+    ``prep``: :func:`make_split_tables`' tables (built here if None).
+    ``stats``: a list to which each bounce appends ``{"bounce",
+    "n_alive", "lanes", "sync_ms"}`` (its live rays, the lanes it ran and
+    the host's milliseconds blocked reading the live count)."""
+    n = width * height
+    dev = wkey.device
+    if chunk_ids is None:
+        chunk_ids = torch.arange(-(-n // chunk_size), device=dev)
+    chunk_ids = torch.as_tensor(chunk_ids, dtype=torch.int64,
+                                device=dev).reshape(-1)
+    n_pad = chunk_ids.shape[0] * chunk_size
+    pc = proc_chunk or chunk_size
+    if n_pad % pc:
+        raise ValueError(f"proc_chunk {pc} must divide the wave's padded "
+                         f"ray count {n_pad}")
+    if prep is None:
+        prep = make_split_tables(scene)
+    o, d, t, ckey = cam_ops.camera_rays_for_chunks(
+        scene.camera, wkey, chunk_ids, chunk_size, width, height)
+    st = uber.chunk_state(o, d, t)[:, :, :chunk_size].reshape(
+        uber.N_STATE, n_pad)
+    rnd = uber.chunk_randoms(scene, rngu.stream(ckey, rngu.CHUNK),
+                             chunk_size, depth)
+    lane = torch.arange(n_pad, device=dev)
+    rid = lane                       # each lane's ray: its original lane
+    for b in range(depth):
+        alive = st[7] > 0.5
+        t0 = time.perf_counter()
+        n_alive = int(alive.sum())
+        lanes = min(n_pad, -(-n_alive // pc) * pc)
+        if stats is not None:
+            stats.append({"bounce": b, "n_alive": n_alive, "lanes": lanes,
+                          "sync_ms": (time.perf_counter() - t0) * 1e3})
+        if not n_alive:
+            break
+        if n_alive < n_pad:
+            # the stable alive-first partition: perm gathers, dest (each
+            # lane's new place) is its inverse
+            perm = torch.sort(~alive, stable=True).indices
+            live = torch.cumsum(alive, 0)
+            dest = torch.where(alive, live - 1, n_alive + lane - live)
+            st = _Permute.apply(st, perm, dest)
+            rid = rid[perm]
+        head = bounce_split(scene, st[:, :lanes], rnd[b][:, rid[:lanes]],
+                            prep, pc)
+        st = head if lanes == n_pad else torch.cat([head, st[:, lanes:]],
+                                                   dim=1)
+    # back to chunk-major order: a gather by the inverse of rid
+    out = _Permute.apply(st[8:11], torch.argsort(rid), rid)
+    return out.T
+
+
+def auto_compact(scene, threshold: float = 0.3) -> bool:
+    """Should a render of ``scene`` take the compact wavefront? JAX's
+    host-side rule (``integrator.auto_compact``, ``:135-300``) in numpy:
+    yes when at least ``threshold`` of a 32x18 grid of pixel-centre
+    primaries hit something (spheres, quads, medium boundaries,
+    triangles: exact tests up to 65,536 triangles, the cluster boxes
+    beyond), since a hit usually survives its bounce and a miss dies. On
+    the card, a scene the trace kernel takes (``uber.uber_eligible``,
+    which reads the route flags) gets False without the probe, as JAX's
+    accelerator branch gives it. Reads the scene's values on the host;
+    callers resolve it once and pass a bool down (``utils/cli.py``'s
+    ``--compact auto``). The threshold is JAX's, measured on its TPU
+    (PERF.md has the H100's times)."""
+    if scene.device.type == "cuda" and uber.uber_eligible(scene):
+        return False
+
+    def f64(x):
+        return x.detach().cpu().numpy().astype(np.float64)
+
+    cam = scene.camera
+    c2w = f64(cam.c2w)                             # [3, 4] (R | t)
+    scale = float(cam.scale)
+    aspect = float(cam.aspect)
+    eye = c2w[:, 3]
+    gw, gh = 32, 18
+    fx = (2.0 * (np.arange(gw) + 0.5) / gw - 1.0) * scale * aspect
+    fy = (2.0 * (np.arange(gh) + 0.5) / gh - 1.0) * scale
+    px, py = np.meshgrid(fx, fy)
+    pc = np.stack([px.ravel(), py.ravel(), -np.ones(gw * gh)], 1)
+    d = pc @ c2w[:, :3].T                          # unnormalized dirs
+    o = np.broadcast_to(eye, d.shape)
+    hit = np.zeros(d.shape[0], bool)
+    tmin = 1e-4
+
+    def sphere_hit(c, r):
+        oc = o - c
+        a = (d * d).sum(1)
+        b = (oc * d).sum(1)
+        cc = (oc * oc).sum(1) - r * r
+        disc = b * b - a * cc
+        ok = disc > 0
+        sq = np.sqrt(np.maximum(disc, 0.0))
+        return ok & (((-b - sq) / a >= tmin) | ((-b + sq) / a >= tmin))
+
+    def box_hit(lo, hi):                           # [K, 3] boxes -> [R, K]
+        inv = 1.0 / np.where(np.abs(d) < 1e-12, 1e-12, d)
+        t0 = (lo[None] - o[:, None]) * inv[:, None]
+        t1 = (hi[None] - o[:, None]) * inv[:, None]
+        tn = np.minimum(t0, t1).max(2)
+        tf = np.maximum(t0, t1).min(2)
+        return (tf >= np.maximum(tn, tmin)) & (tf >= tmin)
+
+    if scene.n_spheres:
+        c0, r = f64(scene.sph_c0), f64(scene.sph_r)
+        for i in np.nonzero(r > 0)[0]:
+            hit |= sphere_hit(c0[i], r[i])
+    if scene.n_media:
+        mc, mr = f64(scene.med_c), f64(scene.med_r)
+        kinds = scene.med_kind.cpu().numpy()
+        for i in np.nonzero((kinds == MED_SPHERE) & (mr > 0))[0]:
+            hit |= sphere_hit(mc[i], mr[i])
+        if scene.med_pl_n.shape[1]:
+            # convex-polytope boundaries: _med_t's half-space interval
+            pn, pd = f64(scene.med_pl_n), f64(scene.med_pl_d)
+            for i in np.nonzero(kinds == MED_POLY)[0]:
+                den = d @ pn[i].T                          # [R, P]
+                num = pd[i][None] - o @ pn[i].T
+                par = np.abs(den) < 1e-12
+                par_ok = (~par | (num >= 0)).all(1)
+                to = num / np.where(par, 1.0, den)
+                t1 = np.where(~par & (den < 0), to, -np.inf).max(1)
+                t2 = np.where(~par & (den > 0), to, np.inf).min(1)
+                hit |= par_ok & (t1 < t2) & np.isfinite(t2) & (t2 >= tmin)
+        if scene.med_tri.shape[1]:
+            # triangle-mesh boundaries: the box of the real triangles
+            for i in np.nonzero(kinds == MED_MESH)[0]:
+                mt = f64(scene.med_tri[i])                 # [Tm, 10]
+                real = (np.abs(mt[:, 3:6]).sum(1)
+                        + np.abs(mt[:, 6:9]).sum(1)) > 0
+                if not real.any():
+                    continue
+                corners = np.concatenate(
+                    [mt[real, 0:3], mt[real, 0:3] + mt[real, 3:6],
+                     mt[real, 0:3] + mt[real, 6:9]])
+                hit |= box_hit(corners.min(0)[None],
+                               corners.max(0)[None])[:, 0]
+    if scene.n_quads:
+        q, u, v = f64(scene.quad_q), f64(scene.quad_u), f64(scene.quad_v)
+        nq = np.cross(u, v)                            # [Q, 3]
+        denom = d @ nq.T                               # [R, Q]
+        dsafe = np.where(np.abs(denom) < 1e-12, 1e-12, denom)
+        t = ((q[None] - o[:, None]) * nq[None]).sum(2) / dsafe
+        w = o[:, None] + t[..., None] * d[:, None] - q[None]
+        n2 = np.maximum((nq * nq).sum(1), 1e-12)
+        alpha = (np.cross(w, v[None]) * nq[None]).sum(2) / n2
+        beta = (np.cross(u[None], w) * nq[None]).sum(2) / n2
+        ok = ((np.abs(denom) > 1e-12) & (t >= tmin)
+              & (alpha >= 0) & (alpha <= 1) & (beta >= 0) & (beta <= 1))
+        hit |= ok.any(1)
+    if scene.n_tris:
+        if scene.n_tris <= 65536:
+            v0, e1, e2 = (f64(scene.tri_v0), f64(scene.tri_e1),
+                          f64(scene.tri_e2))
+            real = (np.abs(e1).sum(1) + np.abs(e2).sum(1)) > 0
+            v0, e1, e2 = v0[real], e1[real], e2[real]
+            for s in range(0, v0.shape[0], 1024):
+                vv, ee1, ee2 = v0[s:s + 1024], e1[s:s + 1024], e2[s:s + 1024]
+                p = np.cross(d[:, None], ee2[None])        # [R, B, 3]
+                det = (ee1[None] * p).sum(2)
+                inv = 1.0 / np.where(np.abs(det) < 1e-12, 1e-12, det)
+                tv = o[:, None] - vv[None]
+                uu = (tv * p).sum(2) * inv
+                qv = np.cross(tv, ee1[None])
+                vv_ = (d[:, None] * qv).sum(2) * inv
+                tt = (ee2[None] * qv).sum(2) * inv
+                ok = ((np.abs(det) > 1e-12) & (uu >= 0) & (uu <= 1)
+                      & (vv_ >= 0) & (uu + vv_ <= 1) & (tt >= tmin))
+                hit |= ok.any(1)
+        else:
+            lo = f64(scene.tri_cluster_min)
+            hi = f64(scene.tri_cluster_max)
+            ok = (lo <= hi).all(1)
+            hit |= box_hit(lo[ok], hi[ok]).any(1)
+    return float(hit.mean()) >= threshold
+
+
 def render_chunk(scene, wkey, chunk_ids, chunk_size: int, width: int,
                  height: int, depth: int = MAX_DEPTH, prep=None):
     """Radiance [len(chunk_ids), chunk_size, 3] of the global pixel
@@ -289,26 +520,32 @@ def render_chunk(scene, wkey, chunk_ids, chunk_size: int, width: int,
 
 def render_waves(scene, width: int, height: int, key, wave_start: int,
                  n_waves: int, depth: int = MAX_DEPTH,
-                 chunk_size: int = 32768, acc0=None, compact: bool = False):
+                 chunk_size: int = 32768, acc0=None, compact: bool = False,
+                 proc_chunk: int | None = None):
     """Sum of ``n_waves`` one-sample-per-pixel radiance images added onto
     ``acc0`` (zeros if None), [H, W, 3] on the scene's device.
 
     Wave w uses ``fold_in(key, w)``, and the waves are added in the order
     ``(((acc0 + w0) + w1) + ...)``, so continuing from a partial sum with
-    ``wave_start=k`` reproduces the monolithic sum bitwise. Raises
-    NotImplementedError for a scene neither route can render.
+    ``wave_start=k`` reproduces the monolithic sum bitwise. ``compact``
+    runs each wave through :func:`trace_wave_compact` (``proc_chunk`` its
+    processing chunk), bypassing the trace kernel as JAX does: the same
+    image. Raises NotImplementedError for a scene neither route can
+    render.
     """
-    if compact:
-        raise NotImplementedError(
-            "compact wavefront not ported yet (ROADMAP queue 1 item 14)")
     n = width * height
     key = key.to(scene.device)
-    prep = trace_prep(scene)
+    prep = make_split_tables(scene) if compact else trace_prep(scene)
+    if compact:
+        def wave_rows(wkey):
+            return trace_wave_compact(scene, wkey, width, height, depth,
+                                      chunk_size, proc_chunk=proc_chunk,
+                                      prep=prep)
     # RRT_UBER_WAVE=0 renders the trace kernel's scenes chunk by chunk
     # through render_chunk, as JAX does (integrator.py:568-570); like JAX,
     # RRT_NO_UBER_FUSED=1 alone leaves them on the whole-wave kernel A
     # (a reference defect, ADVICE.md:4, mirrored)
-    if isinstance(prep, uber.TraceCtx) and os.environ.get(
+    elif isinstance(prep, uber.TraceCtx) and os.environ.get(
             "RRT_UBER_WAVE", "") != "0":
         def wave_rows(wkey):
             return uber.trace_wave_uber(scene, wkey, width, height, depth,

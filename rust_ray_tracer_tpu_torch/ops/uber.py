@@ -65,7 +65,8 @@ from rust_ray_tracer_tpu_torch.ops import gather
 from rust_ray_tracer_tpu_torch.ops import search as search_ops
 from rust_ray_tracer_tpu_torch.ops.bounce import (LIVE_TILE,
                                                   BouncePlanesLive,
-                                                  light_table, live_tiles)
+                                                  light_table, live_tiles,
+                                                  megakernels_off)
 from rust_ray_tracer_tpu_torch.ops.bounce_core import (
     bounce_plane_core, bounce_plane_core_vjp)
 from rust_ray_tracer_tpu_torch.ops.intersect import (
@@ -91,7 +92,14 @@ def ineligible_reason(scene) -> str | None:
     """Why the trace kernel (TPU kernel A) cannot render ``scene``, or
     None when it can: the predicate of ``pallas_uber.py:1234-1267``.
     Where such a scene goes instead is ``ops/integrator``'s choice
-    (``split_reason``)."""
+    (``split_reason``). The route flags are read at each call, as JAX
+    reads them: ``RRT_NO_UBER=1``, ``RRT_NO_MEGAKERNEL=1`` and
+    ``RRT_NO_PALLAS_SHADE=1`` send every scene off the trace kernel,
+    ``RRT_UBER_NOISE=0`` the noise scenes."""
+    flag = ("RRT_NO_UBER" if os.environ.get("RRT_NO_UBER", "") == "1"
+            else megakernels_off())
+    if flag:
+        return f"{flag}=1: the trace kernel is switched off"
     if scene.n_media:
         return "media: the trace kernel has no free flight"
     if scene.img_data.shape[0]:
@@ -99,6 +107,9 @@ def ineligible_reason(scene) -> str | None:
     if (scene.n_lights + 1) * LT_COLS > LANES:
         return (f"{scene.n_lights} lights exceed the trace kernel's light "
                 "table")
+    if scene.perlin_vec.shape[0] and os.environ.get("RRT_UBER_NOISE",
+                                                   "1") == "0":
+        return "noise textures under RRT_UBER_NOISE=0"
     if scene.perlin_vec.shape[0] and scene.tex_even.shape[0]:
         return ("noise textures beside checker textures: the trace "
                 "kernel's marble does not evaluate a checker's leaves")

@@ -8,8 +8,13 @@ The counterpart of ``__graft_entry__.dryrun_multichip``: on the mesh of
 ``--num-processes`` ranks it renders ``--scene`` sharded (no gradient),
 then takes one training step — the scene gradients of ``mean(image)``
 through the sharded render, all-reduced over the ranks — and one SGD step
-on them, whose loss it renders again. Rank r saves (``torch.save``) its
-image, loss, gradients and loss after the step to ``--out`` with ``.pt``
+on them, whose loss it renders again. With ``--also-compact`` it then does
+all of that a second time, in the same process, through the compact
+wavefront, shard-local, as ``dryrun_multichip`` trains
+(``render_waves_sharded(..., compact=True)``): one launch holds both
+routes against a one-process render.
+Rank r saves (``torch.save``) its image, loss, gradients and loss after
+the step (the compact run's under ``"compact"``) to ``--out`` with ``.pt``
 replaced by ``.<r>.pt``, for a caller to hold against a one-process
 render and the other ranks.
 """
@@ -30,9 +35,10 @@ def _scene(name: str, aspect: float, device):
 
 
 def run(mesh, scene_name="flagship", width=32, height=24, spp=2, depth=4,
-        chunk_size=64, lr=1e-2) -> dict:
+        chunk_size=64, lr=1e-2, compact=False) -> dict:
     """The dry run on ``mesh``: the sharded image, and one step's loss,
-    gradients and loss after an SGD step, as host tensors."""
+    gradients and loss after an SGD step, as host tensors; ``compact``
+    renders through the compact wavefront."""
     from rust_ray_tracer_tpu_torch.models.scene import combine, partition
     from rust_ray_tracer_tpu_torch.parallel.render import (
         render_waves_sharded)
@@ -42,19 +48,20 @@ def run(mesh, scene_name="flagship", width=32, height=24, spp=2, depth=4,
     key = rng.key(0, mesh.device)
     with torch.no_grad():
         img = render_waves_sharded(scene, width, height, key, 0, spp, mesh,
-                                   depth, chunk_size)
+                                   depth, chunk_size, compact=compact)
     params, static = partition(scene)
     leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
     loss = render_waves_sharded(combine(leaves, static), width, height, key,
-                                0, spp, mesh, depth, chunk_size).mean()
+                                0, spp, mesh, depth, chunk_size,
+                                compact=compact).mean()
     loss.backward()
     grads = {k: v.grad for k, v in leaves.items() if v.grad is not None}
     with torch.no_grad():
         stepped = {k: v - lr * v.grad if v.grad is not None else v
                    for k, v in leaves.items()}
         loss2 = render_waves_sharded(combine(stepped, static), width, height,
-                                     key, 0, spp, mesh, depth,
-                                     chunk_size).mean()
+                                     key, 0, spp, mesh, depth, chunk_size,
+                                     compact=compact).mean()
     return {"image": img.cpu(), "loss": loss.detach().cpu(),
             "grads": {k: v.cpu() for k, v in grads.items()},
             "loss_after_step": loss2.cpu(), "rank": mesh.rank,
@@ -75,6 +82,9 @@ def main(argv=None) -> int:
     p.add_argument("--spp", type=int, default=2)
     p.add_argument("--depth", type=int, default=4)
     p.add_argument("--chunk-size", type=int, default=64)
+    p.add_argument("--also-compact", action="store_true",
+                   help="after the per-chunk dry run, run it again through "
+                   "the compact wavefront (saved under 'compact')")
     p.add_argument("--out", required=True)
     args = p.parse_args(argv)
 
@@ -86,8 +96,13 @@ def main(argv=None) -> int:
         mesh = make_mesh(n_devices=args.num_processes, device=args.device)
         out = run(mesh, args.scene, args.width, args.height, args.spp,
                   args.depth, args.chunk_size)
-        if not bool(torch.isfinite(out["loss_after_step"])):
-            raise AssertionError("non-finite loss after the SGD step")
+        if args.also_compact:
+            out["compact"] = run(mesh, args.scene, args.width, args.height,
+                                 args.spp, args.depth, args.chunk_size,
+                                 compact=True)
+        for r in (out, out.get("compact", out)):
+            if not bool(torch.isfinite(r["loss_after_step"])):
+                raise AssertionError("non-finite loss after the SGD step")
         path = args.out[:-3] if args.out.endswith(".pt") else args.out
         torch.save(out, f"{path}.{mesh.rank}.pt")
     finally:

@@ -9,7 +9,9 @@ Counterpart of ``rust_ray_tracer_tpu/parallel/render.py``:
     renderer's, bit for bit;
   * each rank passes all its chunk ids of a wave to one ``render_chunk``
     call, so on the trace kernel's scenes TPU kernel D launches once a
-    bounce a wave on each rank, not once a chunk;
+    bounce a wave on each rank, not once a chunk; with ``compact`` to one
+    ``trace_wave_compact`` call, which compacts the rank's own rays only
+    (shard-local, JAX ``:58-71``: no rays cross ranks);
   * the ranks' slices are all-gathered in rank order and the round-robin
     interleave undone (JAX ``:113-119``): every rank holds the whole image;
   * under autograd the scene's float leaves pass through an identity whose
@@ -32,8 +34,10 @@ import torch.distributed as dist
 from rust_ray_tracer_tpu_torch.models.scene import combine, partition
 from rust_ray_tracer_tpu_torch.ops import camera as cam_ops
 from rust_ray_tracer_tpu_torch.ops.integrator import (MAX_DEPTH,
+                                                      make_split_tables,
                                                       render_chunk,
-                                                      trace_prep)
+                                                      trace_prep,
+                                                      trace_wave_compact)
 from rust_ray_tracer_tpu_torch.parallel.mesh import RayMesh
 from rust_ray_tracer_tpu_torch.utils import rng as rngu
 
@@ -123,10 +127,9 @@ def render_waves_sharded(scene, width: int, height: int, key,
     ``acc0`` in the sequential renderer's order, so resuming from a
     partial sum is bitwise. ``scene`` lives on ``mesh.device``
     (:func:`replicate_scene`); its gradients are summed over the ranks.
-    ``compact=True`` raises (ROADMAP queue 1 item 14)."""
-    if compact:
-        raise NotImplementedError(
-            "compact wavefront not ported yet (ROADMAP queue 1 item 14)")
+    ``compact=True`` runs each rank's chunks through
+    ``trace_wave_compact``, processing chunk ``chunk_size``: the
+    one-process image."""
     n = width * height
     size = mesh.size
     n_chunks = -(-n // chunk_size)
@@ -135,12 +138,17 @@ def render_waves_sharded(scene, width: int, height: int, key,
     dev = scene.device
     key = key.to(dev)
     scene = _reduced_scene(scene, mesh)
-    prep = trace_prep(scene)
+    prep = make_split_tables(scene) if compact else trace_prep(scene)
     ids = torch.arange(cpd, device=dev) * size + mesh.rank
 
     def one_wave(wave):
-        rows = render_chunk(scene, rngu.wave_key(key, wave), ids,
-                            chunk_size, width, height, depth, prep)
+        wkey = rngu.wave_key(key, wave)
+        if compact:
+            rows = trace_wave_compact(scene, wkey, width, height, depth,
+                                      chunk_size, ids, None, prep)
+        else:
+            rows = render_chunk(scene, wkey, ids, chunk_size, width, height,
+                                depth, prep)
         flat = _GatherRows.apply(rows.reshape(cpd * chunk_size, 3), mesh)
         # undo the round-robin interleave: rank r's local chunk i is the
         # global chunk i * size + r

@@ -20,8 +20,14 @@ shards the rays over them (``parallel.render_waves_sharded``: TPU kernel
 D on the trace kernel's scenes); ``--coordinator host:port
 --num-processes N --process-id R`` joins such a run by hand, one process
 per host or card, and ``torchrun`` sets the same through the environment.
-Rank 0 writes the PNG. ``--compact`` is not ported yet and exits with a
-message saying so.
+Rank 0 writes the PNG. ``--compact {auto,on,off}`` (bare ``--compact``:
+``on``) renders through the compact wavefront
+(``ops/integrator.trace_wave_compact``, shard-local under ``--devices``);
+``auto``, the default, asks ``ops/integrator.auto_compact`` and prints its
+answer, as JAX's CLI does. ``--cache-dir DIR`` builds and loads the kernel
+libraries in DIR (``kernels.set_build_dir``; default
+``build/torch_kernels/``), JAX's flag of that name being its compile
+cache.
 
     python -m rust_ray_tracer_tpu_torch 256 16 --scene cornell_box -a 1.0 \\
         -o cornell.png --device cuda
@@ -82,9 +88,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multi-process rendezvous address (host:port)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
-    # not yet ported: accepted so the message can say so
-    p.add_argument("--compact", nargs="?", const="on", default=None,
-                   help=argparse.SUPPRESS)
+    p.add_argument("--compact", choices=("auto", "on", "off"),
+                   nargs="?", const="on", default="auto",
+                   help="bounce-major cross-chunk alive compaction: 'auto' "
+                        "(default) takes it when most of the frame hits "
+                        "the scene and the trace kernel does not take it "
+                        "on the card (ops/integrator.auto_compact); "
+                        "shard-local under --devices")
+    p.add_argument("--cache-dir", default=None,
+                   help="directory the kernel libraries are built in and "
+                        "loaded from (default: build/torch_kernels/)")
     return p
 
 
@@ -119,13 +132,12 @@ def _spawn(argv, n: int, device: str) -> int:
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
-    if args.compact is not None:
-        print("error: --compact is not yet ported to "
-              "rust_ray_tracer_tpu_torch (ROADMAP queue 1 item 14)",
-              file=sys.stderr)
-        return 2
 
     import torch
+
+    if args.cache_dir:
+        from rust_ray_tracer_tpu_torch import kernels
+        kernels.set_build_dir(args.cache_dir)
 
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda but no CUDA GPU is available "
@@ -172,6 +184,7 @@ def _render(args, mesh) -> int:
     from rust_ray_tracer_tpu_torch.models import builders
     from rust_ray_tracer_tpu_torch.models.gltf import load_gltf_scene
     from rust_ray_tracer_tpu_torch.models.scene import compile_scene
+    from rust_ray_tracer_tpu_torch.ops.integrator import auto_compact
     from rust_ray_tracer_tpu_torch.ops.tonemap import tonemap_mean
     from rust_ray_tracer_tpu_torch.parallel.checkpoint import (
         render_with_checkpoints)
@@ -191,6 +204,13 @@ def _render(args, mesh) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     scene = compile_scene(host_scene, seed=0, device=device)
+    if args.compact == "auto":
+        compact = auto_compact(scene)
+        if mesh.rank == 0:
+            print(f"  compact=auto -> {'on' if compact else 'off'}",
+                  flush=True)
+    else:
+        compact = args.compact == "on"
     ckpt = args.checkpoint or (args.output + ".ckpt")
     t0 = time.perf_counter()
 
@@ -206,7 +226,8 @@ def _render(args, mesh) -> int:
             scene, width, height, spp, args.seed, ckpt,
             ckpt_every=args.ckpt_every, depth=args.depth,
             chunk_size=args.chunk_size,
-            mesh=mesh if mesh.size > 1 else None, progress=progress)
+            mesh=mesh if mesh.size > 1 else None, compact=compact,
+            progress=progress)
     except (ValueError, NotImplementedError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -77,12 +77,15 @@ def two_rank_run(tmp_path_factory):
                 "--device", "cpu", "--scene", DRY["scene_name"],
                 "--width", str(DRY["width"]), "--height",
                 str(DRY["height"]), "--spp", str(DRY["spp"]),
-                "--chunk-size", str(DRY["chunk_size"]), "--out", str(out)])
+                "--chunk-size", str(DRY["chunk_size"]), "--also-compact",
+                "--out", str(out)])
     ranks = [torch.load(out.with_name(f"rank.{r}.pt")) for r in (0, 1)]
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
         one = dryrun.run(make_mesh(device="cpu"), **DRY)
+        one["compact"] = dryrun.run(make_mesh(device="cpu"), **DRY,
+                                    compact=True)
     finally:
         torch.set_num_threads(threads)
     return ranks, one
@@ -132,6 +135,42 @@ def test_two_ranks_sgd_step(two_rank_run):
     np.testing.assert_allclose(float(r0["loss_after_step"]),
                                float(one["loss_after_step"]), rtol=1e-5)
     assert float(r0["loss_after_step"]) != float(r0["loss"])
+
+
+def test_two_ranks_compact_image_equals_one_process_bitwise(two_rank_run):
+    """The dry run through the compact wavefront (``--also-compact``, in the
+    same two processes): each rank compacts its own chunks only, and its
+    whole image equals the one-process compact render bit for bit, which
+    equals the per-chunk image."""
+    (r0, r1), one = two_rank_run
+    for r in (r0, r1):
+        np.testing.assert_array_equal(r["compact"]["image"].numpy(),
+                                      one["compact"]["image"].numpy())
+    np.testing.assert_array_equal(one["compact"]["image"].numpy(),
+                                  one["image"].numpy())
+
+
+def test_two_ranks_compact_gradients_and_step(two_rank_run):
+    """The compact training step's all-reduced gradients: the same bits on
+    both ranks, each leaf within float32 summation order of the
+    one-process compact step's (rtol 1e-5 of its largest entry / atol
+    1e-7, as the per-chunk step's), and a finite SGD step equal on both
+    ranks."""
+    (r0, r1), one = two_rank_run
+    c0, c1, ref = r0["compact"], r1["compact"], one["compact"]
+    assert c0["grads"].keys() == c1["grads"].keys() == ref["grads"].keys()
+    nonzero = 0
+    for k, g in ref["grads"].items():
+        assert torch.equal(c0["grads"][k], c1["grads"][k]), k
+        scale = np.abs(g.numpy()).max(initial=0.0)
+        np.testing.assert_allclose(c0["grads"][k].numpy(), g.numpy(),
+                                   rtol=0, atol=1e-7 + 1e-5 * scale,
+                                   err_msg=k)
+        nonzero += bool(scale > 0)
+    assert nonzero >= 3
+    assert c0["loss"] == c1["loss"] == ref["loss"]
+    assert c0["loss_after_step"] == c1["loss_after_step"]
+    assert bool(torch.isfinite(c0["loss_after_step"]))
 
 
 def _cornell():
@@ -233,6 +272,3 @@ def test_make_mesh_and_multihost_init_validation():
         multihost_init(num_processes=2, device="cpu")
     with pytest.raises(ValueError, match="outside"):
         multihost_init("127.0.0.1:1", 2, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        render_waves_sharded(_cornell(), 8, 8, rng.key(0, "cpu"), 0, 1,
-                             mesh, compact=True)

@@ -106,12 +106,6 @@ def test_render_is_bitwise_reproducible_and_resumable():
     assert torch.equal(img, a / 3)
 
 
-def test_compact_not_ported():
-    ts = compile_scene(tb.cornell_box(1.0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        render_waves(ts, 8, 8, rng.key(0, "cpu"), 0, 1, compact=True)
-
-
 def test_tonemap_and_png_match_jax():
     x = np.random.default_rng(0).uniform(-0.5, 3.0, (9, 7, 3)).astype(
         np.float32)
@@ -154,13 +148,6 @@ def test_cli_cuda_without_gpu_fails_clearly(tmp_path, capsys):
     assert rc != 0
     assert "no CUDA GPU" in capsys.readouterr().err
     assert not (tmp_path / "x.png").exists()
-
-
-@pytest.mark.parametrize("flag", [["--compact"]])
-def test_cli_unported_flags_exit_with_message(flag, capsys):
-    assert cli.main(["16", "1", *flag]) == 2
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and "item 14" in err
 
 
 _SMALL = ("24", "2", "--scene", "cornell_box", "-a", "1.0", "--device",
