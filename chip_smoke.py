@@ -69,8 +69,15 @@ the unfused bounce's (``RRT_NO_UBER_FUSED=1``: TPU kernels E, G and G'
 against their plain versions on the flagship's and a checker scene's
 full-size bounces, E's winners against D's; the flagship's forward and
 training step through ``render_waves`` with ``RRT_UBER_WAVE=0``; a
-one-rank ``render_waves_sharded`` and the CLI under the flag). Each phase
-prints one JSON line; any failure raises, so the exit code is non-zero.
+one-rank ``render_waves_sharded`` and the CLI under the flag). After the
+compact wavefront's phases, ``marble_trace`` holds the split route's
+marble (torch on CUDA), C (through ``kernels.marble_probe_kernel``) and
+J's hit point against A's on random's full-size bounces 0 and 1, and
+``parity_gate`` runs the port's parity gate
+(``rust_ray_tracer_tpu_torch/tools/verify_gpu_parity.py``: a scene
+matrix against the CPU twins and JAX's saved renders) green, then with
+its injected shade error red. Each phase prints one JSON line; any
+failure raises, so the exit code is non-zero.
 Then come
 the ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -4170,8 +4177,8 @@ def compact_phase(label, host_fn, dev, smi, probe=False) -> dict:
     shape: the split route's kernels (``COMPACT_ROUTES``) on every bounce
     that has a live ray, none of the others, no plain call; the image
     finite, the same bits twice, against the same scene's render on its
-    own route (the trace kernel A on the flagship and random) bitwise or
-    its differing pixels counted within FLIP_BUDGET (outside RTOL / ATOL);
+    own route (the trace kernel A on the flagship and random) bit for
+    bit;
     on one recorded wave each kernel against its plain version on the
     compacted inputs of bounces 0 and 1 (K, M, F, F', N) and of bounce 1
     (O, J, H, J', H'), and every launch covering the live prefix only
@@ -4217,6 +4224,13 @@ def compact_phase(label, host_fn, dev, smi, probe=False) -> dict:
                   pixels_differing=int((img != own).any(-1).sum()),
                   budget={"flip_frac": FLIP_BUDGET, "rtol": RTOL,
                           "atol": ATOL})
+    # every scene's compact image is its own route's bit for bit, random's
+    # since the split route's marble sums its corner dots in C's order
+    # (marble_trace)
+    if not vs_own["bitwise"]:
+        raise AssertionError(f"{label}: the compact image differs from its "
+                             f"own route's on {vs_own['pixels_differing']} "
+                             "pixels")
 
     with torch.no_grad(), split_recorder() as rec, CompactStats() as one:
         wave = render(1)
@@ -4304,11 +4318,173 @@ def compact_phase(label, host_fn, dev, smi, probe=False) -> dict:
             "label": label}
 
 
+def _differ(got, ref) -> dict:
+    """Lanes where two float tensors of the same shape differ (any entry
+    of a lane's last axis for 2-D tensors), and the largest |difference|."""
+    got, ref = got.detach().double().cpu(), ref.detach().double().cpu()
+    diff = (got - ref).abs()
+    lane = diff.reshape(diff.shape[0], -1).amax(1) if diff.dim() > 1 \
+        else diff
+    return {"differ": int((lane > 0).sum()), "max_abs": float(lane.max())
+            if lane.numel() else 0.0}
+
+
+def _noise_reduced(perlin_vec, px, py, pz, p):
+    """``ops/perlin.noise`` with its corner dot as torch's reduction
+    ``(grad * weight).sum(-1)``, the form it had: on CUDA that reduction
+    adds the three terms in another order than C's ``(a + b) + c``."""
+    pf = torch.floor(p)
+    uvw = p - pf
+    ijk = pf.to(torch.int32)
+    s = uvw * uvw * (3.0 - 2.0 * uvw)
+    perm = (px.long(), py.long(), pz.long())
+    h = [[perm[a][((ijk[..., a] + d) & 255).long()] for d in (0, 1)]
+         for a in range(3)]
+    acc = torch.zeros(p.shape[:-1], dtype=p.dtype, device=p.device)
+    for di in range(2):
+        for dj in range(2):
+            for dk in range(2):
+                g = perlin_vec[(h[0][di] ^ h[1][dj] ^ h[2][dk]).long()]
+                weight = uvw - torch.tensor([di, dj, dk], dtype=p.dtype,
+                                            device=p.device)
+                w = ((di * s[..., 0] + (1 - di) * (1 - s[..., 0]))
+                     * (dj * s[..., 1] + (1 - dj) * (1 - s[..., 1]))
+                     * (dk * s[..., 2] + (1 - dk) * (1 - s[..., 2])))
+                acc = acc + w * (g * weight).sum(-1)
+    return acc
+
+
+# marble_trace's pairs that must be equal bit for bit on every lane
+MARBLE_EQUAL = ("next_state_differ", "j_p_vs_d_origin",
+                "texture_value_cuda_vs_c", "plain_marble_cuda_vs_c",
+                "turb_acc_cuda_vs_c", "turb_cuda_vs_c_abs",
+                "turb_acc_cpu_vs_c")
+
+
+def marble_trace(dev, smi) -> dict:
+    """Random's compact image against A-noise's on the card (it differed
+    below RTOL / ATOL on ~5% of a full-size render's pixels while the two
+    are bitwise equal on the CPU), traced to its operation. Three places
+    could differ: the split route's marble (``ops/texture._leaf_value``
+    over ``perlin.turb``, torch ops on CUDA) against C
+    (``csrc/trace_common.cuh`` ``marble``, inside A-noise), ``torch.sin``
+    on CUDA against C's ``sinf``, and J's hit point against A's. On a
+    full-size wave's bounces 0 and 1 the split route's bounce
+    (``bounce_split``: N, J, ``texture_value``, H) and D-noise (A's body
+    launched for one bounce) take the same state and randoms. Per bounce:
+    the next states' lanes that differ, J's hit point against D's next
+    origin on the lanes both keep alive, and on the noise hits the marble
+    of ``texture_value`` and of ``perlin.marble`` (C's plain version) on
+    CUDA and on the CPU against C itself (the probe
+    ``kernels.marble_probe_kernel``), the signed octave sums, every octave
+    of ``perlin.noise`` against ``perlin._noise_row``, against itself on
+    the CPU and against its old corner dot (:func:`_noise_reduced`), and
+    ``torch.sin`` of the marble's argument on both devices. The pairs of
+    :data:`MARBLE_EQUAL` must be equal on every lane; the CPU's marble
+    differs from C's by the host's ``sinf``. Emits ``marble_trace``."""
+    from rust_ray_tracer_tpu_torch.ops import perlin, texture
+    t0 = time.perf_counter()
+    scene = compile_scene(builders.random_scene(WIDTH / HEIGHT), device=dev)
+    cpu = scene.to("cpu")
+    ctx = uber.make_ctx(scene)
+    tables = make_split_tables(scene)
+    tab_cpu = perlin.PerlinTables(ctx.perlin.vec.cpu(),
+                                  ctx.perlin.perm.cpu())
+    tabs = (scene.perlin_vec, scene.perlin_px, scene.perlin_py,
+            scene.perlin_pz)
+    tabs_cpu = (cpu.perlin_vec, cpu.perlin_px, cpu.perlin_py, cpu.perlin_pz)
+    st, rnd = uber.wave_inputs(scene, rng.wave_key(rng.key(0, dev), 0),
+                               WIDTH, HEIGHT, DEPTH, CHUNK)
+    d_kernel = K.fused_bounce_kernel(ctx)
+    rec = {}
+    real_tex = integrator.texture_value
+
+    def tex_hook(sc, tid, u, v, p):
+        out = real_tex(sc, tid, u, v, p)
+        rec["tex"] = (tid, u, v, p, out)
+        return out
+
+    out = {"phase": "marble_trace", "card": smi, "bounces": []}
+    launches0 = K.marble_probe_kernel.launches
+    for b in (0, 1):
+        rnd_b = rnd[b].contiguous()
+        integrator.texture_value = tex_hook
+        try:
+            with torch.no_grad():
+                st_split = integrator.bounce_split(scene, st, rnd_b, tables,
+                                                   CHUNK)
+        finally:
+            integrator.texture_value = real_tex
+        st_d, _, _ = d_kernel(st, rnd_b, ctx)
+        torch.cuda.synchronize()
+        both = (st_split[7] > 0.5) & (st_d[7] > 0.5)
+        tid, u, v, p, alb = rec["tex"]
+        noise = scene.tex_kind[tid] == S.TEX_NOISE
+        pn = p[noise].contiguous()
+        scale = scene.tex_scale[tid[noise]].contiguous()
+        pc = pn.cpu()
+        px, py, pz = pn[:, 0], pn[:, 1], pn[:, 2]
+        cx, cy, cz = pc[:, 0], pc[:, 1], pc[:, 2]
+        alb_cpu = texture.texture_value(cpu, tid.cpu(), u.cpu(), v.cpu(),
+                                        p.cpu())
+        probe_acc, probe = K.marble_probe_kernel(pn, scale, ctx.perlin)
+        turb_cuda = perlin.turb(*tabs, pn)
+        octaves = []
+        for o in range(perlin.OCTAVES):
+            q = pn * float(2 ** o)
+            n_cuda = perlin.noise(*tabs, q)
+            octaves.append({
+                "noise_vs_noise_row_cuda": _differ(n_cuda, perlin._noise_row(
+                    ctx.perlin, q[:, 0], q[:, 1], q[:, 2])),
+                "noise_cuda_vs_cpu": _differ(n_cuda,
+                                             perlin.noise(*tabs_cpu, q.cpu())),
+                "sum_reduce_vs_noise_cuda": _differ(
+                    _noise_reduced(*tabs, q), n_cuda)})
+        arg = scale * pz + 10.0 * turb_cuda
+        row = {
+            "bounce": b, "lanes": int(st.shape[1]),
+            "next_state_differ": _differ(st_split.T, st_d.T),
+            "alive_both": int(both.sum()),
+            "j_p_vs_d_origin": _differ(p[both], st_d[0:3].T[both]),
+            "noise_hits": int(noise.sum()),
+            "texture_value_cuda_vs_c": _differ(alb[noise, 0], probe),
+            "texture_value_cpu_vs_c": _differ(alb_cpu[noise.cpu(), 0],
+                                              probe),
+            "plain_marble_cuda_vs_c": _differ(perlin.marble(
+                ctx.perlin, px, py, pz, scale), probe),
+            "plain_marble_cpu_vs_c": _differ(perlin.marble(
+                tab_cpu, cx, cy, cz, scale.cpu()), probe),
+            "turb_acc_cuda_vs_c": _differ(perlin._turb_acc(
+                ctx.perlin, px, py, pz), probe_acc),
+            "turb_acc_cpu_vs_c": _differ(perlin._turb_acc(
+                tab_cpu, cx, cy, cz), probe_acc),
+            "turb_cuda_vs_c_abs": _differ(turb_cuda, probe_acc.abs()),
+            "sin_cuda_vs_cpu_same_arg": _differ(torch.sin(arg),
+                                                torch.sin(arg.cpu())),
+            "octaves": octaves}
+        out["bounces"].append(row)
+        bad = [k for k in MARBLE_EQUAL if row[k]["differ"]] + [
+            f"octave {i}" for i, o in enumerate(octaves)
+            if o["noise_vs_noise_row_cuda"]["differ"]
+            or o["noise_cuda_vs_cpu"]["differ"]]
+        if bad or not bool(torch.isfinite(probe).all()):
+            raise AssertionError(f"marble_trace bounce {b}: {bad}: {row}")
+        st = st_split
+    out["probe_launches"] = K.marble_probe_kernel.launches - launches0
+    if out["probe_launches"] != 2:
+        raise AssertionError(f"marble_trace: {out['probe_launches']} probe "
+                             "launches")
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
 def compact_cli(smi, paths) -> dict:
     """The CLI's ``--compact`` on the card at 128x72, 2 spp: ``auto`` (the
-    default) on random (a trace-kernel scene: off, kernel A) and on
-    final_scene (probed), the decision printed and the kernels launched
-    accordingly; ``--compact on --devices 1`` on the single-light glTF
+    default) off on random (kernel A) and on final_scene (its own split
+    route), as ``auto_compact`` answers on the card, the decision printed
+    and the kernels launched accordingly; ``--compact on --devices 1`` on
+    the single-light glTF
     flagship (``paths["f1"]``: K, M, F, no A); then final_scene's auto run
     again in a new process with ``--cache-dir`` at a copy of this run's
     build directory: the same PNG, no library rebuilt (the copy's files
@@ -4317,11 +4493,13 @@ def compact_cli(smi, paths) -> dict:
                + (bwd_reduce_kernel,))
     out = {"phase": "compact_cli", "card": smi}
     with tempfile.TemporaryDirectory() as td:
-        cases = (("random", ["--scene", "random"], [], "off"),
-                 ("final_scene", ["--scene", "final_scene"], [], "on"),
+        # (name, arguments, extra, the auto decision, a trace-kernel scene)
+        cases = (("random", ["--scene", "random"], [], "off", True),
+                 ("final_scene", ["--scene", "final_scene"], [], "off",
+                  False),
                  ("flagship", ["-g", paths["f1"]],
-                  ["--compact", "on", "--devices", "1"], None))
-        for name, scene_args, extra, decision in cases:
+                  ["--compact", "on", "--devices", "1"], None, True))
+        for name, scene_args, extra, decision, trace_scene in cases:
             buf = io.StringIO()
             png = os.path.join(td, f"{name}.png")
             with contextlib.redirect_stdout(buf):
@@ -4339,7 +4517,7 @@ def compact_cli(smi, paths) -> dict:
                                      f"decision {got}: {text}")
             on = decision != "off"
             a_ran = any(launches.get(k.name) for k in WHOLE_WAVE_KERNELS)
-            if a_ran == on or (on and not any(
+            if a_ran != (trace_scene and not on) or (on and not any(
                     launches.get(k.name) for k in COMPACT_FWD_ALL)):
                 raise AssertionError(f"compact CLI on {name}: launches "
                                      f"{launches}")
@@ -4373,6 +4551,70 @@ def compact_cli(smi, paths) -> dict:
         out["cache_dir"] = {"libraries": len(before), "rebuilt": 0,
                             "png_equal": True, "process_seconds": seconds,
                             "stdout": proc.stdout.strip().splitlines()[-1]}
+    emit(out)
+    return out
+
+
+GATE = "rust_ray_tracer_tpu_torch.tools.verify_gpu_parity"
+GATE_KEYS = ("bitwise", "maxabs", "flip_rate", "rel_mean", "bias",
+             "worst_leaf", "worst_rel_l2", "seconds", "error")
+
+
+def parity_gate(smi) -> dict:
+    """The port's parity gate (``python -m`` :data:`GATE`) in two new
+    processes: the whole matrix must exit 0 with every row green; then
+    ``--inject`` (the same CPU twins, kept in a temporary directory
+    between the runs) must exit non-zero with every row that must fail
+    red by its numbers, not by an exception, and every row it does not
+    perturb (compact, sharded, unfused) still green. Emits
+    ``parity_gate`` with each row's numbers and both runs' seconds."""
+    t_phase = time.perf_counter()
+    out = {"phase": "parity_gate", "card": smi}
+    env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    with tempfile.TemporaryDirectory() as td:
+        for label, extra in (("plain", []), ("inject", ["--inject"])):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", GATE, "--twin-cache", td, *extra],
+                capture_output=True, text=True, timeout=600, env=env,
+                cwd=ROOT)
+            lines = [json.loads(x) for x in proc.stdout.splitlines()
+                     if x.startswith("{")]
+            rows = [x for x in lines if "row" in x]
+            gate = lines[-1] if lines else {}
+            out[label] = {
+                "exit": proc.returncode,
+                "seconds": time.perf_counter() - t0,
+                "gate": gate,
+                "rows": [{"scene": r["scene"], "row": r["row"],
+                          "ok": r["ok"], "must_fail": r["must_fail"],
+                          **{k: r[k] for k in GATE_KEYS if k in r}}
+                         for r in rows]}
+            if gate.get("gate") != "gpu_parity_matrix" or any(
+                    "row" not in x and "gate" not in x for x in lines):
+                raise AssertionError(f"parity gate ({label}): exit "
+                                     f"{proc.returncode}: "
+                                     f"{proc.stdout[-3000:]}"
+                                     f"{proc.stderr[-3000:]}")
+    plain, inj = out["plain"], out["inject"]
+    red = [r for r in plain["rows"] if not r["ok"]]
+    if plain["exit"] != 0 or red or not plain["gate"]["ok"]:
+        raise AssertionError(f"parity gate: exit {plain['exit']}, red rows "
+                             f"{red}")
+    missed = [r for r in inj["rows"] if r["must_fail"]
+              and (r["ok"] or "error" in r)]
+    moved = [r for r in inj["rows"]
+             if r["row"] in ("compact", "sharded", "unfused") and not r["ok"]]
+    must = sum(r["must_fail"] for r in inj["rows"])
+    if inj["exit"] == 0 or missed or moved or not must:
+        raise AssertionError(f"parity gate --inject: exit {inj['exit']}, "
+                             f"rows not red {missed}, unperturbed rows red "
+                             f"{moved}")
+    out["rows"] = len(plain["rows"])
+    out["inject_red_rows"] = sum(not r["ok"] for r in inj["rows"])
+    out["inject_must_fail_rows"] = must
+    out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     return out
 
@@ -4605,6 +4847,15 @@ def main() -> int:
     with gltf_dir() as paths:
         compact_cli(smi, paths)
     emit({"phase": "compact_phases", "seconds": time.perf_counter() - t0})
+
+    # ---- 15. where random's compact image left A-noise's: the split
+    # route's marble (torch on CUDA), C and J's hit point against A's on
+    # one wave's bounces 0 and 1
+    marble_trace(dev, smi)
+
+    # ---- 16. the parity gate: the scene matrix against the CPU twins and
+    # JAX's saved renders, then with the injected shade error
+    parity_gate(smi)
 
     # ---- result ----------------------------------------------------------
     rows = (kernel_rows(flag_fwd, flag_train, small, "plain")

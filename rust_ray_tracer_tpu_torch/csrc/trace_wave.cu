@@ -714,6 +714,45 @@ extern "C" int select_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
+#ifdef TRACE_WAVE_NOISE
+namespace {
+
+// TPU kernel C alone: the signed octave sum (before its abs) and the
+// marble at n points p [3, n] with scales scale [n], into acc [n] and
+// value [n]. A probe that holds C against ops/perlin.py on the card's
+// recorded hit points; no render launches it.
+__global__ void __launch_bounds__(ROW) marble_probe_kernel(
+    const float* __restrict__ p, const float* __restrict__ scale,
+    const float* __restrict__ vec, const int* __restrict__ perm,
+    float* __restrict__ acc, float* __restrict__ value, int n) {
+  __shared__ float smem[PERLIN_SMEM / 4];
+  const Perlin P = perlin_load(smem, vec, perm);
+  __syncthreads();
+  const int i = blockIdx.x * ROW + threadIdx.x;
+  if (i >= n) return;
+  const V3 q{p[i], p[(size_t)n + i], p[2 * (size_t)n + i]};
+  acc[i] = turb_acc(P, q);
+  value[i] = marble(P, q, scale[i]);
+}
+
+}  // namespace
+
+// Launch the marble probe on ``stream``; returns cudaGetLastError() (0 =
+// launched). Only in the noise variant's library.
+extern "C" int marble_probe_launch(const float* p, const float* scale,
+                                   const float* perlin_vec,
+                                   const int* perlin_perm, float* acc,
+                                   float* value, int n, void* stream) {
+  const int blocks = (n + ROW - 1) / ROW;
+  if (blocks > 0) {
+    marble_probe_kernel<<<blocks, ROW, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        p, scale, perlin_vec, perlin_perm, acc, value, n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
+
 // Resident blocks a multiprocessor of the current device holds of this
 // library's kernels A, D and E (0 for E in the noise variant's library),
 // with the dynamic shared memory they are launched with for a scene of

@@ -45,6 +45,9 @@ Kernels (each wrapper counts its launches in ``launches``):
     ``ops/uber.fused_bounce_bwd_plain``), whose sums ``bwd_reduce_kernel``
     takes. :func:`fused_bounce_kernel` and :func:`fused_bounce_bwd_kernel`
     pick the variant; :func:`fused_bounce_backward` chains D' and B';
+  * ``marble_probe_kernel`` — TPU kernel C launched alone on a list of
+    points, in the noise variant's library: a probe that holds C against
+    ``ops/perlin.marble`` on the card (no render launches it);
   * ``select_kernel`` (name ``select``) — kernel E, A's phase 1 launched
     alone with the winners' rows fetched, for the unfused uber bounce
     (replaces ``pallas_uber.py`` ``_make_select_kernel``, :346, launched
@@ -581,6 +584,40 @@ class SelectKernel(_Kernel):
         return selv, kind, idx
 
 
+class MarbleProbeKernel(_Kernel):
+    """ctypes wrapper of ``marble_probe_launch``: TPU kernel C (the marble
+    of A-noise, B-noise and D-noise) launched alone on a list of points,
+    to hold it against ``ops/perlin.marble`` on the card. No render calls
+    it; ``chip_smoke.py`` and ``tests/test_torch_gpu.py`` do."""
+
+    name = "marble_probe"
+    library = "trace_wave_noise"
+    entry = "marble_probe_launch"
+    argtypes = (_P,) * 6 + (_I,)
+
+    def __call__(self, p: torch.Tensor, scale: torch.Tensor, perlin):
+        """(acc [N], marble [N]): the signed octave sum and the marble at
+        the points ``p`` [N, 3] with scales ``scale`` [N], over the Perlin
+        tables ``perlin`` (``ops/perlin.PerlinTables``), on one CUDA
+        device."""
+        dev = p.device
+        if dev.type != "cuda":
+            raise ValueError(f"marble_probe needs CUDA tensors, got {dev}")
+        n = p.shape[0]
+        planes = p.T.contiguous()
+        _check("p", planes, dev, (3, n))
+        _check("scale", scale, dev, (n,))
+        vec, perm = perlin
+        _check("perlin vec", vec, dev, (256, 3))
+        _check("perlin perm", perm, dev, (3, 256), torch.int32)
+        self.load()
+        acc = torch.empty((n,), dtype=torch.float32, device=dev)
+        value = torch.empty_like(acc)
+        self._launch(dev, _ptr(planes), _ptr(scale), _ptr(vec), _ptr(perm),
+                     _ptr(acc), _ptr(value), n)
+        return acc, value
+
+
 class FusedBounceBwdKernel(_Kernel):
     """ctypes wrapper of ``fused_bounce_bwd_launch`` (kernel D'), the
     variant without noise: the adjoint of one uber bounce from kernel D's
@@ -626,6 +663,7 @@ bounce_uber_kernel = FusedBounceKernel()
 bounce_uber_noise_kernel = FusedBounceNoiseKernel()
 bounce_uber_bwd_kernel = FusedBounceBwdKernel()
 bounce_uber_bwd_noise_kernel = FusedBounceBwdNoiseKernel()
+marble_probe_kernel = MarbleProbeKernel()
 
 
 W_MAX = 32       # columns B' takes

@@ -376,19 +376,24 @@ def trace_wave_compact(scene, wkey, width: int, height: int,
 
 
 def auto_compact(scene, threshold: float = 0.3) -> bool:
-    """Should a render of ``scene`` take the compact wavefront? JAX's
-    host-side rule (``integrator.auto_compact``, ``:135-300``) in numpy:
-    yes when at least ``threshold`` of a 32x18 grid of pixel-centre
-    primaries hit something (spheres, quads, medium boundaries,
-    triangles: exact tests up to 65,536 triangles, the cluster boxes
-    beyond), since a hit usually survives its bounce and a miss dies. On
-    the card, a scene the trace kernel takes (``uber.uber_eligible``,
-    which reads the route flags) gets False without the probe, as JAX's
-    accelerator branch gives it. Reads the scene's values on the host;
-    callers resolve it once and pass a bool down (``utils/cli.py``'s
-    ``--compact auto``). The threshold is JAX's, measured on its TPU
-    (PERF.md has the H100's times)."""
-    if scene.device.type == "cuda" and uber.uber_eligible(scene):
+    """Should a render of ``scene`` take the compact wavefront? On a CUDA
+    device never: measured on an H100 (PERF.md, the compact wavefront's
+    findings) compact wins no time on any scene. On A's scenes it loses
+    1.1-10x; on the split route's (final_scene, random with the earth
+    map) its forward and training times against the scene's own route
+    change sign from run to run, because the split route's waves are host
+    glue paid per launch, not per live lane. Its images are bitwise the
+    own route's there, and its one gain, less peak memory a training step,
+    the forward-only CLI does not use. On the CPU, JAX's host-side rule
+    (``integrator.auto_compact``, ``:135-300``) in numpy: yes when at
+    least ``threshold`` of a 32x18 grid of pixel-centre primaries hit
+    something (spheres, quads, medium boundaries, triangles: exact tests
+    up to 65,536 triangles, the cluster boxes beyond), since a hit usually
+    survives its bounce and a miss dies. Reads the scene's values on the
+    host; callers resolve it once and pass a bool down (``utils/cli.py``'s
+    ``--compact auto``). ``render_waves(..., compact=True)`` still takes
+    the route on the card when asked."""
+    if scene.device.type == "cuda":
         return False
 
     def f64(x):

@@ -65,7 +65,11 @@ def noise(perlin_vec, px, py, pz, p):
                 w = ((di * s[..., 0] + (1 - di) * (1 - s[..., 0]))
                      * (dj * s[..., 1] + (1 - dj) * (1 - s[..., 1]))
                      * (dk * s[..., 2] + (1 - dk) * (1 - s[..., 2])))
-                acc = acc + w * (grad * weight).sum(-1)
+                # the corner's dot summed left to right, as C and
+                # _noise_row sum it: torch's CUDA reduction of a 3-wide
+                # last axis adds in another order (the CPU's in this one)
+                gw = grad * weight
+                acc = acc + w * (gw[..., 0] + gw[..., 1] + gw[..., 2])
     return acc
 
 

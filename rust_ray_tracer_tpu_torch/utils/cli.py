@@ -23,11 +23,11 @@ per host or card, and ``torchrun`` sets the same through the environment.
 Rank 0 writes the PNG. ``--compact {auto,on,off}`` (bare ``--compact``:
 ``on``) renders through the compact wavefront
 (``ops/integrator.trace_wave_compact``, shard-local under ``--devices``);
-``auto``, the default, asks ``ops/integrator.auto_compact`` and prints its
-answer, as JAX's CLI does. ``--cache-dir DIR`` builds and loads the kernel
-libraries in DIR (``kernels.set_build_dir``; default
-``build/torch_kernels/``), JAX's flag of that name being its compile
-cache.
+``auto``, the default, asks ``ops/integrator.auto_compact`` (off on the
+card; JAX's rule on the CPU) and prints its answer, as JAX's CLI does.
+``--cache-dir DIR`` builds and loads the kernel libraries in DIR
+(``kernels.set_build_dir``; default ``build/torch_kernels/``), JAX's
+flag of that name being its compile cache.
 
     python -m rust_ray_tracer_tpu_torch 256 16 --scene cornell_box -a 1.0 \\
         -o cornell.png --device cuda
@@ -91,10 +91,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compact", choices=("auto", "on", "off"),
                    nargs="?", const="on", default="auto",
                    help="bounce-major cross-chunk alive compaction: 'auto' "
-                        "(default) takes it when most of the frame hits "
-                        "the scene and the trace kernel does not take it "
-                        "on the card (ops/integrator.auto_compact); "
-                        "shard-local under --devices")
+                        "(default) never takes it on the card, where it "
+                        "won no time on an H100 and gives the same image "
+                        "(its sign against the own route changes from run "
+                        "to run; its saving is a training step's memory), "
+                        "and on the CPU takes it when most of the frame "
+                        "hits the scene, as JAX's rule "
+                        "(ops/integrator.auto_compact); shard-local under "
+                        "--devices")
     p.add_argument("--cache-dir", default=None,
                    help="directory the kernel libraries are built in and "
                         "loaded from (default: build/torch_kernels/)")

@@ -232,18 +232,18 @@ class TestAutoCompact:
                                       "RRT_NO_PALLAS_SHADE",
                                       "RRT_UBER_NOISE"])
     def test_card_short_circuit(self, flag, monkeypatch):
-        """On the card a scene the trace kernel takes gets False without
-        the probe; a route flag that sends it off the trace kernel gives
-        the probe back (``RRT_UBER_NOISE=0`` only to noise scenes), as
-        JAX's ``test_uber_eligibility_short_circuits_on_tpu`` shows on its
-        accelerator. final_scene (media) is probed either way."""
+        """On the card every scene gets False without the probe, under
+        every route flag: compact won no time on the H100 on any scene
+        (PERF.md), so ``--compact auto`` stays on the scene's own route
+        there. final_scene, random and the Cornell box, which the probe
+        sends to compact on the CPU (``test_matches_jax``), are among
+        them."""
         if flag is not None:
             monkeypatch.setenv(flag, "0" if flag == "RRT_UBER_NOISE" else "1")
-        all_off = flag not in (None, "RRT_UBER_NOISE")
-        for name, probed in (("cornell_box", all_off),
-                             ("random", flag is not None),
-                             ("final_scene", True)):
-            assert auto_compact(_OnCard(port_scene(name))) is probed, name
+        for name in ("cornell_box", "random", "final_scene", "occupancy"):
+            scene = port_scene(name)
+            assert auto_compact(scene) is True, name
+            assert auto_compact(_OnCard(scene)) is False, name
 
 
 def _png(path):

@@ -108,6 +108,17 @@ def test_fused_bounce_wrappers_refuse_cpu_tensors():
         uber.bounce_uber(ts, rnd[0].to("meta"), st0.to("meta"), ctx)
 
 
+def test_marble_probe_refuses_cpu_tensors():
+    """C's probe (``kernels.marble_probe_kernel``) launches only on CUDA
+    tensors; nothing falls back to the plain marble."""
+    ctx = uber.make_ctx(_scene("noise"))
+    p = torch.zeros((4, 3))
+    before = K.marble_probe_kernel.launches
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        K.marble_probe_kernel(p, torch.ones(4), ctx.perlin)
+    assert K.marble_probe_kernel.launches == before
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -352,6 +363,37 @@ def test_render_waves_grads_on_card(cuda):
     for k, v in out[0].items():
         assert bool(torch.isfinite(v).all()), k
         assert torch.equal(v, out[1][k]), k
+
+
+@pytest.mark.gpu
+def test_marble_probe_matches_plain_on_card(cuda):
+    """C alone (``kernels.marble_probe_kernel``) against its plain
+    version ``ops/perlin.marble`` and against the split route's
+    ``ops/texture.texture_value`` on the card, bit for bit, at seeded
+    points near the origin and out to |p| ~ 1000 (random's ground): all
+    three add each corner's dot left to right, as C does."""
+    from rust_ray_tracer_tpu_torch.models.scene import TEX_NOISE
+    from rust_ray_tracer_tpu_torch.ops import perlin, texture
+
+    sc = _scene("random").to(cuda)
+    ctx = uber.make_ctx(sc)
+    tid = int(torch.nonzero(sc.tex_kind == TEX_NOISE)[0])
+    g = torch.Generator().manual_seed(5)
+    p = torch.cat([torch.rand(4096, 3, generator=g) * 8 - 4,
+                   torch.rand(4096, 3, generator=g) * 2000 - 1000]).to(cuda)
+    n = p.shape[0]
+    scale = sc.tex_scale[tid].expand(n).contiguous()
+    before = K.marble_probe_kernel.launches
+    acc, value = K.marble_probe_kernel(p, scale, ctx.perlin)
+    torch.cuda.synchronize()
+    assert K.marble_probe_kernel.launches == before + 1
+    px, py, pz = p[:, 0], p[:, 1], p[:, 2]
+    assert torch.equal(acc, perlin._turb_acc(ctx.perlin, px, py, pz))
+    assert torch.equal(value, perlin.marble(ctx.perlin, px, py, pz, scale))
+    tids = torch.full((n,), tid, dtype=torch.int32, device=cuda)
+    zero = torch.zeros(n, device=cuda)
+    alb = texture.texture_value(sc, tids, zero, zero, p)
+    assert torch.equal(alb[:, 0], value)
 
 
 @pytest.mark.gpu
