@@ -36,7 +36,14 @@ full-size wave's bounces 0 and 1 (K on all four), the sort's
 permutation against the host's, K and M timed a bounce beside their
 bounds by stage) and ``bench.py``'s
 training step
-(``mesh_train``: K, M, F and F' every bounce). Then, in a temporary
+(``mesh_train``: K, M, F and F' every bounce); and a million-triangle mesh
+(``tests/torch_parity.bigmesh``: the same draws written as a u32 ``.gltf``
+with an external ``.bin`` and read back, 512 clusters of 2,048), forward
+(``bigmesh_forward``: K, M's packed input and F every bounce; the packed
+input against the staged one and the plain version on a forward's
+recorded calls, the probe of its row assembly on every row) and
+``bench.py``'s training step (``bigmesh_train``: gradients bitwise over
+two steps and between the two inputs). Then, in a temporary
 working directory holding a procedural 1024x512 ``earthmap.jpg`` (the
 earlier phases ran without it), the earth-map scenes on the split route:
 earth and final_scene at 64x64 against the plain route
@@ -234,6 +241,13 @@ WHOLE_WAVE_KERNELS = (trace_wave_kernel, trace_wave_noise_kernel,
 # shading, F' their adjoints
 OPS_K_RAY = 9
 SEARCH_KERNELS = (tile_enter_kernel, fused_search_kernel)
+# the profiler's name of M's staged instance (L's too)
+M_STAGED = search_times.m_profiler_name(False)
+# M's packed input (csrc/search.cu fused_search_kernel<true>) and the probe
+# of its row assembly, on the million-triangle mesh
+# (tests/torch_parity.bigmesh: 512 clusters of 2,048)
+PACKED_KERNELS = (K.fused_search_packed_kernel, K.packed_rows_probe_kernel)
+BIGMESH_TRIS, BIGMESH_WIDTH = 1 << 20, 2048
 FUSED_KERNELS = (bounce_planes_kernel,)
 FUSED_BWD_KERNELS = (bounce_planes_bwd_kernel,)
 MESH_W, MESH_H = 128, 72  # the mesh's check against the plain versions
@@ -650,7 +664,8 @@ class PlainCalls:
     ``hit_plane_core`` and ``hit_plane_core_vjp`` (``ops/hit``),
     ``su_plane_core``, ``su_plane_core_vjp``, ``bounce_plane_core`` and
     ``bounce_plane_core_vjp`` (``ops/bounce``), ``tile_enter_plain``,
-    ``fused_search_plain`` and ``tri_search_plain`` (``ops/search``),
+    ``fused_search_plain``, ``assemble_rows`` (M's packed rows assembled)
+    and ``tri_search_plain`` (``ops/search``),
     ``sph_search_plain`` (``ops/sphere``), ``shade_plane_core`` and
     ``shade_plane_core_vjp`` (``ops/shade``), ``fused_bounce_plain``,
     ``fused_bounce_bwd_plain`` and ``select_plain`` (``ops/uber``) and
@@ -672,6 +687,7 @@ class PlainCalls:
              (bounce_ops, "su_plane_core_vjp"),
              (search_ops, "tile_enter_plain"),
              (search_ops, "fused_search_plain"),
+             (search_ops, "assemble_rows"),
              (bounce_ops, "bounce_plane_core"),
              (bounce_ops, "bounce_plane_core_vjp"),
              (sphere_ops, "sph_search_plain"),
@@ -926,8 +942,9 @@ def search_fused_vs_plain(calls, label, bounces=(0, 1)) -> dict:
     recorded calls of ``bounces`` (bounce 0 and 1 of a wave): K's entries
     finite where the plain version's are and within 1 ulp, whether they
     are bitwise, two runs bit for bit (:func:`enter_vs_plain`); M's kinds,
-    indices and t equal; F's planes within RTOL / ATOL of each lane's
-    largest value, at most FLIP_BUDGET of the lanes outside (a checker
+    indices and t equal (the instance of the tables' input); F's planes
+    within RTOL / ATOL of each lane's largest value, at most FLIP_BUDGET
+    of the lanes outside (a checker
     parity or a shading branch rounded apart, as H's); F' with a seeded
     cotangent (normal draws, seed 5 + bounce) within B's budget (dP per
     lane within BWD_RTOL of its largest plane / BWD_ATOL, at most
@@ -949,16 +966,17 @@ def search_fused_vs_plain(calls, label, bounces=(0, 1)) -> dict:
             merge("tile_enter", **enter_vs_plain(calls["enter"][b], label, b))
         if b < len(calls["search"]):
             args = calls["search"][b]
-            got = fused_search_kernel(*args)
+            m = K.search_kernel(args[2])
+            got = m(*args)
             ref = search_ops.fused_search_plain(*args)
             bad = ((got[1] != ref[1]) | (got[2] != ref[2])
                    | ((got[0] != ref[0]) & ~(torch.isinf(got[0])
                                               & torch.isinf(ref[0]))))
             if bool(bad.any()):
-                raise AssertionError(f"{label}: fused_search differs from "
+                raise AssertionError(f"{label}: {m.name} differs from "
                                      f"its plain version on "
                                      f"{int(bad.sum())} rays at bounce {b}")
-            merge("fused_search", lanes_outside=0.0, max_abs_err=0.0,
+            merge(m.name, lanes_outside=0.0, max_abs_err=0.0,
                   winners_equal=True,
                   kinds=torch.bincount(ref[1].long(), minlength=4).tolist())
         if b < len(calls["bp"]):
@@ -2055,7 +2073,8 @@ def search_work(calls) -> dict:
             "bound_ms": bound(k_bytes, n_live * OPS_K_RAY
                               + n_live * nonempty
                               * search_times.OPS_SLAB)[0]})
-        mw = search_times.m_work(s_args, fused_search_kernel(*s_args)[0])
+        mw = search_times.m_work(s_args,
+                                 K.search_kernel(tabs)(*s_args)[0])
         w["tri_tests"] += mw["tests"]
         for k in ("t_tests", "uv_tests", "full_cull_tests"):
             w[k] += mw[k]
@@ -2071,21 +2090,22 @@ def search_work(calls) -> dict:
 
 def mesh_forward(dev, smi) -> dict:
     """The mesh workload (``tests/torch_parity.mesh``: 65,536 double-sided
-    triangles, 512 clusters of 128, and the flagship's sphere lamp: 16x
-    the trace kernel's 4,096 rows) forward on the split route at the bench
-    shape: SPP * DEPTH launches each of K, M and F, none of A, O, J or H,
-    no plain call, a finite image; K, M, F and F' against their plain
-    versions on every bounce's recorded inputs of a MESH_W x MESH_H wave
-    and the route's image against the plain route's on the card, and on
-    a full-size wave's bounces 0 and 1; the sort's permutation on the
-    card against the host's (bounce 1); sweep ms, the profiler's
-    per-kernel ms, the glue per wave and the busy share of a profiled
-    wave; each kernel's ms per launch out of L2 and its plain version's
-    on the full-size wave's recorded inputs; per bounce M out of L2 and in
-    the path, the sort's ms, the live rays and tiles, the (tile, cluster)
-    pairs K lets through, M's tests by stage and its bound, K's full-cull
-    count; ptxas' registers and spills of library ``search``; the peak
-    memory of the sweeps. Emits ``mesh_forward``."""
+    triangles, 512 clusters of 128, and the flagship's sphere lamp: 16x the
+    trace kernel's 4,096 rows) forward on the split route at the bench
+    shape: SPP * DEPTH launches each of K, M (the input the gate picks:
+    packed from ``ops/search.PACKED_MIN_TRIS``, the mesh's size) and F,
+    none of M's other input, A, O, J or H, no plain call, a finite image;
+    K, M, F and F' against their plain versions on every bounce's recorded
+    inputs of a MESH_W x MESH_H wave and the route's image against the
+    plain route's on the card, and on a full-size wave's bounces 0 and 1;
+    the sort's permutation on the card against the host's (bounce 1); sweep
+    ms, the profiler's per-kernel ms, the glue per wave and the busy share
+    of a profiled wave; each kernel's ms per launch out of L2 and its plain
+    version's on the full-size wave's recorded inputs; per bounce M out of
+    L2 and in the path, the sort's ms, the live rays and tiles, the (tile,
+    cluster) pairs K lets through, M's tests by stage and its bound, K's
+    full-cull count; ptxas' registers and spills of library ``search``; the
+    peak memory of the sweeps. Emits ``mesh_forward``."""
     t0 = time.perf_counter()
     scene = compile_scene(mesh_host(S, cam_ops), device=dev)
     compile_s = time.perf_counter() - t0
@@ -2093,6 +2113,7 @@ def mesh_forward(dev, smi) -> dict:
     if uber.uber_eligible(scene) or scene.n_tris != 65536:
         raise AssertionError("the mesh is not a 65,536-triangle split-route "
                              "scene")
+    m_on, m_off = m_variants(scene.n_tris)
 
     def render(n_waves, w=WIDTH, h=HEIGHT):
         with torch.no_grad():
@@ -2100,8 +2121,8 @@ def mesh_forward(dev, smi) -> dict:
                                 chunk_size=CHUNK)
 
     img, launches, n_plain = main_path_forward(
-        "mesh", render, SEARCH_KERNELS + FUSED_KERNELS,
-        SPLIT_KERNELS + (trace_wave_kernel, trace_wave_noise_kernel))
+        "mesh", render, (tile_enter_kernel, m_on) + FUSED_KERNELS,
+        SPLIT_KERNELS + (m_off, trace_wave_kernel, trace_wave_noise_kernel))
 
     # every bounce of a small wave: each kernel against its plain version,
     # and the route against the plain route
@@ -2132,29 +2153,31 @@ def mesh_forward(dev, smi) -> dict:
                              "differs from the host's, or a bounce was not "
                              "sorted")
 
-    timing = forward_timing(render, {n: f"{n}_kernel" for n in (
-        "tile_enter", "fused_search", "bounce_planes")}, 5, dev)
+    m_prof = search_times.m_profiler_name(m_on.packed)
+    timing = forward_timing(render, {"tile_enter": "tile_enter_kernel",
+                                     m_on.name: m_prof,
+                                     "bounce_planes": "bounce_planes_kernel"},
+                            5, dev)
     runs = {"tile_enter": [((lambda c=c: tile_enter_kernel(*c)),
                             (lambda c=c: search_ops.tile_enter_plain(*c)))
                            for c in rec["enter"]],
-            "fused_search": [((lambda c=c: fused_search_kernel(*c)),
-                              (lambda c=c: search_ops.fused_search_plain(*c)))
-                             for c in rec["search"]],
+            m_on.name: [((lambda c=c: m_on(*c)),
+                         (lambda c=c: search_ops.fused_search_plain(*c)))
+                        for c in rec["search"]],
             "bounce_planes": [
                 ((lambda c=c: bounce_planes_kernel(*c)),
                  (lambda c=c: bounce_core.bounce_plane_core(
                      *c, c[0].shape[0] > bounce_core.N_IN_B)))
                 for c in rec["bp"]]}
     # the plain M takes seconds a full-size bounce: one run each
-    times = {n: bounce_times(pairs, 1 if n == "fused_search" else 3)
+    times = {n: bounce_times(pairs, 1 if n == m_on.name else 3)
              for n, pairs in runs.items()}
     by_bounce = {n: t["cold"] for n, t in times.items()}
     ms = {n: statistics.fmean(v) for n, v in by_bounce.items()}
     plain_ms = {n: statistics.fmean(t["plain"]) for n, t in times.items()}
     # per bounce: M in the path (the profiler's launches in bounce order),
     # the sort (plain torch, charged to the glue), M's work by stage
-    m_path = search_times.device_ms_in_order(lambda: render(1),
-                                             "fused_search_kernel")
+    m_path = search_times.device_ms_in_order(lambda: render(1), m_prof)
     with torch.no_grad():
         sort_ms = [median(loop_ms(lambda a=a: search_ops.search_order(*a)))
                    for a in rec["order"]]
@@ -2168,7 +2191,7 @@ def mesh_forward(dev, smi) -> dict:
                    "k_box_tests": kb["box_tests"],
                    "k_bound_ms": kb["bound_ms"], "k_ms_l2_flushed": kc}
                   for b, c, p, t, kb, kc in zip(
-                      work["per_bounce"], by_bounce["fused_search"], m_path,
+                      work["per_bounce"], by_bounce[m_on.name], m_path,
                       sort_ms, work["k_per_bounce"], by_bounce["tile_enter"])]
     emit({"phase": "mesh_forward", "card": smi,
           "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
@@ -2176,7 +2199,8 @@ def mesh_forward(dev, smi) -> dict:
           "tables": {"triangles": scene.n_tris,
                      "clusters": scene.tri_cluster_min.shape[0],
                      "spheres": scene.n_spheres, "quads": scene.n_quads,
-                     "lights": scene.n_lights},
+                     "lights": scene.n_lights,
+                     "input": "packed" if m_on.packed else "staged"},
           "launches": launches, "plain_calls": n_plain,
           "image_mean": float(img.mean()) / SPP,
           "small_wave_vs_plain_route": small_img,
@@ -2184,7 +2208,7 @@ def mesh_forward(dev, smi) -> dict:
           "kernels_vs_plain_full_size": full,
           "kernel_vs_plain_budget": {
               "tile_enter": "survivors equal, <= 1 ulp",
-              "fused_search": "kinds, indices and t equal",
+              m_on.name: "kinds, indices and t equal",
               "bounce_planes_lanes_outside": FLIP_BUDGET,
               "bwd": {"dP_rtol_of_lane_max": BWD_RTOL, "dP_atol": BWD_ATOL,
                       "dP_lanes_outside": FLIP_BUDGET,
@@ -2203,13 +2227,14 @@ def mesh_forward(dev, smi) -> dict:
             "ms_per_bounce": by_bounce,
             "ms_in_path": timing["in_path"], "plain_ms": plain_ms,
             "calls": rec, "work": work, "scene": scene, "key": key,
-            "sort_ms": statistics.fmean(sort_ms)}
+            "sort_ms": statistics.fmean(sort_ms), "m": m_on}
 
 
 def mesh_train(dev, smi, fwd) -> dict:
     """``bench.py``'s training step on the mesh at the bench shape
-    (:func:`main_path_train`): per step SPP * DEPTH launches each of K, M,
-    F and F', none of A, B, O, J, H, J' or H', B' (``bwd_reduce``) once
+    (:func:`main_path_train`): per step SPP * DEPTH launches each of K, M
+    (the gate's input), F and F', none of M's other input, A, B, O, J, H,
+    J' or H', B' (``bwd_reduce``) once
     for each F' (its light-table partials) and for the glue's row sums, no
     plain call; gradients finite, bitwise equal over two steps, non-zero
     on ``tri_v0``, ``tex_color`` and ``light_c``; the step's rate, its
@@ -2217,13 +2242,17 @@ def mesh_train(dev, smi, fwd) -> dict:
     F' on every bounce's recorded inputs of a full-size wave with a seeded
     cotangent against its plain version, timed out of L2. Emits
     ``mesh_train``."""
-    fwd_names = ("tile_enter", "fused_search", "bounce_planes")
+    m_on, m_off = m_variants(fwd["scene"].n_tris)
+    fwd_names = ("tile_enter", m_on.name, "bounce_planes")
     t = main_path_train(
         "mesh", fwd["scene"], fwd["key"],
-        SEARCH_KERNELS + FUSED_KERNELS + FUSED_BWD_KERNELS,
-        SPLIT_KERNELS + SPLIT_BWD_KERNELS + WHOLE_WAVE_KERNELS,
+        (tile_enter_kernel, m_on) + FUSED_KERNELS + FUSED_BWD_KERNELS,
+        SPLIT_KERNELS + SPLIT_BWD_KERNELS + WHOLE_WAVE_KERNELS + (m_off,),
         ("tri_v0", "tex_color", "light_c"),
-        {n: f"{n}_kernel" for n in fwd_names + ("bounce_planes_bwd",)},
+        {"tile_enter": "tile_enter_kernel",
+         m_on.name: search_times.m_profiler_name(m_on.packed),
+         "bounce_planes": "bounce_planes_kernel",
+         "bounce_planes_bwd": "bounce_planes_bwd_kernel"},
         fwd_names, ("bounce_planes_bwd",), 5, dev)
 
     # F' on every bounce's recorded inputs of one full-size wave
@@ -2252,8 +2281,9 @@ def mesh_train(dev, smi, fwd) -> dict:
 
 
 def mesh_rows(fwd, train, worst_small) -> list[dict]:
-    """The ``{"kernels": [...]}`` rows of K, M, F (the mesh forward) and F'
-    (its training step): launches on the main path; device ms per launch
+    """The ``{"kernels": [...]}`` rows of K, M (the input the gate gives the
+    mesh), F (the mesh forward) and F' (its training step): launches on
+    the main path; device ms per launch
     out of L2 (``ms``) and in the path (``ms_in_path``, the profiler's),
     plain ms, each averaged over a full-size wave's bounces on their
     recorded inputs; the bound of one launch averaged over the same
@@ -2267,7 +2297,7 @@ def mesh_rows(fwd, train, worst_small) -> list[dict]:
     spec = (("tile_enter", src_s,
              "rust_ray_tracer_tpu/ops/pallas_intersect.py:262",
              work["k_bytes"], work["k_ops"], fwd),
-            ("fused_search", src_s,
+            (fwd["m"].name, src_s,
              "rust_ray_tracer_tpu/ops/pallas_intersect.py:959",
              work["m_bytes"], work["m_ops"], fwd),
             ("bounce_planes", src_f,
@@ -2279,7 +2309,8 @@ def mesh_rows(fwd, train, worst_small) -> list[dict]:
     rows = []
     for name, src, repl, nb, ops, ph in spec:
         b_ms, b_by = bound(nb / n_w, ops / n_w)
-        errs = [worst_small[name]["max_abs_err"]]
+        errs = [worst_small[name]["max_abs_err"]] if name in worst_small \
+            else []
         for part in ("small", "full"):
             if name in ph.get(part, {}):
                 errs.append(ph[part][name]["max_abs_err"])
@@ -2303,6 +2334,8 @@ def mesh_rows(fwd, train, worst_small) -> list[dict]:
                                    "full_cull_tests", "sph_tests",
                                    "quad_tests")}
     rows[1]["sort_ms_per_bounce"] = fwd["sort_ms"]
+    if fwd["m"].packed:
+        rows[1].update(m_packed_fields())
     rows[0]["box_tests_per_launch"] = work["box_tests"] / n_w
     rows[0]["ms_per_bounce"] = fwd["ms_per_bounce"]["tile_enter"]
     rows[0]["bound_ms_per_bounce"] = [b["bound_ms"]
@@ -2312,6 +2345,302 @@ def mesh_rows(fwd, train, worst_small) -> list[dict]:
     rows[0]["bitwise"] = all(fwd[p]["tile_enter"]["bitwise"]
                              for p in ("small", "full"))
     return rows
+
+
+# ---- the million-triangle mesh: M's packed input, clusters of 2,048 -------
+
+def m_variants(n_tris):
+    """(M's wrapper the packed input's gate picks for ``n_tris``
+    triangles, the other one)."""
+    if search_ops.packed_input(n_tris):
+        return K.fused_search_packed_kernel, fused_search_kernel
+    return fused_search_kernel, K.fused_search_packed_kernel
+
+
+def chunk_call(args, c=0):
+    """A recorded call of M, ``args`` = (rays, ent, tabs, chunk, perm), cut
+    to its chunk ``c``: the rays of wave positions [c * chunk, (c + 1) *
+    chunk), their tiles' entries and the permutation's segment (the sort
+    is segmented by chunk, so it stays inside the chunk)."""
+    rays, ent, tabs, chunk, perm = args
+    tpc = -(-chunk // search_ops.BC)
+    sl = slice(c * chunk, (c + 1) * chunk)
+    return (rays[:, sl].contiguous(), ent[c * tpc:(c + 1) * tpc].contiguous(),
+            tabs, chunk, (perm[sl] - c * chunk).contiguous())
+
+
+def winners_differing(got, ref) -> int:
+    """Lanes whose (t, kind, index) differ, t by its bits."""
+    return int(((got[0].view(torch.int32) != ref[0].view(torch.int32))
+                | (got[1] != ref[1]) | (got[2] != ref[2])).sum())
+
+
+def timed_once(fn):
+    """(``fn()``, its device ms by CUDA events): one call, no warm-up."""
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def table_build(scene, packed, dev) -> dict:
+    """The split route's search tables of ``scene`` built with the packed
+    or the staged input (``ops/search.search_tables``, the glue of every
+    render): ms by CUDA events (median of 3 after a warm-up) and the
+    device memory the build takes at its peak above what was allocated."""
+    ms = median(cuda_ms(lambda: search_ops.search_tables(scene, packed), 3))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tabs = search_ops.search_tables(scene, packed)
+    torch.cuda.synchronize()
+    return {"ms": ms, "peak_bytes_above": torch.cuda.max_memory_allocated(
+        dev) - base, "table_bytes": tabs.tri.numel() * 4}
+
+
+def bigmesh_forward(dev, smi) -> dict:
+    """The million-triangle mesh (``tests/torch_parity.bigmesh``: the mesh
+    workload's draws at 1,048,576 single-sided triangles, written as a
+    u32 ``.gltf`` with an external ``.bin`` into a temporary directory and
+    read back by ``load_gltf_scene``; 512 clusters of 2,048, so each
+    cluster is 16 of M's stages) forward on the split route at the bench
+    shape: the host seconds to write, load and compile; SPP * DEPTH
+    launches each of K, M's packed input (the gate's, from ``ops/search.
+    PACKED_MIN_TRIS``) and F, none of the staged input, A, O, J, H or L,
+    no plain call, a finite image. On every one of a forward's 16
+    recorded calls of M, the packed input's (t, kind, index) against the
+    staged input's on every lane, and against the plain version: every
+    lane of wave 0's four calls and, for the other twelve, every lane of
+    their first chunk (9,216 rays, 36 tiles; the plain sweep of a
+    million triangles takes seconds a full call). The probe's rows against
+    ``compact_rows(_tri_coeffs(...))`` on the card on all 1,048,576 rows
+    (and the host's assembly's rows that differ, counted). The search
+    tables' build with each input (ms, memory). Sweep ms, the profiler's
+    per-kernel ms, glue per wave, busy share and peak memory; M out of L2
+    with each input (in turns) and in the path, a bounce of wave 0; M's
+    tests by stage and each input's bound. Emits ``bigmesh_forward``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        scene, host_s = search_times.bigmesh_scene(dev, BIGMESH_TRIS, tmp)
+    k = scene.tri_cluster_min.shape[0]
+    if (uber.uber_eligible(scene) or scene.n_tris != BIGMESH_TRIS
+            or scene.n_tris // k != BIGMESH_WIDTH):
+        raise AssertionError(f"the big mesh: {scene.n_tris} triangles in "
+                             f"{k} clusters, not {BIGMESH_TRIS} of "
+                             f"{BIGMESH_WIDTH} on the split route")
+    key = rng.key(0, dev)
+    m_on, m_off = m_variants(scene.n_tris)
+    if not m_on.packed:
+        raise AssertionError("the big mesh does not take M's packed input")
+
+    def render(n_waves, w=WIDTH, h=HEIGHT):
+        with torch.no_grad():
+            return render_waves(scene, w, h, key, 0, n_waves, depth=DEPTH,
+                                chunk_size=CHUNK)
+
+    img, launches, n_plain = main_path_forward(
+        "bigmesh", render, (tile_enter_kernel, m_on) + FUSED_KERNELS,
+        SPLIT_KERNELS + (m_off, tri_search_kernel, trace_wave_kernel,
+                         trace_wave_noise_kernel))
+    with split_recorder() as rec:
+        render(SPP)
+    calls = rec["search"]
+    if len(calls) != SPP * DEPTH or not all(len(a) == 5 for a in calls):
+        raise AssertionError("bigmesh: a forward's M calls are not 16 "
+                             "sorted ones")
+    tables = {"staged": table_build(scene, False, dev),
+              "packed": table_build(scene, True, dev)}
+    staged = search_ops.search_tables(scene, False)
+    packed = search_ops.search_tables(scene, True)
+    checks, plain_ms, err = [], [], 0.0
+    with torch.no_grad():
+        for i, a in enumerate(calls):
+            a_s, a_p = a[:2] + (staged,) + a[3:], a[:2] + (packed,) + a[3:]
+            gs = fused_search_kernel(*a_s)
+            gp = K.fused_search_packed_kernel(*a_p)
+            full = i < DEPTH
+            sub = a_p if full else chunk_call(a_p)
+            got = gp if full else K.fused_search_packed_kernel(*sub)
+            ref, p_ms = timed_once(
+                lambda sub=sub: search_ops.fused_search_plain(*sub))
+            if full:
+                plain_ms.append(p_ms)
+            fin = torch.isfinite(ref[0])
+            if bool(fin.any()):
+                err = max(err, float((got[0][fin] - ref[0][fin]).abs().max()))
+            checks.append({"call": i, "vs_staged": winners_differing(gp, gs),
+                           "vs_plain": winners_differing(got, ref),
+                           "plain_lanes": int(got[0].numel()),
+                           "hits": int((gp[1] > 0).sum())})
+    bad = [c for c in checks if c["vs_staged"] or c["vs_plain"]]
+    if bad:
+        raise AssertionError(f"bigmesh: M's packed input differs: {bad}")
+    # the probe: M's stage copy and assembly on every row
+    rows = K.packed_rows_probe_kernel(packed.tri)
+    with torch.no_grad():
+        ref_rows = search_ops.compact_rows(isect._tri_coeffs(
+            scene.tri_v0, scene.tri_e1, scene.tri_e2), scene.tri_double)
+    torch.cuda.synchronize()
+    probe = {"rows": int(rows.shape[0]),
+             "vs_compact_rows": int((rows.view(torch.int32)
+                                     != ref_rows.view(torch.int32)).any(1)
+                                    .sum()),
+             "vs_staged_table": int((rows.view(torch.int32)
+                                     != staged.tri.view(torch.int32)).any(1)
+                                    .sum()),
+             "host_assembly_rows_differing": int(
+                 (search_ops.assemble_rows(packed.tri.cpu()).view(torch.int32)
+                  != rows.cpu().view(torch.int32)).any(1).sum())}
+    if probe["vs_compact_rows"] or probe["vs_staged_table"]:
+        raise AssertionError(f"bigmesh: the probe's rows differ: {probe}")
+
+    m_prof = search_times.m_profiler_name(True)
+    timing = forward_timing(render, {"tile_enter": "tile_enter_kernel",
+                                     m_on.name: m_prof,
+                                     "bounce_planes": "bounce_planes_kernel"},
+                            3, dev)
+    # wave 0's bounces: M with each input out of L2 in turns, in the path,
+    # its work by stage
+    pairs = [search_times.m_pair_times(
+        lambda a=a[:2] + (staged,) + a[3:]: fused_search_kernel(*a),
+        lambda a=a[:2] + (packed,) + a[3:]: K.fused_search_packed_kernel(*a))
+        for a in calls[:DEPTH]]
+    m_path = search_times.device_ms_in_order(lambda: render(1), m_prof)
+    work = {"staged": [], "packed": []}
+    with torch.no_grad():
+        for a in calls[:DEPTH]:
+            a_s = a[:2] + (staged,) + a[3:]
+            w = search_times.m_work(a_s, fused_search_kernel(*a_s)[0])
+            work["staged"].append(w)
+            work["packed"].append(search_times.packed_work(w, staged,
+                                                           packed))
+    per_bounce = [{
+        "live_rays": ws["live_rays"], "live_tiles": ws["live_tiles"],
+        "tiles_entered": ws["pairs"], "tri_tests": ws["tests"],
+        "t_tests": ws["t_tests"], "uv_tests": ws["uv_tests"],
+        "full_cull_tests": ws["full_cull_tests"],
+        "assemble_ops": wp["assemble_ops"],
+        "m_ms_l2_flushed": {x: t[x]["cold"] for x in ("staged", "packed")},
+        "m_ms_loop": {x: t[x]["loop"] for x in ("staged", "packed")},
+        "m_ms_in_path": p, "plain_ms": pm,
+        "bound_ms": {x: {"bytes": bound(w["bytes"], 0)[0],
+                         "operations": bound(0, w["ops"])[0]}
+                     for x, w in (("staged", ws), ("packed", wp))}}
+        for ws, wp, t, p, pm in zip(work["staged"], work["packed"], pairs,
+                                    m_path, plain_ms)]
+    emit({"phase": "bigmesh_forward", "card": smi,
+          "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
+          "host_seconds": host_s,
+          "tables": {"triangles": scene.n_tris, "clusters": k,
+                     "cluster_width": scene.n_tris // k,
+                     "double_sided": int(scene.tri_double.sum()),
+                     "spheres": scene.n_spheres, "lights": scene.n_lights,
+                     "packed_min_tris": search_ops.PACKED_MIN_TRIS},
+          "launches": launches, "plain_calls": n_plain,
+          "image_mean": float(img.mean()) / SPP,
+          "m_checks": checks,
+          "m_vs_plain": "wave 0's calls on every lane, the others' first "
+                        f"chunk ({CHUNK} rays)",
+          "m_max_abs_err": err, "probe": probe,
+          "search_tables_build": tables,
+          **timing["fields"],
+          "search_per_bounce": per_bounce})
+    return {"launches": launches, "scene": scene, "key": key,
+            "name": m_on.name, "err": err, "pairs": pairs,
+            "in_path": timing["in_path"][m_on.name], "plain_ms": plain_ms,
+            "work": work, "host_s": host_s}
+
+
+def bigmesh_train(dev, smi, fwd) -> dict:
+    """``bench.py``'s training step on the million-triangle mesh
+    (:func:`main_path_train`): per step SPP * DEPTH launches each of K, M
+    (the gate's input), F and F', none of M's other input, A, B, O, J, H,
+    J' or H', B' for F''s light-table partials and the glue's row sums,
+    no plain call; gradients over every float leaf finite, bitwise equal
+    over two steps and non-zero on ``tri_v0``, ``tex_color`` and
+    ``light_c``; then one step with M's other input
+    (``tools/search_times.pack_gate``): its SPP * DEPTH launches of that
+    input and every gradient bitwise the gate's. Step ms, forward and
+    backward apart, a profiled one-wave step, peak memory. Emits
+    ``bigmesh_train``."""
+    scene = fwd["scene"]
+    m_on, m_off = m_variants(scene.n_tris)
+    fwd_names = ("tile_enter", m_on.name, "bounce_planes")
+    t = main_path_train(
+        "bigmesh", scene, fwd["key"],
+        (tile_enter_kernel, m_on) + FUSED_KERNELS + FUSED_BWD_KERNELS,
+        SPLIT_KERNELS + SPLIT_BWD_KERNELS + WHOLE_WAVE_KERNELS + (m_off,),
+        ("tri_v0", "tex_color", "light_c"),
+        {"tile_enter": "tile_enter_kernel",
+         m_on.name: search_times.m_profiler_name(m_on.packed),
+         "bounce_planes": "bounce_planes_kernel",
+         "bounce_planes_bwd": "bounce_planes_bwd_kernel"},
+        fwd_names, ("bounce_planes_bwd",), 2, dev, splits=1)
+    before = m_off.launches
+    with search_times.pack_gate(not m_on.packed):
+        _, grads_o = t["step"]()
+    torch.cuda.synchronize()
+    other = m_off.launches - before
+    differ = [k for k, v in t["grads"].items()
+              if not torch.equal(v, grads_o[k])]
+    if other != SPP * DEPTH or differ:
+        raise AssertionError(f"bigmesh: the step with M's other input "
+                             f"launched it {other} times; gradients differ "
+                             f"on {differ}")
+    emit({"phase": "bigmesh_train", "card": smi,
+          "shape": [HEIGHT, WIDTH, SPP, DEPTH], "chunk_size": CHUNK,
+          **t["fields"], "other_input": m_off.name,
+          "other_input_launches": other,
+          "grads_bitwise_other_input": True})
+    return {"launches": t["launches"]}
+
+
+def bigmesh_rows(fwd, train) -> list[dict]:
+    """The ``{"kernels": [...]}`` row of M's packed input (the big mesh's
+    forward): launches on the main path; device ms per launch out of L2
+    (``ms``; the staged input's beside it, timed in turns) and in the
+    path, the plain version's, each averaged over wave 0's four calls;
+    the bound of one launch over the same calls from this run's data,
+    the in-kernel assembly's operations included."""
+    n_w = DEPTH
+    wp = fwd["work"]["packed"]
+    nb = sum(w["bytes"] for w in wp) / n_w
+    ops = sum(w["ops"] for w in wp) / n_w
+    b_ms, b_by = bound(nb, ops)
+    name = K.fused_search_packed_kernel.name
+    return [{"name": name, "route": "cuda",
+             "source": "rust_ray_tracer_tpu_torch/csrc/search.cu",
+             "replaces": "rust_ray_tracer_tpu/ops/pallas_intersect.py:959",
+             "also_replaces": "rust_ray_tracer_tpu/ops/pallas_intersect.py:"
+                              "1019",
+             **m_packed_fields(),
+             "launches": fwd["launches"][name],
+             "launches_train": train["launches"][name],
+             "max_abs_err": fwd["err"],
+             "ms": statistics.fmean(p["packed"]["cold"]
+                                    for p in fwd["pairs"]),
+             "ms_staged_input": statistics.fmean(p["staged"]["cold"]
+                                                 for p in fwd["pairs"]),
+             "ms_in_path": fwd["in_path"],
+             "plain_ms": statistics.fmean(fwd["plain_ms"]),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "bound_ms_bytes": bound(nb, 0)[0],
+             "bound_ms_operations": bound(0, ops)[0],
+             "library_ms": None, "bytes_per_launch": nb,
+             "operations_per_launch": ops,
+             "assemble_ops_per_launch": sum(w["assemble_ops"]
+                                            for w in wp) / n_w}]
+
+
+def m_packed_fields() -> dict:
+    """What a kernels row of M's packed input adds: the JAX variant it
+    ports and the ptxas lines of its instance and of the probe."""
+    return {"variant": "packed=True: _coeffs_from_pack, "
+                       "rust_ray_tracer_tpu/ops/pallas_intersect.py:394",
+            "ptxas": [r for r in ptxas_report(K.build("search").log)
+                      if "ILb1E" in r["function"]
+                      or "packed_rows_probe" in r["function"]]}
 
 
 @contextlib.contextmanager
@@ -2669,7 +2998,7 @@ def tri_scene_phase(dev, smi) -> dict:
         full = cull_vs_plain(rec, "L scene full size", range(DEPTH))
         full.update(enter_every_bounce(rec, "L scene full size"))
     names = {"tile_enter": "tile_enter_kernel",
-             "tri_search": "fused_search_kernel",
+             "tri_search": M_STAGED,
              "sph_search": "sph_search_kernel",
              "hit_attrs": "hit_attrs_kernel",
              "shade_update": "shade_update_kernel"}
@@ -2678,7 +3007,7 @@ def tri_scene_phase(dev, smi) -> dict:
     in_path = {n: (per.get(k) or {}).get("ms_per_launch")
                for n, k in names.items()}
     l_path = search_times.device_ms_in_order(lambda: render(1),
-                                             "fused_search_kernel")
+                                             M_STAGED)
     with torch.no_grad():
         l_cold = [median(cold_ms(lambda c=c: tri_search_kernel(*c)))
                   for c in rec["tri"]]
@@ -2921,14 +3250,18 @@ def gltf_lights_forward(dev, smi, paths) -> dict:
         work_wide = shade_work(wide["shade"])
     del rec16, calls16, cots16, wide
 
-    timing = forward_timing(render, {n: f"{n}_kernel" for n in (
-        "tile_enter", "fused_search", "hit_attrs", "shade")}, 5, dev)
+    timing = forward_timing(render, {
+        **{n: f"{n}_kernel" for n in ("tile_enter", "hit_attrs", "shade")},
+        "fused_search": M_STAGED}, 5, dev)
     # M on every bounce's recorded inputs out of L2 and in the path (the
     # profiler's launches in bounce order), its work by stage
-    m_cold = bounce_times([(lambda c=c: fused_search_kernel(*c), None)
-                           for c in rec["search"]])["cold"]
+    m_times = bounce_times([
+        (lambda c=c: fused_search_kernel(*c),
+         lambda c=c: search_ops.fused_search_plain(*c))
+        for c in rec["search"]], 1)
+    m_cold = m_times["cold"]
     m_path = search_times.device_ms_in_order(lambda: render(1),
-                                             "fused_search_kernel")
+                                             M_STAGED)
     with torch.no_grad():
         m_work = search_work(rec)
     calls = rec["shade"]
@@ -2976,7 +3309,10 @@ def gltf_lights_forward(dev, smi, paths) -> dict:
             "ms": statistics.fmean(times["cold"]),
             "ms_in_path": timing["in_path"]["shade"],
             "plain_ms": statistics.fmean(times["plain"]), "calls": calls,
-            "scene": scene, "key": key}
+            "scene": scene, "key": key,
+            "m": {"work": m_work, "ms": statistics.fmean(m_cold),
+                  "ms_in_path": timing["in_path"]["fused_search"],
+                  "plain_ms": statistics.fmean(m_times["plain"])}}
 
 
 def gltf_lights_train(dev, smi, fwd) -> dict:
@@ -3000,7 +3336,8 @@ def gltf_lights_train(dev, smi, fwd) -> dict:
         WHOLE_WAVE_KERNELS + FUSED_KERNELS + FUSED_BWD_KERNELS
         + (shade_update_kernel, shade_update_bwd_kernel),
         ("tri_v0", "tex_color", "light_c", "light_r", "camera.c2w"),
-        {n: f"{n}_kernel" for n in fwd_names + bwd_names}, fwd_names,
+        {**{n: f"{n}_kernel" for n in fwd_names + bwd_names},
+         "fused_search": M_STAGED}, fwd_names,
         bwd_names, 5, dev)
 
     # I' on every bounce's recorded inputs of one wave, seeded cotangents
@@ -3026,6 +3363,35 @@ def gltf_lights_train(dev, smi, fwd) -> dict:
             "ms_in_path": t["in_path"]["shade_bwd"],
             "plain_ms": statistics.fmean(times["plain"]),
             "parts": {n: statistics.fmean(v) for n, v in part_ms.items()}}
+
+
+def staged_m_row(fwd, train) -> list[dict]:
+    """The ``{"kernels": [...]}`` row of M's staged input from the 9-light
+    flagship's forward (968 triangles, 9 spheres: below the packed
+    input's gate) and training step: launches on the main path; device ms
+    per launch out of L2 and in the path, plain ms, each averaged over a
+    wave's bounces on their recorded inputs; the bound of one launch over
+    the same bounces from this run's data (``tools/search_times.
+    m_work``)."""
+    m, n_w = fwd["m"], DEPTH
+    b_ms, b_by = bound(m["work"]["m_bytes"] / n_w, m["work"]["m_ops"] / n_w)
+    return [{"name": "fused_search", "route": "cuda",
+             "source": "rust_ray_tracer_tpu_torch/csrc/search.cu",
+             "replaces": "rust_ray_tracer_tpu/ops/pallas_intersect.py:959",
+             "also_replaces": "rust_ray_tracer_tpu/ops/pallas_intersect.py:"
+                              "1019",
+             "launches": fwd["launches"]["fused_search"],
+             "launches_train": train["launches"]["fused_search"],
+             "max_abs_err": fwd["full"]["fused_search"]["max_abs_err"],
+             "ms": m["ms"], "ms_in_path": m["ms_in_path"],
+             "plain_ms": m["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": None,
+             "bytes_per_launch": m["work"]["m_bytes"] / n_w,
+             "operations_per_launch": m["work"]["m_ops"] / n_w,
+             "tests_per_launch": {
+                 k: m["work"][k] / n_w for k in (
+                     "tri_tests", "t_tests", "uv_tests", "full_cull_tests",
+                     "sph_tests", "quad_tests")}}]
 
 
 def shade_rows(fwd, train) -> list[dict]:
@@ -4572,8 +4938,13 @@ def parity_gate(smi) -> dict:
     out = {"phase": "parity_gate", "card": smi}
     env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep
            + os.environ.get("PYTHONPATH", "")}
+    from rust_ray_tracer_tpu_torch.tools.verify_gpu_parity import SCENES
     with tempfile.TemporaryDirectory() as td:
-        for label, extra in (("plain", []), ("inject", ["--inject"])):
+        # --inject perturbs no row of the card-only scenes (CARD_SCENES:
+        # the big mesh, the card against itself): the injected run leaves
+        # them out
+        for label, extra in (("plain", []),
+                             ("inject", ["--inject", *SCENES])):
             t0 = time.perf_counter()
             proc = subprocess.run(
                 [sys.executable, "-m", GATE, "--twin-cache", td, *extra],
@@ -4676,9 +5047,9 @@ def main() -> int:
     for k in ((trace_wave_kernel, trace_wave_noise_kernel,
                trace_wave_bwd_kernel, trace_wave_bwd_noise_kernel,
                bwd_reduce_kernel) + SPLIT_KERNELS + SPLIT_BWD_KERNELS
-              + SEARCH_KERNELS + FUSED_KERNELS + FUSED_BWD_KERNELS
-              + CULL_KERNELS + SHADE_KERNELS + D_KERNELS + D_BWD_KERNELS
-              + UNFUSED_KERNELS):
+              + SEARCH_KERNELS + PACKED_KERNELS + FUSED_KERNELS
+              + FUSED_BWD_KERNELS + CULL_KERNELS + SHADE_KERNELS + D_KERNELS
+              + D_BWD_KERNELS + UNFUSED_KERNELS):
         k.load()
     emit({"phase": "build", "wall_seconds": time.perf_counter() - t0,
           "shade_max_lights": K.shade_max_lights(),
@@ -4774,6 +5145,17 @@ def main() -> int:
     mesh_fwd = mesh_forward(dev, smi)
     mesh_tr = mesh_train(dev, smi, mesh_fwd)
 
+    # ---- 9a. the million-triangle mesh (512 clusters of 2,048): K, M's
+    # packed input and F forward, F' in training; the packed input held
+    # against the staged one and the plain version, the probe's rows
+    t0 = time.perf_counter()
+    big_fwd = bigmesh_forward(dev, smi)
+    big_tr = bigmesh_train(dev, smi, big_fwd)
+    big_row, = bigmesh_rows(big_fwd, big_tr)
+    del big_fwd
+    torch.cuda.empty_cache()
+    emit({"phase": "bigmesh_phases", "seconds": time.perf_counter() - t0})
+
     # ---- 10. the earth map (image textures): earth and final_scene at
     # 64x64, random's N path at full size (forward, training step), the
     # L check scene; the map lives in a temporary working directory
@@ -4864,9 +5246,12 @@ def main() -> int:
             + split_bwd_rows(final_tr, small_split)
             + mesh_rows(mesh_fwd, mesh_tr, small_split)
             + cull_rows(rand_e_fwd, tri)
-            + shade_rows(gltf_fwd, gltf_tr)
+            + shade_rows(gltf_fwd, gltf_tr) + staged_m_row(gltf_fwd, gltf_tr)
             + fused_rows(d_checks, d_trains)
             + unfused_rows(u_checks, u_fwd, u_train))
+    # M's packed input: the mesh's row (the gate takes it from 65,536
+    # triangles) with the big mesh's beside it
+    next(r for r in rows if r["name"] == big_row["name"])["bigmesh"] = big_row
     # the compact route's launches a training step, by scene
     for c in compact:
         for r in rows:

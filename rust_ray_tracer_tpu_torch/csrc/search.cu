@@ -119,7 +119,32 @@
 //     (10 KB each), the next cluster's copied by cp.async while the
 //     current one is swept, every lane of a warp reading the same row (a
 //     broadcast). The sphere and quad rows are read from global memory,
-//     also as broadcasts, by the packed rays alone.
+//     also as broadcasts, by the packed rays alone. A cluster wider than
+//     128 rows (compile_scene widens them past 65,536 triangles so at most
+//     512 remain: 256 to 2,048 rows) is width / 128 stages, swept in row
+//     order within the cluster.
+//
+// M's packed input (fused_search_kernel<true>, fused_search_packed_launch;
+// replaces the same two grids with packed=True, pallas_intersect.py:808,
+// whose kernels build the rows with _coeffs_from_pack, :394-431). The
+// table is [T, 10] (v0, e1, e2, the double-sided flag; ops/search.py
+// packed_rows), 40 bytes a triangle against the compact row's 80, so a
+// 1,048,576-triangle mesh is 42 MB (inside the H100's 50 MB L2) instead of
+// 84 MB, and the tables need no [10, T] temporaries. Each stage copies its
+// 128 packed rows (5,120 contiguous bytes) by cp.async into one of two
+// raw buffers; after they land, threads 0-127 each assemble one compact
+// row into the buffer the sweep reads (assemble_row: the cross product,
+// |n|, 1 / |n| and the products by it, ops/search.py assemble_rows' order,
+// which is intersect._tri_coeffs'), and the sweep runs unchanged. With
+// --fmad=false, IEEE sqrtf and division, the assembled rows are the
+// compact rows bit for bit (the probe packed_rows_probe_launch writes them
+// out, so the card checks every row), hence the same winners, ties
+// included. What it adds per (live tile, swept cluster), whatever the
+// tile's live rays: per triangle the three cross products (27), |n|^2
+// (5), the guard, 1 / |n|, n / |n| (3), the t constant (6), the products
+// by 1 / |n| (12) and the negations (12): about 70 fp32 operations with a
+// square root and a division (tools/search_times.py OPS_M_ASSEMBLE), and
+// one more barrier a stage; against that, half the table's bytes.
 //
 // Why the compact sums are the plain version's. The plain version sums
 // all ten products of a row in feature order; the kernel sums the live
@@ -161,6 +186,8 @@ constexpr int STAGE = 128;       // triangle rows staged at a time
 constexpr int TRI_ROW = 20;      // floats of a compact triangle row
 constexpr int ROW_F4 = TRI_ROW / 4;
 constexpr int STAGE_F4 = STAGE * ROW_F4;
+constexpr int PACK_ROW = 10;     // floats of a packed row: v0, e1, e2, flag
+constexpr int PACK_STAGE_F4 = STAGE * PACK_ROW / 4;  // 5,120 bytes
 constexpr int SMALL = 128;       // the sphere and quad tables' row bound
 constexpr float CULL_EPS = 1e-3f;
 constexpr int ENTER_CPB = 64;    // K's clusters a block, at most
@@ -369,11 +396,70 @@ __device__ __forceinline__ float4* search_dyn_smem() {
   return search_dyn;
 }
 
+// The compact row (ops/search.py compact_rows: det | t_o0, t_o1 t_o2 t_1
+// flag, u, v) of the packed row `pk` (v0, e1, e2, flag) into `row`, in
+// ops/search.py assemble_rows' order of operations (intersect._tri_coeffs'
+// and JAX's _coeffs_from_pack): with --fmad=false and IEEE sqrtf and
+// division, the compact row of the same triangle bit for bit.
+__device__ __forceinline__ void assemble_row(const float* __restrict__ pk,
+                                             float4* __restrict__ row) {
+  const float v0x = pk[0], v0y = pk[1], v0z = pk[2];
+  const float e1x = pk[3], e1y = pk[4], e1z = pk[5];
+  const float e2x = pk[6], e2y = pk[7], e2z = pk[8];
+  const float nx = e1y * e2z - e1z * e2y;
+  const float ny = e1z * e2x - e1x * e2z;
+  const float nz = e1x * e2y - e1y * e2x;
+  const float nl = sqrtf(nx * nx + ny * ny + nz * nz);
+  const float inv_n = 1.f / (nl > 0.f ? nl : 1.f);
+  const float nhx = nx * inv_n, nhy = ny * inv_n, nhz = nz * inv_n;
+  const float c1x = e2y * v0z - e2z * v0y;   // cross(e2, v0)
+  const float c1y = e2z * v0x - e2x * v0z;
+  const float c1z = e2x * v0y - e2y * v0x;
+  const float c2x = v0y * e1z - v0z * e1y;   // cross(v0, e1)
+  const float c2y = v0z * e1x - v0x * e1z;
+  const float c2z = v0x * e1y - v0y * e1x;
+  const float t_1 = -(v0x * nhx + v0y * nhy + v0z * nhz);
+  row[0] = make_float4(-nhx, -nhy, -nhz, nhx);
+  row[1] = make_float4(nhy, nhz, t_1, pk[9]);
+  row[2] = make_float4(-c1x * inv_n, -c1y * inv_n, -c1z * inv_n,
+                       e2x * inv_n);
+  row[3] = make_float4(e2y * inv_n, e2z * inv_n, -c2x * inv_n,
+                       -c2y * inv_n);
+  row[4] = make_float4(-c2z * inv_n, -e1x * inv_n, -e1y * inv_n,
+                       -e1z * inv_n);
+}
+
+// Copy the STAGE rows from row `row0` of table `tab` (PACKED: [T, 10]
+// packed rows, else [T, 20] compact rows) into `dst` by cp.async, every
+// thread of the block taking every BC-th 16-byte piece. row0 is a
+// multiple of STAGE, so the pieces are 16-byte aligned.
+template <bool PACKED>
+__device__ __forceinline__ void stage_copy(const float* __restrict__ tab,
+                                           size_t row0, float4* dst) {
+  constexpr int row_f = PACKED ? PACK_ROW : TRI_ROW;
+  constexpr int pieces = PACKED ? PACK_STAGE_F4 : STAGE_F4;
+  const float4* __restrict__ from =
+      reinterpret_cast<const float4*>(tab + row0 * row_f);
+  for (int i = threadIdx.x; i < pieces; i += BC)
+    __pipeline_memcpy_async(dst + i, from + i, sizeof(float4));
+}
+
+// Threads 0..STAGE-1 each assemble one row of the packed stage `raw` into
+// the compact stage `rows`; the caller synchronises before and after.
+__device__ __forceinline__ void stage_assemble(const float4* raw,
+                                               float4* rows) {
+  const int q = threadIdx.x;
+  if (q < STAGE)
+    assemble_row(reinterpret_cast<const float*>(raw) + q * PACK_ROW,
+                 rows + q * ROW_F4);
+}
+
 // M: rays [9, n]; ent [n_tiles, k] (K's, or one +inf column without
 // triangles); order [n_tiles, k] each tile's clusters by ascending entry
 // (a stable argsort of ent's rows; null without triangles); perm [n] or
-// null; tri [n_tris, 20] compact rows, `width` rows a cluster
-// (a multiple of STAGE, n_tris = k * width); sph [n_sph, 9] (c0, c1 - c0,
+// null; tri [n_tris, 20] compact rows (PACKED: [n_tris, 10] packed rows),
+// `width` rows a cluster (a multiple of STAGE, n_tris = k * width); sph
+// [n_sph, 9] (c0, c1 - c0,
 // t0, 1 / (t1 - t0), r); quad [n_quad, 9] (q, u, v). best_t [n] (inf:
 // none), best_kind [n], best_idx [n] (the index within its kind's table;
 // 0 for none), at each ray's own index. merge ([n + n_tiles], every word
@@ -383,6 +469,7 @@ __device__ __forceinline__ float4* search_dyn_smem() {
 // integer atomicMin of the ordered t bits and the row: the same least,
 // whatever the order); the last of them (the counter merge[n + tile])
 // finishes the tile.
+template <bool PACKED>
 __global__ void __launch_bounds__(BC, M_MIN_BLOCKS)
 fused_search_kernel(const float* __restrict__ rays,
                     const float* __restrict__ ent,
@@ -455,28 +542,33 @@ fused_search_kernel(const float* __restrict__ rays,
   // ---- triangles: front to back, two staged buffers -------------------
   const int m_part = part < m ? (m - part + parts - 1) / parts : 0;
   if (m_part > 0) {
-    const float4* __restrict__ tri4 = reinterpret_cast<const float4*>(tri);
     const int spc = width / STAGE;           // stages a cluster
     const int n_st = m_part * spc;
+    // staged: two buffers of compact rows; packed: the compact rows the
+    // sweep reads, then two buffers of packed rows
     float4* stage = search_dyn_smem();
-    auto copy = [&](int st, float4* dst) {
-      const float4* __restrict__ from =
-          tri4 + ((size_t)cluster_at(st / spc) * width + (st % spc) * STAGE)
-                     * ROW_F4;
-      for (int i = s; i < STAGE_F4; i += BC)
-        __pipeline_memcpy_async(dst + i, from + i, sizeof(float4));
+    constexpr int in_f4 = PACKED ? PACK_STAGE_F4 : STAGE_F4;
+    float4* in = PACKED ? stage + STAGE_F4 : stage;
+    auto copy = [&](int st) {
+      stage_copy<PACKED>(
+          tri, (size_t)cluster_at(st / spc) * width + (st % spc) * STAGE,
+          in + (st & 1) * in_f4);
     };
-    copy(0, stage);
+    copy(0);
     __pipeline_commit();
     for (int st = 0; st < n_st; ++st) {
       const int c = cluster_at(st / spc);
-      __syncthreads();                       // stage st - 1's buffer is read
-      if (st + 1 < n_st) copy(st + 1, stage + ((st + 1) & 1) * STAGE_F4);
+      __syncthreads();                       // stage st - 1's buffers are read
+      if (st + 1 < n_st) copy(st + 1);
       __pipeline_commit();
       __pipeline_wait_prior(1);
       __syncthreads();                       // stage st is in place
+      if (PACKED) {
+        stage_assemble(in + (st & 1) * in_f4, stage);
+        __syncthreads();                     // its compact rows are built
+      }
       if (!mine) continue;                   // warps past the packed rays too
-      const float4* buf = stage + (st & 1) * STAGE_F4;
+      const float4* buf = PACKED ? stage : stage + (st & 1) * STAGE_F4;
       const int base = c * width + (st % spc) * STAGE;
       for (int q = 0; q < STAGE; ++q) {
         const float4* r = buf + q * ROW_F4;
@@ -610,9 +702,56 @@ int n_tiles(int n, int chunk) {
   return n / chunk * ((chunk + BC - 1) / BC);
 }
 
-// M's dynamic shared memory: the two stages, with triangles.
-size_t search_smem(bool triangles) {
-  return triangles ? 2 * STAGE_F4 * sizeof(float4) : 0;
+// M's dynamic shared memory with triangles: two stages of compact rows,
+// or (packed) one of compact rows and two of packed rows.
+size_t search_smem(bool triangles, bool packed) {
+  if (!triangles) return 0;
+  return (packed ? STAGE_F4 + 2 * PACK_STAGE_F4 : 2 * STAGE_F4) *
+         sizeof(float4);
+}
+
+// The probe of M's packed input: block b copies packed rows [b * STAGE,
+// b * STAGE + STAGE) of `pack` [n, 10] into shared memory as M's stages
+// do, assembles them as M does, and writes the compact rows to `out`
+// [n, 20]. No render launches it; it holds M's assembly against
+// ops/search.py compact_rows(_tri_coeffs(...)) on every row.
+__global__ void __launch_bounds__(BC)
+packed_rows_probe_kernel(const float* __restrict__ pack,
+                         float* __restrict__ out) {
+  __shared__ float4 raw[PACK_STAGE_F4];
+  __shared__ float4 rows[STAGE_F4];
+  stage_copy<true>(pack, (size_t)blockIdx.x * STAGE, raw);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  stage_assemble(raw, rows);
+  __syncthreads();
+  float4* __restrict__ dst =
+      reinterpret_cast<float4*>(out) + (size_t)blockIdx.x * STAGE_F4;
+  for (int i = threadIdx.x; i < STAGE_F4; i += BC) dst[i] = rows[i];
+}
+
+template <bool PACKED>
+int fused_search_launch_t(const float* rays, const float* ent,
+                          const long long* order, const long long* perm,
+                          const float* tri, const float* sph,
+                          const float* quad, int n, int chunk, int k,
+                          int width, int n_tris, int n_sph, int n_quad,
+                          float* best_t, int* best_kind, int* best_idx,
+                          unsigned long long* merge, void* stream) {
+  if (chunk <= 0 || n % chunk || n_sph > SMALL || n_quad > SMALL ||
+      (n_tris > 0 && (width <= 0 || width % STAGE || n_tris != k * width ||
+                      !order || !merge)))
+    return -1;
+  const int tiles = n_tiles(n, chunk);
+  const dim3 grid(tiles, n_tris > 0 ? MAX_PARTS : 1);
+  if (tiles > 0)
+    fused_search_kernel<PACKED>
+        <<<grid, BC, search_smem(n_tris > 0, PACKED),
+           static_cast<cudaStream_t>(stream)>>>(
+            rays, ent, order, perm, tri, sph, quad, n, chunk, k, width,
+            n_tris, n_sph, n_quad, best_t, best_kind, best_idx, merge);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -636,7 +775,7 @@ extern "C" int tile_enter_launch(const float* rays, const long long* perm,
 
 // order and merge ([n + n_tiles] words, all ones) are given with
 // triangles and null without: the tiles' clusters are split over up to
-// MAX_PARTS blocks each.
+// MAX_PARTS blocks each. tri holds compact rows [n_tris, 20].
 extern "C" int fused_search_launch(const float* rays, const float* ent,
                                    const long long* order,
                                    const long long* perm, const float* tri,
@@ -646,16 +785,33 @@ extern "C" int fused_search_launch(const float* rays, const float* ent,
                                    float* best_t, int* best_kind,
                                    int* best_idx, unsigned long long* merge,
                                    void* stream) {
-  if (chunk <= 0 || n % chunk || n_sph > SMALL || n_quad > SMALL ||
-      (n_tris > 0 && (width <= 0 || width % STAGE || n_tris != k * width ||
-                      !order || !merge)))
-    return -1;
-  const int tiles = n_tiles(n, chunk);
-  const dim3 grid(tiles, n_tris > 0 ? MAX_PARTS : 1);
-  if (tiles > 0)
-    fused_search_kernel<<<grid, BC, search_smem(n_tris > 0),
-                          static_cast<cudaStream_t>(stream)>>>(
-        rays, ent, order, perm, tri, sph, quad, n, chunk, k, width, n_tris,
-        n_sph, n_quad, best_t, best_kind, best_idx, merge);
+  return fused_search_launch_t<false>(rays, ent, order, perm, tri, sph, quad,
+                                      n, chunk, k, width, n_tris, n_sph,
+                                      n_quad, best_t, best_kind, best_idx,
+                                      merge, stream);
+}
+
+// M's packed input: tri holds packed rows [n_tris, 10] (v0, e1, e2, flag).
+extern "C" int fused_search_packed_launch(
+    const float* rays, const float* ent, const long long* order,
+    const long long* perm, const float* tri, const float* sph,
+    const float* quad, int n, int chunk, int k, int width, int n_tris,
+    int n_sph, int n_quad, float* best_t, int* best_kind, int* best_idx,
+    unsigned long long* merge, void* stream) {
+  return fused_search_launch_t<true>(rays, ent, order, perm, tri, sph, quad,
+                                     n, chunk, k, width, n_tris, n_sph,
+                                     n_quad, best_t, best_kind, best_idx,
+                                     merge, stream);
+}
+
+// The probe: the compact rows out [n, 20] M assembles from the packed rows
+// pack [n, 10]; n a multiple of STAGE.
+extern "C" int packed_rows_probe_launch(const float* pack, int n, float* out,
+                                        void* stream) {
+  if (n < 0 || n % STAGE) return -1;
+  if (n > 0)
+    packed_rows_probe_kernel<<<n / STAGE, BC, 0,
+                               static_cast<cudaStream_t>(stream)>>>(pack,
+                                                                    out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -91,7 +91,16 @@ Kernels (each wrapper counts its launches in ``launches``):
     version ``ops/search.fused_search_plain``), both reading the rays
     through ``ops/search.search_order``'s permutation where one is given,
     M reading the compact triangle rows (``ops/search.compact_rows``);
-    ``tri_search_kernel``
+    ``fused_search_packed_kernel`` (M's packed input, the same sites with
+    ``packed=True``: ``_coeffs_from_pack``), M's body reading the packed
+    vertex rows (``ops/search.packed_rows``) and assembling the compact
+    rows of each stage in shared memory (plain version ``ops/search.
+    fused_search_plain``, the rows by ``assemble_rows``);
+    :func:`search_kernel` picks M's variant for a table;
+    ``packed_rows_probe_kernel``, the packed variant's stage copy and
+    assembly launched alone: a probe that holds the assembled rows against
+    ``compact_rows(_tri_coeffs(...))`` on the card (no render launches
+    it); ``tri_search_kernel``
     (TPU kernel L, ``pallas_intersect.py`` ``_kernel``, the triangle
     search alone: M's entry point launched with no sphere or quad rows,
     whose triangle test is L's; plain version
@@ -125,8 +134,8 @@ from rust_ray_tracer_tpu_torch.ops.bounce_core import N_CHK, N_IN_B
 from rust_ray_tracer_tpu_torch.ops.hit_core import N_IN as HIT_IN
 from rust_ray_tracer_tpu_torch.ops.hit_core import N_OUT as HIT_OUT
 from rust_ray_tracer_tpu_torch.ops.quad import QUAD_ROW
-from rust_ray_tracer_tpu_torch.ops.search import (N_RAY, TRI_ROW, tile_count,
-                                                  tri_only)
+from rust_ray_tracer_tpu_torch.ops.search import (N_RAY, PACK_ROW, TRI_ROW,
+                                                  tile_count, tri_only)
 from rust_ray_tracer_tpu_torch.ops.shade import N_OUT as SHADE_OUT
 from rust_ray_tracer_tpu_torch.ops.shade_core import LT_COLS, N_DATA, N_RNG
 from rust_ray_tracer_tpu_torch.ops.sphere import SPH_ROW, SUB_ROWS
@@ -1065,15 +1074,20 @@ def _check_perm(perm, dev, n):
 STAGE = 128      # triangle rows M stages at a time (csrc/search.cu)
 
 
-def _check_unified_tables(tabs, dev, k):
+def _check_unified_tables(tabs, dev, k, packed=False):
     """Check the tables of kernel M (an ``ops/search.SearchTables``) for a
     launch on ``dev`` with ``k`` entry columns: the compact triangle rows
-    [T, 20] 16-byte aligned (M reads them as float4), ``k`` clusters of
-    ``width`` rows, ``width`` whole 128-row stages; the sphere and quad
-    rows [*, 9], at most 128 each."""
+    [T, 20] (``packed``: the packed rows [T, 10], and ``tabs.packed``
+    set) 16-byte aligned (M copies them in 16-byte pieces), ``k``
+    clusters of ``width`` rows, ``width`` whole 128-row stages; the
+    sphere and quad rows [*, 9], at most 128 each."""
     t_n, s_n, q_n = (tabs.tri.shape[0], tabs.sph.shape[0],
                      tabs.quad.shape[0])
-    _check("tri", tabs.tri, dev, (t_n, TRI_ROW))
+    if tabs.packed != packed:
+        raise ValueError(f"{'packed' if tabs.packed else 'staged'} tables "
+                         f"for M's {'packed' if packed else 'staged'} "
+                         "input (kernels.search_kernel picks the variant)")
+    _check("tri", tabs.tri, dev, (t_n, PACK_ROW if packed else TRI_ROW))
     _check("sph", tabs.sph, dev, (s_n, 9))
     _check("quad", tabs.quad, dev, (q_n, 9))
     if s_n > 128 or q_n > 128:
@@ -1084,8 +1098,8 @@ def _check_unified_tables(tabs, dev, k):
             raise ValueError(f"{t_n} triangles are not {k} clusters of "
                              f"{tabs.width} (whole {STAGE}-row stages)")
         if tabs.tri.data_ptr() % 16:
-            raise ValueError("tri must be 16-byte aligned (M reads its "
-                             "rows as float4)")
+            raise ValueError("tri must be 16-byte aligned (M copies its "
+                             "rows in 16-byte pieces)")
 
 
 class TileEnterKernel(_Kernel):
@@ -1139,6 +1153,7 @@ class FusedSearchKernel(_Kernel):
     library = "search"
     entry = "fused_search_launch"
     argtypes = (_P,) * 7 + (_I,) * 7 + (_P,) * 4
+    packed = False
 
     def __call__(self, rays, ent, tabs, chunk=None, perm=None):
         """``rays`` [9, N] planes, ``ent`` [n_tiles, K] (kernel K's, or one
@@ -1156,7 +1171,7 @@ class FusedSearchKernel(_Kernel):
         _check("rays", rays, dev, (N_RAY, n))
         _check_perm(perm, dev, n)
         _check("ent", ent, dev, (tile_count(n, chunk), k))
-        _check_unified_tables(tabs, dev, k)
+        _check_unified_tables(tabs, dev, k, self.packed)
         self.load()
         order = merge = None
         if tabs.tri.shape[0]:
@@ -1175,6 +1190,48 @@ class FusedSearchKernel(_Kernel):
                      tabs.quad.shape[0], _ptr(best_t), _ptr(best_k),
                      _ptr(best_i), _ptr_or_null(merge))
         return best_t, best_k, best_i
+
+
+class FusedSearchPackedKernel(FusedSearchKernel):
+    """ctypes wrapper of ``fused_search_packed_launch``: kernel M's packed
+    input (``fused_search_kernel<true>``), the same call and results as
+    :class:`FusedSearchKernel`'s on tables whose triangles are packed
+    rows (``ops/search.search_tables(..., packed=True)``); it counts its
+    own launches."""
+
+    name = "fused_search_packed"
+    entry = "fused_search_packed_launch"
+    packed = True
+
+
+class PackedRowsProbeKernel(_Kernel):
+    """ctypes wrapper of ``packed_rows_probe_launch``: M's packed stage
+    copy and row assembly launched alone on a packed table, to hold the
+    rows M sweeps against ``ops/search.compact_rows(_tri_coeffs(...))`` on
+    the card. No render calls it; ``chip_smoke.py`` and
+    ``tests/test_torch_gpu.py`` do."""
+
+    name = "packed_rows_probe"
+    library = "search"
+    entry = "packed_rows_probe_launch"
+    argtypes = (_P, _I, _P)
+
+    def __call__(self, pack: torch.Tensor) -> torch.Tensor:
+        """[T, 20] compact rows assembled from the packed rows ``pack``
+        [T, 10] (T a multiple of 128), on one CUDA device."""
+        dev = pack.device
+        if dev.type != "cuda":
+            raise ValueError(f"packed_rows_probe needs CUDA tensors, got "
+                             f"{dev}")
+        n = pack.shape[0]
+        _check("pack", pack, dev, (n, PACK_ROW))
+        if n % STAGE or pack.data_ptr() % 16:
+            raise ValueError(f"{n} packed rows: whole {STAGE}-row stages, "
+                             "16-byte aligned")
+        self.load()
+        out = torch.empty((n, TRI_ROW), dtype=torch.float32, device=dev)
+        self._launch(dev, _ptr(pack), n, _ptr(out))
+        return out
 
 
 class TriSearchKernel(FusedSearchKernel):
@@ -1353,10 +1410,19 @@ bounce_planes_live_kernel = BouncePlanesLiveKernel()
 bounce_planes_live_bwd_kernel = BouncePlanesLiveBwdKernel()
 tile_enter_kernel = TileEnterKernel()
 fused_search_kernel = FusedSearchKernel()
+fused_search_packed_kernel = FusedSearchPackedKernel()
+packed_rows_probe_kernel = PackedRowsProbeKernel()
 tri_search_kernel = TriSearchKernel()
 sph_search_kernel = SphSearchKernel()
 shade_kernel = ShadeKernel()
 shade_bwd_kernel = ShadeBwdKernel()
+
+
+def search_kernel(tabs) -> FusedSearchKernel:
+    """Kernel M's variant for the tables ``tabs`` (an ``ops/search.
+    SearchTables``): the packed input for packed rows, else the staged
+    one."""
+    return fused_search_packed_kernel if tabs.packed else fused_search_kernel
 
 
 def trace_wave_occupancy(library: str, triangles: bool = True,

@@ -116,8 +116,9 @@ class SplitTables:
     ``ops/intersect.winner_table``; ``med_rows`` [M, 2 + A] a medium
     winner's flip | material id | attrs; ``unified`` whether phase 1
     takes the unified search (``ops/search.unified``); ``search`` its
-    tables, or on the per-kind branch kernel L's (``ops/search.
-    search_tables``; None there without triangles); ``sph`` kernel N's
+    tables (packed rows from ``ops/search.PACKED_MIN_TRIS`` triangles on),
+    or on the per-kind branch kernel L's (``ops/search.search_tables``,
+    compact rows; None there without triangles); ``sph`` kernel N's
     table (``ops/sphere.sph_table``; None below ``CLUSTER`` sphere rows
     or on the unified branch) and ``sph_boxes`` its sub-boxes
     (``ops/sphere.sph_boxes``; None with it); ``quads`` [Q, 9] kernel O's
@@ -164,7 +165,9 @@ def make_split_tables(scene) -> SplitTables:
     return SplitTables(
         uni=uni, dflt=dflt, t_off=t_off, s_off=s_off, q_off=q_off,
         med_rows=med_rows, unified=unified,
-        search=(search_ops.search_tables(scene)
+        # the unified search takes the packed input from PACKED_MIN_TRIS
+        # triangles on (no [10, T] temporaries); L always the staged one
+        search=(search_ops.search_tables(scene, None if unified else False)
                 if unified or scene.n_tris else None),
         sph=sphere_ops.sph_table(scene) if sph_n else None,
         sph_boxes=sphere_ops.sph_boxes(scene) if sph_n else None,

@@ -330,7 +330,9 @@ def intersect_select(scene, o, d, time, tables, med_u=None, t_min=None,
         ``chunk``'s first ray (the whole input is one chunk when None);
         from ``ops/search.PACKED_MIN_TRIS`` triangles on, the rays of each
         chunk sorted first (``ops/search.search_order``, JAX's
-        ``_search_order``: dead last, then octant and Morton order);
+        ``_search_order``: dead last, then octant and Morton order) and M
+        reading the triangles packed (``tables.search``), the same winners
+        as the staged input's;
       * otherwise (``intersect.py:640-653``) triangles (K's entries and
         TPU kernel L, ``ops/search.tri_candidates``), spheres (TPU kernel
         N from ``CLUSTER`` rows up, ``ops/sphere.sph_search``; plain torch

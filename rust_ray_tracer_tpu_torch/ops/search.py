@@ -53,14 +53,29 @@ every ray of a tile tests every cluster some ray of the tile enters.
     (``perm``): the tiles hold the sorted rays, and the winners come back
     in the rays' own order.
 
-The triangle table is compact (:data:`TRI_ROW` floats a row,
-:func:`compact_rows`): the columns of ``_tri_coeffs``' rows that are not
-structural zeros, and the double-sided flag. The plain versions expand a
-row back to the four 10-term rows (:func:`full_rows`) and sum every term;
-kernels M and L sum the live terms alone (``csrc/search.cu``'s header
-says why the sums agree). The TPU's in-kernel coefficient assembly for big
-meshes (``packed``, ``_coeffs_from_pack``) selects the same winners; it
-saves HBM bytes and is not ported (ROADMAP queue 2).
+The triangle table comes in one of two inputs (``SearchTables.packed``):
+
+  * staged (below :data:`PACKED_MIN_TRIS` triangles): compact rows
+    (:data:`TRI_ROW` floats a row, :func:`compact_rows`), the columns of
+    ``_tri_coeffs``' rows that are not structural zeros, and the
+    double-sided flag;
+  * packed (from :data:`PACKED_MIN_TRIS` on: JAX's ``INKERNEL_COEFFS``
+    automatic choice, ``pallas_intersect.py:808``): the vertex rows
+    (:data:`PACK_ROW` floats a row, :func:`packed_rows`) v0, e1, e2 and
+    the flag, [T, 10] so a stage of 128 rows is 5,120 contiguous bytes
+    that kernel M copies in 16-byte pieces. M builds each staged
+    cluster's compact rows from them in shared memory
+    (``_coeffs_from_pack``, ``pallas_intersect.py:394-431``), in
+    :func:`assemble_rows`' order, which is ``_tri_coeffs``': the compact
+    rows bit for bit, so both inputs give the same winners, ties
+    included, and the gate decides only speed. Half the bytes a row (40
+    against 80), and no [10, T] temporaries when the tables are built.
+
+The plain versions expand a compact row back to the four 10-term rows
+(:func:`full_rows`) and sum every term (a packed table's rows assembled
+first); kernels M and L sum the live terms alone (``csrc/search.cu``'s
+header says why the sums agree). L (the per-kind branch) always takes the
+staged input, as JAX's ``tri_search`` takes the coefficient tables.
 """
 
 from __future__ import annotations
@@ -77,8 +92,9 @@ from rust_ray_tracer_tpu_torch.ops.intersect import (KIND_QUAD, KIND_SPH,
 BC = 256                # rays per tile (pallas_intersect.py:62)
 CULL_EPS = 1e-3         # the cull box margin (_mask_kernel)
 N_RAY = 9               # ray planes: o(3) d(3) time t_min t_max
-# the sort's gate: triangles from which phase 1 sorts the rays
-# (pallas_intersect.py:78, intersect.py:626)
+# triangles from which phase 1 sorts the rays and the unified search
+# takes the packed vertex rows (pallas_intersect.py:78, :808;
+# intersect.py:626)
 PACKED_MIN_TRIS = 65536
 DEAD_KEY = 0x7FFFFFFF   # a dead lane's sort key: after every live one
 
@@ -93,6 +109,7 @@ TRI_LIVE = ((DET, (3, 4, 5)), (T, (0, 1, 2, 9)), (U, (3, 4, 5, 6, 7, 8)),
             (V, (3, 4, 5, 6, 7, 8)))
 TRI_FLAG = 7            # the flag's column, between t's terms and u's
 TRI_ROW = 20            # floats a compact row (19 coefficients, the flag)
+PACK_ROW = 10           # floats a packed row: v0, e1, e2, the flag
 
 
 @dataclasses.dataclass
@@ -101,10 +118,11 @@ class SearchTables:
     ``tri`` [T, 20] a triangle's compact row (:func:`compact_rows`: the
     live terms of its Plücker rows det, u_num, v_num, t_num over the ray
     features [o, d, o x d, 1], ``intersect._tri_coeffs``, and its
-    double-sided flag); ``cl_min`` / ``cl_max`` [K, 3] the cluster
-    boxes (inverted for an all-pad cluster); ``width`` triangles a
-    cluster; ``sph`` [S, 9] c0, c1 - c0, t0, 1 / (t1 - t0), r; ``quad``
-    [Q, 9] q, u, v. Empty kinds have 0 rows."""
+    double-sided flag), or with ``packed`` [T, 10] its packed row
+    (:func:`packed_rows`: v0, e1, e2, the flag); ``cl_min`` / ``cl_max``
+    [K, 3] the cluster boxes (inverted for an all-pad cluster); ``width``
+    triangles a cluster; ``sph`` [S, 9] c0, c1 - c0, t0, 1 / (t1 - t0),
+    r; ``quad`` [Q, 9] q, u, v. Empty kinds have 0 rows."""
 
     tri: torch.Tensor
     cl_min: torch.Tensor
@@ -112,6 +130,7 @@ class SearchTables:
     width: int
     sph: torch.Tensor
     quad: torch.Tensor
+    packed: bool = False
 
 
 def unified(scene) -> bool:
@@ -147,6 +166,48 @@ def full_rows(tri):
     return (*out, tri[:, TRI_FLAG:TRI_FLAG + 1])
 
 
+def packed_rows(scene):
+    """[T, 10] packed rows of ``scene``'s triangles: v0, e1, e2 and the
+    double-sided flag, the columns of JAX's packed [10, T] table
+    (``pallas_intersect.py:817-821``) one row a triangle."""
+    v0 = scene.tri_v0
+    return torch.cat([v0, scene.tri_e1, scene.tri_e2,
+                      scene.tri_double.to(v0.dtype)[:, None]], dim=1)
+
+
+def assemble_rows(pack):
+    """[R, 20] compact rows of the packed rows ``pack`` [R, 10]: the plain
+    version of kernel M's in-kernel assembly (``_coeffs_from_pack``,
+    ``pallas_intersect.py:394-431``), in ``intersect._tri_coeffs``' order
+    of operations (the cross products, ``_sum3``, ``sqrt``, the ``nl >
+    0`` guard, ``1 / nl``, the products by ``inv_n``), so the rows are
+    ``compact_rows(_tri_coeffs(...))``'s bit for bit."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, dbl = pack.T
+    nx = e1y * e2z - e1z * e2y
+    ny = e1z * e2x - e1x * e2z
+    nz = e1x * e2y - e1y * e2x
+    nl = torch.sqrt(nx * nx + ny * ny + nz * nz)
+    inv_n = 1.0 / torch.where(nl > 0, nl, torch.ones_like(nl))
+    nhx, nhy, nhz = nx * inv_n, ny * inv_n, nz * inv_n
+    c1 = (e2y * v0z - e2z * v0y, e2z * v0x - e2x * v0z,
+          e2x * v0y - e2y * v0x)                  # cross(e2, v0)
+    c2 = (v0y * e1z - v0z * e1y, v0z * e1x - v0x * e1z,
+          v0x * e1y - v0y * e1x)                  # cross(v0, e1)
+    t_1 = -(v0x * nhx + v0y * nhy + v0z * nhz)
+    cols = ([-nhx, -nhy, -nhz, nhx, nhy, nhz, t_1, dbl]
+            + [-c * inv_n for c in c1] + [e * inv_n for e in (e2x, e2y, e2z)]
+            + [-c * inv_n for c in c2]
+            + [-e * inv_n for e in (e1x, e1y, e1z)])
+    return torch.stack(cols, dim=1)
+
+
+def tri_rows(tabs: SearchTables, rows=None):
+    """The compact rows [R, 20] of ``tabs``' triangles ``rows`` (all of
+    them when None): as stored, or assembled from the packed rows."""
+    tri = tabs.tri if rows is None else tabs.tri[rows]
+    return assemble_rows(tri) if tabs.packed else tri
+
+
 def sphere_rows(scene):
     """[S, 9] rows of the sphere table (``fused_search``'s, ``:566-577``):
     c0, c1 - c0, t0, 1 / (t1 - t0) (|t1 - t0| floored at 1e-12), r."""
@@ -159,21 +220,34 @@ def sphere_rows(scene):
                       scene.sph_r[:, None]], dim=1)
 
 
-def search_tables(scene) -> SearchTables:
-    """The unified search's tables of ``scene``, detached."""
+def packed_input(n_tris: int) -> bool:
+    """Does the unified search of ``n_tris`` triangles take the packed
+    input: JAX's automatic choice (``pallas_intersect.py:808``)."""
+    return n_tris >= PACKED_MIN_TRIS
+
+
+def search_tables(scene, packed: bool | None = None) -> SearchTables:
+    """The unified search's tables of ``scene``, detached: the triangles
+    as packed rows with ``packed``, as compact rows without, and by
+    :func:`packed_input` when None. The packed rows are built from the
+    scene's vertex tensors alone (40 bytes a triangle), the compact ones
+    through ``_tri_coeffs``' four [10, T] rows."""
     with torch.no_grad():
         f32 = torch.float32
         dev = scene.device
         t_n = scene.n_tris
+        packed = packed_input(t_n) if packed is None else packed
         if t_n:
-            tri = compact_rows(_tri_coeffs(scene.tri_v0, scene.tri_e1,
-                                           scene.tri_e2), scene.tri_double)
+            tri = (packed_rows(scene) if packed else compact_rows(
+                _tri_coeffs(scene.tri_v0, scene.tri_e1, scene.tri_e2),
+                scene.tri_double))
             k = scene.tri_cluster_min.shape[0]
             width = t_n // k
             if width * k != t_n or width % CLUSTER:
                 raise ValueError(f"{t_n} triangles in {k} clusters")
         else:
-            tri = torch.zeros((0, TRI_ROW), dtype=f32, device=dev)
+            tri = torch.zeros((0, PACK_ROW if packed else TRI_ROW),
+                              dtype=f32, device=dev)
             width = CLUSTER
         sph = (sphere_rows(scene) if scene.n_spheres
                else torch.zeros((0, 9), dtype=f32, device=dev))
@@ -182,7 +256,7 @@ def search_tables(scene) -> SearchTables:
             tri=tri.contiguous(),
             cl_min=scene.tri_cluster_min.contiguous(),
             cl_max=scene.tri_cluster_max.contiguous(), width=width,
-            sph=sph.contiguous(), quad=quad.contiguous())
+            sph=sph.contiguous(), quad=quad.contiguous(), packed=packed)
 
 
 def ray_planes(o, d, time, t_min, t_max):
@@ -411,7 +485,8 @@ def fused_search_plain(rays, ent, tabs: SearchTables,
                        chunk: int | None = None, perm=None):
     """(best t [N] float32, inf for none; kind [N] int32, 0 for none;
     index [N] int32 within its kind's table) of the rays ``rays`` [9, N]:
-    ``fused_search`` (``pallas_intersect.py:786-1072``).
+    ``fused_search`` (``pallas_intersect.py:786-1072``), either input
+    (a packed table's rows are assembled first, :func:`tri_rows`).
 
     Tile by tile, every ray tests the triangles of each cluster whose
     entry ``ent`` [n_tiles, K] (:func:`tile_enter_plain`) is finite —
@@ -441,7 +516,7 @@ def fused_search_plain(rays, ent, tabs: SearchTables,
               if t_n else cols[:0])
         if cs.numel():
             rows = (cs[:, None] * width + cols).reshape(-1)  # ascending
-            tab = tabs.tri[rows]
+            tab = tri_rows(tabs, rows)
             f = (ox, oy, oz, dx, dy, dz, oy * dz - oz * dy,
                  oz * dx - ox * dz, ox * dy - oy * dx, torch.ones_like(ox))
             valid, t = tri_tests(f, full_rows(tab), tmin, tmax)
@@ -485,15 +560,15 @@ def tile_enter(rays, cl_min, cl_max, chunk: int | None = None, perm=None):
 def fused_search(rays, ent, tabs: SearchTables, chunk: int | None = None,
                  perm=None):
     """(best t, kind, index) of :func:`fused_search_plain` for CPU
-    tensors, kernel M (``csrc/search.cu``) for CUDA tensors; ``perm`` as
-    :func:`tile_enter`'s."""
+    tensors, kernel M (``csrc/search.cu``; its packed variant for packed
+    tables) for CUDA tensors; ``perm`` as :func:`tile_enter`'s."""
     dev = rays.device.type
     if dev == "cpu":
         return fused_search_plain(rays, ent, tabs, chunk, perm)
     if dev != "cuda":
         raise ValueError(f"unsupported device {rays.device}")
-    from rust_ray_tracer_tpu_torch.kernels import fused_search_kernel
-    return fused_search_kernel(rays, ent, tabs, chunk, perm)
+    from rust_ray_tracer_tpu_torch.kernels import search_kernel
+    return search_kernel(tabs)(rays, ent, tabs, chunk, perm)
 
 
 def tri_only(tabs: SearchTables) -> SearchTables:

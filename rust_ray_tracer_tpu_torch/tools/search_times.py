@@ -128,6 +128,25 @@ bytes (:func:`copy_times`), in a one-wave forward render (J, and the
 ray counts (``HIT_ODD_N`` and the wave less one); the ptxas lines, the
 resident blocks, the grid and its rounds (:func:`hit_ptxas`).
 
+``bigmesh``: the million-triangle path (``torch_parity.bigmesh``: the
+mesh's draws written as a u32 ``.gltf`` with an external ``.bin``, read
+back by ``load_gltf_scene``) at :data:`BIGMESH_SIZES` triangles (65,536,
+262,144 and 1,048,576: clusters of 128, 512 and 2,048), each: the host
+seconds to write, load and compile; wave 0's recorded calls of K and M
+(bounces 0-3), on which M's staged input and its packed input
+(``search_tables(..., packed=False / True)``) are held bit for bit on
+every lane (t, kind, index) and timed in :data:`PAIRS` pairs of turns
+(staged, packed, then packed, staged, ...) out of L2 and in a loop, K
+out of L2, with M's tests by stage (:func:`m_work`) and each input's
+bound by bytes and by operations (the packed input's in-kernel assembly
+included, :data:`OPS_M_ASSEMBLE` a triangle of each (live tile, swept
+cluster)); a one-wave render under each input (:func:`pack_gate`) in as
+many pairs of turns, with M's ms a bounce by the profiler and the wave's
+ms, and the packed less staged difference of each pair against the
+staged turns' own spread (:func:`pair_spread`); the forward Mrays/s at
+the bench shape and one training step's (``bench.py``'s loss), with the
+gate's input, and their peak memory.
+
 ``--save`` writes A's final states and winners, E's winners, M's and
 K's of each mesh bounce (and O's of each final_scene bounce, N's of each
 random earth bounce; B's and D''s dst, keys, light-table partials and
@@ -154,6 +173,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 
 import torch
 
@@ -180,7 +200,20 @@ ROW, WARP = 128, 32
 # compares. A sphere test 40 and a quad test 45, as before
 OPS_M_DET, OPS_M_T, OPS_M_UV = 8, 12, 29
 OPS_M_SPH, OPS_M_QUAD = 40, 45
+# fp32 operations of M's packed input a triangle of each (live tile,
+# swept cluster), counted from csrc/search.cu assemble_row: the three
+# cross products 27, |n|^2 5, the square root, the guard, the division,
+# n / |n| 3, the t constant 6, the products by 1 / |n| 12, the negations
+# 12
+OPS_M_ASSEMBLE = 70
+# (ray, cluster) pairs m_work tests at once, at 128 triangles a cluster
 PAIRS_A_BATCH = 1 << 16
+# the big-mesh part's sizes: JAX's PACKED_MIN_TRIS, 4x and 16x (clusters
+# of 128, 512 and 2,048)
+BIGMESH_SIZES = (1 << 16, 1 << 18, 1 << 20)
+# pairs of turns (staged and packed, the order alternating) in which the
+# big-mesh part times M's two inputs, out of L2 and in the wave
+PAIRS = 10
 
 
 def loop_ms(fn, reps: int = 20, rounds: int = 5) -> list[float]:
@@ -453,8 +486,8 @@ def gltf9_scene(dev):
 def wave_report(scene, kernel, key_name):
     """K's and ``kernel``'s (M or L) ms out of L2 on each bounce's
     recorded calls of wave 0 of ``scene``, and ``kernel``'s in a one-wave
-    render (the profiler's launches in bounce order; both are
-    ``fused_search_kernel``)."""
+    render (the profiler's launches in bounce order; both launch M's
+    staged instance, :func:`m_profiler_name`)."""
     key = rng.key(0, scene.tri_v0.device)
 
     def render():
@@ -468,7 +501,7 @@ def wave_report(scene, kernel, key_name):
     torch.cuda.synchronize()
     k = K.tile_enter_kernel
     out = {"bounces": [], "in_path_ms": device_ms_in_order(
-        render, "fused_search_kernel")}
+        render, m_profiler_name(False))}
     for e_args, args in zip(rec["enter"], rec[key_name]):
         with torch.no_grad():
             bt = kernel(*args)[0]
@@ -481,12 +514,15 @@ def wave_report(scene, kernel, key_name):
     return out
 
 
-def _det_t_rows(tri):
+def _det_t_rows(tabs):
     """(det, t_num) [T, 10] and the flag [T] of a tree's triangle table:
-    the full rows [T, 41] (det, u, v, t, flag) or the compact rows [T, 20]
-    (``ops/search.full_rows``)."""
+    the full rows [T, 41] (det, u, v, t, flag), the compact rows [T, 20]
+    (``ops/search.full_rows``) or the packed rows [T, 10], assembled."""
+    tri = tabs.tri
     if tri.shape[1] == 41:
         return tri[:, 0:10], tri[:, 30:40], tri[:, 40]
+    if getattr(tabs, "packed", False):
+        tri = search_ops.assemble_rows(tri)
     det, _, _, t_num, flag = search_ops.full_rows(tri)
     return det, t_num, flag[:, 0]
 
@@ -506,9 +542,11 @@ def m_work(args, best_t) -> dict:
         ``uv_tests`` have t in the window at or below the final t;
       * ``ops``: ``tests`` x OPS_M_DET + ``t_tests`` x OPS_M_T +
         ``uv_tests`` x OPS_M_UV + the sphere and quad tests of every live
-        ray (OPS_M_SPH, OPS_M_QUAD); ``bytes``: the rays, the entries,
-        the tables and the permutation read once, the winners written
-        once;
+        ray (OPS_M_SPH, OPS_M_QUAD), and for a packed table the rows'
+        assembly (``assemble_ops``: ``pairs`` x the cluster width x
+        OPS_M_ASSEMBLE); ``bytes``: the rays, the entries, the tables
+        (40 bytes a packed triangle, 80 a compact one) and the
+        permutation read once, the winners written once;
       * ``live_rays``, ``live_tiles`` (tiles holding one), ``pairs`` (the
         (tile, cluster) pairs K lets through)."""
     rays, ent, tabs, chunk = args[:4]
@@ -528,17 +566,17 @@ def m_work(args, best_t) -> dict:
          else 0,
          "full_cull_tests": 0, "tests": 0, "t_tests": 0, "uv_tests": 0}
     if tabs.tri.shape[0]:
-        det, t_num, flag = _det_t_rows(tabs.tri)
+        det, t_num, flag = _det_t_rows(tabs)
         fin = torch.isfinite(ent)
         w["full_cull_tests"] = int(fin.sum(1)[tile[live]].sum()) * width
         lp = pos[live]
+        batch = max(1, PAIRS_A_BATCH * 128 // width)
         for s0 in range(0, lp.numel(), 8192):
             p = lp[s0:s0 + 8192]
             need = fin[tile[p]] & (ent[tile[p]] <= best_t[p, None])
             pr, cl = torch.nonzero(need, as_tuple=True)
-            for b0 in range(0, pr.numel(), PAIRS_A_BATCH):
-                rp, cp = p[pr[b0:b0 + PAIRS_A_BATCH]], cl[b0:b0 +
-                                                          PAIRS_A_BATCH]
+            for b0 in range(0, pr.numel(), batch):
+                rp, cp = p[pr[b0:b0 + batch]], cl[b0:b0 + batch]
                 rows = (cp[:, None] * width
                         + torch.arange(width, device=rays.device))
                 o, d = rays[0:3, rp], rays[3:6, rp]
@@ -564,8 +602,10 @@ def m_work(args, best_t) -> dict:
                 w["t_tests"] += int(seen.sum())
                 w["uv_tests"] += int(win.sum())
     n_live = w["live_rays"]
+    w["assemble_ops"] = (w["pairs"] * width * OPS_M_ASSEMBLE
+                         if getattr(tabs, "packed", False) else 0)
     w["ops"] = (w["tests"] * OPS_M_DET + w["t_tests"] * OPS_M_T
-                + w["uv_tests"] * OPS_M_UV
+                + w["uv_tests"] * OPS_M_UV + w["assemble_ops"]
                 + n_live * (tabs.sph.shape[0] * OPS_M_SPH
                             + tabs.quad.shape[0] * OPS_M_QUAD))
     w["bytes"] = (4 * (9 * n + ent.numel() + tabs.tri.numel()
@@ -607,12 +647,12 @@ def mesh_report(dev, save=None, label="", check=False):
         render()
     torch.cuda.synchronize()
     orders = rec.get("order", [])      # a tree without the sort: none
-    k, m = K.tile_enter_kernel, K.fused_search_kernel
+    k, m = K.tile_enter_kernel, K.search_kernel(rec["search"][0][2])
     out = {"triangles": scene.n_tris, "rays": WIDTH * HEIGHT,
            "sorted": bool(orders), "bounces": [],
            "winners_differing_plain": [] if check else None,
-           "m_in_path_ms": device_ms_in_order(render,
-                                              "fused_search_kernel"),
+           "m_in_path_ms": device_ms_in_order(render, m_profiler_name(
+               search_ops.packed_input(scene.n_tris))),
            "k_in_path_ms": device_ms_in_order(render, "tile_enter_kernel")}
     for b, (e_args, s_args) in enumerate(zip(rec["enter"], rec["search"])):
         with torch.no_grad():
@@ -634,6 +674,228 @@ def mesh_report(dev, save=None, label="", check=False):
             for nm, x in (("t", bt), ("kind", bk), ("idx", bi), ("ent", ent)):
                 save[f"{label}.mesh{b}.{nm}"] = x.cpu()
         out["bounces"].append(row)
+    return out
+
+
+@contextlib.contextmanager
+def pack_gate(packed: bool):
+    """Inside ``with``, the unified search takes the packed input
+    (``packed``) or the staged one at every size (``ops/search.
+    packed_input`` answers ``packed``; the sort's gate is untouched), the
+    gate back after the block. Tables built inside keep their input."""
+    prev = search_ops.packed_input
+    search_ops.packed_input = lambda n_tris: packed
+    try:
+        yield
+    finally:
+        search_ops.packed_input = prev
+
+
+def m_profiler_name(packed: bool) -> str:
+    """The profiler's name of kernel M's instance for the packed or the
+    staged input (``csrc/search.cu`` ``fused_search_kernel<PACKED>``; L
+    launches the staged one)."""
+    return f"fused_search_kernel<{'true' if packed else 'false'}>"
+
+
+def bigmesh_scene(dev, n_tris, directory):
+    """The big-mesh workload of ``n_tris`` triangles (the tree's
+    ``torch_parity.write_bigmesh`` into ``directory`` and ``bigmesh``),
+    compiled on ``dev``, and the host seconds to write, load and
+    compile."""
+    from rust_ray_tracer_tpu_torch.ops import camera as cam
+    tp = _parity()
+    t0 = time.perf_counter()
+    path = tp.write_bigmesh(directory, n_tris)
+    t1 = time.perf_counter()
+    host = tp.bigmesh(S, cam, path)
+    t2 = time.perf_counter()
+    scene = compile_scene(host, device=dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return scene, {"write_s": t1 - t0, "load_s": t2 - t1,
+                   "compile_s": t3 - t2,
+                   "bin_bytes": os.path.getsize(path[:-5] + ".bin")}
+
+
+def turn_order(pairs: int) -> list[str]:
+    """``pairs`` pairs of turns of the two inputs, the order alternating
+    from pair to pair: staged, packed, packed, staged, ..."""
+    return [who for i in range(pairs)
+            for who in (("staged", "packed") if i % 2 == 0
+                        else ("packed", "staged"))]
+
+
+def m_pair_times(run_s, run_p, pairs: int = 2):
+    """M's staged call ``run_s`` and packed call ``run_p`` timed in
+    ``pairs`` pairs of turns (:func:`turn_order`), each turn out of L2 (5
+    launches) and in a loop (3 rounds of 5): per input the median over
+    its turns' launches (``cold``, ``loop``) and each turn's median
+    (``cold_turns``, ``loop_turns``)."""
+    out = {"staged": {"cold": [], "loop": []},
+           "packed": {"cold": [], "loop": []}}
+    with torch.no_grad():
+        for who in turn_order(pairs):
+            fn = run_p if who == "packed" else run_s
+            out[who]["cold"].append(cold_ms(fn, 5))
+            out[who]["loop"].append(loop_ms(fn, 5, 3))
+    return {who: {**{k: statistics.median(x for turn in v for x in turn)
+                     for k, v in t.items()},
+                  **{f"{k}_turns": [statistics.median(turn) for turn in v]
+                     for k, v in t.items()}}
+            for who, t in out.items()}
+
+
+def pair_spread(path) -> dict:
+    """The in-wave reading of :func:`bigmesh_report`'s ``path`` (each
+    input's turns, in :func:`turn_order`): per input M's ms a wave (its
+    bounces summed) and the wave's ms, median, min and max over its turns;
+    of each pair of turns, packed less staged; and whether that
+    difference's median lies outside the spread of the staged turns
+    (max - min), the noise of one input against itself."""
+    out = {}
+    for what in ("m_wave_ms", "wave_ms"):
+        per = {who: ([sum(b) for b in t["m_ms"]] if what == "m_wave_ms"
+                     else t["wave_ms"]) for who, t in path.items()}
+        diff = [p - s for s, p in zip(per["staged"], per["packed"])]
+        spread = max(per["staged"]) - min(per["staged"])
+        med = statistics.median(diff)
+        out[what] = {
+            **{who: {"median": statistics.median(v), "min": min(v),
+                     "max": max(v)} for who, v in per.items()},
+            "packed_less_staged": {"median": med, "min": min(diff),
+                                   "max": max(diff)},
+            "staged_spread": spread, "resolved": abs(med) > spread}
+    return out
+
+
+def packed_work(w, staged, packed) -> dict:
+    """:func:`m_work`'s counts ``w`` of a call on the staged tables
+    ``staged`` as the packed tables ``packed`` give them (the same tests
+    and winners): the rows' assembly added to the operations, the packed
+    table's bytes in place of the compact one's."""
+    asm = w["pairs"] * staged.width * OPS_M_ASSEMBLE
+    return {**w, "assemble_ops": asm, "ops": w["ops"] + asm,
+            "bytes": w["bytes"] + 4 * (packed.tri.numel()
+                                       - staged.tri.numel())}
+
+
+def bigmesh_report(dev, save=None):
+    """The ``bigmesh`` part (the module docstring) at
+    :data:`BIGMESH_SIZES`, after the 65,536-triangle mesh workload
+    (:func:`mesh_scene`, double-sided, the cell ``chip_smoke.py`` runs) as
+    the first row."""
+    from rust_ray_tracer_tpu_torch.models.scene import combine, partition
+    out = {"sizes": [], "ops_m_assemble": OPS_M_ASSEMBLE}
+    key = rng.key(0, dev)
+    for n_tris in ("mesh",) + BIGMESH_SIZES:
+        if n_tris == "mesh":
+            t0 = time.perf_counter()
+            scene = mesh_scene(dev)
+            host_s = {"compile_s": time.perf_counter() - t0,
+                      "workload": "torch_parity.mesh"}
+        else:
+            with tempfile.TemporaryDirectory() as tmp:
+                scene, host_s = bigmesh_scene(dev, n_tris, tmp)
+            host_s["workload"] = "torch_parity.bigmesh"
+        k = scene.tri_cluster_min.shape[0]
+
+        def render(n_waves=1, scene=scene):
+            with torch.no_grad():
+                return render_waves(scene, WIDTH, HEIGHT, key, 0, n_waves,
+                                    depth=DEPTH, chunk_size=CHUNK)
+
+        render()
+        with _parity().split_recorder() as rec:
+            render()
+        torch.cuda.synchronize()
+        staged = search_ops.search_tables(scene, False)
+        packed = search_ops.search_tables(scene, True)
+        row = {"size": n_tris, "triangles": scene.n_tris, "clusters": k,
+               "double_sided": int(scene.tri_double.sum()),
+               "width": scene.n_tris // k, **host_s,
+               "gate_packed": search_ops.packed_input(scene.n_tris),
+               "packed_min_tris": search_ops.PACKED_MIN_TRIS,
+               "table_bytes": {"staged": staged.tri.numel() * 4,
+                               "packed": packed.tri.numel() * 4},
+               "bounces": []}
+        for b, (e_args, s_args) in enumerate(zip(rec["enter"],
+                                                 rec["search"])):
+            a_s = s_args[:2] + (staged,) + s_args[3:]
+            a_p = s_args[:2] + (packed,) + s_args[3:]
+            with torch.no_grad():
+                got_s = K.fused_search_kernel(*a_s)
+                got_p = K.fused_search_packed_kernel(*a_p)
+                differ = int(((got_s[0].view(torch.int32)
+                               != got_p[0].view(torch.int32))
+                              | (got_s[1] != got_p[1])
+                              | (got_s[2] != got_p[2])).sum())
+                w_s = m_work(a_s, got_s[0])
+                w_p = packed_work(w_s, staged, packed)
+            t = m_pair_times(lambda a=a_s: K.fused_search_kernel(*a),
+                             lambda a=a_p: K.fused_search_packed_kernel(*a),
+                             PAIRS)
+            row["bounces"].append({
+                "bounce": b, "lanes_differing_packed_staged": differ,
+                **{x: w_s[x] for x in ("live_rays", "live_tiles", "pairs",
+                                       "tests", "t_tests", "uv_tests",
+                                       "full_cull_tests")},
+                "k_ms": statistics.median(cold_ms(
+                    lambda a=e_args: K.tile_enter_kernel(*a), 5)),
+                "m_ms": t,
+                "bound": {"staged": {"bytes_ms": bound_ms(w_s["bytes"], 0),
+                                     "ops_ms": bound_ms(0, w_s["ops"]),
+                                     "bytes": w_s["bytes"],
+                                     "ops": w_s["ops"]},
+                          "packed": {"bytes_ms": bound_ms(w_p["bytes"], 0),
+                                     "ops_ms": bound_ms(0, w_p["ops"]),
+                                     "bytes": w_p["bytes"],
+                                     "ops": w_p["ops"],
+                                     "assemble_ops": w_p["assemble_ops"]}}})
+            if save is not None:
+                for nm, x in zip(("t", "kind", "idx"), got_p):
+                    save[f"bigmesh{n_tris}.m{b}.{nm}"] = x.cpu()
+        del rec
+        # a one-wave render under each input, in PAIRS pairs of turns: M a
+        # bounce by the profiler, the wave by CUDA events (the median of 3)
+        path = {"staged": {"m_ms": [], "k_ms": [], "wave_ms": []},
+                "packed": {"m_ms": [], "k_ms": [], "wave_ms": []}}
+        for who in turn_order(PAIRS):
+            with pack_gate(who == "packed"):
+                path[who]["m_ms"].append(device_ms_in_order(
+                    render, m_profiler_name(who == "packed")))
+                path[who]["k_ms"].append(device_ms_in_order(
+                    render, "tile_enter_kernel"))
+                path[who]["wave_ms"].append(statistics.median(
+                    loop_ms(render, 1, 3)))
+        row["in_path"] = path
+        row["in_path_pairs"] = pair_spread(path)
+        # the bench shape with the gate's input: forward and one step
+        torch.cuda.reset_peak_memory_stats(dev)
+        fwd = loop_ms(lambda: render(SPP), 1, 2)
+        row["forward"] = {
+            "ms": fwd, "peak_memory_bytes": torch.cuda.max_memory_allocated(
+                dev),
+            "mrays_per_s": WIDTH * HEIGHT * SPP * DEPTH
+            / (statistics.median(fwd) / 1e3) / 1e6}
+        params, static = partition(scene)
+
+        def step(params=params, static=static):
+            leaves = {n: v.clone().requires_grad_()
+                      for n, v in params.items()}
+            render_waves(combine(leaves, static), WIDTH, HEIGHT, key, 0,
+                         SPP, depth=DEPTH, chunk_size=CHUNK).mean().backward()
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        st = loop_ms(step, 1, 2)
+        row["step"] = {
+            "ms": st, "peak_memory_bytes": torch.cuda.max_memory_allocated(
+                dev),
+            "mrays_per_s": WIDTH * HEIGHT * SPP * DEPTH
+            / (statistics.median(st) / 1e3) / 1e6}
+        out["sizes"].append(row)
+        del scene, staged, packed, params, static
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1991,7 +2253,7 @@ def main(argv=None) -> int:
                     help="comma-separated parts: flagship, random, mesh, "
                          "tri, gltf, sph, final, earth, bwd, trace_bwd, "
                          "split_bwd, split_fwd, su_bwd, su_fwd, shade_fwd, "
-                         "hit_fwd, hit_bwd")
+                         "hit_fwd, hit_bwd, bigmesh")
     ap.add_argument("--check", action="store_true",
                     help="hold M's winners on every mesh bounce against "
                          "the plain version")
@@ -2051,6 +2313,8 @@ def main(argv=None) -> int:
         res["shade_fwd"] = shade_fwd_report(dev, save)
     if "hit_fwd" in parts or "hit_bwd" in parts:
         res["hit"] = hit_report(dev, parts, save)
+    if "bigmesh" in parts:
+        res["bigmesh"] = bigmesh_report(dev, save)
     res["sms"] = torch.cuda.get_device_properties(dev).multi_processor_count
     res["grid_blocks"] = math.ceil(WIDTH * HEIGHT / ROW)
     line = json.dumps(res)

@@ -27,7 +27,12 @@ Rows (``kind``):
     ``unfused``: the per-chunk route with ``RRT_UBER_WAVE=0`` (D) against
     it with ``RRT_NO_UBER_FUSED=1`` too (E, G);
   * ``grad_twin``, ``grad_jax``: the gradients of ``mean(render)`` over
-    every float leaf, held leaf by leaf by their relative L2.
+    every float leaf, held leaf by leaf by their relative L2;
+  * ``packed``, ``grad_packed`` (:data:`CARD_SCENES`, rows with no CPU
+    twin and no JAX render): the million-triangle mesh's image and
+    gradients with kernel M's packed input against the same with its
+    staged input (``tools/search_times.pack_gate``), bit for bit: the two
+    inputs give M the same rows.
 
 An image row reports ``bitwise``, ``maxabs``, ``flip_rate`` (the share of
 pixels whose channel-summed difference exceeds :data:`FLIP_EPS`, the JAX
@@ -47,8 +52,10 @@ only. ``--device cpu`` runs the card's side on the CPU too (the Tier-1
 test of the ``tiny`` scene).
 
 The procedural scenes (the mesh, random with the earth map in view, the
-9-light glTF flagship) come from the checkout's ``tests/torch_parity.py``,
-which imports JAX only inside its JAX builders.
+9-light glTF flagship, the big mesh, written as a u32 ``.gltf`` with an
+external ``.bin`` and read back) come from the checkout's
+``tests/torch_parity.py``, which imports JAX only inside its JAX
+builders.
 """
 
 from __future__ import annotations
@@ -112,6 +119,13 @@ SCENES = {
     "gltf9": {"twin": FULL, "jax": FULL},
     "tiny": {"twin": TINY, "jax": TINY},
 }
+# scenes whose rows hold the card against itself (no twin, no JAX render:
+# the reference file and its tests know only SCENES); run by default
+CARD_SCENES = {
+    "bigmesh": {"packed": SMALL, "grad_packed": SMALL},
+}
+ROWS = {**SCENES, **CARD_SCENES}
+BIGMESH_TRIS = 1 << 20
 
 # (scene, kind) -> budget: twice the worst value measured over seeds 0-2
 # (PERF.md, "The parity gate": the card against the CPU twin on an NVIDIA
@@ -169,6 +183,8 @@ BUDGETS = {
                        "bias": 1e-9, "maxabs": 6e-8},
     ("tiny", "jax"): {"flip_rate": 16 * PX, "rel_mean": 3.6e-8,
                       "bias": 2.4e-8, "maxabs": 7.5e-7},
+    ("bigmesh", "packed"): BIT,
+    ("bigmesh", "grad_packed"): BIT,
 }
 
 
@@ -227,7 +243,10 @@ def host_scene(name: str):
         return tp.mesh(S, cam_ops)
     if name == "gltf9":
         return load_gltf_scene("f9.gltf", aspect)
-    raise ValueError(f"unknown scene {name!r}; one of {sorted(SCENES)}")
+    if name == "bigmesh":
+        return tp.bigmesh(S, cam_ops, tp.write_bigmesh(os.getcwd(),
+                                                       BIGMESH_TRIS))
+    raise ValueError(f"unknown scene {name!r}; one of {sorted(ROWS)}")
 
 
 def fingerprint(arrays: dict) -> str:
@@ -302,6 +321,20 @@ def render(scene, shape, seed: int, compact: bool = False, env=None):
             else:
                 os.environ[k] = v
     return (img / spp).cpu().numpy()
+
+
+def input_routes(scene, shape, seed: int, fn):
+    """``fn(scene, shape, seed)`` with kernel M's packed input and with its
+    staged input (``tools/search_times.pack_gate``), and whether the
+    route's tables took each: ((packed, staged), (True, False))."""
+    from rust_ray_tracer_tpu_torch.ops.integrator import make_split_tables
+    from rust_ray_tracer_tpu_torch.tools.search_times import pack_gate
+    out, took = [], []
+    for packed in (True, False):
+        with pack_gate(packed):
+            took.append(make_split_tables(scene).search.packed)
+            out.append(fn(scene, shape, seed))
+    return out, tuple(took)
 
 
 def render_sharded(scene, shape, seed: int):
@@ -451,6 +484,14 @@ class Gate:
             ref = self._jax(name, kind, shape, scene_arrays(scene_cpu))
         elif kind in ("twin", "d2_twin", "grad_twin"):
             ref = self._twin(scene_cpu, name, kind, shape)
+        if kind in ("packed", "grad_packed"):
+            grad = kind == "grad_packed"
+            (got, ref), took = input_routes(scene, shape, self.seed,
+                                            gradients if grad else render)
+            m = grad_metrics(got, ref) if grad else image_metrics(got, ref)
+            m["inputs_packed"] = list(took)
+            m["finite"] = m["finite"] and took == (True, False)
+            return m, budget
         if kind.startswith("grad"):
             card = perturb(scene) if injected else scene
             return grad_metrics(gradients(card, shape, self.seed), ref), \
@@ -485,7 +526,7 @@ class Gate:
                           "error": repr(e)[:300]})
                     continue
                 cache = {}
-                for kind, shape in SCENES[name].items():
+                for kind, shape in ROWS[name].items():
                     t0 = time.perf_counter()
                     line = {"scene": name, "row": kind, "shape": shape,
                             "seed": self.seed, "inject": self.inject,
@@ -518,7 +559,7 @@ def emit(obj) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("scenes", nargs="*", help=f"of {sorted(SCENES)}")
+    ap.add_argument("scenes", nargs="*", help=f"of {sorted(ROWS)}")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--inject", action="store_true",
@@ -527,10 +568,10 @@ def main(argv=None) -> int:
     ap.add_argument("--twin-cache",
                     help="directory keeping the CPU twins' renders")
     args = ap.parse_args(argv)
-    names = args.scenes or [n for n in SCENES]
+    names = args.scenes or list(ROWS)
     for n in names:
-        if n not in SCENES:
-            ap.error(f"unknown scene {n!r}; one of {sorted(SCENES)}")
+        if n not in ROWS:
+            ap.error(f"unknown scene {n!r}; one of {sorted(ROWS)}")
     gate = Gate(args.device, args.seed, args.inject, args.twin_cache)
     return 0 if gate.run(names) else 1
 

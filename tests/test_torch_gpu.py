@@ -1184,6 +1184,104 @@ def test_sorted_search_kernels_match_plain_on_card(cuda, monkeypatch):
             assert torch.equal(a, b)
 
 
+def _wide_calls(monkeypatch, max_clusters):
+    """A 4,608-triangle mesh (past the trace kernel's 4,096 rows: the split
+    route) in at most ``max_clusters`` clusters (``MAX_CLUSTERS`` lowered,
+    so each cluster is several of M's 128-row stages) on the CPU, and the
+    calls of K and M over two bounces of a 32x18 wave (chunk 576), the
+    rays sorted (the sort's gate lowered too)."""
+    from rust_ray_tracer_tpu_torch.models import scene as TS
+    from rust_ray_tracer_tpu_torch.ops import camera as tcam
+    from rust_ray_tracer_tpu_torch.ops import search
+    from rust_ray_tracer_tpu_torch.ops.integrator import render_waves
+
+    monkeypatch.setattr(TS, "MAX_CLUSTERS", max_clusters)
+    monkeypatch.setattr(search, "PACKED_MIN_TRIS", 1024)
+    ts = compile_scene(mesh(TS, tcam, 4608), device="cpu")
+    with split_recorder() as rec:
+        render_waves(ts, 32, 18, rng.key(0, "cpu"), 0, 1, depth=2,
+                     chunk_size=576)
+    assert len(rec["search"]) == 2 and len(rec["search"][0]) == 5
+    return ts, rec
+
+
+def test_packed_search_wrapper_refuses_cpu_and_staged_tables(monkeypatch):
+    """M's packed wrapper takes CUDA tensors and packed tables only; each
+    variant refuses the other's tables; ``search_kernel`` picks by the
+    tables. Nothing launches."""
+    import dataclasses
+
+    from rust_ray_tracer_tpu_torch.ops import search
+
+    ts, rec = _wide_calls(monkeypatch, 9)
+    rays, ent, packed, chunk, perm = rec["search"][0]
+    staged = search.search_tables(ts, packed=False)
+    assert packed.packed and not staged.packed and packed.width == 512
+    assert K.search_kernel(staged) is fused_search_kernel
+    assert K.search_kernel(packed) is K.fused_search_packed_kernel
+    before = [k.launches for k in (fused_search_kernel,
+                                   K.fused_search_packed_kernel,
+                                   K.packed_rows_probe_kernel)]
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        K.fused_search_packed_kernel(rays, ent, packed, chunk, perm)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        K.packed_rows_probe_kernel(packed.tri)
+    meta = dataclasses.replace(packed, **{
+        k: v.to("meta") for k, v in dataclasses.asdict(packed).items()
+        if torch.is_tensor(v)})
+    with pytest.raises(ValueError, match="unsupported device"):
+        search.fused_search(rays.to("meta"), ent.to("meta"), meta, chunk)
+    assert [k.launches for k in (fused_search_kernel,
+                                 K.fused_search_packed_kernel,
+                                 K.packed_rows_probe_kernel)] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_clusters,width", [(18, 256), (9, 512),
+                                                (5, 1024), (4, 2048)])
+def test_packed_search_kernel_matches_staged_on_card(cuda, monkeypatch,
+                                                     max_clusters, width):
+    """M's packed input against its staged input and the plain version on
+    the card, on clusters of 256 to 2,048 triangles (2 to 16 of M's
+    stages a cluster; the last two with pad rows) over two sorted
+    bounces: kinds, indices and t
+    equal on every lane, one launch of each variant a call; each variant
+    refuses the other's tables. The probe's rows equal
+    ``compact_rows(_tri_coeffs(...))`` on the card and the staged table
+    bit for bit."""
+    from rust_ray_tracer_tpu_torch.ops import search
+    from rust_ray_tracer_tpu_torch.ops.intersect import _tri_coeffs
+
+    ts, rec = _wide_calls(monkeypatch, max_clusters)
+    tc = ts.to(cuda)
+    staged = search.search_tables(tc, packed=False)
+    packed = search.search_tables(tc, packed=True)
+    assert packed.width == width
+    pair = (fused_search_kernel, K.fused_search_packed_kernel)
+    for srch in rec["search"]:
+        rays, ent, _, chunk, perm = (_to(x, cuda) for x in srch)
+        before = [k.launches for k in pair]
+        gs = search.fused_search(rays, ent, staged, chunk, perm)
+        gp = search.fused_search(rays, ent, packed, chunk, perm)
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(pair, before)] == [1, 1]
+        ref = search.fused_search_plain(rays, ent, packed, chunk, perm)
+        for a, b, c in zip(gp, gs, ref):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+            assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+        assert bool((gp[1] == 1).any())
+        with pytest.raises(ValueError, match="tables"):
+            fused_search_kernel(rays, ent, packed, chunk, perm)
+        with pytest.raises(ValueError, match="tables"):
+            K.fused_search_packed_kernel(rays, ent, staged, chunk, perm)
+    rows = K.packed_rows_probe_kernel(packed.tri)
+    torch.cuda.synchronize()
+    ref = search.compact_rows(_tri_coeffs(tc.tri_v0, tc.tri_e1, tc.tri_e2),
+                              tc.tri_double)
+    assert torch.equal(rows.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(rows.view(torch.int32), staged.tri.view(torch.int32))
+
+
 @pytest.mark.gpu
 def test_bounce_planes_kernels_match_plain_on_card(cuda):
     """F and F' against their plain versions on the card, on the inputs

@@ -16,14 +16,16 @@ M (``csrc/search.cu``), against the JAX package on the CPU.
     ``test_torch_search.py``'s tie scene with ``PACKED_MIN_TRIS`` lowered
     in both packages so the sort runs at 384 triangles;
   * (c) a replay of M's sweep (:func:`replay_search`: the live rays packed
-    per tile, the compact 20-float rows summed term by term, the staged
+    per tile, the compact 20-float rows (the mesh's packed rows
+    assembled) summed term by term, the staged
     checks, the clusters front to back by K's entry, dealt to parts) held
     to ``fused_search_plain`` on every lane of (a)'s recorded bounces
     (tiles of up to 24 parts) and of two walls, one behind the other,
     where the staged t check skips the back wall's u and v dots: t, kind
     and index bit for bit;
   * (d) ``search_tables``' compact rows are exactly the columns of
-    ``_tri_coeffs`` that are not structural zeros, and the flag.
+    ``_tri_coeffs`` that are not structural zeros, and the flag; the
+    mesh's packed rows (its input at its size) assemble to them.
 """
 
 import dataclasses
@@ -177,14 +179,15 @@ def _cluster_best(tabs, cs, feats):
     """(t [G, L], index [G, L], staged t [G, width, L]): for each cluster
     of ``cs`` [G], the least (t, index) over its rows that count for the
     packed rays ``feats`` (:func:`_features`), inf where none: M's staged
-    tests on the compact rows, each dot summed over its live terms in
-    feature order. The staged t is a row's t where the face is seen and t
+    tests on the compact rows (a packed table's assembled first, as M
+    assembles them), each dot summed over its live terms in feature
+    order. The staged t is a row's t where the face is seen and t
     lies in the window (the rows whose t M compares with its best), inf
     elsewhere."""
     (ox, oy, oz, dx, dy, dz, cx, cy, cz), eps, tmin, tmax = feats
     rows = (cs[:, None] * tabs.width
             + torch.arange(tabs.width)).reshape(-1)  # ascending a cluster
-    w = tabs.tri[rows].T[:, :, None]                  # [20, G * width, 1]
+    w = search.tri_rows(tabs, rows).T[:, :, None]     # [20, G * width, 1]
     dm = w[0] * dx
     dm = dm + w[1] * dy
     dm = dm + w[2] * dz
@@ -357,7 +360,7 @@ def test_replayed_sweep_prunes_behind_a_wall():
 
 def test_compact_rows_are_the_live_columns(mesh_calls):
     ts, _ = mesh_calls
-    tabs = search.search_tables(ts)
+    tabs = search.search_tables(ts, packed=False)
     coeffs = tisect._tri_coeffs(ts.tri_v0, ts.tri_e1, ts.tri_e2)
     jco = jisect._tri_coeffs(*(jnp.asarray(getattr(ts, k).numpy())
                                for k in ("tri_v0", "tri_e1", "tri_e2")))
@@ -385,3 +388,6 @@ def test_compact_rows_are_the_live_columns(mesh_calls):
     for got, want in zip(full[:4], coeffs):
         assert torch.equal(got.view(torch.int32), want.T.view(torch.int32))
     assert dataclasses.is_dataclass(tabs) and tabs.width == 128
+    packed = search.search_tables(ts)
+    assert packed.packed and torch.equal(
+        search.tri_rows(packed).view(torch.int32), tabs.tri.view(torch.int32))

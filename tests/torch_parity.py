@@ -160,6 +160,53 @@ def flagship_tris(S, n_tris=968):
     return tris
 
 
+def flagship_tri_array(n_tris=968):
+    """[n_tris, 3, 3] float32 vertices (v0, v1, v2) of the triangles
+    :func:`flagship_tris` draws, vectorised: ``default_rng(0)`` gives each
+    triangle 9 doubles in turn (``uniform(-1, 1, 3)``, then ``uniform(-h,
+    h, (2, 3))``), each ``low + (high - low) * random()``, so one
+    ``random((n_tris, 9))`` holds the same draws in the same order and
+    the vertices are the same bit for bit."""
+    r = np.random.default_rng(0).random((n_tris, 9))
+    half = np.float32(0.1 * np.sqrt(968.0 / n_tris))
+    v0 = (-1.0 + 2.0 * r[:, 0:3]).astype(np.float32)
+    v0[:, 2] -= 4.0
+    lo = -float(half)
+    e = (lo + (float(half) - lo) * r[:, 3:9]).astype(np.float32)
+    return np.stack([v0, v0 + e[:, 0:3], v0 + e[:, 3:6]], axis=1)
+
+
+def write_bigmesh(directory, n_tris=1 << 20) -> str:
+    """Write :func:`flagship_tri_array`'s ``n_tris`` triangles into
+    ``directory`` as ``bigmesh.gltf`` with its buffer in ``bigmesh.bin``
+    beside it (u32 indices, one Lambertian 0.8 material; no camera, no
+    light), the layout of the JAX package's scaling asset
+    (``tools/bench_bigmesh.py:1-11``: an external ``.bin`` and u32
+    indices). glTF triangles are single-sided (``models/gltf.py``).
+    Returns the path of the ``.gltf``."""
+    w = GltfWriter()
+    m = w.mesh(flagship_tri_array(n_tris), w.material((0.8, 0.8, 0.8)),
+               index="u32")
+    w.node(mesh=m)
+    return w.save(os.path.join(str(directory), "bigmesh.gltf"), form="bin")
+
+
+def bigmesh(S, cam_mod, path):
+    """The big-mesh workload: the triangles of :func:`write_bigmesh`'s file
+    ``path`` read back by the port's ``load_gltf_scene`` (``S`` is
+    ``models/scene``), framed as the mesh workload frames its triangles
+    (:func:`mesh`: the flagship's camera, its sphere lamp in the world and
+    the lights, the background), as ``tools/bench_bigmesh.py:56-85``
+    frames the asset after loading it. At 1,048,576 triangles
+    ``compile_scene`` makes 512 clusters of 2,048."""
+    from rust_ray_tracer_tpu_torch.models.gltf import load_gltf_scene
+    host = load_gltf_scene(str(path), 16 / 9)
+    lamp = S.Sphere((3, 3, 0), 0.2, S.DiffuseLight.from_color((250,) * 3))
+    cam = cam_mod.make_camera(np.eye(3, 4, dtype=np.float32), 22.9, 16 / 9)
+    return S.Scene(cam, list(host.world) + [lamp], [lamp],
+                   (0.051, 0.051, 0.051))
+
+
 def mesh(S, cam_mod, n_tris=65536):
     """The mesh workload: ``n_tris`` triangles of :func:`flagship_tris`
     plus the flagship's sphere lamp, camera and background (65,536 is the
